@@ -6,7 +6,9 @@ setup(
     description="TPU-native (JAX/XLA/Pallas) Apertis LLM framework",
     long_description=open("README.md", encoding="utf-8").read(),
     long_description_content_type="text/markdown",
-    packages=find_packages(include=["apertis_llm_tpu", "apertis_llm_tpu.*"]),
+    packages=find_packages(include=["apertis_llm_tpu", "apertis_llm_tpu.*",
+                                    "apertis_llm_torch", "apertis_llm_torch.*"]),
+    package_data={"apertis_llm_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.35",
