@@ -3,7 +3,8 @@ H100.
 
 The package imports torch and never JAX or ``apertis_llm_tpu``. Its layout
 mirrors the JAX package's: ``config``, ``models/`` (``apertis``, ``params``,
-``convert``, ``factory``), ``ops/`` (norms, activations, ssm, sampling) with
+``convert``, ``factory``, ``quantize``), ``ops/`` (norms, activations, ssm,
+sampling, quant) with
 the hand-written kernels under ``ops/kernels/`` and their CUDA sources under
 ``csrc/``, and ``inference/engine.py``.
 """

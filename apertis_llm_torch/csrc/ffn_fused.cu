@@ -1,7 +1,9 @@
 // ffn_decode: the dense FFN at decode, out = act(x @ W1 + b1) @ W2 + b2.
 //
 // Replaces: apertis_llm_tpu/ops/pallas/ffn_fused.py::ffn_decode_fused with
-// the bf16 weight layout (the int8 and int4 layouts are later work).
+// the bf16 weight layout (apertis_ffn_decode) and the int8 layout
+// (apertis_ffn_decode_int8, at the end of this file); the int4 layout is
+// later work.
 //
 // Semantics (ffn_fused.py:42-99, bf16 layout): both products take bf16
 // operands and accumulate in f32; the hidden is act(x @ W1 + b1) rounded to
@@ -252,5 +254,179 @@ extern "C" int apertis_ffn_decode(const void* x, const void* w1, const void* b1,
   ffn_reduce_kernel<<<(unsigned)((n + kBlock - 1) / kBlock), kBlock, 0, s>>>(
       static_cast<const float*>(partial), static_cast<const bf16*>(b2),
       static_cast<bf16*>(out), groups, rows, d_model);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- int8 layout -------------------------------------------------------------
+//
+// Semantics (ffn_fused.py:42-99 with quant=True), per row, with the hidden
+// cut into tiles of `bn` columns (bn = _pick_block_n(I, 1216), 512 at the
+// 1.5B width; the tile width changes the result, so it is the TPU kernel's):
+//   h   = acc1_i32(x_q . W1_q) * x_s * w1_s + b1             (f32)
+//   a   = act(h)
+//   per tile t: hs_t = max(max|a_t|, 1e-8) * (1/127);  hq_t = rint(a_t / hs_t)
+//   acc = sum over t in order of acc2_i32(hq_t . W2_q[t]) * hs_t   (f32)
+//   out = bf16(acc * w2_s + b2)
+// The _rn intrinsics keep nvcc from contracting the multiplies and adds into
+// fused multiply-adds that the reference does not have.
+//
+// Bound on the H100: bytes. At decode row counts the step reads both int8
+// weight matrices (2 * 2432 * 9728 B = 47.3 MB per layer of the 1.5B model)
+// for 4 * rows integer operations per weight pair.
+//
+// Design: three launches, each spread over the whole card.
+//   1. ffn_i8_hidden_kernel, one block per (64 hidden columns, 16 rows):
+//      exact int32 GEMM1 (tile_matvec_i8, __dp4a), dequantization, bias and
+//      activation; the f32 hidden goes to an (S, I) scratch buffer.
+//   2. ffn_i8_tile_kernel, one block per (256 output columns, hidden tile,
+//      16 rows): loads its rows of one hidden tile, requantizes them per
+//      (row, tile) (every column group of the tile computes the same scales),
+//      runs the exact int32 GEMM2 over the tile for its four 64-column tiles
+//      and writes acc2 * hs_t to an f32 partial (tiles, S, D).
+//   3. ffn_i8_reduce_kernel adds the tiles' partials in tile order, which is
+//      the TPU kernel's order of accumulation, then applies w2_s and b2.
+// There are no float atomics, so a repeated call gives the same bits. Scratch
+// at 64 rows of the 1.5B model: 2.5 MB of hidden and 11.8 MB of partials.
+
+namespace {
+
+constexpr int kRowsI8 = 16;   // rows per block of the int8 launches
+constexpr int kColTiles = 4;  // 64-column tiles per block of ffn_i8_tile_kernel
+
+__global__ void __launch_bounds__(kBlock) ffn_i8_hidden_kernel(
+    const int8_t* __restrict__ xq,   // (S, D)
+    const float* __restrict__ xs,    // (S, 1)
+    const int8_t* __restrict__ w1,   // (D, I)
+    const float* __restrict__ w1s,   // (1, I)
+    const bf16* __restrict__ b1,     // (I,)
+    float* __restrict__ hidden,      // (S, I)
+    int rows, int d_model, int inter, int act) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* red = reinterpret_cast<int*>(smem_raw);                  // kWarps * kRowsI8 * kTileN
+  int* out = red + kWarps * kRowsI8 * kTileN;                   // kRowsI8 * kTileN
+  int8_t* x = reinterpret_cast<int8_t*>(out + kRowsI8 * kTileN);  // kRowsI8 * D
+  const int row0 = blockIdx.y * kRowsI8;
+  const int col0 = blockIdx.x * kTileN;
+  const int words = d_model / 4;
+  for (int i = threadIdx.x; i < kRowsI8 * words; i += kBlock) {
+    const int r = i / words;
+    const int k = i - r * words;
+    reinterpret_cast<int*>(x)[i] =
+        row0 + r < rows ? reinterpret_cast<const int*>(xq + (size_t)(row0 + r) * d_model)[k]
+                        : 0;
+  }
+  __syncthreads();
+  tile_matvec_i8<kRowsI8>(x, d_model, w1, inter, d_model, col0, inter, red, out);
+  for (int i = threadIdx.x; i < kRowsI8 * kTileN; i += kBlock) {
+    const int r = i / kTileN;
+    const int j = col0 + (i - r * kTileN);
+    if (row0 + r >= rows || j >= inter) continue;
+    const float h = __fadd_rn(__fmul_rn(__fmul_rn((float)out[i], xs[row0 + r]), w1s[j]),
+                              to_f32(b1[j]));
+    hidden[(size_t)(row0 + r) * inter + j] = activate(h, act);
+  }
+}
+
+__global__ void __launch_bounds__(kBlock) ffn_i8_tile_kernel(
+    const float* __restrict__ hidden,  // (S, I)
+    const int8_t* __restrict__ w2,     // (I, D)
+    float* __restrict__ partial,       // (tiles, S, D)
+    int rows, int d_model, int inter, int bn) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* red = reinterpret_cast<int*>(smem_raw);            // kWarps * kRowsI8 * kTileN
+  int* out = red + kWarps * kRowsI8 * kTileN;             // kRowsI8 * kTileN
+  float* hs = reinterpret_cast<float*>(out + kRowsI8 * kTileN);  // kRowsI8
+  float* hf = hs + kRowsI8;                               // kRowsI8 * bn
+  int8_t* hq = reinterpret_cast<int8_t*>(hf + kRowsI8 * bn);     // kRowsI8 * bn
+  const int tile = blockIdx.y;
+  const int k0 = tile * bn;
+  const int row0 = blockIdx.z * kRowsI8;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < kRowsI8 * bn; i += kBlock) {
+    const int r = i / bn;
+    const int k = i - r * bn;
+    hf[i] = row0 + r < rows ? hidden[(size_t)(row0 + r) * inter + k0 + k] : 0.f;
+  }
+  __syncthreads();
+  // Requantize each row's tile: hs = max(absmax, 1e-8) * (1/127), a true
+  // division by hs (ffn_fused.py:81-83). Rows past S are zeros.
+  for (int r = warp; r < kRowsI8; r += kWarps) {
+    const float* v = hf + r * bn;
+    float m = 0.f;
+    for (int k = lane; k < bn; k += 32) m = fmaxf(m, fabsf(v[k]));
+    const float s = fmaxf(warp_max(m), 1e-8f) * (1.f / 127.f);
+    for (int k = lane; k < bn; k += 32) hq[r * bn + k] = quant_level(__fdiv_rn(v[k], s));
+    if (lane == 0) hs[r] = s;
+  }
+  __syncthreads();
+  // The requantized tile serves kColTiles column tiles of the output.
+  float* dst = partial + (size_t)tile * rows * d_model;
+  for (int ct = 0; ct < kColTiles; ++ct) {
+    const int col0 = (blockIdx.x * kColTiles + ct) * kTileN;
+    if (col0 >= d_model) break;
+    tile_matvec_i8<kRowsI8>(hq, bn, w2 + (size_t)k0 * d_model, d_model, bn, col0, d_model,
+                            red, out);
+    for (int i = threadIdx.x; i < kRowsI8 * kTileN; i += kBlock) {
+      const int r = i / kTileN;
+      const int j = col0 + (i - r * kTileN);
+      if (row0 + r >= rows || j >= d_model) continue;
+      dst[(size_t)(row0 + r) * d_model + j] = __fmul_rn((float)out[i], hs[r]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kBlock) ffn_i8_reduce_kernel(
+    const float* __restrict__ partial,  // (tiles, S, D)
+    const float* __restrict__ w2s,      // (1, D)
+    const bf16* __restrict__ b2,        // (D,)
+    bf16* __restrict__ out,             // (S, D)
+    int tiles, int rows, int d_model) {
+  const size_t n = (size_t)rows * d_model;
+  const size_t i = (size_t)blockIdx.x * kBlock + threadIdx.x;
+  if (i >= n) return;
+  float acc = 0.f;
+  for (int t = 0; t < tiles; ++t) acc = __fadd_rn(acc, partial[(size_t)t * n + i]);
+  const int col = (int)(i % d_model);
+  out[i] = __float2bfloat16(__fadd_rn(__fmul_rn(acc, w2s[col]), to_f32(b2[col])));
+}
+
+}  // namespace
+
+// Whole int8 FFN for S rows: x_q (S, D) int8 with x_s (S, 1) f32, W1_q
+// (D, I) int8 with w1_s (1, I) f32, W2_q (I, D) int8 with w2_s (1, D) f32,
+// bf16 biases, bf16 output. D must be a multiple of 4 and bn a multiple of 4
+// dividing I. `hidden` (S, I) and `partial` (I / bn, S, D) are f32 scratch
+// the caller allocates. act: 1 relu, 2 silu, else exact GELU. Returns
+// cudaGetLastError().
+extern "C" int apertis_ffn_decode_int8(const void* xq, const void* xs, const void* w1q,
+                                       const void* w1s, const void* b1, const void* w2q,
+                                       const void* w2s, const void* b2, void* out,
+                                       void* hidden, void* partial, int rows, int d_model,
+                                       int inter, int bn, int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || d_model % 4 != 0 || bn <= 0 || bn % 4 != 0 || inter % bn != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = inter / bn;
+  const int row_tiles = (rows + kRowsI8 - 1) / kRowsI8;
+  const size_t mat = (size_t)(kWarps + 1) * kRowsI8 * kTileN * sizeof(int);
+  const size_t smem_hidden = mat + (size_t)kRowsI8 * d_model;
+  const size_t smem_tile = mat + kRowsI8 * sizeof(float) + (size_t)kRowsI8 * bn * 5;
+  cudaError_t err = allow_smem(ffn_i8_hidden_kernel, smem_hidden);
+  if (err == cudaSuccess) err = allow_smem(ffn_i8_tile_kernel, smem_tile);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ffn_i8_hidden_kernel<<<dim3((inter + kTileN - 1) / kTileN, row_tiles), kBlock, smem_hidden,
+                         s>>>(
+      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
+      static_cast<const int8_t*>(w1q), static_cast<const float*>(w1s),
+      static_cast<const bf16*>(b1), static_cast<float*>(hidden), rows, d_model, inter, act);
+  const int col_groups = (d_model + kColTiles * kTileN - 1) / (kColTiles * kTileN);
+  ffn_i8_tile_kernel<<<dim3(col_groups, tiles, row_tiles), kBlock, smem_tile, s>>>(
+      static_cast<const float*>(hidden), static_cast<const int8_t*>(w2q),
+      static_cast<float*>(partial), rows, d_model, inter, bn);
+  const size_t n = (size_t)rows * d_model;
+  ffn_i8_reduce_kernel<<<(unsigned)((n + kBlock - 1) / kBlock), kBlock, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<const float*>(w2s),
+      static_cast<const bf16*>(b2), static_cast<bf16*>(out), tiles, rows, d_model);
   return static_cast<int>(cudaGetLastError());
 }

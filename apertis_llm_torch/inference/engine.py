@@ -15,6 +15,10 @@ with the same ``generate`` contract (engine.py:490-582):
 
 Each loop step reads one flag back to the host (whether any row is still
 running). Capturing the step in a CUDA graph is later work.
+
+For an int8 model the engine attaches the int8 copy of the tied LM head
+(``ApertisForCausalLM.quantize_tied_head``), as the JAX engine attaches
+``quantize_tied_head`` to a quantized tree (engine.py:365-375).
 """
 
 from __future__ import annotations
@@ -59,6 +63,8 @@ class InferenceEngine:
     def __init__(self, config: ApertisConfig, model: ApertisForCausalLM):
         self.config = config
         self.model = model
+        if model.quantized and model.lm_head is None:
+            model.quantize_tied_head()
 
     @torch.inference_mode()
     def generate(

@@ -17,10 +17,21 @@ Three paths, with the JAX package's semantics:
     fused decode FFN (``ops/kernels``), whose semantics are those of the JAX
     package's fused-kernel decode path.
 
-The three hand-written kernels run on CUDA tensors; on CPU tensors their
-plain PyTorch versions run. Plain ``torch.matmul`` does the prefill
-projections, the prefill FFN and the LM head, which the JAX package leaves to
-XLA outside its kernels.
+With int8 weights (``quantized``: the four mixer projections and the two FFN
+weights are ``QuantLinear``) the model computes what the JAX package computes
+under ``APERTIS_QUANT_MATMUL=dyn``, ``APERTIS_LN_QUANT=force``,
+``APERTIS_SSM_STEP=force`` and ``APERTIS_FFN_FUSED=force``, at every row
+count: each pre-norm that feeds int8 projections is fused with their row
+quantization (``ln_quantize``), the other int8 projections quantize their
+input rows at run time (w8a8), ``dt_proj`` stays float, and the decode step
+and FFN run their int8 layouts. An attached int8 tied head
+(:meth:`ApertisForCausalLM.quantize_tied_head`) serves the logits the same
+way.
+
+The hand-written kernels run on CUDA tensors; on CPU tensors their plain
+PyTorch versions run. Plain torch (``torch.matmul``, ``torch._int_mm``) does
+the other prefill projections, the prefill FFN and the LM head, which the
+JAX package leaves to XLA outside its kernels.
 """
 
 from __future__ import annotations
@@ -31,12 +42,15 @@ import torch
 from torch import nn
 
 from apertis_llm_torch.config import ApertisConfig
-from apertis_llm_torch.models.params import check_supported
+from apertis_llm_torch.models.params import check_supported, resolve_device
+from apertis_llm_torch.models.quantize import quantize_weight
 from apertis_llm_torch.ops import ssm as ssm_ops
 from apertis_llm_torch.ops.activations import get_activation, silu
-from apertis_llm_torch.ops.kernels.ffn_fused import ffn_decode
+from apertis_llm_torch.ops.kernels.ffn_fused import ffn_decode, ffn_decode_int8
+from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize
 from apertis_llm_torch.ops.kernels.ssm_step import MixerWeights, ssm_decode_step
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
+from apertis_llm_torch.ops.quant import linear_dyn, linear_pre_q
 
 Cache = Dict[str, torch.Tensor]
 
@@ -63,6 +77,44 @@ class Linear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.w
         return y + self.b if self.b is not None else y
+
+
+class QuantLinear(nn.Module):
+    """The int8 linear: ``w_q`` int8 (in, out), ``w_s`` f32 (1, out), the
+    JAX tree's ``{w_q, w_s, b}``. ``forward`` quantizes its input rows at run
+    time (``linear_dyn``); ``pre_q`` takes rows quantized already.
+
+    On the card the product reads a transposed copy of ``w_q``, made at first
+    use and again whenever ``w_q`` changes: cuBLASLt's fast int8 kernels take
+    the weight column-major, and with the row-major (in, out) weight it falls
+    back to a far slower kernel. The decode kernels read ``w_q`` itself."""
+
+    def __init__(self, fan_in: int, fan_out: int, bias: bool, device, dtype):
+        super().__init__()
+        self.w_q = _param((fan_in, fan_out), device, torch.int8)
+        self.w_s = _param((1, fan_out), device, torch.float32)
+        self.b = _param((fan_out,), device, dtype) if bias else None
+        self._w_cols = None      # ((data_ptr, version), column-major w_q)
+
+    def _gemm_weight(self) -> torch.Tensor:
+        w = self.w_q
+        if w.device.type != "cuda":
+            return w
+        key = (w.data_ptr(), w._version)
+        if self._w_cols is None or self._w_cols[0] != key:
+            self._w_cols = (key, w.t().contiguous().t())
+        return self._w_cols[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear_dyn(x, self._gemm_weight(), self.w_s, self.b)
+
+    def pre_q(self, x_q: torch.Tensor, x_s: torch.Tensor,
+              out_dtype: torch.dtype) -> torch.Tensor:
+        return linear_pre_q(x_q, x_s, self._gemm_weight(), self.w_s, self.b, out_dtype)
+
+
+def _linear(fan_in: int, fan_out: int, bias: bool, device, dtype, quantized: bool):
+    return (QuantLinear if quantized else Linear)(fan_in, fan_out, bias, device, dtype)
 
 
 class Norm(nn.Module):
@@ -101,32 +153,40 @@ class DepthwiseConv(nn.Module):
 class SelectiveSSM(nn.Module):
     """The selective mixer with its pre-norm (``layers/attn`` in JAX)."""
 
-    def __init__(self, config: ApertisConfig, device, dtype):
+    def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
         h, c = config.hidden_size, config.ssm_d_inner
         heads, n = config.num_attention_heads, config.ssm_d_state
         r, k = config.ssm_dt_rank, config.ssm_conv_kernel
         self.heads, self.d_state, self.dt_rank, self.k = heads, n, r, k
+        self.quantized = quantized
         self.pre_norm = Norm(h, config.use_rmsnorm, config.layer_norm_eps, device, dtype)
-        self.in_proj_x = Linear(h, c, False, device, dtype)
-        self.in_proj_z = Linear(h, c, False, device, dtype)
+        self.in_proj_x = _linear(h, c, False, device, dtype, quantized)
+        self.in_proj_z = _linear(h, c, False, device, dtype, quantized)
         self.conv = DepthwiseConv(c, k, device, dtype)
-        self.x_param_proj = Linear(c, r + 2 * heads * n, False, device, dtype)
-        self.dt_proj = Linear(r, heads, True, device, dtype)
+        self.x_param_proj = _linear(c, r + 2 * heads * n, False, device, dtype, quantized)
+        self.dt_proj = Linear(r, heads, True, device, dtype)      # float in both layouts
         self.A_log = _param((heads, n), device, dtype)
         self.D = _param((c,), device, dtype)
-        self.out_proj = Linear(c, h, False, device, dtype)
+        self.out_proj = _linear(c, h, False, device, dtype, quantized)
 
-    def forward(self, x: torch.Tensor, *, seq_mask: Optional[torch.Tensor] = None,
+    def forward(self, h: torch.Tensor, *, seq_mask: Optional[torch.Tensor] = None,
                 seq_lens: Optional[torch.Tensor] = None, want_cache: bool = False):
-        """Mixer over a full pre-normed sequence x (B, L, D)
-        (``apertis.py::_ssm_full``). Returns ``(out, cache)``; with
-        ``seq_mask`` padded steps are identity transitions and the conv
-        window is gathered at ``seq_lens``."""
-        b, l, _ = x.shape
+        """Pre-norm and mixer over a full sequence h (B, L, D)
+        (``apertis.py::_layer_full``'s SSM branch and ``_ssm_full``). Returns
+        ``(out, cache)``; with ``seq_mask`` padded steps are identity
+        transitions and the conv window is gathered at ``seq_lens``."""
+        b, l, _ = h.shape
         heads, n, r, k = self.heads, self.d_state, self.dt_rank, self.k
-        x_proj = self.in_proj_x(x)                             # (B, L, C)
-        z = self.in_proj_z(x)
+        if self.quantized:
+            # One fused norm + row quantization feeds both in-projections.
+            x_q, x_s = ln_quantize(h, *self.pre_norm.weights(), self.pre_norm.eps)
+            x_proj = self.in_proj_x.pre_q(x_q, x_s, h.dtype)       # (B, L, C)
+            z = self.in_proj_z.pre_q(x_q, x_s, h.dtype)
+        else:
+            x = self.pre_norm(h)
+            x_proj = self.in_proj_x(x)
+            z = self.in_proj_z(x)
         x_act = silu(ssm_ops.depthwise_causal_conv(x_proj, self.conv.w, self.conv.b))
         raw = self.x_param_proj(x_act)
         delta = torch.nn.functional.softplus(self.dt_proj(raw[..., :r]).float())
@@ -134,7 +194,7 @@ class SelectiveSSM(nn.Module):
         y, h_last = ssm_ops.ssm_mix(
             delta, a_cont, raw[..., r:r + heads * n].reshape(b, l, heads, n),
             raw[..., r + heads * n:].reshape(b, l, heads, n),
-            seq_mask=seq_mask, out_dtype=x.dtype)
+            seq_mask=seq_mask, out_dtype=h.dtype)
         y = y + self.D * x_act
         out = self.out_proj(y * silu(z))
         if not want_cache:
@@ -148,44 +208,70 @@ class SelectiveSSM(nn.Module):
         else:
             # Rows [len, len+K-2] of the padded input are positions
             # [len-K+1, len-1]: the window ending at the last real token.
-            idx = seq_lens.long()[:, None] + torch.arange(k - 1, device=x.device)[None, :]
+            idx = seq_lens.long()[:, None] + torch.arange(k - 1, device=h.device)[None, :]
             conv_state = torch.gather(
                 pad, 1, idx[:, :, None].expand(b, k - 1, pad.shape[-1]))
         return out, {"conv": conv_state, "ssm": h_last}
 
     def mixer_weights(self) -> MixerWeights:
         norm_w, norm_b = self.pre_norm.weights()
+        if not self.quantized:
+            return MixerWeights(
+                norm_w, norm_b, self.in_proj_x.w, self.in_proj_z.w, self.conv.w,
+                self.conv.b, self.x_param_proj.w, self.dt_proj.w, self.dt_proj.b,
+                self.A_log, self.D, self.out_proj.w)
         return MixerWeights(
-            norm_w, norm_b, self.in_proj_x.w, self.in_proj_z.w, self.conv.w,
-            self.conv.b, self.x_param_proj.w, self.dt_proj.w, self.dt_proj.b,
-            self.A_log, self.D, self.out_proj.w)
+            norm_w, norm_b, self.in_proj_x.w_q, self.in_proj_z.w_q, self.conv.w,
+            self.conv.b, self.x_param_proj.w_q, self.dt_proj.w, self.dt_proj.b,
+            self.A_log, self.D, self.out_proj.w_q, self.in_proj_x.w_s,
+            self.in_proj_z.w_s, self.x_param_proj.w_s, self.out_proj.w_s)
 
 
 class DenseFFN(nn.Module):
     """Pre-normed dense FFN ``act(x @ w1 + b1) @ w2 + b2`` (``layers/ffn``)."""
 
-    def __init__(self, config: ApertisConfig, device, dtype):
+    def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
         h, inter = config.hidden_size, config.intermediate_size
         self.hidden_act = config.hidden_act
+        self.quantized = quantized
         self.pre_norm = Norm(h, config.use_rmsnorm, config.layer_norm_eps, device, dtype)
-        self.w1 = Linear(h, inter, True, device, dtype)
-        self.w2 = Linear(inter, h, True, device, dtype)
+        self.w1 = _linear(h, inter, True, device, dtype, quantized)
+        self.w2 = _linear(inter, h, True, device, dtype, quantized)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w2(get_activation(self.hidden_act)(self.w1(x)))
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        """Pre-norm and FFN over full sequences (``apertis.py::_ffn``)."""
+        act = get_activation(self.hidden_act)
+        if self.quantized:
+            x_q, x_s = ln_quantize(h, *self.pre_norm.weights(), self.pre_norm.eps)
+            return self.w2(act(self.w1.pre_q(x_q, x_s, h.dtype)))
+        return self.w2(act(self.w1(self.pre_norm(h))))
 
-    def decode(self, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
-        """The fused decode FFN on (S, D) rows (``ops/kernels/ffn_fused.py``)."""
+    def decode(self, ffn_in: Tuple[torch.Tensor, ...], out_dtype: torch.dtype) -> torch.Tensor:
+        """The fused decode FFN on (S, D) rows (``ops/kernels/ffn_fused.py``):
+        ``ffn_in`` is the decode step's FFN input, ``(normed,)`` in the float
+        layout and ``(x_q, x_s)`` in the int8 one."""
+        if self.quantized:
+            x_q, x_s = ffn_in
+            return ffn_decode_int8(x_q, x_s, self.w1.w_q, self.w1.w_s, self.w1.b,
+                                   self.w2.w_q, self.w2.w_s, self.w2.b, self.hidden_act,
+                                   out_dtype)
+        (x,) = ffn_in
         return ffn_decode(x, self.w1.w, self.w1.b, self.w2.w, self.w2.b,
                           self.hidden_act, out_dtype)
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, config: ApertisConfig, device, dtype):
+    def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
-        self.attn = SelectiveSSM(config, device, dtype)
-        self.ffn = DenseFFN(config, device, dtype)
+        self.attn = SelectiveSSM(config, device, dtype, quantized)
+        self.ffn = DenseFFN(config, device, dtype, quantized)
+
+    def forward(self, h: torch.Tensor, **mixer_kw):
+        """One layer over full sequences: ``(h + mixer + FFN, cache)``."""
+        out, cache = self.attn(h, **mixer_kw)
+        h = h + out
+        return h + self.ffn(h), cache
 
 
 class Embedding(nn.Module):
@@ -196,24 +282,46 @@ class Embedding(nn.Module):
 
 class ApertisForCausalLM(nn.Module):
     """The selective-SSM Apertis LM in eval mode. Parameters are allocated
-    uninitialised; ``models/convert.py::from_jax_params`` fills them."""
+    uninitialised; ``models/convert.py::from_jax_params`` fills them. The
+    model is built on the card unless ``device`` names another. With
+    ``quantized`` the six big projections are int8 (:class:`QuantLinear`);
+    ``int8_head`` allocates the int8 tied head ``lm_head``."""
 
-    def __init__(self, config: ApertisConfig, device="cpu",
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, config: ApertisConfig, device="cuda",
+                 dtype: torch.dtype = torch.float32, quantized: bool = False,
+                 int8_head: bool = False):
         super().__init__()
-        check_supported(config)
+        check_supported(config, quantized)
+        device = resolve_device(device)
         self.config = config
+        self.quantized = quantized
         self.embed = Embedding(config.vocab_size, config.hidden_size, device, dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(config, device, dtype) for _ in range(config.num_hidden_layers))
+            DecoderLayer(config, device, dtype, quantized)
+            for _ in range(config.num_hidden_layers))
         self.final_norm = Norm(config.hidden_size, config.use_rmsnorm,
                                config.layer_norm_eps, device, dtype)
+        self.lm_head = (QuantLinear(config.hidden_size, config.vocab_size, False, device,
+                                    dtype) if int8_head else None)
 
     @property
     def device(self) -> torch.device:
         return self.embed.tok.device
 
+    @torch.no_grad()
+    def quantize_tied_head(self) -> None:
+        """Attach ``lm_head``, an int8 copy of the tied head (``models/
+        quantize.py::quantize_tied_head``); the float table stays for the
+        embedding lookups."""
+        tok = self.embed.tok
+        q, s = quantize_weight(tok.T)
+        self.lm_head = QuantLinear(tok.shape[1], tok.shape[0], False, tok.device, tok.dtype)
+        self.lm_head.w_q.copy_(q)
+        self.lm_head.w_s.copy_(s)
+
     def _lm_head(self, h: torch.Tensor) -> torch.Tensor:
+        if self.lm_head is not None:
+            return self.lm_head(h)
         return h @ self.embed.tok.T     # tied
 
     def forward(self, input_ids: torch.Tensor,
@@ -224,9 +332,7 @@ class ApertisForCausalLM(nn.Module):
         del attention_mask
         h = self.embed.tok[input_ids]
         for layer in self.layers:
-            out, _ = layer.attn(layer.attn.pre_norm(h))
-            h = h + out
-            h = h + layer.ffn(layer.ffn.pre_norm(h))
+            h, _ = layer(h)
         return self._lm_head(self.final_norm(h))
 
     def init_cache(self, batch_size: int) -> Cache:
@@ -256,10 +362,8 @@ class ApertisForCausalLM(nn.Module):
         seq_lens = attention_mask.to(torch.int64).sum(dim=1)
         h = self.embed.tok[input_ids]
         for i, layer in enumerate(self.layers):
-            out, layer_cache = layer.attn(layer.attn.pre_norm(h), seq_mask=attention_mask,
-                                          seq_lens=seq_lens, want_cache=True)
-            h = h + out
-            h = h + layer.ffn(layer.ffn.pre_norm(h))
+            h, layer_cache = layer(h, seq_mask=attention_mask, seq_lens=seq_lens,
+                                   want_cache=True)
             cache["conv"][i].copy_(layer_cache["conv"])
             cache["ssm"][i].copy_(layer_cache["ssm"])
         h = self.final_norm(h)
@@ -272,17 +376,19 @@ class ApertisForCausalLM(nn.Module):
                     ) -> Tuple[torch.Tensor, Cache]:
         """One autoregressive step for tokens (B,): returns logits (B, V) and
         ``cache``, updated in place. Each layer is one fused mixer step that
-        also emits the FFN's normed input, then the fused decode FFN."""
+        also emits the FFN's input (normed, or normed and quantized), then
+        the fused decode FFN."""
         eps = self.config.layer_norm_eps
         h = self.embed.tok[token_ids]                              # (B, D)
         b = h.shape[0]
         for i, layer in enumerate(self.layers):
             conv = cache["conv"][i]
             ssm = cache["ssm"][i].view(b, -1)          # updated in place
-            h2, xp_new, _, ffn_in = ssm_decode_step(
+            outs = ssm_decode_step(
                 h, conv, ssm, layer.attn.mixer_weights(), eps,
                 ffn_norm=layer.ffn.pre_norm.weights(), ssm_out=ssm)
+            h2, xp_new = outs[0], outs[1]
             if conv.shape[1] > 0:
                 conv.copy_(torch.cat([conv[:, 1:], xp_new[:, None, :]], dim=1))
-            h = h2 + layer.ffn.decode(ffn_in, h2.dtype)
+            h = h2 + layer.ffn.decode(outs[3:], h2.dtype)
         return self._lm_head(self.final_norm(h)), cache

@@ -7,6 +7,11 @@ every other leaf keeps its path with dots. Leaves may be numpy arrays (for
 example a JAX tree passed through ``np.asarray``) or torch tensors (the tree
 ``models/params.py::init_params`` builds). This is how the tests make both
 packages compute with one set of weights.
+
+A tree from ``quantize_params`` (either package's) builds the int8 model:
+``{w_q, w_s}`` leaves become :class:`QuantLinear` parameters of the same
+names, taken as they are, and an ``lm_head`` from ``quantize_tied_head``
+becomes the model's int8 head.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 
 from apertis_llm_torch.config import ApertisConfig
 from apertis_llm_torch.models.apertis import ApertisForCausalLM
+from apertis_llm_torch.models.params import quantized_layout
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -29,12 +35,17 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]
             yield path, value
 
 
-def from_jax_params(tree: Dict[str, Any], config: ApertisConfig, device="cpu",
+def from_jax_params(tree: Dict[str, Any], config: ApertisConfig, device="cuda",
                     dtype: torch.dtype = torch.float32) -> ApertisForCausalLM:
-    """Build the model on ``device`` in ``dtype`` and copy every leaf of
-    ``tree`` into it, unstacking the leading layer axis. Raises if the tree
-    and the model do not have the same names and shapes."""
-    model = ApertisForCausalLM(config, device=device, dtype=dtype)
+    """Build the model on ``device`` (the card unless the caller names
+    another) in ``dtype`` and copy every leaf of ``tree`` into it, unstacking
+    the leading layer axis; int8 weights and their f32 scales keep their
+    dtypes. Raises if the tree and the model do not have the same names and
+    shapes, and ``NotImplementedError`` for a tree whose projections are part
+    int8 and part float."""
+    model = ApertisForCausalLM(config, device=device, dtype=dtype,
+                               quantized=quantized_layout(tree),
+                               int8_head="lm_head" in tree)
     targets = dict(model.named_parameters())
     seen = set()
     for path, leaf in _flatten(tree):

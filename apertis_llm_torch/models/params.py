@@ -24,11 +24,44 @@ from apertis_llm_torch.config import ApertisConfig
 Params = Dict[str, Any]
 
 
-def check_supported(config: ApertisConfig) -> None:
+# The projections that are either all int8 or all float in a tree the port
+# serves: (sublayer, name) under ``layers``.
+_QUANT_PROJECTIONS = (("attn", "in_proj_x"), ("attn", "in_proj_z"), ("attn", "x_param_proj"),
+                     ("attn", "out_proj"), ("ffn", "w1"), ("ffn", "w2"))
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds on: the card unless the caller names
+    another. With no CUDA device it raises instead of building on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: pass device='cpu' to build "
+                           "on the CPU, where the kernels' plain versions run")
+    return dev
+
+
+def quantized_layout(params: Params) -> bool:
+    """True when the six big projections of ``params["layers"]`` are int8
+    (``{w_q, w_s}``), False when they are all float (``{w}``). A mixed tree
+    raises ``NotImplementedError``: the JAX package serves one quietly through
+    its unfused path, which the port does not have."""
+    kinds = {}
+    for sub, name in _QUANT_PROJECTIONS:
+        leaf = params.get("layers", {}).get(sub, {}).get(name, {})
+        kinds[f"{sub}.{name}"] = "int8" if "w_q" in leaf else "float" if "w" in leaf else None
+    if len(set(kinds.values())) != 1 or None in kinds.values():
+        raise NotImplementedError(
+            "the port serves trees whose projections are all int8 or all float; "
+            f"got {kinds} (quantize with a min_size that takes all six)")
+    return kinds["attn.in_proj_x"] == "int8"
+
+
+def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
     """Raise unless ``config`` is the variant ported so far: the text-only
     selective-SSM decoder with a dense FFN, rotary (unused) positions and a
-    tied LM head. The MHA, MoE, SwiGLU, multimodal and absolute-position
-    variants are later slices of the port (ROADMAP.md)."""
+    tied LM head, in bf16/f32 or with int8 projections. The MHA, MoE,
+    SwiGLU, multimodal and absolute-position variants and int4 weights are
+    later slices of the port (ROADMAP.md)."""
     missing = []
     if config.attention_type != "selective_ssm":
         missing.append(f"attention_type={config.attention_type!r}")
@@ -42,6 +75,9 @@ def check_supported(config: ApertisConfig) -> None:
         missing.append("absolute position embeddings")
     if not config.tie_word_embeddings:
         missing.append("an untied LM head")
+    if quantized and (config.hidden_size % 128 or config.intermediate_size % 128):
+        # The JAX package's fused int8 decode FFN tiles both by 128.
+        missing.append("int8 weights with hidden or intermediate size not a multiple of 128")
     if missing:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + ", ".join(missing) + " (see ROADMAP.md)")
@@ -77,11 +113,12 @@ class _Init:
 
 
 def init_params(config: ApertisConfig, generator: torch.Generator,
-                device="cpu", dtype: torch.dtype = torch.float32) -> Params:
+                device="cuda", dtype: torch.dtype = torch.float32) -> Params:
     """Initialise the model variant this package serves (see
-    :func:`check_supported`); other variants raise ``NotImplementedError``."""
+    :func:`check_supported`); other variants raise ``NotImplementedError``.
+    The tree is built on the card unless ``device`` names another."""
     check_supported(config)
-    init = _Init(generator, device, dtype)
+    init = _Init(generator, resolve_device(device), dtype)
     nl = (config.num_hidden_layers,)
     h, std = config.hidden_size, config.initializer_range
     c, heads, n = config.ssm_d_inner, config.num_attention_heads, config.ssm_d_state

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 The kernels are plain CUDA C++ with a C interface (``csrc/*.cu``). At first
-use they are compiled in one ``nvcc`` call for ``sm_90a`` into a shared
-library under ``apertis_llm_torch/_build/``, named by a hash of the sources
-and flags, so a changed source rebuilds and an unchanged one loads at once.
+use each source is compiled for ``sm_90a`` by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library under
+``apertis_llm_torch/_build/``, named by a hash of the sources and flags, so a
+changed source rebuilds and an unchanged one loads at once.
 The library is loaded with ``ctypes``: every pointer and the stream are
 ``c_void_p`` and every entry point returns ``cudaGetLastError()``.
 
@@ -24,10 +25,12 @@ from pathlib import Path
 PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT / "_build"
-SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu")
+SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu")
 HEADERS = ("common.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
+# int8 quantizations rely on.
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,8 +41,15 @@ SIGNATURES = {
     "apertis_selective_scan_fwd": [_P] * 7 + [_I] * 6 + [_P],
     # 17 inputs, 4 outputs, 4 scratch, B, D, C, K, R, H, N, rms, eps, stream
     "apertis_ssm_decode_step": [_P] * 25 + [_I] * 8 + [_F, _P],
+    # 21 inputs, 5 outputs, 4 scratch, B, D, C, K, R, H, N, rms, eps, stream
+    "apertis_ssm_decode_step_int8": [_P] * 30 + [_I] * 8 + [_F, _P],
     # x, w1, b1, w2, b2, out, partial, S, D, I, chunks_per_part, act, stream
     "apertis_ffn_decode": [_P] * 7 + [_I] * 5 + [_P],
+    # x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2, out, hidden, partial, S, D, I,
+    # bn, act, stream
+    "apertis_ffn_decode_int8": [_P] * 11 + [_I] * 5 + [_P],
+    # x, w, b, q, scale, rows, H, rms, eps, stream
+    "apertis_ln_quantize": [_P] * 5 + [_I] * 3 + [_F, _P],
 }
 
 
@@ -62,21 +72,33 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels if this source hash has not been built yet; return
-    the library's path. The compiler's output (with ``-Xptxas -v``: registers,
+    the library's path. The compilers' output (with ``-Xptxas -v``: registers,
     shared memory and spills per kernel) is kept beside it as ``.log``."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    path.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, path)   # atomic: concurrent builders never see a partial file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, src + ".o") for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs, failed = [], []
+        for src, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {src}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+        tmp = os.path.join(work, "lib.so")
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True, check=False)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        path.with_suffix(".log").write_text("\n".join(logs))
+        os.replace(tmp, path)   # atomic: a concurrent build never sees a partial file
     return path
 
 

@@ -6,7 +6,9 @@ slices of a group across a thread-block cluster, then a small reduce of the
 group partials) for CUDA tensors and runs :func:`ffn_decode_reference`, its
 plain PyTorch version, for CPU tensors. It replaces
 ``apertis_llm_tpu/ops/pallas/ffn_fused.py::ffn_decode_fused`` with the bf16
-weight layout.
+weight layout, and with the int8 layout through :func:`ffn_decode_int8`
+(three launches: the int8 GEMM1 with its epilogue, the per-tile
+requantization and int8 GEMM2, and a fixed-order reduce).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from apertis_llm_torch.ops.activations import get_activation
 from apertis_llm_torch.ops.kernels import _build
+from apertis_llm_torch.ops.quant import int_mm
 
 _SLICE = 128       # I columns per block and output columns per chunk (csrc)
 _CLUSTER = 8       # I slices per group, one thread-block cluster (csrc)
@@ -40,6 +43,50 @@ def ffn_decode_reference(
     hid = act(x.to(w1.dtype).float() @ w1.float() + b1.float()).to(w2.dtype)
     out = hid.float() @ w2.float() + b2.float()
     return out.to(out_dtype or x.dtype)
+
+
+def pick_block_n(inter: int) -> int:
+    """Hidden tile width of the int8 layout: the largest multiple of 128
+    dividing ``inter`` that is at most 1216 (``ffn_fused.py::_pick_block_n``
+    at the TPU kernel's default target); 0 when there is none."""
+    bn = (min(1216, inter) // 128) * 128
+    while bn >= 128:
+        if inter % bn == 0:
+            return bn
+        bn -= 128
+    return 0
+
+
+def ffn_decode_int8_reference(
+    x_q: torch.Tensor,   # (S, D) int8
+    x_s: torch.Tensor,   # (S, 1) f32
+    w1_q: torch.Tensor,  # (D, I) int8
+    w1_s: torch.Tensor,  # (1, I) f32
+    b1: torch.Tensor,    # (I,)
+    w2_q: torch.Tensor,  # (I, D) int8
+    w2_s: torch.Tensor,  # (1, D) f32
+    b2: torch.Tensor,    # (D,)
+    hidden_act: str = "gelu",
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The int8 layout of the TPU kernel, step by step (ffn_fused.py:42-99):
+    ``h = act(int32(x_q @ W1_q) * x_s * w1_s + b1)``; per (row, hidden tile
+    of ``pick_block_n(I)`` columns, as the kernel has it)
+    ``hs = max(absmax, 1e-8) * (1/127)`` and ``hq = rint(h / hs)``;
+    ``acc += int32(hq @ W2_q[tile]) * hs`` over the tiles in order;
+    ``out = acc * w2_s + b2``."""
+    bn = pick_block_n(w1_q.shape[1])
+    if bn == 0:
+        raise ValueError(f"ffn_decode_int8: I={w1_q.shape[1]} has no 128-multiple tile")
+    act = get_activation(hidden_act)
+    h = act(int_mm(x_q, w1_q).float() * x_s * w1_s.reshape(1, -1) + b1.float())
+    acc = torch.zeros((x_q.shape[0], w2_q.shape[1]), dtype=torch.float32, device=x_q.device)
+    for t0 in range(0, h.shape[1], bn):
+        ht = h[:, t0:t0 + bn]
+        hs = torch.clamp(ht.abs().amax(dim=1, keepdim=True), min=1e-8) * (1.0 / 127.0)
+        hq = torch.clamp(torch.round(ht / hs), -127, 127).to(torch.int8)
+        acc = acc + int_mm(hq, w2_q[t0:t0 + bn]).float() * hs
+    return (acc * w2_s.reshape(1, -1) + b2.float()).to(out_dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,4 +148,56 @@ def ffn_decode(
     return out
 
 
+def ffn_decode_int8(
+    x_q: torch.Tensor,
+    x_s: torch.Tensor,
+    w1_q: torch.Tensor,
+    w1_s: torch.Tensor,
+    b1: torch.Tensor,
+    w2_q: torch.Tensor,
+    w2_s: torch.Tensor,
+    b2: torch.Tensor,
+    hidden_act: str = "gelu",
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The int8 decode FFN: kernel on CUDA tensors, plain version on CPU ones.
+
+    The kernel takes contiguous int8 ``x_q`` (S, D) and weights, f32 scales
+    ``x_s`` (S, 1), ``w1_s`` (1, I), ``w2_s`` (1, D), bf16 biases, D a
+    multiple of 4 and I a multiple of 128, and returns bf16.
+    """
+    if x_q.device.type == "cpu":
+        return ffn_decode_int8_reference(x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2,
+                                         hidden_act, out_dtype)
+    s, d = x_q.shape
+    inter = w1_q.shape[1]
+    dev = x_q.device
+    i8, f32, bf16 = (torch.int8,), (torch.float32,), (torch.bfloat16,)
+    _build.check_tensor(x_q, (s, d), i8, "x_q", dev)
+    _build.check_tensor(x_s, (s, 1), f32, "x_s", dev)
+    _build.check_tensor(w1_q, (d, inter), i8, "w1_q", dev)
+    _build.check_tensor(w1_s, (1, inter), f32, "w1_s", dev)
+    _build.check_tensor(b1, (inter,), bf16, "b1", dev)
+    _build.check_tensor(w2_q, (inter, d), i8, "w2_q", dev)
+    _build.check_tensor(w2_s, (1, d), f32, "w2_s", dev)
+    _build.check_tensor(b2, (d,), bf16, "b2", dev)
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"ffn_decode_int8: out_dtype {out_dtype} not supported")
+    bn = pick_block_n(inter)
+    if s == 0 or d == 0 or d % 4 or bn == 0:
+        raise ValueError(f"ffn_decode_int8: unsupported shape S={s} D={d} I={inter}")
+    hidden = torch.empty((s, inter), dtype=torch.float32, device=dev)
+    partial = torch.empty((inter // bn, s, d), dtype=torch.float32, device=dev)
+    out = torch.empty((s, d), dtype=torch.bfloat16, device=dev)
+    err = _build.load_library().apertis_ffn_decode_int8(
+        x_q.data_ptr(), x_s.data_ptr(), w1_q.data_ptr(), w1_s.data_ptr(), b1.data_ptr(),
+        w2_q.data_ptr(), w2_s.data_ptr(), b2.data_ptr(), out.data_ptr(), hidden.data_ptr(),
+        partial.data_ptr(), s, d, inter, bn, _ACT_CODES.get(hidden_act, 0),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ffn_decode_int8")
+    ffn_decode_int8.launches += 1
+    return out
+
+
 ffn_decode.launches = 0
+ffn_decode_int8.launches = 0

@@ -1,0 +1,70 @@
+"""Int8 matmul arithmetic outside the kernels (``quant_matmul.py`` semantics).
+
+The JAX package leaves these to XLA: per-row activation quantization and the
+dynamic w8a8 product with per-output-channel weight scales. The int8 x int8
+-> int32 product is ``torch._int_mm`` (cuBLASLt on the card), as JAX leaves
+it to XLA's ``dot_general``; the result is exact integer arithmetic.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def divide(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` rounded once, as JAX divides. A Python scalar divisor
+    makes PyTorch's CUDA kernel multiply by its reciprocal instead, which can
+    differ in the last bit, so the divisor is a tensor on ``x``'s device."""
+    return x / torch.tensor(value, dtype=x.dtype, device=x.device)
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 (M, K) x int8 (K, N) -> int32 (M, N); ``b`` may be
+    row-major or column-major. On the card ``torch._int_mm`` needs K and N
+    multiples of 8 and more than 16 rows, and cuBLASLt refuses some row
+    counts that are not multiples of 32 when K is small: the rows are padded
+    with zeros to a multiple of 32 and cut off again."""
+    a = a.contiguous()
+    if not (b.is_contiguous() or b.t().is_contiguous()):
+        b = b.contiguous()
+    m = a.shape[0]
+    if a.device.type != "cuda" or m % 32 == 0:
+        return torch._int_mm(a, b)
+    rows = -(-m // 32) * 32
+    padded = torch.zeros((rows, a.shape[1]), dtype=torch.int8, device=a.device)
+    padded[:m] = a
+    return torch._int_mm(padded, b)[:m]
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8, ``x ~= x_q * x_s`` with (..., 1) f32 scales
+    ``max(absmax, 1e-8) / 127`` and ``x_q = rint(x / x_s)``
+    (``quant_matmul.py::quantize_rows``)."""
+    xf = x.float()
+    scale = divide(torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8), 127.0)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def linear_pre_q(x_q: torch.Tensor, x_s: torch.Tensor, w_q: torch.Tensor,
+                 w_s: torch.Tensor, b: Optional[torch.Tensor],
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """int8 product with pre-quantized activations (``apertis.py::
+    _linear_pre_q``): ``int32(x_q @ w_q) * x_s * w_s`` in f32, cast to
+    ``out_dtype``, then ``+ b``."""
+    lead = x_q.shape[:-1]
+    acc = int_mm(x_q.reshape(-1, x_q.shape[-1]), w_q)
+    y = (acc.float() * x_s.reshape(-1, 1).float()
+         * w_s.reshape(1, -1).float()).to(out_dtype)
+    y = y.reshape(*lead, w_q.shape[-1])
+    return y + b if b is not None else y
+
+
+def linear_dyn(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+               b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dynamic w8a8 linear (``quant_matmul_dyn_xla`` then ``+ b``): rows of
+    ``x`` quantized at run time, result in ``x.dtype``."""
+    x_q, x_s = quantize_rows(x)
+    return linear_pre_q(x_q, x_s, w_q, w_s, b, x.dtype)

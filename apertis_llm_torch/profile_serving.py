@@ -1,0 +1,116 @@
+"""Where the time of serving goes: ``torch.profiler`` over prefill and decode.
+
+    python -m apertis_llm_torch.profile_serving [--layers N]
+
+Builds the 1.5B selective-SSM model on the card from a seeded generator
+(``chip_smoke.py``'s configuration, random weights), in bf16 and with int8
+weights (``quantize_params`` on the card, the int8 tied head attached), and
+for each traces one prefill of 64 prompts x 32 tokens and of 4 x 64 tokens
+(the smoke's requests B and A, bucketed as ``InferenceEngine`` buckets them)
+and five decode steps at 64 and at 4 rows, after a warm-up. For each phase it
+prints the host wall time per call, the device time per call (the sum of the
+CUDA kernels' times, each kernel counted once), the device's idle share
+(1 - device / wall) and the kernels that take the most device time, with the
+card's name and power limit. It needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+import torch
+
+
+def _card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    return out.splitlines()[0].strip()
+
+
+def _device_us(prof) -> dict:
+    """Device microseconds by kernel name: the profiler's CUDA kernel events
+    only, so a kernel is counted once and not again under its aten op."""
+    totals = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            totals[ev.name] = totals.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    return totals
+
+
+def _trace(label, fn, calls, card, top=8):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / calls * 1e3
+    by_kernel = _device_us(prof)
+    device = sum(by_kernel.values()) / calls / 1e3
+    print(f"{label}: wall {wall:.3f} ms, device {device:.3f} ms per call, idle share "
+          f"{1 - device / wall:.2f}, {len(by_kernel)} kernels; card: {card}", flush=True)
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {us / calls:9.1f} us  {name[:110]}", flush=True)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--layers", type=int, default=None,
+                        help="cut the depth (default: the preset's 20 layers)")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_serving: no CUDA device", file=sys.stderr)
+        return 1
+    from apertis_llm_torch.config import ApertisConfig
+    from apertis_llm_torch.inference.engine import InferenceEngine
+    from apertis_llm_torch.models.convert import from_jax_params
+    from apertis_llm_torch.models.factory import calculate_model_dimensions
+    from apertis_llm_torch.models.params import init_params
+    from apertis_llm_torch.models.quantize import quantize_params
+
+    dev = torch.device("cuda", 0)
+    card = _card()
+    dims = calculate_model_dimensions("1.5B", 32000)
+    config = ApertisConfig(
+        vocab_size=32000, attention_type="selective_ssm", ssm_d_state=16,
+        hidden_size=dims["hidden_size"],
+        num_hidden_layers=args.layers or dims["num_hidden_layers"],
+        num_attention_heads=dims["num_attention_heads"],
+        intermediate_size=dims["intermediate_size"], hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, max_position_embeddings=4096,
+        dtype="bfloat16", param_dtype="bfloat16")
+    tree = init_params(config, torch.Generator(device=dev).manual_seed(0), device=dev,
+                       dtype=torch.bfloat16)
+    models = {"bf16": from_jax_params(tree, config, device=dev, dtype=torch.bfloat16),
+              "int8": from_jax_params(quantize_params(tree), config, device=dev,
+                                      dtype=torch.bfloat16)}
+    del tree
+    gen = torch.Generator(device=dev).manual_seed(1)
+    print(f"card: {card}; {config.num_hidden_layers} layers", flush=True)
+    for kind, model in models.items():
+        InferenceEngine(config, model)          # attaches the int8 head
+        for rows, length in ((64, 32), (4, 64)):
+            ids = torch.randint(4, config.vocab_size, (rows, length), generator=gen,
+                                device=dev)
+            mask = torch.ones((rows, length), dtype=torch.int32, device=dev)
+            last = torch.full((rows,), length - 1, device=dev)
+            _trace(f"{kind} prefill {rows} x {length}",
+                   lambda: model.prefill(model.init_cache(rows), ids, mask,
+                                         logit_positions=last), 3, card)
+            cache = model.init_cache(rows)
+            model.prefill(cache, ids, mask, logit_positions=last)
+            tok = ids[:, -1]
+            _trace(f"{kind} decode step, {rows} rows",
+                   lambda: model.decode_step(cache, tok), 5, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,24 +6,28 @@
 Phases, each of which raises (and so exits non-zero) on failure:
   1. identify the card and the toolchain (nvidia-smi, torch, CUDA, nvcc,
      Triton);
-  2. build the port's CUDA kernels from ``apertis_llm_torch/csrc`` with nvcc;
-  3. build the 1.5B text-only selective-SSM model in bf16 on the card from a
-     seeded generator, with seeded noise on every norm weight and bias, FFN
-     bias and skip weight D (their init values 1 and 0 would hide a kernel
-     that dropped them); show that the kernel checks can see each of those
-     terms (the plain version without it differs by more than the
-     tolerance); then hold each kernel against its plain PyTorch version on
-     the card, at the shapes the requests below give it, at a ragged size
+  2. build the port's CUDA kernels from ``apertis_llm_torch/csrc`` with nvcc
+     (one process per source, all started together);
+  3. build the 1.5B text-only selective-SSM model on the card from a seeded
+     generator, with seeded noise on every norm weight and bias, FFN bias and
+     skip weight D (their init values 1 and 0 would hide a kernel that
+     dropped them): in bf16, and with int8 weights from ``quantize_params``
+     run on the card. Show that the kernel checks can see each of those terms
+     and each int8 scale (the plain version without it differs by more than
+     the tolerance); then hold each kernel against its plain PyTorch version
+     on the card, at the shapes the requests below give it, at a ragged size
      and in every variant its wrapper accepts (RMSNorm, ffn_mode "none", f32
-     scan operands, ReLU and SiLU), and time both with CUDA events;
-  4. serve two batches through ``InferenceEngine.generate`` (4 ragged prompts
-     of 7/19/32/45 tokens, greedy, 24 new tokens, one EOS id; 64 prompts of 32
-     tokens, greedy, 64 new tokens), with every kernel's launch counter set
-     to 0 just before and checked just after (layers x calls), tokens in
-     range and each request repeated with the same tokens; then TTFT and
-     decode tokens per second per batch;
+     scan operands, ReLU and SiLU, several hidden tiles), and time both with
+     CUDA events beside the kernel's bound;
+  4. serve two batches through ``InferenceEngine.generate`` with the bf16
+     model and then with the int8 model (4 ragged prompts of 7/19/32/45
+     tokens, greedy, 24 new tokens, one EOS id; 64 prompts of 32 tokens,
+     greedy, 64 new tokens), with every kernel's launch counter set to 0 just
+     before each model's requests and checked just after (layers x calls),
+     tokens in range and each request repeated with the same tokens; then
+     TTFT and decode tokens per second per batch;
   5. check a 2-layer model on the card against the same weights on the CPU
-     (plain versions), and that the 1.5B logits are finite.
+     (plain versions), bf16 and int8, and that the 1.5B logits are finite.
 Before the last line it prints the kernels' JSON summary and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -44,7 +48,13 @@ SEED = 0
 BF16_ULP = 2.0 ** -7      # one bf16 ulp relative to the largest value
 F32_TOL = 1e-3            # f32 outputs computed from bf16-rounded operands
 SCAN_F32_TOL = 1e-4       # f32 carry; op fusion differs per step
+SCALE_TOL = 1e-6          # int8 row scales of ln_quantize (same formula, f32)
+INT8_MAX_DQ = 1           # int8 outputs: a level may flip by one ...
+INT8_FLIP_SHARE = 1e-3    # ... for under this share of the elements
 NOISE_STD = 0.1           # seeded noise on norms, biases and D
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def log(*args):
@@ -74,33 +84,67 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes, ops, kind):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate for their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def compare(name, got, ref, rel_tol):
     """Max abs error of got vs ref (in f32); raise past rel_tol * max|ref|."""
     got, ref = got.float(), ref.float()
     if got.shape != ref.shape:
         raise RuntimeError(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
     err = float((got - ref).abs().max())
-    bound = rel_tol * float(ref.abs().max())
-    ok = bool(torch.isfinite(got).all()) and err <= bound
-    log(f"  {name}: max_abs_err {err:.3e} (tolerance {bound:.3e} = {rel_tol:.2e} x max|ref|)"
+    bound_ = rel_tol * float(ref.abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= bound_
+    log(f"  {name}: max_abs_err {err:.3e} (tolerance {bound_:.3e} = {rel_tol:.2e} x max|ref|)"
         f" {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
     return err
 
 
-def perturb_(model, generator):
+def compare_int8(name, got, ref, _tol=None):
+    """int8 outputs: at most INT8_MAX_DQ levels apart, on under
+    INT8_FLIP_SHARE of the elements (the JAX package's tolerance for its
+    quantizing kernels). Returns the largest level difference."""
+    if got.shape != ref.shape or got.dtype != torch.int8:
+        raise RuntimeError(f"{name}: {got.dtype} {tuple(got.shape)} vs {tuple(ref.shape)}")
+    dq = (got.int() - ref.int()).abs()
+    worst, share = int(dq.max()), float((dq > 0).float().mean())
+    ok = worst <= INT8_MAX_DQ and share < INT8_FLIP_SHARE
+    log(f"  {name}: max |dq| {worst}, {share:.2e} of the levels differ (tolerance "
+        f"{INT8_MAX_DQ} level on < {INT8_FLIP_SHARE:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version")
+    return float(worst)
+
+
+def perturb_(tree, generator):
     """Add seeded noise to every norm weight and bias, FFN bias and skip
-    weight D, which init_params sets to 1 or 0, so that every term the
-    kernels compute has a value that shows when it is dropped."""
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
+    weight D of a parameter tree, which init_params sets to 1 or 0, so that
+    every term the kernels compute has a value that shows when it is
+    dropped."""
+    def walk(node, path):
+        for key, value in node.items():
+            name = f"{path}.{key}"
+            if isinstance(value, dict):
+                walk(value, name)
+                continue
             is_norm = "norm" in name
-            if is_norm or leaf == "D" or (".ffn.w" in name and leaf == "b"):
-                noise = torch.randn(p.shape, generator=generator, device=p.device)
-                scale = 5 * NOISE_STD if leaf == "D" else NOISE_STD
-                p.add_((noise * scale).to(p.dtype))
+            if is_norm or key == "D" or (".ffn.w" in name and key == "b"):
+                noise = torch.randn(value.shape, generator=generator, device=value.device)
+                scale = 5 * NOISE_STD if key == "D" else NOISE_STD
+                value.add_((noise * scale).to(value.dtype))
+    with torch.no_grad():
+        walk(tree, "")
 
 
 def main() -> int:
@@ -114,17 +158,24 @@ def main() -> int:
     from apertis_llm_torch.models.convert import from_jax_params
     from apertis_llm_torch.models.factory import calculate_model_dimensions
     from apertis_llm_torch.models.params import count_params, init_params
+    from apertis_llm_torch.models.quantize import quantize_params, quantize_weight
     from apertis_llm_torch.ops.kernels import _build
-    from apertis_llm_torch.ops.kernels.ffn_fused import ffn_decode, ffn_decode_reference
+    from apertis_llm_torch.ops.kernels.ffn_fused import (
+        ffn_decode, ffn_decode_int8, ffn_decode_int8_reference, ffn_decode_reference,
+        pick_block_n)
+    from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize, ln_quantize_reference
     from apertis_llm_torch.ops.kernels.ssm_scan import (
         selective_scan_fwd, selective_scan_fwd_reference)
     from apertis_llm_torch.ops.kernels.ssm_step import (
-        ssm_decode_step, ssm_decode_step_reference)
+        ssm_decode_step, ssm_decode_step_int8, ssm_decode_step_reference)
+    from apertis_llm_torch.ops.activations import get_activation
+    from apertis_llm_torch.ops.quant import int_mm, quantize_rows
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
+    t_start = time.perf_counter()
 
     # ---- 1. identify ------------------------------------------------------
     log(f"card: {card}")
@@ -141,7 +192,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
-    log(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    log(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s "
+        f"({len(_build.SOURCES)} nvcc processes in parallel)")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
@@ -159,31 +211,48 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     tree = init_params(config, gen, device=dev, dtype=torch.bfloat16)
     n_params = count_params(tree)
+    perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 2))
     model = from_jax_params(tree, config, device=dev, dtype=torch.bfloat16)
+    qtree = quantize_params(tree)
     del tree
-    perturb_(model, torch.Generator(device=dev).manual_seed(SEED + 2))
+    qmodel = from_jax_params(qtree, config, device=dev, dtype=torch.bfloat16)
+    del qtree
     torch.cuda.synchronize()
     log(f"model: {n_params:,} parameters, hidden {config.hidden_size}, "
         f"{config.num_hidden_layers} layers, {config.num_attention_heads} heads, "
         f"d_inner {config.ssm_d_inner}, dt_rank {config.ssm_dt_rank}, FFN "
-        f"{config.intermediate_size}, bf16, built in {time.perf_counter() - t0:.1f} s")
+        f"{config.intermediate_size}, bf16 and int8 (quantize_params on the card), "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    qlayer = qmodel.layers[0]
+    int8_bytes = sum(nbytes(p) for p in qlayer.parameters() if p.dtype == torch.int8)
+    scale_bytes = sum(nbytes(m.w_s) for m in qlayer.modules() if hasattr(m, "w_s"))
+    bf16_bytes = sum(nbytes(p) for p in model.layers[0].parameters())
+    log(f"int8 layer: {int8_bytes:,} bytes of int8 weights + {scale_bytes:,} bytes of "
+        f"f32 scales + {nbytes(*(p for p in qlayer.parameters() if p.dtype == torch.bfloat16)):,}"
+        f" bytes of bf16 (norms, conv, dt_proj, A_log, D, biases); bf16 layer "
+        f"{bf16_bytes:,} bytes")
 
     layer = model.layers[0]
     mixer = layer.attn.mixer_weights()
+    qmixer = qlayer.attn.mixer_weights()
     ffn_norm = layer.ffn.pre_norm.weights()
     heads, n, c, d = (config.num_attention_heads, config.ssm_d_state,
                       config.ssm_d_inner, config.hidden_size)
+    r_dt, inter = config.ssm_dt_rank, config.intermediate_size
     eps = config.layer_norm_eps
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
 
     def randn(*shape, dtype=torch.bfloat16, std=1.0):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
-    errs, times = {}, {}   # kernel -> worst error; kernel -> (ms, plain_ms) at 64 rows
+    # kernel -> worst error; kernel -> (ms, plain_ms, bound_ms, bound_by) at
+    # the timed shape
+    errs, times = {}, {}
 
-    def check_kernel(key, label, args, kernel, plain, tols, timed=False):
+    def check_kernel(key, label, args, kernel, plain, tols, cost=None):
         """Run the kernel and its plain version on ``args``, compare each
-        output with its tolerance, and time both."""
+        output with its tolerance, and time both; with ``cost`` (bytes,
+        operations, type) this is the shape the report gives."""
         got, ref = kernel(*args), plain(*args)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -191,33 +260,47 @@ def main() -> int:
         if len(got) != len(ref):
             raise RuntimeError(f"{label}: {len(got)} outputs, plain version {len(ref)}")
         for (out_name, tol), a, b in zip(tols, got, ref):
-            errs[key] = max(errs.get(key, 0.0), compare(f"{label} {out_name}", a, b, tol))
+            cmp = compare_int8 if tol == "int8" else compare
+            errs[key] = max(errs.get(key, 0.0), cmp(f"{label} {out_name}", a, b, tol))
         k_ms = cuda_ms(lambda: kernel(*args))
         p_ms = cuda_ms(lambda: plain(*args))
-        log(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        if timed:
-            times[key] = (k_ms, p_ms)
+        line = f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
+        if cost is not None:
+            b_ms, by = bound(*cost)
+            times[key] = (k_ms, p_ms, b_ms, by)
+            line += f", bound {b_ms:.4f} ms ({by})"
+        log(f"{line}; card: {card}")
 
     def check_sensitive(label, plain, args, variants, tols):
-        """Each variant drops one term from ``args``; the plain version's
-        outputs must then move by more than a kernel check's tolerance, so a
-        kernel that dropped the term would fail that check."""
+        """Each variant drops one term from ``args`` (or is a function that
+        computes the plain version without it); the plain version's outputs
+        must then move by more than a kernel check's tolerance, so a
+        kernel that dropped the term would fail that check (an int8 output
+        must change more levels, or on more elements, than it may)."""
         base = plain(*args)
         base = base if isinstance(base, tuple) else (base,)
         for term, changed in variants.items():
-            out = plain(*changed)
+            out = changed() if callable(changed) else plain(*changed)
             out = out if isinstance(out, tuple) else (out,)
-            moved = [(float((o.float() - b.float()).abs().max()),
-                      tol * float(b.float().abs().max()), name)
-                     for (name, tol), o, b in zip(tols, out, base)]
-            shift, bound, name = max(moved, key=lambda m: m[0] / m[1])
-            ok = shift > bound
+            moved = []
+            for (name, tol), o, b in zip(tols, out, base):
+                if tol == "int8":
+                    dq = (o.int() - b.int()).abs()
+                    moved.append((float((dq > 0).float().mean()), INT8_FLIP_SHARE, name)
+                                 if int(dq.max()) <= INT8_MAX_DQ else
+                                 (float(dq.max()), float(INT8_MAX_DQ), name))
+                else:
+                    moved.append((float((o.float() - b.float()).abs().max()),
+                                  tol * float(b.float().abs().max()), name))
+            shift, bound_, name = max(moved, key=lambda m: m[0] / m[1])
+            ok = shift > bound_
             log(f"  sensitivity {label}, {term}: {name} moves {shift:.3e} "
-                f"(tolerance {bound:.3e}) {'ok' if ok else 'FAIL'}")
+                f"(tolerance {bound_:.3e}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise RuntimeError(f"{label}: the check cannot see {term}")
 
-    log("kernel checks (bf16 in, f32 carry/accumulation), CUDA-event times:")
+    log("kernel checks (bf16 in, f32 carry/accumulation; int8 with exact int32 sums), "
+        "CUDA-event times:")
 
     def scan_inputs(b, l, bc_dtype=torch.bfloat16, out_dtype=torch.bfloat16):
         lens = {4: [7, 19, 32, 45], 64: [32] * 64}.get(
@@ -229,25 +312,48 @@ def main() -> int:
         return (delta, a_cont, randn(b, l, heads, n, dtype=bc_dtype),
                 randn(b, l, heads, n, dtype=bc_dtype), mask, out_dtype)
 
+    def scan_cost(args):
+        delta, a_cont, bt, ct, mask, out_dtype = args
+        y_bytes = bt.numel() * torch.tensor([], dtype=out_dtype).element_size()
+        return (nbytes(delta, a_cont, bt, ct, mask) + y_bytes + bt.shape[0] * c * 4,
+                6 * bt.numel(), "f32")
+
     f32, bf16 = torch.float32, torch.bfloat16
     for (b, l), bc_dtype, out_dtype in [((4, 64), bf16, bf16), ((64, 32), bf16, bf16),
                                         ((5, 37), bf16, bf16), ((5, 37), bf16, f32),
                                         ((5, 37), f32, bf16), ((5, 37), f32, f32)]:
         y_tol = BF16_ULP if out_dtype == bf16 else SCAN_F32_TOL
+        args = scan_inputs(b, l, bc_dtype, out_dtype)
         check_kernel("selective_scan_fwd",
                      f"scan B={b} L={l} b/c {str(bc_dtype)[6:]} y {str(out_dtype)[6:]}",
-                     scan_inputs(b, l, bc_dtype, out_dtype), selective_scan_fwd,
-                     selective_scan_fwd_reference, [("y", y_tol), ("h_last", SCAN_F32_TOL)],
-                     timed=(b, l) == (64, 32))
+                     args, selective_scan_fwd, selective_scan_fwd_reference,
+                     [("y", y_tol), ("h_last", SCAN_F32_TOL)],
+                     cost=scan_cost(args) if (b, l) == (64, 32) else None)
 
     step_tols = [("h_out", BF16_ULP), ("x_proj", BF16_ULP), ("ssm", F32_TOL),
                  ("ffn_in", BF16_ULP)]
+    # int8 layout: the FFN input is (x_q, x_s); x_s is the absmax of a
+    # bf16-rounded row over 127, so a flipped bf16 rounding moves it by one
+    # bf16 step.
+    step_tols_q = step_tols[:3] + [("x_q", "int8"), ("x_s", BF16_ULP)]
     mixer_rms = mixer._replace(norm_b=None)
+    qmixer_rms = qmixer._replace(norm_b=None)
     ffn_norm_rms = (ffn_norm[0], None)
 
     def step_inputs(b, w=mixer, fn=ffn_norm):
         return (randn(b, d), randn(b, config.ssm_conv_kernel - 1, c),
                 randn(b, c, dtype=torch.float32), w, eps, fn)
+
+    def step_cost(args):
+        h, conv, ssm, w, _, fn = args
+        weights = [getattr(w, f) for f in w._fields if isinstance(getattr(w, f), torch.Tensor)]
+        quant = w.quantized
+        outs = nbytes(h, ssm) + h.shape[0] * c * conv.element_size()
+        if fn is not None:
+            outs += h.shape[0] * d * (1 if quant else 2) + (h.shape[0] * 4 if quant else 0)
+        macs = d * c * 2 + c * (r_dt + 2 * c) + c * d
+        return (nbytes(h, conv, ssm, *weights, *(fn or ())) + outs,
+                2 * h.shape[0] * macs, "int8" if quant else "bf16")
 
     args = step_inputs(5)
 
@@ -269,8 +375,31 @@ def main() -> int:
                             (5, mixer, None, "LayerNorm, ffn_mode none"),
                             (5, mixer_rms, ffn_norm_rms, "RMSNorm, dense"),
                             (5, mixer_rms, None, "RMSNorm, ffn_mode none")]:
-        check_kernel("ssm_decode_step", f"decode step B={b} {label}", step_inputs(b, w, fn),
-                     ssm_decode_step, ssm_decode_step_reference, step_tols, timed=b == 64)
+        args = step_inputs(b, w, fn)
+        check_kernel("ssm_decode_step", f"decode step B={b} {label}", args,
+                     ssm_decode_step, ssm_decode_step_reference, step_tols,
+                     cost=step_cost(args) if b == 64 else None)
+
+    args = step_inputs(5, qmixer)
+
+    def qwithout(**terms):
+        return args[:3] + (qmixer._replace(**terms),) + args[4:]
+
+    check_sensitive("int8 decode step", ssm_decode_step_reference, args, {
+        f"{name} w_s": qwithout(**{name: torch.ones_like(getattr(qmixer, name))})
+        for name in ("inx_s", "inz_s", "xparam_s", "out_s")}, step_tols_q)
+    for b, w, fn, label in [(4, qmixer, ffn_norm, "LayerNorm, dense"),
+                            (64, qmixer, ffn_norm, "LayerNorm, dense"),
+                            (256, qmixer, ffn_norm, "LayerNorm, dense"),
+                            (5, qmixer, ffn_norm, "LayerNorm, dense"),
+                            (5, qmixer, None, "LayerNorm, ffn_mode none"),
+                            (5, qmixer_rms, ffn_norm_rms, "RMSNorm, dense"),
+                            (5, qmixer_rms, None, "RMSNorm, ffn_mode none")]:
+        args = step_inputs(b, w, fn)
+        check_kernel("ssm_decode_step_int8", f"int8 decode step B={b} {label}", args,
+                     ssm_decode_step, ssm_decode_step_reference,
+                     step_tols_q if fn is not None else step_tols_q[:3],
+                     cost=step_cost(args) if b == 64 else None)
 
     w1, w2 = layer.ffn.w1, layer.ffn.w2
 
@@ -284,11 +413,78 @@ def main() -> int:
     }, [("out", BF16_ULP)])
     for s_, act in [(4, config.hidden_act), (64, config.hidden_act), (5, config.hidden_act),
                     (5, "relu"), (5, "silu")]:
-        check_kernel("ffn_decode", f"ffn S={s_} {act}", ffn_inputs(s_, act), ffn_decode,
-                     ffn_decode_reference, [("out", BF16_ULP)], timed=s_ == 64)
+        args = ffn_inputs(s_, act)
+        check_kernel("ffn_decode", f"ffn S={s_} {act}", args, ffn_decode,
+                     ffn_decode_reference, [("out", BF16_ULP)],
+                     cost=(nbytes(w1.w, w1.b, w2.w, w2.b) + 2 * nbytes(args[0]),
+                           4 * s_ * d * inter, "bf16") if s_ == 64 else None)
+
+    q1, q2 = qlayer.ffn.w1, qlayer.ffn.w2
+
+    def ffn_q_inputs(s, act=config.hidden_act, weights=(q1.w_q, q1.w_s, q1.b, q2.w_q,
+                                                       q2.w_s, q2.b)):
+        x_q, x_s = quantize_rows(randn(s, d))
+        return (x_q, x_s, *weights, act)
+
+    def ffn_int8_without_hs(x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
+        """The plain int8 FFN with each tile's hidden scale hs left out of
+        the accumulation."""
+        bn = pick_block_n(w1_q.shape[1])
+        h = get_activation(act)(int_mm(x_q, w1_q).float() * x_s * w1_s + b1.float())
+        acc = 0.0
+        for t0 in range(0, h.shape[1], bn):
+            hq, _ = quantize_rows(h[:, t0:t0 + bn])
+            acc = acc + int_mm(hq, w2_q[t0:t0 + bn]).float()
+        return ((acc * w2_s + b2.float()).to(torch.bfloat16),)
+
+    args = ffn_q_inputs(5)
+    check_sensitive("int8 ffn", ffn_decode_int8_reference, args, {
+        "x_s": (args[0], torch.ones_like(args[1])) + args[2:],
+        "w1_s": args[:3] + (torch.ones_like(q1.w_s),) + args[4:],
+        "w2_s": args[:6] + (torch.ones_like(q2.w_s),) + args[7:],
+        "b1": args[:4] + (torch.zeros_like(q1.b),) + args[5:],
+        "b2": args[:7] + (torch.zeros_like(q2.b),) + args[8:],
+        "per-tile hs": lambda: ffn_int8_without_hs(*args),
+    }, [("out", BF16_ULP)])
+    log(f"  int8 ffn hidden tiles: I={inter} -> {inter // pick_block_n(inter)} tiles of "
+        f"{pick_block_n(inter)}")
+    for s_, act in [(4, config.hidden_act), (64, config.hidden_act), (256, config.hidden_act),
+                    (5, config.hidden_act), (5, "relu"), (5, "silu")]:
+        args = ffn_q_inputs(s_, act)
+        check_kernel("ffn_decode_int8", f"int8 ffn S={s_} {act}", args, ffn_decode_int8,
+                     ffn_decode_int8_reference, [("out", BF16_ULP)],
+                     cost=(nbytes(*args[:8]) + s_ * d * 2, 4 * s_ * d * inter,
+                           "int8") if s_ == 64 else None)
+    inter2 = 1536          # two hidden tiles of 768
+    wq1, ws1 = quantize_weight(randn(d, inter2, std=0.02))
+    wq2, ws2 = quantize_weight(randn(inter2, d, std=0.02))
+    log(f"  int8 ffn hidden tiles: I={inter2} -> {inter2 // pick_block_n(inter2)} tiles of "
+        f"{pick_block_n(inter2)}")
+    for s_ in (5, 64):
+        args = ffn_q_inputs(s_, weights=(wq1, ws1, randn(inter2, std=0.1), wq2, ws2,
+                                         randn(d, std=0.1)))
+        check_kernel("ffn_decode_int8", f"int8 ffn S={s_} I={inter2}", args, ffn_decode_int8,
+                     ffn_decode_int8_reference, [("out", BF16_ULP)])
+
+    ln_tols = [("x_q", "int8"), ("x_s", SCALE_TOL)]
+    pre_w, pre_b = qlayer.attn.pre_norm.weights()
+    args = (randn(37, d, std=2.0), pre_w, pre_b, eps)
+    check_sensitive("ln_quantize", ln_quantize_reference, args, {
+        "norm weight": (args[0], torch.ones_like(pre_w), pre_b, eps),
+        "norm bias": (args[0], pre_w, torch.zeros_like(pre_b), eps),
+    }, ln_tols)
+    for rows, label in [(256, "4 x 64, request A's prefill"), (2048, "64 x 32"),
+                        (37, "ragged")]:
+        for bias, kind in [(pre_b, "LayerNorm"), (None, "RMSNorm")]:
+            x = randn(rows, d, std=2.0)
+            args = (x, pre_w, bias, eps)
+            check_kernel("ln_quantize", f"ln_quantize {rows} rows ({label}) {kind}", args,
+                         ln_quantize, ln_quantize_reference, ln_tols,
+                         cost=(nbytes(x, pre_w, bias) + x.numel() + rows * 4, 10 * x.numel(),
+                               "f32") if rows == 2048 and bias is not None else None)
+    log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. serve -----------------------------------------------------------
-    engine = InferenceEngine(config, model)
     rng = np.random.default_rng(SEED)
     lens_a = [7, 19, 32, 45]
     batch_a = np.zeros((4, max(lens_a)), np.int32)
@@ -303,88 +499,115 @@ def main() -> int:
         "B (64 prompts x 32, 64 new)": (
             batch_b, None, dict(max_new_tokens=64, eos_token_id=())),
     }
-    counters = (selective_scan_fwd, ssm_decode_step, ffn_decode)
-    for f in counters:
-        f.launches = 0
-    first = {}
-    for name, (ids, mask, kw) in requests.items():
-        first[name] = engine.generate(ids, attention_mask=mask, **kw)
-    launches = {f.__name__: f.launches for f in counters}
-
+    counters = (selective_scan_fwd, ssm_decode_step, ffn_decode, ln_quantize,
+                ssm_decode_step_int8, ffn_decode_int8)
     nl = config.num_hidden_layers
-    decode_calls = 0
-    for name, (ids, _, kw) in requests.items():
-        out = first[name]
-        n_new = out.shape[1] - ids.shape[1]
-        if out.shape[0] != ids.shape[0] or not 1 <= n_new <= kw["max_new_tokens"]:
-            raise RuntimeError(f"request {name}: output shape {out.shape}")
-        if not np.array_equal(out[:, :ids.shape[1]], ids):
-            raise RuntimeError(f"request {name}: prompt columns changed")
-        new = out[:, ids.shape[1]:]
-        if new.min() < 0 or new.max() >= config.vocab_size:
-            raise RuntimeError(f"request {name}: token outside [0, {config.vocab_size})")
-        decode_calls += n_new - 1
-        log(f"request {name}: {n_new} new tokens, first row {new[0, :8].tolist()}...")
-    expected = {"selective_scan_fwd": nl * len(requests),
-                "ssm_decode_step": nl * decode_calls, "ffn_decode": nl * decode_calls}
-    log(f"launch counts in the two requests: {launches} (expected {expected})")
-    if launches != expected:
-        raise RuntimeError("a kernel of the main path was not launched as expected")
+    launches, serve = {}, {}
+    for kind, m in (("bf16", model), ("int8", qmodel)):
+        engine = InferenceEngine(config, m)
+        if kind == "int8" and m.lm_head is None:
+            raise RuntimeError("the engine did not attach the int8 head")
+        for f in counters:
+            f.launches = 0
+        first = {}
+        for name, (ids, mask, kw) in requests.items():
+            first[name] = engine.generate(ids, attention_mask=mask, **kw)
+        got = {f.__name__: f.launches for f in counters}
+        decode_calls = 0
+        for name, (ids, _, kw) in requests.items():
+            out = first[name]
+            n_new = out.shape[1] - ids.shape[1]
+            if out.shape[0] != ids.shape[0] or not 1 <= n_new <= kw["max_new_tokens"]:
+                raise RuntimeError(f"{kind} request {name}: output shape {out.shape}")
+            if not np.array_equal(out[:, :ids.shape[1]], ids):
+                raise RuntimeError(f"{kind} request {name}: prompt columns changed")
+            new = out[:, ids.shape[1]:]
+            if new.min() < 0 or new.max() >= config.vocab_size:
+                raise RuntimeError(f"{kind} request {name}: token outside "
+                                   f"[0, {config.vocab_size})")
+            decode_calls += n_new - 1
+            log(f"{kind} request {name}: {n_new} new tokens, first row "
+                f"{new[0, :8].tolist()}...")
+        expected = {f.__name__: 0 for f in counters}
+        expected["selective_scan_fwd"] = nl * len(requests)
+        if kind == "bf16":
+            expected.update(ssm_decode_step=nl * decode_calls, ffn_decode=nl * decode_calls)
+        else:
+            expected.update(ln_quantize=2 * nl * len(requests),
+                            ssm_decode_step_int8=nl * decode_calls,
+                            ffn_decode_int8=nl * decode_calls)
+        log(f"{kind} launch counts in the two requests: {got} (expected {expected})")
+        if got != expected:
+            raise RuntimeError(f"{kind}: a kernel of the main path was not launched as expected")
+        for key, value in got.items():
+            launches[key] = launches.get(key, 0) + value
 
-    serve = {}
-    for name, (ids, mask, kw) in requests.items():
-        t0 = time.perf_counter()
-        again = engine.generate(ids, attention_mask=mask, **kw)
-        total = time.perf_counter() - t0
-        if not np.array_equal(again, first[name]):
-            raise RuntimeError(f"request {name}: a repeated request gave other tokens")
-        t0 = time.perf_counter()
-        engine.generate(ids, attention_mask=mask, **dict(kw, max_new_tokens=1))
-        ttft = time.perf_counter() - t0
-        steps = again.shape[1] - ids.shape[1] - 1
-        rate = ids.shape[0] * steps / max(total - ttft, 1e-9)
-        log(f"serve {name}: TTFT {ttft * 1e3:.1f} ms, decode {rate:.1f} tok/s "
-            f"({steps} steps x {ids.shape[0]} rows, {total:.3f} s in all), "
-            f"repeat identical; card: {card}")
-        serve[name] = dict(ttft_ms=ttft * 1e3, decode_tok_s=rate)
+        for name, (ids, mask, kw) in requests.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = engine.generate(ids, attention_mask=mask, **kw)
+            total = time.perf_counter() - t0
+            if not np.array_equal(again, first[name]):
+                raise RuntimeError(f"{kind} request {name}: a repeated request gave other tokens")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.generate(ids, attention_mask=mask, **dict(kw, max_new_tokens=1))
+            ttft = time.perf_counter() - t0
+            steps = again.shape[1] - ids.shape[1] - 1
+            rate = ids.shape[0] * steps / max(total - ttft, 1e-9)
+            log(f"serve {kind} {name}: TTFT {ttft * 1e3:.1f} ms, decode {rate:.1f} tok/s "
+                f"({steps} steps x {ids.shape[0]} rows, {total:.3f} s in all), "
+                f"repeat identical; card: {card}")
+            serve[f"{kind} {name[0]}"] = dict(ttft_ms=ttft * 1e3, decode_tok_s=rate)
+    log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. outputs are right -----------------------------------------------
-    cache = model.init_cache(4)
-    pre = model.prefill(cache, torch.as_tensor(batch_a, dtype=torch.long, device=dev),
+    for kind, m in (("bf16", model), ("int8", qmodel)):
+        cache = m.init_cache(4)
+        pre = m.prefill(cache, torch.as_tensor(batch_a, dtype=torch.long, device=dev),
                         torch.as_tensor(mask_a, device=dev),
                         logit_positions=torch.as_tensor(mask_a.sum(1) - 1, device=dev))
-    logits, _ = model.decode_step(cache, pre.logits[:, 0].argmax(-1))
-    if pre.logits.shape != (4, 1, config.vocab_size) or logits.shape != (4, config.vocab_size):
-        raise RuntimeError("1.5B logits have the wrong shape")
-    if not (torch.isfinite(pre.logits).all() and torch.isfinite(logits).all()):
-        raise RuntimeError("1.5B logits are not finite")
-    log("1.5B prefill and decode logits: finite, shapes (4, 1, 32000) and (4, 32000)")
+        logits, _ = m.decode_step(cache, pre.logits[:, 0].argmax(-1))
+        if (pre.logits.shape != (4, 1, config.vocab_size)
+                or logits.shape != (4, config.vocab_size)):
+            raise RuntimeError(f"1.5B {kind} logits have the wrong shape")
+        if not (torch.isfinite(pre.logits).all() and torch.isfinite(logits).all()):
+            raise RuntimeError(f"1.5B {kind} logits are not finite")
+        log(f"1.5B {kind} prefill and decode logits: finite, shapes (4, 1, 32000) and "
+            "(4, 32000)")
+    del model, qmodel
 
     small = ApertisConfig(
         vocab_size=1000, attention_type="selective_ssm", ssm_d_state=16, hidden_size=256,
         num_hidden_layers=2, num_attention_heads=4, intermediate_size=1024,
         hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0, dtype="bfloat16",
         param_dtype="bfloat16")
-    tree = init_params(small, torch.Generator().manual_seed(SEED), dtype=torch.bfloat16)
-    models = {"gpu": from_jax_params(tree, small, device=dev, dtype=torch.bfloat16),
-              "cpu": from_jax_params(tree, small, device="cpu", dtype=torch.bfloat16)}
-    perturb_(models["cpu"], torch.Generator().manual_seed(SEED + 3))
-    models["gpu"].load_state_dict(models["cpu"].state_dict())
+    tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu",
+                       dtype=torch.bfloat16)
+    perturb_(tree, torch.Generator().manual_seed(SEED + 3))
     ids = torch.as_tensor(batch_a % small.vocab_size, dtype=torch.long)
     mask = torch.as_tensor(mask_a)
-    caches = {k: m.init_cache(4) for k, m in models.items()}
-    logits = {k: m.prefill(caches[k], ids.to(m.device), mask.to(m.device),
-                           logit_positions=(mask.sum(1) - 1).to(m.device)).logits[:, 0]
-              for k, m in models.items()}
-    small_err = 0.0
-    for i in range(5):
-        # Both sides decode the CPU side's argmax, so their inputs agree.
-        small_err = max(small_err, compare(
-            f"2-layer model on the card vs the CPU, logits of step {i}",
-            logits["gpu"].cpu(), logits["cpu"], 4 * BF16_ULP))
-        tok = logits["cpu"].argmax(-1)
-        logits = {k: m.decode_step(caches[k], tok.to(m.device))[0]
+    small_err = {}
+    # min_size=0: at these widths the default would leave the mixer float.
+    for kind, t in (("bf16", tree), ("int8", quantize_params(tree, min_size=0))):
+        models = {"gpu": from_jax_params(t, small, device=dev, dtype=torch.bfloat16),
+                  "cpu": from_jax_params(t, small, device="cpu", dtype=torch.bfloat16)}
+        if kind == "int8":
+            for m in models.values():
+                m.quantize_tied_head()
+        caches = {k: m.init_cache(4) for k, m in models.items()}
+        logits = {k: m.prefill(caches[k], ids.to(m.device), mask.to(m.device),
+                               logit_positions=(mask.sum(1) - 1).to(m.device)).logits[:, 0]
                   for k, m in models.items()}
+        small_err[kind] = 0.0
+        for i in range(5):
+            # Both sides decode the CPU side's argmax, so their inputs agree.
+            small_err[kind] = max(small_err[kind], compare(
+                f"2-layer {kind} model on the card vs the CPU, logits of step {i}",
+                logits["gpu"].cpu(), logits["cpu"], 4 * BF16_ULP))
+            tok = logits["cpu"].argmax(-1)
+            logits = {k: m.decode_step(caches[k], tok.to(m.device))[0]
+                      for k, m in models.items()}
 
     # ---- report -------------------------------------------------------------
     replaces = {
@@ -392,15 +615,25 @@ def main() -> int:
                                "apertis_llm_tpu/ops/pallas/ssm_scan.py:327"),
         "ssm_decode_step": ("apertis_llm_torch/csrc/ssm_step.cu",
                             "apertis_llm_tpu/ops/pallas/ssm_step.py:234"),
+        "ssm_decode_step_int8": ("apertis_llm_torch/csrc/ssm_step.cu",
+                                 "apertis_llm_tpu/ops/pallas/ssm_step.py:234"),
         "ffn_decode": ("apertis_llm_torch/csrc/ffn_fused.cu",
                        "apertis_llm_tpu/ops/pallas/ffn_fused.py:177"),
+        "ffn_decode_int8": ("apertis_llm_torch/csrc/ffn_fused.cu",
+                            "apertis_llm_tpu/ops/pallas/ffn_fused.py:177"),
+        "ln_quantize": ("apertis_llm_torch/csrc/ln_quant.cu",
+                        "apertis_llm_tpu/ops/pallas/ln_quant.py:60"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
-        err, (ms, plain_ms) = errs[name], times[name]
+        ms, plain_ms, bound_ms, bound_by = times[name]
+        # No single PyTorch call computes any of these functions (a fused
+        # norm + quantize, a whole mixer step, a whole FFN, a selective scan).
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": tpu,
-                        "launches": launches[name], "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms})
+                        "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": serve,
                       "small_model_max_abs_err": small_err}))
     print(card)
