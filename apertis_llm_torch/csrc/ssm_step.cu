@@ -1,8 +1,8 @@
 // ssm_decode_step: one decode step of the whole selective-SSM mixer.
 //
 // Replaces: apertis_llm_tpu/ops/pallas/ssm_step.py::ssm_decode_step_fused
-// with the bf16 and the int8 weight layouts and ffn_mode "none" or "dense"
-// (the MoE router epilogue is later work).
+// with the bf16 and the int8 weight layouts and ffn_mode "none", "dense" or
+// "moe".
 //
 // Semantics (ssm_step.py:82-197), per batch row, all sums in f32:
 //   nrm  = pre_norm(h)                       bf16: rounded to bf16 for the dots
@@ -17,6 +17,14 @@
 //   hsum = h + g @ out_proj                  h_out = bf16(hsum)
 //   dense epilogue: n2 = bf16(ffn_pre_norm(hsum)); bf16 layout: ffn_in = n2;
 //                   int8 layout: (x_q, x_s) = quant_rows(n2)
+//   moe epilogue (both layouts, ssm_step.py:198-231): n2 as above, then
+//     mean2, cen2 = n2 - mean2, var2, inv2 = rsqrt(var2 + eps) (0 if var2 <= 0)
+//     (x_q, s) = quant_rows(cen2), x_s = s * inv2
+//     logits = (cen2 * inv2 * router_ln_w + router_ln_b) . router_w + router_b
+//       (always LayerNorm, whatever the pre-norms are; its statistics are
+//       n2's, so cen2 and inv2 serve it)
+//     gates = softmax(logits); top-2 by max, the least index winning a tie
+//     comb[e] = (w1 [e == i1] + w2 [e == i2]) / (w1 + w2 + 1e-6)
 // (bf16 layout: xa is rounded to bf16 where it enters a dot and used in f32
 // in D * xa.) In the int8 layout every projection but dt_proj is
 //   acc_i32(quant_rows(a) . W_q) * row_scale * w_s[col]
@@ -42,9 +50,10 @@
 //      whole x_act row and the small dt_feats row (R values) that every
 //      channel needs;
 //   3. ssm_out_kernel: (row quantization of g +) out_proj + residual for 64
-//      columns a block. With the dense epilogue the last block of each row
-//      tile to finish (an integer ticket, no float atomics) applies the FFN
-//      pre-norm (and quantization) to the full rows.
+//      columns a block. With the dense or moe epilogue the last block of each
+//      row tile to finish (an integer ticket, no float atomics) applies the
+//      FFN pre-norm (and quantization, and the router) to the full rows, one
+//      warp a row.
 // Every launch holds whole rows in shared memory, so each per-row
 // quantization is computed in the block that needs it (redundantly across
 // the column tiles, with the same result). A block holds up to kRows batch
@@ -245,6 +254,59 @@ __global__ void __launch_bounds__(kBlock) ssm_mix_kernel(
   }
 }
 
+// The moe epilogue of one row by one warp: v is the row's n2 (bf16-rounded
+// f32, read only). Writes the row's x_q and x_s and its E combine weights
+// (E <= 32: lane e holds expert e's logit).
+__device__ void warp_moe_epilogue(const float* v, int d, float eps,
+                                  const bf16* __restrict__ rln_w, const bf16* __restrict__ rln_b,
+                                  const bf16* __restrict__ router_w,
+                                  const bf16* __restrict__ router_b, int num_experts,
+                                  int8_t* q, float* x_s, float* comb) {
+  const int lane = threadIdx.x & 31;
+  const float neg_inf = __int_as_float(0xff800000);
+  float s = 0.f;
+  for (int k = lane; k < d; k += 32) s += v[k];
+  const float mean = warp_sum(s) / (float)d;
+  float v2 = 0.f, m = 0.f;
+  for (int k = lane; k < d; k += 32) {
+    const float c = v[k] - mean;
+    v2 += c * c;
+    m = fmaxf(m, fabsf(c));
+  }
+  const float var = warp_sum(v2) / (float)d;
+  const float inv = var > 0.f ? rsqrtf(var + eps) : 0.f;
+  const float scale = fmaxf(warp_max(m), 1e-8f) * (1.f / 127.f);
+  const float rscale = 1.f / scale;
+  for (int k = lane; k < d; k += 32) q[k] = quant_level(__fmul_rn(v[k] - mean, rscale));
+  if (lane == 0) *x_s = __fmul_rn(scale, inv);
+
+  float logit = neg_inf;
+  for (int e = 0; e < num_experts; ++e) {
+    float acc = 0.f;
+    for (int k = lane; k < d; k += 32) {
+      const float rn = __fadd_rn(__fmul_rn(__fmul_rn(v[k] - mean, inv), to_f32(rln_w[k])),
+                                 to_f32(rln_b[k]));
+      acc = fmaf(rn, to_f32(router_w[(size_t)k * num_experts + e]), acc);
+    }
+    const float l = warp_sum(acc) + to_f32(router_b[e]);
+    if (lane == e) logit = l;
+  }
+  const bool valid = lane < num_experts;
+  const float top = warp_max(logit);
+  const float ex = valid ? expf(logit - top) : 0.f;
+  const float total = warp_sum(ex);
+  const float gate = valid ? ex / total : neg_inf;
+  const float w1 = warp_max(gate);
+  const int i1 = (int)__reduce_min_sync(0xffffffffu,
+                                        (unsigned)(valid && gate == w1 ? lane : num_experts));
+  const float g2 = lane == i1 ? neg_inf : gate;
+  const float w2 = warp_max(g2);
+  const int i2 = (int)__reduce_min_sync(0xffffffffu,
+                                        (unsigned)(valid && g2 == w2 ? lane : num_experts));
+  if (valid)
+    comb[lane] = ((lane == i1 ? w1 : 0.f) + (lane == i2 ? w2 : 0.f)) / (w1 + w2 + 1e-6f);
+}
+
 // ---- 3. out_proj + residual (+ FFN pre-norm) --------------------------------
 template <bool kQ>
 __global__ void __launch_bounds__(kBlock) ssm_out_kernel(
@@ -255,11 +317,16 @@ __global__ void __launch_bounds__(kBlock) ssm_out_kernel(
     float* __restrict__ hsum,          // (B, D) scratch (dense epilogue only)
     const bf16* __restrict__ fn_w,     // (D,) FFN pre-norm, or nullptr
     const bf16* __restrict__ fn_b,     // (D,), unused for RMSNorm
+    const bf16* __restrict__ rln_w,    // (D,) router LayerNorm (moe), or nullptr
+    const bf16* __restrict__ rln_b,    // (D,)
+    const bf16* __restrict__ router_w, // (D, E); nullptr selects dense/none
+    const bf16* __restrict__ router_b, // (E,)
     int rms, float eps,
-    void* __restrict__ ffn_in,         // (B, D) bf16, int8 x_q (int8), or nullptr
-    float* __restrict__ ffn_scale,     // (B, 1) x_s (int8 layout)
+    void* __restrict__ ffn_in,         // (B, D) bf16, int8 x_q (int8 or moe), or nullptr
+    float* __restrict__ ffn_scale,     // (B, 1) x_s (int8 layout or moe)
+    float* __restrict__ comb,          // (B, E) combine weights (moe)
     int* __restrict__ tickets,         // (row tiles,), zeroed by ssm_in_kernel
-    int batch, int channels, int d_model) {
+    int batch, int channels, int d_model, int num_experts) {
   extern __shared__ float smem[];
   // xs holds the g rows, and in the epilogue the full hsum rows.
   const int width = max(channels, d_model);
@@ -318,7 +385,11 @@ __global__ void __launch_bounds__(kBlock) ssm_out_kernel(
   __syncwarp();
   warp_norm_row(v, d_model, fn_w, fn_b, rms, eps, true);
   __syncwarp();
-  if constexpr (kQ) {
+  if (router_w != nullptr) {
+    warp_moe_epilogue(v, d_model, eps, rln_w, rln_b, router_w, router_b, num_experts,
+                      static_cast<int8_t*>(ffn_in) + row * d_model, ffn_scale + row,
+                      comb + row * num_experts);
+  } else if constexpr (kQ) {
     // The quantized FFN input: the row is in shared memory that is free now.
     int8_t* q = static_cast<int8_t*>(ffn_in) + row * d_model;
     warp_quant_row(v, d_model, q, ffn_scale + row);
@@ -333,10 +404,11 @@ int launch_step(const void* h, const void* conv_state, const void* ssm, const vo
                 const void* norm_b, Proj<kQ> inx, Proj<kQ> inz, const void* conv_w,
                 const void* conv_b, Proj<kQ> xparam, const void* dt_w, const void* dt_b,
                 const void* a_log, const void* d_skip, Proj<kQ> out_p, const void* fn_w,
-                const void* fn_b, void* h_out, void* xp_out, void* ssm_out, void* ffn_in,
-                void* ffn_scale, void* z, void* g, void* hsum, void* tickets, int batch,
-                int d_model, int channels, int ksize, int rank, int heads, int d_state,
-                int rms, float eps, cudaStream_t s) {
+                const void* fn_b, const void* rln_w, const void* rln_b, const void* router_w,
+                const void* router_b, void* h_out, void* xp_out, void* ssm_out, void* ffn_in,
+                void* ffn_scale, void* comb, void* z, void* g, void* hsum, void* tickets,
+                int batch, int d_model, int channels, int ksize, int rank, int heads,
+                int d_state, int num_experts, int rms, float eps, cudaStream_t s) {
   const int row_tiles = (batch + kRows - 1) / kRows;
   const int col_tiles_c = (channels + kTileN - 1) / kTileN;
   const int col_tiles_d = (d_model + kTileN - 1) / kTileN;
@@ -371,8 +443,11 @@ int launch_step(const void* h, const void* conv_state, const void* ssm, const vo
   ssm_out_kernel<kQ><<<dim3(col_tiles_d, row_tiles), kBlock, smem_out, s>>>(
       g, out_p, static_cast<const bf16*>(h), static_cast<bf16*>(h_out),
       static_cast<float*>(hsum), static_cast<const bf16*>(fn_w),
-      static_cast<const bf16*>(fn_b), rms, eps, fn_w != nullptr ? ffn_in : nullptr,
-      static_cast<float*>(ffn_scale), static_cast<int*>(tickets), batch, channels, d_model);
+      static_cast<const bf16*>(fn_b), static_cast<const bf16*>(rln_w),
+      static_cast<const bf16*>(rln_b), static_cast<const bf16*>(router_w),
+      static_cast<const bf16*>(router_b), rms, eps, fn_w != nullptr ? ffn_in : nullptr,
+      static_cast<float*>(ffn_scale), static_cast<float*>(comb), static_cast<int*>(tickets),
+      batch, channels, d_model, num_experts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -382,41 +457,51 @@ int launch_step(const void* h, const void* conv_state, const void* ssm, const vo
 // (B, K-1, C); ssm_out may be ssm, to update the state in place; z, g, hsum
 // and tickets are scratch the caller allocates: z (B, C) f32, g (B, C) bf16,
 // hsum (B, D) f32, tickets (ceil(B / 8),) int32. fn_w == nullptr selects
-// ffn_mode "none" (ffn_in and hsum unused). Returns cudaGetLastError().
+// ffn_mode "none" (ffn_in and hsum unused); router_w == nullptr selects
+// "dense" (ffn_in is the bf16 FFN input), else "moe": ffn_in is the (B, D)
+// int8 x_q, ffn_scale the (B, 1) f32 x_s and comb the (B, E) f32 combine
+// weights, E <= 32. Returns cudaGetLastError().
 extern "C" int apertis_ssm_decode_step(
     const void* h, const void* conv_state, const void* ssm, const void* norm_w,
     const void* norm_b, const void* inx_w, const void* inz_w, const void* conv_w,
     const void* conv_b, const void* xparam_w, const void* dt_w, const void* dt_b,
     const void* a_log, const void* d_skip, const void* out_w, const void* fn_w,
-    const void* fn_b, void* h_out, void* xp_out, void* ssm_out, void* ffn_in,
-    void* z, void* g, void* hsum, void* tickets, int batch, int d_model,
-    int channels, int ksize, int rank, int heads, int d_state, int rms, float eps,
-    void* stream) {
+    const void* fn_b, const void* rln_w, const void* rln_b, const void* router_w,
+    const void* router_b, void* h_out, void* xp_out, void* ssm_out, void* ffn_in,
+    void* ffn_scale, void* comb, void* z, void* g, void* hsum, void* tickets, int batch,
+    int d_model, int channels, int ksize, int rank, int heads, int d_state,
+    int num_experts, int rms, float eps, void* stream) {
+  if (router_w != nullptr && (num_experts < 2 || num_experts > 32))
+    return static_cast<int>(cudaErrorInvalidValue);
   typedef Proj<false> P;
   return launch_step<false>(
       h, conv_state, ssm, norm_w, norm_b, P{static_cast<const bf16*>(inx_w), nullptr},
       P{static_cast<const bf16*>(inz_w), nullptr}, conv_w, conv_b,
       P{static_cast<const bf16*>(xparam_w), nullptr}, dt_w, dt_b, a_log, d_skip,
-      P{static_cast<const bf16*>(out_w), nullptr}, fn_w, fn_b, h_out, xp_out, ssm_out,
-      ffn_in, nullptr, z, g, hsum, tickets, batch, d_model, channels, ksize, rank, heads,
-      d_state, rms, eps, static_cast<cudaStream_t>(stream));
+      P{static_cast<const bf16*>(out_w), nullptr}, fn_w, fn_b, rln_w, rln_b, router_w,
+      router_b, h_out, xp_out, ssm_out, ffn_in, ffn_scale, comb, z, g, hsum, tickets, batch,
+      d_model, channels, ksize, rank, heads, d_state, num_experts, rms, eps,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The same step with the int8 weight layout: each of in_proj x / z, x_param
 // and out_proj is an int8 (in, out) weight with (1, out) f32 scales; D and C
-// must be multiples of 4. g is (B, C) f32 scratch; with the dense epilogue
-// ffn_in is the (B, D) int8 x_q and ffn_scale the (B, 1) f32 x_s.
+// must be multiples of 4. g is (B, C) f32 scratch; with the dense or the moe
+// epilogue ffn_in is the (B, D) int8 x_q and ffn_scale the (B, 1) f32 x_s.
 extern "C" int apertis_ssm_decode_step_int8(
     const void* h, const void* conv_state, const void* ssm, const void* norm_w,
     const void* norm_b, const void* inx_q, const void* inx_s, const void* inz_q,
     const void* inz_s, const void* conv_w, const void* conv_b, const void* xparam_q,
     const void* xparam_s, const void* dt_w, const void* dt_b, const void* a_log,
     const void* d_skip, const void* out_q, const void* out_s, const void* fn_w,
-    const void* fn_b, void* h_out, void* xp_out, void* ssm_out, void* ffn_in,
-    void* ffn_scale, void* z, void* g, void* hsum, void* tickets, int batch, int d_model,
-    int channels, int ksize, int rank, int heads, int d_state, int rms, float eps,
-    void* stream) {
+    const void* fn_b, const void* rln_w, const void* rln_b, const void* router_w,
+    const void* router_b, void* h_out, void* xp_out, void* ssm_out, void* ffn_in,
+    void* ffn_scale, void* comb, void* z, void* g, void* hsum, void* tickets, int batch,
+    int d_model, int channels, int ksize, int rank, int heads, int d_state,
+    int num_experts, int rms, float eps, void* stream) {
   if (d_model % 4 != 0 || channels % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (router_w != nullptr && (num_experts < 2 || num_experts > 32))
+    return static_cast<int>(cudaErrorInvalidValue);
   typedef Proj<true> P;
   auto proj = [](const void* q, const void* s) {
     return P{static_cast<const int8_t*>(q), static_cast<const float*>(s)};
@@ -424,7 +509,7 @@ extern "C" int apertis_ssm_decode_step_int8(
   return launch_step<true>(
       h, conv_state, ssm, norm_w, norm_b, proj(inx_q, inx_s), proj(inz_q, inz_s), conv_w,
       conv_b, proj(xparam_q, xparam_s), dt_w, dt_b, a_log, d_skip, proj(out_q, out_s),
-      fn_w, fn_b, h_out, xp_out, ssm_out, ffn_in, ffn_scale, z, g, hsum, tickets, batch,
-      d_model, channels, ksize, rank, heads, d_state, rms, eps,
-      static_cast<cudaStream_t>(stream));
+      fn_w, fn_b, rln_w, rln_b, router_w, router_b, h_out, xp_out, ssm_out, ffn_in,
+      ffn_scale, comb, z, g, hsum, tickets, batch, d_model, channels, ksize, rank, heads,
+      d_state, num_experts, rms, eps, static_cast<cudaStream_t>(stream));
 }

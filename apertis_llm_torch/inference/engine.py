@@ -18,7 +18,10 @@ running). Capturing the step in a CUDA graph is later work.
 
 For an int8 model the engine attaches the int8 copy of the tied LM head
 (``ApertisForCausalLM.quantize_tied_head``), as the JAX engine attaches
-``quantize_tied_head`` to a quantized tree (engine.py:365-375).
+``quantize_tied_head`` to a quantized tree (engine.py:365-375). For a MoE
+model, int8 or bf16, it builds every layer's int8 fat stack at construction
+(``ApertisForCausalLM.attach_moe_fat``), as the JAX engine attaches its fat
+stacks (engine.py:347-364).
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ class InferenceEngine:
         self.model = model
         if model.quantized and model.lm_head is None:
             model.quantize_tied_head()
+        model.attach_moe_fat()
 
     @torch.inference_mode()
     def generate(

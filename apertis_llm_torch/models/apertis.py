@@ -1,11 +1,11 @@
 """Apertis decoder-only LM in PyTorch: the text-only selective-SSM model.
 
-The counterpart of ``apertis_llm_tpu/models/apertis.py`` for the variant
+The counterpart of ``apertis_llm_tpu/models/apertis.py`` for the variants
 ported so far (``models/params.py::check_supported``): pre-norm residual
-Mamba-style selective mixer, pre-norm residual dense FFN, final post-norm,
-tied LM head. Module and parameter names follow the JAX parameter tree, so
-``layers.3.attn.in_proj_x.w`` is layer 3 of ``layers/attn/in_proj_x/w``, and
-linear weights keep the (in, out) layout.
+Mamba-style selective mixer, pre-norm residual dense or top-2 MoE FFN, final
+post-norm, tied LM head. Module and parameter names follow the JAX parameter
+tree, so ``layers.3.attn.in_proj_x.w`` is layer 3 of
+``layers/attn/in_proj_x/w``, and linear weights keep the (in, out) layout.
 
 Three paths, with the JAX package's semantics:
   * ``forward``: full-sequence logits; like the reference, the SSM mixer
@@ -17,8 +17,17 @@ Three paths, with the JAX package's semantics:
     fused decode FFN (``ops/kernels``), whose semantics are those of the JAX
     package's fused-kernel decode path.
 
+The MoE FFN has one arithmetic, the JAX package's under
+``APERTIS_MOE_GROUPED=force``, ``APERTIS_SSM_STEP=force`` and
+``APERTIS_MOE_FUSED=fatk``: both of its kernels read the int8 fat stack of
+``models/moe_fuse.py`` (in a bf16 model too), a derived buffer of each MoE
+layer. Over full sequences the FFN runs the combine-folded fat kernel when the
+token count is at most ``max(E, moe_dense_threshold_tokens)`` and the grouped
+kernel above it; at decode the mixer step's moe epilogue emits the expert
+input and the top-2 combine weights, and the fat kernel follows.
+
 With int8 weights (``quantized``: the four mixer projections and the two FFN
-weights are ``QuantLinear``) the model computes what the JAX package computes
+weights are ``QuantLinear``, a MoE FFN's expert stacks int8 tensors) the model computes what the JAX package computes
 under ``APERTIS_QUANT_MATMUL=dyn``, ``APERTIS_LN_QUANT=force``,
 ``APERTIS_SSM_STEP=force`` and ``APERTIS_FFN_FUSED=force``, at every row
 count: each pre-norm that feeds int8 projections is fused with their row
@@ -42,13 +51,17 @@ import torch
 from torch import nn
 
 from apertis_llm_torch.config import ApertisConfig
-from apertis_llm_torch.models.params import check_supported, resolve_device
+from apertis_llm_torch.models.moe_fuse import fuse_one_fat
+from apertis_llm_torch.models.params import check_supported, is_moe, resolve_device
 from apertis_llm_torch.models.quantize import quantize_weight
+from apertis_llm_torch.ops import moe as moe_ops
 from apertis_llm_torch.ops import ssm as ssm_ops
 from apertis_llm_torch.ops.activations import get_activation, silu
 from apertis_llm_torch.ops.kernels.ffn_fused import ffn_decode, ffn_decode_int8
 from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize
-from apertis_llm_torch.ops.kernels.ssm_step import MixerWeights, ssm_decode_step
+from apertis_llm_torch.ops.kernels.moe_ffn import expert_ffn_fat
+from apertis_llm_torch.ops.kernels.ssm_step import (
+    MixerWeights, RouterWeights, ssm_decode_step)
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
 from apertis_llm_torch.ops.quant import linear_dyn, linear_pre_q
 
@@ -261,11 +274,96 @@ class DenseFFN(nn.Module):
                           self.hidden_act, out_dtype)
 
 
+_FAT_NAMES = ("w1t_q", "w1t_s", "b1t", "w2t_q", "w2t_s")
+
+
+class Experts(nn.Module):
+    """The stacked expert FFNs (``layers/ffn/experts``): LayerNorm ``ln_w``,
+    ``ln_b`` (E, H), ``w1`` (E, H, I) and ``w2`` (E, I, H), or their int8
+    forms ``w1_q``/``w1_s`` (E, 1, I) and ``w2_q``/``w2_s`` (E, 1, H), and
+    biases ``b1`` (E, I), ``b2`` (E, H). The kernels read the fat stack
+    (:meth:`fat`), held in non-persistent buffers."""
+
+    def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
+        super().__init__()
+        e, h, inter = config.num_experts, config.hidden_size, config.intermediate_size
+        self.ln_w = _param((e, h), device, dtype)
+        self.ln_b = _param((e, h), device, dtype)
+        for name, shape in (("w1", (e, h, inter)), ("w2", (e, inter, h))):
+            if quantized:
+                setattr(self, name + "_q", _param(shape, device, torch.int8))
+                setattr(self, name + "_s", _param((e, 1, shape[2]), device, torch.float32))
+            else:
+                setattr(self, name, _param(shape, device, dtype))
+        self.b1 = _param((e, inter), device, dtype)
+        self.b2 = _param((e, h), device, dtype)
+        for name in _FAT_NAMES:
+            self.register_buffer(name, None, persistent=False)
+        self._fat_key = None
+
+    @torch.no_grad()
+    def fat(self) -> Dict[str, torch.Tensor]:
+        """The int8 fat stack of these experts (``models/moe_fuse.py``),
+        built at first use and again whenever an expert tensor changes."""
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._fat_key != key:
+            for name, t in fuse_one_fat(dict(self.named_parameters())).items():
+                setattr(self, name, t.contiguous())
+            self._fat_key = key
+        return {name: getattr(self, name) for name in _FAT_NAMES}
+
+
+class MoEFFN(nn.Module):
+    """Pre-normed top-2 MoE FFN (``layers/ffn`` of a MoE tree): ``pre_norm``,
+    the router's LayerNorm ``router_ln`` and linear ``router`` (float in both
+    layouts), ``w_noise`` (kept, unused in eval) and :class:`Experts`."""
+
+    def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
+        super().__init__()
+        h, e = config.hidden_size, config.num_experts
+        self.hidden_act, self.top_k = config.hidden_act, config.experts_per_token
+        self.eps = config.layer_norm_eps
+        self.fat_max_tokens = max(e, config.moe_dense_threshold_tokens)
+        self.pre_norm = Norm(h, config.use_rmsnorm, self.eps, device, dtype)
+        self.router_ln = Norm(h, False, self.eps, device, dtype)
+        self.router = Linear(h, e, True, device, dtype)
+        self.w_noise = (_param((e,), device, dtype) if config.use_noisy_top_k_routing
+                        else None)
+        self.experts = Experts(config, device, dtype, quantized)
+
+    def router_weights(self) -> RouterWeights:
+        return RouterWeights(self.router_ln.w, self.router_ln.b, self.router.w, self.router.b)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        """Pre-norm, routing and experts over full sequences (``apertis.py::
+        _ffn``): the fat kernel up to ``max(E, moe_dense_threshold_tokens)``
+        tokens, the grouped kernel above. The pre-norm is the plain norm in
+        both layouts: the router reads the normed tensor."""
+        b, l, d = h.shape
+        x = self.pre_norm(h).reshape(b * l, d)
+        routing = moe_ops.route(x, *self.router_weights(), self.top_k,
+                                layer_norm_eps=self.eps)
+        ffn = (moe_ops.moe_dense_fat_kernel if b * l <= self.fat_max_tokens
+               else moe_ops.moe_grouped_fat)
+        out = ffn(x, routing, self.experts.fat(), self.experts.b2, self.hidden_act, self.eps)
+        return out.reshape(b, l, d)
+
+    def decode(self, ffn_in: Tuple[torch.Tensor, ...], out_dtype: torch.dtype) -> torch.Tensor:
+        """The fat kernel on the decode step's moe epilogue ``(x_q, x_s,
+        combine)``, plus ``combine @ b2`` in f32 (apertis.py:1477-1493)."""
+        x_q, x_s, comb = ffn_in
+        fat = self.experts.fat()
+        y = expert_ffn_fat(x_q, x_s, comb, fat["w1t_q"], fat["w1t_s"], fat["b1t"],
+                           fat["w2t_q"], fat["w2t_s"], comb.shape[1], self.hidden_act)
+        return (y + comb @ self.experts.b2.float()).to(out_dtype)
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
         self.attn = SelectiveSSM(config, device, dtype, quantized)
-        self.ffn = DenseFFN(config, device, dtype, quantized)
+        ffn = MoEFFN if is_moe(config) else DenseFFN
+        self.ffn = ffn(config, device, dtype, quantized)
 
     def forward(self, h: torch.Tensor, **mixer_kw):
         """One layer over full sequences: ``(h + mixer + FFN, cache)``."""
@@ -284,8 +382,9 @@ class ApertisForCausalLM(nn.Module):
     """The selective-SSM Apertis LM in eval mode. Parameters are allocated
     uninitialised; ``models/convert.py::from_jax_params`` fills them. The
     model is built on the card unless ``device`` names another. With
-    ``quantized`` the six big projections are int8 (:class:`QuantLinear`);
-    ``int8_head`` allocates the int8 tied head ``lm_head``."""
+    ``quantized`` the four big mixer projections and the FFN pair (the dense
+    ``w1``/``w2`` or the experts' stacks) are int8; ``int8_head`` allocates
+    the int8 tied head ``lm_head``."""
 
     def __init__(self, config: ApertisConfig, device="cuda",
                  dtype: torch.dtype = torch.float32, quantized: bool = False,
@@ -318,6 +417,14 @@ class ApertisForCausalLM(nn.Module):
         self.lm_head = QuantLinear(tok.shape[1], tok.shape[0], False, tok.device, tok.dtype)
         self.lm_head.w_q.copy_(q)
         self.lm_head.w_s.copy_(s)
+
+    def attach_moe_fat(self) -> None:
+        """Build every MoE layer's int8 fat stack now (``models/moe_fuse.py``),
+        so that the first request does not: ``InferenceEngine`` calls it at
+        construction, as the JAX engine attaches its fat stacks."""
+        for layer in self.layers:
+            if isinstance(layer.ffn, MoEFFN):
+                layer.ffn.experts.fat()
 
     def _lm_head(self, h: torch.Tensor) -> torch.Tensor:
         if self.lm_head is not None:
@@ -376,19 +483,29 @@ class ApertisForCausalLM(nn.Module):
                     ) -> Tuple[torch.Tensor, Cache]:
         """One autoregressive step for tokens (B,): returns logits (B, V) and
         ``cache``, updated in place. Each layer is one fused mixer step that
-        also emits the FFN's input (normed, or normed and quantized), then
-        the fused decode FFN."""
-        eps = self.config.layer_norm_eps
+        also emits the FFN's input (normed, or normed and quantized; for MoE
+        the expert input and the combine weights), then the fused decode FFN.
+        A MoE model past ``moe_dense_threshold_tokens`` rows runs the step
+        without its epilogue and the FFN as over full sequences, as the JAX
+        package does (apertis.py:1224-1230)."""
+        cfg = self.config
+        eps = cfg.layer_norm_eps
         h = self.embed.tok[token_ids]                              # (B, D)
         b = h.shape[0]
+        moe_full = is_moe(cfg) and b > cfg.moe_dense_threshold_tokens
         for i, layer in enumerate(self.layers):
             conv = cache["conv"][i]
             ssm = cache["ssm"][i].view(b, -1)          # updated in place
-            outs = ssm_decode_step(
-                h, conv, ssm, layer.attn.mixer_weights(), eps,
-                ffn_norm=layer.ffn.pre_norm.weights(), ssm_out=ssm)
+            ffn = {} if moe_full else {"ffn_norm": layer.ffn.pre_norm.weights()}
+            if is_moe(cfg) and not moe_full:
+                ffn["router"] = layer.ffn.router_weights()
+            outs = ssm_decode_step(h, conv, ssm, layer.attn.mixer_weights(), eps,
+                                   ssm_out=ssm, **ffn)
             h2, xp_new = outs[0], outs[1]
             if conv.shape[1] > 0:
                 conv.copy_(torch.cat([conv[:, 1:], xp_new[:, None, :]], dim=1))
-            h = h2 + layer.ffn.decode(outs[3:], h2.dtype)
+            if moe_full:
+                h = h2 + layer.ffn(h2[:, None, :])[:, 0]
+            else:
+                h = h2 + layer.ffn.decode(outs[3:], h2.dtype)
         return self._lm_head(self.final_norm(h)), cache

@@ -11,7 +11,10 @@ packages compute with one set of weights.
 A tree from ``quantize_params`` (either package's) builds the int8 model:
 ``{w_q, w_s}`` leaves become :class:`QuantLinear` parameters of the same
 names, taken as they are, and an ``lm_head`` from ``quantize_tied_head``
-becomes the model's int8 head.
+becomes the model's int8 head. A MoE tree, float or int8, fills the MoE
+FFN's parameters by the same names (``layers.{i}.ffn.experts.w1_q``, the
+router, and ``w_noise``, which eval does not read); the fat stack the
+kernels read is derived from them, not loaded.
 """
 
 from __future__ import annotations

@@ -1,13 +1,15 @@
 """Parameter initialisation, as a tree of tensors named like the JAX package's.
 
 ``init_params`` builds the same nested dict of names and shapes as
-``apertis_llm_tpu/models/params.py::init_params`` for the text-only model:
+``apertis_llm_tpu/models/params.py::init_params`` for the text-only model,
+with a dense or a MoE FFN:
 per-layer tensors stacked along a leading ``num_hidden_layers`` axis, linear
 weights in the (in, out) layout, and the same distributions
 (reference: src/model/core.py:1045-1062, 314-318): normal(0,
 initializer_range) for linears and embeddings, zero biases, unit norm
 scales, dt bias ~ U(log 1e-3, log 1e-2), A_log ~ U(log 0.5, log 0.99), D = 1,
-conv taps ~ U(+-1/sqrt(K)). The numbers differ from JAX's, which draws from
+conv taps ~ U(+-1/sqrt(K)), unit expert and router LayerNorms, zero
+``w_noise``. The numbers differ from JAX's, which draws from
 its own generator. ``models/convert.py::from_jax_params`` turns the tree into
 the model's modules.
 """
@@ -24,10 +26,10 @@ from apertis_llm_torch.config import ApertisConfig
 Params = Dict[str, Any]
 
 
-# The projections that are either all int8 or all float in a tree the port
-# serves: (sublayer, name) under ``layers``.
+# The mixer projections that are either all int8 or all float, with the FFN
+# pair, in a tree the port serves: (sublayer, name) under ``layers``.
 _QUANT_PROJECTIONS = (("attn", "in_proj_x"), ("attn", "in_proj_z"), ("attn", "x_param_proj"),
-                     ("attn", "out_proj"), ("ffn", "w1"), ("ffn", "w2"))
+                     ("attn", "out_proj"))
 
 
 def resolve_device(device) -> torch.device:
@@ -41,14 +43,26 @@ def resolve_device(device) -> torch.device:
 
 
 def quantized_layout(params: Params) -> bool:
-    """True when the six big projections of ``params["layers"]`` are int8
-    (``{w_q, w_s}``), False when they are all float (``{w}``). A mixed tree
-    raises ``NotImplementedError``: the JAX package serves one quietly through
-    its unfused path, which the port does not have."""
+    """True when the four big mixer projections and the FFN pair of
+    ``params["layers"]`` are int8, False when they are all float. The FFN
+    pair is ``ffn.w1`` / ``ffn.w2`` (``{w_q, w_s}`` or ``{w}``) in a dense
+    tree and ``ffn.experts.w1`` / ``w2`` (``w1_q, w1_s`` or ``w1``) in a MoE
+    tree. A mixed tree raises ``NotImplementedError``: the JAX package serves
+    one quietly through its unfused path, which the port does not have."""
+    layers = params.get("layers", {})
     kinds = {}
     for sub, name in _QUANT_PROJECTIONS:
-        leaf = params.get("layers", {}).get(sub, {}).get(name, {})
+        leaf = layers.get(sub, {}).get(name, {})
         kinds[f"{sub}.{name}"] = "int8" if "w_q" in leaf else "float" if "w" in leaf else None
+    ffn = layers.get("ffn", {})
+    experts = ffn.get("experts")
+    for name in ("w1", "w2"):
+        if experts is not None:
+            kinds[f"ffn.experts.{name}"] = ("int8" if name + "_q" in experts else
+                                            "float" if name in experts else None)
+        else:
+            leaf = ffn.get(name, {})
+            kinds[f"ffn.{name}"] = "int8" if "w_q" in leaf else "float" if "w" in leaf else None
     if len(set(kinds.values())) != 1 or None in kinds.values():
         raise NotImplementedError(
             "the port serves trees whose projections are all int8 or all float; "
@@ -56,26 +70,37 @@ def quantized_layout(params: Params) -> bool:
     return kinds["attn.in_proj_x"] == "int8"
 
 
+def is_moe(config: ApertisConfig) -> bool:
+    return bool(config.use_expert_system and config.num_experts > 0)
+
+
 def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
-    """Raise unless ``config`` is the variant ported so far: the text-only
-    selective-SSM decoder with a dense FFN, rotary (unused) positions and a
-    tied LM head, in bf16/f32 or with int8 projections. The MHA, MoE,
-    SwiGLU, multimodal and absolute-position variants and int4 weights are
-    later slices of the port (ROADMAP.md)."""
+    """Raise unless ``config`` is a variant ported so far: the text-only
+    selective-SSM decoder with a dense FFN or a top-2 MoE FFN, rotary
+    (unused) positions and a tied LM head, in bf16/f32 or with int8
+    projections. The MHA, SwiGLU, multimodal and absolute-position variants,
+    MoE with another top-k, and int4 weights are later slices of the port
+    (ROADMAP.md)."""
     missing = []
     if config.attention_type != "selective_ssm":
         missing.append(f"attention_type={config.attention_type!r}")
     if config.use_swiglu:
         missing.append("use_swiglu")
-    if config.use_expert_system and config.num_experts > 0:
-        missing.append("use_expert_system")
+    if is_moe(config) and config.experts_per_token != 2:
+        # The decode step's MoE epilogue is top-2 only (apertis.py:1228).
+        missing.append(f"MoE with experts_per_token={config.experts_per_token} (top-2 only)")
     if config.multimodal:
         missing.append("multimodal")
     if config.position_embedding_type == "absolute":
         missing.append("absolute position embeddings")
     if not config.tie_word_embeddings:
         missing.append("an untied LM head")
-    if quantized and (config.hidden_size % 128 or config.intermediate_size % 128):
+    if is_moe(config):
+        # The MoE kernels read int8 rows and weights in 16-byte units; their
+        # fat stack is int8 in both layouts.
+        if config.hidden_size % 16 or config.intermediate_size % 16:
+            missing.append("MoE with hidden or intermediate size not a multiple of 16")
+    elif quantized and (config.hidden_size % 128 or config.intermediate_size % 128):
         # The JAX package's fused int8 decode FFN tiles both by 128.
         missing.append("int8 weights with hidden or intermediate size not a multiple of 128")
     if missing:
@@ -144,11 +169,24 @@ def init_params(config: ApertisConfig, generator: torch.Generator,
         "out_proj": init.linear(nl, c, h, std, bias=False),
     }
     inter = config.intermediate_size
-    ffn = {
-        "pre_norm": init.norm(nl, h, rms),
-        "w1": init.linear(nl, h, inter, std, bias=True),
-        "w2": init.linear(nl, inter, h, std, bias=True),
-    }
+    ffn = {"pre_norm": init.norm(nl, h, rms)}
+    if is_moe(config):
+        e = config.num_experts
+        ffn["router_ln"] = init.norm(nl, h, rms=False)
+        ffn["router"] = init.linear(nl, h, e, std, bias=True)
+        if config.use_noisy_top_k_routing:
+            ffn["w_noise"] = init.full((*nl, e), 0.0)
+        ffn["experts"] = {
+            "ln_w": init.full((*nl, e, h), 1.0),
+            "ln_b": init.full((*nl, e, h), 0.0),
+            "w1": init.normal((*nl, e, h, inter), std),
+            "b1": init.full((*nl, e, inter), 0.0),
+            "w2": init.normal((*nl, e, inter, h), std),
+            "b2": init.full((*nl, e, h), 0.0),
+        }
+    else:
+        ffn["w1"] = init.linear(nl, h, inter, std, bias=True)
+        ffn["w2"] = init.linear(nl, inter, h, std, bias=True)
     params["layers"] = {"attn": attn, "ffn": ffn}
     params["final_norm"] = init.norm((), h, rms)
     return params

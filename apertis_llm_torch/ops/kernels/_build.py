@@ -25,8 +25,9 @@ from pathlib import Path
 PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT / "_build"
-SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu", "moe_ffn.cu",
+           "moe_grouped.cu")
+HEADERS = ("common.cuh", "moe_gemm.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
 # int8 quantizations rely on.
@@ -39,10 +40,10 @@ SIGNATURES = {
     # delta, a_cont, b_term, c_mod, mask, y, h_last, B, L, H, N, bc_bf16,
     # y_bf16, stream
     "apertis_selective_scan_fwd": [_P] * 7 + [_I] * 6 + [_P],
-    # 17 inputs, 4 outputs, 4 scratch, B, D, C, K, R, H, N, rms, eps, stream
-    "apertis_ssm_decode_step": [_P] * 25 + [_I] * 8 + [_F, _P],
-    # 21 inputs, 5 outputs, 4 scratch, B, D, C, K, R, H, N, rms, eps, stream
-    "apertis_ssm_decode_step_int8": [_P] * 30 + [_I] * 8 + [_F, _P],
+    # 21 inputs, 6 outputs, 4 scratch, B, D, C, K, R, H, N, E, rms, eps, stream
+    "apertis_ssm_decode_step": [_P] * 31 + [_I] * 9 + [_F, _P],
+    # 25 inputs, 6 outputs, 4 scratch, B, D, C, K, R, H, N, E, rms, eps, stream
+    "apertis_ssm_decode_step_int8": [_P] * 35 + [_I] * 9 + [_F, _P],
     # x, w1, b1, w2, b2, out, partial, S, D, I, chunks_per_part, act, stream
     "apertis_ffn_decode": [_P] * 7 + [_I] * 5 + [_P],
     # x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2, out, hidden, partial, S, D, I,
@@ -50,6 +51,12 @@ SIGNATURES = {
     "apertis_ffn_decode_int8": [_P] * 11 + [_I] * 5 + [_P],
     # x, w, b, q, scale, rows, H, rms, eps, stream
     "apertis_ln_quantize": [_P] * 5 + [_I] * 3 + [_F, _P],
+    # x_q, x_s, comb, w1t_q, w1t_s, b1t, w2t_q, w2t_s, out, hidden, absmax,
+    # partial, S, H, E*I, E, bn, ksplit, act, stream
+    "apertis_expert_ffn_fat": [_P] * 12 + [_I] * 7 + [_P],
+    # x_q, x_s, emap, w1t_q, w1t_s, b1t, w2t_q, w2t_s, out, hidden, absmax, P,
+    # H, E*I, E, act, stream
+    "apertis_expert_ffn_grouped": [_P] * 11 + [_I] * 5 + [_P],
 }
 
 
@@ -115,6 +122,14 @@ def load_library() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def check_aligned(name: str, *tensors) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary, for kernels
+    that load 16 bytes at a time."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be 16-byte aligned")
 
 
 def check_tensor(t, shape, dtypes, name: str, device) -> None:

@@ -1,0 +1,142 @@
+"""The combine-folded all-expert MoE FFN: decode, and prefill at small token counts.
+
+``expert_ffn_fat`` launches the CUDA kernel in ``csrc/moe_ffn.cu`` (three
+launches: the int8 GEMM1 with its epilogue and per-(row, tile) absmax, the
+int8 GEMM2 that requantizes the hidden as it reads it, and a fixed-order
+reduce over the tiles) for CUDA tensors and runs
+:func:`expert_ffn_fat_reference`, its plain PyTorch version, for CPU tensors.
+It replaces ``apertis_llm_tpu/ops/pallas/moe_ffn.py::expert_ffn_fat`` with
+the int8 fat stack of ``models/moe_fuse.py``, unstacked: the caller passes
+one layer's tensors. The int4 fat layout is a later slice.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from apertis_llm_torch.ops.activations import get_activation
+from apertis_llm_torch.ops.kernels import _build
+from apertis_llm_torch.ops.quant import int_mm
+
+_ACT_CODES = {"relu": 1, "silu": 2, "swish": 2}   # anything else: exact GELU
+_GEMM_M, _GEMM_N, _GEMM_K = 64, 128, 64           # csrc/moe_gemm.cuh block tile
+_BLOCK_N = 2816     # the TPU kernel's default tile width (moe_ffn.py:270)
+
+
+def fat_block_n(inter: int) -> int:
+    """The hidden tile width of the fat kernel for I = ``inter`` columns per
+    expert, the TPU kernel's loop (moe_ffn.py:289-294) from its default
+    width: halve until the tile divides I and is a multiple of 128, else 128
+    when that divides I, else I. 2816 at the 1.5B MoE preset; 128 for
+    I = 256, 384, 512, 1024; I for I = 192 or 704."""
+    bn = _BLOCK_N
+    while inter % bn != 0 or bn % 128 != 0:
+        bn //= 2
+        if bn < 128:
+            return 128 if inter % 128 == 0 else inter
+    return bn
+
+
+def expert_ffn_fat_reference(
+    xq: torch.Tensor,       # (S, H) int8, centred and quantized rows
+    xs: torch.Tensor,       # (S, 1) f32 row scales
+    combine: torch.Tensor,  # (S, E) f32 routing-combine weights
+    w1t_q: torch.Tensor,    # (H, E*I) int8
+    w1t_s: torch.Tensor,    # (1, E*I) f32
+    b1t: torch.Tensor,      # (E*I,) f32
+    w2t_q: torch.Tensor,    # (E*I, H) int8
+    w2t_s: torch.Tensor,    # (1, H) f32, one scale per output channel
+    num_experts: int,
+    hidden_act: str = "gelu",
+) -> torch.Tensor:
+    """The TPU kernel's arithmetic step by step, f32 (S, H) out:
+    ``h = act(int32(xq @ W1t) * xs * w1t_s + b1t)``; per hidden tile t of
+    :func:`fat_block_n` columns (expert e = t // tiles per expert)
+    ``hs = max(absmax, 1e-8) * (1/127)``, ``hq = rint(h_t / hs)``,
+    ``acc += int32(hq @ W2t[t]) * (hs * combine[:, e])`` in tile order;
+    ``out = acc * w2t_s``."""
+    ei = w1t_q.shape[1]
+    bn = fat_block_n(ei // num_experts)
+    per_expert = ei // num_experts // bn
+    act = get_activation(hidden_act)
+    h = act(int_mm(xq, w1t_q).float() * xs * w1t_s.reshape(1, -1) + b1t.float())
+    acc = torch.zeros((xq.shape[0], w2t_q.shape[1]), dtype=torch.float32, device=xq.device)
+    for t in range(ei // bn):
+        ht = h[:, t * bn:(t + 1) * bn]
+        hs = torch.clamp(ht.abs().amax(dim=1, keepdim=True), min=1e-8) * (1.0 / 127.0)
+        hq = torch.clamp(torch.round(ht / hs), -127, 127).to(torch.int8)
+        col = combine[:, t // per_expert:t // per_expert + 1].float()
+        acc = acc + int_mm(hq, w2t_q[t * bn:(t + 1) * bn]).float() * (hs * col)
+    return acc * w2t_s.reshape(1, -1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _ksplit(rows: int, d: int, tiles: int, bn: int, device_index: int) -> int:
+    """Parts each hidden tile's GEMM2 is cut into, for about two blocks per
+    SM; a deterministic function of the shape and the card (the int32 parts
+    add exactly, so it does not change the result)."""
+    blocks = -(-d // _GEMM_N) * tiles * -(-rows // _GEMM_M)
+    return max(1, min(-(-bn // _GEMM_K), -(-2 * _sm_count(device_index) // blocks)))
+
+
+def expert_ffn_fat(
+    xq: torch.Tensor,
+    xs: torch.Tensor,
+    combine: torch.Tensor,
+    w1t_q: torch.Tensor,
+    w1t_s: torch.Tensor,
+    b1t: torch.Tensor,
+    w2t_q: torch.Tensor,
+    w2t_s: torch.Tensor,
+    num_experts: int,
+    hidden_act: str = "gelu",
+) -> torch.Tensor:
+    """The fat MoE FFN: kernel on CUDA tensors, plain version on CPU ones.
+
+    The kernel takes contiguous tensors of the dtypes above, H and I
+    multiples of 16 and 16-byte aligned operands, and returns f32 (S, H).
+    """
+    if xq.device.type == "cpu":
+        return expert_ffn_fat_reference(xq, xs, combine, w1t_q, w1t_s, b1t, w2t_q, w2t_s,
+                                        num_experts, hidden_act)
+    s, d = xq.shape
+    ei = w1t_q.shape[1]
+    dev = xq.device
+    i8, f32 = (torch.int8,), (torch.float32,)
+    _build.check_tensor(xq, (s, d), i8, "xq", dev)
+    _build.check_tensor(xs, (s, 1), f32, "xs", dev)
+    _build.check_tensor(combine, (s, num_experts), f32, "combine", dev)
+    _build.check_tensor(w1t_q, (d, ei), i8, "w1t_q", dev)
+    _build.check_tensor(w1t_s, (1, ei), f32, "w1t_s", dev)
+    _build.check_tensor(b1t, (ei,), f32, "b1t", dev)
+    _build.check_tensor(w2t_q, (ei, d), i8, "w2t_q", dev)
+    _build.check_tensor(w2t_s, (1, d), f32, "w2t_s", dev)
+    inter = ei // max(num_experts, 1)
+    if s == 0 or d % 16 or num_experts <= 0 or ei % num_experts or inter % 16:
+        raise ValueError(f"expert_ffn_fat: unsupported shape S={s} H={d} E*I={ei} "
+                         f"E={num_experts}")
+    _build.check_aligned("expert_ffn_fat", xq, w1t_q, w2t_q)
+    bn = fat_block_n(inter)
+    tiles = ei // bn
+    ksplit = _ksplit(s, d, tiles, bn, dev.index)
+    hidden = torch.empty((s, ei), dtype=torch.float32, device=dev)
+    absmax = torch.empty((s, tiles), dtype=torch.float32, device=dev)
+    partial = torch.empty((tiles * ksplit, s, d), dtype=torch.int32, device=dev)
+    out = torch.empty((s, d), dtype=torch.float32, device=dev)
+    err = _build.load_library().apertis_expert_ffn_fat(
+        xq.data_ptr(), xs.data_ptr(), combine.data_ptr(), w1t_q.data_ptr(), w1t_s.data_ptr(),
+        b1t.data_ptr(), w2t_q.data_ptr(), w2t_s.data_ptr(), out.data_ptr(), hidden.data_ptr(),
+        absmax.data_ptr(), partial.data_ptr(), s, d, ei, num_experts, bn, ksplit,
+        _ACT_CODES.get(hidden_act, 0), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "expert_ffn_fat")
+    expert_ffn_fat.launches += 1
+    return out
+
+
+expert_ffn_fat.launches = 0

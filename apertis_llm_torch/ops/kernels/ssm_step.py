@@ -4,10 +4,12 @@
 launches per layer) for CUDA tensors and runs
 :func:`ssm_decode_step_reference`, its plain PyTorch version, for CPU tensors.
 It replaces ``apertis_llm_tpu/ops/pallas/ssm_step.py::ssm_decode_step_fused``
-with ``ffn_mode`` "none" or "dense" (``ffn_norm`` given) in both weight
-layouts, picked from the weights' dtype as the TPU kernel picks it from the
-pack: bf16, or int8 with per-output-channel scales (launched and counted by
-:func:`ssm_decode_step_int8`). The semantics are the fused kernel's, not
+with ``ffn_mode`` "none", "dense" (``ffn_norm`` given) or "moe" (``ffn_norm``
+and ``router`` given) in both weight layouts, picked from the weights' dtype
+as the TPU kernel picks it from the pack: bf16, or int8 with
+per-output-channel scales (launched and counted by
+:func:`ssm_decode_step_int8`). The "moe" epilogue emits the int8 expert input
+``(x_q, x_s)`` and the router's top-2 combine weights in both layouts. The semantics are the fused kernel's, not
 those of the unfused ``models/apertis.py::_ssm_decode_step``: the two round
 through bf16 at different points.
 
@@ -24,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from apertis_llm_torch.ops.kernels import _build
+from apertis_llm_torch.ops.moe import _combine_weights, route
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
 from apertis_llm_torch.ops.quant import int_mm
 
@@ -55,6 +58,14 @@ class MixerWeights(NamedTuple):
         return self.inx_w.dtype == torch.int8
 
 
+class RouterWeights(NamedTuple):
+    """One layer's MoE router: its LayerNorm and its (D, E) linear."""
+    ln_w: torch.Tensor    # (D,)
+    ln_b: torch.Tensor    # (D,)
+    w: torch.Tensor       # (D, E)
+    b: torch.Tensor       # (E,)
+
+
 def _norm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], eps: float):
     return rms_norm(x, w, eps) if b is None else layer_norm(x, w, b, eps)
 
@@ -83,6 +94,21 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 20.0, x, torch.log(1.0 + torch.exp(torch.clamp(x, max=20.0))))
 
 
+def _moe_epilogue(n2: torch.Tensor, router: RouterWeights, eps: float):
+    """The expert input and combine weights from the FFN input n2 (f32,
+    bf16-rounded), ssm_step.py:198-231: ``x - mean`` quantized per row by
+    this kernel's formula with ``rsqrt(var + eps)`` folded into the scale,
+    and the eval-mode top-2 routing of n2 (``ops/moe.py::route``: the same
+    LayerNorm, logits, softmax, top-2 and renormalisation)."""
+    mean = n2.mean(dim=-1, keepdim=True)
+    cen = n2 - mean
+    var = (cen * cen).mean(dim=-1, keepdim=True)
+    inv = torch.where(var > 0, torch.rsqrt(var + eps), torch.zeros_like(var))
+    x_q, scale = _quant_rows(cen)
+    routing = route(n2, *router, 2, layer_norm_eps=eps)
+    return x_q, scale * inv, _combine_weights(routing, router.w.shape[-1], torch.float32)
+
+
 def ssm_decode_step_reference(
     h: torch.Tensor,            # (B, D) residual stream
     conv_state: torch.Tensor,   # (B, K-1, C) carried conv window
@@ -91,13 +117,16 @@ def ssm_decode_step_reference(
     eps: float,
     ffn_norm: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
     ssm_out: Optional[torch.Tensor] = None,
+    router: Optional[RouterWeights] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Returns ``(h + mixer_out, new_x_proj, new_ssm_state)`` and, with
     ``ffn_norm``, the FFN input ``ffn_pre_norm(h + mixer_out)`` rounded
     through bf16: as it is in the bf16 layout, quantized per row
     ``(x_q int8 (B, D), x_s f32 (B, 1))`` in the int8 layout. With
-    ``ssm_out`` (which may be ``ssm_state``) the new state is written there
-    and returned."""
+    ``router`` as well (the moe epilogue, both layouts) it returns the
+    expert input ``(x_q, x_s)`` and the (B, E) f32 combine weights instead.
+    With ``ssm_out`` (which may be ``ssm_state``) the new state is written
+    there and returned."""
     quant = w.quantized
     x = h.float()
     nrm = _norm(x, w.norm_w, w.norm_b, eps)
@@ -147,11 +176,14 @@ def ssm_decode_step_reference(
     if ffn_norm is not None:
         # Rounded through bf16, as the FFN kernel's input (then quantized).
         n2 = _norm(hsum, ffn_norm[0], ffn_norm[1], eps).to(torch.bfloat16)
-        outs += _quant_rows(n2.float()) if quant else (n2,)
+        if router is not None:
+            outs += _moe_epilogue(n2.float(), router, eps)
+        else:
+            outs += _quant_rows(n2.float()) if quant else (n2,)
     return outs
 
 
-def _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, proj_dtype):
+def _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, proj_dtype, router):
     """Raise unless the step's tensors are what its kernel takes; returns
     (B, D, C, K, R, H, N)."""
     bf16 = (torch.bfloat16,)
@@ -188,6 +220,15 @@ def _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, proj_dtype):
         _build.check_tensor(ffn_norm[0], (d,), bf16, "ffn_norm weight", dev)
         if ffn_norm[1] is not None:
             _build.check_tensor(ffn_norm[1], (d,), bf16, "ffn_norm bias", dev)
+    if router is not None:
+        if ffn_norm is None:
+            raise ValueError("ssm_decode_step: the moe epilogue needs ffn_norm")
+        e = router.w.shape[-1]
+        for name, t, shape in (("router ln_w", router.ln_w, (d,)), ("router ln_b", router.ln_b, (d,)),
+                               ("router w", router.w, (d, e)), ("router b", router.b, (e,))):
+            _build.check_tensor(t, shape, bf16, name, dev)
+        if not 2 <= e <= 32:
+            raise ValueError(f"ssm_decode_step: the moe epilogue takes 2-32 experts, got {e}")
     if bsz == 0 or heads * n != c:
         raise ValueError(f"ssm_decode_step: unsupported shape B={bsz} C={c} H={heads}")
     return bsz, d, c, k, r, heads, n
@@ -205,46 +246,72 @@ def ssm_decode_step(
     eps: float,
     ffn_norm: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
     ssm_out: Optional[torch.Tensor] = None,
+    router: Optional[RouterWeights] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """One mixer decode step: kernel on CUDA tensors, plain version on CPU.
 
     The kernel takes bf16 ``h``, ``conv_state`` and weights, an f32
     ``ssm_state`` (and ``ssm_out``, which may be the same tensor), all
-    contiguous, and one norm kind for both norms. Int8 projection weights
-    go to :func:`ssm_decode_step_int8`.
+    contiguous, and one norm kind for both norms; ``router`` (bf16, 2-32
+    experts) selects the moe epilogue. Int8 projection weights go to
+    :func:`ssm_decode_step_int8`.
     """
     if h.device.type == "cpu":
         return ssm_decode_step_reference(h, conv_state, ssm_state, w, eps, ffn_norm,
-                                         ssm_out)
+                                         ssm_out, router)
     if w.quantized:
-        return ssm_decode_step_int8(h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out)
-    bsz, d, c, k, r, heads, n = _check_step(h, conv_state, ssm_state, w, ffn_norm,
-                                            ssm_out, torch.bfloat16)
-    dev = h.device
-    h_out = torch.empty_like(h)
-    xp_out = torch.empty((bsz, c), dtype=conv_state.dtype, device=dev)
-    if ssm_out is None:
-        ssm_out = torch.empty((bsz, c), dtype=torch.float32, device=dev)
-    z = torch.empty((bsz, c), dtype=torch.float32, device=dev)
-    g = torch.empty((bsz, c), dtype=torch.bfloat16, device=dev)
-    tickets = torch.empty((-(-bsz // _ROWS),), dtype=torch.int32, device=dev)
-    ffn_in = hsum = None
-    if ffn_norm is not None:
-        ffn_in = torch.empty((bsz, d), dtype=torch.bfloat16, device=dev)
-        hsum = torch.empty((bsz, d), dtype=torch.float32, device=dev)
-
+        return ssm_decode_step_int8(h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out,
+                                    router)
+    dims = _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, torch.bfloat16, router)
+    bufs = _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, torch.bfloat16)
     fn_w, fn_b = ffn_norm if ffn_norm is not None else (None, None)
     err = _build.load_library().apertis_ssm_decode_step(
         _ptr(h), _ptr(conv_state), _ptr(ssm_state), _ptr(w.norm_w), _ptr(w.norm_b),
         _ptr(w.inx_w), _ptr(w.inz_w), _ptr(w.conv_w), _ptr(w.conv_b), _ptr(w.xparam_w),
         _ptr(w.dt_w), _ptr(w.dt_b), _ptr(w.a_log), _ptr(w.d_skip), _ptr(w.out_w),
-        _ptr(fn_w), _ptr(fn_b), _ptr(h_out), _ptr(xp_out), _ptr(ssm_out), _ptr(ffn_in),
-        _ptr(z), _ptr(g), _ptr(hsum), _ptr(tickets), bsz, d, c, k, r, heads, n,
-        int(w.norm_b is None), float(eps), torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(fn_w), _ptr(fn_b), *_router_ptrs(router), *(_ptr(t) for t in bufs),
+        *dims, _num_experts(router), int(w.norm_b is None), float(eps),
+        torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "ssm_decode_step")
     ssm_decode_step.launches += 1
-    outs = (h_out, xp_out, ssm_out)
-    return outs + (ffn_in,) if ffn_in is not None else outs
+    return _step_outputs(bufs)
+
+
+def _router_ptrs(router):
+    return (None,) * 4 if router is None else tuple(_ptr(t) for t in router)
+
+
+def _num_experts(router) -> int:
+    return 0 if router is None else router.w.shape[-1]
+
+
+def _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, g_dtype):
+    """Outputs and scratch of one launch, in the C entry points' order:
+    h_out, xp_out, ssm_out, ffn_in, ffn_scale, comb, z, g, hsum, tickets.
+    ffn_in is bf16 in the bf16 layout's dense epilogue and int8 otherwise."""
+    bsz, d, c = dims[:3]
+    dev = h.device
+    ffn_in = ffn_scale = comb = hsum = None
+    if ffn_norm is not None:
+        quant_in = router is not None or g_dtype == torch.float32
+        ffn_in = torch.empty((bsz, d), dtype=torch.int8 if quant_in else torch.bfloat16,
+                             device=dev)
+        if quant_in:
+            ffn_scale = torch.empty((bsz, 1), dtype=torch.float32, device=dev)
+        if router is not None:
+            comb = torch.empty((bsz, router.w.shape[-1]), dtype=torch.float32, device=dev)
+        hsum = torch.empty((bsz, d), dtype=torch.float32, device=dev)
+    if ssm_out is None:
+        ssm_out = torch.empty((bsz, c), dtype=torch.float32, device=dev)
+    return (torch.empty_like(h), torch.empty((bsz, c), dtype=conv_state.dtype, device=dev),
+            ssm_out, ffn_in, ffn_scale, comb,
+            torch.empty((bsz, c), dtype=torch.float32, device=dev),
+            torch.empty((bsz, c), dtype=g_dtype, device=dev), hsum,
+            torch.empty((-(-bsz // _ROWS),), dtype=torch.int32, device=dev))
+
+
+def _step_outputs(bufs):
+    return tuple(t for t in bufs[:6] if t is not None)
 
 
 def ssm_decode_step_int8(
@@ -255,43 +322,30 @@ def ssm_decode_step_int8(
     eps: float,
     ffn_norm: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
     ssm_out: Optional[torch.Tensor] = None,
+    router: Optional[RouterWeights] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The step with the int8 weight layout (``csrc/ssm_step.cu``,
     ``apertis_ssm_decode_step_int8``): int8 projections with (1, out) f32
     scales, D and C multiples of 4, the rest as :func:`ssm_decode_step`.
-    With ``ffn_norm`` it returns the FFN input as ``(x_q, x_s)``."""
+    With ``ffn_norm`` it returns the FFN input as ``(x_q, x_s)``, and with
+    ``router`` the combine weights after it."""
     if h.device.type == "cpu":
         return ssm_decode_step_reference(h, conv_state, ssm_state, w, eps, ffn_norm,
-                                         ssm_out)
-    bsz, d, c, k, r, heads, n = _check_step(h, conv_state, ssm_state, w, ffn_norm,
-                                            ssm_out, torch.int8)
-    dev = h.device
-    h_out = torch.empty_like(h)
-    xp_out = torch.empty((bsz, c), dtype=conv_state.dtype, device=dev)
-    if ssm_out is None:
-        ssm_out = torch.empty((bsz, c), dtype=torch.float32, device=dev)
-    z = torch.empty((bsz, c), dtype=torch.float32, device=dev)
-    g = torch.empty((bsz, c), dtype=torch.float32, device=dev)
-    tickets = torch.empty((-(-bsz // _ROWS),), dtype=torch.int32, device=dev)
-    x_q = x_s = hsum = None
-    if ffn_norm is not None:
-        x_q = torch.empty((bsz, d), dtype=torch.int8, device=dev)
-        x_s = torch.empty((bsz, 1), dtype=torch.float32, device=dev)
-        hsum = torch.empty((bsz, d), dtype=torch.float32, device=dev)
-
+                                         ssm_out, router)
+    dims = _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, torch.int8, router)
+    bufs = _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, torch.float32)
     fn_w, fn_b = ffn_norm if ffn_norm is not None else (None, None)
     err = _build.load_library().apertis_ssm_decode_step_int8(
         _ptr(h), _ptr(conv_state), _ptr(ssm_state), _ptr(w.norm_w), _ptr(w.norm_b),
         _ptr(w.inx_w), _ptr(w.inx_s), _ptr(w.inz_w), _ptr(w.inz_s), _ptr(w.conv_w),
         _ptr(w.conv_b), _ptr(w.xparam_w), _ptr(w.xparam_s), _ptr(w.dt_w), _ptr(w.dt_b),
         _ptr(w.a_log), _ptr(w.d_skip), _ptr(w.out_w), _ptr(w.out_s), _ptr(fn_w),
-        _ptr(fn_b), _ptr(h_out), _ptr(xp_out), _ptr(ssm_out), _ptr(x_q), _ptr(x_s),
-        _ptr(z), _ptr(g), _ptr(hsum), _ptr(tickets), bsz, d, c, k, r, heads, n,
-        int(w.norm_b is None), float(eps), torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(fn_b), *_router_ptrs(router), *(_ptr(t) for t in bufs), *dims,
+        _num_experts(router), int(w.norm_b is None), float(eps),
+        torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "ssm_decode_step_int8")
     ssm_decode_step_int8.launches += 1
-    outs = (h_out, xp_out, ssm_out)
-    return outs + (x_q, x_s) if x_q is not None else outs
+    return _step_outputs(bufs)
 
 
 ssm_decode_step.launches = 0

@@ -25,17 +25,25 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     row-major or column-major. On the card ``torch._int_mm`` needs K and N
     multiples of 8 and more than 16 rows, and cuBLASLt refuses some row
     counts that are not multiples of 32 when K is small: the rows are padded
-    with zeros to a multiple of 32 and cut off again."""
+    with zeros to a multiple of 32, K and N to multiples of 8 (zeros add
+    nothing to the sums; a column-major ``b`` stays column-major), and the
+    padding is cut off again."""
     a = a.contiguous()
     if not (b.is_contiguous() or b.t().is_contiguous()):
         b = b.contiguous()
-    m = a.shape[0]
-    if a.device.type != "cuda" or m % 32 == 0:
+    m, k = a.shape
+    n = b.shape[1]
+    if a.device.type != "cuda" or (m % 32 == 0 and k % 8 == 0 and n % 8 == 0):
         return torch._int_mm(a, b)
-    rows = -(-m // 32) * 32
-    padded = torch.zeros((rows, a.shape[1]), dtype=torch.int8, device=a.device)
-    padded[:m] = a
-    return torch._int_mm(padded, b)[:m]
+    pad_k, pad_n = -k % 8, -n % 8
+    if pad_k or pad_n:
+        if b.t().is_contiguous():
+            b = torch.nn.functional.pad(b.t(), (0, pad_k, 0, pad_n)).t()
+        else:
+            b = torch.nn.functional.pad(b, (0, pad_n, 0, pad_k))
+    padded = torch.zeros((-(-m // 32) * 32, k + pad_k), dtype=torch.int8, device=a.device)
+    padded[:m, :k] = a
+    return torch._int_mm(padded, b)[:m, :n]
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,9 +1,10 @@
 """Where the time of serving goes: ``torch.profiler`` over prefill and decode.
 
-    python -m apertis_llm_torch.profile_serving [--layers N]
+    python -m apertis_llm_torch.profile_serving [--layers N] [--moe]
 
 Builds the 1.5B selective-SSM model on the card from a seeded generator
-(``chip_smoke.py``'s configuration, random weights), in bf16 and with int8
+(``chip_smoke.py``'s configuration, random weights; with ``--moe`` the 1.5B
+top-2-of-8 MoE preset instead), in bf16 and with int8
 weights (``quantize_params`` on the card, the int8 tied head attached), and
 for each traces one prefill of 64 prompts x 32 tokens and of 4 x 64 tokens
 (the smoke's requests B and A, bucketed as ``InferenceEngine`` buckets them)
@@ -63,7 +64,9 @@ def _trace(label, fn, calls, card, top=8):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=None,
-                        help="cut the depth (default: the preset's 20 layers)")
+                        help="cut the depth (default: the preset's)")
+    parser.add_argument("--moe", action="store_true",
+                        help="the 1.5B MoE preset (8 experts, top-2) instead of the dense one")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
@@ -77,7 +80,8 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     card = _card()
-    dims = calculate_model_dimensions("1.5B", 32000)
+    dims = calculate_model_dimensions("1.5B", 32000, use_expert_system=args.moe)
+    moe = dict(use_expert_system=True, num_experts=8, experts_per_token=2) if args.moe else {}
     config = ApertisConfig(
         vocab_size=32000, attention_type="selective_ssm", ssm_d_state=16,
         hidden_size=dims["hidden_size"],
@@ -85,7 +89,7 @@ def main(argv=None) -> int:
         num_attention_heads=dims["num_attention_heads"],
         intermediate_size=dims["intermediate_size"], hidden_dropout_prob=0.0,
         attention_probs_dropout_prob=0.0, max_position_embeddings=4096,
-        dtype="bfloat16", param_dtype="bfloat16")
+        dtype="bfloat16", param_dtype="bfloat16", **moe)
     tree = init_params(config, torch.Generator(device=dev).manual_seed(0), device=dev,
                        dtype=torch.bfloat16)
     models = {"bf16": from_jax_params(tree, config, device=dev, dtype=torch.bfloat16),
@@ -95,7 +99,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(1)
     print(f"card: {card}; {config.num_hidden_layers} layers", flush=True)
     for kind, model in models.items():
-        InferenceEngine(config, model)          # attaches the int8 head
+        InferenceEngine(config, model)          # attaches the int8 head, MoE fat stacks
         for rows, length in ((64, 32), (4, 64)):
             ids = torch.randint(4, config.vocab_size, (rows, length), generator=gen,
                                 device=dev)

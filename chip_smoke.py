@@ -19,15 +19,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and in every variant its wrapper accepts (RMSNorm, ffn_mode "none", f32
      scan operands, ReLU and SiLU, several hidden tiles), and time both with
      CUDA events beside the kernel's bound;
-  4. serve two batches through ``InferenceEngine.generate`` with the bf16
-     model and then with the int8 model (4 ragged prompts of 7/19/32/45
-     tokens, greedy, 24 new tokens, one EOS id; 64 prompts of 32 tokens,
-     greedy, 64 new tokens), with every kernel's launch counter set to 0 just
-     before each model's requests and checked just after (layers x calls),
-     tokens in range and each request repeated with the same tokens; then
-     TTFT and decode tokens per second per batch;
-  5. check a 2-layer model on the card against the same weights on the CPU
-     (plain versions), bf16 and int8, and that the 1.5B logits are finite.
+     Then the same for the 1.5B top-2-of-8 MoE model (hidden 704, 44 layers,
+     experts of 2816): the scan, ``ln_quantize`` and the decode step at its
+     mixer's shapes (D = 704, C = 176, R = 44, H = 11), the step's moe
+     epilogue in both layouts, the fat expert kernel and the grouped expert
+     kernel, with sensitivity checks for the combine weights, b1t, w1t_s,
+     w2t_s, the router bias and the epilogue's inverse deviation;
+  4. serve two batches through ``InferenceEngine.generate`` with the dense
+     bf16 and int8 models and then the MoE bf16 and int8 models (4 ragged
+     prompts of 7/19/32/45 tokens, greedy, 24 new tokens, one EOS id; 64
+     prompts of 32 tokens, greedy, 64 new tokens), with every kernel's launch
+     counter set to 0 just before each model's requests and checked just
+     after (layers x calls; for MoE the fat kernel at every decode step and
+     at request A's 256-row prefill, the grouped kernel at request B's
+     2048-row prefill), tokens in range and each request repeated with the
+     same tokens; then TTFT and decode tokens per second per batch;
+  5. check 2-layer dense and MoE models on the card against the same weights
+     on the CPU (plain versions), bf16 and int8, and that the 1.5B logits are
+     finite.
 Before the last line it prints the kernels' JSON summary and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -129,8 +138,9 @@ def compare_int8(name, got, ref, _tol=None):
 
 def perturb_(tree, generator):
     """Add seeded noise to every norm weight and bias, FFN bias and skip
-    weight D of a parameter tree, which init_params sets to 1 or 0, so that
-    every term the kernels compute has a value that shows when it is
+    weight D of a parameter tree, and to the MoE router's LayerNorm and bias
+    and the experts' LayerNorms and biases, which init_params sets to 1 or 0,
+    so that every term the kernels compute has a value that shows when it is
     dropped."""
     def walk(node, path):
         for key, value in node.items():
@@ -138,8 +148,10 @@ def perturb_(tree, generator):
             if isinstance(value, dict):
                 walk(value, name)
                 continue
-            is_norm = "norm" in name
-            if is_norm or key == "D" or (".ffn.w" in name and key == "b"):
+            is_norm = "norm" in name or "router_ln" in name
+            moe_term = ((".router" in name and key == "b")
+                        or (".experts" in name and key in ("ln_w", "ln_b", "b1", "b2")))
+            if is_norm or moe_term or key == "D" or (".ffn.w" in name and key == "b"):
                 noise = torch.randn(value.shape, generator=generator, device=value.device)
                 scale = 5 * NOISE_STD if key == "D" else NOISE_STD
                 value.add_((noise * scale).to(value.dtype))
@@ -157,18 +169,25 @@ def main() -> int:
     from apertis_llm_torch.inference.engine import InferenceEngine
     from apertis_llm_torch.models.convert import from_jax_params
     from apertis_llm_torch.models.factory import calculate_model_dimensions
+    from apertis_llm_torch.models.moe_fuse import fuse_one_fat
     from apertis_llm_torch.models.params import count_params, init_params
     from apertis_llm_torch.models.quantize import quantize_params, quantize_weight
+    from apertis_llm_torch.ops import moe as moe_ops
     from apertis_llm_torch.ops.kernels import _build
     from apertis_llm_torch.ops.kernels.ffn_fused import (
         ffn_decode, ffn_decode_int8, ffn_decode_int8_reference, ffn_decode_reference,
         pick_block_n)
     from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize, ln_quantize_reference
+    from apertis_llm_torch.ops.kernels.moe_ffn import (
+        expert_ffn_fat, expert_ffn_fat_reference, fat_block_n)
+    from apertis_llm_torch.ops.kernels.moe_grouped import (
+        TILE, expert_ffn_grouped, expert_ffn_grouped_reference)
     from apertis_llm_torch.ops.kernels.ssm_scan import (
         selective_scan_fwd, selective_scan_fwd_reference)
     from apertis_llm_torch.ops.kernels.ssm_step import (
         ssm_decode_step, ssm_decode_step_int8, ssm_decode_step_reference)
     from apertis_llm_torch.ops.activations import get_activation
+    from apertis_llm_torch.ops.norms import layer_norm, rms_norm
     from apertis_llm_torch.ops.quant import int_mm, quantize_rows
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -302,21 +321,23 @@ def main() -> int:
     log("kernel checks (bf16 in, f32 carry/accumulation; int8 with exact int32 sums), "
         "CUDA-event times:")
 
-    def scan_inputs(b, l, bc_dtype=torch.bfloat16, out_dtype=torch.bfloat16):
+    def scan_inputs(b, l, bc_dtype=torch.bfloat16, out_dtype=torch.bfloat16, a_log=None):
+        a_log = layer.attn.A_log if a_log is None else a_log
+        hs_, ns_ = a_log.shape
         lens = {4: [7, 19, 32, 45], 64: [32] * 64}.get(
             b, torch.randint(1, l + 1, (b,), generator=g, device=dev).tolist())
         mask = (torch.arange(l, device=dev)[None, :]
                 < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
-        delta = torch.nn.functional.softplus(randn(b, l, heads, dtype=torch.float32) - 4.0)
-        a_cont = -torch.exp(layer.attn.A_log.float())
-        return (delta, a_cont, randn(b, l, heads, n, dtype=bc_dtype),
-                randn(b, l, heads, n, dtype=bc_dtype), mask, out_dtype)
+        delta = torch.nn.functional.softplus(randn(b, l, hs_, dtype=torch.float32) - 4.0)
+        a_cont = -torch.exp(a_log.float())
+        return (delta, a_cont, randn(b, l, hs_, ns_, dtype=bc_dtype),
+                randn(b, l, hs_, ns_, dtype=bc_dtype), mask, out_dtype)
 
     def scan_cost(args):
         delta, a_cont, bt, ct, mask, out_dtype = args
         y_bytes = bt.numel() * torch.tensor([], dtype=out_dtype).element_size()
-        return (nbytes(delta, a_cont, bt, ct, mask) + y_bytes + bt.shape[0] * c * 4,
-                6 * bt.numel(), "f32")
+        return (nbytes(delta, a_cont, bt, ct, mask) + y_bytes
+                + bt.shape[0] * bt.shape[2] * bt.shape[3] * 4, 6 * bt.numel(), "f32")
 
     f32, bf16 = torch.float32, torch.bfloat16
     for (b, l), bc_dtype, out_dtype in [((4, 64), bf16, bf16), ((64, 32), bf16, bf16),
@@ -345,15 +366,20 @@ def main() -> int:
                 randn(b, c, dtype=torch.float32), w, eps, fn)
 
     def step_cost(args):
-        h, conv, ssm, w, _, fn = args
+        h, conv, ssm, w, _, fn = args[:6]
+        router = args[7] if len(args) > 7 else None
+        rows, d_, c_, r_ = h.shape[0], h.shape[1], w.inx_w.shape[1], w.dt_w.shape[0]
         weights = [getattr(w, f) for f in w._fields if isinstance(getattr(w, f), torch.Tensor)]
         quant = w.quantized
-        outs = nbytes(h, ssm) + h.shape[0] * c * conv.element_size()
-        if fn is not None:
-            outs += h.shape[0] * d * (1 if quant else 2) + (h.shape[0] * 4 if quant else 0)
-        macs = d * c * 2 + c * (r_dt + 2 * c) + c * d
-        return (nbytes(h, conv, ssm, *weights, *(fn or ())) + outs,
-                2 * h.shape[0] * macs, "int8" if quant else "bf16")
+        outs = nbytes(h, ssm) + rows * c_ * conv.element_size()
+        macs = d_ * c_ * 2 + c_ * (r_ + 2 * c_) + c_ * d_
+        if router is not None:     # x_q, x_s and the combine weights
+            outs += rows * (d_ + 4 + 4 * router.w.shape[1])
+            macs += d_ * router.w.shape[1]
+        elif fn is not None:
+            outs += rows * d_ * (1 if quant else 2) + (rows * 4 if quant else 0)
+        return (nbytes(h, conv, ssm, *weights, *(fn or ()), *(router or ())) + outs,
+                2 * rows * macs, "int8" if quant else "bf16")
 
     args = step_inputs(5)
 
@@ -482,6 +508,188 @@ def main() -> int:
                          ln_quantize, ln_quantize_reference, ln_tols,
                          cost=(nbytes(x, pre_w, bias) + x.numel() + rows * 4, 10 * x.numel(),
                                "f32") if rows == 2048 and bias is not None else None)
+
+    # ---- 3b. the 1.5B MoE model and its kernel checks -----------------------
+    mdims = calculate_model_dimensions("1.5B", 32000, use_expert_system=True)
+    moe_config = ApertisConfig(
+        vocab_size=32000, attention_type="selective_ssm", ssm_d_state=16,
+        hidden_size=mdims["hidden_size"], num_hidden_layers=mdims["num_hidden_layers"],
+        num_attention_heads=mdims["num_attention_heads"],
+        intermediate_size=mdims["intermediate_size"], use_expert_system=True, num_experts=8,
+        experts_per_token=2, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+        max_position_embeddings=4096, dtype="bfloat16", param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    tree = init_params(moe_config, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                       dtype=bf16)
+    moe_params = count_params(tree)
+    perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 4))
+    moe_model = from_jax_params(tree, moe_config, device=dev, dtype=bf16)
+    qtree = quantize_params(tree)
+    del tree
+    moe_qmodel = from_jax_params(qtree, moe_config, device=dev, dtype=bf16)
+    del qtree
+    for m in (moe_model, moe_qmodel):
+        m.attach_moe_fat()
+    torch.cuda.synchronize()
+    n_exp, md, mc = moe_config.num_experts, moe_config.hidden_size, moe_config.ssm_d_inner
+    m_inter = moe_config.intermediate_size
+    log(f"MoE model: {moe_params:,} parameters in the tree ({mdims['calculated_params']:,} by "
+        f"the factory's count), hidden {md}, {moe_config.num_hidden_layers} layers, "
+        f"{moe_config.num_attention_heads} heads, d_inner {mc}, dt_rank {moe_config.ssm_dt_rank}"
+        f", {n_exp} experts of {m_inter} (top-2), bf16 and int8, fat stacks attached, built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    mlayer, mqlayer = moe_model.layers[0], moe_qmodel.layers[0]
+    fat = mqlayer.ffn.experts.fat()
+    log(f"MoE fat stack: {nbytes(*fat.values()):,} bytes a layer; expert tile bn = "
+        f"{fat_block_n(m_inter)}")
+
+    # Existing kernels at the MoE mixer's shapes (C and D not multiples of 64).
+    for (b, l) in ((4, 64), (64, 32), (5, 37)):
+        check_kernel("selective_scan_fwd", f"MoE mixer scan B={b} L={l} (C={mc})",
+                     scan_inputs(b, l, a_log=mlayer.attn.A_log), selective_scan_fwd,
+                     selective_scan_fwd_reference, [("y", BF16_ULP), ("h_last", SCAN_F32_TOL)])
+    m_pre_w, m_pre_b = mqlayer.attn.pre_norm.weights()
+    for rows in (256, 2048, 37):
+        for bias, kind in [(m_pre_b, "LayerNorm"), (None, "RMSNorm")]:
+            check_kernel("ln_quantize", f"MoE ln_quantize {rows} rows (D={md}) {kind}",
+                         (randn(rows, md, std=2.0), m_pre_w, bias, eps), ln_quantize,
+                         ln_quantize_reference, ln_tols)
+    m_mixer, m_qmixer = mlayer.attn.mixer_weights(), mqlayer.attn.mixer_weights()
+    m_fnorm = mlayer.ffn.pre_norm.weights()
+    # The moe epilogue folds rsqrt(var2 + eps) of the FFN input into x_s; a
+    # pre-norm weight three times the model's puts it near 1/3, where the x_s
+    # check would see it dropped.
+    m_fnorm3 = (m_fnorm[0] * 3, m_fnorm[1])
+    m_router = mlayer.ffn.router_weights()
+    moe_tols = step_tols[:3] + [("x_q", "int8"), ("x_s", BF16_ULP), ("comb", F32_TOL)]
+
+    def moe_step_inputs(b, w, fn=m_fnorm3, router=m_router):
+        return (randn(b, md), randn(b, moe_config.ssm_conv_kernel - 1, mc),
+                randn(b, mc, dtype=torch.float32), w, eps, fn, None, router)
+
+    def step_without_inv2(args):
+        """The plain step's outputs with x_s left without the epilogue's
+        rsqrt(var2 + eps), recomputed from h_out (bf16) for the check."""
+        outs = ssm_decode_step_reference(*args)
+        fn = args[5]
+        n2 = (layer_norm(outs[0].float(), fn[0], fn[1], eps) if fn[1] is not None
+              else rms_norm(outs[0].float(), fn[0], eps)).to(bf16).float()
+        var = n2.var(dim=-1, unbiased=False, keepdim=True)
+        return outs[:4] + (outs[4] * torch.sqrt(var + eps),) + outs[5:]
+
+    for label, w in (("bf16", m_mixer), ("int8", m_qmixer)):
+        args = moe_step_inputs(5, w)
+        check_sensitive(f"{label} decode step, moe epilogue", ssm_decode_step_reference, args, {
+            "router bias": args[:7] + (m_router._replace(b=torch.zeros_like(m_router.b)),),
+            "inverse deviation inv2": lambda a=args: step_without_inv2(a),
+        }, moe_tols)
+    for b, w, fn, label in [(4, m_mixer, m_fnorm3, "LayerNorm"), (64, m_mixer, m_fnorm3, "LayerNorm"),
+                            (5, m_mixer, (m_fnorm3[0], None), "RMSNorm"),
+                            (4, m_qmixer, m_fnorm3, "LayerNorm"),
+                            (64, m_qmixer, m_fnorm3, "LayerNorm"),
+                            (256, m_qmixer, m_fnorm3, "LayerNorm"),
+                            (5, m_qmixer, (m_fnorm3[0], None), "RMSNorm")]:
+        key = "ssm_decode_step_int8_moe" if w.quantized else "ssm_decode_step_moe"
+        args = moe_step_inputs(b, w._replace(norm_b=None) if fn[1] is None else w, fn)
+        check_kernel(key, f"{'int8' if w.quantized else 'bf16'} decode step B={b} {label}, "
+                     f"moe epilogue (D={md}, C={mc}, R={moe_config.ssm_dt_rank})", args,
+                     ssm_decode_step, ssm_decode_step_reference, moe_tols,
+                     cost=step_cost(args) if b == 64 else None)
+    for b, w, label in [(5, m_mixer, "bf16"), (5, m_qmixer, "int8")]:
+        args = moe_step_inputs(b, w, m_fnorm, None)[:6]
+        check_kernel("ssm_decode_step_int8" if w.quantized else "ssm_decode_step",
+                     f"{label} decode step B={b} dense epilogue at the MoE mixer's shapes",
+                     args, ssm_decode_step, ssm_decode_step_reference,
+                     step_tols_q if w.quantized else step_tols)
+
+    def fat_inputs(s_, ffn=mqlayer.ffn, fat_=fat, act=moe_config.hidden_act):
+        """Routed rows as the MoE FFN gives them to the fat kernel."""
+        x = ffn.pre_norm(randn(s_, md))
+        routing = moe_ops.route(x, *ffn.router_weights(), 2, layer_norm_eps=eps)
+        xq, xs = moe_ops.center_quantize(x, eps)
+        comb = moe_ops._combine_weights(routing, n_exp, torch.float32)
+        return (xq, xs, comb, fat_["w1t_q"], fat_["w1t_s"], fat_["b1t"], fat_["w2t_q"],
+                fat_["w2t_s"], n_exp, act)
+
+    def expert_bytes(used, *tensors):
+        """Bytes of the experts' column or row blocks that the routing uses."""
+        return sum(nbytes(t) * int(used.sum()) // n_exp for t in tensors)
+
+    def fat_cost(args):
+        xq, xs, comb, w1q, w1s, b1t, w2q, w2s = args[:8]
+        used = (comb != 0).any(dim=0)
+        inter_ = w1q.shape[1] // n_exp
+        return (nbytes(xq, xs, comb, w2s) + expert_bytes(used, w1q, w1s, b1t, w2q)
+                + xq.numel() * 4, 4 * int((comb != 0).sum()) * xq.shape[1] * inter_, "int8")
+
+    fat_tols = [("out", BF16_ULP)]    # f32 out; a flipped hidden level is allowed
+    args = fat_inputs(5)
+    check_sensitive("expert_ffn_fat", expert_ffn_fat_reference, args, {
+        "combine weights": args[:2] + ((args[2] != 0).float(),) + args[3:],
+        "b1t": args[:5] + (torch.zeros_like(args[5]),) + args[6:],
+        "w1t_s": args[:4] + (torch.ones_like(args[4]),) + args[5:],
+        "w2t_s": args[:7] + (torch.ones_like(args[7]),) + args[8:],
+    }, fat_tols)
+    for s_ in (4, 5, 64, 256):
+        args = fat_inputs(s_)
+        check_kernel("expert_ffn_fat", f"expert_ffn_fat S={s_} (H={md}, E={n_exp}, I={m_inter}, "
+                     f"bn={fat_block_n(m_inter)})", args, expert_ffn_fat,
+                     expert_ffn_fat_reference, fat_tols,
+                     cost=fat_cost(args) if s_ == 64 else None)
+    args = fat_inputs(5, ffn=mlayer.ffn, fat_=mlayer.ffn.experts.fat())
+    check_kernel("expert_ffn_fat", "expert_ffn_fat S=5, the bf16 model's fat stack", args,
+                 expert_ffn_fat, expert_ffn_fat_reference, fat_tols)
+    i256 = 256
+    small_experts = {
+        "ln_w": 1 + randn(n_exp, md, dtype=torch.float32, std=0.1),
+        "ln_b": randn(n_exp, md, dtype=torch.float32, std=0.1),
+        "w1": randn(n_exp, md, i256, dtype=torch.float32, std=0.02),
+        "b1": randn(n_exp, i256, dtype=torch.float32, std=0.1),
+        "w2": randn(n_exp, i256, md, dtype=torch.float32, std=0.02)}
+    fat256 = fuse_one_fat(small_experts)
+    log(f"  I={i256}: bn = {fat_block_n(i256)}, {i256 // fat_block_n(i256)} tiles per expert")
+    for s_ in (5, 64):
+        check_kernel("expert_ffn_fat", f"expert_ffn_fat S={s_} I={i256}",
+                     fat_inputs(s_, fat_=fat256), expert_ffn_fat, expert_ffn_fat_reference,
+                     fat_tols)
+
+    def grouped_inputs(s_, probs, fat_=fat):
+        """Token rows routed to two distinct experts each with the given
+        (uneven) probabilities, laid out by the grouped dispatch."""
+        idx = torch.multinomial(probs.expand(s_, n_exp), 2, replacement=False, generator=g)
+        xq, xs = moe_ops.center_quantize(mqlayer.ffn.pre_norm(randn(s_, md)), eps)
+        dest, emap = moe_ops.grouped_dispatch(idx, n_exp)
+        p = emap.numel() * TILE
+        xq_pad = torch.zeros((p, md), dtype=torch.int8, device=dev)
+        xs_pad = torch.zeros((p, 1), dtype=torch.float32, device=dev)
+        xq_pad[dest] = xq.repeat_interleave(2, dim=0)
+        xs_pad[dest] = xs.repeat_interleave(2, dim=0)
+        return (xq_pad, xs_pad, emap, fat_["w1t_q"], fat_["w1t_s"], fat_["b1t"],
+                fat_["w2t_q"], fat_["w2t_s"], n_exp, moe_config.hidden_act)
+
+    def grouped_cost(args, rows):
+        xq_pad, xs_pad, emap, w1q, w1s, b1t, w2q, w2s = args[:8]
+        used = torch.zeros(n_exp, dtype=torch.bool, device=dev)
+        used[emap[emap >= 0].long()] = True
+        inter_ = w1q.shape[1] // n_exp
+        return (nbytes(xq_pad, xs_pad, emap, w2s) + expert_bytes(used, w1q, w1s, b1t, w2q)
+                + xq_pad.numel() * 2, 4 * rows * xq_pad.shape[1] * inter_, "int8")
+
+    # Uneven loads, expert 7 empty.
+    probs = torch.tensor([8.0, 4, 2, 1, 1, 1, 1, 0], device=dev)
+    args = grouped_inputs(37, probs)
+    check_sensitive("expert_ffn_grouped", expert_ffn_grouped_reference, args, {
+        "b1t": args[:5] + (torch.zeros_like(args[5]),) + args[6:],
+        "w1t_s": args[:4] + (torch.ones_like(args[4]),) + args[5:],
+        "w2t_s": args[:7] + (torch.ones_like(args[7]),) + args[8:],
+    }, [("out", BF16_ULP)])
+    for s_, label in ((2048, "request B's 64 x 32"), (37, "ragged")):
+        args = grouped_inputs(s_, probs)
+        live = int((args[2] >= 0).sum())
+        check_kernel("expert_ffn_grouped", f"expert_ffn_grouped {s_} tokens ({label}): P = "
+                     f"{args[0].shape[0]}, {live} live tiles of {TILE}, expert 7 empty", args,
+                     expert_ffn_grouped, expert_ffn_grouped_reference, [("out", BF16_ULP)],
+                     cost=grouped_cost(args, 2 * s_) if s_ == 2048 else None)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. serve -----------------------------------------------------------
@@ -500,12 +708,15 @@ def main() -> int:
             batch_b, None, dict(max_new_tokens=64, eos_token_id=())),
     }
     counters = (selective_scan_fwd, ssm_decode_step, ffn_decode, ln_quantize,
-                ssm_decode_step_int8, ffn_decode_int8)
-    nl = config.num_hidden_layers
+                ssm_decode_step_int8, ffn_decode_int8, expert_ffn_fat, expert_ffn_grouped)
     launches, serve = {}, {}
-    for kind, m in (("bf16", model), ("int8", qmodel)):
-        engine = InferenceEngine(config, m)
-        if kind == "int8" and m.lm_head is None:
+    for kind, m, cfg in (("bf16", model, config), ("int8", qmodel, config),
+                         ("MoE bf16", moe_model, moe_config),
+                         ("MoE int8", moe_qmodel, moe_config)):
+        moe = cfg is moe_config
+        nl = cfg.num_hidden_layers
+        engine = InferenceEngine(cfg, m)
+        if "int8" in kind and m.lm_head is None:
             raise RuntimeError("the engine did not attach the int8 head")
         for f in counters:
             f.launches = 0
@@ -530,16 +741,25 @@ def main() -> int:
                 f"{new[0, :8].tolist()}...")
         expected = {f.__name__: 0 for f in counters}
         expected["selective_scan_fwd"] = nl * len(requests)
-        if kind == "bf16":
-            expected.update(ssm_decode_step=nl * decode_calls, ffn_decode=nl * decode_calls)
+        step = "ssm_decode_step_int8" if "int8" in kind else "ssm_decode_step"
+        expected[step] = nl * decode_calls
+        if "int8" in kind:
+            # The mixer's pre-norm once per layer and prefill; a MoE FFN's
+            # pre-norm is the plain norm, since the router reads it.
+            expected["ln_quantize"] = (1 if moe else 2) * nl * len(requests)
+        if moe:
+            # Request A prefills 4 x 64 = 256 rows (the fat kernel), request
+            # B 64 x 32 = 2048 (the grouped kernel); every decode step runs
+            # the fat kernel.
+            expected.update(expert_ffn_fat=nl * (decode_calls + 1), expert_ffn_grouped=nl)
         else:
-            expected.update(ln_quantize=2 * nl * len(requests),
-                            ssm_decode_step_int8=nl * decode_calls,
-                            ffn_decode_int8=nl * decode_calls)
+            expected["ffn_decode_int8" if "int8" in kind else "ffn_decode"] = nl * decode_calls
         log(f"{kind} launch counts in the two requests: {got} (expected {expected})")
         if got != expected:
             raise RuntimeError(f"{kind}: a kernel of the main path was not launched as expected")
         for key, value in got.items():
+            if moe and key in ("ssm_decode_step", "ssm_decode_step_int8"):
+                key += "_moe"     # the step with its moe epilogue
             launches[key] = launches.get(key, 0) + value
 
         for name, (ids, mask, kw) in requests.items():
@@ -559,10 +779,12 @@ def main() -> int:
                 f"({steps} steps x {ids.shape[0]} rows, {total:.3f} s in all), "
                 f"repeat identical; card: {card}")
             serve[f"{kind} {name[0]}"] = dict(ttft_ms=ttft * 1e3, decode_tok_s=rate)
+        del engine
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. outputs are right -----------------------------------------------
-    for kind, m in (("bf16", model), ("int8", qmodel)):
+    for kind, m in (("bf16", model), ("int8", qmodel), ("MoE bf16", moe_model),
+                    ("MoE int8", moe_qmodel)):
         cache = m.init_cache(4)
         pre = m.prefill(cache, torch.as_tensor(batch_a, dtype=torch.long, device=dev),
                         torch.as_tensor(mask_a, device=dev),
@@ -575,24 +797,33 @@ def main() -> int:
             raise RuntimeError(f"1.5B {kind} logits are not finite")
         log(f"1.5B {kind} prefill and decode logits: finite, shapes (4, 1, 32000) and "
             "(4, 32000)")
-    del model, qmodel
+    del model, qmodel, moe_model, moe_qmodel
 
-    small = ApertisConfig(
+    dense_small = dict(
         vocab_size=1000, attention_type="selective_ssm", ssm_d_state=16, hidden_size=256,
         num_hidden_layers=2, num_attention_heads=4, intermediate_size=1024,
         hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0, dtype="bfloat16",
         param_dtype="bfloat16")
-    tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu",
-                       dtype=torch.bfloat16)
-    perturb_(tree, torch.Generator().manual_seed(SEED + 3))
-    ids = torch.as_tensor(batch_a % small.vocab_size, dtype=torch.long)
+    # The MoE one prefills request A's 4 x 45 rows through the grouped kernel
+    # (past its threshold of 64) and decodes through the fat kernel.
+    moe_small = dict(dense_small, intermediate_size=512, use_expert_system=True, num_experts=8,
+                     experts_per_token=2, moe_dense_threshold_tokens=64)
+    ids = torch.as_tensor(batch_a % 1000, dtype=torch.long)
     mask = torch.as_tensor(mask_a)
     small_err = {}
-    # min_size=0: at these widths the default would leave the mixer float.
-    for kind, t in (("bf16", tree), ("int8", quantize_params(tree, min_size=0))):
+    cases = []
+    for family, kw in (("", dense_small), ("MoE ", moe_small)):
+        small = ApertisConfig(**kw)
+        tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu",
+                           dtype=torch.bfloat16)
+        perturb_(tree, torch.Generator().manual_seed(SEED + 3))
+        # min_size=0: at these widths the default would leave the mixer float.
+        cases += [(family + "bf16", small, tree),
+                  (family + "int8", small, quantize_params(tree, min_size=0))]
+    for kind, small, t in cases:
         models = {"gpu": from_jax_params(t, small, device=dev, dtype=torch.bfloat16),
                   "cpu": from_jax_params(t, small, device="cpu", dtype=torch.bfloat16)}
-        if kind == "int8":
+        if "int8" in kind:
             for m in models.values():
                 m.quantize_tied_head()
         caches = {k: m.init_cache(4) for k, m in models.items()}
@@ -623,12 +854,21 @@ def main() -> int:
                             "apertis_llm_tpu/ops/pallas/ffn_fused.py:177"),
         "ln_quantize": ("apertis_llm_torch/csrc/ln_quant.cu",
                         "apertis_llm_tpu/ops/pallas/ln_quant.py:60"),
+        "ssm_decode_step_moe": ("apertis_llm_torch/csrc/ssm_step.cu",
+                                "apertis_llm_tpu/ops/pallas/ssm_step.py:234"),
+        "ssm_decode_step_int8_moe": ("apertis_llm_torch/csrc/ssm_step.cu",
+                                     "apertis_llm_tpu/ops/pallas/ssm_step.py:234"),
+        "expert_ffn_fat": ("apertis_llm_torch/csrc/moe_ffn.cu",
+                           "apertis_llm_tpu/ops/pallas/moe_ffn.py:243"),
+        "expert_ffn_grouped": ("apertis_llm_torch/csrc/moe_grouped.cu",
+                               "apertis_llm_tpu/ops/pallas/moe_grouped.py:76"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
         ms, plain_ms, bound_ms, bound_by = times[name]
         # No single PyTorch call computes any of these functions (a fused
-        # norm + quantize, a whole mixer step, a whole FFN, a selective scan).
+        # norm + quantize, a whole mixer step, a whole FFN, a selective scan,
+        # an int8 expert FFN with per-tile requantization).
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": tpu,
                         "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
