@@ -21,7 +21,17 @@ For an int8 model the engine attaches the int8 copy of the tied LM head
 ``quantize_tied_head`` to a quantized tree (engine.py:365-375). For a MoE
 model, int8 or bf16, it builds every layer's int8 fat stack at construction
 (``ApertisForCausalLM.attach_moe_fat``), as the JAX engine attaches its fat
-stacks (engine.py:347-364).
+stacks (engine.py:347-364); for an int8 MHA model, the fused QKV projection
+(``ApertisForCausalLM.attach_qkv``, engine.py:387-394).
+
+An MHA model keeps the JAX engine's bookkeeping (engine.py:162-262): a flat
+K/V cache of ``bucket + max_new_tokens`` slots, int8 by default for an int8
+model (``kv_int8``); an attention mask over the slots that grows, for each
+generated token, by the row's unfinished flag at the time the token was
+generated (an EOS stays visible, the pads after it do not); the token of
+decode step ``s`` sits at slot ``bucket + s - 1`` and at logical position
+``len + s - 1``, which differ for right-padded rows. Generation that would
+pass ``max_position_embeddings`` raises (engine.py:104-116).
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch
 
 from apertis_llm_torch.config import ApertisConfig
 from apertis_llm_torch.models.apertis import ApertisForCausalLM
+from apertis_llm_torch.models.params import is_mha
 from apertis_llm_torch.ops import sampling as sampling_ops
 
 
@@ -58,17 +69,34 @@ def _round_up_bucket(n: int, buckets: Sequence[int]) -> int:
     return ((n + step - 1) // step) * step
 
 
+def _check_position_limit(config: ApertisConfig, max_needed: int) -> None:
+    """An MHA model indexes its RoPE table by position; past
+    ``max_position_embeddings`` the reference crashes, so raise (the
+    selective SSM has no positional table)."""
+    if is_mha(config) and max_needed > config.max_position_embeddings:
+        raise ValueError(
+            f"prompt + max_new_tokens needs positions up to {max_needed} but "
+            f"max_position_embeddings={config.max_position_embeddings}; use a "
+            "selective_ssm model for long context or raise the limit")
+
+
 class InferenceEngine:
-    """Batched generation for one (config, model) pair."""
+    """Batched generation for one (config, model) pair. ``kv_int8`` chooses
+    an MHA model's KV cache: int8 with per-(head, slot) scales, or the
+    model's dtype; by default int8 for an int8 model and the model's dtype
+    for a float one."""
 
     PROMPT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
-    def __init__(self, config: ApertisConfig, model: ApertisForCausalLM):
+    def __init__(self, config: ApertisConfig, model: ApertisForCausalLM,
+                 kv_int8: Optional[bool] = None):
         self.config = config
         self.model = model
+        self.kv_int8 = model.quantized if kv_int8 is None else bool(kv_int8)
         if model.quantized and model.lm_head is None:
             model.quantize_tied_head()
         model.attach_moe_fat()
+        model.attach_qkv()
 
     @torch.inference_mode()
     def generate(
@@ -96,6 +124,7 @@ class InferenceEngine:
         if attention_mask is None:
             attention_mask = np.ones((b, l), np.int32)
         bucket = _round_up_bucket(l, self.PROMPT_BUCKETS)
+        _check_position_limit(self.config, bucket + gen.max_new_tokens)
         padc = ((0, 0), (0, bucket - l))
         device = self.model.device
         ids = torch.as_tensor(np.pad(input_ids, padc, constant_values=gen.pad_token_id),
@@ -137,12 +166,22 @@ class InferenceEngine:
             return nxt, unfinished
 
         # Prefill + first token (engine.py::_prefill_state).
-        cache = self.model.init_cache(b)
+        mha = is_mha(self.config)
+        if mha:
+            cache = self.model.init_cache(b, max_length=buf_len, kv_int8=self.kv_int8)
+        else:
+            cache = self.model.init_cache(b)
         pre = self.model.prefill(cache, ids, mask,
                                  logit_positions=torch.clamp(lens - 1, min=0))
         tokens = torch.cat([ids, torch.full((b, buf_len - lp), gen.pad_token_id,
                                             dtype=ids.dtype, device=device)], dim=1)
         unfinished = torch.ones((b,), dtype=torch.int64, device=device)
+        if mha:
+            # Slot validity: the prompt's mask, then each generated token's
+            # unfinished flag at the time it was generated.
+            kv_mask = torch.zeros((b, buf_len), dtype=torch.int32, device=device)
+            kv_mask[:, :lp] = mask
+            kv_mask[:, lp] = unfinished
         nxt, unfinished = finish_update(unfinished, sample(pre.logits[:, 0, :], tokens, lp))
         tokens[:, lp] = nxt
         filled, step = lp + 1, 1
@@ -152,7 +191,14 @@ class InferenceEngine:
         # Decode loop (engine.py::_decode_loop).
         while step < gen.max_new_tokens and (step < gen.min_new_tokens
                                              or bool(unfinished.any())):
-            logits, cache = self.model.decode_step(cache, tokens[:, filled - 1])
+            cur = tokens[:, filled - 1]
+            if mha:
+                t = lp + step - 1
+                logits, cache = self.model.decode_step(cache, cur, t=t, attn_mask_row=kv_mask,
+                                                       positions=lens + step - 1)
+                kv_mask[:, t + 1] = unfinished
+            else:
+                logits, cache = self.model.decode_step(cache, cur)
             nxt, unfinished = finish_update(unfinished, sample(logits, tokens, filled))
             tokens[:, filled] = nxt
             filled += 1

@@ -1,21 +1,27 @@
-"""Apertis decoder-only LM in PyTorch: the text-only selective-SSM model.
+"""Apertis decoder-only LM in PyTorch: the text-only selective-SSM and MHA
+models.
 
 The counterpart of ``apertis_llm_tpu/models/apertis.py`` for the variants
 ported so far (``models/params.py::check_supported``): pre-norm residual
-Mamba-style selective mixer, pre-norm residual dense or top-2 MoE FFN, final
+Mamba-style selective mixer or standard MHA (full-width interleaved RoPE),
+pre-norm residual dense or top-2 MoE FFN (MoE with the SSM mixer only), final
 post-norm, tied LM head. Module and parameter names follow the JAX parameter
 tree, so ``layers.3.attn.in_proj_x.w`` is layer 3 of
 ``layers/attn/in_proj_x/w``, and linear weights keep the (in, out) layout.
 
 Three paths, with the JAX package's semantics:
   * ``forward``: full-sequence logits; like the reference, the SSM mixer
-    ignores the attention mask here (apertis.py:393-398, 772).
-  * ``prefill``: masked full-sequence pass that fills the ``{conv, ssm}``
-    decode cache; padded steps are identity transitions and each row's conv
-    window is gathered at its true length.
-  * ``decode_step``: one token per row through the fused mixer step and the
-    fused decode FFN (``ops/kernels``), whose semantics are those of the JAX
-    package's fused-kernel decode path.
+    ignores the attention mask here (apertis.py:393-398, 772); MHA honours
+    it, and without one runs the causal flash kernel where the gate holds.
+  * ``prefill``: masked full-sequence pass that fills the decode cache: the
+    SSM's ``{conv, ssm}`` (padded steps are identity transitions and each
+    row's conv window is gathered at its true length), or MHA's flat K/V
+    cache (plain attention under the causal x padding bias).
+  * ``decode_step``: one token per row through the fused mixer step, or the
+    MHA decode-attention kernel over the flat cache, and the fused decode
+    FFN (``ops/kernels``), whose semantics are those of the JAX package's
+    fused-kernel decode path (for MHA, ``APERTIS_MHA_STEP=force`` with the
+    default ``APERTIS_MHA_LNQ=xla`` and ``APERTIS_MHA_QKV=1``).
 
 The MoE FFN has one arithmetic, the JAX package's under
 ``APERTIS_MOE_GROUPED=force``, ``APERTIS_SSM_STEP=force`` and
@@ -27,13 +33,17 @@ kernel above it; at decode the mixer step's moe epilogue emits the expert
 input and the top-2 combine weights, and the fat kernel follows.
 
 With int8 weights (``quantized``: the four mixer projections and the two FFN
-weights are ``QuantLinear``, a MoE FFN's expert stacks int8 tensors) the model computes what the JAX package computes
+weights are ``QuantLinear``, a MoE FFN's expert stacks int8 tensors) the
+model computes what the JAX package computes
 under ``APERTIS_QUANT_MATMUL=dyn``, ``APERTIS_LN_QUANT=force``,
 ``APERTIS_SSM_STEP=force`` and ``APERTIS_FFN_FUSED=force``, at every row
 count: each pre-norm that feeds int8 projections is fused with their row
 quantization (``ln_quantize``), the other int8 projections quantize their
 input rows at run time (w8a8), ``dt_proj`` stays float, and the decode step
-and FFN run their int8 layouts. An attached int8 tied head
+and FFN run their int8 layouts. An MHA layer's pre-norm is always the plain
+norm; its decode step quantizes the normed rows and the attention context
+with ``quantize_rows`` and serves q/k/v through the fused QKV product when
+one is attached. An attached int8 tied head
 (:meth:`ApertisForCausalLM.quantize_tied_head`) serves the logits the same
 way.
 
@@ -52,18 +62,24 @@ from torch import nn
 
 from apertis_llm_torch.config import ApertisConfig
 from apertis_llm_torch.models.moe_fuse import fuse_one_fat
-from apertis_llm_torch.models.params import check_supported, is_moe, resolve_device
-from apertis_llm_torch.models.quantize import quantize_weight
+from apertis_llm_torch.models.params import (
+    check_supported, is_mha, is_moe, resolve_device)
+from apertis_llm_torch.models.quantize import fuse_qkv, quantize_weight
+from apertis_llm_torch.ops import attention as attn_ops
 from apertis_llm_torch.ops import moe as moe_ops
 from apertis_llm_torch.ops import ssm as ssm_ops
 from apertis_llm_torch.ops.activations import get_activation, silu
 from apertis_llm_torch.ops.kernels.ffn_fused import ffn_decode, ffn_decode_int8
+from apertis_llm_torch.ops.kernels.flash_attention import flash_attention_fwd
 from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize
+from apertis_llm_torch.ops.kernels.mha_step import (
+    NEG, mha_decode_ctx, mha_decode_ctx_int8, quantize_heads)
 from apertis_llm_torch.ops.kernels.moe_ffn import expert_ffn_fat
 from apertis_llm_torch.ops.kernels.ssm_step import (
     MixerWeights, RouterWeights, ssm_decode_step)
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
-from apertis_llm_torch.ops.quant import linear_dyn, linear_pre_q
+from apertis_llm_torch.ops.quant import linear_dyn, linear_pre_q, quantize_rows
+from apertis_llm_torch.ops.rope import apply_rope, rope_tables, rotate
 
 Cache = Dict[str, torch.Tensor]
 
@@ -240,6 +256,143 @@ class SelectiveSSM(nn.Module):
             self.in_proj_z.w_s, self.x_param_proj.w_s, self.out_proj.w_s)
 
 
+def flash_eligible(config: ApertisConfig, seq_len: int) -> bool:
+    """The JAX package's gate for the flash kernel (``apertis.py::
+    _flash_eligible``) without its TPU clause: enabled, at least 128
+    positions, and a head width that is a multiple of 8 up to 256. The
+    caller also requires that there is no attention mask."""
+    head_dim = config.head_dim
+    return (config.use_flash_attention and seq_len >= 128 and head_dim % 8 == 0
+            and head_dim <= 256)
+
+
+_QKV_NAMES = ("qkv_w_q", "qkv_w_s", "qkv_b")
+
+
+class MultiHeadAttention(nn.Module):
+    """Standard MHA with its pre-norm (``layers/attn`` of an MHA tree):
+    ``pre_norm`` and the (H, H) linears ``q``, ``k``, ``v``, ``o``, with
+    biases when ``config.qkv_bias``; ``QuantLinear`` in the int8 layout. An
+    int8 layer can also hold the fused QKV projection (:meth:`attach_qkv`)
+    in non-persistent buffers. RoPE rotates q and k over the full width
+    before the heads are split."""
+
+    def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
+        super().__init__()
+        h = config.hidden_size
+        self.heads, self.head_dim = config.num_attention_heads, config.head_dim
+        self.quantized = quantized
+        self.pre_norm = Norm(h, config.use_rmsnorm, config.layer_norm_eps, device, dtype)
+        self.q = _linear(h, h, config.qkv_bias, device, dtype, quantized)
+        self.k = _linear(h, h, config.qkv_bias, device, dtype, quantized)
+        self.v = _linear(h, h, config.qkv_bias, device, dtype, quantized)
+        self.o = _linear(h, h, config.qkv_bias, device, dtype, quantized)
+        for name in _QKV_NAMES:
+            self.register_buffer(name, None, persistent=False)
+        self._qkv_key = None     # the q/k/v tensors the fused pack was built from
+
+    def _split_heads(self, t: torch.Tensor) -> torch.Tensor:
+        b, l, _ = t.shape
+        return t.reshape(b, l, self.heads, self.head_dim).transpose(1, 2).contiguous()
+
+    def forward(self, h: torch.Tensor, *, bias: Optional[torch.Tensor], pos_ids: torch.Tensor,
+                rope: Tuple[torch.Tensor, torch.Tensor], flash: bool,
+                want_cache: bool = False):
+        """Pre-norm and attention over a full sequence h (B, L, D)
+        (``apertis.py::_mha_full``): the plain pre-norm in both layouts, q/k/v
+        (w8a8 in int8), RoPE on q and k at ``pos_ids``, then the causal flash
+        kernel when ``flash`` (the caller's gate) holds and there is no bias,
+        else the plain attention with ``bias``; then ``o``. Returns ``(out,
+        cache)``, the cache being the post-RoPE ``(k, v)`` (B, L, D) with
+        ``want_cache``."""
+        b, l, d = h.shape
+        x = self.pre_norm(h)
+        q, k, v = self.q(x), self.k(x), self.v(x)
+        q, k = apply_rope(q, pos_ids, *rope), apply_rope(k, pos_ids, *rope)
+        qh, kh, vh = self._split_heads(q), self._split_heads(k), self._split_heads(v)
+        if bias is None and flash:
+            ctx, _ = flash_attention_fwd(qh, kh, vh, causal=True)
+        else:
+            ctx = attn_ops.mha(qh, kh, vh, bias=bias, causal=True)
+        out = self.o(ctx.transpose(1, 2).reshape(b, l, d))
+        return out, ((k, v) if want_cache else None)
+
+    def _qkv_sources(self):
+        return tuple((p.data_ptr(), p._version)
+                     for m in (self.q, self.k, self.v) for p in m.parameters())
+
+    @torch.no_grad()
+    def attach_qkv(self) -> bool:
+        """Build the fused QKV projection (``models/quantize.py::fuse_qkv``)
+        that the int8 decode step uses in place of three products. False,
+        and no pack, for a float layer or a partial bias set. On the card the
+        fused weight is kept column-major, for ``torch._int_mm``."""
+        fused = None
+        if self.quantized:
+            fused = fuse_qkv([{"w_q": m.w_q, "w_s": m.w_s, "b": m.b}
+                              for m in (self.q, self.k, self.v)])
+        if fused is None:
+            self.qkv_w_q = self.qkv_w_s = self.qkv_b = None
+            self._qkv_key = None
+            return False
+        w = fused["w_q"]
+        self.qkv_w_q = w.t().contiguous().t() if w.device.type == "cuda" else w
+        self.qkv_w_s, self.qkv_b = fused["w_s"], fused["b"]
+        self._qkv_key = self._qkv_sources()
+        return True
+
+    def fused_qkv(self) -> Optional[Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]]:
+        """The attached fused pack ``(w_q, w_s, b)``, rebuilt if q, k or v
+        changed since; None when none is attached."""
+        if self._qkv_key is None:
+            return None
+        if self._qkv_key != self._qkv_sources() and not self.attach_qkv():
+            return None
+        return self.qkv_w_q, self.qkv_w_s, self.qkv_b
+
+    def decode(self, h: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               scales: Optional[Tuple[torch.Tensor, torch.Tensor]], bias: torch.Tensor,
+               rope_rows: Tuple[torch.Tensor, torch.Tensor], t: int) -> torch.Tensor:
+        """One token per row over this layer's flat cache (``apertis.py::
+        _mha_decode_step_paired``): plain pre-norm, q/k/v (int8: the rows
+        quantized by ``quantize_rows``, then the fused QKV product when one is
+        attached), RoPE with the positions' table rows ``rope_rows``, the
+        decode-attention kernel over the masked cache plus the self-term, and
+        ``o`` (int8: on the quantized context). Then slot ``t`` of the cache,
+        masked out of this attention, gets the token's K/V: as they are, or
+        quantized per head with their scales into ``scales`` (``k_ps``,
+        ``v_ps`` of the layer). Returns the attention output (B, D)."""
+        dt = h.dtype
+        x = self.pre_norm(h)
+        if self.quantized:
+            x_q, x_s = quantize_rows(x)
+            fused = self.fused_qkv()
+            if fused is not None:
+                q, k, v = linear_pre_q(x_q, x_s, *fused, dt).chunk(3, dim=-1)
+            else:
+                q, k, v = (m.pre_q(x_q, x_s, dt) for m in (self.q, self.k, self.v))
+        else:
+            q, k, v = self.q(x), self.k(x), self.v(x)
+        q, k, v = rotate(q, *rope_rows), rotate(k, *rope_rows), v.contiguous()
+        if scales is None:
+            k, v = k.to(k_cache.dtype), v.to(v_cache.dtype)
+            ctx = mha_decode_ctx(q.to(dt), k_cache, v_cache, k.to(dt), v.to(dt), bias,
+                                 self.head_dim)
+            k_cache[:, t] = k
+            v_cache[:, t] = v
+        else:
+            ks, vs = scales
+            ctx = mha_decode_ctx_int8(q.to(dt), k_cache, v_cache, k.to(dt), v.to(dt), bias,
+                                      ks, vs, self.head_dim)
+            for val, cache, scale in ((k, k_cache, ks), (v, v_cache, vs)):
+                val_q, val_s = quantize_heads(val, self.head_dim)
+                cache[:, t] = val_q
+                scale[:, :, t] = val_s
+        if self.quantized:
+            return self.o.pre_q(*quantize_rows(ctx), dt)
+        return self.o(ctx.to(dt))
+
+
 class DenseFFN(nn.Module):
     """Pre-normed dense FFN ``act(x @ w1 + b1) @ w2 + b2`` (``layers/ffn``)."""
 
@@ -361,7 +514,8 @@ class MoEFFN(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
-        self.attn = SelectiveSSM(config, device, dtype, quantized)
+        mixer = MultiHeadAttention if is_mha(config) else SelectiveSSM
+        self.attn = mixer(config, device, dtype, quantized)
         ffn = MoEFFN if is_moe(config) else DenseFFN
         self.ffn = ffn(config, device, dtype, quantized)
 
@@ -379,10 +533,10 @@ class Embedding(nn.Module):
 
 
 class ApertisForCausalLM(nn.Module):
-    """The selective-SSM Apertis LM in eval mode. Parameters are allocated
-    uninitialised; ``models/convert.py::from_jax_params`` fills them. The
-    model is built on the card unless ``device`` names another. With
-    ``quantized`` the four big mixer projections and the FFN pair (the dense
+    """The Apertis LM (selective SSM or MHA) in eval mode. Parameters are
+    allocated uninitialised; ``models/convert.py::from_jax_params`` fills
+    them. The model is built on the card unless ``device`` names another.
+    With ``quantized`` the four mixer projections and the FFN pair (the dense
     ``w1``/``w2`` or the experts' stacks) are int8; ``int8_head`` allocates
     the int8 tied head ``lm_head``."""
 
@@ -402,6 +556,12 @@ class ApertisForCausalLM(nn.Module):
                                config.layer_norm_eps, device, dtype)
         self.lm_head = (QuantLinear(config.hidden_size, config.vocab_size, False, device,
                                     dtype) if int8_head else None)
+        if is_mha(config):
+            # The RoPE tables, built once (f32, (max_position_embeddings, H/2)).
+            cos, sin = rope_tables(config.hidden_size, config.max_position_embeddings,
+                                   config.rope_theta, device)
+            self.register_buffer("rope_cos", cos, persistent=False)
+            self.register_buffer("rope_sin", sin, persistent=False)
 
     @property
     def device(self) -> torch.device:
@@ -426,27 +586,61 @@ class ApertisForCausalLM(nn.Module):
             if isinstance(layer.ffn, MoEFFN):
                 layer.ffn.experts.fat()
 
+    def attach_qkv(self) -> None:
+        """Attach every int8 MHA layer's fused QKV projection
+        (:meth:`MultiHeadAttention.attach_qkv`), as the JAX engine attaches
+        ``attach_qkv_mha``; a no-op for other models."""
+        for layer in self.layers:
+            if isinstance(layer.attn, MultiHeadAttention):
+                layer.attn.attach_qkv()
+
     def _lm_head(self, h: torch.Tensor) -> torch.Tensor:
         if self.lm_head is not None:
             return self.lm_head(h)
         return h @ self.embed.tok.T     # tied
 
+    def _mha_kwargs(self, attention_mask: Optional[torch.Tensor], length: int) -> Dict:
+        """The full-sequence arguments of the MHA layers: the causal x padding
+        bias (None without a mask), positions 0..L-1 and the RoPE tables."""
+        bias = None if attention_mask is None else attn_ops.build_bias(attention_mask, length)
+        return dict(bias=bias, pos_ids=torch.arange(length, device=self.device),
+                    rope=(self.rope_cos, self.rope_sin),
+                    flash=flash_eligible(self.config, length))
+
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Full-sequence logits (B, L, V). The mask is accepted for the
-        reference's signature; the SSM mixer ignores it, as the reference
-        does."""
-        del attention_mask
+        """Full-sequence logits (B, L, V). An MHA model honours the mask
+        (causal x padding bias); without one it runs causal attention, through
+        the flash kernel where :func:`flash_eligible` holds. The SSM mixer
+        ignores the mask, as the reference does."""
         h = self.embed.tok[input_ids]
+        kw = self._mha_kwargs(attention_mask, h.shape[1]) if is_mha(self.config) else {}
         for layer in self.layers:
-            h, _ = layer(h)
+            h, _ = layer(h, **kw)
         return self._lm_head(self.final_norm(h))
 
-    def init_cache(self, batch_size: int) -> Cache:
-        """Zeroed decode cache, stacked over layers: ``conv`` (nl, B, K-1, C)
-        in ``config.dtype`` and ``ssm`` (nl, B, H, N) float32."""
+    def init_cache(self, batch_size: int, max_length: Optional[int] = None,
+                   kv_int8: bool = False) -> Cache:
+        """Zeroed decode cache, stacked over layers. Selective SSM: ``conv``
+        (nl, B, K-1, C) in ``config.dtype`` and ``ssm`` (nl, B, H, N) float32
+        (``max_length`` and ``kv_int8`` do not apply). MHA: the JAX package's
+        flat layout, ``k``, ``v`` (nl, B, L, H * Dh) with L = ``max_length``
+        (default ``config.decode_max_length``), in the model's dtype, or int8
+        with ``kv_int8`` and then f32 per-(head, slot) scales ``k_ps``,
+        ``v_ps`` (nl, B, H, L)."""
         cfg = self.config
         nl = cfg.num_hidden_layers
+        if is_mha(cfg):
+            length = max_length or cfg.decode_max_length
+            shape = (nl, batch_size, length, cfg.hidden_size)
+            dtype = torch.int8 if kv_int8 else self.embed.tok.dtype
+            cache = {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                     "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+            if kv_int8:
+                for name in ("k_ps", "v_ps"):
+                    cache[name] = torch.zeros((nl, batch_size, cfg.num_attention_heads, length),
+                                              dtype=torch.float32, device=self.device)
+            return cache
         return {
             "conv": torch.zeros((nl, batch_size, max(cfg.ssm_conv_kernel - 1, 0),
                                  cfg.ssm_d_inner),
@@ -466,28 +660,47 @@ class ApertisForCausalLM(nn.Module):
         b, l = input_ids.shape
         if attention_mask is None:
             attention_mask = torch.ones((b, l), dtype=torch.int32, device=input_ids.device)
-        seq_lens = attention_mask.to(torch.int64).sum(dim=1)
         h = self.embed.tok[input_ids]
-        for i, layer in enumerate(self.layers):
-            h, layer_cache = layer(h, seq_mask=attention_mask, seq_lens=seq_lens,
-                                   want_cache=True)
-            cache["conv"][i].copy_(layer_cache["conv"])
-            cache["ssm"][i].copy_(layer_cache["ssm"])
+        if is_mha(self.config):
+            # The prompt's post-RoPE K/V fill slots [0, L) of each layer.
+            kw = self._mha_kwargs(attention_mask, l)
+            head_dim = self.config.head_dim
+            for i, layer in enumerate(self.layers):
+                h, (k, v) = layer(h, want_cache=True, **kw)
+                for name, val in (("k", k), ("v", v)):
+                    if name + "_ps" in cache:
+                        val_q, val_s = quantize_heads(val, head_dim)
+                        cache[name][i, :, :l] = val_q
+                        cache[name + "_ps"][i, :, :, :l] = val_s.transpose(1, 2)
+                    else:
+                        cache[name][i, :, :l] = val
+        else:
+            seq_lens = attention_mask.to(torch.int64).sum(dim=1)
+            for i, layer in enumerate(self.layers):
+                h, layer_cache = layer(h, seq_mask=attention_mask, seq_lens=seq_lens,
+                                       want_cache=True)
+                cache["conv"][i].copy_(layer_cache["conv"])
+                cache["ssm"][i].copy_(layer_cache["ssm"])
         h = self.final_norm(h)
         if logit_positions is not None:
             h = h[torch.arange(b, device=h.device), logit_positions.long()][:, None, :]
         return PrefillOutput(self._lm_head(h), cache, l)
 
     @torch.no_grad()
-    def decode_step(self, cache: Cache, token_ids: torch.Tensor
-                    ) -> Tuple[torch.Tensor, Cache]:
+    def decode_step(self, cache: Cache, token_ids: torch.Tensor, t: Optional[int] = None,
+                    attn_mask_row: Optional[torch.Tensor] = None,
+                    positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
         """One autoregressive step for tokens (B,): returns logits (B, V) and
-        ``cache``, updated in place. Each layer is one fused mixer step that
-        also emits the FFN's input (normed, or normed and quantized; for MoE
-        the expert input and the combine weights), then the fused decode FFN.
-        A MoE model past ``moe_dense_threshold_tokens`` rows runs the step
-        without its epilogue and the FFN as over full sequences, as the JAX
-        package does (apertis.py:1224-1230)."""
+        ``cache``, updated in place. Selective SSM: each layer is one fused
+        mixer step that also emits the FFN's input (normed, or normed and
+        quantized; for MoE the expert input and the combine weights), then the
+        fused decode FFN; ``t``, ``attn_mask_row`` and ``positions`` do not
+        apply. A MoE model past ``moe_dense_threshold_tokens`` rows runs the
+        step without its epilogue and the FFN as over full sequences, as the
+        JAX package does (apertis.py:1224-1230). MHA: see
+        :meth:`_mha_decode_step`."""
+        if is_mha(self.config):
+            return self._mha_decode_step(cache, token_ids, t, attn_mask_row, positions)
         cfg = self.config
         eps = cfg.layer_norm_eps
         h = self.embed.tok[token_ids]                              # (B, D)
@@ -508,4 +721,39 @@ class ApertisForCausalLM(nn.Module):
                 h = h2 + layer.ffn(h2[:, None, :])[:, 0]
             else:
                 h = h2 + layer.ffn.decode(outs[3:], h2.dtype)
+        return self._lm_head(self.final_norm(h)), cache
+
+    def _mha_decode_step(self, cache: Cache, token_ids: torch.Tensor, t: Optional[int],
+                         attn_mask_row: Optional[torch.Tensor],
+                         positions: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
+        """The MHA step (``apertis.py::decode_step``'s flat-cache path):
+        ``t`` is the physical cache slot of the tokens, ``attn_mask_row``
+        (B, L) the validity of every slot including ``t`` (default: slots up
+        to ``t``), ``positions`` (B,) the logical positions for RoPE (default
+        ``t``; they differ for right-padded rows). Slot ``t`` is masked out of
+        the cached attention (its token enters as the self-term) with the
+        additive ``NEG``. Each layer: the attention (:meth:`MultiHeadAttention.
+        decode`, which then writes slot ``t``), the residual, the plain FFN
+        pre-norm and the decode FFN kernel (int8: on rows quantized by
+        ``quantize_rows``), the residual."""
+        if t is None:
+            raise ValueError("decode_step of an MHA model needs the cache slot t")
+        h = self.embed.tok[token_ids]                              # (B, D)
+        b = h.shape[0]
+        dev = h.device
+        slots = torch.arange(cache["k"].shape[2], device=dev)[None, :]
+        valid = slots <= t if attn_mask_row is None else attn_mask_row > 0
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        bias = torch.where(valid & (slots != t), zero, torch.full_like(zero, NEG))
+        bias = bias.expand(b, -1).contiguous()
+        pos = (torch.full((b,), t, device=dev) if positions is None else positions).long()
+        rope_rows = (self.rope_cos[pos], self.rope_sin[pos])
+        int8_kv = "k_ps" in cache
+        for i, layer in enumerate(self.layers):
+            scales = (cache["k_ps"][i], cache["v_ps"][i]) if int8_kv else None
+            h = h + layer.attn.decode(h, cache["k"][i], cache["v"][i], scales, bias,
+                                      rope_rows, t)
+            ffn = layer.ffn
+            x = ffn.pre_norm(h)
+            h = h + ffn.decode(quantize_rows(x) if ffn.quantized else (x,), h.dtype)
         return self._lm_head(self.final_norm(h)), cache

@@ -14,7 +14,10 @@ names, taken as they are, and an ``lm_head`` from ``quantize_tied_head``
 becomes the model's int8 head. A MoE tree, float or int8, fills the MoE
 FFN's parameters by the same names (``layers.{i}.ffn.experts.w1_q``, the
 router, and ``w_noise``, which eval does not read); the fat stack the
-kernels read is derived from them, not loaded.
+kernels read is derived from them, not loaded. An MHA tree, float or int8,
+fills ``layers.{i}.attn.{q,k,v,o}`` (with their biases ``b`` where the tree
+has them, that is when attention dropout is 0); the fused QKV projection and
+the RoPE tables are derived, not loaded.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 ``init_params`` builds the same nested dict of names and shapes as
 ``apertis_llm_tpu/models/params.py::init_params`` for the text-only model,
-with a dense or a MoE FFN:
+with the selective-SSM or the MHA mixer and a dense or a MoE FFN:
 per-layer tensors stacked along a leading ``num_hidden_layers`` axis, linear
 weights in the (in, out) layout, and the same distributions
 (reference: src/model/core.py:1045-1062, 314-318): normal(0,
@@ -27,9 +27,9 @@ Params = Dict[str, Any]
 
 
 # The mixer projections that are either all int8 or all float, with the FFN
-# pair, in a tree the port serves: (sublayer, name) under ``layers``.
-_QUANT_PROJECTIONS = (("attn", "in_proj_x"), ("attn", "in_proj_z"), ("attn", "x_param_proj"),
-                     ("attn", "out_proj"))
+# pair, in a tree the port serves: the SSM mixer's four, or MHA's q/k/v/o.
+_SSM_PROJECTIONS = ("in_proj_x", "in_proj_z", "x_param_proj", "out_proj")
+_MHA_PROJECTIONS = ("q", "k", "v", "o")
 
 
 def resolve_device(device) -> torch.device:
@@ -43,17 +43,21 @@ def resolve_device(device) -> torch.device:
 
 
 def quantized_layout(params: Params) -> bool:
-    """True when the four big mixer projections and the FFN pair of
-    ``params["layers"]`` are int8, False when they are all float. The FFN
-    pair is ``ffn.w1`` / ``ffn.w2`` (``{w_q, w_s}`` or ``{w}``) in a dense
-    tree and ``ffn.experts.w1`` / ``w2`` (``w1_q, w1_s`` or ``w1``) in a MoE
-    tree. A mixed tree raises ``NotImplementedError``: the JAX package serves
-    one quietly through its unfused path, which the port does not have."""
+    """True when the four mixer projections and the FFN pair of
+    ``params["layers"]`` are int8, False when they are all float. The mixer
+    projections are the SSM mixer's ``in_proj_x``, ``in_proj_z``,
+    ``x_param_proj`` and ``out_proj``, or MHA's ``q``, ``k``, ``v`` and ``o``
+    (a tree with ``attn.q`` is an MHA tree). The FFN pair is ``ffn.w1`` /
+    ``ffn.w2`` (``{w_q, w_s}`` or ``{w}``) in a dense tree and
+    ``ffn.experts.w1`` / ``w2`` (``w1_q, w1_s`` or ``w1``) in a MoE tree. A
+    mixed tree raises ``NotImplementedError``: the JAX package serves one
+    quietly through its unfused path, which the port does not have."""
     layers = params.get("layers", {})
+    attn = layers.get("attn", {})
     kinds = {}
-    for sub, name in _QUANT_PROJECTIONS:
-        leaf = layers.get(sub, {}).get(name, {})
-        kinds[f"{sub}.{name}"] = "int8" if "w_q" in leaf else "float" if "w" in leaf else None
+    for name in _MHA_PROJECTIONS if "q" in attn else _SSM_PROJECTIONS:
+        leaf = attn.get(name, {})
+        kinds[f"attn.{name}"] = "int8" if "w_q" in leaf else "float" if "w" in leaf else None
     ffn = layers.get("ffn", {})
     experts = ffn.get("experts")
     for name in ("w1", "w2"):
@@ -67,23 +71,34 @@ def quantized_layout(params: Params) -> bool:
         raise NotImplementedError(
             "the port serves trees whose projections are all int8 or all float; "
             f"got {kinds} (quantize with a min_size that takes all six)")
-    return kinds["attn.in_proj_x"] == "int8"
+    return "int8" in kinds.values()
 
 
 def is_moe(config: ApertisConfig) -> bool:
     return bool(config.use_expert_system and config.num_experts > 0)
 
 
+def is_mha(config: ApertisConfig) -> bool:
+    return config.attention_type == "standard_mha"
+
+
 def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
     """Raise unless ``config`` is a variant ported so far: the text-only
-    selective-SSM decoder with a dense FFN or a top-2 MoE FFN, rotary
-    (unused) positions and a tied LM head, in bf16/f32 or with int8
-    projections. The MHA, SwiGLU, multimodal and absolute-position variants,
-    MoE with another top-k, and int4 weights are later slices of the port
+    decoder with rotary positions and a tied LM head, in bf16/f32 or with
+    int8 projections, whose mixer is the selective SSM (with a dense FFN or
+    a top-2 MoE FFN) or standard MHA (with a dense FFN, and a head width the
+    decode-attention kernel takes: a multiple of 32 up to 256). MHA with
+    MoE, SwiGLU, the multimodal and absolute-position variants, MoE with
+    another top-k, and int4 weights are later slices of the port
     (ROADMAP.md)."""
     missing = []
-    if config.attention_type != "selective_ssm":
+    if config.attention_type not in ("selective_ssm", "standard_mha"):
         missing.append(f"attention_type={config.attention_type!r}")
+    if is_mha(config):
+        if is_moe(config):
+            missing.append("MHA with a MoE FFN")
+        if config.head_dim % 32 or config.head_dim > 256:
+            missing.append(f"MHA with head_dim={config.head_dim} (a multiple of 32 up to 256)")
     if config.use_swiglu:
         missing.append("use_swiglu")
     if is_moe(config) and config.experts_per_token != 2:
@@ -154,20 +169,25 @@ def init_params(config: ApertisConfig, generator: torch.Generator,
     embed[config.pad_token_id] = 0.0
     params: Params = {"embed": {"tok": embed}}
 
-    conv_bound = 1.0 / math.sqrt(k)
-    attn = {
-        "pre_norm": init.norm(nl, h, rms),
-        "in_proj_x": init.linear(nl, h, c, std, bias=False),
-        "in_proj_z": init.linear(nl, h, c, std, bias=False),
-        "conv": {"w": init.uniform((*nl, c, k), -conv_bound, conv_bound),
-                 "b": init.uniform((*nl, c), -conv_bound, conv_bound)},
-        "x_param_proj": init.linear(nl, c, r + 2 * heads * n, std, bias=False),
-        "dt_proj": {"w": init.normal((*nl, r, heads), std),
-                    "b": init.uniform((*nl, heads), math.log(1e-3), math.log(1e-2))},
-        "A_log": init.uniform((*nl, heads, n), math.log(0.5), math.log(0.99)),
-        "D": init.full((*nl, c), 1.0),
-        "out_proj": init.linear(nl, c, h, std, bias=False),
-    }
+    attn = {"pre_norm": init.norm(nl, h, rms)}
+    if is_mha(config):
+        # q/k/v/o carry biases only when attention dropout is 0 (qkv_bias).
+        for name in _MHA_PROJECTIONS:
+            attn[name] = init.linear(nl, h, h, std, bias=config.qkv_bias)
+    else:
+        conv_bound = 1.0 / math.sqrt(k)
+        attn.update({
+            "in_proj_x": init.linear(nl, h, c, std, bias=False),
+            "in_proj_z": init.linear(nl, h, c, std, bias=False),
+            "conv": {"w": init.uniform((*nl, c, k), -conv_bound, conv_bound),
+                     "b": init.uniform((*nl, c), -conv_bound, conv_bound)},
+            "x_param_proj": init.linear(nl, c, r + 2 * heads * n, std, bias=False),
+            "dt_proj": {"w": init.normal((*nl, r, heads), std),
+                        "b": init.uniform((*nl, heads), math.log(1e-3), math.log(1e-2))},
+            "A_log": init.uniform((*nl, heads, n), math.log(0.5), math.log(0.99)),
+            "D": init.full((*nl, c), 1.0),
+            "out_proj": init.linear(nl, c, h, std, bias=False),
+        })
     inter = config.intermediate_size
     ffn = {"pre_norm": init.norm(nl, h, rms)}
     if is_moe(config):

@@ -5,12 +5,13 @@ rules, on a tree of torch tensors on any device. ``quantize_params`` turns
 each eligible linear's ``{"w"}`` into ``{"w_q": int8, "w_s": float32}``;
 ``models/convert.py::from_jax_params`` builds the int8 modules from such a
 tree. Embeddings, norms, biases, ``dt_proj`` and the conv taps stay in their
-own dtype. The int4 layouts and the fused-QKV pack are later slices.
+own dtype. :func:`fuse_qkv` builds the fused QKV projection an int8 MHA
+layer serves at decode. The int4 layouts are a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -90,3 +91,21 @@ def quantize_tied_head(params: Params) -> Params:
     out = dict(params)
     out["lm_head"] = {"w_q": q.contiguous(), "w_s": s}
     return out
+
+
+def fuse_qkv(parts: Sequence[Params]) -> Optional[Params]:
+    """The fused QKV projection of ``attach_qkv_mha`` (``models/quantize.py:
+    220-247``): the int8 q, k, v linears ``{w_q, w_s, b?}`` concatenated along
+    the output axis into ``{w_q (H, 3H), w_s (1, 3H), b (3H,)}``, so that a
+    decode step runs one int8 product for all three. Returns None unless all
+    three are int8 and either all or none has a bias: the JAX function drops
+    the biases of a partial set, which would change the result."""
+    if not all(p.get("w_q") is not None for p in parts):
+        return None
+    biases = [p.get("b") for p in parts]
+    if any(b is None for b in biases) and any(b is not None for b in biases):
+        return None
+    fused = {"w_q": torch.cat([p["w_q"] for p in parts], dim=-1),
+             "w_s": torch.cat([p["w_s"] for p in parts], dim=-1),
+             "b": None if biases[0] is None else torch.cat(biases, dim=-1)}
+    return fused

@@ -26,7 +26,7 @@ PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT / "_build"
 SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu", "moe_ffn.cu",
-           "moe_grouped.cu")
+           "moe_grouped.cu", "mha_step.cu", "flash_attention.cu")
 HEADERS = ("common.cuh", "moe_gemm.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
@@ -57,6 +57,12 @@ SIGNATURES = {
     # x_q, x_s, emap, w1t_q, w1t_s, b1t, w2t_q, w2t_s, out, hidden, absmax, P,
     # H, E*I, E, act, stream
     "apertis_expert_ffn_grouped": [_P] * 11 + [_I] * 5 + [_P],
+    # q, k, v, k_new, v_new, bias, out, B, L, H, head_dim, stream
+    "apertis_mha_decode_ctx": [_P] * 7 + [_I] * 4 + [_P],
+    # q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, head_dim, stream
+    "apertis_mha_decode_ctx_int8": [_P] * 9 + [_I] * 4 + [_P],
+    # q, k, v, out, lse, B*H, L, head_dim, causal, stream
+    "apertis_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 

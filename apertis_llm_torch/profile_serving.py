@@ -1,14 +1,17 @@
 """Where the time of serving goes: ``torch.profiler`` over prefill and decode.
 
-    python -m apertis_llm_torch.profile_serving [--layers N] [--moe]
+    python -m apertis_llm_torch.profile_serving [--layers N] [--moe | --mha]
 
 Builds the 1.5B selective-SSM model on the card from a seeded generator
 (``chip_smoke.py``'s configuration, random weights; with ``--moe`` the 1.5B
-top-2-of-8 MoE preset instead), in bf16 and with int8
-weights (``quantize_params`` on the card, the int8 tied head attached), and
-for each traces one prefill of 64 prompts x 32 tokens and of 4 x 64 tokens
-(the smoke's requests B and A, bucketed as ``InferenceEngine`` buckets them)
-and five decode steps at 64 and at 4 rows, after a warm-up. For each phase it
+top-2-of-8 MoE preset instead, with ``--mha`` the 1.5B MHA preset), in bf16
+and with int8 weights (``quantize_params`` on the card, the int8 tied head
+and, for MHA, the fused QKV projection attached by the engine), and for each
+traces one prefill of 64 prompts x 32 tokens and of 4 x 64 tokens (the
+smoke's requests B and A, bucketed as ``InferenceEngine`` buckets them) and
+five decode steps at 64 and at 4 rows, after a warm-up; an MHA model decodes
+over a cache of the prompt plus 64 slots (bf16 for the bf16 model, int8 for
+the int8 one, as the engine allocates them), at its last slot. For each phase it
 prints the host wall time per call, the device time per call (the sum of the
 CUDA kernels' times, each kernel counted once), the device's idle share
 (1 - device / wall) and the kernels that take the most device time, with the
@@ -65,8 +68,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=None,
                         help="cut the depth (default: the preset's)")
-    parser.add_argument("--moe", action="store_true",
+    family = parser.add_mutually_exclusive_group()
+    family.add_argument("--moe", action="store_true",
                         help="the 1.5B MoE preset (8 experts, top-2) instead of the dense one")
+    family.add_argument("--mha", action="store_true",
+                        help="the 1.5B MHA preset instead of the selective-SSM one")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
@@ -83,7 +89,8 @@ def main(argv=None) -> int:
     dims = calculate_model_dimensions("1.5B", 32000, use_expert_system=args.moe)
     moe = dict(use_expert_system=True, num_experts=8, experts_per_token=2) if args.moe else {}
     config = ApertisConfig(
-        vocab_size=32000, attention_type="selective_ssm", ssm_d_state=16,
+        vocab_size=32000, attention_type="standard_mha" if args.mha else "selective_ssm",
+        ssm_d_state=16,
         hidden_size=dims["hidden_size"],
         num_hidden_layers=args.layers or dims["num_hidden_layers"],
         num_attention_heads=dims["num_attention_heads"],
@@ -99,20 +106,27 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(1)
     print(f"card: {card}; {config.num_hidden_layers} layers", flush=True)
     for kind, model in models.items():
-        InferenceEngine(config, model)          # attaches the int8 head, MoE fat stacks
+        # Attaches the int8 head, MoE fat stacks, MHA's fused QKV projection.
+        engine = InferenceEngine(config, model)
         for rows, length in ((64, 32), (4, 64)):
             ids = torch.randint(4, config.vocab_size, (rows, length), generator=gen,
                                 device=dev)
             mask = torch.ones((rows, length), dtype=torch.int32, device=dev)
             last = torch.full((rows,), length - 1, device=dev)
+            cache_kw, step_kw = {}, {}
+            if args.mha:
+                # The last slot of a prompt + 64 cache, every slot valid.
+                t = length + 63
+                cache_kw = dict(max_length=t + 1, kv_int8=engine.kv_int8)
+                step_kw = dict(t=t, positions=torch.full((rows,), t, device=dev))
             _trace(f"{kind} prefill {rows} x {length}",
-                   lambda: model.prefill(model.init_cache(rows), ids, mask,
+                   lambda: model.prefill(model.init_cache(rows, **cache_kw), ids, mask,
                                          logit_positions=last), 3, card)
-            cache = model.init_cache(rows)
+            cache = model.init_cache(rows, **cache_kw)
             model.prefill(cache, ids, mask, logit_positions=last)
             tok = ids[:, -1]
             _trace(f"{kind} decode step, {rows} rows",
-                   lambda: model.decode_step(cache, tok), 5, card)
+                   lambda: model.decode_step(cache, tok, **step_kw), 5, card)
     return 0
 
 

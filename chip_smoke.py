@@ -25,24 +25,38 @@ Phases, each of which raises (and so exits non-zero) on failure:
      epilogue in both layouts, the fat expert kernel and the grouped expert
      kernel, with sensitivity checks for the combine weights, b1t, w1t_s,
      w2t_s, the router bias and the epilogue's inverse deviation;
+     Then the 1.5B MHA model (hidden 2432, 20 layers, 38 heads of 64, q/k/v/o
+     biases), bf16 and int8: the decode-attention kernel over a bf16 and an
+     int8 cache at the caches of the requests below, at bench.py's 256-slot
+     allocation, at 2048 slots and at head widths 32 and 128, with ragged
+     masks that exclude the stale slot, and the causal flash-attention
+     forward at L = 128, 300, 1024 and Dh = 128, with sensitivity checks
+     (the self-term, the mask, ks, vs, qs; the causal mask) and
+     ``scaled_dot_product_attention`` timed beside both as the library
+     yardstick;
   4. serve two batches through ``InferenceEngine.generate`` with the dense
-     bf16 and int8 models and then the MoE bf16 and int8 models (4 ragged
+     bf16 and int8 models, the MoE bf16 and int8 models and the MHA bf16
+     (bf16 KV cache) and int8 (int8 KV cache) models (4 ragged
      prompts of 7/19/32/45 tokens, greedy, 24 new tokens, one EOS id; 64
      prompts of 32 tokens, greedy, 64 new tokens), with every kernel's launch
      counter set to 0 just before each model's requests and checked just
      after (layers x calls; for MoE the fat kernel at every decode step and
      at request A's 256-row prefill, the grouped kernel at request B's
-     2048-row prefill), tokens in range and each request repeated with the
-     same tokens; then TTFT and decode tokens per second per batch;
-  5. check 2-layer dense and MoE models on the card against the same weights
-     on the CPU (plain versions), bf16 and int8, and that the 1.5B logits are
-     finite.
+     2048-row prefill; for MHA the decode-attention kernel at every decode
+     step and no flash launch, since serving prefill carries a mask), tokens
+     in range and each request repeated with the same tokens; then TTFT and
+     decode tokens per second per batch;
+  5. check 2-layer dense, MoE and MHA models on the card against the same
+     weights on the CPU (plain versions), bf16 and int8, that the 1.5B logits
+     are finite, and that the 1.5B MHA ``forward()`` without a mask runs the
+     flash kernel once per layer and agrees with the plain attention.
 Before the last line it prints the kernels' JSON summary and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and exits non-zero without one. It imports no JAX.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -61,6 +75,16 @@ SCALE_TOL = 1e-6          # int8 row scales of ln_quantize (same formula, f32)
 INT8_MAX_DQ = 1           # int8 outputs: a level may flip by one ...
 INT8_FLIP_SHARE = 1e-3    # ... for under this share of the elements
 NOISE_STD = 0.1           # seeded noise on norms, biases and D
+# flash_attention_fwd: P V runs on the tensor cores with p rounded to bf16
+# (2^-9 of each term), where the plain version keeps p in f32, and then the
+# output is rounded to bf16 itself: up to two bf16 ulps at the top.
+FLASH_TOL = 2 * BF16_ULP
+LSE_TOL = 1e-5            # f32 log-sum-exp; exact bf16 products summed in another order
+# The 1.5B MHA forward through the flash kernel vs through the plain
+# attention: 20 layers, each attention output up to two bf16 ulps apart,
+# feeding a bf16 residual stream (the 2-layer card-vs-CPU checks used a
+# quarter of a 4-ulp limit).
+FLASH_FORWARD_TOL = 8 * BF16_ULP
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -138,10 +162,10 @@ def compare_int8(name, got, ref, _tol=None):
 
 def perturb_(tree, generator):
     """Add seeded noise to every norm weight and bias, FFN bias and skip
-    weight D of a parameter tree, and to the MoE router's LayerNorm and bias
-    and the experts' LayerNorms and biases, which init_params sets to 1 or 0,
-    so that every term the kernels compute has a value that shows when it is
-    dropped."""
+    weight D of a parameter tree, to the MoE router's LayerNorm and bias and
+    the experts' LayerNorms and biases, and to MHA's q/k/v/o biases, which
+    init_params sets to 1 or 0, so that every term the kernels compute has a
+    value that shows when it is dropped."""
     def walk(node, path):
         for key, value in node.items():
             name = f"{path}.{key}"
@@ -151,7 +175,9 @@ def perturb_(tree, generator):
             is_norm = "norm" in name or "router_ln" in name
             moe_term = ((".router" in name and key == "b")
                         or (".experts" in name and key in ("ln_w", "ln_b", "b1", "b2")))
-            if is_norm or moe_term or key == "D" or (".ffn.w" in name and key == "b"):
+            mha_bias = key == "b" and path.rsplit(".", 1)[-1] in ("q", "k", "v", "o")
+            if (is_norm or moe_term or mha_bias or key == "D"
+                    or (".ffn.w" in name and key == "b")):
                 noise = torch.randn(value.shape, generator=generator, device=value.device)
                 scale = 5 * NOISE_STD if key == "D" else NOISE_STD
                 value.add_((noise * scale).to(value.dtype))
@@ -177,7 +203,11 @@ def main() -> int:
     from apertis_llm_torch.ops.kernels.ffn_fused import (
         ffn_decode, ffn_decode_int8, ffn_decode_int8_reference, ffn_decode_reference,
         pick_block_n)
+    from apertis_llm_torch.ops.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_reference)
     from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize, ln_quantize_reference
+    from apertis_llm_torch.ops.kernels.mha_step import (
+        NEG, mha_decode_ctx, mha_decode_ctx_int8, mha_decode_ctx_reference, quantize_heads)
     from apertis_llm_torch.ops.kernels.moe_ffn import (
         expert_ffn_fat, expert_ffn_fat_reference, fat_block_n)
     from apertis_llm_torch.ops.kernels.moe_grouped import (
@@ -690,6 +720,149 @@ def main() -> int:
                      f"{args[0].shape[0]}, {live} live tiles of {TILE}, expert 7 empty", args,
                      expert_ffn_grouped, expert_ffn_grouped_reference, [("out", BF16_ULP)],
                      cost=grouped_cost(args, 2 * s_) if s_ == 2048 else None)
+
+    # ---- 3c. the 1.5B MHA model and its kernel checks -----------------------
+    # bench.py's arch="mha" preset: the dense preset's widths with standard
+    # MHA, text-only; attention dropout 0 gives q/k/v/o biases.
+    mha_config = ApertisConfig(
+        vocab_size=32000, attention_type="standard_mha", ssm_d_state=16,
+        hidden_size=dims["hidden_size"], num_hidden_layers=dims["num_hidden_layers"],
+        num_attention_heads=dims["num_attention_heads"],
+        intermediate_size=dims["intermediate_size"], hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, max_position_embeddings=4096,
+        dtype="bfloat16", param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    tree = init_params(mha_config, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                       dtype=bf16)
+    mha_params = count_params(tree)
+    if mha_params != 1_497_970_944:
+        raise RuntimeError(f"MHA model: {mha_params:,} parameters, not 1,497,970,944")
+    perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 5))
+    mha_model = from_jax_params(tree, mha_config, device=dev, dtype=bf16)
+    qtree = quantize_params(tree)
+    del tree
+    mha_qmodel = from_jax_params(qtree, mha_config, device=dev, dtype=bf16)
+    del qtree
+    torch.cuda.synchronize()
+    head_dim, mha_heads = mha_config.head_dim, mha_config.num_attention_heads
+    log(f"MHA model: {mha_params:,} parameters, hidden {d}, {mha_config.num_hidden_layers} "
+        f"layers, {mha_heads} heads of {head_dim}, q/k/v/o biases "
+        f"{mha_config.qkv_bias}, FFN {inter}, bf16 and int8, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def decode_ctx_inputs(b, l, heads=mha_heads, hd=head_dim, int8=False):
+        """A layer's cache as serving leaves it: row b holds its prompt in
+        slots [0, len_b), bucket padding up to slot l // 2, generated tokens
+        from there to the stale slot t = l - 1, which is masked."""
+        d_ = heads * hd
+        q, k_new, v_new = randn(b, d_), randn(b, d_), randn(b, d_)
+        k, v = randn(b, l, d_), randn(b, l, d_)
+        lens = torch.randint(1, l // 2 + 1, (b, 1), generator=g, device=dev)
+        slots = torch.arange(l, device=dev)[None, :]
+        valid = (slots < lens) | ((slots >= l // 2) & (slots < l - 1))
+        bias = torch.where(valid, 0.0, NEG).float().contiguous()
+        if not int8:
+            return (q, k, v, k_new, v_new, bias, hd)
+        (kq, ks), (vq, vs) = quantize_heads(k, hd), quantize_heads(v, hd)
+        return (q, kq, vq, k_new, v_new, bias, ks.transpose(1, 2).contiguous(),
+                vs.transpose(1, 2).contiguous(), hd)
+
+    def decode_ctx_int8_plain(q, k, v, k_new, v_new, bias, ks, vs, hd):
+        return mha_decode_ctx_reference(q, k, v, k_new, v_new, bias, hd, ks, vs)
+
+    def decode_ctx_dropping(term, q, k, v, k_new, v_new, bias, hd, ks=None, vs=None):
+        """The plain decode attention with one term left out: the self-term,
+        the mask, or an int8 scale (ks, vs, qs)."""
+        b, d_ = q.shape
+        heads = d_ // hd
+        qs = (q.float() * hd ** -0.5).to(q.dtype).float().reshape(b, heads, hd)
+        kh = k.float().reshape(b, -1, heads, hd)
+        if ks is None:
+            s = torch.einsum("bhd,blhd->bhl", qs, kh)
+        else:
+            qscale = torch.clamp(qs.abs().amax(dim=-1), min=1e-8) * (1.0 / 127.0)
+            q_i = torch.clamp(torch.round(qs / qscale[..., None]), -127, 127)
+            s = torch.einsum("bhd,blhd->bhl", q_i, kh)
+            s = s * ((1.0 if term == "ks" else ks)
+                     * (1.0 if term == "qs" else qscale[..., None]))
+        if term != "mask":
+            s = s + bias[:, None, :]
+        s_self = (qs * k_new.float().reshape(b, heads, hd)).sum(dim=-1)
+        m = s.amax(dim=-1) if term == "self-term" else torch.maximum(s.amax(dim=-1), s_self)
+        p = torch.exp(s - m[..., None])
+        p_self = torch.zeros_like(m) if term == "self-term" else torch.exp(s_self - m)
+        denom = p.sum(dim=-1) + p_self
+        if vs is not None and term != "vs":
+            p = p * vs
+        ctx = (torch.einsum("bhl,blhd->bhd", p, v.float().reshape(b, -1, heads, hd))
+               + p_self[..., None] * v_new.float().reshape(b, heads, hd))
+        return (ctx / denom[..., None]).reshape(b, d_).to(q.dtype)
+
+    def decode_ctx_cost(args):
+        b, d_ = args[0].shape
+        l = args[1].shape[1]
+        return (nbytes(*args[:-1]) + nbytes(args[0]), 4 * b * l * d_,
+                "int8" if args[1].dtype == torch.int8 else "bf16")
+
+    library = {}
+    ctx_tols = [("ctx", BF16_ULP)]
+    args = decode_ctx_inputs(5, 37)
+    check_sensitive("mha_decode_ctx", mha_decode_ctx_reference, args, {
+        term: lambda t=term: decode_ctx_dropping(t, *args) for term in ("self-term", "mask")},
+        ctx_tols)
+    args = decode_ctx_inputs(5, 37, int8=True)
+    check_sensitive("mha_decode_ctx_int8", decode_ctx_int8_plain, args, {
+        term: lambda t=term: decode_ctx_dropping(t, *args[:6], head_dim, *args[6:8])
+        for term in ("self-term", "mask", "ks", "vs", "qs")}, ctx_tols)
+    for b, l, heads, hd, label in [(4, 88, mha_heads, head_dim, "request A's cache"),
+                                   (64, 96, mha_heads, head_dim, "request B's cache"),
+                                   (64, 256, mha_heads, head_dim, "bench.py's allocation"),
+                                   (4, 2048, mha_heads, head_dim, "long cache"),
+                                   (5, 37, 4 * mha_heads // 2, 32, "Dh 32"),
+                                   (5, 37, mha_heads // 2, 128, "Dh 128")]:
+        timed = (b, l) == (64, 96)
+        args = decode_ctx_inputs(b, l, heads, hd)
+        check_kernel("mha_decode_ctx", f"mha_decode_ctx B={b} L={l} {heads}x{hd} ({label})",
+                     args, mha_decode_ctx, mha_decode_ctx_reference, ctx_tols,
+                     cost=decode_ctx_cost(args) if timed else None)
+        if timed:
+            # The library yardstick: SDPA over the cache with the new slot
+            # written (outside the timed region) under the same mask.
+            q, k, v, k_new, v_new, bias, _ = args
+            t_slot = l - 1
+            kc, vc = k.clone(), v.clone()
+            kc[:, t_slot], vc[:, t_slot] = k_new, v_new
+            heads4 = lambda z: z.reshape(b, -1, heads, hd).transpose(1, 2)   # noqa: E731
+            keep = ((bias == 0) | (torch.arange(l, device=dev) == t_slot))[:, None, None, :]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            library["mha_decode_ctx"] = cuda_ms(lambda: sdpa(heads4(q), heads4(kc), heads4(vc),
+                                                             attn_mask=keep))
+            log(f"  library: scaled_dot_product_attention over the written cache "
+                f"{library['mha_decode_ctx']:.4f} ms; card: {card}")
+        args = decode_ctx_inputs(b, l, heads, hd, int8=True)
+        check_kernel("mha_decode_ctx_int8", f"mha_decode_ctx_int8 B={b} L={l} {heads}x{hd} "
+                     f"({label})", args, mha_decode_ctx_int8, decode_ctx_int8_plain, ctx_tols,
+                     cost=decode_ctx_cost(args) if timed else None)
+
+    flash_tols = [("out", FLASH_TOL), ("lse", LSE_TOL)]
+    args = (randn(2, 4, 200, head_dim), randn(2, 4, 200, head_dim), randn(2, 4, 200, head_dim))
+    check_sensitive("flash_attention_fwd", flash_attention_fwd_reference, args,
+                    {"causal mask": args + (False,)}, flash_tols)
+    for shape in ((4, mha_heads, 1024, head_dim), (4, mha_heads, 300, head_dim),
+                  (2, mha_heads, 128, head_dim), (2, mha_heads // 2, 256, 128)):
+        args = tuple(randn(*shape) for _ in range(3))
+        b, h_, l, hd = shape
+        timed = l == 1024
+        # Causal: each of the L (L + 1) / 2 visible pairs costs 2 Dh MACs.
+        cost = (4 * nbytes(args[0]) + b * h_ * l * 4, 4 * b * h_ * hd * l * (l + 1) // 2, "bf16")
+        check_kernel("flash_attention_fwd", f"flash_attention_fwd {shape}", args,
+                     flash_attention_fwd, flash_attention_fwd_reference, flash_tols,
+                     cost=cost if timed else None)
+        if timed:
+            library["flash_attention_fwd"] = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(*args, is_causal=True))
+            log(f"  library: scaled_dot_product_attention(is_causal=True) "
+                f"{library['flash_attention_fwd']:.4f} ms; card: {card}")
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. serve -----------------------------------------------------------
@@ -708,16 +881,22 @@ def main() -> int:
             batch_b, None, dict(max_new_tokens=64, eos_token_id=())),
     }
     counters = (selective_scan_fwd, ssm_decode_step, ffn_decode, ln_quantize,
-                ssm_decode_step_int8, ffn_decode_int8, expert_ffn_fat, expert_ffn_grouped)
+                ssm_decode_step_int8, ffn_decode_int8, expert_ffn_fat, expert_ffn_grouped,
+                mha_decode_ctx, mha_decode_ctx_int8, flash_attention_fwd)
     launches, serve = {}, {}
     for kind, m, cfg in (("bf16", model, config), ("int8", qmodel, config),
                          ("MoE bf16", moe_model, moe_config),
-                         ("MoE int8", moe_qmodel, moe_config)):
-        moe = cfg is moe_config
+                         ("MoE int8", moe_qmodel, moe_config),
+                         ("MHA bf16", mha_model, mha_config),
+                         ("MHA int8", mha_qmodel, mha_config)):
+        moe, mha = cfg is moe_config, cfg is mha_config
         nl = cfg.num_hidden_layers
         engine = InferenceEngine(cfg, m)
         if "int8" in kind and m.lm_head is None:
             raise RuntimeError("the engine did not attach the int8 head")
+        if mha and (engine.kv_int8 != ("int8" in kind)
+                    or (m.layers[0].attn.fused_qkv() is not None) != ("int8" in kind)):
+            raise RuntimeError(f"{kind}: KV cache or fused QKV not as the engine's defaults")
         for f in counters:
             f.launches = 0
         first = {}
@@ -740,10 +919,19 @@ def main() -> int:
             log(f"{kind} request {name}: {n_new} new tokens, first row "
                 f"{new[0, :8].tolist()}...")
         expected = {f.__name__: 0 for f in counters}
-        expected["selective_scan_fwd"] = nl * len(requests)
-        step = "ssm_decode_step_int8" if "int8" in kind else "ssm_decode_step"
-        expected[step] = nl * decode_calls
-        if "int8" in kind:
+        if mha:
+            # Serving prefill carries the padding mask, so the plain attention
+            # runs there and the flash kernel never; the int8 model's FFN
+            # pre-norm is ln_quantize once per layer and prefill.
+            int8 = "int8" in kind
+            expected["mha_decode_ctx_int8" if int8 else "mha_decode_ctx"] = nl * decode_calls
+            expected["ffn_decode_int8" if int8 else "ffn_decode"] = nl * decode_calls
+            expected["ln_quantize"] = nl * len(requests) if int8 else 0
+        else:
+            expected["selective_scan_fwd"] = nl * len(requests)
+            step = "ssm_decode_step_int8" if "int8" in kind else "ssm_decode_step"
+            expected[step] = nl * decode_calls
+        if "int8" in kind and not mha:
             # The mixer's pre-norm once per layer and prefill; a MoE FFN's
             # pre-norm is the plain norm, since the router reads it.
             expected["ln_quantize"] = (1 if moe else 2) * nl * len(requests)
@@ -752,7 +940,7 @@ def main() -> int:
             # B 64 x 32 = 2048 (the grouped kernel); every decode step runs
             # the fat kernel.
             expected.update(expert_ffn_fat=nl * (decode_calls + 1), expert_ffn_grouped=nl)
-        else:
+        elif not mha:
             expected["ffn_decode_int8" if "int8" in kind else "ffn_decode"] = nl * decode_calls
         log(f"{kind} launch counts in the two requests: {got} (expected {expected})")
         if got != expected:
@@ -783,13 +971,34 @@ def main() -> int:
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. outputs are right -----------------------------------------------
+    def cache_kw(m, width, int8):
+        """init_cache's arguments: an MHA cache of the prompt's width plus
+        eight slots, int8 for an int8 model as the engine allocates it."""
+        if m.config.attention_type != "standard_mha":
+            return {}
+        return dict(max_length=width + 8, kv_int8=int8)
+
+    def step_kw(m, mask, i):
+        """decode_step's MHA arguments for step i after a prefill of width W,
+        as the engine gives them: slot W + i, positions len + i, the prompt's
+        mask and the slots generated so far valid."""
+        if m.config.attention_type != "standard_mha":
+            return {}
+        b, w = mask.shape
+        row = torch.zeros((b, w + 8), dtype=torch.int32, device=m.device)
+        row[:, :w] = mask.to(m.device)
+        row[:, w:w + i + 1] = 1
+        return dict(t=w + i, attn_mask_row=row, positions=(mask.sum(1) + i).to(m.device))
+
+    mask_a_t = torch.as_tensor(mask_a)
     for kind, m in (("bf16", model), ("int8", qmodel), ("MoE bf16", moe_model),
-                    ("MoE int8", moe_qmodel)):
-        cache = m.init_cache(4)
+                    ("MoE int8", moe_qmodel), ("MHA bf16", mha_model),
+                    ("MHA int8", mha_qmodel)):
+        cache = m.init_cache(4, **cache_kw(m, batch_a.shape[1], "int8" in kind))
         pre = m.prefill(cache, torch.as_tensor(batch_a, dtype=torch.long, device=dev),
                         torch.as_tensor(mask_a, device=dev),
                         logit_positions=torch.as_tensor(mask_a.sum(1) - 1, device=dev))
-        logits, _ = m.decode_step(cache, pre.logits[:, 0].argmax(-1))
+        logits, _ = m.decode_step(cache, pre.logits[:, 0].argmax(-1), **step_kw(m, mask_a_t, 0))
         if (pre.logits.shape != (4, 1, config.vocab_size)
                 or logits.shape != (4, config.vocab_size)):
             raise RuntimeError(f"1.5B {kind} logits have the wrong shape")
@@ -797,7 +1006,30 @@ def main() -> int:
             raise RuntimeError(f"1.5B {kind} logits are not finite")
         log(f"1.5B {kind} prefill and decode logits: finite, shapes (4, 1, 32000) and "
             "(4, 32000)")
-    del model, qmodel, moe_model, moe_qmodel
+
+    # The 1.5B MHA forward() without a mask, with use_flash_attention: the
+    # flash kernel once per layer, against the same weights' forward() through
+    # the plain attention on the card.
+    ids_f = torch.randint(4, mha_config.vocab_size, (2, 512), generator=g, device=dev)
+    for f in counters:
+        f.launches = 0
+    mha_model.config = dataclasses.replace(mha_config, use_flash_attention=True)
+    with torch.no_grad():
+        logits_flash = mha_model(ids_f)
+    torch.cuda.synchronize()
+    launches["flash_attention_fwd"] = flash_attention_fwd.launches
+    log(f"1.5B MHA forward() B=2 L=512 without a mask: flash_attention_fwd launched "
+        f"{flash_attention_fwd.launches} times (expected {mha_config.num_hidden_layers})")
+    if flash_attention_fwd.launches != mha_config.num_hidden_layers:
+        raise RuntimeError("forward() did not run the flash kernel once per layer")
+    mha_model.config = mha_config
+    with torch.no_grad():
+        logits_plain = mha_model(ids_f)
+    if flash_attention_fwd.launches != mha_config.num_hidden_layers:
+        raise RuntimeError("forward() ran the flash kernel with use_flash_attention off")
+    flash_forward_err = compare("1.5B MHA forward() logits, flash kernel vs plain attention",
+                                logits_flash, logits_plain, FLASH_FORWARD_TOL)
+    del model, qmodel, moe_model, moe_qmodel, mha_model, mha_qmodel
 
     dense_small = dict(
         vocab_size=1000, attention_type="selective_ssm", ssm_d_state=16, hidden_size=256,
@@ -808,11 +1040,12 @@ def main() -> int:
     # (past its threshold of 64) and decodes through the fat kernel.
     moe_small = dict(dense_small, intermediate_size=512, use_expert_system=True, num_experts=8,
                      experts_per_token=2, moe_dense_threshold_tokens=64)
+    mha_small = dict(dense_small, attention_type="standard_mha")     # 4 heads of 64
     ids = torch.as_tensor(batch_a % 1000, dtype=torch.long)
     mask = torch.as_tensor(mask_a)
     small_err = {}
     cases = []
-    for family, kw in (("", dense_small), ("MoE ", moe_small)):
+    for family, kw in (("", dense_small), ("MoE ", moe_small), ("MHA ", mha_small)):
         small = ApertisConfig(**kw)
         tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu",
                            dtype=torch.bfloat16)
@@ -826,7 +1059,9 @@ def main() -> int:
         if "int8" in kind:
             for m in models.values():
                 m.quantize_tied_head()
-        caches = {k: m.init_cache(4) for k, m in models.items()}
+                m.attach_qkv()
+        caches = {k: m.init_cache(4, **cache_kw(m, ids.shape[1], "int8" in kind))
+                  for k, m in models.items()}
         logits = {k: m.prefill(caches[k], ids.to(m.device), mask.to(m.device),
                                logit_positions=(mask.sum(1) - 1).to(m.device)).logits[:, 0]
                   for k, m in models.items()}
@@ -837,7 +1072,7 @@ def main() -> int:
                 f"2-layer {kind} model on the card vs the CPU, logits of step {i}",
                 logits["gpu"].cpu(), logits["cpu"], 4 * BF16_ULP))
             tok = logits["cpu"].argmax(-1)
-            logits = {k: m.decode_step(caches[k], tok.to(m.device))[0]
+            logits = {k: m.decode_step(caches[k], tok.to(m.device), **step_kw(m, mask, i))[0]
                       for k, m in models.items()}
 
     # ---- report -------------------------------------------------------------
@@ -862,20 +1097,28 @@ def main() -> int:
                            "apertis_llm_tpu/ops/pallas/moe_ffn.py:243"),
         "expert_ffn_grouped": ("apertis_llm_torch/csrc/moe_grouped.cu",
                                "apertis_llm_tpu/ops/pallas/moe_grouped.py:76"),
+        "mha_decode_ctx": ("apertis_llm_torch/csrc/mha_step.cu",
+                           "apertis_llm_tpu/ops/pallas/mha_step.py:131"),
+        "mha_decode_ctx_int8": ("apertis_llm_torch/csrc/mha_step.cu",
+                                "apertis_llm_tpu/ops/pallas/mha_step.py:131"),
+        "flash_attention_fwd": ("apertis_llm_torch/csrc/flash_attention.cu",
+                                "apertis_llm_tpu/ops/pallas/flash_attention.py:208"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
         ms, plain_ms, bound_ms, bound_by = times[name]
-        # No single PyTorch call computes any of these functions (a fused
-        # norm + quantize, a whole mixer step, a whole FFN, a selective scan,
-        # an int8 expert FFN with per-tile requantization).
+        # No single PyTorch call computes the other functions (a fused norm +
+        # quantize, a whole mixer step, a whole FFN, a selective scan, an int8
+        # expert FFN with per-tile requantization, attention over an int8
+        # cache with per-(head, slot) scales): their library time is null.
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": tpu,
                         "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
+                        "library_ms": library.get(name)})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": serve,
-                      "small_model_max_abs_err": small_err}))
+                      "small_model_max_abs_err": small_err,
+                      "flash_forward_max_abs_err": flash_forward_err}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
