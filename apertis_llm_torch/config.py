@@ -16,9 +16,12 @@ Derived-field semantics (reference: src/model/core.py):
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import math
+import os
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
 logger = logging.getLogger(__name__)
@@ -160,3 +163,13 @@ class ApertisConfig:
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
+
+    def save_pretrained(self, save_directory: Union[str, os.PathLike]) -> None:
+        os.makedirs(save_directory, exist_ok=True)
+        with open(Path(save_directory) / "config.json", "w", encoding="utf-8") as f:
+            json.dump(self.to_dict(), f, indent=2)
+
+    def replace(self, **changes: Any) -> "ApertisConfig":
+        d = self.to_dict()
+        d.update(changes)
+        return ApertisConfig.from_dict(d)

@@ -1,29 +1,48 @@
-// selective_scan_fwd: the selective-SSM scan over a whole sequence (prefill).
+// selective_scan_fwd / selective_scan_bwd: the selective-SSM scan over a whole
+// sequence (prefill and training) and its gradient.
 //
-// Replaces: apertis_llm_tpu/ops/pallas/ssm_scan.py::gated_scan_2d (forward;
-// its caller ops/ssm.py::ssm_mix builds exp(delta*A) and the mask outside the
-// kernel and relayouts every operand time-minor first).
+// Replaces: apertis_llm_tpu/ops/pallas/ssm_scan.py::gated_scan_2d, forward
+// and custom-VJP backward (:302-321), with the reverse scan that backward
+// runs through selective_scan_pallas's core (_scan_2d, :87-97). Its caller
+// ops/ssm.py::ssm_mix builds exp(delta*A) and the mask outside the kernel and
+// relayouts every operand time-minor first; here both are folded in.
 //
-// Computes, for every batch row b and channel c = head * N + n:
+// Forward, for every batch row b and channel c = head * N + n:
 //   h[t] = exp(delta[b,t,head] * A[c]) * h[t-1] + B[b,t,c]     (f32 carry)
 //   y[b,t,c] = C[b,t,c] * h[t]                                  (out dtype)
-//   h_last[b,c] = h[L-1]
+//   h_last[b,c] = h[L-1]; with a gradient to come, every h[t] in f32 too.
 // A masked step (mask[b,t] == 0) is the identity: a = 1, b = 0, so h_last is
 // the state after each row's last real token.
 //
-// Bound on the H100: bytes. Each step of each channel reads B and C and writes
-// y (6 bytes in bf16) for one multiply-add of carry; the whole scan is far
-// below the card's operations-per-byte line. The recurrence is sequential in
-// t, so the parallelism is B * H * N threads.
+// Backward (the scan adjoint), from gy = dL/dy and g_last = dL/dh_last:
+//   dh[t] = gy[t] * C[t] (+ g_last at t = L-1)
+//   lam[t] = dh[t] + a[t+1] * lam[t+1]                  (reverse scan)
+//   dC[t] = gy[t] * h[t];  dB[t] = lam[t];  da[t] = lam[t] * h[t-1]
+// and, through a = exp(delta * A), the gradients of this kernel's own
+// inputs: d_delta[b,t,head] = sum_n da * a * A[c], dA[c] = sum_{b,t} da * a *
+// delta. A masked step contributes nothing to d_delta, dA or dB (its a and b
+// are constants) and lam passes through it with a = 1.
 //
-// Design: one thread owns one (b, c) and walks L with its carry in a register.
-// At each step neighbouring threads read neighbouring channels of the natural
-// (B, L, H*N) layout, so every load and store coalesces without the TPU
-// kernel's time-minor relayout, its 128-lane padding, or the exp(delta*A)
-// tensor in device memory: delta is a broadcast load shared by the N threads
-// of a head and the exponential is computed in the thread. The mask is folded
-// in the same way. At batch 1 the 1.5B model has only 608 channels, so the
-// card is mostly idle; splitting the time axis into chunks is later work.
+// Bound on the H100: bytes. A forward step of a channel reads B and C and
+// writes y (6 bytes in bf16; 10 more with h in f32) for one multiply-add; a
+// backward step reads gy, C and h and writes dB and dC (14 bytes in bf16) for
+// a few flops: both far below the card's operations-per-byte line. The
+// recurrence is sequential in t, so the parallelism is B * H * N threads.
+//
+// Design: one thread owns one (b, c) and walks L (the backward from L-1 down)
+// with its carry in a register. Neighbouring threads read neighbouring
+// channels of the natural (B, L, H*N) layout, so every load and store
+// coalesces without the TPU kernel's time-minor relayout, its 128-lane
+// padding, or the exp(delta*A) tensor in device memory: delta is a broadcast
+// load shared by the N threads of a head and the exponential is computed in
+// the thread. The backward keeps h[t-1] and a[t] in registers for the next
+// step down, sums d_delta over the N lanes of a head by a fixed-order
+// butterfly of warp shuffles (N a power of two up to 32, so a head is N
+// neighbouring lanes of one warp), and writes each thread's dA partial to a
+// (B, C) scratch that a second launch sums over b in order: no atomics, so
+// the result is the same from run to run. At batch 4 the 1.5B model has only
+// 2,432 channels, so the card is mostly idle; splitting the time axis into
+// chunks is later work.
 
 #include "common.cuh"
 
@@ -40,6 +59,7 @@ __global__ void __launch_bounds__(kScanThreads) selective_scan_fwd_kernel(
     const int* __restrict__ mask,      // (B, L) or nullptr
     TOut* __restrict__ y,              // (B, L, C)
     float* __restrict__ h_last,        // (B, C)
+    float* __restrict__ h_all,         // (B, L, C) or nullptr
     int seq_len, int heads, int d_state) {
   const int channels = heads * d_state;
   const int c = blockIdx.x * kScanThreads + threadIdx.x;
@@ -61,13 +81,89 @@ __global__ void __launch_bounds__(kScanThreads) selective_scan_fwd_kernel(
     }
     h = fmaf(decay, h, u);
     y[off] = from_f32<TOut>(gate * h);
+    if (h_all != nullptr) h_all[off] = h;
   }
   h_last[(size_t)b * channels + c] = h;
 }
 
+// Sum of v over the `width` neighbouring lanes of a group (width a power of
+// two up to 32), by a butterfly of shuffles: every lane of the group gets the
+// same sum, in the same order on every run.
+__device__ __forceinline__ float group_sum(float v, int width) {
+  for (int off = width >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename TIn, typename TG>
+__global__ void __launch_bounds__(kScanThreads) selective_scan_bwd_kernel(
+    const float* __restrict__ delta,   // (B, L, H)
+    const float* __restrict__ a_cont,  // (C,)
+    const TIn* __restrict__ c_mod,     // (B, L, C)
+    const int* __restrict__ mask,      // (B, L) or nullptr
+    const float* __restrict__ h_all,   // (B, L, C) f32, the forward's states
+    const TG* __restrict__ gy,         // (B, L, C) dL/dy
+    const float* __restrict__ g_last,  // (B, C) dL/dh_last or nullptr
+    float* __restrict__ d_delta,       // (B, L, H)
+    TIn* __restrict__ db,              // (B, L, C)
+    TIn* __restrict__ dc,              // (B, L, C)
+    float* __restrict__ da_part,       // (B, C) per-row partial of dA
+    int seq_len, int heads, int d_state) {
+  const int channels = heads * d_state;
+  const int c = blockIdx.x * kScanThreads + threadIdx.x;
+  const int b = blockIdx.y;
+  // Threads past the last channel stay in the loop with zeros, so that the
+  // shuffles of a head always see a whole warp; C is a multiple of N, so no
+  // head mixes live and idle lanes.
+  const bool live = c < channels;
+  const int cc = live ? c : channels - 1;
+  const int head = cc / d_state;
+  const bool leader = live && (cc % d_state) == 0;
+  const float a_c = live ? a_cont[cc] : 0.f;
+  const size_t row = (size_t)b * seq_len;
+  float lam = 0.f;
+  float a_next = 1.f;                       // a[t+1]; a[L] = 1
+  float dA = 0.f;
+  float h_t = live ? h_all[(row + seq_len - 1) * channels + cc] : 0.f;
+#pragma unroll 2
+  for (int t = seq_len - 1; t >= 0; --t) {
+    const size_t off = (row + t) * channels + cc;
+    const float g = live ? to_f32(gy[off]) : 0.f;
+    const float gate = live ? to_f32(c_mod[off]) : 0.f;
+    const float h_prev = (live && t > 0) ? h_all[off - channels] : 0.f;
+    const bool masked = mask != nullptr && mask[row + t] == 0;
+    const float dt = delta[(row + t) * heads + head];
+    const float a_t = masked ? 1.f : expf(dt * a_c);
+    float dh = g * gate;
+    if (t == seq_len - 1 && g_last != nullptr && live) dh += g_last[(size_t)b * channels + cc];
+    lam = fmaf(a_next, lam, dh);
+    const float da = lam * h_prev;
+    const float chain = masked ? 0.f : da * a_t;   // dL/d(delta * A)
+    dA = fmaf(chain, dt, dA);
+    const float dd = group_sum(chain * a_c, d_state);
+    if (live) {
+      dc[off] = from_f32<TIn>(g * h_t);
+      db[off] = from_f32<TIn>(masked ? 0.f : lam);
+    }
+    if (leader) d_delta[(row + t) * heads + head] = dd;
+    a_next = a_t;
+    h_t = h_prev;
+  }
+  if (live) da_part[(size_t)b * channels + c] = dA;
+}
+
+// dA[c] = sum over b, in order, of the per-row partials.
+__global__ void __launch_bounds__(kScanThreads) sum_rows_kernel(
+    const float* __restrict__ part, float* __restrict__ out, int rows, int channels) {
+  const int c = blockIdx.x * kScanThreads + threadIdx.x;
+  if (c >= channels) return;
+  float s = 0.f;
+  for (int b = 0; b < rows; ++b) s += part[(size_t)b * channels + c];
+  out[c] = s;
+}
+
 template <typename TIn, typename TOut>
 void launch_scan(const void* delta, const void* a_cont, const void* b_term,
-                 const void* c_mod, const void* mask, void* y, void* h_last,
+                 const void* c_mod, const void* mask, void* y, void* h_last, void* h_all,
                  int batch, int seq_len, int heads, int d_state, cudaStream_t stream) {
   const int channels = heads * d_state;
   const dim3 grid((channels + kScanThreads - 1) / kScanThreads, batch);
@@ -75,31 +171,81 @@ void launch_scan(const void* delta, const void* a_cont, const void* b_term,
       static_cast<const float*>(delta), static_cast<const float*>(a_cont),
       static_cast<const TIn*>(b_term), static_cast<const TIn*>(c_mod),
       static_cast<const int*>(mask), static_cast<TOut*>(y),
-      static_cast<float*>(h_last), seq_len, heads, d_state);
+      static_cast<float*>(h_last), static_cast<float*>(h_all), seq_len, heads, d_state);
+}
+
+template <typename TIn, typename TG>
+void launch_scan_bwd(const void* delta, const void* a_cont, const void* c_mod,
+                     const void* mask, const void* h_all, const void* gy, const void* g_last,
+                     void* d_delta, void* da, void* db, void* dc, void* da_part, int batch,
+                     int seq_len, int heads, int d_state, cudaStream_t stream) {
+  const int channels = heads * d_state;
+  const int blocks = (channels + kScanThreads - 1) / kScanThreads;
+  selective_scan_bwd_kernel<TIn, TG><<<dim3(blocks, batch), kScanThreads, 0, stream>>>(
+      static_cast<const float*>(delta), static_cast<const float*>(a_cont),
+      static_cast<const TIn*>(c_mod), static_cast<const int*>(mask),
+      static_cast<const float*>(h_all), static_cast<const TG*>(gy),
+      static_cast<const float*>(g_last), static_cast<float*>(d_delta),
+      static_cast<TIn*>(db), static_cast<TIn*>(dc), static_cast<float*>(da_part), seq_len,
+      heads, d_state);
+  sum_rows_kernel<<<blocks, kScanThreads, 0, stream>>>(
+      static_cast<const float*>(da_part), static_cast<float*>(da), batch, channels);
 }
 
 }  // namespace
 
 // b_term / c_mod are bf16 when bc_bf16 else f32; y is bf16 when y_bf16 else
-// f32. Returns cudaGetLastError() after the launch.
+// f32; h_all (B, L, C) f32 is written when not null. Returns
+// cudaGetLastError() after the launch.
 extern "C" int apertis_selective_scan_fwd(const void* delta, const void* a_cont,
                                           const void* b_term, const void* c_mod,
                                           const void* mask, void* y, void* h_last,
-                                          int batch, int seq_len, int heads,
+                                          void* h_all, int batch, int seq_len, int heads,
                                           int d_state, int bc_bf16, int y_bf16,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bc_bf16 && y_bf16)
-    launch_scan<bf16, bf16>(delta, a_cont, b_term, c_mod, mask, y, h_last, batch,
+    launch_scan<bf16, bf16>(delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, batch,
                             seq_len, heads, d_state, s);
   else if (bc_bf16)
-    launch_scan<bf16, float>(delta, a_cont, b_term, c_mod, mask, y, h_last, batch,
+    launch_scan<bf16, float>(delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, batch,
                              seq_len, heads, d_state, s);
   else if (y_bf16)
-    launch_scan<float, bf16>(delta, a_cont, b_term, c_mod, mask, y, h_last, batch,
+    launch_scan<float, bf16>(delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, batch,
                              seq_len, heads, d_state, s);
   else
-    launch_scan<float, float>(delta, a_cont, b_term, c_mod, mask, y, h_last, batch,
+    launch_scan<float, float>(delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, batch,
                               seq_len, heads, d_state, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gradient of apertis_selective_scan_fwd. c_mod, db and dc are bf16 when
+// bc_bf16 else f32; gy is bf16 when gy_bf16 else f32; g_last (B, C) f32 may
+// be null; da_part is (B, C) f32 scratch. d_state must be a power of two up
+// to 32. Two launches (the reverse scan, then dA's sum over b). Returns
+// cudaGetLastError().
+extern "C" int apertis_selective_scan_bwd(const void* delta, const void* a_cont,
+                                          const void* c_mod, const void* mask,
+                                          const void* h_all, const void* gy,
+                                          const void* g_last, void* d_delta, void* da,
+                                          void* db, void* dc, void* da_part, int batch,
+                                          int seq_len, int heads, int d_state, int bc_bf16,
+                                          int gy_bf16, void* stream) {
+  if (d_state <= 0 || d_state > 32 || (d_state & (d_state - 1)) || batch <= 0 ||
+      seq_len <= 0 || heads <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bc_bf16 && gy_bf16)
+    launch_scan_bwd<bf16, bf16>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da,
+                                db, dc, da_part, batch, seq_len, heads, d_state, s);
+  else if (bc_bf16)
+    launch_scan_bwd<bf16, float>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da,
+                                 db, dc, da_part, batch, seq_len, heads, d_state, s);
+  else if (gy_bf16)
+    launch_scan_bwd<float, bf16>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da,
+                                 db, dc, da_part, batch, seq_len, heads, d_state, s);
+  else
+    launch_scan_bwd<float, float>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta,
+                                  da, db, dc, da_part, batch, seq_len, heads, d_state, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,12 @@ Three paths, with the JAX package's semantics:
   * ``forward``: full-sequence logits; like the reference, the SSM mixer
     ignores the attention mask here (apertis.py:393-398, 772); MHA honours
     it, and without one runs the causal flash kernel where the gate holds.
+    With ``labels`` it is the training forward (apertis.py:772-874): the
+    shifted cross-entropy, dropout at the JAX package's places with masks
+    drawn from a ``(step seed, layer)`` pair, and per-layer
+    rematerialisation when ``config.remat`` and ``training``. The float
+    parameters are trainable; the scan and the flash attention run as
+    ``torch.autograd.Function``s whose backward is a kernel too.
   * ``prefill``: masked full-sequence pass that fills the decode cache: the
     SSM's ``{conv, ssm}`` (padded steps are identity transitions and each
     row's conv window is gathered at its true length), or MHA's flat K/V
@@ -59,6 +65,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from apertis_llm_torch.config import ApertisConfig
 from apertis_llm_torch.models.moe_fuse import fuse_one_fat
@@ -70,7 +77,7 @@ from apertis_llm_torch.ops import moe as moe_ops
 from apertis_llm_torch.ops import ssm as ssm_ops
 from apertis_llm_torch.ops.activations import get_activation, silu
 from apertis_llm_torch.ops.kernels.ffn_fused import ffn_decode, ffn_decode_int8
-from apertis_llm_torch.ops.kernels.flash_attention import flash_attention_fwd
+from apertis_llm_torch.ops.kernels.flash_attention import FlashAttention
 from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize
 from apertis_llm_torch.ops.kernels.mha_step import (
     NEG, mha_decode_ctx, mha_decode_ctx_int8, quantize_heads)
@@ -90,9 +97,62 @@ class PrefillOutput(NamedTuple):
     length: int              # tokens written to the cache
 
 
+class LMOutput(NamedTuple):
+    """The training forward's result (``apertis.py::LMOutput`` without the
+    attention and hidden-state outputs)."""
+    loss: torch.Tensor       # () f32 shifted cross-entropy (+ the MoE losses)
+    logits: torch.Tensor     # (B, L, V)
+    lb_loss: torch.Tensor    # () f32; zero for a dense FFN
+    rz_loss: torch.Tensor    # () f32; zero for a dense FFN
+
+
 def _param(shape, device, dtype) -> nn.Parameter:
+    # Float parameters are trainable; an int8 model turns them off again.
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                        requires_grad=False)
+                        requires_grad=dtype.is_floating_point)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Shifted next-token cross-entropy in f32, averaged over the labels that
+    are not ``ignore_index`` (at least one) (``apertis.py::
+    cross_entropy_loss``)."""
+    shift_logits = logits[:, :-1, :].float()
+    shift_labels = labels[:, 1:].long()
+    valid = shift_labels != ignore_index
+    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
+    log_probs = torch.log_softmax(shift_logits, dim=-1)
+    nll = -torch.gather(log_probs, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def fold_seed(seed: int, index: int) -> int:
+    """A 63-bit seed for stream ``index`` of step seed ``seed`` (splitmix64's
+    finaliser): the counterpart of ``jax.random.fold_in``."""
+    z = (seed * 0x9E3779B97F4A7C15 + (index + 1) * 0xBF58476D1CE4E5B9) & (2 ** 64 - 1)
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & (2 ** 64 - 1)
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & (2 ** 64 - 1)
+    return (z ^ (z >> 31)) & (2 ** 63 - 1)
+
+
+class Dropout:
+    """The JAX package's ``_dropout`` (apertis.py:247-251): keep each element
+    with probability ``1 - rate`` and scale it by ``1 / (1 - rate)``, in the
+    input's dtype. The masks come from a generator made here from a fixed
+    seed, not from the default generator, so a rematerialised layer
+    (``torch.utils.checkpoint``) that makes a new one from the same seed
+    draws the same masks again; successive calls draw successive masks."""
+
+    def __init__(self, seed: int, device):
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(seed)
+
+    def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        if rate <= 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.gen, device=x.device) < (1.0 - rate)
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class Linear(nn.Module):
@@ -200,11 +260,13 @@ class SelectiveSSM(nn.Module):
         self.out_proj = _linear(c, h, False, device, dtype, quantized)
 
     def forward(self, h: torch.Tensor, *, seq_mask: Optional[torch.Tensor] = None,
-                seq_lens: Optional[torch.Tensor] = None, want_cache: bool = False):
+                seq_lens: Optional[torch.Tensor] = None, want_cache: bool = False,
+                drop: Optional[Dropout] = None):
         """Pre-norm and mixer over a full sequence h (B, L, D)
         (``apertis.py::_layer_full``'s SSM branch and ``_ssm_full``). Returns
         ``(out, cache)``; with ``seq_mask`` padded steps are identity
-        transitions and the conv window is gathered at ``seq_lens``."""
+        transitions and the conv window is gathered at ``seq_lens``. The
+        mixer has no dropout of its own: ``drop`` is not read."""
         b, l, _ = h.shape
         heads, n, r, k = self.heads, self.d_state, self.dt_rank, self.k
         if self.quantized:
@@ -281,6 +343,7 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         h = config.hidden_size
         self.heads, self.head_dim = config.num_attention_heads, config.head_dim
+        self.attn_dropout = config.attention_probs_dropout_prob
         self.quantized = quantized
         self.pre_norm = Norm(h, config.use_rmsnorm, config.layer_norm_eps, device, dtype)
         self.q = _linear(h, h, config.qkv_bias, device, dtype, quantized)
@@ -297,23 +360,33 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, h: torch.Tensor, *, bias: Optional[torch.Tensor], pos_ids: torch.Tensor,
                 rope: Tuple[torch.Tensor, torch.Tensor], flash: bool,
-                want_cache: bool = False):
+                want_cache: bool = False, drop: Optional[Dropout] = None):
         """Pre-norm and attention over a full sequence h (B, L, D)
         (``apertis.py::_mha_full``): the plain pre-norm in both layouts, q/k/v
         (w8a8 in int8), RoPE on q and k at ``pos_ids``, then the causal flash
         kernel when ``flash`` (the caller's gate) holds and there is no bias,
         else the plain attention with ``bias``; then ``o``. Returns ``(out,
         cache)``, the cache being the post-RoPE ``(k, v)`` (B, L, D) with
-        ``want_cache``."""
+        ``want_cache``. With ``drop`` (training) the attention context is
+        dropped at the attention-dropout rate, the JAX package's stand-in
+        for dropping the probabilities (apertis.py:344-348). The flash path
+        is :class:`FlashAttention`, whose backward is the dQ and
+        dK/dV kernels; on the card it takes bf16 only."""
         b, l, d = h.shape
         x = self.pre_norm(h)
         q, k, v = self.q(x), self.k(x), self.v(x)
         q, k = apply_rope(q, pos_ids, *rope), apply_rope(k, pos_ids, *rope)
         qh, kh, vh = self._split_heads(q), self._split_heads(k), self._split_heads(v)
         if bias is None and flash:
-            ctx, _ = flash_attention_fwd(qh, kh, vh, causal=True)
+            if qh.device.type == "cuda" and qh.dtype != torch.bfloat16:
+                raise NotImplementedError(
+                    f"the flash kernels take bf16 q/k/v on the card, got {qh.dtype} "
+                    "(see ROADMAP.md)")
+            ctx = FlashAttention.apply(qh, kh, vh)
         else:
             ctx = attn_ops.mha(qh, kh, vh, bias=bias, causal=True)
+        if drop is not None:
+            ctx = drop(ctx, self.attn_dropout)
         out = self.o(ctx.transpose(1, 2).reshape(b, l, d))
         return out, ((k, v) if want_cache else None)
 
@@ -400,18 +473,21 @@ class DenseFFN(nn.Module):
         super().__init__()
         h, inter = config.hidden_size, config.intermediate_size
         self.hidden_act = config.hidden_act
+        self.dropout = config.hidden_dropout_prob
         self.quantized = quantized
         self.pre_norm = Norm(h, config.use_rmsnorm, config.layer_norm_eps, device, dtype)
         self.w1 = _linear(h, inter, True, device, dtype, quantized)
         self.w2 = _linear(inter, h, True, device, dtype, quantized)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        """Pre-norm and FFN over full sequences (``apertis.py::_ffn``)."""
+    def forward(self, h: torch.Tensor, drop: Optional[Dropout] = None) -> torch.Tensor:
+        """Pre-norm and FFN over full sequences (``apertis.py::_ffn``); with
+        ``drop`` (training) the activation is dropped before ``w2``."""
         act = get_activation(self.hidden_act)
         if self.quantized:
             x_q, x_s = ln_quantize(h, *self.pre_norm.weights(), self.pre_norm.eps)
             return self.w2(act(self.w1.pre_q(x_q, x_s, h.dtype)))
-        return self.w2(act(self.w1(self.pre_norm(h))))
+        hidden = act(self.w1(self.pre_norm(h)))
+        return self.w2(hidden if drop is None else drop(hidden, self.dropout))
 
     def decode(self, ffn_in: Tuple[torch.Tensor, ...], out_dtype: torch.dtype) -> torch.Tensor:
         """The fused decode FFN on (S, D) rows (``ops/kernels/ffn_fused.py``):
@@ -487,11 +563,13 @@ class MoEFFN(nn.Module):
     def router_weights(self) -> RouterWeights:
         return RouterWeights(self.router_ln.w, self.router_ln.b, self.router.w, self.router.b)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, drop: Optional[Dropout] = None) -> torch.Tensor:
         """Pre-norm, routing and experts over full sequences (``apertis.py::
         _ffn``): the fat kernel up to ``max(E, moe_dense_threshold_tokens)``
         tokens, the grouped kernel above. The pre-norm is the plain norm in
-        both layouts: the router reads the normed tensor."""
+        both layouts: the router reads the normed tensor. This is the eval
+        routing: MoE training is not ported (``params.py::check_trainable``),
+        so ``drop`` is not read."""
         b, l, d = h.shape
         x = self.pre_norm(h).reshape(b * l, d)
         routing = moe_ops.route(x, *self.router_weights(), self.top_k,
@@ -518,12 +596,31 @@ class DecoderLayer(nn.Module):
         self.attn = mixer(config, device, dtype, quantized)
         ffn = MoEFFN if is_moe(config) else DenseFFN
         self.ffn = ffn(config, device, dtype, quantized)
+        self.dropout = config.hidden_dropout_prob
 
-    def forward(self, h: torch.Tensor, **mixer_kw):
-        """One layer over full sequences: ``(h + mixer + FFN, cache)``."""
-        out, cache = self.attn(h, **mixer_kw)
-        h = h + out
-        return h + self.ffn(h), cache
+    def forward(self, h: torch.Tensor, drop: Optional[Dropout] = None, **mixer_kw):
+        """One layer over full sequences: ``(h + mixer + FFN, cache)``. With
+        ``drop`` (training) its masks are drawn in a fixed order: the MHA
+        context, the mixer's output, the FFN's activation, the FFN's output
+        (apertis.py:683, 696 and the FFN's :633/636)."""
+        out, cache = self.attn(h, drop=drop, **mixer_kw)
+        if drop is None:
+            h = h + out
+            return h + self.ffn(h), cache
+        h = h + drop(out, self.dropout)
+        return h + drop(self.ffn(h, drop=drop), self.dropout), cache
+
+
+def _run_layer(layer: DecoderLayer, h: torch.Tensor, seed: Optional[int], kw: Dict,
+               params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """One layer of the full-sequence forward, with its dropout masks drawn
+    from ``seed`` (none when it is None) and, with ``params``, the layer's
+    parameters replaced by them: the form ``torch.utils.checkpoint`` reruns
+    under remat."""
+    drop = None if seed is None else Dropout(seed, h.device)
+    if params is None:
+        return layer(h, drop=drop, **kw)[0]
+    return torch.func.functional_call(layer, params, (h,), dict(drop=drop, **kw))[0]
 
 
 class Embedding(nn.Module):
@@ -556,6 +653,8 @@ class ApertisForCausalLM(nn.Module):
                                config.layer_norm_eps, device, dtype)
         self.lm_head = (QuantLinear(config.hidden_size, config.vocab_size, False, device,
                                     dtype) if int8_head else None)
+        if quantized:
+            self.requires_grad_(False)    # training takes float trees only
         if is_mha(config):
             # The RoPE tables, built once (f32, (max_position_embeddings, H/2)).
             cos, sin = rope_tables(config.hidden_size, config.max_position_embeddings,
@@ -607,17 +706,46 @@ class ApertisForCausalLM(nn.Module):
                     rope=(self.rope_cos, self.rope_sin),
                     flash=flash_eligible(self.config, length))
 
-    def forward(self, input_ids: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None, *, training: bool = False,
+                seed: Optional[int] = None):
         """Full-sequence logits (B, L, V). An MHA model honours the mask
         (causal x padding bias); without one it runs causal attention, through
         the flash kernel where :func:`flash_eligible` holds. The SSM mixer
-        ignores the mask, as the reference does."""
+        ignores the mask, as the reference does.
+
+        With ``labels`` (B, L) it returns an :class:`LMOutput` whose loss is
+        the shifted cross-entropy (``apertis.py::forward``). ``training``
+        turns on dropout, when ``seed`` (the step's seed) is given and a rate
+        is not 0, and per-layer rematerialisation when ``config.remat``:
+        layer ``i`` is run under ``torch.utils.checkpoint`` and draws its
+        masks from ``(seed, i)``, the embedding's from ``(seed, embedding)``,
+        so the recomputation draws the same ones (``fold_in(rng, idx)``,
+        apertis.py:830)."""
+        cfg = self.config
         h = self.embed.tok[input_ids]
-        kw = self._mha_kwargs(attention_mask, h.shape[1]) if is_mha(self.config) else {}
-        for layer in self.layers:
-            h, _ = layer(h, **kw)
-        return self._lm_head(self.final_norm(h))
+        kw = self._mha_kwargs(attention_mask, h.shape[1]) if is_mha(cfg) else {}
+        rates = (cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob if is_mha(cfg) else 0.0)
+        dropping = training and seed is not None and max(rates) > 0.0
+        if dropping:
+            h = Dropout(fold_seed(seed, 0), h.device)(h, cfg.hidden_dropout_prob)
+        remat = training and cfg.remat and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            layer_seed = fold_seed(seed, i + 1) if dropping else None
+            if remat:
+                # The layer's parameters go in as inputs, so that the
+                # recomputation reads the tensors this forward read (under
+                # torch.func.functional_call those are casts of the masters,
+                # gone from the module by the time the backward runs).
+                h = checkpoint(_run_layer, layer, h, layer_seed, kw,
+                               dict(layer.named_parameters()), use_reentrant=False)
+            else:
+                h = _run_layer(layer, h, layer_seed, kw)
+        logits = self._lm_head(self.final_norm(h))
+        if labels is None:
+            return logits
+        zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+        return LMOutput(cross_entropy_loss(logits, labels), logits, zero, zero)
 
     def init_cache(self, batch_size: int, max_length: Optional[int] = None,
                    kv_int8: bool = False) -> Cache:

@@ -18,10 +18,19 @@ kernels read is derived from them, not loaded. An MHA tree, float or int8,
 fills ``layers.{i}.attn.{q,k,v,o}`` (with their biases ``b`` where the tree
 has them, that is when attention dropout is 0); the fused QKV projection and
 the RoPE tables are derived, not loaded.
+
+The export half (``apertis_llm_tpu/models/convert.py:295-411``):
+:func:`params_tree` turns the model back into the stacked tree,
+:func:`to_torch_state_dict` maps a float tree onto the reference model's
+``state_dict`` names and layouts, and :func:`save_torch_checkpoint` writes it
+as ``pytorch_model.bin`` with ``config.json``, which the JAX package's
+``load_pretrained`` and the reference load. Loading a base model for
+fine-tuning (``load_pretrained``) is not ported yet (ROADMAP.md, module 6).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
@@ -83,3 +92,115 @@ def from_jax_params(tree: Dict[str, Any], config: ApertisConfig, device="cuda",
     if missing:
         raise KeyError(f"parameters missing from the tree: {missing}")
     return model
+
+
+def params_tree(model: ApertisForCausalLM) -> Dict[str, Any]:
+    """The model's parameters as the JAX package's nested tree, per-layer
+    tensors stacked on a leading layer axis: the inverse of
+    :func:`from_jax_params`. Leaves are detached copies on the model's
+    device in their own dtypes."""
+    tree: Dict[str, Any] = {}
+    per_layer: Dict[str, list] = {}
+    for name, p in model.named_parameters():
+        if name.startswith("layers."):
+            _, idx, rest = name.split(".", 2)
+            per_layer.setdefault(rest, [None] * len(model.layers))[int(idx)] = p.detach()
+            continue
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = p.detach().clone()
+    layers: Dict[str, Any] = {}
+    for rest, leaves in per_layer.items():
+        node = layers
+        *path, leaf = rest.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = torch.stack(leaves)
+    tree["layers"] = layers
+    return tree
+
+
+def to_torch_state_dict(params: Dict[str, Any], config: ApertisConfig) -> Dict[str, torch.Tensor]:
+    """The reference model's ``state_dict`` (f32 CPU tensors) of a float
+    text-only tree, as ``apertis_llm_tpu/models/convert.py::
+    to_torch_state_dict`` writes it: linear weights transposed to (out, in),
+    the conv taps as (C, 1, K), the tied head as ``lm_head.weight``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(key, val, transpose=False):
+        if isinstance(val, torch.Tensor):
+            t = val.detach().float().cpu()
+        else:
+            t = torch.from_numpy(np.asarray(val, dtype=np.float32))
+        sd[key] = t.T.contiguous() if transpose else t.contiguous()
+
+    def put_norm(prefix, p):
+        if "scale" in p:
+            put(f"{prefix}.scale", p["scale"])
+        else:
+            put(f"{prefix}.weight", p["w"])
+            put(f"{prefix}.bias", p["b"])
+
+    def put_linear(prefix, p):
+        put(f"{prefix}.weight", p["w"], transpose=True)
+        if "b" in p:
+            put(f"{prefix}.bias", p["b"])
+
+    def layer(tree, i):
+        return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+    put("model.token_embeddings.weight", params["embed"]["tok"])
+    for i in range(config.num_hidden_layers):
+        lp = layer(params["layers"], i)
+        a, f = lp["attn"], lp["ffn"]
+        pre = f"model.layers.{i}.attention"
+        put_norm(f"{pre}.pre_norm", a["pre_norm"])
+        if config.attention_type == "selective_ssm":
+            impl = f"{pre}.attention_mechanism_impl"
+            put_linear(f"{impl}.in_proj_x", a["in_proj_x"])
+            put_linear(f"{impl}.in_proj_z", a["in_proj_z"])
+            put(f"{impl}.conv1d.weight", a["conv"]["w"][:, None, :])
+            put(f"{impl}.conv1d.bias", a["conv"]["b"])
+            put_linear(f"{impl}.x_param_proj", a["x_param_proj"])
+            put_linear(f"{impl}.dt_proj_head", a["dt_proj"])
+            put(f"{impl}.A_log", a["A_log"])
+            put(f"{impl}.D", a["D"])
+            put_linear(f"{impl}.out_proj", a["out_proj"])
+        else:
+            put_linear(f"{pre}.q_proj", a["q"])
+            put_linear(f"{pre}.k_proj", a["k"])
+            put_linear(f"{pre}.v_proj", a["v"])
+            put_linear(f"{pre}.out_proj", a["o"])
+        pre = f"model.layers.{i}.feed_forward"
+        put_norm(f"{pre}.pre_norm", f["pre_norm"])
+        if "experts" in f:
+            put(f"{pre}.ffn.router_norm.weight", f["router_ln"]["w"])
+            put(f"{pre}.ffn.router_norm.bias", f["router_ln"]["b"])
+            put_linear(f"{pre}.ffn.router", f["router"])
+            if "w_noise" in f:
+                put(f"{pre}.ffn.w_noise", f["w_noise"])
+            ex = f["experts"]
+            for j in range(config.num_experts):
+                put(f"{pre}.ffn.experts.{j}.0.weight", ex["ln_w"][j])
+                put(f"{pre}.ffn.experts.{j}.0.bias", ex["ln_b"][j])
+                put(f"{pre}.ffn.experts.{j}.1.weight", ex["w1"][j], transpose=True)
+                put(f"{pre}.ffn.experts.{j}.1.bias", ex["b1"][j])
+                put(f"{pre}.ffn.experts.{j}.4.weight", ex["w2"][j], transpose=True)
+                put(f"{pre}.ffn.experts.{j}.4.bias", ex["b2"][j])
+        else:
+            put_linear(f"{pre}.ffn.0", f["w1"])
+            put_linear(f"{pre}.ffn.3", f["w2"])
+    put_norm("model.final_post_norm", params["final_norm"])
+    put("lm_head.weight", params["embed"]["tok"])    # tied
+    return sd
+
+
+def save_torch_checkpoint(params: Dict[str, Any], config: ApertisConfig, save_directory,
+                          filename: str = "pytorch_model.bin") -> None:
+    """Write a reference-compatible checkpoint (weights + config.json)."""
+    save_directory = Path(save_directory)
+    save_directory.mkdir(parents=True, exist_ok=True)
+    torch.save(to_torch_state_dict(params, config), save_directory / filename)
+    config.save_pretrained(save_directory)

@@ -17,7 +17,7 @@ the model's modules.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -118,6 +118,36 @@ def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
     elif quantized and (config.hidden_size % 128 or config.intermediate_size % 128):
         # The JAX package's fused int8 decode FFN tiles both by 128.
         missing.append("int8 weights with hidden or intermediate size not a multiple of 128")
+    if missing:
+        raise NotImplementedError(
+            "not ported to PyTorch yet: " + ", ".join(missing) + " (see ROADMAP.md)")
+
+
+def check_trainable(config: ApertisConfig, quantized: bool = False, device="cuda",
+                    compute_dtype: Optional[torch.dtype] = None, devices: int = 1) -> None:
+    """Raise ``NotImplementedError`` (naming ROADMAP.md) unless the port can
+    train ``config`` as asked: a variant :func:`check_supported` takes, with
+    a float tree, on one device. Not ported yet: MoE training (module 4's
+    training half: capacity dispatch, noisy top-k, expert dropout, the
+    load-balancing and router z-losses), int8 trees, flash attention in f32
+    on the card (its kernels take bf16), the scan's backward on the card
+    with ``ssm_d_state`` not a power of two up to 32 (a head's channels
+    share one warp), and more than one device (module 7)."""
+    check_supported(config, quantized)
+    on_card = torch.device(device).type == "cuda"
+    missing = []
+    if is_moe(config):
+        missing.append("MoE training")
+    if quantized:
+        missing.append("training an int8 tree")
+    if (on_card and is_mha(config) and config.use_flash_attention
+            and compute_dtype in (None, torch.float32)):
+        missing.append("flash attention in float32 on the card (bf16 only)")
+    n = config.ssm_d_state
+    if on_card and not is_mha(config) and (n > 32 or n & (n - 1)):
+        missing.append(f"the scan's backward on the card with ssm_d_state={n}")
+    if devices > 1:
+        missing.append(f"training on {devices} devices")
     if missing:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + ", ".join(missing) + " (see ROADMAP.md)")

@@ -26,7 +26,7 @@ PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT / "_build"
 SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu", "moe_ffn.cu",
-           "moe_grouped.cu", "mha_step.cu", "flash_attention.cu")
+           "moe_grouped.cu", "mha_step.cu", "flash_attention.cu", "flash_attention_bwd.cu")
 HEADERS = ("common.cuh", "moe_gemm.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
@@ -37,9 +37,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # delta, a_cont, b_term, c_mod, mask, y, h_last, B, L, H, N, bc_bf16,
+    # delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, B, L, H, N, bc_bf16,
     # y_bf16, stream
-    "apertis_selective_scan_fwd": [_P] * 7 + [_I] * 6 + [_P],
+    "apertis_selective_scan_fwd": [_P] * 8 + [_I] * 6 + [_P],
+    # delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da, db, dc,
+    # da_part, B, L, H, N, bc_bf16, gy_bf16, stream
+    "apertis_selective_scan_bwd": [_P] * 12 + [_I] * 6 + [_P],
     # 21 inputs, 6 outputs, 4 scratch, B, D, C, K, R, H, N, E, rms, eps, stream
     "apertis_ssm_decode_step": [_P] * 31 + [_I] * 9 + [_F, _P],
     # 25 inputs, 6 outputs, 4 scratch, B, D, C, K, R, H, N, E, rms, eps, stream
@@ -63,6 +66,10 @@ SIGNATURES = {
     "apertis_mha_decode_ctx_int8": [_P] * 9 + [_I] * 4 + [_P],
     # q, k, v, out, lse, B*H, L, head_dim, causal, stream
     "apertis_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    # q, k, v, dout, lse, delta, dq, B*H, L, head_dim, causal, stream
+    "apertis_flash_attention_dq": [_P] * 7 + [_I] * 4 + [_P],
+    # q, k, v, dout, lse, delta, dk, dv, B*H, L, head_dim, causal, stream
+    "apertis_flash_attention_dkv": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 

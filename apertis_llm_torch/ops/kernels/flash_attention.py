@@ -1,10 +1,13 @@
-"""Causal flash attention over full sequences, forward.
+"""Causal flash attention over full sequences, forward and backward.
 
 ``flash_attention_fwd`` launches the CUDA kernel in ``csrc/flash_attention.cu``
-for CUDA tensors and runs :func:`flash_attention_fwd_reference`, its plain
-PyTorch version, for CPU tensors. It replaces the forward of
-``apertis_llm_tpu/ops/pallas/flash_attention.py::flash_attention`` and
-returns the log-sum-exp beside the output, for the backward kernel to come.
+and ``flash_attention_dq`` / ``flash_attention_dkv`` those in
+``csrc/flash_attention_bwd.cu`` for CUDA tensors; for CPU tensors each runs
+its plain PyTorch version (``*_reference``). They replace
+``apertis_llm_tpu/ops/pallas/flash_attention.py::flash_attention``: its
+forward, which returns the log-sum-exp beside the output, and its backward
+(``_flash_bwd``), which recomputes the probabilities from it.
+:class:`FlashAttention` is the ``torch.autograd.Function`` around the three.
 """
 
 from __future__ import annotations
@@ -64,3 +67,123 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+
+
+def _probabilities(q, k, lse, causal):
+    """``(p (B, H, L, L) f32, scale)`` with the forward kernel's arithmetic:
+    ``s = (q k^T) * Dh^-1/2`` in f32, ``p = exp(s - lse)``, 0 above the
+    diagonal when causal."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        rows = torch.arange(q.shape[2], device=q.device)[:, None]
+        cols = torch.arange(k.shape[2], device=q.device)[None, :]
+        p = torch.where(rows >= cols, p, torch.zeros_like(p))
+    return p, scale
+
+
+def _score_grad(q, k, v, dout, lse, delta, causal):
+    """``(p, ds)`` of the backward (flash_attention.py:147-161, 186-200):
+    ``ds = p * (dout v^T - delta) * Dh^-1/2``, in f32."""
+    p, scale = _probabilities(q, k, lse, causal)
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_attention_dq_reference(q, k, v, dout, lse, delta, causal: bool = True) -> torch.Tensor:
+    """``dq = ds k`` (B, H, L, Dh) in q's dtype, the TPU ``_dq_kernel``'s
+    arithmetic in one block."""
+    _, ds = _score_grad(q, k, v, dout, lse, delta, causal)
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def flash_attention_dkv_reference(q, k, v, dout, lse, delta,
+                                  causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk = ds^T q, dv = p^T dout)`` in k's and v's dtypes, the TPU
+    ``_dkv_kernel``'s arithmetic in one block."""
+    p, ds = _score_grad(q, k, v, dout, lse, delta, causal)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.transpose(-1, -2), dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd(name, q, k, v, dout, lse, delta):
+    b, h, l, dh = q.shape
+    dev = q.device
+    for t, tname in ((q, "q"), (k, "k"), (v, "v"), (dout, "dout")):
+        _build.check_tensor(t, (b, h, l, dh), (torch.bfloat16,), tname, dev)
+    for t, tname in ((lse, "lse"), (delta, "delta")):
+        _build.check_tensor(t, (b, h, l), (torch.float32,), tname, dev)
+    if b * h == 0 or l == 0 or dh % 8 or dh > 256:
+        raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
+    _build.check_aligned(name, q, k, v, dout)
+
+
+def flash_attention_dq(q, k, v, dout, lse, delta, causal: bool = True) -> torch.Tensor:
+    """dQ of the attention: kernel on CUDA tensors, plain version on CPU ones.
+    The kernel takes contiguous bf16 q, k, v, dout (B, H, L, Dh), Dh a
+    multiple of 8 up to 256, the forward's f32 ``lse`` (B, H, L) and f32
+    ``delta = sum_d out * dout`` (B, H, L), and returns bf16 ``dq``."""
+    if q.device.type == "cpu":
+        return flash_attention_dq_reference(q, k, v, dout, lse, delta, causal)
+    _check_bwd("flash_attention_dq", q, k, v, dout, lse, delta)
+    b, h, l, dh = q.shape
+    dq = torch.empty_like(q)
+    err = _build.load_library().apertis_flash_attention_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b * h, l, dh, int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_dq")
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q, k, v, dout, lse, delta,
+                        causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV of the attention: kernel on CUDA tensors, plain version on
+    CPU ones; the kernel takes what :func:`flash_attention_dq` takes and
+    returns bf16 ``(dk, dv)``."""
+    if q.device.type == "cpu":
+        return flash_attention_dkv_reference(q, k, v, dout, lse, delta, causal)
+    _check_bwd("flash_attention_dkv", q, k, v, dout, lse, delta)
+    b, h, l, dh = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _build.load_library().apertis_flash_attention_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, l, dh, int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_dkv")
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal self-attention ``out`` of q, k, v (B, H, L, Dh) with its
+    gradient, the JAX package's custom VJP of ``flash_attention``: the
+    forward (:func:`flash_attention_fwd`) saves q, k, v, out and the LSE;
+    the backward forms ``delta = sum_d out * dout`` in f32 (plain torch, as
+    the JAX package leaves it to XLA, flash_attention.py:246) and runs
+    :func:`flash_attention_dq` and :func:`flash_attention_dkv`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention_fwd(q, k, v, causal=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        delta = (out.float() * dout.float()).sum(dim=-1)
+        dq = flash_attention_dq(q, k, v, dout, lse, delta, causal=True)
+        dk, dv = flash_attention_dkv(q, k, v, dout, lse, delta, causal=True)
+        return dq, dk, dv
+

@@ -1,10 +1,16 @@
-"""Selective scan over a whole sequence: the prefill half of the SSM mixer.
+"""Selective scan over a whole sequence and its gradient: the full-sequence
+half of the SSM mixer (prefill and training).
 
-``selective_scan_fwd`` launches the CUDA kernel in ``csrc/ssm_scan.cu`` for
-CUDA tensors and runs :func:`selective_scan_fwd_reference`, its plain PyTorch
-version, for CPU tensors. It replaces the forward of
-``apertis_llm_tpu/ops/pallas/ssm_scan.py::gated_scan_2d`` together with the
-layout work ``ops/ssm.py::ssm_mix`` did around it.
+``selective_scan_fwd`` and ``selective_scan_bwd`` launch the CUDA kernels in
+``csrc/ssm_scan.cu`` for CUDA tensors and run
+:func:`selective_scan_fwd_reference` and :func:`selective_scan_bwd_reference`,
+their plain PyTorch versions, for CPU tensors. They replace the forward and
+the custom-VJP backward of
+``apertis_llm_tpu/ops/pallas/ssm_scan.py::gated_scan_2d`` (whose reverse scan
+is ``selective_scan_pallas``'s core, ``_scan_2d``) together with the layout
+work ``ops/ssm.py::ssm_mix`` did around it, and ``exp(delta * A)``, whose
+gradient XLA derived there: the backward returns the gradients of
+``delta`` and ``A`` themselves.
 """
 
 from __future__ import annotations
@@ -16,6 +22,17 @@ import torch
 from apertis_llm_torch.ops.kernels import _build
 
 
+def _decay(delta: torch.Tensor, a_cont: torch.Tensor,
+           seq_mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(a (B, L, H, N) f32, m (B, L, 1, 1) f32 or None)``: ``a =
+    exp(delta * A)``, 1 at masked steps."""
+    a_bar = torch.exp(delta.float()[..., None] * a_cont.float())
+    if seq_mask is None:
+        return a_bar, None
+    m = (seq_mask != 0).float()[:, :, None, None]
+    return a_bar * m + (1.0 - m), m
+
+
 def selective_scan_fwd_reference(
     delta: torch.Tensor,      # (B, L, H) float32 softplus'd timescales
     a_cont: torch.Tensor,     # (H, N) float32 continuous-time A (negative)
@@ -23,24 +40,22 @@ def selective_scan_fwd_reference(
     c_mod: torch.Tensor,      # (B, L, H, N) output gates
     seq_mask: Optional[torch.Tensor] = None,  # (B, L), nonzero = real token
     out_dtype: Optional[torch.dtype] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    want_h: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """``y = C * scan(exp(delta * A), B)`` step by step with an f32 carry;
     a masked step is the identity (a = 1, b = 0). Returns ``(y (B, L, H*N)
-    in out_dtype, h_last (B, H, N) float32)``."""
+    in out_dtype, h_last (B, H, N) float32)``, and every state ``h (B, L, H,
+    N)`` float32 after them with ``want_h``."""
     b, l, h, n = b_term.shape
-    a_bar = torch.exp(delta.float()[..., None] * a_cont.float())   # (B, L, H, N)
-    bb = b_term.float()
-    if seq_mask is not None:
-        m = (seq_mask != 0).float()[:, :, None, None]
-        a_bar = a_bar * m + (1.0 - m)
-        bb = bb * m
+    a_bar, m = _decay(delta, a_cont, seq_mask)
+    bb = b_term.float() if m is None else b_term.float() * m
     carry = torch.zeros((b, h, n), dtype=torch.float32, device=b_term.device)
     hs = torch.empty((b, l, h, n), dtype=torch.float32, device=b_term.device)
     for t in range(l):
         carry = a_bar[:, t] * carry + bb[:, t]
         hs[:, t] = carry
-    y = (c_mod.float() * hs).reshape(b, l, h * n)
-    return y.to(out_dtype or b_term.dtype), carry
+    y = (c_mod.float() * hs).reshape(b, l, h * n).to(out_dtype or b_term.dtype)
+    return (y, carry, hs) if want_h else (y, carry)
 
 
 def selective_scan_fwd(
@@ -50,17 +65,20 @@ def selective_scan_fwd(
     c_mod: torch.Tensor,
     seq_mask: Optional[torch.Tensor] = None,
     out_dtype: Optional[torch.dtype] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    want_h: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """The selective scan: kernel on CUDA tensors, plain version on CPU ones.
 
     The kernel takes ``delta`` and ``a_cont`` in float32, ``b_term`` and
     ``c_mod`` contiguous in one dtype (bfloat16 or float32), ``seq_mask`` as a
     contiguous int32 (B, L) or None, and ``out_dtype`` bfloat16 or float32.
+    With ``want_h`` it also writes every state (B, L, H, N) in float32, which
+    the backward reads.
     """
     out_dtype = out_dtype or b_term.dtype
     if b_term.device.type == "cpu":
         return selective_scan_fwd_reference(delta, a_cont, b_term, c_mod,
-                                            seq_mask, out_dtype)
+                                            seq_mask, out_dtype, want_h)
     bsz, l, h, n = b_term.shape
     dev = b_term.device
     _build.check_tensor(delta, (bsz, l, h), (torch.float32,), "delta", dev)
@@ -75,16 +93,106 @@ def selective_scan_fwd(
         raise ValueError(f"selective_scan_fwd: empty shape {tuple(b_term.shape)}")
     y = torch.empty((bsz, l, h * n), dtype=out_dtype, device=dev)
     h_last = torch.empty((bsz, h, n), dtype=torch.float32, device=dev)
+    hs = torch.empty((bsz, l, h, n), dtype=torch.float32, device=dev) if want_h else None
     err = _build.load_library().apertis_selective_scan_fwd(
         delta.data_ptr(), a_cont.data_ptr(), b_term.data_ptr(), c_mod.data_ptr(),
         seq_mask.data_ptr() if seq_mask is not None else None,
-        y.data_ptr(), h_last.data_ptr(), bsz, l, h, n,
+        y.data_ptr(), h_last.data_ptr(), hs.data_ptr() if want_h else None, bsz, l, h, n,
         int(b_term.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "selective_scan_fwd")
     selective_scan_fwd.launches += 1
-    return y, h_last
+    return (y, h_last, hs) if want_h else (y, h_last)
 
 
 selective_scan_fwd.launches = 0
 
+
+def selective_scan_bwd_reference(
+    delta: torch.Tensor,      # (B, L, H) float32
+    a_cont: torch.Tensor,     # (H, N) float32
+    c_mod: torch.Tensor,      # (B, L, H, N), b_term's dtype
+    seq_mask: Optional[torch.Tensor],   # (B, L) or None
+    hs: torch.Tensor,         # (B, L, H, N) float32, the forward's states
+    gy: torch.Tensor,         # (B, L, H*N) dL/dy
+    g_last: Optional[torch.Tensor] = None,   # (B, H, N) dL/dh_last
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The scan adjoint (ssm_scan.py:302-321) in f32, step by step from the
+    end: ``dh = gy * C`` (+ ``g_last`` at the last step), ``lam[t] = dh[t] +
+    a[t+1] lam[t+1]``, ``dC = gy * h``, ``dB = lam``, ``da = lam * h[t-1]``,
+    then through ``a = exp(delta * A)``: ``d_delta = sum_n da * a * A`` and
+    ``dA = sum_{b,t} da * a * delta``; a masked step gives no ``d_delta``,
+    ``dA`` or ``dB``. Returns ``(d_delta (B, L, H) f32, dA (H, N) f32, dB,
+    dC (B, L, H, N) in c_mod's dtype)``."""
+    b, l, h, n = hs.shape
+    a_bar, m = _decay(delta, a_cont, seq_mask)
+    g = gy.float().reshape(b, l, h, n)
+    dh = g * c_mod.float()
+    if g_last is not None:
+        dh[:, -1] += g_last.float()
+    lam = torch.empty_like(dh)
+    carry = torch.zeros_like(dh[:, 0])
+    for t in range(l - 1, -1, -1):
+        a_next = a_bar[:, t + 1] if t + 1 < l else torch.ones_like(carry)
+        carry = dh[:, t] + a_next * carry
+        lam[:, t] = carry
+    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1)
+    chain = lam * h_prev * a_bar          # dL/d(delta * A)
+    if m is not None:
+        chain = chain * m
+        lam = lam * m
+    d_delta = (chain * a_cont.float()).sum(dim=-1)
+    d_a = (chain * delta.float()[..., None]).sum(dim=(0, 1))
+    return d_delta, d_a, lam.to(c_mod.dtype), (g * hs).to(c_mod.dtype)
+
+
+def selective_scan_bwd(
+    delta: torch.Tensor,
+    a_cont: torch.Tensor,
+    c_mod: torch.Tensor,
+    seq_mask: Optional[torch.Tensor],
+    hs: torch.Tensor,
+    gy: torch.Tensor,
+    g_last: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The scan's gradient: kernel on CUDA tensors, plain version on CPU ones.
+
+    The kernel takes the forward's ``delta``, ``a_cont``, ``c_mod`` and
+    ``seq_mask`` as :func:`selective_scan_fwd` does, its states ``hs``
+    (B, L, H, N) float32, ``gy`` (B, L, H*N) contiguous in bfloat16 or
+    float32, ``g_last`` (B, H, N) float32 or None, and N a power of two up to
+    32 (a head's channels share one warp)."""
+    if c_mod.device.type == "cpu":
+        return selective_scan_bwd_reference(delta, a_cont, c_mod, seq_mask, hs, gy, g_last)
+    bsz, l, h, n = hs.shape
+    dev = c_mod.device
+    _build.check_tensor(delta, (bsz, l, h), (torch.float32,), "delta", dev)
+    _build.check_tensor(a_cont, (h, n), (torch.float32,), "a_cont", dev)
+    _build.check_tensor(c_mod, (bsz, l, h, n), (torch.bfloat16, torch.float32), "c_mod", dev)
+    _build.check_tensor(hs, (bsz, l, h, n), (torch.float32,), "hs", dev)
+    _build.check_tensor(gy, (bsz, l, h * n), (torch.bfloat16, torch.float32), "gy", dev)
+    if g_last is not None:
+        _build.check_tensor(g_last, (bsz, h, n), (torch.float32,), "g_last", dev)
+    if seq_mask is not None:
+        _build.check_tensor(seq_mask, (bsz, l), (torch.int32,), "seq_mask", dev)
+    if n > 32 or n & (n - 1) or bsz * l * h == 0:
+        raise ValueError(f"selective_scan_bwd: unsupported shape {tuple(hs.shape)} "
+                         "(N a power of two up to 32)")
+    d_delta = torch.empty((bsz, l, h), dtype=torch.float32, device=dev)
+    d_a = torch.empty((h, n), dtype=torch.float32, device=dev)
+    db = torch.empty_like(c_mod)
+    dc = torch.empty_like(c_mod)
+    da_part = torch.empty((bsz, h * n), dtype=torch.float32, device=dev)
+    err = _build.load_library().apertis_selective_scan_bwd(
+        delta.data_ptr(), a_cont.data_ptr(), c_mod.data_ptr(),
+        seq_mask.data_ptr() if seq_mask is not None else None, hs.data_ptr(), gy.data_ptr(),
+        g_last.data_ptr() if g_last is not None else None, d_delta.data_ptr(), d_a.data_ptr(),
+        db.data_ptr(), dc.data_ptr(), da_part.data_ptr(), bsz, l, h, n,
+        int(c_mod.dtype == torch.bfloat16), int(gy.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "selective_scan_bwd")
+    selective_scan_bwd.launches += 1
+    return d_delta, d_a, db, dc
+
+
+selective_scan_bwd.launches = 0

@@ -1,6 +1,7 @@
-"""Where the time of serving goes: ``torch.profiler`` over prefill and decode.
+"""Where the time of serving and training goes: ``torch.profiler`` over
+prefill and decode, or over train steps.
 
-    python -m apertis_llm_torch.profile_serving [--layers N] [--moe | --mha]
+    python -m apertis_llm_torch.profile_serving [--layers N] [--moe | --mha] [--train]
 
 Builds the 1.5B selective-SSM model on the card from a seeded generator
 (``chip_smoke.py``'s configuration, random weights; with ``--moe`` the 1.5B
@@ -16,6 +17,11 @@ prints the host wall time per call, the device time per call (the sum of the
 CUDA kernels' times, each kernel counted once), the device's idle share
 (1 - device / wall) and the kernels that take the most device time, with the
 card's name and power limit. It needs a CUDA device.
+
+With ``--train`` it traces training instead: the dense 1.5B preset (or the
+MHA one with ``--mha``, through the flash kernels) with f32 masters, bf16
+compute, remat and accumulation over 2, ``chip_smoke.py``'s training phase,
+two micro-steps (one update) at batch 4 x 1024 after a warm-up.
 """
 
 from __future__ import annotations
@@ -64,6 +70,35 @@ def _trace(label, fn, calls, card, top=8):
         print(f"    {us / calls:9.1f} us  {name[:110]}", flush=True)
 
 
+def _profile_train(config, dev, card) -> int:
+    """Two warm micro-steps of training (one update with accumulation 2)."""
+    from apertis_llm_torch.models.convert import from_jax_params
+    from apertis_llm_torch.models.params import init_params
+    from apertis_llm_torch.training.step import decay_mask, make_optimizer, train_step
+
+    config = config.replace(remat=True)
+    tree = init_params(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+    model = from_jax_params(tree, config, device=dev, dtype=torch.float32)
+    del tree
+    opt, _ = make_optimizer(dict(model.named_parameters()), decay_mask(model), 3e-4, 100,
+                            gradient_accumulation_steps=2)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(4, config.vocab_size, (4, 1024), generator=gen, device=dev)
+    batch = {"input_ids": ids, "labels": ids}
+    seed = [0]
+
+    def two_micro_steps():
+        for _ in range(2):
+            train_step(model, opt, batch, seed[0], torch.bfloat16)
+            seed[0] += 1
+
+    print(f"card: {card}; {config.num_hidden_layers} layers, training "
+          f"{'MHA (flash)' if config.attention_type == 'standard_mha' else 'selective SSM'}",
+          flush=True)
+    _trace("train, two micro-steps of 4 x 1024 (one update)", two_micro_steps, 2, card, top=12)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=None,
@@ -73,7 +108,11 @@ def main(argv=None) -> int:
                         help="the 1.5B MoE preset (8 experts, top-2) instead of the dense one")
     family.add_argument("--mha", action="store_true",
                         help="the 1.5B MHA preset instead of the selective-SSM one")
+    parser.add_argument("--train", action="store_true",
+                        help="trace train steps (dense or --mha) instead of serving")
     args = parser.parse_args(argv)
+    if args.train and args.moe:
+        parser.error("--train takes the dense or the MHA preset (MoE training is not ported)")
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
         return 1
@@ -96,7 +135,9 @@ def main(argv=None) -> int:
         num_attention_heads=dims["num_attention_heads"],
         intermediate_size=dims["intermediate_size"], hidden_dropout_prob=0.0,
         attention_probs_dropout_prob=0.0, max_position_embeddings=4096,
-        dtype="bfloat16", param_dtype="bfloat16", **moe)
+        dtype="bfloat16", param_dtype="bfloat16", use_flash_attention=args.mha, **moe)
+    if args.train:
+        return _profile_train(config, dev, _card())
     tree = init_params(config, torch.Generator(device=dev).manual_seed(0), device=dev,
                        dtype=torch.bfloat16)
     models = {"bf16": from_jax_params(tree, config, device=dev, dtype=torch.bfloat16),

@@ -46,10 +46,33 @@ Phases, each of which raises (and so exits non-zero) on failure:
      step and no flash launch, since serving prefill carries a mask), tokens
      in range and each request repeated with the same tokens; then TTFT and
      decode tokens per second per batch;
+     Then the kernels of training: the scan forward's states (``want_h``),
+     which the backward reads, at the 1.5B SSM training shape and ragged
+     with a mask; the scan backward (on the plain side from the plain
+     forward's states) at the training shape (B = 4, L = 1024, 38 heads of
+     16, bf16), at a ragged
+     L = 300 with a mask and an ``h_last`` cotangent, with f32 operands and at
+     the MoE mixer's 11 heads; flash dQ and dK/dV at (4, 38, 1024, 64), at
+     L = 300 and at Dh 32, 128 and 256; with sensitivity checks (the
+     ``h_last`` cotangent, the mask, the a*A and a*delta chain factors;
+     ``delta``, ``lse``, the causal mask) and the backward of
+     ``scaled_dot_product_attention`` timed beside flash as the yardstick;
   5. check 2-layer dense, MoE and MHA models on the card against the same
      weights on the CPU (plain versions), bf16 and int8, that the 1.5B logits
      are finite, and that the 1.5B MHA ``forward()`` without a mask runs the
-     flash kernel once per layer and agrees with the plain attention.
+     flash kernel once per layer and agrees with the plain attention;
+  6. train, with the serving models freed: the 1.5B dense SSM preset and the
+     1.5B MHA preset with ``use_flash_attention`` (dropout 0, as bench.py),
+     each through ``ApertisTrainer.train()`` with f32 masters, bf16 compute,
+     remat and accumulation over 2, 8 micro-batches of 4 x 1024 seeded token
+     ids (4 updates), checking that the loss is finite and falls and that the
+     scan (forward 2 x layers x micro-steps under remat, backward layers x
+     micro-steps) or flash kernels (the same for the forward, dQ and dK/dV)
+     ran; then ``train_from_config`` on a 2-layer SSM config from a JSONL
+     corpus and ``vocab.json`` written here, its checkpoint and a resume from
+     it; then one train step's gradients of 2-layer SSM and flash MHA models
+     on the card against the same step on the CPU, each leaf within two bf16
+     ulps plus twice bf16's own effect on it (the CPU's bf16 vs f32 step).
 Before the last line it prints the kernels' JSON summary and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -58,8 +81,10 @@ It needs a CUDA device and exits non-zero without one. It imports no JAX.
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -85,6 +110,27 @@ LSE_TOL = 1e-5            # f32 log-sum-exp; exact bf16 products summed in anoth
 # feeding a bf16 residual stream (the 2-layer card-vs-CPU checks used a
 # quarter of a 4-ulp limit).
 FLASH_FORWARD_TOL = 8 * BF16_ULP
+# The scan's backward, f32 outputs (d_delta, dA and f32 dB, dC): the reverse
+# recursion with fused multiply-adds in the kernel against separate products
+# in the plain version, over up to 1024 steps, and dA's sum over the (b, t)
+# partials in another order. bf16 dB and dC: one bf16 ulp.
+SCAN_BWD_TOL = 1e-4
+# Flash dQ, dK, dV: p and ds are rounded to bf16 before the tensor-core
+# products (the plain version keeps them in f32), then each output is rounded
+# to bf16 itself: up to two bf16 ulps at the top, as for the forward.
+FLASH_BWD_TOL = 2 * BF16_ULP
+# One train step of a 2-layer model, card vs CPU, both in bf16 compute with
+# f32 masters. Each gradient leaf within two bf16 ulps of its largest
+# element, plus twice what bf16 compute itself does to that leaf (its max
+# difference between the CPU's bf16 and f32 runs): the card and the CPU each
+# carry a bf16 rounding noise of about that size, placed differently (the
+# kernels' tensor-core products with p and ds in bf16, cuBLAS against the
+# CPU's matmuls). That noise dominates a leaf whose exact gradient is small
+# next to it, such as the q and k weights of the 2-layer MHA model at random
+# init (near-uniform attention); a well-conditioned leaf is held to about the
+# two ulps. The loss within one ulp.
+SMALL_GRAD_TOL = 2 * BF16_ULP
+TRAIN_LR = 5e-4           # the 1.5B training phase's peak learning rate
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -160,6 +206,15 @@ def compare_int8(name, got, ref, _tol=None):
     return float(worst)
 
 
+class TokenRows(list):
+    """An in-memory dataset of token-id items of one length; the trainer
+    reads ``max_length`` for its tokens per step."""
+
+    def __init__(self, items, max_length):
+        super().__init__(items)
+        self.max_length = max_length
+
+
 def perturb_(tree, generator):
     """Add seeded noise to every norm weight and bias, FFN bias and skip
     weight D of a parameter tree, to the MoE router's LayerNorm and bias and
@@ -204,7 +259,8 @@ def main() -> int:
         ffn_decode, ffn_decode_int8, ffn_decode_int8_reference, ffn_decode_reference,
         pick_block_n)
     from apertis_llm_torch.ops.kernels.flash_attention import (
-        flash_attention_fwd, flash_attention_fwd_reference)
+        flash_attention_dkv, flash_attention_dkv_reference, flash_attention_dq,
+        flash_attention_dq_reference, flash_attention_fwd, flash_attention_fwd_reference)
     from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize, ln_quantize_reference
     from apertis_llm_torch.ops.kernels.mha_step import (
         NEG, mha_decode_ctx, mha_decode_ctx_int8, mha_decode_ctx_reference, quantize_heads)
@@ -213,7 +269,8 @@ def main() -> int:
     from apertis_llm_torch.ops.kernels.moe_grouped import (
         TILE, expert_ffn_grouped, expert_ffn_grouped_reference)
     from apertis_llm_torch.ops.kernels.ssm_scan import (
-        selective_scan_fwd, selective_scan_fwd_reference)
+        selective_scan_bwd, selective_scan_bwd_reference, selective_scan_fwd,
+        selective_scan_fwd_reference)
     from apertis_llm_torch.ops.kernels.ssm_step import (
         ssm_decode_step, ssm_decode_step_int8, ssm_decode_step_reference)
     from apertis_llm_torch.ops.activations import get_activation
@@ -863,6 +920,123 @@ def main() -> int:
                 lambda: torch.nn.functional.scaled_dot_product_attention(*args, is_causal=True))
             log(f"  library: scaled_dot_product_attention(is_causal=True) "
                 f"{library['flash_attention_fwd']:.4f} ms; card: {card}")
+
+    # ---- 3d. the backward kernels of training ------------------------------
+    ssm_heads = config.num_attention_heads     # ``heads`` was reused by the loops above
+
+    # The forward's states (want_h), which training saves for the backward:
+    # at the 1.5B training shape (no mask, as the trainer runs it) and ragged
+    # with a mask.
+    scan_h_tols = [("y", BF16_ULP), ("h_last", SCAN_F32_TOL), ("hs", SCAN_F32_TOL)]
+    for (b, l), masked in (((4, 1024), False), ((3, 300), True)):
+        args = scan_inputs(b, l)
+        args = args[:4] + ((args[4] if masked else None), bf16, True)
+        check_kernel("selective_scan_fwd", f"scan B={b} L={l} with every state (want_h)"
+                     f"{', masked' if masked else ''}", args, selective_scan_fwd,
+                     selective_scan_fwd_reference, scan_h_tols)
+
+    def scan_bwd_inputs(b, l, heads_=ssm_heads, dtype=bf16, masked=False, with_g_last=False):
+        """The scan's backward operands as training gives them (the forward
+        kernel's f32 states and a cotangent of y in its dtype), and the plain
+        forward's states for the plain side."""
+        delta = torch.nn.functional.softplus(randn(b, l, heads_, dtype=f32) - 4.0)
+        a_cont = -torch.exp(layer.attn.A_log.float()[:heads_])
+        bt, ct = randn(b, l, heads_, n, dtype=dtype), randn(b, l, heads_, n, dtype=dtype)
+        mask = None
+        if masked:
+            lens = torch.randint(1, l + 1, (b, 1), generator=g, device=dev)
+            mask = (torch.arange(l, device=dev)[None, :] < lens).to(torch.int32)
+        hs = selective_scan_fwd(delta, a_cont, bt, ct, mask, dtype, want_h=True)[2]
+        hs_plain = selective_scan_fwd_reference(delta, a_cont, bt, ct, mask, dtype, want_h=True)[2]
+        g_last = randn(b, heads_, n, dtype=f32) if with_g_last else None
+        return (delta, a_cont, ct, mask, hs, randn(b, l, heads_ * n, dtype=dtype), g_last), hs_plain
+
+    def plain_scan_bwd(hs_plain):
+        """The plain backward on the plain forward's states."""
+        return lambda delta, a_cont, ct, mask, _hs, gy, g_last: selective_scan_bwd_reference(
+            delta, a_cont, ct, mask, hs_plain, gy, g_last)
+
+    def scan_bwd_cost(args):
+        delta, a_cont, ct, mask, hs, gy, g_last = args
+        outs = nbytes(delta, a_cont) + 2 * nbytes(ct)      # d_delta, dA, dB, dC
+        return nbytes(*(t for t in args if t is not None)) + outs, 12 * ct.numel(), "f32"
+
+    def scan_bwd_without(term, delta, a_cont, ct, mask, hs, gy, g_last):
+        """The plain scan backward with one chain factor left out: d_delta
+        without a * A, or dA without a * delta (da = dB * h[t-1])."""
+        d_delta, d_a, db, dc = selective_scan_bwd_reference(delta, a_cont, ct, mask, hs, gy,
+                                                            g_last)
+        h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1)
+        da = db.float() * h_prev
+        if term == "a*A":
+            return da.sum(dim=-1), d_a, db, dc
+        return d_delta, da.sum(dim=(0, 1)), db, dc
+
+    def scan_bwd_tols(dtype):
+        t = BF16_ULP if dtype == bf16 else SCAN_BWD_TOL
+        return [("d_delta", SCAN_BWD_TOL), ("dA", SCAN_BWD_TOL), ("dB", t), ("dC", t)]
+
+    args, hs_plain = scan_bwd_inputs(3, 300, masked=True, with_g_last=True)
+    args = args[:4] + (hs_plain,) + args[5:]
+    check_sensitive("selective_scan_bwd", selective_scan_bwd_reference, args, {
+        "h_last cotangent": args[:6] + (None,),
+        "mask": args[:3] + (None,) + args[4:],
+        "a*A chain factor": lambda: scan_bwd_without("a*A", *args),
+        "a*delta chain factor": lambda: scan_bwd_without("a*delta", *args),
+    }, scan_bwd_tols(bf16))
+    for (b, l), hh, dtype, masked, glast, label in [
+            ((4, 1024), ssm_heads, bf16, False, False, "the 1.5B training shape"),
+            ((4, 1024), ssm_heads, bf16, False, True, "with an h_last cotangent"),
+            ((3, 300), ssm_heads, bf16, True, True, "ragged, masked"),
+            ((3, 300), ssm_heads, f32, True, True, "f32 operands, masked"),
+            ((2, 77), mlayer.attn.A_log.shape[0], bf16, False, True, "the MoE mixer's 11 heads")]:
+        args, hs_plain = scan_bwd_inputs(b, l, hh, dtype, masked, glast)
+        timed = label == "the 1.5B training shape"
+        check_kernel("selective_scan_bwd", f"scan backward B={b} L={l} H={hh} ({label})", args,
+                     selective_scan_bwd, plain_scan_bwd(hs_plain), scan_bwd_tols(dtype),
+                     cost=scan_bwd_cost(args) if timed else None)
+
+    def flash_bwd_inputs(shape):
+        q, k, v, do = (randn(*shape) for _ in range(4))
+        out, lse = flash_attention_fwd(q, k, v)
+        return (q, k, v, do, lse, (out.float() * do.float()).sum(dim=-1))
+
+    def flash_bwd_cost(args, outputs, products):
+        b, h_, l, hd = args[0].shape
+        pairs = b * h_ * l * (l + 1) // 2
+        return (nbytes(*args) + outputs * nbytes(args[0]), products * 2 * hd * pairs, "bf16")
+
+    args = flash_bwd_inputs((2, 4, 200, head_dim))
+    for name, plain, tols in (
+            ("flash_attention_dq", flash_attention_dq_reference, [("dq", FLASH_BWD_TOL)]),
+            ("flash_attention_dkv", flash_attention_dkv_reference,
+             [("dk", FLASH_BWD_TOL), ("dv", FLASH_BWD_TOL)])):
+        check_sensitive(name, plain, args, {
+            "delta": args[:5] + (torch.zeros_like(args[5]),),
+            "lse": args[:4] + (torch.zeros_like(args[4]),) + args[5:],
+            "causal mask": args + (False,)}, tols)
+    for shape in ((4, mha_heads, 1024, head_dim), (4, mha_heads, 300, head_dim),
+                  (2, mha_heads // 2, 256, 128), (2, 8, 130, 32), (1, 4, 200, 256)):
+        args = flash_bwd_inputs(shape)
+        timed = shape[2] == 1024
+        check_kernel("flash_attention_dq", f"flash_attention_dq {shape}", args, flash_attention_dq,
+                     flash_attention_dq_reference, [("dq", FLASH_BWD_TOL)],
+                     cost=flash_bwd_cost(args, 1, 3) if timed else None)
+        check_kernel("flash_attention_dkv", f"flash_attention_dkv {shape}", args,
+                     flash_attention_dkv, flash_attention_dkv_reference,
+                     [("dk", FLASH_BWD_TOL), ("dv", FLASH_BWD_TOL)],
+                     cost=flash_bwd_cost(args, 2, 4) if timed else None)
+        if timed:
+            # The yardstick: SDPA's backward alone (its graph kept), which
+            # computes dQ, dK and dV in one call, on the same inputs.
+            leaves = [t.detach().requires_grad_(True) for t in args[:3]]
+            out_l = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True)
+            sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out_l, leaves, args[3],
+                                                           retain_graph=True))
+            library["flash_attention_dq"] = library["flash_attention_dkv"] = sdpa_bwd
+            log(f"  library: the backward of scaled_dot_product_attention(is_causal=True) "
+                f"(dQ, dK and dV) {sdpa_bwd:.4f} ms; card: {card}")
+            del leaves, out_l
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. serve -----------------------------------------------------------
@@ -1075,6 +1249,183 @@ def main() -> int:
             logits = {k: m.decode_step(caches[k], tok.to(m.device), **step_kw(m, mask, i))[0]
                       for k, m in models.items()}
 
+    log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 6. train -------------------------------------------------------------
+    from apertis_llm_torch.training import train_from_config
+    from apertis_llm_torch.training.step import loss_fn
+    from apertis_llm_torch.training.trainer import ApertisTrainer
+    from apertis_llm_torch.utils.profiling import device_peak_tflops
+    from apertis_llm_torch.utils.vocab import create_minimal_vocab_file
+
+    torch.cuda.empty_cache()
+    # A host sync after every micro-step, so that the trainer's step timer
+    # sees whole steps.
+    os.environ["APERTIS_TRAINER_SYNC_EVERY"] = "1"
+    train_counters = (selective_scan_fwd, selective_scan_bwd, flash_attention_fwd,
+                      flash_attention_dq, flash_attention_dkv)
+    micro, accum, rows_, length = 8, 2, 4, 1024
+    # bench.py's training batch: 4 x 1024 tokens. Eight micro-batches drawn
+    # from the same four seeded sequences, so the loss falls within 4 updates.
+    seqs = np.random.default_rng(SEED + 6).integers(4, config.vocab_size, (rows_, length))
+    dataset = TokenRows([{"input_ids": seqs[i % rows_], "labels": seqs[i % rows_]}
+                         for i in range(micro * rows_)], length)
+    train_perf = {}
+    for kind, cfg in (("dense SSM", config),
+                      ("MHA flash", dataclasses.replace(mha_config, use_flash_attention=True))):
+        nl = cfg.num_hidden_layers
+        t0 = time.perf_counter()
+        tree = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        trainer = ApertisTrainer(cfg, tree, dataset, output_dir="unused", batch_size=rows_,
+                                 learning_rate=TRAIN_LR, num_epochs=1,
+                                 gradient_accumulation_steps=accum, bf16=True,
+                                 use_gradient_checkpointing=True, seed=SEED, device=dev,
+                                 save_checkpoints=False)
+        del tree
+        torch.cuda.synchronize()
+        n_train = sum(p.numel() for p in trainer.model.parameters())
+        log(f"train {kind}: {n_train:,} f32 master parameters, trainer built in "
+            f"{time.perf_counter() - t0:.1f} s; {micro} micro-batches of {rows_} x {length}, "
+            f"accumulation {accum}, remat, bf16 compute, peak lr {TRAIN_LR}")
+        for f in train_counters:
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        history = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {f.__name__: f.launches for f in train_counters}
+        expected = {f.__name__: 0 for f in train_counters}
+        if cfg.attention_type == "standard_mha":
+            expected.update(flash_attention_fwd=2 * nl * micro, flash_attention_dq=nl * micro,
+                            flash_attention_dkv=nl * micro)
+        else:
+            expected.update(selective_scan_fwd=2 * nl * micro, selective_scan_bwd=nl * micro)
+        log(f"train {kind} launch counts: {got} (expected {expected}: the forward twice per "
+            "layer and micro-step under remat, the backward once)")
+        if got != expected:
+            raise RuntimeError(f"train {kind}: a kernel of the training path was not launched "
+                               "as expected")
+        for key, value in got.items():
+            launches[key] = launches.get(key, 0) + value
+        losses = history["step_losses"]
+        if history["final_step"] != micro // accum or len(losses) != micro:
+            raise RuntimeError(f"train {kind}: {history['final_step']} updates, {len(losses)} "
+                               "losses")
+        if not (np.isfinite(losses).all() and np.mean(losses[-accum:]) < np.mean(losses[:accum])):
+            raise RuntimeError(f"train {kind}: the loss is not finite or did not fall: {losses}")
+        perf = history["perf"]
+        p50 = perf["step_time_p50_s"]
+        train_perf[kind] = dict(step_ms_p50=p50 * 1e3, tokens_per_s=rows_ * length / p50,
+                                step_ms_wall=perf["step_time_wall_s"] * 1e3,
+                                tokens_per_s_wall=perf["tokens_per_sec"],
+                                mfu_pct=perf.get("mfu_pct"), wall_s=wall,
+                                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"train {kind}: losses {[round(x, 4) for x in losses]} (falls); micro-step p50 "
+            f"{p50 * 1e3:.1f} ms = {rows_ * length / p50:,.1f} tokens/s; epoch "
+            f"{perf['step_time_wall_s'] * 1e3:.1f} ms a micro-step wall = "
+            f"{perf['tokens_per_sec']:,.1f} tokens/s, MFU {perf.get('mfu_pct', 0):.1f} % of "
+            f"{device_peak_tflops()} TFLOP/s; {wall:.1f} s in all, peak "
+            f"{train_perf[kind]['peak_gb']:.1f} GB; card: {card}")
+        del trainer
+        torch.cuda.empty_cache()
+
+    # train_from_config on the card: a 2-layer SSM config, its checkpoint and
+    # a resume from it.
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        vocab_path = work / "vocab.json"
+        create_minimal_vocab_file(vocab_path, 64)
+        words = sorted(json.loads(vocab_path.read_text()))
+        text_rng = np.random.default_rng(SEED + 9)
+        (work / "train.jsonl").write_text("".join(
+            json.dumps({"text": " ".join(words[j] for j in text_rng.integers(4, 64, 48))}) + "\n"
+            for _ in range(16)))
+
+        def pipeline_config(name, **train):
+            path = work / f"{name}.json"
+            path.write_text(json.dumps({
+                "data_config": {"train_data_path": str(work / "train.jsonl"),
+                                "tokenizer_path": str(vocab_path), "max_length": 64},
+                "model_config": {"target_param_count": "1M", "attention_type": "selective_ssm",
+                                 "config_overrides": {
+                                     "hidden_size": 256, "num_hidden_layers": 2,
+                                     "num_attention_heads": 4, "intermediate_size": 1024,
+                                     "hidden_dropout_prob": 0.1}},
+                "training_config": dict({"output_dir": str(work / name), "batch_size": 4,
+                                         "learning_rate": 1e-3, "num_epochs": 2,
+                                         "gradient_accumulation_steps": 2, "device": "cuda"},
+                                        **train)}))
+            return str(path)
+
+        for f in train_counters:
+            f.launches = 0
+        first = train_from_config(pipeline_config("run"))
+        final = work / "run" / "final"
+        files = sorted(p.name for p in final.iterdir())
+        resumed = train_from_config(pipeline_config("resumed", num_epochs=1,
+                                                    resume_from=str(final)))
+        log(f"train_from_config: epoch losses {first['train_loss']}, {first['final_step']} "
+            f"updates; final checkpoint {files}; resumed for an epoch: {resumed['final_step']} "
+            f"updates; scan launches {selective_scan_fwd.launches} forward, "
+            f"{selective_scan_bwd.launches} backward")
+        if (first["final_step"] != 4 or resumed["final_step"] != 6
+                or not {"state.pt", "pytorch_model.bin", "config.json", "vocab.json"} <= set(files)
+                or not np.isfinite(first["train_loss"]).all()
+                or first["train_loss"][-1] >= first["train_loss"][0]
+                or selective_scan_bwd.launches != 2 * 12):
+            raise RuntimeError("train_from_config on the card did not train, save or resume")
+
+    # One train step's gradients of 2-layer models, card vs CPU (bf16 compute
+    # on both), with the same step in f32 compute on the CPU to measure how
+    # far bf16 itself moves each leaf.
+    small_grad_err = {}
+    ids_small = torch.as_tensor(np.random.default_rng(SEED + 8).integers(4, 1000, (2, 256)))
+    for family, kw in (("SSM", dense_small),
+                       ("MHA flash", dict(mha_small, use_flash_attention=True))):
+        small = ApertisConfig(**kw)
+        tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu")
+        perturb_(tree, torch.Generator().manual_seed(SEED + 7))
+        results = {}
+        for f in train_counters:
+            f.launches = 0
+        for side, where, dtype in (("card", dev, torch.bfloat16),
+                                   ("cpu", torch.device("cpu"), torch.bfloat16),
+                                   ("cpu f32", torch.device("cpu"), None)):
+            m = from_jax_params(tree, small, device=where)
+            params = dict(m.named_parameters())
+            batch = {"input_ids": ids_small.to(where), "labels": ids_small.to(where)}
+            loss, _ = loss_fn(m, batch, None, dtype)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            results[side] = (loss.detach().cpu(), {k: g.cpu() for k, g in zip(params, grads)})
+        kernel = "flash_attention_dq" if "MHA" in family else "selective_scan_bwd"
+        launched = {f.__name__: f.launches for f in train_counters}[kernel]
+        compare(f"2-layer {family} train-step loss on the card vs the CPU", results["card"][0],
+                results["cpu"][0], BF16_ULP)
+        # Per leaf, relative to its largest CPU element: the card's error,
+        # bf16's own effect (the CPU's bf16 vs f32 runs) and the limit.
+        leaves = []
+        for name, ref in results["cpu"][1].items():
+            got_g, scale = results["card"][1][name], float(ref.abs().max())
+            err = float((got_g - ref).abs().max()) / scale
+            floor = float((results["cpu f32"][1][name] - ref).abs().max()) / scale
+            limit = SMALL_GRAD_TOL + 2 * floor
+            if not (torch.isfinite(got_g).all() and err <= limit):
+                raise RuntimeError(f"2-layer {family} gradient {name}: {err:.3e} of its largest "
+                                   f"element on the card vs the CPU, limit {limit:.3e}")
+            leaves.append((err / limit, name, err, floor, limit, scale))
+        if launched != small.num_hidden_layers:
+            raise RuntimeError(f"2-layer {family}: {kernel} launched {launched} times")
+        small_grad_err[family] = max(leaves)[0]
+        log(f"  2-layer {family} train step, card vs CPU: {len(leaves)} gradient leaves ok, each "
+            f"within {SMALL_GRAD_TOL:.3e} + 2 x (bf16 vs f32 compute on the CPU) of its largest "
+            f"element; {kernel} launched {launched} times ok")
+        for ratio, name, err, floor, limit, scale in ([max(leaves)]
+                                                      + sorted(leaves, key=lambda t: -t[2])[:3]):
+            log(f"    {name} (largest element {scale:.3e}): card vs CPU {err:.3e}, bf16 vs f32 "
+                f"on the CPU {floor:.3e}, limit {limit:.3e} ({ratio:.3f} of it)")
+    log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+
     # ---- report -------------------------------------------------------------
     replaces = {
         "selective_scan_fwd": ("apertis_llm_torch/csrc/ssm_scan.cu",
@@ -1103,6 +1454,12 @@ def main() -> int:
                                 "apertis_llm_tpu/ops/pallas/mha_step.py:131"),
         "flash_attention_fwd": ("apertis_llm_torch/csrc/flash_attention.cu",
                                 "apertis_llm_tpu/ops/pallas/flash_attention.py:208"),
+        "selective_scan_bwd": ("apertis_llm_torch/csrc/ssm_scan.cu",
+                               "apertis_llm_tpu/ops/pallas/ssm_scan.py:302"),
+        "flash_attention_dq": ("apertis_llm_torch/csrc/flash_attention_bwd.cu",
+                               "apertis_llm_tpu/ops/pallas/flash_attention.py:257"),
+        "flash_attention_dkv": ("apertis_llm_torch/csrc/flash_attention_bwd.cu",
+                                "apertis_llm_tpu/ops/pallas/flash_attention.py:282"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
@@ -1116,8 +1473,9 @@ def main() -> int:
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library.get(name)})
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "serve": serve,
+    print(json.dumps({"kernels": kernels, "serve": serve, "train": train_perf,
                       "small_model_max_abs_err": small_err,
+                      "small_train_grad_err_over_limit": small_grad_err,
                       "flash_forward_max_abs_err": flash_forward_err}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -278,10 +278,10 @@ def test_forward_logits_match_jax(case):
 def test_forward_takes_flash_only_without_a_mask(monkeypatch):
     """The flash path runs where the gate holds and there is no mask; a
     mask, a short sequence or the flag off take the plain attention."""
-    import apertis_llm_torch.models.apertis as port_model
+    import apertis_llm_torch.ops.kernels.flash_attention as port_flash
     calls = []
-    real = port_model.flash_attention_fwd
-    monkeypatch.setattr(port_model, "flash_attention_fwd",
+    real = port_flash.flash_attention_fwd
+    monkeypatch.setattr(port_flash, "flash_attention_fwd",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     _, cfg, tree = _tree(seed=5, use_flash_attention=True, max_position_embeddings=128)
     model = from_jax_params(tree, cfg, device="cpu")
