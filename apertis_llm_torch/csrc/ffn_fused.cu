@@ -1,9 +1,9 @@
 // ffn_decode: the dense FFN at decode, out = act(x @ W1 + b1) @ W2 + b2.
 //
 // Replaces: apertis_llm_tpu/ops/pallas/ffn_fused.py::ffn_decode_fused with
-// the bf16 weight layout (apertis_ffn_decode) and the int8 layout
-// (apertis_ffn_decode_int8, at the end of this file); the int4 layout is
-// later work.
+// the bf16 weight layout (apertis_ffn_decode), the int8 layout
+// (apertis_ffn_decode_int8) and the int4 layout (apertis_ffn_decode_int4),
+// the last two at the end of this file.
 //
 // Semantics (ffn_fused.py:42-99, bf16 layout): both products take bf16
 // operands and accumulate in f32; the hidden is act(x @ W1 + b1) rounded to
@@ -293,15 +293,88 @@ namespace {
 constexpr int kRowsI8 = 16;   // rows per block of the int8 launches
 constexpr int kColTiles = 4;  // 64-column tiles per block of ffn_i8_tile_kernel
 
+// tile_matvec_i8 over an int4-packed weight (models/quantize.py::
+// quantize_weight_int4): wq4 (k_total / 2, ldw) bytes, byte row 64 g + j
+// holding contraction rows 128 g + j (low nibble) and 128 g + j + 64 (high
+// nibble), and sh (k_total / 128, ldw) int8 shifts. Each nibble is
+// sign-extended and multiplied by its group's shift (1, 2, 4 or 8) before the
+// dot, so the values lie in [-56, 56] and the int32 sums are exact, as the
+// TPU kernel's int8 dot over the unpacked block. The warps split the byte
+// rows in runs of four, which stay inside one group: a lane packs the low
+// nibbles of four byte rows (contraction rows j..j+3 of the group) into one
+// __dp4a word and the high nibbles (rows j+64..j+67) into another.
+// k_total must be a multiple of 128. Ends synchronised.
+template <int RB>
+__device__ void tile_matvec_i4(const int8_t* xq, int ldx, const int8_t* __restrict__ wq4,
+                               int ldw, const int8_t* __restrict__ sh, int k_total, int col0,
+                               int ncols, int* red, int* out) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rows_b = k_total / 2;
+  const int kper = (((rows_b + kWarps - 1) / kWarps) + 3) & ~3;
+  const int q0 = warp * kper;
+  const int q1 = min(rows_b, q0 + kper);
+  const int ja = col0 + lane;
+  const int jb = col0 + 32 + lane;
+  const bool va = ja < ncols;
+  const bool vb = jb < ncols;
+  int acc_a[RB], acc_b[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    acc_a[r] = 0;
+    acc_b[r] = 0;
+  }
+  for (int q = q0; q < q1; q += 4) {
+    const int g = q >> 6;
+    const int klo = g * 128 + (q & 63);
+    const int sa = va ? sh[(size_t)g * ldw + ja] : 0;
+    const int sb = vb ? sh[(size_t)g * ldw + jb] : 0;
+    int lo_a = 0, hi_a = 0, lo_b = 0, hi_b = 0;
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const int8_t* wr = wq4 + (size_t)(q + qq) * ldw;
+      const int pa = va ? wr[ja] : 0;
+      const int pb = vb ? wr[jb] : 0;
+      lo_a |= ((int4_nibble(pa, false) * sa) & 0xff) << (8 * qq);
+      hi_a |= ((int4_nibble(pa, true) * sa) & 0xff) << (8 * qq);
+      lo_b |= ((int4_nibble(pb, false) * sb) & 0xff) << (8 * qq);
+      hi_b |= ((int4_nibble(pb, true) * sb) & 0xff) << (8 * qq);
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const int xlo = *reinterpret_cast<const int*>(xq + r * ldx + klo);
+      const int xhi = *reinterpret_cast<const int*>(xq + r * ldx + klo + 64);
+      acc_a[r] = __dp4a(xhi, hi_a, __dp4a(xlo, lo_a, acc_a[r]));
+      acc_b[r] = __dp4a(xhi, hi_b, __dp4a(xlo, lo_b, acc_b[r]));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    red[(warp * RB + r) * kTileN + lane] = acc_a[r];
+    red[(warp * RB + r) * kTileN + 32 + lane] = acc_b[r];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < RB * kTileN; i += kBlock) {
+    int sum = 0;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) sum += red[wi * RB * kTileN + i];
+    out[i] = sum;
+  }
+  __syncthreads();
+}
+
+// kI4: W1 is int4-packed with its shifts w1sh (D / 128, I).
+template <bool kI4>
 __global__ void __launch_bounds__(kBlock) ffn_i8_hidden_kernel(
     const int8_t* __restrict__ xq,   // (S, D)
     const float* __restrict__ xs,    // (S, 1)
-    const int8_t* __restrict__ w1,   // (D, I)
+    const int8_t* __restrict__ w1,   // (D, I), int4: (D / 2, I)
+    const int8_t* __restrict__ w1sh, // int4 only: (D / 128, I)
     const float* __restrict__ w1s,   // (1, I)
     const bf16* __restrict__ b1,     // (I,)
     float* __restrict__ hidden,      // (S, I)
     int rows, int d_model, int inter, int act) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   int* red = reinterpret_cast<int*>(smem_raw);                  // kWarps * kRowsI8 * kTileN
   int* out = red + kWarps * kRowsI8 * kTileN;                   // kRowsI8 * kTileN
   int8_t* x = reinterpret_cast<int8_t*>(out + kRowsI8 * kTileN);  // kRowsI8 * D
@@ -316,7 +389,10 @@ __global__ void __launch_bounds__(kBlock) ffn_i8_hidden_kernel(
                         : 0;
   }
   __syncthreads();
-  tile_matvec_i8<kRowsI8>(x, d_model, w1, inter, d_model, col0, inter, red, out);
+  if constexpr (kI4)
+    tile_matvec_i4<kRowsI8>(x, d_model, w1, inter, w1sh, d_model, col0, inter, red, out);
+  else
+    tile_matvec_i8<kRowsI8>(x, d_model, w1, inter, d_model, col0, inter, red, out);
   for (int i = threadIdx.x; i < kRowsI8 * kTileN; i += kBlock) {
     const int r = i / kTileN;
     const int j = col0 + (i - r * kTileN);
@@ -327,12 +403,16 @@ __global__ void __launch_bounds__(kBlock) ffn_i8_hidden_kernel(
   }
 }
 
+// kI4: W2 is int4-packed with its shifts w2sh (I / 128, D); bn is then a
+// multiple of 128, so each tile starts on a group boundary.
+template <bool kI4>
 __global__ void __launch_bounds__(kBlock) ffn_i8_tile_kernel(
     const float* __restrict__ hidden,  // (S, I)
-    const int8_t* __restrict__ w2,     // (I, D)
+    const int8_t* __restrict__ w2,     // (I, D), int4: (I / 2, D)
+    const int8_t* __restrict__ w2sh,   // int4 only: (I / 128, D)
     float* __restrict__ partial,       // (tiles, S, D)
     int rows, int d_model, int inter, int bn) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   int* red = reinterpret_cast<int*>(smem_raw);            // kWarps * kRowsI8 * kTileN
   int* out = red + kWarps * kRowsI8 * kTileN;             // kRowsI8 * kTileN
   float* hs = reinterpret_cast<float*>(out + kRowsI8 * kTileN);  // kRowsI8
@@ -365,8 +445,12 @@ __global__ void __launch_bounds__(kBlock) ffn_i8_tile_kernel(
   for (int ct = 0; ct < kColTiles; ++ct) {
     const int col0 = (blockIdx.x * kColTiles + ct) * kTileN;
     if (col0 >= d_model) break;
-    tile_matvec_i8<kRowsI8>(hq, bn, w2 + (size_t)k0 * d_model, d_model, bn, col0, d_model,
-                            red, out);
+    if constexpr (kI4)
+      tile_matvec_i4<kRowsI8>(hq, bn, w2 + (size_t)(k0 / 2) * d_model, d_model,
+                              w2sh + (size_t)(k0 / 128) * d_model, bn, col0, d_model, red, out);
+    else
+      tile_matvec_i8<kRowsI8>(hq, bn, w2 + (size_t)k0 * d_model, d_model, bn, col0, d_model,
+                              red, out);
     for (int i = threadIdx.x; i < kRowsI8 * kTileN; i += kBlock) {
       const int r = i / kTileN;
       const int j = col0 + (i - r * kTileN);
@@ -393,6 +477,43 @@ __global__ void __launch_bounds__(kBlock) ffn_i8_reduce_kernel(
 
 }  // namespace
 
+namespace {
+
+// The three launches of the int8 (kI4 false) or int4 layout.
+template <bool kI4>
+cudaError_t ffn_quant_launch(const void* xq, const void* xs, const void* w1q, const void* w1sh,
+                             const void* w1s, const void* b1, const void* w2q,
+                             const void* w2sh, const void* w2s, const void* b2, void* out,
+                             void* hidden, void* partial, int rows, int d_model, int inter,
+                             int bn, int act, cudaStream_t s) {
+  const int tiles = inter / bn;
+  const int row_tiles = (rows + kRowsI8 - 1) / kRowsI8;
+  const size_t mat = (size_t)(kWarps + 1) * kRowsI8 * kTileN * sizeof(int);
+  const size_t smem_hidden = mat + (size_t)kRowsI8 * d_model;
+  const size_t smem_tile = mat + kRowsI8 * sizeof(float) + (size_t)kRowsI8 * bn * 5;
+  cudaError_t err = allow_smem(ffn_i8_hidden_kernel<kI4>, smem_hidden);
+  if (err == cudaSuccess) err = allow_smem(ffn_i8_tile_kernel<kI4>, smem_tile);
+  if (err != cudaSuccess) return err;
+  ffn_i8_hidden_kernel<kI4><<<dim3((inter + kTileN - 1) / kTileN, row_tiles), kBlock,
+                              smem_hidden, s>>>(
+      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
+      static_cast<const int8_t*>(w1q), static_cast<const int8_t*>(w1sh),
+      static_cast<const float*>(w1s), static_cast<const bf16*>(b1),
+      static_cast<float*>(hidden), rows, d_model, inter, act);
+  const int col_groups = (d_model + kColTiles * kTileN - 1) / (kColTiles * kTileN);
+  ffn_i8_tile_kernel<kI4><<<dim3(col_groups, tiles, row_tiles), kBlock, smem_tile, s>>>(
+      static_cast<const float*>(hidden), static_cast<const int8_t*>(w2q),
+      static_cast<const int8_t*>(w2sh), static_cast<float*>(partial), rows, d_model, inter,
+      bn);
+  const size_t n = (size_t)rows * d_model;
+  ffn_i8_reduce_kernel<<<(unsigned)((n + kBlock - 1) / kBlock), kBlock, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<const float*>(w2s),
+      static_cast<const bf16*>(b2), static_cast<bf16*>(out), tiles, rows, d_model);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // Whole int8 FFN for S rows: x_q (S, D) int8 with x_s (S, 1) f32, W1_q
 // (D, I) int8 with w1_s (1, I) f32, W2_q (I, D) int8 with w2_s (1, D) f32,
 // bf16 biases, bf16 output. D must be a multiple of 4 and bn a multiple of 4
@@ -404,29 +525,36 @@ extern "C" int apertis_ffn_decode_int8(const void* xq, const void* xs, const voi
                                        const void* w2s, const void* b2, void* out,
                                        void* hidden, void* partial, int rows, int d_model,
                                        int inter, int bn, int act, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || d_model % 4 != 0 || bn <= 0 || bn % 4 != 0 || inter % bn != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = inter / bn;
-  const int row_tiles = (rows + kRowsI8 - 1) / kRowsI8;
-  const size_t mat = (size_t)(kWarps + 1) * kRowsI8 * kTileN * sizeof(int);
-  const size_t smem_hidden = mat + (size_t)kRowsI8 * d_model;
-  const size_t smem_tile = mat + kRowsI8 * sizeof(float) + (size_t)kRowsI8 * bn * 5;
-  cudaError_t err = allow_smem(ffn_i8_hidden_kernel, smem_hidden);
-  if (err == cudaSuccess) err = allow_smem(ffn_i8_tile_kernel, smem_tile);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_i8_hidden_kernel<<<dim3((inter + kTileN - 1) / kTileN, row_tiles), kBlock, smem_hidden,
-                         s>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-      static_cast<const int8_t*>(w1q), static_cast<const float*>(w1s),
-      static_cast<const bf16*>(b1), static_cast<float*>(hidden), rows, d_model, inter, act);
-  const int col_groups = (d_model + kColTiles * kTileN - 1) / (kColTiles * kTileN);
-  ffn_i8_tile_kernel<<<dim3(col_groups, tiles, row_tiles), kBlock, smem_tile, s>>>(
-      static_cast<const float*>(hidden), static_cast<const int8_t*>(w2q),
-      static_cast<float*>(partial), rows, d_model, inter, bn);
-  const size_t n = (size_t)rows * d_model;
-  ffn_i8_reduce_kernel<<<(unsigned)((n + kBlock - 1) / kBlock), kBlock, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<const float*>(w2s),
-      static_cast<const bf16*>(b2), static_cast<bf16*>(out), tiles, rows, d_model);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(ffn_quant_launch<false>(
+      xq, xs, w1q, nullptr, w1s, b1, w2q, nullptr, w2s, b2, out, hidden, partial, rows,
+      d_model, inter, bn, act, static_cast<cudaStream_t>(stream)));
+}
+
+// ---- int4 layout --------------------------------------------------------------
+//
+// Semantics (ffn_fused.py:42-99 with int4=True): the int8 layout's, with
+// W1_q and W2_q the unpacked int4 weights (values times their group's shift,
+// in [-56, 56]) and w1_s, w2_s the int4 base scales. The packs are
+// w1_q4 (D / 2, I) with w1_sh (D / 128, I) and w2_q4 (I / 2, D) with
+// w2_sh (I / 128, D) (models/quantize.py::quantize_weight_int4).
+//
+// Bound on the H100: bytes, half the int8 layout's weight bytes (24 MB per
+// layer of the 1.5B model, 0.007 ms at 3.35 TB/s).
+//
+// Design: the int8 layout's three launches, with tile_matvec_i4 unpacking
+// the nibbles on load in place of tile_matvec_i8. D and bn must be
+// multiples of 128, so every hidden tile of GEMM2 starts on a group.
+extern "C" int apertis_ffn_decode_int4(const void* xq, const void* xs, const void* w1q4,
+                                       const void* w1sh, const void* w1s, const void* b1,
+                                       const void* w2q4, const void* w2sh, const void* w2s,
+                                       const void* b2, void* out, void* hidden, void* partial,
+                                       int rows, int d_model, int inter, int bn, int act,
+                                       void* stream) {
+  if (rows <= 0 || d_model % 128 != 0 || bn <= 0 || bn % 128 != 0 || inter % bn != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(ffn_quant_launch<true>(
+      xq, xs, w1q4, w1sh, w1s, b1, w2q4, w2sh, w2s, b2, out, hidden, partial, rows, d_model,
+      inter, bn, act, static_cast<cudaStream_t>(stream)));
 }

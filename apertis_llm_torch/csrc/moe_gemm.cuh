@@ -36,6 +36,20 @@ struct GemmSmem {
   int c[kGemmM * kGemmN];              // 32 KB, the int32 result
 };
 
+// Four int4-packed bytes (one per column) unpacked to four int8 values of
+// one contraction row: the low or the high nibble of each byte times the
+// byte's shift.
+__device__ __forceinline__ int unpack_int4_word(int packed, int shifts, bool high) {
+  int w = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = (packed << (24 - 8 * i)) >> 24;   // sign-extended byte i
+    const int s = (shifts << (24 - 8 * i)) >> 24;
+    w |= ((int4_nibble(p, high) * s) & 0xff) << (8 * i);
+  }
+  return w;
+}
+
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> FragA8;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> FragB8;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> FragC32;
@@ -44,12 +58,17 @@ typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> FragC32;
 // A row r is at a + r * lda (int8, or f32 when kF32A, then divided by hs[r]
 // and rounded to an int8 level) for r < a_rows, else zero; B row k at
 // b + k * ldb, columns [0, b_cols), else zero. k_len, b_cols, lda and ldb are
-// multiples of 16 and a, b 16-byte aligned. Called by all kBlock threads;
-// ends synchronised.
-template <bool kF32A>
+// multiples of 16 and a, b 16-byte aligned. With kI4, B is the packed
+// matrix whose contraction row k_base + k sits in byte row
+// 64 ((k_base + k) / 128) + (k_base + k) % 64, low nibble for the first 64
+// rows of its group, high for the others, with its shifts in row
+// (k_base + k) / 128 of sh (same ldb); k_base is a multiple of 64. Called by
+// all kBlock threads; ends synchronised.
+template <bool kF32A, bool kI4 = false>
 __device__ void block_gemm_i8(const void* __restrict__ a, int lda, int a_rows,
                               const float* hs, const int8_t* __restrict__ b, int ldb,
-                              int b_cols, int k_len, GemmSmem& sm) {
+                              int b_cols, int k_len, GemmSmem& sm,
+                              const int8_t* __restrict__ sh = nullptr, int k_base = 0) {
   const int warp = threadIdx.x >> 5;
   const int row_tiles = (min(a_rows, kGemmM) + 15) / 16;
   FragC32 acc[4];
@@ -89,8 +108,20 @@ __device__ void block_gemm_i8(const void* __restrict__ a, int lda, int a_rows,
       const int kk = i >> 3;
       const int p = i & 7;
       int4 v = make_int4(0, 0, 0, 0);
-      if (k0 + kk < k_len && p * 16 < b_cols)
-        v = *reinterpret_cast<const int4*>(b + (size_t)(k0 + kk) * ldb + p * 16);
+      if (k0 + kk < k_len && p * 16 < b_cols) {
+        if constexpr (kI4) {
+          const int kg = k_base + k0 + kk;
+          const int4 raw = *reinterpret_cast<const int4*>(
+              b + ((size_t)(kg >> 7) * 64 + (kg & 63)) * ldb + p * 16);
+          const int4 shv =
+              *reinterpret_cast<const int4*>(sh + (size_t)(kg >> 7) * ldb + p * 16);
+          const bool high = (kg >> 6) & 1;
+          v = make_int4(unpack_int4_word(raw.x, shv.x, high), unpack_int4_word(raw.y, shv.y, high),
+                        unpack_int4_word(raw.z, shv.z, high), unpack_int4_word(raw.w, shv.w, high));
+        } else {
+          v = *reinterpret_cast<const int4*>(b + (size_t)(k0 + kk) * ldb + p * 16);
+        }
+      }
       *reinterpret_cast<int4*>(sm.b + p * kPanelB + kk * 16) = v;
     }
     __syncthreads();
@@ -126,13 +157,16 @@ __device__ void block_gemm_i8(const void* __restrict__ a, int lda, int a_rows,
 // W1 and skips a block when no row of it routes to the experts of its
 // columns (comb == 0 there: those rows' terms are multiplied by 0 later).
 // The grouped layout reads expert emap[row / 128]'s I columns (base = e * I)
-// and skips the tiles whose emap is -1.
+// and skips the tiles whose emap is -1. kI4: W1 is int4-packed (D / 2, E*I)
+// with its shifts w1sh (D / 128, E*I).
+template <bool kI4>
 __global__ void __launch_bounds__(kBlock) moe_gemm1_kernel(
     const int8_t* __restrict__ xq,     // (rows, D)
     const float* __restrict__ xs,      // (rows, 1)
     const float* __restrict__ comb,    // (rows, E), fat layout only
     const int* __restrict__ emap,      // (rows / 128,), grouped layout only
-    const int8_t* __restrict__ w1,     // (D, E*I)
+    const int8_t* __restrict__ w1,     // (D, E*I), int4: (D / 2, E*I)
+    const int8_t* __restrict__ w1sh,   // int4 only: (D / 128, E*I)
     const float* __restrict__ w1s,     // (E*I,)
     const float* __restrict__ b1,      // (E*I,)
     float* __restrict__ hidden,        // (rows, ncols)
@@ -160,8 +194,9 @@ __global__ void __launch_bounds__(kBlock) moe_gemm1_kernel(
     if (!__syncthreads_or(live)) return;
   }
   const int live_rows = min(kGemmM, rows - row0);
-  block_gemm_i8<false>(xq + (size_t)row0 * d_model, d_model, live_rows, nullptr,
-                       w1 + base + col0, ldw, min(kGemmN, ncols - col0), d_model, sm);
+  block_gemm_i8<false, kI4>(xq + (size_t)row0 * d_model, d_model, live_rows, nullptr,
+                            w1 + base + col0, ldw, min(kGemmN, ncols - col0), d_model, sm,
+                            kI4 ? w1sh + base + col0 : nullptr);
   const int tiles = ncols / bn;
   for (int rr = warp; rr < live_rows; rr += kWarps) {
     const size_t r = row0 + rr;

@@ -83,9 +83,10 @@ extern "C" int apertis_expert_ffn_grouped(const void* xq, const void* xs, const 
   const int inter = ei / num_experts;
   cudaError_t err = cudaMemsetAsync(absmax, 0, (size_t)rows * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  moe_gemm1_kernel<<<dim3((inter + kGemmN - 1) / kGemmN, rows / kGemmM), kBlock, 0, s>>>(
+  moe_gemm1_kernel<false><<<dim3((inter + kGemmN - 1) / kGemmN, rows / kGemmM), kBlock, 0,
+                            s>>>(
       static_cast<const int8_t*>(xq), static_cast<const float*>(xs), nullptr,
-      static_cast<const int*>(emap), static_cast<const int8_t*>(w1q),
+      static_cast<const int*>(emap), static_cast<const int8_t*>(w1q), nullptr,
       static_cast<const float*>(w1s), static_cast<const float*>(b1),
       static_cast<float*>(hidden), static_cast<float*>(absmax), rows, d_model, ei, inter,
       inter, 1, num_experts, act);

@@ -24,6 +24,12 @@ model, int8 or bf16, it builds every layer's int8 fat stack at construction
 stacks (engine.py:347-364); for an int8 MHA model, the fused QKV projection
 (``ApertisForCausalLM.attach_qkv``, engine.py:387-394).
 
+``quant_bits=4`` serves w4a8, the JAX engine's ``APERTIS_QUANT_BITS=4``
+(engine.py:347-386), on an int8 model: prefill keeps the int8 tree, a dense
+FFN decodes through its attached int4 pack
+(``ApertisForCausalLM.attach_int4_ffn``) and a MoE model's fat stacks are
+built int4 where H and I are multiples of 128 (int8 elsewhere, as in JAX).
+
 An MHA model keeps the JAX engine's bookkeeping (engine.py:162-262): a flat
 K/V cache of ``bucket + max_new_tokens`` slots, int8 by default for an int8
 model (``kv_int8``); an attention mask over the slots that grows, for each
@@ -43,7 +49,7 @@ import torch
 
 from apertis_llm_torch.config import ApertisConfig
 from apertis_llm_torch.models.apertis import ApertisForCausalLM
-from apertis_llm_torch.models.params import is_mha
+from apertis_llm_torch.models.params import check_quant_bits, is_mha
 from apertis_llm_torch.ops import sampling as sampling_ops
 
 
@@ -84,18 +90,22 @@ class InferenceEngine:
     """Batched generation for one (config, model) pair. ``kv_int8`` chooses
     an MHA model's KV cache: int8 with per-(head, slot) scales, or the
     model's dtype; by default int8 for an int8 model and the model's dtype
-    for a float one."""
+    for a float one. ``quant_bits`` is 8, or 4 for w4a8 serving of an int8
+    model (a float model raises ``NotImplementedError``)."""
 
     PROMPT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
     def __init__(self, config: ApertisConfig, model: ApertisForCausalLM,
-                 kv_int8: Optional[bool] = None):
+                 kv_int8: Optional[bool] = None, quant_bits: int = 8):
+        check_quant_bits(model.quantized, quant_bits)
         self.config = config
         self.model = model
         self.kv_int8 = model.quantized if kv_int8 is None else bool(kv_int8)
         if model.quantized and model.lm_head is None:
             model.quantize_tied_head()
-        model.attach_moe_fat()
+        model.attach_moe_fat(bits=quant_bits)
+        if quant_bits == 4:
+            model.attach_int4_ffn()
         model.attach_qkv()
 
     @torch.inference_mode()

@@ -27,7 +27,12 @@ Three paths, with the JAX package's semantics:
     MHA decode-attention kernel over the flat cache, and the fused decode
     FFN (``ops/kernels``), whose semantics are those of the JAX package's
     fused-kernel decode path (for MHA, ``APERTIS_MHA_STEP=force`` with the
-    default ``APERTIS_MHA_LNQ=xla`` and ``APERTIS_MHA_QKV=1``).
+    default ``APERTIS_MHA_LNQ=xla`` and ``APERTIS_MHA_QKV=1``). Where the
+    fused FFN's width test fails (``ffn_fused.py::fused_eligible``: a hidden
+    size that is not a multiple of 128, or an intermediate size with no
+    128-multiple tile), the mixer step runs without its FFN epilogue and the
+    FFN runs as the JAX package's ``_ffn`` does then: the plain pre-norm and
+    the two linears (w8a8 in int8).
 
 The MoE FFN has one arithmetic, the JAX package's under
 ``APERTIS_MOE_GROUPED=force``, ``APERTIS_SSM_STEP=force`` and
@@ -37,6 +42,15 @@ layer. Over full sequences the FFN runs the combine-folded fat kernel when the
 token count is at most ``max(E, moe_dense_threshold_tokens)`` and the grouped
 kernel above it; at decode the mixer step's moe epilogue emits the expert
 input and the top-2 combine weights, and the fat kernel follows.
+
+w4a8 serving (the JAX package's ``APERTIS_QUANT_BITS=4``, the engine's
+``quant_bits=4``) keeps the int8 tree for prefill and attaches int4 decode
+copies: a dense FFN's pack (:meth:`ApertisForCausalLM.attach_int4_ffn`),
+which the decode FFN kernel's int4 layout reads, and a MoE model's int4 fat
+stack where H and I are multiples of 128, which the fat kernel's int4 layout
+reads; above the fat kernel's token count an int4 fat stack's layer runs
+``moe_ragged`` over the int8 experts, since the grouped kernel takes int8
+stacks only (``moe_grouped.py::grouped_eligible``).
 
 With int8 weights (``quantized``: the four mixer projections and the two FFN
 weights are ``QuantLinear``, a MoE FFN's expert stacks int8 tensors) the
@@ -54,8 +68,10 @@ one is attached. An attached int8 tied head
 way.
 
 The hand-written kernels run on CUDA tensors; on CPU tensors their plain
-PyTorch versions run. Plain torch (``torch.matmul``, ``torch._int_mm``) does
-the other prefill projections, the prefill FFN and the LM head, which the
+PyTorch versions run. Every int8 linear (``QuantLinear``, the fused QKV, the
+int8 head, ``moe_ragged``'s groups) runs the w8a8 kernel
+(``ops/kernels/quant_matmul.py``); plain torch (``torch.matmul``) does the
+float projections, the float prefill FFN and the tied float head, which the
 JAX package leaves to XLA outside its kernels.
 """
 
@@ -71,17 +87,17 @@ from apertis_llm_torch.config import ApertisConfig
 from apertis_llm_torch.models.moe_fuse import fuse_one_fat
 from apertis_llm_torch.models.params import (
     check_supported, is_mha, is_moe, resolve_device)
-from apertis_llm_torch.models.quantize import fuse_qkv, quantize_weight
+from apertis_llm_torch.models.quantize import fuse_qkv, int4_ffn_pack, quantize_weight
 from apertis_llm_torch.ops import attention as attn_ops
 from apertis_llm_torch.ops import moe as moe_ops
 from apertis_llm_torch.ops import ssm as ssm_ops
 from apertis_llm_torch.ops.activations import get_activation, silu
-from apertis_llm_torch.ops.kernels.ffn_fused import ffn_decode, ffn_decode_int8
+from apertis_llm_torch.ops.kernels.ffn_fused import (
+    ffn_decode, ffn_decode_int4, ffn_decode_int8, pick_block_n)
 from apertis_llm_torch.ops.kernels.flash_attention import FlashAttention
 from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize
 from apertis_llm_torch.ops.kernels.mha_step import (
     NEG, mha_decode_ctx, mha_decode_ctx_int8, quantize_heads)
-from apertis_llm_torch.ops.kernels.moe_ffn import expert_ffn_fat
 from apertis_llm_torch.ops.kernels.ssm_step import (
     MixerWeights, RouterWeights, ssm_decode_step)
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
@@ -171,35 +187,21 @@ class Linear(nn.Module):
 class QuantLinear(nn.Module):
     """The int8 linear: ``w_q`` int8 (in, out), ``w_s`` f32 (1, out), the
     JAX tree's ``{w_q, w_s, b}``. ``forward`` quantizes its input rows at run
-    time (``linear_dyn``); ``pre_q`` takes rows quantized already.
-
-    On the card the product reads a transposed copy of ``w_q``, made at first
-    use and again whenever ``w_q`` changes: cuBLASLt's fast int8 kernels take
-    the weight column-major, and with the row-major (in, out) weight it falls
-    back to a far slower kernel. The decode kernels read ``w_q`` itself."""
+    time (``linear_dyn``); ``pre_q`` takes rows quantized already. Both run
+    the w8a8 kernel, which reads the row-major ``w_q`` as it is."""
 
     def __init__(self, fan_in: int, fan_out: int, bias: bool, device, dtype):
         super().__init__()
         self.w_q = _param((fan_in, fan_out), device, torch.int8)
         self.w_s = _param((1, fan_out), device, torch.float32)
         self.b = _param((fan_out,), device, dtype) if bias else None
-        self._w_cols = None      # ((data_ptr, version), column-major w_q)
-
-    def _gemm_weight(self) -> torch.Tensor:
-        w = self.w_q
-        if w.device.type != "cuda":
-            return w
-        key = (w.data_ptr(), w._version)
-        if self._w_cols is None or self._w_cols[0] != key:
-            self._w_cols = (key, w.t().contiguous().t())
-        return self._w_cols[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear_dyn(x, self._gemm_weight(), self.w_s, self.b)
+        return linear_dyn(x, self.w_q, self.w_s, self.b)
 
     def pre_q(self, x_q: torch.Tensor, x_s: torch.Tensor,
               out_dtype: torch.dtype) -> torch.Tensor:
-        return linear_pre_q(x_q, x_s, self._gemm_weight(), self.w_s, self.b, out_dtype)
+        return linear_pre_q(x_q, x_s, self.w_q, self.w_s, self.b, out_dtype)
 
 
 def _linear(fan_in: int, fan_out: int, bias: bool, device, dtype, quantized: bool):
@@ -318,14 +320,19 @@ class SelectiveSSM(nn.Module):
             self.in_proj_z.w_s, self.x_param_proj.w_s, self.out_proj.w_s)
 
 
-def flash_eligible(config: ApertisConfig, seq_len: int) -> bool:
+def flash_eligible(config: ApertisConfig, seq_len: int, device, dtype: torch.dtype) -> bool:
     """The JAX package's gate for the flash kernel (``apertis.py::
-    _flash_eligible``) without its TPU clause: enabled, at least 128
-    positions, and a head width that is a multiple of 8 up to 256. The
-    caller also requires that there is no attention mask."""
+    _flash_eligible``): enabled, at least 128 positions, and a head width
+    that is a multiple of 8 up to 256; in place of its TPU clause, the
+    dtype: on the card the kernels take bf16 q/k/v, so f32 there takes the
+    plain attention, as the JAX package does off the TPU (the kernels' f32
+    form is still to port, ROADMAP.md), while the plain versions on the CPU
+    take either. The caller also requires that there is no attention
+    mask."""
     head_dim = config.head_dim
+    on_card = torch.device(device).type == "cuda"
     return (config.use_flash_attention and seq_len >= 128 and head_dim % 8 == 0
-            and head_dim <= 256)
+            and head_dim <= 256 and (not on_card or dtype == torch.bfloat16))
 
 
 _QKV_NAMES = ("qkv_w_q", "qkv_w_s", "qkv_b")
@@ -371,17 +378,13 @@ class MultiHeadAttention(nn.Module):
         dropped at the attention-dropout rate, the JAX package's stand-in
         for dropping the probabilities (apertis.py:344-348). The flash path
         is :class:`FlashAttention`, whose backward is the dQ and
-        dK/dV kernels; on the card it takes bf16 only."""
+        dK/dV kernels."""
         b, l, d = h.shape
         x = self.pre_norm(h)
         q, k, v = self.q(x), self.k(x), self.v(x)
         q, k = apply_rope(q, pos_ids, *rope), apply_rope(k, pos_ids, *rope)
         qh, kh, vh = self._split_heads(q), self._split_heads(k), self._split_heads(v)
         if bias is None and flash:
-            if qh.device.type == "cuda" and qh.dtype != torch.bfloat16:
-                raise NotImplementedError(
-                    f"the flash kernels take bf16 q/k/v on the card, got {qh.dtype} "
-                    "(see ROADMAP.md)")
             ctx = FlashAttention.apply(qh, kh, vh)
         else:
             ctx = attn_ops.mha(qh, kh, vh, bias=bias, causal=True)
@@ -398,8 +401,7 @@ class MultiHeadAttention(nn.Module):
     def attach_qkv(self) -> bool:
         """Build the fused QKV projection (``models/quantize.py::fuse_qkv``)
         that the int8 decode step uses in place of three products. False,
-        and no pack, for a float layer or a partial bias set. On the card the
-        fused weight is kept column-major, for ``torch._int_mm``."""
+        and no pack, for a float layer or a partial bias set."""
         fused = None
         if self.quantized:
             fused = fuse_qkv([{"w_q": m.w_q, "w_s": m.w_s, "b": m.b}
@@ -408,9 +410,7 @@ class MultiHeadAttention(nn.Module):
             self.qkv_w_q = self.qkv_w_s = self.qkv_b = None
             self._qkv_key = None
             return False
-        w = fused["w_q"]
-        self.qkv_w_q = w.t().contiguous().t() if w.device.type == "cuda" else w
-        self.qkv_w_s, self.qkv_b = fused["w_s"], fused["b"]
+        self.qkv_w_q, self.qkv_w_s, self.qkv_b = fused["w_q"], fused["w_s"], fused["b"]
         self._qkv_key = self._qkv_sources()
         return True
 
@@ -466,8 +466,13 @@ class MultiHeadAttention(nn.Module):
         return self.o(ctx.to(dt))
 
 
+_INT4_NAMES = ("w1_q4", "w1_sh", "w1_s4", "w2_q4", "w2_sh", "w2_s4")
+
+
 class DenseFFN(nn.Module):
-    """Pre-normed dense FFN ``act(x @ w1 + b1) @ w2 + b2`` (``layers/ffn``)."""
+    """Pre-normed dense FFN ``act(x @ w1 + b1) @ w2 + b2`` (``layers/ffn``).
+    An int8 layer can also hold the int4 decode pack (:meth:`attach_int4`)
+    in non-persistent buffers; the biases are the int8 linears'."""
 
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
@@ -475,9 +480,58 @@ class DenseFFN(nn.Module):
         self.hidden_act = config.hidden_act
         self.dropout = config.hidden_dropout_prob
         self.quantized = quantized
+        # The width test of the JAX package's fused decode FFN gate
+        # (ffn_fused.py::fused_eligible), for every weight layout.
+        self.fused_decode = h % 128 == 0 and pick_block_n(inter) > 0
         self.pre_norm = Norm(h, config.use_rmsnorm, config.layer_norm_eps, device, dtype)
         self.w1 = _linear(h, inter, True, device, dtype, quantized)
         self.w2 = _linear(inter, h, True, device, dtype, quantized)
+        for name in _INT4_NAMES:
+            self.register_buffer(name, None, persistent=False)
+        self._int4_key = None    # the int8 tensors the int4 pack was built from
+
+    def _int4_sources(self):
+        return tuple((p.data_ptr(), p._version) for p in (self.w1.w_q, self.w1.w_s,
+                                                           self.w2.w_q, self.w2.w_s))
+
+    @torch.no_grad()
+    def attach_int4(self) -> bool:
+        """Build the int4 decode pack (``models/quantize.py::int4_ffn_pack``)
+        that the decode FFN reads in place of the int8 weights. False, and no
+        pack, where the JAX package attaches none: a float layer, or a
+        contraction that is not a multiple of 128."""
+        pack = None
+        if self.quantized:
+            pack = int4_ffn_pack({"w_q": self.w1.w_q, "w_s": self.w1.w_s, "b": self.w1.b},
+                                 {"w_q": self.w2.w_q, "w_s": self.w2.w_s, "b": self.w2.b})
+        if pack is None:
+            for name in _INT4_NAMES:
+                setattr(self, name, None)
+            self._int4_key = None
+            return False
+        for w in ("w1", "w2"):
+            setattr(self, w + "_q4", pack[w]["w_q4"].contiguous())
+            setattr(self, w + "_sh", pack[w]["w_sh"].contiguous())
+            setattr(self, w + "_s4", pack[w]["w_s"])
+        self._int4_key = self._int4_sources()
+        return True
+
+    def int4_pack(self) -> Optional[Tuple[torch.Tensor, ...]]:
+        """The attached pack ``(w1_q4, w1_sh, w1_s, w2_q4, w2_sh, w2_s)``,
+        rebuilt if the int8 weights changed since; None when none is
+        attached."""
+        if self._int4_key is None:
+            return None
+        if self._int4_key != self._int4_sources() and not self.attach_int4():
+            return None
+        return (self.w1_q4, self.w1_sh, self.w1_s4, self.w2_q4, self.w2_sh, self.w2_s4)
+
+    def unfused(self, x: torch.Tensor) -> torch.Tensor:
+        """``act(x @ w1 + b1) @ w2 + b2`` of rows normed already, each linear
+        as it is (w8a8 in int8): the JAX package's ``_ffn`` without a fused
+        stack, which its decode step runs where the fused FFN's width test
+        fails."""
+        return self.w2(get_activation(self.hidden_act)(self.w1(x)))
 
     def forward(self, h: torch.Tensor, drop: Optional[Dropout] = None) -> torch.Tensor:
         """Pre-norm and FFN over full sequences (``apertis.py::_ffn``); with
@@ -492,9 +546,15 @@ class DenseFFN(nn.Module):
     def decode(self, ffn_in: Tuple[torch.Tensor, ...], out_dtype: torch.dtype) -> torch.Tensor:
         """The fused decode FFN on (S, D) rows (``ops/kernels/ffn_fused.py``):
         ``ffn_in`` is the decode step's FFN input, ``(normed,)`` in the float
-        layout and ``(x_q, x_s)`` in the int8 one."""
+        layout and ``(x_q, x_s)`` in the int8 one, which reads the int4 pack
+        when one is attached (apertis.py:1242-1268)."""
         if self.quantized:
             x_q, x_s = ffn_in
+            pack = self.int4_pack()
+            if pack is not None:
+                w1_q4, w1_sh, w1_s, w2_q4, w2_sh, w2_s = pack
+                return ffn_decode_int4(x_q, x_s, w1_q4, w1_sh, w1_s, self.w1.b, w2_q4, w2_sh,
+                                       w2_s, self.w2.b, self.hidden_act, out_dtype)
             return ffn_decode_int8(x_q, x_s, self.w1.w_q, self.w1.w_s, self.w1.b,
                                    self.w2.w_q, self.w2.w_s, self.w2.b, self.hidden_act,
                                    out_dtype)
@@ -503,7 +563,8 @@ class DenseFFN(nn.Module):
                           self.hidden_act, out_dtype)
 
 
-_FAT_NAMES = ("w1t_q", "w1t_s", "b1t", "w2t_q", "w2t_s")
+_FAT_NAMES = ("w1t_q", "w1t_q4", "w1t_sh", "w1t_s", "b1t", "w2t_q", "w2t_q4", "w2t_sh",
+              "w2t_s")
 
 
 class Experts(nn.Module):
@@ -511,7 +572,8 @@ class Experts(nn.Module):
     ``ln_b`` (E, H), ``w1`` (E, H, I) and ``w2`` (E, I, H), or their int8
     forms ``w1_q``/``w1_s`` (E, 1, I) and ``w2_q``/``w2_s`` (E, 1, H), and
     biases ``b1`` (E, I), ``b2`` (E, H). The kernels read the fat stack
-    (:meth:`fat`), held in non-persistent buffers."""
+    (:meth:`fat`), held in non-persistent buffers: int8, or int4 where
+    ``fat_bits`` is 4 and H and I allow it."""
 
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
@@ -528,18 +590,22 @@ class Experts(nn.Module):
         self.b2 = _param((e, h), device, dtype)
         for name in _FAT_NAMES:
             self.register_buffer(name, None, persistent=False)
+        self.fat_bits = 8        # 4 under w4a8 serving (ApertisForCausalLM.attach_moe_fat)
         self._fat_key = None
 
     @torch.no_grad()
     def fat(self) -> Dict[str, torch.Tensor]:
-        """The int8 fat stack of these experts (``models/moe_fuse.py``),
-        built at first use and again whenever an expert tensor changes."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        """The fat stack of these experts (``models/moe_fuse.py``), built at
+        first use and again whenever an expert tensor or ``fat_bits``
+        changes."""
+        key = (self.fat_bits,) + tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._fat_key != key:
-            for name, t in fuse_one_fat(dict(self.named_parameters())).items():
-                setattr(self, name, t.contiguous())
+            fat = fuse_one_fat(dict(self.named_parameters()), self.fat_bits)
+            for name in _FAT_NAMES:
+                setattr(self, name, fat[name].contiguous() if name in fat else None)
             self._fat_key = key
-        return {name: getattr(self, name) for name in _FAT_NAMES}
+        return {name: getattr(self, name) for name in _FAT_NAMES
+                if getattr(self, name) is not None}
 
 
 class MoEFFN(nn.Module):
@@ -566,7 +632,8 @@ class MoEFFN(nn.Module):
     def forward(self, h: torch.Tensor, drop: Optional[Dropout] = None) -> torch.Tensor:
         """Pre-norm, routing and experts over full sequences (``apertis.py::
         _ffn``): the fat kernel up to ``max(E, moe_dense_threshold_tokens)``
-        tokens, the grouped kernel above. The pre-norm is the plain norm in
+        tokens, the grouped kernel above, or ``moe_ragged`` over the expert
+        stacks when the fat stack is int4. The pre-norm is the plain norm in
         both layouts: the router reads the normed tensor. This is the eval
         routing: MoE training is not ported (``params.py::check_trainable``),
         so ``drop`` is not read."""
@@ -574,18 +641,23 @@ class MoEFFN(nn.Module):
         x = self.pre_norm(h).reshape(b * l, d)
         routing = moe_ops.route(x, *self.router_weights(), self.top_k,
                                 layer_norm_eps=self.eps)
-        ffn = (moe_ops.moe_dense_fat_kernel if b * l <= self.fat_max_tokens
-               else moe_ops.moe_grouped_fat)
-        out = ffn(x, routing, self.experts.fat(), self.experts.b2, self.hidden_act, self.eps)
+        fat = self.experts.fat()
+        if b * l <= self.fat_max_tokens:
+            out = moe_ops.moe_dense_fat_kernel(x, routing, fat, self.experts.b2,
+                                               self.hidden_act, self.eps)
+        elif "w1t_q4" in fat:
+            out = moe_ops.moe_ragged(x, routing, dict(self.experts.named_parameters()),
+                                     self.hidden_act, self.eps)
+        else:
+            out = moe_ops.moe_grouped_fat(x, routing, fat, self.experts.b2, self.hidden_act,
+                                          self.eps)
         return out.reshape(b, l, d)
 
     def decode(self, ffn_in: Tuple[torch.Tensor, ...], out_dtype: torch.dtype) -> torch.Tensor:
         """The fat kernel on the decode step's moe epilogue ``(x_q, x_s,
         combine)``, plus ``combine @ b2`` in f32 (apertis.py:1477-1493)."""
         x_q, x_s, comb = ffn_in
-        fat = self.experts.fat()
-        y = expert_ffn_fat(x_q, x_s, comb, fat["w1t_q"], fat["w1t_s"], fat["b1t"],
-                           fat["w2t_q"], fat["w2t_s"], comb.shape[1], self.hidden_act)
+        y = moe_ops.fat_ffn(x_q, x_s, comb, self.experts.fat(), comb.shape[1], self.hidden_act)
         return (y + comb @ self.experts.b2.float()).to(out_dtype)
 
 
@@ -677,13 +749,26 @@ class ApertisForCausalLM(nn.Module):
         self.lm_head.w_q.copy_(q)
         self.lm_head.w_s.copy_(s)
 
-    def attach_moe_fat(self) -> None:
-        """Build every MoE layer's int8 fat stack now (``models/moe_fuse.py``),
-        so that the first request does not: ``InferenceEngine`` calls it at
-        construction, as the JAX engine attaches its fat stacks."""
+    def attach_moe_fat(self, bits: int = 8) -> None:
+        """Build every MoE layer's fat stack now (``models/moe_fuse.py``), so
+        that the first request does not: ``InferenceEngine`` calls it at
+        construction, as the JAX engine attaches its fat stacks. ``bits=4``
+        packs it to int4 where H and I are multiples of 128 (else int8)."""
         for layer in self.layers:
             if isinstance(layer.ffn, MoEFFN):
+                layer.ffn.experts.fat_bits = bits
                 layer.ffn.experts.fat()
+
+    def attach_int4_ffn(self) -> bool:
+        """Attach every int8 dense FFN's int4 decode pack
+        (:meth:`DenseFFN.attach_int4`, ``models/quantize.py::
+        attach_int4_ffn``); a no-op, returning False, where the JAX function
+        is one (a float or MoE model, contractions not multiples of 128)."""
+        attached = False
+        for layer in self.layers:
+            if isinstance(layer.ffn, DenseFFN):
+                attached = layer.ffn.attach_int4() or attached
+        return attached
 
     def attach_qkv(self) -> None:
         """Attach every int8 MHA layer's fused QKV projection
@@ -698,13 +783,15 @@ class ApertisForCausalLM(nn.Module):
             return self.lm_head(h)
         return h @ self.embed.tok.T     # tied
 
-    def _mha_kwargs(self, attention_mask: Optional[torch.Tensor], length: int) -> Dict:
+    def _mha_kwargs(self, attention_mask: Optional[torch.Tensor], length: int,
+                    dtype: torch.dtype) -> Dict:
         """The full-sequence arguments of the MHA layers: the causal x padding
-        bias (None without a mask), positions 0..L-1 and the RoPE tables."""
+        bias (None without a mask), positions 0..L-1, the RoPE tables and
+        the flash gate for activations of ``dtype``."""
         bias = None if attention_mask is None else attn_ops.build_bias(attention_mask, length)
         return dict(bias=bias, pos_ids=torch.arange(length, device=self.device),
                     rope=(self.rope_cos, self.rope_sin),
-                    flash=flash_eligible(self.config, length))
+                    flash=flash_eligible(self.config, length, self.device, dtype))
 
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None, *, training: bool = False,
@@ -724,7 +811,7 @@ class ApertisForCausalLM(nn.Module):
         apertis.py:830)."""
         cfg = self.config
         h = self.embed.tok[input_ids]
-        kw = self._mha_kwargs(attention_mask, h.shape[1]) if is_mha(cfg) else {}
+        kw = self._mha_kwargs(attention_mask, h.shape[1], h.dtype) if is_mha(cfg) else {}
         rates = (cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob if is_mha(cfg) else 0.0)
         dropping = training and seed is not None and max(rates) > 0.0
         if dropping:
@@ -791,7 +878,7 @@ class ApertisForCausalLM(nn.Module):
         h = self.embed.tok[input_ids]
         if is_mha(self.config):
             # The prompt's post-RoPE K/V fill slots [0, L) of each layer.
-            kw = self._mha_kwargs(attention_mask, l)
+            kw = self._mha_kwargs(attention_mask, l, h.dtype)
             head_dim = self.config.head_dim
             for i, layer in enumerate(self.layers):
                 h, (k, v) = layer(h, want_cache=True, **kw)
@@ -825,7 +912,10 @@ class ApertisForCausalLM(nn.Module):
         fused decode FFN; ``t``, ``attn_mask_row`` and ``positions`` do not
         apply. A MoE model past ``moe_dense_threshold_tokens`` rows runs the
         step without its epilogue and the FFN as over full sequences, as the
-        JAX package does (apertis.py:1224-1230). MHA: see
+        JAX package does (apertis.py:1224-1230); a dense FFN that fails the
+        fused FFN's width test (``DenseFFN.fused_decode``) runs the step
+        without its epilogue and then the plain pre-norm and
+        :meth:`DenseFFN.unfused` (apertis.py:1234-1268, 1497-1500). MHA: see
         :meth:`_mha_decode_step`."""
         if is_mha(self.config):
             return self._mha_decode_step(cache, token_ids, t, attn_mask_row, positions)
@@ -837,18 +927,21 @@ class ApertisForCausalLM(nn.Module):
         for i, layer in enumerate(self.layers):
             conv = cache["conv"][i]
             ssm = cache["ssm"][i].view(b, -1)          # updated in place
-            ffn = {} if moe_full else {"ffn_norm": layer.ffn.pre_norm.weights()}
-            if is_moe(cfg) and not moe_full:
+            epilogue = not moe_full and (is_moe(cfg) or layer.ffn.fused_decode)
+            ffn = {"ffn_norm": layer.ffn.pre_norm.weights()} if epilogue else {}
+            if is_moe(cfg) and epilogue:
                 ffn["router"] = layer.ffn.router_weights()
             outs = ssm_decode_step(h, conv, ssm, layer.attn.mixer_weights(), eps,
                                    ssm_out=ssm, **ffn)
             h2, xp_new = outs[0], outs[1]
             if conv.shape[1] > 0:
                 conv.copy_(torch.cat([conv[:, 1:], xp_new[:, None, :]], dim=1))
-            if moe_full:
+            if epilogue:
+                h = h2 + layer.ffn.decode(outs[3:], h2.dtype)
+            elif moe_full:
                 h = h2 + layer.ffn(h2[:, None, :])[:, 0]
             else:
-                h = h2 + layer.ffn.decode(outs[3:], h2.dtype)
+                h = h2 + layer.ffn.unfused(layer.ffn.pre_norm(h2))
         return self._lm_head(self.final_norm(h)), cache
 
     def _mha_decode_step(self, cache: Cache, token_ids: torch.Tensor, t: Optional[int],
@@ -863,7 +956,8 @@ class ApertisForCausalLM(nn.Module):
         additive ``NEG``. Each layer: the attention (:meth:`MultiHeadAttention.
         decode`, which then writes slot ``t``), the residual, the plain FFN
         pre-norm and the decode FFN kernel (int8: on rows quantized by
-        ``quantize_rows``), the residual."""
+        ``quantize_rows``), or :meth:`DenseFFN.unfused` where the fused FFN's
+        width test fails, the residual."""
         if t is None:
             raise ValueError("decode_step of an MHA model needs the cache slot t")
         h = self.embed.tok[token_ids]                              # (B, D)
@@ -883,5 +977,8 @@ class ApertisForCausalLM(nn.Module):
                                       rope_rows, t)
             ffn = layer.ffn
             x = ffn.pre_norm(h)
-            h = h + ffn.decode(quantize_rows(x) if ffn.quantized else (x,), h.dtype)
+            if not ffn.fused_decode:
+                h = h + ffn.unfused(x)
+            else:
+                h = h + ffn.decode(quantize_rows(x) if ffn.quantized else (x,), h.dtype)
         return self._lm_head(self.final_norm(h)), cache

@@ -17,7 +17,7 @@ the model's modules.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import torch
 
@@ -88,9 +88,10 @@ def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
     int8 projections, whose mixer is the selective SSM (with a dense FFN or
     a top-2 MoE FFN) or standard MHA (with a dense FFN, and a head width the
     decode-attention kernel takes: a multiple of 32 up to 256). MHA with
-    MoE, SwiGLU, the multimodal and absolute-position variants, MoE with
-    another top-k, and int4 weights are later slices of the port
-    (ROADMAP.md)."""
+    MoE, SwiGLU, the multimodal and absolute-position variants and MoE with
+    another top-k are not ported yet (ROADMAP.md). Int8 weights
+    are served at any width the JAX package serves: where the fused decode
+    FFN's width test fails, the FFN runs unfused (``models/apertis.py``)."""
     missing = []
     if config.attention_type not in ("selective_ssm", "standard_mha"):
         missing.append(f"attention_type={config.attention_type!r}")
@@ -115,24 +116,35 @@ def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
         # fat stack is int8 in both layouts.
         if config.hidden_size % 16 or config.intermediate_size % 16:
             missing.append("MoE with hidden or intermediate size not a multiple of 16")
-    elif quantized and (config.hidden_size % 128 or config.intermediate_size % 128):
-        # The JAX package's fused int8 decode FFN tiles both by 128.
-        missing.append("int8 weights with hidden or intermediate size not a multiple of 128")
     if missing:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + ", ".join(missing) + " (see ROADMAP.md)")
 
 
+def check_quant_bits(quantized: bool, quant_bits: int) -> None:
+    """Raise unless the engine can serve ``quant_bits``: 8 (the tree as it
+    is), or 4 (w4a8: int4 decode copies beside an int8 tree) on an int8 tree
+    only, since the JAX package's ``attach_int4_ffn`` is a no-op on other
+    trees and its float-tree int4 fat stacks are not ported (ROADMAP.md)."""
+    if quant_bits not in (4, 8):
+        raise ValueError(f"quant_bits must be 4 or 8, got {quant_bits}")
+    if quant_bits == 4 and not quantized:
+        raise NotImplementedError(
+            "not ported to PyTorch yet: quant_bits=4 on a float tree (w4a8 serving "
+            "takes an int8 tree; see ROADMAP.md)")
+
+
 def check_trainable(config: ApertisConfig, quantized: bool = False, device="cuda",
-                    compute_dtype: Optional[torch.dtype] = None, devices: int = 1) -> None:
+                    devices: int = 1) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP.md) unless the port can
     train ``config`` as asked: a variant :func:`check_supported` takes, with
     a float tree, on one device. Not ported yet: MoE training (module 4's
     training half: capacity dispatch, noisy top-k, expert dropout, the
-    load-balancing and router z-losses), int8 trees, flash attention in f32
-    on the card (its kernels take bf16), the scan's backward on the card
-    with ``ssm_d_state`` not a power of two up to 32 (a head's channels
-    share one warp), and more than one device (module 7)."""
+    load-balancing and router z-losses), int8 trees, the scan's backward on
+    the card with ``ssm_d_state`` not a power of two up to 32 (a head's
+    channels share one warp), and more than one device (module 7). A flash
+    MHA model in f32 on the card trains through the plain attention
+    (``models/apertis.py::flash_eligible``)."""
     check_supported(config, quantized)
     on_card = torch.device(device).type == "cuda"
     missing = []
@@ -140,9 +152,6 @@ def check_trainable(config: ApertisConfig, quantized: bool = False, device="cuda
         missing.append("MoE training")
     if quantized:
         missing.append("training an int8 tree")
-    if (on_card and is_mha(config) and config.use_flash_attention
-            and compute_dtype in (None, torch.float32)):
-        missing.append("flash attention in float32 on the card (bf16 only)")
     n = config.ssm_d_state
     if on_card and not is_mha(config) and (n > 32 or n & (n - 1)):
         missing.append(f"the scan's backward on the card with ssm_d_state={n}")

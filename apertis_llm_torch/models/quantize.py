@@ -6,7 +6,11 @@ each eligible linear's ``{"w"}`` into ``{"w_q": int8, "w_s": float32}``;
 ``models/convert.py::from_jax_params`` builds the int8 modules from such a
 tree. Embeddings, norms, biases, ``dt_proj`` and the conv taps stay in their
 own dtype. :func:`fuse_qkv` builds the fused QKV projection an int8 MHA
-layer serves at decode. The int4 layouts are a later slice.
+layer serves at decode. The int4 layout (w4a8 serving, the JAX package's
+``APERTIS_QUANT_BITS=4``) is a decode copy beside the int8 tree:
+:func:`quantize_weight_int4` packs two 4-bit values a byte with a
+power-of-two shift per (128-row group, output channel), :func:`unpack_int4`
+inverts it, and :func:`attach_int4_ffn` attaches the dense FFN's pack.
 """
 
 from __future__ import annotations
@@ -39,6 +43,96 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = divide(torch.clamp(absmax, min=1e-8), 127.0)
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale.float()
+
+
+INT4_GROUP = 128  # contraction rows per packing group
+
+
+def quantize_weight_int4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Group-wise symmetric int4, ``w ~= unpack_int4(w_q4, w_sh) * w_s``
+    (``quantize.py::quantize_weight_int4``). Per output channel the base
+    scale is ``max(channel absmax, 1e-8) / 56``; each (128-row group,
+    channel) takes the smallest shift ``2^e`` (e in 0..3) with ``7 * scale *
+    2^e >= group absmax``, ``e = clip(ceil(log2(max(gmax / (7 scale), 1))),
+    0, 3)`` in f32 in the JAX order, and values ``clip(rint(w / (scale *
+    2^e)), -7, 7)``. Two values pack into one byte within each group: byte
+    row ``64 g + j`` (j < 64) holds contraction row ``128 g + j`` in its low
+    nibble and ``128 g + j + 64`` in its high nibble. Returns ``(w_q4
+    (..., K/2, N) int8, w_s (..., 1, N) f32, w_sh (..., K/128, N) int8)``;
+    the contraction axis (-2) must be a multiple of 128."""
+    k = w.shape[-2]
+    if k % INT4_GROUP:
+        raise ValueError(f"int4 contraction axis must be a multiple of {INT4_GROUP}, got {k}")
+    lead, n = tuple(w.shape[:-2]), w.shape[-1]
+    wg = w.float().reshape(*lead, k // INT4_GROUP, INT4_GROUP, n)
+    gmax = wg.abs().amax(dim=-2)                                  # lead + (G, n)
+    cmax = gmax.amax(dim=-2, keepdim=True)                        # lead + (1, n)
+    scale = divide(torch.clamp(cmax, min=1e-8), 56.0)
+    e = torch.clamp(torch.ceil(torch.log2(torch.clamp(gmax / (7.0 * scale), min=1.0))), 0, 3)
+    shift = torch.exp2(e)                                         # lead + (G, n) f32
+    grid = scale[..., None, :, :] * shift[..., None, :]           # lead + (G, 1, n)
+    q = torch.clamp(torch.round(wg / grid), -7, 7).to(torch.int32)
+    q = q.reshape(*lead, k // INT4_GROUP, 2, INT4_GROUP // 2, n)
+    packed = ((q[..., 0, :, :] & 0xF) | (q[..., 1, :, :] << 4)).to(torch.int8)
+    return packed.reshape(*lead, k // 2, n), scale, shift.to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor, shifts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Invert :func:`quantize_weight_int4`'s packing: (..., K/2, N) bytes ->
+    (..., K, N) int8 values in [-7, 7], or times the per-(group, channel)
+    ``shifts`` in [-56, 56]. The low nibble is sign-extended by
+    ``(p << 28) >> 28`` of the int32 byte, the high one by ``p >> 4``."""
+    lead, (kh, n) = tuple(packed.shape[:-2]), packed.shape[-2:]
+    p = packed.to(torch.int32)
+    half = INT4_GROUP // 2
+    lo = ((p << 28) >> 28).reshape(*lead, kh // half, 1, half, n)
+    hi = (p >> 4).reshape(*lead, kh // half, 1, half, n)
+    full = torch.cat([lo, hi], dim=-3)
+    if shifts is not None:
+        full = full * shifts.to(torch.int32).reshape(*lead, kh // half, 1, 1, n)
+    return full.to(torch.int8).reshape(*lead, 2 * kh, n)
+
+
+def dequantize_int4(packed: torch.Tensor, scale: torch.Tensor,
+                    shifts: Optional[torch.Tensor] = None,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The full (in, out) weight of an int4 pack."""
+    return unpack_int4(packed, shifts).to(dtype) * scale.to(dtype)
+
+
+def int4_ffn_pack(w1: Params, w2: Params) -> Optional[Params]:
+    """The int4 decode pack of one dense FFN, ``{"w1": {w_q4, w_s, w_sh, b},
+    "w2": ...}``, requantized from the int8 ``{w_q, w_s, b}`` linears
+    (``w_q * w_s`` in f32 onto the 4-bit grid; stacked or not), or None
+    where the JAX package attaches none: a linear that is not int8 with a
+    bias, or a contraction that is not a multiple of 128."""
+    if not all(isinstance(w, dict) and w.get("w_q") is not None and w.get("b") is not None
+               for w in (w1, w2)):
+        return None
+    if w1["w_q"].shape[-2] % INT4_GROUP or w2["w_q"].shape[-2] % INT4_GROUP:
+        return None
+    pack = {}
+    for name, w in (("w1", w1), ("w2", w2)):
+        q4, s, sh = quantize_weight_int4(w["w_q"].float() * w["w_s"])
+        pack[name] = {"w_q4": q4, "w_s": s, "w_sh": sh, "b": w["b"]}
+    return pack
+
+
+def attach_int4_ffn(params: Params) -> Params:
+    """Attach the dense FFN's int4 decode pack under ``layers.ffn["w4"]``
+    beside the int8 tree (``quantize.py::attach_int4_ffn``); prefill keeps
+    reading int8. A no-op where the JAX function is one: no dense FFN, a
+    pack already attached, or :func:`int4_ffn_pack` gives none."""
+    ffn = params.get("layers", {}).get("ffn")
+    if not isinstance(ffn, dict) or "w4" in ffn:
+        return params
+    pack = int4_ffn_pack(ffn.get("w1"), ffn.get("w2"))
+    if pack is None:
+        return params
+    out = dict(params)
+    out["layers"] = dict(params["layers"])
+    out["layers"]["ffn"] = dict(ffn, w4=pack)
+    return out
 
 
 def quantize_params(params: Params, min_size: int = 1 << 16,

@@ -26,7 +26,8 @@ PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT / "_build"
 SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu", "moe_ffn.cu",
-           "moe_grouped.cu", "mha_step.cu", "flash_attention.cu", "flash_attention_bwd.cu")
+           "moe_grouped.cu", "mha_step.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+           "quant_matmul.cu")
 HEADERS = ("common.cuh", "moe_gemm.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
@@ -52,11 +53,17 @@ SIGNATURES = {
     # x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2, out, hidden, partial, S, D, I,
     # bn, act, stream
     "apertis_ffn_decode_int8": [_P] * 11 + [_I] * 5 + [_P],
+    # x_q, x_s, w1_q4, w1_sh, w1_s, b1, w2_q4, w2_sh, w2_s, b2, out, hidden,
+    # partial, S, D, I, bn, act, stream
+    "apertis_ffn_decode_int4": [_P] * 13 + [_I] * 5 + [_P],
     # x, w, b, q, scale, rows, H, rms, eps, stream
     "apertis_ln_quantize": [_P] * 5 + [_I] * 3 + [_F, _P],
     # x_q, x_s, comb, w1t_q, w1t_s, b1t, w2t_q, w2t_s, out, hidden, absmax,
     # partial, S, H, E*I, E, bn, ksplit, act, stream
     "apertis_expert_ffn_fat": [_P] * 12 + [_I] * 7 + [_P],
+    # x_q, x_s, comb, w1t_q4, w1t_sh, w1t_s, b1t, w2t_q4, w2t_sh, w2t_s, out,
+    # hidden, absmax, partial, S, H, E*I, E, bn, ksplit, act, stream
+    "apertis_expert_ffn_fat_int4": [_P] * 14 + [_I] * 7 + [_P],
     # x_q, x_s, emap, w1t_q, w1t_s, b1t, w2t_q, w2t_s, out, hidden, absmax, P,
     # H, E*I, E, act, stream
     "apertis_expert_ffn_grouped": [_P] * 11 + [_I] * 5 + [_P],
@@ -70,6 +77,8 @@ SIGNATURES = {
     "apertis_flash_attention_dq": [_P] * 7 + [_I] * 4 + [_P],
     # q, k, v, dout, lse, delta, dk, dv, B*H, L, head_dim, causal, stream
     "apertis_flash_attention_dkv": [_P] * 8 + [_I] * 4 + [_P],
+    # x_q, x_s, w_q, w_s, bias (or NULL), out, M, N, K, out_bf16, stream
+    "apertis_quant_matmul_dyn": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 

@@ -6,9 +6,11 @@ slices of a group across a thread-block cluster, then a small reduce of the
 group partials) for CUDA tensors and runs :func:`ffn_decode_reference`, its
 plain PyTorch version, for CPU tensors. It replaces
 ``apertis_llm_tpu/ops/pallas/ffn_fused.py::ffn_decode_fused`` with the bf16
-weight layout, and with the int8 layout through :func:`ffn_decode_int8`
+weight layout, with the int8 layout through :func:`ffn_decode_int8`
 (three launches: the int8 GEMM1 with its epilogue, the per-tile
-requantization and int8 GEMM2, and a fixed-order reduce).
+requantization and int8 GEMM2, and a fixed-order reduce), and with the int4
+layout through :func:`ffn_decode_int4` (the same three launches over
+nibble-packed weights, unpacked as they are loaded).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from apertis_llm_torch.models.quantize import unpack_int4
 from apertis_llm_torch.ops.activations import get_activation
 from apertis_llm_torch.ops.kernels import _build
 from apertis_llm_torch.ops.quant import int_mm
@@ -87,6 +90,27 @@ def ffn_decode_int8_reference(
         hq = torch.clamp(torch.round(ht / hs), -127, 127).to(torch.int8)
         acc = acc + int_mm(hq, w2_q[t0:t0 + bn]).float() * hs
     return (acc * w2_s.reshape(1, -1) + b2.float()).to(out_dtype)
+
+
+def ffn_decode_int4_reference(
+    x_q: torch.Tensor,    # (S, D) int8
+    x_s: torch.Tensor,    # (S, 1) f32
+    w1_q4: torch.Tensor,  # (D/2, I) int8, two int4 values a byte
+    w1_sh: torch.Tensor,  # (D/128, I) int8 shifts
+    w1_s: torch.Tensor,   # (1, I) f32
+    b1: torch.Tensor,     # (I,)
+    w2_q4: torch.Tensor,  # (I/2, D)
+    w2_sh: torch.Tensor,  # (I/128, D)
+    w2_s: torch.Tensor,   # (1, D) f32
+    b2: torch.Tensor,     # (D,)
+    hidden_act: str = "gelu",
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The int4 layout of the TPU kernel (``int4=True``): the int8 layout's
+    arithmetic over the unpacked weights, whose values are the nibbles times
+    their group's shift (``models/quantize.py::unpack_int4``)."""
+    return ffn_decode_int8_reference(x_q, x_s, unpack_int4(w1_q4, w1_sh), w1_s, b1,
+                                     unpack_int4(w2_q4, w2_sh), w2_s, b2, hidden_act, out_dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,5 +223,61 @@ def ffn_decode_int8(
     return out
 
 
+def ffn_decode_int4(
+    x_q: torch.Tensor,
+    x_s: torch.Tensor,
+    w1_q4: torch.Tensor,
+    w1_sh: torch.Tensor,
+    w1_s: torch.Tensor,
+    b1: torch.Tensor,
+    w2_q4: torch.Tensor,
+    w2_sh: torch.Tensor,
+    w2_s: torch.Tensor,
+    b2: torch.Tensor,
+    hidden_act: str = "gelu",
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The int4 decode FFN: kernel on CUDA tensors, plain version on CPU ones.
+
+    The kernel takes contiguous int8 ``x_q`` (S, D), the packs and shifts
+    of ``models/quantize.py::quantize_weight_int4``, f32 scales, bf16
+    biases, D and I multiples of 128, and returns bf16.
+    """
+    if x_q.device.type == "cpu":
+        return ffn_decode_int4_reference(x_q, x_s, w1_q4, w1_sh, w1_s, b1, w2_q4, w2_sh,
+                                         w2_s, b2, hidden_act, out_dtype)
+    s, d = x_q.shape
+    inter = w1_q4.shape[1]
+    dev = x_q.device
+    i8, f32, bf16 = (torch.int8,), (torch.float32,), (torch.bfloat16,)
+    if s == 0 or d % 128 or inter % 128:
+        raise ValueError(f"ffn_decode_int4: unsupported shape S={s} D={d} I={inter}")
+    _build.check_tensor(x_q, (s, d), i8, "x_q", dev)
+    _build.check_tensor(x_s, (s, 1), f32, "x_s", dev)
+    _build.check_tensor(w1_q4, (d // 2, inter), i8, "w1_q4", dev)
+    _build.check_tensor(w1_sh, (d // 128, inter), i8, "w1_sh", dev)
+    _build.check_tensor(w1_s, (1, inter), f32, "w1_s", dev)
+    _build.check_tensor(b1, (inter,), bf16, "b1", dev)
+    _build.check_tensor(w2_q4, (inter // 2, d), i8, "w2_q4", dev)
+    _build.check_tensor(w2_sh, (inter // 128, d), i8, "w2_sh", dev)
+    _build.check_tensor(w2_s, (1, d), f32, "w2_s", dev)
+    _build.check_tensor(b2, (d,), bf16, "b2", dev)
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"ffn_decode_int4: out_dtype {out_dtype} not supported")
+    bn = pick_block_n(inter)
+    hidden = torch.empty((s, inter), dtype=torch.float32, device=dev)
+    partial = torch.empty((inter // bn, s, d), dtype=torch.float32, device=dev)
+    out = torch.empty((s, d), dtype=torch.bfloat16, device=dev)
+    err = _build.load_library().apertis_ffn_decode_int4(
+        x_q.data_ptr(), x_s.data_ptr(), w1_q4.data_ptr(), w1_sh.data_ptr(), w1_s.data_ptr(),
+        b1.data_ptr(), w2_q4.data_ptr(), w2_sh.data_ptr(), w2_s.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), hidden.data_ptr(), partial.data_ptr(), s, d, inter, bn,
+        _ACT_CODES.get(hidden_act, 0), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ffn_decode_int4")
+    ffn_decode_int4.launches += 1
+    return out
+
+
 ffn_decode.launches = 0
 ffn_decode_int8.launches = 0
+ffn_decode_int4.launches = 0

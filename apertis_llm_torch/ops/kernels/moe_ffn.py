@@ -7,7 +7,9 @@ reduce over the tiles) for CUDA tensors and runs
 :func:`expert_ffn_fat_reference`, its plain PyTorch version, for CPU tensors.
 It replaces ``apertis_llm_tpu/ops/pallas/moe_ffn.py::expert_ffn_fat`` with
 the int8 fat stack of ``models/moe_fuse.py``, unstacked: the caller passes
-one layer's tensors. The int4 fat layout is a later slice.
+one layer's tensors. :func:`expert_ffn_fat_int4` is the int4 layout
+(``int4=True``): the same launches over the nibble-packed fat stack, unpacked
+as the weight panels are staged.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import functools
 
 import torch
 
+from apertis_llm_torch.models.quantize import unpack_int4
 from apertis_llm_torch.ops.activations import get_activation
 from apertis_llm_torch.ops.kernels import _build
 from apertis_llm_torch.ops.quant import int_mm
@@ -70,6 +73,26 @@ def expert_ffn_fat_reference(
         col = combine[:, t // per_expert:t // per_expert + 1].float()
         acc = acc + int_mm(hq, w2t_q[t * bn:(t + 1) * bn]).float() * (hs * col)
     return acc * w2t_s.reshape(1, -1)
+
+
+def expert_ffn_fat_int4_reference(
+    xq: torch.Tensor,       # (S, H) int8
+    xs: torch.Tensor,       # (S, 1) f32
+    combine: torch.Tensor,  # (S, E) f32
+    w1t_q4: torch.Tensor,   # (H/2, E*I) int8, two int4 values a byte
+    w1t_sh: torch.Tensor,   # (H/128, E*I) int8 shifts
+    w1t_s: torch.Tensor,    # (1, E*I) f32
+    b1t: torch.Tensor,      # (E*I,) f32
+    w2t_q4: torch.Tensor,   # (E*I/2, H)
+    w2t_sh: torch.Tensor,   # (E*I/128, H)
+    w2t_s: torch.Tensor,    # (1, H) f32
+    num_experts: int,
+    hidden_act: str = "gelu",
+) -> torch.Tensor:
+    """The int4 fat layout: the int8 layout's arithmetic over the unpacked
+    weights (``models/quantize.py::unpack_int4``)."""
+    return expert_ffn_fat_reference(xq, xs, combine, unpack_int4(w1t_q4, w1t_sh), w1t_s, b1t,
+                                    unpack_int4(w2t_q4, w2t_sh), w2t_s, num_experts, hidden_act)
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,4 +162,63 @@ def expert_ffn_fat(
     return out
 
 
+def expert_ffn_fat_int4(
+    xq: torch.Tensor,
+    xs: torch.Tensor,
+    combine: torch.Tensor,
+    w1t_q4: torch.Tensor,
+    w1t_sh: torch.Tensor,
+    w1t_s: torch.Tensor,
+    b1t: torch.Tensor,
+    w2t_q4: torch.Tensor,
+    w2t_sh: torch.Tensor,
+    w2t_s: torch.Tensor,
+    num_experts: int,
+    hidden_act: str = "gelu",
+) -> torch.Tensor:
+    """The int4 fat MoE FFN: kernel on CUDA tensors, plain version on CPU
+    ones. As :func:`expert_ffn_fat`, with the packs and shifts of
+    ``models/moe_fuse.py``'s int4 stack; H and the hidden tile width
+    multiples of 128 (``moe_ffn.py:295-296``)."""
+    if xq.device.type == "cpu":
+        return expert_ffn_fat_int4_reference(xq, xs, combine, w1t_q4, w1t_sh, w1t_s, b1t,
+                                             w2t_q4, w2t_sh, w2t_s, num_experts, hidden_act)
+    s, d = xq.shape
+    ei = w1t_q4.shape[1]
+    dev = xq.device
+    inter = ei // max(num_experts, 1)
+    bn = fat_block_n(inter) if num_experts > 0 and ei % num_experts == 0 else 0
+    if s == 0 or d % 128 or bn == 0 or bn % 128:
+        raise ValueError(f"expert_ffn_fat_int4: unsupported shape S={s} H={d} E*I={ei} "
+                         f"E={num_experts}")
+    i8, f32 = (torch.int8,), (torch.float32,)
+    _build.check_tensor(xq, (s, d), i8, "xq", dev)
+    _build.check_tensor(xs, (s, 1), f32, "xs", dev)
+    _build.check_tensor(combine, (s, num_experts), f32, "combine", dev)
+    _build.check_tensor(w1t_q4, (d // 2, ei), i8, "w1t_q4", dev)
+    _build.check_tensor(w1t_sh, (d // 128, ei), i8, "w1t_sh", dev)
+    _build.check_tensor(w1t_s, (1, ei), f32, "w1t_s", dev)
+    _build.check_tensor(b1t, (ei,), f32, "b1t", dev)
+    _build.check_tensor(w2t_q4, (ei // 2, d), i8, "w2t_q4", dev)
+    _build.check_tensor(w2t_sh, (ei // 128, d), i8, "w2t_sh", dev)
+    _build.check_tensor(w2t_s, (1, d), f32, "w2t_s", dev)
+    _build.check_aligned("expert_ffn_fat_int4", xq, w1t_q4, w1t_sh, w2t_q4, w2t_sh)
+    tiles = ei // bn
+    ksplit = _ksplit(s, d, tiles, bn, dev.index)
+    hidden = torch.empty((s, ei), dtype=torch.float32, device=dev)
+    absmax = torch.empty((s, tiles), dtype=torch.float32, device=dev)
+    partial = torch.empty((tiles * ksplit, s, d), dtype=torch.int32, device=dev)
+    out = torch.empty((s, d), dtype=torch.float32, device=dev)
+    err = _build.load_library().apertis_expert_ffn_fat_int4(
+        xq.data_ptr(), xs.data_ptr(), combine.data_ptr(), w1t_q4.data_ptr(), w1t_sh.data_ptr(),
+        w1t_s.data_ptr(), b1t.data_ptr(), w2t_q4.data_ptr(), w2t_sh.data_ptr(),
+        w2t_s.data_ptr(), out.data_ptr(), hidden.data_ptr(), absmax.data_ptr(),
+        partial.data_ptr(), s, d, ei, num_experts, bn, ksplit, _ACT_CODES.get(hidden_act, 0),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "expert_ffn_fat_int4")
+    expert_ffn_fat_int4.launches += 1
+    return out
+
+
 expert_ffn_fat.launches = 0
+expert_ffn_fat_int4.launches = 0

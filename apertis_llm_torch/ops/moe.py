@@ -11,16 +11,20 @@ The serving half of ``apertis_llm_tpu/ops/moe.py`` (eval mode):
   * :func:`moe_dense_fat_kernel`: the glue of the combine-folded fat kernel
     (``ops/kernels/moe_ffn.py``), for small token counts;
   * :func:`moe_grouped_fat`: the counting-sort dispatch around the grouped
-    kernel (``ops/kernels/moe_grouped.py``), for large token counts.
+    kernel (``ops/kernels/moe_grouped.py``), for large token counts;
+  * :func:`moe_ragged`: the sort-based dispatch whose expert groups run
+    their products one group at a time, for large token counts when the fat
+    stack is int4 (the grouped kernel reads int8 stacks only).
 
-Both kernels read the int8 fat stack of ``models/moe_fuse.py``: the experts'
+Both fat-stack kernels read the fat stack of ``models/moe_fuse.py`` (int8,
+or int4 under w4a8 serving, :func:`fat_ffn`): the experts'
 LayerNorm affines live in W1, so the glue applies one shared un-affine
 LayerNorm and quantizes ``x - mean`` per row (the divide formula of
 ``ops/quant.py::quantize_rows``), folding the inverse standard deviation into
 the row scale. ``combine @ b2`` is added outside the kernels in f32.
 
-Training's dispatch (``moe_dispatch``, ``moe_ragged``, expert dropout, noisy
-routing and the routing losses) is a later slice (ROADMAP.md).
+Training's dispatch (``moe_dispatch``, expert dropout, noisy routing and the
+routing losses) is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,12 +34,15 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from apertis_llm_torch.ops.activations import get_activation
-from apertis_llm_torch.ops.kernels.moe_ffn import expert_ffn_fat
+from apertis_llm_torch.ops.kernels.moe_ffn import expert_ffn_fat, expert_ffn_fat_int4
 from apertis_llm_torch.ops.kernels.moe_grouped import TILE, expert_ffn_grouped
+from apertis_llm_torch.ops.kernels.quant_matmul import quant_matmul_dyn_pre_q
 from apertis_llm_torch.ops.norms import layer_norm
 from apertis_llm_torch.ops.quant import quantize_rows
 
-FatStack = Dict[str, torch.Tensor]   # w1t_q, w1t_s, b1t, w2t_q, w2t_s (one layer)
+# One layer's fat stack: w1t_q, w1t_s, b1t, w2t_q, w2t_s, or for int4
+# w1t_q4, w1t_sh, w1t_s, b1t, w2t_q4, w2t_sh, w2t_s.
+FatStack = Dict[str, torch.Tensor]
 
 
 class RouterOutput(NamedTuple):
@@ -124,16 +131,27 @@ def center_quantize(x: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Te
     return xq, xs * inv
 
 
+def fat_ffn(xq: torch.Tensor, xs: torch.Tensor, combine: torch.Tensor, fat: FatStack,
+            num_experts: int, hidden_act: str) -> torch.Tensor:
+    """The fat kernel of the stack's layout, int4 or int8: f32 (S, H) out,
+    without ``combine @ b2``."""
+    if "w1t_q4" in fat:
+        return expert_ffn_fat_int4(xq, xs, combine, fat["w1t_q4"], fat["w1t_sh"], fat["w1t_s"],
+                                   fat["b1t"], fat["w2t_q4"], fat["w2t_sh"], fat["w2t_s"],
+                                   num_experts, hidden_act)
+    return expert_ffn_fat(xq, xs, combine, fat["w1t_q"], fat["w1t_s"], fat["b1t"],
+                          fat["w2t_q"], fat["w2t_s"], num_experts, hidden_act)
+
+
 def moe_dense_fat_kernel(x: torch.Tensor, routing: RouterOutput, fat: FatStack,
                          b2: torch.Tensor, hidden_act: str,
                          layer_norm_eps: float) -> torch.Tensor:
     """Combine-folded all-expert FFN of tokens x (S, H) through
-    :func:`expert_ffn_fat`, plus ``combine @ b2`` in f32, cast to x's dtype
+    :func:`fat_ffn`, plus ``combine @ b2`` in f32, cast to x's dtype
     (``ops/moe.py::moe_dense_fat_kernel``)."""
     xq, xs = center_quantize(x, layer_norm_eps)
     combine = _combine_weights(routing, b2.shape[0], torch.float32)
-    out = expert_ffn_fat(xq, xs, combine, fat["w1t_q"], fat["w1t_s"], fat["b1t"],
-                         fat["w2t_q"], fat["w2t_s"], b2.shape[0], hidden_act)
+    out = fat_ffn(xq, xs, combine, fat, b2.shape[0], hidden_act)
     return (out + combine @ b2.float()).to(x.dtype)
 
 
@@ -189,3 +207,50 @@ def moe_grouped_fat(x: torch.Tensor, routing: RouterOutput, fat: FatStack,
     combine = _combine_weights(routing, num_experts, torch.float32)
     out = y.reshape(s, k, h).sum(dim=1) + combine @ b2.float()
     return out.to(x.dtype)
+
+
+def moe_ragged(x: torch.Tensor, routing: RouterOutput, experts: Dict[str, torch.Tensor],
+               hidden_act: str, layer_norm_eps: float) -> torch.Tensor:
+    """Sort-based dispatch over the expert stacks (``ops/moe.py::moe_ragged``,
+    eval): the (token, choice) pairs sorted by expert (stable), each row
+    normed by its expert's LayerNorm, and each expert's contiguous row group
+    multiplied by its own weights, one group at a time. Int8 experts take the
+    JAX function's int8 branch (its ``APERTIS_QUANT_MATMUL=dyn`` form):
+    quantized rows, both products through the w8a8 kernel with f32 out and
+    no bias (``quant_matmul_dyn_pre_q``), ``+ b1``, the activation and the
+    requantization of the hidden outside; float experts the float branch.
+    The rows are scaled by their routing weight in x's dtype and added back
+    to their tokens. The group sizes are read on the host (one sync)."""
+    k = routing.indices.shape[1]
+    num_experts = experts["ln_w"].shape[0]
+    act = get_activation(hidden_act)
+    flat_e = routing.indices.reshape(-1)                     # (S*K) token-major
+    flat_w = routing.weights.reshape(-1).to(x.dtype)
+    order = torch.argsort(flat_e, stable=True)
+    tok = order // k
+    e_sorted = flat_e[order]
+    ends = torch.cumsum(torch.bincount(flat_e, minlength=num_experts), 0).tolist()
+    groups = [(e, lo, hi) for e, (lo, hi) in enumerate(zip([0] + ends[:-1], ends)) if hi > lo]
+    xn = layer_norm(x[tok], experts["ln_w"][e_sorted], experts["ln_b"][e_sorted],
+                    eps=layer_norm_eps)
+    int8 = "w1_q" in experts
+
+    def grouped(rows: torch.Tensor, name: str) -> torch.Tensor:
+        """Each group's rows times its expert's weight ``name``."""
+        if int8:
+            r_q, r_s = quantize_rows(rows)
+            out = rows.new_empty((rows.shape[0], experts[name + "_q"].shape[-1]),
+                                 dtype=torch.float32)
+            for e, lo, hi in groups:
+                out[lo:hi] = quant_matmul_dyn_pre_q(r_q[lo:hi], r_s[lo:hi], experts[name + "_q"][e],
+                                                    experts[name + "_s"][e], None, torch.float32)
+            return out
+        out = rows.new_empty((rows.shape[0], experts[name].shape[-1]))
+        for e, lo, hi in groups:
+            out[lo:hi] = rows[lo:hi] @ experts[name][e]
+        return out
+
+    hmid = act(grouped(xn, "w1") + experts["b1"][e_sorted])
+    y = (grouped(hmid, "w2") + experts["b2"][e_sorted]).to(x.dtype)
+    y = y * flat_w[order][:, None]
+    return torch.zeros_like(x).index_add_(0, tok, y)

@@ -1,9 +1,12 @@
-"""Int8 matmul arithmetic outside the kernels (``quant_matmul.py`` semantics).
+"""Int8 matmul arithmetic (``quant_matmul.py`` semantics).
 
-The JAX package leaves these to XLA: per-row activation quantization and the
-dynamic w8a8 product with per-output-channel weight scales. The int8 x int8
--> int32 product is ``torch._int_mm`` (cuBLASLt on the card), as JAX leaves
-it to XLA's ``dot_general``; the result is exact integer arithmetic.
+Per-row activation quantization (plain torch, as the JAX package leaves it to
+XLA) and the dynamic w8a8 product with per-output-channel weight scales. On
+the card the product is the hand-written kernel of
+``ops/kernels/quant_matmul.py``; :func:`linear_pre_q_reference` is its plain
+version, whose int8 x int8 -> int32 product is :func:`int_mm`
+(``torch._int_mm``), exact integer arithmetic. ``int_mm`` serves the plain
+versions only.
 """
 
 from __future__ import annotations
@@ -21,26 +24,20 @@ def divide(x: torch.Tensor, value: float) -> torch.Tensor:
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int8 (M, K) x int8 (K, N) -> int32 (M, N); ``b`` may be
-    row-major or column-major. On the card ``torch._int_mm`` needs K and N
-    multiples of 8 and more than 16 rows, and cuBLASLt refuses some row
-    counts that are not multiples of 32 when K is small: the rows are padded
-    with zeros to a multiple of 32, K and N to multiples of 8 (zeros add
-    nothing to the sums; a column-major ``b`` stays column-major), and the
-    padding is cut off again."""
-    a = a.contiguous()
-    if not (b.is_contiguous() or b.t().is_contiguous()):
-        b = b.contiguous()
+    """Exact int8 (M, K) x int8 (K, N) -> int32 (M, N), for the kernels'
+    plain versions. On the card ``torch._int_mm`` needs K and N multiples of
+    8 and more than 16 rows, and cuBLASLt refuses some row counts that are
+    not multiples of 32 when K is small: the rows are padded with zeros to a
+    multiple of 32, K and N to multiples of 8 (zeros add nothing to the
+    sums), and the padding is cut off again."""
+    a, b = a.contiguous(), b.contiguous()
     m, k = a.shape
     n = b.shape[1]
     if a.device.type != "cuda" or (m % 32 == 0 and k % 8 == 0 and n % 8 == 0):
         return torch._int_mm(a, b)
     pad_k, pad_n = -k % 8, -n % 8
     if pad_k or pad_n:
-        if b.t().is_contiguous():
-            b = torch.nn.functional.pad(b.t(), (0, pad_k, 0, pad_n)).t()
-        else:
-            b = torch.nn.functional.pad(b, (0, pad_n, 0, pad_k))
+        b = torch.nn.functional.pad(b, (0, pad_n, 0, pad_k))
     padded = torch.zeros((-(-m // 32) * 32, k + pad_k), dtype=torch.int8, device=a.device)
     padded[:m, :k] = a
     return torch._int_mm(padded, b)[:m, :n]
@@ -56,18 +53,28 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def linear_pre_q(x_q: torch.Tensor, x_s: torch.Tensor, w_q: torch.Tensor,
-                 w_s: torch.Tensor, b: Optional[torch.Tensor],
-                 out_dtype: torch.dtype) -> torch.Tensor:
+def linear_pre_q_reference(x_q: torch.Tensor, x_s: torch.Tensor, w_q: torch.Tensor,
+                           w_s: torch.Tensor, b: Optional[torch.Tensor],
+                           out_dtype: torch.dtype) -> torch.Tensor:
     """int8 product with pre-quantized activations (``apertis.py::
-    _linear_pre_q``): ``int32(x_q @ w_q) * x_s * w_s`` in f32, cast to
-    ``out_dtype``, then ``+ b``."""
+    _linear_pre_q``, ``quant_matmul.py::_dyn_kernel``): ``int32(x_q @ w_q) *
+    x_s * w_s`` in f32, cast to ``out_dtype``, then ``+ b``."""
     lead = x_q.shape[:-1]
     acc = int_mm(x_q.reshape(-1, x_q.shape[-1]), w_q)
     y = (acc.float() * x_s.reshape(-1, 1).float()
          * w_s.reshape(1, -1).float()).to(out_dtype)
     y = y.reshape(*lead, w_q.shape[-1])
     return y + b if b is not None else y
+
+
+def linear_pre_q(x_q: torch.Tensor, x_s: torch.Tensor, w_q: torch.Tensor,
+                 w_s: torch.Tensor, b: Optional[torch.Tensor],
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """:func:`linear_pre_q_reference`'s arithmetic through the w8a8 kernel on
+    CUDA tensors (its plain version on CPU ones)."""
+    # Imported here: the kernel module imports this one for its plain version.
+    from apertis_llm_torch.ops.kernels.quant_matmul import quant_matmul_dyn_pre_q
+    return quant_matmul_dyn_pre_q(x_q, x_s, w_q, w_s, b, out_dtype)
 
 
 def linear_dyn(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,

@@ -1,7 +1,7 @@
 """Where the time of serving and training goes: ``torch.profiler`` over
 prefill and decode, or over train steps.
 
-    python -m apertis_llm_torch.profile_serving [--layers N] [--moe | --mha] [--train]
+    python -m apertis_llm_torch.profile_serving [--layers N] [--moe | --mha] [--int4] [--train]
 
 Builds the 1.5B selective-SSM model on the card from a seeded generator
 (``chip_smoke.py``'s configuration, random weights; with ``--moe`` the 1.5B
@@ -16,7 +16,11 @@ the int8 one, as the engine allocates them), at its last slot. For each phase it
 prints the host wall time per call, the device time per call (the sum of the
 CUDA kernels' times, each kernel counted once), the device's idle share
 (1 - device / wall) and the kernels that take the most device time, with the
-card's name and power limit. It needs a CUDA device.
+card's name and power limit. With ``--int4`` it also traces w4a8 serving
+(``InferenceEngine(..., quant_bits=4)`` on the int8 model: int8 prefill, the
+int4 decode FFN or fat stacks); with ``--moe --int4`` the MoE model is the 3B
+preset (hidden 768, 74 layers, experts of 3072), whose widths take the int4
+fat stack (the 1.5B one stays int8). It needs a CUDA device.
 
 With ``--train`` it traces training instead: the dense 1.5B preset (or the
 MHA one with ``--mha``, through the flash kernels) with f32 masters, bf16
@@ -108,6 +112,8 @@ def main(argv=None) -> int:
                         help="the 1.5B MoE preset (8 experts, top-2) instead of the dense one")
     family.add_argument("--mha", action="store_true",
                         help="the 1.5B MHA preset instead of the selective-SSM one")
+    parser.add_argument("--int4", action="store_true",
+                        help="also trace w4a8 serving (quant_bits=4) of the int8 model")
     parser.add_argument("--train", action="store_true",
                         help="trace train steps (dense or --mha) instead of serving")
     args = parser.parse_args(argv)
@@ -125,7 +131,8 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     card = _card()
-    dims = calculate_model_dimensions("1.5B", 32000, use_expert_system=args.moe)
+    preset = "3B" if args.moe and args.int4 else "1.5B"
+    dims = calculate_model_dimensions(preset, 32000, use_expert_system=args.moe)
     moe = dict(use_expert_system=True, num_experts=8, experts_per_token=2) if args.moe else {}
     config = ApertisConfig(
         vocab_size=32000, attention_type="standard_mha" if args.mha else "selective_ssm",
@@ -145,10 +152,14 @@ def main(argv=None) -> int:
                                       dtype=torch.bfloat16)}
     del tree
     gen = torch.Generator(device=dev).manual_seed(1)
-    print(f"card: {card}; {config.num_hidden_layers} layers", flush=True)
-    for kind, model in models.items():
-        # Attaches the int8 head, MoE fat stacks, MHA's fused QKV projection.
-        engine = InferenceEngine(config, model)
+    kinds = [("bf16", 8), ("int8", 8)] + ([("w4a8", 4)] if args.int4 else [])
+    print(f"card: {card}; {preset} preset, {config.num_hidden_layers} layers", flush=True)
+    for kind, bits in kinds:
+        model = models["bf16" if kind == "bf16" else "int8"]
+        # Attaches the int8 head, MoE fat stacks, MHA's fused QKV projection,
+        # and with quant_bits=4 the int4 decode copies (on the int8 model,
+        # after its int8 traces).
+        engine = InferenceEngine(config, model, quant_bits=bits)
         for rows, length in ((64, 32), (4, 64)):
             ids = torch.randint(4, config.vocab_size, (rows, length), generator=gen,
                                 device=dev)

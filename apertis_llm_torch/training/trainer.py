@@ -94,8 +94,7 @@ class ApertisTrainer:
                 "pipeline_stages > 1 is not ported to PyTorch yet (see ROADMAP.md)")
         # A mesh of more than one device (data, model, expert or seq axis).
         devices = int(np.prod(mesh_shape)) if mesh_shape is not None else 1
-        check_trainable(self.config, quantized_layout(params), self.device, self.compute_dtype,
-                        devices)
+        check_trainable(self.config, quantized_layout(params), self.device, devices)
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
         self.output_dir = Path(output_dir)

@@ -34,6 +34,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
      (the self-term, the mask, ks, vs, qs; the causal mask) and
      ``scaled_dot_product_attention`` timed beside both as the library
      yardstick;
+     Then w4a8 serving's kernels: the w8a8 product (``quant_matmul_dyn``,
+     every int8 linear) at the 1.5B prefill shapes (2048 rows), at the int8
+     head (64 x 2432 x 32000), at ragged rows and at N = 44 and 396, in bf16
+     and f32 out, bit-equal to its plain version, with ``torch._int_mm`` on
+     the same operands timed as the library yardstick; the decode FFN's int4
+     layout at the 1.5B widths; and the fat MoE kernel's int4 layout at the
+     3B MoE preset's widths (hidden 768, 74 layers, experts of 3072, built
+     here in int8 and served with int4 fat stacks), each with sensitivity
+     checks (the shifts, the scales, the biases) that must move the plain
+     output by 9 tolerances;
   4. serve two batches through ``InferenceEngine.generate`` with the dense
      bf16 and int8 models, the MoE bf16 and int8 models and the MHA bf16
      (bf16 KV cache) and int8 (int8 KV cache) models (4 ragged
@@ -45,7 +55,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
      2048-row prefill; for MHA the decode-attention kernel at every decode
      step and no flash launch, since serving prefill carries a mask), tokens
      in range and each request repeated with the same tokens; then TTFT and
-     decode tokens per second per batch;
+     decode tokens per second per batch; then, after phase 5's 1.5B
+     checks, the same two requests with w4a8 serving
+     (``InferenceEngine(..., quant_bits=4)``) of the 1.5B dense and MHA int8
+     models (the int4 decode FFN) and of the 3B MoE model at its 74 layers
+     (request A's prefill and every decode step through the int4 fat kernel,
+     request B's 2048-token prefill through ``moe_ragged``), and int8 serving
+     of the 500M dense preset (hidden 1216, not a multiple of 128: the FFN
+     through the w8a8 product, never the decode FFN kernel), with exact
+     launch counts, repeat identity, TTFT and decode tokens per second;
      Then the kernels of training: the scan forward's states (``want_h``),
      which the backward reads, at the 1.5B SSM training shape and ragged
      with a mask; the scan backward (on the plain side from the plain
@@ -58,9 +76,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
      ``delta``, ``lse``, the causal mask) and the backward of
      ``scaled_dot_product_attention`` timed beside flash as the yardstick;
   5. check 2-layer dense, MoE and MHA models on the card against the same
-     weights on the CPU (plain versions), bf16 and int8, that the 1.5B logits
-     are finite, and that the 1.5B MHA ``forward()`` without a mask runs the
-     flash kernel once per layer and agrees with the plain attention;
+     weights on the CPU (plain versions), bf16, int8 and w4a8 (dense and
+     MoE), and a hidden-192 int8 model, that the 1.5B logits are finite, that
+     the 1.5B MHA ``forward()`` without a mask runs the flash kernel once per
+     layer and agrees with the plain attention, and that a 2-layer f32 flash
+     MHA ``forward()`` takes the plain attention on the card (the flash
+     gate's dtype clause) and agrees with the CPU;
   6. train, with the serving models freed: the 1.5B dense SSM preset and the
      1.5B MHA preset with ``use_flash_attention`` (dropout 0, as bench.py),
      each through ``ApertisTrainer.train()`` with f32 masters, bf16 compute,
@@ -73,8 +94,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      it; then one train step's gradients of 2-layer SSM and flash MHA models
      on the card against the same step on the CPU, each leaf within two bf16
      ulps plus twice bf16's own effect on it (the CPU's bf16 vs f32 step).
-Before the last line it prints the kernels' JSON summary and the card's name
-and power limit; the last line is ``{"ok": true, "device": {...}}``.
+Kernel times are CUDA-event means over back-to-back wrapper calls ("ms")
+and the profiler's device time per call ("device_ms", the kernels' own time
+without the Python wrapper). Before the last line it prints the kernels'
+JSON summary and the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and exits non-zero without one. It imports no JAX.
 """
@@ -131,6 +155,16 @@ FLASH_BWD_TOL = 2 * BF16_ULP
 # two ulps. The loss within one ulp.
 SMALL_GRAD_TOL = 2 * BF16_ULP
 TRAIN_LR = 5e-4           # the 1.5B training phase's peak learning rate
+# quant_matmul_dyn against its plain version: exact int32 sums, then the same
+# f32 products acc * x_s * w_s in the same order, one rounding to the output
+# type and the bias added in it: bit-equal.
+QMM_TOL = 0.0
+# A sensitivity check of the w8a8 and int4 kernels must move the plain output by
+# this many tolerances (0 for the bit-equal product: any move).
+SENSITIVITY_FACTOR = 9
+# A 2-layer f32 MHA forward on the card (cuBLAS f32, TF32 off) vs the CPU:
+# f32 sums in other orders.
+F32_FORWARD_TOL = 1e-4
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -161,6 +195,22 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=10):
+    """The device time of one call of ``fn``: the profiler's CUDA activity
+    (kernels and memsets) over ``iters`` back-to-back calls, per call; None
+    if the profiler saw no device activity."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / iters / 1e3 if us > 0 else None
 
 
 def nbytes(*tensors):
@@ -252,12 +302,13 @@ def main() -> int:
     from apertis_llm_torch.models.factory import calculate_model_dimensions
     from apertis_llm_torch.models.moe_fuse import fuse_one_fat
     from apertis_llm_torch.models.params import count_params, init_params
-    from apertis_llm_torch.models.quantize import quantize_params, quantize_weight
+    from apertis_llm_torch.models.quantize import (
+        int4_ffn_pack, quantize_params, quantize_weight)
     from apertis_llm_torch.ops import moe as moe_ops
     from apertis_llm_torch.ops.kernels import _build
     from apertis_llm_torch.ops.kernels.ffn_fused import (
-        ffn_decode, ffn_decode_int8, ffn_decode_int8_reference, ffn_decode_reference,
-        pick_block_n)
+        ffn_decode, ffn_decode_int4, ffn_decode_int4_reference, ffn_decode_int8,
+        ffn_decode_int8_reference, ffn_decode_reference, pick_block_n)
     from apertis_llm_torch.ops.kernels.flash_attention import (
         flash_attention_dkv, flash_attention_dkv_reference, flash_attention_dq,
         flash_attention_dq_reference, flash_attention_fwd, flash_attention_fwd_reference)
@@ -265,12 +316,15 @@ def main() -> int:
     from apertis_llm_torch.ops.kernels.mha_step import (
         NEG, mha_decode_ctx, mha_decode_ctx_int8, mha_decode_ctx_reference, quantize_heads)
     from apertis_llm_torch.ops.kernels.moe_ffn import (
-        expert_ffn_fat, expert_ffn_fat_reference, fat_block_n)
+        expert_ffn_fat, expert_ffn_fat_int4, expert_ffn_fat_int4_reference,
+        expert_ffn_fat_reference, fat_block_n)
     from apertis_llm_torch.ops.kernels.moe_grouped import (
         TILE, expert_ffn_grouped, expert_ffn_grouped_reference)
     from apertis_llm_torch.ops.kernels.ssm_scan import (
         selective_scan_bwd, selective_scan_bwd_reference, selective_scan_fwd,
         selective_scan_fwd_reference)
+    from apertis_llm_torch.ops.kernels.quant_matmul import (
+        quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference)
     from apertis_llm_torch.ops.kernels.ssm_step import (
         ssm_decode_step, ssm_decode_step_int8, ssm_decode_step_reference)
     from apertis_llm_torch.ops.activations import get_activation
@@ -351,8 +405,8 @@ def main() -> int:
     def randn(*shape, dtype=torch.bfloat16, std=1.0):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
-    # kernel -> worst error; kernel -> (ms, plain_ms, bound_ms, bound_by) at
-    # the timed shape
+    # kernel -> worst error; kernel -> (ms, plain_ms, bound_ms, bound_by,
+    # device_ms) at the timed shape
     errs, times = {}, {}
 
     def check_kernel(key, label, args, kernel, plain, tols, cost=None):
@@ -373,16 +427,19 @@ def main() -> int:
         line = f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
         if cost is not None:
             b_ms, by = bound(*cost)
-            times[key] = (k_ms, p_ms, b_ms, by)
+            d_ms = device_ms(lambda: kernel(*args))
+            times[key] = (k_ms, p_ms, b_ms, by, d_ms)
+            line += (f", device {d_ms:.4f} ms" if d_ms is not None else ", device not measured")
             line += f", bound {b_ms:.4f} ms ({by})"
         log(f"{line}; card: {card}")
 
-    def check_sensitive(label, plain, args, variants, tols):
+    def check_sensitive(label, plain, args, variants, tols, factor=1):
         """Each variant drops one term from ``args`` (or is a function that
         computes the plain version without it); the plain version's outputs
-        must then move by more than a kernel check's tolerance, so a
-        kernel that dropped the term would fail that check (an int8 output
-        must change more levels, or on more elements, than it may)."""
+        must then move by more than ``factor`` times a kernel check's
+        tolerance, so a kernel that dropped the term would fail that check
+        (an int8 output must change more levels, or on more elements, than it
+        may)."""
         base = plain(*args)
         base = base if isinstance(base, tuple) else (base,)
         for term, changed in variants.items():
@@ -397,8 +454,8 @@ def main() -> int:
                                  (float(dq.max()), float(INT8_MAX_DQ), name))
                 else:
                     moved.append((float((o.float() - b.float()).abs().max()),
-                                  tol * float(b.float().abs().max()), name))
-            shift, bound_, name = max(moved, key=lambda m: m[0] / m[1])
+                                  factor * tol * float(b.float().abs().max()), name))
+            shift, bound_, name = max(moved, key=lambda m: m[0] / max(m[1], 1e-30))
             ok = shift > bound_
             log(f"  sensitivity {label}, {term}: {name} moves {shift:.3e} "
                 f"(tolerance {bound_:.3e}) {'ok' if ok else 'FAIL'}")
@@ -921,6 +978,179 @@ def main() -> int:
             log(f"  library: scaled_dot_product_attention(is_causal=True) "
                 f"{library['flash_attention_fwd']:.4f} ms; card: {card}")
 
+    # ---- 3e. w4a8 serving: the w8a8 product and the int4 layouts ------------
+    # quant_matmul_dyn at the shapes its callers give it: the 1.5B prefill's
+    # six int8 linears of a layer (2048 rows), the int8 head at 64 and 4
+    # decode rows, the MoE mixer's narrow N at ragged rows.
+    qmix = qlayer.attn
+    qmm_cases = [
+        (2048, qmix.in_proj_x, "1.5B in_proj_x/z at 2048 rows"),
+        (2048, qmix.x_param_proj, "1.5B x_param_proj at 2048 rows"),
+        (2048, qmix.out_proj, "1.5B out_proj at 2048 rows"),
+        (2048, q1, "1.5B FFN w1 at 2048 rows"),
+        (2048, q2, "1.5B FFN w2 at 2048 rows"),
+        (64, None, "int8 head at 64 rows"),
+        (4, None, "int8 head at 4 rows"),
+        (37, mqlayer.attn.in_proj_x, "MoE in_proj_x at 37 rows"),
+        (37, mqlayer.attn.x_param_proj, "MoE x_param_proj at 37 rows"),
+        (37, None, "ragged N = 44"),
+        (300, mqlayer.attn.out_proj, "MoE out_proj at 300 rows"),
+    ]
+    head_q, head_s = quantize_weight(qmodel.embed.tok.T)
+    head_q = head_q.contiguous()
+
+    def qmm_inputs(rows, lin, label, out_dtype):
+        if lin is not None:
+            w_q, w_s, b = lin.w_q, lin.w_s, lin.b
+        elif "head" in label:
+            w_q, w_s, b = head_q, head_s, None
+        else:
+            w_q, w_s = quantize_weight(randn(md // 4, 44, std=0.05))
+            b = randn(44, std=0.1)
+        x_q, x_s = quantize_rows(randn(rows, w_q.shape[0]))
+        if b is not None:
+            b = b.to(out_dtype)
+        return (x_q, x_s, w_q, w_s, b, out_dtype)
+
+    def qmm_cost(args):
+        x_q, x_s, w_q, w_s, b, out_dtype = args
+        m_, k_ = x_q.shape
+        n_ = w_q.shape[1]
+        out_bytes = m_ * n_ * torch.tensor([], dtype=out_dtype).element_size()
+        return (nbytes(x_q, x_s, w_q, w_s, b) + out_bytes, 2 * m_ * n_ * k_, "int8")
+
+    qmm_tols = [("out", QMM_TOL)]
+    args = qmm_inputs(37, q1, "", bf16)
+    x_q, x_s, w_q, w_s, b, out_dtype = args
+    check_sensitive("quant_matmul_dyn", quant_matmul_dyn_pre_q_reference, args, {
+        "x_s": (x_q, torch.ones_like(x_s), w_q, w_s, b, out_dtype),
+        "w_s": (x_q, x_s, w_q, torch.ones_like(w_s), b, out_dtype),
+        "b": (x_q, x_s, w_q, w_s, None, out_dtype),
+    }, qmm_tols, factor=SENSITIVITY_FACTOR)
+    for rows, lin, label in qmm_cases:
+        for out_dtype in (bf16, f32):
+            args = qmm_inputs(rows, lin, label, out_dtype)
+            timed = label == "1.5B FFN w1 at 2048 rows" and out_dtype == bf16
+            check_kernel("quant_matmul_dyn_pre_q", f"quant_matmul_dyn {label} (K={args[2].shape[0]}, "
+                         f"N={args[2].shape[1]}), {str(out_dtype)[6:]} result"
+                         f"{', bias' if args[4] is not None else ''}", args,
+                         quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference, qmm_tols,
+                         cost=qmm_cost(args) if timed else None)
+            if timed:
+                x_q, _, w_q = args[:3]
+                library["quant_matmul_dyn_pre_q"] = cuda_ms(lambda: torch._int_mm(x_q, w_q))
+                w_cols = w_q.t().contiguous().t()
+                log(f"  library: torch._int_mm on the same int8 operands (the product "
+                    f"alone) {library['quant_matmul_dyn_pre_q']:.4f} ms; with a column-major "
+                    f"copy of the weight {cuda_ms(lambda: torch._int_mm(x_q, w_cols)):.4f} ms; "
+                    f"card: {card}")
+
+    # The decode FFN's int4 layout at the 1.5B widths, the pack built from
+    # the int8 layer as the engine builds it.
+    pack = int4_ffn_pack({"w_q": q1.w_q, "w_s": q1.w_s, "b": q1.b},
+                         {"w_q": q2.w_q, "w_s": q2.w_s, "b": q2.b})
+    int4_w = (pack["w1"]["w_q4"], pack["w1"]["w_sh"], pack["w1"]["w_s"], q1.b,
+              pack["w2"]["w_q4"], pack["w2"]["w_sh"], pack["w2"]["w_s"], q2.b)
+    log(f"  int4 FFN pack: {nbytes(*int4_w):,} bytes a layer (int8: "
+        f"{nbytes(q1.w_q, q1.w_s, q1.b, q2.w_q, q2.w_s, q2.b):,})")
+
+    def ffn4_inputs(s_, act=config.hidden_act):
+        x_q, x_s = quantize_rows(randn(s_, d))
+        return (x_q, x_s, *int4_w, act)
+
+    args = ffn4_inputs(5)
+
+    def ffn4_without(**terms):
+        names = ("x_q", "x_s", "w1_q4", "w1_sh", "w1_s", "b1", "w2_q4", "w2_sh", "w2_s", "b2",
+                 "act")
+        values = dict(zip(names, args))
+        values.update(terms)
+        return tuple(values[n] for n in names)
+
+    check_sensitive("int4 ffn", ffn_decode_int4_reference, args, {
+        "w1_sh and w2_sh": ffn4_without(w1_sh=torch.ones_like(args[3]),
+                                        w2_sh=torch.ones_like(args[7])),
+        "x_s": ffn4_without(x_s=torch.ones_like(args[1])),
+        "w1_s": ffn4_without(w1_s=torch.ones_like(args[4])),
+        "w2_s": ffn4_without(w2_s=torch.ones_like(args[8])),
+        "b1": ffn4_without(b1=torch.zeros_like(args[5])),
+        "b2": ffn4_without(b2=torch.zeros_like(args[9])),
+    }, [("out", BF16_ULP)], factor=SENSITIVITY_FACTOR)
+    for s_, act in [(4, config.hidden_act), (64, config.hidden_act), (5, config.hidden_act),
+                    (5, "relu"), (5, "silu")]:
+        args = ffn4_inputs(s_, act)
+        check_kernel("ffn_decode_int4", f"int4 ffn S={s_} {act} (D={d}, I={inter}, "
+                     f"bn={pick_block_n(inter)})", args, ffn_decode_int4,
+                     ffn_decode_int4_reference, [("out", BF16_ULP)],
+                     cost=(nbytes(*args[:10]) + s_ * d * 2, 4 * s_ * d * inter,
+                           "int8") if s_ == 64 else None)
+
+    # The 3B MoE preset: the largest factory MoE preset whose H and I are
+    # multiples of 128, so its fat stacks pack to int4.
+    m3dims = calculate_model_dimensions("3B", 32000, use_expert_system=True)
+    moe3_config = dataclasses.replace(
+        moe_config, hidden_size=m3dims["hidden_size"],
+        num_hidden_layers=m3dims["num_hidden_layers"],
+        num_attention_heads=m3dims["num_attention_heads"],
+        intermediate_size=m3dims["intermediate_size"])
+    t0 = time.perf_counter()
+    tree = init_params(moe3_config, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                       dtype=bf16)
+    moe3_params = count_params(tree)
+    perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 10))
+    qtree = quantize_params(tree)
+    del tree
+    moe3_model = from_jax_params(qtree, moe3_config, device=dev, dtype=bf16)
+    del qtree
+    moe3_model.attach_moe_fat(bits=4)
+    torch.cuda.synchronize()
+    h3, i3 = moe3_config.hidden_size, moe3_config.intermediate_size
+    m3layer = moe3_model.layers[0]
+    fat3 = m3layer.ffn.experts.fat()
+    if "w1t_q4" not in fat3:
+        raise RuntimeError("3B MoE: the fat stack was not packed to int4")
+    log(f"3B MoE model: {moe3_params:,} parameters in the tree ({m3dims['calculated_params']:,} "
+        f"by the factory's count), hidden {h3}, {moe3_config.num_hidden_layers} layers, "
+        f"{moe3_config.num_attention_heads} heads, d_inner {moe3_config.ssm_d_inner}, "
+        f"{n_exp} experts of {i3} (top-2), int8 with int4 fat stacks "
+        f"({nbytes(*fat3.values()):,} bytes a layer, bn = {fat_block_n(i3)}), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def fat4_inputs(s_, act=moe3_config.hidden_act):
+        ffn = m3layer.ffn
+        x = ffn.pre_norm(randn(s_, h3))
+        routing = moe_ops.route(x, *ffn.router_weights(), 2, layer_norm_eps=eps)
+        xq, xs = moe_ops.center_quantize(x, eps)
+        comb = moe_ops._combine_weights(routing, n_exp, torch.float32)
+        return (xq, xs, comb, fat3["w1t_q4"], fat3["w1t_sh"], fat3["w1t_s"], fat3["b1t"],
+                fat3["w2t_q4"], fat3["w2t_sh"], fat3["w2t_s"], n_exp, act)
+
+    def fat4_cost(args):
+        xq, xs, comb, w1q, w1sh, w1s, b1t, w2q, w2sh, w2s = args[:10]
+        used = (comb != 0).any(dim=0)
+        return (nbytes(xq, xs, comb, w2s) + expert_bytes(used, w1q, w1sh, w1s, b1t, w2q, w2sh)
+                + xq.numel() * 4, 4 * int((comb != 0).sum()) * xq.shape[1] * i3, "int8")
+
+    args = fat4_inputs(5)
+
+    def fat4_without(index, value):
+        return args[:index] + (value,) + args[index + 1:]
+
+    check_sensitive("expert_ffn_fat_int4", expert_ffn_fat_int4_reference, args, {
+        "combine weights": fat4_without(2, (args[2] != 0).float()),
+        "w1t_sh": fat4_without(4, torch.ones_like(args[4])),
+        "w1t_s": fat4_without(5, torch.ones_like(args[5])),
+        "b1t": fat4_without(6, torch.zeros_like(args[6])),
+        "w2t_sh": fat4_without(8, torch.ones_like(args[8])),
+        "w2t_s": fat4_without(9, torch.ones_like(args[9])),
+    }, fat_tols, factor=SENSITIVITY_FACTOR)
+    for s_ in (4, 64, 256, 5):
+        args = fat4_inputs(s_)
+        check_kernel("expert_ffn_fat_int4", f"expert_ffn_fat_int4 S={s_} (H={h3}, E={n_exp}, "
+                     f"I={i3}, bn={fat_block_n(i3)})", args, expert_ffn_fat_int4,
+                     expert_ffn_fat_int4_reference, fat_tols,
+                     cost=fat4_cost(args) if s_ == 64 else None)
+
     # ---- 3d. the backward kernels of training ------------------------------
     ssm_heads = config.num_attention_heads     # ``heads`` was reused by the loops above
 
@@ -1056,27 +1286,84 @@ def main() -> int:
     }
     counters = (selective_scan_fwd, ssm_decode_step, ffn_decode, ln_quantize,
                 ssm_decode_step_int8, ffn_decode_int8, expert_ffn_fat, expert_ffn_grouped,
-                mha_decode_ctx, mha_decode_ctx_int8, flash_attention_fwd)
+                mha_decode_ctx, mha_decode_ctx_int8, flash_attention_fwd,
+                quant_matmul_dyn_pre_q, ffn_decode_int4, expert_ffn_fat_int4)
     launches, serve = {}, {}
-    for kind, m, cfg in (("bf16", model, config), ("int8", qmodel, config),
-                         ("MoE bf16", moe_model, moe_config),
-                         ("MoE int8", moe_qmodel, moe_config),
-                         ("MHA bf16", mha_model, mha_config),
-                         ("MHA int8", mha_qmodel, mha_config)):
-        moe, mha = cfg is moe_config, cfg is mha_config
+
+    def expected_launches(kind, cfg, decode_calls, bits, moe_groups=0):
+        """Each kernel's launches in the two requests: layers x calls.
+        ``moe_groups``: the expert groups moe_ragged ran over all layers."""
         nl = cfg.num_hidden_layers
-        engine = InferenceEngine(cfg, m)
-        if "int8" in kind and m.lm_head is None:
+        moe, mha = bool(cfg.use_expert_system), cfg.attention_type == "standard_mha"
+        int8 = "bf16" not in kind
+        fused_ffn = cfg.hidden_size % 128 == 0 and pick_block_n(cfg.intermediate_size) > 0
+        n_req = len(requests)
+        exp = {f.__name__: 0 for f in counters}
+        if mha:
+            # Serving prefill carries the padding mask, so the plain attention
+            # runs there and the flash kernel never; the int8 model's FFN
+            # pre-norm is ln_quantize once per layer and prefill.
+            exp["mha_decode_ctx_int8" if int8 else "mha_decode_ctx"] = nl * decode_calls
+            exp["ln_quantize"] = nl * n_req if int8 else 0
+        else:
+            exp["selective_scan_fwd"] = nl * n_req
+            exp["ssm_decode_step_int8" if int8 else "ssm_decode_step"] = nl * decode_calls
+            if int8:
+                # The mixer's pre-norm once per layer and prefill; a MoE FFN's
+                # pre-norm is the plain norm, since the router reads it.
+                exp["ln_quantize"] = (1 if moe else 2) * nl * n_req
+        if moe:
+            # Request A prefills 4 x 64 = 256 rows (the fat kernel), request
+            # B 64 x 32 = 2048 (the grouped kernel, or moe_ragged over an
+            # int4 fat stack); every decode step runs the fat kernel.
+            fat = "expert_ffn_fat_int4" if bits == 4 else "expert_ffn_fat"
+            exp[fat] = nl * (decode_calls + 1)
+            exp["expert_ffn_grouped"] = 0 if bits == 4 else nl
+        elif fused_ffn:
+            exp[{4: "ffn_decode_int4", 8: "ffn_decode_int8"}[bits] if int8
+                else "ffn_decode"] = nl * decode_calls
+        if int8:
+            # The w8a8 product: per layer and prefill the mixer's four
+            # projections (q, k, v, o for MHA) and, for a dense FFN, w1 and
+            # w2; the int8 head once per prefill and decode step; at decode
+            # MHA's fused QKV and o, and an unfused FFN's w1 and w2; two per
+            # expert group of moe_ragged.
+            per_prefill = 4 + (0 if moe else 2)
+            per_step = (2 if mha else 0) + (0 if moe or fused_ffn else 2)
+            exp["quant_matmul_dyn_pre_q"] = (n_req * (nl * per_prefill + 1)
+                                             + decode_calls * (nl * per_step + 1)
+                                             + 2 * moe_groups)
+        return exp
+
+    def serve_model(kind, m, cfg, bits=8):
+        """Both requests through InferenceEngine.generate with the counts set
+        to 0 before and checked after, then repeat identity, TTFT and decode
+        tok/s."""
+        nl = cfg.num_hidden_layers
+        moe, mha = bool(cfg.use_expert_system), cfg.attention_type == "standard_mha"
+        engine = InferenceEngine(cfg, m, quant_bits=bits)
+        if "bf16" not in kind and m.lm_head is None:
             raise RuntimeError("the engine did not attach the int8 head")
-        if mha and (engine.kv_int8 != ("int8" in kind)
-                    or (m.layers[0].attn.fused_qkv() is not None) != ("int8" in kind)):
+        if mha and (engine.kv_int8 != ("bf16" not in kind)
+                    or (m.layers[0].attn.fused_qkv() is not None) != ("bf16" not in kind)):
             raise RuntimeError(f"{kind}: KV cache or fused QKV not as the engine's defaults")
+        if bits == 4 and not moe and m.layers[0].ffn.int4_pack() is None:
+            raise RuntimeError(f"{kind}: the engine did not attach the int4 FFN pack")
+        groups = []
+        real_ragged = moe_ops.moe_ragged
+
+        def ragged(x, routing, *rest):
+            groups.append(len(set(routing.indices.reshape(-1).tolist())))
+            return real_ragged(x, routing, *rest)
+
+        moe_ops.moe_ragged = ragged
         for f in counters:
             f.launches = 0
         first = {}
         for name, (ids, mask, kw) in requests.items():
             first[name] = engine.generate(ids, attention_mask=mask, **kw)
         got = {f.__name__: f.launches for f in counters}
+        moe_ops.moe_ragged = real_ragged
         decode_calls = 0
         for name, (ids, _, kw) in requests.items():
             out = first[name]
@@ -1086,37 +1373,18 @@ def main() -> int:
             if not np.array_equal(out[:, :ids.shape[1]], ids):
                 raise RuntimeError(f"{kind} request {name}: prompt columns changed")
             new = out[:, ids.shape[1]:]
-            if new.min() < 0 or new.max() >= config.vocab_size:
+            if new.min() < 0 or new.max() >= cfg.vocab_size:
                 raise RuntimeError(f"{kind} request {name}: token outside "
-                                   f"[0, {config.vocab_size})")
+                                   f"[0, {cfg.vocab_size})")
             decode_calls += n_new - 1
             log(f"{kind} request {name}: {n_new} new tokens, first row "
                 f"{new[0, :8].tolist()}...")
-        expected = {f.__name__: 0 for f in counters}
-        if mha:
-            # Serving prefill carries the padding mask, so the plain attention
-            # runs there and the flash kernel never; the int8 model's FFN
-            # pre-norm is ln_quantize once per layer and prefill.
-            int8 = "int8" in kind
-            expected["mha_decode_ctx_int8" if int8 else "mha_decode_ctx"] = nl * decode_calls
-            expected["ffn_decode_int8" if int8 else "ffn_decode"] = nl * decode_calls
-            expected["ln_quantize"] = nl * len(requests) if int8 else 0
-        else:
-            expected["selective_scan_fwd"] = nl * len(requests)
-            step = "ssm_decode_step_int8" if "int8" in kind else "ssm_decode_step"
-            expected[step] = nl * decode_calls
-        if "int8" in kind and not mha:
-            # The mixer's pre-norm once per layer and prefill; a MoE FFN's
-            # pre-norm is the plain norm, since the router reads it.
-            expected["ln_quantize"] = (1 if moe else 2) * nl * len(requests)
-        if moe:
-            # Request A prefills 4 x 64 = 256 rows (the fat kernel), request
-            # B 64 x 32 = 2048 (the grouped kernel); every decode step runs
-            # the fat kernel.
-            expected.update(expert_ffn_fat=nl * (decode_calls + 1), expert_ffn_grouped=nl)
-        elif not mha:
-            expected["ffn_decode_int8" if "int8" in kind else "ffn_decode"] = nl * decode_calls
-        log(f"{kind} launch counts in the two requests: {got} (expected {expected})")
+        if moe and bits == 4 and len(groups) != nl:
+            raise RuntimeError(f"{kind}: moe_ragged ran {len(groups)} times, not once per layer "
+                               "of request B")
+        expected = expected_launches(kind, cfg, decode_calls, bits, sum(groups))
+        log(f"{kind} launch counts in the two requests: {got} (expected {expected}"
+            f"{f'; moe_ragged expert groups {sum(groups)}' if groups else ''})")
         if got != expected:
             raise RuntimeError(f"{kind}: a kernel of the main path was not launched as expected")
         for key, value in got.items():
@@ -1141,7 +1409,13 @@ def main() -> int:
                 f"({steps} steps x {ids.shape[0]} rows, {total:.3f} s in all), "
                 f"repeat identical; card: {card}")
             serve[f"{kind} {name[0]}"] = dict(ttft_ms=ttft * 1e3, decode_tok_s=rate)
-        del engine
+
+    for kind, m, cfg in (("bf16", model, config), ("int8", qmodel, config),
+                         ("MoE bf16", moe_model, moe_config),
+                         ("MoE int8", moe_qmodel, moe_config),
+                         ("MHA bf16", mha_model, mha_config),
+                         ("MHA int8", mha_qmodel, mha_config)):
+        serve_model(kind, m, cfg)
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. outputs are right -----------------------------------------------
@@ -1203,7 +1477,40 @@ def main() -> int:
         raise RuntimeError("forward() ran the flash kernel with use_flash_attention off")
     flash_forward_err = compare("1.5B MHA forward() logits, flash kernel vs plain attention",
                                 logits_flash, logits_plain, FLASH_FORWARD_TOL)
-    del model, qmodel, moe_model, moe_qmodel, mha_model, mha_qmodel
+    del model, moe_model, moe_qmodel, mha_model
+
+    # ---- 4b. w4a8 serving; int8 at a width that is not a multiple of 128 ----
+    dims500 = calculate_model_dimensions("500M", 32000)
+    config500 = dataclasses.replace(
+        config, hidden_size=dims500["hidden_size"], num_hidden_layers=dims500["num_hidden_layers"],
+        num_attention_heads=dims500["num_attention_heads"],
+        intermediate_size=dims500["intermediate_size"])
+    tree = init_params(config500, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                       dtype=bf16)
+    perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 11))
+    qtree = quantize_params(tree)
+    del tree
+    model500 = from_jax_params(qtree, config500, device=dev, dtype=bf16)
+    del qtree
+    log(f"500M model: hidden {config500.hidden_size} (not a multiple of 128), "
+        f"{config500.num_hidden_layers} layers, {config500.num_attention_heads} heads, FFN "
+        f"{config500.intermediate_size}, int8: the decode FFN runs unfused "
+        f"(fused_decode {model500.layers[0].ffn.fused_decode})")
+    for kind, m, cfg, bits in (("w4a8", qmodel, config, 4), ("MHA w4a8", mha_qmodel, mha_config, 4),
+                               ("MoE 3B w4a8", moe3_model, moe3_config, 4),
+                               ("500M int8", model500, config500, 8)):
+        serve_model(kind, m, cfg, bits)
+        cache = m.init_cache(4, **cache_kw(m, batch_a.shape[1], True))
+        pre = m.prefill(cache, torch.as_tensor(batch_a, dtype=torch.long, device=dev),
+                        torch.as_tensor(mask_a, device=dev),
+                        logit_positions=torch.as_tensor(mask_a.sum(1) - 1, device=dev))
+        logits, _ = m.decode_step(cache, pre.logits[:, 0].argmax(-1), **step_kw(m, mask_a_t, 0))
+        if not (pre.logits.shape == (4, 1, cfg.vocab_size) and logits.shape == (4, cfg.vocab_size)
+                and torch.isfinite(pre.logits).all() and torch.isfinite(logits).all()):
+            raise RuntimeError(f"{kind} logits are not finite or of the wrong shape")
+        log(f"{kind} prefill and decode logits: finite, shapes (4, 1, 32000) and (4, 32000)")
+    del qmodel, mha_qmodel, moe3_model, model500
+    log(f"phase 4b done at {time.perf_counter() - t_start:.1f} s")
 
     dense_small = dict(
         vocab_size=1000, attention_type="selective_ssm", ssm_d_state=16, hidden_size=256,
@@ -1215,25 +1522,41 @@ def main() -> int:
     moe_small = dict(dense_small, intermediate_size=512, use_expert_system=True, num_experts=8,
                      experts_per_token=2, moe_dense_threshold_tokens=64)
     mha_small = dict(dense_small, attention_type="standard_mha")     # 4 heads of 64
+    # Hidden 192: the decode FFN runs unfused (fault 1's repair).
+    narrow_small = dict(dense_small, hidden_size=192, num_attention_heads=4,
+                        intermediate_size=768)
     ids = torch.as_tensor(batch_a % 1000, dtype=torch.long)
     mask = torch.as_tensor(mask_a)
     small_err = {}
     cases = []
-    for family, kw in (("", dense_small), ("MoE ", moe_small), ("MHA ", mha_small)):
+    for family, kw in (("", dense_small), ("MoE ", moe_small), ("MHA ", mha_small),
+                       ("hidden-192 ", narrow_small)):
         small = ApertisConfig(**kw)
         tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu",
                            dtype=torch.bfloat16)
         perturb_(tree, torch.Generator().manual_seed(SEED + 3))
         # min_size=0: at these widths the default would leave the mixer float.
-        cases += [(family + "bf16", small, tree),
-                  (family + "int8", small, quantize_params(tree, min_size=0))]
+        qtree = quantize_params(tree, min_size=0)
+        if family == "hidden-192 ":
+            cases.append((family + "int8", small, qtree))
+            continue
+        cases += [(family + "bf16", small, tree), (family + "int8", small, qtree)]
+        if family in ("", "MoE "):
+            # w4a8: the int4 decode FFN, or for MoE the int4 fat kernel at
+            # decode and moe_ragged for request A's 180-row prefill.
+            cases.append((family + "w4a8", small, qtree))
     for kind, small, t in cases:
         models = {"gpu": from_jax_params(t, small, device=dev, dtype=torch.bfloat16),
                   "cpu": from_jax_params(t, small, device="cpu", dtype=torch.bfloat16)}
-        if "int8" in kind:
+        if "bf16" not in kind:
             for m in models.values():
                 m.quantize_tied_head()
                 m.attach_qkv()
+                if "w4a8" in kind:
+                    m.attach_int4_ffn()
+                    m.attach_moe_fat(bits=4)
+        for f in counters:
+            f.launches = 0
         caches = {k: m.init_cache(4, **cache_kw(m, ids.shape[1], "int8" in kind))
                   for k, m in models.items()}
         logits = {k: m.prefill(caches[k], ids.to(m.device), mask.to(m.device),
@@ -1248,6 +1571,33 @@ def main() -> int:
             tok = logits["cpu"].argmax(-1)
             logits = {k: m.decode_step(caches[k], tok.to(m.device), **step_kw(m, mask, i))[0]
                       for k, m in models.items()}
+        ran = {f.__name__: f.launches for f in counters if f.launches}
+        must = {"w4a8": ["ffn_decode_int4", "quant_matmul_dyn_pre_q"],
+                "MoE w4a8": ["expert_ffn_fat_int4", "quant_matmul_dyn_pre_q"],
+                "hidden-192 int8": ["quant_matmul_dyn_pre_q"]}.get(kind, [])
+        if any(name not in ran for name in must) or (
+                kind == "hidden-192 int8" and "ffn_decode_int8" in ran):
+            raise RuntimeError(f"2-layer {kind}: kernels launched {ran}, expected {must}")
+        log(f"  2-layer {kind} on the card launched {ran}")
+
+    # Fault 2's repair: an f32 flash MHA forward() on the card takes the
+    # plain attention (the flash kernels take bf16 q/k/v there), and agrees
+    # with the same forward() on the CPU.
+    small = ApertisConfig(**dict(mha_small, use_flash_attention=True, dtype="float32",
+                                 param_dtype="float32"))
+    tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu")
+    perturb_(tree, torch.Generator().manual_seed(SEED + 3))
+    ids_f32 = torch.as_tensor(np.random.default_rng(SEED + 12).integers(4, 1000, (2, 256)))
+    flash_attention_fwd.launches = 0
+    with torch.no_grad():
+        got = from_jax_params(tree, small, device=dev)(ids_f32.to(dev))
+        torch.cuda.synchronize()
+        ref = from_jax_params(tree, small, device="cpu")(ids_f32)
+    f32_flash_err = compare("2-layer f32 flash MHA forward() on the card (plain attention) vs "
+                            "the CPU", got.cpu(), ref, F32_FORWARD_TOL)
+    if flash_attention_fwd.launches != 0:
+        raise RuntimeError("an f32 forward() launched the bf16 flash kernel")
+    log("  2-layer f32 flash MHA forward(): no flash launch on the card, as the gate says")
 
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1460,23 +1810,30 @@ def main() -> int:
                                "apertis_llm_tpu/ops/pallas/flash_attention.py:257"),
         "flash_attention_dkv": ("apertis_llm_torch/csrc/flash_attention_bwd.cu",
                                 "apertis_llm_tpu/ops/pallas/flash_attention.py:282"),
+        "quant_matmul_dyn_pre_q": ("apertis_llm_torch/csrc/quant_matmul.cu",
+                                   "apertis_llm_tpu/ops/pallas/quant_matmul.py:160"),
+        "ffn_decode_int4": ("apertis_llm_torch/csrc/ffn_fused.cu",
+                            "apertis_llm_tpu/ops/pallas/ffn_fused.py:177"),
+        "expert_ffn_fat_int4": ("apertis_llm_torch/csrc/moe_ffn.cu",
+                                "apertis_llm_tpu/ops/pallas/moe_ffn.py:243"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
-        ms, plain_ms, bound_ms, bound_by = times[name]
+        ms, plain_ms, bound_ms, bound_by, dev_ms = times[name]
         # No single PyTorch call computes the other functions (a fused norm +
         # quantize, a whole mixer step, a whole FFN, a selective scan, an int8
         # expert FFN with per-tile requantization, attention over an int8
         # cache with per-(head, slot) scales): their library time is null.
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": tpu,
                         "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library.get(name)})
+                        "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library.get(name)})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": serve, "train": train_perf,
                       "small_model_max_abs_err": small_err,
                       "small_train_grad_err_over_limit": small_grad_err,
-                      "flash_forward_max_abs_err": flash_forward_err}))
+                      "flash_forward_max_abs_err": flash_forward_err,
+                      "f32_flash_forward_max_abs_err": f32_flash_err}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
