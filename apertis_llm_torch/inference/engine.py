@@ -25,10 +25,22 @@ stacks (engine.py:347-364); for an int8 MHA model, the fused QKV projection
 (``ApertisForCausalLM.attach_qkv``, engine.py:387-394).
 
 ``quant_bits=4`` serves w4a8, the JAX engine's ``APERTIS_QUANT_BITS=4``
-(engine.py:347-386), on an int8 model: prefill keeps the int8 tree, a dense
-FFN decodes through its attached int4 pack
-(``ApertisForCausalLM.attach_int4_ffn``) and a MoE model's fat stacks are
-built int4 where H and I are multiples of 128 (int8 elsewhere, as in JAX).
+(engine.py:347-386): prefill keeps the tree, a dense int8 FFN decodes
+through its attached int4 pack (``ApertisForCausalLM.attach_int4_ffn``; a
+float FFN attaches none) and a MoE model's fat stacks, from int8 or float
+experts, are built int4 where H and I are multiples of 128 (int8 elsewhere,
+as in JAX).
+
+``quant_matmul`` and ``moe_mode`` choose the arithmetic that the JAX package
+picks by environment variable, ``APERTIS_QUANT_MATMUL`` and
+``APERTIS_MOE_FUSED`` (``ApertisForCausalLM.set_modes``). ``quant_matmul``
+(``dyn``, ``weightonly``, ``pallas``, ``fused``) decides how every int8
+linear of the full-sequence paths and the int8 head compute; the int8
+decode projections stay w8a8. ``moe_mode="kernel"`` attaches the per-expert
+stack (``ApertisForCausalLM.attach_moe_fused``) instead of the fat stack
+and serves the MoE FFN through the per-expert kernel; ``quant_bits=4`` then
+changes nothing for it, as in JAX. The defaults, ``dyn`` and ``fatk``, are
+what the port computed before the two arguments existed.
 
 An MHA model keeps the JAX engine's bookkeeping (engine.py:162-262): a flat
 K/V cache of ``bucket + max_new_tokens`` slots, int8 by default for an int8
@@ -90,20 +102,28 @@ class InferenceEngine:
     """Batched generation for one (config, model) pair. ``kv_int8`` chooses
     an MHA model's KV cache: int8 with per-(head, slot) scales, or the
     model's dtype; by default int8 for an int8 model and the model's dtype
-    for a float one. ``quant_bits`` is 8, or 4 for w4a8 serving of an int8
-    model (a float model raises ``NotImplementedError``)."""
+    for a float one. ``quant_bits`` is 8, or 4 for w4a8 serving.
+    ``quant_matmul`` and ``moe_mode`` are the modes of
+    ``ApertisForCausalLM.set_modes``, set on the model at construction and
+    again at each ``generate``; an unknown value raises ``ValueError``."""
 
     PROMPT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
     def __init__(self, config: ApertisConfig, model: ApertisForCausalLM,
-                 kv_int8: Optional[bool] = None, quant_bits: int = 8):
-        check_quant_bits(model.quantized, quant_bits)
+                 kv_int8: Optional[bool] = None, quant_bits: int = 8,
+                 quant_matmul: str = "dyn", moe_mode: str = "fatk"):
+        check_quant_bits(quant_bits)
         self.config = config
         self.model = model
+        self.quant_matmul, self.moe_mode = quant_matmul, moe_mode
         self.kv_int8 = model.quantized if kv_int8 is None else bool(kv_int8)
+        model.set_modes(quant_matmul, moe_mode)
         if model.quantized and model.lm_head is None:
             model.quantize_tied_head()
-        model.attach_moe_fat(bits=quant_bits)
+        if moe_mode == "fatk":
+            model.attach_moe_fat(bits=quant_bits)
+        else:
+            model.attach_moe_fused()
         if quant_bits == 4:
             model.attach_int4_ffn()
         model.attach_qkv()
@@ -117,6 +137,7 @@ class InferenceEngine:
         **gen_kwargs,
     ) -> np.ndarray:
         """Batch generation; returns (B, L + n_generated) ids."""
+        self.model.set_modes(self.quant_matmul, self.moe_mode)
         eos = gen_kwargs.pop("eos_token_id", None)
         if eos is None:
             eos = self.config.eos_token_id

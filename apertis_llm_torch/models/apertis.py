@@ -34,14 +34,20 @@ Three paths, with the JAX package's semantics:
     FFN runs as the JAX package's ``_ffn`` does then: the plain pre-norm and
     the two linears (w8a8 in int8).
 
-The MoE FFN has one arithmetic, the JAX package's under
-``APERTIS_MOE_GROUPED=force``, ``APERTIS_SSM_STEP=force`` and
+The MoE FFN has two arithmetics, chosen by ``moe_mode``
+(:meth:`ApertisForCausalLM.set_modes`). ``fatk`` (the default) is the JAX
+package's under ``APERTIS_MOE_GROUPED=force``, ``APERTIS_SSM_STEP=force`` and
 ``APERTIS_MOE_FUSED=fatk``: both of its kernels read the int8 fat stack of
 ``models/moe_fuse.py`` (in a bf16 model too), a derived buffer of each MoE
 layer. Over full sequences the FFN runs the combine-folded fat kernel when the
 token count is at most ``max(E, moe_dense_threshold_tokens)`` and the grouped
 kernel above it; at decode the mixer step's moe epilogue emits the expert
-input and the top-2 combine weights, and the fat kernel follows.
+input and the top-2 combine weights, and the fat kernel follows. ``kernel``
+(``APERTIS_MOE_FUSED=kernel``) reads the per-expert stack instead
+(:meth:`ApertisForCausalLM.attach_moe_fused`): up to that token count the
+per-expert kernel (``ops/moe.py::moe_dense_fused``), above it
+``moe_ragged``; at decode the mixer step runs without its epilogue and the
+FFN as over full sequences (apertis.py:1224-1230).
 
 w4a8 serving (the JAX package's ``APERTIS_QUANT_BITS=4``, the engine's
 ``quant_bits=4``) keeps the int8 tree for prefill and attaches int4 decode
@@ -54,8 +60,8 @@ stacks only (``moe_grouped.py::grouped_eligible``).
 
 With int8 weights (``quantized``: the four mixer projections and the two FFN
 weights are ``QuantLinear``, a MoE FFN's expert stacks int8 tensors) the
-model computes what the JAX package computes
-under ``APERTIS_QUANT_MATMUL=dyn``, ``APERTIS_LN_QUANT=force``,
+model computes by default (``quant_matmul="dyn"``) what the JAX package
+computes under ``APERTIS_QUANT_MATMUL=dyn``, ``APERTIS_LN_QUANT=force``,
 ``APERTIS_SSM_STEP=force`` and ``APERTIS_FFN_FUSED=force``, at every row
 count: each pre-norm that feeds int8 projections is fused with their row
 quantization (``ln_quantize``), the other int8 projections quantize their
@@ -65,14 +71,23 @@ norm; its decode step quantizes the normed rows and the attention context
 with ``quantize_rows`` and serves q/k/v through the fused QKV product when
 one is attached. An attached int8 tied head
 (:meth:`ApertisForCausalLM.quantize_tied_head`) serves the logits the same
-way.
+way. The other ``quant_matmul`` modes, the JAX package's values of
+``APERTIS_QUANT_MATMUL``, change every int8 linear that runs on rows not
+quantized already (``ops/quant.py::linear_int8``): the full-sequence
+projections, the int8 head, the unfused decode FFN and ``moe_ragged``'s
+experts (dequantized outside ``dyn``); and, as ``_maybe_ln_quant`` does,
+outside ``dyn`` the pre-norms take the plain norm and no ``ln_quantize``.
+The decode projections that take rows quantized already (MHA's q/k/v/o,
+``pre_q``) and the decode kernels stay as they are in every mode.
 
 The hand-written kernels run on CUDA tensors; on CPU tensors their plain
-PyTorch versions run. Every int8 linear (``QuantLinear``, the fused QKV, the
-int8 head, ``moe_ragged``'s groups) runs the w8a8 kernel
-(``ops/kernels/quant_matmul.py``); plain torch (``torch.matmul``) does the
-float projections, the float prefill FFN and the tied float head, which the
-JAX package leaves to XLA outside its kernels.
+PyTorch versions run. Under ``dyn`` every int8 linear (``QuantLinear``, the
+fused QKV, the int8 head, ``moe_ragged``'s groups) runs the w8a8 kernel
+(``ops/kernels/quant_matmul.py``), under ``pallas`` and ``fused`` the
+weight-only and the block-quantizing kernels of the same module; plain torch
+(``torch.matmul``) does the float projections, the float prefill FFN, the
+tied float head and the ``weightonly`` products, which the JAX package
+leaves to XLA outside its kernels.
 """
 
 from __future__ import annotations
@@ -84,9 +99,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from apertis_llm_torch.config import ApertisConfig
-from apertis_llm_torch.models.moe_fuse import fuse_one_fat
+from apertis_llm_torch.models.moe_fuse import fuse_one, fuse_one_fat
 from apertis_llm_torch.models.params import (
-    check_supported, is_mha, is_moe, resolve_device)
+    check_serving_modes, check_supported, is_mha, is_moe, resolve_device)
 from apertis_llm_torch.models.quantize import fuse_qkv, int4_ffn_pack, quantize_weight
 from apertis_llm_torch.ops import attention as attn_ops
 from apertis_llm_torch.ops import moe as moe_ops
@@ -101,7 +116,7 @@ from apertis_llm_torch.ops.kernels.mha_step import (
 from apertis_llm_torch.ops.kernels.ssm_step import (
     MixerWeights, RouterWeights, ssm_decode_step)
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
-from apertis_llm_torch.ops.quant import linear_dyn, linear_pre_q, quantize_rows
+from apertis_llm_torch.ops.quant import linear_int8, linear_pre_q, quantize_rows
 from apertis_llm_torch.ops.rope import apply_rope, rope_tables, rotate
 
 Cache = Dict[str, torch.Tensor]
@@ -186,9 +201,13 @@ class Linear(nn.Module):
 
 class QuantLinear(nn.Module):
     """The int8 linear: ``w_q`` int8 (in, out), ``w_s`` f32 (1, out), the
-    JAX tree's ``{w_q, w_s, b}``. ``forward`` quantizes its input rows at run
-    time (``linear_dyn``); ``pre_q`` takes rows quantized already. Both run
-    the w8a8 kernel, which reads the row-major ``w_q`` as it is."""
+    JAX tree's ``{w_q, w_s, b}``. ``forward`` computes the linear of its
+    ``quant_matmul`` mode (``ops/quant.py::linear_int8``; ``dyn`` quantizes
+    the input rows at run time); ``pre_q`` takes rows quantized already,
+    through the w8a8 kernel in every mode. The kernels read the row-major
+    ``w_q`` as it is."""
+
+    quant_matmul = "dyn"     # set by ApertisForCausalLM.set_modes
 
     def __init__(self, fan_in: int, fan_out: int, bias: bool, device, dtype):
         super().__init__()
@@ -197,7 +216,7 @@ class QuantLinear(nn.Module):
         self.b = _param((fan_out,), device, dtype) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear_dyn(x, self.w_q, self.w_s, self.b)
+        return linear_int8(x, self.w_q, self.w_s, self.b, self.quant_matmul)
 
     def pre_q(self, x_q: torch.Tensor, x_s: torch.Tensor,
               out_dtype: torch.dtype) -> torch.Tensor:
@@ -244,6 +263,8 @@ class DepthwiseConv(nn.Module):
 class SelectiveSSM(nn.Module):
     """The selective mixer with its pre-norm (``layers/attn`` in JAX)."""
 
+    quant_matmul = "dyn"     # set by ApertisForCausalLM.set_modes
+
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
         h, c = config.hidden_size, config.ssm_d_inner
@@ -271,8 +292,9 @@ class SelectiveSSM(nn.Module):
         mixer has no dropout of its own: ``drop`` is not read."""
         b, l, _ = h.shape
         heads, n, r, k = self.heads, self.d_state, self.dt_rank, self.k
-        if self.quantized:
-            # One fused norm + row quantization feeds both in-projections.
+        if self.quantized and self.quant_matmul == "dyn":
+            # One fused norm + row quantization feeds both in-projections
+            # (_maybe_ln_quant: under dyn only).
             x_q, x_s = ln_quantize(h, *self.pre_norm.weights(), self.pre_norm.eps)
             x_proj = self.in_proj_x.pre_q(x_q, x_s, h.dtype)       # (B, L, C)
             z = self.in_proj_z.pre_q(x_q, x_s, h.dtype)
@@ -474,6 +496,8 @@ class DenseFFN(nn.Module):
     An int8 layer can also hold the int4 decode pack (:meth:`attach_int4`)
     in non-persistent buffers; the biases are the int8 linears'."""
 
+    quant_matmul = "dyn"     # set by ApertisForCausalLM.set_modes
+
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
         h, inter = config.hidden_size, config.intermediate_size
@@ -537,7 +561,7 @@ class DenseFFN(nn.Module):
         """Pre-norm and FFN over full sequences (``apertis.py::_ffn``); with
         ``drop`` (training) the activation is dropped before ``w2``."""
         act = get_activation(self.hidden_act)
-        if self.quantized:
+        if self.quantized and self.quant_matmul == "dyn":
             x_q, x_s = ln_quantize(h, *self.pre_norm.weights(), self.pre_norm.eps)
             return self.w2(act(self.w1.pre_q(x_q, x_s, h.dtype)))
         hidden = act(self.w1(self.pre_norm(h)))
@@ -565,6 +589,7 @@ class DenseFFN(nn.Module):
 
 _FAT_NAMES = ("w1t_q", "w1t_q4", "w1t_sh", "w1t_s", "b1t", "w2t_q", "w2t_q4", "w2t_sh",
               "w2t_s")
+_FUSED_NAMES = ("w1f_q", "w1f_s", "b1f", "w2f_q", "w2f_s")
 
 
 class Experts(nn.Module):
@@ -573,7 +598,8 @@ class Experts(nn.Module):
     forms ``w1_q``/``w1_s`` (E, 1, I) and ``w2_q``/``w2_s`` (E, 1, H), and
     biases ``b1`` (E, I), ``b2`` (E, H). The kernels read the fat stack
     (:meth:`fat`), held in non-persistent buffers: int8, or int4 where
-    ``fat_bits`` is 4 and H and I allow it."""
+    ``fat_bits`` is 4 and H and I allow it; under ``moe_mode="kernel"`` the
+    per-expert stack (:meth:`fused`), held the same way."""
 
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
@@ -588,17 +614,20 @@ class Experts(nn.Module):
                 setattr(self, name, _param(shape, device, dtype))
         self.b1 = _param((e, inter), device, dtype)
         self.b2 = _param((e, h), device, dtype)
-        for name in _FAT_NAMES:
+        for name in _FAT_NAMES + _FUSED_NAMES:
             self.register_buffer(name, None, persistent=False)
         self.fat_bits = 8        # 4 under w4a8 serving (ApertisForCausalLM.attach_moe_fat)
-        self._fat_key = None
+        self._fat_key = self._fused_key = None
+
+    def _sources(self):
+        return tuple((p.data_ptr(), p._version) for p in self.parameters())
 
     @torch.no_grad()
     def fat(self) -> Dict[str, torch.Tensor]:
         """The fat stack of these experts (``models/moe_fuse.py``), built at
         first use and again whenever an expert tensor or ``fat_bits``
         changes."""
-        key = (self.fat_bits,) + tuple((p.data_ptr(), p._version) for p in self.parameters())
+        key = (self.fat_bits,) + self._sources()
         if self._fat_key != key:
             fat = fuse_one_fat(dict(self.named_parameters()), self.fat_bits)
             for name in _FAT_NAMES:
@@ -607,11 +636,27 @@ class Experts(nn.Module):
         return {name: getattr(self, name) for name in _FAT_NAMES
                 if getattr(self, name) is not None}
 
+    @torch.no_grad()
+    def fused(self) -> Dict[str, torch.Tensor]:
+        """The per-expert stack of these experts (``models/moe_fuse.py::
+        fuse_one``), built at first use and again whenever an expert tensor
+        changes."""
+        key = self._sources()
+        if self._fused_key != key:
+            fused = fuse_one(dict(self.named_parameters()))
+            for name in _FUSED_NAMES:
+                setattr(self, name, fused[name].contiguous())
+            self._fused_key = key
+        return {name: getattr(self, name) for name in _FUSED_NAMES}
+
 
 class MoEFFN(nn.Module):
     """Pre-normed top-2 MoE FFN (``layers/ffn`` of a MoE tree): ``pre_norm``,
     the router's LayerNorm ``router_ln`` and linear ``router`` (float in both
     layouts), ``w_noise`` (kept, unused in eval) and :class:`Experts`."""
+
+    quant_matmul = "dyn"     # both set by ApertisForCausalLM.set_modes
+    moe_mode = "fatk"
 
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
@@ -631,23 +676,28 @@ class MoEFFN(nn.Module):
 
     def forward(self, h: torch.Tensor, drop: Optional[Dropout] = None) -> torch.Tensor:
         """Pre-norm, routing and experts over full sequences (``apertis.py::
-        _ffn``): the fat kernel up to ``max(E, moe_dense_threshold_tokens)``
-        tokens, the grouped kernel above, or ``moe_ragged`` over the expert
-        stacks when the fat stack is int4. The pre-norm is the plain norm in
-        both layouts: the router reads the normed tensor. This is the eval
-        routing: MoE training is not ported (``params.py::check_trainable``),
-        so ``drop`` is not read."""
+        _ffn``): up to ``max(E, moe_dense_threshold_tokens)`` tokens the fat
+        kernel (``moe_mode="kernel"``: the per-expert kernel), above it the
+        grouped kernel, or ``moe_ragged`` over the expert stacks when the fat
+        stack is int4 or under ``moe_mode="kernel"``. The pre-norm is the
+        plain norm in both layouts: the router reads the normed tensor. This
+        is the eval routing: MoE training is not ported (``params.py::
+        check_trainable``), so ``drop`` is not read."""
         b, l, d = h.shape
         x = self.pre_norm(h).reshape(b * l, d)
         routing = moe_ops.route(x, *self.router_weights(), self.top_k,
                                 layer_norm_eps=self.eps)
-        fat = self.experts.fat()
-        if b * l <= self.fat_max_tokens:
+        small = b * l <= self.fat_max_tokens
+        fat = self.experts.fat() if self.moe_mode == "fatk" else None
+        if small and fat is None:
+            out = moe_ops.moe_dense_fused(x, routing, self.experts.fused(), self.experts.b2,
+                                          self.hidden_act, self.eps)
+        elif small:
             out = moe_ops.moe_dense_fat_kernel(x, routing, fat, self.experts.b2,
                                                self.hidden_act, self.eps)
-        elif "w1t_q4" in fat:
+        elif fat is None or "w1t_q4" in fat:
             out = moe_ops.moe_ragged(x, routing, dict(self.experts.named_parameters()),
-                                     self.hidden_act, self.eps)
+                                     self.hidden_act, self.eps, self.quant_matmul)
         else:
             out = moe_ops.moe_grouped_fat(x, routing, fat, self.experts.b2, self.hidden_act,
                                           self.eps)
@@ -707,13 +757,15 @@ class ApertisForCausalLM(nn.Module):
     them. The model is built on the card unless ``device`` names another.
     With ``quantized`` the four mixer projections and the FFN pair (the dense
     ``w1``/``w2`` or the experts' stacks) are int8; ``int8_head`` allocates
-    the int8 tied head ``lm_head``."""
+    the int8 tied head ``lm_head``. ``quant_matmul`` and ``moe_mode`` are the
+    serving modes of :meth:`set_modes`."""
 
     def __init__(self, config: ApertisConfig, device="cuda",
                  dtype: torch.dtype = torch.float32, quantized: bool = False,
-                 int8_head: bool = False):
+                 int8_head: bool = False, quant_matmul: str = "dyn", moe_mode: str = "fatk"):
         super().__init__()
         check_supported(config, quantized)
+        check_serving_modes(quant_matmul, moe_mode)
         device = resolve_device(device)
         self.config = config
         self.quantized = quantized
@@ -727,6 +779,7 @@ class ApertisForCausalLM(nn.Module):
                                     dtype) if int8_head else None)
         if quantized:
             self.requires_grad_(False)    # training takes float trees only
+        self.set_modes(quant_matmul, moe_mode)
         if is_mha(config):
             # The RoPE tables, built once (f32, (max_position_embeddings, H/2)).
             cos, sin = rope_tables(config.hidden_size, config.max_position_embeddings,
@@ -738,6 +791,23 @@ class ApertisForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.tok.device
 
+    def set_modes(self, quant_matmul: str, moe_mode: str) -> None:
+        """Choose the serving arithmetic the JAX package picks by environment
+        variable. ``quant_matmul`` (``APERTIS_QUANT_MATMUL``): ``dyn``,
+        ``weightonly``, ``pallas`` or ``fused``, for every int8 linear on
+        rows not quantized already (``QuantLinear.forward``, the head
+        included), for whether an int8 pre-norm fuses its row quantization
+        (``dyn`` only) and for ``moe_ragged``'s int8 branch (``dyn`` only).
+        ``moe_mode`` (``APERTIS_MOE_FUSED``): ``fatk`` or ``kernel``, see the
+        module docstring. An unknown value raises ``ValueError``."""
+        check_serving_modes(quant_matmul, moe_mode)
+        self.quant_matmul, self.moe_mode = quant_matmul, moe_mode
+        for module in self.modules():
+            if isinstance(module, (QuantLinear, SelectiveSSM, DenseFFN, MoEFFN)):
+                module.quant_matmul = quant_matmul
+            if isinstance(module, MoEFFN):
+                module.moe_mode = moe_mode
+
     @torch.no_grad()
     def quantize_tied_head(self) -> None:
         """Attach ``lm_head``, an int8 copy of the tied head (``models/
@@ -748,6 +818,7 @@ class ApertisForCausalLM(nn.Module):
         self.lm_head = QuantLinear(tok.shape[1], tok.shape[0], False, tok.device, tok.dtype)
         self.lm_head.w_q.copy_(q)
         self.lm_head.w_s.copy_(s)
+        self.lm_head.quant_matmul = self.quant_matmul
 
     def attach_moe_fat(self, bits: int = 8) -> None:
         """Build every MoE layer's fat stack now (``models/moe_fuse.py``), so
@@ -758,6 +829,15 @@ class ApertisForCausalLM(nn.Module):
             if isinstance(layer.ffn, MoEFFN):
                 layer.ffn.experts.fat_bits = bits
                 layer.ffn.experts.fat()
+
+    def attach_moe_fused(self) -> None:
+        """Build every MoE layer's per-expert stack now (``models/moe_fuse.py::
+        fuse_one``), as the JAX engine attaches it under
+        ``APERTIS_MOE_FUSED=kernel``: ``InferenceEngine`` calls it at
+        construction under ``moe_mode="kernel"``."""
+        for layer in self.layers:
+            if isinstance(layer.ffn, MoEFFN):
+                layer.ffn.experts.fused()
 
     def attach_int4_ffn(self) -> bool:
         """Attach every int8 dense FFN's int4 decode pack
@@ -910,9 +990,10 @@ class ApertisForCausalLM(nn.Module):
         mixer step that also emits the FFN's input (normed, or normed and
         quantized; for MoE the expert input and the combine weights), then the
         fused decode FFN; ``t``, ``attn_mask_row`` and ``positions`` do not
-        apply. A MoE model past ``moe_dense_threshold_tokens`` rows runs the
-        step without its epilogue and the FFN as over full sequences, as the
-        JAX package does (apertis.py:1224-1230); a dense FFN that fails the
+        apply. A MoE model past ``moe_dense_threshold_tokens`` rows, or under
+        ``moe_mode="kernel"`` (no fat stack), runs the step without its
+        epilogue and the FFN as over full sequences, as the JAX package does
+        (apertis.py:1224-1230); a dense FFN that fails the
         fused FFN's width test (``DenseFFN.fused_decode``) runs the step
         without its epilogue and then the plain pre-norm and
         :meth:`DenseFFN.unfused` (apertis.py:1234-1268, 1497-1500). MHA: see
@@ -923,7 +1004,8 @@ class ApertisForCausalLM(nn.Module):
         eps = cfg.layer_norm_eps
         h = self.embed.tok[token_ids]                              # (B, D)
         b = h.shape[0]
-        moe_full = is_moe(cfg) and b > cfg.moe_dense_threshold_tokens
+        moe_full = is_moe(cfg) and (b > cfg.moe_dense_threshold_tokens
+                                    or self.moe_mode == "kernel")
         for i, layer in enumerate(self.layers):
             conv = cache["conv"][i]
             ssm = cache["ssm"][i].view(b, -1)          # updated in place

@@ -1,4 +1,4 @@
-"""The int8 fat stack that both MoE kernels read (``models/moe_fuse.py`` in JAX).
+"""The expert stacks that the MoE kernels read (``models/moe_fuse.py`` in JAX).
 
 The all-expert combine ``sum_e combine[s, e] * (act(LN_e(x) @ W1_e + b1_e)
 @ W2_e + b2_e)`` re-associates into two plain 2D products over the
@@ -15,6 +15,11 @@ coarsening of the fat layout (moe_fuse.py:88-96). ``b2`` stays outside, as
 ``combine @ b2``. With ``bits=4`` (w4a8 serving) both fat matrices are
 packed to int4 instead (``quantize_weight_int4``), where H and I are
 multiples of 128; elsewhere the stack stays int8, as in the JAX package.
+
+The per-expert stack of ``moe_mode="kernel"`` (:func:`fuse_one`, the JAX
+engine's ``attach_fused_decode_params(mode="kernel")``) keeps the experts
+apart: W1 with the LayerNorm affine folded in, requantized per (expert,
+output channel), and the int8 W2 as it is (quantized here for a float tree).
 """
 
 from __future__ import annotations
@@ -33,6 +38,30 @@ def _dequant(experts: Params, key: str) -> torch.Tensor:
     if key + "_q" in experts:
         return experts[key + "_q"].float() * experts[key + "_s"].float()
     return experts[key].float()
+
+
+def fuse_one(experts: Params) -> Params:
+    """One layer's (E, ...) expert stack, float or int8, as the per-expert
+    stack (``moe_fuse.py::_fuse_one``): ``w1f_q`` (E, H, I) int8 with
+    ``w1f_s`` (E, 1, I), ``b1f`` (E, I) f32, ``w2f_q`` (E, I, H) int8 with
+    ``w2f_s`` (E, 1, H). All arithmetic in f32."""
+    ln_w, ln_b = experts["ln_w"].float(), experts["ln_b"].float()   # (E, H)
+    w1 = _dequant(experts, "w1")                                    # (E, H, I)
+    b1f = experts["b1"].float() + torch.einsum("eh,ehi->ei", ln_b, w1)
+    q1, s1 = quantize_weight(ln_w[:, :, None] * w1)
+    if "w2_q" in experts:
+        q2, s2 = experts["w2_q"], experts["w2_s"].float()
+    else:
+        q2, s2 = quantize_weight(experts["w2"].float())
+    return {"w1f_q": q1, "w1f_s": s1, "b1f": b1f, "w2f_q": q2, "w2f_s": s2}
+
+
+def fuse_moe_decode_params(experts: Params) -> Params:
+    """The per-expert stack of an expert stack with a leading layer axis,
+    layer by layer (``fuse_moe_decode_params``)."""
+    layers = [fuse_one({k: v[i] for k, v in experts.items()})
+              for i in range(experts["ln_w"].shape[0])]
+    return {k: torch.stack([layer[k] for layer in layers]) for k in layers[0]}
 
 
 def fat_bits(hidden: int, inter: int, bits: int) -> int:

@@ -22,6 +22,7 @@ from typing import Any, Dict
 import torch
 
 from apertis_llm_torch.config import ApertisConfig
+from apertis_llm_torch.ops.quant import QUANT_MATMUL_MODES
 
 Params = Dict[str, Any]
 
@@ -121,17 +122,30 @@ def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
             "not ported to PyTorch yet: " + ", ".join(missing) + " (see ROADMAP.md)")
 
 
-def check_quant_bits(quantized: bool, quant_bits: int) -> None:
+def check_quant_bits(quant_bits: int) -> None:
     """Raise unless the engine can serve ``quant_bits``: 8 (the tree as it
-    is), or 4 (w4a8: int4 decode copies beside an int8 tree) on an int8 tree
-    only, since the JAX package's ``attach_int4_ffn`` is a no-op on other
-    trees and its float-tree int4 fat stacks are not ported (ROADMAP.md)."""
+    is) or 4 (w4a8, the JAX engine's ``APERTIS_QUANT_BITS=4``: int4 decode
+    copies beside the tree where the JAX engine attaches them, a dense int8
+    FFN's pack and a MoE model's fat stacks where H and I are multiples of
+    128, from int8 or float experts; elsewhere nothing changes)."""
     if quant_bits not in (4, 8):
         raise ValueError(f"quant_bits must be 4 or 8, got {quant_bits}")
-    if quant_bits == 4 and not quantized:
-        raise NotImplementedError(
-            "not ported to PyTorch yet: quant_bits=4 on a float tree (w4a8 serving "
-            "takes an int8 tree; see ROADMAP.md)")
+
+
+MOE_MODES = ("fatk", "kernel")
+
+
+def check_serving_modes(quant_matmul: str, moe_mode: str) -> None:
+    """Raise ``ValueError`` unless ``quant_matmul`` is one of the JAX
+    package's ``APERTIS_QUANT_MATMUL`` values the port serves (``dyn``,
+    ``weightonly``, ``pallas``, ``fused``) and ``moe_mode`` one of its
+    ``APERTIS_MOE_FUSED`` values (``fatk``; ``kernel``, its ``kernel``/``1``).
+    ``auto`` and the kernel-free ``fat`` and ``0`` are not ported
+    (ROADMAP.md)."""
+    if quant_matmul not in QUANT_MATMUL_MODES:
+        raise ValueError(f"quant_matmul must be one of {QUANT_MATMUL_MODES}, got {quant_matmul!r}")
+    if moe_mode not in MOE_MODES:
+        raise ValueError(f"moe_mode must be one of {MOE_MODES}, got {moe_mode!r}")
 
 
 def check_trainable(config: ApertisConfig, quantized: bool = False, device="cuda",

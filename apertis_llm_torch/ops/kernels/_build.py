@@ -27,7 +27,7 @@ CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT / "_build"
 SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu", "moe_ffn.cu",
            "moe_grouped.cu", "mha_step.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-           "quant_matmul.cu")
+           "quant_matmul.cu", "moe_dense.cu")
 HEADERS = ("common.cuh", "moe_gemm.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
@@ -79,6 +79,12 @@ SIGNATURES = {
     "apertis_flash_attention_dkv": [_P] * 8 + [_I] * 4 + [_P],
     # x_q, x_s, w_q, w_s, bias (or NULL), out, M, N, K, out_bf16, stream
     "apertis_quant_matmul_dyn": [_P] * 6 + [_I] * 4 + [_P],
+    # x, w_q, w_s, bias (or NULL), out, M, N, K, x_bf16, stream
+    "apertis_quant_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    "apertis_quant_matmul_dyn_fused": [_P] * 5 + [_I] * 4 + [_P],
+    # xq, xs, w1q, w1s, b1, w2q, w2s, b2, out, hidden, absmax, partial, S, H,
+    # I, E, ksplit, act, out_bf16, stream
+    "apertis_expert_ffn_dense": [_P] * 12 + [_I] * 7 + [_P],
 }
 
 

@@ -1,4 +1,4 @@
-"""The combine-folded all-expert MoE FFN: decode, and prefill at small token counts.
+"""The all-expert MoE FFN kernels: decode, and prefill at small token counts.
 
 ``expert_ffn_fat`` launches the CUDA kernel in ``csrc/moe_ffn.cu`` (three
 launches: the int8 GEMM1 with its epilogue and per-(row, tile) absmax, the
@@ -10,6 +10,14 @@ the int8 fat stack of ``models/moe_fuse.py``, unstacked: the caller passes
 one layer's tensors. :func:`expert_ffn_fat_int4` is the int4 layout
 (``int4=True``): the same launches over the nibble-packed fat stack, unpacked
 as the weight panels are staged.
+
+:func:`expert_ffn_dense` (``moe_mode="kernel"``, the JAX package's
+``APERTIS_MOE_FUSED=kernel``) launches the per-expert kernel of
+``csrc/moe_dense.cu`` (GEMM1 with its epilogue, GEMM2 with the whole-I
+requantization of the hidden as it is read, a fixed-order reduce) over the
+per-expert stack of ``models/moe_fuse.py::fuse_moe_decode_params``, or runs
+:func:`expert_ffn_dense_reference` for CPU tensors. It replaces
+``apertis_llm_tpu/ops/pallas/moe_ffn.py::expert_ffn_dense``.
 """
 
 from __future__ import annotations
@@ -220,5 +228,91 @@ def expert_ffn_fat_int4(
     return out
 
 
+def expert_ffn_dense_reference(
+    xq: torch.Tensor,       # (S, H) int8, centred and quantized rows
+    xs: torch.Tensor,       # (S, 1) f32 row scales
+    w1q: torch.Tensor,      # (E, H, I) int8, LayerNorm affine folded in
+    w1s: torch.Tensor,      # (E, 1, I) f32
+    b1: torch.Tensor,       # (E, I) f32
+    w2q: torch.Tensor,      # (E, I, H) int8
+    w2s: torch.Tensor,      # (E, 1, H) f32
+    b2: torch.Tensor,       # (E, H) f32
+    out_dtype: torch.dtype = torch.bfloat16,
+    hidden_act: str = "gelu",
+) -> torch.Tensor:
+    """The TPU kernel's arithmetic (``moe_ffn.py::_kernel``), expert by
+    expert, (E, S, H) in ``out_dtype``: ``h = act(int32(xq @ W1q[e]) * xs *
+    w1s[e] + b1[e])``; per row over the whole of I ``hs = max(absmax, 1e-8) *
+    (1/127)``, ``hq = rint(h / hs)``; ``y = int32(hq @ W2q[e]) * hs * w2s[e] +
+    b2[e]``."""
+    act = get_activation(hidden_act)
+    outs = []
+    for e in range(w1q.shape[0]):
+        h = act(int_mm(xq, w1q[e]).float() * xs * w1s[e].reshape(1, -1)
+                + b1[e].reshape(1, -1).float())
+        hs = torch.clamp(h.abs().amax(dim=1, keepdim=True), min=1e-8) * (1.0 / 127.0)
+        hq = torch.clamp(torch.round(h / hs), -127, 127).to(torch.int8)
+        y = (int_mm(hq, w2q[e]).float() * hs * w2s[e].reshape(1, -1)
+             + b2[e].reshape(1, -1).float())
+        outs.append(y.to(out_dtype))
+    return torch.stack(outs)
+
+
+def expert_ffn_dense(
+    xq: torch.Tensor,
+    xs: torch.Tensor,
+    w1q: torch.Tensor,
+    w1s: torch.Tensor,
+    b1: torch.Tensor,
+    w2q: torch.Tensor,
+    w2s: torch.Tensor,
+    b2: torch.Tensor,
+    out_dtype: torch.dtype = torch.bfloat16,
+    hidden_act: str = "gelu",
+) -> torch.Tensor:
+    """Every expert's FFN over every row, (E, S, H): kernel on CUDA tensors,
+    plain version on CPU ones. The kernel takes contiguous tensors of the
+    dtypes above, H and I multiples of 16, 16-byte aligned int8 operands and
+    ``out_dtype`` bf16 or f32."""
+    if xq.device.type == "cpu":
+        return expert_ffn_dense_reference(xq, xs, w1q, w1s, b1, w2q, w2s, b2, out_dtype,
+                                          hidden_act)
+    s, d = xq.shape
+    e, _, inter = w1q.shape
+    dev = xq.device
+    i8, f32 = (torch.int8,), (torch.float32,)
+    _build.check_tensor(xq, (s, d), i8, "xq", dev)
+    _build.check_tensor(xs, (s, 1), f32, "xs", dev)
+    _build.check_tensor(w1q, (e, d, inter), i8, "w1q", dev)
+    _build.check_tensor(w1s, (e, 1, inter), f32, "w1s", dev)
+    _build.check_tensor(b1, (e, inter), f32, "b1", dev)
+    _build.check_tensor(w2q, (e, inter, d), i8, "w2q", dev)
+    _build.check_tensor(w2s, (e, 1, d), f32, "w2s", dev)
+    _build.check_tensor(b2, (e, d), f32, "b2", dev)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"expert_ffn_dense: out_dtype {out_dtype} is not bf16 or f32")
+    if s == 0 or e == 0 or d % 16 or inter % 16:
+        raise ValueError(f"expert_ffn_dense: unsupported shape S={s} H={d} I={inter} E={e}")
+    _build.check_aligned("expert_ffn_dense", xq, w1q, w2q)
+    # Parts each GEMM2 contraction is cut into, for about two blocks per SM
+    # (the int32 parts add exactly, so it does not change the result).
+    blocks = -(-d // _GEMM_N) * -(-s // _GEMM_M) * e
+    ksplit = max(1, min(-(-inter // _GEMM_K), -(-2 * _sm_count(dev.index) // blocks)))
+    hidden = torch.empty((e, s, inter), dtype=torch.float32, device=dev)
+    absmax = torch.empty((e, s), dtype=torch.float32, device=dev)
+    partial = torch.empty((ksplit, e, s, d), dtype=torch.int32, device=dev)
+    out = torch.empty((e, s, d), dtype=out_dtype, device=dev)
+    err = _build.load_library().apertis_expert_ffn_dense(
+        xq.data_ptr(), xs.data_ptr(), w1q.data_ptr(), w1s.data_ptr(), b1.data_ptr(),
+        w2q.data_ptr(), w2s.data_ptr(), b2.data_ptr(), out.data_ptr(), hidden.data_ptr(),
+        absmax.data_ptr(), partial.data_ptr(), s, d, inter, e, ksplit,
+        _ACT_CODES.get(hidden_act, 0), int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "expert_ffn_dense")
+    expert_ffn_dense.launches += 1
+    return out
+
+
 expert_ffn_fat.launches = 0
 expert_ffn_fat_int4.launches = 0
+expert_ffn_dense.launches = 0

@@ -12,9 +12,13 @@ The serving half of ``apertis_llm_tpu/ops/moe.py`` (eval mode):
     (``ops/kernels/moe_ffn.py``), for small token counts;
   * :func:`moe_grouped_fat`: the counting-sort dispatch around the grouped
     kernel (``ops/kernels/moe_grouped.py``), for large token counts;
+  * :func:`moe_dense_fused`: the glue of the per-expert kernel
+    (``expert_ffn_dense``) over the per-expert stack, for small token counts
+    under ``moe_mode="kernel"``;
   * :func:`moe_ragged`: the sort-based dispatch whose expert groups run
     their products one group at a time, for large token counts when the fat
-    stack is int4 (the grouped kernel reads int8 stacks only).
+    stack is int4 (the grouped kernel reads int8 stacks only) or when there
+    is no fat stack (``moe_mode="kernel"``).
 
 Both fat-stack kernels read the fat stack of ``models/moe_fuse.py`` (int8,
 or int4 under w4a8 serving, :func:`fat_ffn`): the experts'
@@ -34,7 +38,8 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from apertis_llm_torch.ops.activations import get_activation
-from apertis_llm_torch.ops.kernels.moe_ffn import expert_ffn_fat, expert_ffn_fat_int4
+from apertis_llm_torch.ops.kernels.moe_ffn import (
+    expert_ffn_dense, expert_ffn_fat, expert_ffn_fat_int4)
 from apertis_llm_torch.ops.kernels.moe_grouped import TILE, expert_ffn_grouped
 from apertis_llm_torch.ops.kernels.quant_matmul import quant_matmul_dyn_pre_q
 from apertis_llm_torch.ops.norms import layer_norm
@@ -155,6 +160,20 @@ def moe_dense_fat_kernel(x: torch.Tensor, routing: RouterOutput, fat: FatStack,
     return (out + combine @ b2.float()).to(x.dtype)
 
 
+def moe_dense_fused(x: torch.Tensor, routing: RouterOutput, fused: Dict[str, torch.Tensor],
+                    b2: torch.Tensor, hidden_act: str, layer_norm_eps: float) -> torch.Tensor:
+    """All-expert FFN of tokens x (S, H) through :func:`expert_ffn_dense` over
+    the per-expert stack ``fused`` (``ops/moe.py::moe_dense_fused``): the
+    centred quantization, the kernel's (E, S, H) in x's dtype, then
+    ``einsum("se,esh->sh")`` with the combine weights in x's dtype."""
+    num_experts = fused["b1f"].shape[0]
+    xq, xs = center_quantize(x, layer_norm_eps)
+    all_out = expert_ffn_dense(xq, xs, fused["w1f_q"], fused["w1f_s"], fused["b1f"],
+                               fused["w2f_q"], fused["w2f_s"], b2.float(), x.dtype, hidden_act)
+    combine = _combine_weights(routing, num_experts, x.dtype)
+    return torch.einsum("se,esh->sh", combine, all_out)
+
+
 def grouped_dispatch(indices: torch.Tensor, num_experts: int):
     """The counting sort of ``moe_grouped_fat``: token-major (token, choice)
     pairs go to rows ``dest`` of a (P, ·) matrix in which each expert's rows
@@ -209,18 +228,35 @@ def moe_grouped_fat(x: torch.Tensor, routing: RouterOutput, fat: FatStack,
     return out.to(x.dtype)
 
 
+def _maybe_dequant_experts(experts: Dict[str, torch.Tensor],
+                           dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Int8 expert stacks as weights of ``dtype``, ``w_q.to(dtype) *
+    w_s.to(dtype)`` (``ops/moe.py::_maybe_dequant_experts``); float stacks
+    as they are."""
+    out = dict(experts)
+    for key in ("w1", "w2"):
+        if key + "_q" in out:
+            out[key] = out.pop(key + "_q").to(dtype) * out.pop(key + "_s").to(dtype)
+    return out
+
+
 def moe_ragged(x: torch.Tensor, routing: RouterOutput, experts: Dict[str, torch.Tensor],
-               hidden_act: str, layer_norm_eps: float) -> torch.Tensor:
+               hidden_act: str, layer_norm_eps: float,
+               quant_matmul: str = "dyn") -> torch.Tensor:
     """Sort-based dispatch over the expert stacks (``ops/moe.py::moe_ragged``,
     eval): the (token, choice) pairs sorted by expert (stable), each row
     normed by its expert's LayerNorm, and each expert's contiguous row group
     multiplied by its own weights, one group at a time. Int8 experts take the
-    JAX function's int8 branch (its ``APERTIS_QUANT_MATMUL=dyn`` form):
-    quantized rows, both products through the w8a8 kernel with f32 out and
-    no bias (``quant_matmul_dyn_pre_q``), ``+ b1``, the activation and the
-    requantization of the hidden outside; float experts the float branch.
-    The rows are scaled by their routing weight in x's dtype and added back
-    to their tokens. The group sizes are read on the host (one sync)."""
+    JAX function's int8 branch under ``quant_matmul="dyn"``: quantized rows,
+    both products through the w8a8 kernel with f32 out and no bias
+    (``quant_matmul_dyn_pre_q``), ``+ b1``, the activation and the
+    requantization of the hidden outside. In the other modes they are
+    dequantized in x's dtype (``_maybe_dequant_experts``) and take the float
+    branch, as float experts do. The rows are scaled by their routing weight
+    in x's dtype and added back to their tokens. The group sizes are read on
+    the host (one sync)."""
+    if quant_matmul != "dyn":
+        experts = _maybe_dequant_experts(experts, x.dtype)
     k = routing.indices.shape[1]
     num_experts = experts["ln_w"].shape[0]
     act = get_activation(hidden_act)

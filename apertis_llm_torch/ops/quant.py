@@ -1,12 +1,15 @@
 """Int8 matmul arithmetic (``quant_matmul.py`` semantics).
 
 Per-row activation quantization (plain torch, as the JAX package leaves it to
-XLA) and the dynamic w8a8 product with per-output-channel weight scales. On
-the card the product is the hand-written kernel of
-``ops/kernels/quant_matmul.py``; :func:`linear_pre_q_reference` is its plain
-version, whose int8 x int8 -> int32 product is :func:`int_mm`
-(``torch._int_mm``), exact integer arithmetic. ``int_mm`` serves the plain
-versions only.
+XLA) and the int8-weight linears of the four ``quant_matmul`` modes
+(:func:`linear_int8`, the JAX package's ``APERTIS_QUANT_MATMUL``): ``dyn``,
+the dynamic w8a8 product with per-output-channel weight scales; ``weightonly``,
+the dequantized weight in plain torch; ``pallas`` and ``fused``, the
+weight-only and the block-quantizing kernels. On the card the products are
+the hand-written kernels of ``ops/kernels/quant_matmul.py``;
+:func:`linear_pre_q_reference` is the w8a8 product's plain version, whose
+int8 x int8 -> int32 product is :func:`int_mm` (``torch._int_mm``), exact
+integer arithmetic. ``int_mm`` serves the plain versions only.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ import torch
 def divide(x: torch.Tensor, value: float) -> torch.Tensor:
     """``x / value`` rounded once, as JAX divides. A Python scalar divisor
     makes PyTorch's CUDA kernel multiply by its reciprocal instead, which can
-    differ in the last bit, so the divisor is a tensor on ``x``'s device."""
-    return x / torch.tensor(value, dtype=x.dtype, device=x.device)
+    differ in the last bit, so the divisor is a tensor on ``x``'s device,
+    filled there: a copy from the host would wait for the device to finish
+    its queue."""
+    return x / torch.full((), value, dtype=x.dtype, device=x.device)
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -83,3 +88,35 @@ def linear_dyn(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     ``x`` quantized at run time, result in ``x.dtype``."""
     x_q, x_s = quantize_rows(x)
     return linear_pre_q(x_q, x_s, w_q, w_s, b, x.dtype)
+
+
+QUANT_MATMUL_MODES = ("dyn", "weightonly", "pallas", "fused")
+
+
+def linear_weightonly(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                      b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ (w_q * w_s)`` with the weight dequantized in x's dtype, then
+    ``+ b`` (``apertis.py::_linear``'s weight-only branch, which the JAX
+    package leaves to XLA outside any kernel)."""
+    y = x @ (w_q.to(x.dtype) * w_s.to(x.dtype))
+    return y + b if b is not None else y
+
+
+def linear_int8(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                b: Optional[torch.Tensor], mode: str) -> torch.Tensor:
+    """The int8 linear of ``quant_matmul`` mode ``mode`` (``apertis.py::
+    _linear``): ``dyn`` :func:`linear_dyn`, ``weightonly``
+    :func:`linear_weightonly`, ``pallas`` the weight-only kernel and
+    ``fused`` the block-quantizing kernel (``ops/kernels/quant_matmul.py``),
+    each ``+ b`` in x's dtype."""
+    if mode == "dyn":
+        return linear_dyn(x, w_q, w_s, b)
+    if mode == "weightonly":
+        return linear_weightonly(x, w_q, w_s, b)
+    # Imported here: the kernel module imports this one for its plain versions.
+    from apertis_llm_torch.ops.kernels.quant_matmul import quant_matmul, quant_matmul_dyn_fused
+    if mode == "pallas":
+        return quant_matmul(x, w_q, w_s, b)
+    if mode == "fused":
+        return quant_matmul_dyn_fused(x, w_q, w_s, b)
+    raise ValueError(f"quant_matmul must be one of {QUANT_MATMUL_MODES}, got {mode!r}")

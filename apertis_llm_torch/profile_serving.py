@@ -1,7 +1,8 @@
 """Where the time of serving and training goes: ``torch.profiler`` over
 prefill and decode, or over train steps.
 
-    python -m apertis_llm_torch.profile_serving [--layers N] [--moe | --mha] [--int4] [--train]
+    python -m apertis_llm_torch.profile_serving [--layers N] [--moe | --mha] [--int4]
+        [--quant-matmul {dyn,weightonly,pallas,fused}] [--moe-mode {fatk,kernel}] [--train]
 
 Builds the 1.5B selective-SSM model on the card from a seeded generator
 (``chip_smoke.py``'s configuration, random weights; with ``--moe`` the 1.5B
@@ -20,7 +21,11 @@ card's name and power limit. With ``--int4`` it also traces w4a8 serving
 (``InferenceEngine(..., quant_bits=4)`` on the int8 model: int8 prefill, the
 int4 decode FFN or fat stacks); with ``--moe --int4`` the MoE model is the 3B
 preset (hidden 768, 74 layers, experts of 3072), whose widths take the int4
-fat stack (the 1.5B one stays int8). It needs a CUDA device.
+fat stack (the 1.5B one stays int8). ``--quant-matmul`` and ``--moe-mode``
+serve every model through ``InferenceEngine(..., quant_matmul=...,
+moe_mode=...)``: the int8 arithmetic of the full-sequence linears and the
+head (``dyn`` by default; ``weightonly``, ``pallas``, ``fused``), and the MoE
+FFN's kernel (``fatk`` by default; ``kernel``). It needs a CUDA device.
 
 With ``--train`` it traces training instead: the dense 1.5B preset (or the
 MHA one with ``--mha``, through the flash kernels) with f32 masters, bf16
@@ -36,6 +41,8 @@ import sys
 import time
 
 import torch
+
+from apertis_llm_torch.models.params import MOE_MODES, QUANT_MATMUL_MODES
 
 
 def _card() -> str:
@@ -114,6 +121,10 @@ def main(argv=None) -> int:
                         help="the 1.5B MHA preset instead of the selective-SSM one")
     parser.add_argument("--int4", action="store_true",
                         help="also trace w4a8 serving (quant_bits=4) of the int8 model")
+    parser.add_argument("--quant-matmul", default="dyn", choices=QUANT_MATMUL_MODES,
+                        help="the int8 linears' arithmetic (InferenceEngine's quant_matmul)")
+    parser.add_argument("--moe-mode", default="fatk", choices=MOE_MODES,
+                        help="the MoE FFN's kernel (InferenceEngine's moe_mode)")
     parser.add_argument("--train", action="store_true",
                         help="trace train steps (dense or --mha) instead of serving")
     args = parser.parse_args(argv)
@@ -153,13 +164,15 @@ def main(argv=None) -> int:
     del tree
     gen = torch.Generator(device=dev).manual_seed(1)
     kinds = [("bf16", 8), ("int8", 8)] + ([("w4a8", 4)] if args.int4 else [])
-    print(f"card: {card}; {preset} preset, {config.num_hidden_layers} layers", flush=True)
+    print(f"card: {card}; {preset} preset, {config.num_hidden_layers} layers, quant_matmul "
+          f"{args.quant_matmul}, moe_mode {args.moe_mode}", flush=True)
     for kind, bits in kinds:
         model = models["bf16" if kind == "bf16" else "int8"]
         # Attaches the int8 head, MoE fat stacks, MHA's fused QKV projection,
         # and with quant_bits=4 the int4 decode copies (on the int8 model,
         # after its int8 traces).
-        engine = InferenceEngine(config, model, quant_bits=bits)
+        engine = InferenceEngine(config, model, quant_bits=bits,
+                                 quant_matmul=args.quant_matmul, moe_mode=args.moe_mode)
         for rows, length in ((64, 32), (4, 64)):
             ids = torch.randint(4, config.vocab_size, (rows, length), generator=gen,
                                 device=dev)

@@ -44,6 +44,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
      here in int8 and served with int4 fat stacks), each with sensitivity
      checks (the shifts, the scales, the biases) that must move the plain
      output by 9 tolerances;
+     Then the selectable int8 arithmetic's kernels (phase 3f): the
+     weight-only product (``quant_matmul``, ``quant_matmul="pallas"``) and
+     the block-quantizing one (``quant_matmul_dyn_fused``, ``"fused"``,
+     bit-equal) at the 1.5B FFN's w1 at 64 and 2048 rows, the int8 head at
+     4 rows, x_param_proj at 300 rows (K = 608) and N = 44, in bf16 and f32,
+     with ``x @ w_deq`` (the weight dequantized to bf16 ahead of the call)
+     timed as #6's library yardstick; the per-expert MoE kernel
+     (``expert_ffn_dense``, ``moe_mode="kernel"``) at the 1.5B MoE widths at
+     S = 4, 64 and 256; each with sensitivity checks (the scales, the
+     biases, #8's per-block scales) that must move the plain output by 9
+     tolerances;
   4. serve two batches through ``InferenceEngine.generate`` with the dense
      bf16 and int8 models, the MoE bf16 and int8 models and the MHA bf16
      (bf16 KV cache) and int8 (int8 KV cache) models (4 ragged
@@ -55,7 +66,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
      2048-row prefill; for MHA the decode-attention kernel at every decode
      step and no flash launch, since serving prefill carries a mask), tokens
      in range and each request repeated with the same tokens; then TTFT and
-     decode tokens per second per batch; then, after phase 5's 1.5B
+     decode tokens per second per batch; the same for the 1.5B dense int8
+     model under ``quant_matmul="pallas"`` and ``"fused"`` (every prefill
+     linear and the head through #6 or #8) and the 1.5B MoE int8 model under
+     ``moe_mode="kernel"`` (request A's prefill and every decode step
+     through #11, request B's prefill through ``moe_ragged``), beside dyn
+     and fatk in the same call; then, after phase 5's 1.5B
      checks, the same two requests with w4a8 serving
      (``InferenceEngine(..., quant_bits=4)``) of the 1.5B dense and MHA int8
      models (the int4 decode FFN) and of the 3B MoE model at its 74 layers
@@ -77,7 +93,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      ``scaled_dot_product_attention`` timed beside flash as the yardstick;
   5. check 2-layer dense, MoE and MHA models on the card against the same
      weights on the CPU (plain versions), bf16, int8 and w4a8 (dense and
-     MoE), and a hidden-192 int8 model, that the 1.5B logits are finite, that
+     MoE), dense int8 under ``pallas`` and ``fused`` and MoE int8 under
+     ``kernel`` (exact launch counts), and a hidden-192 int8 model, that the 1.5B logits are finite, that
      the 1.5B MHA ``forward()`` without a mask runs the flash kernel once per
      layer and agrees with the plain attention, and that a 2-layer f32 flash
      MHA ``forward()`` takes the plain attention on the card (the flash
@@ -159,6 +176,15 @@ TRAIN_LR = 5e-4           # the 1.5B training phase's peak learning rate
 # f32 products acc * x_s * w_s in the same order, one rounding to the output
 # type and the bias added in it: bit-equal.
 QMM_TOL = 0.0
+# quant_matmul (#6) with f32 x against its plain version: the products of f32
+# x with int8 levels are rounded in f32 on both sides and summed in another
+# order (the kernel's fused multiply-adds along K against cuBLAS's f32 sums,
+# TF32 off), over up to 9728 terms. bf16 x: every product is exact in f32,
+# only the order of the f32 sums differs, then one rounding to bf16: one
+# bf16 ulp (BF16_ULP). quant_matmul_dyn_fused (#8): bit-equal (QMM_TOL), as
+# #7. expert_ffn_dense (#11): one bf16 ulp, the fat kernel's rule (a hidden
+# value on an int8 rounding boundary may flip a level).
+QMM_F32_TOL = 3e-5
 # A sensitivity check of the w8a8 and int4 kernels must move the plain output by
 # this many tolerances (0 for the bit-equal product: any move).
 SENSITIVITY_FACTOR = 9
@@ -316,15 +342,16 @@ def main() -> int:
     from apertis_llm_torch.ops.kernels.mha_step import (
         NEG, mha_decode_ctx, mha_decode_ctx_int8, mha_decode_ctx_reference, quantize_heads)
     from apertis_llm_torch.ops.kernels.moe_ffn import (
-        expert_ffn_fat, expert_ffn_fat_int4, expert_ffn_fat_int4_reference,
-        expert_ffn_fat_reference, fat_block_n)
+        expert_ffn_dense, expert_ffn_dense_reference, expert_ffn_fat, expert_ffn_fat_int4,
+        expert_ffn_fat_int4_reference, expert_ffn_fat_reference, fat_block_n)
     from apertis_llm_torch.ops.kernels.moe_grouped import (
         TILE, expert_ffn_grouped, expert_ffn_grouped_reference)
     from apertis_llm_torch.ops.kernels.ssm_scan import (
         selective_scan_bwd, selective_scan_bwd_reference, selective_scan_fwd,
         selective_scan_fwd_reference)
     from apertis_llm_torch.ops.kernels.quant_matmul import (
-        quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference)
+        quant_matmul, quant_matmul_dyn_fused, quant_matmul_dyn_fused_reference,
+        quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference, quant_matmul_reference)
     from apertis_llm_torch.ops.kernels.ssm_step import (
         ssm_decode_step, ssm_decode_step_int8, ssm_decode_step_reference)
     from apertis_llm_torch.ops.activations import get_activation
@@ -1151,6 +1178,115 @@ def main() -> int:
                      expert_ffn_fat_int4_reference, fat_tols,
                      cost=fat4_cost(args) if s_ == 64 else None)
 
+    # ---- 3f. the selectable int8 arithmetic: #6, #8 and #11 -----------------
+    # quant_matmul (#6, quant_matmul="pallas") and quant_matmul_dyn_fused (#8,
+    # "fused") at the 1.5B FFN's w1 at 64 decode and 2048 prefill rows, the
+    # int8 head at 4 rows (N = 32000), x_param_proj at 300 rows (K = 608: the
+    # second 512-wide block of #8 is partial), N = 44 at 17 rows and K = 597
+    # (rows not a whole number of 16-byte loads), in bf16 and f32;
+    # expert_ffn_dense (#11, moe_mode="kernel") at the 1.5B MoE
+    # widths with the int8 and the bf16 model's per-expert stacks.
+    qmm_f32_tol = [("out", QMM_F32_TOL)]
+    qmm_bf16_tol = [("out", BF16_ULP)]
+    w44_q, w44_s = quantize_weight(randn(608, 44, std=0.05))
+    b44 = randn(44, std=0.1)
+    w597_q, w597_s = quantize_weight(randn(597, 44, std=0.05))
+    mode_cases = [
+        (64, (q1.w_q, q1.w_s, q1.b), "1.5B FFN w1 at 64 rows"),
+        (2048, (q1.w_q, q1.w_s, q1.b), "1.5B FFN w1 at 2048 rows"),
+        (4, (head_q, head_s, None), "int8 head at 4 rows"),
+        (300, (qmix.x_param_proj.w_q, qmix.x_param_proj.w_s, None),
+         "1.5B x_param_proj at 300 rows"),
+        (17, (w44_q, w44_s, b44), "ragged N = 44"),
+        (17, (w597_q, w597_s, b44), "ragged K = 597, N = 44"),
+    ]
+
+    def mode_inputs(rows, weights, dtype, std=1.0):
+        w_q, w_s, b = weights
+        return (randn(rows, w_q.shape[0], dtype=dtype, std=std), w_q, w_s,
+                None if b is None else b.to(dtype))
+
+    def mode_cost(args, kind):
+        x, w_q, w_s, b = args
+        m_, k_ = x.shape
+        n_ = w_q.shape[1]
+        return (nbytes(x, w_q, w_s, b) + m_ * n_ * x.element_size(), 2 * m_ * n_ * k_, kind)
+
+    args = mode_inputs(37, (q1.w_q, q1.w_s, q1.b), bf16, std=0.1)
+    check_sensitive("quant_matmul", quant_matmul_reference, args, {
+        "w_s": args[:2] + (torch.ones_like(args[2]), args[3]),
+        "b": args[:3] + (None,),
+    }, qmm_bf16_tol, factor=SENSITIVITY_FACTOR)
+    check_sensitive("quant_matmul_dyn_fused", quant_matmul_dyn_fused_reference, args, {
+        "w_s": args[:2] + (torch.ones_like(args[2]), args[3]),
+        "b": args[:3] + (None,),
+        "per-block scales (one scale a row, #7's arithmetic)": lambda: (
+            quant_matmul_dyn_pre_q_reference(*quantize_rows(args[0]), *args[1:], bf16),),
+    }, qmm_tols, factor=SENSITIVITY_FACTOR)
+    for rows, weights, label in mode_cases:
+        for dtype in (bf16, f32):
+            args = mode_inputs(rows, weights, dtype)
+            shape = f"(K={args[1].shape[0]}, N={args[1].shape[1]}), {str(dtype)[6:]}"
+            timed = rows in (64, 2048) and dtype == bf16
+            check_kernel("quant_matmul", f"quant_matmul {label} {shape}", args, quant_matmul,
+                         quant_matmul_reference, qmm_bf16_tol if dtype == bf16 else qmm_f32_tol,
+                         cost=mode_cost(args, "bf16") if timed else None)
+            if timed and rows == 2048:
+                w_deq = (args[1].to(bf16) * args[2].to(bf16)).contiguous()
+                x_ = args[0]
+                library["quant_matmul"] = cuda_ms(lambda: x_ @ w_deq)
+                log(f"  library: x @ w_deq, the weight dequantized to bf16 ahead of the call "
+                    f"(the product alone) {library['quant_matmul']:.4f} ms; card: {card}")
+            check_kernel("quant_matmul_dyn_fused", f"quant_matmul_dyn_fused {label} {shape}",
+                         args, quant_matmul_dyn_fused, quant_matmul_dyn_fused_reference,
+                         qmm_tols, cost=mode_cost(args, "int8") if timed else None)
+
+    m_fused = mqlayer.ffn.experts.fused()
+    log(f"MoE per-expert stack: {nbytes(*m_fused.values()):,} bytes a layer")
+
+    def dense_inputs(s_, stack=m_fused, ffn=mqlayer.ffn, act=moe_config.hidden_act,
+                     out_dtype=bf16):
+        """Rows as moe_dense_fused gives them to the per-expert kernel."""
+        xq, xs = moe_ops.center_quantize(ffn.pre_norm(randn(s_, md)), eps)
+        return (xq, xs, stack["w1f_q"], stack["w1f_s"], stack["b1f"], stack["w2f_q"],
+                stack["w2f_s"], ffn.experts.b2.float(), out_dtype, act)
+
+    def dense_cost(args):
+        xq = args[0]
+        s_, h_ = xq.shape
+        e_, _, i_ = args[2].shape
+        return (nbytes(*args[:8]) + e_ * s_ * h_ * args[8].itemsize, 4 * e_ * s_ * h_ * i_,
+                "int8")
+
+    args = dense_inputs(5)
+    # Biases with more noise than the model's, so that a dropped one moves
+    # the output by 9 tolerances.
+    args = args[:4] + (args[4] + randn(*args[4].shape, dtype=f32, std=0.5),) + args[5:7] + (
+        args[7] + randn(*args[7].shape, dtype=f32, std=0.5),) + args[8:]
+
+    def dense_without(index, value):
+        return args[:index] + (value,) + args[index + 1:]
+
+    check_sensitive("expert_ffn_dense", expert_ffn_dense_reference, args, {
+        "xs": dense_without(1, torch.ones_like(args[1])),
+        "w1s": dense_without(3, torch.ones_like(args[3])),
+        "b1": dense_without(4, torch.zeros_like(args[4])),
+        "w2s": dense_without(6, torch.ones_like(args[6])),
+        "b2": dense_without(7, torch.zeros_like(args[7])),
+    }, fat_tols, factor=SENSITIVITY_FACTOR)
+    for s_, out_dtype, act in ((4, bf16, moe_config.hidden_act), (64, bf16, moe_config.hidden_act),
+                               (256, bf16, moe_config.hidden_act),
+                               (64, f32, moe_config.hidden_act), (5, bf16, "relu"),
+                               (5, bf16, "silu")):
+        args = dense_inputs(s_, act=act, out_dtype=out_dtype)
+        check_kernel("expert_ffn_dense", f"expert_ffn_dense S={s_} {act} (H={md}, E={n_exp}, "
+                     f"I={m_inter}), {str(out_dtype)[6:]} out", args, expert_ffn_dense,
+                     expert_ffn_dense_reference, fat_tols,
+                     cost=dense_cost(args) if s_ == 64 and out_dtype == bf16 else None)
+    args = dense_inputs(5, stack=mlayer.ffn.experts.fused(), ffn=mlayer.ffn)
+    check_kernel("expert_ffn_dense", "expert_ffn_dense S=5, the bf16 model's per-expert stack",
+                 args, expert_ffn_dense, expert_ffn_dense_reference, fat_tols)
+
     # ---- 3d. the backward kernels of training ------------------------------
     ssm_heads = config.num_attention_heads     # ``heads`` was reused by the loops above
 
@@ -1287,15 +1423,19 @@ def main() -> int:
     counters = (selective_scan_fwd, ssm_decode_step, ffn_decode, ln_quantize,
                 ssm_decode_step_int8, ffn_decode_int8, expert_ffn_fat, expert_ffn_grouped,
                 mha_decode_ctx, mha_decode_ctx_int8, flash_attention_fwd,
-                quant_matmul_dyn_pre_q, ffn_decode_int4, expert_ffn_fat_int4)
+                quant_matmul_dyn_pre_q, ffn_decode_int4, expert_ffn_fat_int4, quant_matmul,
+                quant_matmul_dyn_fused, expert_ffn_dense)
     launches, serve = {}, {}
 
-    def expected_launches(kind, cfg, decode_calls, bits, moe_groups=0):
+    def expected_launches(kind, cfg, decode_calls, bits, moe_groups=0, quant_matmul_="dyn",
+                          moe_mode="fatk"):
         """Each kernel's launches in the two requests: layers x calls.
-        ``moe_groups``: the expert groups moe_ragged ran over all layers."""
+        ``moe_groups``: the expert groups moe_ragged ran over all layers;
+        ``quant_matmul_`` and ``moe_mode``: the engine's modes."""
         nl = cfg.num_hidden_layers
         moe, mha = bool(cfg.use_expert_system), cfg.attention_type == "standard_mha"
         int8 = "bf16" not in kind
+        dyn = quant_matmul_ == "dyn"
         fused_ffn = cfg.hidden_size % 128 == 0 and pick_block_n(cfg.intermediate_size) > 0
         n_req = len(requests)
         exp = {f.__name__: 0 for f in counters}
@@ -1308,11 +1448,16 @@ def main() -> int:
         else:
             exp["selective_scan_fwd"] = nl * n_req
             exp["ssm_decode_step_int8" if int8 else "ssm_decode_step"] = nl * decode_calls
-            if int8:
+            if int8 and dyn:
                 # The mixer's pre-norm once per layer and prefill; a MoE FFN's
                 # pre-norm is the plain norm, since the router reads it.
+                # Outside dyn every pre-norm is the plain norm.
                 exp["ln_quantize"] = (1 if moe else 2) * nl * n_req
-        if moe:
+        if moe and moe_mode == "kernel":
+            # Request A's 256 prefill rows and every decode step through the
+            # per-expert kernel; request B's 2048 rows through moe_ragged.
+            exp["expert_ffn_dense"] = nl * (decode_calls + 1)
+        elif moe:
             # Request A prefills 4 x 64 = 256 rows (the fat kernel), request
             # B 64 x 32 = 2048 (the grouped kernel, or moe_ragged over an
             # int4 fat stack); every decode step runs the fat kernel.
@@ -1323,25 +1468,30 @@ def main() -> int:
             exp[{4: "ffn_decode_int4", 8: "ffn_decode_int8"}[bits] if int8
                 else "ffn_decode"] = nl * decode_calls
         if int8:
-            # The w8a8 product: per layer and prefill the mixer's four
+            # The mode's product: per layer and prefill the mixer's four
             # projections (q, k, v, o for MHA) and, for a dense FFN, w1 and
             # w2; the int8 head once per prefill and decode step; at decode
-            # MHA's fused QKV and o, and an unfused FFN's w1 and w2; two per
-            # expert group of moe_ragged.
+            # an unfused FFN's w1 and w2. The w8a8 product (in every mode):
+            # at decode MHA's fused QKV and o; under dyn two per expert
+            # group of moe_ragged.
             per_prefill = 4 + (0 if moe else 2)
-            per_step = (2 if mha else 0) + (0 if moe or fused_ffn else 2)
-            exp["quant_matmul_dyn_pre_q"] = (n_req * (nl * per_prefill + 1)
-                                             + decode_calls * (nl * per_step + 1)
-                                             + 2 * moe_groups)
+            per_step = 0 if moe or fused_ffn else 2
+            own = n_req * (nl * per_prefill + 1) + decode_calls * (nl * per_step + 1)
+            name = {"dyn": "quant_matmul_dyn_pre_q", "pallas": "quant_matmul",
+                    "fused": "quant_matmul_dyn_fused"}[quant_matmul_]
+            exp[name] += own
+            exp["quant_matmul_dyn_pre_q"] += (decode_calls * nl * (2 if mha else 0)
+                                              + (2 * moe_groups if dyn else 0))
         return exp
 
-    def serve_model(kind, m, cfg, bits=8):
+    def serve_model(kind, m, cfg, bits=8, quant_matmul_="dyn", moe_mode="fatk"):
         """Both requests through InferenceEngine.generate with the counts set
         to 0 before and checked after, then repeat identity, TTFT and decode
         tok/s."""
         nl = cfg.num_hidden_layers
         moe, mha = bool(cfg.use_expert_system), cfg.attention_type == "standard_mha"
-        engine = InferenceEngine(cfg, m, quant_bits=bits)
+        engine = InferenceEngine(cfg, m, quant_bits=bits, quant_matmul=quant_matmul_,
+                                 moe_mode=moe_mode)
         if "bf16" not in kind and m.lm_head is None:
             raise RuntimeError("the engine did not attach the int8 head")
         if mha and (engine.kv_int8 != ("bf16" not in kind)
@@ -1379,16 +1529,17 @@ def main() -> int:
             decode_calls += n_new - 1
             log(f"{kind} request {name}: {n_new} new tokens, first row "
                 f"{new[0, :8].tolist()}...")
-        if moe and bits == 4 and len(groups) != nl:
+        if moe and (bits == 4 or moe_mode == "kernel") and len(groups) != nl:
             raise RuntimeError(f"{kind}: moe_ragged ran {len(groups)} times, not once per layer "
                                "of request B")
-        expected = expected_launches(kind, cfg, decode_calls, bits, sum(groups))
+        expected = expected_launches(kind, cfg, decode_calls, bits, sum(groups), quant_matmul_,
+                                     moe_mode)
         log(f"{kind} launch counts in the two requests: {got} (expected {expected}"
             f"{f'; moe_ragged expert groups {sum(groups)}' if groups else ''})")
         if got != expected:
             raise RuntimeError(f"{kind}: a kernel of the main path was not launched as expected")
         for key, value in got.items():
-            if moe and key in ("ssm_decode_step", "ssm_decode_step_int8"):
+            if moe and moe_mode == "fatk" and key in ("ssm_decode_step", "ssm_decode_step_int8"):
                 key += "_moe"     # the step with its moe epilogue
             launches[key] = launches.get(key, 0) + value
 
@@ -1416,6 +1567,15 @@ def main() -> int:
                          ("MHA bf16", mha_model, mha_config),
                          ("MHA int8", mha_qmodel, mha_config)):
         serve_model(kind, m, cfg)
+    # The selectable int8 arithmetic, beside dyn and fatk above: the dense
+    # int8 model's linears through #6 and #8, the MoE int8 model's FFN
+    # through #11 (request B's prefill through moe_ragged).
+    for kind, m, cfg, qm_, mm_ in (("int8 pallas", qmodel, config, "pallas", "fatk"),
+                                   ("int8 fused", qmodel, config, "fused", "fatk"),
+                                   ("MoE int8 kernel", moe_qmodel, moe_config, "dyn", "kernel")):
+        serve_model(kind, m, cfg, 8, qm_, mm_)
+    for m in (qmodel, moe_qmodel):
+        m.set_modes("dyn", "fatk")
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. outputs are right -----------------------------------------------
@@ -1545,6 +1705,13 @@ def main() -> int:
             # w4a8: the int4 decode FFN, or for MoE the int4 fat kernel at
             # decode and moe_ragged for request A's 180-row prefill.
             cases.append((family + "w4a8", small, qtree))
+        if family == "":
+            cases += [("int8 pallas", small, qtree), ("int8 fused", small, qtree)]
+        if family == "MoE ":
+            # The per-expert kernel at decode, moe_ragged for the prefill.
+            cases.append(("MoE int8 kernel", small, qtree))
+    modes = {"int8 pallas": ("pallas", "fatk"), "int8 fused": ("fused", "fatk"),
+             "MoE int8 kernel": ("dyn", "kernel")}
     for kind, small, t in cases:
         models = {"gpu": from_jax_params(t, small, device=dev, dtype=torch.bfloat16),
                   "cpu": from_jax_params(t, small, device="cpu", dtype=torch.bfloat16)}
@@ -1555,6 +1722,7 @@ def main() -> int:
                 if "w4a8" in kind:
                     m.attach_int4_ffn()
                     m.attach_moe_fat(bits=4)
+                m.set_modes(*modes.get(kind, ("dyn", "fatk")))
         for f in counters:
             f.launches = 0
         caches = {k: m.init_cache(4, **cache_kw(m, ids.shape[1], "int8" in kind))
@@ -1575,9 +1743,21 @@ def main() -> int:
         must = {"w4a8": ["ffn_decode_int4", "quant_matmul_dyn_pre_q"],
                 "MoE w4a8": ["expert_ffn_fat_int4", "quant_matmul_dyn_pre_q"],
                 "hidden-192 int8": ["quant_matmul_dyn_pre_q"]}.get(kind, [])
+        nl_small = small.num_hidden_layers
+        # The mode's kernel: the prefill's six int8 linears a layer and the
+        # head at prefill and at each of the 5 decode steps; the per-expert
+        # kernel once per layer and decode step.
+        exact = {"int8 pallas": {"quant_matmul": 6 * nl_small + 6, "quant_matmul_dyn_fused": 0,
+                                 "quant_matmul_dyn_pre_q": 0, "ln_quantize": 0},
+                 "int8 fused": {"quant_matmul_dyn_fused": 6 * nl_small + 6, "quant_matmul": 0,
+                                "quant_matmul_dyn_pre_q": 0, "ln_quantize": 0},
+                 "MoE int8 kernel": {"expert_ffn_dense": 5 * nl_small, "expert_ffn_fat": 0,
+                                     "expert_ffn_grouped": 0}}.get(kind, {})
         if any(name not in ran for name in must) or (
-                kind == "hidden-192 int8" and "ffn_decode_int8" in ran):
-            raise RuntimeError(f"2-layer {kind}: kernels launched {ran}, expected {must}")
+                kind == "hidden-192 int8" and "ffn_decode_int8" in ran) or any(
+                ran.get(name, 0) != n for name, n in exact.items()):
+            raise RuntimeError(f"2-layer {kind}: kernels launched {ran}, expected {must} "
+                               f"and {exact}")
         log(f"  2-layer {kind} on the card launched {ran}")
 
     # Fault 2's repair: an f32 flash MHA forward() on the card takes the
@@ -1816,14 +1996,22 @@ def main() -> int:
                             "apertis_llm_tpu/ops/pallas/ffn_fused.py:177"),
         "expert_ffn_fat_int4": ("apertis_llm_torch/csrc/moe_ffn.cu",
                                 "apertis_llm_tpu/ops/pallas/moe_ffn.py:243"),
+        "quant_matmul": ("apertis_llm_torch/csrc/quant_matmul.cu",
+                         "apertis_llm_tpu/ops/pallas/quant_matmul.py:201"),
+        "quant_matmul_dyn_fused": ("apertis_llm_torch/csrc/quant_matmul.cu",
+                                   "apertis_llm_tpu/ops/pallas/quant_matmul.py:301"),
+        "expert_ffn_dense": ("apertis_llm_torch/csrc/moe_dense.cu",
+                             "apertis_llm_tpu/ops/pallas/moe_ffn.py:399"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
         ms, plain_ms, bound_ms, bound_by, dev_ms = times[name]
         # No single PyTorch call computes the other functions (a fused norm +
         # quantize, a whole mixer step, a whole FFN, a selective scan, an int8
-        # expert FFN with per-tile requantization, attention over an int8
-        # cache with per-(head, slot) scales): their library time is null.
+        # expert FFN with per-tile or per-row requantization, attention over
+        # an int8 cache with per-(head, slot) scales, an int8 product whose
+        # activations are quantized per 512-wide block): their library time
+        # is null.
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": tpu,
                         "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
                         "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

@@ -402,14 +402,16 @@ def test_w4a8_greedy_generate_matches_jax_engine(family, threshold, monkeypatch)
 
 
 def test_quant_bits_gates_and_the_moe_presets():
-    """quant_bits=4 takes an int8 model only (a float model raises naming
-    ROADMAP.md); 3 is refused. The 3B MoE preset (hidden 768, 74 layers, 12
-    heads, experts of 3072; 2,860,979,480 parameters in the tree, 2,993,253,888
-    by the factory's count) packs its fat stacks to int4, the 1.5B one
-    (hidden 704) stays int8."""
+    """quant_bits=4 takes a float model too, as the JAX engine does, and
+    attaches no int4 pack to its dense FFN (``tests/test_torch_moe_kernel_
+    mode.py`` holds float trees under quant_bits=4 against the JAX engine);
+    3 is refused. The 3B MoE preset (hidden 768, 74 layers, 12 heads, experts
+    of 3072; 2,860,979,480 parameters in the tree, 2,993,253,888 by the
+    factory's count) packs its fat stacks to int4, the 1.5B one (hidden 704)
+    stays int8."""
     _, cfg, tree = _tree("dense", 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(cfg, from_jax_params(tree, cfg, device="cpu"), quant_bits=4)
+    engine = InferenceEngine(cfg, from_jax_params(tree, cfg, device="cpu"), quant_bits=4)
+    assert engine.model.layers[0].ffn.int4_pack() is None
     with pytest.raises(ValueError):
         InferenceEngine(cfg, from_jax_params(tree, cfg, device="cpu"), quant_bits=3)
     dims = calculate_model_dimensions("3B", 32000, use_expert_system=True)
