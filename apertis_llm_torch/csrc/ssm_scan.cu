@@ -36,13 +36,19 @@
 // padding, or the exp(delta*A) tensor in device memory: delta is a broadcast
 // load shared by the N threads of a head and the exponential is computed in
 // the thread. The backward keeps h[t-1] and a[t] in registers for the next
-// step down, sums d_delta over the N lanes of a head by a fixed-order
-// butterfly of warp shuffles (N a power of two up to 32, so a head is N
-// neighbouring lanes of one warp), and writes each thread's dA partial to a
-// (B, C) scratch that a second launch sums over b in order: no atomics, so
-// the result is the same from run to run. At batch 4 the 1.5B model has only
-// 2,432 channels, so the card is mostly idle; splitting the time axis into
-// chunks is later work.
+// step down and writes each thread's dA partial to a (B, C) scratch that a
+// second launch sums over b in order: no atomics, so the result is the same
+// from run to run. d_delta sums a head's N channels at every step, in a
+// fixed order either way:
+//   * N a power of two up to 32 (selective_scan_bwd_kernel): a head is N
+//     neighbouring lanes of one warp, and a butterfly of warp shuffles sums
+//     them;
+//   * any other N (selective_scan_bwd_smem_kernel, up to 1024): a block
+//     holds whole heads (128 / N of them, or one), each thread stores its
+//     term in shared memory, and the head's first thread adds the N terms
+//     in channel order between two block barriers.
+// At batch 4 the 1.5B model has only 2,432 channels, so the card is mostly
+// idle; splitting the time axis into chunks is later work.
 
 #include "common.cuh"
 
@@ -94,8 +100,11 @@ __device__ __forceinline__ float group_sum(float v, int width) {
   return v;
 }
 
-template <typename TIn, typename TG>
-__global__ void __launch_bounds__(kScanThreads) selective_scan_bwd_kernel(
+// The reverse scan of one (b, c), shared by both backward kernels; only the
+// sum over a head's N channels differs (kSmem: through `red`, one float a
+// thread of the block).
+template <typename TIn, typename TG, bool kSmem>
+__device__ __forceinline__ void scan_bwd_body(
     const float* __restrict__ delta,   // (B, L, H)
     const float* __restrict__ a_cont,  // (C,)
     const TIn* __restrict__ c_mod,     // (B, L, C)
@@ -107,13 +116,14 @@ __global__ void __launch_bounds__(kScanThreads) selective_scan_bwd_kernel(
     TIn* __restrict__ db,              // (B, L, C)
     TIn* __restrict__ dc,              // (B, L, C)
     float* __restrict__ da_part,       // (B, C) per-row partial of dA
-    int seq_len, int heads, int d_state) {
+    int seq_len, int heads, int d_state, float* red) {
   const int channels = heads * d_state;
-  const int c = blockIdx.x * kScanThreads + threadIdx.x;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = blockIdx.y;
   // Threads past the last channel stay in the loop with zeros, so that the
-  // shuffles of a head always see a whole warp; C is a multiple of N, so no
-  // head mixes live and idle lanes.
+  // shuffles of a head always see a whole warp and every thread reaches the
+  // block barriers; a block starts on a head, so no head mixes live and idle
+  // threads.
   const bool live = c < channels;
   const int cc = live ? c : channels - 1;
   const int head = cc / d_state;
@@ -139,7 +149,17 @@ __global__ void __launch_bounds__(kScanThreads) selective_scan_bwd_kernel(
     const float da = lam * h_prev;
     const float chain = masked ? 0.f : da * a_t;   // dL/d(delta * A)
     dA = fmaf(chain, dt, dA);
-    const float dd = group_sum(chain * a_c, d_state);
+    float dd;
+    if constexpr (kSmem) {
+      red[threadIdx.x] = chain * a_c;
+      __syncthreads();
+      dd = 0.f;
+      if (leader)
+        for (int i = 0; i < d_state; ++i) dd += red[threadIdx.x + i];
+      __syncthreads();   // the terms are read before the next step writes them
+    } else {
+      dd = group_sum(chain * a_c, d_state);
+    }
     if (live) {
       dc[off] = from_f32<TIn>(g * h_t);
       db[off] = from_f32<TIn>(masked ? 0.f : lam);
@@ -149,6 +169,34 @@ __global__ void __launch_bounds__(kScanThreads) selective_scan_bwd_kernel(
     h_t = h_prev;
   }
   if (live) da_part[(size_t)b * channels + c] = dA;
+}
+
+// N a power of two up to 32: blocks of kScanThreads channels.
+template <typename TIn, typename TG>
+__global__ void __launch_bounds__(kScanThreads) selective_scan_bwd_kernel(
+    const float* __restrict__ delta, const float* __restrict__ a_cont,
+    const TIn* __restrict__ c_mod, const int* __restrict__ mask,
+    const float* __restrict__ h_all, const TG* __restrict__ gy,
+    const float* __restrict__ g_last, float* __restrict__ d_delta, TIn* __restrict__ db,
+    TIn* __restrict__ dc, float* __restrict__ da_part, int seq_len, int heads, int d_state) {
+  scan_bwd_body<TIn, TG, false>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, db,
+                                dc, da_part, seq_len, heads, d_state, nullptr);
+}
+
+// Any other N up to kMaxSmemState: blocks of whole heads, blockDim.x floats
+// of dynamic shared memory.
+constexpr int kMaxSmemState = 1024;
+
+template <typename TIn, typename TG>
+__global__ void __launch_bounds__(kMaxSmemState) selective_scan_bwd_smem_kernel(
+    const float* __restrict__ delta, const float* __restrict__ a_cont,
+    const TIn* __restrict__ c_mod, const int* __restrict__ mask,
+    const float* __restrict__ h_all, const TG* __restrict__ gy,
+    const float* __restrict__ g_last, float* __restrict__ d_delta, TIn* __restrict__ db,
+    TIn* __restrict__ dc, float* __restrict__ da_part, int seq_len, int heads, int d_state) {
+  extern __shared__ float red[];
+  scan_bwd_body<TIn, TG, true>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, db,
+                               dc, da_part, seq_len, heads, d_state, red);
 }
 
 // dA[c] = sum over b, in order, of the per-row partials.
@@ -178,19 +226,55 @@ template <typename TIn, typename TG>
 void launch_scan_bwd(const void* delta, const void* a_cont, const void* c_mod,
                      const void* mask, const void* h_all, const void* gy, const void* g_last,
                      void* d_delta, void* da, void* db, void* dc, void* da_part, int batch,
-                     int seq_len, int heads, int d_state, cudaStream_t stream) {
+                     int seq_len, int heads, int d_state, bool smem, cudaStream_t stream) {
   const int channels = heads * d_state;
-  const int blocks = (channels + kScanThreads - 1) / kScanThreads;
-  selective_scan_bwd_kernel<TIn, TG><<<dim3(blocks, batch), kScanThreads, 0, stream>>>(
-      static_cast<const float*>(delta), static_cast<const float*>(a_cont),
-      static_cast<const TIn*>(c_mod), static_cast<const int*>(mask),
-      static_cast<const float*>(h_all), static_cast<const TG*>(gy),
-      static_cast<const float*>(g_last), static_cast<float*>(d_delta),
-      static_cast<TIn*>(db), static_cast<TIn*>(dc), static_cast<float*>(da_part), seq_len,
-      heads, d_state);
-  sum_rows_kernel<<<blocks, kScanThreads, 0, stream>>>(
-      static_cast<const float*>(da_part), static_cast<float*>(da), batch, channels);
+  const auto* delta_ = static_cast<const float*>(delta);
+  const auto* a_ = static_cast<const float*>(a_cont);
+  const auto* c_ = static_cast<const TIn*>(c_mod);
+  const auto* mask_ = static_cast<const int*>(mask);
+  const auto* h_ = static_cast<const float*>(h_all);
+  const auto* gy_ = static_cast<const TG*>(gy);
+  const auto* gl_ = static_cast<const float*>(g_last);
+  auto* dd_ = static_cast<float*>(d_delta);
+  auto* db_ = static_cast<TIn*>(db);
+  auto* dc_ = static_cast<TIn*>(dc);
+  auto* part_ = static_cast<float*>(da_part);
+  if (smem) {
+    const int heads_per_block = d_state <= kScanThreads ? kScanThreads / d_state : 1;
+    const int threads = heads_per_block * d_state;
+    const dim3 grid((heads + heads_per_block - 1) / heads_per_block, batch);
+    selective_scan_bwd_smem_kernel<TIn, TG><<<grid, threads, threads * sizeof(float), stream>>>(
+        delta_, a_, c_, mask_, h_, gy_, gl_, dd_, db_, dc_, part_, seq_len, heads, d_state);
+  } else {
+    const dim3 grid((channels + kScanThreads - 1) / kScanThreads, batch);
+    selective_scan_bwd_kernel<TIn, TG><<<grid, kScanThreads, 0, stream>>>(
+        delta_, a_, c_, mask_, h_, gy_, gl_, dd_, db_, dc_, part_, seq_len, heads, d_state);
+  }
+  sum_rows_kernel<<<(channels + kScanThreads - 1) / kScanThreads, kScanThreads, 0, stream>>>(
+      part_, static_cast<float*>(da), batch, channels);
 }
+
+int scan_bwd(const void* delta, const void* a_cont, const void* c_mod, const void* mask,
+             const void* h_all, const void* gy, const void* g_last, void* d_delta, void* da,
+             void* db, void* dc, void* da_part, int batch, int seq_len, int heads, int d_state,
+             int bc_bf16, int gy_bf16, bool smem, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bc_bf16 && gy_bf16)
+    launch_scan_bwd<bf16, bf16>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da,
+                                db, dc, da_part, batch, seq_len, heads, d_state, smem, s);
+  else if (bc_bf16)
+    launch_scan_bwd<bf16, float>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da,
+                                 db, dc, da_part, batch, seq_len, heads, d_state, smem, s);
+  else if (gy_bf16)
+    launch_scan_bwd<float, bf16>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da,
+                                 db, dc, da_part, batch, seq_len, heads, d_state, smem, s);
+  else
+    launch_scan_bwd<float, float>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta,
+                                  da, db, dc, da_part, batch, seq_len, heads, d_state, smem, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool pow2_state(int d_state) { return d_state <= 32 && (d_state & (d_state - 1)) == 0; }
 
 }  // namespace
 
@@ -222,8 +306,8 @@ extern "C" int apertis_selective_scan_fwd(const void* delta, const void* a_cont,
 // The gradient of apertis_selective_scan_fwd. c_mod, db and dc are bf16 when
 // bc_bf16 else f32; gy is bf16 when gy_bf16 else f32; g_last (B, C) f32 may
 // be null; da_part is (B, C) f32 scratch. d_state must be a power of two up
-// to 32. Two launches (the reverse scan, then dA's sum over b). Returns
-// cudaGetLastError().
+// to 32 (a head's channels share one warp). Two launches (the reverse scan,
+// then dA's sum over b). Returns cudaGetLastError().
 extern "C" int apertis_selective_scan_bwd(const void* delta, const void* a_cont,
                                           const void* c_mod, const void* mask,
                                           const void* h_all, const void* gy,
@@ -231,21 +315,25 @@ extern "C" int apertis_selective_scan_bwd(const void* delta, const void* a_cont,
                                           void* db, void* dc, void* da_part, int batch,
                                           int seq_len, int heads, int d_state, int bc_bf16,
                                           int gy_bf16, void* stream) {
-  if (d_state <= 0 || d_state > 32 || (d_state & (d_state - 1)) || batch <= 0 ||
-      seq_len <= 0 || heads <= 0)
+  if (d_state <= 0 || !pow2_state(d_state) || batch <= 0 || seq_len <= 0 || heads <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bc_bf16 && gy_bf16)
-    launch_scan_bwd<bf16, bf16>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da,
-                                db, dc, da_part, batch, seq_len, heads, d_state, s);
-  else if (bc_bf16)
-    launch_scan_bwd<bf16, float>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da,
-                                 db, dc, da_part, batch, seq_len, heads, d_state, s);
-  else if (gy_bf16)
-    launch_scan_bwd<float, bf16>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da,
-                                 db, dc, da_part, batch, seq_len, heads, d_state, s);
-  else
-    launch_scan_bwd<float, float>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta,
-                                  da, db, dc, da_part, batch, seq_len, heads, d_state, s);
-  return static_cast<int>(cudaGetLastError());
+  return scan_bwd(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da, db, dc, da_part,
+                  batch, seq_len, heads, d_state, bc_bf16, gy_bf16, false, stream);
+}
+
+// The same gradient for a d_state that is not a power of two up to 32 (at
+// most 1024): a head's d_delta is summed through shared memory. The same
+// arguments; two launches. Returns cudaGetLastError().
+extern "C" int apertis_selective_scan_bwd_smem(const void* delta, const void* a_cont,
+                                               const void* c_mod, const void* mask,
+                                               const void* h_all, const void* gy,
+                                               const void* g_last, void* d_delta, void* da,
+                                               void* db, void* dc, void* da_part, int batch,
+                                               int seq_len, int heads, int d_state,
+                                               int bc_bf16, int gy_bf16, void* stream) {
+  if (d_state <= 0 || d_state > kMaxSmemState || pow2_state(d_state) || batch <= 0 ||
+      seq_len <= 0 || heads <= 0 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return scan_bwd(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da, db, dc, da_part,
+                  batch, seq_len, heads, d_state, bc_bf16, gy_bf16, true, stream);
 }

@@ -21,8 +21,10 @@ For an int8 model the engine attaches the int8 copy of the tied LM head
 ``quantize_tied_head`` to a quantized tree (engine.py:365-375). For a MoE
 model, int8 or bf16, it builds every layer's int8 fat stack at construction
 (``ApertisForCausalLM.attach_moe_fat``), as the JAX engine attaches its fat
-stacks (engine.py:347-364); for an int8 MHA model, the fused QKV projection
-(``ApertisForCausalLM.attach_qkv``, engine.py:387-394).
+stacks (engine.py:347-364): the model reads a serving stack only once one is
+attached, and computes the MoE FFN in the tree's dtype before; for an int8
+MHA model, the fused QKV projection (``ApertisForCausalLM.attach_qkv``,
+engine.py:387-394).
 
 ``quant_bits=4`` serves w4a8, the JAX engine's ``APERTIS_QUANT_BITS=4``
 (engine.py:347-386): prefill keeps the tree, a dense int8 FFN decodes
@@ -39,8 +41,9 @@ linear of the full-sequence paths and the int8 head compute; the int8
 decode projections stay w8a8. ``moe_mode="kernel"`` attaches the per-expert
 stack (``ApertisForCausalLM.attach_moe_fused``) instead of the fat stack
 and serves the MoE FFN through the per-expert kernel; ``quant_bits=4`` then
-changes nothing for it, as in JAX. The defaults, ``dyn`` and ``fatk``, are
-what the port computed before the two arguments existed.
+changes nothing for it, as in JAX. ``moe_mode="0"`` attaches no stack: the
+MoE FFN runs ``moe_dense`` and ``moe_ragged`` (int8 experts under ``dyn``
+through their int8 branches), and the decode step without its epilogue.
 
 An MHA model keeps the JAX engine's bookkeeping (engine.py:162-262): a flat
 K/V cache of ``bucket + max_new_tokens`` slots, int8 by default for an int8
@@ -122,7 +125,7 @@ class InferenceEngine:
             model.quantize_tied_head()
         if moe_mode == "fatk":
             model.attach_moe_fat(bits=quant_bits)
-        else:
+        elif moe_mode == "kernel":
             model.attach_moe_fused()
         if quant_bits == 4:
             model.attach_int4_ffn()

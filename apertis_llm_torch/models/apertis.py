@@ -12,10 +12,12 @@ tree, so ``layers.3.attn.in_proj_x.w`` is layer 3 of
 Three paths, with the JAX package's semantics:
   * ``forward``: full-sequence logits; like the reference, the SSM mixer
     ignores the attention mask here (apertis.py:393-398, 772); MHA honours
-    it, and without one runs the causal flash kernel where the gate holds.
-    With ``labels`` it is the training forward (apertis.py:772-874): the
-    shifted cross-entropy, dropout at the JAX package's places with masks
-    drawn from a ``(step seed, layer)`` pair, and per-layer
+    it, and without one runs the causal flash kernel (bf16 or f32) where the
+    gate holds. With ``labels`` it is the training forward
+    (apertis.py:772-874): the shifted cross-entropy plus a MoE model's
+    load-balancing and router z-losses, dropout, routing noise and expert
+    dropout at the JAX package's places, drawn from a ``(step seed, layer)``
+    pair, the MoE FFN's training dispatch, and per-layer
     rematerialisation when ``config.remat`` and ``training``. The float
     parameters are trainable; the scan and the flash attention run as
     ``torch.autograd.Function``s whose backward is a kernel too.
@@ -34,20 +36,26 @@ Three paths, with the JAX package's semantics:
     FFN runs as the JAX package's ``_ffn`` does then: the plain pre-norm and
     the two linears (w8a8 in int8).
 
-The MoE FFN has two arithmetics, chosen by ``moe_mode``
-(:meth:`ApertisForCausalLM.set_modes`). ``fatk`` (the default) is the JAX
-package's under ``APERTIS_MOE_GROUPED=force``, ``APERTIS_SSM_STEP=force`` and
-``APERTIS_MOE_FUSED=fatk``: both of its kernels read the int8 fat stack of
-``models/moe_fuse.py`` (in a bf16 model too), a derived buffer of each MoE
-layer. Over full sequences the FFN runs the combine-folded fat kernel when the
-token count is at most ``max(E, moe_dense_threshold_tokens)`` and the grouped
-kernel above it; at decode the mixer step's moe epilogue emits the expert
-input and the top-2 combine weights, and the fat kernel follows. ``kernel``
-(``APERTIS_MOE_FUSED=kernel``) reads the per-expert stack instead
-(:meth:`ApertisForCausalLM.attach_moe_fused`): up to that token count the
-per-expert kernel (``ops/moe.py::moe_dense_fused``), above it
-``moe_ragged``; at decode the mixer step runs without its epilogue and the
-FFN as over full sequences (apertis.py:1224-1230).
+The MoE FFN computes in the tree's dtype until a serving stack is attached,
+as the JAX package's ``forward`` and ``prefill`` do on a raw tree: up to
+``max(E, moe_dense_threshold_tokens)`` tokens ``moe_dense``, above it
+``moe_ragged``, and in training with the capacity limit ``moe_dispatch``.
+``InferenceEngine`` attaches a stack by ``moe_mode``
+(:meth:`ApertisForCausalLM.set_modes`), as the JAX engine's
+``attach_fused_decode_params`` does. ``fatk`` (the default) is the JAX
+package's arithmetic under ``APERTIS_MOE_GROUPED=force``,
+``APERTIS_SSM_STEP=force`` and ``APERTIS_MOE_FUSED=fatk``: both of its
+kernels read the int8 fat stack of ``models/moe_fuse.py`` (in a bf16 model
+too, :meth:`ApertisForCausalLM.attach_moe_fat`), a derived buffer of each
+MoE layer. Over full sequences the FFN runs the combine-folded fat kernel up
+to that token count and the grouped kernel above it; at decode the mixer
+step's moe epilogue emits the expert input and the top-2 combine weights,
+and the fat kernel follows. ``kernel`` (``APERTIS_MOE_FUSED=kernel``) reads
+the per-expert stack instead (:meth:`ApertisForCausalLM.attach_moe_fused`):
+up to that token count the per-expert kernel (``ops/moe.py::
+moe_dense_fused``), above it ``moe_ragged``. ``0`` attaches and reads no
+stack. Without a fat stack the decode step runs the mixer step without its
+epilogue and the FFN as over full sequences (apertis.py:1224-1230).
 
 w4a8 serving (the JAX package's ``APERTIS_QUANT_BITS=4``, the engine's
 ``quant_bits=4``) keeps the int8 tree for prefill and attaches int4 decode
@@ -342,19 +350,16 @@ class SelectiveSSM(nn.Module):
             self.in_proj_z.w_s, self.x_param_proj.w_s, self.out_proj.w_s)
 
 
-def flash_eligible(config: ApertisConfig, seq_len: int, device, dtype: torch.dtype) -> bool:
+def flash_eligible(config: ApertisConfig, seq_len: int) -> bool:
     """The JAX package's gate for the flash kernel (``apertis.py::
-    _flash_eligible``): enabled, at least 128 positions, and a head width
-    that is a multiple of 8 up to 256; in place of its TPU clause, the
-    dtype: on the card the kernels take bf16 q/k/v, so f32 there takes the
-    plain attention, as the JAX package does off the TPU (the kernels' f32
-    form is still to port, ROADMAP.md), while the plain versions on the CPU
-    take either. The caller also requires that there is no attention
-    mask."""
+    _flash_eligible``) without its TPU clause: enabled, at least 128
+    positions, and a head width that is a multiple of 8 up to 256. The
+    kernels take bf16 and f32 q/k/v on the card (``FlashAttention`` picks
+    them by dtype), and their plain versions either on the CPU. The caller
+    also requires that there is no attention mask."""
     head_dim = config.head_dim
-    on_card = torch.device(device).type == "cuda"
     return (config.use_flash_attention and seq_len >= 128 and head_dim % 8 == 0
-            and head_dim <= 256 and (not on_card or dtype == torch.bfloat16))
+            and head_dim <= 256)
 
 
 _QKV_NAMES = ("qkv_w_q", "qkv_w_s", "qkv_b")
@@ -596,10 +601,14 @@ class Experts(nn.Module):
     """The stacked expert FFNs (``layers/ffn/experts``): LayerNorm ``ln_w``,
     ``ln_b`` (E, H), ``w1`` (E, H, I) and ``w2`` (E, I, H), or their int8
     forms ``w1_q``/``w1_s`` (E, 1, I) and ``w2_q``/``w2_s`` (E, 1, H), and
-    biases ``b1`` (E, I), ``b2`` (E, H). The kernels read the fat stack
-    (:meth:`fat`), held in non-persistent buffers: int8, or int4 where
+    biases ``b1`` (E, I), ``b2`` (E, H). The serving kernels read the fat
+    stack (:meth:`fat`), held in non-persistent buffers: int8, or int4 where
     ``fat_bits`` is 4 and H and I allow it; under ``moe_mode="kernel"`` the
-    per-expert stack (:meth:`fused`), held the same way."""
+    per-expert stack (:meth:`fused`), held the same way. A stack is used
+    only once it is attached (built by :meth:`fat` or :meth:`fused`, as
+    ``InferenceEngine`` does), as the JAX package uses one only once its
+    engine attaches it; :meth:`attached_fat` and :meth:`attached_fused`
+    return None before."""
 
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
@@ -649,11 +658,23 @@ class Experts(nn.Module):
             self._fused_key = key
         return {name: getattr(self, name) for name in _FUSED_NAMES}
 
+    def attached_fat(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The fat stack if one was attached, rebuilt if the experts changed
+        since; else None."""
+        return self.fat() if self._fat_key is not None else None
+
+    def attached_fused(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The per-expert stack if one was attached, rebuilt if the experts
+        changed since; else None."""
+        return self.fused() if self._fused_key is not None else None
+
 
 class MoEFFN(nn.Module):
     """Pre-normed top-2 MoE FFN (``layers/ffn`` of a MoE tree): ``pre_norm``,
     the router's LayerNorm ``router_ln`` and linear ``router`` (float in both
-    layouts), ``w_noise`` (kept, unused in eval) and :class:`Experts`."""
+    layouts), ``w_noise`` (the noisy routing's learnt scale, read in
+    training) and :class:`Experts`, with the config's routing, capacity and
+    expert-dropout knobs."""
 
     quant_matmul = "dyn"     # both set by ApertisForCausalLM.set_modes
     moe_mode = "fatk"
@@ -664,6 +685,15 @@ class MoEFFN(nn.Module):
         self.hidden_act, self.top_k = config.hidden_act, config.experts_per_token
         self.eps = config.layer_norm_eps
         self.fat_max_tokens = max(e, config.moe_dense_threshold_tokens)
+        self.routing_kw = dict(
+            noisy_routing_alpha=config.noisy_routing_alpha,
+            load_balancing_loss_coef=config.load_balancing_loss_coef,
+            router_z_loss_coef=config.router_z_loss_coef,
+            use_load_balancing_loss=config.use_load_balancing_loss,
+            use_router_z_loss=config.use_router_z_loss)
+        self.capacity_factor = (config.expert_capacity_factor
+                                if config.use_expert_capacity_limit else None)
+        self.expert_dropout = config.expert_dropout_prob if config.use_expert_dropout else 0.0
         self.pre_norm = Norm(h, config.use_rmsnorm, self.eps, device, dtype)
         self.router_ln = Norm(h, False, self.eps, device, dtype)
         self.router = Linear(h, e, True, device, dtype)
@@ -674,40 +704,72 @@ class MoEFFN(nn.Module):
     def router_weights(self) -> RouterWeights:
         return RouterWeights(self.router_ln.w, self.router_ln.b, self.router.w, self.router.b)
 
-    def forward(self, h: torch.Tensor, drop: Optional[Dropout] = None) -> torch.Tensor:
+    def fat_stack(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The attached fat stack under ``moe_mode="fatk"``, else None."""
+        return self.experts.attached_fat() if self.moe_mode == "fatk" else None
+
+    def forward(self, h: torch.Tensor, drop: Optional[Dropout] = None,
+                training: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Pre-norm, routing and experts over full sequences (``apertis.py::
-        _ffn``): up to ``max(E, moe_dense_threshold_tokens)`` tokens the fat
-        kernel (``moe_mode="kernel"``: the per-expert kernel), above it the
-        grouped kernel, or ``moe_ragged`` over the expert stacks when the fat
-        stack is int4 or under ``moe_mode="kernel"``. The pre-norm is the
-        plain norm in both layouts: the router reads the normed tensor. This
-        is the eval routing: MoE training is not ported (``params.py::
-        check_trainable``), so ``drop`` is not read."""
+        _ffn``): ``(out, lb_loss, rz_loss)``. In training, with ``drop`` (the
+        layer's generator of a step seed), the routing noise and then the
+        expert-dropout permutation are drawn from it; with no seed neither
+        is, as the JAX package draws neither with ``rng=None``. Then, in the
+        JAX package's order: training with the capacity limit,
+        :func:`moe_dispatch`; else up to ``max(E, moe_dense_threshold_tokens)``
+        tokens the fat kernel where a fat stack is attached (``fatk``), the
+        per-expert kernel where a per-expert stack is (``kernel``), else
+        ``moe_dense``; above it the grouped kernel over an attached int8 fat
+        stack, else ``moe_ragged``. The float dispatches run in the tree's
+        dtype; the serving stacks are not read in training. The pre-norm is
+        the plain norm in both layouts: the router reads the normed
+        tensor."""
         b, l, d = h.shape
-        x = self.pre_norm(h).reshape(b * l, d)
-        routing = moe_ops.route(x, *self.router_weights(), self.top_k,
-                                layer_norm_eps=self.eps)
-        small = b * l <= self.fat_max_tokens
-        fat = self.experts.fat() if self.moe_mode == "fatk" else None
-        if small and fat is None:
-            out = moe_ops.moe_dense_fused(x, routing, self.experts.fused(), self.experts.b2,
-                                          self.hidden_act, self.eps)
-        elif small:
+        s = b * l
+        num_experts = self.experts.b2.shape[0]
+        x = self.pre_norm(h).reshape(s, d)
+        noise = active = None
+        if training and drop is not None:
+            alpha = self.routing_kw["noisy_routing_alpha"]
+            if self.w_noise is not None and alpha > 0:
+                noise = torch.randn((s, num_experts), generator=drop.gen, device=x.device)
+            if self.expert_dropout > 0:
+                active = moe_ops.expert_dropout_mask(drop.gen, num_experts, self.expert_dropout)
+        routing = moe_ops.route(x, *self.router_weights(), self.top_k, layer_norm_eps=self.eps,
+                                training=training, noise=noise, w_noise=self.w_noise,
+                                **self.routing_kw)
+        experts = dict(self.experts.named_parameters())
+        fat = fused = None
+        if not training:
+            fat = self.fat_stack()
+            fused = self.experts.attached_fused() if self.moe_mode == "kernel" else None
+        if training and self.capacity_factor is not None:
+            capacity = max(1, int((s / num_experts) * self.capacity_factor))
+            out = moe_ops.moe_dispatch(x, routing, experts, self.hidden_act, self.eps, capacity,
+                                       active)
+        elif s <= self.fat_max_tokens and fat is not None:
             out = moe_ops.moe_dense_fat_kernel(x, routing, fat, self.experts.b2,
                                                self.hidden_act, self.eps)
-        elif fat is None or "w1t_q4" in fat:
-            out = moe_ops.moe_ragged(x, routing, dict(self.experts.named_parameters()),
-                                     self.hidden_act, self.eps, self.quant_matmul)
-        else:
+        elif s <= self.fat_max_tokens and fused is not None:
+            out = moe_ops.moe_dense_fused(x, routing, fused, self.experts.b2,
+                                          self.hidden_act, self.eps)
+        elif s <= self.fat_max_tokens:
+            out = moe_ops.moe_dense(x, routing, experts, self.hidden_act, self.eps, active,
+                                    self.quant_matmul)
+        elif fat is not None and "w1t_q4" not in fat:
             out = moe_ops.moe_grouped_fat(x, routing, fat, self.experts.b2, self.hidden_act,
                                           self.eps)
-        return out.reshape(b, l, d)
+        else:
+            out = moe_ops.moe_ragged(x, routing, experts, self.hidden_act, self.eps,
+                                     self.quant_matmul, active)
+        return out.reshape(b, l, d), routing.lb_loss, routing.rz_loss
 
     def decode(self, ffn_in: Tuple[torch.Tensor, ...], out_dtype: torch.dtype) -> torch.Tensor:
         """The fat kernel on the decode step's moe epilogue ``(x_q, x_s,
-        combine)``, plus ``combine @ b2`` in f32 (apertis.py:1477-1493)."""
+        combine)`` over the attached fat stack, plus ``combine @ b2`` in f32
+        (apertis.py:1477-1493)."""
         x_q, x_s, comb = ffn_in
-        y = moe_ops.fat_ffn(x_q, x_s, comb, self.experts.fat(), comb.shape[1], self.hidden_act)
+        y = moe_ops.fat_ffn(x_q, x_s, comb, self.fat_stack(), comb.shape[1], self.hidden_act)
         return (y + comb @ self.experts.b2.float()).to(out_dtype)
 
 
@@ -720,29 +782,40 @@ class DecoderLayer(nn.Module):
         self.ffn = ffn(config, device, dtype, quantized)
         self.dropout = config.hidden_dropout_prob
 
-    def forward(self, h: torch.Tensor, drop: Optional[Dropout] = None, **mixer_kw):
-        """One layer over full sequences: ``(h + mixer + FFN, cache)``. With
-        ``drop`` (training) its masks are drawn in a fixed order: the MHA
-        context, the mixer's output, the FFN's activation, the FFN's output
-        (apertis.py:683, 696 and the FFN's :633/636)."""
+    def forward(self, h: torch.Tensor, drop: Optional[Dropout] = None, training: bool = False,
+                **mixer_kw):
+        """One layer over full sequences: ``(h + mixer + FFN, cache,
+        losses)``, ``losses`` the MoE FFN's ``(lb_loss, rz_loss)`` (None for a
+        dense FFN). With ``drop`` (training with a step seed) its draws come
+        in a fixed order: the MHA context's mask, the mixer output's, then
+        the dense FFN activation's mask or the MoE routing noise and expert
+        permutation, then the FFN output's mask (apertis.py:683, 696 and the
+        FFN's :506-528, 633/636)."""
         out, cache = self.attn(h, drop=drop, **mixer_kw)
-        if drop is None:
-            h = h + out
-            return h + self.ffn(h), cache
-        h = h + drop(out, self.dropout)
-        return h + drop(self.ffn(h, drop=drop), self.dropout), cache
+        h = h + (out if drop is None else drop(out, self.dropout))
+        losses = None
+        if isinstance(self.ffn, MoEFFN):
+            out, lb_loss, rz_loss = self.ffn(h, drop=drop, training=training)
+            losses = (lb_loss, rz_loss)
+        else:
+            out = self.ffn(h, drop=drop)
+        return h + (out if drop is None else drop(out, self.dropout)), cache, losses
 
 
-def _run_layer(layer: DecoderLayer, h: torch.Tensor, seed: Optional[int], kw: Dict,
-               params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-    """One layer of the full-sequence forward, with its dropout masks drawn
-    from ``seed`` (none when it is None) and, with ``params``, the layer's
-    parameters replaced by them: the form ``torch.utils.checkpoint`` reruns
-    under remat."""
+def _run_layer(layer: DecoderLayer, h: torch.Tensor, seed: Optional[int], training: bool,
+               kw: Dict, params: Optional[Dict[str, torch.Tensor]] = None):
+    """One layer of the full-sequence forward, ``(h, losses)``, with its
+    dropout masks, routing noise and expert permutation drawn from ``seed``
+    (none when it is None) and, with ``params``, the layer's parameters
+    replaced by them: the form ``torch.utils.checkpoint`` reruns under
+    remat, drawing the same values again."""
     drop = None if seed is None else Dropout(seed, h.device)
+    kw = dict(drop=drop, training=training, **kw)
     if params is None:
-        return layer(h, drop=drop, **kw)[0]
-    return torch.func.functional_call(layer, params, (h,), dict(drop=drop, **kw))[0]
+        out = layer(h, **kw)
+    else:
+        out = torch.func.functional_call(layer, params, (h,), kw)
+    return out[0], out[2]
 
 
 class Embedding(nn.Module):
@@ -798,8 +871,9 @@ class ApertisForCausalLM(nn.Module):
         rows not quantized already (``QuantLinear.forward``, the head
         included), for whether an int8 pre-norm fuses its row quantization
         (``dyn`` only) and for ``moe_ragged``'s int8 branch (``dyn`` only).
-        ``moe_mode`` (``APERTIS_MOE_FUSED``): ``fatk`` or ``kernel``, see the
-        module docstring. An unknown value raises ``ValueError``."""
+        ``moe_mode`` (``APERTIS_MOE_FUSED``): ``fatk``, ``kernel`` or ``0``,
+        which stack a MoE FFN reads once one is attached (none under ``0``),
+        see the module docstring. An unknown value raises ``ValueError``."""
         check_serving_modes(quant_matmul, moe_mode)
         self.quant_matmul, self.moe_mode = quant_matmul, moe_mode
         for module in self.modules():
@@ -863,15 +937,14 @@ class ApertisForCausalLM(nn.Module):
             return self.lm_head(h)
         return h @ self.embed.tok.T     # tied
 
-    def _mha_kwargs(self, attention_mask: Optional[torch.Tensor], length: int,
-                    dtype: torch.dtype) -> Dict:
+    def _mha_kwargs(self, attention_mask: Optional[torch.Tensor], length: int) -> Dict:
         """The full-sequence arguments of the MHA layers: the causal x padding
         bias (None without a mask), positions 0..L-1, the RoPE tables and
-        the flash gate for activations of ``dtype``."""
+        the flash gate."""
         bias = None if attention_mask is None else attn_ops.build_bias(attention_mask, length)
         return dict(bias=bias, pos_ids=torch.arange(length, device=self.device),
                     rope=(self.rope_cos, self.rope_sin),
-                    flash=flash_eligible(self.config, length, self.device, dtype))
+                    flash=flash_eligible(self.config, length))
 
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None, *, training: bool = False,
@@ -882,37 +955,42 @@ class ApertisForCausalLM(nn.Module):
         ignores the mask, as the reference does.
 
         With ``labels`` (B, L) it returns an :class:`LMOutput` whose loss is
-        the shifted cross-entropy (``apertis.py::forward``). ``training``
-        turns on dropout, when ``seed`` (the step's seed) is given and a rate
-        is not 0, and per-layer rematerialisation when ``config.remat``:
-        layer ``i`` is run under ``torch.utils.checkpoint`` and draws its
-        masks from ``(seed, i)``, the embedding's from ``(seed, embedding)``,
-        so the recomputation draws the same ones (``fold_in(rng, idx)``,
-        apertis.py:830)."""
+        the shifted cross-entropy plus, for a MoE model, the layers' summed
+        load-balancing and router z-losses (``apertis.py::forward``).
+        ``training`` turns on the MoE routing's training form and, when
+        ``seed`` (the step's seed) is given, dropout, the routing noise and
+        expert dropout; with ``config.remat`` it runs each layer under
+        ``torch.utils.checkpoint``. Layer ``i`` draws from ``(seed, i)``, the
+        embedding's mask from ``(seed, embedding)``, so the recomputation
+        draws the same values (``fold_in(rng, idx)``, apertis.py:830)."""
         cfg = self.config
         h = self.embed.tok[input_ids]
-        kw = self._mha_kwargs(attention_mask, h.shape[1], h.dtype) if is_mha(cfg) else {}
-        rates = (cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob if is_mha(cfg) else 0.0)
-        dropping = training and seed is not None and max(rates) > 0.0
-        if dropping:
+        kw = self._mha_kwargs(attention_mask, h.shape[1]) if is_mha(cfg) else {}
+        drawing = training and seed is not None
+        if drawing:
             h = Dropout(fold_seed(seed, 0), h.device)(h, cfg.hidden_dropout_prob)
         remat = training and cfg.remat and torch.is_grad_enabled()
+        lb_loss = rz_loss = torch.zeros((), dtype=torch.float32, device=h.device)
         for i, layer in enumerate(self.layers):
-            layer_seed = fold_seed(seed, i + 1) if dropping else None
+            layer_seed = fold_seed(seed, i + 1) if drawing else None
             if remat:
                 # The layer's parameters go in as inputs, so that the
                 # recomputation reads the tensors this forward read (under
                 # torch.func.functional_call those are casts of the masters,
                 # gone from the module by the time the backward runs).
-                h = checkpoint(_run_layer, layer, h, layer_seed, kw,
-                               dict(layer.named_parameters()), use_reentrant=False)
+                h, losses = checkpoint(_run_layer, layer, h, layer_seed, training, kw,
+                                       dict(layer.named_parameters()), use_reentrant=False)
             else:
-                h = _run_layer(layer, h, layer_seed, kw)
+                h, losses = _run_layer(layer, h, layer_seed, training, kw)
+            if losses is not None:
+                lb_loss, rz_loss = lb_loss + losses[0], rz_loss + losses[1]
         logits = self._lm_head(self.final_norm(h))
         if labels is None:
             return logits
-        zero = torch.zeros((), dtype=torch.float32, device=logits.device)
-        return LMOutput(cross_entropy_loss(logits, labels), logits, zero, zero)
+        loss = cross_entropy_loss(logits, labels)
+        if is_moe(cfg):
+            loss = loss + lb_loss + rz_loss
+        return LMOutput(loss, logits, lb_loss, rz_loss)
 
     def init_cache(self, batch_size: int, max_length: Optional[int] = None,
                    kv_int8: bool = False) -> Cache:
@@ -958,10 +1036,10 @@ class ApertisForCausalLM(nn.Module):
         h = self.embed.tok[input_ids]
         if is_mha(self.config):
             # The prompt's post-RoPE K/V fill slots [0, L) of each layer.
-            kw = self._mha_kwargs(attention_mask, l, h.dtype)
+            kw = self._mha_kwargs(attention_mask, l)
             head_dim = self.config.head_dim
             for i, layer in enumerate(self.layers):
-                h, (k, v) = layer(h, want_cache=True, **kw)
+                h, (k, v), _ = layer(h, want_cache=True, **kw)
                 for name, val in (("k", k), ("v", v)):
                     if name + "_ps" in cache:
                         val_q, val_s = quantize_heads(val, head_dim)
@@ -972,8 +1050,8 @@ class ApertisForCausalLM(nn.Module):
         else:
             seq_lens = attention_mask.to(torch.int64).sum(dim=1)
             for i, layer in enumerate(self.layers):
-                h, layer_cache = layer(h, seq_mask=attention_mask, seq_lens=seq_lens,
-                                       want_cache=True)
+                h, layer_cache, _ = layer(h, seq_mask=attention_mask, seq_lens=seq_lens,
+                                          want_cache=True)
                 cache["conv"][i].copy_(layer_cache["conv"])
                 cache["ssm"][i].copy_(layer_cache["ssm"])
         h = self.final_norm(h)
@@ -990,10 +1068,11 @@ class ApertisForCausalLM(nn.Module):
         mixer step that also emits the FFN's input (normed, or normed and
         quantized; for MoE the expert input and the combine weights), then the
         fused decode FFN; ``t``, ``attn_mask_row`` and ``positions`` do not
-        apply. A MoE model past ``moe_dense_threshold_tokens`` rows, or under
-        ``moe_mode="kernel"`` (no fat stack), runs the step without its
-        epilogue and the FFN as over full sequences, as the JAX package does
-        (apertis.py:1224-1230); a dense FFN that fails the
+        apply. A MoE model past ``moe_dense_threshold_tokens`` rows, or with
+        no fat stack attached (``moe_mode="kernel"`` or ``"0"``, or no
+        engine), runs the step without its epilogue and the FFN as over full
+        sequences, as the JAX package does (apertis.py:1224-1230); a dense
+        FFN that fails the
         fused FFN's width test (``DenseFFN.fused_decode``) runs the step
         without its epilogue and then the plain pre-norm and
         :meth:`DenseFFN.unfused` (apertis.py:1234-1268, 1497-1500). MHA: see
@@ -1004,9 +1083,9 @@ class ApertisForCausalLM(nn.Module):
         eps = cfg.layer_norm_eps
         h = self.embed.tok[token_ids]                              # (B, D)
         b = h.shape[0]
-        moe_full = is_moe(cfg) and (b > cfg.moe_dense_threshold_tokens
-                                    or self.moe_mode == "kernel")
         for i, layer in enumerate(self.layers):
+            moe_full = is_moe(cfg) and (b > cfg.moe_dense_threshold_tokens
+                                        or layer.ffn.fat_stack() is None)
             conv = cache["conv"][i]
             ssm = cache["ssm"][i].view(b, -1)          # updated in place
             epilogue = not moe_full and (is_moe(cfg) or layer.ffn.fused_decode)
@@ -1021,7 +1100,7 @@ class ApertisForCausalLM(nn.Module):
             if epilogue:
                 h = h2 + layer.ffn.decode(outs[3:], h2.dtype)
             elif moe_full:
-                h = h2 + layer.ffn(h2[:, None, :])[:, 0]
+                h = h2 + layer.ffn(h2[:, None, :])[0][:, 0]
             else:
                 h = h2 + layer.ffn.unfused(layer.ffn.pre_norm(h2))
         return self._lm_head(self.final_norm(h)), cache

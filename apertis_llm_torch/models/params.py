@@ -132,15 +132,15 @@ def check_quant_bits(quant_bits: int) -> None:
         raise ValueError(f"quant_bits must be 4 or 8, got {quant_bits}")
 
 
-MOE_MODES = ("fatk", "kernel")
+MOE_MODES = ("fatk", "kernel", "0")
 
 
 def check_serving_modes(quant_matmul: str, moe_mode: str) -> None:
     """Raise ``ValueError`` unless ``quant_matmul`` is one of the JAX
     package's ``APERTIS_QUANT_MATMUL`` values the port serves (``dyn``,
     ``weightonly``, ``pallas``, ``fused``) and ``moe_mode`` one of its
-    ``APERTIS_MOE_FUSED`` values (``fatk``; ``kernel``, its ``kernel``/``1``).
-    ``auto`` and the kernel-free ``fat`` and ``0`` are not ported
+    ``APERTIS_MOE_FUSED`` values (``fatk``; ``kernel``, its ``kernel``/``1``;
+    ``0``, no stack). ``auto`` and the kernel-free ``fat`` are not ported
     (ROADMAP.md)."""
     if quant_matmul not in QUANT_MATMUL_MODES:
         raise ValueError(f"quant_matmul must be one of {QUANT_MATMUL_MODES}, got {quant_matmul!r}")
@@ -151,24 +151,17 @@ def check_serving_modes(quant_matmul: str, moe_mode: str) -> None:
 def check_trainable(config: ApertisConfig, quantized: bool = False, device="cuda",
                     devices: int = 1) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP.md) unless the port can
-    train ``config`` as asked: a variant :func:`check_supported` takes, with
-    a float tree, on one device. Not ported yet: MoE training (module 4's
-    training half: capacity dispatch, noisy top-k, expert dropout, the
-    load-balancing and router z-losses), int8 trees, the scan's backward on
-    the card with ``ssm_d_state`` not a power of two up to 32 (a head's
-    channels share one warp), and more than one device (module 7). A flash
-    MHA model in f32 on the card trains through the plain attention
-    (``models/apertis.py::flash_eligible``)."""
+    train ``config`` as asked: a variant :func:`check_supported` takes (the
+    dense or top-2 MoE selective-SSM model at any ``ssm_d_state`` up to
+    1024, the MHA model, bf16 or f32 compute), with a float tree, on one
+    device. Not ported yet: int8 trees and more than one device (module
+    7)."""
     check_supported(config, quantized)
-    on_card = torch.device(device).type == "cuda"
     missing = []
-    if is_moe(config):
-        missing.append("MoE training")
     if quantized:
         missing.append("training an int8 tree")
-    n = config.ssm_d_state
-    if on_card and not is_mha(config) and (n > 32 or n & (n - 1)):
-        missing.append(f"the scan's backward on the card with ssm_d_state={n}")
+    if torch.device(device).type == "cuda" and not is_mha(config) and config.ssm_d_state > 1024:
+        missing.append(f"the scan's backward on the card with ssm_d_state={config.ssm_d_state}")
     if devices > 1:
         missing.append(f"training on {devices} devices")
     if missing:

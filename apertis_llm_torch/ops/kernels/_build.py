@@ -27,7 +27,7 @@ CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT / "_build"
 SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu", "moe_ffn.cu",
            "moe_grouped.cu", "mha_step.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-           "quant_matmul.cu", "moe_dense.cu")
+           "flash_attention_f32.cu", "quant_matmul.cu", "moe_dense.cu")
 HEADERS = ("common.cuh", "moe_gemm.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
@@ -44,6 +44,7 @@ SIGNATURES = {
     # delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da, db, dc,
     # da_part, B, L, H, N, bc_bf16, gy_bf16, stream
     "apertis_selective_scan_bwd": [_P] * 12 + [_I] * 6 + [_P],
+    "apertis_selective_scan_bwd_smem": [_P] * 12 + [_I] * 6 + [_P],
     # 21 inputs, 6 outputs, 4 scratch, B, D, C, K, R, H, N, E, rms, eps, stream
     "apertis_ssm_decode_step": [_P] * 31 + [_I] * 9 + [_F, _P],
     # 25 inputs, 6 outputs, 4 scratch, B, D, C, K, R, H, N, E, rms, eps, stream
@@ -77,6 +78,9 @@ SIGNATURES = {
     "apertis_flash_attention_dq": [_P] * 7 + [_I] * 4 + [_P],
     # q, k, v, dout, lse, delta, dk, dv, B*H, L, head_dim, causal, stream
     "apertis_flash_attention_dkv": [_P] * 8 + [_I] * 4 + [_P],
+    "apertis_flash_attention_fwd_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "apertis_flash_attention_dq_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "apertis_flash_attention_dkv_f32": [_P] * 8 + [_I] * 4 + [_P],
     # x_q, x_s, w_q, w_s, bias (or NULL), out, M, N, K, out_bf16, stream
     "apertis_quant_matmul_dyn": [_P] * 6 + [_I] * 4 + [_P],
     # x, w_q, w_s, bias (or NULL), out, M, N, K, x_bf16, stream

@@ -2,12 +2,17 @@
 
 ``flash_attention_fwd`` launches the CUDA kernel in ``csrc/flash_attention.cu``
 and ``flash_attention_dq`` / ``flash_attention_dkv`` those in
-``csrc/flash_attention_bwd.cu`` for CUDA tensors; for CPU tensors each runs
-its plain PyTorch version (``*_reference``). They replace
-``apertis_llm_tpu/ops/pallas/flash_attention.py::flash_attention``: its
-forward, which returns the log-sum-exp beside the output, and its backward
-(``_flash_bwd``), which recomputes the probabilities from it.
-:class:`FlashAttention` is the ``torch.autograd.Function`` around the three.
+``csrc/flash_attention_bwd.cu`` for bf16 CUDA tensors;
+``flash_attention_fwd_f32``, ``flash_attention_dq_f32`` and
+``flash_attention_dkv_f32`` launch the f32 kernels of
+``csrc/flash_attention_f32.cu`` for f32 CUDA tensors. For CPU tensors each
+runs its plain PyTorch version (``*_reference``, which takes either dtype).
+They replace ``apertis_llm_tpu/ops/pallas/flash_attention.py::
+flash_attention``: its forward, which returns the log-sum-exp beside the
+output, and its backward (``_flash_bwd``), which recomputes the
+probabilities from it. :class:`FlashAttention` is the
+``torch.autograd.Function`` around the three, choosing the bf16 or the f32
+kernels by q's dtype.
 """
 
 from __future__ import annotations
@@ -164,26 +169,115 @@ def flash_attention_dkv(q, k, v, dout, lse, delta,
 flash_attention_dkv.launches = 0
 
 
+def _check_f32(name, q, *others):
+    """The f32 kernels' operands: contiguous f32 CUDA tensors, each (B, H,
+    L, Dh) or (B, H, L), Dh a multiple of 8 up to 256 (4-byte loads: no
+    alignment beyond the dtype's)."""
+    b, h, l, dh = q.shape
+    for t in (q,) + others:
+        shape = (b, h, l, dh) if t.dim() == 4 else (b, h, l)
+        _build.check_tensor(t, shape, (torch.float32,), name, q.device)
+    if b * h == 0 or l == 0 or dh % 8 or dh > 256:
+        raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
+
+
+def flash_attention_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Self-attention forward with f32 operands: kernel on CUDA tensors
+    (f32 arithmetic, no TF32), plain version on CPU ones. The kernel takes
+    contiguous f32 q, k, v of one shape (B, H, L, Dh) with Dh a multiple of
+    8 up to 256, and returns f32 ``out`` and ``lse``."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_reference(q, k, v, causal)
+    _check_f32("flash_attention_fwd_f32", q, k, v)
+    b, h, l, dh = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    err = _build.load_library().apertis_flash_attention_fwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b * h, l,
+        dh, int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_fwd_f32")
+    flash_attention_fwd_f32.launches += 1
+    return out, lse
+
+
+flash_attention_fwd_f32.launches = 0
+
+
+def flash_attention_dq_f32(q, k, v, dout, lse, delta, causal: bool = True) -> torch.Tensor:
+    """dQ with f32 operands: kernel on CUDA tensors, plain version on CPU
+    ones. The kernel takes contiguous f32 q, k, v, dout (B, H, L, Dh), Dh a
+    multiple of 8 up to 256, the forward's ``lse`` and ``delta = sum_d out *
+    dout`` (B, H, L) f32, and returns f32 ``dq``."""
+    if q.device.type == "cpu":
+        return flash_attention_dq_reference(q, k, v, dout, lse, delta, causal)
+    _check_f32("flash_attention_dq_f32", q, k, v, dout, lse, delta)
+    b, h, l, dh = q.shape
+    dq = torch.empty_like(q)
+    err = _build.load_library().apertis_flash_attention_dq_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b * h, l, dh, int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_dq_f32")
+    flash_attention_dq_f32.launches += 1
+    return dq
+
+
+flash_attention_dq_f32.launches = 0
+
+
+def flash_attention_dkv_f32(q, k, v, dout, lse, delta,
+                            causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV with f32 operands: kernel on CUDA tensors, plain version on
+    CPU ones; the kernel takes what :func:`flash_attention_dq_f32` takes and
+    returns f32 ``(dk, dv)``."""
+    if q.device.type == "cpu":
+        return flash_attention_dkv_reference(q, k, v, dout, lse, delta, causal)
+    _check_f32("flash_attention_dkv_f32", q, k, v, dout, lse, delta)
+    b, h, l, dh = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _build.load_library().apertis_flash_attention_dkv_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, l, dh, int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_dkv_f32")
+    flash_attention_dkv_f32.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv_f32.launches = 0
+
+
+def _kernels(dtype: torch.dtype):
+    """The (forward, dQ, dK/dV) wrappers for q/k/v of ``dtype``: the f32
+    kernels for f32, the bf16 ones otherwise (which raise on a CUDA tensor
+    of another dtype)."""
+    if dtype == torch.float32:
+        return flash_attention_fwd_f32, flash_attention_dq_f32, flash_attention_dkv_f32
+    return flash_attention_fwd, flash_attention_dq, flash_attention_dkv
+
+
 class FlashAttention(torch.autograd.Function):
     """Causal self-attention ``out`` of q, k, v (B, H, L, Dh) with its
     gradient, the JAX package's custom VJP of ``flash_attention``: the
-    forward (:func:`flash_attention_fwd`) saves q, k, v, out and the LSE;
-    the backward forms ``delta = sum_d out * dout`` in f32 (plain torch, as
-    the JAX package leaves it to XLA, flash_attention.py:246) and runs
-    :func:`flash_attention_dq` and :func:`flash_attention_dkv`."""
+    forward (:func:`flash_attention_fwd`, or :func:`flash_attention_fwd_f32`
+    for f32 q) saves q, k, v, out and the LSE; the backward forms ``delta =
+    sum_d out * dout`` in f32 (plain torch, as the JAX package leaves it to
+    XLA, flash_attention.py:246) and runs the dQ and dK/dV kernels of q's
+    dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        out, lse = flash_attention_fwd(q, k, v, causal=True)
+        out, lse = _kernels(q.dtype)[0](q, k, v, causal=True)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
+        _, dq_fn, dkv_fn = _kernels(q.dtype)
         dout = dout.to(q.dtype).contiguous()
         delta = (out.float() * dout.float()).sum(dim=-1)
-        dq = flash_attention_dq(q, k, v, dout, lse, delta, causal=True)
-        dk, dv = flash_attention_dkv(q, k, v, dout, lse, delta, causal=True)
+        dq = dq_fn(q, k, v, dout, lse, delta, causal=True)
+        dk, dv = dkv_fn(q, k, v, dout, lse, delta, causal=True)
         return dq, dk, dv
-

@@ -146,6 +146,45 @@ def selective_scan_bwd_reference(
     return d_delta, d_a, lam.to(c_mod.dtype), (g * hs).to(c_mod.dtype)
 
 
+def _scan_bwd_launch(entry: str, name: str, delta, a_cont, c_mod, seq_mask, hs, gy, g_last):
+    """Check the backward's operands and launch the C entry point ``entry``."""
+    bsz, l, h, n = hs.shape
+    dev = c_mod.device
+    _build.check_tensor(delta, (bsz, l, h), (torch.float32,), "delta", dev)
+    _build.check_tensor(a_cont, (h, n), (torch.float32,), "a_cont", dev)
+    _build.check_tensor(c_mod, (bsz, l, h, n), (torch.bfloat16, torch.float32), "c_mod", dev)
+    _build.check_tensor(hs, (bsz, l, h, n), (torch.float32,), "hs", dev)
+    _build.check_tensor(gy, (bsz, l, h * n), (torch.bfloat16, torch.float32), "gy", dev)
+    if g_last is not None:
+        _build.check_tensor(g_last, (bsz, h, n), (torch.float32,), "g_last", dev)
+    if seq_mask is not None:
+        _build.check_tensor(seq_mask, (bsz, l), (torch.int32,), "seq_mask", dev)
+    if bsz * l * h == 0:
+        raise ValueError(f"{name}: empty shape {tuple(hs.shape)}")
+    d_delta = torch.empty((bsz, l, h), dtype=torch.float32, device=dev)
+    d_a = torch.empty((h, n), dtype=torch.float32, device=dev)
+    db = torch.empty_like(c_mod)
+    dc = torch.empty_like(c_mod)
+    da_part = torch.empty((bsz, h * n), dtype=torch.float32, device=dev)
+    err = getattr(_build.load_library(), entry)(
+        delta.data_ptr(), a_cont.data_ptr(), c_mod.data_ptr(),
+        seq_mask.data_ptr() if seq_mask is not None else None, hs.data_ptr(), gy.data_ptr(),
+        g_last.data_ptr() if g_last is not None else None, d_delta.data_ptr(), d_a.data_ptr(),
+        db.data_ptr(), dc.data_ptr(), da_part.data_ptr(), bsz, l, h, n,
+        int(c_mod.dtype == torch.bfloat16), int(gy.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, name)
+    return d_delta, d_a, db, dc
+
+
+def _warp_state(n: int) -> bool:
+    """True when a head's ``n`` channels fit neighbouring lanes of one warp
+    (``n`` a power of two up to 32): the backward kernel
+    :func:`selective_scan_bwd` launches sums them by warp shuffles; any other
+    ``n`` takes :func:`selective_scan_bwd_smem`."""
+    return 0 < n <= 32 and n & (n - 1) == 0
+
+
 def selective_scan_bwd(
     delta: torch.Tensor,
     a_cont: torch.Tensor,
@@ -160,39 +199,45 @@ def selective_scan_bwd(
     The kernel takes the forward's ``delta``, ``a_cont``, ``c_mod`` and
     ``seq_mask`` as :func:`selective_scan_fwd` does, its states ``hs``
     (B, L, H, N) float32, ``gy`` (B, L, H*N) contiguous in bfloat16 or
-    float32, ``g_last`` (B, H, N) float32 or None, and N a power of two up to
-    32 (a head's channels share one warp)."""
+    float32 and ``g_last`` (B, H, N) float32 or None. With N a power of two
+    up to 32 (a head's channels share one warp) it launches the warp-shuffle
+    kernel; any other N goes to :func:`selective_scan_bwd_smem`."""
     if c_mod.device.type == "cpu":
         return selective_scan_bwd_reference(delta, a_cont, c_mod, seq_mask, hs, gy, g_last)
-    bsz, l, h, n = hs.shape
-    dev = c_mod.device
-    _build.check_tensor(delta, (bsz, l, h), (torch.float32,), "delta", dev)
-    _build.check_tensor(a_cont, (h, n), (torch.float32,), "a_cont", dev)
-    _build.check_tensor(c_mod, (bsz, l, h, n), (torch.bfloat16, torch.float32), "c_mod", dev)
-    _build.check_tensor(hs, (bsz, l, h, n), (torch.float32,), "hs", dev)
-    _build.check_tensor(gy, (bsz, l, h * n), (torch.bfloat16, torch.float32), "gy", dev)
-    if g_last is not None:
-        _build.check_tensor(g_last, (bsz, h, n), (torch.float32,), "g_last", dev)
-    if seq_mask is not None:
-        _build.check_tensor(seq_mask, (bsz, l), (torch.int32,), "seq_mask", dev)
-    if n > 32 or n & (n - 1) or bsz * l * h == 0:
-        raise ValueError(f"selective_scan_bwd: unsupported shape {tuple(hs.shape)} "
-                         "(N a power of two up to 32)")
-    d_delta = torch.empty((bsz, l, h), dtype=torch.float32, device=dev)
-    d_a = torch.empty((h, n), dtype=torch.float32, device=dev)
-    db = torch.empty_like(c_mod)
-    dc = torch.empty_like(c_mod)
-    da_part = torch.empty((bsz, h * n), dtype=torch.float32, device=dev)
-    err = _build.load_library().apertis_selective_scan_bwd(
-        delta.data_ptr(), a_cont.data_ptr(), c_mod.data_ptr(),
-        seq_mask.data_ptr() if seq_mask is not None else None, hs.data_ptr(), gy.data_ptr(),
-        g_last.data_ptr() if g_last is not None else None, d_delta.data_ptr(), d_a.data_ptr(),
-        db.data_ptr(), dc.data_ptr(), da_part.data_ptr(), bsz, l, h, n,
-        int(c_mod.dtype == torch.bfloat16), int(gy.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "selective_scan_bwd")
+    if not _warp_state(hs.shape[-1]):
+        return selective_scan_bwd_smem(delta, a_cont, c_mod, seq_mask, hs, gy, g_last)
+    out = _scan_bwd_launch("apertis_selective_scan_bwd", "selective_scan_bwd", delta, a_cont,
+                           c_mod, seq_mask, hs, gy, g_last)
     selective_scan_bwd.launches += 1
-    return d_delta, d_a, db, dc
+    return out
 
 
 selective_scan_bwd.launches = 0
+
+
+def selective_scan_bwd_smem(
+    delta: torch.Tensor,
+    a_cont: torch.Tensor,
+    c_mod: torch.Tensor,
+    seq_mask: Optional[torch.Tensor],
+    hs: torch.Tensor,
+    gy: torch.Tensor,
+    g_last: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The scan's gradient at an N that is not a power of two up to 32 (at
+    most 1024): kernel on CUDA tensors, whose blocks hold whole heads and sum
+    each head's d_delta through shared memory in channel order; plain
+    version on CPU ones. Takes what :func:`selective_scan_bwd` takes."""
+    if c_mod.device.type == "cpu":
+        return selective_scan_bwd_reference(delta, a_cont, c_mod, seq_mask, hs, gy, g_last)
+    n = hs.shape[-1]
+    if _warp_state(n) or n > 1024:
+        raise ValueError(f"selective_scan_bwd_smem: N = {n} (takes N up to 1024 that is not "
+                         "a power of two up to 32)")
+    out = _scan_bwd_launch("apertis_selective_scan_bwd_smem", "selective_scan_bwd_smem", delta,
+                           a_cont, c_mod, seq_mask, hs, gy, g_last)
+    selective_scan_bwd_smem.launches += 1
+    return out
+
+
+selective_scan_bwd_smem.launches = 0

@@ -1,24 +1,36 @@
-"""The MoE FFN at serving time: routing and the glue around the expert kernels.
+"""The MoE FFN: routing, the float and training dispatches, and the glue
+around the expert kernels (``apertis_llm_tpu/ops/moe.py``):
 
-The serving half of ``apertis_llm_tpu/ops/moe.py`` (eval mode):
-
-  * :func:`route`: router LayerNorm -> f32 logits -> softmax -> top-1 or
-    top-2 by argmax passes (the first index wins a tie) -> weights
-    renormalised by their sum + 1e-6. The routing losses are zero in eval;
-  * :func:`moe_dense`: every expert on every token in float, combined by the
-    routing weights. It is the tests' semantic yardstick, not on the card's
-    path;
+  * :func:`route`: router LayerNorm -> f32 logits (+ noise in training) ->
+    softmax -> top-1 or top-2 by argmax passes (the first index wins a tie)
+    -> weights renormalised by their sum + 1e-6; in training the
+    load-balancing and router z-losses, which are zero in eval;
+  * :func:`expert_dropout_mask`: whole experts dropped for a training step;
+  * :func:`moe_dispatch`: the capacity-bucketed dispatch of training;
+  * :func:`moe_dense`: every expert on every token, combined by the routing
+    weights, up to ``max(E, moe_dense_threshold_tokens)`` tokens when no
+    serving stack is attached; int8 experts under ``quant_matmul="dyn"``
+    take its int8 branch (each expert's w8a8 products through the w8a8
+    kernel, ``quant_matmul_dyn_pre_q``);
+  * :func:`moe_ragged`: the sort-based dispatch whose expert groups run
+    their products one group at a time, above that token count without the
+    capacity limit, or when the attached fat stack is int4 (the grouped
+    kernel reads int8 stacks only) or is not attached;
   * :func:`moe_dense_fat_kernel`: the glue of the combine-folded fat kernel
     (``ops/kernels/moe_ffn.py``), for small token counts;
   * :func:`moe_grouped_fat`: the counting-sort dispatch around the grouped
     kernel (``ops/kernels/moe_grouped.py``), for large token counts;
   * :func:`moe_dense_fused`: the glue of the per-expert kernel
     (``expert_ffn_dense``) over the per-expert stack, for small token counts
-    under ``moe_mode="kernel"``;
-  * :func:`moe_ragged`: the sort-based dispatch whose expert groups run
-    their products one group at a time, for large token counts when the fat
-    stack is int4 (the grouped kernel reads int8 stacks only) or when there
-    is no fat stack (``moe_mode="kernel"``).
+    under ``moe_mode="kernel"``.
+
+The float dispatches (``moe_dispatch``, ``moe_dense``, ``moe_ragged``) run
+in the tree's dtype, their expert products in plain torch, as the JAX
+package leaves them to XLA; with the active mask of expert dropout where the
+JAX functions apply it. Their token combines gather each (token, choice) row
+and add a token's K rows in choice order, never by a scatter-add:
+``index_add_`` on CUDA floats adds by atomics, whose order changes from run
+to run, and a repeated training step must give the same result.
 
 Both fat-stack kernels read the fat stack of ``models/moe_fuse.py`` (int8,
 or int4 under w4a8 serving, :func:`fat_ffn`): the experts'
@@ -26,14 +38,11 @@ LayerNorm affines live in W1, so the glue applies one shared un-affine
 LayerNorm and quantizes ``x - mean`` per row (the divide formula of
 ``ops/quant.py::quantize_rows``), folding the inverse standard deviation into
 the row scale. ``combine @ b2`` is added outside the kernels in f32.
-
-Training's dispatch (``moe_dispatch``, expert dropout, noisy routing and the
-routing losses) is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,8 +62,8 @@ FatStack = Dict[str, torch.Tensor]
 class RouterOutput(NamedTuple):
     weights: torch.Tensor      # (S, K) renormalised combine weights, f32
     indices: torch.Tensor      # (S, K) expert ids, int64
-    lb_loss: torch.Tensor      # scalar, 0 in eval
-    rz_loss: torch.Tensor      # scalar, 0 in eval
+    lb_loss: torch.Tensor      # scalar f32, 0 in eval
+    rz_loss: torch.Tensor      # scalar f32, 0 in eval
 
 
 def _softmax(logits: torch.Tensor) -> torch.Tensor:
@@ -65,15 +74,39 @@ def _softmax(logits: torch.Tensor) -> torch.Tensor:
 
 def route(x: torch.Tensor, router_ln_w: torch.Tensor, router_ln_b: torch.Tensor,
           router_w: torch.Tensor, router_b: torch.Tensor, top_k: int, *,
-          layer_norm_eps: float) -> RouterOutput:
-    """Eval-mode routing of tokens x (S, H) over ``router_w.shape[1]``
-    experts (``ops/moe.py::route``)."""
+          layer_norm_eps: float, training: bool = False,
+          noise: Optional[torch.Tensor] = None, w_noise: Optional[torch.Tensor] = None,
+          noisy_routing_alpha: float = 0.0, load_balancing_loss_coef: float = 0.0,
+          router_z_loss_coef: float = 0.0, use_load_balancing_loss: bool = True,
+          use_router_z_loss: bool = True) -> RouterOutput:
+    """Routing of tokens x (S, H) over ``router_w.shape[1]`` experts
+    (``ops/moe.py::route``); the logits are f32 whatever x's dtype. In
+    training, ``noise`` (S, E), standard normal draws the caller makes, is
+    added as ``noise * softplus(w_noise) * alpha`` when ``w_noise`` is given
+    and alpha > 0; the load-balancing loss ``coef * E * sum_e f_e p_e`` (f_e
+    the share of tokens that chose expert e, p_e its mean gate, both before
+    any capacity) and the router z-loss ``coef * mean(logsumexp(logits)^2)``
+    are computed where their switches are on and their coefficients
+    positive."""
+    num_experts = router_w.shape[-1]
     normed = layer_norm(x, router_ln_w, router_ln_b, eps=layer_norm_eps)
     logits = normed.float() @ router_w.float() + router_b.float()
-    top_w, top_i = _top_k_gates(_softmax(logits), top_k)
+    if training and w_noise is not None and noise is not None and noisy_routing_alpha > 0:
+        wf = w_noise.float()
+        scale = torch.logaddexp(wf, torch.zeros_like(wf)) * noisy_routing_alpha
+        logits = logits + noise.float() * scale[None, :]
+    gates = _softmax(logits)
+    top_w, top_i = _top_k_gates(gates, top_k)
+    lb_loss = rz_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    if training and use_load_balancing_loss and load_balancing_loss_coef > 0:
+        p_i = gates.mean(dim=0)
+        sel = torch.nn.functional.one_hot(top_i, num_experts).float().sum(dim=1)
+        f_i = torch.clamp(sel, max=1.0).mean(dim=0)      # 1 iff the expert is in the top-k
+        lb_loss = load_balancing_loss_coef * num_experts * (f_i * p_i).sum()
+    if training and use_router_z_loss and router_z_loss_coef > 0:
+        rz_loss = router_z_loss_coef * torch.logsumexp(logits, dim=-1).square().mean()
     weights = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-6)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return RouterOutput(weights, top_i, zero, zero)
+    return RouterOutput(weights, top_i, lb_loss, rz_loss)
 
 
 def _top_k_gates(gates: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -92,35 +125,143 @@ def _top_k_gates(gates: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     return torch.cat([w1, w2], dim=-1), torch.cat([i1, i2], dim=-1)
 
 
-def _combine_weights(routing: RouterOutput, num_experts: int,
-                     dtype: torch.dtype) -> torch.Tensor:
+def expert_dropout_mask(generator: torch.Generator, num_experts: int,
+                        expert_dropout_prob: float) -> torch.Tensor:
+    """(E,) bool on the generator's device: False for the ``int(E * p)``
+    experts (at most E - 1) that lead a ``torch.randperm`` drawn from
+    ``generator``, True for the rest (``ops/moe.py::expert_dropout_mask``)."""
+    num_to_drop = min(int(num_experts * expert_dropout_prob), num_experts - 1)
+    mask = torch.ones((num_experts,), dtype=torch.bool, device=generator.device)
+    if num_to_drop <= 0:
+        return mask
+    perm = torch.randperm(num_experts, generator=generator, device=generator.device)
+    return mask.index_fill(0, perm[:num_to_drop], False)
+
+
+def _combine_weights(routing: RouterOutput, num_experts: int, dtype: torch.dtype,
+                     active_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(S, E) combine matrix: the routing weight where an expert was chosen,
-    else 0."""
+    else 0, times the active mask when one is given."""
     onehot = torch.nn.functional.one_hot(routing.indices, num_experts).to(dtype)
-    return torch.einsum("ske,sk->se", onehot, routing.weights.to(dtype))
+    combine = torch.einsum("ske,sk->se", onehot, routing.weights.to(dtype))
+    if active_mask is not None:
+        combine = combine * active_mask.to(dtype)[None, :]
+    return combine
 
 
-def _dequant(experts: Dict[str, torch.Tensor], key: str) -> torch.Tensor:
-    if key + "_q" in experts:
-        return experts[key + "_q"].float() * experts[key + "_s"].float()
-    return experts[key].float()
+def _maybe_dequant_experts(experts: Dict[str, torch.Tensor],
+                           dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Int8 expert stacks as weights of ``dtype``, ``w_q.to(dtype) *
+    w_s.to(dtype)`` (``ops/moe.py::_maybe_dequant_experts``); float stacks
+    as they are."""
+    out = dict(experts)
+    for key in ("w1", "w2"):
+        if key + "_q" in out:
+            out[key] = out.pop(key + "_q").to(dtype) * out.pop(key + "_s").to(dtype)
+    return out
+
+
+def _expert_norm(x: torch.Tensor, experts: Dict[str, torch.Tensor],
+                 layer_norm_eps: float) -> torch.Tensor:
+    """Rows x (E or 1, R, H) normed by each expert's LayerNorm: (E, R, H)."""
+    return layer_norm(x, experts["ln_w"][:, None, :], experts["ln_b"][:, None, :],
+                      eps=layer_norm_eps)
+
+
+def _expert_mlp(xn: torch.Tensor, experts: Dict[str, torch.Tensor],
+                hidden_act: str) -> torch.Tensor:
+    """``act(xn @ w1 + b1) @ w2 + b2`` of each expert's normed rows xn
+    (E, R, H), in xn's dtype (``ops/moe.py::_expert_mlp`` after its norm)."""
+    hid = get_activation(hidden_act)(torch.matmul(xn, experts["w1"]) + experts["b1"][:, None, :])
+    return torch.matmul(hid, experts["w2"]) + experts["b2"][:, None, :]
+
+
+def _dyn_int8_batched(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.Tensor:
+    """(E, S, K) @ (E, K, N) on per-(expert, row) int8 rows of x and the int8
+    weights (``ops/moe.py::_dyn_int8_batched``), each expert's product
+    through the w8a8 kernel: exact int32 sums, then ``acc * x_s * w_s`` in
+    f32, out in x's dtype."""
+    e, s, k = x.shape
+    x_q, x_s = quantize_rows(x.reshape(e * s, k))
+    x_q, x_s = x_q.reshape(e, s, k), x_s.reshape(e, s, 1)
+    return torch.stack([quant_matmul_dyn_pre_q(x_q[i], x_s[i], w_q[i], w_s[i], None, x.dtype)
+                        for i in range(e)])
 
 
 def moe_dense(x: torch.Tensor, routing: RouterOutput, experts: Dict[str, torch.Tensor],
-              hidden_act: str, layer_norm_eps: float) -> torch.Tensor:
-    """Every expert on every token in f32 (int8 stacks dequantized), combined
-    with the routing weights: ``sum_e combine[s, e] * (act(LN_e(x) @ W1_e +
-    b1_e) @ W2_e + b2_e)``."""
-    act = get_activation(hidden_act)
-    xf = x.float()
-    w1, w2 = _dequant(experts, "w1"), _dequant(experts, "w2")
-    outs = []
-    for e in range(w1.shape[0]):
-        xn = layer_norm(xf, experts["ln_w"][e], experts["ln_b"][e], eps=layer_norm_eps)
-        hid = act(xn @ w1[e] + experts["b1"][e].float())
-        outs.append(hid @ w2[e] + experts["b2"][e].float())
-    combine = _combine_weights(routing, w1.shape[0], torch.float32)
-    return torch.einsum("se,esh->sh", combine, torch.stack(outs)).to(x.dtype)
+              hidden_act: str, layer_norm_eps: float,
+              active_mask: Optional[torch.Tensor] = None,
+              quant_matmul: str = "dyn") -> torch.Tensor:
+    """Every expert on every token, combined with the routing weights (times
+    the active mask): ``sum_e combine[s, e] * (act(LN_e(x) @ W1_e + b1_e) @
+    W2_e + b2_e)`` in x's dtype (``ops/moe.py::moe_dense``). Int8 experts
+    take the int8 branch (``_moe_dense_int8``) under ``quant_matmul="dyn"``,
+    where the JAX package takes it under ``APERTIS_QUANT_MATMUL=dyn``, and
+    are dequantized in x's dtype otherwise."""
+    xn = _expert_norm(x[None], experts, layer_norm_eps)
+    if quant_matmul == "dyn" and "w1_q" in experts and "w2_q" in experts:
+        act = get_activation(hidden_act)
+        hid = act(_dyn_int8_batched(xn, experts["w1_q"], experts["w1_s"])
+                  + experts["b1"][:, None, :])
+        all_out = (_dyn_int8_batched(hid, experts["w2_q"], experts["w2_s"])
+                   + experts["b2"][:, None, :])
+    else:
+        all_out = _expert_mlp(xn, _maybe_dequant_experts(experts, x.dtype), hidden_act)
+    combine = _combine_weights(routing, all_out.shape[0], x.dtype, active_mask)
+    return torch.einsum("se,esh->sh", combine, all_out)
+
+
+def _add_choices(rows: torch.Tensor) -> torch.Tensor:
+    """(S, H): each token's K rows of ``rows`` (S, K, H) added in choice
+    order, in their dtype (``out.at[token].add`` without the atomics)."""
+    out = rows[:, 0]
+    for i in range(1, rows.shape[1]):
+        out = out + rows[:, i]
+    return out
+
+
+def moe_dispatch(x: torch.Tensor, routing: RouterOutput, experts: Dict[str, torch.Tensor],
+                 hidden_act: str, layer_norm_eps: float, capacity: int,
+                 active_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The capacity-bucketed dispatch of training (``ops/moe.py::
+    moe_dispatch``), in x's dtype. The (token, choice) pairs in k-major,
+    token order (every token's first choice, then every second one) take
+    the next slot of their expert's bucket of ``capacity`` rows: that order
+    decides which pairs overflow. A pair past the capacity, or whose expert
+    the active mask drops, contributes nothing. Each expert's MLP runs on
+    its bucket as one batched product; each token adds its K choices' rows,
+    scaled by their routing weights, in choice order.
+
+    The buckets are filled by ``index_copy`` from each pair's slot: the kept
+    slots are distinct, and every dropped pair goes to one spare row that is
+    cut off. Gathering back, a dropped pair reads a zero row."""
+    s, h = x.shape
+    experts = _maybe_dequant_experts(experts, x.dtype)
+    num_experts = experts["w1"].shape[0]
+    k = routing.indices.shape[1]
+    flat_idx = routing.indices.T.reshape(-1)                  # (K*S) k-major
+    flat_w = routing.weights.T.reshape(-1)
+    # Each pair's position in its expert's bucket: the running count of its
+    # expert before it. Expert-major (E, K*S), so that the count is a scan
+    # along the innermost axis (a scan along the outer axis of the pair-major
+    # one-hot took 1.4 ms a call at 8192 pairs on the card).
+    onehot = (torch.arange(num_experts, device=flat_idx.device)[:, None]
+              == flat_idx[None, :]).to(torch.int64)
+    pos = (torch.cumsum(onehot, dim=1) - onehot).gather(0, flat_idx[None, :])[0]
+    keep = pos < capacity
+    if active_mask is not None:
+        keep = keep & active_mask[flat_idx]
+    spare = num_experts * capacity
+    slot = torch.where(keep, flat_idx * capacity + pos, torch.full_like(pos, spare))
+    buckets = x.new_zeros((spare + 1, h)).index_copy(0, slot, x.repeat(k, 1))
+    xn = _expert_norm(buckets[:-1].reshape(num_experts, capacity, h), experts, layer_norm_eps)
+    out_buckets = _expert_mlp(xn, experts, hidden_act).reshape(spare, h)
+    # index_select, whose backward adds each kept pair's gradient to its own
+    # bucket row (the kept slots are distinct; the dropped pairs add zeros to
+    # the spare row), where indexing's backward sorts the indices first.
+    gathered = torch.cat([out_buckets, out_buckets.new_zeros((1, h))]).index_select(0, slot)
+    gathered = gathered * (flat_w * keep.to(flat_w.dtype))[:, None].to(x.dtype)
+    return _add_choices(gathered.reshape(k, s, h).transpose(0, 1))
 
 
 def center_quantize(x: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -228,47 +369,40 @@ def moe_grouped_fat(x: torch.Tensor, routing: RouterOutput, fat: FatStack,
     return out.to(x.dtype)
 
 
-def _maybe_dequant_experts(experts: Dict[str, torch.Tensor],
-                           dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """Int8 expert stacks as weights of ``dtype``, ``w_q.to(dtype) *
-    w_s.to(dtype)`` (``ops/moe.py::_maybe_dequant_experts``); float stacks
-    as they are."""
-    out = dict(experts)
-    for key in ("w1", "w2"):
-        if key + "_q" in out:
-            out[key] = out.pop(key + "_q").to(dtype) * out.pop(key + "_s").to(dtype)
-    return out
-
-
 def moe_ragged(x: torch.Tensor, routing: RouterOutput, experts: Dict[str, torch.Tensor],
-               hidden_act: str, layer_norm_eps: float,
-               quant_matmul: str = "dyn") -> torch.Tensor:
-    """Sort-based dispatch over the expert stacks (``ops/moe.py::moe_ragged``,
-    eval): the (token, choice) pairs sorted by expert (stable), each row
-    normed by its expert's LayerNorm, and each expert's contiguous row group
-    multiplied by its own weights, one group at a time. Int8 experts take the
-    JAX function's int8 branch under ``quant_matmul="dyn"``: quantized rows,
-    both products through the w8a8 kernel with f32 out and no bias
+               hidden_act: str, layer_norm_eps: float, quant_matmul: str = "dyn",
+               active_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sort-based dispatch over the expert stacks (``ops/moe.py::moe_ragged``):
+    the (token, choice) pairs sorted by expert (stable), each row normed by
+    its expert's LayerNorm, and each expert's contiguous row group
+    multiplied by its own weights, one group at a time (differentiable:
+    training takes it above ``max(E, moe_dense_threshold_tokens)`` tokens
+    without the capacity limit). Int8 experts take the JAX function's int8
+    branch under ``quant_matmul="dyn"``: quantized rows, both products
+    through the w8a8 kernel with f32 out and no bias
     (``quant_matmul_dyn_pre_q``), ``+ b1``, the activation and the
     requantization of the hidden outside. In the other modes they are
     dequantized in x's dtype (``_maybe_dequant_experts``) and take the float
     branch, as float experts do. The rows are scaled by their routing weight
-    in x's dtype and added back to their tokens. The group sizes are read on
-    the host (one sync)."""
+    (times the active mask) in x's dtype, put back in token order and added
+    per token in choice order. The group sizes are read on the host (one
+    sync)."""
     if quant_matmul != "dyn":
         experts = _maybe_dequant_experts(experts, x.dtype)
+    s, h = x.shape
     k = routing.indices.shape[1]
     num_experts = experts["ln_w"].shape[0]
     act = get_activation(hidden_act)
     flat_e = routing.indices.reshape(-1)                     # (S*K) token-major
     flat_w = routing.weights.reshape(-1).to(x.dtype)
+    if active_mask is not None:
+        flat_w = flat_w * active_mask[flat_e].to(flat_w.dtype)
     order = torch.argsort(flat_e, stable=True)
-    tok = order // k
     e_sorted = flat_e[order]
     ends = torch.cumsum(torch.bincount(flat_e, minlength=num_experts), 0).tolist()
     groups = [(e, lo, hi) for e, (lo, hi) in enumerate(zip([0] + ends[:-1], ends)) if hi > lo]
-    xn = layer_norm(x[tok], experts["ln_w"][e_sorted], experts["ln_b"][e_sorted],
-                    eps=layer_norm_eps)
+    xn = layer_norm(x.repeat_interleave(k, dim=0)[order], experts["ln_w"][e_sorted],
+                    experts["ln_b"][e_sorted], eps=layer_norm_eps)
     int8 = "w1_q" in experts
 
     def grouped(rows: torch.Tensor, name: str) -> torch.Tensor:
@@ -281,12 +415,9 @@ def moe_ragged(x: torch.Tensor, routing: RouterOutput, experts: Dict[str, torch.
                 out[lo:hi] = quant_matmul_dyn_pre_q(r_q[lo:hi], r_s[lo:hi], experts[name + "_q"][e],
                                                     experts[name + "_s"][e], None, torch.float32)
             return out
-        out = rows.new_empty((rows.shape[0], experts[name].shape[-1]))
-        for e, lo, hi in groups:
-            out[lo:hi] = rows[lo:hi] @ experts[name][e]
-        return out
+        return torch.cat([rows[lo:hi] @ experts[name][e] for e, lo, hi in groups])
 
     hmid = act(grouped(xn, "w1") + experts["b1"][e_sorted])
     y = (grouped(hmid, "w2") + experts["b2"][e_sorted]).to(x.dtype)
     y = y * flat_w[order][:, None]
-    return torch.zeros_like(x).index_add_(0, tok, y)
+    return _add_choices(y[torch.argsort(order)].reshape(s, k, h))

@@ -2,7 +2,7 @@
 prefill and decode, or over train steps.
 
     python -m apertis_llm_torch.profile_serving [--layers N] [--moe | --mha] [--int4]
-        [--quant-matmul {dyn,weightonly,pallas,fused}] [--moe-mode {fatk,kernel}] [--train]
+        [--quant-matmul {dyn,weightonly,pallas,fused}] [--moe-mode {fatk,kernel,0}] [--train]
 
 Builds the 1.5B selective-SSM model on the card from a seeded generator
 (``chip_smoke.py``'s configuration, random weights; with ``--moe`` the 1.5B
@@ -25,10 +25,12 @@ fat stack (the 1.5B one stays int8). ``--quant-matmul`` and ``--moe-mode``
 serve every model through ``InferenceEngine(..., quant_matmul=...,
 moe_mode=...)``: the int8 arithmetic of the full-sequence linears and the
 head (``dyn`` by default; ``weightonly``, ``pallas``, ``fused``), and the MoE
-FFN's kernel (``fatk`` by default; ``kernel``). It needs a CUDA device.
+FFN's serving stack (``fatk`` by default; ``kernel``; ``0``, none). It needs
+a CUDA device.
 
 With ``--train`` it traces training instead: the dense 1.5B preset (or the
-MHA one with ``--mha``, through the flash kernels) with f32 masters, bf16
+MHA one with ``--mha``, through the flash kernels, or the MoE one with
+``--moe``, through ``moe_dispatch`` and the scan kernels) with f32 masters, bf16
 compute, remat and accumulation over 2, ``chip_smoke.py``'s training phase,
 two micro-steps (one update) at batch 4 x 1024 after a warm-up.
 """
@@ -103,9 +105,9 @@ def _profile_train(config, dev, card) -> int:
             train_step(model, opt, batch, seed[0], torch.bfloat16)
             seed[0] += 1
 
-    print(f"card: {card}; {config.num_hidden_layers} layers, training "
-          f"{'MHA (flash)' if config.attention_type == 'standard_mha' else 'selective SSM'}",
-          flush=True)
+    kind = ("MHA (flash)" if config.attention_type == "standard_mha" else
+            "MoE selective SSM" if config.use_expert_system else "selective SSM")
+    print(f"card: {card}; {config.num_hidden_layers} layers, training {kind}", flush=True)
     _trace("train, two micro-steps of 4 x 1024 (one update)", two_micro_steps, 2, card, top=12)
     return 0
 
@@ -126,10 +128,8 @@ def main(argv=None) -> int:
     parser.add_argument("--moe-mode", default="fatk", choices=MOE_MODES,
                         help="the MoE FFN's kernel (InferenceEngine's moe_mode)")
     parser.add_argument("--train", action="store_true",
-                        help="trace train steps (dense or --mha) instead of serving")
+                        help="trace train steps instead of serving")
     args = parser.parse_args(argv)
-    if args.train and args.moe:
-        parser.error("--train takes the dense or the MHA preset (MoE training is not ported)")
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
         return 1

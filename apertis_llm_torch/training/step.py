@@ -183,7 +183,11 @@ def loss_fn(model: ApertisForCausalLM, batch: Batch, seed: Optional[int],
             training: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``(loss, {loss, lb_loss, rz_loss})`` of the training forward on
     ``batch`` (``input_ids``, ``labels``, optional ``attention_mask``) with
-    the parameters cast to ``compute_dtype`` (``step.py::loss_fn``)."""
+    the parameters cast to ``compute_dtype`` (``step.py::loss_fn``): for a
+    MoE model the loss includes the layers' summed load-balancing and router
+    z-losses, which the metrics also report (zero for a dense model). A
+    ``seed`` of None draws no dropout, routing noise or expert dropout, as
+    the JAX ``loss_fn`` does with ``rng=None``."""
     out = torch.func.functional_call(
         model, _run_params(model, compute_dtype), (batch["input_ids"],),
         dict(attention_mask=batch.get("attention_mask"), labels=batch["labels"],
@@ -200,7 +204,9 @@ def train_step(model: ApertisForCausalLM, optimizer: AdamW, batch: Batch, seed: 
     gradients) as device tensors: no host sync."""
     params = optimizer.params
     loss, metrics = loss_fn(model, batch, seed, compute_dtype)
-    grads = torch.autograd.grad(loss, list(params.values()))
+    # A parameter the step did not read (a MoE router's w_noise when no
+    # noise is drawn) gets a zero gradient, as jax.grad gives it.
+    grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
     grads = {n: g.float() for n, g in zip(params, grads)}
     metrics["grad_norm"] = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
     optimizer.update(grads)

@@ -91,26 +91,43 @@ Phases, each of which raises (and so exits non-zero) on failure:
      ``h_last`` cotangent, the mask, the a*A and a*delta chain factors;
      ``delta``, ``lse``, the causal mask) and the backward of
      ``scaled_dot_product_attention`` timed beside flash as the yardstick;
+     the scan backward at d_state 12, 24, 48 and 64 (the shared-memory head
+     sum) at the training shape, masked and with an ``h_last`` cotangent,
+     and f32 at N = 48; the f32 flash forward, dQ and dK/dV at (4, 38, 1024,
+     64), L = 300 and Dh 32, 128 and 256, with SDPA on the same f32 inputs
+     (TF32 off) timed beside them; sensitivity checks as above, and a second
+     run of each new kernel giving the same bits;
   5. check 2-layer dense, MoE and MHA models on the card against the same
      weights on the CPU (plain versions), bf16, int8 and w4a8 (dense and
      MoE), dense int8 under ``pallas`` and ``fused`` and MoE int8 under
      ``kernel`` (exact launch counts), and a hidden-192 int8 model, that the 1.5B logits are finite, that
      the 1.5B MHA ``forward()`` without a mask runs the flash kernel once per
-     layer and agrees with the plain attention, and that a 2-layer f32 flash
-     MHA ``forward()`` takes the plain attention on the card (the flash
-     gate's dtype clause) and agrees with the CPU;
-  6. train, with the serving models freed: the 1.5B dense SSM preset and the
-     1.5B MHA preset with ``use_flash_attention`` (dropout 0, as bench.py),
-     each through ``ApertisTrainer.train()`` with f32 masters, bf16 compute,
-     remat and accumulation over 2, 8 micro-batches of 4 x 1024 seeded token
-     ids (4 updates), checking that the loss is finite and falls and that the
-     scan (forward 2 x layers x micro-steps under remat, backward layers x
-     micro-steps) or flash kernels (the same for the forward, dQ and dK/dV)
-     ran; then ``train_from_config`` on a 2-layer SSM config from a JSONL
+     layer and agrees with the plain attention, that a 2-layer f32 flash
+     MHA ``forward()`` runs the f32 flash kernel once per layer and agrees
+     with the CPU, and that a 2-layer f32 MoE ``forward()`` with no engine
+     (``moe_dense`` and ``moe_ragged`` in f32) launches no expert kernel and
+     agrees with the CPU; the 2-layer MoE models of the card-vs-CPU checks
+     get their serving stacks attached as the engine attaches them;
+  6. train, with the serving models freed: the 1.5B dense SSM preset, the
+     1.5B MoE preset with its default MoE knobs (capacity factor 1.25, noisy
+     routing 0.1, expert dropout 0.1, lb 0.01, rz 0.001) and the 1.5B MHA
+     preset with ``use_flash_attention`` (dropout 0, as bench.py), in bf16
+     compute, and the MHA preset again in f32 compute (``bf16=False``), each
+     through ``ApertisTrainer.train()`` with f32 masters, remat and
+     accumulation over 2, 8 micro-batches of 4 x 1024 seeded token ids (4
+     updates), checking that the loss is finite and falls, that the step
+     metrics' lb_loss and rz_loss are finite and positive for MoE (zero
+     otherwise), and that the scan (forward 2 x layers x micro-steps under
+     remat, backward layers x micro-steps) or flash kernels of the compute
+     dtype (the same for the forward, dQ and dK/dV) ran and no expert kernel
+     did; then ``train_from_config`` on a 2-layer SSM config from a JSONL
      corpus and ``vocab.json`` written here, its checkpoint and a resume from
-     it; then one train step's gradients of 2-layer SSM and flash MHA models
-     on the card against the same step on the CPU, each leaf within two bf16
-     ulps plus twice bf16's own effect on it (the CPU's bf16 vs f32 step).
+     it; then one train step's gradients of 2-layer models on the card
+     against the same step on the CPU: SSM at d_state 16 and 12 and flash
+     MHA in bf16 compute, each leaf within two bf16 ulps plus twice bf16's
+     own effect on it (the CPU's bf16 vs f32 step); MoE (no step seed, a
+     capacity that drops tokens) and flash MHA in f32 compute, each leaf
+     within 1e-4 of its largest CPU value.
 Kernel times are CUDA-event means over back-to-back wrapper calls ("ms")
 and the profiler's device time per call ("device_ms", the kernels' own time
 without the Python wrapper). Before the last line it prints the kernels'
@@ -191,6 +208,15 @@ SENSITIVITY_FACTOR = 9
 # A 2-layer f32 MHA forward on the card (cuBLAS f32, TF32 off) vs the CPU:
 # f32 sums in other orders.
 F32_FORWARD_TOL = 1e-4
+# The f32 flash kernels against their plain versions: f32 fused multiply-adds
+# in the kernels against cuBLAS's f32 products (TF32 off), the same products
+# summed in other orders over up to Dh or L terms (about sqrt(L) * 2^-24 of
+# the largest term), and the forward's online softmax rescaling.
+F32_FLASH_TOL = 1e-5
+# One f32 train step of a 2-layer model, card vs CPU (the MoE model, whose
+# top-2 choice would flip on a near-tie under bf16 rounding, and the f32
+# flash MHA model): each gradient leaf within 1e-4 of its largest CPU value.
+F32_GRAD_TOL = 1e-4
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -336,8 +362,9 @@ def main() -> int:
         ffn_decode, ffn_decode_int4, ffn_decode_int4_reference, ffn_decode_int8,
         ffn_decode_int8_reference, ffn_decode_reference, pick_block_n)
     from apertis_llm_torch.ops.kernels.flash_attention import (
-        flash_attention_dkv, flash_attention_dkv_reference, flash_attention_dq,
-        flash_attention_dq_reference, flash_attention_fwd, flash_attention_fwd_reference)
+        flash_attention_dkv, flash_attention_dkv_f32, flash_attention_dkv_reference,
+        flash_attention_dq, flash_attention_dq_f32, flash_attention_dq_reference,
+        flash_attention_fwd, flash_attention_fwd_f32, flash_attention_fwd_reference)
     from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize, ln_quantize_reference
     from apertis_llm_torch.ops.kernels.mha_step import (
         NEG, mha_decode_ctx, mha_decode_ctx_int8, mha_decode_ctx_reference, quantize_heads)
@@ -347,8 +374,8 @@ def main() -> int:
     from apertis_llm_torch.ops.kernels.moe_grouped import (
         TILE, expert_ffn_grouped, expert_ffn_grouped_reference)
     from apertis_llm_torch.ops.kernels.ssm_scan import (
-        selective_scan_bwd, selective_scan_bwd_reference, selective_scan_fwd,
-        selective_scan_fwd_reference)
+        selective_scan_bwd, selective_scan_bwd_reference, selective_scan_bwd_smem,
+        selective_scan_fwd, selective_scan_fwd_reference)
     from apertis_llm_torch.ops.kernels.quant_matmul import (
         quant_matmul, quant_matmul_dyn_fused, quant_matmul_dyn_fused_reference,
         quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference, quant_matmul_reference)
@@ -1301,21 +1328,28 @@ def main() -> int:
                      f"{', masked' if masked else ''}", args, selective_scan_fwd,
                      selective_scan_fwd_reference, scan_h_tols)
 
-    def scan_bwd_inputs(b, l, heads_=ssm_heads, dtype=bf16, masked=False, with_g_last=False):
+    def scan_bwd_inputs(b, l, heads_=ssm_heads, dtype=bf16, masked=False, with_g_last=False,
+                        n_=n):
         """The scan's backward operands as training gives them (the forward
         kernel's f32 states and a cotangent of y in its dtype), and the plain
-        forward's states for the plain side."""
+        forward's states for the plain side; at a d_state ``n_`` other than
+        the model's, A is drawn from the init's range (A_log ~ U(log 0.5,
+        log 0.99))."""
         delta = torch.nn.functional.softplus(randn(b, l, heads_, dtype=f32) - 4.0)
-        a_cont = -torch.exp(layer.attn.A_log.float()[:heads_])
-        bt, ct = randn(b, l, heads_, n, dtype=dtype), randn(b, l, heads_, n, dtype=dtype)
+        if n_ == n:
+            a_cont = -torch.exp(layer.attn.A_log.float()[:heads_])
+        else:
+            a_cont = -torch.empty((heads_, n_), device=dev).uniform_(0.5, 0.99, generator=g)
+        bt, ct = randn(b, l, heads_, n_, dtype=dtype), randn(b, l, heads_, n_, dtype=dtype)
         mask = None
         if masked:
             lens = torch.randint(1, l + 1, (b, 1), generator=g, device=dev)
             mask = (torch.arange(l, device=dev)[None, :] < lens).to(torch.int32)
         hs = selective_scan_fwd(delta, a_cont, bt, ct, mask, dtype, want_h=True)[2]
         hs_plain = selective_scan_fwd_reference(delta, a_cont, bt, ct, mask, dtype, want_h=True)[2]
-        g_last = randn(b, heads_, n, dtype=f32) if with_g_last else None
-        return (delta, a_cont, ct, mask, hs, randn(b, l, heads_ * n, dtype=dtype), g_last), hs_plain
+        g_last = randn(b, heads_, n_, dtype=f32) if with_g_last else None
+        return ((delta, a_cont, ct, mask, hs, randn(b, l, heads_ * n_, dtype=dtype), g_last),
+                hs_plain)
 
     def plain_scan_bwd(hs_plain):
         """The plain backward on the plain forward's states."""
@@ -1367,10 +1401,10 @@ def main() -> int:
         out, lse = flash_attention_fwd(q, k, v)
         return (q, k, v, do, lse, (out.float() * do.float()).sum(dim=-1))
 
-    def flash_bwd_cost(args, outputs, products):
+    def flash_bwd_cost(args, outputs, products, kind="bf16"):
         b, h_, l, hd = args[0].shape
         pairs = b * h_ * l * (l + 1) // 2
-        return (nbytes(*args) + outputs * nbytes(args[0]), products * 2 * hd * pairs, "bf16")
+        return (nbytes(*args) + outputs * nbytes(args[0]), products * 2 * hd * pairs, kind)
 
     args = flash_bwd_inputs((2, 4, 200, head_dim))
     for name, plain, tols in (
@@ -1403,6 +1437,91 @@ def main() -> int:
             log(f"  library: the backward of scaled_dot_product_attention(is_causal=True) "
                 f"(dQ, dK and dV) {sdpa_bwd:.4f} ms; card: {card}")
             del leaves, out_l
+
+    def repeats(label, fn, args):
+        """A kernel with no atomics gives the same bits on a second run."""
+        a, b_ = fn(*args), fn(*args)
+        a, b_ = (a if isinstance(a, tuple) else (a,)), (b_ if isinstance(b_, tuple) else (b_,))
+        if not all(torch.equal(x, y) for x, y in zip(a, b_)):
+            raise RuntimeError(f"{label}: a second run gave other bits")
+        log(f"  {label}: a second run gives the same bits ok")
+
+    # The scan's backward at a d_state that is not a power of two up to 32:
+    # the shared-memory head sum, at the 1.5B training shape, masked and with
+    # an h_last cotangent (N = 12 last: the shape the report keeps).
+    args, hs_plain = scan_bwd_inputs(3, 300, masked=True, with_g_last=True, n_=12)
+    args = args[:4] + (hs_plain,) + args[5:]
+    check_sensitive("selective_scan_bwd_smem", selective_scan_bwd_reference, args, {
+        "h_last cotangent": args[:6] + (None,),
+        "mask": args[:3] + (None,) + args[4:],
+        "a*A chain factor": lambda: scan_bwd_without("a*A", *args),
+        "a*delta chain factor": lambda: scan_bwd_without("a*delta", *args),
+    }, scan_bwd_tols(bf16))
+    for n_ in (24, 48, 64, 12):
+        args, hs_plain = scan_bwd_inputs(4, 1024, masked=True, with_g_last=True, n_=n_)
+        check_kernel("selective_scan_bwd_smem", f"scan backward B=4 L=1024 H={ssm_heads} N={n_} "
+                     "(masked, h_last cotangent)", args, selective_scan_bwd_smem,
+                     plain_scan_bwd(hs_plain), scan_bwd_tols(bf16), cost=scan_bwd_cost(args))
+    repeats("selective_scan_bwd_smem N=12", selective_scan_bwd_smem, args)
+    args, hs_plain = scan_bwd_inputs(3, 300, dtype=f32, masked=True, with_g_last=True, n_=48)
+    check_kernel("selective_scan_bwd_smem", "scan backward B=3 L=300 N=48 (f32 operands, "
+                 "masked)", args, selective_scan_bwd_smem, plain_scan_bwd(hs_plain),
+                 scan_bwd_tols(f32))
+
+    # The f32 flash kernels (f32 q/k/v, f32 arithmetic, no TF32), beside
+    # scaled_dot_product_attention on the same f32 inputs.
+    f32_flash_tols = [("out", F32_FLASH_TOL), ("lse", F32_FLASH_TOL)]
+    args = tuple(randn(2, 4, 200, head_dim, dtype=f32) for _ in range(3))
+    check_sensitive("flash_attention_fwd_f32", flash_attention_fwd_reference, args,
+                    {"causal mask": args + (False,)}, f32_flash_tols)
+
+    def flash_bwd_inputs_f32(shape):
+        q, k, v, do = (randn(*shape, dtype=f32) for _ in range(4))
+        out, lse = flash_attention_fwd_f32(q, k, v)
+        return (q, k, v, do, lse, (out * do).sum(dim=-1))
+
+    args = flash_bwd_inputs_f32((2, 4, 200, head_dim))
+    for name, plain, tols in (
+            ("flash_attention_dq_f32", flash_attention_dq_reference, [("dq", F32_FLASH_TOL)]),
+            ("flash_attention_dkv_f32", flash_attention_dkv_reference,
+             [("dk", F32_FLASH_TOL), ("dv", F32_FLASH_TOL)])):
+        check_sensitive(name, plain, args, {
+            "delta": args[:5] + (torch.zeros_like(args[5]),),
+            "lse": args[:4] + (torch.zeros_like(args[4]),) + args[5:],
+            "causal mask": args + (False,)}, tols)
+    for shape in ((4, mha_heads, 1024, head_dim), (4, mha_heads, 300, head_dim),
+                  (2, 8, 130, 32), (2, mha_heads // 2, 256, 128), (1, 4, 200, 256)):
+        b, h_, l, hd = shape
+        timed = l == 1024
+        args = tuple(randn(*shape, dtype=f32) for _ in range(3))
+        cost = (4 * nbytes(args[0]) + b * h_ * l * 4, 4 * b * h_ * hd * l * (l + 1) // 2, "f32")
+        check_kernel("flash_attention_fwd_f32", f"flash_attention_fwd_f32 {shape}", args,
+                     flash_attention_fwd_f32, flash_attention_fwd_reference, f32_flash_tols,
+                     cost=cost if timed else None)
+        bargs = flash_bwd_inputs_f32(shape)
+        check_kernel("flash_attention_dq_f32", f"flash_attention_dq_f32 {shape}", bargs,
+                     flash_attention_dq_f32, flash_attention_dq_reference,
+                     [("dq", F32_FLASH_TOL)],
+                     cost=flash_bwd_cost(bargs, 1, 3, "f32") if timed else None)
+        check_kernel("flash_attention_dkv_f32", f"flash_attention_dkv_f32 {shape}", bargs,
+                     flash_attention_dkv_f32, flash_attention_dkv_reference,
+                     [("dk", F32_FLASH_TOL), ("dv", F32_FLASH_TOL)],
+                     cost=flash_bwd_cost(bargs, 2, 4, "f32") if timed else None)
+        if timed:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            library["flash_attention_fwd_f32"] = cuda_ms(lambda: sdpa(*args, is_causal=True))
+            leaves = [t.detach().requires_grad_(True) for t in bargs[:3]]
+            out_l = sdpa(*leaves, is_causal=True)
+            library["flash_attention_dq_f32"] = library["flash_attention_dkv_f32"] = cuda_ms(
+                lambda: torch.autograd.grad(out_l, leaves, bargs[3], retain_graph=True))
+            log(f"  library: scaled_dot_product_attention(is_causal=True) on the f32 inputs "
+                f"(TF32 off) {library['flash_attention_fwd_f32']:.4f} ms, its backward "
+                f"{library['flash_attention_dq_f32']:.4f} ms; card: {card}")
+            del leaves, out_l
+            for label, fn, a_ in (("flash_attention_fwd_f32", flash_attention_fwd_f32, args),
+                                  ("flash_attention_dq_f32", flash_attention_dq_f32, bargs),
+                                  ("flash_attention_dkv_f32", flash_attention_dkv_f32, bargs)):
+                repeats(f"{label} {shape}", fn, a_)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. serve -----------------------------------------------------------
@@ -1715,14 +1834,18 @@ def main() -> int:
     for kind, small, t in cases:
         models = {"gpu": from_jax_params(t, small, device=dev, dtype=torch.bfloat16),
                   "cpu": from_jax_params(t, small, device="cpu", dtype=torch.bfloat16)}
-        if "bf16" not in kind:
-            for m in models.values():
+        for m in models.values():
+            if "bf16" not in kind:
                 m.quantize_tied_head()
                 m.attach_qkv()
                 if "w4a8" in kind:
                     m.attach_int4_ffn()
-                    m.attach_moe_fat(bits=4)
                 m.set_modes(*modes.get(kind, ("dyn", "fatk")))
+            # A MoE model's serving stack, as InferenceEngine attaches it.
+            if "MoE" in kind and "kernel" in kind:
+                m.attach_moe_fused()
+            elif "MoE" in kind:
+                m.attach_moe_fat(bits=4 if "w4a8" in kind else 8)
         for f in counters:
             f.launches = 0
         caches = {k: m.init_cache(4, **cache_kw(m, ids.shape[1], "int8" in kind))
@@ -1760,29 +1883,59 @@ def main() -> int:
                                f"and {exact}")
         log(f"  2-layer {kind} on the card launched {ran}")
 
-    # Fault 2's repair: an f32 flash MHA forward() on the card takes the
-    # plain attention (the flash kernels take bf16 q/k/v there), and agrees
-    # with the same forward() on the CPU.
+    # An f32 flash MHA forward() on the card runs the f32 flash kernel once
+    # per layer (never the bf16 one), and agrees with the same forward() on
+    # the CPU.
     small = ApertisConfig(**dict(mha_small, use_flash_attention=True, dtype="float32",
                                  param_dtype="float32"))
     tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu")
     perturb_(tree, torch.Generator().manual_seed(SEED + 3))
     ids_f32 = torch.as_tensor(np.random.default_rng(SEED + 12).integers(4, 1000, (2, 256)))
-    flash_attention_fwd.launches = 0
+    flash_attention_fwd.launches = flash_attention_fwd_f32.launches = 0
     with torch.no_grad():
         got = from_jax_params(tree, small, device=dev)(ids_f32.to(dev))
         torch.cuda.synchronize()
         ref = from_jax_params(tree, small, device="cpu")(ids_f32)
-    f32_flash_err = compare("2-layer f32 flash MHA forward() on the card (plain attention) vs "
+    f32_flash_err = compare("2-layer f32 flash MHA forward() on the card (f32 flash kernel) vs "
                             "the CPU", got.cpu(), ref, F32_FORWARD_TOL)
-    if flash_attention_fwd.launches != 0:
-        raise RuntimeError("an f32 forward() launched the bf16 flash kernel")
-    log("  2-layer f32 flash MHA forward(): no flash launch on the card, as the gate says")
+    if (flash_attention_fwd_f32.launches != small.num_hidden_layers
+            or flash_attention_fwd.launches != 0):
+        raise RuntimeError(f"an f32 forward() launched the f32 flash kernel "
+                           f"{flash_attention_fwd_f32.launches} times and the bf16 one "
+                           f"{flash_attention_fwd.launches} times")
+    launches["flash_attention_fwd_f32"] = flash_attention_fwd_f32.launches
+    log(f"  2-layer f32 flash MHA forward(): flash_attention_fwd_f32 launched "
+        f"{flash_attention_fwd_f32.launches} times, the bf16 kernel never, ok")
+
+    # A float MoE model's forward() with no engine computes its FFN in the
+    # tree's dtype (moe_dense up to 64 tokens, moe_ragged above): no fat,
+    # grouped or per-expert kernel launches, and it agrees with the CPU.
+    small = ApertisConfig(**dict(moe_small, dtype="float32", param_dtype="float32"))
+    tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu")
+    perturb_(tree, torch.Generator().manual_seed(SEED + 13))
+    expert_kernels = (expert_ffn_fat, expert_ffn_fat_int4, expert_ffn_grouped, expert_ffn_dense)
+    for f in expert_kernels:
+        f.launches = 0
+    moe_forward_err = 0.0
+    card_moe, cpu_moe = (from_jax_params(tree, small, device=where) for where in (dev, "cpu"))
+    for width in (16, 256):       # 32 tokens: moe_dense; 512: moe_ragged
+        with torch.no_grad():
+            got = card_moe(ids_f32[:, :width].to(dev))
+            ref = cpu_moe(ids_f32[:, :width])
+        moe_forward_err = max(moe_forward_err, compare(
+            f"2-layer f32 MoE forward() of 2 x {width} tokens on the card (no engine) vs the CPU",
+            got.cpu(), ref, F32_FORWARD_TOL))
+    if any(f.launches for f in expert_kernels):
+        raise RuntimeError("a float MoE forward() with no engine launched an expert kernel: "
+                           f"{ {f.__name__: f.launches for f in expert_kernels} }")
+    log("  2-layer f32 MoE forward() with no engine: no fat, grouped or per-expert launch ok")
+    del card_moe, cpu_moe
 
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 6. train -------------------------------------------------------------
     from apertis_llm_torch.training import train_from_config
+    from apertis_llm_torch.training import trainer as trainer_module
     from apertis_llm_torch.training.step import loss_fn
     from apertis_llm_torch.training.trainer import ApertisTrainer
     from apertis_llm_torch.utils.profiling import device_peak_tflops
@@ -1792,8 +1945,11 @@ def main() -> int:
     # A host sync after every micro-step, so that the trainer's step timer
     # sees whole steps.
     os.environ["APERTIS_TRAINER_SYNC_EVERY"] = "1"
-    train_counters = (selective_scan_fwd, selective_scan_bwd, flash_attention_fwd,
-                      flash_attention_dq, flash_attention_dkv)
+    train_counters = (selective_scan_fwd, selective_scan_bwd, selective_scan_bwd_smem,
+                      flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
+                      flash_attention_fwd_f32, flash_attention_dq_f32, flash_attention_dkv_f32,
+                      expert_ffn_fat, expert_ffn_fat_int4, expert_ffn_grouped, expert_ffn_dense,
+                      quant_matmul_dyn_pre_q)
     micro, accum, rows_, length = 8, 2, 4, 1024
     # bench.py's training batch: 4 x 1024 tokens. Eight micro-batches drawn
     # from the same four seeded sequences, so the loss falls within 4 updates.
@@ -1801,14 +1957,30 @@ def main() -> int:
     dataset = TokenRows([{"input_ids": seqs[i % rows_], "labels": seqs[i % rows_]}
                          for i in range(micro * rows_)], length)
     train_perf = {}
-    for kind, cfg in (("dense SSM", config),
-                      ("MHA flash", dataclasses.replace(mha_config, use_flash_attention=True))):
+    # The step metrics of each micro-step (the trainer logs what the JAX
+    # trainer logs; lb_loss and rz_loss are read here).
+    step_metrics = []
+    real_train_step = trainer_module.train_step
+
+    def recording_train_step(*a, **k):
+        metrics = real_train_step(*a, **k)
+        step_metrics.append(metrics)
+        return metrics
+
+    trainer_module.train_step = recording_train_step
+    # The 1.5B MoE preset with its default MoE knobs: capacity factor 1.25,
+    # noisy routing 0.1, expert dropout 0.1, lb 0.01, rz 0.001.
+    for kind, cfg, bf16_compute in (
+            ("dense SSM", config, True),
+            ("MoE SSM", moe_config, True),
+            ("MHA flash", dataclasses.replace(mha_config, use_flash_attention=True), True),
+            ("MHA flash f32", dataclasses.replace(mha_config, use_flash_attention=True), False)):
         nl = cfg.num_hidden_layers
         t0 = time.perf_counter()
         tree = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
         trainer = ApertisTrainer(cfg, tree, dataset, output_dir="unused", batch_size=rows_,
                                  learning_rate=TRAIN_LR, num_epochs=1,
-                                 gradient_accumulation_steps=accum, bf16=True,
+                                 gradient_accumulation_steps=accum, bf16=bf16_compute,
                                  use_gradient_checkpointing=True, seed=SEED, device=dev,
                                  save_checkpoints=False)
         del tree
@@ -1816,9 +1988,11 @@ def main() -> int:
         n_train = sum(p.numel() for p in trainer.model.parameters())
         log(f"train {kind}: {n_train:,} f32 master parameters, trainer built in "
             f"{time.perf_counter() - t0:.1f} s; {micro} micro-batches of {rows_} x {length}, "
-            f"accumulation {accum}, remat, bf16 compute, peak lr {TRAIN_LR}")
+            f"accumulation {accum}, remat, {'bf16' if bf16_compute else 'f32'} compute, peak "
+            f"lr {TRAIN_LR}")
         for f in train_counters:
             f.launches = 0
+        step_metrics.clear()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         history = trainer.train()
@@ -1826,13 +2000,26 @@ def main() -> int:
         wall = time.perf_counter() - t0
         got = {f.__name__: f.launches for f in train_counters}
         expected = {f.__name__: 0 for f in train_counters}
-        if cfg.attention_type == "standard_mha":
+        if cfg.attention_type == "standard_mha" and bf16_compute:
             expected.update(flash_attention_fwd=2 * nl * micro, flash_attention_dq=nl * micro,
                             flash_attention_dkv=nl * micro)
+        elif cfg.attention_type == "standard_mha":
+            expected.update(flash_attention_fwd_f32=2 * nl * micro,
+                            flash_attention_dq_f32=nl * micro, flash_attention_dkv_f32=nl * micro)
         else:
             expected.update(selective_scan_fwd=2 * nl * micro, selective_scan_bwd=nl * micro)
+        aux = torch.stack([torch.stack([m["lb_loss"], m["rz_loss"]])
+                           for m in step_metrics]).cpu()
+        moe = bool(cfg.use_expert_system)
+        if len(step_metrics) != micro or not (
+                torch.isfinite(aux).all() and ((aux > 0).all() if moe else (aux == 0).all())):
+            raise RuntimeError(f"train {kind}: step lb_loss / rz_loss {aux.tolist()} are not "
+                               f"{'finite and positive' if moe else 'zero'}")
+        if moe:
+            log(f"train {kind}: step lb_loss {[round(x, 5) for x in aux[:, 0].tolist()]}, "
+                f"rz_loss {[round(x, 5) for x in aux[:, 1].tolist()]} (finite, positive)")
         log(f"train {kind} launch counts: {got} (expected {expected}: the forward twice per "
-            "layer and micro-step under remat, the backward once)")
+            "layer and micro-step under remat, the backward once, no expert kernel)")
         if got != expected:
             raise RuntimeError(f"train {kind}: a kernel of the training path was not launched "
                                "as expected")
@@ -1859,6 +2046,7 @@ def main() -> int:
             f"{train_perf[kind]['peak_gb']:.1f} GB; card: {card}")
         del trainer
         torch.cuda.empty_cache()
+    trainer_module.train_step = real_train_step
 
     # train_from_config on the card: a 2-layer SSM config, its checkpoint and
     # a resume from it.
@@ -1906,54 +2094,97 @@ def main() -> int:
                 or selective_scan_bwd.launches != 2 * 12):
             raise RuntimeError("train_from_config on the card did not train, save or resume")
 
-    # One train step's gradients of 2-layer models, card vs CPU (bf16 compute
-    # on both), with the same step in f32 compute on the CPU to measure how
-    # far bf16 itself moves each leaf.
+    # One train step's gradients of 2-layer models, card vs CPU. In bf16
+    # compute (the SSM models, at d_state 16 and 12, and the flash MHA model)
+    # each leaf is held to two bf16 ulps plus twice what bf16 itself does to
+    # it (the CPU's bf16 vs f32 step); in f32 compute (the MoE model, with no
+    # step seed: no noise or expert dropout, which the card's and the CPU's
+    # generators would draw differently, and a capacity that drops tokens;
+    # the f32 flash MHA model) to F32_GRAD_TOL.
     small_grad_err = {}
     ids_small = torch.as_tensor(np.random.default_rng(SEED + 8).integers(4, 1000, (2, 256)))
-    for family, kw in (("SSM", dense_small),
-                       ("MHA flash", dict(mha_small, use_flash_attention=True))):
+    dropped = []
+    real_dispatch = moe_ops.moe_dispatch
+
+    def dispatch(x, routing, experts, act, eps_, capacity, *rest):
+        counts = torch.bincount(routing.indices.reshape(-1), minlength=experts["b2"].shape[0])
+        dropped.append(int((counts - capacity).clamp(min=0).sum()))
+        return real_dispatch(x, routing, experts, act, eps_, capacity, *rest)
+
+    moe_ops.moe_dispatch = dispatch
+    for family, kw, kernel, dtype in (
+            ("SSM", dense_small, "selective_scan_bwd", torch.bfloat16),
+            ("SSM d_state 12", dict(dense_small, ssm_d_state=12), "selective_scan_bwd_smem",
+             torch.bfloat16),
+            ("MHA flash", dict(mha_small, use_flash_attention=True), "flash_attention_dq",
+             torch.bfloat16),
+            ("MoE f32", moe_small, "selective_scan_bwd", None),
+            ("MHA flash f32", dict(mha_small, use_flash_attention=True), "flash_attention_dq_f32",
+             None)):
         small = ApertisConfig(**kw)
         tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu")
         perturb_(tree, torch.Generator().manual_seed(SEED + 7))
         results = {}
         for f in train_counters:
             f.launches = 0
-        for side, where, dtype in (("card", dev, torch.bfloat16),
-                                   ("cpu", torch.device("cpu"), torch.bfloat16),
-                                   ("cpu f32", torch.device("cpu"), None)):
+        sides = [("card", dev, dtype), ("cpu", torch.device("cpu"), dtype)]
+        if dtype is not None:
+            sides.append(("cpu f32", torch.device("cpu"), None))
+        dropped.clear()
+        for side, where, compute in sides:
             m = from_jax_params(tree, small, device=where)
             params = dict(m.named_parameters())
             batch = {"input_ids": ids_small.to(where), "labels": ids_small.to(where)}
-            loss, _ = loss_fn(m, batch, None, dtype)
-            grads = torch.autograd.grad(loss, list(params.values()))
+            loss, _ = loss_fn(m, batch, None, compute)
+            grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
             results[side] = (loss.detach().cpu(), {k: g.cpu() for k, g in zip(params, grads)})
-        kernel = "flash_attention_dq" if "MHA" in family else "selective_scan_bwd"
-        launched = {f.__name__: f.launches for f in train_counters}[kernel]
+            if side == "card":
+                torch.cuda.synchronize()
+                launched = {f.__name__: f.launches for f in train_counters}
+        expect = {kernel: small.num_hidden_layers}
+        if "MoE" in family:
+            if not dropped or min(dropped) == 0:
+                raise RuntimeError(f"2-layer {family}: the capacity dropped no pair ({dropped})")
+            log(f"  2-layer {family}: moe_dispatch dropped {dropped} (token, choice) pairs a "
+                "layer past the capacity")
+        if any(launched.get(k, 0) != v for k, v in expect.items()) or any(
+                launched[f.__name__] for f in expert_kernels):
+            raise RuntimeError(f"2-layer {family}: kernels launched {launched}, expected {expect} "
+                               "and no expert kernel")
         compare(f"2-layer {family} train-step loss on the card vs the CPU", results["card"][0],
-                results["cpu"][0], BF16_ULP)
+                results["cpu"][0], BF16_ULP if dtype is not None else F32_FORWARD_TOL)
         # Per leaf, relative to its largest CPU element: the card's error,
         # bf16's own effect (the CPU's bf16 vs f32 runs) and the limit.
         leaves = []
         for name, ref in results["cpu"][1].items():
             got_g, scale = results["card"][1][name], float(ref.abs().max())
+            if scale == 0.0:      # a leaf the step did not read (w_noise with no noise)
+                if got_g.abs().max() != 0:
+                    raise RuntimeError(f"2-layer {family} gradient {name}: zero on the CPU only")
+                continue
             err = float((got_g - ref).abs().max()) / scale
-            floor = float((results["cpu f32"][1][name] - ref).abs().max()) / scale
-            limit = SMALL_GRAD_TOL + 2 * floor
+            if dtype is None:
+                floor, limit = 0.0, F32_GRAD_TOL
+            else:
+                floor = float((results["cpu f32"][1][name] - ref).abs().max()) / scale
+                limit = SMALL_GRAD_TOL + 2 * floor
             if not (torch.isfinite(got_g).all() and err <= limit):
                 raise RuntimeError(f"2-layer {family} gradient {name}: {err:.3e} of its largest "
                                    f"element on the card vs the CPU, limit {limit:.3e}")
             leaves.append((err / limit, name, err, floor, limit, scale))
-        if launched != small.num_hidden_layers:
-            raise RuntimeError(f"2-layer {family}: {kernel} launched {launched} times")
+        for key, value in launched.items():
+            launches[key] = launches.get(key, 0) + value
         small_grad_err[family] = max(leaves)[0]
+        rule = (f"within {SMALL_GRAD_TOL:.3e} + 2 x (bf16 vs f32 compute on the CPU)"
+                if dtype is not None else f"within {F32_GRAD_TOL:.0e}")
         log(f"  2-layer {family} train step, card vs CPU: {len(leaves)} gradient leaves ok, each "
-            f"within {SMALL_GRAD_TOL:.3e} + 2 x (bf16 vs f32 compute on the CPU) of its largest "
-            f"element; {kernel} launched {launched} times ok")
+            f"{rule} of its largest element; {kernel} launched {launched[kernel]} times ok")
         for ratio, name, err, floor, limit, scale in ([max(leaves)]
                                                       + sorted(leaves, key=lambda t: -t[2])[:3]):
-            log(f"    {name} (largest element {scale:.3e}): card vs CPU {err:.3e}, bf16 vs f32 "
-                f"on the CPU {floor:.3e}, limit {limit:.3e} ({ratio:.3f} of it)")
+            own = f", bf16 vs f32 on the CPU {floor:.3e}" if dtype is not None else ""
+            log(f"    {name} (largest element {scale:.3e}): card vs CPU {err:.3e}{own}, limit "
+                f"{limit:.3e} ({ratio:.3f} of it)")
+    moe_ops.moe_dispatch = real_dispatch
     log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- report -------------------------------------------------------------
@@ -2002,6 +2233,14 @@ def main() -> int:
                                    "apertis_llm_tpu/ops/pallas/quant_matmul.py:301"),
         "expert_ffn_dense": ("apertis_llm_torch/csrc/moe_dense.cu",
                              "apertis_llm_tpu/ops/pallas/moe_ffn.py:399"),
+        "selective_scan_bwd_smem": ("apertis_llm_torch/csrc/ssm_scan.cu",
+                                    "apertis_llm_tpu/ops/pallas/ssm_scan.py:302"),
+        "flash_attention_fwd_f32": ("apertis_llm_torch/csrc/flash_attention_f32.cu",
+                                    "apertis_llm_tpu/ops/pallas/flash_attention.py:208"),
+        "flash_attention_dq_f32": ("apertis_llm_torch/csrc/flash_attention_f32.cu",
+                                   "apertis_llm_tpu/ops/pallas/flash_attention.py:257"),
+        "flash_attention_dkv_f32": ("apertis_llm_torch/csrc/flash_attention_f32.cu",
+                                    "apertis_llm_tpu/ops/pallas/flash_attention.py:282"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
@@ -2021,7 +2260,8 @@ def main() -> int:
                       "small_model_max_abs_err": small_err,
                       "small_train_grad_err_over_limit": small_grad_err,
                       "flash_forward_max_abs_err": flash_forward_err,
-                      "f32_flash_forward_max_abs_err": f32_flash_err}))
+                      "f32_flash_forward_max_abs_err": f32_flash_err,
+                      "moe_f32_forward_max_abs_err": moe_forward_err}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

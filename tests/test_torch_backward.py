@@ -23,10 +23,12 @@ from apertis_llm_tpu.ops import ssm as jax_ssm
 from apertis_llm_tpu.ops.pallas import flash_attention as jax_flash
 from apertis_llm_torch.ops import ssm as port_ssm
 from apertis_llm_torch.ops.kernels.flash_attention import (
-    FlashAttention, flash_attention_dkv_reference, flash_attention_dq_reference,
+    FlashAttention, flash_attention_dkv_f32, flash_attention_dkv_reference,
+    flash_attention_dq_f32, flash_attention_dq_reference, flash_attention_fwd_f32,
     flash_attention_fwd_reference)
 from apertis_llm_torch.ops.kernels.ssm_scan import (
-    selective_scan_bwd_reference, selective_scan_fwd_reference)
+    selective_scan_bwd, selective_scan_bwd_reference, selective_scan_bwd_smem,
+    selective_scan_fwd_reference)
 
 torch.set_num_threads(2)
 
@@ -167,3 +169,98 @@ def test_flash_bwd_reference_is_the_forward_gradient():
     dk, dv = flash_attention_dkv_reference(q, k, v, g, lse.detach(), delta)
     for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
         _close(a.numpy(), r.numpy(), GRAD_TOL, name)
+
+
+@pytest.mark.parametrize("n", [12, 48])
+def test_scan_grads_match_jax_vjp_at_any_d_state(monkeypatch, n):
+    """``ssm_mix``'s gradients at an ``ssm_d_state`` that is not a power of
+    two (12, 48: the shared-memory head sum of the card's backward), masked
+    and with an ``h_last`` cotangent, against ``jax.grad`` through the JAX
+    ``gated_scan_2d`` in interpret mode, which takes any N: 1e-4 of each
+    gradient's largest value, as at N = 8."""
+    delta, a_cont, bt, ct, mask, gy, g_last = _scan_inputs(6, l=70, h=2, n=n, masked=True)
+    monkeypatch.setenv("APERTIS_SSM_KERNEL", "pallas")
+
+    def jax_loss(d, a, b, c):
+        y, hl = jax_ssm.ssm_mix(d, a, b, c, seq_mask=jnp.asarray(mask))
+        return jnp.sum(y * gy) + jnp.sum(hl * g_last)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(
+            *(jnp.asarray(x) for x in (delta, a_cont, bt, ct)))
+    args = [torch.tensor(x, requires_grad=True) for x in (delta, a_cont, bt, ct)]
+    y, hl = port_ssm.ssm_mix(*args, seq_mask=torch.from_numpy(mask))
+    loss = (y * torch.from_numpy(gy)).sum() + (hl * torch.from_numpy(g_last)).sum()
+    for name, g, r in zip(("d_delta", "dA", "dB", "dC"), torch.autograd.grad(loss, args), ref):
+        _close(g.numpy(), r, GRAD_TOL, name)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_flash_forward_and_grads_match_jax(d):
+    """The f32 form of the flash kernels (the plain versions, which the f32
+    wrappers run on CPU tensors): the output, the LSE and dQ, dK, dV of f32
+    q, k, v at head widths 64 and 128 (L = 200 pads JAX's last block of
+    128) against the JAX kernel's f32 forward and its VJP in interpret mode,
+    1e-4 of each largest value (GRAD_TOL; f32 on both sides, the same
+    products summed in other orders)."""
+    q, k, v, g = _flash_inputs(7, l=200, d=d)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+
+    def jax_loss(q_, k_, v_):
+        return jnp.sum(jax_flash.flash_attention(q_, k_, v_, True, None, 128, 128) * g)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref_out, ref_lse = jax_flash._fwd(jq, jk, jv, scale=d ** -0.5, causal=True,
+                                          block_q=128, block_k=128)
+        ref = jax.grad(jax_loss, argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    out, lse = flash_attention_fwd_f32(tq, tk, tv)
+    assert out.dtype == lse.dtype == torch.float32
+    _close(out.numpy(), ref_out, GRAD_TOL, "out")
+    _close(lse.numpy(), ref_lse, GRAD_TOL, "lse")
+    delta = (out * tg).sum(-1)
+    dq = flash_attention_dq_f32(tq, tk, tv, tg, lse, delta)
+    dk, dv = flash_attention_dkv_f32(tq, tk, tv, tg, lse, delta)
+    for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert a.dtype == torch.float32
+        _close(a.numpy(), r, GRAD_TOL, name)
+
+
+def test_new_kernel_forms_take_cpu_tensors_and_refuse_others():
+    """The f32 flash wrappers and the any-N scan backward run their plain
+    versions on CPU tensors and raise on a device without their kernel (the
+    meta device) before any launch; the scan backward sends an N that is not
+    a power of two up to 32 to the shared-memory kernel's wrapper."""
+    meta = dict(device="meta", dtype=torch.float32)
+    q = torch.empty((1, 2, 64, 32), **meta)
+    lse = torch.empty((1, 2, 64), **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd_f32(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_dq_f32(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_dkv_f32(q, q, q, q, lse, lse)
+    for n in (12, 24, 48, 64):
+        b, l, h = 2, 5, 3
+        args = (torch.empty((b, l, h), **meta), torch.empty((h, n), **meta),
+                torch.empty((b, l, h, n), **meta), None, torch.empty((b, l, h, n), **meta),
+                torch.empty((b, l, h * n), **meta))
+        with pytest.raises(ValueError, match="CUDA"):
+            selective_scan_bwd(*args)
+        with pytest.raises(ValueError):
+            selective_scan_bwd_smem(*args[:2], torch.empty((b, l, h, 16), **meta), None,
+                                    torch.empty((b, l, h, 16), **meta),
+                                    torch.empty((b, l, h * 16), **meta))
+    assert selective_scan_bwd.launches == selective_scan_bwd_smem.launches == 0
+    assert (flash_attention_fwd_f32.launches == flash_attention_dq_f32.launches
+            == flash_attention_dkv_f32.launches == 0)
+    delta, a_cont, _, ct, mask, gy, g_last = _scan_inputs(8, l=9, h=2, n=12, masked=True)
+    hs = selective_scan_fwd_reference(*(torch.from_numpy(x) for x in (delta, a_cont, ct, ct)),
+                                      torch.from_numpy(mask), want_h=True)[2]
+    cpu = [torch.from_numpy(x) for x in (delta, a_cont, ct)]
+    for fn in (selective_scan_bwd, selective_scan_bwd_smem):
+        got = fn(*cpu, torch.from_numpy(mask), hs, torch.from_numpy(gy),
+                 torch.from_numpy(g_last))
+        ref = selective_scan_bwd_reference(*cpu, torch.from_numpy(mask), hs,
+                                           torch.from_numpy(gy), torch.from_numpy(g_last))
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))

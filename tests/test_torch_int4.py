@@ -46,6 +46,7 @@ from apertis_llm_torch.models.quantize import (
     attach_int4_ffn, dequantize_int4, quantize_params, quantize_weight_int4, unpack_int4)
 from apertis_llm_torch.ops import attention as attn_ops
 from apertis_llm_torch.ops import moe as torch_moe
+from apertis_llm_torch.ops.kernels import flash_attention as flash_ops
 from apertis_llm_torch.ops.kernels.ffn_fused import (
     ffn_decode_int4, ffn_decode_int4_reference, pick_block_n)
 from apertis_llm_torch.ops.kernels.moe_ffn import (
@@ -465,34 +466,39 @@ def test_width_192_matches_jax_without_the_fused_ffn(weights, monkeypatch):
 
 
 def test_flash_gate_takes_the_dtype_on_the_card():
-    """The flash gate: on the card bf16 q/k/v take the kernel and f32 the
-    plain attention (the kernels' f32 form is not ported); the CPU's plain
-    versions take both; under 128 positions neither."""
+    """The flash gate holds for f32 and bf16 alike from 128 positions on (the
+    card has f32 and bf16 kernels), not under 128; the dtype picks the
+    kernels: FlashAttention runs the f32 wrappers for f32 q and the bf16
+    ones otherwise."""
     cfg = ApertisConfig(**dict(BASE, attention_type="standard_mha", use_flash_attention=True))
     gate = torch_model.flash_eligible
-    assert gate(cfg, 256, "cuda", torch.bfloat16) and not gate(cfg, 256, "cuda", torch.float32)
-    assert gate(cfg, 256, "cpu", torch.float32) and gate(cfg, 256, "cpu", torch.bfloat16)
-    assert not gate(cfg, 64, "cuda", torch.bfloat16)
+    assert gate(cfg, 256) and gate(cfg, 128) and not gate(cfg, 64)
+    assert not gate(cfg.replace(use_flash_attention=False), 256)
+    assert flash_ops._kernels(torch.float32) == (
+        flash_ops.flash_attention_fwd_f32, flash_ops.flash_attention_dq_f32,
+        flash_ops.flash_attention_dkv_f32)
+    assert flash_ops._kernels(torch.bfloat16) == (
+        flash_ops.flash_attention_fwd, flash_ops.flash_attention_dq,
+        flash_ops.flash_attention_dkv)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_forward_routes_by_dtype_as_on_the_card(dtype, monkeypatch):
-    """An MHA forward() without a mask, with the gate answering as it does
-    on the card: f32 runs the plain attention in every layer and the flash
-    kernel's module never; bf16 runs the flash kernel in every layer."""
+    """An MHA forward() without a mask runs the flash attention in every
+    layer and the plain attention never, through the forward wrapper of its
+    dtype: the f32 kernel's for f32, the bf16 kernel's for bf16."""
     _, cfg, tree = _tree("mha", 7, use_flash_attention=True)
     model = from_jax_params(tree, cfg, device="cpu", dtype=getattr(torch, dtype))
-    real_gate = torch_model.flash_eligible
-    monkeypatch.setattr(torch_model, "flash_eligible",
-                        lambda c, n, device, dt: real_gate(c, n, "cuda", dt))
     calls = []
-    real_flash, real_mha = torch_model.FlashAttention.apply, attn_ops.mha
-    monkeypatch.setattr(torch_model.FlashAttention, "apply",
-                        lambda *a: calls.append("flash") or real_flash(*a))
+    for name in ("flash_attention_fwd", "flash_attention_fwd_f32"):
+        real = getattr(flash_ops, name)
+        monkeypatch.setattr(flash_ops, name,
+                            lambda *a, _n=name, _f=real, **k: calls.append(_n) or _f(*a, **k))
+    real_mha = attn_ops.mha
     monkeypatch.setattr(attn_ops, "mha", lambda *a, **k: calls.append("plain") or
                         real_mha(*a, **k))
     with torch.no_grad():
         logits = model(torch.randint(4, 131, (2, 128)))
     assert torch.isfinite(logits.float()).all()
-    expected = "plain" if dtype == "float32" else "flash"
+    expected = "flash_attention_fwd_f32" if dtype == "float32" else "flash_attention_fwd"
     assert calls == [expected] * cfg.num_hidden_layers

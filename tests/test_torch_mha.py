@@ -277,12 +277,14 @@ def test_forward_logits_match_jax(case):
 
 def test_forward_takes_flash_only_without_a_mask(monkeypatch):
     """The flash path runs where the gate holds and there is no mask; a
-    mask, a short sequence or the flag off take the plain attention."""
+    mask, a short sequence or the flag off take the plain attention. The
+    f32 model runs the f32 forward's wrapper (the bf16 one is counted too)."""
     import apertis_llm_torch.ops.kernels.flash_attention as port_flash
     calls = []
-    real = port_flash.flash_attention_fwd
-    monkeypatch.setattr(port_flash, "flash_attention_fwd",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    for name in ("flash_attention_fwd", "flash_attention_fwd_f32"):
+        real = getattr(port_flash, name)
+        monkeypatch.setattr(port_flash, name,
+                            lambda *a, _f=real, **k: calls.append(1) or _f(*a, **k))
     _, cfg, tree = _tree(seed=5, use_flash_attention=True, max_position_embeddings=128)
     model = from_jax_params(tree, cfg, device="cpu")
     ids = torch.randint(4, 256, (1, 128), generator=torch.Generator().manual_seed(0))

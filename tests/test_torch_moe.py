@@ -372,6 +372,7 @@ def _model_pair(monkeypatch, seed, int8, **over):
     model = from_jax_params(ttree, ApertisConfig(**dict(MOE, **over)), device="cpu")
     if int8:
         model.quantize_tied_head()
+    model.attach_moe_fat()     # as InferenceEngine attaches it
     assert model.quantized == int8
     return cfg, jparams, model
 
@@ -452,16 +453,18 @@ def test_int8_greedy_generate_matches_jax_engine(threshold, monkeypatch, exact_g
 
 
 def test_moe_model_dispatch_and_fat_buffers(monkeypatch):
-    """Which kernel runs at which token count, on CPU tensors (plain
-    versions, no launches); the fat stack is a non-persistent buffer that
-    follows the expert weights, outside the parameters from_jax_params
-    fills; a decode batch past the threshold runs the step without its
-    epilogue and the FFN as over full sequences."""
+    """Which kernel runs at which token count once the fat stack is attached
+    as the engine attaches it, on CPU tensors (plain versions, no launches);
+    the fat stack is a non-persistent buffer that follows the expert
+    weights, outside the parameters from_jax_params fills; a decode batch
+    past the threshold runs the step without its epilogue and the FFN as
+    over full sequences."""
     cfg = ApertisConfig(**dict(MOE, moe_dense_threshold_tokens=8))
     model = from_jax_params(init_params(cfg, torch.Generator().manual_seed(0), device="cpu"),
                             cfg, device="cpu")
     experts = model.layers[0].ffn.experts
-    assert experts.w1t_q is None
+    assert experts.w1t_q is None and experts.attached_fat() is None
+    model.attach_moe_fat()
     names = {n for n, _ in model.named_parameters()}
     assert "layers.0.ffn.w_noise" in names and not any("w1t" in n for n in names)
     assert "layers.0.ffn.experts.w1t_q" not in model.state_dict()

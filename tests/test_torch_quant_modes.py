@@ -281,7 +281,7 @@ def test_weight_only_linear_and_mode_dispatch():
     """``linear_int8`` per mode on one input: weightonly is ``x @ (w_q * w_s)``
     with the weight dequantized in x's dtype; pallas is #6 and fused #8,
     each plus the bias; an unknown mode raises, as do unknown engine and
-    model arguments."""
+    model arguments; ``moe_mode="0"`` (no serving stack) is accepted."""
     (_, _, _, _), (x, wq, ws, b) = _operands(5, 9, 64, 40, "bfloat16")
     wo = torch_quant.linear_int8(x, wq, ws, b, "weightonly")
     assert torch.equal(wo, x @ (wq.to(torch.bfloat16) * ws.to(torch.bfloat16)) + b)
@@ -296,11 +296,13 @@ def test_weight_only_linear_and_mode_dispatch():
     cfg = ApertisConfig(**BASE)
     model = from_jax_params(init_params(cfg, torch.Generator(), device="cpu"), cfg, device="cpu")
     for kw in (dict(quant_matmul="auto"), dict(quant_matmul="xla"), dict(moe_mode="fat"),
-               dict(moe_mode="0"), dict(moe_mode="1")):
+               dict(moe_mode="1")):
         with pytest.raises(ValueError):
             InferenceEngine(cfg, model, **kw)
         with pytest.raises(ValueError):
             torch_model.ApertisForCausalLM(cfg, device="cpu", **kw)
+    InferenceEngine(cfg, model, moe_mode="0")
+    assert torch_model.ApertisForCausalLM(cfg, device="cpu", moe_mode="0").moe_mode == "0"
     meta = dict(device="meta")
     for fn in (quant_matmul, quant_matmul_dyn_fused):
         with pytest.raises(ValueError, match="CUDA"):

@@ -344,20 +344,15 @@ def _tiny_dataset(n=4, length=8):
     return [{"input_ids": row, "labels": row} for row in ids]
 
 
-@pytest.mark.parametrize("case", ["moe", "int8", "d_state 12 on the card",
-                                  "mesh", "pipeline", "fine-tune base"])
+@pytest.mark.parametrize("case", ["int8", "mesh", "pipeline", "fine-tune base"])
 def test_unsupported_training_raises(tmp_path, case):
     """Each training variant that is not ported raises NotImplementedError
     naming ROADMAP.md, instead of running something else."""
     _, cfg, tree = _trees()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "moe":
-            check_trainable(cfg.replace(use_expert_system=True, num_experts=4), device="cpu")
-        elif case == "int8":
+        if case == "int8":
             ApertisTrainer(cfg, quantize_params(jax.tree.map(torch.from_numpy, tree), min_size=0),
                            _tiny_dataset(), device="cpu")
-        elif case == "d_state 12 on the card":
-            check_trainable(cfg.replace(ssm_d_state=12), device="cuda")
         elif case == "mesh":
             ApertisTrainer(cfg, tree, _tiny_dataset(), mesh_shape=(2, 1, 1, 1), device="cpu")
         elif case == "pipeline":
@@ -372,11 +367,15 @@ def test_unsupported_training_raises(tmp_path, case):
 
 def test_supported_training_passes_the_gate():
     """The configurations the port trains on the card pass the gate: the
-    dense SSM model and the flash MHA model, whose f32 form trains through
-    the plain attention (the flash gate takes the dtype)."""
+    dense SSM model at any ssm_d_state, the flash MHA model (bf16 or f32:
+    the flash kernels take both) and the top-2 MoE model."""
     _, cfg, _ = _trees()
     check_trainable(cfg, device="cuda")
     check_trainable(cfg.replace(**MHA), device="cuda")
+    for n in (12, 24, 48, 64):
+        check_trainable(cfg.replace(ssm_d_state=n), device="cuda")
+    check_trainable(cfg.replace(use_expert_system=True, num_experts=4, experts_per_token=2),
+                    device="cuda")
     tree = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     trainer = ApertisTrainer(cfg, tree, _tiny_dataset(), batch_size=2, num_epochs=1,
                              device="cpu", output_dir="unused")
