@@ -126,6 +126,9 @@ from apertis_llm_torch.ops.kernels.ssm_step import (
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
 from apertis_llm_torch.ops.quant import linear_int8, linear_pre_q, quantize_rows
 from apertis_llm_torch.ops.rope import apply_rope, rope_tables, rotate
+from apertis_llm_torch.parallel.context import ParallelContext
+from apertis_llm_torch.parallel.context import current as parallel_current
+from apertis_llm_torch.parallel.sequence import previous_rows, ssm_scan_sequence_parallel
 
 Cache = Dict[str, torch.Tensor]
 
@@ -151,18 +154,25 @@ def _param(shape, device, dtype) -> nn.Parameter:
                         requires_grad=dtype.is_floating_point)
 
 
+def token_nll(logits: torch.Tensor, targets: torch.Tensor,
+              ignore_index: int = -100) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(nll, valid)``: each position's cross-entropy in f32 of ``logits``
+    (B, L, V) against ``targets`` (B, L), the token each position predicts,
+    0 where the target is ``ignore_index``, and the mask of valid targets."""
+    targets = targets.long()
+    valid = targets != ignore_index
+    safe = torch.where(valid, targets, torch.zeros_like(targets))
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(log_probs, -1, safe[..., None])[..., 0]
+    return torch.where(valid, nll, torch.zeros_like(nll)), valid
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_index: int = -100) -> torch.Tensor:
     """Shifted next-token cross-entropy in f32, averaged over the labels that
     are not ``ignore_index`` (at least one) (``apertis.py::
     cross_entropy_loss``)."""
-    shift_logits = logits[:, :-1, :].float()
-    shift_labels = labels[:, 1:].long()
-    valid = shift_labels != ignore_index
-    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
-    log_probs = torch.log_softmax(shift_logits, dim=-1)
-    nll = -torch.gather(log_probs, -1, safe[..., None])[..., 0]
-    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    nll, valid = token_nll(logits[:, :-1, :], labels[:, 1:], ignore_index)
     return nll.sum() / torch.clamp(valid.sum(), min=1)
 
 
@@ -292,12 +302,16 @@ class SelectiveSSM(nn.Module):
 
     def forward(self, h: torch.Tensor, *, seq_mask: Optional[torch.Tensor] = None,
                 seq_lens: Optional[torch.Tensor] = None, want_cache: bool = False,
-                drop: Optional[Dropout] = None):
+                drop: Optional[Dropout] = None, sp: Optional[ParallelContext] = None):
         """Pre-norm and mixer over a full sequence h (B, L, D)
         (``apertis.py::_layer_full``'s SSM branch and ``_ssm_full``). Returns
         ``(out, cache)``; with ``seq_mask`` padded steps are identity
         transitions and the conv window is gathered at ``seq_lens``. The
-        mixer has no dropout of its own: ``drop`` is not read."""
+        mixer has no dropout of its own: ``drop`` is not read. With ``sp``,
+        an active sequence-parallel context, ``h`` is this rank's chunk of
+        the sequence and the mixer takes :meth:`_sequence_parallel`."""
+        if sp is not None:
+            return self._sequence_parallel(h, seq_mask, sp), None
         b, l, _ = h.shape
         heads, n, r, k = self.heads, self.d_state, self.dt_rank, self.k
         if self.quantized and self.quant_matmul == "dyn":
@@ -335,6 +349,40 @@ class SelectiveSSM(nn.Module):
             conv_state = torch.gather(
                 pad, 1, idx[:, :, None].expand(b, k - 1, pad.shape[-1]))
         return out, {"conv": conv_state, "ssm": h_last}
+
+    def _sequence_parallel(self, h: torch.Tensor, seq_mask: Optional[torch.Tensor],
+                           sp: ParallelContext) -> torch.Tensor:
+        """The mixer on this rank's chunk as the JAX package routes it under
+        sequence parallelism (apertis.py:415-433), in its order of casts:
+        ``a_bar = exp(delta * A)``, ``b_term`` (cast to ``a_bar``'s f32) and
+        ``c_mod`` in the (B, H, L, N) layout, masked steps made identity
+        transitions, the chunk-composed scan, then ``y = c_mod * h`` in f32
+        cast to the compute dtype. The conv reads the previous chunk's last
+        K-1 pre-conv rows (the halo GSPMD exchanges in JAX)."""
+        b, l, _ = h.shape
+        heads, n, r, k = self.heads, self.d_state, self.dt_rank, self.k
+        x = self.pre_norm(h)
+        x_proj = self.in_proj_x(x)
+        z = self.in_proj_z(x)
+        halo = previous_rows(x_proj, k - 1, sp.mesh, sp.sp_axis) if k > 1 else None
+        x_act = silu(ssm_ops.depthwise_causal_conv(x_proj, self.conv.w, self.conv.b, halo))
+        raw = self.x_param_proj(x_act)
+        delta = torch.nn.functional.softplus(self.dt_proj(raw[..., :r]).float())
+        a_bar = torch.exp(delta[..., None] * -torch.exp(self.A_log.float()))   # (B, L, H, N)
+        a_bar = a_bar.transpose(1, 2)                                          # (B, H, L, N)
+        b_term = raw[..., r:r + heads * n].reshape(b, l, heads, n).transpose(1, 2)
+        b_term = b_term.to(a_bar.dtype)
+        c_mod = raw[..., r + heads * n:].reshape(b, l, heads, n).transpose(1, 2)
+        if seq_mask is not None:
+            m = seq_mask[:, None, :, None].to(a_bar.dtype)
+            a_bar = a_bar * m + (1.0 - m)   # identity transition on pads
+            b_term = b_term * m
+        hs, _ = ssm_scan_sequence_parallel(a_bar.contiguous(), b_term.contiguous(), sp.mesh,
+                                           sp.sp_axis)
+        y = (c_mod.to(hs.dtype) * hs).to(h.dtype)                            # (B, H, L, N)
+        y = y.transpose(1, 2).reshape(b, l, heads * n)
+        y = y + self.D * x_act
+        return self.out_proj(y * silu(z))
 
     def mixer_weights(self) -> MixerWeights:
         norm_w, norm_b = self.pre_norm.weights()
@@ -966,6 +1014,12 @@ class ApertisForCausalLM(nn.Module):
         cfg = self.config
         h = self.embed.tok[input_ids]
         kw = self._mha_kwargs(attention_mask, h.shape[1]) if is_mha(cfg) else {}
+        sp = parallel_current()
+        if sp.active:
+            if is_mha(cfg) or is_moe(cfg):
+                raise NotImplementedError("sequence parallelism is ported for the dense "
+                                          "selective-SSM model only (see ROADMAP.md)")
+            kw["sp"] = sp
         drawing = training and seed is not None
         if drawing:
             h = Dropout(fold_seed(seed, 0), h.device)(h, cfg.hidden_dropout_prob)

@@ -23,6 +23,7 @@ import torch
 
 from apertis_llm_torch.config import ApertisConfig
 from apertis_llm_torch.ops.quant import QUANT_MATMUL_MODES
+from apertis_llm_torch.parallel.mesh import normalize_shape
 
 Params = Dict[str, Any]
 
@@ -149,21 +150,33 @@ def check_serving_modes(quant_matmul: str, moe_mode: str) -> None:
 
 
 def check_trainable(config: ApertisConfig, quantized: bool = False, device="cuda",
-                    devices: int = 1) -> None:
+                    mesh_shape=None) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP.md) unless the port can
     train ``config`` as asked: a variant :func:`check_supported` takes (the
     dense or top-2 MoE selective-SSM model at any ``ssm_d_state`` up to
-    1024, the MHA model, bf16 or f32 compute), with a float tree, on one
-    device. Not ported yet: int8 trees and more than one device (module
-    7)."""
+    1024, the MHA model, bf16 or f32 compute), with a float tree, on a mesh
+    ``mesh_shape`` over (data, model, expert, seq) (None: one rank) that the
+    port runs: one rank, or ``(data, 1, 1, seq)`` for the dense SSM model and
+    ``(data, 1, 1, 1)`` for the MHA model. Not ported yet (module 7): int8
+    trees, a ``model`` or ``expert`` axis (tensor and expert parallelism),
+    MHA under ``seq`` (ring attention passes K/V with send/recv, which gloo
+    does not run on CUDA tensors), and a MoE model on any mesh (JAX computes
+    ``moe_dispatch``'s capacity over the global token count)."""
     check_supported(config, quantized)
     missing = []
     if quantized:
         missing.append("training an int8 tree")
     if torch.device(device).type == "cuda" and not is_mha(config) and config.ssm_d_state > 1024:
         missing.append(f"the scan's backward on the card with ssm_d_state={config.ssm_d_state}")
-    if devices > 1:
-        missing.append(f"training on {devices} devices")
+    data, model, expert, seq = normalize_shape(mesh_shape)
+    if model > 1:
+        missing.append(f"tensor parallelism (a model axis of {model})")
+    if expert > 1:
+        missing.append(f"expert parallelism (an expert axis of {expert})")
+    if is_mha(config) and seq > 1:
+        missing.append(f"MHA under sequence parallelism (ring attention, a seq axis of {seq})")
+    if is_moe(config) and data * model * expert * seq > 1:
+        missing.append("a MoE model on a mesh of more than one rank")
     if missing:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + ", ".join(missing) + " (see ROADMAP.md)")

@@ -27,7 +27,7 @@ CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT / "_build"
 SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu", "moe_ffn.cu",
            "moe_grouped.cu", "mha_step.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-           "flash_attention_f32.cu", "quant_matmul.cu", "moe_dense.cu")
+           "flash_attention_f32.cu", "quant_matmul.cu", "moe_dense.cu", "scan_carry.cu")
 HEADERS = ("common.cuh", "moe_gemm.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
@@ -45,6 +45,10 @@ SIGNATURES = {
     # da_part, B, L, H, N, bc_bf16, gy_bf16, stream
     "apertis_selective_scan_bwd": [_P] * 12 + [_I] * 6 + [_P],
     "apertis_selective_scan_bwd_smem": [_P] * 12 + [_I] * 6 + [_P],
+    # a, b, h_init, h, h_last, states, B*H, L, N, b_bf16, stream
+    "apertis_scan_carry_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    # a, g, h, h_init, g_last, da, db, dh_init, B*H, L, N, stream
+    "apertis_scan_carry_bwd": [_P] * 8 + [_I] * 3 + [_P],
     # 21 inputs, 6 outputs, 4 scratch, B, D, C, K, R, H, N, E, rms, eps, stream
     "apertis_ssm_decode_step": [_P] * 31 + [_I] * 9 + [_F, _P],
     # 25 inputs, 6 outputs, 4 scratch, B, D, C, K, R, H, N, E, rms, eps, stream

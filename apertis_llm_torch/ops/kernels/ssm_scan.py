@@ -11,6 +11,14 @@ is ``selective_scan_pallas``'s core, ``_scan_2d``) together with the layout
 work ``ops/ssm.py::ssm_mix`` did around it, and ``exp(delta * A)``, whose
 gradient XLA derived there: the backward returns the gradients of
 ``delta`` and ``A`` themselves.
+
+``selective_scan_carry_fwd`` and ``selective_scan_carry_bwd`` launch the
+kernels in ``csrc/scan_carry.cu`` (plain versions
+:func:`selective_scan_carry_fwd_reference` and
+:func:`selective_scan_carry_bwd_reference`): the plain scan over given decays
+and inputs from a carried state, in the (B, H, L, N) layout, and its
+gradient, which replace ``selective_scan_pallas`` (the forward and custom VJP
+of ``ssm_scan.py:129-194``) on the sequence-parallel path.
 """
 
 from __future__ import annotations
@@ -241,3 +249,136 @@ def selective_scan_bwd_smem(
 
 
 selective_scan_bwd_smem.launches = 0
+
+
+def selective_scan_carry_fwd_reference(
+    a_bar: torch.Tensor,                     # (B, H, L, N) decays
+    b_term: torch.Tensor,                    # (B, H, L, N) inputs
+    h_init: Optional[torch.Tensor] = None,   # (B, H, N) carried state
+    want_states: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """``h[t] = a[t] * h[t-1] + b[t]`` step by step in f32 from ``h[-1] =
+    h_init`` (0 without one). Returns ``(h, h_last)`` in ``b_term``'s dtype,
+    ``h_last = h[:, :, -1]``, and with ``want_states`` every f32 state after
+    them."""
+    a, b = a_bar.float(), b_term.float()
+    bsz, heads, l, n = b.shape
+    carry = (torch.zeros((bsz, heads, n), dtype=torch.float32, device=b.device)
+             if h_init is None else h_init.float())
+    states = torch.empty_like(b)
+    for t in range(l):
+        carry = a[:, :, t] * carry + b[:, :, t]
+        states[:, :, t] = carry
+    h = states.to(b_term.dtype)
+    out = (h, h[:, :, -1].contiguous())
+    return out + (states,) if want_states else out
+
+
+def selective_scan_carry_fwd(
+    a_bar: torch.Tensor,
+    b_term: torch.Tensor,
+    h_init: Optional[torch.Tensor] = None,
+    want_states: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """The carried-state scan: kernel on CUDA tensors, plain version on CPU
+    ones.
+
+    The kernel takes ``a_bar`` (B, H, L, N) contiguous float32, ``b_term``
+    of that shape contiguous in bfloat16 or float32, and ``h_init`` (B, H, N)
+    contiguous float32 or None. It writes ``h`` and ``h_last`` in
+    ``b_term``'s dtype and, with ``want_states``, returns the f32 states
+    third (``h`` itself for f32 ``b_term``; for bf16 the kernel writes them
+    too), which the backward reads.
+    """
+    if b_term.device.type == "cpu":
+        return selective_scan_carry_fwd_reference(a_bar, b_term, h_init, want_states)
+    bsz, heads, l, n = b_term.shape
+    dev = b_term.device
+    _build.check_tensor(a_bar, (bsz, heads, l, n), (torch.float32,), "a_bar", dev)
+    _build.check_tensor(b_term, (bsz, heads, l, n), (torch.bfloat16, torch.float32), "b_term",
+                        dev)
+    if h_init is not None:
+        _build.check_tensor(h_init, (bsz, heads, n), (torch.float32,), "h_init", dev)
+    if bsz * heads * l * n == 0:
+        raise ValueError(f"selective_scan_carry_fwd: empty shape {tuple(b_term.shape)}")
+    bf16 = b_term.dtype == torch.bfloat16
+    h = torch.empty_like(b_term)
+    h_last = torch.empty((bsz, heads, n), dtype=b_term.dtype, device=dev)
+    states = torch.empty_like(a_bar) if want_states and bf16 else None
+    err = _build.load_library().apertis_scan_carry_fwd(
+        a_bar.data_ptr(), b_term.data_ptr(), h_init.data_ptr() if h_init is not None else None,
+        h.data_ptr(), h_last.data_ptr(), states.data_ptr() if states is not None else None,
+        bsz * heads, l, n, int(bf16), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "selective_scan_carry_fwd")
+    selective_scan_carry_fwd.launches += 1
+    if not want_states:
+        return h, h_last
+    return h, h_last, (states if bf16 else h)
+
+
+selective_scan_carry_fwd.launches = 0
+
+
+def selective_scan_carry_bwd_reference(
+    a_bar: torch.Tensor,                     # (B, H, L, N) f32 decays
+    g: torch.Tensor,                         # (B, H, L, N) dL/dh
+    states: torch.Tensor,                    # (B, H, L, N) f32, the forward's states
+    h_init: Optional[torch.Tensor] = None,   # (B, H, N)
+    g_last: Optional[torch.Tensor] = None,   # (B, H, N) dL/dh_last
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The scan adjoint (ssm_scan.py:153-178) in f32, step by step from the
+    end: ``lam[L-1] = g[L-1] + g_last``, ``lam[t] = g[t] + a[t+1] lam[t+1]``,
+    ``da[t] = lam[t] h[t-1]`` (``h_init`` as ``h[-1]``), ``db[t] = lam[t]``.
+    Returns ``(da, db, dh_init)`` in f32, ``dh_init = lam[0] a[0]`` (None
+    without ``h_init``)."""
+    a, g = a_bar.float(), g.float()
+    bsz, heads, l, n = a.shape
+    zero = torch.zeros((bsz, heads, n), dtype=torch.float32, device=a.device)
+    lam = zero if g_last is None else g_last.float()
+    h_first = zero if h_init is None else h_init.float()
+    a_next = torch.ones_like(zero)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in range(l - 1, -1, -1):
+        lam = g[:, :, t] + a_next * lam
+        da[:, :, t] = lam * (states[:, :, t - 1] if t > 0 else h_first)
+        db[:, :, t] = lam
+        a_next = a[:, :, t]
+    return da, db, (None if h_init is None else lam * a_next)
+
+
+def selective_scan_carry_bwd(
+    a_bar: torch.Tensor,
+    g: torch.Tensor,
+    states: torch.Tensor,
+    h_init: Optional[torch.Tensor] = None,
+    g_last: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The carried-state scan's gradient: kernel on CUDA tensors, plain
+    version on CPU ones. The kernel takes ``a_bar``, ``g`` and ``states``
+    (B, H, L, N) and ``h_init`` and ``g_last`` (B, H, N) or None, each
+    contiguous float32, and returns what the plain version returns."""
+    if a_bar.device.type == "cpu":
+        return selective_scan_carry_bwd_reference(a_bar, g, states, h_init, g_last)
+    bsz, heads, l, n = a_bar.shape
+    dev = a_bar.device
+    for t, name in ((a_bar, "a_bar"), (g, "g"), (states, "states")):
+        _build.check_tensor(t, (bsz, heads, l, n), (torch.float32,), name, dev)
+    for t, name in ((h_init, "h_init"), (g_last, "g_last")):
+        if t is not None:
+            _build.check_tensor(t, (bsz, heads, n), (torch.float32,), name, dev)
+    if bsz * heads * l * n == 0:
+        raise ValueError(f"selective_scan_carry_bwd: empty shape {tuple(a_bar.shape)}")
+    da, db = torch.empty_like(a_bar), torch.empty_like(a_bar)
+    dh_init = torch.empty_like(h_init) if h_init is not None else None
+    err = _build.load_library().apertis_scan_carry_bwd(
+        a_bar.data_ptr(), g.data_ptr(), states.data_ptr(),
+        h_init.data_ptr() if h_init is not None else None,
+        g_last.data_ptr() if g_last is not None else None, da.data_ptr(), db.data_ptr(),
+        dh_init.data_ptr() if dh_init is not None else None, bsz * heads, l, n,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "selective_scan_carry_bwd")
+    selective_scan_carry_bwd.launches += 1
+    return da, db, dh_init
+
+
+selective_scan_carry_bwd.launches = 0

@@ -8,7 +8,10 @@ and state channel:
 with ``A = -exp(A_log)`` diagonal and an f32 carry. ``ssm_mix`` runs it over
 a whole sequence through ``ops/kernels/ssm_scan.py`` (the CUDA kernels on the
 card, their plain versions on the CPU), as :class:`SelectiveScan`, a
-``torch.autograd.Function``, when a gradient is wanted.
+``torch.autograd.Function``, when a gradient is wanted. ``selective_scan``
+is the plain scan over given decays and inputs from a carried state
+(``apertis_llm_tpu/ops/ssm.py:54``), which sequence parallelism composes
+across chunks (``parallel/sequence.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from apertis_llm_torch.ops.kernels.ssm_scan import selective_scan_bwd, selective_scan_fwd
+from apertis_llm_torch.ops.kernels.ssm_scan import (
+    selective_scan_bwd, selective_scan_carry_bwd, selective_scan_carry_fwd, selective_scan_fwd)
 
 
 class SelectiveScan(torch.autograd.Function):
@@ -75,17 +79,67 @@ def ssm_mix(
     return selective_scan_fwd(*args)
 
 
+class CarriedScan(torch.autograd.Function):
+    """``(h, h_last)`` of :func:`selective_scan_carry_fwd` with its gradient,
+    the custom VJP of ``selective_scan_pallas`` (ssm_scan.py:129-194): the
+    forward keeps the f32 states for the backward
+    (:func:`selective_scan_carry_bwd`), which returns ``da`` in ``a_bar``'s
+    dtype, ``db`` in f32 and ``dh_init`` in ``h_init``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, a_bar, b_term, h_init):
+        a = a_bar.float().contiguous()
+        h0 = None if h_init is None else h_init.float().contiguous()
+        h, h_last, states = selective_scan_carry_fwd(a, b_term.contiguous(), h0,
+                                                     want_states=True)
+        ctx.save_for_backward(a, states, h0)
+        ctx.dtypes = (a_bar.dtype, None if h_init is None else h_init.dtype)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, gh, g_last):
+        a, states, h0 = ctx.saved_tensors
+        a_dtype, h_init_dtype = ctx.dtypes
+        da, db, dh0 = selective_scan_carry_bwd(a, gh.float().contiguous(), states, h0,
+                                               g_last.float().contiguous())
+        return da.to(a_dtype), db, None if dh0 is None else dh0.to(h_init_dtype)
+
+
+def selective_scan(
+    a_bar: torch.Tensor,     # (B, H, L, N) decay factors
+    b_term: torch.Tensor,    # (B, H, L, N) recurrence inputs
+    h_init: Optional[torch.Tensor] = None,   # (B, H, N) carried state
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All states of ``h[t] = a[t] * h[t-1] + b[t]`` from ``h[-1] = h_init``
+    (0 without one), with an f32 carry. Returns ``(h, h_last)``: ``h``
+    (B, H, L, N) and ``h_last = h[:, :, -1]`` (B, H, N), both in
+    ``b_term``'s dtype. With grad enabled and an input that requires grad it
+    runs as :class:`CarriedScan`."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a_bar, b_term, h_init)):
+        return CarriedScan.apply(a_bar, b_term, h_init)
+    return selective_scan_carry_fwd(
+        a_bar.float().contiguous(), b_term.contiguous(),
+        None if h_init is None else h_init.float().contiguous())
+
+
 def depthwise_causal_conv(
     x: torch.Tensor,        # (B, L, C)
     weight: torch.Tensor,   # (C, K) per-channel taps
     bias: Optional[torch.Tensor] = None,   # (C,)
+    history: Optional[torch.Tensor] = None,   # (B, K-1, C) inputs before x
 ) -> torch.Tensor:
     """Causal depthwise conv: ``out[t] = sum_j w[j] * x[t - K + 1 + j] (+ bias)``,
     torch ``Conv1d(C, C, K, groups=C, padding=K-1)`` truncated to the first L
-    outputs, as an unrolled shifted sum over the K taps."""
+    outputs, as an unrolled shifted sum over the K taps. The K-1 inputs
+    before ``x`` are zeros, or ``history`` (the previous sequence chunk's
+    last rows under sequence parallelism)."""
     k = weight.shape[-1]
     l = x.shape[1]
-    pad = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    if history is None:
+        pad = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    else:
+        pad = torch.cat([history.to(x.dtype), x], dim=1)
     out = torch.zeros_like(x)
     for j in range(k):
         out = out + pad[:, j:j + l, :] * weight[:, j]

@@ -6,7 +6,10 @@ src/training/pipeline.py:709-991): ``{"data_config", "model_config",
 "training_config"}`` with ``training_config.task_type`` in {pretrain,
 finetune}, the same tokenizer resolution, special-token forcing into the
 model config and dataset wiring. ``training_config.device`` (the port's own
-key) names the device, the card by default. Fine-tuning from a base model
+key) names the device, the card by default. ``training_config.mesh_shape``
+(data, model, expert, seq) lays the ranks out as the JAX trainer's mesh;
+under torchrun ``train_from_config`` starts the process group first
+(``parallel/mesh.py::initialize_distributed``). Fine-tuning from a base model
 (``pretrained_model_path_for_finetune``) raises ``NotImplementedError`` until
 its loading half is ported (ROADMAP.md, module 6).
 """
@@ -23,6 +26,7 @@ import torch
 
 from apertis_llm_torch.models.factory import build_model_config
 from apertis_llm_torch.models.params import init_params
+from apertis_llm_torch.parallel.mesh import initialize_distributed
 from apertis_llm_torch.training.datasets import ApertisFineTuneDataset, ApertisPretrainDataset
 from apertis_llm_torch.training.trainer import ApertisTrainer
 from apertis_llm_torch.utils.vocab import load_vocabulary, vocab_size_from_mapping
@@ -69,6 +73,7 @@ def _resolve_tokenizer(data_cfg: Dict, is_fine_tuning: bool):
 def train_from_config(config_path: str,
                       stop_event: Optional[threading.Event] = None
                       ) -> Optional[Dict[str, Any]]:
+    initialize_distributed()
     with open(config_path, "r", encoding="utf-8") as f:
         config_data = json.load(f)
 

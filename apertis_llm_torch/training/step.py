@@ -17,6 +17,14 @@ updates only. The step casts every float parameter to the compute dtype
 (bf16) for the forward through ``torch.func.functional_call``, so the
 gradients land on the f32 masters, as the JAX ``loss_fn`` does with
 ``jax.tree.map(astype)``.
+
+On a mesh of more than one rank (``parallel/mesh.py``) each rank takes its
+part of the global batch (:func:`shard_batch`: its ``data`` rows and its
+``seq`` chunk), the step runs under the parallel context, each rank's loss
+is its tokens' summed loss over the global batch's count of valid targets,
+and the gradients of the f32 masters are summed over all ranks before
+``optimizer.update``, so that every rank sees the global batch's loss,
+gradients and norm, as the JAX step does under GSPMD.
 """
 
 from __future__ import annotations
@@ -24,9 +32,13 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from apertis_llm_torch.models.apertis import ApertisForCausalLM
+from apertis_llm_torch.models.apertis import ApertisForCausalLM, fold_seed, token_nll
+from apertis_llm_torch.parallel.collectives import all_reduce_sum
+from apertis_llm_torch.parallel.context import parallel_context
+from apertis_llm_torch.parallel.mesh import Mesh
 
 Batch = Dict[str, torch.Tensor]
 
@@ -178,6 +190,27 @@ def _run_params(model: ApertisForCausalLM,
     return {n: p.to(compute_dtype) if p.is_floating_point() else p for n, p in params.items()}
 
 
+def shard_batch(batch: Dict[str, np.ndarray], mesh: Mesh) -> Dict[str, Any]:
+    """This rank's part of a global batch (``input_ids``, ``labels``,
+    optional ``attention_mask``, (B, L) each): its ``data`` rows and its
+    ``seq`` chunk of ``input_ids`` and ``attention_mask``, and of
+    ``targets``, the labels shifted on the global sequence (position t
+    predicts label t + 1, so a chunk's last position takes the next chunk's
+    first label; ignored after the last position), with ``num_targets``, the
+    count of valid targets of the whole batch (at least one)."""
+    ids = batch["input_ids"]
+    b, l = ids.shape
+    rows, cols = b // mesh.shape["data"], l // mesh.shape["seq"]
+    r0, c0 = mesh.index("data") * rows, mesh.index("seq") * cols
+    targets = np.full_like(batch["labels"], -100)
+    targets[:, :-1] = batch["labels"][:, 1:]
+    part = {k: batch[k][r0:r0 + rows, c0:c0 + cols] for k in ("input_ids", "attention_mask")
+            if k in batch}
+    part["targets"] = targets[r0:r0 + rows, c0:c0 + cols]
+    part["num_targets"] = max(int((targets != -100).sum()), 1)
+    return part
+
+
 def loss_fn(model: ApertisForCausalLM, batch: Batch, seed: Optional[int],
             compute_dtype: Optional[torch.dtype] = None,
             training: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -187,7 +220,19 @@ def loss_fn(model: ApertisForCausalLM, batch: Batch, seed: Optional[int],
     MoE model the loss includes the layers' summed load-balancing and router
     z-losses, which the metrics also report (zero for a dense model). A
     ``seed`` of None draws no dropout, routing noise or expert dropout, as
-    the JAX ``loss_fn`` does with ``rng=None``."""
+    the JAX ``loss_fn`` does with ``rng=None``.
+
+    A rank's part of a global batch (:func:`shard_batch`, ``targets`` and
+    ``num_targets`` in place of ``labels``; a dense model) gives its tokens'
+    summed loss over ``num_targets``: the ranks' losses add up to the global
+    batch's."""
+    if "targets" in batch:
+        logits = torch.func.functional_call(
+            model, _run_params(model, compute_dtype), (batch["input_ids"],),
+            dict(attention_mask=batch.get("attention_mask"), training=training, seed=seed))
+        loss = token_nll(logits, batch["targets"])[0].sum() / batch["num_targets"]
+        zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss, {"loss": loss.detach(), "lb_loss": zero, "rz_loss": zero}
     out = torch.func.functional_call(
         model, _run_params(model, compute_dtype), (batch["input_ids"],),
         dict(attention_mask=batch.get("attention_mask"), labels=batch["labels"],
@@ -196,18 +241,45 @@ def loss_fn(model: ApertisForCausalLM, batch: Batch, seed: Optional[int],
                       "rz_loss": out.rz_loss.detach()}
 
 
+def _sum_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The ranks' partial metrics summed over the world (one all-reduce)."""
+    stacked = torch.stack(list(metrics.values()))
+    all_reduce_sum([stacked])
+    return dict(zip(metrics, stacked.unbind()))
+
+
+def reduce_gradients(grads: Dict[str, torch.Tensor]) -> None:
+    """Sum the ranks' gradients over the world, in place."""
+    all_reduce_sum(list(grads.values()))
+
+
 def train_step(model: ApertisForCausalLM, optimizer: AdamW, batch: Batch, seed: int,
-               compute_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+               compute_dtype: Optional[torch.dtype] = None,
+               mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One micro-step (``step.py::make_train_step``): loss and gradients of
     the f32 masters, then ``optimizer.update``. Returns the metrics ``loss``,
     ``lb_loss``, ``rz_loss`` and ``grad_norm`` (of this micro-step's
-    gradients) as device tensors: no host sync."""
+    gradients) as device tensors: no host sync.
+
+    With ``mesh`` (more than one rank) ``batch`` is this rank's part
+    (:func:`shard_batch`): the forward and backward run under the parallel
+    context, dropout draws from the step seed folded with the rank, and the
+    gradients and metrics are summed over the world before the update."""
     params = optimizer.params
-    loss, metrics = loss_fn(model, batch, seed, compute_dtype)
-    # A parameter the step did not read (a MoE router's w_noise when no
-    # noise is drawn) gets a zero gradient, as jax.grad gives it.
-    grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
-    grads = {n: g.float() for n, g in zip(params, grads)}
+    if mesh is not None:
+        seed = fold_seed(seed, mesh.rank)
+        with parallel_context(mesh):
+            loss, metrics = loss_fn(model, batch, seed, compute_dtype)
+            grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
+    else:
+        loss, metrics = loss_fn(model, batch, seed, compute_dtype)
+        # A parameter the step did not read (a MoE router's w_noise when no
+        # noise is drawn) gets a zero gradient, as jax.grad gives it.
+        grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
+    grads = {n: g.float().contiguous() for n, g in zip(params, grads)}
+    if mesh is not None:
+        reduce_gradients(grads)
+        metrics = _sum_metrics(metrics)
     metrics["grad_norm"] = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
     optimizer.update(grads)
     return metrics
@@ -215,7 +287,12 @@ def train_step(model: ApertisForCausalLM, optimizer: AdamW, batch: Batch, seed: 
 
 @torch.no_grad()
 def eval_step(model: ApertisForCausalLM, batch: Batch,
-              compute_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
-    """The loss without dropout or remat (``step.py::make_eval_step``)."""
-    loss, _ = loss_fn(model, batch, None, compute_dtype, training=False)
-    return {"loss": loss}
+              compute_dtype: Optional[torch.dtype] = None,
+              mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+    """The loss without dropout or remat (``step.py::make_eval_step``); with
+    ``mesh``, of this rank's part of the batch, summed over the world."""
+    if mesh is None:
+        return {"loss": loss_fn(model, batch, None, compute_dtype, training=False)[0]}
+    with parallel_context(mesh):
+        loss, _ = loss_fn(model, batch, None, compute_dtype, training=False)
+    return _sum_metrics({"loss": loss})

@@ -1,5 +1,5 @@
-"""ApertisTrainer: the training loop on one device (``apertis_llm_tpu/
-training/trainer.py``).
+"""ApertisTrainer: the training loop, on one device or a mesh of ranks
+(``apertis_llm_tpu/training/trainer.py``).
 
 The JAX trainer's signature and loop: AdamW with the one-cycle cosine
 schedule, gradient accumulation and clipping, an eval loop with a best-val
@@ -10,9 +10,19 @@ resume (``resume_from``) and a ``torch.profiler`` trace over
 ``profile_steps``. bf16 compute keeps f32 masters; ``remat`` is per-layer
 ``torch.utils.checkpoint``.
 
-The model runs on one device, the card unless ``device`` names another.
-Not ported yet, and refused with ``NotImplementedError`` (ROADMAP.md, module
-7): a mesh beyond one device, pipeline stages, a ``seq`` or ``expert`` axis.
+The model runs on the card unless ``device`` names another. Under a
+process group (``parallel/mesh.py``: torchrun with
+``initialize_distributed``, or ``spawn``) the trainer builds the mesh
+``mesh_shape`` over the ranks, every rank on ``data`` by default, as the
+JAX trainer does: every rank reads the one loader with one seed, takes its
+rows and its sequence chunk of each global batch (``step.py::
+shard_batch``), and the step sums the gradients over the ranks, so the
+global batch and every update match the single-device run. Rank 0 alone
+logs, writes checkpoints and reports to wandb; every rank returns the same
+``history``. ``models/params.py::check_trainable`` names the meshes the
+port trains on; the others (a ``model`` or ``expert`` axis, MHA under
+``seq``, MoE on any mesh) and pipeline stages are refused with
+``NotImplementedError`` (ROADMAP.md, module 7).
 ``dynamic_batch_sizing`` is a logged no-op, as in the JAX trainer.
 """
 
@@ -27,13 +37,16 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from apertis_llm_torch.config import ApertisConfig
 from apertis_llm_torch.models.apertis import fold_seed
 from apertis_llm_torch.models.convert import from_jax_params
 from apertis_llm_torch.models.params import check_trainable, quantized_layout
+from apertis_llm_torch.parallel.mesh import create_mesh, normalize_shape, rank_and_world
 from apertis_llm_torch.training.datasets import BatchLoader
-from apertis_llm_torch.training.step import decay_mask, eval_step, make_optimizer, train_step
+from apertis_llm_torch.training.step import (
+    decay_mask, eval_step, make_optimizer, shard_batch, train_step)
 from apertis_llm_torch.utils.checkpoint import restore_train_state, save_checkpoint
 from apertis_llm_torch.utils.profiling import (
     StepTimer, device_peak_tflops, start_trace, stop_trace)
@@ -88,13 +101,29 @@ class ApertisTrainer:
         measurement run that writes no checkpoint."""
         self.config = config.replace(remat=use_gradient_checkpointing)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None and torch.cuda.is_available():
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.compute_dtype = torch.bfloat16 if bf16 else None
         if pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline_stages > 1 is not ported to PyTorch yet (see ROADMAP.md)")
-        # A mesh of more than one device (data, model, expert or seq axis).
-        devices = int(np.prod(mesh_shape)) if mesh_shape is not None else 1
-        check_trainable(self.config, quantized_layout(params), self.device, devices)
+        _, world = rank_and_world()
+        check_trainable(self.config, quantized_layout(params), self.device,
+                        normalize_shape(mesh_shape, world))
+        self.mesh = create_mesh(mesh_shape)
+        self.is_main = self.mesh.rank == 0
+        data_par, seq_par = self.mesh.shape["data"], self.mesh.shape["seq"]
+        if batch_size % data_par:
+            raise ValueError(
+                f"batch_size {batch_size} must divide by data-parallel size {data_par}")
+        max_len = getattr(train_dataset, "max_length", 0)
+        if seq_par > 1 and max_len and max_len % seq_par:
+            raise ValueError(
+                f"max_length {max_len} must divide by sequence-parallel size {seq_par}")
+        if seq_par > 1 and max_len and max_len // seq_par < self.config.ssm_conv_kernel - 1:
+            raise ValueError(
+                f"a sequence chunk of {max_len // seq_par} positions is shorter than the "
+                f"conv window's {self.config.ssm_conv_kernel - 1} rows")
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
         self.output_dir = Path(output_dir)
@@ -113,7 +142,7 @@ class ApertisTrainer:
         self.seed = seed
         self.save_checkpoints = save_checkpoints
         self.micro_step = 0          # micro-steps taken, the stream of step seeds
-        if dynamic_batch_sizing:
+        if dynamic_batch_sizing and self.is_main:
             logger.info("dynamic_batch_sizing requested: batches have one static shape; "
                         "the flag is a no-op here.")
 
@@ -132,10 +161,12 @@ class ApertisTrainer:
             dict(self.model.named_parameters()), decay_mask(self.model), learning_rate,
             total_steps, weight_decay, max_grad_norm, self.gradient_accumulation_steps)
         if resume_from:
-            logger.info("Resuming full train state from %s", resume_from)
+            if self.is_main:
+                logger.info("Resuming full train state from %s", resume_from)
             self.load_train_state(restore_train_state(resume_from, self.device))
 
         self._wandb = None
+        self.use_wandb = self.use_wandb and self.is_main
         if self.use_wandb:
             try:
                 import wandb
@@ -161,12 +192,21 @@ class ApertisTrainer:
         self.optimizer.load_state_dict(state["optimizer"])
         self.micro_step, self.seed = int(state["micro_step"]), int(state["seed"])
 
-    def _put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v, dtype=torch.long).to(self.device, non_blocking=True)
+    @property
+    def _step_mesh(self):
+        """The mesh the steps take: None on one rank."""
+        return self.mesh if self.mesh.size > 1 else None
+
+    def _put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        """The batch on the device; on a mesh, this rank's part of it."""
+        if self._step_mesh is not None:
+            batch = shard_batch(batch, self.mesh)
+        return {k: v if isinstance(v, int) else
+                torch.as_tensor(v, dtype=torch.long).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
     def save_checkpoint(self, name: str, full_state: bool = True) -> None:
-        if not self.save_checkpoints:
+        if not (self.save_checkpoints and self.is_main):
             return
         save_checkpoint(self.output_dir / name, self.model, self.config,
                         train_state=self.train_state(),
@@ -182,7 +222,8 @@ class ApertisTrainer:
             if pad:
                 batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
                          for k, v in batch.items()}
-            metrics = eval_step(self.model, self._put_batch(batch), self.compute_dtype)
+            metrics = eval_step(self.model, self._put_batch(batch), self.compute_dtype,
+                                self._step_mesh)
             losses.append(float(metrics["loss"]))
             counts.append(n)
         if not losses:
@@ -190,8 +231,10 @@ class ApertisTrainer:
         return float(np.average(losses, weights=counts))
 
     def train(self) -> Dict[str, Any]:
-        logger.info("Starting %s on %s", "fine-tuning" if self.is_fine_tuning else "pre-training",
-                    self.device)
+        if self.is_main:
+            logger.info("Starting %s on %s (mesh %s)",
+                        "fine-tuning" if self.is_fine_tuning else "pre-training", self.device,
+                        tuple(self.mesh.shape.values()))
         best_val = float("inf")
         global_step = self.optimizer.count
         history: Dict[str, Any] = {"train_loss": [], "val_loss": []}
@@ -209,7 +252,8 @@ class ApertisTrainer:
 
         for epoch in range(self.num_epochs):
             if self.stop_event.is_set():
-                logger.info("Stop event received; halting at epoch %d.", epoch + 1)
+                if self.is_main:
+                    logger.info("Stop event received; halting at epoch %d.", epoch + 1)
                 break
             self.train_loader.set_epoch(epoch)
             epoch_losses = []
@@ -225,7 +269,8 @@ class ApertisTrainer:
                         stop_trace(prof, self.profile_dir)
                         prof = None
                 metrics = train_step(self.model, self.optimizer, self._put_batch(batch),
-                                     fold_seed(self.seed, self.micro_step), self.compute_dtype)
+                                     fold_seed(self.seed, self.micro_step), self.compute_dtype,
+                                     self._step_mesh)
                 self.micro_step += 1
                 device_losses.append(metrics["loss"])
                 timer.tick()
@@ -272,7 +317,8 @@ class ApertisTrainer:
                         stats["mfu_pct"] = (stats["tokens_per_sec"] * 6.0 * n_model_params
                                             / (peak_tflops * 1e12) * 100.0)
             mfu_txt = f", {stats['mfu_pct']:.1f}% MFU" if "mfu_pct" in stats else ""
-            logger.info("Epoch %d/%d: loss=%.4f (%.1fs)%s", epoch + 1, self.num_epochs,
+            log = logger.info if self.is_main else logger.debug
+            log("Epoch %d/%d: loss=%.4f (%.1fs)%s", epoch + 1, self.num_epochs,
                         mean_loss, elapsed,
                         f"  [{stats.get('tokens_per_sec', 0):,.0f} tok/s, "
                         f"{stats.get('step_time_wall_s', 0) * 1e3:.0f} ms/step wall{mfu_txt}]"
@@ -286,7 +332,7 @@ class ApertisTrainer:
                 val_loss = self.evaluate()
                 if val_loss is not None:
                     history["val_loss"].append(val_loss)
-                    logger.info("Epoch %d validation loss: %.4f", epoch + 1, val_loss)
+                    log("Epoch %d validation loss: %.4f", epoch + 1, val_loss)
                     if self._wandb:
                         self._wandb.log({"val/loss": val_loss})
                     if val_loss < best_val:
@@ -302,4 +348,9 @@ class ApertisTrainer:
             self._wandb.finish()
         history["final_step"] = global_step
         history["best_val_loss"] = best_val if best_val != float("inf") else None
+        if self.mesh.size > 1:
+            # The losses agree already; rank 0's timings go to every rank too.
+            shared = [history]
+            dist.broadcast_object_list(shared, src=0)
+            history = shared[0]
         return history

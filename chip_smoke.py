@@ -127,7 +127,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
      MHA in bf16 compute, each leaf within two bf16 ulps plus twice bf16's
      own effect on it (the CPU's bf16 vs f32 step); MoE (no step seed, a
      capacity that drops tokens) and flash MHA in f32 compute, each leaf
-     within 1e-4 of its largest CPU value.
+     within 1e-4 of its largest CPU value;
+  7. parallel training, after phase 3g's check of the carried-state scan
+     (#2, forward and backward, bit-equal to its plain versions at the 1.5B
+     model's (4, 38, 1024, 16) and a rank's (4, 38, 512, 16), from zero and
+     from an ``h_init``, with sensitivity checks for ``h_init`` and the
+     ``h_last`` cotangent): two ranks started with
+     ``apertis_llm_torch.parallel.spawn`` share the card in a gloo process
+     group (NCCL does not put two ranks on one card) and run the
+     sequence-parallel scan on (4, 38, 1024, 16) (h within 1e-5, gradients
+     within 1e-4 of one rank's ``selective_scan``), one step of a 2-layer
+     f32 dense-SSM model on meshes (1, 1, 1, 2) and (2, 1, 1, 1) (loss within
+     1e-5, each gradient leaf within 1e-4 of one process on the card; after
+     two updates the ranks' parameters hash the same), and the 1.5B dense
+     preset trained on (1, 1, 1, 2) for 4 micro-steps of the global 4 x 1024
+     (accumulation 2, remat, bf16 compute): #2's launches counted per rank
+     (2 scans a layer, the forward twice under remat) and #1's none, the
+     loss finite and falling, its first value within one bf16 ulp of the
+     same run in this process, the micro-step p50, the gradient
+     all-reduce's share and each rank's peak memory.
 Kernel times are CUDA-event means over back-to-back wrapper calls ("ms")
 and the profiler's device time per call ("device_ms", the kernels' own time
 without the Python wrapper). Before the last line it prints the kernels'
@@ -213,6 +231,22 @@ F32_FORWARD_TOL = 1e-4
 # summed in other orders over up to Dh or L terms (about sqrt(L) * 2^-24 of
 # the largest term), and the forward's online softmax rescaling.
 F32_FLASH_TOL = 1e-5
+# The carried-state scan (#2) against its plain versions: JAX's own bounds
+# (tests/test_pallas_kernels.py:69-78), relative to the largest element;
+# both sides round each product and sum once in one order.
+CARRY_TOL = 1e-5
+CARRY_BWD_TOL = 1e-4
+# A 2-layer f32 train step's loss on a two-rank mesh vs one process on the
+# card: the same f32 sums, the token losses summed in chunks.
+F32_SP_LOSS_TOL = 1e-5
+# The 1.5B preset's first micro-step loss on mesh (1, 1, 1, 2) vs the same run
+# in one process (bf16 compute): one bf16 ulp of the loss. The two runs differ
+# by where bf16 rounds (cuBLAS picks its kernels by row count, 2048 rows a
+# rank against 4096; the chunked scan adds f32 roundings; the SP route casts
+# b to f32 before the scan), each token's loss carries a bf16 noise of about
+# an ulp of its logits, of either sign, and the mean over 4096 tokens keeps
+# well under one ulp of the loss itself.
+PARALLEL_LR = 5e-3        # the 1.5B mesh run's peak learning rate
 # One f32 train step of a 2-layer model, card vs CPU (the MoE model, whose
 # top-2 choice would flip on a near-tie under bf16 rounding, and the f32
 # flash MHA model): each gradient leaf within 1e-4 of its largest CPU value.
@@ -342,6 +376,108 @@ def perturb_(tree, generator):
         walk(tree, "")
 
 
+def to_numpy(tree):
+    """A parameter tree of tensors as numpy arrays (what the ranks are sent)."""
+    return {k: to_numpy(v) if isinstance(v, dict) else v.detach().cpu().numpy()
+            for k, v in tree.items()}
+
+
+def parallel_rank(rank, scan_args, small, preset):
+    """One of phase 7's two ranks, which share the card in a gloo process
+    group (``apertis_llm_torch.parallel.spawn``): the sequence-parallel scan
+    on its half of L, a 2-layer f32 dense-SSM train step on meshes
+    (1, 1, 1, 2) and (2, 1, 1, 1) and two updates after it, then the 1.5B
+    dense preset trained on (1, 1, 1, 2). Returns what the parent compares
+    and reports."""
+    import hashlib
+
+    from apertis_llm_torch.config import ApertisConfig
+    from apertis_llm_torch.models.convert import from_jax_params
+    from apertis_llm_torch.models.params import init_params
+    from apertis_llm_torch.ops.kernels.ssm_scan import (
+        selective_scan_bwd, selective_scan_carry_bwd, selective_scan_carry_fwd,
+        selective_scan_fwd)
+    from apertis_llm_torch.parallel import create_mesh, parallel_context
+    from apertis_llm_torch.parallel.collectives import all_reduce_sum
+    from apertis_llm_torch.parallel.sequence import ssm_scan_sequence_parallel
+    from apertis_llm_torch.training import step as step_module
+    from apertis_llm_torch.training.trainer import ApertisTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+
+    a, b, w = (torch.as_tensor(x, device=dev) for x in scan_args)
+    half = a.shape[2] // 2
+    cols = slice(rank * half, (rank + 1) * half)
+    at = a[:, :, cols].contiguous().requires_grad_()
+    bt = b[:, :, cols].contiguous().requires_grad_()
+    h, h_last = ssm_scan_sequence_parallel(at, bt, create_mesh((1, 1, 1, 2)))
+    da, db = torch.autograd.grad((h ** 2).sum() + (h_last * w).sum(), (at, bt))
+    out["scan"] = [t.detach().cpu() for t in (h, h_last, da, db)]
+
+    cfg_kw, tree, ids = small
+    out["small"] = {}
+    for shape in ((1, 1, 1, 2), (2, 1, 1, 1)):
+        mesh = create_mesh(shape)
+        model = from_jax_params(tree, ApertisConfig(**cfg_kw), device=dev)
+        part = step_module.shard_batch({"input_ids": ids, "labels": ids}, mesh)
+        part = {k: v if isinstance(v, int) else torch.as_tensor(v, device=dev)
+                for k, v in part.items()}
+        params = dict(model.named_parameters())
+        with parallel_context(mesh):
+            loss, _ = step_module.loss_fn(model, part, None)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        grads = {name: g_.contiguous() for name, g_ in zip(params, grads)}
+        step_module.reduce_gradients(grads)
+        total = loss.detach().clone()
+        all_reduce_sum([total])
+        optimizer, _ = step_module.make_optimizer(params, step_module.decay_mask(model), 1e-3, 10)
+        for i in range(2):
+            step_module.train_step(model, optimizer, part, i, None, mesh)
+        digest = hashlib.sha256()
+        for p in model.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        out["small"][shape] = (float(total), {k: v.cpu() for k, v in grads.items()},
+                               digest.hexdigest())
+
+    cfg, seqs, micro, trainer_kw = preset
+    rows, length = seqs.shape
+    dataset = TokenRows([{"input_ids": seqs[i % rows], "labels": seqs[i % rows]}
+                         for i in range(micro * rows)], length)
+    tree = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    trainer = ApertisTrainer(cfg, tree, dataset, device=dev, mesh_shape=(1, 1, 1, 2),
+                             **trainer_kw)
+    del tree
+    reduce_ms = []
+    real_reduce = step_module.reduce_gradients
+
+    def timed_reduce(grads_):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_reduce(grads_)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    step_module.reduce_gradients = timed_reduce
+    counters = (selective_scan_carry_fwd, selective_scan_carry_bwd, selective_scan_fwd,
+                selective_scan_bwd)
+    for f in counters:
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    out["preset"] = dict(
+        losses=history["step_losses"], final_step=history["final_step"],
+        p50_s=history["perf"]["step_time_p50_s"], wall_s=time.perf_counter() - t0,
+        reduce_ms=reduce_ms, launches={f.__name__: f.launches for f in counters},
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        grad_bytes=sum(p.numel() * 4 for p in trainer.model.parameters()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs "
@@ -375,7 +511,8 @@ def main() -> int:
         TILE, expert_ffn_grouped, expert_ffn_grouped_reference)
     from apertis_llm_torch.ops.kernels.ssm_scan import (
         selective_scan_bwd, selective_scan_bwd_reference, selective_scan_bwd_smem,
-        selective_scan_fwd, selective_scan_fwd_reference)
+        selective_scan_carry_bwd, selective_scan_carry_bwd_reference, selective_scan_carry_fwd,
+        selective_scan_carry_fwd_reference, selective_scan_fwd, selective_scan_fwd_reference)
     from apertis_llm_torch.ops.kernels.quant_matmul import (
         quant_matmul, quant_matmul_dyn_fused, quant_matmul_dyn_fused_reference,
         quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference, quant_matmul_reference)
@@ -1522,6 +1659,76 @@ def main() -> int:
                                   ("flash_attention_dq_f32", flash_attention_dq_f32, bargs),
                                   ("flash_attention_dkv_f32", flash_attention_dkv_f32, bargs)):
                 repeats(f"{label} {shape}", fn, a_)
+
+    # ---- 3g. the carried-state scan (#2) ---------------------------------------
+    # The sequence-parallel path's scan, at the 1.5B model's whole training
+    # sequence (4, 38, 1024, 16) and at a rank's chunk of it under seq = 2
+    # (4, 38, 512, 16, the timed shape), f32, from zero and from an h_init,
+    # forward and backward (the plain backward on the plain forward's
+    # states). The kernels round every product and sum once, in the plain
+    # loops' order: the report says whether they are bit-equal.
+    log("the carried-state scan (#2) against its plain versions (f32):")
+    carry_bit_equal = {}
+
+    def carry_inputs(shape, with_init):
+        a = torch.empty(shape, device=dev).uniform_(0.4, 0.999, generator=g)
+        h0 = randn(shape[0], shape[1], shape[3], dtype=f32) if with_init else None
+        return a, randn(*shape, dtype=f32), h0
+
+    def carry_bwd_inputs(a, b, h0):
+        states = selective_scan_carry_fwd_reference(a, b, h0, want_states=True)[2]
+        g_last = randn(a.shape[0], a.shape[1], a.shape[3], dtype=f32)
+        return a, randn(*a.shape, dtype=f32), states, h0, g_last
+
+    def carry_tols(with_init):
+        fwd = [("h", CARRY_TOL), ("h_last", CARRY_TOL)]
+        bwd = [("da", CARRY_BWD_TOL), ("db", CARRY_BWD_TOL)]
+        return fwd, bwd + ([("dh_init", CARRY_BWD_TOL)] if with_init else [])
+
+    def bit_equal(label, kernel, plain, args):
+        got, ref = kernel(*args), plain(*args)
+        same = all(x is None and y is None or torch.equal(x, y) for x, y in zip(got, ref))
+        carry_bit_equal[label] = same
+        log(f"  {label}: bit-equal to the plain version: {same}")
+
+    # The checks can see the carried state and the h_last cotangent: without
+    # either the plain outputs move by more than 9 tolerances.
+    fargs = carry_inputs((2, 5, 300, 16), True)
+    bargs = carry_bwd_inputs(*fargs)
+    fwd_tols, bwd_tols = carry_tols(True)
+    check_sensitive("selective_scan_carry_fwd", selective_scan_carry_fwd_reference, fargs,
+                    {"h_init": fargs[:2] + (None,)}, fwd_tols, SENSITIVITY_FACTOR)
+    check_sensitive("selective_scan_carry_bwd", selective_scan_carry_bwd_reference, bargs, {
+        "h_init (as h[-1])": lambda: selective_scan_carry_bwd_reference(
+            *bargs[:3], torch.zeros_like(bargs[3]), bargs[4]),
+        "h_last cotangent": bargs[:4] + (None,)}, bwd_tols, SENSITIVITY_FACTOR)
+    for shape in ((4, ssm_heads, 1024, n), (4, ssm_heads, 512, n)):
+        for with_init in (False, True):
+            fargs = carry_inputs(shape, with_init)
+            bargs = carry_bwd_inputs(*fargs)
+            fwd_tols, bwd_tols = carry_tols(with_init)
+            timed = shape[2] == 512 and with_init
+            label = f"{shape} {'from h_init' if with_init else 'from zero'}"
+            a, b_, h0 = fargs
+            cost = (nbytes(a, b_, h0) + nbytes(b_) + nbytes(a[:, :, 0]), 2 * a.numel(), "f32")
+            check_kernel("selective_scan_carry_fwd", f"scan carry forward {label}", fargs,
+                         selective_scan_carry_fwd, selective_scan_carry_fwd_reference, fwd_tols,
+                         cost=cost if timed else None)
+            bwd_plain = (selective_scan_carry_bwd_reference if with_init else
+                         lambda *x: selective_scan_carry_bwd_reference(*x)[:2])
+            bwd_kernel = (selective_scan_carry_bwd if with_init else
+                          lambda *x: selective_scan_carry_bwd(*x)[:2])
+            cost = (nbytes(*(t for t in bargs if t is not None)) + 2 * nbytes(a)
+                    + nbytes(h0), 3 * a.numel(), "f32")
+            check_kernel("selective_scan_carry_bwd", f"scan carry backward {label}", bargs,
+                         bwd_kernel, bwd_plain, bwd_tols, cost=cost if timed else None)
+            bit_equal(f"scan carry forward {label}", selective_scan_carry_fwd,
+                      selective_scan_carry_fwd_reference, fargs)
+            bit_equal(f"scan carry backward {label}", selective_scan_carry_bwd,
+                      selective_scan_carry_bwd_reference, bargs)
+            if timed:
+                repeats(f"selective_scan_carry_fwd {label}", selective_scan_carry_fwd, fargs)
+                repeats(f"selective_scan_carry_bwd {label}", bwd_kernel, bargs)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. serve -----------------------------------------------------------
@@ -2187,6 +2394,129 @@ def main() -> int:
     moe_ops.moe_dispatch = real_dispatch
     log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 7. data- and sequence-parallel training: two ranks on the card -------
+    # NCCL does not put two ranks on one card, so the two ranks share it in a
+    # gloo process group, which passes the CUDA tensors through the host.
+    from apertis_llm_torch.ops.ssm import selective_scan
+    from apertis_llm_torch.parallel import spawn
+
+    log("data- and sequence-parallel training: two ranks sharing the card over gloo")
+    # The references, in this process on the card: one-rank selective_scan
+    # over the whole sequence (the 1.5B training shape), a 2-layer f32
+    # dense-SSM train step, and the 1.5B preset's run on mesh (1, 1, 1, 1).
+    srng = np.random.default_rng(SEED + 13)
+    sshape = (4, ssm_heads, 1024, n)
+    scan_args = (srng.uniform(0.4, 0.999, sshape).astype(np.float32),
+                 srng.normal(size=sshape).astype(np.float32),
+                 srng.normal(size=(4, ssm_heads, n)).astype(np.float32))
+    at, bt = (torch.tensor(x, device=dev, requires_grad=True) for x in scan_args[:2])
+    h_ref, h_last_ref = selective_scan(at, bt)
+    w_ref = torch.as_tensor(scan_args[2], device=dev)
+    scan_ref = (h_ref.detach(), h_last_ref.detach()) + torch.autograd.grad(
+        (h_ref ** 2).sum() + 2 * (h_last_ref * w_ref).sum(), (at, bt))
+    small_cfg = ApertisConfig(**dense_small)
+    tree = init_params(small_cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    perturb_(tree, torch.Generator().manual_seed(SEED + 7))
+    small_tree = to_numpy(tree)
+    ids_mesh = np.random.default_rng(SEED + 14).integers(4, 1000, (4, 256))
+    m = from_jax_params(small_tree, small_cfg, device=dev)
+    params = dict(m.named_parameters())
+    ids_t = torch.as_tensor(ids_mesh, device=dev)
+    loss, _ = loss_fn(m, {"input_ids": ids_t, "labels": ids_t}, None)
+    small_ref = (loss.detach().cpu(), {k: g_.cpu() for k, g_ in zip(
+        params, torch.autograd.grad(loss, list(params.values())))})
+    del m, params, loss, at, bt, h_ref, h_last_ref
+    # The 1.5B preset: 4 micro-steps of the global 4 x 1024 batch (2 updates).
+    # Its first update runs at the one-cycle schedule's start, lr / 25, and is
+    # the only one before the last loss: a peak of PARALLEL_LR makes that
+    # update move the loss well past the batches' spread.
+    par_micro = 4
+    trainer_kw = dict(output_dir="unused", batch_size=rows_, learning_rate=PARALLEL_LR,
+                      num_epochs=1, gradient_accumulation_steps=accum, bf16=True,
+                      use_gradient_checkpointing=True, seed=SEED, save_checkpoints=False)
+    par_dataset = TokenRows([{"input_ids": seqs[i % rows_], "labels": seqs[i % rows_]}
+                             for i in range(par_micro * rows_)], length)
+    tree = init_params(config, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    trainer = ApertisTrainer(config, tree, par_dataset, device=dev, **trainer_kw)
+    del tree
+    one_rank = trainer.train()
+    del trainer
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  one process, mesh (1, 1, 1, 1): losses {one_rank['step_losses']}; this process "
+        f"holds {torch.cuda.memory_allocated() / 1e9:.2f} GB while the ranks run")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        ranks = spawn(parallel_rank, 2, work, (
+            scan_args, (dense_small, small_tree, ids_mesh),
+            (config, seqs, par_micro, trainer_kw)), timeout=600)
+    log(f"  two ranks spawned, ran and joined in {time.perf_counter() - t0:.1f} s")
+
+    # The sequence-parallel scan against the one-rank scan.
+    got = [torch.cat([r["scan"][i] for r in ranks], dim=2) for i in (0, 2, 3)]
+    compare("two-rank SP scan h vs one rank", got[0], scan_ref[0].cpu(), CARRY_TOL)
+    for i, r in enumerate(ranks):
+        compare(f"two-rank SP scan h_last (rank {i}) vs one rank", r["scan"][1],
+                scan_ref[1].cpu(), CARRY_TOL)
+    compare("two-rank SP scan da vs one rank", got[1], scan_ref[2].cpu(), CARRY_BWD_TOL)
+    compare("two-rank SP scan db vs one rank", got[2], scan_ref[3].cpu(), CARRY_BWD_TOL)
+    # The 2-layer f32 train step on each mesh against one process.
+    for shape in ((1, 1, 1, 2), (2, 1, 1, 1)):
+        (l0, g0, d0), (l1, _, d1) = ranks[0]["small"][shape], ranks[1]["small"][shape]
+        compare(f"2-layer f32 train-step loss on mesh {shape} vs one process",
+                torch.tensor(l0), small_ref[0], F32_SP_LOSS_TOL)
+        if l0 != l1:
+            raise RuntimeError(f"mesh {shape}: the ranks hold other losses ({l0}, {l1})")
+        worst = max(float((g0[k] - ref).abs().max()) / float(ref.abs().max())
+                    for k, ref in small_ref[1].items())
+        if worst > F32_GRAD_TOL:
+            raise RuntimeError(f"mesh {shape}: a gradient is {worst:.3e} of its largest element "
+                               f"off the one-process step, limit {F32_GRAD_TOL:.0e}")
+        if d0 != d1:
+            raise RuntimeError(f"mesh {shape}: the ranks' parameters differ after two updates")
+        log(f"  2-layer f32 mesh {shape}: {len(g0)} gradient leaves within {worst:.3e} of their "
+            f"largest element of one process (limit {F32_GRAD_TOL:.0e}); after two updates "
+            f"both ranks' parameters hash to {d0[:16]} ok")
+    # The 1.5B preset on mesh (1, 1, 1, 2).
+    nl = config.num_hidden_layers
+    expected = {"selective_scan_carry_fwd": nl * 2 * par_micro * 2,
+                "selective_scan_carry_bwd": nl * 2 * par_micro,
+                "selective_scan_fwd": 0, "selective_scan_bwd": 0}
+    for i, r in enumerate(ranks):
+        pre = r["preset"]
+        log(f"  1.5B rank {i}: launches {pre['launches']} (expected {expected}: 2 scans a layer, "
+            f"the forward twice under remat); losses {pre['losses']}; micro-step p50 "
+            f"{pre['p50_s'] * 1e3:.1f} ms; gradient all-reduce {pre['reduce_ms']} ms; peak "
+            f"{pre['peak_gb']:.2f} GB")
+        if pre["launches"] != expected:
+            raise RuntimeError(f"1.5B rank {i}: the scan kernels were not launched as expected")
+        if pre["losses"] != ranks[0]["preset"]["losses"] or pre["final_step"] != par_micro // accum:
+            raise RuntimeError("1.5B: the ranks' histories differ or the updates are missing")
+    pre = ranks[0]["preset"]
+    losses = pre["losses"]
+    compare("1.5B first micro-step loss, mesh (1, 1, 1, 2) vs one process",
+            torch.tensor(losses[0]), torch.tensor(one_rank["step_losses"][0]), BF16_ULP)
+    if not (np.isfinite(losses).all() and np.mean(losses[accum:]) < np.mean(losses[:accum])):
+        raise RuntimeError(f"1.5B on mesh (1, 1, 1, 2): the loss is not finite or did not fall: "
+                           f"{losses}")
+    reduce_share = [sum(r["preset"]["reduce_ms"]) / 1e3 / r["preset"]["wall_s"] for r in ranks]
+    for key in expected:
+        launches[key] = launches.get(key, 0) + sum(r["preset"]["launches"][key] for r in ranks)
+    train_perf["dense SSM mesh (1, 1, 1, 2)"] = dict(
+        step_ms_p50=pre["p50_s"] * 1e3, tokens_per_s=rows_ * length / pre["p50_s"],
+        wall_s=pre["wall_s"], allreduce_ms=pre["reduce_ms"],
+        allreduce_share=reduce_share, allreduce_gb=pre["grad_bytes"] / 1e9,
+        peak_gb_per_rank=[r["preset"]["peak_gb"] for r in ranks],
+        losses=losses, one_process_losses=one_rank["step_losses"])
+    log(f"  1.5B on mesh (1, 1, 1, 2): losses {[round(x, 4) for x in losses]} (falls; one "
+        f"process {[round(x, 4) for x in one_rank['step_losses']]}); micro-step p50 "
+        f"{pre['p50_s'] * 1e3:.1f} ms = {rows_ * length / pre['p50_s']:,.1f} tokens/s; the "
+        f"gradient all-reduce ({pre['grad_bytes'] / 1e9:.2f} GB of f32 a micro-step) "
+        f"{np.median(pre['reduce_ms']):.1f} ms at the median, {reduce_share[0] * 100:.1f} % "
+        f"of rank 0's training time; peak {[round(r['preset']['peak_gb'], 2) for r in ranks]}"
+        f" GB per rank; card: {card}")
+    log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
+
     # ---- report -------------------------------------------------------------
     replaces = {
         "selective_scan_fwd": ("apertis_llm_torch/csrc/ssm_scan.cu",
@@ -2241,6 +2571,10 @@ def main() -> int:
                                    "apertis_llm_tpu/ops/pallas/flash_attention.py:257"),
         "flash_attention_dkv_f32": ("apertis_llm_torch/csrc/flash_attention_f32.cu",
                                     "apertis_llm_tpu/ops/pallas/flash_attention.py:282"),
+        "selective_scan_carry_fwd": ("apertis_llm_torch/csrc/scan_carry.cu",
+                                     "apertis_llm_tpu/ops/pallas/ssm_scan.py:184"),
+        "selective_scan_carry_bwd": ("apertis_llm_torch/csrc/scan_carry.cu",
+                                     "apertis_llm_tpu/ops/pallas/ssm_scan.py:184"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
@@ -2261,7 +2595,8 @@ def main() -> int:
                       "small_train_grad_err_over_limit": small_grad_err,
                       "flash_forward_max_abs_err": flash_forward_err,
                       "f32_flash_forward_max_abs_err": f32_flash_err,
-                      "moe_f32_forward_max_abs_err": moe_forward_err}))
+                      "moe_f32_forward_max_abs_err": moe_forward_err,
+                      "scan_carry_bit_equal": carry_bit_equal}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

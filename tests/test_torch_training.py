@@ -354,7 +354,7 @@ def test_unsupported_training_raises(tmp_path, case):
             ApertisTrainer(cfg, quantize_params(jax.tree.map(torch.from_numpy, tree), min_size=0),
                            _tiny_dataset(), device="cpu")
         elif case == "mesh":
-            ApertisTrainer(cfg, tree, _tiny_dataset(), mesh_shape=(2, 1, 1, 1), device="cpu")
+            ApertisTrainer(cfg, tree, _tiny_dataset(), mesh_shape=(1, 2, 1, 1), device="cpu")
         elif case == "pipeline":
             ApertisTrainer(cfg, tree, _tiny_dataset(), pipeline_stages=2, device="cpu")
         else:
