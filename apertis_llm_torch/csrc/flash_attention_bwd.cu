@@ -10,8 +10,9 @@
 //
 // Semantics (flash_attention.py:131-204), per (b, h), in f32:
 //   s_ij = (q_i . k_j) * Dh^-1/2, the forward kernel's own arithmetic: the bf16
-//          tensor-core product, then the scale in f32 (so exp(s - lse) is the
-//          forward's p);
+//          tensor-core product, then the scale folded into base 2, so that
+//          p_ij = 2^(fma(q_i . k_j, Dh^-1/2 * log2 e, -lse_i * log2 e)) is the
+//          forward's p (flash_attention.cu), on the special-function unit;
 //   p_ij = exp(s_ij - lse_i), 0 where j >= L, i >= L or (causal) i < j;
 //   dp_ij = dout_i . v_j;  ds_ij = p_ij * (dp_ij - delta_i) * Dh^-1/2;
 //   dq_i = sum_j ds_ij k_j;  dk_j = sum_i ds_ij q_i;  dv_j = sum_i p_ij dout_i.
@@ -26,310 +27,500 @@
 // of inputs and outputs (30 us at 3.35 TB/s) in dQ, 40.8 GFLOP (41 us)
 // against 121 MB (36 us) in dK/dV.
 //
-// Design: as the forward kernel (csrc/flash_attention.cu), WMMA 16x16x16 with
-// f32 accumulators and each warp owning 16 rows, so only the tile staging
-// needs block barriers. dQ: a block per (b * h, query tile of R rows) stages
-// its q and dout rows once and loops over 64-row key tiles; S and dP of the
-// warp's rows go to shared memory, ds is formed row by row (a warp per row,
-// two columns a lane) in bf16, and dQ += dS K accumulates in an f32 tile in
-// shared memory. dK/dV: a block per (b * h, key tile of R rows) stages its k
-// and v rows once and loops over 64-row query tiles from the diagonal down,
-// forming the transposed S^T = K Q^T and dP^T = V dout^T so that dV += P^T
-// dout and dK += dS^T Q are row-major products of the warp's own rows. R is
-// 64 for Dh up to 128 and 32 for Dh 256, which keeps every plan under the
-// 227 KB a block may use. No atomics: results repeat from run to run.
-
-#include <mma.h>
+// Design (Hopper, sm_90a), the building blocks of the forward
+// (flash_attention.cu, hopper.cuh): persistent blocks (one of 384 threads
+// an SM) of two consumer warpgroups and a producer warpgroup (setmaxnreg: 40
+// and 232 registers a thread) whose one thread keeps the block's own tiles
+// (two items in flight; one at DHP 256 in dQ) and a ring of streamed TMA
+// tiles full (128-byte swizzle, rows past L and columns past Dh zero; three
+// stages at DHP 64, two above), every product a wgmma with f32 accumulators
+// in registers, and every intermediate (S, P, dP, dS) in registers: no
+// shared-memory score tiles, no atomics, so results repeat from run to run.
+// The split into a dQ kernel and a dK/dV kernel is the TPU kernels'; it
+// needs no atomics. The pipelining, turns and peeled first tile are the
+// forward's (the comment before the dQ kernel).
+// - dQ: items are (b * h, 128 query rows), heaviest first under `causal`;
+//   warpgroup w owns 64 of the rows, with their Q and dO tiles and their lse
+//   and delta (in registers). Per key tile of BK rows: S = Q K^T and dP =
+//   dO V^T (wgmma m64nBK, all operands K-major), dS formed in registers and
+//   fed as the register A operand of dQ += dS K (wgmma m64nDHP, K read
+//   MN-major). BK = 64, 32 at DHP 256.
+// - dK/dV: items are (b * h, key tile), the first key tiles (the heaviest)
+//   first, each walking query tiles of BQ rows from the diagonal down; the
+//   producer's first warp brings each tile's lse (times log2 e) and delta in
+//   beside its Q and dO. Per query tile: S^T = K Q^T and dP^T = V dO^T (A =
+//   the item's own K or V rows, B = the streamed tile, both K-major), P^T
+//   and dS^T in registers as the A operands of dV += P^T dO and dK += dS^T Q
+//   (B read MN-major). Up to DHP 128 each warpgroup owns 64 key rows and all
+//   of Dh (BQ = 64 at DHP 64, 32 at 128); at DHP 256 both own the same 64
+//   key rows and split Dh (BQ = 32), computing S^T and dP^T twice, so that
+//   dK and dV (DHP / 2 registers a thread each, or DHP / 4 at 256) and the
+//   tile intermediates fit in 232 registers.
+// Shared memory 113-195 KB a block by kernel and DHP. At DHP 256 a few
+// values spill to local memory (136 bytes a thread in dQ, 8 in dK/dV); the
+// Dh-64 kernels of the models keep everything in registers.
 
 #include <cmath>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kTile = 64;   // key rows per step of the dQ kernel, query rows of the dK/dV one
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// Shared-memory plan of both kernels for a padded head width DHP: R rows
-// owned by the block (queries in dQ, keys in dK/dV) and kTile rows streamed.
-// Every region starts on a 128-byte boundary and every stride keeps WMMA's
-// 32-byte fragment alignment.
+// dQ: the Q and dO tiles of the block's query rows (kOwnBufs items in
+// flight), then K and V of each stage of the ring, then the barriers.
 template <int DHP>
-struct Plan {
-  static constexpr int kRows = DHP <= 128 ? 64 : 32;
-  static constexpr int kThreads = kRows * 2;   // a warp per 16 rows
-  static constexpr int kLd = DHP + 8;          // bf16 stride of the q, k, v, dout tiles
-  static constexpr int kLdS = kTile + 4;       // f32 stride of S and dP
-  static constexpr int kLdP = kTile + 8;       // bf16 stride of P and dS
-  static constexpr int kLdO = DHP + 4;         // f32 stride of the accumulators
-  static constexpr size_t kOwnTile = (size_t)kRows * kLd * 2;
-  static constexpr size_t kStreamTile = (size_t)kTile * kLd * 2;
-  static constexpr size_t kS = (size_t)kRows * kLdS * 4;
-  static constexpr size_t kP = (size_t)kRows * kLdP * 2;
-  static constexpr size_t kAcc = (size_t)kRows * kLdO * 4;
-  // dQ: q, dout (own); k, v (streamed); S, dP; dS; dQ; lse, delta (own rows).
-  static constexpr size_t kDqBytes =
-      2 * kOwnTile + 2 * kStreamTile + 2 * kS + kP + kAcc + 2 * (size_t)kRows * 4;
-  // dK/dV: k, v (own); q, dout (streamed); S^T, dP^T; P^T, dS^T; dK, dV; lse,
-  // delta (streamed rows).
-  static constexpr size_t kDkvBytes =
-      2 * kOwnTile + 2 * kStreamTile + 2 * kS + 2 * kP + 2 * kAcc + 2 * (size_t)kTile * 4;
+struct DqPlan {
+  static constexpr int kRows = kConsumers * kWgRows;       // query rows an item
+  static constexpr int kBK = DHP == 256 ? 32 : 64;         // key rows a tile
+  static constexpr int kStages = DHP == 64 ? 3 : 2;
+  static constexpr int kOwnBufs = DHP == 256 ? 1 : 2;
+  static constexpr uint32_t kOwnBytes = kRows * DHP * 2;   // one of Q, dO
+  static constexpr uint32_t kTileBytes = kBK * DHP * 2;    // one of K, V
+  static constexpr uint32_t kRing = kOwnBufs * 2 * kOwnBytes;
+  static constexpr uint32_t kBar = kRing + 2 * kStages * kTileBytes;
+  static constexpr size_t kBytes = kBar + 2 * (kOwnBufs + kStages) * 8 + 1024;   // + alignment
 };
 
-// Copy rows [row0, row0 + rows) of one (b, h) matrix (L, dh) into a tile of
-// stride DHP + 8, 16 bytes at a time; rows past L and columns past dh are 0.
-template <int DHP, int NT>
-__device__ __forceinline__ void stage_rows(const bf16* __restrict__ src, int row0, int rows,
-                                           int L, int dh, bf16* dst) {
-  constexpr int kChunks = DHP / 8;
-  for (int i = threadIdx.x; i < rows * kChunks; i += NT) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < L && c < dh)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * dh + c);
-    *reinterpret_cast<uint4*>(dst + r * (DHP + 8) + c) = val;
-  }
-}
-
-// Per-row f32 values (lse or delta) of rows [row0, row0 + rows); 0 past L.
-template <int NT>
-__device__ __forceinline__ void stage_vec(const float* __restrict__ src, int row0, int rows,
-                                          int L, float* dst) {
-  for (int i = threadIdx.x; i < rows; i += NT) dst[i] = row0 + i < L ? src[row0 + i] : 0.f;
-}
-
-// acc (16 x 16 at rows a_rows of A, columns b_cols of B^T) = A B^T over DHP:
-// A row-major with stride lda, B row-major with stride ldb read column-major.
+// dK/dV: the K and V tiles of the block's key rows (two items in flight),
+// then per stage the Q and dO tiles and their rows' lse and delta, then the
+// barriers.
 template <int DHP>
-__device__ __forceinline__ void product_abt(const bf16* a, int lda, const bf16* b, int ldb,
-                                            FragC& acc) {
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-  for (int kk = 0; kk < DHP / 16; ++kk) {
-    FragA fa;
-    FragBCol fb;
-    wmma::load_matrix_sync(fa, a + kk * 16, lda);
-    wmma::load_matrix_sync(fb, b + kk * 16, ldb);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
-}
+struct DkvPlan {
+  static constexpr int kSplit = DHP == 256 ? 2 : 1;              // warpgroups per key row
+  static constexpr int kRows = kConsumers / kSplit * kWgRows;    // key rows an item
+  static constexpr int kCols = DHP / kSplit;                     // dK/dV columns a warpgroup
+  static constexpr int kBQ = DHP == 64 ? 64 : 32;                // query rows a tile
+  static constexpr int kStages = DHP == 64 ? 3 : 2;
+  static constexpr int kOwnBufs = 2;
+  static constexpr uint32_t kOwnBytes = kRows * DHP * 2;         // one of K, V
+  static constexpr uint32_t kTileBytes = kBQ * DHP * 2;          // one of Q, dO
+  static constexpr uint32_t kStage = (2 * kTileBytes + 2 * kBQ * 4 + 1023) / 1024 * 1024;
+  static constexpr uint32_t kRing = kOwnBufs * 2 * kOwnBytes;
+  static constexpr uint32_t kBar = kRing + kStages * kStage;
+  static constexpr size_t kBytes = kBar + 2 * (kOwnBufs + kStages) * 8 + 1024;
+};
 
-// acc (16 rows x DHP, f32 in shared memory with stride ldo) += A (16 x 64,
-// bf16 row-major, stride lda) B (64 x DHP, bf16 row-major, stride ldb).
+// Both kernels are persistent (a block an SM, walking work items in
+// hopper.cuh::snake_item order, heaviest first under `causal`) and pipelined
+// alike: per streamed tile t, the two score products of tile t (group A) are
+// issued beside the accumulating products of tile t - 1 (group C), and tile
+// t's element-wise work runs while group C is still on the tensor cores; the
+// two consumer warpgroups take turns to issue (hopper.cuh::Turns), so both
+// walk every tile of an item, the few wholly masked ones included. The first
+// tile is peeled off the loop, so that no branch on the tile index separates
+// a wgmma from its wait (ptxas would serialise every wgmma of the kernel).
+
 template <int DHP>
-__device__ __forceinline__ void accumulate_ab(float* acc, int ldo, const bf16* a, int lda,
-                                              const bf16* b, int ldb) {
-#pragma unroll
-  for (int nb = 0; nb < DHP / 16; ++nb) {
-    FragC o;
-    wmma::load_matrix_sync(o, acc + nb * 16, ldo, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      FragA fa;
-      FragBRow fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, lda);
-      wmma::load_matrix_sync(fb, b + kk * 16 * ldb + nb * 16, ldb);
-      wmma::mma_sync(o, fa, fb, o);
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq, int BH, int L,
+                    int dh, float scale, float scale_log2, int causal) {
+  typedef DqPlan<DHP> P;
+  constexpr int BK = P::kBK;
+  constexpr int NO = P::kOwnBufs;
+  constexpr int NS = P::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + P::kBar);
+  uint64_t* own_empty = own_full + NO;
+  uint64_t* full = own_empty + NO;
+  uint64_t* empty = full + NS;
+  auto sQ = [&](int b) { return reinterpret_cast<bf16*>(smem + 2 * b * P::kOwnBytes); };
+  auto sDO = [&](int b) { return sQ(b) + P::kRows * DHP; };
+  auto sK = [&](int s) { return reinterpret_cast<bf16*>(smem + P::kRing + 2 * s * P::kTileBytes); };
+  auto sV = [&](int s) { return sK(s) + BK * DHP; };
+
+  const int nqt = (L + P::kRows - 1) / P::kRows;
+  const int total = BH * nqt;
+  const int G = gridDim.x;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < NO; ++b) {
+      mbar_init(&own_full[b], 1);
+      mbar_init(&own_empty[b], kConsumers * 128);
     }
-    wmma::store_matrix_sync(acc + nb * 16, o, ldo, wmma::mem_row_major);
-  }
-}
-
-template <int DHP>
-__global__ void __launch_bounds__(Plan<DHP>::kThreads) flash_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int L, int dh, float scale,
-    int causal) {
-  typedef Plan<DHP> P;
-  constexpr int NT = P::kThreads;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + P::kOwnTile);
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * P::kOwnTile);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * P::kOwnTile + P::kStreamTile);
-  unsigned char* rest = smem + 2 * P::kOwnTile + 2 * P::kStreamTile;
-  float* sS = reinterpret_cast<float*>(rest);
-  float* sDP = reinterpret_cast<float*>(rest + P::kS);
-  bf16* sDS = reinterpret_cast<bf16*>(rest + 2 * P::kS);
-  float* sAcc = reinterpret_cast<float*>(rest + 2 * P::kS + P::kP);
-  float* sLse = reinterpret_cast<float*>(rest + 2 * P::kS + P::kP + P::kAcc);
-  float* sDelta = sLse + P::kRows;
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * P::kRows;
-  const size_t base = (size_t)bh * L * dh;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r0 = warp * 16;
-
-  stage_rows<DHP, NT>(q + base, q0, P::kRows, L, dh, sQ);
-  stage_rows<DHP, NT>(dout + base, q0, P::kRows, L, dh, sDO);
-  stage_vec<NT>(lse + (size_t)bh * L, q0, P::kRows, L, sLse);
-  stage_vec<NT>(delta + (size_t)bh * L, q0, P::kRows, L, sDelta);
-  for (int i = threadIdx.x; i < P::kRows * P::kLdO; i += NT) sAcc[i] = 0.f;
-  int num_kb = (L + kTile - 1) / kTile;
-  if (causal) num_kb = min(num_kb, (q0 + P::kRows + kTile - 1) / kTile);
-
-  for (int kb = 0; kb < num_kb; ++kb) {
-    __syncthreads();   // the previous tile's K and V are no longer read
-    stage_rows<DHP, NT>(k + base, kb * kTile, kTile, L, dh, sK);
-    stage_rows<DHP, NT>(v + base, kb * kTile, kTile, L, dh, sV);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for the warp's 16 rows.
-#pragma unroll
-    for (int cb = 0; cb < kTile / 16; ++cb) {
-      FragC acc;
-      product_abt<DHP>(sQ + r0 * P::kLd, P::kLd, sK + cb * 16 * P::kLd, P::kLd, acc);
-      wmma::store_matrix_sync(sS + r0 * P::kLdS + cb * 16, acc, P::kLdS, wmma::mem_row_major);
-      product_abt<DHP>(sDO + r0 * P::kLd, P::kLd, sV + cb * 16 * P::kLd, P::kLd, acc);
-      wmma::store_matrix_sync(sDP + r0 * P::kLdS + cb * 16, acc, P::kLdS, wmma::mem_row_major);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 128);
     }
-    __syncwarp();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // ds of the warp's rows, in bf16.
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int qi = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j;
-        const int col = kb * kTile + c;
-        const bool valid = qi < L && col < L && (!causal || qi >= col);
-        const float s = __fmul_rn(sS[r * P::kLdS + c], scale);
-        const float p = valid ? expf(s - sLse[r]) : 0.f;
-        const float ds = __fmul_rn(__fmul_rn(p, sDP[r * P::kLdS + c] - sDelta[r]), scale);
-        sDS[r * P::kLdP + c] = __float2bfloat16(ds);
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      int kv = 0;
+      for (int it = 0;; ++it) {
+        const int item = snake_item(it, blockIdx.x, G);
+        if (item >= total) break;
+        int bh, q0;
+        tile_item(item, BH, nqt, causal, P::kRows, bh, q0);
+        const int ob = it % NO;
+        if (it >= NO) mbar_wait(&own_empty[ob], (it / NO - 1) & 1);
+        mbar_arrive_tx(&own_full[ob], 2 * P::kOwnBytes);
+        tma_load_tile<DHP>(sQ(ob), &q_map, &own_full[ob], P::kRows, q0, bh);
+        tma_load_tile<DHP>(sDO(ob), &do_map, &own_full[ob], P::kRows, q0, bh);
+        const int num_kb = key_tiles(L, BK, q0, P::kRows, causal);
+        for (int j = 0; j < num_kb; ++j, ++kv) {
+          const int s = kv % NS;
+          if (kv >= NS) mbar_wait(&empty[s], (kv / NS - 1) & 1);
+          mbar_arrive_tx(&full[s], 2 * P::kTileBytes);
+          tma_load_tile<DHP>(sK(s), &k_map, &full[s], BK, j * BK, bh);
+          tma_load_tile<DHP>(sV(s), &v_map, &full[s], BK, j * BK, bh);
+        }
       }
     }
-    __syncwarp();
-
-    // dQ += dS K for the warp's rows.
-    accumulate_ab<DHP>(sAcc + r0 * P::kLdO, P::kLdO, sDS + r0 * P::kLdP, P::kLdP, sK, P::kLd);
+    return;
   }
-  __syncwarp();
+  regs_alloc<kConsumerRegs>();
 
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int qi = q0 + r;
-    if (qi >= L) break;
-    for (int d = lane; d < dh; d += 32)
-      dq[base + (size_t)qi * dh + d] = __float2bfloat16(sAcc[r * P::kLdO + d]);
+  // Consumers: warpgroup wg owns query rows row_lo..row_lo+63 of each item,
+  // this thread rows r0 and r0 + 8, with their lse (times log2 e) and delta.
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const Turns turns{wg};
+  float acc[DHP / 2], sc[BK / 2], dp[BK / 2];
+  uint32_t da[BK / 16][4];   // dS of the previous tile, the A operand of its dQ += dS K
+  int kv = 0;
+  turns.start();
+  for (int it = 0;; ++it) {
+    const int item = snake_item(it, blockIdx.x, G);
+    if (item >= total) break;
+    const bool last_item = snake_item(it + 1, blockIdx.x, G) >= total;
+    int bh, q0;
+    tile_item(item, BH, nqt, causal, P::kRows, bh, q0);
+    const int num_kb = key_tiles(L, BK, q0, P::kRows, causal);
+    const int ob = it % NO;
+    const int r0 = q0 + wg * kWgRows + (tid / 32) * 16 + lane / 4;
+    float row_lse2[2], row_delta[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      row_lse2[h] = row < L ? lse[(size_t)bh * L + row] * kLog2e : 0.f;
+      row_delta[h] = row < L ? delta[(size_t)bh * L + row] : 0.f;
+    }
+    auto stage = [&](int j) { return (kv + j) % NS; };
+    auto issue_a = [&](int j) {   // S = Q K^T, dP = dO V^T
+#pragma unroll
+      for (int kk = 0; kk < DHP / 16; ++kk)
+        Wgmma<BK>::ss(sc, kmajor_desc(sQ(ob), P::kRows, wg * kWgRows, kk),
+                      kmajor_desc(sK(stage(j)), BK, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DHP / 16; ++kk)
+        Wgmma<BK>::ss(dp, kmajor_desc(sDO(ob), P::kRows, wg * kWgRows, kk),
+                      kmajor_desc(sV(stage(j)), BK, 0, kk), kk > 0);
+      wg_commit();
+    };
+    auto issue_c = [&](int j) {   // dQ += dS K
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<DHP>::rs(acc, da[kk], mnmajor_desc(sK(stage(j)), BK, kk, 0), 1);
+      wg_commit();
+    };
+    auto scores = [&](int j) {   // dS in place of S, in f32
+      reg_fence(sc);
+      reg_fence(dp);
+      const int c0 = j * BK + 2 * (lane % 4);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        const int row = r0 + 8 * h;
+        const int col = c0 + 8 * (i >> 2) + (i & 1);
+        const bool valid = row < L && col < L && (!causal || row >= col);
+        const float p = valid ? exp2_approx(fmaf(sc[i], scale_log2, -row_lse2[h])) : 0.f;
+        sc[i] = __fmul_rn(__fmul_rn(p, dp[i] - row_delta[h]), scale);
+      }
+    };
+
+#pragma unroll
+    for (int i = 0; i < DHP / 2; ++i) acc[i] = 0.f;
+    mbar_wait(&own_full[ob], (it / NO) & 1);
+    mbar_wait(&full[stage(0)], ((kv) / NS) & 1);
+    turns.mine();
+    wg_fence();
+    issue_a(0);
+    turns.theirs(false);
+    wg_wait<0>();
+    scores(0);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) to_a_frag(sc, kk, da[kk]);
+    for (int j = 1; j < num_kb; ++j) {
+      mbar_wait(&full[stage(j)], ((kv + j) / NS) & 1);
+      turns.mine();
+      wg_fence();
+      issue_a(j);
+      issue_c(j - 1);
+      turns.theirs(false);
+      wg_wait<1>();
+      scores(j);
+      wg_wait<0>();
+      reg_fence(acc);
+      mbar_arrive(&empty[stage(j - 1)]);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) to_a_frag(sc, kk, da[kk]);
+    }
+    mbar_arrive(&own_empty[ob]);   // every product reading Q and dO has retired
+    turns.mine();
+    wg_fence();
+    issue_c(num_kb - 1);
+    turns.theirs(last_item);
+    wg_wait<0>();
+    reg_fence(acc);
+    mbar_arrive(&empty[stage(num_kb - 1)]);
+    kv += num_kb;
+
+    const size_t base = (size_t)bh * L * dh;
+#pragma unroll
+    for (int i = 0; i < DHP / 2; i += 2) {
+      const int row = r0 + 8 * ((i >> 1) & 1);
+      const int col = 8 * (i >> 2) + 2 * (lane % 4);
+      if (row < L && col < dh)
+        *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)row * dh + col) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
   }
 }
 
 template <int DHP>
-__global__ void __launch_bounds__(Plan<DHP>::kThreads) flash_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int L,
-    int dh, float scale, int causal) {
-  typedef Plan<DHP> P;
-  constexpr int NT = P::kThreads;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + P::kOwnTile);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + 2 * P::kOwnTile);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + 2 * P::kOwnTile + P::kStreamTile);
-  unsigned char* rest = smem + 2 * P::kOwnTile + 2 * P::kStreamTile;
-  float* sS = reinterpret_cast<float*>(rest);                    // S^T
-  float* sDP = reinterpret_cast<float*>(rest + P::kS);           // dP^T
-  bf16* sP = reinterpret_cast<bf16*>(rest + 2 * P::kS);          // P^T
-  bf16* sDS = reinterpret_cast<bf16*>(rest + 2 * P::kS + P::kP);  // dS^T
-  float* sDK = reinterpret_cast<float*>(rest + 2 * P::kS + 2 * P::kP);
-  float* sDV = reinterpret_cast<float*>(rest + 2 * P::kS + 2 * P::kP + P::kAcc);
-  float* sLse = reinterpret_cast<float*>(rest + 2 * P::kS + 2 * P::kP + 2 * P::kAcc);
-  float* sDelta = sLse + kTile;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int BH, int L, int dh, float scale,
+                     float scale_log2, int causal) {
+  typedef DkvPlan<DHP> P;
+  constexpr int BQ = P::kBQ;
+  constexpr int NC = P::kCols;
+  constexpr int NO = P::kOwnBufs;
+  constexpr int NS = P::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + P::kBar);
+  uint64_t* own_empty = own_full + NO;
+  uint64_t* full = own_empty + NO;
+  uint64_t* empty = full + NS;
+  auto sK = [&](int b) { return reinterpret_cast<bf16*>(smem + 2 * b * P::kOwnBytes); };
+  auto sV = [&](int b) { return sK(b) + P::kRows * DHP; };
+  auto stage_at = [&](int s) { return smem + P::kRing + s * P::kStage; };
+  auto sQ = [&](int s) { return reinterpret_cast<bf16*>(stage_at(s)); };
+  auto sDO = [&](int s) { return reinterpret_cast<bf16*>(stage_at(s) + P::kTileBytes); };
+  auto sLse = [&](int s) { return reinterpret_cast<float*>(stage_at(s) + 2 * P::kTileBytes); };
+  auto sDelta = [&](int s) { return sLse(s) + BQ; };
 
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * P::kRows;
-  const size_t base = (size_t)bh * L * dh;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r0 = warp * 16;
+  const int nkt = (L + P::kRows - 1) / P::kRows;
+  const int nqb = (L + BQ - 1) / BQ;
+  const int total = BH * nkt;
+  const int G = gridDim.x;
+  auto first_tile = [&](int k0) { return causal ? k0 / BQ : 0; };   // none above k0
 
-  stage_rows<DHP, NT>(k + base, k0, P::kRows, L, dh, sK);
-  stage_rows<DHP, NT>(v + base, k0, P::kRows, L, dh, sV);
-  for (int i = threadIdx.x; i < P::kRows * P::kLdO; i += NT) {
-    sDK[i] = 0.f;
-    sDV[i] = 0.f;
-  }
-  const int num_qb = (L + kTile - 1) / kTile;
-  const int qb0 = causal ? k0 / kTile : 0;   // query tiles wholly above k0 see no key here
-
-  for (int qb = qb0; qb < num_qb; ++qb) {
-    __syncthreads();   // the previous query tile is no longer read
-    stage_rows<DHP, NT>(q + base, qb * kTile, kTile, L, dh, sQ);
-    stage_rows<DHP, NT>(dout + base, qb * kTile, kTile, L, dh, sDO);
-    stage_vec<NT>(lse + (size_t)bh * L, qb * kTile, kTile, L, sLse);
-    stage_vec<NT>(delta + (size_t)bh * L, qb * kTile, kTile, L, sDelta);
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 key rows.
-#pragma unroll
-    for (int cb = 0; cb < kTile / 16; ++cb) {
-      FragC acc;
-      product_abt<DHP>(sK + r0 * P::kLd, P::kLd, sQ + cb * 16 * P::kLd, P::kLd, acc);
-      wmma::store_matrix_sync(sS + r0 * P::kLdS + cb * 16, acc, P::kLdS, wmma::mem_row_major);
-      product_abt<DHP>(sV + r0 * P::kLd, P::kLd, sDO + cb * 16 * P::kLd, P::kLd, acc);
-      wmma::store_matrix_sync(sDP + r0 * P::kLdS + cb * 16, acc, P::kLdS, wmma::mem_row_major);
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < NO; ++b) {
+      mbar_init(&own_full[b], 1);
+      mbar_init(&own_empty[b], kConsumers * 128);
     }
-    __syncwarp();
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 33);   // the TMA thread's expect_tx and the warp's 32 arrivals
+      mbar_init(&empty[s], kConsumers * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // p and ds of the warp's key rows against this tile's queries, in bf16.
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int kj = k0 + r;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j;
-        const int qi = qb * kTile + c;
-        const bool valid = qi < L && kj < L && (!causal || qi >= kj);
-        const float s = __fmul_rn(sS[r * P::kLdS + c], scale);
-        const float p = valid ? expf(s - sLse[c]) : 0.f;
-        const float ds = __fmul_rn(__fmul_rn(p, sDP[r * P::kLdS + c] - sDelta[c]), scale);
-        sP[r * P::kLdP + c] = __float2bfloat16(p);
-        sDS[r * P::kLdP + c] = __float2bfloat16(ds);
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (wg == kConsumers) {
+    // Producer: the first warp's lane 0 issues the TMA loads, its every lane
+    // copies lse (times log2 e) and delta of the tile's rows (0 past L) and
+    // arrives; the other three warps only give their registers back.
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x >= kConsumers * 128 + 32) return;
+    int kv = 0;
+    for (int it = 0;; ++it) {
+      const int item = snake_item(it, blockIdx.x, G);
+      if (item >= total) break;
+      int bh, k0;
+      // The first key tiles, which see the most queries, first.
+      tile_item(item, BH, nkt, false, P::kRows, bh, k0);
+      const int ob = it % NO;
+      if (lane == 0) {
+        if (it >= NO) mbar_wait(&own_empty[ob], (it / NO - 1) & 1);
+        mbar_arrive_tx(&own_full[ob], 2 * P::kOwnBytes);
+        tma_load_tile<DHP>(sK(ob), &k_map, &own_full[ob], P::kRows, k0, bh);
+        tma_load_tile<DHP>(sV(ob), &v_map, &own_full[ob], P::kRows, k0, bh);
+      }
+      for (int qb = first_tile(k0); qb < nqb; ++qb, ++kv) {
+        const int s = kv % NS;
+        const int row0 = qb * BQ;
+        if (kv >= NS) mbar_wait(&empty[s], (kv / NS - 1) & 1);
+        if (lane == 0) {
+          mbar_arrive_tx(&full[s], 2 * P::kTileBytes);
+          tma_load_tile<DHP>(sQ(s), &q_map, &full[s], BQ, row0, bh);
+          tma_load_tile<DHP>(sDO(s), &do_map, &full[s], BQ, row0, bh);
+        }
+        for (int i = lane; i < BQ; i += 32) {
+          const int row = row0 + i;
+          sLse(s)[i] = row < L ? lse[(size_t)bh * L + row] * kLog2e : 0.f;
+          sDelta(s)[i] = row < L ? delta[(size_t)bh * L + row] : 0.f;
+        }
+        mbar_arrive(&full[s]);
       }
     }
-    __syncwarp();
-
-    // dV += P^T dO and dK += dS^T Q for the warp's key rows.
-    accumulate_ab<DHP>(sDV + r0 * P::kLdO, P::kLdO, sP + r0 * P::kLdP, P::kLdP, sDO, P::kLd);
-    accumulate_ab<DHP>(sDK + r0 * P::kLdO, P::kLdO, sDS + r0 * P::kLdP, P::kLdP, sQ, P::kLd);
+    return;
   }
-  __syncwarp();
+  regs_alloc<kConsumerRegs>();
 
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int kj = k0 + r;
-    if (kj >= L) break;
-    for (int d = lane; d < dh; d += 32) {
-      dk[base + (size_t)kj * dh + d] = __float2bfloat16(sDK[r * P::kLdO + d]);
-      dv[base + (size_t)kj * dh + d] = __float2bfloat16(sDV[r * P::kLdO + d]);
+  // Consumers: warpgroup wg owns key rows key_lo..key_lo+63 of each item
+  // (its own rows of the item's tile, or all of them when the warpgroups
+  // split Dh) and dK/dV columns from column block cb0 on; this thread key
+  // rows kr and kr + 8.
+  const int tid = threadIdx.x % 128;
+  const int own_row = P::kSplit == 1 ? wg * kWgRows : 0;
+  const int cb0 = P::kSplit == 1 ? 0 : wg * (NC / 64);
+  const Turns turns{wg};
+  float acc_k[NC / 2], acc_v[NC / 2], st[BQ / 2], dpt[BQ / 2];
+  uint32_t pa[BQ / 16][4], da[BQ / 16][4];   // P^T and dS^T of the previous tile
+  int kv = 0;
+  turns.start();
+  for (int it = 0;; ++it) {
+    const int item = snake_item(it, blockIdx.x, G);
+    if (item >= total) break;
+    const bool last_item = snake_item(it + 1, blockIdx.x, G) >= total;
+    int bh, k0;
+    tile_item(item, BH, nkt, false, P::kRows, bh, k0);
+    const int qb0 = first_tile(k0);
+    const int num_t = nqb - qb0;
+    const int ob = it % NO;
+    const int kr = k0 + own_row + (tid / 32) * 16 + lane / 4;
+    auto stage = [&](int t) { return (kv + t) % NS; };
+    auto issue_a = [&](int t) {   // S^T = K Q^T, dP^T = V dO^T
+#pragma unroll
+      for (int kk = 0; kk < DHP / 16; ++kk)
+        Wgmma<BQ>::ss(st, kmajor_desc(sK(ob), P::kRows, own_row, kk),
+                      kmajor_desc(sQ(stage(t)), BQ, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DHP / 16; ++kk)
+        Wgmma<BQ>::ss(dpt, kmajor_desc(sV(ob), P::kRows, own_row, kk),
+                      kmajor_desc(sDO(stage(t)), BQ, 0, kk), kk > 0);
+      wg_commit();
+    };
+    auto issue_c = [&](int t) {   // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        Wgmma<NC>::rs(acc_v, pa[kk], mnmajor_desc(sDO(stage(t)), BQ, kk, cb0), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        Wgmma<NC>::rs(acc_k, da[kk], mnmajor_desc(sQ(stage(t)), BQ, kk, cb0), 1);
+      wg_commit();
+    };
+    auto scores = [&](int t) {   // P^T over S^T and dS^T over dP^T, in f32
+      reg_fence(st);
+      reg_fence(dpt);
+      const float* tl = sLse(stage(t));
+      const float* td = sDelta(stage(t));
+      const int row0 = (qb0 + t) * BQ;
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int key = kr + 8 * ((i >> 1) & 1);
+        const int c = 8 * (i >> 2) + (i & 1) + 2 * (lane % 4);
+        const int qi = row0 + c;
+        const bool valid = qi < L && key < L && (!causal || qi >= key);
+        const float p = valid ? exp2_approx(fmaf(st[i], scale_log2, -tl[c])) : 0.f;
+        dpt[i] = __fmul_rn(__fmul_rn(p, dpt[i] - td[c]), scale);
+        st[i] = p;
+      }
+    };
+    auto to_frags = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        to_a_frag(st, kk, pa[kk]);
+        to_a_frag(dpt, kk, da[kk]);
+      }
+    };
+
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+    mbar_wait(&own_full[ob], (it / NO) & 1);
+    mbar_wait(&full[stage(0)], (kv / NS) & 1);
+    turns.mine();
+    wg_fence();
+    issue_a(0);
+    turns.theirs(false);
+    wg_wait<0>();
+    scores(0);
+    to_frags();
+    for (int t = 1; t < num_t; ++t) {
+      mbar_wait(&full[stage(t)], ((kv + t) / NS) & 1);
+      turns.mine();
+      wg_fence();
+      issue_a(t);
+      issue_c(t - 1);
+      turns.theirs(false);
+      wg_wait<1>();
+      scores(t);
+      wg_wait<0>();
+      reg_fence(acc_v);
+      reg_fence(acc_k);
+      mbar_arrive(&empty[stage(t - 1)]);
+      to_frags();
+    }
+    mbar_arrive(&own_empty[ob]);   // every product reading this item's K and V has retired
+    turns.mine();
+    wg_fence();
+    issue_c(num_t - 1);
+    turns.theirs(last_item);
+    wg_wait<0>();
+    reg_fence(acc_v);
+    reg_fence(acc_k);
+    mbar_arrive(&empty[stage(num_t - 1)]);
+    kv += num_t;
+
+    const size_t base = (size_t)bh * L * dh;
+#pragma unroll
+    for (int i = 0; i < NC / 2; i += 2) {
+      const int row = kr + 8 * ((i >> 1) & 1);
+      const int col = cb0 * 64 + 8 * (i >> 2) + 2 * (lane % 4);
+      if (row < L && col < dh) {
+        const size_t at = base + (size_t)row * dh + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(acc_k[i], acc_k[i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(acc_v[i], acc_v[i + 1]);
+      }
     }
   }
 }
 
-// Dh^-1/2 as Python's head_dim ** -0.5 gives it, rounded to f32 (the
-// forward kernel's scale).
+// Dh^-1/2 as Python's head_dim ** -0.5 gives it, rounded to f32, and the
+// same times log2 e: the forward kernel's factors.
 float head_scale(int dh) { return (float)std::pow((double)dh, -0.5); }
+float head_scale_log2(int dh) { return head_scale(dh) * kLog2e; }
 
 template <int DHP>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int BH, int L, int dh, int causal, void* stream) {
-  typedef Plan<DHP> P;
-  cudaError_t err = allow_smem(flash_dq_kernel<DHP>, P::kDqBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(BH, (L + P::kRows - 1) / P::kRows);
-  flash_dq_kernel<DHP><<<grid, P::kThreads, P::kDqBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), L, dh, head_scale(dh), causal);
+  typedef DqPlan<DHP> P;
+  CUtensorMap q_map, do_map, k_map, v_map;
+  int err = make_tile_map(&q_map, q, BH, L, dh, P::kRows);
+  if (err == 0) err = make_tile_map(&do_map, dout, BH, L, dh, P::kRows);
+  if (err == 0) err = make_tile_map(&k_map, k, BH, L, dh, P::kBK);
+  if (err == 0) err = make_tile_map(&v_map, v, BH, L, dh, P::kBK);
+  if (err != 0) return err;
+  cudaError_t cerr = allow_smem(flash_dq_kernel<DHP>, P::kBytes);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const int grid = persistent_grid((long long)BH * ((L + P::kRows - 1) / P::kRows));
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  flash_dq_kernel<DHP><<<grid, kThreads, P::kBytes, static_cast<cudaStream_t>(stream)>>>(
+      q_map, do_map, k_map, v_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), BH, L, dh, head_scale(dh),
+      head_scale_log2(dh), causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -337,46 +528,78 @@ template <int DHP>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int BH, int L, int dh, int causal,
                void* stream) {
-  typedef Plan<DHP> P;
-  cudaError_t err = allow_smem(flash_dkv_kernel<DHP>, P::kDkvBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(BH, (L + P::kRows - 1) / P::kRows);
-  flash_dkv_kernel<DHP><<<grid, P::kThreads, P::kDkvBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, dh,
-      head_scale(dh), causal);
+  typedef DkvPlan<DHP> P;
+  CUtensorMap k_map, v_map, q_map, do_map;
+  int err = make_tile_map(&k_map, k, BH, L, dh, P::kRows);
+  if (err == 0) err = make_tile_map(&v_map, v, BH, L, dh, P::kRows);
+  if (err == 0) err = make_tile_map(&q_map, q, BH, L, dh, P::kBQ);
+  if (err == 0) err = make_tile_map(&do_map, dout, BH, L, dh, P::kBQ);
+  if (err != 0) return err;
+  cudaError_t cerr = allow_smem(flash_dkv_kernel<DHP>, P::kBytes);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const int grid = persistent_grid((long long)BH * ((L + P::kRows - 1) / P::kRows));
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  flash_dkv_kernel<DHP><<<grid, kThreads, P::kBytes, static_cast<cudaStream_t>(stream)>>>(
+      k_map, v_map, q_map, do_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), BH, L,
+      dh, head_scale(dh), head_scale_log2(dh), causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool bad_shape(int BH, int L, int dh) {
-  return BH <= 0 || L <= 0 || dh <= 0 || dh % 8 || dh > 256 || (L + 31) / 32 > 65535;
+  return BH <= 0 || L <= 0 || dh <= 0 || dh % 8 || dh > 256 ||
+         (long long)BH * ((L + 63) / 64) > 0x7fffffff;
 }
 
 }  // namespace
 
+int flash_fwd_resources(int dh, int* out);   // flash_attention.cu
+
+// Resources of the bf16 flash kernel `kernel` (0 forward, 1 dQ, 2 dK/dV) at
+// head width dh: out[0..4] = registers a thread, shared memory a block
+// (bytes), resident blocks an SM, threads a block, spilled bytes a thread.
+// Returns the CUDA error.
+extern "C" int apertis_flash_attention_resources(int kernel, int dh, int* out) {
+  if (dh <= 0 || dh % 8 || dh > 256) return static_cast<int>(cudaErrorInvalidValue);
+  switch (kernel) {
+    case 0:
+      return flash_fwd_resources(dh, out);
+    case 1:
+      if (dh <= 64) return kernel_resources(flash_dq_kernel<64>, kThreads, DqPlan<64>::kBytes, out);
+      if (dh <= 128)
+        return kernel_resources(flash_dq_kernel<128>, kThreads, DqPlan<128>::kBytes, out);
+      return kernel_resources(flash_dq_kernel<256>, kThreads, DqPlan<256>::kBytes, out);
+    case 2:
+      if (dh <= 64)
+        return kernel_resources(flash_dkv_kernel<64>, kThreads, DkvPlan<64>::kBytes, out);
+      if (dh <= 128)
+        return kernel_resources(flash_dkv_kernel<128>, kThreads, DkvPlan<128>::kBytes, out);
+      return kernel_resources(flash_dkv_kernel<256>, kThreads, DkvPlan<256>::kBytes, out);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // dQ of BH = B * H (L, dh) attentions; dh a multiple of 8 up to 256. Returns
-// cudaGetLastError().
+// cudaGetLastError(), or cudaErrorInvalidResourceHandle if a tensor map
+// cannot be made.
 extern "C" int apertis_flash_attention_dq(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* delta,
                                           void* dq, int BH, int L, int dh, int causal,
                                           void* stream) {
   if (bad_shape(BH, L, dh)) return static_cast<int>(cudaErrorInvalidValue);
-  if (dh <= 32) return launch_dq<32>(q, k, v, dout, lse, delta, dq, BH, L, dh, causal, stream);
   if (dh <= 64) return launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, L, dh, causal, stream);
   if (dh <= 128) return launch_dq<128>(q, k, v, dout, lse, delta, dq, BH, L, dh, causal, stream);
   return launch_dq<256>(q, k, v, dout, lse, delta, dq, BH, L, dh, causal, stream);
 }
 
 // dK and dV of BH = B * H (L, dh) attentions; dh a multiple of 8 up to 256.
-// Returns cudaGetLastError().
+// Returns what apertis_flash_attention_dq returns.
 extern "C" int apertis_flash_attention_dkv(const void* q, const void* k, const void* v,
                                            const void* dout, const void* lse,
                                            const void* delta, void* dk, void* dv, int BH, int L,
                                            int dh, int causal, void* stream) {
   if (bad_shape(BH, L, dh)) return static_cast<int>(cudaErrorInvalidValue);
-  if (dh <= 32)
-    return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, BH, L, dh, causal, stream);
   if (dh <= 64)
     return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, L, dh, causal, stream);
   if (dh <= 128)

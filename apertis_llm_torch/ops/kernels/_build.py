@@ -28,7 +28,7 @@ BUILD_DIR = PACKAGE_ROOT / "_build"
 SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu", "moe_ffn.cu",
            "moe_grouped.cu", "mha_step.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "flash_attention_f32.cu", "quant_matmul.cu", "moe_dense.cu", "scan_carry.cu")
-HEADERS = ("common.cuh", "moe_gemm.cuh")
+HEADERS = ("common.cuh", "moe_gemm.cuh", "hopper.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
 # int8 quantizations rely on.
@@ -85,6 +85,8 @@ SIGNATURES = {
     "apertis_flash_attention_fwd_f32": [_P] * 5 + [_I] * 4 + [_P],
     "apertis_flash_attention_dq_f32": [_P] * 7 + [_I] * 4 + [_P],
     "apertis_flash_attention_dkv_f32": [_P] * 8 + [_I] * 4 + [_P],
+    # kernel (0 forward, 1 dQ, 2 dK/dV), head_dim, out (5 ints)
+    "apertis_flash_attention_resources": [_I, _I, _P],
     # x_q, x_s, w_q, w_s, bias (or NULL), out, M, N, K, out_bf16, stream
     "apertis_quant_matmul_dyn": [_P] * 6 + [_I] * 4 + [_P],
     # x, w_q, w_s, bias (or NULL), out, M, N, K, x_bf16, stream

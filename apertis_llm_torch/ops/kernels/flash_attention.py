@@ -12,18 +12,46 @@ flash_attention``: its forward, which returns the log-sum-exp beside the
 output, and its backward (``_flash_bwd``), which recomputes the
 probabilities from it. :class:`FlashAttention` is the
 ``torch.autograd.Function`` around the three, choosing the bf16 or the f32
-kernels by q's dtype.
+kernels by q's dtype. :func:`flash_attention_resources` reports what the
+card gives each bf16 kernel (registers, shared memory, resident blocks).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
 from apertis_llm_torch.ops.kernels import _build
 
 NEG_INF = -1e30      # flash_attention.py:31
+# The bf16 kernels, in the order of apertis_flash_attention_resources' codes.
+BF16_KERNELS = ("forward", "dq", "dkv")
+RESOURCE_KEYS = ("registers", "shared_bytes", "blocks_per_sm", "threads", "spill_bytes")
+
+
+def supported_head_dim(dh: int) -> bool:
+    """Whether the bf16 kernels take heads of width ``dh``: a multiple of 8
+    (rows of whole 16-byte units, which their TMA tensor maps need) up to
+    256."""
+    return 0 < dh <= 256 and dh % 8 == 0
+
+
+def flash_attention_resources(kernel: str, head_dim: int) -> Dict[str, int]:
+    """What the card gives the bf16 ``kernel`` (one of :data:`BF16_KERNELS`)
+    at ``head_dim``: registers a thread, shared memory a block in bytes,
+    resident blocks an SM (the occupancy calculator's), threads a block and
+    spilled bytes a thread."""
+    if kernel not in BF16_KERNELS:
+        raise ValueError(f"flash_attention_resources: unknown kernel {kernel!r}")
+    if not supported_head_dim(head_dim):
+        raise ValueError(f"flash_attention_resources: unsupported head_dim {head_dim}")
+    out = (ctypes.c_int * len(RESOURCE_KEYS))()
+    err = _build.load_library().apertis_flash_attention_resources(
+        BF16_KERNELS.index(kernel), head_dim, ctypes.addressof(out))
+    _build.check(err, "flash_attention_resources")
+    return dict(zip(RESOURCE_KEYS, out))
 
 
 def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,7 +86,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _build.check_tensor(t, (b, h, l, dh), (torch.bfloat16,), name, dev)
-    if b * h == 0 or l == 0 or dh % 8 or dh > 256:
+    if b * h == 0 or l == 0 or not supported_head_dim(dh):
         raise ValueError(f"flash_attention_fwd: unsupported shape {tuple(q.shape)}")
     _build.check_aligned("flash_attention_fwd", q, k, v)
     out = torch.empty_like(q)
@@ -120,7 +148,7 @@ def _check_bwd(name, q, k, v, dout, lse, delta):
         _build.check_tensor(t, (b, h, l, dh), (torch.bfloat16,), tname, dev)
     for t, tname in ((lse, "lse"), (delta, "delta")):
         _build.check_tensor(t, (b, h, l), (torch.float32,), tname, dev)
-    if b * h == 0 or l == 0 or dh % 8 or dh > 256:
+    if b * h == 0 or l == 0 or not supported_head_dim(dh):
         raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
     _build.check_aligned(name, q, k, v, dout)
 

@@ -96,7 +96,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and f32 at N = 48; the f32 flash forward, dQ and dK/dV at (4, 38, 1024,
      64), L = 300 and Dh 32, 128 and 256, with SDPA on the same f32 inputs
      (TF32 off) timed beside them; sensitivity checks as above, and a second
-     run of each new kernel giving the same bits;
+     run of each new kernel giving the same bits (the bf16 flash forward, dQ
+     and dK/dV too, at (4, 38, 1024, 64) and at L = 300), and the registers,
+     shared memory and resident blocks per SM that the card gives each bf16
+     flash kernel;
   5. check 2-layer dense, MoE and MHA models on the card against the same
      weights on the CPU (plain versions), bf16, int8 and w4a8 (dense and
      MoE), dense int8 under ``pallas`` and ``fused`` and MoE int8 under
@@ -148,13 +151,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
      all-reduce's share and each rank's peak memory.
 Kernel times are CUDA-event means over back-to-back wrapper calls ("ms")
 and the profiler's device time per call ("device_ms", the kernels' own time
-without the Python wrapper). Before the last line it prints the kernels'
-JSON summary and the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+without the Python wrapper, from each kernel's mean duration in the
+profiler's records, which can miss some launches). Before the last line it
+prints the bf16 flash kernels' resources, the kernels' JSON summary and the
+card's name and power limit; the last line is ``{"ok": true, "device":
+{...}}``.
 
 It needs a CUDA device and exits non-zero without one. It imports no JAX.
 """
 
+import collections
 import dataclasses
 import json
 import os
@@ -283,20 +289,35 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=10):
+def device_ms(fn, iters=10, tries=3):
     """The device time of one call of ``fn``: the profiler's CUDA activity
-    (kernels and memsets) over ``iters`` back-to-back calls, per call; None
-    if the profiler saw no device activity."""
+    (kernels and memsets) over ``iters`` back-to-back calls, per call. The
+    profiler can lose activity records of the kernels launched through
+    ctypes (9, or even 2, of 10 seen on the card), so the time is each
+    activity name's mean duration times its launches per call (its records
+    over ``iters``, rounded up), not the records' sum over ``iters``. A
+    window with no record is taken again, up to ``tries`` windows; None if
+    the profiler saw no device activity in any."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return us / iters / 1e3 if us > 0 else None
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us, counts = collections.defaultdict(float), collections.Counter()
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                us[ev.name] += ev.time_range.elapsed_us()
+                counts[ev.name] += 1
+        if not counts:
+            continue
+        if any(c % iters for c in counts.values()):
+            log(f"  device_ms: the profiler kept {sorted(counts.values())} records of "
+                f"{iters} calls; each kernel's mean duration times its launches per call")
+        return sum(us[n] / counts[n] * -(-counts[n] // iters) for n in counts) / 1e3
+    return None
 
 
 def nbytes(*tensors):
@@ -498,9 +519,10 @@ def main() -> int:
         ffn_decode, ffn_decode_int4, ffn_decode_int4_reference, ffn_decode_int8,
         ffn_decode_int8_reference, ffn_decode_reference, pick_block_n)
     from apertis_llm_torch.ops.kernels.flash_attention import (
-        flash_attention_dkv, flash_attention_dkv_f32, flash_attention_dkv_reference,
-        flash_attention_dq, flash_attention_dq_f32, flash_attention_dq_reference,
-        flash_attention_fwd, flash_attention_fwd_f32, flash_attention_fwd_reference)
+        BF16_KERNELS, flash_attention_dkv, flash_attention_dkv_f32,
+        flash_attention_dkv_reference, flash_attention_dq, flash_attention_dq_f32,
+        flash_attention_dq_reference, flash_attention_fwd, flash_attention_fwd_f32,
+        flash_attention_fwd_reference, flash_attention_resources)
     from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize, ln_quantize_reference
     from apertis_llm_torch.ops.kernels.mha_step import (
         NEG, mha_decode_ctx, mha_decode_ctx_int8, mha_decode_ctx_reference, quantize_heads)
@@ -1568,11 +1590,16 @@ def main() -> int:
             # computes dQ, dK and dV in one call, on the same inputs.
             leaves = [t.detach().requires_grad_(True) for t in args[:3]]
             out_l = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True)
-            sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out_l, leaves, args[3],
+            # Three windows, the least kept: a single window has read 3x the
+            # others on the card.
+            windows = [cuda_ms(lambda: torch.autograd.grad(out_l, leaves, args[3],
                                                            retain_graph=True))
+                       for _ in range(3)]
+            sdpa_bwd = min(windows)
             library["flash_attention_dq"] = library["flash_attention_dkv"] = sdpa_bwd
             log(f"  library: the backward of scaled_dot_product_attention(is_causal=True) "
-                f"(dQ, dK and dV) {sdpa_bwd:.4f} ms; card: {card}")
+                f"(dQ, dK and dV) {sdpa_bwd:.4f} ms (windows "
+                f"{', '.join(f'{w:.4f}' for w in windows)}); card: {card}")
             del leaves, out_l
 
     def repeats(label, fn, args):
@@ -1582,6 +1609,22 @@ def main() -> int:
         if not all(torch.equal(x, y) for x, y in zip(a, b_)):
             raise RuntimeError(f"{label}: a second run gave other bits")
         log(f"  {label}: a second run gives the same bits ok")
+
+    # The bf16 flash kernels have no atomics either: the timed shape and a
+    # ragged one repeat bit for bit. Then what the card gives each of them
+    # (registers, shared memory, resident blocks per SM) at Dh 64, 128, 256.
+    for shape in ((4, mha_heads, 1024, head_dim), (4, mha_heads, 300, head_dim)):
+        repeats(f"flash_attention_fwd {shape}", flash_attention_fwd,
+                tuple(randn(*shape) for _ in range(3)))
+        args = flash_bwd_inputs(shape)
+        repeats(f"flash_attention_dq {shape}", flash_attention_dq, args)
+        repeats(f"flash_attention_dkv {shape}", flash_attention_dkv, args)
+    flash_resources = {f"{kern} Dh={hd}": flash_attention_resources(kern, hd)
+                       for kern in BF16_KERNELS for hd in (head_dim, 128, 256)}
+    for key, res in flash_resources.items():
+        log(f"  resources of the bf16 flash {key}: {res['registers']} registers a thread, "
+            f"{res['shared_bytes']} bytes of shared memory and {res['threads']} threads a "
+            f"block, {res['blocks_per_sm']} block(s) an SM, {res['spill_bytes']} bytes spilled")
 
     # The scan's backward at a d_state that is not a power of two up to 32:
     # the shared-memory head sum, at the 1.5B training shape, masked and with
@@ -2590,6 +2633,7 @@ def main() -> int:
                         "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library.get(name)})
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"flash_resources": flash_resources}))
     print(json.dumps({"kernels": kernels, "serve": serve, "train": train_perf,
                       "small_model_max_abs_err": small_err,
                       "small_train_grad_err_over_limit": small_grad_err,
