@@ -1,7 +1,7 @@
-// Hopper building blocks of the flash-attention kernels: mbarriers, TMA
-// tensor loads, wgmma shared-memory descriptors and the wgmma products
-// themselves, in inline PTX (sm_90a). Header-only, in an anonymous namespace
-// like common.cuh.
+// Hopper building blocks of the flash-attention and int8-weight GEMM
+// kernels: mbarriers, TMA tensor loads, wgmma shared-memory descriptors and
+// the flash kernels' wgmma products, in inline PTX (sm_90a). Header-only,
+// in an anonymous namespace like common.cuh.
 //
 // Shared-memory tiles are the 128-byte-swizzled layout that a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes: a tile of R rows x (64 * C) bf16 columns
@@ -169,6 +169,25 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Load the box at (c0, c1) of a 2-d tensor map (c0 along the contiguous
+// axis) into shared memory; the barrier counts its bytes. Out-of-bounds
+// elements are written as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Orders this thread's ordinary shared-memory stores before later reads by
+// the async proxy (wgmma, TMA): a thread that fills a tile by hand runs it
+// before it arrives on the tile's barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -209,6 +228,27 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int BH, int L, int 
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                               dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kTensorMapError;
+}
+
+// A tensor map over a row-major (outer, inner) matrix of `elem_bytes`-byte
+// elements that loads boxes of box_outer rows x box_inner elements (128
+// bytes) in the 128-byte swizzle; rows and columns past the edges read as
+// zeros. The row stride, inner * elem_bytes, must be a multiple of 16 and the
+// base 16-byte aligned.
+inline int make_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                       int elem_bytes, uint64_t inner, uint64_t outer, uint32_t box_inner,
+                       uint32_t box_outer) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kTensorMapError;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * elem_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kTensorMapError;
 }

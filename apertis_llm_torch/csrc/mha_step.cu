@@ -61,12 +61,20 @@ template <> struct Raw<4> { typedef uint32_t T; };
 template <> struct Raw<8> { typedef uint2 T; };
 template <> struct Raw<16> { typedef uint4 T; };
 
-// E consecutive values at p (aligned to their total size), as floats.
+// E consecutive values at p, as floats, in loads of the largest power of two
+// bytes (up to 16) that divides their total size; p is aligned to it (lane
+// l's values start at byte l * E * sizeof(V) of a 32-byte-aligned head).
+// Dh 32, 64, 128, 256: one load; Dh 96, 160, 192, 224 (E = 3, 5, 6, 7): E or
+// E / 2 narrower ones.
 template <int E, typename V>
 __device__ __forceinline__ void load_vals(const V* p, float (&out)[E]) {
-  typedef typename Raw<sizeof(V) * E>::T R;
-  const R r = *reinterpret_cast<const R*>(p);
-  const V* vals = reinterpret_cast<const V*>(&r);
+  constexpr int kBytes = sizeof(V) * E;
+  constexpr int kUnit = (kBytes & -kBytes) > 16 ? 16 : (kBytes & -kBytes);
+  typedef typename Raw<kUnit>::T R;
+  R r[kBytes / kUnit];
+#pragma unroll
+  for (int i = 0; i < kBytes / kUnit; ++i) r[i] = reinterpret_cast<const R*>(p)[i];
+  const V* vals = reinterpret_cast<const V*>(r);
 #pragma unroll
   for (int e = 0; e < E; ++e) out[e] = to_f32(vals[e]);
 }
@@ -233,7 +241,11 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_new, con
   switch (head_dim) {
     case 32: return launch<32, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
     case 64: return launch<64, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
+    case 96: return launch<96, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
     case 128: return launch<128, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
+    case 160: return launch<160, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
+    case 192: return launch<192, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
+    case 224: return launch<224, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
     case 256: return launch<256, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

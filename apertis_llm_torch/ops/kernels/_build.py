@@ -87,10 +87,14 @@ SIGNATURES = {
     "apertis_flash_attention_dkv_f32": [_P] * 8 + [_I] * 4 + [_P],
     # kernel (0 forward, 1 dQ, 2 dK/dV), head_dim, out (5 ints)
     "apertis_flash_attention_resources": [_I, _I, _P],
-    # x_q, x_s, w_q, w_s, bias (or NULL), out, M, N, K, out_bf16, stream
-    "apertis_quant_matmul_dyn": [_P] * 6 + [_I] * 4 + [_P],
+    # x_q, x_s, w_q, w_s, bias (or NULL), out, M, N, K, out_bf16, then the
+    # tile plan (rows, split, tma_x, tma_w), stream
+    "apertis_quant_matmul_dyn": [_P] * 6 + [_I] * 8 + [_P],
+    # x, w_q, w_s, bias (or NULL), out, M, N, K, x_bf16, the tile plan, stream
+    "apertis_quant_matmul": [_P] * 5 + [_I] * 8 + [_P],
+    # w8a8, rows, split, out (5 ints)
+    "apertis_quant_matmul_resources": [_I, _I, _I, _P],
     # x, w_q, w_s, bias (or NULL), out, M, N, K, x_bf16, stream
-    "apertis_quant_matmul": [_P] * 5 + [_I] * 4 + [_P],
     "apertis_quant_matmul_dyn_fused": [_P] * 5 + [_I] * 4 + [_P],
     # xq, xs, w1q, w1s, b1, w2q, w2s, b2, out, hidden, absmax, partial, S, H,
     # I, E, ksplit, act, out_bf16, stream

@@ -23,7 +23,9 @@ import torch
 from apertis_llm_torch.ops.kernels import _build
 
 NEG = -1e30        # additive bias of a masked slot (mha_step.py:51)
-_HEAD_DIMS = (32, 64, 128, 256)    # lanes of a warp each hold Dh / 32 values (csrc)
+# Every multiple of 32 up to 256, the widths models/params.py::check_supported
+# admits: lanes of a warp each hold Dh / 32 values (csrc).
+_HEAD_DIMS = (32, 64, 96, 128, 160, 192, 224, 256)
 
 
 def quantize_heads(t: torch.Tensor, head_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -126,7 +128,7 @@ def mha_decode_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_new: tor
     """Decode attention over a float cache: kernel on CUDA tensors, plain
     version on CPU ones. The kernel takes contiguous bf16 ``q``, ``k_new``,
     ``v_new`` (B, D) and cache ``k``, ``v`` (B, L, D), f32 ``bias`` (B, L),
-    and ``head_dim`` in (32, 64, 128, 256); it returns bf16 (B, D)."""
+    and ``head_dim`` a multiple of 32 up to 256; it returns bf16 (B, D)."""
     if q.device.type == "cpu":
         return mha_decode_ctx_reference(q, k, v, k_new, v_new, bias, head_dim)
     out = _launch(q, k, v, k_new, v_new, bias, head_dim, None, None, "mha_decode_ctx")

@@ -18,21 +18,106 @@ tree's row-major (K, N) int8 ``w_q``, read as it is, with f32 column scales
 
 They replace ``apertis_llm_tpu/ops/pallas/quant_matmul.py``'s
 ``quant_matmul_dyn``, ``quant_matmul`` and ``quant_matmul_dyn_fused``.
+
+#7 and #6's bf16 form are one Hopper kernel (TMA, ``wgmma``); the host
+chooses its tile plan from the shape (:func:`tile_plan`: the rows of a
+tile, a K split over a cluster at decode rows, and which operands TMA can
+load) and passes it to the C entry point; :func:`quant_matmul_resources`
+reads what the card gives each plan.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from apertis_llm_torch.ops.kernels import _build
+from apertis_llm_torch.ops.kernels.flash_attention import RESOURCE_KEYS
 from apertis_llm_torch.ops.quant import int_mm, linear_pre_q_reference, quantize_rows
 
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 # quant_matmul_dyn_fused's K block: x is quantized per row over columns
 # [512 j, 512 j + 512) (quant_matmul.py BLOCK_K; one block when K <= 512).
 QUANT_BLOCK_K = 512
+
+# The tile plan of #7 and #6's bf16 form (csrc/quant_matmul.cu, qm_kernel):
+# a tile is TILE_COLS output columns (two warpgroups of 64 weight columns)
+# by one of ROW_TILES activation rows, the wgmma's N; K runs in chunks of
+# 128 bytes of an x row (128 int8 or 64 bf16 values).
+TILE_COLS = 128
+ROW_TILES = (16, 64, 128, 256)
+CHUNK_BYTES = 128
+# K is split over a thread-block cluster of at most this many blocks: a GPC
+# of the H100 (16 or 18 SMs) holds four clusters of four one-SM blocks, so
+# 32 such clusters run at once; only at 16 or 64 rows, where the blocks'
+# partial accumulators fit beside the ring in shared memory; and only while
+# each block keeps SPLIT_CHUNKS K chunks or more: on the H100
+# (``chip_smoke.py --qmm``) a split of the MHA QKV's 19 chunks in two was
+# slower than none (0.0128 against 0.0101 ms), one of w2's 76 in four
+# faster (0.0128 against 0.0234).
+MAX_SPLIT = 4
+SPLIT_ROWS = 64
+SPLIT_CHUNKS = 16
+
+
+class TilePlan(NamedTuple):
+    """How qm_kernel runs one product: ``rows`` activation rows a tile,
+    K split over ``split`` blocks of a cluster, and whether x and the
+    weight are loaded by TMA (else the producer's own zero-filling loads)."""
+    rows: int
+    split: int
+    tma_x: bool
+    tma_w: bool
+
+
+def tile_plan(m: int, n: int, k: int, x_bytes: int, sms: int, x_aligned: bool = True,
+              w_aligned: bool = True) -> TilePlan:
+    """The tile plan for an (M, K) x (K, N) product whose x elements are
+    ``x_bytes`` wide (1: #7's int8, 2: #6's bf16) on a card of ``sms`` SMs.
+
+    ``rows`` is the smallest row tile that holds M, 256 above. Where M fits
+    a 64-row tile and the tiles fill at most half the SMs (the decode
+    shapes: a weight streamed by too few blocks), K is split over
+    ``min(MAX_SPLIT, sms // tiles, chunks // SPLIT_CHUNKS)`` blocks, at
+    least one. TMA needs row strides that are multiples of 16 bytes and
+    16-byte aligned bases: x's row is K values, the weight's N bytes."""
+    rows = next((r for r in ROW_TILES if m <= r), ROW_TILES[-1])
+    tiles = -(-m // rows) * -(-n // TILE_COLS)
+    chunks = -(-k * x_bytes // CHUNK_BYTES)
+    split = 1
+    if rows <= SPLIT_ROWS and 2 * tiles <= sms:
+        split = max(1, min(MAX_SPLIT, sms // tiles, chunks // SPLIT_CHUNKS))
+    return TilePlan(rows, split, x_aligned and (k * x_bytes) % 16 == 0,
+                    w_aligned and n % 16 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_args(x: torch.Tensor, w_q: torch.Tensor, m: int, n: int, k: int) -> tuple:
+    """The tile plan of a launch on the card, as the C entry points take it."""
+    plan = tile_plan(m, n, k, x.element_size(), _sm_count(x.device.index or 0),
+                     x.data_ptr() % 16 == 0, w_q.data_ptr() % 16 == 0)
+    return plan.rows, plan.split, int(plan.tma_x), int(plan.tma_w)
+
+
+def quant_matmul_resources(w8a8: bool, rows: int, split: int = 1) -> Dict[str, int]:
+    """What the card gives #7's (``w8a8``) or #6's bf16 kernel at a tile of
+    ``rows`` activation rows and a K split over ``split`` blocks: registers
+    a thread, shared memory a block in bytes, resident blocks an SM, threads
+    a block and spilled bytes a thread."""
+    if rows not in ROW_TILES or not 1 <= split <= MAX_SPLIT or (split > 1 and rows > SPLIT_ROWS):
+        raise ValueError(f"quant_matmul_resources: no kernel at rows={rows} split={split}")
+    out = (ctypes.c_int * len(RESOURCE_KEYS))()
+    err = _build.load_library().apertis_quant_matmul_resources(
+        int(w8a8), rows, split, ctypes.addressof(out))
+    _build.check(err, "quant_matmul_resources")
+    return dict(zip(RESOURCE_KEYS, out))
 
 
 # The plain version: ``int32(x_q @ w_q) * x_s * w_s`` in f32, cast to
@@ -74,7 +159,8 @@ def quant_matmul_dyn_pre_q(x_q: torch.Tensor, x_s: torch.Tensor, w_q: torch.Tens
     err = _build.load_library().apertis_quant_matmul_dyn(
         x2.data_ptr(), s2.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
         None if b is None else b.data_ptr(), out.data_ptr(), m, n, k,
-        int(out_dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+        int(out_dtype == torch.bfloat16), *_plan_args(x2, w_q, m, n, k),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "quant_matmul_dyn")
     quant_matmul_dyn_pre_q.launches += 1
     return out.reshape(*lead, n)
@@ -119,10 +205,12 @@ def quant_matmul_dyn_fused_reference(x: torch.Tensor, w_q: torch.Tensor, w_s: to
 
 
 def _launch_float_x(wrapper, entry: str, x: torch.Tensor, w_q: torch.Tensor,
-                    w_s: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+                    w_s: torch.Tensor, b: Optional[torch.Tensor],
+                    planned: bool = False) -> torch.Tensor:
     """Check the operands of a kernel that reads bf16 or f32 x, launch
-    ``entry`` (none for an x without rows), count the launch on
-    ``wrapper`` and return the (..., N) result in x's dtype."""
+    ``entry`` (none for an x without rows; with the tile plan when
+    ``planned``), count the launch on ``wrapper`` and return the (..., N)
+    result in x's dtype."""
     lead, k, n = x.shape[:-1], x.shape[-1], w_q.shape[-1]
     m = x.numel() // max(k, 1)
     dev = x.device
@@ -138,9 +226,10 @@ def _launch_float_x(wrapper, entry: str, x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"{entry}: unsupported shape M={m} K={k} N={n}")
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m > 0:
+        plan = _plan_args(x2, w_q, m, n, k) if planned else ()
         err = getattr(_build.load_library(), entry)(
             x2.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), None if b is None else b.data_ptr(),
-            out.data_ptr(), m, n, k, int(x.dtype == torch.bfloat16),
+            out.data_ptr(), m, n, k, int(x.dtype == torch.bfloat16), *plan,
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, entry)
         wrapper.launches += 1
@@ -155,7 +244,7 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     None or (N,) of x's dtype; any M, N and K."""
     if x.device.type == "cpu":
         return quant_matmul_reference(x, w_q, w_s, b)
-    return _launch_float_x(quant_matmul, "apertis_quant_matmul", x, w_q, w_s, b)
+    return _launch_float_x(quant_matmul, "apertis_quant_matmul", x, w_q, w_s, b, planned=True)
 
 
 def quant_matmul_dyn_fused(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,

@@ -28,7 +28,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      Then the 1.5B MHA model (hidden 2432, 20 layers, 38 heads of 64, q/k/v/o
      biases), bf16 and int8: the decode-attention kernel over a bf16 and an
      int8 cache at the caches of the requests below, at bench.py's 256-slot
-     allocation, at 2048 slots and at head widths 32 and 128, with ragged
+     allocation, at 2048 slots and at head widths 32, 96, 128 and 192, with ragged
      masks that exclude the stale slot, and the causal flash-attention
      forward at L = 128, 300, 1024 and Dh = 128, with sensitivity checks
      (the self-term, the mask, ks, vs, qs; the causal mask) and
@@ -50,7 +50,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
      bit-equal) at the 1.5B FFN's w1 at 64 and 2048 rows, the int8 head at
      4 rows, x_param_proj at 300 rows (K = 608) and N = 44, in bf16 and f32,
      with ``x @ w_deq`` (the weight dequantized to bf16 ahead of the call)
-     timed as #6's library yardstick; the per-expert MoE kernel
+     timed as #6's library yardstick; then #7 and #6 with bf16 x alone
+     (``qmm_phase``, seeded operands at the models' shapes): every tile plan
+     (row tiles 16 to 256, a K split over a cluster, each TMA variant, N =
+     44, K = 597 and 4001) against the plain versions, a second run bit
+     for bit at 2048 x 2432 x 9728, at N = 44 and at a K split over a
+     cluster, each plan's registers, shared
+     memory and resident blocks an SM, and the times at the decode shapes
+     (the int8 head at 64 and 4 rows, the MHA model's fused QKV at 64, #6
+     on w1 at 64) beside their bytes bounds and ``torch._int_mm`` on the
+     row-major weight and on a column-major copy; the per-expert MoE kernel
      (``expert_ffn_dense``, ``moe_mode="kernel"``) at the 1.5B MoE widths at
      S = 4, 64 and 256; each with sensitivity checks (the scales, the
      biases, #8's per-block scales) that must move the plain output by 9
@@ -103,7 +112,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
   5. check 2-layer dense, MoE and MHA models on the card against the same
      weights on the CPU (plain versions), bf16, int8 and w4a8 (dense and
      MoE), dense int8 under ``pallas`` and ``fused`` and MoE int8 under
-     ``kernel`` (exact launch counts), and a hidden-192 int8 model, that the 1.5B logits are finite, that
+     ``kernel`` (exact launch counts), a hidden-192 int8 model and an MHA
+     model with heads of 96 (bf16 and int8 cache: #9 at every decode
+     step), that the 1.5B logits are finite, that
      the 1.5B MHA ``forward()`` without a mask runs the flash kernel once per
      layer and agrees with the plain attention, that a 2-layer f32 flash
      MHA ``forward()`` runs the f32 flash kernel once per layer and agrees
@@ -153,9 +164,19 @@ Kernel times are CUDA-event means over back-to-back wrapper calls ("ms")
 and the profiler's device time per call ("device_ms", the kernels' own time
 without the Python wrapper, from each kernel's mean duration in the
 profiler's records, which can miss some launches). Before the last line it
-prints the bf16 flash kernels' resources, the kernels' JSON summary and the
+prints the bf16 flash kernels' resources, #7's and #6's times, resources
+and host enqueue times (``{"qmm": ...}``), the kernels' JSON summary and the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
+
+    python3 chip_smoke.py --qmm          # #7 and #6 alone: checks, repeats, resources,
+                                         # times, and other tile plans' times
+    python3 chip_smoke.py --qmm-times    # their times alone
+
+The two flags run ``qmm_phase`` only; ``--qmm-times`` needs nothing of the
+checkout but the wrappers' Python interface, so a checkout of an earlier
+commit can run it with this script copied into it, for a comparison in one
+call.
 
 It needs a CUDA device and exits non-zero without one. It imports no JAX.
 """
@@ -403,6 +424,196 @@ def to_numpy(tree):
             for k, v in tree.items()}
 
 
+# ---- the int8-weight GEMMs #7 and #6 (bf16 x) --------------------------------
+
+# The timed shapes (kernel, label, M, K, N): the 1.5B FFN's w1 at 2048
+# prefill rows; at decode rows the int8 head (2432 x 32000) at 64 and 4, the
+# MHA model's fused int8 QKV (2432 x 7296) at 64, and #6 on w1 at 64.
+QMM_TIMED = [
+    ("quant_matmul_dyn_pre_q", "1.5B FFN w1 at 2048 rows", 2048, 2432, 9728),
+    ("quant_matmul_dyn_pre_q", "int8 head at 64 rows", 64, 2432, 32000),
+    ("quant_matmul_dyn_pre_q", "int8 head at 4 rows", 4, 2432, 32000),
+    ("quant_matmul_dyn_pre_q", "1.5B MHA fused QKV at 64 rows", 64, 2432, 7296),
+    ("quant_matmul", "1.5B FFN w1 at 2048 rows", 2048, 2432, 9728),
+    ("quant_matmul", "1.5B FFN w1 at 64 rows", 64, 2432, 9728),
+]
+# Shapes (M, K, N) that reach each row tile, the split and each TMA
+# variant: N = 44 and K = 597 or 4001 rows are not whole 16-byte units.
+QMM_SHAPES = [(2048, 2432, 9728), (2048, 9728, 2432), (300, 704, 704), (100, 2432, 2432),
+              (64, 2432, 32000), (4, 2432, 32000), (64, 2432, 7296), (64, 9728, 2432),
+              (1, 2432, 2432), (37, 608, 44), (17, 597, 44), (33, 597, 64), (2048, 608, 44),
+              (17, 4001, 44)]
+
+
+def qmm_operands(kind, m, k, n, gen, dev, out_dtype=torch.bfloat16, bias=True):
+    """Seeded operands of #7 (rows quantized by ``quantize_rows``) or #6
+    (bf16 x) against a weight quantized by ``quantize_weight``."""
+    from apertis_llm_torch.models.quantize import quantize_weight
+    from apertis_llm_torch.ops.quant import quantize_rows
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
+
+    w_q, w_s = quantize_weight(randn(k, n, std=0.05))
+    b = randn(n, std=0.1).to(out_dtype) if bias else None
+    if kind == "quant_matmul_dyn_pre_q":
+        x_q, x_s = quantize_rows(randn(m, k))
+        return (x_q, x_s, w_q.contiguous(), w_s, b, out_dtype)
+    return (randn(m, k), w_q.contiguous(), w_s, b)
+
+
+# Other tile plans than tile_plan's, timed by ``--qmm`` to show why it
+# chooses as it does: (kernel, M, K, N, [(rows, split), ...]).
+QMM_ALTERNATIVES = [
+    ("quant_matmul_dyn_pre_q", 2048, 2432, 9728, [(64, 1), (128, 1), (256, 1)]),
+    ("quant_matmul", 2048, 2432, 9728, [(64, 1), (128, 1), (256, 1)]),
+    ("quant_matmul_dyn_pre_q", 64, 2432, 7296, [(64, 1), (64, 2), (64, 3), (64, 4)]),
+    ("quant_matmul", 64, 2432, 7296, [(64, 1), (64, 2), (64, 3), (64, 4)]),
+    ("quant_matmul_dyn_pre_q", 64, 9728, 2432, [(64, 1), (64, 2), (64, 3), (64, 4)]),
+    ("quant_matmul_dyn_pre_q", 64, 2432, 2432, [(64, 1), (64, 2), (64, 3), (64, 4)]),
+]
+
+
+def qmm_alternatives(card, gen, dev):
+    """Device time of each plan in QMM_ALTERNATIVES, launched through the C
+    entry points with that plan; #7's outputs bit-equal to the plain
+    version's at every plan. Returns {label: {plan: ms}}."""
+    from apertis_llm_torch.ops.kernels import _build
+    from apertis_llm_torch.ops.kernels import quant_matmul as qm
+    lib = _build.load_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    result = {}
+    for kind, m, k, n, plans in QMM_ALTERNATIVES:
+        args = qmm_operands(kind, m, k, n, gen, dev, bias=False)
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        row = {}
+        for rows, split in plans:
+            if kind == "quant_matmul_dyn_pre_q":
+                x_q, x_s, w_q, w_s = args[:4]
+                call = lambda: lib.apertis_quant_matmul_dyn(   # noqa: E731
+                    x_q.data_ptr(), x_s.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), None,
+                    out.data_ptr(), m, n, k, 1, rows, split, 1, 1, stream)
+            else:
+                x, w_q, w_s = args[:3]
+                call = lambda: lib.apertis_quant_matmul(   # noqa: E731
+                    x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), None, out.data_ptr(), m, n,
+                    k, 1, rows, split, 1, 1, stream)
+            _build.check(call(), kind)
+            torch.cuda.synchronize()
+            if kind == "quant_matmul_dyn_pre_q" and not torch.equal(
+                    out, qm.quant_matmul_dyn_pre_q_reference(*args)):
+                raise RuntimeError(f"{kind} M={m} K={k} N={n} at rows {rows}, split {split}: "
+                                   "not bit-equal")
+            row[f"rows {rows} split {split}"] = device_ms(call)
+        label = f"{kind} M={m} K={k} N={n}"
+        result[label] = row
+        chosen = qm.tile_plan(m, n, k, 1 if kind == "quant_matmul_dyn_pre_q" else 2, sms)
+        log(f"  plans of {label} (device ms; tile_plan takes rows {chosen.rows} split "
+            f"{chosen.split}): "
+            + ", ".join(f"{p} {t:.4f}" if t is not None else f"{p} not measured"
+                        for p, t in row.items()) + f"; card: {card}")
+    return result
+
+
+def qmm_phase(card, check=True, alternatives=False):
+    """#7 and #6 with bf16 x, alone: with ``check``, each against its plain
+    version at QMM_SHAPES (#7 bit-equal in bf16 and f32 out, #6 within one
+    bf16 ulp), a second run bit for bit at 2048 x 2432 x 9728, at N = 44
+    and at a K split over a cluster, and the resources of every tile plan;
+    then the times at QMM_TIMED beside their bounds and the library call;
+    with ``alternatives``, the device times of other tile plans
+    (qmm_alternatives). Returns {"times": ..., "resources": ..., "plans":
+    ...}."""
+    from apertis_llm_torch.ops.kernels import quant_matmul as qm
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    kernels = {"quant_matmul_dyn_pre_q": (qm.quant_matmul_dyn_pre_q,
+                                          qm.quant_matmul_dyn_pre_q_reference),
+               "quant_matmul": (qm.quant_matmul, qm.quant_matmul_reference)}
+    resources = {}
+    if check:
+        for m, k, n in QMM_SHAPES:
+            plans = {b: qm.tile_plan(m, n, k, b, torch.cuda.get_device_properties(0)
+                                     .multi_processor_count) for b in (1, 2)}
+            for kind, (kernel, plain) in kernels.items():
+                outs = (torch.bfloat16, torch.float32) if kind == "quant_matmul_dyn_pre_q" \
+                    else (torch.bfloat16,)
+                plan = plans[1 if kind == "quant_matmul_dyn_pre_q" else 2]
+                for out_dtype in outs:
+                    args = qmm_operands(kind, m, k, n, gen, dev, out_dtype, bias=m % 2 == 0)
+                    got, ref = kernel(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    label = (f"{kind} M={m} K={k} N={n} {str(out_dtype)[6:]} "
+                             f"(rows {plan.rows}, split {plan.split}, TMA x {int(plan.tma_x)} "
+                             f"w {int(plan.tma_w)})")
+                    if kind == "quant_matmul_dyn_pre_q":
+                        err = float((got.float() - ref.float()).abs().max())
+                        if not torch.equal(got, ref):
+                            raise RuntimeError(f"{label}: not bit-equal (max err {err:.3e})")
+                        log(f"  {label}: bit-equal ok")
+                    else:
+                        compare(label, got, ref, BF16_ULP)
+        for m, k, n in ((2048, 2432, 9728), (37, 608, 44), (64, 9728, 2432)):
+            for kind, (kernel, _) in kernels.items():
+                args = qmm_operands(kind, m, k, n, gen, dev)
+                a, b_ = kernel(*args), kernel(*args)
+                if not torch.equal(a, b_):
+                    raise RuntimeError(f"{kind} M={m} K={k} N={n}: a second run gave other bits")
+                log(f"  {kind} M={m} K={k} N={n}: a second run gives the same bits ok")
+        for w8a8 in (True, False):
+            for rows in qm.ROW_TILES:
+                for split in ((1, qm.MAX_SPLIT) if rows <= qm.SPLIT_ROWS else (1,)):
+                    key = f"{'quant_matmul_dyn_pre_q' if w8a8 else 'quant_matmul'} rows={rows} split={split}"
+                    res = resources[key] = qm.quant_matmul_resources(w8a8, rows, split)
+                    log(f"  resources of {key}: {res['registers']} registers a thread, "
+                        f"{res['shared_bytes']} bytes of shared memory and {res['threads']} "
+                        f"threads a block, {res['blocks_per_sm']} block(s) an SM, "
+                        f"{res['spill_bytes']} bytes spilled")
+    times = {}
+    for kind, label, m, k, n in QMM_TIMED:
+        kernel, plain = kernels[kind]
+        args = qmm_operands(kind, m, k, n, gen, dev)
+        out_bytes = m * n * 2
+        b_ms, by = bound(nbytes(*(a for a in args if torch.is_tensor(a))) + out_bytes,
+                         2 * m * n * k, "int8" if kind == "quant_matmul_dyn_pre_q" else "bf16")
+        k_ms = cuda_ms(lambda: kernel(*args))
+        d_ms = device_ms(lambda: kernel(*args))
+        p_ms = cuda_ms(lambda: plain(*args))
+        host_ms = None   # the host's time to enqueue a call: the least of 5 windows of 20
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                kernel(*args)
+            window = (time.perf_counter() - t0) / 20 * 1e3
+            host_ms = window if host_ms is None else min(host_ms, window)
+        torch.cuda.synchronize()
+        lib = lib_cols = None
+        if kind == "quant_matmul_dyn_pre_q":
+            x_q, w_q = args[0], args[2]
+            if m > 16:   # torch._int_mm on the H100 takes more than 16 rows only
+                lib = cuda_ms(lambda: torch._int_mm(x_q, w_q))
+                w_cols = w_q.t().contiguous().t()
+                lib_cols = cuda_ms(lambda: torch._int_mm(x_q, w_cols))
+        else:
+            x_, w_deq = args[0], (args[1].to(torch.bfloat16) * args[2].to(torch.bfloat16))
+            lib = cuda_ms(lambda: x_ @ w_deq)
+        times[f"{kind} {label}"] = {"ms": k_ms, "device_ms": d_ms, "host_ms": host_ms,
+                                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+                                    "library_ms": lib, "library_colmajor_ms": lib_cols}
+        log(f"  {kind} {label} (M={m}, K={k}, N={n}): kernel {k_ms:.4f} ms, "
+            + (f"device {d_ms:.4f} ms" if d_ms is not None else "device not measured")
+            + f", host enqueue {host_ms:.4f} ms, plain {p_ms:.4f} ms"
+            + f", bound {b_ms:.4f} ms ({by}), library "
+            + (f"{lib:.4f} ms" if lib is not None else "none at this shape")
+            + (f" (column-major weight copy {lib_cols:.4f} ms)" if lib_cols is not None else "")
+            + f"; card: {card}")
+    plans = qmm_alternatives(card, gen, dev) if alternatives else {}
+    return {"times": times, "resources": resources, "plans": plans}
+
+
 def parallel_rank(rank, scan_args, small, preset):
     """One of phase 7's two ranks, which share the card in a gloo process
     group (``apertis_llm_torch.parallel.spawn``): the sequence-parallel scan
@@ -615,8 +826,8 @@ def main() -> int:
     eps = config.layer_norm_eps
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
 
-    def randn(*shape, dtype=torch.bfloat16, std=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+    def randn(*shape, dtype=torch.bfloat16, std=1.0, gen=None):
+        return (torch.randn(shape, generator=gen or g, device=dev) * std).to(dtype)
 
     # kernel -> worst error; kernel -> (ms, plain_ms, bound_ms, bound_by,
     # device_ms) at the timed shape
@@ -1077,14 +1288,14 @@ def main() -> int:
         f"{mha_config.qkv_bias}, FFN {inter}, bf16 and int8, built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def decode_ctx_inputs(b, l, heads=mha_heads, hd=head_dim, int8=False):
+    def decode_ctx_inputs(b, l, heads=mha_heads, hd=head_dim, int8=False, gen=None):
         """A layer's cache as serving leaves it: row b holds its prompt in
         slots [0, len_b), bucket padding up to slot l // 2, generated tokens
         from there to the stale slot t = l - 1, which is masked."""
         d_ = heads * hd
-        q, k_new, v_new = randn(b, d_), randn(b, d_), randn(b, d_)
-        k, v = randn(b, l, d_), randn(b, l, d_)
-        lens = torch.randint(1, l // 2 + 1, (b, 1), generator=g, device=dev)
+        q, k_new, v_new = randn(b, d_, gen=gen), randn(b, d_, gen=gen), randn(b, d_, gen=gen)
+        k, v = randn(b, l, d_, gen=gen), randn(b, l, d_, gen=gen)
+        lens = torch.randint(1, l // 2 + 1, (b, 1), generator=gen or g, device=dev)
         slots = torch.arange(l, device=dev)[None, :]
         valid = (slots < lens) | ((slots >= l // 2) & (slots < l - 1))
         bias = torch.where(valid, 0.0, NEG).float().contiguous()
@@ -1132,6 +1343,9 @@ def main() -> int:
                 "int8" if args[1].dtype == torch.int8 else "bf16")
 
     library = {}
+    # #7's library call on a column-major copy of the weight, beside the one
+    # on the tree's row-major weight (library); no other kernel has one.
+    library_cols = {}
     ctx_tols = [("ctx", BF16_ULP)]
     args = decode_ctx_inputs(5, 37)
     check_sensitive("mha_decode_ctx", mha_decode_ctx_reference, args, {
@@ -1146,9 +1360,13 @@ def main() -> int:
                                    (64, 256, mha_heads, head_dim, "bench.py's allocation"),
                                    (4, 2048, mha_heads, head_dim, "long cache"),
                                    (5, 37, 4 * mha_heads // 2, 32, "Dh 32"),
-                                   (5, 37, mha_heads // 2, 128, "Dh 128")]:
+                                   (5, 37, mha_heads // 2, 128, "Dh 128"),
+                                   (5, 37, 4, 96, "Dh 96"), (5, 37, 2, 192, "Dh 192")]:
         timed = (b, l) == (64, 96)
-        args = decode_ctx_inputs(b, l, heads, hd)
+        # Dh 96 and 192 draw from a generator of their own, so that every
+        # other check sees the inputs it saw before they were added.
+        gen = torch.Generator(device=dev).manual_seed(SEED + 13) if hd in (96, 192) else None
+        args = decode_ctx_inputs(b, l, heads, hd, gen=gen)
         check_kernel("mha_decode_ctx", f"mha_decode_ctx B={b} L={l} {heads}x{hd} ({label})",
                      args, mha_decode_ctx, mha_decode_ctx_reference, ctx_tols,
                      cost=decode_ctx_cost(args) if timed else None)
@@ -1166,7 +1384,7 @@ def main() -> int:
                                                              attn_mask=keep))
             log(f"  library: scaled_dot_product_attention over the written cache "
                 f"{library['mha_decode_ctx']:.4f} ms; card: {card}")
-        args = decode_ctx_inputs(b, l, heads, hd, int8=True)
+        args = decode_ctx_inputs(b, l, heads, hd, int8=True, gen=gen)
         check_kernel("mha_decode_ctx_int8", f"mha_decode_ctx_int8 B={b} L={l} {heads}x{hd} "
                      f"({label})", args, mha_decode_ctx_int8, decode_ctx_int8_plain, ctx_tols,
                      cost=decode_ctx_cost(args) if timed else None)
@@ -1253,9 +1471,11 @@ def main() -> int:
                 x_q, _, w_q = args[:3]
                 library["quant_matmul_dyn_pre_q"] = cuda_ms(lambda: torch._int_mm(x_q, w_q))
                 w_cols = w_q.t().contiguous().t()
+                library_cols["quant_matmul_dyn_pre_q"] = cuda_ms(
+                    lambda: torch._int_mm(x_q, w_cols))
                 log(f"  library: torch._int_mm on the same int8 operands (the product "
                     f"alone) {library['quant_matmul_dyn_pre_q']:.4f} ms; with a column-major "
-                    f"copy of the weight {cuda_ms(lambda: torch._int_mm(x_q, w_cols)):.4f} ms; "
+                    f"copy of the weight {library_cols['quant_matmul_dyn_pre_q']:.4f} ms; "
                     f"card: {card}")
 
     # The decode FFN's int4 layout at the 1.5B widths, the pack built from
@@ -1426,6 +1646,12 @@ def main() -> int:
             check_kernel("quant_matmul_dyn_fused", f"quant_matmul_dyn_fused {label} {shape}",
                          args, quant_matmul_dyn_fused, quant_matmul_dyn_fused_reference,
                          qmm_tols, cost=mode_cost(args, "int8") if timed else None)
+
+    # #7 and #6 (bf16 x) alone: every tile plan against the plain versions,
+    # a second run bit for bit, the resources of each plan, and the times at
+    # the decode shapes beside their bytes bounds.
+    log("int8-weight GEMMs #7 and #6 alone (seeded operands at the models' shapes):")
+    qmm = qmm_phase(card)
 
     m_fused = mqlayer.ffn.experts.fused()
     log(f"MoE per-expert stack: {nbytes(*m_fused.values()):,} bytes a layer")
@@ -2054,12 +2280,15 @@ def main() -> int:
     # Hidden 192: the decode FFN runs unfused (fault 1's repair).
     narrow_small = dict(dense_small, hidden_size=192, num_attention_heads=4,
                         intermediate_size=768)
+    # Heads of 96: the decode-attention kernel (#9) at a head width that is a
+    # multiple of 32 but not a power of two, over a bf16 and an int8 cache.
+    mha96_small = dict(mha_small, hidden_size=384)
     ids = torch.as_tensor(batch_a % 1000, dtype=torch.long)
     mask = torch.as_tensor(mask_a)
     small_err = {}
     cases = []
     for family, kw in (("", dense_small), ("MoE ", moe_small), ("MHA ", mha_small),
-                       ("hidden-192 ", narrow_small)):
+                       ("hidden-192 ", narrow_small), ("MHA Dh-96 ", mha96_small)):
         small = ApertisConfig(**kw)
         tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu",
                            dtype=torch.bfloat16)
@@ -2115,7 +2344,9 @@ def main() -> int:
         ran = {f.__name__: f.launches for f in counters if f.launches}
         must = {"w4a8": ["ffn_decode_int4", "quant_matmul_dyn_pre_q"],
                 "MoE w4a8": ["expert_ffn_fat_int4", "quant_matmul_dyn_pre_q"],
-                "hidden-192 int8": ["quant_matmul_dyn_pre_q"]}.get(kind, [])
+                "hidden-192 int8": ["quant_matmul_dyn_pre_q"],
+                "MHA Dh-96 bf16": ["mha_decode_ctx"],
+                "MHA Dh-96 int8": ["mha_decode_ctx_int8", "quant_matmul_dyn_pre_q"]}.get(kind, [])
         nl_small = small.num_hidden_layers
         # The mode's kernel: the prefill's six int8 linears a layer and the
         # head at prefill and at each of the 5 decode steps; the per-expert
@@ -2631,9 +2862,11 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": tpu,
                         "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
                         "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": library.get(name)})
+                        "bound_by": bound_by, "library_ms": library.get(name),
+                        "library_colmajor_ms": library_cols.get(name)})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"flash_resources": flash_resources}))
+    print(json.dumps({"qmm": qmm}))
     print(json.dumps({"kernels": kernels, "serve": serve, "train": train_perf,
                       "small_model_max_abs_err": small_err,
                       "small_train_grad_err_over_limit": small_grad_err,
@@ -2648,5 +2881,35 @@ def main() -> int:
     return 0
 
 
+def qmm_main(check: bool) -> int:
+    """``--qmm``: the int8-weight GEMM phase alone (checks, repeats,
+    resources, times, and the times of other tile plans);
+    ``--qmm-times``: its times alone, which a checkout of an earlier commit
+    can run with this script copied into it."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO_ROOT))
+    from apertis_llm_torch.ops.kernels import _build
+    card = card_line()
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.load_library()
+    log(f"card: {card}; build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    for section in lib_path.with_suffix(".log").read_text().split("== ")[1:]:
+        if section.startswith(("quant_matmul.cu", "mha_step.cu")):
+            for line in section.splitlines():
+                if any(w in line for w in ("==", "Compiling entry", "registers", "spill",
+                                           "arning", "rror")):
+                    log(f"  nvcc {line.strip()}")
+    result = qmm_phase(card, check=check, alternatives=check)
+    print(json.dumps({"qmm": result}))
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] in (["--qmm"], ["--qmm-times"]):
+        sys.exit(qmm_main(check=sys.argv[1] == "--qmm"))
     sys.exit(main())

@@ -45,6 +45,7 @@ from apertis_llm_torch.models.params import (
 from apertis_llm_torch.models.quantize import fuse_qkv, quantize_params
 from apertis_llm_torch.ops import attention as attn_ops
 from apertis_llm_torch.ops.kernels.flash_attention import flash_attention_fwd
+from apertis_llm_torch.ops.kernels import mha_step
 from apertis_llm_torch.ops.kernels.mha_step import (
     NEG, mha_decode_ctx, mha_decode_ctx_int8, quantize_heads)
 from apertis_llm_torch.ops.rope import apply_rope, rope_tables
@@ -163,7 +164,7 @@ def _decode_inputs(rng, b, heads, head_dim, l, dtype):
     return port, jax_in
 
 
-@pytest.mark.parametrize("head_dim,heads", [(32, 4), (64, 2), (128, 2), (64, 6)])
+@pytest.mark.parametrize("head_dim,heads", [(32, 4), (64, 2), (128, 2), (64, 6), (96, 4)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_ctx_matches_jax_kernel(head_dim, heads, dtype):
     """The plain ``mha_decode_ctx`` against the JAX kernel, float cache:
@@ -176,7 +177,7 @@ def test_decode_ctx_matches_jax_kernel(head_dim, heads, dtype):
     _close(got.float(), np.asarray(ref, np.float32), 1e-5 if dtype == "float32" else BF16_ULP)
 
 
-@pytest.mark.parametrize("head_dim,heads", [(32, 4), (64, 6)])
+@pytest.mark.parametrize("head_dim,heads", [(32, 4), (64, 6), (96, 4)])
 def test_decode_ctx_int8_cache_matches_jax_kernel(head_dim, heads):
     """int8 cache: ``quantize_heads`` bit-equal to JAX's (levels and
     scales), then the plain ``mha_decode_ctx_int8`` against the JAX kernel
@@ -198,6 +199,28 @@ def test_decode_ctx_int8_cache_matches_jax_kernel(head_dim, heads):
         jin[5], 0, head_dim=head_dim, ks_stack=jnp.asarray(ks_t.numpy())[None],
         vs_stack=jnp.asarray(vs_t.numpy())[None])
     _close(got, ref, 1e-5)
+
+
+def test_every_admitted_head_width_reaches_the_kernel():
+    """Every head width ``check_supported`` admits for an MHA model (the
+    multiples of 32 up to 256) passes ``mha_step._launch``'s width check, so
+    the model decodes through #9 on the card; a width it refuses is refused
+    by both. On CPU tensors ``_launch`` then stops at its device check."""
+    admitted = []
+    for head_dim in range(8, 264, 8):
+        cfg = ApertisConfig(**dict(BASE, hidden_size=4 * head_dim, num_attention_heads=4))
+        try:
+            check_supported(cfg)
+        except NotImplementedError:
+            continue
+        admitted.append(head_dim)
+    assert admitted == list(range(32, 257, 32))
+    rng = np.random.default_rng(5)
+    for head_dim in (*admitted, 48, 288):
+        port, _ = _decode_inputs(rng, 1, 2, head_dim, 4, "bfloat16")
+        match = "expected a CUDA tensor" if head_dim in admitted else f"head_dim {head_dim}"
+        with pytest.raises(ValueError, match=match):
+            mha_step._launch(*port, head_dim, None, None, "mha_decode_ctx")
 
 
 # ---- 4. the flash kernel's plain version -------------------------------------
