@@ -90,50 +90,6 @@ struct Plan {
   static constexpr size_t kBytes = kBar + 2 * (kQBufs + kStages) * 8 + 1024;   // + alignment
 };
 
-// Online softmax of key tile j (BK keys) in the accumulator layout: this
-// thread's scores of rows r0 and r0 + 8 in `sc` (raw q . k) become p; the
-// row max m (log2 domain, scores times scale * log2 e) and the row sum l are
-// updated, and alpha is the factor for O. Masked scores are -inf; a row max
-// stays -inf only while its row has seen no key, and then 0 stands in for
-// it, so that no inf - inf arises.
-template <int BK>
-__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m)[2], float (&l)[2],
-                                               float (&alpha)[2], int j, int L, int r0,
-                                               int row_lo, int lane, int causal,
-                                               float scale_log2) {
-  if (j * BK + BK > L || (causal && j * BK + BK - 1 > row_lo)) {
-    const int c0 = j * BK + 2 * (lane % 4);
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      const int col = c0 + 8 * (i >> 2) + (i & 1);
-      if (col >= L || (causal && col > r0 + 8 * ((i >> 1) & 1))) sc[i] = -INFINITY;
-    }
-  }
-  float mx[2] = {-INFINITY, -INFINITY}, mb[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    const float m_new = fmaxf(m[h], mx[h] * scale_log2);
-    mb[h] = m_new == -INFINITY ? 0.f : m_new;
-    alpha[h] = exp2_approx(m[h] - mb[h]);
-    m[h] = m_new;
-  }
-#pragma unroll
-  for (int i = 0; i < BK / 2; ++i) {
-    sc[i] = exp2_approx(fmaf(sc[i], scale_log2, -mb[(i >> 1) & 1]));
-    sum[(i >> 1) & 1] += sc[i];
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-    l[h] = l[h] * alpha[h] + sum[h];
-  }
-}
-
 template <int DHP>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,

@@ -553,12 +553,13 @@ bool bad_shape(int BH, int L, int dh) {
 
 }  // namespace
 
-int flash_fwd_resources(int dh, int* out);   // flash_attention.cu
+int flash_fwd_resources(int dh, int* out);                // flash_attention.cu
+int flash_f32_resources(int kernel, int dh, int* out);   // flash_attention_f32.cu
 
-// Resources of the bf16 flash kernel `kernel` (0 forward, 1 dQ, 2 dK/dV) at
-// head width dh: out[0..4] = registers a thread, shared memory a block
-// (bytes), resident blocks an SM, threads a block, spilled bytes a thread.
-// Returns the CUDA error.
+// Resources of the flash kernel `kernel` (bf16: 0 forward, 1 dQ, 2 dK/dV;
+// f32: 3 forward, 4 dQ, 5 dK/dV) at head width dh: out[0..4] = registers a
+// thread, shared memory a block (bytes), resident blocks an SM, threads a
+// block, spilled bytes a thread. Returns the CUDA error.
 extern "C" int apertis_flash_attention_resources(int kernel, int dh, int* out) {
   if (dh <= 0 || dh % 8 || dh > 256) return static_cast<int>(cudaErrorInvalidValue);
   switch (kernel) {
@@ -575,6 +576,10 @@ extern "C" int apertis_flash_attention_resources(int kernel, int dh, int* out) {
       if (dh <= 128)
         return kernel_resources(flash_dkv_kernel<128>, kThreads, DkvPlan<128>::kBytes, out);
       return kernel_resources(flash_dkv_kernel<256>, kThreads, DkvPlan<256>::kBytes, out);
+    case 3:
+    case 4:
+    case 5:
+      return flash_f32_resources(kernel - 3, dh, out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

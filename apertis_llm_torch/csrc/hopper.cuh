@@ -1,18 +1,27 @@
 // Hopper building blocks of the flash-attention and int8-weight GEMM
 // kernels: mbarriers, TMA tensor loads, wgmma shared-memory descriptors and
-// the flash kernels' wgmma products, in inline PTX (sm_90a). Header-only,
-// in an anonymous namespace like common.cuh.
+// the flash kernels' wgmma products (bf16 and TF32) and online softmax, in
+// inline PTX (sm_90a). Header-only, in an anonymous namespace like
+// common.cuh.
 //
 // Shared-memory tiles are the 128-byte-swizzled layout that a TMA load with
-// CU_TENSOR_MAP_SWIZZLE_128B writes: a tile of R rows x (64 * C) bf16 columns
-// is C column blocks, block c holding columns 64c..64c+63 of every row as R
-// rows of 128 bytes (R * 128 bytes, 1024-byte aligned); inside each group of
-// 8 rows (1024 bytes) the 16-byte chunks of row r are permuted by XOR with
-// r % 8. wgmma reads such a tile through a descriptor either K-major (the
-// product's reduction axis runs along the row: Q and K in Q K^T) or MN-major
-// (the reduction axis runs down the rows: V in P V).
+// CU_TENSOR_MAP_SWIZZLE_128B writes: a tile of R rows is column blocks of
+// 128 bytes a row (64 bf16 or 32 f32 columns), block c holding columns
+// 64c..64c+63 (bf16) or 32c..32c+31 (f32) of every row as R rows of 128
+// bytes (R * 128 bytes, 1024-byte aligned); inside each group of 8 rows
+// (1024 bytes) the 16-byte chunks of row r are permuted by XOR with r % 8. A
+// width that is not a multiple of the block (Dh 8, 40 or 96 in f32) fills
+// its last block in part: the TMA writes zeros past the tensor's edge. wgmma
+// reads such a tile through a descriptor either K-major (the product's
+// reduction axis runs along the row: Q and K in Q K^T) or, for bf16 only,
+// MN-major (the reduction axis runs down the rows: V in P V). TF32 operands
+// are K-major only: a product that reduces down the stored rows (P V, dS K)
+// reads a transposed copy written by threads in the same layout
+// (flash_attention_f32.cu). A k-step reads 32 bytes of the row (16 bf16 or
+// 8 f32 columns), so a block holds 4 k-steps.
 #pragma once
 
+#include <cmath>
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is reached at run time
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -122,6 +131,51 @@ inline int persistent_grid(long long items) {
   return (int)(items < sms ? items : sms);
 }
 
+// Online softmax of key tile j (BK keys) in the accumulator layout, for the
+// bf16 and f32 flash forward kernels: this thread's scores of rows r0 and
+// r0 + 8 in `sc` (raw q . k) become p; the row max m (log2 domain, scores
+// times scale * log2 e) and the row sum l are updated, and alpha is the
+// factor for O. Masked scores are -inf; a row max stays -inf only while its
+// row has seen no key, and then 0 stands in for it, so that no inf - inf
+// arises.
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], int j, int L, int r0,
+                                               int row_lo, int lane, int causal,
+                                               float scale_log2) {
+  if (j * BK + BK > L || (causal && j * BK + BK - 1 > row_lo)) {
+    const int c0 = j * BK + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int col = c0 + 8 * (i >> 2) + (i & 1);
+      if (col >= L || (causal && col > r0 + 8 * ((i >> 1) & 1))) sc[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY}, mb[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h] * scale_log2);
+    mb[h] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[h] = exp2_approx(m[h] - mb[h]);
+    m[h] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    sc[i] = exp2_approx(fmaf(sc[i], scale_log2, -mb[(i >> 1) & 1]));
+    sum[(i >> 1) & 1] += sc[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    l[h] = l[h] * alpha[h] + sum[h];
+  }
+}
+
 // ---- mbarriers --------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -215,19 +269,23 @@ inline EncodeTiledFn encode_tiled() {
 // The error an entry point returns when a tensor map cannot be made.
 constexpr int kTensorMapError = static_cast<int>(cudaErrorInvalidResourceHandle);
 
-// A tensor map over BH contiguous (L, dh) bf16 matrices that loads boxes of
-// `rows` rows x 64 columns in the 128-byte swizzle; rows past L and columns
-// past dh read as zeros. dh a multiple of 8 (16-byte row strides).
-inline int make_tile_map(CUtensorMap* map, const void* base, int BH, int L, int dh, int rows) {
+// A tensor map over BH contiguous (L, dh) matrices of `type` (bf16 by
+// default, `elem_bytes` bytes an element) that loads boxes of `rows` rows x
+// one 128-byte column block in the 128-byte swizzle; rows past L and columns
+// past dh read as zeros. dh * elem_bytes a multiple of 16 (16-byte row
+// strides) and the base 16-byte aligned.
+inline int make_tile_map(CUtensorMap* map, const void* base, int BH, int L, int dh, int rows,
+                         CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         int elem_bytes = 2) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return kTensorMapError;
   const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)L, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2, (cuuint64_t)L * dh * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)dh * elem_bytes, (cuuint64_t)L * dh * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUresult res = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kTensorMapError;
 }
@@ -253,13 +311,16 @@ inline int make_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType t
   return res == CUDA_SUCCESS ? 0 : kTensorMapError;
 }
 
-// Load rows [row0, row0 + rows) of matrix bh, all DHP / 64 column blocks,
-// into a swizzled tile (the map's box has `rows` rows).
-template <int DHP>
-__device__ __forceinline__ void tma_load_tile(bf16* tile, const CUtensorMap* map, uint64_t* bar,
+// Load rows [row0, row0 + rows) of matrix bh, all DHP columns (DHP / 64
+// blocks of bf16, DHP / 32 of f32), into a swizzled tile (the map's box has
+// `rows` rows).
+template <int DHP, typename T>
+__device__ __forceinline__ void tma_load_tile(T* tile, const CUtensorMap* map, uint64_t* bar,
                                               int rows, int row0, int bh) {
+  constexpr int kCols = 128 / sizeof(T);   // columns of a block
 #pragma unroll
-  for (int c = 0; c < DHP / 64; ++c) tma_load_3d(tile + c * rows * 64, map, bar, c * 64, row0, bh);
+  for (int c = 0; c < DHP / kCols; ++c)
+    tma_load_3d(tile + c * rows * kCols, map, bar, c * kCols, row0, bh);
 }
 
 // ---- wgmma ------------------------------------------------------------------
@@ -496,6 +557,198 @@ struct Wgmma<256> {
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+// ---- TF32 products (the f32 flash kernels) --------------------------------
+
+// K-major f32 operand: the 64-row slice at `row0` of a tile of `rows` rows,
+// k8 step kk (columns 8kk..8kk+7): column block kk / 4, 32 bytes a step
+// inside it.
+__device__ __forceinline__ uint64_t kmajor_desc(const float* tile, int rows, int row0, int kk) {
+  return sw128_desc(tile + (kk >> 2) * rows * 32 + row0 * 32 + (kk & 3) * 8, 16, 1024);
+}
+
+// An f32 value as TF32 "hi" and "lo" parts, the split of 3xTF32 products
+// (CUTLASS's FastF32 rule): hi = x rounded to TF32 (sign, exponent, 10
+// mantissa bits; to nearest, ties away from zero, as cvt.rna.tf32.f32: add
+// half a TF32 ulp to the magnitude's bits and clear the low 13), lo = x - hi
+// (exact, by Sterbenz's lemma) rounded to TF32 the same way. hi + lo carries
+// x to about 2^-22 of it, with errors of either sign; the tensor core reads
+// both exactly. (Rounding hi toward zero instead biases every product's
+// error one way, which a long sum accumulates.)
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ float tf32_hi(float x) { return __uint_as_float(tf32_round(x)); }
+__device__ __forceinline__ float tf32_lo(float x, float hi) {
+  return __uint_as_float(tf32_round(x - hi));
+}
+
+// The register A fragment of k8 step kk (TF32, 64 x 8) from the accumulator
+// of a 64 x N product, split into hi and lo. A fragment register i holds
+// row 16w + l / 4 + 8 (i % 2) and column l % 4 + 4 (i / 2); the accumulator
+// gives this thread columns 2 (l % 4) and 2 (l % 4) + 1 of the same rows
+// (d[4kk + e]: row + 8 (e / 2), column 8kk + 2 (l % 4) + e % 2). So the
+// fragment takes {d[4kk], d[4kk + 2], d[4kk + 1], d[4kk + 3]}: its column
+// (slot) s < 4 is column 2s of the step, slot s >= 4 column 2 (s - 4) + 1,
+// and the B operand's k rows must be written in the same order
+// (tf32_slot). No shuffle: the product sums over the step's 8 columns in
+// any order.
+template <int R>
+__device__ __forceinline__ void to_tf32_frags(const float (&d)[R], int kk, uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4]) {
+  const float x[4] = {d[4 * kk], d[4 * kk + 2], d[4 * kk + 1], d[4 * kk + 3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float h = tf32_hi(x[i]);
+    hi[i] = __float_as_uint(h);
+    lo[i] = __float_as_uint(tf32_lo(x[i], h));
+  }
+}
+
+// The slot of column k (0..7) of a k8 step in the order to_tf32_frags
+// gives the A fragment: even columns in slots 0-3, odd ones in 4-7.
+__host__ __device__ constexpr int tf32_slot(int k) { return (k & 1) * 4 + (k >> 1); }
+
+// wgmma m64nNk8 with TF32 operands and f32 accumulators (no transpose
+// flags: both operands K-major), one asm statement for each form and N the
+// f32 flash kernels use: `ss` reads A and B from shared memory (N = 8 to
+// 128); `rs` takes A from registers (N = 32, 64). `acc` = 0 overwrites D.
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<8> {
+  // D (64 x 8, f32) (+)= A B^T, A and B K-major TF32 in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[4], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaTf32<16> {
+  // D (64 x 16, f32) (+)= A B^T, A and B K-major TF32 in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaTf32<32> {
+  // D (64 x 32, f32) (+)= A B^T, A and B K-major TF32 in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  // D (64 x 32, f32) (+)= A B^T, A from registers (a TF32 fragment), B
+  // K-major TF32 in shared memory.
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  // D (64 x 64, f32) (+)= A B^T, A and B K-major TF32 in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  // D (64 x 64, f32) (+)= A B^T, A from registers (a TF32 fragment), B
+  // K-major TF32 in shared memory.
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaTf32<128> {
+  // D (64 x 128, f32) (+)= A B^T, A and B K-major TF32 in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
   }
 };
 

@@ -13,7 +13,8 @@ output, and its backward (``_flash_bwd``), which recomputes the
 probabilities from it. :class:`FlashAttention` is the
 ``torch.autograd.Function`` around the three, choosing the bf16 or the f32
 kernels by q's dtype. :func:`flash_attention_resources` reports what the
-card gives each bf16 kernel (registers, shared memory, resident blocks).
+card gives each kernel, bf16 and f32 (registers, shared memory, resident
+blocks).
 """
 
 from __future__ import annotations
@@ -26,8 +27,10 @@ import torch
 from apertis_llm_torch.ops.kernels import _build
 
 NEG_INF = -1e30      # flash_attention.py:31
-# The bf16 kernels, in the order of apertis_flash_attention_resources' codes.
+# The bf16 and the f32 kernels, in the order of
+# apertis_flash_attention_resources' codes (0-2, 3-5).
 BF16_KERNELS = ("forward", "dq", "dkv")
+F32_KERNELS = ("forward_f32", "dq_f32", "dkv_f32")
 RESOURCE_KEYS = ("registers", "shared_bytes", "blocks_per_sm", "threads", "spill_bytes")
 
 
@@ -39,17 +42,18 @@ def supported_head_dim(dh: int) -> bool:
 
 
 def flash_attention_resources(kernel: str, head_dim: int) -> Dict[str, int]:
-    """What the card gives the bf16 ``kernel`` (one of :data:`BF16_KERNELS`)
-    at ``head_dim``: registers a thread, shared memory a block in bytes,
-    resident blocks an SM (the occupancy calculator's), threads a block and
-    spilled bytes a thread."""
-    if kernel not in BF16_KERNELS:
+    """What the card gives ``kernel`` (one of :data:`BF16_KERNELS` or
+    :data:`F32_KERNELS`) at ``head_dim``: registers a thread, shared memory
+    a block in bytes, resident blocks an SM (the occupancy calculator's),
+    threads a block and spilled bytes a thread."""
+    kernels = BF16_KERNELS + F32_KERNELS
+    if kernel not in kernels:
         raise ValueError(f"flash_attention_resources: unknown kernel {kernel!r}")
     if not supported_head_dim(head_dim):
         raise ValueError(f"flash_attention_resources: unsupported head_dim {head_dim}")
     out = (ctypes.c_int * len(RESOURCE_KEYS))()
     err = _build.load_library().apertis_flash_attention_resources(
-        BF16_KERNELS.index(kernel), head_dim, ctypes.addressof(out))
+        kernels.index(kernel), head_dim, ctypes.addressof(out))
     _build.check(err, "flash_attention_resources")
     return dict(zip(RESOURCE_KEYS, out))
 
@@ -199,22 +203,26 @@ flash_attention_dkv.launches = 0
 
 def _check_f32(name, q, *others):
     """The f32 kernels' operands: contiguous f32 CUDA tensors, each (B, H,
-    L, Dh) or (B, H, L), Dh a multiple of 8 up to 256 (4-byte loads: no
-    alignment beyond the dtype's)."""
+    L, Dh) or (B, H, L), Dh a multiple of 8 up to 256; the (B, H, L, Dh)
+    ones 16-byte aligned, since their TMA tensor maps need aligned bases."""
     b, h, l, dh = q.shape
     for t in (q,) + others:
         shape = (b, h, l, dh) if t.dim() == 4 else (b, h, l)
         _build.check_tensor(t, shape, (torch.float32,), name, q.device)
-    if b * h == 0 or l == 0 or dh % 8 or dh > 256:
+    if b * h == 0 or l == 0 or not supported_head_dim(dh):
         raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
+    _build.check_aligned(name, *(t for t in (q,) + others if t.dim() == 4))
 
 
 def flash_attention_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Self-attention forward with f32 operands: kernel on CUDA tensors
-    (f32 arithmetic, no TF32), plain version on CPU ones. The kernel takes
-    contiguous f32 q, k, v of one shape (B, H, L, Dh) with Dh a multiple of
-    8 up to 256, and returns f32 ``out`` and ``lse``."""
+    """Self-attention forward with f32 operands: kernel on CUDA tensors, plain
+    version on CPU ones. The kernel runs its products on the tensor cores in
+    split TF32 (each f32 operand as a TF32 hi part and a TF32 lo remainder,
+    hi*hi + hi*lo + lo*hi summed in f32: about f32 accuracy) and its softmax
+    in f32. It takes contiguous, 16-byte aligned f32 q, k, v of one shape
+    (B, H, L, Dh) with Dh a multiple of 8 up to 256, and returns f32 ``out``
+    and ``lse``."""
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, causal)
     _check_f32("flash_attention_fwd_f32", q, k, v)
@@ -292,7 +300,8 @@ class FlashAttention(torch.autograd.Function):
     for f32 q) saves q, k, v, out and the LSE; the backward forms ``delta =
     sum_d out * dout`` in f32 (plain torch, as the JAX package leaves it to
     XLA, flash_attention.py:246) and runs the dQ and dK/dV kernels of q's
-    dtype."""
+    dtype. The f32 kernels' products run in split TF32 (see
+    :func:`flash_attention_fwd_f32`), the bf16 ones' on bf16 tensor cores."""
 
     @staticmethod
     def forward(ctx, q, k, v):

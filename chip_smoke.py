@@ -102,13 +102,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
      ``scaled_dot_product_attention`` timed beside flash as the yardstick;
      the scan backward at d_state 12, 24, 48 and 64 (the shared-memory head
      sum) at the training shape, masked and with an ``h_last`` cotangent,
-     and f32 at N = 48; the f32 flash forward, dQ and dK/dV at (4, 38, 1024,
-     64), L = 300 and Dh 32, 128 and 256, with SDPA on the same f32 inputs
-     (TF32 off) timed beside them; sensitivity checks as above, and a second
-     run of each new kernel giving the same bits (the bf16 flash forward, dQ
-     and dK/dV too, at (4, 38, 1024, 64) and at L = 300), and the registers,
-     shared memory and resident blocks per SM that the card gives each bf16
-     flash kernel;
+     and f32 at N = 48; the f32 flash forward, dQ and dK/dV (split-TF32
+     products on the tensor cores) at (4, 38, 1024, 64), L = 300, Dh 8, 32,
+     96, 128 and 256, and non-causal at L = 300 (Dh 64 and 256), with SDPA on
+     the same f32 inputs (TF32 off) timed beside them; sensitivity checks as
+     above, and a second run of each new kernel giving the same bits (the
+     bf16 flash forward, dQ and dK/dV too, at (4, 38, 1024, 64) and at
+     L = 300; the f32 ones at (4, 38, 1024, 64) and the non-causal shapes),
+     and the registers, shared memory and resident blocks per SM that the
+     card gives each bf16 and f32 flash kernel;
   5. check 2-layer dense, MoE and MHA models on the card against the same
      weights on the CPU (plain versions), bf16, int8 and w4a8 (dense and
      MoE), dense int8 under ``pallas`` and ``fused`` and MoE int8 under
@@ -164,7 +166,7 @@ Kernel times are CUDA-event means over back-to-back wrapper calls ("ms")
 and the profiler's device time per call ("device_ms", the kernels' own time
 without the Python wrapper, from each kernel's mean duration in the
 profiler's records, which can miss some launches). Before the last line it
-prints the bf16 flash kernels' resources, #7's and #6's times, resources
+prints the bf16 and f32 flash kernels' resources, #7's and #6's times, resources
 and host enqueue times (``{"qmm": ...}``), the kernels' JSON summary and the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -172,11 +174,14 @@ card's name and power limit; the last line is ``{"ok": true, "device":
     python3 chip_smoke.py --qmm          # #7 and #6 alone: checks, repeats, resources,
                                          # times, and other tile plans' times
     python3 chip_smoke.py --qmm-times    # their times alone
+    python3 chip_smoke.py --flash-f32-times  # the f32 flash kernels' times and SDPA f32's
+                                             # at (4, 38, 1024, 64), and the 1.5B MHA
+                                             # model's f32 micro-step p50
 
-The two flags run ``qmm_phase`` only; ``--qmm-times`` needs nothing of the
-checkout but the wrappers' Python interface, so a checkout of an earlier
-commit can run it with this script copied into it, for a comparison in one
-call.
+The first two flags run ``qmm_phase`` only. ``--qmm-times`` and
+``--flash-f32-times`` need nothing of the checkout but the wrappers' (and
+the trainer's) Python interface, so a checkout of an earlier commit can run
+them with this script copied into it, for a comparison in one call.
 
 It needs a CUDA device and exits non-zero without one. It imports no JAX.
 """
@@ -253,10 +258,11 @@ SENSITIVITY_FACTOR = 9
 # A 2-layer f32 MHA forward on the card (cuBLAS f32, TF32 off) vs the CPU:
 # f32 sums in other orders.
 F32_FORWARD_TOL = 1e-4
-# The f32 flash kernels against their plain versions: f32 fused multiply-adds
-# in the kernels against cuBLAS's f32 products (TF32 off), the same products
-# summed in other orders over up to Dh or L terms (about sqrt(L) * 2^-24 of
-# the largest term), and the forward's online softmax rescaling.
+# The f32 flash kernels against their plain versions: the kernels' split-TF32
+# products (hi * hi + hi * lo + lo * hi of TF32 parts, about 2^-22 of each
+# term) against cuBLAS's f32 products (TF32 off), the same products summed in
+# other orders over up to Dh or L terms (about sqrt(L) * 2^-24 of the largest
+# term), and the forward's online softmax rescaling.
 F32_FLASH_TOL = 1e-5
 # The carried-state scan (#2) against its plain versions: JAX's own bounds
 # (tests/test_pallas_kernels.py:69-78), relative to the largest element;
@@ -278,9 +284,11 @@ PARALLEL_LR = 5e-3        # the 1.5B mesh run's peak learning rate
 # top-2 choice would flip on a near-tie under bf16 rounding, and the f32
 # flash MHA model): each gradient leaf within 1e-4 of its largest CPU value.
 F32_GRAD_TOL = 1e-4
-# The card's published peaks (NVIDIA H100 SXM data sheet, dense).
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense). The f32
+# flash kernels' products run on the tensor cores in split TF32: three TF32
+# products for each f32 one, so their operations count 3x against "tf32".
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
 
 
 def log(*args):
@@ -351,6 +359,46 @@ def bound(n_bytes, ops, kind):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mha_preset_config(dims):
+    """The 1.5B MHA preset (bench.py's arch="mha") at the widths `dims` of
+    ``calculate_model_dimensions("1.5B", 32000)``: 38 heads of 64, q/k/v/o
+    biases, dropout 0."""
+    from apertis_llm_torch.config import ApertisConfig
+    return ApertisConfig(
+        vocab_size=32000, attention_type="standard_mha", ssm_d_state=16,
+        hidden_size=dims["hidden_size"], num_hidden_layers=dims["num_hidden_layers"],
+        num_attention_heads=dims["num_attention_heads"],
+        intermediate_size=dims["intermediate_size"], hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, max_position_embeddings=4096,
+        dtype="bfloat16", param_dtype="bfloat16")
+
+
+def f32_flash_cost(shape, products):
+    """(bytes, operations, type) of an f32 flash kernel at (B, H, L, Dh),
+    causal: q, k, v (and dout) read and the outputs written once, plus lse
+    (and delta), each f32; `products` products of 2 Dh flops over the causal
+    half of the pairs, each run as three TF32 products (split TF32)."""
+    b, h, l, hd = shape
+    pairs = b * h * l * (l + 1) // 2
+    tensors = {2: 4, 3: 5, 4: 6}[products]   # q k v out | q k v do dq | q k v do dk dv
+    vectors = {2: 1, 3: 2, 4: 2}[products]   # lse | lse delta
+    return (tensors * b * h * l * hd * 4 + vectors * b * h * l * 4,
+            3 * products * 2 * hd * pairs, "tf32")
+
+
+def sdpa_f32_ms(qkv, dout):
+    """The library yardsticks of the f32 flash kernels on the same inputs:
+    scaled_dot_product_attention(is_causal=True) and its backward alone (its
+    graph kept; dQ, dK and dV in one call), the least of three windows each."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = min(cuda_ms(lambda: sdpa(*qkv, is_causal=True)) for _ in range(3))
+    leaves = [t.detach().requires_grad_(True) for t in qkv]
+    out = sdpa(*leaves, is_causal=True)
+    bwd = min(cuda_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
+              for _ in range(3))
+    return fwd, bwd
 
 
 def compare(name, got, ref, rel_tol):
@@ -730,7 +778,7 @@ def main() -> int:
         ffn_decode, ffn_decode_int4, ffn_decode_int4_reference, ffn_decode_int8,
         ffn_decode_int8_reference, ffn_decode_reference, pick_block_n)
     from apertis_llm_torch.ops.kernels.flash_attention import (
-        BF16_KERNELS, flash_attention_dkv, flash_attention_dkv_f32,
+        BF16_KERNELS, F32_KERNELS, flash_attention_dkv, flash_attention_dkv_f32,
         flash_attention_dkv_reference, flash_attention_dq, flash_attention_dq_f32,
         flash_attention_dq_reference, flash_attention_fwd, flash_attention_fwd_f32,
         flash_attention_fwd_reference, flash_attention_resources)
@@ -1262,13 +1310,7 @@ def main() -> int:
     # ---- 3c. the 1.5B MHA model and its kernel checks -----------------------
     # bench.py's arch="mha" preset: the dense preset's widths with standard
     # MHA, text-only; attention dropout 0 gives q/k/v/o biases.
-    mha_config = ApertisConfig(
-        vocab_size=32000, attention_type="standard_mha", ssm_d_state=16,
-        hidden_size=dims["hidden_size"], num_hidden_layers=dims["num_hidden_layers"],
-        num_attention_heads=dims["num_attention_heads"],
-        intermediate_size=dims["intermediate_size"], hidden_dropout_prob=0.0,
-        attention_probs_dropout_prob=0.0, max_position_embeddings=4096,
-        dtype="bfloat16", param_dtype="bfloat16")
+    mha_config = mha_preset_config(dims)
     t0 = time.perf_counter()
     tree = init_params(mha_config, torch.Generator(device=dev).manual_seed(SEED), device=dev,
                        dtype=bf16)
@@ -1874,19 +1916,22 @@ def main() -> int:
                  "masked)", args, selective_scan_bwd_smem, plain_scan_bwd(hs_plain),
                  scan_bwd_tols(f32))
 
-    # The f32 flash kernels (f32 q/k/v, f32 arithmetic, no TF32), beside
-    # scaled_dot_product_attention on the same f32 inputs.
+    # The f32 flash kernels (f32 q/k/v, split-TF32 products on the tensor
+    # cores), beside scaled_dot_product_attention on the same f32 inputs
+    # (TF32 off): the training shape, a ragged L, every padded head width
+    # (Dh 8 and 96 fill a 32-column swizzle block in part), and non-causal
+    # runs at L = 300.
     f32_flash_tols = [("out", F32_FLASH_TOL), ("lse", F32_FLASH_TOL)]
     args = tuple(randn(2, 4, 200, head_dim, dtype=f32) for _ in range(3))
     check_sensitive("flash_attention_fwd_f32", flash_attention_fwd_reference, args,
                     {"causal mask": args + (False,)}, f32_flash_tols)
 
-    def flash_bwd_inputs_f32(shape):
+    def flash_bwd_inputs_f32(shape, causal=True):
         q, k, v, do = (randn(*shape, dtype=f32) for _ in range(4))
-        out, lse = flash_attention_fwd_f32(q, k, v)
-        return (q, k, v, do, lse, (out * do).sum(dim=-1))
+        out, lse = flash_attention_fwd_f32(q, k, v, causal)
+        return (q, k, v, do, lse, (out * do).sum(dim=-1), causal)
 
-    args = flash_bwd_inputs_f32((2, 4, 200, head_dim))
+    args = flash_bwd_inputs_f32((2, 4, 200, head_dim))[:6]
     for name, plain, tols in (
             ("flash_attention_dq_f32", flash_attention_dq_reference, [("dq", F32_FLASH_TOL)]),
             ("flash_attention_dkv_f32", flash_attention_dkv_reference,
@@ -1895,39 +1940,44 @@ def main() -> int:
             "delta": args[:5] + (torch.zeros_like(args[5]),),
             "lse": args[:4] + (torch.zeros_like(args[4]),) + args[5:],
             "causal mask": args + (False,)}, tols)
-    for shape in ((4, mha_heads, 1024, head_dim), (4, mha_heads, 300, head_dim),
-                  (2, 8, 130, 32), (2, mha_heads // 2, 256, 128), (1, 4, 200, 256)):
+    for shape, causal in (((4, mha_heads, 1024, head_dim), True),
+                          ((4, mha_heads, 300, head_dim), True), ((2, 8, 130, 32), True),
+                          ((2, mha_heads // 2, 256, 128), True), ((1, 4, 200, 256), True),
+                          ((2, 4, 200, 8), True), ((2, 4, 200, 96), True),
+                          ((4, mha_heads, 300, head_dim), False), ((1, 4, 300, 256), False)):
         b, h_, l, hd = shape
         timed = l == 1024
-        args = tuple(randn(*shape, dtype=f32) for _ in range(3))
-        cost = (4 * nbytes(args[0]) + b * h_ * l * 4, 4 * b * h_ * hd * l * (l + 1) // 2, "f32")
-        check_kernel("flash_attention_fwd_f32", f"flash_attention_fwd_f32 {shape}", args,
+        label = f"{shape}" + ("" if causal else " non-causal")
+        args = tuple(randn(*shape, dtype=f32) for _ in range(3)) + (causal,)
+        check_kernel("flash_attention_fwd_f32", f"flash_attention_fwd_f32 {label}", args,
                      flash_attention_fwd_f32, flash_attention_fwd_reference, f32_flash_tols,
-                     cost=cost if timed else None)
-        bargs = flash_bwd_inputs_f32(shape)
-        check_kernel("flash_attention_dq_f32", f"flash_attention_dq_f32 {shape}", bargs,
+                     cost=f32_flash_cost(shape, 2) if timed else None)
+        bargs = flash_bwd_inputs_f32(shape, causal)
+        check_kernel("flash_attention_dq_f32", f"flash_attention_dq_f32 {label}", bargs,
                      flash_attention_dq_f32, flash_attention_dq_reference,
-                     [("dq", F32_FLASH_TOL)],
-                     cost=flash_bwd_cost(bargs, 1, 3, "f32") if timed else None)
-        check_kernel("flash_attention_dkv_f32", f"flash_attention_dkv_f32 {shape}", bargs,
+                     [("dq", F32_FLASH_TOL)], cost=f32_flash_cost(shape, 3) if timed else None)
+        check_kernel("flash_attention_dkv_f32", f"flash_attention_dkv_f32 {label}", bargs,
                      flash_attention_dkv_f32, flash_attention_dkv_reference,
                      [("dk", F32_FLASH_TOL), ("dv", F32_FLASH_TOL)],
-                     cost=flash_bwd_cost(bargs, 2, 4, "f32") if timed else None)
+                     cost=f32_flash_cost(shape, 4) if timed else None)
         if timed:
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            library["flash_attention_fwd_f32"] = cuda_ms(lambda: sdpa(*args, is_causal=True))
-            leaves = [t.detach().requires_grad_(True) for t in bargs[:3]]
-            out_l = sdpa(*leaves, is_causal=True)
-            library["flash_attention_dq_f32"] = library["flash_attention_dkv_f32"] = cuda_ms(
-                lambda: torch.autograd.grad(out_l, leaves, bargs[3], retain_graph=True))
+            library["flash_attention_fwd_f32"], sdpa_bwd = sdpa_f32_ms(args[:3], bargs[3])
+            library["flash_attention_dq_f32"] = library["flash_attention_dkv_f32"] = sdpa_bwd
             log(f"  library: scaled_dot_product_attention(is_causal=True) on the f32 inputs "
                 f"(TF32 off) {library['flash_attention_fwd_f32']:.4f} ms, its backward "
                 f"{library['flash_attention_dq_f32']:.4f} ms; card: {card}")
-            del leaves, out_l
-            for label, fn, a_ in (("flash_attention_fwd_f32", flash_attention_fwd_f32, args),
+        if timed or not causal:
+            for name_, fn, a_ in (("flash_attention_fwd_f32", flash_attention_fwd_f32, args),
                                   ("flash_attention_dq_f32", flash_attention_dq_f32, bargs),
                                   ("flash_attention_dkv_f32", flash_attention_dkv_f32, bargs)):
-                repeats(f"{label} {shape}", fn, a_)
+                repeats(f"{name_} {label}", fn, a_)
+    for kern in F32_KERNELS:
+        for hd in (32, head_dim, 128, 256):
+            flash_resources[f"{kern} Dh={hd}"] = res = flash_attention_resources(kern, hd)
+            log(f"  resources of the f32 flash {kern} Dh={hd}: {res['registers']} registers a "
+                f"thread, {res['shared_bytes']} bytes of shared memory and {res['threads']} "
+                f"threads a block, {res['blocks_per_sm']} block(s) an SM, {res['spill_bytes']} "
+                "bytes spilled")
 
     # ---- 3g. the carried-state scan (#2) ---------------------------------------
     # The sequence-parallel path's scan, at the 1.5B model's whole training
@@ -2909,7 +2959,83 @@ def qmm_main(check: bool) -> int:
     return 0
 
 
+def flash_f32_times_main() -> int:
+    """``--flash-f32-times``: the f32 flash kernels' times at the 1.5B MHA
+    model's training shape (4, 38, 1024, 64) beside scaled_dot_product_attention
+    in f32 (TF32 off), and the micro-step p50 of that model trained in f32
+    compute through them (phase 6's "MHA flash f32" run: 8 micro-batches of
+    4 x 1024, accumulation 2, remat). It needs nothing of the checkout but the
+    wrappers' and the trainer's Python interface, so a checkout of an earlier
+    commit can run it with this script copied into it, for a comparison in
+    one call."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO_ROOT))
+    from apertis_llm_torch.models.factory import calculate_model_dimensions
+    from apertis_llm_torch.models.params import init_params
+    from apertis_llm_torch.ops.kernels import _build
+    from apertis_llm_torch.ops.kernels.flash_attention import (
+        flash_attention_dkv_f32, flash_attention_dq_f32, flash_attention_fwd_f32)
+    from apertis_llm_torch.training.trainer import ApertisTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    t0 = time.perf_counter()
+    _build.load_library()
+    log(f"card: {card}; build in {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (4, 38, 1024, 64)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
+    out, lse = flash_attention_fwd_f32(q, k, v)
+    delta = (out * do).sum(dim=-1)
+    result = {}
+    for name, fn, args, products in (
+            ("flash_attention_fwd_f32", flash_attention_fwd_f32, (q, k, v), 2),
+            ("flash_attention_dq_f32", flash_attention_dq_f32, (q, k, v, do, lse, delta), 3),
+            ("flash_attention_dkv_f32", flash_attention_dkv_f32, (q, k, v, do, lse, delta), 4)):
+        result[name] = dict(ms=cuda_ms(lambda: fn(*args)), device_ms=device_ms(lambda: fn(*args)),
+                            bound_ms=bound(*f32_flash_cost(shape, products))[0])
+    result["sdpa_f32_ms"], result["sdpa_f32_bwd_ms"] = sdpa_f32_ms((q, k, v), do)
+    log(f"f32 flash at {shape}: {json.dumps(result)}; card: {card}")
+    del q, k, v, do, out, lse, delta
+
+    cfg = dataclasses.replace(mha_preset_config(calculate_model_dimensions("1.5B", 32000)),
+                              use_flash_attention=True)
+    micro, accum, rows, length = 8, 2, 4, 1024
+    seqs = np.random.default_rng(SEED + 6).integers(4, cfg.vocab_size, (rows, length))
+    dataset = TokenRows([{"input_ids": seqs[i % rows], "labels": seqs[i % rows]}
+                         for i in range(micro * rows)], length)
+    os.environ["APERTIS_TRAINER_SYNC_EVERY"] = "1"
+    tree = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    trainer = ApertisTrainer(cfg, tree, dataset, output_dir="unused", batch_size=rows,
+                             learning_rate=TRAIN_LR, num_epochs=1,
+                             gradient_accumulation_steps=accum, bf16=False,
+                             use_gradient_checkpointing=True, seed=SEED, device=dev,
+                             save_checkpoints=False)
+    del tree
+    for f in (flash_attention_fwd_f32, flash_attention_dq_f32, flash_attention_dkv_f32):
+        f.launches = 0
+    history = trainer.train()
+    torch.cuda.synchronize()
+    losses = history["step_losses"]
+    result["mha_flash_f32_step_ms_p50"] = history["perf"]["step_time_p50_s"] * 1e3
+    result["mha_flash_f32_losses"] = losses
+    result["launches"] = {f.__name__: f.launches for f in (
+        flash_attention_fwd_f32, flash_attention_dq_f32, flash_attention_dkv_f32)}
+    if not (np.isfinite(losses).all() and np.mean(losses[-accum:]) < np.mean(losses[:accum])):
+        raise RuntimeError(f"MHA flash f32: the loss is not finite or did not fall: {losses}")
+    print(json.dumps({"flash_f32_times": result}))
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] in (["--qmm"], ["--qmm-times"]):
         sys.exit(qmm_main(check=sys.argv[1] == "--qmm"))
+    if sys.argv[1:] == ["--flash-f32-times"]:
+        sys.exit(flash_f32_times_main())
     sys.exit(main())

@@ -1,10 +1,11 @@
-"""Host-side logic of the Hopper bf16 flash kernels (CPU).
+"""Host-side logic of the Hopper flash kernels, bf16 and f32 (CPU).
 
 The kernels themselves (``csrc/flash_attention.cu``,
-``csrc/flash_attention_bwd.cu``, ``csrc/hopper.cuh``) build and run only on
-the card, where ``chip_smoke.py`` holds them against their plain versions.
-Here: the head widths the wrappers take, the resources query's argument
-checks and its kernel codes, and the build's hash over the new header.
+``csrc/flash_attention_bwd.cu``, ``csrc/flash_attention_f32.cu``,
+``csrc/hopper.cuh``) build and run only on the card, where
+``chip_smoke.py`` holds them against their plain versions. Here: the head
+widths the wrappers take, the resources query's argument checks and its
+kernel codes, and the build's hash over the new header.
 """
 
 import ctypes
@@ -15,7 +16,7 @@ import pytest
 
 from apertis_llm_torch.ops.kernels import _build
 from apertis_llm_torch.ops.kernels.flash_attention import (
-    BF16_KERNELS, RESOURCE_KEYS, flash_attention_resources, supported_head_dim)
+    BF16_KERNELS, F32_KERNELS, RESOURCE_KEYS, flash_attention_resources, supported_head_dim)
 
 
 def test_supported_head_dims_are_multiples_of_8_up_to_256():
@@ -26,7 +27,9 @@ def test_supported_head_dims_are_multiples_of_8_up_to_256():
 
 
 @pytest.mark.parametrize("kernel,head_dim", [("backward", 64), ("forward", 60),
-                                             ("dq", 264), ("dkv", 0)])
+                                             ("dq", 264), ("dkv", 0), ("f32", 64),
+                                             ("forward_f32", 60), ("dq_f32", 264),
+                                             ("dkv_f32", 0)])
 def test_resources_refuse_bad_arguments_before_any_build(monkeypatch, kernel, head_dim):
     """An unknown kernel name or an unsupported head width raises
     ValueError without loading (or compiling) the library."""
@@ -39,8 +42,10 @@ def test_resources_refuse_bad_arguments_before_any_build(monkeypatch, kernel, he
 
 
 def test_resources_codes_match_the_entry_point(monkeypatch):
-    """``flash_attention_resources`` passes kernel code 0, 1, 2 for forward,
-    dQ and dK/dV, as ``apertis_flash_attention_resources`` reads them, and
+    """``flash_attention_resources`` passes kernel code 0, 1, 2 for the bf16
+    forward, dQ and dK/dV and 3, 4, 5 for the f32 ones, as
+    ``apertis_flash_attention_resources`` reads them (the f32 codes through
+    ``flash_f32_resources(code - 3)``: 0 forward, 1 dQ, else dK/dV), and
     returns the five ints it writes under RESOURCE_KEYS."""
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     body = src[src.index('extern "C" int apertis_flash_attention_resources'):]
@@ -49,6 +54,15 @@ def test_resources_codes_match_the_entry_point(monkeypatch):
     assert "flash_fwd_resources" in cases["0"]
     assert "flash_dq_kernel" in cases["1"] and "flash_dkv" not in cases["1"]
     assert "flash_dkv_kernel" in cases["2"]
+    assert cases["3"].strip() == "" and cases["4"].strip() == ""   # fall through to case 5
+    assert "flash_f32_resources(kernel - 3, dh, out)" in cases["5"]
+    f32 = (_build.CSRC / "flash_attention_f32.cu").read_text()
+    f32 = f32[f32.index("int resources_f32(int kernel, int* out)"):]
+    f32 = f32[:f32.index("\n}\n")]
+    f32_cases = dict(re.findall(r"(case \d|default):\s*\n(.*?)(?=case \d|default|\Z)", f32, re.S))
+    assert "flash_fwd_f32_kernel" in f32_cases["case 0"]
+    assert "flash_dq_f32_kernel" in f32_cases["case 1"]
+    assert "flash_dkv_f32_kernel" in f32_cases["default"]
     assert _build.SIGNATURES["apertis_flash_attention_resources"] == [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -64,10 +78,10 @@ def test_resources_codes_match_the_entry_point(monkeypatch):
             return 0
 
     monkeypatch.setattr(_build, "load_library", lambda: Lib)
-    for code, kernel in enumerate(BF16_KERNELS):
+    for code, kernel in enumerate(BF16_KERNELS + F32_KERNELS):
         res = flash_attention_resources(kernel, 72)
         assert res == {key: 10 * code + i for i, key in enumerate(RESOURCE_KEYS)}
-    assert calls == [(0, 72), (1, 72), (2, 72)]
+    assert calls == [(code, 72) for code in range(6)]
 
 
 def test_library_hash_covers_the_hopper_header(monkeypatch, tmp_path):
