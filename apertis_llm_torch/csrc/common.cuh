@@ -55,21 +55,6 @@ __device__ __forceinline__ int8_t quant_level(float v) {
   return static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.f), 127.f));
 }
 
-// Per-row int8 quantization of one row of `n` f32 values by one warp, the
-// decode step's `_quant_rows` (ssm_step.py:39-43): s = max(absmax, 1e-8) *
-// (1/127) and q = level(x * (1/s)), a multiply by the reciprocal. Lane k
-// touches elements k, k + 32, ... only, as warp_norm_row does, so no barrier
-// is needed after that function. Lane 0 writes the scale.
-__device__ void warp_quant_row(const float* x, int n, int8_t* q, float* scale) {
-  const int lane = threadIdx.x & 31;
-  float m = 0.f;
-  for (int k = lane; k < n; k += 32) m = fmaxf(m, fabsf(x[k]));
-  const float s = fmaxf(warp_max(m), 1e-8f) * (1.f / 127.f);
-  const float inv = 1.f / s;
-  for (int k = lane; k < n; k += 32) q[k] = quant_level(__fmul_rn(x[k], inv));
-  if (lane == 0) *scale = s;
-}
-
 // Overflow-safe log(1 + e^x): above the knee it is x to f32 precision.
 __device__ __forceinline__ float softplusf(float x) {
   return x > 20.f ? x : logf(1.f + expf(fminf(x, 20.f)));
@@ -168,65 +153,6 @@ __device__ void tile_matvec(const float* xs, int ldx, const bf16* __restrict__ w
   __syncthreads();
   for (int i = threadIdx.x; i < RB * kTileN; i += kBlock) {
     float s = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) s += red[wi * RB * kTileN + i];
-    out[i] = s;
-  }
-  __syncthreads();
-}
-
-// The int8 form of tile_matvec: exact int32 sums
-//   out[r * kTileN + j] = sum_k xq[r * ldx + k] * W[k * ldw + col0 + j]
-// of int8 rows `xq` in shared memory against an int8 (in, out) weight, the
-// `dot_general(int8, int8) -> int32` of the TPU kernels. Same split as
-// tile_matvec (warps over K, lanes over columns); each lane packs one
-// column's bytes of four consecutive weight rows into a word and multiplies
-// it with four bytes of each x row in one __dp4a. k_total and ldx must be
-// multiples of 4 and `xq` 4-byte aligned. Integer sums are exact, so the
-// result does not depend on the order. Ends synchronised.
-template <int RB>
-__device__ void tile_matvec_i8(const int8_t* xq, int ldx, const int8_t* __restrict__ w,
-                               int ldw, int k_total, int col0, int ncols, int* red,
-                               int* out) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int kper = (((k_total + kWarps - 1) / kWarps) + 3) & ~3;
-  const int k0 = warp * kper;
-  const int k1 = min(k_total, k0 + kper);
-  const int ja = col0 + lane;
-  const int jb = col0 + 32 + lane;
-  const bool va = ja < ncols;
-  const bool vb = jb < ncols;
-  int acc_a[RB], acc_b[RB];
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    acc_a[r] = 0;
-    acc_b[r] = 0;
-  }
-#pragma unroll 2
-  for (int k = k0; k < k1; k += 4) {
-    int wa = 0, wb = 0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int8_t* wr = w + (size_t)(k + q) * ldw;
-      if (va) wa |= (int)(uint8_t)wr[ja] << (8 * q);
-      if (vb) wb |= (int)(uint8_t)wr[jb] << (8 * q);
-    }
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int xv = *reinterpret_cast<const int*>(xq + r * ldx + k);
-      acc_a[r] = __dp4a(xv, wa, acc_a[r]);
-      acc_b[r] = __dp4a(xv, wb, acc_b[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    red[(warp * RB + r) * kTileN + lane] = acc_a[r];
-    red[(warp * RB + r) * kTileN + 32 + lane] = acc_b[r];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < RB * kTileN; i += kBlock) {
-    int s = 0;
 #pragma unroll
     for (int wi = 0; wi < kWarps; ++wi) s += red[wi * RB * kTileN + i];
     out[i] = s;

@@ -3,7 +3,7 @@
 // Replaces: apertis_llm_tpu/ops/pallas/ffn_fused.py::ffn_decode_fused with
 // the bf16 weight layout (apertis_ffn_decode), the int8 layout
 // (apertis_ffn_decode_int8) and the int4 layout (apertis_ffn_decode_int4),
-// the last two at the end of this file.
+// the last two, Hopper tensor-core products, at the end of this file.
 //
 // Semantics (ffn_fused.py:42-99, bf16 layout): both products take bf16
 // operands and accumulate in f32; the hidden is act(x @ W1 + b1) rounded to
@@ -43,8 +43,10 @@
 
 #include <cooperative_groups.h>
 #include <mma.h>
+#include <string.h>
 
 #include "common.cuh"
+#include "decode_gemm.cuh"
 
 namespace {
 
@@ -257,304 +259,408 @@ extern "C" int apertis_ffn_decode(const void* x, const void* w1, const void* b1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- int8 layout -------------------------------------------------------------
+// ---- int8 and int4 layouts ----------------------------------------------------
 //
-// Semantics (ffn_fused.py:42-99 with quant=True), per row, with the hidden
-// cut into tiles of `bn` columns (bn = _pick_block_n(I, 1216), 512 at the
-// 1.5B width; the tile width changes the result, so it is the TPU kernel's):
-//   h   = acc1_i32(x_q . W1_q) * x_s * w1_s + b1             (f32)
-//   a   = act(h)
-//   per tile t: hs_t = max(max|a_t|, 1e-8) * (1/127);  hq_t = rint(a_t / hs_t)
-//   acc = sum over t in order of acc2_i32(hq_t . W2_q[t]) * hs_t   (f32)
+// Semantics (ffn_fused.py:42-99 with quant=True; ops/kernels/ffn_fused.py::
+// ffn_decode_int8_reference), per row, with the hidden cut into tiles of bn
+// = pick_block_n(I) columns (512 at I = 9728; the tile width changes the
+// result, so it is the TPU kernel's):
+//   h   = act(acc1_i32(x_q . W1_q) * x_s * w1_s + b1)          (f32)
+//   per tile t: hs_t = max(max|h_t|, 1e-8) * (1/127);  hq_t = rint(h_t / hs_t)
+//   acc = sum over t in order of acc2_i32(hq_t . W2_q[t]) * hs_t  (f32, from 0)
 //   out = bf16(acc * w2_s + b2)
-// The _rn intrinsics keep nvcc from contracting the multiplies and adds into
-// fused multiply-adds that the reference does not have.
+// int4 (int4=True): the same over the unpacked weights (each nibble times its
+// group's shift, in [-56, 56], so the int32 sums stay exact); the packs are
+// w1_q4 (D / 2, I) with w1_sh (D / 128, I) and w2_q4 (I / 2, D) with w2_sh
+// (I / 128, D) (models/quantize.py::quantize_weight_int4). The _rn
+// intrinsics keep nvcc from contracting the multiplies and adds into fused
+// multiply-adds that the reference does not have.
 //
-// Bound on the H100: bytes. At decode row counts the step reads both int8
-// weight matrices (2 * 2432 * 9728 B = 47.3 MB per layer of the 1.5B model)
-// for 4 * rows integer operations per weight pair.
+// Bound on the H100: bytes. At decode row counts the step reads both weight
+// matrices (2 * 2432 * 9728 B = 47.3 MB per layer of the 1.5B model in int8,
+// 23.7 MB in int4) for 4 * rows integer operations per weight pair.
 //
-// Design: three launches, each spread over the whole card.
-//   1. ffn_i8_hidden_kernel, one block per (64 hidden columns, 16 rows):
-//      exact int32 GEMM1 (tile_matvec_i8, __dp4a), dequantization, bias and
-//      activation; the f32 hidden goes to an (S, I) scratch buffer.
-//   2. ffn_i8_tile_kernel, one block per (256 output columns, hidden tile,
-//      16 rows): loads its rows of one hidden tile, requantizes them per
-//      (row, tile) (every column group of the tile computes the same scales),
-//      runs the exact int32 GEMM2 over the tile for its four 64-column tiles
-//      and writes acc2 * hs_t to an f32 partial (tiles, S, D).
-//   3. ffn_i8_reduce_kernel adds the tiles' partials in tile order, which is
-//      the TPU kernel's order of accumulation, then applies w2_s and b2.
-// There are no float atomics, so a repeated call gives the same bits. Scratch
-// at 64 rows of the 1.5B model: 2.5 MB of hidden and 11.8 MB of partials.
+// Design (decode_gemm.cuh): two launches of swapped-operand int8 wgmma
+// products that read each weight from device memory once per row tile (16
+// rows up to 16, else 64), the weight tiles and the rows loaded by TMA into
+// a ring that a producer warpgroup keeps full:
+//   1. ffn_up_kernel: one block per 128 hidden columns and row tile, the
+//      whole K = D, x_q streamed beside each W1 tile. Epilogue in registers:
+//      dequantization, bias and activation, then each row's absmax over the
+//      lane's two columns, the warp (shuffles), the block (shared memory)
+//      and the bn / 128 blocks of the hidden tile, which form one
+//      thread-block cluster (distributed shared memory; a max is exact in
+//      any order). It writes hq (S, I) int8 and hs (S, I / bn) f32, 0.6 MB at
+//      64 rows of the 1.5B model, which stay in L2.
+//   2. ffn_down_kernel: one block per 128 output columns, row tile and part
+//      r of a K split over a cluster of `split` blocks, which takes the
+//      hidden tiles t = r, r + split, ...: a fresh int32 accumulator per tile
+//      over its bn / 128 chunks (hq streamed beside W2), then p_t =
+//      float(acc_t) * hs_t. In round rho the cluster holds the tiles
+//      rho * split .. rho * split + split - 1; after a cluster barrier block
+//      r adds, for the accumulator rows it owns, the blocks' p_t in rank
+//      order, which is tile order, to its running f32 sum, so every f32 add
+//      is the plain version's, in its order. The epilogue applies w2_s and
+//      b2. The producer issues, before each round's barriers, only the
+//      chunks whose stage the consumers free before them.
+// No float atomics: a repeated call gives the same bits. The host's plan
+// (ops/kernels/decode_plan.py::ffn_plan) gives the row tile, the split and
+// the ring's stages.
 
 namespace {
 
-constexpr int kRowsI8 = 16;   // rows per block of the int8 launches
-constexpr int kColTiles = 4;  // 64-column tiles per block of ffn_i8_tile_kernel
+template <bool kI4>
+__host__ __device__ constexpr uint32_t w_tile_bytes() { return kI4 ? kDgW4Bytes : kDgW8Bytes; }
 
-// tile_matvec_i8 over an int4-packed weight (models/quantize.py::
-// quantize_weight_int4): wq4 (k_total / 2, ldw) bytes, byte row 64 g + j
-// holding contraction rows 128 g + j (low nibble) and 128 g + j + 64 (high
-// nibble), and sh (k_total / 128, ldw) int8 shifts. Each nibble is
-// sign-extended and multiplied by its group's shift (1, 2, 4 or 8) before the
-// dot, so the values lie in [-56, 56] and the int32 sums are exact, as the
-// TPU kernel's int8 dot over the unpacked block. The warps split the byte
-// rows in runs of four, which stay inside one group: a lane packs the low
-// nibbles of four byte rows (contraction rows j..j+3 of the group) into one
-// __dp4a word and the high nibbles (rows j+64..j+67) into another.
-// k_total must be a multiple of 128. Ends synchronised.
-template <int RB>
-__device__ void tile_matvec_i4(const int8_t* xq, int ldx, const int8_t* __restrict__ wq4,
-                               int ldw, const int8_t* __restrict__ sh, int k_total, int col0,
-                               int ncols, int* red, int* out) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int rows_b = k_total / 2;
-  const int kper = (((rows_b + kWarps - 1) / kWarps) + 3) & ~3;
-  const int q0 = warp * kper;
-  const int q1 = min(rows_b, q0 + kper);
-  const int ja = col0 + lane;
-  const int jb = col0 + 32 + lane;
-  const bool va = ja < ncols;
-  const bool vb = jb < ncols;
-  int acc_a[RB], acc_b[RB];
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    acc_a[r] = 0;
-    acc_b[r] = 0;
-  }
-  for (int q = q0; q < q1; q += 4) {
-    const int g = q >> 6;
-    const int klo = g * 128 + (q & 63);
-    const int sa = va ? sh[(size_t)g * ldw + ja] : 0;
-    const int sb = vb ? sh[(size_t)g * ldw + jb] : 0;
-    int lo_a = 0, hi_a = 0, lo_b = 0, hi_b = 0;
-#pragma unroll
-    for (int qq = 0; qq < 4; ++qq) {
-      const int8_t* wr = wq4 + (size_t)(q + qq) * ldw;
-      const int pa = va ? wr[ja] : 0;
-      const int pb = vb ? wr[jb] : 0;
-      lo_a |= ((int4_nibble(pa, false) * sa) & 0xff) << (8 * qq);
-      hi_a |= ((int4_nibble(pa, true) * sa) & 0xff) << (8 * qq);
-      lo_b |= ((int4_nibble(pb, false) * sb) & 0xff) << (8 * qq);
-      hi_b |= ((int4_nibble(pb, true) * sb) & 0xff) << (8 * qq);
-    }
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int xlo = *reinterpret_cast<const int*>(xq + r * ldx + klo);
-      const int xhi = *reinterpret_cast<const int*>(xq + r * ldx + klo + 64);
-      acc_a[r] = __dp4a(xhi, hi_a, __dp4a(xlo, lo_a, acc_a[r]));
-      acc_b[r] = __dp4a(xhi, hi_b, __dp4a(xlo, lo_b, acc_b[r]));
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    red[(warp * RB + r) * kTileN + lane] = acc_a[r];
-    red[(warp * RB + r) * kTileN + 32 + lane] = acc_b[r];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < RB * kTileN; i += kBlock) {
-    int sum = 0;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) sum += red[wi * RB * kTileN + i];
-    out[i] = sum;
-  }
-  __syncthreads();
+// The operand kind of decode_gemm.cuh: int8 rows against an int8 or int4
+// weight.
+template <bool kI4>
+constexpr int kFfnKind = kI4 ? kDgI4 : kDgI8;
+
+// The largest cluster of ffn_up_kernel: the blocks of one hidden tile of up
+// to 16 * 128 columns.
+constexpr int kMaxUpCluster = 16;
+
+// ffn_up_kernel's shared memory beyond the ring: the consumer warps' row
+// maxima, the block's, and every cluster block's pushed to this one.
+constexpr size_t ffn_up_extra(int br) {
+  return (size_t)(kConsumers * 4 + 1 + kMaxUpCluster) * br * 4;
 }
 
-// kI4: W1 is int4-packed with its shifts w1sh (D / 128, I).
-template <bool kI4>
-__global__ void __launch_bounds__(kBlock) ffn_i8_hidden_kernel(
-    const int8_t* __restrict__ xq,   // (S, D)
+template <bool kI4, int BR>
+__global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
+    const __grid_constant__ CUtensorMap x_map,   // x_q (S, D): boxes of BR rows x 128
+    const __grid_constant__ CUtensorMap w_map,   // W1 (D, I); int4: packed (D / 2, I)
+    const __grid_constant__ CUtensorMap sh_map,  // int4: shifts (D / 128, I)
     const float* __restrict__ xs,    // (S, 1)
-    const int8_t* __restrict__ w1,   // (D, I), int4: (D / 2, I)
-    const int8_t* __restrict__ w1sh, // int4 only: (D / 128, I)
     const float* __restrict__ w1s,   // (1, I)
     const bf16* __restrict__ b1,     // (I,)
-    float* __restrict__ hidden,      // (S, I)
-    int rows, int d_model, int inter, int act) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  int* red = reinterpret_cast<int*>(smem_raw);                  // kWarps * kRowsI8 * kTileN
-  int* out = red + kWarps * kRowsI8 * kTileN;                   // kRowsI8 * kTileN
-  int8_t* x = reinterpret_cast<int8_t*>(out + kRowsI8 * kTileN);  // kRowsI8 * D
-  const int row0 = blockIdx.y * kRowsI8;
-  const int col0 = blockIdx.x * kTileN;
-  const int words = d_model / 4;
-  for (int i = threadIdx.x; i < kRowsI8 * words; i += kBlock) {
-    const int r = i / words;
-    const int k = i - r * words;
-    reinterpret_cast<int*>(x)[i] =
-        row0 + r < rows ? reinterpret_cast<const int*>(xq + (size_t)(row0 + r) * d_model)[k]
-                        : 0;
-  }
-  __syncthreads();
-  if constexpr (kI4)
-    tile_matvec_i4<kRowsI8>(x, d_model, w1, inter, w1sh, d_model, col0, inter, red, out);
-  else
-    tile_matvec_i8<kRowsI8>(x, d_model, w1, inter, d_model, col0, inter, red, out);
-  for (int i = threadIdx.x; i < kRowsI8 * kTileN; i += kBlock) {
-    const int r = i / kTileN;
-    const int j = col0 + (i - r * kTileN);
-    if (row0 + r >= rows || j >= inter) continue;
-    const float h = __fadd_rn(__fmul_rn(__fmul_rn((float)out[i], xs[row0 + r]), w1s[j]),
-                              to_f32(b1[j]));
-    hidden[(size_t)(row0 + r) * inter + j] = activate(h, act);
-  }
-}
+    int8_t* __restrict__ hq,         // (S, I)
+    float* __restrict__ hs,          // (S, I / bn)
+    int rows, int d_model, int inter, int bn, int act, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const uint32_t stage_bytes = BR * 128 + w_tile_bytes<kI4>();
+  float* wmax = reinterpret_cast<float*>(smem + (size_t)stages * stage_bytes);  // [8][BR]
+  float* cmax = wmax + kConsumers * 4 * BR;                                    // [BR]
+  float* allmax = cmax + BR;                                        // [kMaxUpCluster][BR]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(allmax + kMaxUpCluster * BR);
+  const DgRing ring{smem, bars, bars + stages, BR * 128, w_tile_bytes<kI4>(), stages};
+  const int cs = bn / kDgCols;   // the blocks of one hidden tile: one cluster
+  const int n0 = blockIdx.x * kDgCols;
+  const int m0 = blockIdx.y * BR;
+  const int chunks = (d_model + kDgKC - 1) / kDgKC;
+  const DgChunks ch{0, 1, chunks, 1};
+  dg_init(ring, 1);
+  cg::cluster_group cluster = cg::this_cluster();
 
-// kI4: W2 is int4-packed with its shifts w2sh (I / 128, D); bn is then a
-// multiple of 128, so each tile starts on a group boundary.
-template <bool kI4>
-__global__ void __launch_bounds__(kBlock) ffn_i8_tile_kernel(
-    const float* __restrict__ hidden,  // (S, I)
-    const int8_t* __restrict__ w2,     // (I, D), int4: (I / 2, D)
-    const int8_t* __restrict__ w2sh,   // int4 only: (I / 128, D)
-    float* __restrict__ partial,       // (tiles, S, D)
-    int rows, int d_model, int inter, int bn) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  int* red = reinterpret_cast<int*>(smem_raw);            // kWarps * kRowsI8 * kTileN
-  int* out = red + kWarps * kRowsI8 * kTileN;             // kRowsI8 * kTileN
-  float* hs = reinterpret_cast<float*>(out + kRowsI8 * kTileN);  // kRowsI8
-  float* hf = hs + kRowsI8;                               // kRowsI8 * bn
-  int8_t* hq = reinterpret_cast<int8_t*>(hf + kRowsI8 * bn);     // kRowsI8 * bn
-  const int tile = blockIdx.y;
-  const int k0 = tile * bn;
-  const int row0 = blockIdx.z * kRowsI8;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < kRowsI8 * bn; i += kBlock) {
-    const int r = i / bn;
-    const int k = i - r * bn;
-    hf[i] = row0 + r < rows ? hidden[(size_t)(row0 + r) * inter + k0 + k] : 0.f;
+  if (threadIdx.x >= kDgConsumerThreads) {
+    regs_dealloc<kDgProducerRegs>();
+    const DgWeight wt{nullptr, d_model, inter, 1};
+    const DgRows xrows{nullptr, rows, d_model, 1};
+    dg_produce<kFfnKind<kI4>>(ring, &w_map, &sh_map, &x_map, wt, xrows, ch, n0, m0, 0, chunks,
+                              threadIdx.x - kDgConsumerThreads);
+    if (cs > 1) {
+      __syncwarp();
+      cluster.sync();
+    }
+    return;
   }
-  __syncthreads();
-  // Requantize each row's tile: hs = max(absmax, 1e-8) * (1/127), a true
-  // division by hs (ffn_fused.py:81-83). Rows past S are zeros.
-  for (int r = warp; r < kRowsI8; r += kWarps) {
-    const float* v = hf + r * bn;
-    float m = 0.f;
-    for (int k = lane; k < bn; k += 32) m = fmaxf(m, fabsf(v[k]));
-    const float s = fmaxf(warp_max(m), 1e-8f) * (1.f / 127.f);
-    for (int k = lane; k < bn; k += 32) hq[r * bn + k] = quant_level(__fdiv_rn(v[k], s));
-    if (lane == 0) hs[r] = s;
+  regs_alloc<kDgConsumerRegs>();
+  const DgLane L;
+  int acc[BR / 2];
+#pragma unroll
+  for (int i = 0; i < BR / 2; ++i) acc[i] = 0;
+  dg_consume<kFfnKind<kI4>, BR>(ring, L, 0, chunks, acc);
+
+  // h = act(acc * x_s * w1_s + b1) for columns c0, c0 + 1 (I is a multiple
+  // of 128), and each row's absmax: row slot 2 j + e is row 8 j + 2 (lane %
+  // 4) + e.
+  const int c0 = n0 + L.col;
+  const float ws[2] = {w1s[c0], w1s[c0 + 1]};
+  const float bb[2] = {to_f32(b1[c0]), to_f32(b1[c0 + 1])};
+  float h[BR / 2], m[BR / 4];
+#pragma unroll
+  for (int i = 0; i < BR / 4; ++i) m[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BR / 2; ++i) {
+    const int row = m0 + L.row(i);
+    const float x_s = row < rows ? xs[row] : 0.f;
+    const int e = (i & 3) >> 1;
+    h[i] = activate(
+        __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[i]), x_s), ws[e]), bb[e]), act);
+    const int slot = 2 * (i / 4) + (i & 1);
+    m[slot] = fmaxf(m[slot], fabsf(h[i]));
   }
-  __syncthreads();
-  // The requantized tile serves kColTiles column tiles of the output.
-  float* dst = partial + (size_t)tile * rows * d_model;
-  for (int ct = 0; ct < kColTiles; ++ct) {
-    const int col0 = (blockIdx.x * kColTiles + ct) * kTileN;
-    if (col0 >= d_model) break;
-    if constexpr (kI4)
-      tile_matvec_i4<kRowsI8>(hq, bn, w2 + (size_t)(k0 / 2) * d_model, d_model,
-                              w2sh + (size_t)(k0 / 128) * d_model, bn, col0, d_model, red, out);
-    else
-      tile_matvec_i8<kRowsI8>(hq, bn, w2 + (size_t)k0 * d_model, d_model, bn, col0, d_model,
-                              red, out);
-    for (int i = threadIdx.x; i < kRowsI8 * kTileN; i += kBlock) {
-      const int r = i / kTileN;
-      const int j = col0 + (i - r * kTileN);
-      if (row0 + r >= rows || j >= d_model) continue;
-      dst[(size_t)(row0 + r) * d_model + j] = __fmul_rn((float)out[i], hs[r]);
+#pragma unroll
+  for (int i = 0; i < BR / 4; ++i) {
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 4));
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 8));
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 16));
+  }
+  if (L.lane < 4) {
+#pragma unroll
+    for (int i = 0; i < BR / 4; ++i)
+      wmax[(L.tid / 32) * BR + 8 * (i / 2) + 2 * L.lane + (i & 1)] = m[i];
+  }
+  named_sync(1, kDgConsumerThreads);
+  // The block's row maxima, pushed to every block of the cluster (remote
+  // stores), then maxed over the cluster locally.
+  const int rank = (n0 % bn) / kDgCols;
+  for (int r = L.tid; r < BR; r += kDgConsumerThreads) {
+    float v = 0.f;
+    for (int w = 0; w < kConsumers * 4; ++w) v = fmaxf(v, wmax[w * BR + r]);
+    if (cs == 1) allmax[r] = v;
+    for (int q = 0; q < cs && cs > 1; ++q) *cluster.map_shared_rank(allmax + rank * BR + r, q) = v;
+  }
+  if (cs > 1)
+    cluster.sync();
+  else
+    named_sync(1, kDgConsumerThreads);
+  for (int r = L.tid; r < BR; r += kDgConsumerThreads) {
+    float v = 0.f;
+    for (int q = 0; q < cs; ++q) v = fmaxf(v, allmax[q * BR + r]);
+    cmax[r] = v;
+  }
+  named_sync(1, kDgConsumerThreads);
+  float sc[BR / 4];
+#pragma unroll
+  for (int i = 0; i < BR / 4; ++i)
+    sc[i] = fmaxf(cmax[8 * (i / 2) + 2 * (L.lane & 3) + (i & 1)], 1e-8f) * (1.f / 127.f);
+
+  // hq = rint(h / hs), a true division; hs by the tile's first block.
+  const int tiles = inter / bn;
+  const bool first = n0 % bn == 0;
+#pragma unroll
+  for (int j = 0; j < BR / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = m0 + 8 * j + 2 * (L.lane & 3) + e;
+      if (row >= rows) continue;
+      const float s = sc[2 * j + e];
+      const int q0 = quant_level(__fdiv_rn(h[4 * j + e], s));
+      const int q1 = quant_level(__fdiv_rn(h[4 * j + e + 2], s));
+      *reinterpret_cast<uint16_t*>(hq + (size_t)row * inter + c0) =
+          (uint16_t)((q0 & 0xff) | ((q1 & 0xff) << 8));
+      if (first && L.col == 0) hs[(size_t)row * tiles + n0 / bn] = s;
     }
   }
 }
 
-__global__ void __launch_bounds__(kBlock) ffn_i8_reduce_kernel(
-    const float* __restrict__ partial,  // (tiles, S, D)
-    const float* __restrict__ w2s,      // (1, D)
-    const bf16* __restrict__ b2,        // (D,)
-    bf16* __restrict__ out,             // (S, D)
-    int tiles, int rows, int d_model) {
-  const size_t n = (size_t)rows * d_model;
-  const size_t i = (size_t)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
-  float acc = 0.f;
-  for (int t = 0; t < tiles; ++t) acc = __fadd_rn(acc, partial[(size_t)t * n + i]);
-  const int col = (int)(i % d_model);
-  out[i] = __float2bfloat16(__fadd_rn(__fmul_rn(acc, w2s[col]), to_f32(b2[col])));
+template <bool kI4, int BR>
+__global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
+    const __grid_constant__ CUtensorMap x_map,   // hq (S, I): boxes of BR rows x 128
+    const __grid_constant__ CUtensorMap w_map,   // W2 (I, D); int4: packed (I / 2, D)
+    const __grid_constant__ CUtensorMap sh_map,  // int4: shifts (I / 128, D)
+    const float* __restrict__ hs,    // (S, I / bn)
+    const float* __restrict__ w2s,   // (1, D)
+    const bf16* __restrict__ b2,     // (D,)
+    bf16* __restrict__ out,          // (S, D)
+    int rows, int d_model, int inter, int bn, int split, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const uint32_t stage_bytes = BR * 128 + w_tile_bytes<kI4>();
+  float* part = reinterpret_cast<float*>(smem + (size_t)stages * stage_bytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)stages * stage_bytes +
+                                               dg_part_bytes(BR, split));
+  const DgRing ring{smem, bars, bars + stages, BR * 128, w_tile_bytes<kI4>(), stages};
+  const int tiles = inter / bn, per = bn / kDgKC;
+  const int rank = blockIdx.x % split;
+  const int n0 = (blockIdx.x / split) * kDgCols;
+  const int m0 = blockIdx.y * BR;
+  const int rounds = (tiles + split - 1) / split;
+  const DgChunks ch{rank, split, (tiles - rank + split - 1) / split, per};
+  dg_init(ring, 1);
+  cg::cluster_group cluster = cg::this_cluster();
+
+  if (threadIdx.x >= kDgConsumerThreads) {
+    regs_dealloc<kDgProducerRegs>();
+    const int ptid = threadIdx.x - kDgConsumerThreads;
+    const DgWeight wt{nullptr, inter, d_model, 1};
+    const DgRows hrows{nullptr, rows, inter, 1};
+    int issued = 0;
+    for (int rho = 0; rho < rounds; ++rho) {
+      // The chunks whose stage the consumers free before this round's
+      // barriers (chunk i waits for chunk i - stages).
+      const int upto = min(ch.count(), (rho + 1) * per + stages);
+      dg_produce<kFfnKind<kI4>>(ring, &w_map, &sh_map, &x_map, wt, hrows, ch, n0, m0, issued,
+                                upto, ptid);
+      issued = upto;
+      if (split > 1) {
+        __syncwarp();
+        cluster.sync();
+        cluster.sync();
+      }
+    }
+    return;
+  }
+  regs_alloc<kDgConsumerRegs>();
+  const DgLane L;
+  const uint32_t mine = dg_owned_mask(rank, split, BR / 8);
+  float sum[BR / 2];
+#pragma unroll
+  for (int i = 0; i < BR / 2; ++i) sum[i] = 0.f;
+  for (int rho = 0; rho < rounds; ++rho) {
+    const int t = rho * split + rank;
+    if (t < tiles) {
+      float hv[BR / 4];   // the rows' hs_t, loaded while the tile's products run
+#pragma unroll
+      for (int i = 0; i < BR / 4; ++i) {
+        const int row = m0 + 8 * (i / 2) + 2 * (L.lane & 3) + (i & 1);
+        hv[i] = row < rows ? hs[(size_t)row * tiles + t] : 0.f;
+      }
+      int acc[BR / 2];
+#pragma unroll
+      for (int i = 0; i < BR / 2; ++i) acc[i] = 0;
+      dg_consume<kFfnKind<kI4>, BR>(ring, L, rho * per, (rho + 1) * per, acc);
+      float p[BR / 2];
+#pragma unroll
+      for (int i = 0; i < BR / 2; ++i) {
+        p[i] = __fmul_rn(__int2float_rn(acc[i]), hv[2 * (i / 4) + (i & 1)]);
+        if (split == 1) sum[i] = __fadd_rn(sum[i], p[i]);
+      }
+      if (split > 1) dg_push<BR>(p, part, L, rank, split, cluster);
+    }
+    if (split > 1) {
+      cluster.sync();   // every block's p of this round is in its owner's slots
+      dg_add_slots<BR>(sum, part, L, mine, split, min(split, tiles - rho * split));
+      cluster.sync();   // and read: the next round may overwrite them
+    }
+  }
+  // out = bf16(acc * w2_s + b2) for columns c0, c0 + 1 (D is even).
+  const int c0 = n0 + L.col;
+  if (c0 >= d_model) return;
+  const float ws0 = w2s[c0], ws1 = w2s[c0 + 1];
+  const float b0 = to_f32(b2[c0]), b1v = to_f32(b2[c0 + 1]);
+#pragma unroll
+  for (int j = 0; j < BR / 8; ++j) {
+    if (!((mine >> j) & 1)) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = m0 + 8 * j + 2 * (L.lane & 3) + e;
+      if (row >= rows) continue;
+      const bf16 o0 = __float2bfloat16(__fadd_rn(__fmul_rn(sum[4 * j + e], ws0), b0));
+      const bf16 o1 = __float2bfloat16(__fadd_rn(__fmul_rn(sum[4 * j + e + 2], ws1), b1v));
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * d_model + c0) =
+          __halves2bfloat162(o0, o1);
+    }
+  }
 }
 
-}  // namespace
+// The two launches of the int8 (kI4 false) or int4 layout at a row tile of
+// BR rows; `split`, `st_up` and `st_down` are the host's plan.
+template <bool kI4, int BR>
+int ffn_quant_run(const void* xq, const void* xs, const void* w1, const void* w1sh,
+                  const void* w1s, const void* b1, const void* w2, const void* w2sh,
+                  const void* w2s, const void* b2, void* out, void* hq, void* hs, int rows,
+                  int d_model, int inter, int bn, int act, int split, int st_up, int st_down,
+                  cudaStream_t s) {
+  const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUtensorMap xm, w1m, s1m, hqm, w2m, s2m;
+  memset(&s1m, 0, sizeof(s1m));   // unused by the int8 layout
+  memset(&s2m, 0, sizeof(s2m));
+  const int wrows = kI4 ? kDgKC / 2 : kDgKC;   // weight rows a chunk
+  int err = make_map_2d(&xm, xq, u8, 1, d_model, rows, 128, BR);
+  if (err == 0) err = make_map_2d(&w1m, w1, u8, 1, inter, kI4 ? d_model / 2 : d_model, 128, wrows);
+  if (err == 0) err = make_map_2d(&hqm, hq, u8, 1, inter, rows, 128, BR);
+  if (err == 0) err = make_map_2d(&w2m, w2, u8, 1, d_model, kI4 ? inter / 2 : inter, 128, wrows);
+  if (kI4 && err == 0)
+    err = make_map_2d(&s1m, w1sh, u8, 1, inter, d_model / kDgKC, 128, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (kI4 && err == 0)
+    err = make_map_2d(&s2m, w2sh, u8, 1, d_model, inter / kDgKC, 128, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  const uint32_t stage = BR * 128 + w_tile_bytes<kI4>();
+  const int row_tiles = (rows + BR - 1) / BR;
+  err = dg_launch(ffn_up_kernel<kI4, BR>, dim3(inter / kDgCols, row_tiles), dim3(kThreads),
+                  bn / kDgCols, dg_smem_bytes(BR, st_up, stage, 1, ffn_up_extra(BR)), s,
+                  xm, w1m, s1m,
+                  static_cast<const float*>(xs), static_cast<const float*>(w1s),
+                  static_cast<const bf16*>(b1), static_cast<int8_t*>(hq),
+                  static_cast<float*>(hs), rows, d_model, inter, bn, act, st_up);
+  if (err != 0) return err;
+  err = dg_launch(ffn_down_kernel<kI4, BR>,
+                  dim3(((d_model + kDgCols - 1) / kDgCols) * split, row_tiles), dim3(kThreads),
+                  split, dg_smem_bytes(BR, st_down, stage, split, 0), s, hqm, w2m, s2m,
+                  static_cast<const float*>(hs), static_cast<const float*>(w2s),
+                  static_cast<const bf16*>(b2), static_cast<bf16*>(out), rows, d_model, inter,
+                  bn, split, st_down);
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
+}
 
-namespace {
-
-// The three launches of the int8 (kI4 false) or int4 layout.
 template <bool kI4>
-cudaError_t ffn_quant_launch(const void* xq, const void* xs, const void* w1q, const void* w1sh,
-                             const void* w1s, const void* b1, const void* w2q,
-                             const void* w2sh, const void* w2s, const void* b2, void* out,
-                             void* hidden, void* partial, int rows, int d_model, int inter,
-                             int bn, int act, cudaStream_t s) {
-  const int tiles = inter / bn;
-  const int row_tiles = (rows + kRowsI8 - 1) / kRowsI8;
-  const size_t mat = (size_t)(kWarps + 1) * kRowsI8 * kTileN * sizeof(int);
-  const size_t smem_hidden = mat + (size_t)kRowsI8 * d_model;
-  const size_t smem_tile = mat + kRowsI8 * sizeof(float) + (size_t)kRowsI8 * bn * 5;
-  cudaError_t err = allow_smem(ffn_i8_hidden_kernel<kI4>, smem_hidden);
-  if (err == cudaSuccess) err = allow_smem(ffn_i8_tile_kernel<kI4>, smem_tile);
-  if (err != cudaSuccess) return err;
-  ffn_i8_hidden_kernel<kI4><<<dim3((inter + kTileN - 1) / kTileN, row_tiles), kBlock,
-                              smem_hidden, s>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-      static_cast<const int8_t*>(w1q), static_cast<const int8_t*>(w1sh),
-      static_cast<const float*>(w1s), static_cast<const bf16*>(b1),
-      static_cast<float*>(hidden), rows, d_model, inter, act);
-  const int col_groups = (d_model + kColTiles * kTileN - 1) / (kColTiles * kTileN);
-  ffn_i8_tile_kernel<kI4><<<dim3(col_groups, tiles, row_tiles), kBlock, smem_tile, s>>>(
-      static_cast<const float*>(hidden), static_cast<const int8_t*>(w2q),
-      static_cast<const int8_t*>(w2sh), static_cast<float*>(partial), rows, d_model, inter,
-      bn);
-  const size_t n = (size_t)rows * d_model;
-  ffn_i8_reduce_kernel<<<(unsigned)((n + kBlock - 1) / kBlock), kBlock, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<const float*>(w2s),
-      static_cast<const bf16*>(b2), static_cast<bf16*>(out), tiles, rows, d_model);
-  return cudaGetLastError();
+int ffn_quant_dispatch(const void* xq, const void* xs, const void* w1, const void* w1sh,
+                       const void* w1s, const void* b1, const void* w2, const void* w2sh,
+                       const void* w2s, const void* b2, void* out, void* hq, void* hs, int rows,
+                       int d_model, int inter, int bn, int act, int row_tile, int split,
+                       int st_up, int st_down, void* stream) {
+  if (rows <= 0 || d_model <= 0 || d_model % (kI4 ? kDgKC : 16) != 0 || bn <= 0 ||
+      bn % kDgKC != 0 || bn > 16 * kDgKC || inter % bn != 0 || split < 1 || split > 8 ||
+      split > inter / bn || st_up < 1 || st_down < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (row_tile == 16)
+    return ffn_quant_run<kI4, 16>(xq, xs, w1, w1sh, w1s, b1, w2, w2sh, w2s, b2, out, hq, hs,
+                                  rows, d_model, inter, bn, act, split, st_up, st_down, s);
+  if (row_tile == 64)
+    return ffn_quant_run<kI4, 64>(xq, xs, w1, w1sh, w1s, b1, w2, w2sh, w2s, b2, out, hq, hs,
+                                  rows, d_model, inter, bn, act, split, st_up, st_down, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Whole int8 FFN for S rows: x_q (S, D) int8 with x_s (S, 1) f32, W1_q
 // (D, I) int8 with w1_s (1, I) f32, W2_q (I, D) int8 with w2_s (1, D) f32,
-// bf16 biases, bf16 output. D must be a multiple of 4 and bn a multiple of 4
-// dividing I. `hidden` (S, I) and `partial` (I / bn, S, D) are f32 scratch
-// the caller allocates. act: 1 relu, 2 silu, else exact GELU. Returns
-// cudaGetLastError().
+// bf16 biases, bf16 output. D a multiple of 16, bn a multiple of 128
+// dividing I, every tensor 16-byte aligned. hq (S, I) int8 and hs (S, I / bn)
+// f32 are scratch the caller allocates. act: 1 relu, 2 silu, else exact
+// GELU. row_tile (16 or 64), split and the two stage counts are the plan of
+// ops/kernels/decode_plan.py::ffn_plan. Returns cudaGetLastError(), or
+// cudaErrorInvalidResourceHandle if a tensor map cannot be made.
 extern "C" int apertis_ffn_decode_int8(const void* xq, const void* xs, const void* w1q,
                                        const void* w1s, const void* b1, const void* w2q,
-                                       const void* w2s, const void* b2, void* out,
-                                       void* hidden, void* partial, int rows, int d_model,
-                                       int inter, int bn, int act, void* stream) {
-  if (rows <= 0 || d_model % 4 != 0 || bn <= 0 || bn % 4 != 0 || inter % bn != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(ffn_quant_launch<false>(
-      xq, xs, w1q, nullptr, w1s, b1, w2q, nullptr, w2s, b2, out, hidden, partial, rows,
-      d_model, inter, bn, act, static_cast<cudaStream_t>(stream)));
+                                       const void* w2s, const void* b2, void* out, void* hq,
+                                       void* hs, int rows, int d_model, int inter, int bn,
+                                       int act, int row_tile, int split, int st_up,
+                                       int st_down, void* stream) {
+  return ffn_quant_dispatch<false>(xq, xs, w1q, nullptr, w1s, b1, w2q, nullptr, w2s, b2, out,
+                                   hq, hs, rows, d_model, inter, bn, act, row_tile, split,
+                                   st_up, st_down, stream);
 }
 
-// ---- int4 layout --------------------------------------------------------------
-//
-// Semantics (ffn_fused.py:42-99 with int4=True): the int8 layout's, with
-// W1_q and W2_q the unpacked int4 weights (values times their group's shift,
-// in [-56, 56]) and w1_s, w2_s the int4 base scales. The packs are
-// w1_q4 (D / 2, I) with w1_sh (D / 128, I) and w2_q4 (I / 2, D) with
-// w2_sh (I / 128, D) (models/quantize.py::quantize_weight_int4).
-//
-// Bound on the H100: bytes, half the int8 layout's weight bytes (24 MB per
-// layer of the 1.5B model, 0.007 ms at 3.35 TB/s).
-//
-// Design: the int8 layout's three launches, with tile_matvec_i4 unpacking
-// the nibbles on load in place of tile_matvec_i8. D and bn must be
-// multiples of 128, so every hidden tile of GEMM2 starts on a group.
+// The int4 layout: the int8 layout's arguments with the packs w1_q4
+// (D / 2, I), w2_q4 (I / 2, D) and their shifts w1_sh (D / 128, I), w2_sh
+// (I / 128, D) (powers of two 1 to 8) in place of W1_q and W2_q, and D a
+// multiple of 128.
 extern "C" int apertis_ffn_decode_int4(const void* xq, const void* xs, const void* w1q4,
                                        const void* w1sh, const void* w1s, const void* b1,
                                        const void* w2q4, const void* w2sh, const void* w2s,
-                                       const void* b2, void* out, void* hidden, void* partial,
-                                       int rows, int d_model, int inter, int bn, int act,
-                                       void* stream) {
-  if (rows <= 0 || d_model % 128 != 0 || bn <= 0 || bn % 128 != 0 || inter % bn != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(ffn_quant_launch<true>(
-      xq, xs, w1q4, w1sh, w1s, b1, w2q4, w2sh, w2s, b2, out, hidden, partial, rows, d_model,
-      inter, bn, act, static_cast<cudaStream_t>(stream)));
+                                       const void* b2, void* out, void* hq, void* hs, int rows,
+                                       int d_model, int inter, int bn, int act, int row_tile,
+                                       int split, int st_up, int st_down, void* stream) {
+  return ffn_quant_dispatch<true>(xq, xs, w1q4, w1sh, w1s, b1, w2q4, w2sh, w2s, b2, out, hq,
+                                  hs, rows, d_model, inter, bn, act, row_tile, split, st_up,
+                                  st_down, stream);
 }
+
+// The resources of one kernel of the int8 or int4 FFN (kernel: 0 up int8,
+// 1 down int8, 2 up int4, 3 down int4) at a row tile of `row_tile` rows and
+// `smem` bytes of dynamic shared memory (hopper.cuh::kernel_resources):
+// registers a thread, shared memory a block, resident blocks an SM, threads
+// a block and spilled bytes a thread, into out[0..4].
+extern "C" int apertis_ffn_quant_resources(int kernel, int row_tile, int smem, int* out) {
+  if (row_tile != 16 && row_tile != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const bool r16 = row_tile == 16;
+  switch (kernel) {
+    case 0: return kernel_resources(r16 ? &ffn_up_kernel<false, 16> : &ffn_up_kernel<false, 64>,
+                                    kThreads, smem, out);
+    case 1: return kernel_resources(r16 ? &ffn_down_kernel<false, 16> : &ffn_down_kernel<false, 64>,
+                                    kThreads, smem, out);
+    case 2: return kernel_resources(r16 ? &ffn_up_kernel<true, 16> : &ffn_up_kernel<true, 64>,
+                                    kThreads, smem, out);
+    case 3: return kernel_resources(r16 ? &ffn_down_kernel<true, 16> : &ffn_down_kernel<true, 64>,
+                                    kThreads, smem, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+

@@ -1,6 +1,8 @@
-// Hopper building blocks of the flash-attention and int8-weight GEMM
-// kernels: mbarriers, TMA tensor loads, wgmma shared-memory descriptors and
-// the flash kernels' wgmma products (bf16 and TF32) and online softmax, in
+// Hopper building blocks of the flash-attention, int8-weight GEMM and int8
+// decode kernels: mbarriers, TMA tensor loads, wgmma shared-memory
+// descriptors, the flash kernels' wgmma products (bf16 and TF32) and online
+// softmax, and the int8 and int4 weight fragments of the swapped-operand
+// products (an int8 (K, N) weight as wgmma's register A operand), in
 // inline PTX (sm_90a). Header-only, in an anonymous namespace like
 // common.cuh.
 //
@@ -292,12 +294,13 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int BH, int L, int 
 
 // A tensor map over a row-major (outer, inner) matrix of `elem_bytes`-byte
 // elements that loads boxes of box_outer rows x box_inner elements (128
-// bytes) in the 128-byte swizzle; rows and columns past the edges read as
-// zeros. The row stride, inner * elem_bytes, must be a multiple of 16 and the
+// bytes) in the 128-byte swizzle (or `swizzle`); rows and columns past the
+// edges read as zeros. The row stride, inner * elem_bytes, must be a multiple of 16 and the
 // base 16-byte aligned.
 inline int make_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
                        int elem_bytes, uint64_t inner, uint64_t outer, uint32_t box_inner,
-                       uint32_t box_outer) {
+                       uint32_t box_outer,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return kTensorMapError;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
@@ -305,7 +308,7 @@ inline int make_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType t
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult res = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kTensorMapError;
@@ -752,16 +755,403 @@ struct WgmmaTf32<128> {
   }
 };
 
+// ---- int8 weight fragments (the int8-weight GEMMs and the decode kernels) ----
+
+// 16 bytes of row `row` of a (rows, cols) int8 matrix with leading dimension
+// `ld`, from column `col`; zeros past the edges. `vec`: cols is a multiple of
+// 16 and the base 16-byte aligned, so a 16-byte load is in bounds and aligned;
+// otherwise 8- or 4-byte loads where the 16 bytes are in bounds and so
+// aligned, else byte loads.
+__device__ __forceinline__ int4 load16(const int8_t* __restrict__ base, int row, int col,
+                                       int rows, int cols, size_t ld, bool vec) {
+  if (row >= rows || col >= cols) return make_int4(0, 0, 0, 0);
+  const int8_t* src = base + (size_t)row * ld + col;
+  if (vec) return *reinterpret_cast<const int4*>(src);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
+  if (col + 16 <= cols && at % 8 == 0) {
+    const int2 a = reinterpret_cast<const int2*>(src)[0], b = reinterpret_cast<const int2*>(src)[1];
+    return make_int4(a.x, a.y, b.x, b.y);
+  }
+  if (col + 16 <= cols && at % 4 == 0) {
+    const int* p = reinterpret_cast<const int*>(src);
+    return make_int4(p[0], p[1], p[2], p[3]);
+  }
+  int w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (col + j < cols) w[j >> 2] |= (int)(uint8_t)src[j] << (8 * (j & 3));
+  return make_int4(w[0], w[1], w[2], w[3]);
+}
+
+// wgmma with A from registers and B K-major in shared memory (`b`, a
+// 128-byte-swizzle descriptor): #7 D (64 x N, s32) (+)= A (64 x 32, s8) B
+// (32 x N, s8); #6 D (64 x N, f32) (+)= A (64 x 16, bf16) B (16 x N, bf16).
+// `acc` = 0 overwrites D.
+template <bool W8A8, int N>
+struct QmMma;
+
+template <>
+struct QmMma<true, 16> {
+  static __device__ __forceinline__ void run(int (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct QmMma<true, 64> {
+  static __device__ __forceinline__ void run(int (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct QmMma<true, 128> {
+  static __device__ __forceinline__ void run(int (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct QmMma<true, 256> {
+  static __device__ __forceinline__ void run(int (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+          "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+          "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+          "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+          "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+          "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+          "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+          "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+          "+r"(d[126]), "+r"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct QmMma<false, 16> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct QmMma<false, 64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct QmMma<false, 128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct QmMma<false, 256> {
+  static __device__ __forceinline__ void run(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+__device__ __forceinline__ void acc_fence(int& v) { asm volatile("" : "+r"(v)::"memory"); }
+__device__ __forceinline__ void acc_fence(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+
+// Four transposed 8 x 8 matrices of 16-bit elements: lanes 8i..8i+7 give the
+// row addresses of matrix i, and lane l receives from matrix i the elements
+// (rows 2 (l % 4) and 2 (l % 4) + 1, column l / 4) as one register.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// Four int8 levels (bytes b0..b3) as bf16 pairs, exactly: lo = (b0, b2),
+// hi = (b1, b3). Each byte with its sign bit flipped (b + 128) becomes the
+// mantissa of 2^23; subtracting 2^23 + 128 leaves b.
+__device__ __forceinline__ void s8x4_to_bf16(uint32_t r, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = r ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)), 8388736.f);
+  lo = pack_bf16(f[0], f[2]);
+  hi = pack_bf16(f[1], f[3]);
+}
+
+// The A fragments of one K chunk for this warp's 16 weight columns, from
+// the stage's swizzled weight tile at shared address `w` (+ the lane's row
+// offset `off`, qm_frag_offset): a[kk] for k step kk = 0..3.
+template <bool W8A8>
+__device__ __forceinline__ void qm_frags(uint32_t w, uint32_t sel_even, uint32_t sel_odd,
+                                         uint32_t (&a)[4][4]) {
+  if constexpr (W8A8) {
+    // k32 step kk: matrices 0 and 1 give each lane k 4q..4q+3 (q = lane %
+    // 4) of columns 2g and 2g + 1 (g = lane / 4) as two k pairs; matrices 2
+    // and 3 the same 16 k on. The selectors put a column's four bytes in k
+    // order: a[0] row g (column 2g), a[1] row g + 8 (column 2g + 1), a[2]
+    // and a[3] the same at k + 16.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t r[4];
+      ldsm_x4_trans(w + kk * 32 * 128, r);
+      a[kk][0] = __byte_perm(r[0], r[1], sel_even);
+      a[kk][1] = __byte_perm(r[0], r[1], sel_odd);
+      a[kk][2] = __byte_perm(r[2], r[3], sel_even);
+      a[kk][3] = __byte_perm(r[2], r[3], sel_odd);
+    }
+  } else {
+    // Two k16 steps per ldmatrix.x4: matrix i holds k 8i..8i+7, a lane's
+    // register the k pair 2q, 2q + 1 of columns 2g and 2g + 1.
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t r[4];
+      ldsm_x4_trans(w + p * 32 * 128, r);
+      s8x4_to_bf16(r[0], a[2 * p][0], a[2 * p][1]);
+      s8x4_to_bf16(r[1], a[2 * p][2], a[2 * p][3]);
+      s8x4_to_bf16(r[2], a[2 * p + 1][0], a[2 * p + 1][1]);
+      s8x4_to_bf16(r[3], a[2 * p + 1][2], a[2 * p + 1][3]);
+    }
+  }
+}
+
+// Byte offset of the row this lane addresses in ldmatrix (matrix lane / 8,
+// row lane % 8), in column chunk `chunk` (16 bytes) of a swizzled tile of
+// 128-byte rows.
+template <bool W8A8>
+__device__ __forceinline__ uint32_t qm_frag_offset(int lane, int chunk) {
+  const int mat = lane >> 3, i = lane & 7;
+  const int row = W8A8 ? 16 * (mat >> 1) + 4 * (i >> 1) + (i & 1) + 2 * ((mat & 1) ^ (i >> 2))
+                       : 8 * mat + i;
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// The values of the four nibbles of packed int4 bytes: the low nibble of
+// each byte of `p` sign-extended ((n ^ 8) - 8 a byte, without borrows
+// between bytes) and shifted left by e, which is the value times 2^e; each
+// product lies in [-64, 56] and so stays exact in its byte. The high
+// nibbles are nibbles_lo(p >> 4, e).
+__device__ __forceinline__ uint32_t nibbles_lo(uint32_t p, int e) {
+  const uint32_t v = __vsub4((p & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+  return (v << e) & (0x01010101u * ((0xFFu << e) & 0xFFu));
+}
+
+// The exponent e of a group shift 2^e (1, 2, 4 or 8,
+// models/quantize.py::quantize_weight_int4).
+__device__ __forceinline__ int shift_exponent(int8_t s) { return max(__ffs((int)s) - 1, 0); }
+
+// The A fragments of one 128-row group of an int4 weight
+// (models/quantize.py's packing: byte row j of the group holds contraction
+// row j in its low nibble and row j + 64 in its high one) for this warp's
+// 16 weight columns: the packed tile's 64 byte rows are swizzled 128-byte
+// rows as an int8 tile's, so qm_frags' row choice and selectors give each
+// lane four consecutive byte rows of one column; their low nibbles are k
+// steps 0 and 1, their high nibbles k steps 2 and 3, each times the
+// column's group shift 2^e (e_even for column 2g, e_odd for 2g + 1).
+__device__ __forceinline__ void i4_frags(uint32_t w, uint32_t sel_even, uint32_t sel_odd,
+                                         int e_even, int e_odd, uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    uint32_t r[4];
+    ldsm_x4_trans(w + kk * 32 * 128, r);
+    const uint32_t p[4] = {__byte_perm(r[0], r[1], sel_even), __byte_perm(r[0], r[1], sel_odd),
+                           __byte_perm(r[2], r[3], sel_even), __byte_perm(r[2], r[3], sel_odd)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = (i & 1) ? e_odd : e_even;
+      a[kk][i] = nibbles_lo(p[i], e);
+      a[kk + 2][i] = nibbles_lo(p[i] >> 4, e);
+    }
+  }
+}
+
 // Registers per thread, shared memory per block (static and dynamic, bytes),
 // resident blocks per SM, threads per block and local (spill) bytes per
 // thread of a kernel launched with `threads` threads and `smem` bytes of
-// dynamic shared memory, into out[0..4]. Returns the CUDA error.
+// dynamic shared memory, into out[0..4]. Returns the CUDA error. The
+// kernel's dynamic shared memory limit is raised to `smem` where it is
+// lower, never lowered: a launcher may remember what it allowed
+// (decode_gemm.cuh::dg_allow).
 template <typename K>
 int kernel_resources(K kernel, int threads, size_t smem, int* out) {
   cudaFuncAttributes attr;
   int blocks = 0;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess && (size_t)attr.maxDynamicSharedSizeBytes < smem)
+    err = allow_smem(kernel, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

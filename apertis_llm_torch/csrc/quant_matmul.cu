@@ -68,7 +68,12 @@
 //   ldmatrix.trans are the fragment's own, and the int8 levels become bf16
 //   exactly in registers: a level's byte (sign flipped) is placed in the
 //   mantissa of 2^23, 2^23 + 128 is subtracted, and pairs are packed to bf16
-//   (as CUTLASS's mixed-input GEMMs feed a narrow operand).
+//   (as CUTLASS's mixed-input GEMMs feed a narrow operand). The fragment
+//   builders and the wgmma forms (qm_frags, qm_frag_offset, QmMma) live in
+//   hopper.cuh, and the ring, its producer, the consumers' loop and the
+//   split's exchange in decode_gemm.cuh, one copy shared with the int8
+//   decode kernels (ssm_step.cu, ffn_fused.cu); qm_kernel adds the tile
+//   walk and the epilogue.
 // - Loads: a producer warpgroup keeps a ring of stages full (3 to 8, as
 //   many as ~200 KB of shared memory holds), with full and empty mbarriers.
 //   One thread issues 2-d TMA loads of the x tile (BR rows x 128 bytes of K)
@@ -81,9 +86,12 @@
 //   producer gives its registers to the consumers (setmaxnreg 56 / 224).
 // - Consumers: per K chunk, wait for the stage, build the A fragments
 //   (4 ldmatrix.x4 for int8, 2 for bf16), issue 4 wgmma into the s32 or f32
-//   accumulators, wait for them and release the stage; the two warpgroups
-//   interleave on the tensor cores. There is no branch between a wgmma and
-//   its wait. (On the H100 at 2048 x 2432 x 9728 the kernel runs at 39 %
+//   accumulators and release the stage once they are done; at up to 64
+//   rows the next chunk's fragments are built while a chunk's products run
+//   (two commit groups in flight), at 128 and 256 rows (128 or 256
+//   accumulators a thread) each chunk's products are waited for before the
+//   next. The two warpgroups interleave on the tensor cores. There is no
+//   branch between a wgmma and its wait. (On the H100 at 2048 x 2432 x 9728 the kernel runs at 39 %
 //   of the int8 peak and draws about 4.6 TB/s of tiles from L2, where
 //   64-row tiles drew about 7; taking turns between the warpgroups, as the
 //   flash kernels do, was tried and changed no time, so neither L2 nor the
@@ -92,12 +100,12 @@
 //   column tile) items, row tiles fastest, so that the producer runs ahead
 //   into the next tile's loads during the epilogue. At decode rows, where
 //   there are too few column tiles for the SMs (N = 2432: 19), K is split
-//   over a thread-block cluster of up to 4 blocks: each writes its
-//   accumulators to its shared memory, and after a cluster barrier block r
-//   adds, for the accumulator columns j with j % split == r, the blocks'
-//   partials in rank order through distributed shared memory and stores
-//   them. No atomics: a repeated call gives the same bits. A split pays
-//   only while each block keeps 16 or more K chunks: on the H100 (700 W;
+//   over a thread-block cluster of up to 4 blocks: each pushes its
+//   accumulators of column block j to block j % split's shared memory
+//   (distributed shared memory), and after a cluster barrier that block
+//   adds them in rank order and stores them. No atomics: a repeated call
+//   gives the same bits. A split pays only while each block keeps 16 or
+//   more K chunks: on the H100 (700 W;
 //   `chip_smoke.py --qmm`) a split of the MHA QKV's 19 chunks (64 x 2432 x
 //   7296) in two took 0.0128 ms against 0.0101 unsplit, one of w2's 76 (64
 //   x 9728 x 2432) in four 0.0128 against 0.0234. The host chooses BR, the
@@ -126,9 +134,8 @@
 #include <mma.h>
 #include <string.h>
 
-#include <type_traits>
-
 #include "common.cuh"
+#include "decode_gemm.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -146,380 +153,28 @@ typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> FragC;
 
-// 16 bytes of row `row` of a (rows, cols) int8 matrix with leading dimension
-// `ld`, from column `col`; zeros past the edges. `vec`: cols is a multiple of
-// 16 and the base 16-byte aligned, so a 16-byte load is in bounds and aligned.
-__device__ __forceinline__ int4 load16(const int8_t* __restrict__ base, int row, int col,
-                                       int rows, int cols, size_t ld, bool vec) {
-  if (row >= rows || col >= cols) return make_int4(0, 0, 0, 0);
-  const int8_t* src = base + (size_t)row * ld + col;
-  if (vec) return *reinterpret_cast<const int4*>(src);
-  int w[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-    if (col + j < cols) w[j >> 2] |= (int)(uint8_t)src[j] << (8 * (j & 3));
-  return make_int4(w[0], w[1], w[2], w[3]);
-}
-
-// 8 bf16 of row `row` of a (rows, cols) bf16 matrix with leading dimension
-// `ld`, from column `col`; zeros past the edges. `vec`: cols is a multiple of
-// 8 and the base 16-byte aligned.
-__device__ __forceinline__ int4 load8_bf16(const bf16* __restrict__ base, int row, int col,
-                                           int rows, int cols, size_t ld, bool vec) {
-  if (row >= rows || col >= cols) return make_int4(0, 0, 0, 0);
-  const bf16* src = base + (size_t)row * ld + col;
-  if (vec) return *reinterpret_cast<const int4*>(src);
-  const uint16_t* h = reinterpret_cast<const uint16_t*>(src);
-  uint32_t w[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    if (col + j < cols) w[j >> 1] |= (uint32_t)h[j] << (16 * (j & 1));
-  return make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
-}
-
 // ---- #7 and #6 (bf16 x): the Hopper kernel ------------------------------------
 
-constexpr int kQmCols = kConsumers * 64;   // weight (output) columns a tile
-constexpr int kQmProducerRegs = 56;
-constexpr int kQmConsumerRegs = 224;
 constexpr int kQmMaxStages = 8;
-constexpr size_t kQmSmemBudget = 200 * 1024;   // the ring and the split-K partials
+constexpr size_t kQmSmemBudget = 200 * 1024;   // the ring and the split's slots
 
 // Shared memory of one ring stage: the x tile (BR rows of 128 bytes: 128
-// int8 or 64 bf16 values of K) and the weight tile (KC rows of K x 128 int8
-// columns), both whole 1024-byte swizzle atoms; with a split, the two
-// warpgroups' accumulators (BR / 2 registers x 128 threads each).
+// int8 or 64 bf16 values of K) and the weight tile (a chunk's K rows x 128
+// int8 columns), both whole 1024-byte swizzle atoms; with a split, the
+// slots of decode_gemm.cuh's exchange.
 template <bool W8A8, int BR>
 struct QmPlan {
-  static constexpr int kKC = W8A8 ? 128 : 64;          // K values a chunk
-  static constexpr uint32_t kXBytes = BR * 128;
-  static constexpr uint32_t kWBytes = kKC * 128;
-  static constexpr uint32_t kStage = kXBytes + kWBytes;
-  static constexpr uint32_t kPartial = kConsumers * (BR / 2) * 128 * 4;
+  typedef DgOp<W8A8 ? kDgI8 : kDgBf16> Op;
+  static constexpr uint32_t kStage = BR * 128 + Op::kWBytes;
   static int stages(int split) {
-    const size_t room = kQmSmemBudget - (split > 1 ? kPartial : 0);
+    const size_t room = kQmSmemBudget - dg_part_bytes(BR, split);
     return room / kStage < (size_t)kQmMaxStages ? (int)(room / kStage) : kQmMaxStages;
   }
   static size_t bytes(int stages, int split) {
-    return (size_t)stages * kStage + (split > 1 ? kPartial : 0) + 2 * stages * 8 + 1024;
+    return dg_smem_bytes(BR, stages, kStage, split, 0);
   }
 };
 
-// wgmma with A from registers and B K-major in shared memory (`b`, a
-// 128-byte-swizzle descriptor): #7 D (64 x N, s32) (+)= A (64 x 32, s8) B
-// (32 x N, s8); #6 D (64 x N, f32) (+)= A (64 x 16, bf16) B (16 x N, bf16).
-// `acc` = 0 overwrites D.
-template <bool W8A8, int N>
-struct QmMma;
-
-template <>
-struct QmMma<true, 16> {
-  static __device__ __forceinline__ void run(int (&d)[8], const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-          "+r"(d[6]), "+r"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <>
-struct QmMma<true, 64> {
-  static __device__ __forceinline__ void run(int (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-          "+r"(d[30]), "+r"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <>
-struct QmMma<true, 128> {
-  static __device__ __forceinline__ void run(int (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
-          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <>
-struct QmMma<true, 256> {
-  static __device__ __forceinline__ void run(int (&d)[128], const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, "
-        "%88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, "
-        "%104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, "
-        "%120, %121, %122, %123, %124, %125, %126, %127}, "
-        "{%128, %129, %130, %131}, %132, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
-          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
-          "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
-          "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
-          "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
-          "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
-          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
-          "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
-          "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
-          "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
-          "+r"(d[126]), "+r"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <>
-struct QmMma<false, 16> {
-  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <>
-struct QmMma<false, 64> {
-  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <>
-struct QmMma<false, 128> {
-  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <>
-struct QmMma<false, 256> {
-  static __device__ __forceinline__ void run(float (&d)[128], const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, "
-        "%88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, "
-        "%104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, "
-        "%120, %121, %122, %123, %124, %125, %126, %127}, "
-        "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-          "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-__device__ __forceinline__ void acc_fence(int& v) { asm volatile("" : "+r"(v)::"memory"); }
-__device__ __forceinline__ void acc_fence(float& v) { asm volatile("" : "+f"(v)::"memory"); }
-
-// Four transposed 8 x 8 matrices of 16-bit elements: lanes 8i..8i+7 give the
-// row addresses of matrix i, and lane l receives from matrix i the elements
-// (rows 2 (l % 4) and 2 (l % 4) + 1, column l / 4) as one register.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// Four int8 levels (bytes b0..b3) as bf16 pairs, exactly: lo = (b0, b2),
-// hi = (b1, b3). Each byte with its sign bit flipped (b + 128) becomes the
-// mantissa of 2^23; subtracting 2^23 + 128 leaves b.
-__device__ __forceinline__ void s8x4_to_bf16(uint32_t r, uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = r ^ 0x80808080u;
-  float f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)), 8388736.f);
-  lo = pack_bf16(f[0], f[2]);
-  hi = pack_bf16(f[1], f[3]);
-}
-
-// The A fragments of one K chunk for this warp's 16 weight columns, from
-// the stage's swizzled weight tile at shared address `w` (+ the lane's row
-// offset `off`, qm_frag_offset): a[kk] for k step kk = 0..3.
-template <bool W8A8>
-__device__ __forceinline__ void qm_frags(uint32_t w, uint32_t sel_even, uint32_t sel_odd,
-                                         uint32_t (&a)[4][4]) {
-  if constexpr (W8A8) {
-    // k32 step kk: matrices 0 and 1 give each lane k 4q..4q+3 (q = lane %
-    // 4) of columns 2g and 2g + 1 (g = lane / 4) as two k pairs; matrices 2
-    // and 3 the same 16 k on. The selectors put a column's four bytes in k
-    // order: a[0] row g (column 2g), a[1] row g + 8 (column 2g + 1), a[2]
-    // and a[3] the same at k + 16.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t r[4];
-      ldsm_x4_trans(w + kk * 32 * 128, r);
-      a[kk][0] = __byte_perm(r[0], r[1], sel_even);
-      a[kk][1] = __byte_perm(r[0], r[1], sel_odd);
-      a[kk][2] = __byte_perm(r[2], r[3], sel_even);
-      a[kk][3] = __byte_perm(r[2], r[3], sel_odd);
-    }
-  } else {
-    // Two k16 steps per ldmatrix.x4: matrix i holds k 8i..8i+7, a lane's
-    // register the k pair 2q, 2q + 1 of columns 2g and 2g + 1.
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      uint32_t r[4];
-      ldsm_x4_trans(w + p * 32 * 128, r);
-      s8x4_to_bf16(r[0], a[2 * p][0], a[2 * p][1]);
-      s8x4_to_bf16(r[1], a[2 * p][2], a[2 * p][3]);
-      s8x4_to_bf16(r[2], a[2 * p + 1][0], a[2 * p + 1][1]);
-      s8x4_to_bf16(r[3], a[2 * p + 1][2], a[2 * p + 1][3]);
-    }
-  }
-}
-
-// Byte offset of the row this lane addresses in ldmatrix (matrix lane / 8,
-// row lane % 8), in column chunk `chunk` (16 bytes) of a swizzled tile of
-// 128-byte rows.
-template <bool W8A8>
-__device__ __forceinline__ uint32_t qm_frag_offset(int lane, int chunk) {
-  const int mat = lane >> 3, i = lane & 7;
-  const int row = W8A8 ? 16 * (mat >> 1) + 4 * (i >> 1) + (i & 1) + 2 * ((mat & 1) ^ (i >> 2))
-                       : 8 * mat + i;
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
 
 // The epilogue of one thread: columns col and col + 1 of the output.
 struct QmEpilogue {
@@ -534,6 +189,26 @@ struct QmEpilogue {
   }
   __device__ __forceinline__ float value(float acc, int, float wsc) const {
     return __fmul_rn(acc, wsc);
+  }
+
+  // The tile's columns from n0: the column scales and the bias.
+  __device__ __forceinline__ void at(int c, const float* ws, const void* bias) {
+    col = c;
+    ws0 = col < n ? ws[col] : 0.f;
+    ws1 = col + 1 < n ? ws[col + 1] : 0.f;
+    b0 = b1 = 0.f;
+    if (has_b) {
+      if (out_bf16) {
+        const bf16* bb = static_cast<const bf16*>(bias);
+        if (col < n) b0 = __bfloat162float(bb[col]);
+        if (col + 1 < n) b1 = __bfloat162float(bb[col + 1]);
+      } else {
+        const float* bf = static_cast<const float*>(bias);
+        if (col < n) b0 = bf[col];
+        if (col + 1 < n) b1 = bf[col + 1];
+      }
+    }
+    pair = col + 1 < n && n % 2 == 0;
   }
 
   template <typename Acc>
@@ -579,186 +254,78 @@ __global__ void __launch_bounds__(kThreads, 1)
               void* __restrict__ out, int m, int n, int k, int out_bf16, int split, int tma_x,
               int tma_w, int stages) {
   typedef QmPlan<W8A8, BR> P;
-  typedef typename std::conditional<W8A8, int, float>::type Acc;
+  typedef typename P::Op::Acc Acc;
+  constexpr int kKind = W8A8 ? kDgI8 : kDgBf16;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  unsigned char* partial = smem + stages * P::kStage;
-  uint64_t* full = reinterpret_cast<uint64_t*>(partial + (split > 1 ? P::kPartial : 0));
-  uint64_t* empty = full + stages;
-  auto sx = [&](int s) { return smem + s * P::kStage; };
-  auto sw = [&](int s) { return smem + s * P::kStage + P::kXBytes; };
+  Acc* part = reinterpret_cast<Acc*>(smem + (size_t)stages * P::kStage);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)stages * P::kStage +
+                                               dg_part_bytes(BR, split));
+  const DgRing ring{smem, bars, bars + stages, BR * 128, P::Op::kWBytes, stages};
+  const DgRows rows{x, m, k, tma_x};
+  const DgWeight wt{wq, k, n, tma_w};
 
   const int tiles_m = (m + BR - 1) / BR;
-  const int tiles = tiles_m * ((n + kQmCols - 1) / kQmCols);
+  const int tiles = tiles_m * ((n + kDgCols - 1) / kDgCols);
   const int clusters = gridDim.x / split;
   const int cluster_id = blockIdx.x / split;
   const int rank = blockIdx.x % split;
-  const int chunks = (k + P::kKC - 1) / P::kKC;
+  const int chunks = (k + P::Op::kKC - 1) / P::Op::kKC;
   const int c_begin = rank * chunks / split;
-  const int c_end = (rank + 1) * chunks / split;
-  const bool manual = !(tma_x && tma_w);
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], (tma_x || tma_w ? 1 : 0) + (manual ? 128 : 0));
-      mbar_init(&empty[s], kConsumers * 4);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
+  const int nch = (rank + 1) * chunks / split - c_begin;
+  const DgChunks ch{c_begin, 1, nch, 1};
+  dg_init(ring, dg_full_count(rows, wt));
   cg::cluster_group cluster = cg::this_cluster();
 
-  const int wg = threadIdx.x / 128;
-  if (wg == kConsumers) {
-    // Producer warpgroup: thread 0 issues the TMA loads; all 128 threads
-    // stage an operand that TMA cannot load. Every thread takes part in the
-    // split's cluster barriers.
-    regs_dealloc<kQmProducerRegs>();
-    const int ptid = threadIdx.x - kConsumers * 128;
-    const uint32_t tx = (tma_x ? P::kXBytes : 0) + (tma_w ? P::kWBytes : 0);
-    const bool vec_x = (W8A8 ? k % 16 : k % 8) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    const bool vec_w = n % 16 == 0 && reinterpret_cast<uintptr_t>(wq) % 16 == 0;
-    int stage = 0, round = 0;
-    for (int t = cluster_id; t < tiles; t += clusters) {
-      const int m0 = (t % tiles_m) * BR;
-      const int n0 = (t / tiles_m) * kQmCols;
-      if (manual || ptid == 0) {
-        for (int c = c_begin; c < c_end; ++c) {
-          if (round > 0) mbar_wait(&empty[stage], (round - 1) & 1);
-          const int k0 = c * P::kKC;
-          if (ptid == 0 && tx != 0) {
-            mbar_arrive_tx(&full[stage], tx);
-            if (tma_x) tma_load_2d(sx(stage), &x_map, &full[stage], k0, m0);
-            if (tma_w) tma_load_2d(sw(stage), &w_map, &full[stage], n0, k0);
-          }
-          if (manual) {
-            // 16-byte units u: row u / 8, chunk u % 8, at the chunk's
-            // swizzled place in its 128-byte row.
-            if (!tma_x) {
-              unsigned char* dst = sx(stage);
-              for (int u = ptid; u < BR * 8; u += 128) {
-                const int r = u >> 3, ch = u & 7;
-                const int4 v =
-                    W8A8 ? load16(static_cast<const int8_t*>(x), m0 + r, k0 + 16 * ch, m, k,
-                                  (size_t)k, vec_x)
-                         : load8_bf16(static_cast<const bf16*>(x), m0 + r, k0 + 8 * ch, m, k,
-                                      (size_t)k, vec_x);
-                *reinterpret_cast<int4*>(dst + r * 128 + ((ch ^ (r & 7)) << 4)) = v;
-              }
-            }
-            if (!tma_w) {
-              unsigned char* dst = sw(stage);
-              for (int u = ptid; u < P::kKC * 8; u += 128) {
-                const int r = u >> 3, ch = u & 7;
-                const int4 v = load16(wq, k0 + r, n0 + 16 * ch, k, n, (size_t)n, vec_w);
-                *reinterpret_cast<int4*>(dst + r * 128 + ((ch ^ (r & 7)) << 4)) = v;
-              }
-            }
-            fence_proxy_async();
-            mbar_arrive(&full[stage]);
-          }
-          if (++stage == stages) {
-            stage = 0;
-            ++round;
-          }
-        }
-      }
+  if (threadIdx.x >= kDgConsumerThreads) {
+    // Producer warpgroup: it runs on round the ring into the next tile's
+    // loads while the consumers finish a tile; every thread takes part in
+    // the split's cluster barriers.
+    regs_dealloc<kDgProducerRegs>();
+    const int ptid = threadIdx.x - kDgConsumerThreads;
+    int pos = 0;
+    for (int t = cluster_id; t < tiles; t += clusters, pos += nch) {
+      dg_produce<kKind>(ring, &w_map, nullptr, &x_map, wt, rows, ch, (t / tiles_m) * kDgCols,
+                        (t % tiles_m) * BR, 0, nch, ptid, pos);
       if (split > 1) {
         __syncwarp();
-        cluster.sync();   // the partials are written
+        cluster.sync();   // the sums are pushed
         cluster.sync();   // and read
       }
     }
     return;
   }
-  regs_alloc<kQmConsumerRegs>();
-
-  // Consumers: warpgroup wg owns weight columns 64 wg .. 64 wg + 63 of each
-  // tile, warp w of it columns 16 w .. 16 w + 15, this lane columns col and
-  // col + 1 and the tile's rows 8 j + 2 (lane % 4) + {0, 1}.
-  const int tid = threadIdx.x % 128;
-  const int warp = tid / 32, lane = tid % 32;
-  const uint32_t frag_off = qm_frag_offset<W8A8>(lane, 4 * wg + warp);
-  const uint32_t sel_even = (lane & 3) < 2 ? 0x6420u : 0x2064u;
-  const uint32_t sel_odd = (lane & 3) < 2 ? 0x7531u : 0x3175u;
-  Acc* mine = reinterpret_cast<Acc*>(partial) + wg * (BR / 2) * 128 + tid;
-  Acc acc[BR / 2];
-  int stage = 0, round = 0;
-  for (int t = cluster_id; t < tiles; t += clusters) {
+  regs_alloc<kDgConsumerRegs>();
+  const DgLane L(W8A8);
+  const uint32_t mine = dg_owned_mask(rank, split, BR / 8);
+  int pos = 0;
+  for (int t = cluster_id; t < tiles; t += clusters, pos += nch) {
     const int m0 = (t % tiles_m) * BR;
-    const int n0 = (t / tiles_m) * kQmCols;
+    Acc acc[BR / 2];
 #pragma unroll
     for (int i = 0; i < BR / 2; ++i) acc[i] = 0;
-    for (int c = c_begin; c < c_end; ++c) {
-      mbar_wait(&full[stage], round & 1);
-      uint32_t a[4][4];
-      qm_frags<W8A8>(smem_u32(sw(stage)) + frag_off, sel_even, sel_odd, a);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        QmMma<W8A8, BR>::run(acc, a[kk], sw128_desc(sx(stage) + 32 * kk, 16, 1024), 1);
-      wg_commit();
-      wg_wait<0>();
-#pragma unroll
-      for (int i = 0; i < BR / 2; ++i) acc_fence(acc[i]);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[stage]);
-      if (++stage == stages) {
-        stage = 0;
-        ++round;
-      }
-    }
-
+    dg_consume<kKind, BR>(ring, L, pos, pos + nch, acc);
+    // Split K: accumulator column block j is summed, in rank order, and
+    // stored by block j % split of the cluster.
+    if (split > 1) dg_split_sum<BR>(acc, part, L, rank, split, mine, cluster);
+    // The epilogue's state is made here, from the parameters, so that
+    // nothing of it stays in registers through the products.
     QmEpilogue epi;
     epi.out = out;
     epi.xs = xs;
     epi.m = m;
     epi.n = n;
-    epi.col = n0 + 64 * wg + 16 * warp + 2 * (lane >> 2);
-    epi.ws0 = epi.col < n ? ws[epi.col] : 0.f;
-    epi.ws1 = epi.col + 1 < n ? ws[epi.col + 1] : 0.f;
     epi.has_b = bias != nullptr;
     epi.out_bf16 = out_bf16 != 0;
-    epi.b0 = epi.b1 = 0.f;
-    if (epi.has_b) {
-      if (epi.out_bf16) {
-        const bf16* bb = static_cast<const bf16*>(bias);
-        if (epi.col < n) epi.b0 = __bfloat162float(bb[epi.col]);
-        if (epi.col + 1 < n) epi.b1 = __bfloat162float(bb[epi.col + 1]);
-      } else {
-        const float* bf = static_cast<const float*>(bias);
-        if (epi.col < n) epi.b0 = bf[epi.col];
-        if (epi.col + 1 < n) epi.b1 = bf[epi.col + 1];
-      }
+    epi.at((t / tiles_m) * kDgCols + L.col, ws, bias);
+    const int row0 = m0 + 2 * (L.lane & 3);
+#pragma unroll
+    for (int j = 0; j < BR / 8; ++j) {
+      if (!((mine >> j) & 1)) continue;
+      epi.put(row0 + 8 * j, acc[4 * j], acc[4 * j + 2]);
+      epi.put(row0 + 8 * j + 1, acc[4 * j + 1], acc[4 * j + 3]);
     }
-    epi.pair = epi.col + 1 < n && n % 2 == 0;
-    const int row0 = m0 + 2 * (lane & 3);
-    if (split == 1) {
-#pragma unroll
-      for (int j = 0; j < BR / 8; ++j) {
-        epi.put(row0 + 8 * j, acc[4 * j], acc[4 * j + 2]);
-        epi.put(row0 + 8 * j + 1, acc[4 * j + 1], acc[4 * j + 3]);
-      }
-    } else {
-      // Split K: accumulator column block j is summed and stored by block
-      // j % split of the cluster, the partials added in rank order.
-#pragma unroll
-      for (int i = 0; i < BR / 2; ++i) mine[i * 128] = acc[i];
-      cluster.sync();
-#pragma unroll
-      for (int j = 0; j < BR / 8; ++j) {
-        if (j % split != rank) continue;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          Acc s = 0;
-          for (int r = 0; r < split; ++r) s += *cluster.map_shared_rank(mine + (4 * j + e) * 128, r);
-          acc[4 * j + e] = s;
-        }
-        epi.put(row0 + 8 * j, acc[4 * j], acc[4 * j + 2]);
-        epi.put(row0 + 8 * j + 1, acc[4 * j + 1], acc[4 * j + 3]);
-      }
-      cluster.sync();   // no block reuses or leaves its partials while they are read
-    }
+    if (split > 1) cluster.sync();   // no block pushes again until its sums are read
   }
 }
 
@@ -774,38 +341,23 @@ int qm_launch(const void* x, const void* xs, const void* wq, const void* ws, con
   if (tma_x)
     err = make_map_2d(&x_map, x,
                       W8A8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      W8A8 ? 1 : 2, (uint64_t)k, (uint64_t)m, P::kKC, BR);
+                      W8A8 ? 1 : 2, (uint64_t)k, (uint64_t)m, P::Op::kKC, BR);
   if (err == 0 && tma_w)
     err = make_map_2d(&w_map, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, (uint64_t)n, (uint64_t)k,
-                      kQmCols, P::kKC);
+                      kDgCols, P::Op::kKC);
   if (err != 0) return err;
   const int stages = P::stages(split);
-  const size_t smem = P::bytes(stages, split);
-  cudaError_t cerr = allow_smem(qm_kernel<W8A8, BR>, smem);
-  if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const long long tiles =
-      (long long)((m + BR - 1) / BR) * ((n + kQmCols - 1) / kQmCols);
+      (long long)((m + BR - 1) / BR) * ((n + kDgCols - 1) / kDgCols);
   const int fit = persistent_grid(tiles * split);
   if (fit <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   const int clusters = fit / split > 0 ? fit / split : 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * split);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = split > 1 ? 1 : 0;   // a cluster only where K is split
-  cerr = cudaLaunchKernelEx(&cfg, qm_kernel<W8A8, BR>, x_map, w_map, x,
-                            static_cast<const float*>(xs), static_cast<const int8_t*>(wq),
-                            static_cast<const float*>(ws), bias, out, m, n, k, out_bf16, split,
-                            tma_x, tma_w, stages);
-  if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  return static_cast<int>(cudaGetLastError());
+  err = dg_launch(qm_kernel<W8A8, BR>, dim3(clusters * split), dim3(kThreads), split,
+                  P::bytes(stages, split), stream, x_map, w_map, x,
+                  static_cast<const float*>(xs), static_cast<const int8_t*>(wq),
+                  static_cast<const float*>(ws), bias, out, m, n, k, out_bf16, split, tma_x,
+                  tma_w, stages);
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }
 
 // The host's tile plan: BR (rows) 16, 64, 128 or 256; split 1 to 4, and

@@ -6,23 +6,28 @@ slices of a group across a thread-block cluster, then a small reduce of the
 group partials) for CUDA tensors and runs :func:`ffn_decode_reference`, its
 plain PyTorch version, for CPU tensors. It replaces
 ``apertis_llm_tpu/ops/pallas/ffn_fused.py::ffn_decode_fused`` with the bf16
-weight layout, with the int8 layout through :func:`ffn_decode_int8`
-(three launches: the int8 GEMM1 with its epilogue, the per-tile
-requantization and int8 GEMM2, and a fixed-order reduce), and with the int4
-layout through :func:`ffn_decode_int4` (the same three launches over
-nibble-packed weights, unpacked as they are loaded).
+weight layout, with the int8 layout through :func:`ffn_decode_int8` and
+with the int4 layout through :func:`ffn_decode_int4`: two Hopper launches of
+swapped-operand int8 ``wgmma`` products that read each weight once per row
+tile (GEMM1 with the per-(row, hidden tile) requantization across a
+thread-block cluster, then GEMM2 whose K split over a cluster adds the
+tiles' products in tile order), on the plan of
+``ops/kernels/decode_plan.py::ffn_plan``; the int4 layout unpacks the
+nibbles into int8 fragments in registers.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from apertis_llm_torch.models.quantize import unpack_int4
 from apertis_llm_torch.ops.activations import get_activation
-from apertis_llm_torch.ops.kernels import _build
+from apertis_llm_torch.ops.kernels import _build, decode_plan
+from apertis_llm_torch.ops.kernels.flash_attention import RESOURCE_KEYS
 from apertis_llm_torch.ops.quant import int_mm
 
 _SLICE = 128       # I columns per block and output columns per chunk (csrc)
@@ -172,6 +177,40 @@ def ffn_decode(
     return out
 
 
+def quant_plan(x_q: torch.Tensor, d: int, inter: int, bits: int) -> decode_plan.FfnPlan:
+    """The plan of the int8 (bits 8) or int4 FFN for these rows on their card."""
+    s = x_q.shape[0]
+    return decode_plan.ffn_plan(s, d, inter, pick_block_n(inter), bits,
+                                _sm_count(x_q.device.index or 0))
+
+
+def _quant_scratch(x_q: torch.Tensor, inter: int, d: int):
+    """GEMM1's outputs, GEMM2's inputs: hq (S, I) int8 and hs (S, I / bn)
+    f32; and the (S, D) bf16 output."""
+    s, dev = x_q.shape[0], x_q.device
+    return (torch.empty((s, inter), dtype=torch.int8, device=dev),
+            torch.empty((s, inter // pick_block_n(inter)), dtype=torch.float32, device=dev),
+            torch.empty((s, d), dtype=torch.bfloat16, device=dev))
+
+
+def _plan_args(plan: decode_plan.FfnPlan) -> tuple:
+    """The plan as the C entry points take it."""
+    return plan.up.rows, plan.down.split, plan.up.stages, plan.down.stages
+
+
+def ffn_quant_resources(bits: int, kernel: str, plan: decode_plan.GemmPlan) -> Dict[str, int]:
+    """What the card gives the int8 (``bits`` 8) or int4 FFN's ``kernel``
+    ("up" or "down") at its plan: registers a thread, shared memory a block
+    in bytes, resident blocks an SM, threads a block and spilled bytes a
+    thread."""
+    code = {"up": 0, "down": 1}[kernel] + (2 if bits == 4 else 0)
+    out = (ctypes.c_int * len(RESOURCE_KEYS))()
+    err = _build.load_library().apertis_ffn_quant_resources(code, plan.rows, plan.smem,
+                                                            ctypes.addressof(out))
+    _build.check(err, "ffn_quant_resources")
+    return dict(zip(RESOURCE_KEYS, out))
+
+
 def ffn_decode_int8(
     x_q: torch.Tensor,
     x_s: torch.Tensor,
@@ -186,9 +225,10 @@ def ffn_decode_int8(
 ) -> torch.Tensor:
     """The int8 decode FFN: kernel on CUDA tensors, plain version on CPU ones.
 
-    The kernel takes contiguous int8 ``x_q`` (S, D) and weights, f32 scales
-    ``x_s`` (S, 1), ``w1_s`` (1, I), ``w2_s`` (1, D), bf16 biases, D a
-    multiple of 4 and I a multiple of 128, and returns bf16.
+    The kernel takes contiguous, 16-byte aligned int8 ``x_q`` (S, D) and
+    weights, f32 scales ``x_s`` (S, 1), ``w1_s`` (1, I), ``w2_s`` (1, D),
+    bf16 biases, D a multiple of 16 and I a multiple of 128, and returns
+    bf16.
     """
     if x_q.device.type == "cpu":
         return ffn_decode_int8_reference(x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2,
@@ -207,17 +247,15 @@ def ffn_decode_int8(
     _build.check_tensor(b2, (d,), bf16, "b2", dev)
     if out_dtype != torch.bfloat16:
         raise ValueError(f"ffn_decode_int8: out_dtype {out_dtype} not supported")
-    bn = pick_block_n(inter)
-    if s == 0 or d == 0 or d % 4 or bn == 0:
+    if s == 0 or d == 0 or d % 16 or pick_block_n(inter) == 0:
         raise ValueError(f"ffn_decode_int8: unsupported shape S={s} D={d} I={inter}")
-    hidden = torch.empty((s, inter), dtype=torch.float32, device=dev)
-    partial = torch.empty((inter // bn, s, d), dtype=torch.float32, device=dev)
-    out = torch.empty((s, d), dtype=torch.bfloat16, device=dev)
+    _build.check_aligned("ffn_decode_int8", x_q, w1_q, w2_q)
+    hq, hs, out = _quant_scratch(x_q, inter, d)
     err = _build.load_library().apertis_ffn_decode_int8(
         x_q.data_ptr(), x_s.data_ptr(), w1_q.data_ptr(), w1_s.data_ptr(), b1.data_ptr(),
-        w2_q.data_ptr(), w2_s.data_ptr(), b2.data_ptr(), out.data_ptr(), hidden.data_ptr(),
-        partial.data_ptr(), s, d, inter, bn, _ACT_CODES.get(hidden_act, 0),
-        torch.cuda.current_stream(dev).cuda_stream)
+        w2_q.data_ptr(), w2_s.data_ptr(), b2.data_ptr(), out.data_ptr(), hq.data_ptr(),
+        hs.data_ptr(), s, d, inter, pick_block_n(inter), _ACT_CODES.get(hidden_act, 0),
+        *_plan_args(quant_plan(x_q, d, inter, 8)), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ffn_decode_int8")
     ffn_decode_int8.launches += 1
     return out
@@ -239,9 +277,10 @@ def ffn_decode_int4(
 ) -> torch.Tensor:
     """The int4 decode FFN: kernel on CUDA tensors, plain version on CPU ones.
 
-    The kernel takes contiguous int8 ``x_q`` (S, D), the packs and shifts
-    of ``models/quantize.py::quantize_weight_int4``, f32 scales, bf16
-    biases, D and I multiples of 128, and returns bf16.
+    The kernel takes contiguous, 16-byte aligned int8 ``x_q`` (S, D), the
+    packs and shifts of ``models/quantize.py::quantize_weight_int4`` (shifts
+    1, 2, 4 or 8), f32 scales, bf16 biases, D and I multiples of 128, and
+    returns bf16.
     """
     if x_q.device.type == "cpu":
         return ffn_decode_int4_reference(x_q, x_s, w1_q4, w1_sh, w1_s, b1, w2_q4, w2_sh,
@@ -264,15 +303,14 @@ def ffn_decode_int4(
     _build.check_tensor(b2, (d,), bf16, "b2", dev)
     if out_dtype != torch.bfloat16:
         raise ValueError(f"ffn_decode_int4: out_dtype {out_dtype} not supported")
-    bn = pick_block_n(inter)
-    hidden = torch.empty((s, inter), dtype=torch.float32, device=dev)
-    partial = torch.empty((inter // bn, s, d), dtype=torch.float32, device=dev)
-    out = torch.empty((s, d), dtype=torch.bfloat16, device=dev)
+    _build.check_aligned("ffn_decode_int4", x_q, w1_q4, w1_sh, w2_q4, w2_sh)
+    hq, hs, out = _quant_scratch(x_q, inter, d)
     err = _build.load_library().apertis_ffn_decode_int4(
         x_q.data_ptr(), x_s.data_ptr(), w1_q4.data_ptr(), w1_sh.data_ptr(), w1_s.data_ptr(),
         b1.data_ptr(), w2_q4.data_ptr(), w2_sh.data_ptr(), w2_s.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), hidden.data_ptr(), partial.data_ptr(), s, d, inter, bn,
-        _ACT_CODES.get(hidden_act, 0), torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), hq.data_ptr(), hs.data_ptr(), s, d, inter, pick_block_n(inter),
+        _ACT_CODES.get(hidden_act, 0), *_plan_args(quant_plan(x_q, d, inter, 4)),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ffn_decode_int4")
     ffn_decode_int4.launches += 1
     return out

@@ -1,15 +1,20 @@
 """One decode step of the whole selective-SSM mixer.
 
-``ssm_decode_step`` launches the CUDA kernel in ``csrc/ssm_step.cu`` (three
-launches per layer) for CUDA tensors and runs
-:func:`ssm_decode_step_reference`, its plain PyTorch version, for CPU tensors.
+``ssm_decode_step`` launches the CUDA kernel in ``csrc/ssm_step.cu`` for
+CUDA tensors and runs :func:`ssm_decode_step_reference`, its plain PyTorch
+version, for CPU tensors.
 It replaces ``apertis_llm_tpu/ops/pallas/ssm_step.py::ssm_decode_step_fused``
 with ``ffn_mode`` "none", "dense" (``ffn_norm`` given) or "moe" (``ffn_norm``
 and ``router`` given) in both weight layouts, picked from the weights' dtype
 as the TPU kernel picks it from the pack: bf16, or int8 with
 per-output-channel scales (launched and counted by
-:func:`ssm_decode_step_int8`). The "moe" epilogue emits the int8 expert input
-``(x_q, x_s)`` and the router's top-2 combine weights in both layouts. The semantics are the fused kernel's, not
+:func:`ssm_decode_step_int8`). The bf16 layout runs three launches of
+row-tile matrix-vector products; the int8 layout runs row kernels that
+quantize each product's input rows once and three swapped-operand int8
+``wgmma`` products on Hopper that stream them beside the weights, on the
+plan of ``ops/kernels/decode_plan.py::ssm_step_plan``. The "moe" epilogue
+emits the int8 expert input ``(x_q, x_s)`` and the router's top-2 combine
+weights in both layouts. The semantics are the fused kernel's, not
 those of the unfused ``models/apertis.py::_ssm_decode_step``: the two round
 through bf16 at different points.
 
@@ -21,16 +26,19 @@ are read in their (C, K) layout and ``-exp(A_log)`` is computed in the kernel.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from apertis_llm_torch.ops.kernels import _build
+from apertis_llm_torch.ops.kernels import _build, decode_plan
+from apertis_llm_torch.ops.kernels.flash_attention import RESOURCE_KEYS
 from apertis_llm_torch.ops.moe import _combine_weights, route
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
 from apertis_llm_torch.ops.quant import int_mm
 
-_ROWS = 8          # batch rows per block (csrc/ssm_step.cu kRows)
+_ROWS = 8          # batch rows per block of the bf16 layout (csrc/ssm_step.cu kRows)
 
 
 class MixerWeights(NamedTuple):
@@ -263,7 +271,14 @@ def ssm_decode_step(
         return ssm_decode_step_int8(h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out,
                                     router)
     dims = _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, torch.bfloat16, router)
-    bufs = _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, torch.bfloat16)
+    bsz, d, c = dims[:3]
+    dev = h.device
+    # Scratch: z (B, C) f32, g (B, C) bf16, hsum (B, D) f32 and the tickets.
+    bufs = _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, False) + (
+        torch.empty((bsz, c), dtype=torch.float32, device=dev),
+        torch.empty((bsz, c), dtype=torch.bfloat16, device=dev),
+        torch.empty((bsz, d), dtype=torch.float32, device=dev) if ffn_norm is not None else None,
+        torch.empty((-(-bsz // _ROWS),), dtype=torch.int32, device=dev))
     fn_w, fn_b = ffn_norm if ffn_norm is not None else (None, None)
     err = _build.load_library().apertis_ssm_decode_step(
         _ptr(h), _ptr(conv_state), _ptr(ssm_state), _ptr(w.norm_w), _ptr(w.norm_b),
@@ -285,33 +300,57 @@ def _num_experts(router) -> int:
     return 0 if router is None else router.w.shape[-1]
 
 
-def _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, g_dtype):
-    """Outputs and scratch of one launch, in the C entry points' order:
-    h_out, xp_out, ssm_out, ffn_in, ffn_scale, comb, z, g, hsum, tickets.
-    ffn_in is bf16 in the bf16 layout's dense epilogue and int8 otherwise."""
+def _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, quant):
+    """The outputs of one step, in the C entry points' order: h_out, xp_out,
+    ssm_out, ffn_in, ffn_scale, comb (None where the mode has none). ffn_in
+    is bf16 in the bf16 layout's dense epilogue and int8 otherwise."""
     bsz, d, c = dims[:3]
     dev = h.device
-    ffn_in = ffn_scale = comb = hsum = None
+    ffn_in = ffn_scale = comb = None
     if ffn_norm is not None:
-        quant_in = router is not None or g_dtype == torch.float32
+        quant_in = router is not None or quant
         ffn_in = torch.empty((bsz, d), dtype=torch.int8 if quant_in else torch.bfloat16,
                              device=dev)
         if quant_in:
             ffn_scale = torch.empty((bsz, 1), dtype=torch.float32, device=dev)
         if router is not None:
             comb = torch.empty((bsz, router.w.shape[-1]), dtype=torch.float32, device=dev)
-        hsum = torch.empty((bsz, d), dtype=torch.float32, device=dev)
     if ssm_out is None:
         ssm_out = torch.empty((bsz, c), dtype=torch.float32, device=dev)
     return (torch.empty_like(h), torch.empty((bsz, c), dtype=conv_state.dtype, device=dev),
-            ssm_out, ffn_in, ffn_scale, comb,
-            torch.empty((bsz, c), dtype=torch.float32, device=dev),
-            torch.empty((bsz, c), dtype=g_dtype, device=dev), hsum,
-            torch.empty((-(-bsz // _ROWS),), dtype=torch.int32, device=dev))
+            ssm_out, ffn_in, ffn_scale, comb)
 
 
 def _step_outputs(bufs):
     return tuple(t for t in bufs[:6] if t is not None)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(batch: int, d: int, c: int, r: int) -> int:
+    """The bytes of the int8 step's scratch (``csrc/ssm_step.cu::StepScratch``)."""
+    return _build.load_library().apertis_ssm_step_int8_scratch(batch, d, c, r)
+
+
+def step_int8_plan(h: torch.Tensor, w: MixerWeights) -> decode_plan.StepPlan:
+    """The plan of the int8 step for these rows and weights on h's card."""
+    return decode_plan.ssm_step_plan(h.shape[0], h.shape[1], w.inx_w.shape[1],
+                                     w.dt_w.shape[0], _sm_count(h.device.index or 0))
+
+
+def ssm_step_int8_resources(kernel: str, plan: decode_plan.GemmPlan) -> Dict[str, int]:
+    """What the card gives the int8 step's ``kernel`` ("in", "mix" or "out")
+    at its plan: registers a thread, shared memory a block in bytes, resident
+    blocks an SM, threads a block and spilled bytes a thread."""
+    out = (ctypes.c_int * len(RESOURCE_KEYS))()
+    err = _build.load_library().apertis_ssm_step_int8_resources(
+        ("in", "mix", "out").index(kernel), plan.rows, plan.smem, ctypes.addressof(out))
+    _build.check(err, "ssm_step_int8_resources")
+    return dict(zip(RESOURCE_KEYS, out))
 
 
 def ssm_decode_step_int8(
@@ -333,19 +372,25 @@ def ssm_decode_step_int8(
         return ssm_decode_step_reference(h, conv_state, ssm_state, w, eps, ffn_norm,
                                          ssm_out, router)
     dims = _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, torch.int8, router)
-    bufs = _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, torch.float32)
+    bsz, d, c, _, r = dims[:5]
+    outs = _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, True)
+    scratch = torch.empty((_scratch_bytes(bsz, d, c, r),), dtype=torch.int8, device=h.device)
+    plan = step_int8_plan(h, w)
+    splits = (ctypes.c_int * 3)(*(p.split for p in plan))
+    stages = (ctypes.c_int * 3)(*(p.stages for p in plan))
     fn_w, fn_b = ffn_norm if ffn_norm is not None else (None, None)
     err = _build.load_library().apertis_ssm_decode_step_int8(
         _ptr(h), _ptr(conv_state), _ptr(ssm_state), _ptr(w.norm_w), _ptr(w.norm_b),
         _ptr(w.inx_w), _ptr(w.inx_s), _ptr(w.inz_w), _ptr(w.inz_s), _ptr(w.conv_w),
         _ptr(w.conv_b), _ptr(w.xparam_w), _ptr(w.xparam_s), _ptr(w.dt_w), _ptr(w.dt_b),
         _ptr(w.a_log), _ptr(w.d_skip), _ptr(w.out_w), _ptr(w.out_s), _ptr(fn_w),
-        _ptr(fn_b), *_router_ptrs(router), *(_ptr(t) for t in bufs), *dims,
-        _num_experts(router), int(w.norm_b is None), float(eps),
+        _ptr(fn_b), *_router_ptrs(router), *(_ptr(t) for t in outs), _ptr(scratch), *dims,
+        _num_experts(router), int(w.norm_b is None), float(eps), plan.inp.rows,
+        ctypes.addressof(splits), ctypes.addressof(stages),
         torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "ssm_decode_step_int8")
     ssm_decode_step_int8.launches += 1
-    return _step_outputs(bufs)
+    return _step_outputs(outs)
 
 
 ssm_decode_step.launches = 0

@@ -14,10 +14,11 @@ smoke's requests B and A, bucketed as ``InferenceEngine`` buckets them) and
 five decode steps at 64 and at 4 rows, after a warm-up; an MHA model decodes
 over a cache of the prompt plus 64 slots (bf16 for the bf16 model, int8 for
 the int8 one, as the engine allocates them), at its last slot. For each phase it
-prints the host wall time per call, the device time per call (the sum of the
-CUDA kernels' times, each kernel counted once), the device's idle share
-(1 - device / wall) and the kernels that take the most device time, with the
-card's name and power limit. With ``--int4`` it also traces w4a8 serving
+prints the host wall time per call under the profiler and without it (the
+profiler's own cost grows with the CUDA calls a step makes), the device time
+per call (the sum of the CUDA kernels' times, each kernel counted once), the
+device's idle share (1 - device / wall) and the kernels that take the most
+device time, with the card's name and power limit. With ``--int4`` it also traces w4a8 serving
 (``InferenceEngine(..., quant_bits=4)`` on the int8 model: int8 prefill, the
 int4 decode FFN or fat stacks); with ``--moe --int4`` the MoE model is the 3B
 preset (hidden 768, 74 layers, experts of 3072), whose widths take the int4
@@ -68,6 +69,11 @@ def _trace(label, fn, calls, card, top=8):
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()   # the wall time of the calls without the profiler
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    bare = (time.perf_counter() - t0) / calls * 1e3
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -78,7 +84,8 @@ def _trace(label, fn, calls, card, top=8):
     by_kernel = _device_us(prof)
     device = sum(by_kernel.values()) / calls / 1e3
     print(f"{label}: wall {wall:.3f} ms, device {device:.3f} ms per call, idle share "
-          f"{1 - device / wall:.2f}, {len(by_kernel)} kernels; card: {card}", flush=True)
+          f"{1 - device / wall:.2f}, {len(by_kernel)} kernels; wall without the profiler "
+          f"{bare:.3f} ms, idle share {1 - device / bare:.2f}; card: {card}", flush=True)
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {us / calls:9.1f} us  {name[:110]}", flush=True)
 

@@ -18,7 +18,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      on the card, at the shapes the requests below give it, at a ragged size
      and in every variant its wrapper accepts (RMSNorm, ffn_mode "none", f32
      scan operands, ReLU and SiLU, several hidden tiles), and time both with
-     CUDA events beside the kernel's bound;
+     CUDA events beside the kernel's bound; the int8 decode step in every
+     ffn_mode with both norms, and the int8 and int4 decode FFN at I = 9728
+     and 1536 with GELU, ReLU and SiLU, at 4, 5, 64 and 256 rows, each run
+     twice for the same bits; their warm and cold times (``decode_times``:
+     one layer's weights again and again, or each of the model's 20 layers
+     in turn) and each of their launches' registers, shared memory and
+     local bytes;
      Then the same for the 1.5B top-2-of-8 MoE model (hidden 704, 44 layers,
      experts of 2816): the scan, ``ln_quantize`` and the decode step at its
      mixer's shapes (D = 704, C = 176, R = 44, H = 11), the step's moe
@@ -167,7 +173,8 @@ and the profiler's device time per call ("device_ms", the kernels' own time
 without the Python wrapper, from each kernel's mean duration in the
 profiler's records, which can miss some launches). Before the last line it
 prints the bf16 and f32 flash kernels' resources, #7's and #6's times, resources
-and host enqueue times (``{"qmm": ...}``), the kernels' JSON summary and the
+and host enqueue times (``{"qmm": ...}``), the int8 decode kernels' times
+and resources (``{"decode_times": ...}``), the kernels' JSON summary and the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
 
@@ -177,11 +184,15 @@ card's name and power limit; the last line is ``{"ok": true, "device":
     python3 chip_smoke.py --flash-f32-times  # the f32 flash kernels' times and SDPA f32's
                                              # at (4, 38, 1024, 64), and the 1.5B MHA
                                              # model's f32 micro-step p50
+    python3 chip_smoke.py --decode-times     # the int8 decode step's and the int8 and
+                                             # int4 decode FFN's warm and cold times at
+                                             # 64 and 4 rows
 
-The first two flags run ``qmm_phase`` only. ``--qmm-times`` and
-``--flash-f32-times`` need nothing of the checkout but the wrappers' (and
-the trainer's) Python interface, so a checkout of an earlier commit can run
-them with this script copied into it, for a comparison in one call.
+The first two flags run ``qmm_phase`` only. ``--qmm-times``,
+``--flash-f32-times`` and ``--decode-times`` need nothing of the checkout but
+the wrappers' (and the trainer's) Python interface, so a checkout of an
+earlier commit can run them with this script copied into it, for a
+comparison in one call.
 
 It needs a CUDA device and exits non-zero without one. It imports no JAX.
 """
@@ -318,7 +329,7 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=10, tries=3):
+def device_ms(fn, iters=10, tries=3, by_kernel=False):
     """The device time of one call of ``fn``: the profiler's CUDA activity
     (kernels and memsets) over ``iters`` back-to-back calls, per call. The
     profiler can lose activity records of the kernels launched through
@@ -326,7 +337,8 @@ def device_ms(fn, iters=10, tries=3):
     activity name's mean duration times its launches per call (its records
     over ``iters``, rounded up), not the records' sum over ``iters``. A
     window with no record is taken again, up to ``tries`` windows; None if
-    the profiler saw no device activity in any."""
+    the profiler saw no device activity in any. With ``by_kernel``, the
+    time of each activity name instead ({name: ms a call})."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -345,8 +357,39 @@ def device_ms(fn, iters=10, tries=3):
         if any(c % iters for c in counts.values()):
             log(f"  device_ms: the profiler kept {sorted(counts.values())} records of "
                 f"{iters} calls; each kernel's mean duration times its launches per call")
-        return sum(us[n] / counts[n] * -(-counts[n] // iters) for n in counts) / 1e3
+        per = {n: us[n] / counts[n] * -(-counts[n] // iters) / 1e3 for n in counts}
+        return per if by_kernel else sum(per.values())
     return None
+
+
+def graph_ms(fn, calls=10, replays=10):
+    """Milliseconds a call of ``fn`` when ``calls`` calls are captured into
+    one CUDA graph and replayed: the device's time for the calls' launches
+    back to back, gaps between launches included, without the host's
+    enqueue time. None if the calls cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as exc:
+        log(f"  graph_ms: the calls could not be captured ({exc})")
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def nbytes(*tensors):
@@ -662,6 +705,177 @@ def qmm_phase(card, check=True, alternatives=False):
     return {"times": times, "resources": resources, "plans": plans}
 
 
+# ---- the int8 decode kernels #3 and #4: warm and cold times ---------------
+
+# int4 FFN packs to rotate over for the cold time: 4 x 23.7 MB of the 1.5B
+# model's widths, more than the H100's 50 MB L2.
+COLD_INT4_LAYERS = 4
+
+
+def dense_preset_config(dims):
+    """The 1.5B dense selective-SSM preset (bench.py's) at the widths `dims`
+    of ``calculate_model_dimensions("1.5B", 32000)``, dropout 0."""
+    from apertis_llm_torch.config import ApertisConfig
+    return ApertisConfig(
+        vocab_size=32000, attention_type="selective_ssm", ssm_d_state=16,
+        hidden_size=dims["hidden_size"], num_hidden_layers=dims["num_hidden_layers"],
+        num_attention_heads=dims["num_attention_heads"],
+        intermediate_size=dims["intermediate_size"], hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, max_position_embeddings=4096,
+        dtype="bfloat16", param_dtype="bfloat16")
+
+
+def moe_preset_config(dims):
+    """The 1.5B selective-SSM MoE preset (8 experts, top-2) at the widths
+    `dims` of ``calculate_model_dimensions("1.5B", 32000,
+    use_expert_system=True)``, dropout 0."""
+    from apertis_llm_torch.config import ApertisConfig
+    return ApertisConfig(
+        vocab_size=32000, attention_type="selective_ssm", ssm_d_state=16,
+        hidden_size=dims["hidden_size"], num_hidden_layers=dims["num_hidden_layers"],
+        num_attention_heads=dims["num_attention_heads"],
+        intermediate_size=dims["intermediate_size"], use_expert_system=True, num_experts=8,
+        experts_per_token=2, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+        max_position_embeddings=4096, dtype="bfloat16", param_dtype="bfloat16")
+
+
+def rotation_times(card, label, fns):
+    """Warm and cold times of one kernel's calls `fns`, one on each layer's
+    weights: warm, the first called again and again (its weights stay in
+    L2); cold, all in turn, as a decode step reads them. Each as the
+    wrapper's time (CUDA events over back-to-back calls, host included), the
+    profiler's device time and a CUDA graph's time a call (graph_ms)."""
+    def rotate():
+        for f in fns:
+            f()
+    cold_dev = device_ms(rotate, iters=3)
+    cold_graph = graph_ms(rotate, calls=2)
+    entry = {"ms": cuda_ms(fns[0]), "device_ms": device_ms(fns[0]), "graph_ms": graph_ms(fns[0]),
+             "cold_ms": cuda_ms(rotate, iters=5, warmup=1) / len(fns),
+             "cold_device_ms": None if cold_dev is None else cold_dev / len(fns),
+             "cold_graph_ms": None if cold_graph is None else cold_graph / len(fns),
+             "layers": len(fns)}
+    log(f"  {label}: {json.dumps(entry)}; card: {card}")
+    return entry
+
+
+def decode_times(card, qmodel, config):
+    """Warm and cold times (rotation_times) of the int8 decode step (#3,
+    dense epilogue) and the int8 and int4 decode FFN (#4) at 64 and 4 rows
+    on the int8 model's own weights: cold over its 20 layers (105 MB of
+    mixer and 946 MB of FFN int8 weights) and over COLD_INT4_LAYERS int4
+    packs, each more than the 50 MB L2. It needs nothing of the checkout but
+    the wrappers' Python interface, so an earlier commit can run it with
+    this script copied in. Returns {label: {ms, device_ms, graph_ms,
+    cold_ms, cold_device_ms, cold_graph_ms, layers}}."""
+    from apertis_llm_torch.models.quantize import int4_ffn_pack
+    from apertis_llm_torch.ops.kernels.ffn_fused import ffn_decode_int4, ffn_decode_int8
+    from apertis_llm_torch.ops.kernels.ssm_step import ssm_decode_step
+    from apertis_llm_torch.ops.quant import quantize_rows
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    d, c, eps, act = (config.hidden_size, config.ssm_d_inner, config.layer_norm_eps,
+                      config.hidden_act)
+    layers = qmodel.layers
+    mixers = [(lay.attn.mixer_weights(), lay.ffn.pre_norm.weights()) for lay in layers]
+    ffn8 = [(lay.ffn.w1.w_q, lay.ffn.w1.w_s, lay.ffn.w1.b, lay.ffn.w2.w_q, lay.ffn.w2.w_s,
+             lay.ffn.w2.b) for lay in layers]
+    ffn4 = []
+    for lay in layers[:COLD_INT4_LAYERS]:
+        pk = int4_ffn_pack({"w_q": lay.ffn.w1.w_q, "w_s": lay.ffn.w1.w_s, "b": lay.ffn.w1.b},
+                           {"w_q": lay.ffn.w2.w_q, "w_s": lay.ffn.w2.w_s, "b": lay.ffn.w2.b})
+        ffn4.append((pk["w1"]["w_q4"], pk["w1"]["w_sh"], pk["w1"]["w_s"], lay.ffn.w1.b,
+                     pk["w2"]["w_q4"], pk["w2"]["w_sh"], pk["w2"]["w_s"], lay.ffn.w2.b))
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    result = {}
+    for rows in (64, 4):
+        h, conv = randn(rows, d), randn(rows, config.ssm_conv_kernel - 1, c)
+        ssm = randn(rows, c, dtype=torch.float32)
+        x_q, x_s = quantize_rows(randn(rows, d))
+        calls = {
+            "ssm_decode_step_int8": [lambda m=m, fn=fn: ssm_decode_step(h, conv, ssm, m, eps, fn)
+                                     for m, fn in mixers],
+            "ffn_decode_int8": [lambda w=w: ffn_decode_int8(x_q, x_s, *w, act) for w in ffn8],
+            "ffn_decode_int4": [lambda w=w: ffn_decode_int4(x_q, x_s, *w, act) for w in ffn4],
+        }
+        for name, fns in calls.items():
+            label = f"{name} at {rows} rows"
+            result[label] = rotation_times(card, label, fns)
+        # Where #3's device time goes: each launch of the step, by kernel.
+        per = device_ms(calls["ssm_decode_step_int8"][0], by_kernel=True) or {}
+        result[f"ssm_decode_step_int8 at {rows} rows"]["by_kernel_ms"] = per
+        log(f"  ssm_decode_step_int8 at {rows} rows by kernel (device ms): "
+            + ", ".join(f"{n[:60]} {t:.4f}" for n, t in sorted(per.items(), key=lambda x: -x[1]))
+            + f"; card: {card}")
+    result.update(xparam_load_times(card, config))
+    return result
+
+
+def xparam_load_times(card, config, rows=64):
+    """The x_param product of #3 (int8 (C, R + 2C) = 608 x 1368 at the 1.5B
+    model's widths) alone at ``rows`` rows, split over 4 blocks as the
+    step's plan splits it, through #7's C entry point, which runs the same
+    ring and producer: the weight's rows as the tree holds them (R + 2C
+    bytes, not a multiple of 16, so the producer's own loads stage them),
+    the weight padded to a multiple of 16 bytes and staged by the same loads,
+    and the padded weight loaded by TMA. Device ms each; what padding
+    x_param's rows at load time would give."""
+    from apertis_llm_torch.ops.kernels import _build
+    from apertis_llm_torch.ops.quant import quantize_rows
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    k, n = config.ssm_d_inner, config.ssm_dt_rank + 2 * config.ssm_d_inner
+    padded = -(-n // 16) * 16
+    lib = _build.load_library()
+    x_q, x_s = quantize_rows(torch.randn((rows, k), generator=gen, device=dev))
+    w = torch.randint(-127, 128, (k, padded), generator=gen, device=dev, dtype=torch.int8)
+    w_s = torch.rand((1, padded), generator=gen, device=dev) * 0.01
+    w_tree = w[:, :n].contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    result = {}
+    for label, wq, cols, tma_w in ((f"rows of {n} bytes, own loads", w_tree, n, 0),
+                                   (f"rows of {padded} bytes, own loads", w, padded, 0),
+                                   (f"rows of {padded} bytes, TMA", w, padded, 1)):
+        out = torch.empty((rows, cols), dtype=torch.bfloat16, device=dev)
+        call = lambda wq=wq, cols=cols, tma_w=tma_w, out=out: _build.check(  # noqa: E731
+            lib.apertis_quant_matmul_dyn(x_q.data_ptr(), x_s.data_ptr(), wq.data_ptr(),
+                                         w_s.data_ptr(), None, out.data_ptr(), rows, cols, k, 1,
+                                         64, 4, 1, tma_w, stream), "x_param product")
+        result[label] = device_ms(call)
+    log(f"  #3's x_param product alone ({rows} x {k} x {n}, split 4, device ms): "
+        + ", ".join(f"{lab} {t:.4f}" for lab, t in result.items()) + f"; card: {card}")
+    return {f"x_param product at {rows} rows": result}
+
+
+def moe_step_times(card, moe_qmodel, moe_config):
+    """rotation_times of the int8 decode step with the moe epilogue (#3) at
+    64 and 4 rows over the int8 MoE model's 44 layers (D 704, C 176). Like
+    decode_times, an earlier commit can run it with this script copied in."""
+    from apertis_llm_torch.ops.kernels.ssm_step import ssm_decode_step
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    d, c, eps = moe_config.hidden_size, moe_config.ssm_d_inner, moe_config.layer_norm_eps
+    steps = [(lay.attn.mixer_weights(), lay.ffn.pre_norm.weights(), lay.ffn.router_weights())
+             for lay in moe_qmodel.layers]
+    result = {}
+    for rows in (64, 4):
+        h = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+        conv = torch.randn((rows, moe_config.ssm_conv_kernel - 1, c), generator=gen,
+                           device=dev).to(torch.bfloat16)
+        ssm = torch.randn((rows, c), generator=gen, device=dev)
+        fns = [lambda m=m, fn=fn, r=r: ssm_decode_step(h, conv, ssm, m, eps, fn, None, r)
+               for m, fn, r in steps]
+        label = f"ssm_decode_step_int8_moe at {rows} rows"
+        result[label] = rotation_times(card, label, fns)
+    return result
+
+
 def parallel_rank(rank, scan_args, small, preset):
     """One of phase 7's two ranks, which share the card in a gloo process
     group (``apertis_llm_torch.parallel.spawn``): the sequence-parallel scan
@@ -776,7 +990,8 @@ def main() -> int:
     from apertis_llm_torch.ops.kernels import _build
     from apertis_llm_torch.ops.kernels.ffn_fused import (
         ffn_decode, ffn_decode_int4, ffn_decode_int4_reference, ffn_decode_int8,
-        ffn_decode_int8_reference, ffn_decode_reference, pick_block_n)
+        ffn_decode_int8_reference, ffn_decode_reference, ffn_quant_resources, pick_block_n)
+    from apertis_llm_torch.ops.kernels.ffn_fused import quant_plan as ffn_quant_plan
     from apertis_llm_torch.ops.kernels.flash_attention import (
         BF16_KERNELS, F32_KERNELS, flash_attention_dkv, flash_attention_dkv_f32,
         flash_attention_dkv_reference, flash_attention_dq, flash_attention_dq_f32,
@@ -798,7 +1013,8 @@ def main() -> int:
         quant_matmul, quant_matmul_dyn_fused, quant_matmul_dyn_fused_reference,
         quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference, quant_matmul_reference)
     from apertis_llm_torch.ops.kernels.ssm_step import (
-        ssm_decode_step, ssm_decode_step_int8, ssm_decode_step_reference)
+        ssm_decode_step, ssm_decode_step_int8, ssm_decode_step_reference,
+        ssm_step_int8_resources, step_int8_plan)
     from apertis_llm_torch.ops.activations import get_activation
     from apertis_llm_torch.ops.norms import layer_norm, rms_norm
     from apertis_llm_torch.ops.quant import int_mm, quantize_rows
@@ -832,13 +1048,7 @@ def main() -> int:
 
     # ---- 3. the 1.5B model and the kernel checks ----------------------------
     dims = calculate_model_dimensions("1.5B", 32000)
-    config = ApertisConfig(
-        vocab_size=32000, attention_type="selective_ssm", ssm_d_state=16,
-        hidden_size=dims["hidden_size"], num_hidden_layers=dims["num_hidden_layers"],
-        num_attention_heads=dims["num_attention_heads"],
-        intermediate_size=dims["intermediate_size"], hidden_dropout_prob=0.0,
-        attention_probs_dropout_prob=0.0, max_position_embeddings=4096,
-        dtype="bfloat16", param_dtype="bfloat16")
+    config = dense_preset_config(dims)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     tree = init_params(config, gen, device=dev, dtype=torch.bfloat16)
@@ -881,10 +1091,11 @@ def main() -> int:
     # device_ms) at the timed shape
     errs, times = {}, {}
 
-    def check_kernel(key, label, args, kernel, plain, tols, cost=None):
+    def check_kernel(key, label, args, kernel, plain, tols, cost=None, repeat=False):
         """Run the kernel and its plain version on ``args``, compare each
         output with its tolerance, and time both; with ``cost`` (bytes,
-        operations, type) this is the shape the report gives."""
+        operations, type) this is the shape the report gives; with
+        ``repeat`` a second run must give the same bits."""
         got, ref = kernel(*args), plain(*args)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -894,6 +1105,12 @@ def main() -> int:
         for (out_name, tol), a, b in zip(tols, got, ref):
             cmp = compare_int8 if tol == "int8" else compare
             errs[key] = max(errs.get(key, 0.0), cmp(f"{label} {out_name}", a, b, tol))
+        if repeat:
+            again = kernel(*args)
+            again = again if isinstance(again, tuple) else (again,)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise RuntimeError(f"{label}: a second run gave other bits")
+            log(f"  {label}: a second run gives the same bits ok")
         k_ms = cuda_ms(lambda: kernel(*args))
         p_ms = cuda_ms(lambda: plain(*args))
         line = f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
@@ -1030,18 +1247,20 @@ def main() -> int:
     check_sensitive("int8 decode step", ssm_decode_step_reference, args, {
         f"{name} w_s": qwithout(**{name: torch.ones_like(getattr(qmixer, name))})
         for name in ("inx_s", "inz_s", "xparam_s", "out_s")}, step_tols_q)
-    for b, w, fn, label in [(4, qmixer, ffn_norm, "LayerNorm, dense"),
-                            (64, qmixer, ffn_norm, "LayerNorm, dense"),
-                            (256, qmixer, ffn_norm, "LayerNorm, dense"),
-                            (5, qmixer, ffn_norm, "LayerNorm, dense"),
-                            (5, qmixer, None, "LayerNorm, ffn_mode none"),
-                            (5, qmixer_rms, ffn_norm_rms, "RMSNorm, dense"),
-                            (5, qmixer_rms, None, "RMSNorm, ffn_mode none")]:
-        args = step_inputs(b, w, fn)
-        check_kernel("ssm_decode_step_int8", f"int8 decode step B={b} {label}", args,
-                     ssm_decode_step, ssm_decode_step_reference,
-                     step_tols_q if fn is not None else step_tols_q[:3],
-                     cost=step_cost(args) if b == 64 else None)
+    # The int8 layout (csrc/ssm_step.cu's row kernels and int8 wgmma
+    # products): every ffn_mode (moe in phase 3b) and both norms at 4, 5, 64
+    # and 256 rows, each run twice for the same bits.
+    for b in (4, 5, 64, 256):
+        for w, fn, label in [(qmixer, ffn_norm, "LayerNorm, dense"),
+                             (qmixer, None, "LayerNorm, ffn_mode none"),
+                             (qmixer_rms, ffn_norm_rms, "RMSNorm, dense"),
+                             (qmixer_rms, None, "RMSNorm, ffn_mode none")]:
+            args = step_inputs(b, w, fn)
+            timed = b == 64 and label == "LayerNorm, dense"
+            check_kernel("ssm_decode_step_int8", f"int8 decode step B={b} {label}", args,
+                         ssm_decode_step, ssm_decode_step_reference,
+                         step_tols_q if fn is not None else step_tols_q[:3],
+                         cost=step_cost(args) if timed else None, repeat=True)
 
     w1, w2 = layer.ffn.w1, layer.ffn.w2
 
@@ -1090,23 +1309,41 @@ def main() -> int:
     }, [("out", BF16_ULP)])
     log(f"  int8 ffn hidden tiles: I={inter} -> {inter // pick_block_n(inter)} tiles of "
         f"{pick_block_n(inter)}")
-    for s_, act in [(4, config.hidden_act), (64, config.hidden_act), (256, config.hidden_act),
-                    (5, config.hidden_act), (5, "relu"), (5, "silu")]:
+    # The int8 layout (csrc/ffn_fused.cu's int8 wgmma products) at 4, 5, 64
+    # and 256 rows, at I = 9728 (19 hidden tiles of 512) and 1536 (two of
+    # 768), GELU, ReLU and SiLU, each run twice for the same bits.
+    ffn_cases = [(s_, config.hidden_act) for s_ in (4, 5, 64, 256)] + [(5, "relu"), (5, "silu")]
+    for s_, act in ffn_cases:
         args = ffn_q_inputs(s_, act)
         check_kernel("ffn_decode_int8", f"int8 ffn S={s_} {act}", args, ffn_decode_int8,
                      ffn_decode_int8_reference, [("out", BF16_ULP)],
                      cost=(nbytes(*args[:8]) + s_ * d * 2, 4 * s_ * d * inter,
-                           "int8") if s_ == 64 else None)
+                           "int8") if (s_, act) == (64, config.hidden_act) else None,
+                     repeat=True)
     inter2 = 1536          # two hidden tiles of 768
     wq1, ws1 = quantize_weight(randn(d, inter2, std=0.02))
     wq2, ws2 = quantize_weight(randn(inter2, d, std=0.02))
+    b1_2, b2_2 = randn(inter2, std=0.1), randn(d, std=0.1)
     log(f"  int8 ffn hidden tiles: I={inter2} -> {inter2 // pick_block_n(inter2)} tiles of "
         f"{pick_block_n(inter2)}")
-    for s_ in (5, 64):
-        args = ffn_q_inputs(s_, weights=(wq1, ws1, randn(inter2, std=0.1), wq2, ws2,
-                                         randn(d, std=0.1)))
-        check_kernel("ffn_decode_int8", f"int8 ffn S={s_} I={inter2}", args, ffn_decode_int8,
-                     ffn_decode_int8_reference, [("out", BF16_ULP)])
+    for s_, act in ffn_cases:
+        args = ffn_q_inputs(s_, act, weights=(wq1, ws1, b1_2, wq2, ws2, b2_2))
+        check_kernel("ffn_decode_int8", f"int8 ffn S={s_} I={inter2} {act}", args,
+                     ffn_decode_int8, ffn_decode_int8_reference, [("out", BF16_ULP)],
+                     repeat=True)
+    # The widest hidden tile pick_block_n gives, 1152 columns at I = 4608:
+    # GEMM1's cluster of 9 blocks, a non-portable cluster size.
+    inter3 = 4608
+    wq1_3, ws1_3 = quantize_weight(randn(d, inter3, std=0.02))
+    wq2_3, ws2_3 = quantize_weight(randn(inter3, d, std=0.02))
+    b1_3, b2_3 = randn(inter3, std=0.1), randn(d, std=0.1)
+    log(f"  int8 ffn hidden tiles: I={inter3} -> {inter3 // pick_block_n(inter3)} tiles of "
+        f"{pick_block_n(inter3)}")
+    for s_ in (4, 64):
+        args = ffn_q_inputs(s_, weights=(wq1_3, ws1_3, b1_3, wq2_3, ws2_3, b2_3))
+        check_kernel("ffn_decode_int8", f"int8 ffn S={s_} I={inter3} {config.hidden_act}",
+                     args, ffn_decode_int8, ffn_decode_int8_reference, [("out", BF16_ULP)],
+                     repeat=True)
 
     ln_tols = [("x_q", "int8"), ("x_s", SCALE_TOL)]
     pre_w, pre_b = qlayer.attn.pre_norm.weights()
@@ -1125,15 +1362,33 @@ def main() -> int:
                          cost=(nbytes(x, pre_w, bias) + x.numel() + rows * 4, 10 * x.numel(),
                                "f32") if rows == 2048 and bias is not None else None)
 
+    # The int8 decode kernels' warm and cold times at 64 and 4 rows, and
+    # the resources the card gives each of their launches.
+    log("int8 decode kernels (#3, #4), warm and cold weights:")
+    decode = decode_times(card, qmodel, config)
+    decode_resources = {}
+    for rows in (4, 64):
+        h_ = randn(rows, d)
+        x_q, _ = quantize_rows(h_)
+        step_plan = step_int8_plan(h_, qmixer)
+        for kind, plan in zip(("in", "mix", "out"), step_plan):
+            decode_resources[f"ssm_decode_step_int8 {kind} at {rows} rows"] = dict(
+                plan._asdict(), **ssm_step_int8_resources(kind, plan))
+        for bits in (8, 4):
+            ffn_plan_ = ffn_quant_plan(x_q, d, inter, bits)
+            for kind, plan in zip(("up", "down"), ffn_plan_):
+                decode_resources[f"ffn_decode_int{bits} {kind} at {rows} rows"] = dict(
+                    plan._asdict(), **ffn_quant_resources(bits, kind, plan))
+    for key, res in decode_resources.items():
+        log(f"  resources of {key}: {res['registers']} registers a thread, "
+            f"{res['shared_bytes']} bytes of shared memory and {res['threads']} threads a "
+            f"block, {res['blocks_per_sm']} block(s) an SM, {res['spill_bytes']} bytes spilled; "
+            f"plan rows {res['rows']}, split {res['split']}, stages {res['stages']}, "
+            f"grid {tuple(res['grid'])}")
+
     # ---- 3b. the 1.5B MoE model and its kernel checks -----------------------
     mdims = calculate_model_dimensions("1.5B", 32000, use_expert_system=True)
-    moe_config = ApertisConfig(
-        vocab_size=32000, attention_type="selective_ssm", ssm_d_state=16,
-        hidden_size=mdims["hidden_size"], num_hidden_layers=mdims["num_hidden_layers"],
-        num_attention_heads=mdims["num_attention_heads"],
-        intermediate_size=mdims["intermediate_size"], use_expert_system=True, num_experts=8,
-        experts_per_token=2, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
-        max_position_embeddings=4096, dtype="bfloat16", param_dtype="bfloat16")
+    moe_config = moe_preset_config(mdims)
     t0 = time.perf_counter()
     tree = init_params(moe_config, torch.Generator(device=dev).manual_seed(SEED), device=dev,
                        dtype=bf16)
@@ -1199,18 +1454,20 @@ def main() -> int:
             "router bias": args[:7] + (m_router._replace(b=torch.zeros_like(m_router.b)),),
             "inverse deviation inv2": lambda a=args: step_without_inv2(a),
         }, moe_tols)
-    for b, w, fn, label in [(4, m_mixer, m_fnorm3, "LayerNorm"), (64, m_mixer, m_fnorm3, "LayerNorm"),
-                            (5, m_mixer, (m_fnorm3[0], None), "RMSNorm"),
-                            (4, m_qmixer, m_fnorm3, "LayerNorm"),
-                            (64, m_qmixer, m_fnorm3, "LayerNorm"),
-                            (256, m_qmixer, m_fnorm3, "LayerNorm"),
-                            (5, m_qmixer, (m_fnorm3[0], None), "RMSNorm")]:
+    moe_cases = [(4, m_mixer, m_fnorm3, "LayerNorm"), (64, m_mixer, m_fnorm3, "LayerNorm"),
+                 (5, m_mixer, (m_fnorm3[0], None), "RMSNorm")]
+    moe_cases += [(b, m_qmixer, fn, label) for b in (4, 5, 64, 256)
+                  for fn, label in ((m_fnorm3, "LayerNorm"), ((m_fnorm3[0], None), "RMSNorm"))]
+    for b, w, fn, label in moe_cases:
         key = "ssm_decode_step_int8_moe" if w.quantized else "ssm_decode_step_moe"
         args = moe_step_inputs(b, w._replace(norm_b=None) if fn[1] is None else w, fn)
         check_kernel(key, f"{'int8' if w.quantized else 'bf16'} decode step B={b} {label}, "
                      f"moe epilogue (D={md}, C={mc}, R={moe_config.ssm_dt_rank})", args,
                      ssm_decode_step, ssm_decode_step_reference, moe_tols,
-                     cost=step_cost(args) if b == 64 else None)
+                     cost=step_cost(args) if (b, label) == (64, "LayerNorm") else None,
+                     repeat=w.quantized)
+    log("int8 decode step with the moe epilogue (#3), warm and cold weights:")
+    decode.update(moe_step_times(card, moe_qmodel, moe_config))
     for b, w, label in [(5, m_mixer, "bf16"), (5, m_qmixer, "int8")]:
         args = moe_step_inputs(b, w, m_fnorm, None)[:6]
         check_kernel("ssm_decode_step_int8" if w.quantized else "ssm_decode_step",
@@ -1551,14 +1808,26 @@ def main() -> int:
         "b1": ffn4_without(b1=torch.zeros_like(args[5])),
         "b2": ffn4_without(b2=torch.zeros_like(args[9])),
     }, [("out", BF16_ULP)], factor=SENSITIVITY_FACTOR)
-    for s_, act in [(4, config.hidden_act), (64, config.hidden_act), (5, config.hidden_act),
-                    (5, "relu"), (5, "silu")]:
-        args = ffn4_inputs(s_, act)
-        check_kernel("ffn_decode_int4", f"int4 ffn S={s_} {act} (D={d}, I={inter}, "
-                     f"bn={pick_block_n(inter)})", args, ffn_decode_int4,
-                     ffn_decode_int4_reference, [("out", BF16_ULP)],
-                     cost=(nbytes(*args[:10]) + s_ * d * 2, 4 * s_ * d * inter,
-                           "int8") if s_ == 64 else None)
+    # And the int4 layout at I = 1536, packed from phase 3's int8 weights.
+    pack2 = int4_ffn_pack({"w_q": wq1, "w_s": ws1, "b": b1_2}, {"w_q": wq2, "w_s": ws2, "b": b2_2})
+    int4_w2 = (pack2["w1"]["w_q4"], pack2["w1"]["w_sh"], pack2["w1"]["w_s"], b1_2,
+               pack2["w2"]["w_q4"], pack2["w2"]["w_sh"], pack2["w2"]["w_s"], b2_2)
+    pack3 = int4_ffn_pack({"w_q": wq1_3, "w_s": ws1_3, "b": b1_3},
+                          {"w_q": wq2_3, "w_s": ws2_3, "b": b2_3})
+    int4_w3 = (pack3["w1"]["w_q4"], pack3["w1"]["w_sh"], pack3["w1"]["w_s"], b1_3,
+               pack3["w2"]["w_q4"], pack3["w2"]["w_sh"], pack3["w2"]["w_s"], b2_3)
+    for weights, i_, cases in ((int4_w, inter, ffn_cases), (int4_w2, inter2, ffn_cases),
+                               (int4_w3, inter3, [(4, config.hidden_act),
+                                                  (64, config.hidden_act)])):
+        for s_, act in cases:
+            x_q, x_s = quantize_rows(randn(s_, d))
+            args = (x_q, x_s, *weights, act)
+            check_kernel("ffn_decode_int4", f"int4 ffn S={s_} {act} (D={d}, I={i_}, "
+                         f"bn={pick_block_n(i_)})", args, ffn_decode_int4,
+                         ffn_decode_int4_reference, [("out", BF16_ULP)],
+                         cost=(nbytes(*args[:10]) + s_ * d * 2, 4 * s_ * d * i_, "int8")
+                         if (s_, act, i_) == (64, config.hidden_act, inter) else None,
+                         repeat=True)
 
     # The 3B MoE preset: the largest factory MoE preset whose H and I are
     # multiples of 128, so its fat stacks pack to int4.
@@ -2909,14 +3178,18 @@ def main() -> int:
         # an int8 cache with per-(head, slot) scales, an int8 product whose
         # activations are quantized per 512-wide block): their library time
         # is null.
+        cold = decode.get(f"{name} at 64 rows", {})
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": tpu,
                         "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
                         "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library.get(name),
-                        "library_colmajor_ms": library_cols.get(name)})
+                        "library_colmajor_ms": library_cols.get(name),
+                        "cold_ms": cold.get("cold_ms"),
+                        "cold_device_ms": cold.get("cold_device_ms")})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"flash_resources": flash_resources}))
     print(json.dumps({"qmm": qmm}))
+    print(json.dumps({"decode_times": decode, "decode_resources": decode_resources}))
     print(json.dumps({"kernels": kernels, "serve": serve, "train": train_perf,
                       "small_model_max_abs_err": small_err,
                       "small_train_grad_err_over_limit": small_grad_err,
@@ -3033,9 +3306,57 @@ def flash_f32_times_main() -> int:
     return 0
 
 
+def decode_times_main() -> int:
+    """``--decode-times``: decode_times on the 1.5B int8 model and
+    moe_step_times on the 1.5B int8 MoE model alone (built as the full run
+    builds them), which a checkout of an earlier commit can run with this
+    script copied into it, for a comparison in one call."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO_ROOT))
+    from apertis_llm_torch.models.convert import from_jax_params
+    from apertis_llm_torch.models.factory import calculate_model_dimensions
+    from apertis_llm_torch.models.params import init_params
+    from apertis_llm_torch.models.quantize import quantize_params
+    from apertis_llm_torch.ops.kernels import _build
+
+    card = card_line()
+    t0 = time.perf_counter()
+    _build.load_library()
+    log(f"card: {card}; build in {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda", 0)
+    config = dense_preset_config(calculate_model_dimensions("1.5B", 32000))
+    tree = init_params(config, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                       dtype=torch.bfloat16)
+    perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 2))
+    qtree = quantize_params(tree)
+    del tree
+    qmodel = from_jax_params(qtree, config, device=dev, dtype=torch.bfloat16)
+    del qtree
+    result = decode_times(card, qmodel, config)
+    del qmodel
+    moe_config = moe_preset_config(
+        calculate_model_dimensions("1.5B", 32000, use_expert_system=True))
+    tree = init_params(moe_config, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                       dtype=torch.bfloat16)
+    perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 4))
+    qtree = quantize_params(tree)
+    del tree
+    moe_qmodel = from_jax_params(qtree, moe_config, device=dev, dtype=torch.bfloat16)
+    del qtree
+    result.update(moe_step_times(card, moe_qmodel, moe_config))
+    print(json.dumps({"decode_times": result}))
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] in (["--qmm"], ["--qmm-times"]):
         sys.exit(qmm_main(check=sys.argv[1] == "--qmm"))
     if sys.argv[1:] == ["--flash-f32-times"]:
         sys.exit(flash_f32_times_main())
+    if sys.argv[1:] == ["--decode-times"]:
+        sys.exit(decode_times_main())
     sys.exit(main())
