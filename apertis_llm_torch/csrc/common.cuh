@@ -160,13 +160,6 @@ __device__ void tile_matvec(const float* xs, int ldx, const bf16* __restrict__ w
   __syncthreads();
 }
 
-// One value of an int4-packed byte (models/quantize.py::unpack_int4), given
-// as the byte's sign-extended int: the low nibble sign-extended by
-// (p << 28) >> 28, or the high one by the arithmetic p >> 4.
-__device__ __forceinline__ int int4_nibble(int p, bool high) {
-  return high ? (p >> 4) : ((p << 28) >> 28);
-}
-
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -21,7 +21,10 @@
 //   chunk's fragments while the last chunk's products run.
 // The operand kinds (DgOp): int8 rows and weight (exact int32 sums, 128 K a
 // chunk), int8 rows and an int4 weight (the same), bf16 rows and an int8
-// weight (f32 sums, 64 K a chunk).
+// weight (f32 sums, 64 K a chunk), bf16 rows and a bf16 weight (f32 sums, 64
+// K a chunk): the bf16 weight tile is staged by TMA as two 64-column blocks
+// of 64 K rows and read by wgmma straight from shared memory as an MN-major
+// A operand (hopper.cuh::BwMma), with no register fragments.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -29,6 +32,7 @@
 #include <algorithm>
 #include <map>
 #include <mutex>
+#include <tuple>
 #include <type_traits>
 #include <utility>
 
@@ -48,16 +52,19 @@ constexpr int kDgConsumerRegs = 224;
 constexpr size_t kDgSmemLimit = 232448;                    // dynamic shared memory a block
 constexpr int kDgConsumerThreads = kConsumers * 128;
 
-enum DgKind { kDgI8 = 0, kDgI4 = 1, kDgBf16 = 2 };
+enum DgKind { kDgI8 = 0, kDgI4 = 1, kDgBf16 = 2, kDgBW = 3 };
+
+constexpr uint32_t kDgBWBytes = kDgKC / 2 * 256;           // bf16 weight tile: 64 x 128
 
 // One operand kind: K values a chunk (a 128-byte row of the rows' tile),
 // the weight tile's bytes in a stage and those TMA brings, the
 // accumulator's type.
 template <int kKind>
 struct DgOp {
-  static constexpr bool kW8 = kKind != kDgBf16;        // int8 wgmma
+  static constexpr bool kW8 = kKind == kDgI8 || kKind == kDgI4;   // int8 wgmma
   static constexpr int kKC = kW8 ? kDgKC : kDgKC / 2;
-  static constexpr uint32_t kWBytes = kKind == kDgI4 ? kDgW4Bytes : (uint32_t)kKC * 128;
+  static constexpr uint32_t kWBytes =
+      kKind == kDgI4 ? kDgW4Bytes : (kKind == kDgBW ? kDgBWBytes : (uint32_t)kKC * 128);
   static constexpr uint32_t kWTx = kKind == kDgI4 ? kDgKC / 2 * 128 + 128 : kWBytes;
   typedef typename std::conditional<kW8, int, float>::type Acc;
 };
@@ -82,14 +89,18 @@ struct DgRing {
 // The K chunks a block reads, in order: `ntiles` tiles of `per` chunks, the
 // i-th chunk being chunk i % per of tile t0 + (i / per) * tstep (K chunk
 // (t0 + (i / per) * tstep) * per + i % per). A contiguous K range [c0, c1)
-// is {c0, 1, c1 - c0, 1}.
+// is {c0, 1, c1 - c0, 1}. The weight's K row of a chunk is the rows' one
+// less `wgap` a tile before it: rows whose tiles are padded to whole chunks
+// (per * chunk K values) against a weight whose tiles are not.
 struct DgChunks {
   int t0, tstep, ntiles, per;
+  int wgap = 0;
   __device__ __forceinline__ int count() const { return ntiles * per; }
 };
 
-// One product's weight: int8 (K, N), or int4 packed (K / 2, N) with its
-// (K / 128, N) shifts; loaded by TMA (w_map, sh_map) when `tma`.
+// One product's weight: int8 (K, N), int4 packed (K / 2, N) with its
+// (K / 128, N) shifts, or bf16 (K, N); loaded by TMA (w_map, sh_map) when
+// `tma` (always for bf16), else by the producer's own loads.
 struct DgWeight {
   const int8_t* w;
   int k, n;
@@ -166,7 +177,9 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
   for (int i = from; i < to; ++i) {
     if (round > 0) mbar_wait(&r.empty[next], (round - 1) & 1);
     const int s = next;
-    const int k0 = ((ch.t0 + tq * ch.tstep) * ch.per + tc) * Op::kKC;
+    const int tile = ch.t0 + tq * ch.tstep;
+    const int k0 = (tile * ch.per + tc) * Op::kKC;
+    const int kw = k0 - tile * ch.wgap;   // the weight's K row
     if (++next == r.stages) {
       next = 0;
       ++round;
@@ -180,10 +193,13 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
       if (rows.tma) tma_load_2d(r.x(s), x_map, &r.full[s], k0, m0);
       if (wt.tma) {
         if constexpr (kKind == kDgI4) {
-          tma_load_2d(r.w(s), w_map, &r.full[s], n0, k0 / 2);
-          tma_load_2d(r.w(s) + kDgKC / 2 * 128, sh_map, &r.full[s], n0, k0 / kDgKC);
+          tma_load_2d(r.w(s), w_map, &r.full[s], n0, kw / 2);
+          tma_load_2d(r.w(s) + kDgKC / 2 * 128, sh_map, &r.full[s], n0, kw / kDgKC);
+        } else if constexpr (kKind == kDgBW) {
+          tma_load_2d(r.w(s), w_map, &r.full[s], n0, kw);
+          tma_load_2d(r.w(s) + kDgBWBytes / 2, w_map, &r.full[s], n0 + 64, kw);
         } else {
-          tma_load_2d(r.w(s), w_map, &r.full[s], n0, k0);
+          tma_load_2d(r.w(s), w_map, &r.full[s], n0, kw);
         }
       }
     }
@@ -206,13 +222,13 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
         *reinterpret_cast<int4*>(dst + row * 128 + ((c ^ (row & 7)) << 4)) = v;
       }
     }
-    if (!wt.tma) {
+    if (kKind != kDgBW && !wt.tma) {   // a bf16 weight is always loaded by TMA
       unsigned char* dst = r.w(s);
 #pragma unroll
       for (int u = ptid; u < Op::kKC * 8; u += 128) {
         const int row = u >> 3, c = u & 7;
         *reinterpret_cast<int4*>(dst + row * 128 + ((c ^ (row & 7)) << 4)) =
-            load16(wt.w, k0 + row, n0 + 16 * c, wt.k, wt.n, (size_t)wt.n, vec_w);
+            load16(wt.w, kw + row, n0 + 16 * c, wt.k, wt.n, (size_t)wt.n, vec_w);
       }
     }
     fence_proxy_async();
@@ -241,6 +257,11 @@ struct DgLane {
   }
   __device__ __forceinline__ int row(int i) const { return 8 * (i / 4) + 2 * (lane & 3) + (i & 1); }
   __device__ __forceinline__ int column(int i) const { return col + ((i & 3) >> 1); }
+  // A bf16 weight's products (dg_mma_bw) keep wgmma's own row order: entry
+  // i is column 64 wg + 16 warp + lane / 4 + 8 ((i % 4) / 2).
+  __device__ __forceinline__ int bw_column(int i) const {
+    return 64 * wg + 16 * warp + (lane >> 2) + 8 * ((i & 3) >> 1);
+  }
 };
 
 // The A fragments of the chunk in stage s (int8; int4 with the lane's two
@@ -267,6 +288,22 @@ __device__ __forceinline__ void dg_mma(const unsigned char* b, const uint32_t (&
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     QmMma<DgOp<kKind>::kW8, BR>::run(acc, a[kk], sw128_desc(b + 32 * kk, 16, 1024), 1);
+  wg_commit();
+}
+
+// Four wgmma (m64nBRk16 bf16) of one chunk of a bf16 weight: this
+// warpgroup's 64 weight columns are column block `wg` of the stage's weight
+// tile `w`, MN-major (k16 step kk: its K rows 16 kk .. 16 kk + 15), against
+// the rows' K-major tile `b`; one commit group.
+template <int BR>
+__device__ __forceinline__ void dg_mma_bw(const unsigned char* w, const unsigned char* b, int wg,
+                                          float (&acc)[BR / 2]) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    BwMma<BR>::run(acc,
+                   sw128_desc(w + wg * (kDgBWBytes / 2) + kk * 16 * 128, kDgBWBytes / 2, 1024),
+                   sw128_desc(b + 32 * kk, 16, 1024), 1);
   wg_commit();
 }
 
@@ -298,6 +335,27 @@ __device__ __forceinline__ void dg_consume(const DgRing& r, const DgLane& L, int
     __syncwarp();
     if (L.lane == 0) mbar_arrive(&r.empty[st]);
   };
+  if constexpr (kKind == kDgBW) {
+    // No fragments to build: position i's products are issued while
+    // position i - 1's run, whose stage is released once they complete.
+    int prev = s;
+    mbar_wait(&r.full[s], ph);
+    dg_mma_bw<BR>(r.w(s), r.x(s), L.wg, acc);
+    next();
+    for (int i = i0 + 1; i < i1; ++i) {
+      mbar_wait(&r.full[s], ph);
+      dg_mma_bw<BR>(r.w(s), r.x(s), L.wg, acc);
+      wg_wait<1>();
+      release(prev);
+      prev = s;
+      next();
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int j = 0; j < BR / 2; ++j) acc_fence(acc[j]);
+    release(prev);
+    return;
+  }
   uint32_t a0[4][4];
   if (BR > 64 || r.stages < 2) {
     for (int i = i0; i < i1; ++i) {
@@ -458,6 +516,33 @@ cudaError_t dg_allow(Kern kernel, size_t smem, bool nonportable) {
   if (err == cudaSuccess && nonportable)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess) allowed[key] = std::make_pair(smem, nonportable);
+  return err;
+}
+
+// hopper.cuh::make_map_2d through a cache keyed by all the map is made of,
+// so that a cached map is the one an encode would give: a decode step makes
+// the same maps (the same weights, the same scratch) every layer, and each
+// encode costs host time. Emptied when it holds 4096 maps.
+inline int dg_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                     int elem_bytes, uint64_t inner, uint64_t outer, uint32_t box_inner,
+                     uint32_t box_outer, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  typedef std::tuple<const void*, int, int, uint64_t, uint64_t, uint32_t, uint32_t, int> Key;
+  static std::mutex mu;
+  static std::map<Key, CUtensorMap> maps;
+  const Key key(base, static_cast<int>(type), elem_bytes, inner, outer, box_inner, box_outer,
+                static_cast<int>(swizzle));
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = maps.find(key);
+  if (it != maps.end()) {
+    *map = it->second;
+    return 0;
+  }
+  const int err =
+      make_map_2d(map, base, type, elem_bytes, inner, outer, box_inner, box_outer, swizzle);
+  if (err == 0) {
+    if (maps.size() >= 4096) maps.clear();
+    maps.emplace(key, *map);
+  }
   return err;
 }
 

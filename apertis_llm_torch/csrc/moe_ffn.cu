@@ -26,161 +26,192 @@
 // 1.5B MoE model, 2 * S * H * E*I int8 operations each way), operations
 // from a few hundred rows up.
 //
-// Design: a whole-expert tile (bn = 2816 at the preset) of f32 hidden rows
-// does not fit in a block's shared memory, so the kernel is three launches,
-// each spread over the card, with exact int32 sums on the tensor cores
-// (moe_gemm.cuh):
-//   1. moe_gemm1_kernel: GEMM1 + dequantization + bias + activation for a
-//      (64 rows, 128 columns) block; the f32 hidden goes to an (S, E*I)
-//      buffer and each (row, tile) absmax to (S, tiles) by atomicMax;
-//   2. moe_fat_gemm2_kernel: one block per (128 output columns, part of one
-//      tile, 64 rows) quantizes its hidden rows as it stages them and
-//      writes the exact int32 partial product of its part of the tile;
-//   3. moe_fat_reduce_kernel: per output element, adds each tile's int32
-//      parts (exact), scales by hs * combine, and adds the tiles in tile
-//      order in f32 (the TPU kernel's order), then applies w2t_s.
+// Design: the decode FFN's int8 products (quant_ffn.cuh on decode_gemm.cuh:
+// swapped-operand int8 wgmma, the weight as the register A operand built
+// from TMA-staged tiles, int4 nibbles unpacked in registers, a TMA ring that
+// a producer warpgroup keeps full) with the combine weight in each tile's
+// scale, on the plan of ops/kernels/decode_plan.py::fat_plan:
+//   1. ffn_up_kernel: GEMM1 (K = H, TMA zero-fills the tail) for 128 hidden
+//      columns and a row tile a block. Where a tile is at most 16 blocks of
+//      128 columns (bn 128 at the 3B preset and at I = 256), its blocks form
+//      a cluster that requantizes the tile in the epilogue into hq and hs.
+//      A wider tile (bn 2816 at the 1.5B preset: 22 blocks) writes the f32
+//      hidden (5.8 MB at 64 rows, in L2) and each (row, tile) absmax by an
+//      order-free atomicMax; fat_quant_kernel then writes hq and hs, each
+//      tile of hq padded with zeros to whole 128-column chunks.
+//   2. ffn_down_kernel: GEMM2 (K = E*I) for 128 output columns and a row
+//      tile a block, the tiles split over a cluster whose owners add each
+//      tile's float(acc_t) * (hs * combine[:, e(t)]) in tile order; out =
+//      acc * w2t_s.
 // No float atomics: repeated calls give the same bits. A row whose combine
 // weight for an expert is 0 contributes exactly 0 to that expert's tiles, so
-// blocks in which no row routes to the expert are skipped in launches 1 and
-// 2, and the reduce skips those (row, tile) terms. The int4 layout runs the
-// same launches; moe_gemm.cuh unpacks the B panels as it stages them, so the
-// weights cross device memory at half the int8 bytes (the bound at decode).
+// GEMM1 skips the blocks in which no row routes to the expert of their
+// columns and GEMM2 the tiles of such an expert: their weight is not read.
 
-#include "moe_gemm.cuh"
+#include <string.h>
+
+#include "quant_ffn.cuh"
 
 namespace {
 
-template <bool kI4>
-__global__ void __launch_bounds__(kBlock) moe_fat_gemm2_kernel(
-    const float* __restrict__ hidden,  // (S, E*I)
-    const float* __restrict__ absmax,  // (S, tiles)
-    const float* __restrict__ comb,    // (S, E)
-    const int8_t* __restrict__ w2,     // (E*I, H), int4: (E*I / 2, H)
-    const int8_t* __restrict__ w2sh,   // int4 only: (E*I / 128, H)
-    int* __restrict__ partial,         // (tiles * ksplit, S, H)
-    int rows, int d_model, int ei, int bn, int tiles_per_expert, int num_experts,
-    int ksplit) {
-  __shared__ __align__(128) GemmSmem sm;
-  __shared__ float hs[kGemmM];
-  const int tiles = ei / bn;
-  const int t = blockIdx.y / ksplit;
-  const int part = blockIdx.y - t * ksplit;
-  const int e = t / tiles_per_expert;
-  const int row0 = blockIdx.z * kGemmM;
-  const int col0 = blockIdx.x * kGemmN;
-  const int live_rows = min(kGemmM, rows - row0);
-  int live = 0;
-  for (int i = threadIdx.x; i < kGemmM; i += kBlock) {
-    float s = 1.f;
-    if (i < live_rows) {
-      const size_t r = row0 + i;
-      s = fmaxf(absmax[r * tiles + t], 1e-8f) * (1.f / 127.f);
-      if (comb[r * num_experts + e] != 0.f) live = 1;
+// The wide form's requantization, one block per (tile, row): hs = max(
+// absmax, 1e-8) * (1/127) and hq[r, t * bnp + j] = rint(hidden[r, t * bn +
+// j] / hs) for j < bn, 0 up to bnp (bn and bnp multiples of 16 and 128).
+__global__ void __launch_bounds__(kBlock) fat_quant_kernel(
+    const float* __restrict__ hidden,   // (S, E*I)
+    const float* __restrict__ absmax,   // (S, tiles)
+    int8_t* __restrict__ hq,            // (S, tiles * bnp)
+    float* __restrict__ hs,             // (S, tiles)
+    int ei, int bn, int bnp) {
+  const int t = blockIdx.x, tiles = gridDim.x;
+  const size_t r = blockIdx.y;
+  const float s = fmaxf(absmax[r * tiles + t], 1e-8f) * (1.f / 127.f);
+  if (threadIdx.x == 0) hs[r * tiles + t] = s;
+  const float* src = hidden + r * ei + (size_t)t * bn;
+  int8_t* dst = hq + (r * tiles + t) * bnp;
+  for (int j = 4 * threadIdx.x; j < bnp; j += 4 * kBlock) {
+    uint32_t w = 0;
+    if (j < bn) {
+      const float4 v = *reinterpret_cast<const float4*>(src + j);
+      w = (uint32_t)(uint8_t)quant_level(__fdiv_rn(v.x, s)) |
+          (uint32_t)(uint8_t)quant_level(__fdiv_rn(v.y, s)) << 8 |
+          (uint32_t)(uint8_t)quant_level(__fdiv_rn(v.z, s)) << 16 |
+          (uint32_t)(uint8_t)quant_level(__fdiv_rn(v.w, s)) << 24;
     }
-    hs[i] = s;
-  }
-  if (!__syncthreads_or(live)) return;
-  const int chunks = (bn + kGemmK - 1) / kGemmK;
-  const int per_part = (chunks + ksplit - 1) / ksplit;
-  const int k_begin = min(bn, part * per_part * kGemmK);
-  const int k_end = min(bn, (part + 1) * per_part * kGemmK);
-  const size_t k_off = (size_t)t * bn + k_begin;
-  if constexpr (kI4)
-    block_gemm_i8<true, true>(hidden + (size_t)row0 * ei + k_off, ei, live_rows, hs, w2 + col0,
-                              d_model, min(kGemmN, d_model - col0), k_end - k_begin, sm,
-                              w2sh + col0, (int)k_off);
-  else
-    block_gemm_i8<true>(hidden + (size_t)row0 * ei + k_off, ei, live_rows, hs,
-                        w2 + k_off * d_model + col0, d_model, min(kGemmN, d_model - col0),
-                        k_end - k_begin, sm);
-  int* dst = partial + ((size_t)blockIdx.y * rows + row0) * d_model;
-  for (int i = threadIdx.x; i < kGemmM * kGemmN; i += kBlock) {
-    const int r = i / kGemmN;
-    const int j = col0 + (i - r * kGemmN);
-    if (r < live_rows && j < d_model) dst[(size_t)r * d_model + j] = sm.c[i];
+    *reinterpret_cast<uint32_t*>(dst + j) = w;
   }
 }
 
-__global__ void __launch_bounds__(kBlock) moe_fat_reduce_kernel(
-    const int* __restrict__ partial,   // (tiles * ksplit, S, H)
-    const float* __restrict__ absmax,  // (S, tiles)
-    const float* __restrict__ comb,    // (S, E)
-    const float* __restrict__ w2s,     // (H,)
-    float* __restrict__ out,           // (S, H)
-    int rows, int d_model, int tiles, int ksplit, int tiles_per_expert, int num_experts) {
-  const size_t n = (size_t)rows * d_model;
-  const size_t i = (size_t)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
-  const size_t r = i / d_model;
-  const int c = (int)(i - r * d_model);
-  float acc = 0.f;
-  for (int t = 0; t < tiles; ++t) {
-    const float col = comb[r * num_experts + t / tiles_per_expert];
-    if (col == 0.f) continue;  // the term is exactly 0
-    const float hs = fmaxf(absmax[r * tiles + t], 1e-8f) * (1.f / 127.f);
-    int a = 0;
-    for (int j = 0; j < ksplit; ++j) a += partial[(size_t)(t * ksplit + j) * n + i];
-    acc = __fadd_rn(acc, __fmul_rn((float)a, __fmul_rn(hs, col)));
+// The launches of the int8 (kI4 false) or int4 fat layout at a row tile of
+// BR rows; up_cluster (the blocks of a tile, 0 for the wide form), split,
+// group and the stages are the host's plan.
+template <bool kI4, int BR>
+int fat_run(const void* xq, const void* xs, const void* comb, const void* w1, const void* w1sh,
+            const void* w1s, const void* b1, const void* w2, const void* w2sh, const void* w2s,
+            void* out, void* hq, void* hs, void* hidden, void* absmax, int rows, int d_model,
+            int ei, int experts, int bn, int act, int up_cluster, int split, int group,
+            int st_up, int st_down, cudaStream_t s) {
+  const int tiles = ei / bn, bnp = (bn + kDgKC - 1) / kDgKC * kDgKC;
+  const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUtensorMap xm, w1m, s1m, hqm, w2m, s2m;
+  memset(&s1m, 0, sizeof(s1m));   // unused by the int8 layout
+  memset(&s2m, 0, sizeof(s2m));
+  const int wrows = kI4 ? kDgKC / 2 : kDgKC;   // weight rows a chunk
+  int err = dg_map_2d(&xm, xq, u8, 1, d_model, rows, 128, BR);
+  if (err == 0) err = dg_map_2d(&w1m, w1, u8, 1, ei, kI4 ? d_model / 2 : d_model, 128, wrows);
+  if (err == 0) err = dg_map_2d(&hqm, hq, u8, 1, (uint64_t)tiles * bnp, rows, 128, BR);
+  if (err == 0) err = dg_map_2d(&w2m, w2, u8, 1, d_model, kI4 ? ei / 2 : ei, 128, wrows);
+  if (kI4 && err == 0)
+    err = dg_map_2d(&s1m, w1sh, u8, 1, ei, d_model / kDgKC, 128, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (kI4 && err == 0)
+    err = dg_map_2d(&s2m, w2sh, u8, 1, d_model, ei / kDgKC, 128, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  const uint32_t stage = BR * 128 + w_tile_bytes<kI4>();
+  const int row_tiles = (rows + BR - 1) / BR;
+  UpArgs up = {};
+  up.xs = static_cast<const float*>(xs);
+  up.w1s = static_cast<const float*>(w1s);
+  up.b1 = b1;
+  up.hq = static_cast<int8_t*>(hq);
+  up.hs = static_cast<float*>(hs);
+  up.comb = static_cast<const float*>(comb);
+  up.hidden = static_cast<float*>(hidden);
+  up.absmax = static_cast<float*>(absmax);
+  up.rows = rows;
+  up.k = d_model;
+  up.n = ei;
+  up.bn = bn;
+  up.act = act;
+  up.stages = st_up;
+  up.cs = up_cluster;
+  up.inter = ei / experts;
+  up.experts = experts;
+  if (up_cluster == 0) {
+    err = static_cast<int>(
+        cudaMemsetAsync(absmax, 0, (size_t)rows * tiles * sizeof(float), s));
+    if (err != 0) return err;
   }
-  out[i] = __fmul_rn(acc, w2s[c]);
+  err = dg_launch(ffn_up_kernel<kI4, BR, true>, dim3((ei + kDgCols - 1) / kDgCols, row_tiles),
+                  dim3(kThreads), up_cluster > 1 ? up_cluster : 1,
+                  dg_smem_bytes(BR, st_up, stage, 1, ffn_up_extra(BR)), s, xm, w1m, s1m, up);
+  if (err != 0) return err;
+  if (up_cluster == 0)
+    fat_quant_kernel<<<dim3(tiles, rows), kBlock, 0, s>>>(
+        static_cast<const float*>(hidden), static_cast<const float*>(absmax),
+        static_cast<int8_t*>(hq), static_cast<float*>(hs), ei, bn, bnp);
+  DownArgs down = {};
+  down.hs = static_cast<const float*>(hs);
+  down.w2s = static_cast<const float*>(w2s);
+  down.out = out;
+  down.comb = static_cast<const float*>(comb);
+  down.rows = rows;
+  down.n = d_model;
+  down.k = ei;
+  down.bn = bn;
+  down.split = split;
+  down.stages = st_down;
+  down.per = bnp / kDgKC;
+  down.group = group;
+  down.tile_experts = ei / experts / bn;
+  down.experts = experts;
+  err = dg_launch(ffn_down_kernel<kI4, BR, true>,
+                  dim3(((d_model + kDgCols - 1) / kDgCols) * split, row_tiles), dim3(kThreads),
+                  split,
+                  dg_smem_bytes(BR, st_down, stage, 1,
+                                ffn_down_extra(BR, split, group, experts)),
+                  s, hqm, w2m, s2m, down);
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }
 
-// The three launches of the int8 (kI4 false) or int4 fat layout.
 template <bool kI4>
-cudaError_t fat_launch(const void* xq, const void* xs, const void* comb, const void* w1q,
-                       const void* w1sh, const void* w1s, const void* b1, const void* w2q,
-                       const void* w2sh, const void* w2s, void* out, void* hidden,
-                       void* absmax, void* partial, int rows, int d_model, int ei,
-                       int num_experts, int bn, int ksplit, int act, cudaStream_t s) {
-  const int tiles = ei / bn;
-  const int tiles_per_expert = ei / num_experts / bn;
-  const int row_tiles = (rows + kGemmM - 1) / kGemmM;
-  cudaError_t err = cudaMemsetAsync(absmax, 0, (size_t)rows * tiles * sizeof(float), s);
-  if (err != cudaSuccess) return err;
-  moe_gemm1_kernel<kI4><<<dim3((ei + kGemmN - 1) / kGemmN, row_tiles), kBlock, 0, s>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-      static_cast<const float*>(comb), nullptr, static_cast<const int8_t*>(w1q),
-      static_cast<const int8_t*>(w1sh), static_cast<const float*>(w1s),
-      static_cast<const float*>(b1), static_cast<float*>(hidden), static_cast<float*>(absmax),
-      rows, d_model, ei, ei, bn, tiles_per_expert, num_experts, act);
-  moe_fat_gemm2_kernel<kI4><<<dim3((d_model + kGemmN - 1) / kGemmN, tiles * ksplit,
-                                   row_tiles), kBlock, 0, s>>>(
-      static_cast<const float*>(hidden), static_cast<const float*>(absmax),
-      static_cast<const float*>(comb), static_cast<const int8_t*>(w2q),
-      static_cast<const int8_t*>(w2sh), static_cast<int*>(partial), rows, d_model, ei, bn,
-      tiles_per_expert, num_experts, ksplit);
-  const size_t n = (size_t)rows * d_model;
-  moe_fat_reduce_kernel<<<(unsigned)((n + kBlock - 1) / kBlock), kBlock, 0, s>>>(
-      static_cast<const int*>(partial), static_cast<const float*>(absmax),
-      static_cast<const float*>(comb), static_cast<const float*>(w2s),
-      static_cast<float*>(out), rows, d_model, tiles, ksplit, tiles_per_expert, num_experts);
-  return cudaGetLastError();
-}
-
-bool fat_shape_ok(int rows, int d_model, int ei, int num_experts, int bn, int ksplit,
-                  int align) {
-  return rows > 0 && num_experts > 0 && ei % num_experts == 0 && d_model % align == 0 &&
-         bn > 0 && bn % align == 0 && (ei / num_experts) % bn == 0 && ksplit >= 1;
+int fat_dispatch(const void* xq, const void* xs, const void* comb, const void* w1,
+                 const void* w1sh, const void* w1s, const void* b1, const void* w2,
+                 const void* w2sh, const void* w2s, void* out, void* hq, void* hs, void* hidden,
+                 void* absmax, int rows, int d_model, int ei, int experts, int bn, int act,
+                 int row_tile, int up_cluster, int split, int group, int st_up, int st_down,
+                 void* stream) {
+  const int align = kI4 ? kDgKC : 16;
+  if (rows <= 0 || experts <= 0 || ei % experts != 0 || d_model <= 0 || d_model % align != 0 ||
+      bn <= 0 || bn % align != 0 || (ei / experts) % bn != 0 || split < 1 || split > 16 ||
+      split > ei / bn || group < 1 || group > kMaxGroup || st_up < 1 || st_down < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // The cluster form needs whole 128-column blocks, at most kMaxUpCluster.
+  if (up_cluster != 0 && (bn % kDgCols != 0 || up_cluster != bn / kDgCols ||
+                          up_cluster > kMaxUpCluster))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (row_tile == 16)
+    return fat_run<kI4, 16>(xq, xs, comb, w1, w1sh, w1s, b1, w2, w2sh, w2s, out, hq, hs, hidden,
+                            absmax, rows, d_model, ei, experts, bn, act, up_cluster, split,
+                            group, st_up, st_down, s);
+  if (row_tile == 64)
+    return fat_run<kI4, 64>(xq, xs, comb, w1, w1sh, w1s, b1, w2, w2sh, w2s, out, hq, hs, hidden,
+                            absmax, rows, d_model, ei, experts, bn, act, up_cluster, split,
+                            group, st_up, st_down, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // The fat MoE FFN for S rows. H and I multiples of 16, bn a multiple of 16
-// dividing I, pointers 16-byte aligned. hidden (S, E*I) f32, absmax
-// (S, E*I / bn) f32 and partial (E*I / bn * ksplit, S, H) int32 are scratch
-// the caller allocates; absmax is zeroed here. act: 1 relu, 2 silu, else
-// exact GELU. Returns cudaGetLastError().
+// dividing I, every tensor 16-byte aligned. hq (S, E*I / bn * bnp) int8 (bnp:
+// bn rounded up to 128) and hs (S, E*I / bn) f32 are scratch the caller
+// allocates; so are, for the wide form (up_cluster 0), hidden (S, E*I) f32
+// and absmax (S, E*I / bn) f32, which is zeroed here (else they may be
+// null). act: 1 relu, 2 silu, else exact GELU. row_tile (16 or 64),
+// up_cluster, split, group and the two stage counts are the plan of
+// ops/kernels/decode_plan.py::fat_plan. Returns cudaGetLastError(), or
+// cudaErrorInvalidResourceHandle if a tensor map cannot be made.
 extern "C" int apertis_expert_ffn_fat(const void* xq, const void* xs, const void* comb,
                                       const void* w1q, const void* w1s, const void* b1,
-                                      const void* w2q, const void* w2s, void* out,
-                                      void* hidden, void* absmax, void* partial, int rows,
-                                      int d_model, int ei, int num_experts, int bn,
-                                      int ksplit, int act, void* stream) {
-  if (!fat_shape_ok(rows, d_model, ei, num_experts, bn, ksplit, 16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(fat_launch<false>(
-      xq, xs, comb, w1q, nullptr, w1s, b1, w2q, nullptr, w2s, out, hidden, absmax, partial,
-      rows, d_model, ei, num_experts, bn, ksplit, act, static_cast<cudaStream_t>(stream)));
+                                      const void* w2q, const void* w2s, void* out, void* hq,
+                                      void* hs, void* hidden, void* absmax, int rows,
+                                      int d_model, int ei, int num_experts, int bn, int act,
+                                      int row_tile, int up_cluster, int split, int group,
+                                      int st_up, int st_down, void* stream) {
+  return fat_dispatch<false>(xq, xs, comb, w1q, nullptr, w1s, b1, w2q, nullptr, w2s, out, hq,
+                             hs, hidden, absmax, rows, d_model, ei, num_experts, bn, act,
+                             row_tile, up_cluster, split, group, st_up, st_down, stream);
 }
 
 // The int4 fat MoE FFN: as apertis_expert_ffn_fat, with the packs and their
@@ -188,13 +219,33 @@ extern "C" int apertis_expert_ffn_fat(const void* xq, const void* xs, const void
 extern "C" int apertis_expert_ffn_fat_int4(const void* xq, const void* xs, const void* comb,
                                            const void* w1q4, const void* w1sh, const void* w1s,
                                            const void* b1, const void* w2q4, const void* w2sh,
-                                           const void* w2s, void* out, void* hidden,
-                                           void* absmax, void* partial, int rows, int d_model,
-                                           int ei, int num_experts, int bn, int ksplit, int act,
-                                           void* stream) {
-  if (!fat_shape_ok(rows, d_model, ei, num_experts, bn, ksplit, 128))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(fat_launch<true>(
-      xq, xs, comb, w1q4, w1sh, w1s, b1, w2q4, w2sh, w2s, out, hidden, absmax, partial, rows,
-      d_model, ei, num_experts, bn, ksplit, act, static_cast<cudaStream_t>(stream)));
+                                           const void* w2s, void* out, void* hq, void* hs,
+                                           void* hidden, void* absmax, int rows, int d_model,
+                                           int ei, int num_experts, int bn, int act,
+                                           int row_tile, int up_cluster, int split, int group,
+                                           int st_up, int st_down, void* stream) {
+  return fat_dispatch<true>(xq, xs, comb, w1q4, w1sh, w1s, b1, w2q4, w2sh, w2s, out, hq, hs,
+                            hidden, absmax, rows, d_model, ei, num_experts, bn, act, row_tile,
+                            up_cluster, split, group, st_up, st_down, stream);
+}
+
+// The resources of one kernel of the fat layouts (kernel: 0 up int8, 1 down
+// int8, 2 up int4, 3 down int4, 4 the wide form's requantization) at a row
+// tile of `row_tile` rows and `smem` bytes of dynamic shared memory
+// (hopper.cuh::kernel_resources), into out[0..4].
+extern "C" int apertis_expert_ffn_fat_resources(int kernel, int row_tile, int smem, int* out) {
+  if (row_tile != 16 && row_tile != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const bool r16 = row_tile == 16;
+  switch (kernel) {
+    case 0: return kernel_resources(r16 ? &ffn_up_kernel<false, 16, true>
+                                        : &ffn_up_kernel<false, 64, true>, kThreads, smem, out);
+    case 1: return kernel_resources(r16 ? &ffn_down_kernel<false, 16, true>
+                                        : &ffn_down_kernel<false, 64, true>, kThreads, smem, out);
+    case 2: return kernel_resources(r16 ? &ffn_up_kernel<true, 16, true>
+                                        : &ffn_up_kernel<true, 64, true>, kThreads, smem, out);
+    case 3: return kernel_resources(r16 ? &ffn_down_kernel<true, 16, true>
+                                        : &ffn_down_kernel<true, 64, true>, kThreads, smem, out);
+    case 4: return kernel_resources(&fat_quant_kernel, kBlock, 0, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

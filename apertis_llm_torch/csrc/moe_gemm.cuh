@@ -1,5 +1,6 @@
-// The int8 tensor-core block product and the first expert GEMM shared by the
-// MoE kernels (moe_ffn.cu, moe_grouped.cu).
+// The int8 tensor-core block product of the per-expert and grouped MoE
+// kernels (moe_dense.cu, moe_grouped.cu) and the grouped layout's first
+// expert GEMM.
 //
 // block_gemm_i8 computes one 64 x 128 tile of an int8 x int8 -> int32
 // product with WMMA fragments (m16n16k16, signed char, exact int32
@@ -36,20 +37,6 @@ struct GemmSmem {
   int c[kGemmM * kGemmN];              // 32 KB, the int32 result
 };
 
-// Four int4-packed bytes (one per column) unpacked to four int8 values of
-// one contraction row: the low or the high nibble of each byte times the
-// byte's shift.
-__device__ __forceinline__ int unpack_int4_word(int packed, int shifts, bool high) {
-  int w = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = (packed << (24 - 8 * i)) >> 24;   // sign-extended byte i
-    const int s = (shifts << (24 - 8 * i)) >> 24;
-    w |= ((int4_nibble(p, high) * s) & 0xff) << (8 * i);
-  }
-  return w;
-}
-
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> FragA8;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> FragB8;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> FragC32;
@@ -58,17 +45,12 @@ typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> FragC32;
 // A row r is at a + r * lda (int8, or f32 when kF32A, then divided by hs[r]
 // and rounded to an int8 level) for r < a_rows, else zero; B row k at
 // b + k * ldb, columns [0, b_cols), else zero. k_len, b_cols, lda and ldb are
-// multiples of 16 and a, b 16-byte aligned. With kI4, B is the packed
-// matrix whose contraction row k_base + k sits in byte row
-// 64 ((k_base + k) / 128) + (k_base + k) % 64, low nibble for the first 64
-// rows of its group, high for the others, with its shifts in row
-// (k_base + k) / 128 of sh (same ldb); k_base is a multiple of 64. Called by
-// all kBlock threads; ends synchronised.
-template <bool kF32A, bool kI4 = false>
+// multiples of 16 and a, b 16-byte aligned. Called by all kBlock threads;
+// ends synchronised.
+template <bool kF32A>
 __device__ void block_gemm_i8(const void* __restrict__ a, int lda, int a_rows,
                               const float* hs, const int8_t* __restrict__ b, int ldb,
-                              int b_cols, int k_len, GemmSmem& sm,
-                              const int8_t* __restrict__ sh = nullptr, int k_base = 0) {
+                              int b_cols, int k_len, GemmSmem& sm) {
   const int warp = threadIdx.x >> 5;
   const int row_tiles = (min(a_rows, kGemmM) + 15) / 16;
   FragC32 acc[4];
@@ -108,20 +90,8 @@ __device__ void block_gemm_i8(const void* __restrict__ a, int lda, int a_rows,
       const int kk = i >> 3;
       const int p = i & 7;
       int4 v = make_int4(0, 0, 0, 0);
-      if (k0 + kk < k_len && p * 16 < b_cols) {
-        if constexpr (kI4) {
-          const int kg = k_base + k0 + kk;
-          const int4 raw = *reinterpret_cast<const int4*>(
-              b + ((size_t)(kg >> 7) * 64 + (kg & 63)) * ldb + p * 16);
-          const int4 shv =
-              *reinterpret_cast<const int4*>(sh + (size_t)(kg >> 7) * ldb + p * 16);
-          const bool high = (kg >> 6) & 1;
-          v = make_int4(unpack_int4_word(raw.x, shv.x, high), unpack_int4_word(raw.y, shv.y, high),
-                        unpack_int4_word(raw.z, shv.z, high), unpack_int4_word(raw.w, shv.w, high));
-        } else {
-          v = *reinterpret_cast<const int4*>(b + (size_t)(k0 + kk) * ldb + p * 16);
-        }
-      }
+      if (k0 + kk < k_len && p * 16 < b_cols)
+        v = *reinterpret_cast<const int4*>(b + (size_t)(k0 + kk) * ldb + p * 16);
       *reinterpret_cast<int4*>(sm.b + p * kPanelB + kk * 16) = v;
     }
     __syncthreads();
@@ -147,57 +117,34 @@ __device__ void block_gemm_i8(const void* __restrict__ a, int lda, int a_rows,
   __syncthreads();
 }
 
-// The first expert GEMM with its epilogue, for one (128 columns, 64 rows)
-// block:
+// The first expert GEMM of the grouped layout with its epilogue, for one
+// (128 columns, 64 rows) block of expert emap[row / 128]'s I columns (base
+// = e * I; a tile whose emap is -1 is skipped):
 //   hidden[r][j] = act(acc1 * x_s[r] * w1_s[base + j] + b1[base + j])
-// over `ncols` columns, and each row's max |hidden| over each tile of `bn`
-// columns into absmax (rows, ncols / bn), zeroed before the launch, by an
-// integer atomicMax on the bits of the non-negative f32 values (exact and
-// order-free). The fat layout (emap == nullptr) reads columns [0, E*I) of
-// W1 and skips a block when no row of it routes to the experts of its
-// columns (comb == 0 there: those rows' terms are multiplied by 0 later).
-// The grouped layout reads expert emap[row / 128]'s I columns (base = e * I)
-// and skips the tiles whose emap is -1. kI4: W1 is int4-packed (D / 2, E*I)
-// with its shifts w1sh (D / 128, E*I).
-template <bool kI4>
+// over the I columns, and each row's max |hidden| into absmax (rows,),
+// zeroed before the launch, by an integer atomicMax on the bits of the
+// non-negative f32 values (exact and order-free).
 __global__ void __launch_bounds__(kBlock) moe_gemm1_kernel(
     const int8_t* __restrict__ xq,     // (rows, D)
     const float* __restrict__ xs,      // (rows, 1)
-    const float* __restrict__ comb,    // (rows, E), fat layout only
-    const int* __restrict__ emap,      // (rows / 128,), grouped layout only
-    const int8_t* __restrict__ w1,     // (D, E*I), int4: (D / 2, E*I)
-    const int8_t* __restrict__ w1sh,   // int4 only: (D / 128, E*I)
+    const int* __restrict__ emap,      // (rows / 128,)
+    const int8_t* __restrict__ w1,     // (D, E*I)
     const float* __restrict__ w1s,     // (E*I,)
     const float* __restrict__ b1,      // (E*I,)
-    float* __restrict__ hidden,        // (rows, ncols)
-    float* __restrict__ absmax,        // (rows, ncols / bn)
-    int rows, int d_model, int ldw, int ncols, int bn, int tiles_per_expert,
-    int num_experts, int act) {
+    float* __restrict__ hidden,        // (rows, I)
+    float* __restrict__ absmax,        // (rows,)
+    int rows, int d_model, int ldw, int ncols, int act) {
   __shared__ __align__(128) GemmSmem sm;
   const int row0 = blockIdx.y * kGemmM;
   const int col0 = blockIdx.x * kGemmN;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  int base = 0;
-  if (emap != nullptr) {
-    const int e = emap[row0 / kGroupRows];
-    if (e < 0) return;
-    base = e * ncols;
-  } else {
-    const int e_lo = col0 / bn / tiles_per_expert;
-    const int e_hi = (min(col0 + kGemmN, ncols) - 1) / bn / tiles_per_expert;
-    int live = 0;
-    for (int i = threadIdx.x; i < kGemmM * (e_hi - e_lo + 1); i += kBlock) {
-      const int r = row0 + i % kGemmM;
-      if (r < rows && comb[(size_t)r * num_experts + e_lo + i / kGemmM] != 0.f) live = 1;
-    }
-    if (!__syncthreads_or(live)) return;
-  }
+  const int e = emap[row0 / kGroupRows];
+  if (e < 0) return;
+  const int base = e * ncols;
   const int live_rows = min(kGemmM, rows - row0);
-  block_gemm_i8<false, kI4>(xq + (size_t)row0 * d_model, d_model, live_rows, nullptr,
-                            w1 + base + col0, ldw, min(kGemmN, ncols - col0), d_model, sm,
-                            kI4 ? w1sh + base + col0 : nullptr);
-  const int tiles = ncols / bn;
+  block_gemm_i8<false>(xq + (size_t)row0 * d_model, d_model, live_rows, nullptr,
+                       w1 + base + col0, ldw, min(kGemmN, ncols - col0), d_model, sm);
   for (int rr = warp; rr < live_rows; rr += kWarps) {
     const size_t r = row0 + rr;
     const float xsr = xs[r];
@@ -214,11 +161,8 @@ __global__ void __launch_bounds__(kBlock) moe_gemm1_kernel(
         hidden[r * ncols + j] = hv;
         mag = fabsf(hv);
       }
-      const int t_last = min(jb + 31, ncols - 1) / bn;
-      for (int t = jb / bn; t <= t_last; ++t) {
-        const float m = warp_max(j < ncols && j / bn == t ? mag : 0.f);
-        if (lane == 0) atomicMax(reinterpret_cast<int*>(absmax) + r * tiles + t, __float_as_int(m));
-      }
+      const float m = warp_max(mag);
+      if (lane == 0) atomicMax(reinterpret_cast<int*>(absmax) + r, __float_as_int(m));
     }
   }
 }

@@ -83,13 +83,11 @@ extern "C" int apertis_expert_ffn_grouped(const void* xq, const void* xs, const 
   const int inter = ei / num_experts;
   cudaError_t err = cudaMemsetAsync(absmax, 0, (size_t)rows * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  moe_gemm1_kernel<false><<<dim3((inter + kGemmN - 1) / kGemmN, rows / kGemmM), kBlock, 0,
-                            s>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs), nullptr,
-      static_cast<const int*>(emap), static_cast<const int8_t*>(w1q), nullptr,
+  moe_gemm1_kernel<<<dim3((inter + kGemmN - 1) / kGemmN, rows / kGemmM), kBlock, 0, s>>>(
+      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
+      static_cast<const int*>(emap), static_cast<const int8_t*>(w1q),
       static_cast<const float*>(w1s), static_cast<const float*>(b1),
-      static_cast<float*>(hidden), static_cast<float*>(absmax), rows, d_model, ei, inter,
-      inter, 1, num_experts, act);
+      static_cast<float*>(hidden), static_cast<float*>(absmax), rows, d_model, ei, inter, act);
   moe_grouped_gemm2_kernel<<<dim3((d_model + kGemmN - 1) / kGemmN, rows / kGemmM), kBlock, 0,
                              s>>>(
       static_cast<const float*>(hidden), static_cast<const float*>(absmax),

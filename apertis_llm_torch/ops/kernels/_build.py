@@ -28,7 +28,7 @@ BUILD_DIR = PACKAGE_ROOT / "_build"
 SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu", "moe_ffn.cu",
            "moe_grouped.cu", "mha_step.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "flash_attention_f32.cu", "quant_matmul.cu", "moe_dense.cu", "scan_carry.cu")
-HEADERS = ("common.cuh", "moe_gemm.cuh", "hopper.cuh", "decode_gemm.cuh")
+HEADERS = ("common.cuh", "moe_gemm.cuh", "hopper.cuh", "decode_gemm.cuh", "quant_ffn.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
 # int8 quantizations rely on.
@@ -58,25 +58,30 @@ SIGNATURES = {
     "apertis_ssm_step_int8_scratch": [_I] * 4,
     # kernel (0 in, 1 mix, 2 out), row_tile, smem, out (5 ints)
     "apertis_ssm_step_int8_resources": [_I, _I, _I, _P],
-    # x, w1, b1, w2, b2, out, partial, S, D, I, chunks_per_part, act, stream
-    "apertis_ffn_decode": [_P] * 7 + [_I] * 5 + [_P],
+    # x, w1, b1, w2, b2, out, hidden, S, D, I, act, row_tile, split_up,
+    # split_down, stages_up, stages_down, stream
+    "apertis_ffn_decode": [_P] * 7 + [_I] * 9 + [_P],
     # x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2, out, hq, hs, S, D, I, bn, act,
     # row_tile, split, stages_up, stages_down, stream
     "apertis_ffn_decode_int8": [_P] * 11 + [_I] * 9 + [_P],
     # x_q, x_s, w1_q4, w1_sh, w1_s, b1, w2_q4, w2_sh, w2_s, b2, out, hq, hs,
     # S, D, I, bn, act, row_tile, split, stages_up, stages_down, stream
     "apertis_ffn_decode_int4": [_P] * 13 + [_I] * 9 + [_P],
-    # kernel (0 up int8, 1 down int8, 2 up int4, 3 down int4), row_tile,
-    # smem, out (5 ints)
+    # kernel (0 up int8, 1 down int8, 2 up int4, 3 down int4, 4 up bf16,
+    # 5 down bf16), row_tile, smem, out (5 ints)
     "apertis_ffn_quant_resources": [_I, _I, _I, _P],
     # x, w, b, q, scale, rows, H, rms, eps, stream
     "apertis_ln_quantize": [_P] * 5 + [_I] * 3 + [_F, _P],
-    # x_q, x_s, comb, w1t_q, w1t_s, b1t, w2t_q, w2t_s, out, hidden, absmax,
-    # partial, S, H, E*I, E, bn, ksplit, act, stream
-    "apertis_expert_ffn_fat": [_P] * 12 + [_I] * 7 + [_P],
+    # x_q, x_s, comb, w1t_q, w1t_s, b1t, w2t_q, w2t_s, out, hq, hs, hidden,
+    # absmax, S, H, E*I, E, bn, act, row_tile, up_cluster, split, group,
+    # stages_up, stages_down, stream
+    "apertis_expert_ffn_fat": [_P] * 13 + [_I] * 12 + [_P],
     # x_q, x_s, comb, w1t_q4, w1t_sh, w1t_s, b1t, w2t_q4, w2t_sh, w2t_s, out,
-    # hidden, absmax, partial, S, H, E*I, E, bn, ksplit, act, stream
-    "apertis_expert_ffn_fat_int4": [_P] * 14 + [_I] * 7 + [_P],
+    # hq, hs, hidden, absmax, S, H, E*I, E, bn, act, the plan (6 ints), stream
+    "apertis_expert_ffn_fat_int4": [_P] * 15 + [_I] * 12 + [_P],
+    # kernel (0 up int8, 1 down int8, 2 up int4, 3 down int4, 4 the wide
+    # form's requantization), row_tile, smem, out (5 ints)
+    "apertis_expert_ffn_fat_resources": [_I, _I, _I, _P],
     # x_q, x_s, emap, w1t_q, w1t_s, b1t, w2t_q, w2t_s, out, hidden, absmax, P,
     # H, E*I, E, act, stream
     "apertis_expert_ffn_grouped": [_P] * 11 + [_I] * 5 + [_P],

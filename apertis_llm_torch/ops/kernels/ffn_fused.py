@@ -1,19 +1,22 @@
 """The dense FFN at decode: ``act(x @ W1 + b1) @ W2 + b2``.
 
-``ffn_decode`` launches the CUDA kernel in ``csrc/ffn_fused.cu`` (a fused
-tensor-core pass that keeps each hidden slice in its block and adds the
-slices of a group across a thread-block cluster, then a small reduce of the
-group partials) for CUDA tensors and runs :func:`ffn_decode_reference`, its
-plain PyTorch version, for CPU tensors. It replaces
+``ffn_decode`` launches the CUDA kernel in ``csrc/ffn_fused.cu`` for CUDA
+tensors and runs :func:`ffn_decode_reference`, its plain PyTorch version,
+for CPU tensors. It replaces
 ``apertis_llm_tpu/ops/pallas/ffn_fused.py::ffn_decode_fused`` with the bf16
-weight layout, with the int8 layout through :func:`ffn_decode_int8` and
-with the int4 layout through :func:`ffn_decode_int4`: two Hopper launches of
-swapped-operand int8 ``wgmma`` products that read each weight once per row
-tile (GEMM1 with the per-(row, hidden tile) requantization across a
-thread-block cluster, then GEMM2 whose K split over a cluster adds the
-tiles' products in tile order), on the plan of
-``ops/kernels/decode_plan.py::ffn_plan``; the int4 layout unpacks the
-nibbles into int8 fragments in registers.
+weight layout: two Hopper launches of swapped-operand bf16 ``wgmma``
+products on ``csrc/decode_gemm.cuh`` (the tree's row-major bf16 weight tile,
+staged by TMA, is wgmma's MN-major A operand in shared memory), GEMM1
+writing the bf16 hidden and GEMM2 streaming it, each splitting K over a
+cluster where its column tiles leave SMs idle, on the plan of
+``ops/kernels/decode_plan.py::bf16_ffn_plan``. The int8 layout runs through
+:func:`ffn_decode_int8` and the int4 layout through :func:`ffn_decode_int4`:
+two Hopper launches of swapped-operand int8 ``wgmma`` products
+(``csrc/quant_ffn.cuh``) that read each weight once per row tile (GEMM1
+with the per-(row, hidden tile) requantization across a thread-block
+cluster, then GEMM2 whose K split over a cluster adds the tiles' products in
+tile order), on the plan of ``ops/kernels/decode_plan.py::ffn_plan``; the
+int4 layout unpacks the nibbles into int8 fragments in registers.
 """
 
 from __future__ import annotations
@@ -30,9 +33,6 @@ from apertis_llm_torch.ops.kernels import _build, decode_plan
 from apertis_llm_torch.ops.kernels.flash_attention import RESOURCE_KEYS
 from apertis_llm_torch.ops.quant import int_mm
 
-_SLICE = 128       # I columns per block and output columns per chunk (csrc)
-_CLUSTER = 8       # I slices per group, one thread-block cluster (csrc)
-_TILE_ROWS = 64    # rows per block
 _ACT_CODES = {"relu": 1, "silu": 2, "swish": 2}   # anything else: exact GELU
 
 
@@ -123,15 +123,6 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _chunks_per_part(rows: int, slices: int, chunks: int, device_index: int) -> int:
-    """Split the output columns into as many parts as it takes for pass 1 to
-    have about one block per SM; a deterministic function of the shape and
-    the card."""
-    row_tiles = -(-rows // _TILE_ROWS)
-    parts = min(chunks, max(1, -(-_sm_count(device_index) // (slices * row_tiles))))
-    return -(-chunks // parts)
-
-
 def ffn_decode(
     x: torch.Tensor,
     w1: torch.Tensor,
@@ -144,7 +135,7 @@ def ffn_decode(
     """The decode FFN: kernel on CUDA tensors, plain version on CPU ones.
 
     The kernel takes contiguous bf16 ``x`` (S, D) and weights, with D and I
-    multiples of 16 and the weights 32-byte aligned, and returns bf16.
+    multiples of 16 and every tensor 16-byte aligned, and returns bf16.
     """
     if x.device.type == "cpu":
         return ffn_decode_reference(x, w1, b1, w2, b2, hidden_act, out_dtype)
@@ -161,20 +152,23 @@ def ffn_decode(
         raise ValueError(f"ffn_decode: out_dtype {out_dtype} not supported")
     if s == 0 or d == 0 or inter == 0 or d % 16 or inter % 16:
         raise ValueError(f"ffn_decode: unsupported shape S={s} D={d} I={inter}")
-    if w1.data_ptr() % 32 or w2.data_ptr() % 32:
-        raise ValueError("ffn_decode: weights must be 32-byte aligned")
-    groups = -(-inter // (_SLICE * _CLUSTER))
-    chunks = -(-d // _SLICE)
-    cpp = _chunks_per_part(s, groups * _CLUSTER, chunks, dev.index)
-    partial = torch.empty((groups, s, d), dtype=torch.float32, device=dev)
+    _build.check_aligned("ffn_decode", x, w1, w2)
+    plan = bf16_plan(x, d, inter)
+    hidden = torch.empty((s, inter), dtype=torch.bfloat16, device=dev)
     out = torch.empty((s, d), dtype=torch.bfloat16, device=dev)
     err = _build.load_library().apertis_ffn_decode(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), partial.data_ptr(), s, d, inter, cpp,
-        _ACT_CODES.get(hidden_act, 0), torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), hidden.data_ptr(), s, d, inter, _ACT_CODES.get(hidden_act, 0),
+        plan.up.rows, plan.up.split, plan.down.split, plan.up.stages, plan.down.stages,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ffn_decode")
     ffn_decode.launches += 1
     return out
+
+
+def bf16_plan(x: torch.Tensor, d: int, inter: int) -> decode_plan.FfnPlan:
+    """The plan of the bf16 FFN for these rows on their card."""
+    return decode_plan.bf16_ffn_plan(x.shape[0], d, inter, _sm_count(x.device.index or 0))
 
 
 def quant_plan(x_q: torch.Tensor, d: int, inter: int, bits: int) -> decode_plan.FfnPlan:
@@ -199,11 +193,11 @@ def _plan_args(plan: decode_plan.FfnPlan) -> tuple:
 
 
 def ffn_quant_resources(bits: int, kernel: str, plan: decode_plan.GemmPlan) -> Dict[str, int]:
-    """What the card gives the int8 (``bits`` 8) or int4 FFN's ``kernel``
-    ("up" or "down") at its plan: registers a thread, shared memory a block
-    in bytes, resident blocks an SM, threads a block and spilled bytes a
-    thread."""
-    code = {"up": 0, "down": 1}[kernel] + (2 if bits == 4 else 0)
+    """What the card gives the int8 (``bits`` 8), int4 (4) or bf16 (16)
+    FFN's ``kernel`` ("up" or "down") at its plan: registers a thread,
+    shared memory a block in bytes, resident blocks an SM, threads a block
+    and spilled bytes a thread."""
+    code = {"up": 0, "down": 1}[kernel] + {8: 0, 4: 2, 16: 4}[bits]
     out = (ctypes.c_int * len(RESOURCE_KEYS))()
     err = _build.load_library().apertis_ffn_quant_resources(code, plan.rows, plan.smem,
                                                             ctypes.addressof(out))

@@ -1,15 +1,20 @@
 """The all-expert MoE FFN kernels: decode, and prefill at small token counts.
 
-``expert_ffn_fat`` launches the CUDA kernel in ``csrc/moe_ffn.cu`` (three
-launches: the int8 GEMM1 with its epilogue and per-(row, tile) absmax, the
-int8 GEMM2 that requantizes the hidden as it reads it, and a fixed-order
-reduce over the tiles) for CUDA tensors and runs
-:func:`expert_ffn_fat_reference`, its plain PyTorch version, for CPU tensors.
-It replaces ``apertis_llm_tpu/ops/pallas/moe_ffn.py::expert_ffn_fat`` with
-the int8 fat stack of ``models/moe_fuse.py``, unstacked: the caller passes
-one layer's tensors. :func:`expert_ffn_fat_int4` is the int4 layout
-(``int4=True``): the same launches over the nibble-packed fat stack, unpacked
-as the weight panels are staged.
+``expert_ffn_fat`` launches the CUDA kernel in ``csrc/moe_ffn.cu`` for CUDA
+tensors and runs :func:`expert_ffn_fat_reference`, its plain PyTorch
+version, for CPU tensors. It replaces
+``apertis_llm_tpu/ops/pallas/moe_ffn.py::expert_ffn_fat`` with the int8 fat
+stack of ``models/moe_fuse.py``, unstacked: the caller passes one layer's
+tensors. The kernel is the decode FFN's pair of Hopper int8 ``wgmma``
+products (``csrc/quant_ffn.cuh`` on ``decode_gemm.cuh``): GEMM1 with the
+per-(row, hidden tile) requantization (across a cluster, or, for tiles
+wider than one, through an f32 hidden and a requantization pass), GEMM2
+whose K split over a cluster adds the tiles' products, scaled by the
+combine weight, in tile order; the weight of an expert that no row routes
+to is not read. The plan is ``ops/kernels/decode_plan.py::fat_plan``.
+:func:`expert_ffn_fat_int4` is the int4 layout (``int4=True``): the same
+launches over the nibble-packed fat stack, unpacked into int8 fragments in
+registers.
 
 :func:`expert_ffn_dense` (``moe_mode="kernel"``, the JAX package's
 ``APERTIS_MOE_FUSED=kernel``) launches the per-expert kernel of
@@ -22,17 +27,20 @@ per-expert stack of ``models/moe_fuse.py::fuse_moe_decode_params``, or runs
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import Dict, Tuple
 
 import torch
 
 from apertis_llm_torch.models.quantize import unpack_int4
 from apertis_llm_torch.ops.activations import get_activation
-from apertis_llm_torch.ops.kernels import _build
+from apertis_llm_torch.ops.kernels import _build, decode_plan
+from apertis_llm_torch.ops.kernels.flash_attention import RESOURCE_KEYS
 from apertis_llm_torch.ops.quant import int_mm
 
 _ACT_CODES = {"relu": 1, "silu": 2, "swish": 2}   # anything else: exact GELU
-_GEMM_M, _GEMM_N, _GEMM_K = 64, 128, 64           # csrc/moe_gemm.cuh block tile
+_GEMM_M, _GEMM_N, _GEMM_K = 64, 128, 64           # csrc/moe_gemm.cuh block tile (#11)
 _BLOCK_N = 2816     # the TPU kernel's default tile width (moe_ffn.py:270)
 
 
@@ -108,12 +116,65 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _ksplit(rows: int, d: int, tiles: int, bn: int, device_index: int) -> int:
-    """Parts each hidden tile's GEMM2 is cut into, for about two blocks per
-    SM; a deterministic function of the shape and the card (the int32 parts
-    add exactly, so it does not change the result)."""
-    blocks = -(-d // _GEMM_N) * tiles * -(-rows // _GEMM_M)
-    return max(1, min(-(-bn // _GEMM_K), -(-2 * _sm_count(device_index) // blocks)))
+def fat_plan(xq: torch.Tensor, d: int, inter: int, num_experts: int,
+             bits: int) -> decode_plan.FatPlan:
+    """The plan of the int8 (bits 8) or int4 fat kernel for these rows on
+    their card."""
+    return decode_plan.fat_plan(xq.shape[0], d, inter, num_experts, fat_block_n(inter), bits,
+                                _sm_count(xq.device.index or 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _fat_scratch(s: int, ei: int, bn: int, wide: bool) -> Tuple[int, int, int, int, int]:
+    """Byte offsets, each 256-byte aligned, of the fat kernel's scratch in
+    one buffer (one allocation a call): hq (S, tiles * bnp) int8, hs (S,
+    tiles) f32 and, in the wide form, hidden (S, E*I) f32 and absmax (S,
+    tiles) f32; and the buffer's size. -1: not used."""
+    tiles, bnp = ei // bn, -(-bn // 128) * 128
+    sizes = [s * tiles * bnp, s * tiles * 4, s * ei * 4 if wide else 0,
+             s * tiles * 4 if wide else 0]
+    offsets, at = [], 0
+    for size in sizes:
+        offsets.append(at if size else -1)
+        at += -(-size // 256) * 256
+    return (*offsets, at)
+
+
+def _fat_launch(name: str, xq: torch.Tensor, inter: int, num_experts: int, bits: int,
+                tensors: tuple, hidden_act: str) -> torch.Tensor:
+    """Allocate the scratch of the fat kernel's plan and call its C entry
+    point ``name`` with the input ``tensors`` (x_q, x_s, combine and the
+    stack); f32 (S, H) out."""
+    s, d = xq.shape
+    dev = xq.device
+    ei = inter * num_experts
+    bn = fat_block_n(inter)
+    plan = fat_plan(xq, d, inter, num_experts, bits)
+    *offsets, size = _fat_scratch(s, ei, bn, plan.up.split == 0)
+    scratch = torch.empty((size,), dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
+    hq, hs, hidden, absmax = (None if off < 0 else base + off for off in offsets)
+    out = torch.empty((s, d), dtype=torch.float32, device=dev)
+    err = getattr(_build.load_library(), name)(
+        *(t.data_ptr() for t in tensors), out.data_ptr(), hq, hs, hidden, absmax, s, d, ei,
+        num_experts, bn, _ACT_CODES.get(hidden_act, 0), plan.up.rows, plan.up.split,
+        plan.down.split, plan.group, plan.up.stages, plan.down.stages,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, name)
+    return out
+
+
+def fat_resources(bits: int, kernel: str, plan: decode_plan.GemmPlan) -> Dict[str, int]:
+    """What the card gives the int8 (``bits`` 8) or int4 fat kernel's
+    ``kernel`` ("up", "down", or "quant", the wide form's requantization)
+    at its plan: registers a thread, shared memory a block in bytes,
+    resident blocks an SM, threads a block and spilled bytes a thread."""
+    code = 4 if kernel == "quant" else {"up": 0, "down": 1}[kernel] + (2 if bits == 4 else 0)
+    out = (ctypes.c_int * len(RESOURCE_KEYS))()
+    err = _build.load_library().apertis_expert_ffn_fat_resources(
+        code, plan.rows, 0 if kernel == "quant" else plan.smem, ctypes.addressof(out))
+    _build.check(err, "fat_resources")
+    return dict(zip(RESOURCE_KEYS, out))
 
 
 def expert_ffn_fat(
@@ -131,7 +192,8 @@ def expert_ffn_fat(
     """The fat MoE FFN: kernel on CUDA tensors, plain version on CPU ones.
 
     The kernel takes contiguous tensors of the dtypes above, H and I
-    multiples of 16 and 16-byte aligned operands, and returns f32 (S, H).
+    multiples of 16 and 16-byte aligned int8 operands, and returns f32
+    (S, H).
     """
     if xq.device.type == "cpu":
         return expert_ffn_fat_reference(xq, xs, combine, w1t_q, w1t_s, b1t, w2t_q, w2t_s,
@@ -153,19 +215,8 @@ def expert_ffn_fat(
         raise ValueError(f"expert_ffn_fat: unsupported shape S={s} H={d} E*I={ei} "
                          f"E={num_experts}")
     _build.check_aligned("expert_ffn_fat", xq, w1t_q, w2t_q)
-    bn = fat_block_n(inter)
-    tiles = ei // bn
-    ksplit = _ksplit(s, d, tiles, bn, dev.index)
-    hidden = torch.empty((s, ei), dtype=torch.float32, device=dev)
-    absmax = torch.empty((s, tiles), dtype=torch.float32, device=dev)
-    partial = torch.empty((tiles * ksplit, s, d), dtype=torch.int32, device=dev)
-    out = torch.empty((s, d), dtype=torch.float32, device=dev)
-    err = _build.load_library().apertis_expert_ffn_fat(
-        xq.data_ptr(), xs.data_ptr(), combine.data_ptr(), w1t_q.data_ptr(), w1t_s.data_ptr(),
-        b1t.data_ptr(), w2t_q.data_ptr(), w2t_s.data_ptr(), out.data_ptr(), hidden.data_ptr(),
-        absmax.data_ptr(), partial.data_ptr(), s, d, ei, num_experts, bn, ksplit,
-        _ACT_CODES.get(hidden_act, 0), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "expert_ffn_fat")
+    out = _fat_launch("apertis_expert_ffn_fat", xq, inter, num_experts, 8,
+                      (xq, xs, combine, w1t_q, w1t_s, b1t, w2t_q, w2t_s), hidden_act)
     expert_ffn_fat.launches += 1
     return out
 
@@ -211,19 +262,9 @@ def expert_ffn_fat_int4(
     _build.check_tensor(w2t_sh, (ei // 128, d), i8, "w2t_sh", dev)
     _build.check_tensor(w2t_s, (1, d), f32, "w2t_s", dev)
     _build.check_aligned("expert_ffn_fat_int4", xq, w1t_q4, w1t_sh, w2t_q4, w2t_sh)
-    tiles = ei // bn
-    ksplit = _ksplit(s, d, tiles, bn, dev.index)
-    hidden = torch.empty((s, ei), dtype=torch.float32, device=dev)
-    absmax = torch.empty((s, tiles), dtype=torch.float32, device=dev)
-    partial = torch.empty((tiles * ksplit, s, d), dtype=torch.int32, device=dev)
-    out = torch.empty((s, d), dtype=torch.float32, device=dev)
-    err = _build.load_library().apertis_expert_ffn_fat_int4(
-        xq.data_ptr(), xs.data_ptr(), combine.data_ptr(), w1t_q4.data_ptr(), w1t_sh.data_ptr(),
-        w1t_s.data_ptr(), b1t.data_ptr(), w2t_q4.data_ptr(), w2t_sh.data_ptr(),
-        w2t_s.data_ptr(), out.data_ptr(), hidden.data_ptr(), absmax.data_ptr(),
-        partial.data_ptr(), s, d, ei, num_experts, bn, ksplit, _ACT_CODES.get(hidden_act, 0),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "expert_ffn_fat_int4")
+    out = _fat_launch("apertis_expert_ffn_fat_int4", xq, inter, num_experts, 4,
+                      (xq, xs, combine, w1t_q4, w1t_sh, w1t_s, b1t, w2t_q4, w2t_sh, w2t_s),
+                      hidden_act)
     expert_ffn_fat_int4.launches += 1
     return out
 

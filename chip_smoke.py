@@ -21,14 +21,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
      CUDA events beside the kernel's bound; the int8 decode step in every
      ffn_mode with both norms, and the int8 and int4 decode FFN at I = 9728
      and 1536 with GELU, ReLU and SiLU, at 4, 5, 64 and 256 rows, each run
-     twice for the same bits; their warm and cold times (``decode_times``:
-     one layer's weights again and again, or each of the model's 20 layers
-     in turn) and each of their launches' registers, shared memory and
-     local bytes;
+     twice for the same bits (the bf16 decode FFN twice at 64 rows); their
+     warm and cold times (``decode_times``: one layer's weights again and
+     again, or each of the model's 20 layers in turn; the bf16 FFN's over
+     the bf16 model's) and each of their launches' registers, shared memory
+     and local bytes;
      Then the same for the 1.5B top-2-of-8 MoE model (hidden 704, 44 layers,
      experts of 2816): the scan, ``ln_quantize`` and the decode step at its
      mixer's shapes (D = 704, C = 176, R = 44, H = 11), the step's moe
-     epilogue in both layouts, the fat expert kernel and the grouped expert
+     epilogue in both layouts, the fat expert kernel (twice at 64 rows for
+     the same bits; its warm and cold times over the 44 layers' fat stacks
+     with each layer's own routing, ``fat_times``) and the grouped expert
      kernel, with sensitivity checks for the combine weights, b1t, w1t_s,
      w2t_s, the router bias and the epilogue's inverse deviation;
      Then the 1.5B MHA model (hidden 2432, 20 layers, 38 heads of 64, q/k/v/o
@@ -47,9 +50,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the same operands timed as the library yardstick; the decode FFN's int4
      layout at the 1.5B widths; and the fat MoE kernel's int4 layout at the
      3B MoE preset's widths (hidden 768, 74 layers, experts of 3072, built
-     here in int8 and served with int4 fat stacks), each with sensitivity
-     checks (the shifts, the scales, the biases) that must move the plain
-     output by 9 tolerances;
+     here in int8 and served with int4 fat stacks; twice at 64 rows for the
+     same bits, warm and cold over COLD_INT4_LAYERS of its fat stacks), each
+     with sensitivity checks (the shifts, the scales, the biases) that must
+     move the plain output by 9 tolerances;
      Then the selectable int8 arithmetic's kernels (phase 3f): the
      weight-only product (``quant_matmul``, ``quant_matmul="pallas"``) and
      the block-quantizing one (``quant_matmul_dyn_fused``, ``"fused"``,
@@ -173,8 +177,9 @@ and the profiler's device time per call ("device_ms", the kernels' own time
 without the Python wrapper, from each kernel's mean duration in the
 profiler's records, which can miss some launches). Before the last line it
 prints the bf16 and f32 flash kernels' resources, #7's and #6's times, resources
-and host enqueue times (``{"qmm": ...}``), the int8 decode kernels' times
-and resources (``{"decode_times": ...}``), the kernels' JSON summary and the
+and host enqueue times (``{"qmm": ...}``), the decode kernels' times and
+resources (``{"decode_times": ...}``: #3 int8, #4 bf16, int8 and int4, #10
+int8 and int4), the kernels' JSON summary and the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
 
@@ -184,9 +189,10 @@ card's name and power limit; the last line is ``{"ok": true, "device":
     python3 chip_smoke.py --flash-f32-times  # the f32 flash kernels' times and SDPA f32's
                                              # at (4, 38, 1024, 64), and the 1.5B MHA
                                              # model's f32 micro-step p50
-    python3 chip_smoke.py --decode-times     # the int8 decode step's and the int8 and
-                                             # int4 decode FFN's warm and cold times at
-                                             # 64 and 4 rows
+    python3 chip_smoke.py --decode-times     # the int8 decode step's, the bf16, int8
+                                             # and int4 decode FFN's and the int8 and
+                                             # int4 fat MoE FFN's warm and cold times
+                                             # at 64 and 4 rows
 
 The first two flags run ``qmm_phase`` only. ``--qmm-times``,
 ``--flash-f32-times`` and ``--decode-times`` need nothing of the checkout but
@@ -705,10 +711,11 @@ def qmm_phase(card, check=True, alternatives=False):
     return {"times": times, "resources": resources, "plans": plans}
 
 
-# ---- the int8 decode kernels #3 and #4: warm and cold times ---------------
+# ---- the decode kernels #3, #4 and #10: warm and cold times ------------------
 
 # int4 FFN packs to rotate over for the cold time: 4 x 23.7 MB of the 1.5B
-# model's widths, more than the H100's 50 MB L2.
+# model's widths, and 4 x 18.9 MB of the 3B MoE model's int4 fat stacks, more
+# than the H100's 50 MB L2.
 COLD_INT4_LAYERS = 4
 
 
@@ -759,17 +766,19 @@ def rotation_times(card, label, fns):
     return entry
 
 
-def decode_times(card, qmodel, config):
+def decode_times(card, qmodel, config, model=None):
     """Warm and cold times (rotation_times) of the int8 decode step (#3,
     dense epilogue) and the int8 and int4 decode FFN (#4) at 64 and 4 rows
     on the int8 model's own weights: cold over its 20 layers (105 MB of
     mixer and 946 MB of FFN int8 weights) and over COLD_INT4_LAYERS int4
-    packs, each more than the 50 MB L2. It needs nothing of the checkout but
-    the wrappers' Python interface, so an earlier commit can run it with
-    this script copied in. Returns {label: {ms, device_ms, graph_ms,
-    cold_ms, cold_device_ms, cold_graph_ms, layers}}."""
+    packs, each more than the 50 MB L2; with the bf16 model `model`, the
+    bf16 decode FFN (#4) over its 20 layers (1.9 GB) too. It needs nothing
+    of the checkout but the wrappers' Python interface, so an earlier commit
+    can run it with this script copied in. Returns {label: {ms, device_ms,
+    graph_ms, cold_ms, cold_device_ms, cold_graph_ms, layers}}."""
     from apertis_llm_torch.models.quantize import int4_ffn_pack
-    from apertis_llm_torch.ops.kernels.ffn_fused import ffn_decode_int4, ffn_decode_int8
+    from apertis_llm_torch.ops.kernels.ffn_fused import (
+        ffn_decode, ffn_decode_int4, ffn_decode_int8)
     from apertis_llm_torch.ops.kernels.ssm_step import ssm_decode_step
     from apertis_llm_torch.ops.quant import quantize_rows
 
@@ -802,6 +811,11 @@ def decode_times(card, qmodel, config):
             "ffn_decode_int8": [lambda w=w: ffn_decode_int8(x_q, x_s, *w, act) for w in ffn8],
             "ffn_decode_int4": [lambda w=w: ffn_decode_int4(x_q, x_s, *w, act) for w in ffn4],
         }
+        if model is not None:
+            x16 = randn(rows, d)
+            calls["ffn_decode"] = [
+                lambda f=lay.ffn: ffn_decode(x16, f.w1.w, f.w1.b, f.w2.w, f.w2.b, act)
+                for lay in model.layers]
         for name, fns in calls.items():
             label = f"{name} at {rows} rows"
             result[label] = rotation_times(card, label, fns)
@@ -873,6 +887,48 @@ def moe_step_times(card, moe_qmodel, moe_config):
                for m, fn, r in steps]
         label = f"ssm_decode_step_int8_moe at {rows} rows"
         result[label] = rotation_times(card, label, fns)
+    return result
+
+
+def fat_times(card, moe_model, moe_config, layers=None):
+    """rotation_times of the fat MoE FFN (#10) at 64 and 4 rows over the
+    MoE model's attached fat stacks (int8, or int4 where they are packed),
+    all its layers or the first `layers`: each call on pre-normed random
+    rows with the combine weights of its layer's own router (two nonzero a
+    row), as serving calls it, so that the skip of the experts no row routes
+    to is timed as serving meets it. Like decode_times, an earlier commit
+    can run it with this script copied in."""
+    from apertis_llm_torch.ops import moe as moe_ops
+    from apertis_llm_torch.ops.kernels.moe_ffn import expert_ffn_fat, expert_ffn_fat_int4
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    d, n_exp, eps = moe_config.hidden_size, moe_config.num_experts, moe_config.layer_norm_eps
+    act = moe_config.hidden_act
+    lays = moe_model.layers[:layers]
+    int4 = "w1t_q4" in lays[0].ffn.experts.fat()
+    name = "expert_ffn_fat_int4" if int4 else "expert_ffn_fat"
+    result = {}
+    for rows in (64, 4):
+        fns, routed = [], []
+        for lay in lays:
+            ffn, fat = lay.ffn, lay.ffn.experts.fat()
+            x = ffn.pre_norm(torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16))
+            routing = moe_ops.route(x, *ffn.router_weights(), 2, layer_norm_eps=eps)
+            xq, xs = moe_ops.center_quantize(x, eps)
+            comb = moe_ops._combine_weights(routing, n_exp, torch.float32)
+            routed.append(int((comb != 0).any(dim=0).sum()))
+            if int4:
+                args = (xq, xs, comb, fat["w1t_q4"], fat["w1t_sh"], fat["w1t_s"], fat["b1t"],
+                        fat["w2t_q4"], fat["w2t_sh"], fat["w2t_s"], n_exp, act)
+                fns.append(lambda a=args: expert_ffn_fat_int4(*a))
+            else:
+                args = (xq, xs, comb, fat["w1t_q"], fat["w1t_s"], fat["b1t"], fat["w2t_q"],
+                        fat["w2t_s"], n_exp, act)
+                fns.append(lambda a=args: expert_ffn_fat(*a))
+        label = f"{name} at {rows} rows"
+        result[label] = rotation_times(card, label, fns)
+        result[label]["experts_routed_mean"] = sum(routed) / len(routed)
     return result
 
 
@@ -991,6 +1047,7 @@ def main() -> int:
     from apertis_llm_torch.ops.kernels.ffn_fused import (
         ffn_decode, ffn_decode_int4, ffn_decode_int4_reference, ffn_decode_int8,
         ffn_decode_int8_reference, ffn_decode_reference, ffn_quant_resources, pick_block_n)
+    from apertis_llm_torch.ops.kernels.ffn_fused import bf16_plan as ffn_bf16_plan
     from apertis_llm_torch.ops.kernels.ffn_fused import quant_plan as ffn_quant_plan
     from apertis_llm_torch.ops.kernels.flash_attention import (
         BF16_KERNELS, F32_KERNELS, flash_attention_dkv, flash_attention_dkv_f32,
@@ -1002,7 +1059,8 @@ def main() -> int:
         NEG, mha_decode_ctx, mha_decode_ctx_int8, mha_decode_ctx_reference, quantize_heads)
     from apertis_llm_torch.ops.kernels.moe_ffn import (
         expert_ffn_dense, expert_ffn_dense_reference, expert_ffn_fat, expert_ffn_fat_int4,
-        expert_ffn_fat_int4_reference, expert_ffn_fat_reference, fat_block_n)
+        expert_ffn_fat_int4_reference, expert_ffn_fat_reference, fat_block_n, fat_plan,
+        fat_resources)
     from apertis_llm_torch.ops.kernels.moe_grouped import (
         TILE, expert_ffn_grouped, expert_ffn_grouped_reference)
     from apertis_llm_torch.ops.kernels.ssm_scan import (
@@ -1278,7 +1336,8 @@ def main() -> int:
         check_kernel("ffn_decode", f"ffn S={s_} {act}", args, ffn_decode,
                      ffn_decode_reference, [("out", BF16_ULP)],
                      cost=(nbytes(w1.w, w1.b, w2.w, w2.b) + 2 * nbytes(args[0]),
-                           4 * s_ * d * inter, "bf16") if s_ == 64 else None)
+                           4 * s_ * d * inter, "bf16") if s_ == 64 else None,
+                     repeat=s_ == 64)
 
     q1, q2 = qlayer.ffn.w1, qlayer.ffn.w2
 
@@ -1362,10 +1421,10 @@ def main() -> int:
                          cost=(nbytes(x, pre_w, bias) + x.numel() + rows * 4, 10 * x.numel(),
                                "f32") if rows == 2048 and bias is not None else None)
 
-    # The int8 decode kernels' warm and cold times at 64 and 4 rows, and
-    # the resources the card gives each of their launches.
-    log("int8 decode kernels (#3, #4), warm and cold weights:")
-    decode = decode_times(card, qmodel, config)
+    # The decode kernels' warm and cold times at 64 and 4 rows, and the
+    # resources the card gives each of their launches.
+    log("decode kernels (int8 #3, bf16, int8 and int4 #4), warm and cold weights:")
+    decode = decode_times(card, qmodel, config, model)
     decode_resources = {}
     for rows in (4, 64):
         h_ = randn(rows, d)
@@ -1379,12 +1438,38 @@ def main() -> int:
             for kind, plan in zip(("up", "down"), ffn_plan_):
                 decode_resources[f"ffn_decode_int{bits} {kind} at {rows} rows"] = dict(
                     plan._asdict(), **ffn_quant_resources(bits, kind, plan))
-    for key, res in decode_resources.items():
-        log(f"  resources of {key}: {res['registers']} registers a thread, "
-            f"{res['shared_bytes']} bytes of shared memory and {res['threads']} threads a "
-            f"block, {res['blocks_per_sm']} block(s) an SM, {res['spill_bytes']} bytes spilled; "
-            f"plan rows {res['rows']}, split {res['split']}, stages {res['stages']}, "
-            f"grid {tuple(res['grid'])}")
+        for kind, plan in zip(("up", "down"), ffn_bf16_plan(h_, d, inter)):
+            decode_resources[f"ffn_decode {kind} at {rows} rows"] = dict(
+                plan._asdict(), **ffn_quant_resources(16, kind, plan))
+
+    def log_resources(keys):
+        for key in keys:
+            res = decode_resources[key]
+            log(f"  resources of {key}: {res['registers']} registers a thread, "
+                f"{res['shared_bytes']} bytes of shared memory and {res['threads']} threads a "
+                f"block, {res['blocks_per_sm']} block(s) an SM, {res['spill_bytes']} bytes "
+                f"spilled; plan rows {res['rows']}, split {res['split']}, stages "
+                f"{res['stages']}, grid {tuple(res['grid'])}"
+                + (f", group {res['group']}" if "group" in res else ""))
+
+    log_resources(list(decode_resources))
+
+    def fat_plan_resources(bits, h_, inter_):
+        """The fat kernel's launches at 4 and 64 rows (GEMM1, GEMM2 and, in
+        the wide form, the requantization) with what the card gives each."""
+        name = "expert_ffn_fat_int4" if bits == 4 else "expert_ffn_fat"
+        keys = []
+        for rows in (4, 64):
+            xq_ = torch.zeros((rows, h_), dtype=torch.int8, device=dev)
+            plan = fat_plan(xq_, h_, inter_, n_exp, bits)
+            kinds = [("up", plan.up), ("down", plan.down)]
+            kinds += [("quant", plan.up)] if plan.up.split == 0 else []
+            for kind, p_ in kinds:
+                key = f"{name} {kind} at {rows} rows"
+                decode_resources[key] = dict(p_._asdict(), group=plan.group,
+                                             **fat_resources(bits, kind, p_))
+                keys.append(key)
+        log_resources(keys)
 
     # ---- 3b. the 1.5B MoE model and its kernel checks -----------------------
     mdims = calculate_model_dimensions("1.5B", 32000, use_expert_system=True)
@@ -1468,6 +1553,9 @@ def main() -> int:
                      repeat=w.quantized)
     log("int8 decode step with the moe epilogue (#3), warm and cold weights:")
     decode.update(moe_step_times(card, moe_qmodel, moe_config))
+    log("the fat MoE FFN (#10, int8) over the 44 layers' fat stacks, warm and cold:")
+    decode.update(fat_times(card, moe_qmodel, moe_config))
+    fat_plan_resources(8, md, m_inter)
     for b, w, label in [(5, m_mixer, "bf16"), (5, m_qmixer, "int8")]:
         args = moe_step_inputs(b, w, m_fnorm, None)[:6]
         check_kernel("ssm_decode_step_int8" if w.quantized else "ssm_decode_step",
@@ -1508,7 +1596,7 @@ def main() -> int:
         check_kernel("expert_ffn_fat", f"expert_ffn_fat S={s_} (H={md}, E={n_exp}, I={m_inter}, "
                      f"bn={fat_block_n(m_inter)})", args, expert_ffn_fat,
                      expert_ffn_fat_reference, fat_tols,
-                     cost=fat_cost(args) if s_ == 64 else None)
+                     cost=fat_cost(args) if s_ == 64 else None, repeat=s_ == 64)
     args = fat_inputs(5, ffn=mlayer.ffn, fat_=mlayer.ffn.experts.fat())
     check_kernel("expert_ffn_fat", "expert_ffn_fat S=5, the bf16 model's fat stack", args,
                  expert_ffn_fat, expert_ffn_fat_reference, fat_tols)
@@ -1893,7 +1981,11 @@ def main() -> int:
         check_kernel("expert_ffn_fat_int4", f"expert_ffn_fat_int4 S={s_} (H={h3}, E={n_exp}, "
                      f"I={i3}, bn={fat_block_n(i3)})", args, expert_ffn_fat_int4,
                      expert_ffn_fat_int4_reference, fat_tols,
-                     cost=fat4_cost(args) if s_ == 64 else None)
+                     cost=fat4_cost(args) if s_ == 64 else None, repeat=s_ == 64)
+    log(f"the fat MoE FFN (#10, int4) over {COLD_INT4_LAYERS} of the 3B model's int4 fat "
+        "stacks, warm and cold:")
+    decode.update(fat_times(card, moe3_model, moe3_config, layers=COLD_INT4_LAYERS))
+    fat_plan_resources(4, h3, i3)
 
     # ---- 3f. the selectable int8 arithmetic: #6, #8 and #11 -----------------
     # quant_matmul (#6, quant_matmul="pallas") and quant_matmul_dyn_fused (#8,
@@ -3307,10 +3399,12 @@ def flash_f32_times_main() -> int:
 
 
 def decode_times_main() -> int:
-    """``--decode-times``: decode_times on the 1.5B int8 model and
-    moe_step_times on the 1.5B int8 MoE model alone (built as the full run
-    builds them), which a checkout of an earlier commit can run with this
-    script copied into it, for a comparison in one call."""
+    """``--decode-times``: decode_times on the 1.5B int8 and bf16 models,
+    moe_step_times and fat_times on the 1.5B int8 MoE model, and fat_times
+    on COLD_INT4_LAYERS layers of the 3B MoE model with int4 fat stacks
+    alone (each built as the full run builds it), which a checkout of an
+    earlier commit can run with this script copied into it, for a
+    comparison in one call."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -3331,12 +3425,13 @@ def decode_times_main() -> int:
     tree = init_params(config, torch.Generator(device=dev).manual_seed(SEED), device=dev,
                        dtype=torch.bfloat16)
     perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 2))
+    model = from_jax_params(tree, config, device=dev, dtype=torch.bfloat16)
     qtree = quantize_params(tree)
     del tree
     qmodel = from_jax_params(qtree, config, device=dev, dtype=torch.bfloat16)
     del qtree
-    result = decode_times(card, qmodel, config)
-    del qmodel
+    result = decode_times(card, qmodel, config, model)
+    del qmodel, model
     moe_config = moe_preset_config(
         calculate_model_dimensions("1.5B", 32000, use_expert_system=True))
     tree = init_params(moe_config, torch.Generator(device=dev).manual_seed(SEED), device=dev,
@@ -3347,6 +3442,24 @@ def decode_times_main() -> int:
     moe_qmodel = from_jax_params(qtree, moe_config, device=dev, dtype=torch.bfloat16)
     del qtree
     result.update(moe_step_times(card, moe_qmodel, moe_config))
+    moe_qmodel.attach_moe_fat()
+    result.update(fat_times(card, moe_qmodel, moe_config))
+    del moe_qmodel
+    # The 3B MoE preset, cut to the layers the int4 cold time rotates over.
+    m3dims = calculate_model_dimensions("3B", 32000, use_expert_system=True)
+    moe3_config = dataclasses.replace(
+        moe_config, hidden_size=m3dims["hidden_size"], num_hidden_layers=COLD_INT4_LAYERS,
+        num_attention_heads=m3dims["num_attention_heads"],
+        intermediate_size=m3dims["intermediate_size"])
+    tree = init_params(moe3_config, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                       dtype=torch.bfloat16)
+    perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 10))
+    qtree = quantize_params(tree)
+    del tree
+    moe3_model = from_jax_params(qtree, moe3_config, device=dev, dtype=torch.bfloat16)
+    del qtree
+    moe3_model.attach_moe_fat(bits=4)
+    result.update(fat_times(card, moe3_model, moe3_config))
     print(json.dumps({"decode_times": result}))
     print(card)
     return 0

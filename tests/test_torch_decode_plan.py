@@ -1,19 +1,25 @@
-"""The host side and the arithmetic of the int8 decode kernels, on the CPU.
+"""The host side and the arithmetic of the decode kernels, on the CPU.
 
-``csrc/ssm_step.cu`` (the int8 layout of the decode mixer step, #3) and
-``csrc/ffn_fused.cu`` (the int8 and int4 decode FFN, #4) run swapped-operand
-int8 ``wgmma`` products (``csrc/decode_gemm.cuh``) on the plans of
-``ops/kernels/decode_plan.py``. The kernels build and run only on the card,
-where ``chip_smoke.py`` holds them against their plain versions. Here:
-the plans at the shapes the smoke runs and their rules at every shape; the
-int8 and int4 A-fragment build (swizzled tile, ``ldmatrix.trans`` row
+``csrc/ssm_step.cu`` (the int8 layout of the decode mixer step, #3),
+``csrc/ffn_fused.cu`` (the bf16, int8 and int4 decode FFN, #4) and
+``csrc/moe_ffn.cu`` (the int8 and int4 fat MoE FFN, #10) run swapped-operand
+``wgmma`` products (``csrc/decode_gemm.cuh``, ``csrc/quant_ffn.cuh``) on the
+plans of ``ops/kernels/decode_plan.py``. The kernels build and run only on
+the card, where ``chip_smoke.py`` holds them against their plain versions.
+Here: the plans at the shapes the smoke runs and their rules at every shape;
+the int8 and int4 A-fragment build (swizzled tile, ``ldmatrix.trans`` row
 choice, byte permutes, nibble unpacking) emulated lane by lane against the
 PTX fragment layout and ``unpack_int4``; the decode FFN's K split over a
 cluster, whose tile-ordered f32 accumulation must equal
-``ffn_decode_int8_reference`` bit for bit; and the split's exchange slots
-inside the plans' shared memory.
+``ffn_decode_int8_reference`` bit for bit; the fat MoE FFN's (per-tile
+maxima over 128-column blocks, hq padded to whole chunks, rounds of tile
+groups, skipped experts), which must equal ``expert_ffn_fat_reference`` bit
+for bit; the bf16 FFN's K split ranges and rank-ordered sums against
+``ffn_decode_reference``; and the split's exchange slots inside the plans'
+shared memory.
 """
 
+import collections
 import itertools
 import re
 
@@ -25,9 +31,13 @@ from apertis_llm_torch.models.quantize import quantize_weight, quantize_weight_i
 from apertis_llm_torch.ops.activations import get_activation
 from apertis_llm_torch.ops.kernels import _build
 from apertis_llm_torch.ops.kernels.decode_plan import (
-    CHUNK, MAX_SPLIT, MAX_UP_CLUSTER, ROW_TILES, SMEM_LIMIT, TILE_COLS, W4_BYTES, W8_BYTES,
-    FfnPlan, GemmPlan, StepPlan, ffn_plan, smem_bytes, ssm_step_plan)
-from apertis_llm_torch.ops.kernels.ffn_fused import ffn_decode_int8_reference, pick_block_n
+    BW_BYTES, BW_CHUNK, CHUNK, MAX_FAT_SPLIT, MAX_GROUP, MAX_SPLIT, MAX_UP_CLUSTER, MIN_STAGES,
+    ROW_TILES, SMEM_LIMIT, TILE_COLS, W4_BYTES, W8_BYTES, FatPlan, FfnPlan, GemmPlan, StepPlan,
+    bf16_ffn_plan, down_extra, fat_plan, fat_wide, ffn_plan, smem_bytes, ssm_step_plan,
+    xset_bytes)
+from apertis_llm_torch.ops.kernels.ffn_fused import (
+    ffn_decode_int8_reference, ffn_decode_reference, pick_block_n)
+from apertis_llm_torch.ops.kernels.moe_ffn import expert_ffn_fat_reference, fat_block_n
 
 H100_SMS = 132
 
@@ -67,20 +77,20 @@ def test_step_plan_at_the_smoke_shapes(batch, dims, plan):
     # the 1.5B FFN (D 2432, I 9728, bn 512): GEMM1's 76 blocks in clusters of
     # four (one hidden tile each), GEMM2's 19 column tiles with K in four
     (64, 9728, 8, FfnPlan(GemmPlan(64, 4, 8, 204160, (76, 1)),
-                          GemmPlan(64, 4, 8, 230528, (76, 1)))),
+                          GemmPlan(64, 4, 8, 231040, (76, 1)))),
     (4, 9728, 8, FfnPlan(GemmPlan(16, 4, 8, 150208, (76, 1)),
-                         GemmPlan(16, 4, 8, 164992, (76, 1)))),
+                         GemmPlan(16, 4, 8, 156928, (76, 1)))),
     (64, 9728, 4, FfnPlan(GemmPlan(64, 4, 8, 146816, (76, 1)),
-                          GemmPlan(64, 4, 8, 173184, (76, 1)))),
+                          GemmPlan(64, 4, 8, 173696, (76, 1)))),
     (5, 9728, 4, FfnPlan(GemmPlan(16, 4, 8, 92864, (76, 1)),
-                         GemmPlan(16, 4, 8, 107648, (76, 1)))),
+                         GemmPlan(16, 4, 8, 99584, (76, 1)))),
     # I 1536: two hidden tiles of 768, clusters of six
     (64, 1536, 8, FfnPlan(GemmPlan(64, 6, 8, 204160, (12, 1)),
-                          GemmPlan(64, 2, 6, 181344, (38, 1)))),
+                          GemmPlan(64, 2, 6, 181856, (38, 1)))),
     (256, 1536, 8, FfnPlan(GemmPlan(64, 6, 8, 204160, (12, 4)),
-                           GemmPlan(64, 1, 8, 197760, (19, 4)))),
+                           GemmPlan(64, 1, 8, 198272, (19, 4)))),
     (256, 9728, 8, FfnPlan(GemmPlan(64, 4, 8, 204160, (76, 4)),
-                           GemmPlan(64, 1, 8, 197760, (19, 4)))),
+                           GemmPlan(64, 1, 8, 198272, (19, 4)))),
 ])
 def test_ffn_plan_at_the_smoke_shapes(rows, inter, bits, plan):
     assert ffn_plan(rows, 2432, inter, pick_block_n(inter), bits, H100_SMS) == plan
@@ -139,7 +149,8 @@ def test_ffn_plan_rules_at_every_shape():
         col_tiles = cdiv(d, TILE_COLS)
         assert down.split == max(1, min(MAX_SPLIT, tiles, sms // (col_tiles * row_tiles)))
         assert 1 <= down.stages <= min(8, cdiv(tiles, down.split) * (bn // CHUNK))
-        assert down.smem == smem_bytes(br, down.stages, stage, down.split, 0) <= SMEM_LIMIT
+        assert down.smem == smem_bytes(br, down.stages, stage, 1,
+                                       down_extra(br, down.split, 1, 0)) <= SMEM_LIMIT
         assert down.grid == (col_tiles * down.split, row_tiles)
 
 
@@ -395,3 +406,311 @@ def test_split_exchange_slots_fit_the_plan(rows, split):
     core = _source("decode_gemm.cuh")
     assert "for (int j = rank; j < blocks; j += split) m |= 1u << j;" in core
     assert "return part + ((from * owned + slot) * 4 + e) * kDgConsumerThreads + L.tid;" in core
+
+
+# ---- the bf16 decode FFN (#4) and the fat MoE FFN (#10) on the same core --------
+
+@pytest.mark.parametrize("rows,inter,plan", [
+    # the 1.5B FFN (D 2432, I 9728): GEMM1's 76 column tiles whole, GEMM2's
+    # 19 with K (152 chunks of 64) in four
+    (64, 9728, FfnPlan(GemmPlan(64, 1, 8, 197760, (76, 1)), GemmPlan(64, 4, 8, 230528, (76, 1)))),
+    (4, 9728, FfnPlan(GemmPlan(16, 1, 8, 148608, (76, 1)), GemmPlan(16, 4, 8, 156800, (76, 1)))),
+    (5, 9728, FfnPlan(GemmPlan(16, 1, 8, 148608, (76, 1)), GemmPlan(16, 4, 8, 156800, (76, 1)))),
+    (256, 9728, FfnPlan(GemmPlan(64, 1, 8, 197760, (76, 4)),
+                        GemmPlan(64, 1, 8, 197760, (19, 4)))),
+    # I 1536: GEMM1's 12 column tiles split K in four too
+    (64, 1536, FfnPlan(GemmPlan(64, 4, 8, 230528, (48, 1)), GemmPlan(64, 4, 6, 181344, (76, 1)))),
+    (4, 1536, FfnPlan(GemmPlan(16, 4, 8, 156800, (48, 1)), GemmPlan(16, 4, 6, 119904, (76, 1)))),
+    (5, 1536, FfnPlan(GemmPlan(16, 4, 8, 156800, (48, 1)), GemmPlan(16, 4, 6, 119904, (76, 1)))),
+    (256, 1536, FfnPlan(GemmPlan(64, 2, 8, 230528, (24, 4)),
+                        GemmPlan(64, 1, 8, 197760, (19, 4)))),
+])
+def test_bf16_ffn_plan_at_the_smoke_shapes(rows, inter, plan):
+    assert bf16_ffn_plan(rows, 2432, inter, H100_SMS) == plan
+
+
+@pytest.mark.parametrize("rows,dims,bits,plan", [
+    # the 1.5B MoE preset (H 704, 8 experts of 2816, bn 2816: the wide form,
+    # 176 GEMM1 blocks); GEMM2's six column tiles over the 8 tiles
+    (64, (704, 2816), 8, FatPlan(GemmPlan(64, 0, 6, 154976, (176, 1)),
+                                 GemmPlan(64, 8, 8, 231056, (48, 1)), 1)),
+    (4, (704, 2816), 8, FatPlan(GemmPlan(16, 0, 6, 113312, (176, 1)),
+                                GemmPlan(16, 8, 8, 156944, (48, 1)), 1)),
+    (5, (704, 2816), 8, FatPlan(GemmPlan(16, 0, 6, 113312, (176, 1)),
+                                GemmPlan(16, 8, 8, 156944, (48, 1)), 1)),
+    (256, (704, 2816), 8, FatPlan(GemmPlan(64, 0, 6, 154976, (176, 4)),
+                                  GemmPlan(64, 5, 6, 215216, (30, 4)), 2)),
+    # the 3B preset in int4 (H 768, experts of 3072, bn 128: 192 tiles, one
+    # block a tile in GEMM1); GEMM2 in clusters of 16, 4 (64 rows) or 8 (4
+    # rows) tiles a block in each round
+    (64, (768, 3072), 4, FatPlan(GemmPlan(64, 1, 6, 111968, (192, 1)),
+                                 GemmPlan(64, 16, 5, 221280, (96, 1)), 4)),
+    (4, (768, 3072), 4, FatPlan(GemmPlan(16, 1, 6, 70304, (192, 1)),
+                                GemmPlan(16, 16, 8, 157840, (96, 1)), 8)),
+    (5, (768, 3072), 4, FatPlan(GemmPlan(16, 1, 6, 70304, (192, 1)),
+                                GemmPlan(16, 16, 8, 157840, (96, 1)), 8)),
+    (256, (768, 3072), 4, FatPlan(GemmPlan(64, 1, 6, 111968, (192, 4)),
+                                  GemmPlan(64, 5, 5, 221408, (30, 4)), 4)),
+    # I 256 (bn 128, 16 tiles of one chunk)
+    (64, (704, 256), 8, FatPlan(GemmPlan(64, 1, 6, 154976, (16, 1)),
+                                GemmPlan(64, 16, 1, 58912, (96, 1)), 1)),
+    (5, (704, 256), 8, FatPlan(GemmPlan(16, 1, 6, 113312, (16, 1)),
+                               GemmPlan(16, 16, 1, 27808, (96, 1)), 1)),
+])
+def test_fat_plan_at_the_smoke_shapes(rows, dims, bits, plan):
+    h, inter = dims
+    assert fat_plan(rows, h, inter, 8, fat_block_n(inter), bits, H100_SMS) == plan
+
+
+def test_bf16_ffn_plan_rules_at_every_shape():
+    """Rows 1-256 at many widths: both products split K (chunks of 64) over
+    the largest split up to MAX_SPLIT and their chunks whose blocks fit on
+    the SMs; stages 1 to 8 and no more than a block's chunks; shared memory
+    as the C side computes it, within the limit; the grids cover the column
+    tiles, split and row tiles."""
+    for rows, d, inter, sms in itertools.product(
+            range(1, 257), (128, 704, 2432, 4096), (1024, 1536, 9728, 11008), (132, 16)):
+        plan = bf16_ffn_plan(rows, d, inter, sms)
+        br = ROW_TILES[0] if rows <= ROW_TILES[0] else ROW_TILES[1]
+        row_tiles = cdiv(rows, br)
+        for p, k, n in ((plan.up, d, inter), (plan.down, inter, d)):
+            chunks, col_tiles = cdiv(k, BW_CHUNK), cdiv(n, TILE_COLS)
+            assert p.rows == br
+            assert p.split == max(1, min(MAX_SPLIT, chunks, sms // (col_tiles * row_tiles)))
+            assert 1 <= p.stages <= min(8, cdiv(chunks, p.split))
+            assert p.smem == smem_bytes(br, p.stages, br * 128 + BW_BYTES, 1,
+                                        xset_bytes(br, p.split)) <= SMEM_LIMIT
+            assert p.grid == (col_tiles * p.split, row_tiles)
+
+
+FAT_DIMS = [(704, 2816), (768, 3072), (704, 256), (256, 512), (128, 192), (256, 704),
+            (128, 1024), (1216, 4096)]
+
+
+def test_fat_plan_rules_at_every_shape():
+    """Rows 1-256 at many widths, int8 and int4, 4 to 64 experts: GEMM1's
+    cluster is the bn / 128 blocks of a tile up to MAX_UP_CLUSTER, else 0
+    (the wide form, where bn is wider or not whole blocks); GEMM2's split is
+    the largest up to MAX_FAT_SPLIT and the tiles whose blocks fit on the
+    SMs; its group the largest up to MAX_GROUP and the block's share of the
+    tiles whose slots leave MIN_STAGES stages; everything fits in shared
+    memory as the C side computes it; the grids cover the column tiles,
+    split and row tiles."""
+    for rows, (h, inter), bits, experts, sms in itertools.product(
+            range(1, 257, 3), FAT_DIMS, (8, 4), (8, 4, 64), (132, 16)):
+        bn = fat_block_n(inter)
+        if bits == 4 and (h % 128 or bn % 128):
+            continue
+        plan = fat_plan(rows, h, inter, experts, bn, bits, sms)
+        br = ROW_TILES[0] if rows <= ROW_TILES[0] else ROW_TILES[1]
+        row_tiles = cdiv(rows, br)
+        stage = br * 128 + (W4_BYTES if bits == 4 else W8_BYTES)
+        ei, tiles = experts * inter, experts * inter // bn
+        wide = bn % TILE_COLS != 0 or bn // TILE_COLS > MAX_UP_CLUSTER
+        assert fat_wide(bn) == wide
+        assert plan.up.split == (0 if wide else bn // TILE_COLS)
+        assert plan.up.grid == (cdiv(ei, TILE_COLS), row_tiles)
+        assert 1 <= plan.up.stages <= min(8, cdiv(h, CHUNK))
+        assert plan.up.smem == smem_bytes(br, plan.up.stages, stage, 1,
+                                          (8 + 1 + MAX_UP_CLUSTER) * br * 4) <= SMEM_LIMIT
+        col_tiles = cdiv(h, TILE_COLS)
+        split = plan.down.split
+        assert split == max(1, min(MAX_FAT_SPLIT, tiles, sms // (col_tiles * row_tiles)))
+
+        def fits(g):
+            return smem_bytes(br, MIN_STAGES, stage, 1,
+                              down_extra(br, split, g, experts)) <= SMEM_LIMIT
+        group = plan.group
+        assert 1 <= group <= min(MAX_GROUP, cdiv(tiles, split))
+        assert group == 1 or fits(group)
+        assert group == min(MAX_GROUP, cdiv(tiles, split)) or not fits(group + 1)
+        per_block = cdiv(tiles, split * group) * group * cdiv(bn, CHUNK)
+        assert 1 <= plan.down.stages <= min(8, per_block)
+        assert plan.down.smem == smem_bytes(br, plan.down.stages, stage, 1,
+                                            down_extra(br, split, group, experts)) <= SMEM_LIMIT
+        assert plan.down.grid == (col_tiles * split, row_tiles)
+
+
+def test_the_fat_emulation_follows_the_kernels_source():
+    """The emulations below walk the tiles, rounds and adds as the sources
+    state them."""
+    ffn, moe = _source("quant_ffn.cuh"), _source("moe_ffn.cu")
+    assert "const int t0 = (rho * split + rank) * group;" in ffn
+    assert "for (int q = 0, t = t0; q < split && t < tiles; ++q) {" in ffn
+    assert "for (int g = 0; g < group && t < tiles; ++g, ++t) {" in ffn
+    assert "if (live != nullptr && live[t / tile_experts] == 0) continue;" in ffn
+    assert "const int wgap = per * kDgKC - a.bn;" in ffn
+    assert "const int kw = k0 - tile * ch.wgap;" in _source("decode_gemm.cuh")
+    assert "bnp = (bn + kDgKC - 1) / kDgKC * kDgKC" in moe
+    assert "p[i] = __fmul_rn(__int2float_rn(acc[i]), cv[g * BR + L.row(i)]);" in ffn
+    assert "v = __fmul_rn(v, a.comb[(size_t)row * a.experts + t / a.tile_experts]);" in ffn
+
+
+def _fat_operands(seed, s, h, experts, inter, routed=None):
+    """Seeded int8 operands of the fat kernel: rows routed top-2 over the
+    first `routed` experts (all by default), so that the others are dead."""
+    gen = torch.Generator().manual_seed(seed)
+    ei = experts * inter
+    w1t_q, w1t_s = quantize_weight(torch.randn((h, ei), generator=gen) * 0.05)
+    w2t_q, w2t_s = quantize_weight(torch.randn((ei, h), generator=gen) * 0.05)
+    b1t = torch.randn(ei, generator=gen) * 0.1
+    x = torch.randn((s, h), generator=gen)
+    xs = x.abs().amax(dim=1, keepdim=True).clamp(min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
+    logits = torch.randn((s, experts), generator=gen)
+    if routed is not None:
+        logits[:, routed:] = -float("inf")
+    top = logits.topk(2, dim=1)
+    comb = torch.zeros((s, experts)).scatter(1, top.indices, torch.softmax(top.values, dim=1))
+    return xq, xs, comb, w1t_q, w1t_s, b1t, w2t_q, w2t_s, experts
+
+
+def _fat_cluster(xq, xs, comb, w1t_q, w1t_s, b1t, w2t_q, w2t_s, experts, split, group,
+                 order=None):
+    """moe_ffn.cu's launches in numpy: GEMM1's epilogue, each (row, tile)
+    absmax as the max of the 128-column blocks' maxima (order-free), hq with
+    each tile padded to whole 128-row chunks (the weight's K row of a chunk
+    the rows' less the padding of the tiles before it); then, for each row
+    tile, GEMM2's rounds: unit u = rho * split + q of rank q holds the tiles
+    u * group .. u * group + group - 1, each a fresh exact sum over its
+    chunks scaled by hs * combine, and the owners add a round's tiles in
+    rank order, inside a rank in group order (``order`` may permute a
+    round's adds), skipping the tiles of experts no row of the row tile
+    routes to. f32 (S, H) out."""
+    s, h = xq.shape
+    ei = w1t_q.shape[1]
+    inter = ei // experts
+    bn = fat_block_n(inter)
+    tiles, bnp, tile_experts = ei // bn, cdiv(bn, CHUNK) * CHUNK, inter // bn
+    acc1 = torch.from_numpy(xq.numpy().astype(np.int64) @ w1t_q.numpy().astype(np.int64))
+    hid = get_activation("gelu")(acc1.float() * xs * w1t_s + b1t)
+    cols = np.arange(ei)
+    absmax = np.zeros((s, tiles), dtype=np.float32)
+    for cb in range(cdiv(ei, TILE_COLS)):
+        block = hid[:, cb * TILE_COLS:(cb + 1) * TILE_COLS].abs().numpy()
+        for t in np.unique(cols[cb * TILE_COLS:(cb + 1) * TILE_COLS] // bn):
+            inside = cols[cb * TILE_COLS:(cb + 1) * TILE_COLS] // bn == t
+            absmax[:, t] = np.maximum(absmax[:, t], block[:, inside].max(axis=1))
+    hs = torch.clamp(torch.from_numpy(absmax), min=1e-8) * (1.0 / 127.0)
+    hq = torch.zeros((s, tiles * bnp), dtype=torch.int64)
+    for t in range(tiles):
+        q_t = torch.clamp(torch.round(hid[:, t * bn:(t + 1) * bn] / hs[:, t:t + 1]), -127, 127)
+        hq[:, t * bnp:t * bnp + bn] = q_t.long()
+    w2 = np.concatenate([w2t_q.numpy().astype(np.int64), np.zeros((bnp, h), np.int64)])
+    out = torch.zeros((s, h))
+    br = ROW_TILES[0] if s <= ROW_TILES[0] else ROW_TILES[1]
+    units = cdiv(tiles, group)
+    for m0 in range(0, s, br):
+        rows = slice(m0, min(s, m0 + br))
+        live = (comb[rows] != 0).any(dim=0)
+        total = torch.zeros((rows.stop - m0, h))
+        for rho in range(cdiv(units, split)):
+            held = []                                # (tile, p) in the owners' order
+            for q in range(split):
+                for g in range(group):
+                    t = (rho * split + q) * group + g
+                    if t >= tiles or not live[t // tile_experts]:
+                        continue
+                    acc2 = np.zeros((rows.stop - m0, h), dtype=np.int64)
+                    for c in range(bnp // CHUNK):    # chunk c: hq rows and W2 rows
+                        k0 = t * bnp + c * CHUNK
+                        kw = k0 - t * (bnp - bn)
+                        acc2 += hq[rows, k0:k0 + CHUNK].numpy() @ w2[kw:kw + CHUNK]
+                    cv = hs[rows, t:t + 1] * comb[rows, t // tile_experts:t // tile_experts + 1]
+                    held.append((t, torch.from_numpy(acc2).float() * cv))
+            for _, p in (held if order is None else order(held)):
+                total = total + p
+        out[rows] = total
+    return out * w2t_s
+
+
+@pytest.mark.parametrize("rows,h,experts,inter,split,group,routed", [
+    (64, 128, 4, 2816, 4, 1, None),    # bn 2816: the wide form, 22 blocks a tile
+    (5, 128, 4, 704, 2, 2, None),      # bn 704: not whole chunks, padded in hq
+    (37, 128, 4, 192, 3, 3, None),     # bn 192, two row tiles of 16 and odd groups
+    (64, 128, 8, 384, 8, 2, None),     # bn 128: 24 tiles of one chunk
+    (4, 128, 8, 384, 16, 2, 3),        # experts 3-7 routed by no row: their tiles skipped
+    (20, 128, 8, 384, 5, 3, 2),
+])
+def test_fat_accumulation_is_the_reference_bit_for_bit(rows, h, experts, inter, split, group,
+                                                       routed):
+    args = _fat_operands(rows * 31 + split, rows, h, experts, inter, routed)
+    out = _fat_cluster(*args, split=split, group=group)
+    assert torch.equal(out, expert_ffn_fat_reference(*args))
+
+
+def test_fat_accumulation_in_another_order_moves_the_sums():
+    """The order can be seen: a round's tiles added in reverse give other
+    f32 sums than the reference's tile order, which the ranks' order with
+    groups inside them gives."""
+    args = _fat_operands(5, 64, 128, 8, 384)
+    ref = expert_ffn_fat_reference(*args)
+    assert torch.equal(_fat_cluster(*args, split=4, group=3), ref)
+    moved = _fat_cluster(*args, split=4, group=3, order=lambda held: held[::-1])
+    assert not torch.equal(moved, ref)
+
+
+def _bf16_split(x, w, k_split):
+    """One bf16 product as ffn_fused.cu's blocks sum it: K in chunks of 64,
+    rank r taking the chunks [r * per, (r + 1) * per) (per = ceil(chunks /
+    split)), its f32 partial sum, the ranks' partials added in rank order
+    from 0."""
+    k = x.shape[1]
+    chunks = cdiv(k, BW_CHUNK)
+    per = cdiv(chunks, k_split)
+    covered, total = [], torch.zeros((x.shape[0], w.shape[1]))
+    for r in range(k_split):
+        lo, hi = min(k, r * per * BW_CHUNK), min(k, (r + 1) * per * BW_CHUNK)
+        covered += list(range(lo, hi))
+        total = total + x[:, lo:hi].float() @ w[lo:hi].float()
+    assert covered == list(range(k))
+    return total
+
+
+@pytest.mark.parametrize("rows,d,inter", [(64, 256, 1024), (5, 192, 640), (37, 320, 1536)])
+def test_bf16_ffn_split_is_the_reference_bit_for_bit(rows, d, inter):
+    """The bf16 layout on its plan's splits (and on others), ReLU, with
+    values on a grid coarse enough that every f32 sum is exact in any order:
+    the hidden rounded to bf16 after bias and activation, the output after
+    b2, bit for bit the plain version."""
+    gen = torch.Generator().manual_seed(rows + d)
+
+    def grid(*shape, step):
+        return (torch.randint(-3, 4, shape, generator=gen) * step).to(torch.bfloat16)
+    x, w1, w2 = grid(rows, d, step=0.25), grid(d, inter, step=0.125), grid(inter, d, step=0.125)
+    b1, b2 = grid(inter, step=0.125), grid(d, step=0.125)
+    ref = ffn_decode_reference(x, w1, b1, w2, b2, "relu")
+    plan = bf16_ffn_plan(rows, d, inter, H100_SMS)
+    for split_up, split_down in ((plan.up.split, plan.down.split), (1, 1), (3, 4)):
+        hid = torch.relu(_bf16_split(x, w1, split_up) + b1.float()).to(torch.bfloat16)
+        out = (_bf16_split(hid, w2, split_down) + b2.float()).to(torch.bfloat16)
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("rows,split", [(r, s) for r in (16, 64) for s in range(2, 17)])
+def test_pair_exchange_places_fit_the_plan(rows, split):
+    """quant_ffn.cuh's exchange as its code computes it: the four sums of
+    consumer thread t's column block j (pair p = 256 j + t of P = 256 rows /
+    8) go to owner p * split / P, at place p - ceil(owner * P / split) of
+    its run; every (pushing rank, pair) has its own 16-byte place inside
+    the slot set that xset_bytes gives, every owner is a rank, and the
+    owners' runs are about P / split pairs each."""
+    pairs = rows // 8 * CONSUMER_THREADS
+    run = cdiv(pairs, split)
+    set_bytes = xset_bytes(rows, split)
+    places, runs = set(), collections.Counter()
+    for p in range(pairs):
+        owner = p * split // pairs
+        local = p - cdiv(owner * pairs, split)
+        assert 0 <= owner < split and 0 <= local < run
+        runs[owner] += 1
+        for rank in range(split):
+            at = (rank * run + local) * 16
+            assert at + 16 <= set_bytes
+            places.add((owner, at))
+    assert len(places) == pairs * split
+    assert max(runs.values()) - min(runs.values()) <= 1
+    src = _source("quant_ffn.cuh")
+    assert "const int owner = p * split / pairs;" in src
+    assert "local = p - (owner * pairs + split - 1) / split;" in src
+    assert "reinterpret_cast<float4*>(set) + rank * run + local, owner)" in src
