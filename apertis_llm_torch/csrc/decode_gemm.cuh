@@ -1,6 +1,7 @@
-// The swapped-operand product core of the int8-weight products: the int8
-// decode kernels (ssm_step.cu's int8 layout, ffn_fused.cu's int8 and int4
-// layouts) and quant_matmul.cu's qm_kernel (#7, and #6 with bf16 x).
+// The swapped-operand product core of the Hopper decode and int8-weight
+// kernels: the decode mixer step (ssm_step.cu, int8 and bf16 layouts), the
+// decode FFN (ffn_fused.cu, quant_ffn.cuh), the fat MoE FFN (moe_ffn.cu) and
+// quant_matmul.cu's qm_kernel (#7, #6 with bf16 x, #8's block-scaled mode).
 //
 // A block of 384 threads computes, for 128 weight columns (two consumer
 // warpgroups of 64, wgmma's M side) and BR rows (16 to 256, wgmma's N side),
@@ -22,9 +23,16 @@
 // The operand kinds (DgOp): int8 rows and weight (exact int32 sums, 128 K a
 // chunk), int8 rows and an int4 weight (the same), bf16 rows and an int8
 // weight (f32 sums, 64 K a chunk), bf16 rows and a bf16 weight (f32 sums, 64
-// K a chunk): the bf16 weight tile is staged by TMA as two 64-column blocks
-// of 64 K rows and read by wgmma straight from shared memory as an MN-major
-// A operand (hopper.cuh::BwMma), with no register fragments.
+// K a chunk): the bf16 weight tile is staged as two 64-column blocks of 64 K
+// rows (by TMA, or by the producer's own 8-byte loads where a row is not a
+// whole number of 16-byte units, as x_param's R + 2C at the MoE widths) and
+// read by wgmma straight from shared memory as an MN-major A operand
+// (hopper.cuh::BwMma), with no register fragments.
+// A K split over a thread-block cluster adds the blocks' sums in one of two
+// exchanges: the owner-slot one (dg_split_sum: a column block's sums to one
+// rank) or the sliced one (xpush / add_round: runs of (thread, column block)
+// pairs, 16-byte pushes, and tile-ordered rounds for the products that must
+// add per-tile f32 terms in order).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -100,7 +108,7 @@ struct DgChunks {
 
 // One product's weight: int8 (K, N), int4 packed (K / 2, N) with its
 // (K / 128, N) shifts, or bf16 (K, N); loaded by TMA (w_map, sh_map) when
-// `tma` (always for bf16), else by the producer's own loads.
+// `tma`, else by the producer's own loads.
 struct DgWeight {
   const int8_t* w;
   int k, n;
@@ -148,13 +156,30 @@ __device__ __forceinline__ int4 load8_bf16(const bf16* __restrict__ base, int ro
   return make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
 }
 
+// 4 bf16 of row `row` of a (rows, cols) bf16 matrix with leading dimension
+// `ld`, from column `col`, as 8 bytes; zeros past the edges. `vec`: cols is
+// a multiple of 4 and the base 8-byte aligned.
+__device__ __forceinline__ uint2 load4_bf16(const bf16* __restrict__ base, int row, int col,
+                                            int rows, int cols, size_t ld, bool vec) {
+  if (row >= rows || col >= cols) return make_uint2(0, 0);
+  const bf16* src = base + (size_t)row * ld + col;
+  if (vec) return *reinterpret_cast<const uint2*>(src);
+  const uint16_t* h = reinterpret_cast<const uint16_t*>(src);
+  uint32_t w[2] = {0, 0};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (col + j < cols) w[j >> 1] |= (uint32_t)h[j] << (16 * (j & 1));
+  return make_uint2(w[0], w[1]);
+}
+
 // Issue chunks [from, to) of `ch` into the ring, chunk i at ring position
 // pos0 + i (a block that walks several tiles goes on round the ring): the
 // weight tile (and an int4 tile's shift row) and the rows' tile.
 // TMA loads are issued by one thread (ptid 0) and counted in bytes; an
 // operand that TMA cannot load (a row that is not a multiple of 16 bytes, an
 // unaligned base) is staged by all 128 producer threads with zero-filling
-// 16-byte loads in the swizzled layout, after which they arrive. Position p
+// 16-byte loads (a bf16 weight: 8-byte loads, half a swizzle chunk each) in
+// the swizzled layout, after which they arrive. Position p
 // goes to stage p % stages and first waits until the consumers have
 // released position p - stages. The stage, its round and the chunk are
 // counted as the loop goes (no division a chunk: the producer's time per
@@ -170,7 +195,9 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
   if (!manual && ptid != 0) return;
   const uint32_t tx = (rows.tma ? r.x_bytes : 0) + (wt.tma ? Op::kWTx : 0);
   const int x_align = Op::kW8 ? 16 : 8;   // values a 16-byte load
-  const bool vec_w = wt.n % 16 == 0 && reinterpret_cast<uintptr_t>(wt.w) % 16 == 0;
+  const bool vec_w = kKind == kDgBW
+                         ? wt.n % 4 == 0 && reinterpret_cast<uintptr_t>(wt.w) % 8 == 0
+                         : wt.n % 16 == 0 && reinterpret_cast<uintptr_t>(wt.w) % 16 == 0;
   const bool vec_x = rows.k % x_align == 0 && reinterpret_cast<uintptr_t>(rows.x) % 16 == 0;
   int next = (pos0 + from) % r.stages, round = (pos0 + from) / r.stages;
   int tq = from / ch.per, tc = from % ch.per;   // chunk `from`: chunk tc of tile tq
@@ -222,13 +249,28 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
         *reinterpret_cast<int4*>(dst + row * 128 + ((c ^ (row & 7)) << 4)) = v;
       }
     }
-    if (kKind != kDgBW && !wt.tma) {   // a bf16 weight is always loaded by TMA
+    if (!wt.tma) {
       unsigned char* dst = r.w(s);
+      if constexpr (kKind == kDgBW) {
+        // 8-byte units u: column block u / 1024, K row (u / 16) % 64, half
+        // u % 2 of its 16-byte chunk (u / 2) % 8 (8 columns); 16 threads
+        // read one 128-byte run of a weight row.
+        const bf16* w16 = reinterpret_cast<const bf16*>(wt.w);
 #pragma unroll
-      for (int u = ptid; u < Op::kKC * 8; u += 128) {
-        const int row = u >> 3, c = u & 7;
-        *reinterpret_cast<int4*>(dst + row * 128 + ((c ^ (row & 7)) << 4)) =
-            load16(wt.w, kw + row, n0 + 16 * c, wt.k, wt.n, (size_t)wt.n, vec_w);
+        for (int u = ptid; u < (int)(kDgBWBytes / 8); u += 128) {
+          const int half = u & 1, c = (u >> 1) & 7, row = (u >> 4) & 63, blk = u >> 10;
+          *reinterpret_cast<uint2*>(dst + blk * (kDgBWBytes / 2) + row * 128 +
+                                    ((c ^ (row & 7)) << 4) + 8 * half) =
+              load4_bf16(w16, kw + row, n0 + 64 * blk + 8 * c + 4 * half, wt.k, wt.n,
+                         (size_t)wt.n, vec_w);
+        }
+      } else {
+#pragma unroll
+        for (int u = ptid; u < Op::kKC * 8; u += 128) {
+          const int row = u >> 3, c = u & 7;
+          *reinterpret_cast<int4*>(dst + row * 128 + ((c ^ (row & 7)) << 4)) =
+              load16(wt.w, kw + row, n0 + 16 * c, wt.k, wt.n, (size_t)wt.n, vec_w);
+        }
       }
     }
     fence_proxy_async();
@@ -481,6 +523,105 @@ __device__ __forceinline__ void dg_split_sum(T (&acc)[BR / 2], T* part, const Dg
 #pragma unroll
   for (int i = 0; i < BR / 2; ++i) acc[i] = 0;
   dg_add_slots<BR>(acc, part, L, mine, split, split);
+}
+
+// The two halves of a cluster barrier (cluster.sync() is both): every
+// thread of the cluster's blocks arrives, with release semantics, and later
+// waits, with acquire semantics, for all to have arrived; arrivals and waits
+// alternate in each thread, and work between the two overlaps the
+// barrier's latency.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The sliced exchange of a K split over a cluster of `split` blocks
+// (quant_ffn.cuh's GEMM2, and the bf16 FFN's and bf16 mixer step's
+// products): a consumer thread's four sums of an accumulator column block j
+// (pair p = 256 j + thread) are owned by rank p * split / P
+// of the P = 256 BR / 8 pairs, so that each rank owns a run of about P /
+// split pairs (threads of one or two column blocks, or all of one). A
+// thread pushes the four sums of each of its column blocks with a row below
+// S as one 16-byte remote store into the owner's slot set, at [pushing
+// rank][the pair's place in the owner's run], and the owner's thread adds
+// them. A slot set (one tile's sums) takes split x ceil(P / split) x 16
+// bytes: about BR x 512 at any split, so that a round can hold several
+// tiles, and every owner's adds are spread over its run's threads.
+__host__ __device__ constexpr uint32_t xset_bytes(int br, int split) {
+  return split > 1 ? (uint32_t)split * ((br / 8 * kDgConsumerThreads + split - 1) / split) * 16
+                   : 0u;
+}
+
+// The owner of pair p (of P) and its place in the owner's run.
+__device__ __forceinline__ int xowner(int p, int pairs, int split, int& local) {
+  const int owner = p * split / pairs;
+  local = p - (owner * pairs + split - 1) / split;
+  return owner;
+}
+
+// Push this thread's sums of its first `blocks` column blocks (those with a
+// row below S), of tile set `set`, from rank `rank` to their owners.
+template <int BR>
+__device__ __forceinline__ void xpush(const float (&v)[BR / 2], float* set, int tid, int rank,
+                                      int split, int blocks, cg::cluster_group& cluster) {
+  constexpr int kPairs = BR / 8 * kDgConsumerThreads;
+  const int run = (kPairs + split - 1) / split;
+#pragma unroll
+  for (int j = 0; j < BR / 8; ++j) {
+    if (j >= blocks) break;
+    int local;
+    const int owner = xowner(j * kDgConsumerThreads + tid, kPairs, split, local);
+    *cluster.map_shared_rank(reinterpret_cast<float4*>(set) + rank * run + local, owner) =
+        make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+  }
+}
+
+// Add, for each of this thread's column blocks that rank `rank` owns, the
+// round's pushed sums in tile order to acc: rank q's slot set for its group
+// tile g (set g of `group`, `set_floats` apart) for q = 0, 1, ..., and
+// inside each rank g = 0, 1, ..., where the tile t0 + q * group + g exists
+// (below `tiles`) and is live: a MoE tile of an expert that no row routes
+// to (live[t / tile_experts] 0; `live` null: all are live) was not pushed,
+// and its terms, all ±0, would not move a sum that starts from +0.
+template <int BR>
+__device__ __forceinline__ void add_round(float (&acc)[BR / 2], const float* part,
+                                          uint32_t set_floats, int tid, int rank, int split,
+                                          int blocks, int group, int t0, int tiles,
+                                          const unsigned char* live = nullptr,
+                                          int tile_experts = 1) {
+  constexpr int kPairs = BR / 8 * kDgConsumerThreads;
+  const int run = (kPairs + split - 1) / split;
+#pragma unroll
+  for (int j = 0; j < BR / 8; ++j) {
+    if (j >= blocks) break;
+    int local;
+    if (xowner(j * kDgConsumerThreads + tid, kPairs, split, local) != rank) continue;
+    float4 s = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    for (int q = 0, t = t0; q < split && t < tiles; ++q) {
+      for (int g = 0; g < group && t < tiles; ++g, ++t) {
+        if (live != nullptr && live[t / tile_experts] == 0) continue;
+        const float4 v = reinterpret_cast<const float4*>(part + g * set_floats)[q * run + local];
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+    }
+    acc[4 * j] = s.x;
+    acc[4 * j + 1] = s.y;
+    acc[4 * j + 2] = s.z;
+    acc[4 * j + 3] = s.w;
+  }
+}
+
+// Whether rank `rank` owns this thread's column block j of a K split over
+// `split` blocks (all of them without a split).
+template <int BR>
+__device__ __forceinline__ bool xowns(int j, int tid, int rank, int split) {
+  int local;
+  return xowner(j * kDgConsumerThreads + tid, BR / 8 * kDgConsumerThreads, split, local) == rank;
 }
 
 // Shared memory of a ring kernel, as ops/kernels/decode_plan.py computes

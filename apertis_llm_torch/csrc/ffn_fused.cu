@@ -29,8 +29,8 @@
 //      TMA.
 // Each splits K over a cluster of `split` blocks where its column tiles
 // leave SMs idle; the blocks' f32 sums are pushed to their owner and added
-// in rank order (quant_ffn.cuh's exchange), so a repeated call gives the
-// same bits. The host's plan (ops/kernels/decode_plan.py::bf16_ffn_plan)
+// in rank order (decode_gemm.cuh's sliced exchange), so a repeated call
+// gives the same bits. The host's plan (ops/kernels/decode_plan.py::bf16_ffn_plan)
 // gives the row tile, the splits and the rings' stages.
 
 #include <string.h>
@@ -268,7 +268,7 @@ int ffn_quant_run(const void* xq, const void* xs, const void* w1, const void* w1
   down.group = 1;
   down.tile_experts = 1;
   down.experts = 0;
-  err = dg_launch(ffn_down_kernel<kI4, BR, false>,
+  err = dg_launch(ffn_down_kernel<kI4, BR, kDownFfn>,
                   dim3(((d_model + kDgCols - 1) / kDgCols) * split, row_tiles), dim3(kThreads),
                   split, dg_smem_bytes(BR, st_down, stage, 1, ffn_down_extra(BR, split, 1, 0)),
                   s, hqm, w2m, s2m, down);
@@ -343,12 +343,14 @@ extern "C" int apertis_ffn_quant_resources(int kernel, int row_tile, int smem, i
   switch (kernel) {
     case 0: return kernel_resources(r16 ? &ffn_up_kernel<false, 16, false>
                                         : &ffn_up_kernel<false, 64, false>, kThreads, smem, out);
-    case 1: return kernel_resources(r16 ? &ffn_down_kernel<false, 16, false>
-                                        : &ffn_down_kernel<false, 64, false>, kThreads, smem, out);
+    case 1: return kernel_resources(r16 ? &ffn_down_kernel<false, 16, kDownFfn>
+                                        : &ffn_down_kernel<false, 64, kDownFfn>,
+                                    kThreads, smem, out);
     case 2: return kernel_resources(r16 ? &ffn_up_kernel<true, 16, false>
                                         : &ffn_up_kernel<true, 64, false>, kThreads, smem, out);
-    case 3: return kernel_resources(r16 ? &ffn_down_kernel<true, 16, false>
-                                        : &ffn_down_kernel<true, 64, false>, kThreads, smem, out);
+    case 3: return kernel_resources(r16 ? &ffn_down_kernel<true, 16, kDownFfn>
+                                        : &ffn_down_kernel<true, 64, kDownFfn>,
+                                    kThreads, smem, out);
     case 4: return kernel_resources(r16 ? &ffn_bw_kernel<16, true> : &ffn_bw_kernel<64, true>,
                                     kThreads, smem, out);
     case 5: return kernel_resources(r16 ? &ffn_bw_kernel<16, false> : &ffn_bw_kernel<64, false>,

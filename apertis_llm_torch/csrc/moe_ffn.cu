@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(kBlock) fat_quant_kernel(
     int ei, int bn, int bnp) {
   const int t = blockIdx.x, tiles = gridDim.x;
   const size_t r = blockIdx.y;
-  const float s = fmaxf(absmax[r * tiles + t], 1e-8f) * (1.f / 127.f);
+  const float s = requant_scale(absmax[r * tiles + t]);
   if (threadIdx.x == 0) hs[r * tiles + t] = s;
   const float* src = hidden + r * ei + (size_t)t * bn;
   int8_t* dst = hq + (r * tiles + t) * bnp;
@@ -73,10 +73,7 @@ __global__ void __launch_bounds__(kBlock) fat_quant_kernel(
     uint32_t w = 0;
     if (j < bn) {
       const float4 v = *reinterpret_cast<const float4*>(src + j);
-      w = (uint32_t)(uint8_t)quant_level(__fdiv_rn(v.x, s)) |
-          (uint32_t)(uint8_t)quant_level(__fdiv_rn(v.y, s)) << 8 |
-          (uint32_t)(uint8_t)quant_level(__fdiv_rn(v.z, s)) << 16 |
-          (uint32_t)(uint8_t)quant_level(__fdiv_rn(v.w, s)) << 24;
+      w = requant_pack4(v.x, v.y, v.z, v.w, s);
     }
     *reinterpret_cast<uint32_t*>(dst + j) = w;
   }
@@ -154,7 +151,7 @@ int fat_run(const void* xq, const void* xs, const void* comb, const void* w1, co
   down.group = group;
   down.tile_experts = ei / experts / bn;
   down.experts = experts;
-  err = dg_launch(ffn_down_kernel<kI4, BR, true>,
+  err = dg_launch(ffn_down_kernel<kI4, BR, kDownMoe>,
                   dim3(((d_model + kDgCols - 1) / kDgCols) * split, row_tiles), dim3(kThreads),
                   split,
                   dg_smem_bytes(BR, st_down, stage, 1,
@@ -239,12 +236,14 @@ extern "C" int apertis_expert_ffn_fat_resources(int kernel, int row_tile, int sm
   switch (kernel) {
     case 0: return kernel_resources(r16 ? &ffn_up_kernel<false, 16, true>
                                         : &ffn_up_kernel<false, 64, true>, kThreads, smem, out);
-    case 1: return kernel_resources(r16 ? &ffn_down_kernel<false, 16, true>
-                                        : &ffn_down_kernel<false, 64, true>, kThreads, smem, out);
+    case 1: return kernel_resources(r16 ? &ffn_down_kernel<false, 16, kDownMoe>
+                                        : &ffn_down_kernel<false, 64, kDownMoe>,
+                                    kThreads, smem, out);
     case 2: return kernel_resources(r16 ? &ffn_up_kernel<true, 16, true>
                                         : &ffn_up_kernel<true, 64, true>, kThreads, smem, out);
-    case 3: return kernel_resources(r16 ? &ffn_down_kernel<true, 16, true>
-                                        : &ffn_down_kernel<true, 64, true>, kThreads, smem, out);
+    case 3: return kernel_resources(r16 ? &ffn_down_kernel<true, 16, kDownMoe>
+                                        : &ffn_down_kernel<true, 64, kDownMoe>,
+                                    kThreads, smem, out);
     case 4: return kernel_resources(&fat_quant_kernel, kBlock, 0, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

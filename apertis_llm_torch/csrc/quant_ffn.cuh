@@ -44,11 +44,33 @@
 // which lies in one tile of one expert, alike), GEMM2 such a tile (p_t is 0
 // there, as every one of its terms is: the combine weight is 0). No float
 // atomics: a repeated call gives the same bits.
+// ffn_down_kernel is also #8's product at a K split (quant_matmul.cu): the
+// rows x quantized per 512-wide K block, c_t = that block's row scale s_t,
+// the last tile partial where K is not a multiple of 512, and out =
+// x.dtype(acc * w_s), then + b in x's dtype.
 #pragma once
 
 #include "decode_gemm.cuh"
 
 namespace {
+
+// The requantization step, one copy for every kernel that takes it: GEMM1's
+// hidden tiles (above), the wide form's (moe_ffn.cu::fat_quant_kernel) and
+// #8's rows per 512-wide K block (quant_matmul.cu::fused_quant_kernel). The
+// scale of values whose largest magnitude is `absmax`, max(absmax, 1e-8) *
+// (1/127), a multiply; a value's level clip(rint(v / s)), a true division;
+// four levels packed into a word, the first in its low byte.
+__device__ __forceinline__ float requant_scale(float absmax) {
+  return __fmul_rn(fmaxf(absmax, 1e-8f), 1.f / 127.f);
+}
+__device__ __forceinline__ int8_t requant_level(float v, float s) {
+  return quant_level(__fdiv_rn(v, s));
+}
+__device__ __forceinline__ uint32_t requant_pack4(float a, float b, float c, float d, float s) {
+  return (uint32_t)(uint8_t)requant_level(a, s) | (uint32_t)(uint8_t)requant_level(b, s) << 8 |
+         (uint32_t)(uint8_t)requant_level(c, s) << 16 |
+         (uint32_t)(uint8_t)requant_level(d, s) << 24;
+}
 
 template <bool kI4>
 __host__ __device__ constexpr uint32_t w_tile_bytes() { return kI4 ? kDgW4Bytes : kDgW8Bytes; }
@@ -231,7 +253,7 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
   float sc[BR / 4];
 #pragma unroll
   for (int i = 0; i < BR / 4; ++i)
-    sc[i] = fmaxf(cmax[8 * (i / 2) + 2 * (L.lane & 3) + (i & 1)], 1e-8f) * (1.f / 127.f);
+    sc[i] = requant_scale(cmax[8 * (i / 2) + 2 * (L.lane & 3) + (i & 1)]);
 
   // hq = rint(h / hs), a true division; hs by the tile's first block.
   const bool first = n0 % bn == 0;
@@ -242,8 +264,8 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
       const int row = m0 + 8 * j + 2 * (L.lane & 3) + e;
       if (row >= rows) continue;
       const float s = sc[2 * j + e];
-      const int q0 = quant_level(__fdiv_rn(h[4 * j + e], s));
-      const int q1 = quant_level(__fdiv_rn(h[4 * j + e + 2], s));
+      const int q0 = requant_level(h[4 * j + e], s);
+      const int q1 = requant_level(h[4 * j + e + 2], s);
       *reinterpret_cast<uint16_t*>(a.hq + (size_t)row * a.n + c0) =
           (uint16_t)((q0 & 0xff) | ((q1 & 0xff) << 8));
       if (first && L.col == 0) a.hs[(size_t)row * tiles + n0 / bn] = s;
@@ -251,11 +273,17 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
   }
 }
 
+// GEMM2's form (its template's kMode): the FFN's (out = bf16(acc * w2_s +
+// b2)), the MoE layer's (c_t with the combine weight, out = acc * w2_s in
+// f32) or #8's (c_t = s_t, K not a multiple of bn, out = x.dtype(acc *
+// w_s) then + b in that type, b possibly null, bf16 or f32).
+enum DownMode { kDownFfn = 0, kDownMoe = 1, kDownBlock = 2 };
+
 // GEMM2's arguments beside its tensor maps.
 struct DownArgs {
   const float* hs;     // (S, tiles)
   const float* w2s;    // (1, N)
-  const bf16* b2;      // FFN: (N,)
+  const void* b2;      // (N,): bf16 (FFN, #8 bf16), f32 (#8 f32), or null (#8)
   void* out;           // (S, N): bf16 (FFN) or f32 (MoE)
   const float* comb;   // MoE: (S, E)
   int rows, n, k, bn, split, stages;
@@ -263,45 +291,11 @@ struct DownArgs {
   int group;           // consecutive tiles a block takes in a round, 1 to kMaxGroup
   int tile_experts;    // MoE: tiles an expert
   int experts;         // MoE: E
+  int out_f32;         // #8: f32 x and out, else bf16
 };
 
 // The most tiles a block takes in one round of ffn_down_kernel.
 constexpr int kMaxGroup = 8;
-
-// The two halves of a cluster barrier (cluster.sync() is both): every
-// thread of the cluster's blocks arrives, with release semantics, and later
-// waits, with acquire semantics, for all to have arrived; arrivals and waits
-// alternate in each thread, and work between the two overlaps the
-// barrier's latency.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// The exchange of a K split over a cluster of `split` blocks (GEMM2, and
-// the bf16 FFN's products): a consumer thread's four sums of an accumulator
-// column block j (pair p = 256 j + thread) are owned by rank p * split / P
-// of the P = 256 BR / 8 pairs, so that each rank owns a run of about P /
-// split pairs (threads of one or two column blocks, or all of one). A
-// thread pushes the four sums of each of its column blocks with a row below
-// S as one 16-byte remote store into the owner's slot set, at [pushing
-// rank][the pair's place in the owner's run], and the owner's thread adds
-// them. A slot set (one tile's sums) takes split x ceil(P / split) x 16
-// bytes: about BR x 512 at any split, so that a round can hold several
-// tiles, and every owner's adds are spread over its run's threads.
-__host__ __device__ constexpr uint32_t xset_bytes(int br, int split) {
-  return split > 1 ? (uint32_t)split * ((br / 8 * kDgConsumerThreads + split - 1) / split) * 16
-                   : 0u;
-}
-
-// The owner of pair p (of P) and its place in the owner's run.
-__device__ __forceinline__ int xowner(int p, int pairs, int split, int& local) {
-  const int owner = p * split / pairs;
-  local = p - (owner * pairs + split - 1) / split;
-  return owner;
-}
 
 // ffn_down_kernel's shared memory beyond its ring (dg_smem_bytes with no
 // split): the exchange's slot sets of the group's tiles (xset_bytes), the
@@ -312,70 +306,7 @@ inline size_t ffn_down_extra(int br, int split, int group, int experts) {
          (size_t)(experts + 15) / 16 * 16;
 }
 
-// Push this thread's sums of its first `blocks` column blocks (those with a
-// row below S), of tile set `set`, from rank `rank` to their owners.
-template <int BR>
-__device__ __forceinline__ void xpush(const float (&v)[BR / 2], float* set, int tid, int rank,
-                                      int split, int blocks, cg::cluster_group& cluster) {
-  constexpr int kPairs = BR / 8 * kDgConsumerThreads;
-  const int run = (kPairs + split - 1) / split;
-#pragma unroll
-  for (int j = 0; j < BR / 8; ++j) {
-    if (j >= blocks) break;
-    int local;
-    const int owner = xowner(j * kDgConsumerThreads + tid, kPairs, split, local);
-    *cluster.map_shared_rank(reinterpret_cast<float4*>(set) + rank * run + local, owner) =
-        make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
-  }
-}
-
-// Add, for each of this thread's column blocks that rank `rank` owns, the
-// round's pushed sums in tile order to acc: rank q's slot set for its group
-// tile g (set g of `group`, `set_floats` apart) for q = 0, 1, ..., and
-// inside each rank g = 0, 1, ..., where the tile t0 + q * group + g exists
-// (below `tiles`) and is live: a MoE tile of an expert that no row routes
-// to (live[t / tile_experts] 0; `live` null: all are live) was not pushed,
-// and its terms, all ±0, would not move a sum that starts from +0.
-template <int BR>
-__device__ __forceinline__ void add_round(float (&acc)[BR / 2], const float* part,
-                                          uint32_t set_floats, int tid, int rank, int split,
-                                          int blocks, int group, int t0, int tiles,
-                                          const unsigned char* live = nullptr,
-                                          int tile_experts = 1) {
-  constexpr int kPairs = BR / 8 * kDgConsumerThreads;
-  const int run = (kPairs + split - 1) / split;
-#pragma unroll
-  for (int j = 0; j < BR / 8; ++j) {
-    if (j >= blocks) break;
-    int local;
-    if (xowner(j * kDgConsumerThreads + tid, kPairs, split, local) != rank) continue;
-    float4 s = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
-    for (int q = 0, t = t0; q < split && t < tiles; ++q) {
-      for (int g = 0; g < group && t < tiles; ++g, ++t) {
-        if (live != nullptr && live[t / tile_experts] == 0) continue;
-        const float4 v = reinterpret_cast<const float4*>(part + g * set_floats)[q * run + local];
-        s.x += v.x;
-        s.y += v.y;
-        s.z += v.z;
-        s.w += v.w;
-      }
-    }
-    acc[4 * j] = s.x;
-    acc[4 * j + 1] = s.y;
-    acc[4 * j + 2] = s.z;
-    acc[4 * j + 3] = s.w;
-  }
-}
-
-// Whether rank `rank` owns this thread's column block j of a K split over
-// `split` blocks (all of them without a split).
-template <int BR>
-__device__ __forceinline__ bool xowns(int j, int tid, int rank, int split) {
-  int local;
-  return xowner(j * kDgConsumerThreads + tid, BR / 8 * kDgConsumerThreads, split, local) == rank;
-}
-
-template <bool kI4, int BR, bool kMoe>
+template <bool kI4, int BR, int kMode>
 __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
     const __grid_constant__ CUtensorMap x_map,   // hq (S, tiles * per * 128): BR rows x 128
     const __grid_constant__ CUtensorMap w_map,   // W2 (K, N); int4: packed (K / 2, N)
@@ -391,7 +322,12 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
   float* cvs = reinterpret_cast<float*>(bars + 2 * stages);                   // [2][group][BR]
   unsigned char* live = reinterpret_cast<unsigned char*>(cvs + 2 * group * BR);   // MoE: [E]
   const DgRing ring{smem, bars, bars + stages, BR * 128, w_tile_bytes<kI4>(), stages};
-  const int tiles = a.k / a.bn;
+  constexpr bool kMoe = kMode == kDownMoe;
+  // Tiles of bn K rows; #8's last one of `last` chunks (fewer than `per`
+  // where K is not a multiple of 512).
+  const int tiles = (a.k + a.bn - 1) / a.bn;
+  const int last = (a.k - (tiles - 1) * a.bn + kDgKC - 1) / kDgKC;
+  auto chunks_of = [&](int t) { return kMode == kDownBlock && t == tiles - 1 ? last : per; };
   const int rank = blockIdx.x % split;
   const int n0 = (blockIdx.x / split) * kDgCols;
   const int m0 = blockIdx.y * BR;
@@ -428,7 +364,7 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
     for (int rho = 0; rho < rounds; ++rho) {
       for (int g = 0; g < group; ++g) {
         const int t = (rho * split + rank) * group + g;
-        if (t < tiles && tile_live(t)) freed += per;
+        if (t < tiles && tile_live(t)) freed += chunks_of(t);
       }
       // The chunks whose stage the consumers free before this round's
       // barriers (position i waits for position i - stages).
@@ -439,13 +375,13 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
           ++q;
           continue;
         }
-        const int to = min(per, c + (upto - issued));
+        const int to = min(chunks_of(t), c + (upto - issued));
         dg_produce<kFfnKind<kI4>>(ring, &w_map, &sh_map, &x_map, wt, hrows,
                                   DgChunks{t, 1, 1, per, wgap}, n0, m0, c, to, ptid,
                                   issued - c);
         issued += to - c;
         c = to;
-        if (c == per) {
+        if (c == chunks_of(t)) {
           c = 0;
           ++q;
         }
@@ -507,8 +443,8 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
 #pragma unroll
       for (int i = 0; i < BR / 2; ++i) acc[i] = 0;
       if (tile_live(t)) {
-        dg_consume<kFfnKind<kI4>, BR>(ring, L, pos, pos + per, acc);
-        pos += per;
+        dg_consume<kFfnKind<kI4>, BR>(ring, L, pos, pos + chunks_of(t), acc);
+        pos += chunks_of(t);
       }
       float p[BR / 2];
 #pragma unroll
@@ -533,15 +469,23 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
       cluster_arrive();   // read: the next round may overwrite them
     }
   }
-  // FFN: out = bf16(acc * w2_s + b2); MoE: out = acc * w2_s (f32); for
-  // columns c0, c0 + 1 (N is even).
+  // FFN: out = bf16(acc * w2_s + b2); MoE: out = acc * w2_s (f32); #8:
+  // x.dtype(acc * w_s) (+ b); for columns c0, c0 + 1 (N is even).
   const int c0 = n0 + L.col;
   if (c0 >= a.n) return;
   const float ws0 = a.w2s[c0], ws1 = a.w2s[c0 + 1];
   float b0 = 0.f, b1v = 0.f;
-  if constexpr (!kMoe) {
-    b0 = to_f32(a.b2[c0]);
-    b1v = to_f32(a.b2[c0 + 1]);
+  if constexpr (kMode == kDownFfn) {
+    b0 = to_f32(static_cast<const bf16*>(a.b2)[c0]);
+    b1v = to_f32(static_cast<const bf16*>(a.b2)[c0 + 1]);
+  } else if constexpr (kMode == kDownBlock) {
+    if (a.b2 != nullptr && a.out_f32) {
+      b0 = static_cast<const float*>(a.b2)[c0];
+      b1v = static_cast<const float*>(a.b2)[c0 + 1];
+    } else if (a.b2 != nullptr) {
+      b0 = to_f32(static_cast<const bf16*>(a.b2)[c0]);
+      b1v = to_f32(static_cast<const bf16*>(a.b2)[c0 + 1]);
+    }
   }
 #pragma unroll
   for (int j = 0; j < BR / 8; ++j) {
@@ -550,13 +494,24 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
     for (int e = 0; e < 2; ++e) {
       const int row = m0 + 8 * j + 2 * (L.lane & 3) + e;
       if (row >= rows) continue;
-      if constexpr (kMoe) {
-        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + (size_t)row * a.n + c0) =
-            make_float2(__fmul_rn(sum[4 * j + e], ws0), __fmul_rn(sum[4 * j + e + 2], ws1));
+      const size_t o = (size_t)row * a.n + c0;
+      const float y0 = __fmul_rn(sum[4 * j + e], ws0), y1 = __fmul_rn(sum[4 * j + e + 2], ws1);
+      if constexpr (kMode == kDownMoe) {
+        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) = make_float2(y0, y1);
+      } else if constexpr (kMode == kDownFfn) {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + o) = __halves2bfloat162(
+            __float2bfloat16(__fadd_rn(y0, b0)), __float2bfloat16(__fadd_rn(y1, b1v)));
+      } else if (a.out_f32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) =
+            a.b2 != nullptr ? make_float2(__fadd_rn(y0, b0), __fadd_rn(y1, b1v))
+                            : make_float2(y0, y1);
       } else {
-        const bf16 o0 = __float2bfloat16(__fadd_rn(__fmul_rn(sum[4 * j + e], ws0), b0));
-        const bf16 o1 = __float2bfloat16(__fadd_rn(__fmul_rn(sum[4 * j + e + 2], ws1), b1v));
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + (size_t)row * a.n + c0) =
+        bf16 o0 = __float2bfloat16(y0), o1 = __float2bfloat16(y1);
+        if (a.b2 != nullptr) {
+          o0 = __float2bfloat16(__fadd_rn(__bfloat162float(o0), b0));
+          o1 = __float2bfloat16(__fadd_rn(__bfloat162float(o1), b1v));
+        }
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + o) =
             __halves2bfloat162(o0, o1);
       }
     }

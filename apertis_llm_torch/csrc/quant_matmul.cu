@@ -26,8 +26,8 @@
 // tensor-core product.
 //
 // quant_matmul_dyn_fused (#8, APERTIS_QUANT_MATMUL=fused): the w8a8 product
-// that quantizes x inside the kernel, per row and per 512-wide K block
-// [512 j, 512 j + 512) (one block when K <= 512):
+// that quantizes x per row and per 512-wide K block [512 j, 512 j + 512)
+// (one block when K <= 512):
 //   s_j = max(max|x[m, block j]|, 1e-8) * (1/127)   (a multiply, not / 127)
 //   q   = clip(rint(x / s_j), -127, 127)             (a true division)
 //   acc = sum_j float(q_j . W_q[block j]) * s_j      (j increasing, each
@@ -117,41 +117,43 @@
 //   8-byte (f32) store where N is even; rows past M and columns past N are
 //   not written.
 //
-// #8 keeps its simple tile: one block of 8 warps per (128 rows, 128 columns)
-// of the output, K in chunks of 64, WMMA int8 fragments (m16n16k16, int32
-// accumulators); each warp owns a 32 x 64 sub-tile. Both operands are staged
-// in shared memory as panels 16 bytes wide (A: four 128-row x 16-k panels,
-// B: eight 64-k x 16-column panels), each read with ldm = 16. The next
-// chunk's global loads are issued into registers before the current chunk's
-// products. #8 first reads its 128 rows of each 512-column block once for the
-// row scales (one warp a row, 16 rows a warp), then quantizes x as it stages
-// the A panels, and at the end of the block folds the int32 fragments into
-// f32 accumulators in registers (through the warp's 16 x 16 staging tile, a
-// lane owning 8 columns of one row of each fragment). Any M, N and K is
-// taken: rows, columns and k past the operands' edges are staged as zeros.
+// Design of #8 (Hopper): two launches.
+// 1. fused_quant_kernel, one pass over x: one warp a (row, 512-wide block),
+//    the block's 512 values in registers (16 a lane), its absmax by
+//    shuffles, the levels and the scale by quant_ffn.cuh's requantization
+//    step (the fat MoE FFN's, one device function). It writes x_q (M, Kp)
+//    int8, Kp = K padded to whole 128-byte chunks with zeros past K, so that
+//    TMA always loads it, and the scales (M, ceil(K / 512)) f32. Every column
+//    tile of the product reads these rows; none quantizes x again.
+// 2. The product, on the host's plan (ops/kernels/quant_matmul.py::
+//    fused_plan): qm_kernel's block-scaled mode (the tile walk and ring of
+//    #7, int8 wgmma), with one int32 accumulator a 512-wide block (four
+//    chunks) folded into f32 registers after the block's last chunk,
+//    acc_f = acc_f + float(acc_i) * s_j[row] in j order (the block's row
+//    scales loaded into registers while its products run), then the
+//    epilogue x.dtype(acc_f * w_s) (+ b). Its f32 accumulators double the
+//    consumers' accumulator registers, so the plan takes row tiles of 16,
+//    64 or 128 only. Where the plan splits K over a cluster (64 rows or
+//    fewer, few column tiles: w2 at 64 x 9728 x 2432), the product is
+//    quant_ffn.cuh's ffn_down_kernel with bn = 512: the blocks of the split
+//    fall on whole 512-wide blocks, and each block's term float(acc_j) *
+//    s_j reaches its owner, which adds them in j order (the tile-ordered
+//    exchange of the FFN's GEMM2, in rounds of `group` blocks).
 
 #include <cooperative_groups.h>
-#include <mma.h>
 #include <string.h>
 
 #include "common.cuh"
 #include "decode_gemm.cuh"
 #include "hopper.cuh"
+#include "quant_ffn.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
-using namespace nvcuda;
 
-constexpr int kBM = 128;                 // rows per block (#8)
-constexpr int kBN = 128;                 // columns per block (#8)
-constexpr int kBK = 64;                  // K chunk (#8)
-constexpr int kPanelA = kBM * 16;        // bytes of one 16-deep A panel
-constexpr int kPanelB = kBK * 16;        // bytes of one 16-wide B panel
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> FragC;
+constexpr int kQBlock = 512;   // #8's K block (the TPU kernel's BLOCK_K)
+constexpr int kQBlockChunks = kQBlock / kDgKC;
 
 // ---- #7 and #6 (bf16 x): the Hopper kernel ------------------------------------
 
@@ -245,7 +247,36 @@ struct QmEpilogue {
   }
 };
 
-template <bool W8A8, int BR>
+// The epilogue of one tile from its accumulators' registers: the column
+// blocks this block owns (`mine`), each thread's columns col and col + 1 of
+// rows row0 + 8 j and row0 + 8 j + 1. Its state is made here, from the
+// parameters, so that nothing of it stays in registers through the products.
+template <int BR, typename V>
+__device__ __forceinline__ void qm_store(const V (&acc)[BR / 2], const DgLane& L, uint32_t mine,
+                                         void* out, const float* xs, const float* ws,
+                                         const void* bias, int m, int n, int m0, int n0,
+                                         int out_bf16) {
+  QmEpilogue epi;
+  epi.out = out;
+  epi.xs = xs;
+  epi.m = m;
+  epi.n = n;
+  epi.has_b = bias != nullptr;
+  epi.out_bf16 = out_bf16 != 0;
+  epi.at(n0 + L.col, ws, bias);
+  const int row0 = m0 + 2 * (L.lane & 3);
+#pragma unroll
+  for (int j = 0; j < BR / 8; ++j) {
+    if (!((mine >> j) & 1)) continue;
+    epi.put(row0 + 8 * j, acc[4 * j], acc[4 * j + 2]);
+    epi.put(row0 + 8 * j + 1, acc[4 * j + 1], acc[4 * j + 3]);
+  }
+}
+
+// #7 (W8A8), #6 with bf16 x, and #8's block-scaled mode (kScaled: int8 x_q
+// rows of fused_quant_kernel, `xs` its (M, ceil(K / 512)) block scales, no
+// split).
+template <bool W8A8, int BR, bool kScaled = false>
 __global__ void __launch_bounds__(kThreads, 1)
     qm_kernel(const __grid_constant__ CUtensorMap x_map,
               const __grid_constant__ CUtensorMap w_map, const void* __restrict__ x,
@@ -256,6 +287,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   typedef QmPlan<W8A8, BR> P;
   typedef typename P::Op::Acc Acc;
   constexpr int kKind = W8A8 ? kDgI8 : kDgBf16;
+  static_assert(!kScaled || W8A8, "the block-scaled mode is int8");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   Acc* part = reinterpret_cast<Acc*>(smem + (size_t)stages * P::kStage);
@@ -300,39 +332,53 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t mine = dg_owned_mask(rank, split, BR / 8);
   int pos = 0;
   for (int t = cluster_id; t < tiles; t += clusters, pos += nch) {
-    const int m0 = (t % tiles_m) * BR;
-    Acc acc[BR / 2];
+    const int m0 = (t % tiles_m) * BR, n0 = (t / tiles_m) * kDgCols;
+    if constexpr (kScaled) {
+      // Block j's chunks into a fresh int32 accumulator, folded into the
+      // f32 one with the block's row scales (loaded while its products run):
+      // acc_f = acc_f + float(acc_i) * s_j, each rounded, j increasing.
+      const int nb = (k + kQBlock - 1) / kQBlock;
+      const int row0 = m0 + 2 * (L.lane & 3);
+      float acc_f[BR / 2];
 #pragma unroll
-    for (int i = 0; i < BR / 2; ++i) acc[i] = 0;
-    dg_consume<kKind, BR>(ring, L, pos, pos + nch, acc);
-    // Split K: accumulator column block j is summed, in rank order, and
-    // stored by block j % split of the cluster.
-    if (split > 1) dg_split_sum<BR>(acc, part, L, rank, split, mine, cluster);
-    // The epilogue's state is made here, from the parameters, so that
-    // nothing of it stays in registers through the products.
-    QmEpilogue epi;
-    epi.out = out;
-    epi.xs = xs;
-    epi.m = m;
-    epi.n = n;
-    epi.has_b = bias != nullptr;
-    epi.out_bf16 = out_bf16 != 0;
-    epi.at((t / tiles_m) * kDgCols + L.col, ws, bias);
-    const int row0 = m0 + 2 * (L.lane & 3);
+      for (int i = 0; i < BR / 2; ++i) acc_f[i] = 0.f;
+      for (int j = 0; j < nb; ++j) {
+        float s_j[BR / 4];
 #pragma unroll
-    for (int j = 0; j < BR / 8; ++j) {
-      if (!((mine >> j) & 1)) continue;
-      epi.put(row0 + 8 * j, acc[4 * j], acc[4 * j + 2]);
-      epi.put(row0 + 8 * j + 1, acc[4 * j + 1], acc[4 * j + 3]);
+        for (int r = 0; r < BR / 4; ++r) {
+          const int row = row0 + 8 * (r / 2) + (r & 1);
+          s_j[r] = row < m ? xs[(size_t)row * nb + j] : 0.f;
+        }
+        int acc[BR / 2];
+#pragma unroll
+        for (int i = 0; i < BR / 2; ++i) acc[i] = 0;
+        const int c0 = j * kQBlockChunks;
+        dg_consume<kKind, BR>(ring, L, pos + c0, pos + min(nch, c0 + kQBlockChunks), acc);
+#pragma unroll
+        for (int i = 0; i < BR / 2; ++i)
+          acc_f[i] = __fadd_rn(acc_f[i],
+                               __fmul_rn(__int2float_rn(acc[i]), s_j[2 * (i / 4) + (i & 1)]));
+      }
+      qm_store<BR>(acc_f, L, mine, out, xs, ws, bias, m, n, m0, n0, out_bf16);
+    } else {
+      Acc acc[BR / 2];
+#pragma unroll
+      for (int i = 0; i < BR / 2; ++i) acc[i] = 0;
+      dg_consume<kKind, BR>(ring, L, pos, pos + nch, acc);
+      // Split K: accumulator column block j is summed, in rank order, and
+      // stored by block j % split of the cluster.
+      if (split > 1) dg_split_sum<BR>(acc, part, L, rank, split, mine, cluster);
+      qm_store<BR>(acc, L, mine, out, xs, ws, bias, m, n, m0, n0, out_bf16);
+      if (split > 1) cluster.sync();   // no block pushes again until its sums are read
     }
-    if (split > 1) cluster.sync();   // no block pushes again until its sums are read
   }
 }
 
-template <bool W8A8, int BR>
+// A launch of qm_kernel; `kx` is the row length of x (K, or #8's padded Kp).
+template <bool W8A8, int BR, bool kScaled = false>
 int qm_launch(const void* x, const void* xs, const void* wq, const void* ws, const void* bias,
-              void* out, int m, int n, int k, int out_bf16, int split, int tma_x, int tma_w,
-              cudaStream_t stream) {
+              void* out, int m, int n, int k, int kx, int out_bf16, int split, int tma_x,
+              int tma_w, cudaStream_t stream) {
   typedef QmPlan<W8A8, BR> P;
   CUtensorMap x_map, w_map;
   memset(&x_map, 0, sizeof(x_map));
@@ -341,7 +387,7 @@ int qm_launch(const void* x, const void* xs, const void* wq, const void* ws, con
   if (tma_x)
     err = make_map_2d(&x_map, x,
                       W8A8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      W8A8 ? 1 : 2, (uint64_t)k, (uint64_t)m, P::Op::kKC, BR);
+                      W8A8 ? 1 : 2, (uint64_t)kx, (uint64_t)m, P::Op::kKC, BR);
   if (err == 0 && tma_w)
     err = make_map_2d(&w_map, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, (uint64_t)n, (uint64_t)k,
                       kDgCols, P::Op::kKC);
@@ -352,7 +398,7 @@ int qm_launch(const void* x, const void* xs, const void* wq, const void* ws, con
   const int fit = persistent_grid(tiles * split);
   if (fit <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   const int clusters = fit / split > 0 ? fit / split : 1;
-  err = dg_launch(qm_kernel<W8A8, BR>, dim3(clusters * split), dim3(kThreads), split,
+  err = dg_launch(qm_kernel<W8A8, BR, kScaled>, dim3(clusters * split), dim3(kThreads), split,
                   P::bytes(stages, split), stream, x_map, w_map, x,
                   static_cast<const float*>(xs), static_cast<const int8_t*>(wq),
                   static_cast<const float*>(ws), bias, out, m, n, k, out_bf16, split, tma_x,
@@ -370,16 +416,16 @@ int qm_dispatch(const void* x, const void* xs, const void* wq, const void* ws, c
     return static_cast<int>(cudaErrorInvalidValue);
   switch (rows) {
     case 16:
-      return qm_launch<W8A8, 16>(x, xs, wq, ws, bias, out, m, n, k, out_bf16, split, tma_x,
+      return qm_launch<W8A8, 16>(x, xs, wq, ws, bias, out, m, n, k, k, out_bf16, split, tma_x,
                                  tma_w, s);
     case 64:
-      return qm_launch<W8A8, 64>(x, xs, wq, ws, bias, out, m, n, k, out_bf16, split, tma_x,
+      return qm_launch<W8A8, 64>(x, xs, wq, ws, bias, out, m, n, k, k, out_bf16, split, tma_x,
                                  tma_w, s);
     case 128:
-      return qm_launch<W8A8, 128>(x, xs, wq, ws, bias, out, m, n, k, out_bf16, split, tma_x,
+      return qm_launch<W8A8, 128>(x, xs, wq, ws, bias, out, m, n, k, k, out_bf16, split, tma_x,
                                   tma_w, s);
     case 256:
-      return qm_launch<W8A8, 256>(x, xs, wq, ws, bias, out, m, n, k, out_bf16, split, tma_x,
+      return qm_launch<W8A8, 256>(x, xs, wq, ws, bias, out, m, n, k, k, out_bf16, split, tma_x,
                                   tma_w, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -460,8 +506,6 @@ __global__ void __launch_bounds__(kBlock) quant_matmul_f32_kernel(
 
 // ---- #8, the w8a8 product that quantizes x per 512-wide K block ---------------
 
-constexpr int kQBlock = 512;   // the TPU kernel's K block (quant_matmul.py BLOCK_K)
-
 __device__ __forceinline__ float elem_f32(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ float elem_f32(const float* p) { return *p; }
 
@@ -491,145 +535,81 @@ __device__ __forceinline__ void load16_f32(const T* __restrict__ base, int row, 
   for (int j = 0; j < 16; ++j) v[j] = col + j < col_end ? elem_f32(src + j) : 0.f;
 }
 
+// #8's quantization pass, one warp a (row, 512-wide block j): lane l holds
+// the block's values 16 l .. 16 l + 15 (zeros past K), the warp's absmax
+// gives s_j = requant_scale, and the lane writes its 16 levels (zeros past
+// K, whose value is 0) where they lie below the row stride kp; lane 0
+// writes s_j into xs (M, nb). `vec`: x's rows are 16-byte aligned.
 template <typename T>
-__global__ void __launch_bounds__(kBlock, 1) quant_matmul_dyn_fused_kernel(
-    const T* __restrict__ x,         // (M, K) bf16 or f32
-    const int8_t* __restrict__ wq,   // (K, N)
-    const float* __restrict__ ws,    // (N,)
-    const T* __restrict__ bias,      // (N,) or nullptr
-    T* __restrict__ out,             // (M, N)
-    int m, int n, int k, bool vec_a, bool vec_b) {
-  __shared__ __align__(128) int8_t sa[(kBK / 16) * kPanelA];   // 8 KB
-  __shared__ __align__(128) int8_t sb[(kBN / 16) * kPanelB];   // 8 KB
-  __shared__ __align__(128) int sc[kWarps][16 * 16];          // 8 KB
-  __shared__ float srow[kBM];                                 // the block's row scales
-  const int warp = threadIdx.x >> 5;
+__global__ void __launch_bounds__(kBlock) fused_quant_kernel(
+    const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs, int m, int k,
+    int kp, int nb, bool vec) {
+  const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  const int wm = warp & 3;
-  const int wn = warp >> 2;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const bool live = m0 + wm * 32 < m;
-  const int row_frags = live ? min(2, (m - m0 - wm * 32 + 15) / 16) : 0;
-  int* stage = sc[warp];
-  const int er = lane >> 1;
-  const int ec = (lane & 1) * 8;
+  if (item >= m * nb) return;
+  const int row = item / nb, j = item - row * nb;
+  const int col = j * kQBlock + 16 * lane;
+  float v[16];
+  load16_f32(x, row, col, m, k, (size_t)k, vec, v);
+  float mx = 0.f;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) mx = fmaxf(mx, fabsf(v[q]));
+  const float s = requant_scale(warp_max(mx));
+  if (col < kp)
+    *reinterpret_cast<uint4*>(xq + (size_t)row * kp + col) =
+        make_uint4(requant_pack4(v[0], v[1], v[2], v[3], s),
+                   requant_pack4(v[4], v[5], v[6], v[7], s),
+                   requant_pack4(v[8], v[9], v[10], v[11], s),
+                   requant_pack4(v[12], v[13], v[14], v[15], s));
+  if (lane == 0) xs[(size_t)row * nb + j] = s;
+}
 
-  FragC acc[2][4];
-  float facc[2][4][8];
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) facc[t][j][q] = 0.f;
+// #8's product at a K split: ffn_down_kernel over the 512-wide blocks of
+// x_q (M, kp), the block scales xs (M, nb) as the tiles' c_t.
+template <int BR>
+int fused_down(const int8_t* xq, const float* xs, const void* wq, const float* ws,
+               const void* bias, void* out, int m, int n, int k, int kp, int out_bf16, int split,
+               int group, int stages, cudaStream_t s) {
+  CUtensorMap xm, wm, shm;
+  memset(&shm, 0, sizeof(shm));   // no int4 shifts
+  int err = make_map_2d(&xm, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, kp, m, 128, BR);
+  if (err == 0)
+    err = make_map_2d(&wm, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, n, k, kDgCols, kDgKC);
+  if (err != 0) return err;
+  DownArgs a = {};
+  a.hs = xs;
+  a.w2s = ws;
+  a.b2 = bias;
+  a.out = out;
+  a.rows = m;
+  a.n = n;
+  a.k = k;
+  a.bn = kQBlock;
+  a.split = split;
+  a.stages = stages;
+  a.per = kQBlockChunks;
+  a.group = group;
+  a.tile_experts = 1;
+  a.out_f32 = !out_bf16;
+  return dg_launch(ffn_down_kernel<false, BR, kDownBlock>,
+                   dim3(((n + kDgCols - 1) / kDgCols) * split, (m + BR - 1) / BR),
+                   dim3(kThreads), split,
+                   dg_smem_bytes(BR, stages, BR * 128 + kDgW8Bytes, 1,
+                                 ffn_down_extra(BR, split, group, 0)),
+                   s, xm, wm, shm, a);
+}
 
-  int g_end = 0;
-  int4 ra[2], rb[2];
-  // A items are quantized as they are fetched, with the block's row scales.
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int i = threadIdx.x + it * kBlock;
-      const int r = i >> 2;
-      float v[16];
-      load16_f32(x, m0 + r, k0 + (i & 3) * 16, m, g_end, (size_t)k, vec_a, v);
-      const float s = srow[r];
-      int w[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        w[j >> 2] |= (int)(uint8_t)quant_level(__fdiv_rn(v[j], s)) << (8 * (j & 3));
-      ra[it] = make_int4(w[0], w[1], w[2], w[3]);
-      rb[it] = load16(wq, k0 + (i >> 3), n0 + (i & 7) * 16, k, n, (size_t)n, vec_b);
-    }
-  };
-  for (int g0 = 0; g0 < k; g0 += kQBlock) {
-    g_end = min(k, g0 + kQBlock);
-    __syncthreads();  // the previous block's fold has read srow
-    // Row scales: one warp a row, lanes over the block's columns.
-    for (int rr = 0; rr < kBM / kWarps; ++rr) {
-      const int r = warp * (kBM / kWarps) + rr;
-      const int row = m0 + r;
-      float mx = 0.f;
-      if (row < m)
-        for (int col = g0 + lane; col < g_end; col += 32)
-          mx = fmaxf(mx, fabsf(elem_f32(x + (size_t)row * k + col)));
-      mx = warp_max(mx);
-      if (lane == 0) srow[r] = row < m ? __fmul_rn(fmaxf(mx, 1e-8f), 1.f / 127.f) : 1.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[t][j], 0);
-    const int c1 = (g_end + kBK - 1) / kBK;
-    fetch(g0);
-    for (int c = g0 / kBK; c < c1; ++c) {
-      __syncthreads();  // the previous chunk has been consumed
-#pragma unroll
-      for (int it = 0; it < 2; ++it) {
-        const int i = threadIdx.x + it * kBlock;
-        *reinterpret_cast<int4*>(sa + (i & 3) * kPanelA + (i >> 2) * 16) = ra[it];
-        *reinterpret_cast<int4*>(sb + (i & 7) * kPanelB + (i >> 3) * 16) = rb[it];
-      }
-      __syncthreads();
-      if (c + 1 < c1) fetch((c + 1) * kBK);
-      if (row_frags == 0) continue;
-#pragma unroll
-      for (int s = 0; s < kBK / 16; ++s) {
-        FragB fb[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::load_matrix_sync(fb[j], sb + (wn * 4 + j) * kPanelB + s * 256, 16);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          if (t >= row_frags) break;
-          FragA fa;
-          wmma::load_matrix_sync(fa, sa + s * kPanelA + (wm * 32 + t * 16) * 16, 16);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[t][j], fa, fb[j], acc[t][j]);
-        }
-      }
-    }
-    // acc += float(block sum) * s_row, each product and sum rounded.
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      if (t < row_frags) {
-        const float s = srow[wm * 32 + t * 16 + er];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::store_matrix_sync(stage, acc[t][j], 16, wmma::mem_row_major);
-          __syncwarp();
-#pragma unroll
-          for (int q = 0; q < 8; ++q)
-            facc[t][j][q] = __fadd_rn(facc[t][j][q],
-                                      __fmul_rn((float)stage[er * 16 + ec + q], s));
-          __syncwarp();
-        }
-      }
-    }
-  }
-
-  // Epilogue: out = x.dtype(acc * w_s) (+ b).
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const int row = m0 + wm * 32 + t * 16 + er;
-    if (t < row_frags && row < m) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col0 = n0 + wn * 64 + j * 16 + ec;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int col = col0 + q;
-          if (col < n) {
-            T o = from_f32<T>(__fmul_rn(facc[t][j][q], ws[col]));
-            if (bias != nullptr) o = from_f32<T>(__fadd_rn(to_f32(o), to_f32(bias[col])));
-            out[(size_t)row * n + col] = o;
-          }
-        }
-      }
-    }
-  }
+// #8's product on the plan: qm_kernel's block-scaled mode, or at a split
+// ffn_down_kernel.
+template <int BR>
+int fused_product(const int8_t* xq, const float* xs, const void* wq, const void* ws,
+                  const void* bias, void* out, int m, int n, int k, int kp, int out_bf16,
+                  int split, int group, int stages, int tma_w, cudaStream_t s) {
+  if (split > 1)
+    return fused_down<BR>(xq, xs, wq, static_cast<const float*>(ws), bias, out, m, n, k, kp,
+                          out_bf16, split, group, stages, s);
+  return qm_launch<true, BR, true>(xq, xs, wq, ws, bias, out, m, n, k, kp, out_bf16, 1, 1, tma_w,
+                                   s);
 }
 
 }  // namespace
@@ -692,27 +672,77 @@ extern "C" int apertis_quant_matmul_resources(int w8a8, int rows, int split, int
 }
 
 // out (M, N) = x.dtype(sum_j float(q_j . W_q[block j]) * s_j * w_s) (+ b), x
-// quantized per row and 512-wide K block in the kernel; bf16 (x_bf16 = 1) or
-// f32 x and out, `bias` nullptr or (N,) of x's type. Any M, N, K >= 1; the
-// row count is at most 65535 * 128. Returns cudaGetLastError().
+// quantized per row and 512-wide K block; bf16 (x_bf16 = 1) or f32 x and
+// out, `bias` nullptr or (N,) of x's type. Any M, N, K >= 1. xq (M, Kp)
+// int8, Kp = K rounded up to a multiple of 128, and xs (M, ceil(K / 512))
+// f32 are scratch the caller allocates (xq 16-byte aligned). rows (16, 64
+// or 128), split (1 to 4, whole 512-wide blocks, only at 16 or 64 rows and
+// a TMA weight), group and stages (the split's; unused without one) and
+// tma_w are the plan of ops/kernels/quant_matmul.py::fused_plan. Returns
+// cudaGetLastError(), or cudaErrorInvalidResourceHandle if a tensor map
+// cannot be made.
 extern "C" int apertis_quant_matmul_dyn_fused(const void* x, const void* wq, const void* ws,
-                                              const void* bias, void* out, int m, int n, int k,
-                                              int x_bf16, void* stream) {
+                                              const void* bias, void* out, void* xq, void* xs,
+                                              int m, int n, int k, int x_bf16, int rows,
+                                              int split, int group, int stages, int tma_w,
+                                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m <= 0 || n <= 0 || k <= 0 || (m + kBM - 1) / kBM > 65535)
+  const int nb = (k + kQBlock - 1) / kQBlock, kp = (k + kDgKC - 1) / kDgKC * kDgKC;
+  if (m <= 0 || n <= 0 || k <= 0 || split < 1 || split > 4 || split > nb ||
+      (split > 1 && (rows > 64 || !tma_w || group < 1 || group > kMaxGroup || stages < 1)) ||
+      (long long)m * nb > 0x7fffffffLL - kWarps)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  const dim3 qgrid((unsigned)(((long long)m * nb + kWarps - 1) / kWarps));
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool vec_b = n % 16 == 0 && reinterpret_cast<uintptr_t>(wq) % 16 == 0;
   if (x_bf16)
-    quant_matmul_dyn_fused_kernel<bf16><<<grid, kBlock, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<const int8_t*>(wq),
-        static_cast<const float*>(ws), static_cast<const bf16*>(bias), static_cast<bf16*>(out),
-        m, n, k, aligned && k % 8 == 0, vec_b);
+    fused_quant_kernel<bf16><<<qgrid, kBlock, 0, s>>>(
+        static_cast<const bf16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs), m, k, kp,
+        nb, aligned && k % 8 == 0);
   else
-    quant_matmul_dyn_fused_kernel<float><<<grid, kBlock, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const int8_t*>(wq),
-        static_cast<const float*>(ws), static_cast<const float*>(bias),
-        static_cast<float*>(out), m, n, k, aligned && k % 4 == 0, vec_b);
-  return static_cast<int>(cudaGetLastError());
+    fused_quant_kernel<float><<<qgrid, kBlock, 0, s>>>(
+        static_cast<const float*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs), m, k,
+        kp, nb, aligned && k % 4 == 0);
+  const cudaError_t qerr = cudaGetLastError();
+  if (qerr != cudaSuccess) return static_cast<int>(qerr);
+  const int8_t* q = static_cast<const int8_t*>(xq);
+  const float* sc = static_cast<const float*>(xs);
+  switch (rows) {
+    case 16:
+      return fused_product<16>(q, sc, wq, ws, bias, out, m, n, k, kp, x_bf16, split, group,
+                               stages, tma_w, s);
+    case 64:
+      return fused_product<64>(q, sc, wq, ws, bias, out, m, n, k, kp, x_bf16, split, group,
+                               stages, tma_w, s);
+    case 128:
+      return fused_product<128>(q, sc, wq, ws, bias, out, m, n, k, kp, x_bf16, split, group,
+                                stages, tma_w, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The resources of #8's launches (hopper.cuh::kernel_resources) at a row
+// tile of `rows` (16, 64 or 128): kernel 0 the quantization pass (bf16 x),
+// 1 qm_kernel's block-scaled mode (its own ring), 2 ffn_down_kernel at a
+// split with `smem` bytes (16 or 64 rows); into out[0..4].
+extern "C" int apertis_quant_matmul_fused_resources(int kernel, int rows, int smem, int* out) {
+  if (kernel == 0) return kernel_resources(fused_quant_kernel<bf16>, kBlock, 0, out);
+  if (kernel == 2 && (rows == 16 || rows == 64))
+    return kernel_resources(rows == 16 ? &ffn_down_kernel<false, 16, kDownBlock>
+                                       : &ffn_down_kernel<false, 64, kDownBlock>,
+                            kThreads, smem, out);
+  if (kernel != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (rows) {
+    case 16:
+      return kernel_resources(qm_kernel<true, 16, true>, kThreads,
+                              QmPlan<true, 16>::bytes(QmPlan<true, 16>::stages(1), 1), out);
+    case 64:
+      return kernel_resources(qm_kernel<true, 64, true>, kThreads,
+                              QmPlan<true, 64>::bytes(QmPlan<true, 64>::stages(1), 1), out);
+    case 128:
+      return kernel_resources(qm_kernel<true, 128, true>, kThreads,
+                              QmPlan<true, 128>::bytes(QmPlan<true, 128>::stages(1), 1), out);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -40,229 +40,48 @@
 // recurrence -> out_proj, in which each stage needs whole rows of the stage
 // before, and in the int8 layout each quantization needs a whole row too.
 //
-// Design of the bf16 layout: three launches per layer, each a grid of
-// (column tile, row tile) blocks of 256 threads, so every stage streams its
-// weight matrix across the whole card instead of through one block:
-//   1. ssm_in_kernel:  pre-norm + in_proj x and z, 64 output columns a block;
-//   2. ssm_mix_kernel: conv + SiLU + x_param + dt + recurrence + gate for 64
-//      channels a block; the block recomputes the whole x_act row and the
-//      small dt_feats row (R values) that every channel needs;
-//   3. ssm_out_kernel: out_proj + residual for 64 columns a block. With the
-//      dense or moe epilogue the last block of each row tile to finish (an
-//      integer ticket, no float atomics) applies the FFN pre-norm (and the
-//      moe epilogue) to the full rows, one warp a row.
-// Every launch holds whole rows in shared memory. A block holds up to kRows
-// batch rows and reads the (in, out) weights with output columns across
-// lanes, so reads coalesce; the K axis is split across the 8 warps
-// (common.cuh::tile_matvec). The TPU kernel's layer-stacked weights,
-// scalar-prefetched layer id, split x_param stacks and 0/1 head-expansion
-// matrix are not needed: the caller passes each layer's pointers, the
-// x_param weight is cut into dt / B / C columns by pointer offset (or by
-// column in the int8 layout), and a thread computes its head as c / N.
-//
-// Design of the int8 layout (Hopper, decode_gemm.cuh): each quantized
-// operand is computed once, by a row kernel (one block of 256 threads a
-// row), and each projection is a swapped-operand int8 wgmma product (128
-// weight columns a block, a row tile of 16 rows up to 16, else 64, as
-// wgmma's N) that streams those int8 rows beside the weight tiles through a
-// TMA ring (the producer's own loads where a row is not a multiple of 16
-// bytes, as x_param's R + 2C), so each weight is read from device memory
-// once per row tile; K is split over a cluster of `split` blocks whose exact
-// int32 sums are pushed to their owners (the plan of
-// ops/kernels/decode_plan.py::ssm_step_plan). Seven launches:
-//   1. ssm_norm_quant_kernel<bf16>: the pre-norm of h (in f32) and its row
-//      quantization;
-//   2. ssm_gemm_q_kernel<kIn>: in_proj x and z -> xp (bf16), z (f32);
-//   3. ssm_conv_quant_kernel: conv + SiLU and the row quantization of x_act;
-//   4. ssm_gemm_q_kernel<kMix>: x_param -> dt (bf16-rounded), B, C (f32);
-//   5. ssm_recur_quant_kernel: dt_proj + softplus, the recurrence (the new
-//      ssm state, in place), the gate and its row quantization;
-//   6. ssm_gemm_q_kernel<kOut>: out_proj + residual -> h_out, hsum;
-//   7. with the dense or moe epilogue, ssm_norm_quant_kernel<float>: the FFN
-//      pre-norm of hsum rounded to bf16 and its quantization, or the moe
-//      epilogue.
-// Fusing the row work into the products' prologues, as the bf16 layout
-// does, was measured slower: each of a product's column tiles recomputed
-// its rows' whole operand (the recurrence 19 times at the 1.5B widths), and
-// that work, not the weights, set the time.
+// Design (Hopper, decode_gemm.cuh), one structure for both layouts: each
+// product's input rows are computed once, by a row kernel (one block of 256
+// threads a row), and each projection is a swapped-operand wgmma product
+// (128 weight columns a block, a row tile of 16 rows up to 16, else 64, as
+// wgmma's N) that streams those rows beside the weight tiles through a TMA
+// ring, so each weight is read from device memory once per row tile. The
+// int8 layout quantizes the rows (int8 wgmma against the int8 weight, exact
+// int32 sums); the bf16 layout rounds them to bf16 (kDgBW: the tree's
+// row-major bf16 weight tile as wgmma's MN-major shared-memory A operand,
+// f32 sums). Where a row or a weight row is not a whole number of 16-byte
+// units (x_param's R + 2C: 1368 bytes in int8 at the 1.5B widths, 792 in
+// bf16 at the MoE widths), the producer's own zero-filling loads stage it.
+// K is split over a cluster of `split` blocks (the plans of
+// ops/kernels/decode_plan.py::ssm_step_plan and bf16_step_plan): the int8
+// sums are pushed to their owners (decode_gemm.cuh's owner-slot exchange),
+// the bf16 f32 sums by the sliced exchange, added in rank order. Launches:
+//   1. ssm_norm_kernel<bf16>: the pre-norm of h (in f32), quantized (int8)
+//      or rounded to bf16;
+//   2. ssm_gemm_kernel<kIn>: in_proj x and z -> xp (bf16), z (f32);
+//   3. ssm_conv_kernel: conv + SiLU of x_act, quantized or rounded to bf16;
+//   4. ssm_gemm_kernel<kMix>: x_param -> dt (bf16-rounded), B, C (f32);
+//   5. ssm_recur_kernel: dt_proj + softplus, the recurrence (the new ssm
+//      state, in place) and the gate, quantized or rounded to bf16;
+//   6. ssm_gemm_kernel<kOut>: out_proj + residual -> h_out, hsum;
+//   7. with the dense or moe epilogue, ssm_norm_kernel<float>: the FFN
+//      pre-norm of hsum rounded to bf16 (and quantized in the int8 layout),
+//      or the moe epilogue (both layouts).
+// Fusing the row work into the products was measured slower: in the int8
+// layout into their prologues, where each of a product's column tiles
+// recomputed its rows' whole operand (the recurrence 19 times at the 1.5B
+// widths), and that work, not the weights, set the time; in the bf16 layout,
+// whose conv + SiLU needs no whole row, into in_proj's epilogue (scattered
+// conv-window loads by the owners of each column block; on the H100 the
+// step took 0.0480 against 0.0461 ms at 64 rows).
 
 #include <string.h>
 
-#include <algorithm>
 
 #include "common.cuh"
 #include "decode_gemm.cuh"
 
 namespace {
-
-constexpr int kRows = 8;  // batch rows per block of the bf16 kernels
-
-// ---- bf16 layout: 1. pre-norm + in_proj x / z ------------------------------
-__global__ void __launch_bounds__(kBlock) ssm_in_kernel(
-    const bf16* __restrict__ h,       // (B, D)
-    const bf16* __restrict__ norm_w,  // (D,)
-    const bf16* __restrict__ norm_b,  // (D,), unused for RMSNorm
-    int rms, float eps,
-    const bf16* __restrict__ inx,     // (D, C)
-    const bf16* __restrict__ inz,     // (D, C)
-    bf16* __restrict__ xp_out,        // (B, C) new conv-window entry
-    float* __restrict__ z_out,        // (B, C) scratch
-    int* __restrict__ tickets,        // (row tiles,) scratch for ssm_out_kernel
-    int batch, int d_model, int channels) {
-  extern __shared__ float smem[];
-  float* xs = smem;                                  // kRows * D
-  float* red = smem + kRows * d_model;               // kWarps * kRows * kTileN
-  float* out = red + kWarps * kRows * kTileN;        // kRows * kTileN
-  const int row0 = blockIdx.y * kRows;
-  const int ntile = (channels + kTileN - 1) / kTileN;
-  const bool is_z = (int)blockIdx.x >= ntile;
-  const int col0 = (is_z ? blockIdx.x - ntile : blockIdx.x) * kTileN;
-  if (blockIdx.x == 0 && threadIdx.x == 0) tickets[blockIdx.y] = 0;
-
-  for (int i = threadIdx.x; i < kRows * d_model; i += kBlock) {
-    const int r = i / d_model;
-    const int k = i - r * d_model;
-    xs[i] = row0 + r < batch ? to_f32(h[(size_t)(row0 + r) * d_model + k]) : 0.f;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  if (warp < kRows && row0 + warp < batch)
-    warp_norm_row(xs + warp * d_model, d_model, norm_w, norm_b, rms, eps, true);
-  __syncthreads();
-
-  tile_matvec<kRows>(xs, d_model, is_z ? inz : inx, channels, d_model, col0, channels, red, out);
-  for (int i = threadIdx.x; i < kRows * kTileN; i += kBlock) {
-    const int r = i / kTileN;
-    const int j = col0 + (i - r * kTileN);
-    if (row0 + r >= batch || j >= channels) continue;
-    const size_t o = (size_t)(row0 + r) * channels + j;
-    if (is_z)
-      z_out[o] = out[i];
-    else
-      xp_out[o] = __float2bfloat16(out[i]);
-  }
-}
-
-// ---- bf16 layout: 2. conv + SiLU + x_param + dt + recurrence + gate ---------
-__global__ void __launch_bounds__(kBlock) ssm_mix_kernel(
-    const bf16* __restrict__ conv_state,  // (B, K-1, C)
-    const bf16* __restrict__ xp,          // (B, C) from ssm_in_kernel
-    const float* __restrict__ z,          // (B, C) from ssm_in_kernel
-    const float* ssm,                     // (B, C); may be ssm_out (in place)
-    const bf16* __restrict__ conv_w,      // (C, K)
-    const bf16* __restrict__ conv_b,      // (C,)
-    const bf16* __restrict__ xparam,      // (C, R + 2C)
-    const bf16* __restrict__ dt_w,        // (R, H)
-    const bf16* __restrict__ dt_b,        // (H,)
-    const bf16* __restrict__ a_log,       // (H, N) == (C,)
-    const bf16* __restrict__ d_skip,      // (C,)
-    float* ssm_out,                       // (B, C); one thread reads, then writes
-    bf16* __restrict__ g_out,             // (B, C) scratch
-    int batch, int channels, int ksize, int rank, int heads, int d_state) {
-  extern __shared__ float smem[];
-  float* xa = smem;                               // kRows * C, f32 x_act
-  float* xr = xa + kRows * channels;              // kRows * C, bf16-rounded
-  float* dtf = xr + kRows * channels;             // kRows * R, bf16-rounded
-  float* red = dtf + kRows * rank;                // kWarps * kRows * kTileN
-  float* bs = red + kWarps * kRows * kTileN;      // kRows * kTileN
-  float* cs = bs + kRows * kTileN;                // kRows * kTileN
-  const int row0 = blockIdx.y * kRows;
-  const int col0 = blockIdx.x * kTileN;
-  const int ldw = rank + 2 * channels;
-
-  for (int i = threadIdx.x; i < kRows * channels; i += kBlock) {
-    const int r = i / channels;
-    const int c = i - r * channels;
-    float act = 0.f;
-    if (row0 + r < batch) {
-      const size_t row = row0 + r;
-      const bf16* wc = conv_w + (size_t)c * ksize;
-      float yc = 0.f;
-      for (int j = 0; j < ksize - 1; ++j)
-        yc += to_f32(conv_state[(row * (ksize - 1) + j) * channels + c]) * to_f32(wc[j]);
-      yc += to_f32(xp[row * channels + c]) * to_f32(wc[ksize - 1]);
-      yc += to_f32(conv_b[c]);
-      act = yc * sigmoidf(yc);
-    }
-    xa[i] = act;
-    xr[i] = round_bf16(act);
-  }
-  __syncthreads();
-
-  // dt_feats: all R columns (every channel's head needs them).
-  for (int t0 = 0; t0 < rank; t0 += kTileN) {
-    tile_matvec<kRows>(xr, channels, xparam, ldw, channels, t0, rank, red, bs);
-    for (int i = threadIdx.x; i < kRows * kTileN; i += kBlock) {
-      const int r = i / kTileN;
-      const int j = t0 + (i - r * kTileN);
-      if (j < rank) dtf[r * rank + j] = round_bf16(bs[i]);
-    }
-    __syncthreads();
-  }
-  tile_matvec<kRows>(xr, channels, xparam + rank, ldw, channels, col0, channels, red, bs);
-  tile_matvec<kRows>(xr, channels, xparam + rank + channels, ldw, channels, col0, channels, red,
-                     cs);
-
-  for (int i = threadIdx.x; i < kRows * kTileN; i += kBlock) {
-    const int r = i / kTileN;
-    const int c = col0 + (i - r * kTileN);
-    if (row0 + r >= batch || c >= channels) continue;
-    const size_t o = (size_t)(row0 + r) * channels + c;
-    const int head = c / d_state;
-    float dt_raw = 0.f;
-    for (int q = 0; q < rank; ++q)
-      dt_raw = fmaf(dtf[r * rank + q], to_f32(dt_w[(size_t)q * heads + head]), dt_raw);
-    const float delta = softplusf(dt_raw + to_f32(dt_b[head]));
-    const float a_bar = expf(delta * -expf(to_f32(a_log[c])));
-    const float h_new = a_bar * ssm[o] + bs[i];
-    const float y = cs[i] * h_new + to_f32(d_skip[c]) * xa[r * channels + c];
-    const float zv = z[o];
-    ssm_out[o] = h_new;
-    g_out[o] = __float2bfloat16(y * (zv * sigmoidf(zv)));
-  }
-}
-
-__device__ void warp_top2_combine(float logit, int num_experts, float* comb);
-
-// The moe epilogue of one row by one warp: v is the row's n2 (bf16-rounded
-// f32, read only). Writes the row's x_q and x_s and its E combine weights
-// (E <= 32: lane e holds expert e's logit).
-__device__ void warp_moe_epilogue(const float* v, int d, float eps,
-                                  const bf16* __restrict__ rln_w, const bf16* __restrict__ rln_b,
-                                  const bf16* __restrict__ router_w,
-                                  const bf16* __restrict__ router_b, int num_experts,
-                                  int8_t* q, float* x_s, float* comb) {
-  const int lane = threadIdx.x & 31;
-  const float neg_inf = __int_as_float(0xff800000);
-  float s = 0.f;
-  for (int k = lane; k < d; k += 32) s += v[k];
-  const float mean = warp_sum(s) / (float)d;
-  float v2 = 0.f, m = 0.f;
-  for (int k = lane; k < d; k += 32) {
-    const float c = v[k] - mean;
-    v2 += c * c;
-    m = fmaxf(m, fabsf(c));
-  }
-  const float var = warp_sum(v2) / (float)d;
-  const float inv = var > 0.f ? rsqrtf(var + eps) : 0.f;
-  const float scale = fmaxf(warp_max(m), 1e-8f) * (1.f / 127.f);
-  const float rscale = 1.f / scale;
-  for (int k = lane; k < d; k += 32) q[k] = quant_level(__fmul_rn(v[k] - mean, rscale));
-  if (lane == 0) *x_s = __fmul_rn(scale, inv);
-
-  float logit = neg_inf;
-  for (int e = 0; e < num_experts; ++e) {
-    float acc = 0.f;
-    for (int k = lane; k < d; k += 32) {
-      const float rn = __fadd_rn(__fmul_rn(__fmul_rn(v[k] - mean, inv), to_f32(rln_w[k])),
-                                 to_f32(rln_b[k]));
-      acc = fmaf(rn, to_f32(router_w[(size_t)k * num_experts + e]), acc);
-    }
-    const float l = warp_sum(acc) + to_f32(router_b[e]);
-    if (lane == e) logit = l;
-  }
-  warp_top2_combine(logit, num_experts, comb);
-}
 
 // The eval-mode top-2 routing of one row by one warp from lane e's logit of
 // expert e (-inf past E): softmax, the two largest gates (the least index
@@ -287,84 +106,6 @@ __device__ void warp_top2_combine(float logit, int num_experts, float* comb) {
     comb[lane] = ((lane == i1 ? w1 : 0.f) + (lane == i2 ? w2 : 0.f)) / (w1 + w2 + 1e-6f);
 }
 
-// ---- bf16 layout: 3. out_proj + residual (+ FFN pre-norm) ------------------
-__global__ void __launch_bounds__(kBlock) ssm_out_kernel(
-    const bf16* __restrict__ g,        // (B, C) from ssm_mix_kernel
-    const bf16* __restrict__ out_w,    // (C, D)
-    const bf16* __restrict__ h,        // (B, D) residual input
-    bf16* __restrict__ h_out,          // (B, D)
-    float* __restrict__ hsum,          // (B, D) scratch (dense epilogue only)
-    const bf16* __restrict__ fn_w,     // (D,) FFN pre-norm, or nullptr
-    const bf16* __restrict__ fn_b,     // (D,), unused for RMSNorm
-    const bf16* __restrict__ rln_w,    // (D,) router LayerNorm (moe), or nullptr
-    const bf16* __restrict__ rln_b,    // (D,)
-    const bf16* __restrict__ router_w, // (D, E); nullptr selects dense/none
-    const bf16* __restrict__ router_b, // (E,)
-    int rms, float eps,
-    void* __restrict__ ffn_in,         // (B, D) bf16, int8 x_q (moe), or nullptr
-    float* __restrict__ ffn_scale,     // (B, 1) x_s (moe)
-    float* __restrict__ comb,          // (B, E) combine weights (moe)
-    int* __restrict__ tickets,         // (row tiles,), zeroed by ssm_in_kernel
-    int batch, int channels, int d_model, int num_experts) {
-  extern __shared__ float smem[];
-  // xs holds the g rows, and in the epilogue the full hsum rows.
-  const int width = max(channels, d_model);
-  float* xs = smem;                                          // kRows * max(C, D)
-  float* red = xs + kRows * width;                           // kWarps * kRows * kTileN
-  float* out = red + kWarps * kRows * kTileN;                // kRows * kTileN
-  __shared__ int is_last;
-  const int row0 = blockIdx.y * kRows;
-  const int col0 = blockIdx.x * kTileN;
-  const bool epilogue = ffn_in != nullptr;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  for (int i = threadIdx.x; i < kRows * channels; i += kBlock) {
-    const int r = i / channels;
-    const int c = i - r * channels;
-    xs[i] = row0 + r < batch ? to_f32(g[(size_t)(row0 + r) * channels + c]) : 0.f;
-  }
-  __syncthreads();
-  tile_matvec<kRows>(xs, channels, out_w, d_model, channels, col0, d_model, red, out);
-  for (int i = threadIdx.x; i < kRows * kTileN; i += kBlock) {
-    const int r = i / kTileN;
-    const int j = col0 + (i - r * kTileN);
-    if (row0 + r >= batch || j >= d_model) continue;
-    const size_t o = (size_t)(row0 + r) * d_model + j;
-    const float s = to_f32(h[o]) + out[i];
-    h_out[o] = __float2bfloat16(s);
-    if (epilogue) hsum[o] = s;
-  }
-  if (!epilogue) return;
-
-  // The last block of this row tile to finish normalises the full rows.
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    is_last = atomicAdd(&tickets[blockIdx.y], 1) == (int)gridDim.x - 1;
-  __syncthreads();
-  if (!is_last) return;
-  if (warp >= kRows || row0 + warp >= batch) return;
-  // Other blocks wrote these rows during this launch: read them from L2
-  // (__ldcg), never from this SM's L1.
-  const size_t row = row0 + warp;
-  const float* src = hsum + row * d_model;
-  float* v = xs + warp * d_model;
-  for (int k = lane; k < d_model; k += 32) v[k] = __ldcg(src + k);
-  __syncwarp();
-  warp_norm_row(v, d_model, fn_w, fn_b, rms, eps, true);
-  __syncwarp();
-  if (router_w != nullptr) {
-    warp_moe_epilogue(v, d_model, eps, rln_w, rln_b, router_w, router_b, num_experts,
-                      static_cast<int8_t*>(ffn_in) + row * d_model, ffn_scale + row,
-                      comb + row * num_experts);
-  } else {
-    bf16* dst = static_cast<bf16*>(ffn_in) + row * d_model;
-    for (int k = lane; k < d_model; k += 32) dst[k] = __float2bfloat16(v[k]);
-  }
-}
-
-// ---- int8 layout ------------------------------------------------------------
 
 // Four consecutive values from p, 8-byte (bf16) or 16-byte (f32) aligned.
 __device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
@@ -442,24 +183,40 @@ __device__ __forceinline__ void block_quant_row(const float* v, int n, float* re
   if (threadIdx.x == 0) *scale = s;
 }
 
-// The row kernels of the int8 layout compute each quantized operand of a
-// product once, one block of kBlock threads a row.
 
-// A pre-norm and its row quantization: the mixer's input (x: h, bf16, the
-// normed values in f32) or the dense and moe epilogues' FFN input (x: hsum,
-// f32, the normed values rounded to bf16, `round_out`), with
-// common.cuh::warp_norm_row's formulas; with router_w, the moe epilogue
-// (warp_moe_epilogue's formulas; the router's logits summed a warp at a
-// time, the top-2 by warp 0). Shared memory: the row, D floats.
-template <typename T>
-__global__ void __launch_bounds__(kBlock) ssm_norm_quant_kernel(
+// The end of a row kernel: the row's n f32 values v (shared memory, written
+// by any of the block's threads) go to the next product quantized (kQ: int8
+// levels at out and the row's scale) or rounded to bf16 (at out).
+template <bool kQ>
+__device__ __forceinline__ void row_out(const float* v, int n, float* red, void* out,
+                                        float* scale) {
+  if constexpr (kQ) {
+    block_quant_row(v, n, red, static_cast<int8_t*>(out), scale);
+  } else {
+    __syncthreads();
+    bf16* o = static_cast<bf16*>(out);
+    for (int k = threadIdx.x; k < n; k += kBlock) o[k] = __float2bfloat16(v[k]);
+  }
+}
+
+// The row kernels compute each product's input rows once, one block of
+// kBlock threads a row; kQ: quantized (the int8 layout), else bf16.
+
+// A pre-norm and its row's output: the mixer's input (x: h, bf16, the normed
+// values in f32) or the dense and moe epilogues' FFN input (x: hsum, f32,
+// the normed values rounded to bf16, `round_out`); with router_w, the moe
+// epilogue (int8 x_q, x_s and the combine weights in both layouts: the
+// router's logits summed a warp at a time, the top-2 by warp 0). Shared
+// memory: the row, D floats.
+template <typename T, bool kQ>
+__global__ void __launch_bounds__(kBlock) ssm_norm_kernel(
     const T* __restrict__ x,              // (B, D)
     const bf16* __restrict__ norm_w, const bf16* __restrict__ norm_b, int rms, float eps,
     int round_out,
     const bf16* __restrict__ rln_w, const bf16* __restrict__ rln_b,
     const bf16* __restrict__ router_w,    // (D, E), or nullptr
     const bf16* __restrict__ router_b,
-    int8_t* __restrict__ x_q,             // (B, D)
+    void* __restrict__ out,               // (B, D): int8 (kQ, moe) or bf16
     float* __restrict__ x_s,              // (B,)
     float* __restrict__ comb,             // (B, E) (moe)
     int d_model, int num_experts) {
@@ -504,11 +261,12 @@ __global__ void __launch_bounds__(kBlock) ssm_norm_quant_kernel(
       v[k] = round_out ? round_bf16(n) : n;
     }
   }
-  int8_t* q = x_q + row * d_model;
   if (router_w == nullptr) {
-    block_quant_row(v, d_model, red, q, x_s + row);
+    row_out<kQ>(v, d_model, red, static_cast<unsigned char*>(out) + row * d_model * (kQ ? 1 : 2),
+                kQ ? x_s + row : nullptr);
     return;
   }
+  int8_t* q = static_cast<int8_t*>(out) + row * d_model;
   float s1 = 0.f;
   for (int k = tid; k < d_model; k += kBlock) s1 += v[k];
   const float mean = block_reduce(s1, red, false) / dn;
@@ -546,15 +304,16 @@ __global__ void __launch_bounds__(kBlock) ssm_norm_quant_kernel(
   warp_top2_combine(logit, num_experts, comb + row * num_experts);
 }
 
-// x_act = silu(conv) of a row and its row quantization. Shared memory: C
-// floats.
-__global__ void __launch_bounds__(kBlock) ssm_conv_quant_kernel(
+// x_act = silu(conv) of a row, quantized or rounded to bf16 (row_out).
+// Shared memory: C floats.
+template <bool kQ>
+__global__ void __launch_bounds__(kBlock) ssm_conv_kernel(
     const bf16* __restrict__ conv_state,  // (B, K-1, C)
     const bf16* __restrict__ xp,          // (B, C)
     const bf16* __restrict__ conv_w,      // (C, K)
     const bf16* __restrict__ conv_b,      // (C,)
-    int8_t* __restrict__ xa_q,            // (B, C)
-    float* __restrict__ xa_s,             // (B,)
+    void* __restrict__ xa_q,              // (B, C): int8 (kQ) or bf16
+    float* __restrict__ xa_s,             // (B,) (kQ)
     int channels, int ksize) {
   extern __shared__ float v[];
   __shared__ float red[kWarps];
@@ -564,22 +323,24 @@ __global__ void __launch_bounds__(kBlock) ssm_conv_quant_kernel(
     conv_silu4(conv_state, xp, conv_w, conv_b, row, c, channels, ksize, a);
     *reinterpret_cast<float4*>(v + c) = make_float4(a[0], a[1], a[2], a[3]);
   }
-  block_quant_row(v, channels, red, xa_q + row * channels, xa_s + row);
+  row_out<kQ>(v, channels, red, static_cast<unsigned char*>(xa_q) + row * channels * (kQ ? 1 : 2),
+              kQ ? xa_s + row : nullptr);
 }
 
-// The bytes of dt_proj_w in ssm_recur_quant_kernel's shared memory, a
-// multiple of 16 so that the f32 values after it stay aligned.
+// The bytes of dt_proj_w in ssm_recur_kernel's shared memory, a multiple of
+// 16 so that the f32 values after it stay aligned.
 __host__ __device__ constexpr size_t recur_dtw_bytes(int rank, int heads) {
   return ((size_t)rank * heads * 2 + 15) / 16 * 16;
 }
 
-// The recurrence of a row and the row quantization of its gate: delta =
-// softplus(dt . dt_proj_w + dt_proj_b) (the bf16 kernel's order of f32 fused
-// multiply-adds), h' = exp(delta[head] * -exp(A_log)) * ssm + Bs into ssm_out
-// (each element read and then written by one thread, so ssm_out may be ssm),
-// g = (Cs * h' + D * xa) * silu(z). Shared memory: dt_proj_w (R x H bf16),
-// then g (C), dt (R) and delta (H) floats.
-__global__ void __launch_bounds__(kBlock) ssm_recur_quant_kernel(
+// The recurrence of a row and its gate: delta = softplus(dt . dt_proj_w +
+// dt_proj_b) (f32 fused multiply-adds over R in order), h' = exp(delta[head]
+// * -exp(A_log)) * ssm + Bs into ssm_out (each element read and then written
+// by one thread, so ssm_out may be ssm), g = (Cs * h' + D * xa) * silu(z),
+// quantized or rounded to bf16 (row_out). Shared memory: dt_proj_w (R x H
+// bf16), then g (C), dt (R) and delta (H) floats.
+template <bool kQ>
+__global__ void __launch_bounds__(kBlock) ssm_recur_kernel(
     const float* __restrict__ bc,         // (B, bc_stride(R, C)): dt | B | C
     const float* __restrict__ z,          // (B, C)
     const float* ssm,                     // (B, C); may be ssm_out
@@ -592,8 +353,8 @@ __global__ void __launch_bounds__(kBlock) ssm_recur_quant_kernel(
     const bf16* __restrict__ a_log,       // (H, N) == (C,)
     const bf16* __restrict__ d_skip,      // (C,)
     float* ssm_out,                       // (B, C)
-    int8_t* __restrict__ g_q,             // (B, C)
-    float* __restrict__ g_s,              // (B,)
+    void* __restrict__ g_out,             // (B, C): int8 (kQ) or bf16
+    float* __restrict__ g_s,              // (B,) (kQ)
     int channels, int ksize, int rank, int heads, int d_state) {
   extern __shared__ __align__(16) unsigned char smem_b[];
   bf16* dtw = reinterpret_cast<bf16*>(smem_b);                            // R x H
@@ -637,24 +398,25 @@ __global__ void __launch_bounds__(kBlock) ssm_recur_quant_kernel(
     *reinterpret_cast<float4*>(ssm_out + row * channels + c) =
         make_float4(hn[0], hn[1], hn[2], hn[3]);
   }
-  block_quant_row(g, channels, red, g_q + row * channels, g_s + row);
+  row_out<kQ>(g, channels, red, static_cast<unsigned char*>(g_out) + row * channels * (kQ ? 1 : 2),
+              kQ ? g_s + row : nullptr);
 }
 
-// The products of the int8 layout (decode_gemm.cuh): the quantized rows
-// streamed by TMA (or the producer's own loads) beside the weight tiles, K
-// split over a cluster of `split` blocks with the exact int32 sums pushed
-// to their owners, and each launch's epilogue:
-//   kIn:  in_proj x or z, acc * x_s * w_s: xp (bf16) or z (f32); column
-//         tiles 0 .. ceil(C / 128) - 1 are x's, the rest z's;
-//   kMix: x_param, acc * xa_s * w_s: dt (bf16-rounded) | B | C (f32);
-//   kOut: out_proj, h + acc * g_s * w_s: h_out (bf16) and hsum (f32, for
-//         the epilogue).
+// The three products (decode_gemm.cuh): the rows streamed by TMA (or the
+// producer's own loads) beside the weight tiles, K split over a cluster of
+// `split` blocks in contiguous chunk ranges, and each launch's epilogue on
+// v = acc * x_s * w_s (int8: the exact int32 sums dequantized) or v = acc
+// (bf16: the f32 sums):
+//   kIn:  in_proj x or z: xp (bf16) or z (f32); column tiles 0 .. ceil(C /
+//         128) - 1 are x's, the rest z's;
+//   kMix: x_param: dt (bf16-rounded) | B | C (f32);
+//   kOut: out_proj, h + v: h_out (bf16) and hsum (f32, for the epilogue).
 enum StepProduct { kIn = 0, kMix = 1, kOut = 2 };
 
 struct StepEpilogue {
-  const float* x_s;       // (B,) the quantized rows' scales
-  const float* ws;        // (1, N) the weight's column scales (in: x's)
-  const float* ws_z;      // in: z's
+  const float* x_s;       // int8: (B,) the quantized rows' scales
+  const float* ws;        // int8: (1, N) the weight's column scales (in: x's)
+  const float* ws_z;      // int8, in: z's
   bf16* xp;               // in: (B, C)
   float* z;               // in: (B, C)
   float* bc;              // mix: (B, bc_stride(R, C))
@@ -664,34 +426,38 @@ struct StepEpilogue {
   int batch, n, channels, rank;
 };
 
-template <int BR, int kMode>
-__global__ void __launch_bounds__(kThreads, 1) ssm_gemm_q_kernel(
-    const __grid_constant__ CUtensorMap x_map,    // the quantized rows (B, K), boxes BR x 128
+template <int BR, int kMode, int kKind>
+__global__ void __launch_bounds__(kThreads, 1) ssm_gemm_kernel(
+    const __grid_constant__ CUtensorMap x_map,    // the rows (B, K): boxes of BR rows x 128 bytes
     const __grid_constant__ CUtensorMap w_map,    // the weight (K, N); in: in_proj x
     const __grid_constant__ CUtensorMap wz_map,   // in: in_proj z
     DgRows rows, DgWeight w, DgWeight wz, StepEpilogue ep, int split, int stages) {
+  typedef DgOp<kKind> Op;
+  typedef typename Op::Acc Acc;
+  constexpr bool kBW = kKind == kDgBW;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  const uint32_t stage_bytes = BR * 128 + kDgW8Bytes;
-  int* part = reinterpret_cast<int*>(smem + (size_t)stages * stage_bytes);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)stages * stage_bytes +
-                                               dg_part_bytes(BR, split));
+  const uint32_t stage_bytes = BR * 128 + Op::kWBytes;
+  Acc* part = reinterpret_cast<Acc*>(smem + (size_t)stages * stage_bytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      smem + (size_t)stages * stage_bytes +
+      (kBW ? xset_bytes(BR, split) : dg_part_bytes(BR, split)));
   const int col_tiles = (ep.n + kDgCols - 1) / kDgCols;
   const int ct = blockIdx.x / split, rank = blockIdx.x % split;
   const bool is_z = kMode == kIn && ct >= col_tiles;
   const int n0 = (is_z ? ct - col_tiles : ct) * kDgCols;
   const int m0 = blockIdx.y * BR;
-  const int nch = (rows.k + kDgKC - 1) / kDgKC;
+  const int nch = (rows.k + Op::kKC - 1) / Op::kKC;
   const int c_lo = rank * nch / split, c_hi = (rank + 1) * nch / split;
   const DgWeight wt{is_z ? wz.w : w.w, w.k, w.n, is_z ? wz.tma : w.tma};
-  const DgRing ring{smem, bars, bars + stages, BR * 128, kDgW8Bytes, stages};
+  const DgRing ring{smem, bars, bars + stages, BR * 128, Op::kWBytes, stages};
   dg_init(ring, dg_full_count(rows, wt));
   cg::cluster_group cluster = cg::this_cluster();
 
   if (threadIdx.x >= kDgConsumerThreads) {
     regs_dealloc<kDgProducerRegs>();
     const DgChunks ch{c_lo, 1, c_hi - c_lo, 1};
-    dg_produce<kDgI8>(ring, is_z ? &wz_map : &w_map, nullptr, &x_map, wt, rows, ch, n0, m0, 0,
+    dg_produce<kKind>(ring, is_z ? &wz_map : &w_map, nullptr, &x_map, wt, rows, ch, n0, m0, 0,
                       c_hi - c_lo, threadIdx.x - kDgConsumerThreads);
     if (split > 1) {
       __syncwarp();
@@ -700,20 +466,37 @@ __global__ void __launch_bounds__(kThreads, 1) ssm_gemm_q_kernel(
     return;
   }
   regs_alloc<kDgConsumerRegs>();
-  const DgLane L;
-  int acc[BR / 2];
+  const DgLane L(!kBW);
+  Acc acc[BR / 2];
 #pragma unroll
   for (int i = 0; i < BR / 2; ++i) acc[i] = 0;
-  dg_consume<kDgI8, BR>(ring, L, 0, c_hi - c_lo, acc);
+  dg_consume<kKind, BR>(ring, L, 0, c_hi - c_lo, acc);
   const uint32_t mine = dg_owned_mask(rank, split, BR / 8);
-  if (split > 1) dg_split_sum<BR>(acc, part, L, rank, split, mine, cluster);
+  if (split > 1) {
+    if constexpr (kBW) {
+      // The sliced exchange: each block's sums pushed to their owner, added
+      // there in rank order from 0.
+      const int blocks = min(BR / 8, (ep.batch - m0 + 7) / 8);   // with a row below B
+      xpush<BR>(acc, part, L.tid, rank, split, blocks, cluster);
+      cluster.sync();
+#pragma unroll
+      for (int i = 0; i < BR / 2; ++i) acc[i] = 0.f;
+      add_round<BR>(acc, part, 0, L.tid, rank, split, blocks, 1, 0, split);
+    } else {
+      dg_split_sum<BR>(acc, part, L, rank, split, mine, cluster);
+    }
+  }
   const float* ws = is_z ? ep.ws_z : ep.ws;
 #pragma unroll
   for (int i = 0; i < BR / 2; ++i) {
-    if (!((mine >> (i / 4)) & 1)) continue;
-    const int row = m0 + L.row(i), col = n0 + L.column(i);
+    if (kBW ? !xowns<BR>(i / 4, L.tid, rank, split) : !((mine >> (i / 4)) & 1)) continue;
+    const int row = m0 + L.row(i), col = n0 + (kBW ? L.bw_column(i) : L.column(i));
     if (row >= ep.batch || col >= ep.n) continue;
-    const float v = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), ep.x_s[row]), ws[col]);
+    float v;
+    if constexpr (kBW)
+      v = acc[i];
+    else
+      v = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), ep.x_s[row]), ws[col]);
     if constexpr (kMode == kIn) {
       const size_t o = (size_t)row * ep.channels + col;
       if (is_z)
@@ -735,61 +518,29 @@ __global__ void __launch_bounds__(kThreads, 1) ssm_gemm_q_kernel(
   }
 }
 
-// The bf16 layout's three launches.
-int launch_step_bf16(const bf16* h, const bf16* conv_state, const float* ssm,
-                     const bf16* norm_w, const bf16* norm_b, const bf16* inx, const bf16* inz,
-                     const bf16* conv_w, const bf16* conv_b, const bf16* xparam,
-                     const bf16* dt_w, const bf16* dt_b, const bf16* a_log, const bf16* d_skip,
-                     const bf16* out_w, const bf16* fn_w, const bf16* fn_b, const bf16* rln_w,
-                     const bf16* rln_b, const bf16* router_w, const bf16* router_b,
-                     bf16* h_out, bf16* xp_out, float* ssm_out, void* ffn_in, float* ffn_scale,
-                     float* comb, float* z, bf16* g, float* hsum, int* tickets, int batch,
-                     int d_model, int channels, int ksize, int rank, int heads, int d_state,
-                     int num_experts, int rms, float eps, cudaStream_t s) {
-  const int row_tiles = (batch + kRows - 1) / kRows;
-  const int col_tiles_c = (channels + kTileN - 1) / kTileN;
-  const int col_tiles_d = (d_model + kTileN - 1) / kTileN;
-  const size_t mat_floats = (size_t)kWarps * kRows * kTileN + kRows * kTileN;
-  const size_t smem_in = ((size_t)kRows * d_model + mat_floats) * sizeof(float);
-  const size_t smem_mix = ((size_t)2 * kRows * channels + (size_t)kRows * rank + mat_floats +
-                           kRows * kTileN) * sizeof(float);
-  const size_t smem_out =
-      ((size_t)kRows * std::max(channels, d_model) + mat_floats) * sizeof(float);
-  cudaError_t err = allow_smem(ssm_in_kernel, smem_in);
-  if (err == cudaSuccess) err = allow_smem(ssm_mix_kernel, smem_mix);
-  if (err == cudaSuccess) err = allow_smem(ssm_out_kernel, smem_out);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  ssm_in_kernel<<<dim3(2 * col_tiles_c, row_tiles), kBlock, smem_in, s>>>(
-      h, norm_w, norm_b, rms, eps, inx, inz, xp_out, z, tickets, batch, d_model, channels);
-  ssm_mix_kernel<<<dim3(col_tiles_c, row_tiles), kBlock, smem_mix, s>>>(
-      conv_state, xp_out, z, ssm, conv_w, conv_b, xparam, dt_w, dt_b, a_log, d_skip, ssm_out, g,
-      batch, channels, ksize, rank, heads, d_state);
-  ssm_out_kernel<<<dim3(col_tiles_d, row_tiles), kBlock, smem_out, s>>>(
-      g, out_w, h, h_out, hsum, fn_w, fn_b, rln_w, rln_b, router_w, router_b, rms, eps,
-      fn_w != nullptr ? ffn_in : nullptr, ffn_scale, comb, tickets, batch, channels, d_model,
-      num_experts);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// A tensor map over a row-major int8 (outer, inner) matrix in boxes of box
-// rows x 128 bytes, or none (*tma 0) for the producer's own loads where the
-// row is not a multiple of 16 bytes or the base not 16-byte aligned.
-int int8_map(CUtensorMap* map, const void* base, int outer, int inner, int box, int* tma) {
+// A tensor map over a row-major (outer, inner) int8 or bf16 matrix in boxes
+// of box rows x 128 bytes (dg_map_2d's cache), or none (*tma 0) for the
+// producer's own loads where the row is not a multiple of 16 bytes or the
+// base not 16-byte aligned.
+int step_map(CUtensorMap* map, const void* base, bool bf16_elems, int outer, int inner, int box,
+             int* tma) {
   memset(map, 0, sizeof(*map));
-  *tma = inner % 16 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
-  return *tma ? make_map_2d(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, inner, outer, 128, box)
-              : 0;
+  const int elem = bf16_elems ? 2 : 1;
+  *tma = inner * elem % 16 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
+  if (!*tma) return 0;
+  return dg_map_2d(map, base,
+                   bf16_elems ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                   elem, inner, outer, 128 / elem, box);
 }
 
-// The int8 layout's scratch, carved from one buffer at 256-byte boundaries:
-// the quantized rows of the three products and their scales, z, dt | B | C
-// and hsum.
+// The step's scratch, carved from one buffer at 256-byte boundaries: the
+// three products' input rows (int8 with their scales, or bf16), z, dt | B |
+// C and hsum; and, in the bf16 layout, x_act's rows (xa_q holds them).
 struct StepScratch {
-  int8_t *x_q, *xa_q, *g_q;
+  void *x_q, *xa_q, *g_q;
   float *x_s, *xa_s, *g_s, *z, *bc, *hsum;
   size_t bytes;
-  StepScratch(void* base, int batch, int d_model, int channels, int rank) {
+  StepScratch(void* base, int batch, int d_model, int channels, int rank, bool int8) {
     unsigned char* p = static_cast<unsigned char*>(base);
     size_t off = 0;
     auto take = [&](size_t n) {
@@ -797,10 +548,10 @@ struct StepScratch {
       off += (n + 255) / 256 * 256;
       return q;
     };
-    const size_t b = batch;
-    x_q = reinterpret_cast<int8_t*>(take(b * d_model));
-    xa_q = reinterpret_cast<int8_t*>(take(b * channels));
-    g_q = reinterpret_cast<int8_t*>(take(b * channels));
+    const size_t b = batch, e = int8 ? 1 : 2;
+    x_q = take(b * d_model * e);
+    xa_q = take(b * channels * e);
+    g_q = take(b * channels * e);
     x_s = reinterpret_cast<float*>(take(b * 4));
     xa_s = reinterpret_cast<float*>(take(b * 4));
     g_s = reinterpret_cast<float*>(take(b * 4));
@@ -811,104 +562,144 @@ struct StepScratch {
   }
 };
 
-// One product of the int8 layout at a row tile of BR rows: the rows x_q (B,
-// K) against the weight w (K, N) (in: and wz), on the plan's split and
-// stages.
-template <int BR, int kMode>
-int step_gemm(const int8_t* x_q, int batch, int k, const int8_t* w, const int8_t* wz, int n,
+// One product at a row tile of BR rows: the rows x (B, K) against the weight
+// w (K, N) (in: and wz), on the plan's split and stages.
+template <int BR, int kMode, int kKind>
+int step_gemm(const void* x, int batch, int k, const void* w, const void* wz, int n,
               StepEpilogue ep, int split, int stages, cudaStream_t s) {
+  constexpr bool kBW = kKind == kDgBW;
+  typedef DgOp<kKind> Op;
   CUtensorMap xm, wm, wzm;
   int tx = 0, tw = 0, tz = 0;
-  int err = int8_map(&xm, x_q, batch, k, BR, &tx);
-  if (err == 0) err = int8_map(&wm, w, k, n, kDgKC, &tw);
-  if (err == 0) err = int8_map(&wzm, wz != nullptr ? wz : w, k, n, kDgKC, &tz);
+  int err = step_map(&xm, x, kBW, batch, k, BR, &tx);
+  if (err == 0) err = step_map(&wm, w, kBW, k, n, Op::kKC, &tw);
+  if (err == 0) err = step_map(&wzm, wz != nullptr ? wz : w, kBW, k, n, Op::kKC, &tz);
   if (err != 0) return err;
   const int col_tiles = (n + kDgCols - 1) / kDgCols * (kMode == kIn ? 2 : 1);
-  return dg_launch(ssm_gemm_q_kernel<BR, kMode>,
-                   dim3(col_tiles * split, (batch + BR - 1) / BR), dim3(kThreads), split,
-                   dg_smem_bytes(BR, stages, BR * 128 + kDgW8Bytes, split, 0), s, xm, wm, wzm,
-                   DgRows{x_q, batch, k, tx}, DgWeight{w, k, n, tw},
-                   DgWeight{wz != nullptr ? wz : w, k, n, tz}, ep, split, stages);
+  const uint32_t stage = BR * 128 + Op::kWBytes;
+  const size_t smem = kBW ? dg_smem_bytes(BR, stages, stage, 1, xset_bytes(BR, split))
+                          : dg_smem_bytes(BR, stages, stage, split, 0);
+  auto wp = [](const void* p) { return static_cast<const int8_t*>(p); };
+  return dg_launch(ssm_gemm_kernel<BR, kMode, kKind>,
+                   dim3(col_tiles * split, (batch + BR - 1) / BR), dim3(kThreads), split, smem, s,
+                   xm, wm, wzm, DgRows{x, batch, k, tx}, DgWeight{wp(w), k, n, tw},
+                   DgWeight{wp(wz != nullptr ? wz : w), k, n, tz}, ep, split, stages);
 }
 
-// The int8 layout's launches at a row tile of BR rows: the mixer's pre-norm
-// and quantization, in_proj x and z, conv + quantization, x_param, the
-// recurrence + quantization of g, out_proj, and with an epilogue the FFN
-// input. splits[i] and stages[i] are the plan of product i (in, mix, out).
-template <int BR>
-int launch_step_int8(const bf16* h, const bf16* conv_state, const float* ssm,
-                     const bf16* norm_w, const bf16* norm_b, const int8_t* inx_q,
-                     const float* inx_s, const int8_t* inz_q, const float* inz_s,
-                     const bf16* conv_w, const bf16* conv_b, const int8_t* xparam_q,
-                     const float* xparam_s, const bf16* dt_w, const bf16* dt_b,
-                     const bf16* a_log, const bf16* d_skip, const int8_t* out_q,
-                     const float* out_s, const bf16* fn_w, const bf16* fn_b, const bf16* rln_w,
-                     const bf16* rln_b, const bf16* router_w, const bf16* router_b,
-                     bf16* h_out, bf16* xp_out, float* ssm_out, int8_t* x_q, float* x_s,
-                     float* comb, const StepScratch& sc, int batch, int d_model, int channels,
-                     int ksize, int rank, int heads, int d_state, int num_experts, int rms,
-                     float eps, const int* splits, const int* stages, cudaStream_t s) {
-  const size_t row_d = (size_t)d_model * sizeof(float);
-  const dim3 rows_grid(batch), row_block(kBlock);
-  int err = dg_launch(ssm_norm_quant_kernel<bf16>, rows_grid, row_block, 1, row_d, s, h,
-                      norm_w, norm_b, rms, eps, 0, nullptr, nullptr, nullptr, nullptr, sc.x_q,
-                      sc.x_s, nullptr, d_model, 0);
+// One step's tensors, as the C entry points take them: the projections are
+// int8 with (1, out) f32 scales, or bf16 (scales null).
+struct StepArgs {
+  const bf16 *h, *conv_state;
+  const float* ssm;
+  const bf16 *norm_w, *norm_b;
+  const void *inx, *inz, *xparam, *out_w;
+  const float *inx_s, *inz_s, *xparam_s, *out_s;
+  const bf16 *conv_w, *conv_b, *dt_w, *dt_b, *a_log, *d_skip;
+  const bf16 *fn_w, *fn_b, *rln_w, *rln_b, *router_w, *router_b;
+  bf16 *h_out, *xp_out;
+  float* ssm_out;
+  void* ffn_in;
+  float *ffn_scale, *comb;
+  int batch, d_model, channels, ksize, rank, heads, d_state, num_experts, rms;
+  float eps;
+};
+
+// The step's launches at a row tile of BR rows in the int8 (kDgI8) or bf16
+// (kDgBW) layout: the pre-norm, in_proj x and z, conv + SiLU, x_param, the
+// recurrence and gate, out_proj, and with an epilogue the FFN input.
+// splits[i] and stages[i] are the plan of product i (in, mix, out).
+template <int BR, int kKind>
+int launch_step(const StepArgs& a, const StepScratch& sc, const int* splits, const int* stages,
+                cudaStream_t s) {
+  constexpr bool kQ = kKind == kDgI8;
+  const size_t row_d = (size_t)a.d_model * sizeof(float);
+  const dim3 rows_grid(a.batch), row_block(kBlock);
+  int err = dg_launch(ssm_norm_kernel<bf16, kQ>, rows_grid, row_block, 1, row_d, s, a.h,
+                      a.norm_w, a.norm_b, a.rms, a.eps, 0, nullptr, nullptr, nullptr, nullptr,
+                      sc.x_q, sc.x_s, nullptr, a.d_model, 0);
   if (err != 0) return err;
   StepEpilogue ep = {};
-  ep.batch = batch;
-  ep.channels = channels;
-  ep.rank = rank;
+  ep.batch = a.batch;
+  ep.channels = a.channels;
+  ep.rank = a.rank;
   ep.x_s = sc.x_s;
-  ep.ws = inx_s;
-  ep.ws_z = inz_s;
-  ep.xp = xp_out;
+  ep.ws = a.inx_s;
+  ep.ws_z = a.inz_s;
+  ep.xp = a.xp_out;
   ep.z = sc.z;
-  ep.n = channels;
-  err = step_gemm<BR, kIn>(sc.x_q, batch, d_model, inx_q, inz_q, channels, ep, splits[0],
-                           stages[0], s);
+  ep.n = a.channels;
+  err = step_gemm<BR, kIn, kKind>(sc.x_q, a.batch, a.d_model, a.inx, a.inz, a.channels, ep,
+                                  splits[0], stages[0], s);
   if (err != 0) return err;
-  err = dg_launch(ssm_conv_quant_kernel, rows_grid, row_block, 1, channels * sizeof(float), s,
-                  conv_state, static_cast<const bf16*>(xp_out), conv_w, conv_b, sc.xa_q,
-                  sc.xa_s, channels, ksize);
+  err = dg_launch(ssm_conv_kernel<kQ>, rows_grid, row_block, 1, a.channels * sizeof(float), s,
+                  a.conv_state, static_cast<const bf16*>(a.xp_out), a.conv_w, a.conv_b, sc.xa_q,
+                  sc.xa_s, a.channels, a.ksize);
   if (err != 0) return err;
   ep.x_s = sc.xa_s;
-  ep.ws = xparam_s;
+  ep.ws = a.xparam_s;
   ep.bc = sc.bc;
-  ep.n = rank + 2 * channels;
-  err = step_gemm<BR, kMix>(sc.xa_q, batch, channels, xparam_q, nullptr, ep.n, ep, splits[1],
-                            stages[1], s);
+  ep.n = a.rank + 2 * a.channels;
+  err = step_gemm<BR, kMix, kKind>(sc.xa_q, a.batch, a.channels, a.xparam, nullptr, ep.n, ep,
+                                   splits[1], stages[1], s);
   if (err != 0) return err;
-  err = dg_launch(ssm_recur_quant_kernel, rows_grid, row_block, 1,
-                  recur_dtw_bytes(rank, heads) + (size_t)(channels + rank + heads) * 4, s,
-                  static_cast<const float*>(sc.bc), static_cast<const float*>(sc.z), ssm,
-                  conv_state, static_cast<const bf16*>(xp_out), conv_w, conv_b, dt_w, dt_b,
-                  a_log, d_skip, ssm_out, sc.g_q, sc.g_s, channels, ksize, rank, heads, d_state);
+  err = dg_launch(ssm_recur_kernel<kQ>, rows_grid, row_block, 1,
+                  recur_dtw_bytes(a.rank, a.heads) + (size_t)(a.channels + a.rank + a.heads) * 4,
+                  s, static_cast<const float*>(sc.bc), static_cast<const float*>(sc.z), a.ssm,
+                  a.conv_state, static_cast<const bf16*>(a.xp_out), a.conv_w, a.conv_b, a.dt_w,
+                  a.dt_b, a.a_log, a.d_skip, a.ssm_out, sc.g_q, sc.g_s, a.channels, a.ksize,
+                  a.rank, a.heads, a.d_state);
   if (err != 0) return err;
   ep.x_s = sc.g_s;
-  ep.ws = out_s;
-  ep.h = h;
-  ep.h_out = h_out;
-  ep.hsum = fn_w != nullptr ? sc.hsum : nullptr;
-  ep.n = d_model;
-  err = step_gemm<BR, kOut>(sc.g_q, batch, channels, out_q, nullptr, d_model, ep, splits[2],
-                            stages[2], s);
-  if (err != 0 || fn_w == nullptr) return err != 0 ? err : static_cast<int>(cudaGetLastError());
-  err = dg_launch(ssm_norm_quant_kernel<float>, rows_grid, row_block, 1, row_d, s,
-                  static_cast<const float*>(sc.hsum), fn_w, fn_b, rms, eps, 1, rln_w, rln_b,
-                  router_w, router_b, x_q, x_s, comb, d_model, num_experts);
+  ep.ws = a.out_s;
+  ep.h = a.h;
+  ep.h_out = a.h_out;
+  ep.hsum = a.fn_w != nullptr ? sc.hsum : nullptr;
+  ep.n = a.d_model;
+  err = step_gemm<BR, kOut, kKind>(sc.g_q, a.batch, a.channels, a.out_w, nullptr, a.d_model, ep,
+                                   splits[2], stages[2], s);
+  if (err != 0 || a.fn_w == nullptr)
+    return err != 0 ? err : static_cast<int>(cudaGetLastError());
+  // The moe epilogue quantizes in both layouts; the dense one as the layout.
+  err = dg_launch(a.router_w != nullptr ? &ssm_norm_kernel<float, true>
+                                         : &ssm_norm_kernel<float, kQ>,
+                  rows_grid, row_block, 1, row_d, s, static_cast<const float*>(sc.hsum), a.fn_w,
+                  a.fn_b, a.rms, a.eps, 1, a.rln_w, a.rln_b, a.router_w, a.router_b, a.ffn_in,
+                  a.ffn_scale, a.comb, a.d_model, a.num_experts);
   return err != 0 ? err : static_cast<int>(cudaGetLastError());
+}
+
+// Check a step's shape and plan, then run it at its row tile.
+template <int kKind>
+int run_step(const StepArgs& a, void* scratch, int row_tile, const int* sp, const int* st,
+             cudaStream_t s) {
+  constexpr int kKC = DgOp<kKind>::kKC;
+  if (a.batch <= 0 || a.d_model % 4 != 0 || a.channels % 4 != 0 || a.d_state <= 0 ||
+      a.rank <= 0 || a.heads * a.d_state != a.channels || (row_tile != 16 && row_tile != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.router_w != nullptr && (a.num_experts < 2 || a.num_experts > 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks[3] = {(a.d_model + kKC - 1) / kKC, (a.channels + kKC - 1) / kKC,
+                         (a.channels + kKC - 1) / kKC};
+  for (int i = 0; i < 3; ++i)
+    if (sp[i] < 1 || sp[i] > 8 || sp[i] > chunks[i] || st[i] < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const StepScratch sc(scratch, a.batch, a.d_model, a.channels, a.rank, kKind == kDgI8);
+  return row_tile == 16 ? launch_step<16, kKind>(a, sc, sp, st, s)
+                        : launch_step<64, kKind>(a, sc, sp, st, s);
 }
 
 }  // namespace
 
 // One decode step of one layer's mixer, bf16 weight layout. conv_state is
-// (B, K-1, C); ssm_out may be ssm, to update the state in place; z, g, hsum
-// and tickets are scratch the caller allocates: z (B, C) f32, g (B, C) bf16,
-// hsum (B, D) f32, tickets (ceil(B / 8),) int32. fn_w == nullptr selects
-// ffn_mode "none" (ffn_in and hsum unused); router_w == nullptr selects
-// "dense" (ffn_in is the bf16 FFN input), else "moe": ffn_in is the (B, D)
-// int8 x_q, ffn_scale the (B, 1) f32 x_s and comb the (B, E) f32 combine
-// weights, E <= 32. Returns cudaGetLastError().
+// (B, K-1, C); ssm_out may be ssm, to update the state in place. fn_w ==
+// nullptr selects ffn_mode "none" (ffn_in unused); router_w == nullptr
+// selects "dense" (ffn_in is the (B, D) bf16 FFN input), else "moe": ffn_in
+// is the (B, D) int8 x_q, ffn_scale the (B, 1) f32 x_s and comb the (B, E)
+// f32 combine weights, E <= 32. D and C must be multiples of 4. `scratch`
+// holds apertis_ssm_step_scratch(..., 0) bytes. row_tile (16 or 64),
+// splits[3] and stages[3] (in, mix, out) are the plan of
+// ops/kernels/decode_plan.py::bf16_step_plan. Returns cudaGetLastError(), or
+// cudaErrorInvalidResourceHandle if a tensor map cannot be made.
 extern "C" int apertis_ssm_decode_step(
     const void* h, const void* conv_state, const void* ssm, const void* norm_w,
     const void* norm_b, const void* inx_w, const void* inz_w, const void* conv_w,
@@ -916,26 +707,25 @@ extern "C" int apertis_ssm_decode_step(
     const void* a_log, const void* d_skip, const void* out_w, const void* fn_w,
     const void* fn_b, const void* rln_w, const void* rln_b, const void* router_w,
     const void* router_b, void* h_out, void* xp_out, void* ssm_out, void* ffn_in,
-    void* ffn_scale, void* comb, void* z, void* g, void* hsum, void* tickets, int batch,
-    int d_model, int channels, int ksize, int rank, int heads, int d_state,
-    int num_experts, int rms, float eps, void* stream) {
-  if (router_w != nullptr && (num_experts < 2 || num_experts > 32))
-    return static_cast<int>(cudaErrorInvalidValue);
+    void* ffn_scale, void* comb, void* scratch, int batch, int d_model, int channels,
+    int ksize, int rank, int heads, int d_state, int num_experts, int rms, float eps,
+    int row_tile, const void* splits, const void* stages, void* stream) {
   auto b = [](const void* p) { return static_cast<const bf16*>(p); };
-  return launch_step_bf16(
-      b(h), b(conv_state), static_cast<const float*>(ssm), b(norm_w), b(norm_b), b(inx_w),
-      b(inz_w), b(conv_w), b(conv_b), b(xparam_w), b(dt_w), b(dt_b), b(a_log), b(d_skip),
-      b(out_w), b(fn_w), b(fn_b), b(rln_w), b(rln_b), b(router_w), b(router_b),
-      static_cast<bf16*>(h_out), static_cast<bf16*>(xp_out), static_cast<float*>(ssm_out),
-      ffn_in, static_cast<float*>(ffn_scale), static_cast<float*>(comb),
-      static_cast<float*>(z), static_cast<bf16*>(g), static_cast<float*>(hsum),
-      static_cast<int*>(tickets), batch, d_model, channels, ksize, rank, heads, d_state,
-      num_experts, rms, eps, static_cast<cudaStream_t>(stream));
+  const StepArgs a{b(h), b(conv_state), static_cast<const float*>(ssm), b(norm_w), b(norm_b),
+                   inx_w, inz_w, xparam_w, out_w, nullptr, nullptr, nullptr, nullptr,
+                   b(conv_w), b(conv_b), b(dt_w), b(dt_b), b(a_log), b(d_skip), b(fn_w),
+                   b(fn_b), b(rln_w), b(rln_b), b(router_w), b(router_b),
+                   static_cast<bf16*>(h_out), static_cast<bf16*>(xp_out),
+                   static_cast<float*>(ssm_out), ffn_in, static_cast<float*>(ffn_scale),
+                   static_cast<float*>(comb), batch, d_model, channels, ksize, rank, heads,
+                   d_state, num_experts, rms, eps};
+  return run_step<kDgBW>(a, scratch, row_tile, static_cast<const int*>(splits),
+                         static_cast<const int*>(stages), static_cast<cudaStream_t>(stream));
 }
 
 // The same step with the int8 weight layout: each of in_proj x / z, x_param
 // and out_proj is an int8 (in, out) weight with (1, out) f32 scales; D and C
-// must be multiples of 4. `scratch` holds apertis_ssm_step_int8_scratch
+// must be multiples of 4. `scratch` holds apertis_ssm_step_scratch(..., 1)
 // bytes; with the dense or the moe epilogue ffn_in is the (B, D) int8 x_q
 // and ffn_scale the (B, 1) f32 x_s. row_tile (16 or 64), splits[3] and
 // stages[3] (in, mix, out) are the plan of
@@ -952,54 +742,46 @@ extern "C" int apertis_ssm_decode_step_int8(
     void* ffn_scale, void* comb, void* scratch, int batch, int d_model, int channels,
     int ksize, int rank, int heads, int d_state, int num_experts, int rms, float eps,
     int row_tile, const void* splits, const void* stages, void* stream) {
-  const int* sp = static_cast<const int*>(splits);
-  const int* st = static_cast<const int*>(stages);
-  if (batch <= 0 || d_model % 4 != 0 || channels % 4 != 0 || d_state <= 0 || rank <= 0 ||
-      heads * d_state != channels || (row_tile != 16 && row_tile != 64))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (router_w != nullptr && (num_experts < 2 || num_experts > 32))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int chunks[3] = {(d_model + kDgKC - 1) / kDgKC, (channels + kDgKC - 1) / kDgKC,
-                         (channels + kDgKC - 1) / kDgKC};
-  for (int i = 0; i < 3; ++i)
-    if (sp[i] < 1 || sp[i] > 8 || sp[i] > chunks[i] || st[i] < 1)
-      return static_cast<int>(cudaErrorInvalidValue);
-  const StepScratch sc(scratch, batch, d_model, channels, rank);
   auto b = [](const void* p) { return static_cast<const bf16*>(p); };
-  auto q = [](const void* p) { return static_cast<const int8_t*>(p); };
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto run = row_tile == 16 ? &launch_step_int8<16> : &launch_step_int8<64>;
-  return run(b(h), b(conv_state), f(ssm), b(norm_w), b(norm_b), q(inx_q), f(inx_s), q(inz_q),
-             f(inz_s), b(conv_w), b(conv_b), q(xparam_q), f(xparam_s), b(dt_w), b(dt_b),
-             b(a_log), b(d_skip), q(out_q), f(out_s), b(fn_w), b(fn_b), b(rln_w), b(rln_b),
-             b(router_w), b(router_b), static_cast<bf16*>(h_out), static_cast<bf16*>(xp_out),
-             static_cast<float*>(ssm_out), static_cast<int8_t*>(ffn_in),
-             static_cast<float*>(ffn_scale), static_cast<float*>(comb), sc, batch, d_model,
-             channels, ksize, rank, heads, d_state, num_experts, rms, eps, sp, st,
-             static_cast<cudaStream_t>(stream));
+  const StepArgs a{b(h), b(conv_state), f(ssm), b(norm_w), b(norm_b), inx_q, inz_q, xparam_q,
+                   out_q, f(inx_s), f(inz_s), f(xparam_s), f(out_s), b(conv_w), b(conv_b),
+                   b(dt_w), b(dt_b), b(a_log), b(d_skip), b(fn_w), b(fn_b), b(rln_w), b(rln_b),
+                   b(router_w), b(router_b), static_cast<bf16*>(h_out),
+                   static_cast<bf16*>(xp_out), static_cast<float*>(ssm_out), ffn_in,
+                   static_cast<float*>(ffn_scale), static_cast<float*>(comb), batch, d_model,
+                   channels, ksize, rank, heads, d_state, num_experts, rms, eps};
+  return run_step<kDgI8>(a, scratch, row_tile, static_cast<const int*>(splits),
+                         static_cast<const int*>(stages), static_cast<cudaStream_t>(stream));
 }
 
-// The bytes of apertis_ssm_decode_step_int8's scratch for B rows, D, C and R.
-extern "C" int apertis_ssm_step_int8_scratch(int batch, int d_model, int channels, int rank) {
-  return static_cast<int>(StepScratch(nullptr, batch, d_model, channels, rank).bytes);
+// The bytes of a step's scratch for B rows, D, C and R in the int8 (int8 =
+// 1) or the bf16 layout.
+extern "C" int apertis_ssm_step_scratch(int batch, int d_model, int channels, int rank,
+                                        int int8) {
+  return static_cast<int>(StepScratch(nullptr, batch, d_model, channels, rank, int8 != 0).bytes);
 }
 
-// The resources of the int8 layout's product kernel `kernel` (0 in, 1 mix,
-// 2 out) at a row tile of `row_tile` rows and `smem` bytes of dynamic
-// shared memory (hopper.cuh::kernel_resources), into out[0..4].
-extern "C" int apertis_ssm_step_int8_resources(int kernel, int row_tile, int smem, int* out) {
+// The resources of one of the step's product kernels (kernel: 0 in, 1 mix,
+// 2 out of the int8 layout; 3, 4, 5 of the bf16 layout) at a row tile of
+// `row_tile` rows and `smem` bytes of dynamic shared memory
+// (hopper.cuh::kernel_resources), into out[0..4].
+extern "C" int apertis_ssm_step_resources(int kernel, int row_tile, int smem, int* out) {
   if (row_tile != 16 && row_tile != 64) return static_cast<int>(cudaErrorInvalidValue);
   const bool r16 = row_tile == 16;
   switch (kernel) {
-    case 0: return kernel_resources(r16 ? &ssm_gemm_q_kernel<16, kIn> : &ssm_gemm_q_kernel<64, kIn>,
-                                    kThreads, smem, out);
-    case 1: return kernel_resources(r16 ? &ssm_gemm_q_kernel<16, kMix>
-                                        : &ssm_gemm_q_kernel<64, kMix>,
-                                    kThreads, smem, out);
-    case 2: return kernel_resources(r16 ? &ssm_gemm_q_kernel<16, kOut>
-                                        : &ssm_gemm_q_kernel<64, kOut>,
-                                    kThreads, smem, out);
+    case 0: return kernel_resources(r16 ? &ssm_gemm_kernel<16, kIn, kDgI8>
+                                        : &ssm_gemm_kernel<64, kIn, kDgI8>, kThreads, smem, out);
+    case 1: return kernel_resources(r16 ? &ssm_gemm_kernel<16, kMix, kDgI8>
+                                        : &ssm_gemm_kernel<64, kMix, kDgI8>, kThreads, smem, out);
+    case 2: return kernel_resources(r16 ? &ssm_gemm_kernel<16, kOut, kDgI8>
+                                        : &ssm_gemm_kernel<64, kOut, kDgI8>, kThreads, smem, out);
+    case 3: return kernel_resources(r16 ? &ssm_gemm_kernel<16, kIn, kDgBW>
+                                        : &ssm_gemm_kernel<64, kIn, kDgBW>, kThreads, smem, out);
+    case 4: return kernel_resources(r16 ? &ssm_gemm_kernel<16, kMix, kDgBW>
+                                        : &ssm_gemm_kernel<64, kMix, kDgBW>, kThreads, smem, out);
+    case 5: return kernel_resources(r16 ? &ssm_gemm_kernel<16, kOut, kDgBW>
+                                        : &ssm_gemm_kernel<64, kOut, kDgBW>, kThreads, smem, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-

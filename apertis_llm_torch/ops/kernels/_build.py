@@ -49,15 +49,16 @@ SIGNATURES = {
     "apertis_scan_carry_fwd": [_P] * 6 + [_I] * 4 + [_P],
     # a, g, h, h_init, g_last, da, db, dh_init, B*H, L, N, stream
     "apertis_scan_carry_bwd": [_P] * 8 + [_I] * 3 + [_P],
-    # 21 inputs, 6 outputs, 4 scratch, B, D, C, K, R, H, N, E, rms, eps, stream
-    "apertis_ssm_decode_step": [_P] * 31 + [_I] * 9 + [_F, _P],
+    # 21 inputs, 6 outputs, scratch, B, D, C, K, R, H, N, E, rms, eps,
+    # row_tile, splits (3 ints), stages (3 ints), stream
+    "apertis_ssm_decode_step": [_P] * 28 + [_I] * 9 + [_F, _I, _P, _P, _P],
     # 25 inputs, 6 outputs, scratch, B, D, C, K, R, H, N, E, rms, eps,
     # row_tile, splits (3 ints), stages (3 ints), stream
     "apertis_ssm_decode_step_int8": [_P] * 32 + [_I] * 9 + [_F, _I, _P, _P, _P],
-    # B, D, C, R: the bytes of the int8 step's scratch
-    "apertis_ssm_step_int8_scratch": [_I] * 4,
-    # kernel (0 in, 1 mix, 2 out), row_tile, smem, out (5 ints)
-    "apertis_ssm_step_int8_resources": [_I, _I, _I, _P],
+    # B, D, C, R, int8: the bytes of a step's scratch
+    "apertis_ssm_step_scratch": [_I] * 5,
+    # kernel (0 in, 1 mix, 2 out int8; 3, 4, 5 bf16), row_tile, smem, out (5 ints)
+    "apertis_ssm_step_resources": [_I, _I, _I, _P],
     # x, w1, b1, w2, b2, out, hidden, S, D, I, act, row_tile, split_up,
     # split_down, stages_up, stages_down, stream
     "apertis_ffn_decode": [_P] * 7 + [_I] * 9 + [_P],
@@ -107,8 +108,12 @@ SIGNATURES = {
     "apertis_quant_matmul": [_P] * 5 + [_I] * 8 + [_P],
     # w8a8, rows, split, out (5 ints)
     "apertis_quant_matmul_resources": [_I, _I, _I, _P],
-    # x, w_q, w_s, bias (or NULL), out, M, N, K, x_bf16, stream
-    "apertis_quant_matmul_dyn_fused": [_P] * 5 + [_I] * 4 + [_P],
+    # x, w_q, w_s, bias (or NULL), out, x_q and x_s scratch, M, N, K, x_bf16,
+    # then the plan (rows, split, group, stages, tma_w), stream
+    "apertis_quant_matmul_dyn_fused": [_P] * 7 + [_I] * 9 + [_P],
+    # kernel (0 quantization pass, 1 block-scaled qm_kernel, 2 split), rows,
+    # smem, out (5 ints)
+    "apertis_quant_matmul_fused_resources": [_I, _I, _I, _P],
     # xq, xs, w1q, w1s, b1, w2q, w2s, b2, out, hidden, absmax, partial, S, H,
     # I, E, ksplit, act, out_bf16, stream
     "apertis_expert_ffn_dense": [_P] * 12 + [_I] * 7 + [_P],

@@ -6,10 +6,10 @@ of the fat MoE expert FFN (``csrc/moe_ffn.cu``, #10) run swapped-operand
 int8 ``wgmma`` products: a block computes 128 weight columns
 (``TILE_COLS``) for a row tile of 16 or 64 batch rows (``ROW_TILES``), over
 128-row K chunks (``CHUNK``) whose weight and row tiles a ring of
-``stages`` stages holds; the decode FFN's bf16 layout the same over 64-row
-K chunks of a bf16 weight (``BW_CHUNK``, ``BW_BYTES``). A K split over a
-thread-block cluster of ``split`` blocks spreads a product with few column
-tiles over more SMs.
+``stages`` stages holds; the bf16 layouts of the decode FFN and of the
+mixer step the same over 64-row K chunks of a bf16 weight (``BW_CHUNK``,
+``BW_BYTES``). A K split over a thread-block cluster of ``split`` blocks
+spreads a product with few column tiles over more SMs.
 
 The plan of each launch is plain Python, so that the CPU tests can pin it;
 the wrappers pass it to the C entry points, which compute the same shared
@@ -88,7 +88,7 @@ def _stages(rows: int, stage_bytes: int, split: int, extra: int, chunks: int) ->
 
 
 def xset_bytes(rows: int, split: int) -> int:
-    """``quant_ffn.cuh::xset_bytes``: one tile's slots of the exchange in
+    """``decode_gemm.cuh::xset_bytes``: one tile's slots of the exchange in
     which each rank owns a run of the (thread, column block) pairs (about
     rows x 512 bytes at any split; none without a split)."""
     return split * _cdiv(rows // 8 * CONSUMER_THREADS, split) * 16 if split > 1 else 0
@@ -112,8 +112,8 @@ def _split_gemm(k: int, col_tiles: int, row_tiles: int, rows: int, sms: int,
 
 
 class StepPlan(NamedTuple):
-    """The int8 mixer step's three products (``csrc/ssm_step.cu``): in_proj
-    x and z, x_param, out_proj."""
+    """The mixer step's three products (``csrc/ssm_step.cu``): in_proj x
+    and z, x_param, out_proj."""
     inp: GemmPlan
     mix: GemmPlan
     out: GemmPlan
@@ -129,6 +129,22 @@ def ssm_step_plan(batch: int, d_model: int, channels: int, rank: int, sms: int) 
         _split_gemm(d_model, 2 * _cdiv(channels, TILE_COLS), row_tiles, rows, sms),
         _split_gemm(channels, _cdiv(rank + 2 * channels, TILE_COLS), row_tiles, rows, sms),
         _split_gemm(channels, _cdiv(d_model, TILE_COLS), row_tiles, rows, sms))
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_step_plan(batch: int, d_model: int, channels: int, rank: int, sms: int) -> StepPlan:
+    """The plan of ``apertis_ssm_decode_step`` (the bf16 layout) for B rows,
+    D, C and R: the int8 step's products over 64-row chunks of the bf16
+    weights, each split over K as far as its column tiles leave SMs idle,
+    with the sliced exchange's slots (the bf16 FFN's)."""
+    rows = row_tile(batch)
+    row_tiles = _cdiv(batch, rows)
+
+    def gemm(k, col_tiles):
+        return _split_gemm(k, col_tiles, row_tiles, rows, sms, BW_CHUNK, BW_BYTES, sliced=True)
+    return StepPlan(gemm(d_model, 2 * _cdiv(channels, TILE_COLS)),
+                    gemm(channels, _cdiv(rank + 2 * channels, TILE_COLS)),
+                    gemm(channels, _cdiv(d_model, TILE_COLS)))
 
 
 def down_extra(rows: int, split: int, group: int, experts: int) -> int:

@@ -14,7 +14,10 @@ tree's row-major (K, N) int8 ``w_q``, read as it is, with f32 column scales
   * :func:`quant_matmul` (#6, ``quant_matmul="pallas"``): the weight-only
     product ``x.dtype((x @ float(w_q)) * w_s)`` with f32 accumulation;
   * :func:`quant_matmul_dyn_fused` (#8, ``quant_matmul="fused"``): the w8a8
-    product that quantizes x inside the kernel per row and 512-wide K block.
+    product that quantizes x per row and 512-wide K block: one pass writes
+    the padded int8 rows and the block scales (:func:`quantize_blocks`),
+    then qm_kernel's block-scaled mode, or at a K split the decode FFN's
+    tile-ordered GEMM2, on :func:`fused_plan`.
 
 They replace ``apertis_llm_tpu/ops/pallas/quant_matmul.py``'s
 ``quant_matmul_dyn``, ``quant_matmul`` and ``quant_matmul_dyn_fused``.
@@ -34,7 +37,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from apertis_llm_torch.ops.kernels import _build
+from apertis_llm_torch.ops.kernels import _build, decode_plan
 from apertis_llm_torch.ops.kernels.flash_attention import RESOURCE_KEYS
 from apertis_llm_torch.ops.quant import int_mm, linear_pre_q_reference, quantize_rows
 
@@ -92,6 +95,58 @@ def tile_plan(m: int, n: int, k: int, x_bytes: int, sms: int, x_aligned: bool = 
         split = max(1, min(MAX_SPLIT, sms // tiles, chunks // SPLIT_CHUNKS))
     return TilePlan(rows, split, x_aligned and (k * x_bytes) % 16 == 0,
                     w_aligned and n % 16 == 0)
+
+
+# #8's plan: row tiles whose int32 and f32 accumulators (two sets of BR / 2
+# registers a consumer thread) fit beside the fragments; a split only on
+# whole 512-wide blocks, and only where TMA loads the weight.
+FUSED_ROW_TILES = (16, 64, 128)
+QUANT_BLOCK_CHUNKS = QUANT_BLOCK_K // CHUNK_BYTES
+
+
+class FusedPlan(NamedTuple):
+    """How #8 runs its product: ``rows`` activation rows a tile; K split
+    over ``split`` blocks of a cluster on whole 512-wide blocks (the decode
+    FFN's GEMM2, ``group`` consecutive blocks a rank in each round of its
+    exchange, ``stages`` ring stages), or qm_kernel's block-scaled mode at
+    split 1 (group 1, stages 0: its own ring); whether TMA loads the
+    weight."""
+    rows: int
+    split: int
+    group: int
+    stages: int
+    tma_w: bool
+
+
+def fused_plan(m: int, n: int, k: int, sms: int, w_aligned: bool = True) -> FusedPlan:
+    """#8's plan for an (M, K) x (K, N) product on a card of ``sms`` SMs:
+    the smallest row tile of FUSED_ROW_TILES that holds M, 128 above; a K
+    split where :func:`tile_plan` would split #7 (at most 64 rows, the
+    column tiles on at most half the SMs, SPLIT_CHUNKS chunks a block), on
+    at most as many blocks as K has 512-wide blocks, and only where the
+    weight loads by TMA (N a multiple of 16); then GEMM2's largest group
+    whose exchange slots leave decode_plan.MIN_STAGES stages."""
+    rows = next((r for r in FUSED_ROW_TILES if m <= r), FUSED_ROW_TILES[-1])
+    tiles = -(-m // rows) * -(-n // TILE_COLS)
+    chunks = -(-k // CHUNK_BYTES)
+    blocks = -(-k // QUANT_BLOCK_K)
+    tma_w = w_aligned and n % 16 == 0
+    split = 1
+    if rows <= SPLIT_ROWS and 2 * tiles <= sms and tma_w:
+        split = max(1, min(MAX_SPLIT, sms // tiles, chunks // SPLIT_CHUNKS, blocks))
+    if split == 1:
+        return FusedPlan(rows, 1, 1, 0, tma_w)
+    stage = rows * 128 + decode_plan.W8_BYTES
+
+    def smem(group, stages):
+        return decode_plan.smem_bytes(rows, stages, stage, 1,
+                                      decode_plan.down_extra(rows, split, group, 0))
+    group = max([1] + [g for g in range(1, min(decode_plan.MAX_GROUP, -(-blocks // split)) + 1)
+                       if smem(g, decode_plan.MIN_STAGES) <= decode_plan.SMEM_LIMIT])
+    per_block = -(-blocks // (split * group)) * group * QUANT_BLOCK_CHUNKS
+    stages = decode_plan._stages(rows, stage, 1, decode_plan.down_extra(rows, split, group, 0),
+                                 per_block)
+    return FusedPlan(rows, split, group, stages, tma_w)
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,6 +240,24 @@ def quant_matmul_reference(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor
     return y + b if b is not None else y
 
 
+def quantize_blocks(x: torch.Tensor):
+    """#8's quantization pass, plain: the (M, K) rows of x as int8 levels
+    ``clip(rint(x / s_j))`` of row stride Kp = K rounded up to a multiple of
+    128, zeros past K, and the (M, ceil(K / 512)) f32 scales ``s_j =
+    max(absmax, 1e-8) * (1/127)`` of each row's 512-wide blocks."""
+    m, k = x.reshape(-1, x.shape[-1]).shape
+    xf = x.reshape(m, k).float()
+    kp = -(-k // CHUNK_BYTES) * CHUNK_BYTES
+    x_q = torch.zeros((m, kp), dtype=torch.int8, device=x.device)
+    scales = []
+    for j0 in range(0, k, QUANT_BLOCK_K):
+        xb = xf[:, j0:j0 + QUANT_BLOCK_K]
+        s = torch.clamp(xb.abs().amax(dim=1, keepdim=True), min=1e-8) * (1.0 / 127.0)
+        x_q[:, j0:j0 + xb.shape[1]] = torch.clamp(torch.round(xb / s), -127, 127).to(torch.int8)
+        scales.append(s)
+    return x_q, torch.cat(scales, dim=1)
+
+
 def quant_matmul_dyn_fused_reference(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
                                      b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """#8's arithmetic (``quant_matmul.py::_dyn_fused_kernel``), block by
@@ -205,11 +278,11 @@ def quant_matmul_dyn_fused_reference(x: torch.Tensor, w_q: torch.Tensor, w_s: to
 
 
 def _launch_float_x(wrapper, entry: str, x: torch.Tensor, w_q: torch.Tensor,
-                    w_s: torch.Tensor, b: Optional[torch.Tensor],
-                    planned: bool = False) -> torch.Tensor:
+                    w_s: torch.Tensor, b: Optional[torch.Tensor], plan_args) -> torch.Tensor:
     """Check the operands of a kernel that reads bf16 or f32 x, launch
-    ``entry`` (none for an x without rows; with the tile plan when
-    ``planned``), count the launch on ``wrapper`` and return the (..., N)
+    ``entry`` (none for an x without rows) with what ``plan_args(x2, m, n,
+    k)`` gives (scratch tensors passed before M, N, K; plan integers after
+    x's type), count the launch on ``wrapper`` and return the (..., N)
     result in x's dtype."""
     lead, k, n = x.shape[:-1], x.shape[-1], w_q.shape[-1]
     m = x.numel() // max(k, 1)
@@ -226,11 +299,11 @@ def _launch_float_x(wrapper, entry: str, x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"{entry}: unsupported shape M={m} K={k} N={n}")
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m > 0:
-        plan = _plan_args(x2, w_q, m, n, k) if planned else ()
+        scratch, plan = plan_args(x2, m, n, k)
         err = getattr(_build.load_library(), entry)(
             x2.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), None if b is None else b.data_ptr(),
-            out.data_ptr(), m, n, k, int(x.dtype == torch.bfloat16), *plan,
-            torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), *(t.data_ptr() for t in scratch), m, n, k,
+            int(x.dtype == torch.bfloat16), *plan, torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, entry)
         wrapper.launches += 1
     return out.reshape(*lead, n)
@@ -244,18 +317,55 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     None or (N,) of x's dtype; any M, N and K."""
     if x.device.type == "cpu":
         return quant_matmul_reference(x, w_q, w_s, b)
-    return _launch_float_x(quant_matmul, "apertis_quant_matmul", x, w_q, w_s, b, planned=True)
+    return _launch_float_x(quant_matmul, "apertis_quant_matmul", x, w_q, w_s, b,
+                           lambda x2, m, n, k: ((), _plan_args(x2, w_q, m, n, k)))
 
 
 def quant_matmul_dyn_fused(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
                            b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The w8a8 product with x quantized in the kernel per row and 512-wide
-    K block (#8): kernel on CUDA tensors, plain version on CPU ones. Takes
-    what :func:`quant_matmul` takes."""
+    """The w8a8 product with x quantized per row and 512-wide K block
+    (#8): kernel on CUDA tensors, plain version on CPU ones. Takes what
+    :func:`quant_matmul` takes."""
     if x.device.type == "cpu":
         return quant_matmul_dyn_fused_reference(x, w_q, w_s, b)
     return _launch_float_x(quant_matmul_dyn_fused, "apertis_quant_matmul_dyn_fused", x, w_q,
-                           w_s, b)
+                           w_s, b, lambda x2, m, n, k: _fused_args(x2, w_q, m, k))
+
+
+def _fused_args(x2: torch.Tensor, w_q: torch.Tensor, m: int, k: int) -> tuple:
+    """#8's scratch (the quantization pass's padded int8 rows and block
+    scales) and its plan, as the C entry point takes them."""
+    fp = fused_plan_on(x2, w_q)
+    x_q = torch.empty((m, -(-k // CHUNK_BYTES) * CHUNK_BYTES), dtype=torch.int8, device=x2.device)
+    x_s = torch.empty((m, -(-k // QUANT_BLOCK_K)), dtype=torch.float32, device=x2.device)
+    return (x_q, x_s), (fp.rows, fp.split, fp.group, fp.stages, int(fp.tma_w))
+
+
+def fused_plan_on(x: torch.Tensor, w_q: torch.Tensor) -> FusedPlan:
+    """#8's plan for the (..., K) rows x and the weight w_q on x's card."""
+    k, n = w_q.shape
+    return fused_plan(x.numel() // max(k, 1), n, k, _sm_count(x.device.index or 0),
+                      w_q.data_ptr() % 16 == 0)
+
+
+def quant_matmul_fused_resources(plan: FusedPlan) -> Dict[str, Dict[str, int]]:
+    """What the card gives #8's launches at ``plan``: the quantization pass
+    and the product (qm_kernel's block-scaled mode, or GEMM2 at a split),
+    each registers a thread, shared memory a block, resident blocks an SM,
+    threads a block and spilled bytes a thread."""
+    result = {}
+    smem = 0
+    if plan.split > 1:
+        stage = plan.rows * 128 + decode_plan.W8_BYTES
+        smem = decode_plan.smem_bytes(plan.rows, plan.stages, stage, 1,
+                                      decode_plan.down_extra(plan.rows, plan.split, plan.group, 0))
+    for name, kernel in (("quantize", 0), ("product", 2 if plan.split > 1 else 1)):
+        out = (ctypes.c_int * len(RESOURCE_KEYS))()
+        err = _build.load_library().apertis_quant_matmul_fused_resources(
+            kernel, plan.rows, smem, ctypes.addressof(out))
+        _build.check(err, "quant_matmul_fused_resources")
+        result[name] = dict(zip(RESOURCE_KEYS, out))
+    return result
 
 
 quant_matmul_dyn_pre_q.launches = 0

@@ -8,15 +8,16 @@ with ``ffn_mode`` "none", "dense" (``ffn_norm`` given) or "moe" (``ffn_norm``
 and ``router`` given) in both weight layouts, picked from the weights' dtype
 as the TPU kernel picks it from the pack: bf16, or int8 with
 per-output-channel scales (launched and counted by
-:func:`ssm_decode_step_int8`). The bf16 layout runs three launches of
-row-tile matrix-vector products; the int8 layout runs row kernels that
-quantize each product's input rows once and three swapped-operand int8
-``wgmma`` products on Hopper that stream them beside the weights, on the
-plan of ``ops/kernels/decode_plan.py::ssm_step_plan``. The "moe" epilogue
-emits the int8 expert input ``(x_q, x_s)`` and the router's top-2 combine
-weights in both layouts. The semantics are the fused kernel's, not
-those of the unfused ``models/apertis.py::_ssm_decode_step``: the two round
-through bf16 at different points.
+:func:`ssm_decode_step_int8`). Both layouts run row kernels that compute
+each product's input rows once (quantized in the int8 layout, rounded to
+bf16 in the bf16 one) and three swapped-operand ``wgmma`` products on
+Hopper that stream them beside the weights (int8 products, or bf16 rows
+against the bf16 weight), on the plans of
+``ops/kernels/decode_plan.py::ssm_step_plan`` and ``bf16_step_plan``. The
+"moe" epilogue emits the int8 expert input ``(x_q, x_s)`` and the router's
+top-2 combine weights in both layouts. The semantics are the fused kernel's,
+not those of the unfused ``models/apertis.py::_ssm_decode_step``: the two
+round through bf16 at different points.
 
 The weights are one layer's tensors as the model holds them, in the (in, out)
 layout, so no weight pack is built: the x_param projection and its scales
@@ -37,9 +38,6 @@ from apertis_llm_torch.ops.kernels.flash_attention import RESOURCE_KEYS
 from apertis_llm_torch.ops.moe import _combine_weights, route
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
 from apertis_llm_torch.ops.quant import int_mm
-
-_ROWS = 8          # batch rows per block of the bf16 layout (csrc/ssm_step.cu kRows)
-
 
 class MixerWeights(NamedTuple):
     """One layer's selective-SSM weights, JAX (in, out) layout. In the int8
@@ -220,8 +218,6 @@ def _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, proj_dtype, rout
         for name, shape in projections.items():
             _build.check_tensor(getattr(w, name[:-2] + "_s"), (1, shape[1]),
                                 (torch.float32,), name[:-2] + "_s", dev)
-        if d % 4 or c % 4:
-            raise ValueError("ssm_decode_step: int8 layout needs D, C multiples of 4")
     if ffn_norm is not None:
         if (ffn_norm[1] is None) != rms:
             raise ValueError("ssm_decode_step: both norms must be of one kind")
@@ -260,9 +256,9 @@ def ssm_decode_step(
 
     The kernel takes bf16 ``h``, ``conv_state`` and weights, an f32
     ``ssm_state`` (and ``ssm_out``, which may be the same tensor), all
-    contiguous, and one norm kind for both norms; ``router`` (bf16, 2-32
-    experts) selects the moe epilogue. Int8 projection weights go to
-    :func:`ssm_decode_step_int8`.
+    contiguous, D and C multiples of 4, and one norm kind for both norms;
+    ``router`` (bf16, 2-32 experts) selects the moe epilogue. Int8
+    projection weights go to :func:`ssm_decode_step_int8`.
     """
     if h.device.type == "cpu":
         return ssm_decode_step_reference(h, conv_state, ssm_state, w, eps, ffn_norm,
@@ -270,26 +266,11 @@ def ssm_decode_step(
     if w.quantized:
         return ssm_decode_step_int8(h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out,
                                     router)
-    dims = _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, torch.bfloat16, router)
-    bsz, d, c = dims[:3]
-    dev = h.device
-    # Scratch: z (B, C) f32, g (B, C) bf16, hsum (B, D) f32 and the tickets.
-    bufs = _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, False) + (
-        torch.empty((bsz, c), dtype=torch.float32, device=dev),
-        torch.empty((bsz, c), dtype=torch.bfloat16, device=dev),
-        torch.empty((bsz, d), dtype=torch.float32, device=dev) if ffn_norm is not None else None,
-        torch.empty((-(-bsz // _ROWS),), dtype=torch.int32, device=dev))
-    fn_w, fn_b = ffn_norm if ffn_norm is not None else (None, None)
-    err = _build.load_library().apertis_ssm_decode_step(
-        _ptr(h), _ptr(conv_state), _ptr(ssm_state), _ptr(w.norm_w), _ptr(w.norm_b),
-        _ptr(w.inx_w), _ptr(w.inz_w), _ptr(w.conv_w), _ptr(w.conv_b), _ptr(w.xparam_w),
-        _ptr(w.dt_w), _ptr(w.dt_b), _ptr(w.a_log), _ptr(w.d_skip), _ptr(w.out_w),
-        _ptr(fn_w), _ptr(fn_b), *_router_ptrs(router), *(_ptr(t) for t in bufs),
-        *dims, _num_experts(router), int(w.norm_b is None), float(eps),
-        torch.cuda.current_stream(h.device).cuda_stream)
+    err, outs = _launch_step("apertis_ssm_decode_step", h, conv_state, ssm_state, w, eps,
+                             ffn_norm, ssm_out, router)
     _build.check(err, "ssm_decode_step")
     ssm_decode_step.launches += 1
-    return _step_outputs(bufs)
+    return outs
 
 
 def _router_ptrs(router):
@@ -331,26 +312,58 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_bytes(batch: int, d: int, c: int, r: int) -> int:
-    """The bytes of the int8 step's scratch (``csrc/ssm_step.cu::StepScratch``)."""
-    return _build.load_library().apertis_ssm_step_int8_scratch(batch, d, c, r)
+def _scratch_bytes(batch: int, d: int, c: int, r: int, int8: bool) -> int:
+    """The bytes of a step's scratch (``csrc/ssm_step.cu::StepScratch``)."""
+    return _build.load_library().apertis_ssm_step_scratch(batch, d, c, r, int(int8))
 
 
-def step_int8_plan(h: torch.Tensor, w: MixerWeights) -> decode_plan.StepPlan:
-    """The plan of the int8 step for these rows and weights on h's card."""
-    return decode_plan.ssm_step_plan(h.shape[0], h.shape[1], w.inx_w.shape[1],
-                                     w.dt_w.shape[0], _sm_count(h.device.index or 0))
+def step_plan(h: torch.Tensor, w: MixerWeights) -> decode_plan.StepPlan:
+    """The plan of the step in w's layout for these rows on h's card."""
+    plan = decode_plan.ssm_step_plan if w.quantized else decode_plan.bf16_step_plan
+    return plan(h.shape[0], h.shape[1], w.inx_w.shape[1], w.dt_w.shape[0],
+                _sm_count(h.device.index or 0))
 
 
-def ssm_step_int8_resources(kernel: str, plan: decode_plan.GemmPlan) -> Dict[str, int]:
-    """What the card gives the int8 step's ``kernel`` ("in", "mix" or "out")
-    at its plan: registers a thread, shared memory a block in bytes, resident
-    blocks an SM, threads a block and spilled bytes a thread."""
+def ssm_step_resources(kernel: str, plan: decode_plan.GemmPlan, int8: bool) -> Dict[str, int]:
+    """What the card gives the step's product ``kernel`` ("in", "mix" or
+    "out") of the int8 or the bf16 layout at its plan: registers a thread,
+    shared memory a block in bytes, resident blocks an SM, threads a block
+    and spilled bytes a thread."""
     out = (ctypes.c_int * len(RESOURCE_KEYS))()
-    err = _build.load_library().apertis_ssm_step_int8_resources(
-        ("in", "mix", "out").index(kernel), plan.rows, plan.smem, ctypes.addressof(out))
-    _build.check(err, "ssm_step_int8_resources")
+    err = _build.load_library().apertis_ssm_step_resources(
+        ("in", "mix", "out").index(kernel) + (0 if int8 else 3), plan.rows, plan.smem,
+        ctypes.addressof(out))
+    _build.check(err, "ssm_step_resources")
     return dict(zip(RESOURCE_KEYS, out))
+
+
+def _launch_step(entry, h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out, router):
+    """Check the step's tensors, allocate its outputs and scratch and launch
+    ``entry`` on its plan; returns (the error, the outputs)."""
+    int8 = w.quantized
+    dims = _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out,
+                       torch.int8 if int8 else torch.bfloat16, router)
+    bsz, d, c, _, r = dims[:5]
+    if d % 4 or c % 4:
+        raise ValueError("ssm_decode_step: the kernel needs D, C multiples of 4")
+    outs = _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, int8)
+    scratch = torch.empty((_scratch_bytes(bsz, d, c, r, int8),), dtype=torch.int8,
+                          device=h.device)
+    plan = step_plan(h, w)
+    splits = (ctypes.c_int * 3)(*(p.split for p in plan))
+    stages = (ctypes.c_int * 3)(*(p.stages for p in plan))
+    fn_w, fn_b = ffn_norm if ffn_norm is not None else (None, None)
+    weights = ((w.inx_w, w.inx_s, w.inz_w, w.inz_s, w.conv_w, w.conv_b, w.xparam_w,
+                w.xparam_s, w.dt_w, w.dt_b, w.a_log, w.d_skip, w.out_w, w.out_s) if int8 else
+               (w.inx_w, w.inz_w, w.conv_w, w.conv_b, w.xparam_w, w.dt_w, w.dt_b, w.a_log,
+                w.d_skip, w.out_w))
+    err = getattr(_build.load_library(), entry)(
+        _ptr(h), _ptr(conv_state), _ptr(ssm_state), _ptr(w.norm_w), _ptr(w.norm_b),
+        *(_ptr(t) for t in weights), _ptr(fn_w), _ptr(fn_b), *_router_ptrs(router),
+        *(_ptr(t) for t in outs), _ptr(scratch), *dims, _num_experts(router),
+        int(w.norm_b is None), float(eps), plan.inp.rows, ctypes.addressof(splits),
+        ctypes.addressof(stages), torch.cuda.current_stream(h.device).cuda_stream)
+    return err, _step_outputs(outs)
 
 
 def ssm_decode_step_int8(
@@ -371,26 +384,11 @@ def ssm_decode_step_int8(
     if h.device.type == "cpu":
         return ssm_decode_step_reference(h, conv_state, ssm_state, w, eps, ffn_norm,
                                          ssm_out, router)
-    dims = _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, torch.int8, router)
-    bsz, d, c, _, r = dims[:5]
-    outs = _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, True)
-    scratch = torch.empty((_scratch_bytes(bsz, d, c, r),), dtype=torch.int8, device=h.device)
-    plan = step_int8_plan(h, w)
-    splits = (ctypes.c_int * 3)(*(p.split for p in plan))
-    stages = (ctypes.c_int * 3)(*(p.stages for p in plan))
-    fn_w, fn_b = ffn_norm if ffn_norm is not None else (None, None)
-    err = _build.load_library().apertis_ssm_decode_step_int8(
-        _ptr(h), _ptr(conv_state), _ptr(ssm_state), _ptr(w.norm_w), _ptr(w.norm_b),
-        _ptr(w.inx_w), _ptr(w.inx_s), _ptr(w.inz_w), _ptr(w.inz_s), _ptr(w.conv_w),
-        _ptr(w.conv_b), _ptr(w.xparam_w), _ptr(w.xparam_s), _ptr(w.dt_w), _ptr(w.dt_b),
-        _ptr(w.a_log), _ptr(w.d_skip), _ptr(w.out_w), _ptr(w.out_s), _ptr(fn_w),
-        _ptr(fn_b), *_router_ptrs(router), *(_ptr(t) for t in outs), _ptr(scratch), *dims,
-        _num_experts(router), int(w.norm_b is None), float(eps), plan.inp.rows,
-        ctypes.addressof(splits), ctypes.addressof(stages),
-        torch.cuda.current_stream(h.device).cuda_stream)
+    err, outs = _launch_step("apertis_ssm_decode_step_int8", h, conv_state, ssm_state, w, eps,
+                             ffn_norm, ssm_out, router)
     _build.check(err, "ssm_decode_step_int8")
     ssm_decode_step_int8.launches += 1
-    return _step_outputs(outs)
+    return outs
 
 
 ssm_decode_step.launches = 0

@@ -18,19 +18,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
      on the card, at the shapes the requests below give it, at a ragged size
      and in every variant its wrapper accepts (RMSNorm, ffn_mode "none", f32
      scan operands, ReLU and SiLU, several hidden tiles), and time both with
-     CUDA events beside the kernel's bound; the int8 decode step in every
-     ffn_mode with both norms, and the int8 and int4 decode FFN at I = 9728
-     and 1536 with GELU, ReLU and SiLU, at 4, 5, 64 and 256 rows, each run
-     twice for the same bits (the bf16 decode FFN twice at 64 rows); their
-     warm and cold times (``decode_times``: one layer's weights again and
-     again, or each of the model's 20 layers in turn; the bf16 FFN's over
-     the bf16 model's) and each of their launches' registers, shared memory
-     and local bytes;
+     CUDA events beside the kernel's bound; the int8 and the bf16 decode
+     step in every ffn_mode with both norms, and the int8 and int4 decode
+     FFN at I = 9728 and 1536 with GELU, ReLU and SiLU, at 4, 5, 64 and 256
+     rows, each run twice for the same bits (the bf16 step and the bf16
+     decode FFN twice at 64 rows); their warm and cold times
+     (``decode_times``: one layer's weights again and again, or each of the
+     model's 20 layers in turn; the bf16 step's and FFN's over the bf16
+     model's) and each of their launches' registers, shared memory and
+     local bytes;
      Then the same for the 1.5B top-2-of-8 MoE model (hidden 704, 44 layers,
      experts of 2816): the scan, ``ln_quantize`` and the decode step at its
      mixer's shapes (D = 704, C = 176, R = 44, H = 11), the step's moe
-     epilogue in both layouts, the fat expert kernel (twice at 64 rows for
-     the same bits; its warm and cold times over the 44 layers' fat stacks
+     epilogue in both layouts at 4, 5, 64 and 256 rows (x_param's bf16 rows
+     of 792 bytes staged by the producer's own loads; warm and cold over
+     the 44 layers, ``moe_step_times``), the fat expert kernel (twice at 64
+     rows for the same bits; its warm and cold times over the 44 layers' fat stacks
      with each layer's own routing, ``fat_times``) and the grouped expert
      kernel, with sensitivity checks for the combine weights, b1t, w1t_s,
      w2t_s, the router bias and the epilogue's inverse deviation;
@@ -58,9 +61,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
      weight-only product (``quant_matmul``, ``quant_matmul="pallas"``) and
      the block-quantizing one (``quant_matmul_dyn_fused``, ``"fused"``,
      bit-equal) at the 1.5B FFN's w1 at 64 and 2048 rows, the int8 head at
-     4 rows, x_param_proj at 300 rows (K = 608) and N = 44, in bf16 and f32,
-     with ``x @ w_deq`` (the weight dequantized to bf16 ahead of the call)
-     timed as #6's library yardstick; then #7 and #6 with bf16 x alone
+     4 rows, x_param_proj at 300 rows (K = 608) and N = 44, in bf16 and f32
+     (#8 also at 16 and 128 rows and on w2, K = 9728, at 4, 17 and 64 rows,
+     where its plan splits K over a cluster; a second run bit for bit at
+     2048 x 2432 x 9728 and at the split; each plan's resources), with
+     ``x @ w_deq`` (the weight dequantized to bf16 ahead of the call) timed
+     as #6's library yardstick; then #7 and #6 with bf16 x alone
      (``qmm_phase``, seeded operands at the models' shapes): every tile plan
      (row tiles 16 to 256, a K split over a cluster, each TMA variant, N =
      44, K = 597 and 4001) against the plain versions, a second run bit
@@ -68,7 +74,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      cluster, each plan's registers, shared
      memory and resident blocks an SM, and the times at the decode shapes
      (the int8 head at 64 and 4 rows, the MHA model's fused QKV at 64, #6
-     on w1 at 64) beside their bytes bounds and ``torch._int_mm`` on the
+     on w1 at 64; #8 at 2048 x 2432 x 9728 and on the head at 64 and 4
+     rows) beside their bounds and ``torch._int_mm`` on the
      row-major weight and on a column-major copy; the per-expert MoE kernel
      (``expert_ffn_dense``, ``moe_mode="kernel"``) at the 1.5B MoE widths at
      S = 4, 64 and 256; each with sensitivity checks (the scales, the
@@ -176,23 +183,25 @@ Kernel times are CUDA-event means over back-to-back wrapper calls ("ms")
 and the profiler's device time per call ("device_ms", the kernels' own time
 without the Python wrapper, from each kernel's mean duration in the
 profiler's records, which can miss some launches). Before the last line it
-prints the bf16 and f32 flash kernels' resources, #7's and #6's times, resources
-and host enqueue times (``{"qmm": ...}``), the decode kernels' times and
-resources (``{"decode_times": ...}``: #3 int8, #4 bf16, int8 and int4, #10
-int8 and int4), the kernels' JSON summary and the
+prints the bf16 and f32 flash kernels' resources, #7's, #6's and #8's times,
+#7's and #6's resources and host enqueue times (``{"qmm": ...}``), the decode
+kernels' times and resources (``{"decode_times": ...}``: #3 int8 and bf16,
+each with the dense and the moe epilogue, #4 bf16, int8 and int4, #10 int8
+and int4), the kernels' JSON summary and the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
 
     python3 chip_smoke.py --qmm          # #7 and #6 alone: checks, repeats, resources,
                                          # times, and other tile plans' times
-    python3 chip_smoke.py --qmm-times    # their times alone
+    python3 chip_smoke.py --qmm-times    # their times alone, and #8's
     python3 chip_smoke.py --flash-f32-times  # the f32 flash kernels' times and SDPA f32's
                                              # at (4, 38, 1024, 64), and the 1.5B MHA
                                              # model's f32 micro-step p50
-    python3 chip_smoke.py --decode-times     # the int8 decode step's, the bf16, int8
-                                             # and int4 decode FFN's and the int8 and
-                                             # int4 fat MoE FFN's warm and cold times
-                                             # at 64 and 4 rows
+    python3 chip_smoke.py --decode-times     # the int8 and bf16 decode step's (dense
+                                             # and moe epilogues), the bf16, int8 and
+                                             # int4 decode FFN's and the int8 and int4
+                                             # fat MoE FFN's warm and cold times at 64
+                                             # and 4 rows
 
 The first two flags run ``qmm_phase`` only. ``--qmm-times``,
 ``--flash-f32-times`` and ``--decode-times`` need nothing of the checkout but
@@ -525,7 +534,8 @@ def to_numpy(tree):
 
 # The timed shapes (kernel, label, M, K, N): the 1.5B FFN's w1 at 2048
 # prefill rows; at decode rows the int8 head (2432 x 32000) at 64 and 4, the
-# MHA model's fused int8 QKV (2432 x 7296) at 64, and #6 on w1 at 64.
+# MHA model's fused int8 QKV (2432 x 7296) at 64, and #6 on w1 at 64; #8 on
+# w1 at 2048 and the int8 head at 64 and 4.
 QMM_TIMED = [
     ("quant_matmul_dyn_pre_q", "1.5B FFN w1 at 2048 rows", 2048, 2432, 9728),
     ("quant_matmul_dyn_pre_q", "int8 head at 64 rows", 64, 2432, 32000),
@@ -533,6 +543,9 @@ QMM_TIMED = [
     ("quant_matmul_dyn_pre_q", "1.5B MHA fused QKV at 64 rows", 64, 2432, 7296),
     ("quant_matmul", "1.5B FFN w1 at 2048 rows", 2048, 2432, 9728),
     ("quant_matmul", "1.5B FFN w1 at 64 rows", 64, 2432, 9728),
+    ("quant_matmul_dyn_fused", "1.5B FFN w1 at 2048 rows", 2048, 2432, 9728),
+    ("quant_matmul_dyn_fused", "int8 head at 64 rows", 64, 2432, 32000),
+    ("quant_matmul_dyn_fused", "int8 head at 4 rows", 4, 2432, 32000),
 ]
 # Shapes (M, K, N) that reach each row tile, the split and each TMA
 # variant: N = 44 and K = 597 or 4001 rows are not whole 16-byte units.
@@ -618,7 +631,8 @@ def qmm_phase(card, check=True, alternatives=False):
     version at QMM_SHAPES (#7 bit-equal in bf16 and f32 out, #6 within one
     bf16 ulp), a second run bit for bit at 2048 x 2432 x 9728, at N = 44
     and at a K split over a cluster, and the resources of every tile plan;
-    then the times at QMM_TIMED beside their bounds and the library call;
+    then the times at QMM_TIMED (#8's too) beside their bounds and the
+    library call;
     with ``alternatives``, the device times of other tile plans
     (qmm_alternatives). Returns {"times": ..., "resources": ..., "plans":
     ...}."""
@@ -669,12 +683,14 @@ def qmm_phase(card, check=True, alternatives=False):
                         f"threads a block, {res['blocks_per_sm']} block(s) an SM, "
                         f"{res['spill_bytes']} bytes spilled")
     times = {}
+    timed = dict(kernels, quant_matmul_dyn_fused=(qm.quant_matmul_dyn_fused,
+                                                  qm.quant_matmul_dyn_fused_reference))
     for kind, label, m, k, n in QMM_TIMED:
-        kernel, plain = kernels[kind]
+        kernel, plain = timed[kind]
         args = qmm_operands(kind, m, k, n, gen, dev)
         out_bytes = m * n * 2
         b_ms, by = bound(nbytes(*(a for a in args if torch.is_tensor(a))) + out_bytes,
-                         2 * m * n * k, "int8" if kind == "quant_matmul_dyn_pre_q" else "bf16")
+                         2 * m * n * k, "bf16" if kind == "quant_matmul" else "int8")
         k_ms = cuda_ms(lambda: kernel(*args))
         d_ms = device_ms(lambda: kernel(*args))
         p_ms = cuda_ms(lambda: plain(*args))
@@ -694,7 +710,7 @@ def qmm_phase(card, check=True, alternatives=False):
                 lib = cuda_ms(lambda: torch._int_mm(x_q, w_q))
                 w_cols = w_q.t().contiguous().t()
                 lib_cols = cuda_ms(lambda: torch._int_mm(x_q, w_cols))
-        else:
+        elif kind == "quant_matmul":
             x_, w_deq = args[0], (args[1].to(torch.bfloat16) * args[2].to(torch.bfloat16))
             lib = cuda_ms(lambda: x_ @ w_deq)
         times[f"{kind} {label}"] = {"ms": k_ms, "device_ms": d_ms, "host_ms": host_ms,
@@ -772,7 +788,8 @@ def decode_times(card, qmodel, config, model=None):
     on the int8 model's own weights: cold over its 20 layers (105 MB of
     mixer and 946 MB of FFN int8 weights) and over COLD_INT4_LAYERS int4
     packs, each more than the 50 MB L2; with the bf16 model `model`, the
-    bf16 decode FFN (#4) over its 20 layers (1.9 GB) too. It needs nothing
+    bf16 decode FFN (#4) and the bf16 step (#3, dense epilogue) over its 20
+    layers (1.9 GB and 212 MB) too. It needs nothing
     of the checkout but the wrappers' Python interface, so an earlier commit
     can run it with this script copied in. Returns {label: {ms, device_ms,
     graph_ms, cold_ms, cold_device_ms, cold_graph_ms, layers}}."""
@@ -816,15 +833,24 @@ def decode_times(card, qmodel, config, model=None):
             calls["ffn_decode"] = [
                 lambda f=lay.ffn: ffn_decode(x16, f.w1.w, f.w1.b, f.w2.w, f.w2.b, act)
                 for lay in model.layers]
+            bf16_mixers = [(lay.attn.mixer_weights(), lay.ffn.pre_norm.weights())
+                           for lay in model.layers]
+            calls["ssm_decode_step"] = [
+                lambda m=m, fn=fn: ssm_decode_step(h, conv, ssm, m, eps, fn)
+                for m, fn in bf16_mixers]
         for name, fns in calls.items():
             label = f"{name} at {rows} rows"
             result[label] = rotation_times(card, label, fns)
         # Where #3's device time goes: each launch of the step, by kernel.
-        per = device_ms(calls["ssm_decode_step_int8"][0], by_kernel=True) or {}
-        result[f"ssm_decode_step_int8 at {rows} rows"]["by_kernel_ms"] = per
-        log(f"  ssm_decode_step_int8 at {rows} rows by kernel (device ms): "
-            + ", ".join(f"{n[:60]} {t:.4f}" for n, t in sorted(per.items(), key=lambda x: -x[1]))
-            + f"; card: {card}")
+        for name in ("ssm_decode_step_int8", "ssm_decode_step"):
+            if name not in calls:
+                continue
+            per = device_ms(calls[name][0], by_kernel=True) or {}
+            result[f"{name} at {rows} rows"]["by_kernel_ms"] = per
+            log(f"  {name} at {rows} rows by kernel (device ms): "
+                + ", ".join(f"{n[:60]} {t:.4f}"
+                            for n, t in sorted(per.items(), key=lambda x: -x[1]))
+                + f"; card: {card}")
     result.update(xparam_load_times(card, config))
     return result
 
@@ -866,27 +892,33 @@ def xparam_load_times(card, config, rows=64):
     return {f"x_param product at {rows} rows": result}
 
 
-def moe_step_times(card, moe_qmodel, moe_config):
+def moe_step_times(card, moe_qmodel, moe_config, moe_model=None):
     """rotation_times of the int8 decode step with the moe epilogue (#3) at
-    64 and 4 rows over the int8 MoE model's 44 layers (D 704, C 176). Like
-    decode_times, an earlier commit can run it with this script copied in."""
+    64 and 4 rows over the int8 MoE model's 44 layers (D 704, C 176), and
+    with the bf16 MoE model `moe_model` the bf16 step's over its 44 layers.
+    Like decode_times, an earlier commit can run it with this script copied
+    in."""
     from apertis_llm_torch.ops.kernels.ssm_step import ssm_decode_step
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     d, c, eps = moe_config.hidden_size, moe_config.ssm_d_inner, moe_config.layer_norm_eps
-    steps = [(lay.attn.mixer_weights(), lay.ffn.pre_norm.weights(), lay.ffn.router_weights())
-             for lay in moe_qmodel.layers]
+    models = [("ssm_decode_step_int8_moe", moe_qmodel)]
+    if moe_model is not None:
+        models.append(("ssm_decode_step_moe", moe_model))
     result = {}
     for rows in (64, 4):
         h = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
         conv = torch.randn((rows, moe_config.ssm_conv_kernel - 1, c), generator=gen,
                            device=dev).to(torch.bfloat16)
         ssm = torch.randn((rows, c), generator=gen, device=dev)
-        fns = [lambda m=m, fn=fn, r=r: ssm_decode_step(h, conv, ssm, m, eps, fn, None, r)
-               for m, fn, r in steps]
-        label = f"ssm_decode_step_int8_moe at {rows} rows"
-        result[label] = rotation_times(card, label, fns)
+        for name, m_ in models:
+            steps = [(lay.attn.mixer_weights(), lay.ffn.pre_norm.weights(),
+                      lay.ffn.router_weights()) for lay in m_.layers]
+            fns = [lambda m=m, fn=fn, r=r: ssm_decode_step(h, conv, ssm, m, eps, fn, None, r)
+                   for m, fn, r in steps]
+            label = f"{name} at {rows} rows"
+            result[label] = rotation_times(card, label, fns)
     return result
 
 
@@ -1068,11 +1100,12 @@ def main() -> int:
         selective_scan_carry_bwd, selective_scan_carry_bwd_reference, selective_scan_carry_fwd,
         selective_scan_carry_fwd_reference, selective_scan_fwd, selective_scan_fwd_reference)
     from apertis_llm_torch.ops.kernels.quant_matmul import (
-        quant_matmul, quant_matmul_dyn_fused, quant_matmul_dyn_fused_reference,
-        quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference, quant_matmul_reference)
+        fused_plan_on, quant_matmul, quant_matmul_dyn_fused, quant_matmul_dyn_fused_reference,
+        quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference, quant_matmul_fused_resources,
+        quant_matmul_reference)
     from apertis_llm_torch.ops.kernels.ssm_step import (
-        ssm_decode_step, ssm_decode_step_int8, ssm_decode_step_reference,
-        ssm_step_int8_resources, step_int8_plan)
+        ssm_decode_step, ssm_decode_step_int8, ssm_decode_step_reference, ssm_step_resources,
+        step_plan)
     from apertis_llm_torch.ops.activations import get_activation
     from apertis_llm_torch.ops.norms import layer_norm, rms_norm
     from apertis_llm_torch.ops.quant import int_mm, quantize_rows
@@ -1286,16 +1319,20 @@ def main() -> int:
         "FFN pre-norm weight": args[:5] + ((torch.ones_like(ffn_norm[0]), ffn_norm[1]),),
         "FFN pre-norm bias": args[:5] + ((ffn_norm[0], torch.zeros_like(ffn_norm[1])),),
     }, step_tols)
-    for b, w, fn, label in [(4, mixer, ffn_norm, "LayerNorm, dense"),
-                            (64, mixer, ffn_norm, "LayerNorm, dense"),
-                            (5, mixer, ffn_norm, "LayerNorm, dense"),
-                            (5, mixer, None, "LayerNorm, ffn_mode none"),
-                            (5, mixer_rms, ffn_norm_rms, "RMSNorm, dense"),
-                            (5, mixer_rms, None, "RMSNorm, ffn_mode none")]:
-        args = step_inputs(b, w, fn)
-        check_kernel("ssm_decode_step", f"decode step B={b} {label}", args,
-                     ssm_decode_step, ssm_decode_step_reference, step_tols,
-                     cost=step_cost(args) if b == 64 else None)
+    # The bf16 layout (csrc/ssm_step.cu's row kernels and bf16 wgmma
+    # products): ffn_mode none and dense with both norms at 4, 5, 64 and 256
+    # rows (moe in phase 3b), twice at 64 rows for the same bits.
+    for b in (4, 5, 64, 256):
+        for w, fn, label in [(mixer, ffn_norm, "LayerNorm, dense"),
+                             (mixer, None, "LayerNorm, ffn_mode none"),
+                             (mixer_rms, ffn_norm_rms, "RMSNorm, dense"),
+                             (mixer_rms, None, "RMSNorm, ffn_mode none")]:
+            args = step_inputs(b, w, fn)
+            timed = b == 64 and label == "LayerNorm, dense"
+            check_kernel("ssm_decode_step", f"decode step B={b} {label}", args,
+                         ssm_decode_step, ssm_decode_step_reference,
+                         step_tols if fn is not None else step_tols[:3],
+                         cost=step_cost(args) if timed else None, repeat=b == 64)
 
     args = step_inputs(5, qmixer)
 
@@ -1429,10 +1466,10 @@ def main() -> int:
     for rows in (4, 64):
         h_ = randn(rows, d)
         x_q, _ = quantize_rows(h_)
-        step_plan = step_int8_plan(h_, qmixer)
-        for kind, plan in zip(("in", "mix", "out"), step_plan):
-            decode_resources[f"ssm_decode_step_int8 {kind} at {rows} rows"] = dict(
-                plan._asdict(), **ssm_step_int8_resources(kind, plan))
+        for name, w in (("ssm_decode_step_int8", qmixer), ("ssm_decode_step", mixer)):
+            for kind, plan in zip(("in", "mix", "out"), step_plan(h_, w)):
+                decode_resources[f"{name} {kind} at {rows} rows"] = dict(
+                    plan._asdict(), **ssm_step_resources(kind, plan, w.quantized))
         for bits in (8, 4):
             ffn_plan_ = ffn_quant_plan(x_q, d, inter, bits)
             for kind, plan in zip(("up", "down"), ffn_plan_):
@@ -1539,10 +1576,11 @@ def main() -> int:
             "router bias": args[:7] + (m_router._replace(b=torch.zeros_like(m_router.b)),),
             "inverse deviation inv2": lambda a=args: step_without_inv2(a),
         }, moe_tols)
-    moe_cases = [(4, m_mixer, m_fnorm3, "LayerNorm"), (64, m_mixer, m_fnorm3, "LayerNorm"),
-                 (5, m_mixer, (m_fnorm3[0], None), "RMSNorm")]
-    moe_cases += [(b, m_qmixer, fn, label) for b in (4, 5, 64, 256)
-                  for fn, label in ((m_fnorm3, "LayerNorm"), ((m_fnorm3[0], None), "RMSNorm"))]
+    # Both layouts at 4, 5, 64 and 256 rows (x_param's bf16 rows of 792
+    # bytes are staged by the producer's own loads), int8 twice at every
+    # count and bf16 twice at 64 rows for the same bits.
+    moe_cases = [(b, w, fn, label) for w in (m_mixer, m_qmixer) for b in (4, 5, 64, 256)
+                 for fn, label in ((m_fnorm3, "LayerNorm"), ((m_fnorm3[0], None), "RMSNorm"))]
     for b, w, fn, label in moe_cases:
         key = "ssm_decode_step_int8_moe" if w.quantized else "ssm_decode_step_moe"
         args = moe_step_inputs(b, w._replace(norm_b=None) if fn[1] is None else w, fn)
@@ -1550,9 +1588,16 @@ def main() -> int:
                      f"moe epilogue (D={md}, C={mc}, R={moe_config.ssm_dt_rank})", args,
                      ssm_decode_step, ssm_decode_step_reference, moe_tols,
                      cost=step_cost(args) if (b, label) == (64, "LayerNorm") else None,
-                     repeat=w.quantized)
-    log("int8 decode step with the moe epilogue (#3), warm and cold weights:")
-    decode.update(moe_step_times(card, moe_qmodel, moe_config))
+                     repeat=w.quantized or b == 64)
+    for rows in (4, 64):
+        h_ = randn(rows, md)
+        for name, w in (("ssm_decode_step_int8_moe", m_qmixer), ("ssm_decode_step_moe", m_mixer)):
+            for kind, plan in zip(("in", "mix", "out"), step_plan(h_, w)):
+                decode_resources[f"{name} {kind} at {rows} rows (MoE widths)"] = dict(
+                    plan._asdict(), **ssm_step_resources(kind, plan, w.quantized))
+    log_resources([k for k in decode_resources if k.endswith("(MoE widths)")])
+    log("int8 and bf16 decode step with the moe epilogue (#3), warm and cold weights:")
+    decode.update(moe_step_times(card, moe_qmodel, moe_config, moe_model))
     log("the fat MoE FFN (#10, int8) over the 44 layers' fat stacks, warm and cold:")
     decode.update(fat_times(card, moe_qmodel, moe_config))
     fat_plan_resources(8, md, m_inter)
@@ -1992,7 +2037,9 @@ def main() -> int:
     # "fused") at the 1.5B FFN's w1 at 64 decode and 2048 prefill rows, the
     # int8 head at 4 rows (N = 32000), x_param_proj at 300 rows (K = 608: the
     # second 512-wide block of #8 is partial), N = 44 at 17 rows and K = 597
-    # (rows not a whole number of 16-byte loads), in bf16 and f32;
+    # (rows not a whole number of 16-byte loads), in bf16 and f32; #8 also
+    # at 16 and 128 rows and on w2 (K = 9728) at 4, 17 and 64 rows, where its
+    # plan splits K over a cluster on whole 512-wide blocks;
     # expert_ffn_dense (#11, moe_mode="kernel") at the 1.5B MoE
     # widths with the int8 and the bf16 model's per-expert stacks.
     qmm_f32_tol = [("out", QMM_F32_TOL)]
@@ -2048,7 +2095,39 @@ def main() -> int:
                     f"(the product alone) {library['quant_matmul']:.4f} ms; card: {card}")
             check_kernel("quant_matmul_dyn_fused", f"quant_matmul_dyn_fused {label} {shape}",
                          args, quant_matmul_dyn_fused, quant_matmul_dyn_fused_reference,
-                         qmm_tols, cost=mode_cost(args, "int8") if timed else None)
+                         qmm_tols, cost=mode_cost(args, "int8") if timed else None,
+                         repeat=timed and rows == 2048)
+
+    fused_cases = [
+        (16, (q1.w_q, q1.w_s, q1.b), "1.5B FFN w1 at 16 rows"),
+        (128, (qmix.x_param_proj.w_q, qmix.x_param_proj.w_s, None),
+         "1.5B x_param_proj at 128 rows"),
+        (128, (w44_q, w44_s, b44), "N = 44 at 128 rows"),
+        (4, (q2.w_q, q2.w_s, q2.b), "1.5B FFN w2 at 4 rows"),
+        (17, (q2.w_q, q2.w_s, q2.b), "1.5B FFN w2 at 17 rows"),
+        (64, (q2.w_q, q2.w_s, q2.b), "1.5B FFN w2 at 64 rows"),
+    ]
+    for rows, weights, label in fused_cases:
+        for dtype in (bf16, f32):
+            args = mode_inputs(rows, weights, dtype)
+            fp = fused_plan_on(args[0], args[1])
+            check_kernel("quant_matmul_dyn_fused",
+                         f"quant_matmul_dyn_fused {label} (K={args[1].shape[0]}, "
+                         f"N={args[1].shape[1]}), {str(dtype)[6:]}, plan rows {fp.rows} split "
+                         f"{fp.split} group {fp.group}", args, quant_matmul_dyn_fused,
+                         quant_matmul_dyn_fused_reference, qmm_tols,
+                         repeat=rows == 64 and dtype == bf16)
+    fused_plans = {}
+    for rows, (w_q, _, _), _ in mode_cases + fused_cases:
+        fp = fused_plan_on(torch.empty((rows, w_q.shape[0]), device=dev), w_q)
+        fused_plans[f"rows {fp.rows} split {fp.split}"] = fp
+    for key, fp in fused_plans.items():
+        for launch, res in quant_matmul_fused_resources(fp).items():
+            log(f"  resources of quant_matmul_dyn_fused {launch} at plan {key} (group "
+                f"{fp.group}, stages {fp.stages}): {res['registers']} registers a thread, "
+                f"{res['shared_bytes']} bytes of shared memory and {res['threads']} threads a "
+                f"block, {res['blocks_per_sm']} block(s) an SM, {res['spill_bytes']} bytes "
+                "spilled")
 
     # #7 and #6 (bf16 x) alone: every tile plan against the plain versions,
     # a second run bit for bit, the resources of each plan, and the times at
@@ -3400,7 +3479,8 @@ def flash_f32_times_main() -> int:
 
 def decode_times_main() -> int:
     """``--decode-times``: decode_times on the 1.5B int8 and bf16 models,
-    moe_step_times and fat_times on the 1.5B int8 MoE model, and fat_times
+    moe_step_times on the 1.5B int8 and bf16 MoE models, fat_times on the
+    1.5B int8 MoE model, and fat_times
     on COLD_INT4_LAYERS layers of the 3B MoE model with int4 fat stacks
     alone (each built as the full run builds it), which a checkout of an
     earlier commit can run with this script copied into it, for a
@@ -3437,11 +3517,13 @@ def decode_times_main() -> int:
     tree = init_params(moe_config, torch.Generator(device=dev).manual_seed(SEED), device=dev,
                        dtype=torch.bfloat16)
     perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 4))
+    moe_model = from_jax_params(tree, moe_config, device=dev, dtype=torch.bfloat16)
     qtree = quantize_params(tree)
     del tree
     moe_qmodel = from_jax_params(qtree, moe_config, device=dev, dtype=torch.bfloat16)
     del qtree
-    result.update(moe_step_times(card, moe_qmodel, moe_config))
+    result.update(moe_step_times(card, moe_qmodel, moe_config, moe_model))
+    del moe_model
     moe_qmodel.attach_moe_fat()
     result.update(fat_times(card, moe_qmodel, moe_config))
     del moe_qmodel

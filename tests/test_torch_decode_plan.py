@@ -33,8 +33,8 @@ from apertis_llm_torch.ops.kernels import _build
 from apertis_llm_torch.ops.kernels.decode_plan import (
     BW_BYTES, BW_CHUNK, CHUNK, MAX_FAT_SPLIT, MAX_GROUP, MAX_SPLIT, MAX_UP_CLUSTER, MIN_STAGES,
     ROW_TILES, SMEM_LIMIT, TILE_COLS, W4_BYTES, W8_BYTES, FatPlan, FfnPlan, GemmPlan, StepPlan,
-    bf16_ffn_plan, down_extra, fat_plan, fat_wide, ffn_plan, smem_bytes, ssm_step_plan,
-    xset_bytes)
+    bf16_ffn_plan, bf16_step_plan, down_extra, fat_plan, fat_wide, ffn_plan, smem_bytes,
+    ssm_step_plan, xset_bytes)
 from apertis_llm_torch.ops.kernels.ffn_fused import (
     ffn_decode_int8_reference, ffn_decode_reference, pick_block_n)
 from apertis_llm_torch.ops.kernels.moe_ffn import expert_ffn_fat_reference, fat_block_n
@@ -71,6 +71,68 @@ def cdiv(a, b):
 ])
 def test_step_plan_at_the_smoke_shapes(batch, dims, plan):
     assert ssm_step_plan(batch, *dims, H100_SMS) == plan
+
+
+@pytest.mark.parametrize("batch,dims,plan", [
+    # the bf16 layout at the 1.5B widths (D 2432, C 608, R 152): in_proj x
+    # and z are 10 column tiles of 38 chunks of 64, x_param 11 of 10 chunks,
+    # out_proj 19 of 10; each splits K in four
+    (64, (2432, 608, 152), StepPlan(GemmPlan(64, 4, 8, 230528, (40, 1)),
+                                    GemmPlan(64, 4, 3, 107568, (44, 1)),
+                                    GemmPlan(64, 4, 3, 107568, (76, 1)))),
+    (4, (2432, 608, 152), StepPlan(GemmPlan(16, 4, 8, 156800, (40, 1)),
+                                   GemmPlan(16, 4, 3, 64560, (44, 1)),
+                                   GemmPlan(16, 4, 3, 64560, (76, 1)))),
+    (5, (2432, 608, 152), StepPlan(GemmPlan(16, 4, 8, 156800, (40, 1)),
+                                   GemmPlan(16, 4, 3, 64560, (44, 1)),
+                                   GemmPlan(16, 4, 3, 64560, (76, 1)))),
+    (256, (2432, 608, 152), StepPlan(GemmPlan(64, 3, 8, 230544, (30, 4)),
+                                     GemmPlan(64, 3, 4, 132176, (33, 4)),
+                                     GemmPlan(64, 1, 8, 197760, (19, 4)))),
+    # the MoE widths (D 704, C 176, R 44): x_param's and out_proj's three
+    # chunks of 64 split in three, one a block
+    (64, (704, 176, 44), StepPlan(GemmPlan(64, 4, 3, 107568, (16, 1)),
+                                  GemmPlan(64, 3, 1, 58400, (12, 1)),
+                                  GemmPlan(64, 3, 1, 58400, (18, 1)))),
+    (4, (704, 176, 44), StepPlan(GemmPlan(16, 4, 3, 64560, (16, 1)),
+                                 GemmPlan(16, 3, 1, 27680, (12, 1)),
+                                 GemmPlan(16, 3, 1, 27680, (18, 1)))),
+    (5, (704, 176, 44), StepPlan(GemmPlan(16, 4, 3, 64560, (16, 1)),
+                                 GemmPlan(16, 3, 1, 27680, (12, 1)),
+                                 GemmPlan(16, 3, 1, 27680, (18, 1)))),
+    (256, (704, 176, 44), StepPlan(GemmPlan(64, 4, 3, 107568, (16, 4)),
+                                   GemmPlan(64, 3, 1, 58400, (12, 4)),
+                                   GemmPlan(64, 3, 1, 58400, (18, 4)))),
+])
+def test_bf16_step_plan_at_the_smoke_shapes(batch, dims, plan):
+    assert bf16_step_plan(batch, *dims, H100_SMS) == plan
+
+
+def test_bf16_step_plan_rules_at_every_shape():
+    """Rows 1-256 at many widths: each product streams 64-row chunks of its
+    bf16 weight (BW_CHUNK, BW_BYTES) beside its rows; in_proj has two column
+    tiles a 128 channels (x and z); K splits over the largest split up to
+    MAX_SPLIT and its chunks whose blocks fit on the SMs; stages 1 to 8 and
+    no more than a block's chunks; shared memory the ring plus the sliced
+    exchange's slots (no owner slots), within the limit."""
+    for batch in (1, 4, 5, 16, 17, 37, 64, 65, 200, 256):
+        for d, c, r in ((2432, 608, 152), (704, 176, 44), (768, 192, 48), (192, 64, 12),
+                        (1216, 304, 76)):
+            plan = bf16_step_plan(batch, d, c, r, H100_SMS)
+            rows = 16 if batch <= 16 else 64
+            row_tiles = cdiv(batch, rows)
+            stage = rows * 128 + BW_BYTES
+            for gemm, k, col_tiles in ((plan.inp, d, 2 * cdiv(c, TILE_COLS)),
+                                       (plan.mix, c, cdiv(r + 2 * c, TILE_COLS)),
+                                       (plan.out, c, cdiv(d, TILE_COLS))):
+                chunks = cdiv(k, BW_CHUNK)
+                assert gemm.rows == rows
+                assert gemm.split == max(1, min(MAX_SPLIT, chunks,
+                                                H100_SMS // (col_tiles * row_tiles)))
+                assert 1 <= gemm.stages <= min(8, cdiv(chunks, gemm.split))
+                assert gemm.smem == smem_bytes(rows, gemm.stages, stage, 1,
+                                               xset_bytes(rows, gemm.split)) <= SMEM_LIMIT
+                assert gemm.grid == (col_tiles * gemm.split, row_tiles)
 
 
 @pytest.mark.parametrize("rows,inter,bits,plan", [
@@ -534,11 +596,11 @@ def test_fat_plan_rules_at_every_shape():
 def test_the_fat_emulation_follows_the_kernels_source():
     """The emulations below walk the tiles, rounds and adds as the sources
     state them."""
-    ffn, moe = _source("quant_ffn.cuh"), _source("moe_ffn.cu")
+    ffn, moe, core = _source("quant_ffn.cuh"), _source("moe_ffn.cu"), _source("decode_gemm.cuh")
     assert "const int t0 = (rho * split + rank) * group;" in ffn
-    assert "for (int q = 0, t = t0; q < split && t < tiles; ++q) {" in ffn
-    assert "for (int g = 0; g < group && t < tiles; ++g, ++t) {" in ffn
-    assert "if (live != nullptr && live[t / tile_experts] == 0) continue;" in ffn
+    assert "for (int q = 0, t = t0; q < split && t < tiles; ++q) {" in core
+    assert "for (int g = 0; g < group && t < tiles; ++g, ++t) {" in core
+    assert "if (live != nullptr && live[t / tile_experts] == 0) continue;" in core
     assert "const int wgap = per * kDgKC - a.bn;" in ffn
     assert "const int kw = k0 - tile * ch.wgap;" in _source("decode_gemm.cuh")
     assert "bnp = (bn + kDgKC - 1) / kDgKC * kDgKC" in moe
@@ -689,7 +751,7 @@ def test_bf16_ffn_split_is_the_reference_bit_for_bit(rows, d, inter):
 
 @pytest.mark.parametrize("rows,split", [(r, s) for r in (16, 64) for s in range(2, 17)])
 def test_pair_exchange_places_fit_the_plan(rows, split):
-    """quant_ffn.cuh's exchange as its code computes it: the four sums of
+    """decode_gemm.cuh's sliced exchange as its code computes it: the four sums of
     consumer thread t's column block j (pair p = 256 j + t of P = 256 rows /
     8) go to owner p * split / P, at place p - ceil(owner * P / split) of
     its run; every (pushing rank, pair) has its own 16-byte place inside
@@ -710,7 +772,7 @@ def test_pair_exchange_places_fit_the_plan(rows, split):
             places.add((owner, at))
     assert len(places) == pairs * split
     assert max(runs.values()) - min(runs.values()) <= 1
-    src = _source("quant_ffn.cuh")
+    src = _source("decode_gemm.cuh")
     assert "const int owner = p * split / pairs;" in src
     assert "local = p - (owner * pairs + split - 1) / split;" in src
     assert "reinterpret_cast<float4*>(set) + rank * run + local, owner)" in src

@@ -24,8 +24,9 @@ from apertis_llm_torch.config import ApertisConfig
 from apertis_llm_torch.inference.engine import InferenceEngine
 from apertis_llm_torch.models.convert import from_jax_params
 from apertis_llm_torch.models.params import init_params
-from apertis_llm_torch.models.quantize import quantize_params
+from apertis_llm_torch.models.quantize import quantize_params, quantize_weight
 from apertis_llm_torch.ops import moe as torch_moe
+from apertis_llm_torch.ops.kernels import decode_plan
 from apertis_llm_torch.ops.kernels import quant_matmul as qm
 from apertis_llm_torch.ops.kernels.quant_matmul import (
     quant_matmul_dyn, quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference)
@@ -162,3 +163,168 @@ def test_moe_ragged_groups_go_through_the_w8a8_product(monkeypatch):
                                cfg.layer_norm_eps)
     assert out.shape == (30, 128) and torch.isfinite(out).all()
     assert len(calls) == 2 * len(set(routing.indices.reshape(-1).tolist()))
+
+
+# ---- #8 on the card's design: its plan, quantization pass and ordered sums ----
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("m,k,n,plan", [
+    # 2048 prefill rows: 16 x 76 tiles of 128 rows, qm_kernel's block-scaled mode
+    (2048, 2432, 9728, qm.FusedPlan(128, 1, 1, 0, True)),
+    (16, 2432, 9728, qm.FusedPlan(16, 1, 1, 0, True)),
+    # the int8 head: 250 column tiles, no split
+    (64, 2432, 32000, qm.FusedPlan(64, 1, 1, 0, True)),
+    (4, 2432, 32000, qm.FusedPlan(16, 1, 1, 0, True)),
+    # w2 at decode rows: 19 column tiles, K's 19 blocks of 512 over four
+    # blocks of a cluster, in rounds of 3 (64 rows) or 5 (16 rows) blocks
+    (64, 9728, 2432, qm.FusedPlan(64, 4, 3, 5, True)),
+    (17, 9728, 2432, qm.FusedPlan(64, 4, 3, 5, True)),
+    (4, 9728, 2432, qm.FusedPlan(16, 4, 5, 8, True)),
+    # x_param_proj (N = 1368) and N = 44: no TMA for the weight, no split
+    (300, 608, 1368, qm.FusedPlan(128, 1, 1, 0, False)),
+    (128, 608, 44, qm.FusedPlan(128, 1, 1, 0, False)),
+    (17, 597, 44, qm.FusedPlan(64, 1, 1, 0, False)),
+])
+def test_fused_plan_at_the_smoke_shapes(m, k, n, plan):
+    assert qm.fused_plan(m, n, k, H100_SMS) == plan
+
+
+def test_fused_plan_rules_at_every_shape():
+    """Row tiles whose int32 and f32 accumulators fit (16, 64, 128: never
+    #7's 256); a split only where tile_plan would split #7, on at most
+    as many blocks as K has 512-wide blocks, and only with a TMA weight;
+    then GEMM2's largest group of blocks (up to its share) whose exchange
+    slots leave MIN_STAGES stages, and as many stages as fit."""
+    for m in (1, 4, 5, 16, 17, 37, 64, 65, 128, 129, 300, 2048):
+        for n in (44, 64, 1368, 2432, 9728, 32000):
+            for k in (96, 597, 608, 2432, 4001, 9728):
+                plan = qm.fused_plan(m, n, k, H100_SMS)
+                assert plan.rows == next((r for r in qm.FUSED_ROW_TILES if m <= r), 128)
+                blocks = -(-k // qm.QUANT_BLOCK_K)
+                tiles = -(-m // plan.rows) * -(-n // qm.TILE_COLS)
+                tma_w = n % 16 == 0
+                assert plan.tma_w == tma_w
+                seven = qm.tile_plan(m, n, k, 1, H100_SMS)
+                want = min(seven.split, blocks) if tma_w and plan.rows <= qm.SPLIT_ROWS else 1
+                assert plan.split == max(1, want)
+                if plan.split == 1:
+                    assert (plan.group, plan.stages) == (1, 0)
+                    continue
+                assert plan.rows <= qm.SPLIT_ROWS and 2 * tiles <= H100_SMS
+                stage = plan.rows * 128 + decode_plan.W8_BYTES
+
+                def smem(group, stages):
+                    extra = decode_plan.down_extra(plan.rows, plan.split, group, 0)
+                    return decode_plan.smem_bytes(plan.rows, stages, stage, 1, extra)
+                top = min(decode_plan.MAX_GROUP, -(-blocks // plan.split))
+                assert 1 <= plan.group <= top
+                assert plan.group == top or smem(plan.group + 1, decode_plan.MIN_STAGES) > \
+                    decode_plan.SMEM_LIMIT
+                assert 1 <= plan.stages <= decode_plan.MAX_STAGES
+                assert smem(plan.group, plan.stages) <= decode_plan.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("m,k", [(5, 96), (37, 597), (16, 608), (3, 1100), (8, 2432)])
+def test_quantization_pass_layout_and_scales(m, k):
+    """quantize_blocks, the plain version of #8's quantization pass: rows of
+    stride Kp (K rounded up to whole 128-byte chunks) with zeros past K,
+    one f32 scale per row and 512-wide block, and the levels and scales
+    that the plain version of #8 computes block by block."""
+    x = torch.from_numpy(np.random.default_rng(m * k).normal(size=(m, k)).astype(np.float32))
+    x[0, :] = 0.0                                   # an all-zero row: s = 1e-8 / 127
+    x_q, s = qm.quantize_blocks(x.to(torch.bfloat16))
+    kp = -(-k // 128) * 128
+    assert x_q.shape == (m, kp) and x_q.dtype == torch.int8
+    assert s.shape == (m, -(-k // 512)) and s.dtype == torch.float32
+    assert not x_q[:, k:].any()
+    xf = x.to(torch.bfloat16).float()
+    for j0 in range(0, k, 512):
+        xb = xf[:, j0:j0 + 512]
+        sj = torch.clamp(xb.abs().amax(dim=1, keepdim=True), min=1e-8) * (1.0 / 127.0)
+        assert torch.equal(s[:, j0 // 512:j0 // 512 + 1], sj)
+        q = torch.clamp(torch.round(xb / sj), -127, 127).to(torch.int8)
+        assert torch.equal(x_q[:, j0:j0 + xb.shape[1]], q)
+    assert float(s[0, 0]) == np.float32(np.float32(1e-8) * np.float32(1.0 / 127.0))
+
+
+def _fused_sums(x, w_q, split, group, order=lambda q: q, local_partials=False):
+    """#8 on the card in numpy float32: the quantization pass
+    (quantize_blocks), each 512-wide block's exact int32 sum over its
+    chunks (the weight's rows past K are zeros, as TMA and the producer's
+    loads give them), p_j = float32(acc_j) * s_j; at split 1 qm_kernel's
+    fold acc_f = acc_f + p_j in j order; at a split ffn_down_kernel's
+    rounds: block r holds in round rho the ``group`` blocks of unit rho *
+    split + r, and the owner adds the round's p in rank order (``order``
+    may permute it), then group order. ``local_partials``: each rank adds
+    its own blocks first and the owner adds the ranks' partial sums (an
+    order that the kernel does not take)."""
+    x_q, s = qm.quantize_blocks(x)
+    m, kp = x_q.shape
+    k, n = w_q.shape
+    w = np.zeros((kp, n), dtype=np.int64)
+    w[:k] = w_q.numpy()
+    xq, sn = x_q.numpy().astype(np.int64), s.numpy()
+    blocks = sn.shape[1]
+    p = [(xq[:, 512 * j:512 * j + 512] @ w[512 * j:512 * j + 512]).astype(np.float32)
+         * sn[:, j:j + 1] for j in range(blocks)]
+    total = np.zeros((m, n), dtype=np.float32)
+    units = -(-blocks // group)
+    for rho in range(-(-units // split)):
+        held = {}
+        for rank in range(split):
+            for g in range(group):
+                t = (rho * split + rank) * group + g
+                if t < blocks:
+                    held[(rank, g)] = p[t]
+        for q in range(split):
+            mine = [held[(order(q), g)] for g in range(group) if (order(q), g) in held]
+            if local_partials and mine:
+                part = mine[0]
+                for v in mine[1:]:
+                    part = part + v
+                mine = [part]
+            for v in mine:
+                total = total + v
+    return total
+
+
+def _fused_out(total, w_s, b, dtype):
+    y = torch.from_numpy(total * w_s.reshape(1, -1).numpy()).to(dtype)
+    return y + b if b is not None else y
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [608, 2432, 9728])
+def test_fused_fold_and_ordered_exchange_are_the_reference_bit_for_bit(split, k):
+    """qm_kernel's block-scaled fold and ffn_down_kernel's tile-ordered
+    exchange over a cluster of 1 to 4 blocks, in rounds of the groups the
+    plan would take, give quant_matmul_dyn_fused_reference's bits in bf16
+    and f32."""
+    rng = np.random.default_rng(split * 10 + k)
+    m, n = 37, 64
+    w = (0.05 * rng.normal(size=(k, n))).astype(np.float32)
+    w_q, w_s = quantize_weight(torch.from_numpy(w))
+    blocks = -(-k // 512)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dtype)
+        b = torch.from_numpy((0.1 * rng.normal(size=(n,))).astype(np.float32)).to(dtype)
+        for group in sorted({1, min(3, -(-blocks // split)), -(-blocks // split)}):
+            out = _fused_out(_fused_sums(x, w_q, split, group), w_s, b, dtype)
+            assert torch.equal(out, qm.quant_matmul_dyn_fused_reference(x, w_q, w_s, b))
+
+
+def test_another_order_of_the_fused_adds_moves_the_sums():
+    """The order can be seen: the owner adding a round's terms in reverse
+    rank order, or each rank adding its own blocks first, moves some of the
+    f32 sums, where the kernels' order gives the sequential sums."""
+    rng = np.random.default_rng(11)
+    m, k, n = 64, 9728, 64
+    w = (0.05 * rng.normal(size=(k, n))).astype(np.float32)
+    w_q, _ = quantize_weight(torch.from_numpy(w))
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(torch.bfloat16)
+    sequential = _fused_sums(x, w_q, 1, 1)
+    assert np.array_equal(_fused_sums(x, w_q, 4, 3), sequential)
+    assert not np.array_equal(_fused_sums(x, w_q, 4, 3, order=lambda q: 3 - q), sequential)
+    assert not np.array_equal(_fused_sums(x, w_q, 4, 3, local_partials=True), sequential)
