@@ -108,11 +108,14 @@ struct DgChunks {
 
 // One product's weight: int8 (K, N), int4 packed (K / 2, N) with its
 // (K / 128, N) shifts, or bf16 (K, N); loaded by TMA (w_map, sh_map) when
-// `tma`, else by the producer's own loads.
+// `tma`, else by the producer's own loads. `row0` (0 where it is left out)
+// is the product's first K row in a stack of weights that one TMA map
+// spans (#11's per-expert (E * H, I) stack); k and n are then the stack's.
 struct DgWeight {
   const int8_t* w;
   int k, n;
   int tma;
+  int row0;
 };
 
 // The streamed B operand: int8 or bf16 rows (rows, k) of row stride k, a
@@ -206,7 +209,7 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
     const int s = next;
     const int tile = ch.t0 + tq * ch.tstep;
     const int k0 = (tile * ch.per + tc) * Op::kKC;
-    const int kw = k0 - tile * ch.wgap;   // the weight's K row
+    const int kw = k0 - tile * ch.wgap + wt.row0;   // the weight's K row
     if (++next == r.stages) {
       next = 0;
       ++round;

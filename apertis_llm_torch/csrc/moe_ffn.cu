@@ -54,31 +54,6 @@
 
 namespace {
 
-// The wide form's requantization, one block per (tile, row): hs = max(
-// absmax, 1e-8) * (1/127) and hq[r, t * bnp + j] = rint(hidden[r, t * bn +
-// j] / hs) for j < bn, 0 up to bnp (bn and bnp multiples of 16 and 128).
-__global__ void __launch_bounds__(kBlock) fat_quant_kernel(
-    const float* __restrict__ hidden,   // (S, E*I)
-    const float* __restrict__ absmax,   // (S, tiles)
-    int8_t* __restrict__ hq,            // (S, tiles * bnp)
-    float* __restrict__ hs,             // (S, tiles)
-    int ei, int bn, int bnp) {
-  const int t = blockIdx.x, tiles = gridDim.x;
-  const size_t r = blockIdx.y;
-  const float s = requant_scale(absmax[r * tiles + t]);
-  if (threadIdx.x == 0) hs[r * tiles + t] = s;
-  const float* src = hidden + r * ei + (size_t)t * bn;
-  int8_t* dst = hq + (r * tiles + t) * bnp;
-  for (int j = 4 * threadIdx.x; j < bnp; j += 4 * kBlock) {
-    uint32_t w = 0;
-    if (j < bn) {
-      const float4 v = *reinterpret_cast<const float4*>(src + j);
-      w = requant_pack4(v.x, v.y, v.z, v.w, s);
-    }
-    *reinterpret_cast<uint32_t*>(dst + j) = w;
-  }
-}
-
 // The launches of the int8 (kI4 false) or int4 fat layout at a row tile of
 // BR rows; up_cluster (the blocks of a tile, 0 for the wide form), split,
 // group and the stages are the host's plan.

@@ -1,6 +1,5 @@
-// The int8 tensor-core block product of the per-expert and grouped MoE
-// kernels (moe_dense.cu, moe_grouped.cu) and the grouped layout's first
-// expert GEMM.
+// The int8 tensor-core block product of the grouped MoE kernel
+// (moe_grouped.cu, #12) and the grouped layout's first expert GEMM.
 //
 // block_gemm_i8 computes one 64 x 128 tile of an int8 x int8 -> int32
 // product with WMMA fragments (m16n16k16, signed char, exact int32

@@ -1,7 +1,9 @@
 // The int8 and int4 two-product FFN on decode_gemm.cuh's swapped-operand
 // products, shared by the decode FFN's int8 and int4 layouts (ffn_fused.cu,
 // #4) and the fat MoE expert FFN's (moe_ffn.cu, #10), whose arithmetic is
-// the FFN's with the routing weight folded into each hidden tile's scale:
+// the FFN's with the routing weight folded into each hidden tile's scale;
+// the per-expert MoE FFN (moe_dense.cu, #11) runs GEMM1's wide form and its
+// requantization over its per-expert stack, one grid slice an expert:
 //   h   = act(acc1_i32(x_q . W1_q) * x_s * w1_s + b1)                 (f32)
 //   per hidden tile t of bn columns:
 //     hs_t = max(max|h_t|, 1e-8) * (1/127);  hq_t = rint(h_t / hs_t)
@@ -23,7 +25,7 @@
 //      multiple of 128: the "wide" form, cs 0) writes the f32 hidden instead
 //      and each (row, tile) absmax by an atomicMax on the bits of the
 //      non-negative values (exact and order-free) into a zeroed (S, tiles);
-//      fat_quant_kernel (moe_ffn.cu) then writes hq and hs.
+//      fat_quant_kernel (below) then writes hq and hs.
 //   2. ffn_down_kernel: one block per 128 output columns, row tile and part
 //      r of a K split over a cluster of `split` blocks, which takes the
 //      hidden tiles t = r, r + split, ...: a fresh int32 accumulator per tile
@@ -55,7 +57,7 @@
 namespace {
 
 // The requantization step, one copy for every kernel that takes it: GEMM1's
-// hidden tiles (above), the wide form's (moe_ffn.cu::fat_quant_kernel) and
+// hidden tiles (above), the wide form's (fat_quant_kernel, below) and
 // #8's rows per 512-wide K block (quant_matmul.cu::fused_quant_kernel). The
 // scale of values whose largest magnitude is `absmax`, max(absmax, 1e-8) *
 // (1/127), a multiply; a value's level clip(rint(v / s)), a true division;
@@ -91,19 +93,25 @@ constexpr size_t ffn_up_extra(int br) {
   return (size_t)(kConsumers * 4 + 1 + kMaxUpCluster) * br * 4;
 }
 
-// GEMM1's arguments beside its tensor maps.
+// GEMM1's arguments beside its tensor maps. The per-expert MoE FFN (#11,
+// moe_dense.cu) runs GEMM1 over a grid of gridDim.z = E slices, slice e
+// being expert e's product: the weight's K rows e * K .. e * K + K - 1 of
+// the (E * K, N) stack, w1s, b1 and the hidden's columns and tiles from
+// e * N on (Z = gridDim.z * N of them, (E, 1, I) and (E, I) flattened);
+// every row is routed to every expert (comb null). The FFN and the fat MoE
+// FFN run one slice.
 struct UpArgs {
   const float* xs;     // (S, 1)
-  const float* w1s;    // (1, N)
-  const void* b1;      // (N,): bf16 (FFN) or f32 (MoE)
+  const float* w1s;    // (1, Z)
+  const void* b1;      // (Z,): bf16 (FFN) or f32 (MoE)
   int8_t* hq;          // (S, N), the cluster form
   float* hs;           // (S, N / bn), the cluster form
-  const float* comb;   // MoE: (S, E)
-  float* hidden;       // MoE, wide form: (S, N) f32
-  float* absmax;       // MoE, wide form: (S, N / bn), zeroed
+  const float* comb;   // fat MoE: (S, E); null for #11
+  float* hidden;       // MoE, wide form: (S, Z) f32
+  float* absmax;       // MoE, wide form: (S, Z / bn), zeroed
   int rows, k, n, bn, act, stages;
   int cs;              // blocks of a hidden tile, one cluster; 0: the wide form
-  int inter, experts;  // MoE: I (N = E * I) and E
+  int inter, experts;  // fat MoE: I (N = E * I) and E
 };
 
 template <bool kI4, int BR, bool kMoe>
@@ -123,18 +131,22 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
   const int cs = a.cs, bn = a.bn, rows = a.rows;
   const int n0 = blockIdx.x * kDgCols;
   const int m0 = blockIdx.y * BR;
+  const int slice = blockIdx.z;                 // #11: the expert
+  const int goff = slice * a.n;                 // the slice's first column of w1s, b1, hidden
   const int chunks = (a.k + kDgKC - 1) / kDgKC;
   const DgChunks ch{0, 1, chunks, 1};
   if constexpr (kMoe) {
-    // The experts of this block's columns (one, unless the wide form's
-    // columns cross into the next expert): none routed, nothing to do.
-    const int e_lo = n0 / a.inter, e_hi = (min(n0 + kDgCols, a.n) - 1) / a.inter;
-    int live = 0;
-    for (int i = threadIdx.x; i < BR * (e_hi - e_lo + 1); i += kThreads) {
-      const int r = m0 + i % BR;
-      if (r < rows && a.comb[(size_t)r * a.experts + e_lo + i / BR] != 0.f) live = 1;
+    if (a.comb != nullptr) {
+      // The experts of this block's columns (one, unless the wide form's
+      // columns cross into the next expert): none routed, nothing to do.
+      const int e_lo = n0 / a.inter, e_hi = (min(n0 + kDgCols, a.n) - 1) / a.inter;
+      int live = 0;
+      for (int i = threadIdx.x; i < BR * (e_hi - e_lo + 1); i += kThreads) {
+        const int r = m0 + i % BR;
+        if (r < rows && a.comb[(size_t)r * a.experts + e_lo + i / BR] != 0.f) live = 1;
+      }
+      if (!__syncthreads_or(live)) return;
     }
-    if (!__syncthreads_or(live)) return;
     if (cs == 0)
       for (int i = threadIdx.x; i < kMaxUpCluster * BR; i += kThreads) allmax[i] = 0.f;
   }
@@ -143,7 +155,7 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
 
   if (threadIdx.x >= kDgConsumerThreads) {
     regs_dealloc<kDgProducerRegs>();
-    const DgWeight wt{nullptr, a.k, a.n, 1};
+    const DgWeight wt{nullptr, (int)gridDim.z * a.k, a.n, 1, slice * a.k};
     const DgRows xrows{nullptr, rows, a.k, 1};
     dg_produce<kFfnKind<kI4>>(ring, &w_map, &sh_map, &x_map, wt, xrows, ch, n0, m0, 0, chunks,
                               threadIdx.x - kDgConsumerThreads);
@@ -169,11 +181,11 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
   if (col_live) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      ws[e] = a.w1s[c0 + e];
+      ws[e] = a.w1s[goff + c0 + e];
       if constexpr (kMoe)
-        bb[e] = static_cast<const float*>(a.b1)[c0 + e];
+        bb[e] = static_cast<const float*>(a.b1)[goff + c0 + e];
       else
-        bb[e] = to_f32(static_cast<const bf16*>(a.b1)[c0 + e]);
+        bb[e] = to_f32(static_cast<const bf16*>(a.b1)[goff + c0 + e]);
     }
   }
   float h[BR / 2], m[BR / 4];
@@ -192,9 +204,11 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
   const int tiles = a.n / bn;
   if (kMoe && cs == 0) {
     // The wide form: the f32 hidden, and the block's maxima of each (row,
-    // tile its columns touch) into the global absmax. A lane's two columns
-    // lie in one tile (bn is even).
+    // tile its columns touch) into the global absmax, both in the slices'
+    // concatenated columns. A lane's two columns lie in one tile (bn is
+    // even).
     const int t_lo = n0 / bn;
+    const size_t ld = (size_t)gridDim.z * a.n, all_tiles = (size_t)gridDim.z * tiles;
     if (col_live) {
       int* tmax = reinterpret_cast<int*>(allmax) + (c0 / bn - t_lo) * BR;
 #pragma unroll
@@ -203,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
         for (int e = 0; e < 2; ++e) {
           const int r = 8 * j + 2 * (L.lane & 3) + e;
           if (m0 + r >= rows) continue;
-          *reinterpret_cast<float2*>(a.hidden + (size_t)(m0 + r) * a.n + c0) =
+          *reinterpret_cast<float2*>(a.hidden + (size_t)(m0 + r) * ld + goff + c0) =
               make_float2(h[4 * j + e], h[4 * j + e + 2]);
           atomicMax(tmax + r, __float_as_int(m[2 * j + e]));
         }
@@ -214,7 +228,8 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
     for (int i = L.tid; i < ntl * BR; i += kDgConsumerThreads) {
       const int r = m0 + i % BR;
       if (r < rows)
-        atomicMax(reinterpret_cast<int*>(a.absmax) + (size_t)r * tiles + t_lo + i / BR,
+        atomicMax(reinterpret_cast<int*>(a.absmax) + (size_t)r * all_tiles +
+                      (size_t)slice * tiles + t_lo + i / BR,
                   __float_as_int(allmax[i]));
     }
     return;
@@ -270,6 +285,32 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
           (uint16_t)((q0 & 0xff) | ((q1 & 0xff) << 8));
       if (first && L.col == 0) a.hs[(size_t)row * tiles + n0 / bn] = s;
     }
+  }
+}
+
+// The wide form's requantization (the fat MoE FFN's and #11's), one block
+// per (tile, row): hs = max(absmax, 1e-8) * (1/127) and hq[r, t * bnp + j]
+// = rint(hidden[r, t * bn + j] / hs) for j < bn, 0 up to bnp (bn and bnp
+// multiples of 16 and 128).
+__global__ void __launch_bounds__(kBlock) fat_quant_kernel(
+    const float* __restrict__ hidden,   // (S, E*I)
+    const float* __restrict__ absmax,   // (S, tiles)
+    int8_t* __restrict__ hq,            // (S, tiles * bnp)
+    float* __restrict__ hs,             // (S, tiles)
+    int ei, int bn, int bnp) {
+  const int t = blockIdx.x, tiles = gridDim.x;
+  const size_t r = blockIdx.y;
+  const float s = requant_scale(absmax[r * tiles + t]);
+  if (threadIdx.x == 0) hs[r * tiles + t] = s;
+  const float* src = hidden + r * ei + (size_t)t * bn;
+  int8_t* dst = hq + (r * tiles + t) * bnp;
+  for (int j = 4 * threadIdx.x; j < bnp; j += 4 * kBlock) {
+    uint32_t w = 0;
+    if (j < bn) {
+      const float4 v = *reinterpret_cast<const float4*>(src + j);
+      w = requant_pack4(v.x, v.y, v.z, v.w, s);
+    }
+    *reinterpret_cast<uint32_t*>(dst + j) = w;
   }
 }
 

@@ -27,19 +27,38 @@
 // writes y (6 bytes in bf16; 10 more with h in f32) for one multiply-add; a
 // backward step reads gy, C and h and writes dB and dC (14 bytes in bf16) for
 // a few flops: both far below the card's operations-per-byte line. The
-// recurrence is sequential in t, so the parallelism is B * H * N threads.
+// recurrence is sequential in t: the forward runs B * H * N threads, the
+// backward B * K * H * N over K chunks of the time axis.
 //
-// Design: one thread owns one (b, c) and walks L (the backward from L-1 down)
-// with its carry in a register. Neighbouring threads read neighbouring
-// channels of the natural (B, L, H*N) layout, so every load and store
-// coalesces without the TPU kernel's time-minor relayout, its 128-lane
-// padding, or the exp(delta*A) tensor in device memory: delta is a broadcast
-// load shared by the N threads of a head and the exponential is computed in
-// the thread. The backward keeps h[t-1] and a[t] in registers for the next
-// step down and writes each thread's dA partial to a (B, C) scratch that a
-// second launch sums over b in order: no atomics, so the result is the same
-// from run to run. d_delta sums a head's N channels at every step, in a
-// fixed order either way:
+// Design of the forward: one thread owns one (b, c) and walks L with its
+// carry in a register. Neighbouring threads read neighbouring channels of
+// the natural (B, L, H*N) layout, so every load and store coalesces without
+// the TPU kernel's time-minor relayout, its 128-lane padding, or the
+// exp(delta*A) tensor in device memory: delta is a broadcast load shared by
+// the N threads of a head and the exponential is computed in the thread.
+//
+// Design of the backward: one thread a (b, c) alone would leave the card
+// mostly idle (2,432 threads at the 1.5B training shape, each waiting on
+// its loads step after step for 1,024 steps), so the time axis is cut into
+// K chunks of `chunk` steps (ops/kernels/ssm_scan.py::BWD_CHUNK, 32) and a
+// thread owns one (b, chunk, c). The adjoint is a linear recurrence, so
+// lam[t0] = lam0 + prod * lam[t1] for a chunk [t0, t1), where lam0 is the
+// chunk's own reverse scan from lam = 0 and prod the decays lam passes
+// through:
+//   1. scan_bwd_local_kernel: lam0 and prod of every chunk but the first,
+//      into a (B, K, C) f32 scratch (reads gy, C and delta);
+//   2. each thread of pass 3 resolves its chunk's carry lam[t1] from the
+//      later chunks' (lam0, prod), in a fixed order (K - 1 - k loads and
+//      fused multiply-adds: no launch and no wait on other blocks);
+//   3. selective_scan_bwd(_smem)_kernel reruns the chunk's reverse scan
+//      from its carry and writes dB, dC and d_delta as a whole-L scan would,
+//      keeping h[t-1] and a[t] in registers for the next step down, and a dA
+//      partial a (b, chunk, c) that sum_rows_kernel adds over (b, chunk) in
+//      order.
+// No atomics, so the result is the same from run to run; the chunked carry
+// reassociates lam's sums (about an f32 ulp of lam a chunk boundary).
+// d_delta sums a head's N channels at every step, in a fixed order either
+// way:
 //   * N a power of two up to 32 (selective_scan_bwd_kernel): a head is N
 //     neighbouring lanes of one warp, and a butterfly of warp shuffles sums
 //     them;
@@ -47,8 +66,8 @@
 //     holds whole heads (128 / N of them, or one), each thread stores its
 //     term in shared memory, and the head's first thread adds the N terms
 //     in channel order between two block barriers.
-// At batch 4 the 1.5B model has only 2,432 channels, so the card is mostly
-// idle; splitting the time axis into chunks is later work.
+// Bytes: pass 1 reads gy and C again, about 10 MB more than the 30 MB the
+// gradient must move at the 1.5B training shape (4, 1024, 38, 16).
 
 #include "common.cuh"
 
@@ -100,9 +119,62 @@ __device__ __forceinline__ float group_sum(float v, int width) {
   return v;
 }
 
-// The reverse scan of one (b, c), shared by both backward kernels; only the
-// sum over a head's N channels differs (kSmem: through `red`, one float a
-// thread of the block).
+// The decay a[t] of one (b, c): exp(delta * A), 1 at a masked step.
+__device__ __forceinline__ float scan_decay(const float* __restrict__ delta,
+                                            const int* __restrict__ mask, size_t row, int t,
+                                            int heads, int head, float a_c) {
+  if (mask != nullptr && mask[row + t] == 0) return 1.f;
+  return expf(delta[(row + t) * heads + head] * a_c);
+}
+
+// Pass 1 of the chunked backward, for chunk k = blockIdx.z + 1 (chunk 0's
+// are never read) of one (b, c): the reverse scan over the chunk's steps
+// [t0, t1) from lam = 0, kept only at t0 (`lam0`), and the product of the
+// decays lam passes through from t1 down to t0, a[t1] a[t1 - 1] ... a[t0 + 1]
+// (`prod`; a[L] = 1), so that the true lam[t0] = lam0 + prod * lam[t1].
+template <typename TIn, typename TG>
+__global__ void __launch_bounds__(kScanThreads) scan_bwd_local_kernel(
+    const float* __restrict__ delta,   // (B, L, H)
+    const float* __restrict__ a_cont,  // (C,)
+    const TIn* __restrict__ c_mod,     // (B, L, C)
+    const int* __restrict__ mask,      // (B, L) or nullptr
+    const TG* __restrict__ gy,         // (B, L, C)
+    const float* __restrict__ g_last,  // (B, C) or nullptr
+    float* __restrict__ lam0,          // (B, K, C)
+    float* __restrict__ prod,          // (B, K, C)
+    int seq_len, int heads, int d_state, int chunk, int chunks) {
+  const int channels = heads * d_state;
+  const int c = blockIdx.x * kScanThreads + threadIdx.x;
+  const int b = blockIdx.y;
+  const int k = blockIdx.z + 1;
+  if (c >= channels) return;
+  const int head = c / d_state;
+  const float a_c = a_cont[c];
+  const size_t row = (size_t)b * seq_len;
+  const int t0 = k * chunk, t1 = min(t0 + chunk, seq_len);
+  float a_next = t1 < seq_len ? scan_decay(delta, mask, row, t1, heads, head, a_c) : 1.f;
+  float lam = 0.f, p = a_next;
+#pragma unroll 4
+  for (int t = t1 - 1; t >= t0; --t) {
+    const size_t off = (row + t) * channels + c;
+    float dh = to_f32(gy[off]) * to_f32(c_mod[off]);
+    if (t == seq_len - 1 && g_last != nullptr) dh += g_last[(size_t)b * channels + c];
+    lam = fmaf(a_next, lam, dh);
+    a_next = scan_decay(delta, mask, row, t, heads, head, a_c);
+    if (t > t0) p *= a_next;
+  }
+  const size_t o = ((size_t)b * chunks + k) * channels + c;
+  lam0[o] = lam;
+  prod[o] = p;
+}
+
+// Pass 3, the reverse scan of chunk k = blockIdx.z of one (b, c), shared by
+// both backward kernels; only the sum over a head's N channels differs
+// (kSmem: through `red`, one float a thread of the block). The carry into
+// the chunk, lam[t1], is resolved first from the later chunks' pass-1
+// results, j = K-1 down to k+1: carry = lam0[j] + prod[j] * carry (from 0 =
+// lam[L]); the same j order for every k, so every chunk's carry is the one
+// its neighbour's run would give.
 template <typename TIn, typename TG, bool kSmem>
 __device__ __forceinline__ void scan_bwd_body(
     const float* __restrict__ delta,   // (B, L, H)
@@ -112,14 +184,17 @@ __device__ __forceinline__ void scan_bwd_body(
     const float* __restrict__ h_all,   // (B, L, C) f32, the forward's states
     const TG* __restrict__ gy,         // (B, L, C) dL/dy
     const float* __restrict__ g_last,  // (B, C) dL/dh_last or nullptr
+    const float* __restrict__ lam0,    // (B, K, C) pass 1
+    const float* __restrict__ prod,    // (B, K, C) pass 1
     float* __restrict__ d_delta,       // (B, L, H)
     TIn* __restrict__ db,              // (B, L, C)
     TIn* __restrict__ dc,              // (B, L, C)
-    float* __restrict__ da_part,       // (B, C) per-row partial of dA
-    int seq_len, int heads, int d_state, float* red) {
+    float* __restrict__ da_part,       // (B, K, C) per-(row, chunk) partial of dA
+    int seq_len, int heads, int d_state, int chunk, float* red) {
   const int channels = heads * d_state;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = blockIdx.y;
+  const int k = blockIdx.z, chunks = gridDim.z;
   // Threads past the last channel stay in the loop with zeros, so that the
   // shuffles of a head always see a whole warp and every thread reaches the
   // block barriers; a block starts on a head, so no head mixes live and idle
@@ -130,12 +205,17 @@ __device__ __forceinline__ void scan_bwd_body(
   const bool leader = live && (cc % d_state) == 0;
   const float a_c = live ? a_cont[cc] : 0.f;
   const size_t row = (size_t)b * seq_len;
-  float lam = 0.f;
-  float a_next = 1.f;                       // a[t+1]; a[L] = 1
+  const int t0 = k * chunk, t1 = min(t0 + chunk, seq_len);
+  float lam = 0.f;                          // lam[t1]; lam[L] = 0
+  for (int j = chunks - 1; j > k && live; --j) {
+    const size_t o = ((size_t)b * chunks + j) * channels + cc;
+    lam = fmaf(prod[o], lam, lam0[o]);
+  }
+  float a_next = t1 < seq_len ? scan_decay(delta, mask, row, t1, heads, head, a_c) : 1.f;
   float dA = 0.f;
-  float h_t = live ? h_all[(row + seq_len - 1) * channels + cc] : 0.f;
+  float h_t = live ? h_all[(row + t1 - 1) * channels + cc] : 0.f;
 #pragma unroll 2
-  for (int t = seq_len - 1; t >= 0; --t) {
+  for (int t = t1 - 1; t >= t0; --t) {
     const size_t off = (row + t) * channels + cc;
     const float g = live ? to_f32(gy[off]) : 0.f;
     const float gate = live ? to_f32(c_mod[off]) : 0.f;
@@ -168,7 +248,7 @@ __device__ __forceinline__ void scan_bwd_body(
     a_next = a_t;
     h_t = h_prev;
   }
-  if (live) da_part[(size_t)b * channels + c] = dA;
+  if (live) da_part[((size_t)b * chunks + k) * channels + c] = dA;
 }
 
 // N a power of two up to 32: blocks of kScanThreads channels.
@@ -177,10 +257,13 @@ __global__ void __launch_bounds__(kScanThreads) selective_scan_bwd_kernel(
     const float* __restrict__ delta, const float* __restrict__ a_cont,
     const TIn* __restrict__ c_mod, const int* __restrict__ mask,
     const float* __restrict__ h_all, const TG* __restrict__ gy,
-    const float* __restrict__ g_last, float* __restrict__ d_delta, TIn* __restrict__ db,
-    TIn* __restrict__ dc, float* __restrict__ da_part, int seq_len, int heads, int d_state) {
-  scan_bwd_body<TIn, TG, false>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, db,
-                                dc, da_part, seq_len, heads, d_state, nullptr);
+    const float* __restrict__ g_last, const float* __restrict__ lam0,
+    const float* __restrict__ prod, float* __restrict__ d_delta, TIn* __restrict__ db,
+    TIn* __restrict__ dc, float* __restrict__ da_part, int seq_len, int heads, int d_state,
+    int chunk) {
+  scan_bwd_body<TIn, TG, false>(delta, a_cont, c_mod, mask, h_all, gy, g_last, lam0, prod,
+                                d_delta, db, dc, da_part, seq_len, heads, d_state, chunk,
+                                nullptr);
 }
 
 // Any other N up to kMaxSmemState: blocks of whole heads, blockDim.x floats
@@ -192,14 +275,16 @@ __global__ void __launch_bounds__(kMaxSmemState) selective_scan_bwd_smem_kernel(
     const float* __restrict__ delta, const float* __restrict__ a_cont,
     const TIn* __restrict__ c_mod, const int* __restrict__ mask,
     const float* __restrict__ h_all, const TG* __restrict__ gy,
-    const float* __restrict__ g_last, float* __restrict__ d_delta, TIn* __restrict__ db,
-    TIn* __restrict__ dc, float* __restrict__ da_part, int seq_len, int heads, int d_state) {
+    const float* __restrict__ g_last, const float* __restrict__ lam0,
+    const float* __restrict__ prod, float* __restrict__ d_delta, TIn* __restrict__ db,
+    TIn* __restrict__ dc, float* __restrict__ da_part, int seq_len, int heads, int d_state,
+    int chunk) {
   extern __shared__ float red[];
-  scan_bwd_body<TIn, TG, true>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, db,
-                               dc, da_part, seq_len, heads, d_state, red);
+  scan_bwd_body<TIn, TG, true>(delta, a_cont, c_mod, mask, h_all, gy, g_last, lam0, prod,
+                               d_delta, db, dc, da_part, seq_len, heads, d_state, chunk, red);
 }
 
-// dA[c] = sum over b, in order, of the per-row partials.
+// dA[c] = sum over the (row, chunk) partials, in order.
 __global__ void __launch_bounds__(kScanThreads) sum_rows_kernel(
     const float* __restrict__ part, float* __restrict__ out, int rows, int channels) {
   const int c = blockIdx.x * kScanThreads + threadIdx.x;
@@ -225,9 +310,12 @@ void launch_scan(const void* delta, const void* a_cont, const void* b_term,
 template <typename TIn, typename TG>
 void launch_scan_bwd(const void* delta, const void* a_cont, const void* c_mod,
                      const void* mask, const void* h_all, const void* gy, const void* g_last,
-                     void* d_delta, void* da, void* db, void* dc, void* da_part, int batch,
-                     int seq_len, int heads, int d_state, bool smem, cudaStream_t stream) {
+                     void* d_delta, void* da, void* db, void* dc, void* scratch, int batch,
+                     int seq_len, int heads, int d_state, int chunk, bool smem,
+                     cudaStream_t stream) {
   const int channels = heads * d_state;
+  const int chunks = (seq_len + chunk - 1) / chunk;
+  const size_t part = (size_t)batch * chunks * channels;
   const auto* delta_ = static_cast<const float*>(delta);
   const auto* a_ = static_cast<const float*>(a_cont);
   const auto* c_ = static_cast<const TIn*>(c_mod);
@@ -238,40 +326,57 @@ void launch_scan_bwd(const void* delta, const void* a_cont, const void* c_mod,
   auto* dd_ = static_cast<float*>(d_delta);
   auto* db_ = static_cast<TIn*>(db);
   auto* dc_ = static_cast<TIn*>(dc);
-  auto* part_ = static_cast<float*>(da_part);
+  auto* da_part = static_cast<float*>(scratch);
+  float* lam0 = da_part + part;
+  float* prod = lam0 + part;
+  if (chunks > 1)
+    scan_bwd_local_kernel<TIn, TG>
+        <<<dim3((channels + kScanThreads - 1) / kScanThreads, batch, chunks - 1), kScanThreads,
+            0, stream>>>(delta_, a_, c_, mask_, gy_, gl_, lam0, prod, seq_len, heads, d_state,
+                         chunk, chunks);
   if (smem) {
     const int heads_per_block = d_state <= kScanThreads ? kScanThreads / d_state : 1;
     const int threads = heads_per_block * d_state;
-    const dim3 grid((heads + heads_per_block - 1) / heads_per_block, batch);
+    const dim3 grid((heads + heads_per_block - 1) / heads_per_block, batch, chunks);
     selective_scan_bwd_smem_kernel<TIn, TG><<<grid, threads, threads * sizeof(float), stream>>>(
-        delta_, a_, c_, mask_, h_, gy_, gl_, dd_, db_, dc_, part_, seq_len, heads, d_state);
+        delta_, a_, c_, mask_, h_, gy_, gl_, lam0, prod, dd_, db_, dc_, da_part, seq_len, heads,
+        d_state, chunk);
   } else {
-    const dim3 grid((channels + kScanThreads - 1) / kScanThreads, batch);
+    const dim3 grid((channels + kScanThreads - 1) / kScanThreads, batch, chunks);
     selective_scan_bwd_kernel<TIn, TG><<<grid, kScanThreads, 0, stream>>>(
-        delta_, a_, c_, mask_, h_, gy_, gl_, dd_, db_, dc_, part_, seq_len, heads, d_state);
+        delta_, a_, c_, mask_, h_, gy_, gl_, lam0, prod, dd_, db_, dc_, da_part, seq_len, heads,
+        d_state, chunk);
   }
   sum_rows_kernel<<<(channels + kScanThreads - 1) / kScanThreads, kScanThreads, 0, stream>>>(
-      part_, static_cast<float*>(da), batch, channels);
+      da_part, static_cast<float*>(da), batch * chunks, channels);
 }
 
 int scan_bwd(const void* delta, const void* a_cont, const void* c_mod, const void* mask,
              const void* h_all, const void* gy, const void* g_last, void* d_delta, void* da,
-             void* db, void* dc, void* da_part, int batch, int seq_len, int heads, int d_state,
-             int bc_bf16, int gy_bf16, bool smem, void* stream) {
+             void* db, void* dc, void* scratch, int batch, int seq_len, int heads, int d_state,
+             int chunk, int bc_bf16, int gy_bf16, bool smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bc_bf16 && gy_bf16)
     launch_scan_bwd<bf16, bf16>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da,
-                                db, dc, da_part, batch, seq_len, heads, d_state, smem, s);
+                                db, dc, scratch, batch, seq_len, heads, d_state, chunk, smem, s);
   else if (bc_bf16)
     launch_scan_bwd<bf16, float>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da,
-                                 db, dc, da_part, batch, seq_len, heads, d_state, smem, s);
+                                 db, dc, scratch, batch, seq_len, heads, d_state, chunk, smem, s);
   else if (gy_bf16)
     launch_scan_bwd<float, bf16>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da,
-                                 db, dc, da_part, batch, seq_len, heads, d_state, smem, s);
+                                 db, dc, scratch, batch, seq_len, heads, d_state, chunk, smem, s);
   else
-    launch_scan_bwd<float, float>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta,
-                                  da, db, dc, da_part, batch, seq_len, heads, d_state, smem, s);
+    launch_scan_bwd<float, float>(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da,
+                                  db, dc, scratch, batch, seq_len, heads, d_state, chunk, smem,
+                                  s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The arguments both entry points take, and their chunk count's bound (a
+// grid's z extent).
+bool bwd_args_ok(int batch, int seq_len, int heads, int chunk) {
+  return batch > 0 && batch <= 65535 && seq_len > 0 && heads > 0 && chunk > 0 &&
+         (seq_len + chunk - 1) / chunk <= 65535;
 }
 
 bool pow2_state(int d_state) { return d_state <= 32 && (d_state & (d_state - 1)) == 0; }
@@ -303,37 +408,40 @@ extern "C" int apertis_selective_scan_fwd(const void* delta, const void* a_cont,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The gradient of apertis_selective_scan_fwd. c_mod, db and dc are bf16 when
-// bc_bf16 else f32; gy is bf16 when gy_bf16 else f32; g_last (B, C) f32 may
-// be null; da_part is (B, C) f32 scratch. d_state must be a power of two up
-// to 32 (a head's channels share one warp). Two launches (the reverse scan,
-// then dA's sum over b). Returns cudaGetLastError().
+// The gradient of apertis_selective_scan_fwd, over chunks of `chunk` steps
+// (ops/kernels/ssm_scan.py::BWD_CHUNK; one chunk of L is the plain
+// sequential scan). c_mod, db and dc are bf16 when bc_bf16 else f32; gy is
+// bf16 when gy_bf16 else f32; g_last (B, C) f32 may be null; scratch is 3 x
+// (B, K, C) f32 for K = ceil(L / chunk) chunks (dA's partials, then pass
+// 1's lam0 and prod). d_state must be a power of two up to 32 (a head's
+// channels share one warp). Three launches (pass 1 where K > 1, pass 3,
+// dA's sum). Returns cudaGetLastError().
 extern "C" int apertis_selective_scan_bwd(const void* delta, const void* a_cont,
                                           const void* c_mod, const void* mask,
                                           const void* h_all, const void* gy,
                                           const void* g_last, void* d_delta, void* da,
-                                          void* db, void* dc, void* da_part, int batch,
-                                          int seq_len, int heads, int d_state, int bc_bf16,
-                                          int gy_bf16, void* stream) {
-  if (d_state <= 0 || !pow2_state(d_state) || batch <= 0 || seq_len <= 0 || heads <= 0)
+                                          void* db, void* dc, void* scratch, int batch,
+                                          int seq_len, int heads, int d_state, int chunk,
+                                          int bc_bf16, int gy_bf16, void* stream) {
+  if (d_state <= 0 || !pow2_state(d_state) || !bwd_args_ok(batch, seq_len, heads, chunk))
     return static_cast<int>(cudaErrorInvalidValue);
-  return scan_bwd(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da, db, dc, da_part,
-                  batch, seq_len, heads, d_state, bc_bf16, gy_bf16, false, stream);
+  return scan_bwd(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da, db, dc, scratch,
+                  batch, seq_len, heads, d_state, chunk, bc_bf16, gy_bf16, false, stream);
 }
 
 // The same gradient for a d_state that is not a power of two up to 32 (at
 // most 1024): a head's d_delta is summed through shared memory. The same
-// arguments; two launches. Returns cudaGetLastError().
+// arguments and launches. Returns cudaGetLastError().
 extern "C" int apertis_selective_scan_bwd_smem(const void* delta, const void* a_cont,
                                                const void* c_mod, const void* mask,
                                                const void* h_all, const void* gy,
                                                const void* g_last, void* d_delta, void* da,
-                                               void* db, void* dc, void* da_part, int batch,
-                                               int seq_len, int heads, int d_state,
+                                               void* db, void* dc, void* scratch, int batch,
+                                               int seq_len, int heads, int d_state, int chunk,
                                                int bc_bf16, int gy_bf16, void* stream) {
-  if (d_state <= 0 || d_state > kMaxSmemState || pow2_state(d_state) || batch <= 0 ||
-      seq_len <= 0 || heads <= 0 || batch > 65535)
+  if (d_state <= 0 || d_state > kMaxSmemState || pow2_state(d_state) ||
+      !bwd_args_ok(batch, seq_len, heads, chunk))
     return static_cast<int>(cudaErrorInvalidValue);
-  return scan_bwd(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da, db, dc, da_part,
-                  batch, seq_len, heads, d_state, bc_bf16, gy_bf16, true, stream);
+  return scan_bwd(delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da, db, dc, scratch,
+                  batch, seq_len, heads, d_state, chunk, bc_bf16, gy_bf16, true, stream);
 }

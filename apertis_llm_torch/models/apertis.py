@@ -122,7 +122,7 @@ from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize
 from apertis_llm_torch.ops.kernels.mha_step import (
     NEG, mha_decode_ctx, mha_decode_ctx_int8, quantize_heads)
 from apertis_llm_torch.ops.kernels.ssm_step import (
-    MixerWeights, RouterWeights, ssm_decode_step)
+    MOE_EPILOGUE_MAX_EXPERTS, MixerWeights, RouterWeights, ssm_decode_step)
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
 from apertis_llm_torch.ops.quant import linear_int8, linear_pre_q, quantize_rows
 from apertis_llm_torch.ops.rope import apply_rope, rope_tables, rotate
@@ -1125,7 +1125,9 @@ class ApertisForCausalLM(nn.Module):
         apply. A MoE model past ``moe_dense_threshold_tokens`` rows, or with
         no fat stack attached (``moe_mode="kernel"`` or ``"0"``, or no
         engine), runs the step without its epilogue and the FFN as over full
-        sequences, as the JAX package does (apertis.py:1224-1230); a dense
+        sequences, as the JAX package does (apertis.py:1224-1230), and so does
+        one with more experts than the epilogue's router takes
+        (``MOE_EPILOGUE_MAX_EXPERTS``); a dense
         FFN that fails the
         fused FFN's width test (``DenseFFN.fused_decode``) runs the step
         without its epilogue and then the plain pre-norm and
@@ -1139,6 +1141,7 @@ class ApertisForCausalLM(nn.Module):
         b = h.shape[0]
         for i, layer in enumerate(self.layers):
             moe_full = is_moe(cfg) and (b > cfg.moe_dense_threshold_tokens
+                                        or cfg.num_experts > MOE_EPILOGUE_MAX_EXPERTS
                                         or layer.ffn.fat_stack() is None)
             conv = cache["conv"][i]
             ssm = cache["ssm"][i].view(b, -1)          # updated in place

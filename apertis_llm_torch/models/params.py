@@ -88,7 +88,8 @@ def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
     """Raise unless ``config`` is a variant ported so far: the text-only
     decoder with rotary positions and a tied LM head, in bf16/f32 or with
     int8 projections, whose mixer is the selective SSM (with a dense FFN or
-    a top-2 MoE FFN) or standard MHA (with a dense FFN, and a head width the
+    a top-2 MoE FFN, its hidden and mixer widths multiples of 4) or standard
+    MHA (with a dense FFN, and a head width the
     decode-attention kernel takes: a multiple of 32 up to 256). MHA with
     MoE, SwiGLU, the multimodal and absolute-position variants and MoE with
     another top-k are not ported yet (ROADMAP.md). Int8 weights
@@ -113,6 +114,13 @@ def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
         missing.append("absolute position embeddings")
     if not config.tie_word_embeddings:
         missing.append("an untied LM head")
+    if config.attention_type == "selective_ssm" and (
+            config.hidden_size % 4 or config.ssm_d_inner % 4):
+        # The decode step (ops/kernels/ssm_step.py) reads D and C in units of
+        # four (ROADMAP.md queue 2, item B1).
+        missing.append(f"the selective SSM with hidden_size={config.hidden_size} or "
+                       f"mixer width {config.ssm_d_inner} (heads x ssm_d_state) not a "
+                       "multiple of 4 (ROADMAP.md queue 2, item B1)")
     if is_moe(config):
         # The MoE kernels read int8 rows and weights in 16-byte units; their
         # fat stack is int8 in both layouts.

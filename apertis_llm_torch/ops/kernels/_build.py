@@ -42,9 +42,9 @@ SIGNATURES = {
     # y_bf16, stream
     "apertis_selective_scan_fwd": [_P] * 8 + [_I] * 6 + [_P],
     # delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da, db, dc,
-    # da_part, B, L, H, N, bc_bf16, gy_bf16, stream
-    "apertis_selective_scan_bwd": [_P] * 12 + [_I] * 6 + [_P],
-    "apertis_selective_scan_bwd_smem": [_P] * 12 + [_I] * 6 + [_P],
+    # scratch, B, L, H, N, chunk, bc_bf16, gy_bf16, stream
+    "apertis_selective_scan_bwd": [_P] * 12 + [_I] * 7 + [_P],
+    "apertis_selective_scan_bwd_smem": [_P] * 12 + [_I] * 7 + [_P],
     # a, b, h_init, h, h_last, states, B*H, L, N, b_bf16, stream
     "apertis_scan_carry_fwd": [_P] * 6 + [_I] * 4 + [_P],
     # a, g, h, h_init, g_last, da, db, dh_init, B*H, L, N, stream
@@ -114,9 +114,9 @@ SIGNATURES = {
     # kernel (0 quantization pass, 1 block-scaled qm_kernel, 2 split), rows,
     # smem, out (5 ints)
     "apertis_quant_matmul_fused_resources": [_I, _I, _I, _P],
-    # xq, xs, w1q, w1s, b1, w2q, w2s, b2, out, hidden, absmax, partial, S, H,
-    # I, E, ksplit, act, out_bf16, stream
-    "apertis_expert_ffn_dense": [_P] * 12 + [_I] * 7 + [_P],
+    # xq, xs, w1q, w1s, b1, w2q, w2s, b2, out, hq, hs, hidden, absmax, S, H,
+    # I, E, act, out_bf16, row_tile, split, stages_up, stages_down, stream
+    "apertis_expert_ffn_dense": [_P] * 13 + [_I] * 10 + [_P],
 }
 
 
@@ -177,6 +177,14 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SMs of CUDA device ``device_index``, which the launch plans are
+    sized by."""
+    import torch
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check(err: int, name: str) -> None:

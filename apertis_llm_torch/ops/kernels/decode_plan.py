@@ -1,8 +1,9 @@
 """Launch plans of the decode kernels on ``csrc/decode_gemm.cuh``.
 
 The int8 layout of the decode mixer step (``csrc/ssm_step.cu``, kernel #3),
-the int8 and int4 layouts of the decode FFN (``csrc/ffn_fused.cu``, #4) and
-of the fat MoE expert FFN (``csrc/moe_ffn.cu``, #10) run swapped-operand
+the int8 and int4 layouts of the decode FFN (``csrc/ffn_fused.cu``, #4), of
+the fat MoE expert FFN (``csrc/moe_ffn.cu``, #10) and the per-expert MoE FFN
+(``csrc/moe_dense.cu``, #11) run swapped-operand
 int8 ``wgmma`` products: a block computes 128 weight columns
 (``TILE_COLS``) for a row tile of 16 or 64 batch rows (``ROW_TILES``), over
 128-row K chunks (``CHUNK``) whose weight and row tiles a ring of
@@ -253,3 +254,38 @@ def fat_plan(rows: int, d_model: int, inter: int, experts: int, bn: int, bits: i
     down = GemmPlan(br, split, st_down, smem_bytes(br, st_down, stage, 1, extra),
                     (col_tiles * split, row_tiles))
     return FatPlan(up, down, group)
+
+
+class DensePlan(NamedTuple):
+    """The per-expert MoE FFN's launches (``csrc/moe_dense.cu``), each over
+    a grid slice an expert: GEMM1 in the wide form (``split`` 0: the f32
+    hidden and a requantization pass over each expert's whole I) and GEMM2,
+    whose ``split`` spreads an expert's K chunks over a cluster that adds
+    the int32 parts in distributed shared memory."""
+    up: GemmPlan
+    down: GemmPlan
+
+
+@functools.lru_cache(maxsize=None)
+def dense_plan(rows: int, d_model: int, inter: int, experts: int, sms: int) -> DensePlan:
+    """The plan of ``apertis_expert_ffn_dense`` for S rows, H = ``d_model``
+    and E experts of I = ``inter`` columns on a card of ``sms`` SMs. GEMM1
+    runs the whole K = H a block, I / 128 column blocks an expert. GEMM2
+    splits an expert's ceil(I / 128) chunks over as many blocks as the SMs
+    allow beside its H / 128 column tiles, row tiles and experts (at most
+    MAX_FAT_SPLIT, at most one a chunk); the int32 parts are exact in any
+    order, so the split does not change the result."""
+    br = row_tile(rows)
+    row_tiles = _cdiv(rows, br)
+    stage = br * 128 + W8_BYTES
+    up_extra = (CONSUMER_THREADS // 32 + 1 + MAX_UP_CLUSTER) * br * 4
+    st_up = _stages(br, stage, 1, up_extra, _cdiv(d_model, CHUNK))
+    up = GemmPlan(br, 0, st_up, smem_bytes(br, st_up, stage, 1, up_extra),
+                  (_cdiv(inter, TILE_COLS), row_tiles))
+    chunks = _cdiv(inter, CHUNK)
+    col_tiles = _cdiv(d_model, TILE_COLS)
+    split = max(1, min(MAX_FAT_SPLIT, chunks, sms // (col_tiles * row_tiles * experts)))
+    st_down = _stages(br, stage, split, 0, _cdiv(chunks, split))
+    down = GemmPlan(br, split, st_down, smem_bytes(br, st_down, stage, split, 0),
+                    (col_tiles * split, row_tiles))
+    return DensePlan(up, down)

@@ -22,7 +22,6 @@ int4 layout unpacks the nibbles into int8 fragments in registers.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Optional
 
 import torch
@@ -118,11 +117,6 @@ def ffn_decode_int4_reference(
                                      unpack_int4(w2_q4, w2_sh), w2_s, b2, hidden_act, out_dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def ffn_decode(
     x: torch.Tensor,
     w1: torch.Tensor,
@@ -168,14 +162,15 @@ def ffn_decode(
 
 def bf16_plan(x: torch.Tensor, d: int, inter: int) -> decode_plan.FfnPlan:
     """The plan of the bf16 FFN for these rows on their card."""
-    return decode_plan.bf16_ffn_plan(x.shape[0], d, inter, _sm_count(x.device.index or 0))
+    return decode_plan.bf16_ffn_plan(x.shape[0], d, inter,
+                                     _build.sm_count(x.device.index or 0))
 
 
 def quant_plan(x_q: torch.Tensor, d: int, inter: int, bits: int) -> decode_plan.FfnPlan:
     """The plan of the int8 (bits 8) or int4 FFN for these rows on their card."""
     s = x_q.shape[0]
     return decode_plan.ffn_plan(s, d, inter, pick_block_n(inter), bits,
-                                _sm_count(x_q.device.index or 0))
+                                _build.sm_count(x_q.device.index or 0))
 
 
 def _quant_scratch(x_q: torch.Tensor, inter: int, d: int):

@@ -18,11 +18,15 @@ registers.
 
 :func:`expert_ffn_dense` (``moe_mode="kernel"``, the JAX package's
 ``APERTIS_MOE_FUSED=kernel``) launches the per-expert kernel of
-``csrc/moe_dense.cu`` (GEMM1 with its epilogue, GEMM2 with the whole-I
-requantization of the hidden as it is read, a fixed-order reduce) over the
-per-expert stack of ``models/moe_fuse.py::fuse_moe_decode_params``, or runs
+``csrc/moe_dense.cu`` over the per-expert stack of
+``models/moe_fuse.py::fuse_moe_decode_params``, or runs
 :func:`expert_ffn_dense_reference` for CPU tensors. It replaces
-``apertis_llm_tpu/ops/pallas/moe_ffn.py::expert_ffn_dense``.
+``apertis_llm_tpu/ops/pallas/moe_ffn.py::expert_ffn_dense``. The kernel is
+the fat kernel's pair of products, one grid slice an expert: GEMM1's wide
+form (the f32 hidden and each (row, expert) absmax over the whole of I) and
+its requantization pass, then a GEMM2 whose K split over a cluster adds its
+exact int32 parts in distributed shared memory before the one float
+conversion. The plan is ``ops/kernels/decode_plan.py::dense_plan``.
 """
 
 from __future__ import annotations
@@ -40,7 +44,6 @@ from apertis_llm_torch.ops.kernels.flash_attention import RESOURCE_KEYS
 from apertis_llm_torch.ops.quant import int_mm
 
 _ACT_CODES = {"relu": 1, "silu": 2, "swish": 2}   # anything else: exact GELU
-_GEMM_M, _GEMM_N, _GEMM_K = 64, 128, 64           # csrc/moe_gemm.cuh block tile (#11)
 _BLOCK_N = 2816     # the TPU kernel's default tile width (moe_ffn.py:270)
 
 
@@ -111,9 +114,11 @@ def expert_ffn_fat_int4_reference(
                                     unpack_int4(w2t_q4, w2t_sh), w2t_s, num_experts, hidden_act)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+def dense_plan(xq: torch.Tensor, d: int, inter: int,
+               num_experts: int) -> decode_plan.DensePlan:
+    """The plan of the per-expert kernel for these rows on their card."""
+    return decode_plan.dense_plan(xq.shape[0], d, inter, num_experts,
+                                  _build.sm_count(xq.device.index or 0))
 
 
 def fat_plan(xq: torch.Tensor, d: int, inter: int, num_experts: int,
@@ -121,7 +126,7 @@ def fat_plan(xq: torch.Tensor, d: int, inter: int, num_experts: int,
     """The plan of the int8 (bits 8) or int4 fat kernel for these rows on
     their card."""
     return decode_plan.fat_plan(xq.shape[0], d, inter, num_experts, fat_block_n(inter), bits,
-                                _sm_count(xq.device.index or 0))
+                                _build.sm_count(xq.device.index or 0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -335,19 +340,19 @@ def expert_ffn_dense(
     if s == 0 or e == 0 or d % 16 or inter % 16:
         raise ValueError(f"expert_ffn_dense: unsupported shape S={s} H={d} I={inter} E={e}")
     _build.check_aligned("expert_ffn_dense", xq, w1q, w2q)
-    # Parts each GEMM2 contraction is cut into, for about two blocks per SM
-    # (the int32 parts add exactly, so it does not change the result).
-    blocks = -(-d // _GEMM_N) * -(-s // _GEMM_M) * e
-    ksplit = max(1, min(-(-inter // _GEMM_K), -(-2 * _sm_count(dev.index) // blocks)))
-    hidden = torch.empty((e, s, inter), dtype=torch.float32, device=dev)
-    absmax = torch.empty((e, s), dtype=torch.float32, device=dev)
-    partial = torch.empty((ksplit, e, s, d), dtype=torch.int32, device=dev)
+    plan = dense_plan(xq, d, inter, e)
+    # hq (S, E * Ip) int8, hs (S, E), hidden (S, E * I) and absmax (S, E) f32
+    # in one buffer: the fat kernel's wide-form scratch with one tile an
+    # expert.
+    *offsets, size = _fat_scratch(s, e * inter, inter, True)
+    scratch = torch.empty((size,), dtype=torch.uint8, device=dev)
+    hq, hs, hidden, absmax = (scratch.data_ptr() + off for off in offsets)
     out = torch.empty((e, s, d), dtype=out_dtype, device=dev)
     err = _build.load_library().apertis_expert_ffn_dense(
         xq.data_ptr(), xs.data_ptr(), w1q.data_ptr(), w1s.data_ptr(), b1.data_ptr(),
-        w2q.data_ptr(), w2s.data_ptr(), b2.data_ptr(), out.data_ptr(), hidden.data_ptr(),
-        absmax.data_ptr(), partial.data_ptr(), s, d, inter, e, ksplit,
-        _ACT_CODES.get(hidden_act, 0), int(out_dtype == torch.bfloat16),
+        w2q.data_ptr(), w2s.data_ptr(), b2.data_ptr(), out.data_ptr(), hq, hs, hidden, absmax,
+        s, d, inter, e, _ACT_CODES.get(hidden_act, 0), int(out_dtype == torch.bfloat16),
+        plan.up.rows, plan.down.split, plan.up.stages, plan.down.stages,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "expert_ffn_dense")
     expert_ffn_dense.launches += 1

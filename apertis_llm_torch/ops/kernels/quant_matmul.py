@@ -32,7 +32,6 @@ reads what the card gives each plan.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -149,14 +148,9 @@ def fused_plan(m: int, n: int, k: int, sms: int, w_aligned: bool = True) -> Fuse
     return FusedPlan(rows, split, group, stages, tma_w)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _plan_args(x: torch.Tensor, w_q: torch.Tensor, m: int, n: int, k: int) -> tuple:
     """The tile plan of a launch on the card, as the C entry points take it."""
-    plan = tile_plan(m, n, k, x.element_size(), _sm_count(x.device.index or 0),
+    plan = tile_plan(m, n, k, x.element_size(), _build.sm_count(x.device.index or 0),
                      x.data_ptr() % 16 == 0, w_q.data_ptr() % 16 == 0)
     return plan.rows, plan.split, int(plan.tma_x), int(plan.tma_w)
 
@@ -344,7 +338,7 @@ def _fused_args(x2: torch.Tensor, w_q: torch.Tensor, m: int, k: int) -> tuple:
 def fused_plan_on(x: torch.Tensor, w_q: torch.Tensor) -> FusedPlan:
     """#8's plan for the (..., K) rows x and the weight w_q on x's card."""
     k, n = w_q.shape
-    return fused_plan(x.numel() // max(k, 1), n, k, _sm_count(x.device.index or 0),
+    return fused_plan(x.numel() // max(k, 1), n, k, _build.sm_count(x.device.index or 0),
                       w_q.data_ptr() % 16 == 0)
 
 

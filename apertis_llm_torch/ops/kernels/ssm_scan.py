@@ -154,6 +154,14 @@ def selective_scan_bwd_reference(
     return d_delta, d_a, lam.to(c_mod.dtype), (g * hs).to(c_mod.dtype)
 
 
+# The backward kernels cut the time axis into chunks of BWD_CHUNK steps
+# (csrc/ssm_scan.cu): at the 1.5B training shape (4, 1024, 38 x 16), 32
+# chunks of (b, c) threads, about 18 warps on each of the H100's SMs, each
+# walking 32 steps. The chunked carry reassociates the adjoint's sums;
+# nothing else of the result depends on the chunk.
+BWD_CHUNK = 32
+
+
 def _scan_bwd_launch(entry: str, name: str, delta, a_cont, c_mod, seq_mask, hs, gy, g_last):
     """Check the backward's operands and launch the C entry point ``entry``."""
     bsz, l, h, n = hs.shape
@@ -173,12 +181,14 @@ def _scan_bwd_launch(entry: str, name: str, delta, a_cont, c_mod, seq_mask, hs, 
     d_a = torch.empty((h, n), dtype=torch.float32, device=dev)
     db = torch.empty_like(c_mod)
     dc = torch.empty_like(c_mod)
-    da_part = torch.empty((bsz, h * n), dtype=torch.float32, device=dev)
+    # dA's partials a (row, chunk), then pass 1's lam0 and prod.
+    scratch = torch.empty((3, bsz, -(-l // BWD_CHUNK), h * n), dtype=torch.float32,
+                          device=dev)
     err = getattr(_build.load_library(), entry)(
         delta.data_ptr(), a_cont.data_ptr(), c_mod.data_ptr(),
         seq_mask.data_ptr() if seq_mask is not None else None, hs.data_ptr(), gy.data_ptr(),
         g_last.data_ptr() if g_last is not None else None, d_delta.data_ptr(), d_a.data_ptr(),
-        db.data_ptr(), dc.data_ptr(), da_part.data_ptr(), bsz, l, h, n,
+        db.data_ptr(), dc.data_ptr(), scratch.data_ptr(), bsz, l, h, n, BWD_CHUNK,
         int(c_mod.dtype == torch.bfloat16), int(gy.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, name)

@@ -39,6 +39,12 @@ from apertis_llm_torch.ops.moe import _combine_weights, route
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
 from apertis_llm_torch.ops.quant import int_mm
 
+# The most experts the moe epilogue's router takes (a row's logits are one
+# warp's lanes, csrc/ssm_step.cu); a model with more runs the step without
+# its epilogue and then its MoE FFN (models/apertis.py).
+MOE_EPILOGUE_MAX_EXPERTS = 32
+
+
 class MixerWeights(NamedTuple):
     """One layer's selective-SSM weights, JAX (in, out) layout. In the int8
     layout the four projections are int8 and carry (1, out) f32 scales."""
@@ -231,8 +237,9 @@ def _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, proj_dtype, rout
         for name, t, shape in (("router ln_w", router.ln_w, (d,)), ("router ln_b", router.ln_b, (d,)),
                                ("router w", router.w, (d, e)), ("router b", router.b, (e,))):
             _build.check_tensor(t, shape, bf16, name, dev)
-        if not 2 <= e <= 32:
-            raise ValueError(f"ssm_decode_step: the moe epilogue takes 2-32 experts, got {e}")
+        if not 2 <= e <= MOE_EPILOGUE_MAX_EXPERTS:
+            raise ValueError(f"ssm_decode_step: the moe epilogue takes 2-"
+                             f"{MOE_EPILOGUE_MAX_EXPERTS} experts, got {e}")
     if bsz == 0 or heads * n != c:
         raise ValueError(f"ssm_decode_step: unsupported shape B={bsz} C={c} H={heads}")
     return bsz, d, c, k, r, heads, n
@@ -307,11 +314,6 @@ def _step_outputs(bufs):
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _scratch_bytes(batch: int, d: int, c: int, r: int, int8: bool) -> int:
     """The bytes of a step's scratch (``csrc/ssm_step.cu::StepScratch``)."""
     return _build.load_library().apertis_ssm_step_scratch(batch, d, c, r, int(int8))
@@ -321,7 +323,7 @@ def step_plan(h: torch.Tensor, w: MixerWeights) -> decode_plan.StepPlan:
     """The plan of the step in w's layout for these rows on h's card."""
     plan = decode_plan.ssm_step_plan if w.quantized else decode_plan.bf16_step_plan
     return plan(h.shape[0], h.shape[1], w.inx_w.shape[1], w.dt_w.shape[0],
-                _sm_count(h.device.index or 0))
+                _build.sm_count(h.device.index or 0))
 
 
 def ssm_step_resources(kernel: str, plan: decode_plan.GemmPlan, int8: bool) -> Dict[str, int]:
@@ -341,11 +343,12 @@ def _launch_step(entry, h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out, rou
     """Check the step's tensors, allocate its outputs and scratch and launch
     ``entry`` on its plan; returns (the error, the outputs)."""
     int8 = w.quantized
+    if h.shape[-1] % 4 or w.inx_w.shape[-1] % 4:
+        # check_supported (models/params.py) refuses these widths.
+        raise ValueError("ssm_decode_step: the kernel needs D, C multiples of 4")
     dims = _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out,
                        torch.int8 if int8 else torch.bfloat16, router)
     bsz, d, c, _, r = dims[:5]
-    if d % 4 or c % 4:
-        raise ValueError("ssm_decode_step: the kernel needs D, C multiples of 4")
     outs = _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, int8)
     scratch = torch.empty((_scratch_bytes(bsz, d, c, r, int8),), dtype=torch.int8,
                           device=h.device)

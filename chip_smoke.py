@@ -36,7 +36,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      rows for the same bits; its warm and cold times over the 44 layers' fat stacks
      with each layer's own routing, ``fat_times``) and the grouped expert
      kernel, with sensitivity checks for the combine weights, b1t, w1t_s,
-     w2t_s, the router bias and the epilogue's inverse deviation;
+     w2t_s, the router bias and the epilogue's inverse deviation, and the
+     bf16 moe epilogue's combine weights at 256 rows over FAULT2_SEEDS more
+     seeds;
      Then the 1.5B MHA model (hidden 2432, 20 layers, 38 heads of 64, q/k/v/o
      biases), bf16 and int8: the decode-attention kernel over a bf16 and an
      int8 cache at the caches of the requests below, at bench.py's 256-slot
@@ -78,7 +80,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      rows) beside their bounds and ``torch._int_mm`` on the
      row-major weight and on a column-major copy; the per-expert MoE kernel
      (``expert_ffn_dense``, ``moe_mode="kernel"``) at the 1.5B MoE widths at
-     S = 4, 64 and 256; each with sensitivity checks (the scales, the
+     S = 4, 5, 64 and 256, bf16 and f32 out, each activation, twice at 64
+     and 256 rows for the same bits; each with sensitivity checks (the scales, the
      biases, #8's per-block scales) that must move the plain output by 9
      tolerances;
   4. serve two batches through ``InferenceEngine.generate`` with the dense
@@ -110,9 +113,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      which the backward reads, at the 1.5B SSM training shape and ragged
      with a mask; the scan backward (on the plain side from the plain
      forward's states) at the training shape (B = 4, L = 1024, 38 heads of
-     16, bf16), at a ragged
-     L = 300 with a mask and an ``h_last`` cotangent, with f32 operands and at
-     the MoE mixer's 11 heads; flash dQ and dK/dV at (4, 38, 1024, 64), at
+     16, bf16; chunks of the time axis, twice for the same bits), at a
+     ragged L = 300 with a mask and an ``h_last`` cotangent, with f32
+     operands and at the MoE mixer's 11 heads; flash dQ and dK/dV at (4, 38, 1024, 64), at
      L = 300 and at Dh 32, 128 and 256; with sensitivity checks (the
      ``h_last`` cotangent, the mask, the a*A and a*delta chain factors;
      ``delta``, ``lse``, the causal mask) and the backward of
@@ -133,7 +136,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      MoE), dense int8 under ``pallas`` and ``fused`` and MoE int8 under
      ``kernel`` (exact launch counts), a hidden-192 int8 model and an MHA
      model with heads of 96 (bf16 and int8 cache: #9 at every decode
-     step), that the 1.5B logits are finite, that
+     step), and a MoE model with 40 experts, more than the decode step's moe
+     epilogue takes (bf16 and int8, and int8 through
+     ``InferenceEngine.generate``: every decode step without the epilogue,
+     the fat kernel once a layer and step), that the 1.5B logits are finite, that
      the 1.5B MHA ``forward()`` without a mask runs the flash kernel once per
      layer and agrees with the plain attention, that a 2-layer f32 flash
      MHA ``forward()`` runs the f32 flash kernel once per layer and agrees
@@ -187,7 +193,7 @@ prints the bf16 and f32 flash kernels' resources, #7's, #6's and #8's times,
 #7's and #6's resources and host enqueue times (``{"qmm": ...}``), the decode
 kernels' times and resources (``{"decode_times": ...}``: #3 int8 and bf16,
 each with the dense and the moe epilogue, #4 bf16, int8 and int4, #10 int8
-and int4), the kernels' JSON summary and the
+and int4, #11), the kernels' JSON summary and the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
 
@@ -199,12 +205,15 @@ card's name and power limit; the last line is ``{"ok": true, "device":
                                              # model's f32 micro-step p50
     python3 chip_smoke.py --decode-times     # the int8 and bf16 decode step's (dense
                                              # and moe epilogues), the bf16, int8 and
-                                             # int4 decode FFN's and the int8 and int4
-                                             # fat MoE FFN's warm and cold times at 64
-                                             # and 4 rows
+                                             # int4 decode FFN's, the int8 and int4
+                                             # fat MoE FFN's and the per-expert MoE
+                                             # FFN's warm and cold times at 64 and 4 rows
+    python3 chip_smoke.py --scan-bwd-times   # the scan backward's times at the 1.5B
+                                             # training shape, N = 12 and 11 heads
 
 The first two flags run ``qmm_phase`` only. ``--qmm-times``,
-``--flash-f32-times`` and ``--decode-times`` need nothing of the checkout but
+``--flash-f32-times``, ``--decode-times`` and ``--scan-bwd-times`` need nothing
+of the checkout but
 the wrappers' (and the trainer's) Python interface, so a checkout of an
 earlier commit can run them with this script copied into it, for a
 comparison in one call.
@@ -733,6 +742,9 @@ def qmm_phase(card, check=True, alternatives=False):
 # model's widths, and 4 x 18.9 MB of the 3B MoE model's int4 fat stacks, more
 # than the H100's 50 MB L2.
 COLD_INT4_LAYERS = 4
+# Seeds of the bf16 moe epilogue's 256-row check beyond the smoke's own
+# (ROADMAP.md section 3, fault 2).
+FAULT2_SEEDS = 16
 
 
 def dense_preset_config(dims):
@@ -964,6 +976,68 @@ def fat_times(card, moe_model, moe_config, layers=None):
     return result
 
 
+def dense_times(card, moe_model, moe_config):
+    """rotation_times of the per-expert MoE FFN (#11, ``moe_mode="kernel"``)
+    at 64 and 4 rows over the int8 MoE model's per-expert stacks: warm on
+    the first layer's, cold over all 44 (31.7 MB of int8 expert weights
+    each), each call on pre-normed random rows centred and quantized as
+    moe_dense_fused gives them. Like decode_times, an earlier commit can run
+    it with this script copied in."""
+    from apertis_llm_torch.ops import moe as moe_ops
+    from apertis_llm_torch.ops.kernels.moe_ffn import expert_ffn_dense
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    d, eps, act = moe_config.hidden_size, moe_config.layer_norm_eps, moe_config.hidden_act
+    result = {}
+    for rows in (64, 4):
+        fns = []
+        for lay in moe_model.layers:
+            ffn, st = lay.ffn, lay.ffn.experts.fused()
+            x = ffn.pre_norm(torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16))
+            xq, xs = moe_ops.center_quantize(x, eps)
+            args = (xq, xs, st["w1f_q"], st["w1f_s"], st["b1f"], st["w2f_q"], st["w2f_s"],
+                    ffn.experts.b2.float(), torch.bfloat16, act)
+            fns.append(lambda a=args: expert_ffn_dense(*a))
+        label = f"expert_ffn_dense at {rows} rows"
+        result[label] = rotation_times(card, label, fns)
+    return result
+
+
+def scan_bwd_times(card):
+    """The scan backward's times (#1: selective_scan_bwd at the 1.5B
+    training shape (4, 1024, 38, 16), selective_scan_bwd_smem at N = 12 and
+    the MoE mixer's 11 heads of 16) on seeded operands as training gives
+    them: the wrapper's CUDA-event time, the profiler's device time by
+    kernel, and the bound of the bytes the gradient must move. It needs
+    nothing of the checkout but the wrappers' Python interface, so an
+    earlier commit can run it with this script copied in."""
+    from apertis_llm_torch.ops.kernels.ssm_scan import (
+        selective_scan_bwd, selective_scan_bwd_smem, selective_scan_fwd)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    result = {}
+    for fn, (b, l, h, n) in ((selective_scan_bwd, (4, 1024, 38, 16)),
+                             (selective_scan_bwd_smem, (4, 1024, 38, 12)),
+                             (selective_scan_bwd, (4, 1024, 11, 16))):
+        delta = torch.nn.functional.softplus(
+            torch.randn((b, l, h), generator=gen, device=dev) - 4.0)
+        a_cont = -torch.empty((h, n), device=dev).uniform_(0.5, 0.99, generator=gen)
+        bt, ct, gy = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                      for shape in ((b, l, h, n), (b, l, h, n), (b, l, h * n)))
+        hs = selective_scan_fwd(delta, a_cont, bt, ct, None, torch.bfloat16, want_h=True)[2]
+        args = (delta, a_cont, ct, None, hs, gy, None)
+        moved = nbytes(delta, a_cont, ct, hs, gy) + nbytes(delta, a_cont) + 2 * nbytes(ct)
+        label = f"{fn.__name__} {(b, l, h, n)}"
+        result[label] = {"ms": cuda_ms(lambda: fn(*args)),
+                         "device_ms": device_ms(lambda: fn(*args)),
+                         "device_ms_by_kernel": device_ms(lambda: fn(*args), by_kernel=True),
+                         "bound_ms": bound(moved, 12 * ct.numel(), "f32")[0]}
+        log(f"  {label}: {json.dumps(result[label])}; card: {card}")
+    return result
+
+
 def parallel_rank(rank, scan_args, small, preset):
     """One of phase 7's two ranks, which share the card in a gloo process
     group (``apertis_llm_torch.parallel.spawn``): the sequence-parallel scan
@@ -1068,6 +1142,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO_ROOT))
     from apertis_llm_torch.config import ApertisConfig
     from apertis_llm_torch.inference.engine import InferenceEngine
+    from apertis_llm_torch.models import apertis as apertis_model
     from apertis_llm_torch.models.convert import from_jax_params
     from apertis_llm_torch.models.factory import calculate_model_dimensions
     from apertis_llm_torch.models.moe_fuse import fuse_one_fat
@@ -1096,7 +1171,7 @@ def main() -> int:
     from apertis_llm_torch.ops.kernels.moe_grouped import (
         TILE, expert_ffn_grouped, expert_ffn_grouped_reference)
     from apertis_llm_torch.ops.kernels.ssm_scan import (
-        selective_scan_bwd, selective_scan_bwd_reference, selective_scan_bwd_smem,
+        BWD_CHUNK, selective_scan_bwd, selective_scan_bwd_reference, selective_scan_bwd_smem,
         selective_scan_carry_bwd, selective_scan_carry_bwd_reference, selective_scan_carry_fwd,
         selective_scan_carry_fwd_reference, selective_scan_fwd, selective_scan_fwd_reference)
     from apertis_llm_torch.ops.kernels.quant_matmul import (
@@ -1589,6 +1664,41 @@ def main() -> int:
                      ssm_decode_step, ssm_decode_step_reference, moe_tols,
                      cost=step_cost(args) if (b, label) == (64, "LayerNorm") else None,
                      repeat=w.quantized or b == 64)
+    # The bf16 step's moe epilogue at 256 rows over FAULT2_SEEDS more seeds of
+    # its inputs (ROADMAP.md section 3, fault 2): the largest combine-weight
+    # error and the rows whose top-2 choice differs from the plain version's.
+    # A row keeps its choice when neither side's two largest gates are near
+    # a tie; there its weights are held to F32_TOL. A row whose FFN input n2
+    # rounds to another bf16 value (the two sides' f32 sums of the products
+    # run in other orders) can swap two experts whose gates tie to within
+    # that difference: its weights, sorted, are held to F32_TOL, so that a
+    # swap of experts that are not tied fails.
+    fault2 = {"seeds": FAULT2_SEEDS, "max_comb_err": 0.0, "rows_top2_changed": 0,
+              "max_err_same_choice": 0.0, "max_sorted_err_changed_choice": 0.0}
+    for seed in range(FAULT2_SEEDS):
+        gs = torch.Generator(device=dev).manual_seed(SEED + 1000 + seed)
+        args = (randn(256, md, gen=gs), randn(256, moe_config.ssm_conv_kernel - 1, mc, gen=gs),
+                randn(256, mc, dtype=f32, gen=gs), m_mixer, eps, m_fnorm3, None, m_router)
+        comb, comb_ref = ssm_decode_step(*args)[5], ssm_decode_step_reference(*args)[5]
+        changed = ((comb > 0) != (comb_ref > 0)).any(dim=1)
+        err = (comb - comb_ref).abs()
+        sorted_err = (comb.sort(dim=1).values - comb_ref.sort(dim=1).values).abs()
+        same = float(err[~changed].max()) if bool((~changed).any()) else 0.0
+        swapped = float(sorted_err[changed].max()) if bool(changed.any()) else 0.0
+        tol = F32_TOL * float(comb_ref.abs().max())
+        fault2["max_comb_err"] = max(fault2["max_comb_err"], float(err.max()))
+        fault2["rows_top2_changed"] += int(changed.sum())
+        fault2["max_err_same_choice"] = max(fault2["max_err_same_choice"], same)
+        fault2["max_sorted_err_changed_choice"] = max(fault2["max_sorted_err_changed_choice"],
+                                                      swapped)
+        ok = same <= tol and swapped <= tol
+        log(f"  bf16 decode step B=256 LayerNorm, moe epilogue, seed {seed}: comb max_abs_err "
+            f"{float(err.max()):.3e}, rows with another top-2 {int(changed.sum())} (sorted "
+            f"weights {swapped:.3e}), other rows {same:.3e} (tolerance {tol:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"bf16 moe epilogue, seed {seed}: the combine weights disagree")
+    log(f"  bf16 moe epilogue over {FAULT2_SEEDS} seeds at 256 rows: {json.dumps(fault2)}")
     for rows in (4, 64):
         h_ = randn(rows, md)
         for name, w in (("ssm_decode_step_int8_moe", m_qmixer), ("ssm_decode_step_moe", m_mixer)):
@@ -2168,15 +2278,19 @@ def main() -> int:
         "w2s": dense_without(6, torch.ones_like(args[6])),
         "b2": dense_without(7, torch.zeros_like(args[7])),
     }, fat_tols, factor=SENSITIVITY_FACTOR)
+    # At 4, 5, 64 and 256 rows (GEMM2's row tiles of 16 and 64, one and four
+    # of them), in bf16 and f32 out and with each activation; twice at 64
+    # and 256 rows for the same bits.
     for s_, out_dtype, act in ((4, bf16, moe_config.hidden_act), (64, bf16, moe_config.hidden_act),
                                (256, bf16, moe_config.hidden_act),
                                (64, f32, moe_config.hidden_act), (5, bf16, "relu"),
-                               (5, bf16, "silu")):
+                               (5, bf16, "silu"), (4, f32, "relu"), (256, f32, "silu")):
         args = dense_inputs(s_, act=act, out_dtype=out_dtype)
         check_kernel("expert_ffn_dense", f"expert_ffn_dense S={s_} {act} (H={md}, E={n_exp}, "
                      f"I={m_inter}), {str(out_dtype)[6:]} out", args, expert_ffn_dense,
                      expert_ffn_dense_reference, fat_tols,
-                     cost=dense_cost(args) if s_ == 64 and out_dtype == bf16 else None)
+                     cost=dense_cost(args) if s_ == 64 and out_dtype == bf16 else None,
+                     repeat=s_ in (64, 256))
     args = dense_inputs(5, stack=mlayer.ffn.experts.fused(), ffn=mlayer.ffn)
     check_kernel("expert_ffn_dense", "expert_ffn_dense S=5, the bf16 model's per-expert stack",
                  args, expert_ffn_dense, expert_ffn_dense_reference, fat_tols)
@@ -2259,9 +2373,10 @@ def main() -> int:
             ((2, 77), mlayer.attn.A_log.shape[0], bf16, False, True, "the MoE mixer's 11 heads")]:
         args, hs_plain = scan_bwd_inputs(b, l, hh, dtype, masked, glast)
         timed = label == "the 1.5B training shape"
-        check_kernel("selective_scan_bwd", f"scan backward B={b} L={l} H={hh} ({label})", args,
-                     selective_scan_bwd, plain_scan_bwd(hs_plain), scan_bwd_tols(dtype),
-                     cost=scan_bwd_cost(args) if timed else None)
+        check_kernel("selective_scan_bwd", f"scan backward B={b} L={l} H={hh} ({label}), "
+                     f"chunks of {BWD_CHUNK}", args, selective_scan_bwd,
+                     plain_scan_bwd(hs_plain), scan_bwd_tols(dtype),
+                     cost=scan_bwd_cost(args) if timed else None, repeat=timed or masked)
 
     def flash_bwd_inputs(shape):
         q, k, v, do = (randn(*shape) for _ in range(4))
@@ -2348,8 +2463,9 @@ def main() -> int:
     for n_ in (24, 48, 64, 12):
         args, hs_plain = scan_bwd_inputs(4, 1024, masked=True, with_g_last=True, n_=n_)
         check_kernel("selective_scan_bwd_smem", f"scan backward B=4 L=1024 H={ssm_heads} N={n_} "
-                     "(masked, h_last cotangent)", args, selective_scan_bwd_smem,
-                     plain_scan_bwd(hs_plain), scan_bwd_tols(bf16), cost=scan_bwd_cost(args))
+                     f"(masked, h_last cotangent), chunks of {BWD_CHUNK}", args,
+                     selective_scan_bwd_smem, plain_scan_bwd(hs_plain), scan_bwd_tols(bf16),
+                     cost=scan_bwd_cost(args))
     repeats("selective_scan_bwd_smem N=12", selective_scan_bwd_smem, args)
     args, hs_plain = scan_bwd_inputs(3, 300, dtype=f32, masked=True, with_g_last=True, n_=48)
     check_kernel("selective_scan_bwd_smem", "scan backward B=3 L=300 N=48 (f32 operands, "
@@ -2773,12 +2889,17 @@ def main() -> int:
     # Heads of 96: the decode-attention kernel (#9) at a head width that is a
     # multiple of 32 but not a power of two, over a bf16 and an int8 cache.
     mha96_small = dict(mha_small, hidden_size=384)
+    # 40 experts, more than the decode step's moe epilogue takes: every
+    # decode step runs without it and then the MoE FFN (ROADMAP.md section 3,
+    # fault 1).
+    moe40_small = dict(moe_small, intermediate_size=256, num_experts=40)
     ids = torch.as_tensor(batch_a % 1000, dtype=torch.long)
     mask = torch.as_tensor(mask_a)
     small_err = {}
     cases = []
     for family, kw in (("", dense_small), ("MoE ", moe_small), ("MHA ", mha_small),
-                       ("hidden-192 ", narrow_small), ("MHA Dh-96 ", mha96_small)):
+                       ("hidden-192 ", narrow_small), ("MHA Dh-96 ", mha96_small),
+                       ("MoE-40 ", moe40_small)):
         small = ApertisConfig(**kw)
         tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu",
                            dtype=torch.bfloat16)
@@ -2836,7 +2957,9 @@ def main() -> int:
                 "MoE w4a8": ["expert_ffn_fat_int4", "quant_matmul_dyn_pre_q"],
                 "hidden-192 int8": ["quant_matmul_dyn_pre_q"],
                 "MHA Dh-96 bf16": ["mha_decode_ctx"],
-                "MHA Dh-96 int8": ["mha_decode_ctx_int8", "quant_matmul_dyn_pre_q"]}.get(kind, [])
+                "MHA Dh-96 int8": ["mha_decode_ctx_int8", "quant_matmul_dyn_pre_q"],
+                "MoE-40 bf16": ["expert_ffn_fat", "ssm_decode_step"],
+                "MoE-40 int8": ["expert_ffn_fat", "ssm_decode_step_int8"]}.get(kind, [])
         nl_small = small.num_hidden_layers
         # The mode's kernel: the prefill's six int8 linears a layer and the
         # head at prefill and at each of the 5 decode steps; the per-expert
@@ -2853,6 +2976,46 @@ def main() -> int:
             raise RuntimeError(f"2-layer {kind}: kernels launched {ran}, expected {must} "
                                f"and {exact}")
         log(f"  2-layer {kind} on the card launched {ran}")
+
+    # The 40-expert int8 model through InferenceEngine.generate on the card:
+    # request A (bucketed prefill through the grouped kernel), every decode
+    # step without the moe epilogue (the model asks the step for no router)
+    # and then the fat kernel, once a layer and step.
+    small = ApertisConfig(**moe40_small)
+    tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu",
+                       dtype=torch.bfloat16)
+    perturb_(tree, torch.Generator().manual_seed(SEED + 3))
+    m40 = from_jax_params(quantize_params(tree, min_size=0), small, device=dev,
+                          dtype=torch.bfloat16)
+    engine = InferenceEngine(small, m40)
+    routers, real_step = [], apertis_model.ssm_decode_step
+
+    def step_spy(*a, **kw):
+        routers.append(kw.get("router") is not None)
+        return real_step(*a, **kw)
+
+    apertis_model.ssm_decode_step = step_spy
+    for f in counters:
+        f.launches = 0
+    try:
+        out40 = engine.generate(batch_a % 1000, attention_mask=mask_a, max_new_tokens=8,
+                                eos_token_id=())
+    finally:
+        apertis_model.ssm_decode_step = real_step
+    steps40 = out40.shape[1] - batch_a.shape[1] - 1
+    nl40 = small.num_hidden_layers
+    ran = {f.__name__: f.launches for f in counters if f.launches}
+    if (out40.shape != (4, batch_a.shape[1] + 8) or out40[:, batch_a.shape[1]:].min() < 0
+            or out40[:, batch_a.shape[1]:].max() >= small.vocab_size
+            or len(routers) != nl40 * steps40 or any(routers)
+            or ran.get("expert_ffn_fat") != nl40 * steps40
+            or ran.get("ssm_decode_step_int8") != nl40 * steps40):
+        raise RuntimeError(f"2-layer 40-expert int8 generate: output {out40.shape}, epilogue "
+                           f"asked {sum(routers)} of {len(routers)} steps, launched {ran}")
+    log(f"  2-layer 40-expert int8 model through InferenceEngine.generate on the card: "
+        f"{steps40 + 1} new tokens, {len(routers)} decode steps without the moe epilogue, "
+        f"launched {ran}")
+    del m40, engine
 
     # An f32 flash MHA forward() on the card runs the f32 flash kernel once
     # per layer (never the bf16 one), and agrees with the same forward() on
@@ -3367,7 +3530,8 @@ def main() -> int:
                       "flash_forward_max_abs_err": flash_forward_err,
                       "f32_flash_forward_max_abs_err": f32_flash_err,
                       "moe_f32_forward_max_abs_err": moe_forward_err,
-                      "scan_carry_bit_equal": carry_bit_equal}))
+                      "scan_carry_bit_equal": carry_bit_equal,
+                      "moe_epilogue_seeds": fault2}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3479,8 +3643,8 @@ def flash_f32_times_main() -> int:
 
 def decode_times_main() -> int:
     """``--decode-times``: decode_times on the 1.5B int8 and bf16 models,
-    moe_step_times on the 1.5B int8 and bf16 MoE models, fat_times on the
-    1.5B int8 MoE model, and fat_times
+    moe_step_times on the 1.5B int8 and bf16 MoE models, fat_times and
+    dense_times on the 1.5B int8 MoE model, and fat_times
     on COLD_INT4_LAYERS layers of the 3B MoE model with int4 fat stacks
     alone (each built as the full run builds it), which a checkout of an
     earlier commit can run with this script copied into it, for a
@@ -3526,6 +3690,7 @@ def decode_times_main() -> int:
     del moe_model
     moe_qmodel.attach_moe_fat()
     result.update(fat_times(card, moe_qmodel, moe_config))
+    result.update(dense_times(card, moe_qmodel, moe_config))
     del moe_qmodel
     # The 3B MoE preset, cut to the layers the int4 cold time rotates over.
     m3dims = calculate_model_dimensions("3B", 32000, use_expert_system=True)
@@ -3547,7 +3712,27 @@ def decode_times_main() -> int:
     return 0
 
 
+def scan_bwd_times_main() -> int:
+    """``--scan-bwd-times``: scan_bwd_times alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO_ROOT))
+    from apertis_llm_torch.ops.kernels import _build
+
+    card = card_line()
+    t0 = time.perf_counter()
+    _build.load_library()
+    log(f"card: {card}; build in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"scan_bwd_times": scan_bwd_times(card)}))
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--scan-bwd-times"]:
+        sys.exit(scan_bwd_times_main())
     if sys.argv[1:] in (["--qmm"], ["--qmm-times"]):
         sys.exit(qmm_main(check=sys.argv[1] == "--qmm"))
     if sys.argv[1:] == ["--flash-f32-times"]:

@@ -32,12 +32,14 @@ from apertis_llm_torch.ops.activations import get_activation
 from apertis_llm_torch.ops.kernels import _build
 from apertis_llm_torch.ops.kernels.decode_plan import (
     BW_BYTES, BW_CHUNK, CHUNK, MAX_FAT_SPLIT, MAX_GROUP, MAX_SPLIT, MAX_UP_CLUSTER, MIN_STAGES,
-    ROW_TILES, SMEM_LIMIT, TILE_COLS, W4_BYTES, W8_BYTES, FatPlan, FfnPlan, GemmPlan, StepPlan,
-    bf16_ffn_plan, bf16_step_plan, down_extra, fat_plan, fat_wide, ffn_plan, smem_bytes,
-    ssm_step_plan, xset_bytes)
+    ROW_TILES, SMEM_LIMIT, TILE_COLS, W4_BYTES, W8_BYTES, DensePlan, FatPlan, FfnPlan, GemmPlan,
+    StepPlan, bf16_ffn_plan, bf16_step_plan, dense_plan, down_extra, fat_plan, fat_wide, ffn_plan,
+    smem_bytes, ssm_step_plan, xset_bytes)
 from apertis_llm_torch.ops.kernels.ffn_fused import (
     ffn_decode_int8_reference, ffn_decode_reference, pick_block_n)
-from apertis_llm_torch.ops.kernels.moe_ffn import expert_ffn_fat_reference, fat_block_n
+from apertis_llm_torch.ops.kernels.moe_ffn import (
+    expert_ffn_dense_reference, expert_ffn_fat_reference, fat_block_n)
+from apertis_llm_torch.ops.quant import int_mm
 
 H100_SMS = 132
 
@@ -602,7 +604,7 @@ def test_the_fat_emulation_follows_the_kernels_source():
     assert "for (int g = 0; g < group && t < tiles; ++g, ++t) {" in core
     assert "if (live != nullptr && live[t / tile_experts] == 0) continue;" in core
     assert "const int wgap = per * kDgKC - a.bn;" in ffn
-    assert "const int kw = k0 - tile * ch.wgap;" in _source("decode_gemm.cuh")
+    assert "const int kw = k0 - tile * ch.wgap + wt.row0;" in _source("decode_gemm.cuh")
     assert "bnp = (bn + kDgKC - 1) / kDgKC * kDgKC" in moe
     assert "p[i] = __fmul_rn(__int2float_rn(acc[i]), cv[g * BR + L.row(i)]);" in ffn
     assert "v = __fmul_rn(v, a.comb[(size_t)row * a.experts + t / a.tile_experts]);" in ffn
@@ -776,3 +778,120 @@ def test_pair_exchange_places_fit_the_plan(rows, split):
     assert "const int owner = p * split / pairs;" in src
     assert "local = p - (owner * pairs + split - 1) / split;" in src
     assert "reinterpret_cast<float4*>(set) + rank * run + local, owner)" in src
+
+
+# ---- the per-expert MoE FFN (#11, csrc/moe_dense.cu) --------------------------
+
+@pytest.mark.parametrize("rows,dims,experts,plan", [
+    # the 1.5B MoE preset: GEMM1 22 column blocks an expert (grid z 8); GEMM2's
+    # 6 column tiles x 8 experts, K split in two over a cluster
+    (64, (704, 2816), 8, DensePlan(GemmPlan(64, 0, 6, 154976, (22, 1)),
+                                   GemmPlan(64, 2, 8, 230528, (12, 1)))),
+    (4, (704, 2816), 8, DensePlan(GemmPlan(16, 0, 6, 113312, (22, 1)),
+                                  GemmPlan(16, 2, 8, 156800, (12, 1)))),
+    (5, (704, 2816), 8, DensePlan(GemmPlan(16, 0, 6, 113312, (22, 1)),
+                                  GemmPlan(16, 2, 8, 156800, (12, 1)))),
+    (256, (704, 2816), 8, DensePlan(GemmPlan(64, 0, 6, 154976, (22, 4)),
+                                    GemmPlan(64, 1, 8, 197760, (6, 4)))),
+    # the smoke's 2-layer models: 8 experts of 512, and 40 of 256 (no split)
+    (5, (256, 512), 8, DensePlan(GemmPlan(16, 0, 2, 39520, (4, 1)),
+                                 GemmPlan(16, 4, 1, 35856, (8, 1)))),
+    (5, (256, 256), 40, DensePlan(GemmPlan(16, 0, 2, 39520, (2, 1)),
+                                  GemmPlan(16, 1, 2, 37920, (2, 1)))),
+])
+def test_dense_plan_at_the_smoke_shapes(rows, dims, experts, plan):
+    h, inter = dims
+    assert dense_plan(rows, h, inter, experts, H100_SMS) == plan
+
+
+def test_dense_plan_rules_at_every_shape():
+    """Rows 1-256 at many widths and 2 to 64 experts: GEMM1 is the wide form
+    (split 0) over ceil(I / 128) column blocks an expert with the whole K;
+    GEMM2 splits an expert's ceil(I / 128) chunks over the largest cluster up
+    to MAX_FAT_SPLIT whose blocks fit on the SMs beside its column tiles, row
+    tiles and experts, with the owner-slot exchange's slots; stages 1 to 8
+    and no more than a block's chunks; shared memory as the C side computes
+    it, within the limit."""
+    for rows, (h, inter), experts, sms in itertools.product(
+            range(1, 257, 3), FAT_DIMS, (2, 8, 40, 64), (132, 16)):
+        plan = dense_plan(rows, h, inter, experts, sms)
+        br = ROW_TILES[0] if rows <= ROW_TILES[0] else ROW_TILES[1]
+        row_tiles = cdiv(rows, br)
+        stage = br * 128 + W8_BYTES
+        assert plan.up.split == 0 and plan.up.rows == plan.down.rows == br
+        assert plan.up.grid == (cdiv(inter, TILE_COLS), row_tiles)
+        assert 1 <= plan.up.stages <= min(8, cdiv(h, CHUNK))
+        assert plan.up.smem == smem_bytes(br, plan.up.stages, stage, 1,
+                                          (8 + 1 + MAX_UP_CLUSTER) * br * 4) <= SMEM_LIMIT
+        chunks, col_tiles = cdiv(inter, CHUNK), cdiv(h, TILE_COLS)
+        split = plan.down.split
+        assert split == max(1, min(MAX_FAT_SPLIT, chunks,
+                                   sms // (col_tiles * row_tiles * experts)))
+        assert 1 <= plan.down.stages <= min(8, cdiv(chunks, split))
+        assert plan.down.smem == smem_bytes(br, plan.down.stages, stage, split, 0) <= SMEM_LIMIT
+        assert plan.down.grid == (col_tiles * split, row_tiles)
+
+
+def _dense_emulation(xq, xs, w1q, w1s, b1, w2q, w2s, b2, out_dtype, act, split):
+    """csrc/moe_dense.cu's launches in torch: GEMM1 expert by expert into the
+    f32 hidden (S, E * I) with each (row, expert) absmax over the whole of I;
+    fat_quant_kernel's hs and hq, each expert's I padded with zeros to whole
+    128-row chunks (Ip); GEMM2 over the (E * I, H) stack, a K split's ranks
+    taking chunks [r * per / split, (r + 1) * per / split) of hq's expert
+    tile, a chunk's weight rows e * I + k (reading into the next expert's
+    rows, or zeros past the stack, against hq's zero padding); the ranks'
+    int32 sums added, then float(acc) * hs * w2_s + b2 in that order."""
+    e, h, inter = w1q.shape
+    s = xq.shape[0]
+    per = cdiv(inter, CHUNK)
+    ip = per * CHUNK
+    fn = get_activation(act)
+    hidden = torch.cat([fn(int_mm(xq, w1q[i]).float() * xs * w1s[i] + b1[i]) for i in range(e)],
+                       dim=1)
+    absmax = hidden.reshape(s, e, inter).abs().amax(dim=2)
+    hs = torch.clamp(absmax, min=1e-8) * (1.0 / 127.0)
+    hq = torch.zeros((s, e * ip), dtype=torch.int8)
+    for i in range(e):
+        hq[:, i * ip:i * ip + inter] = torch.clamp(
+            torch.round(hidden[:, i * inter:(i + 1) * inter] / hs[:, i:i + 1]), -127, 127)
+    stack = torch.cat([w2q.reshape(e * inter, h), torch.zeros((ip, h), dtype=torch.int8)])
+    out = []
+    for i in range(e):
+        acc = torch.zeros((s, h), dtype=torch.int32)
+        for r in range(split):
+            lo, hi = r * per // split * CHUNK, (r + 1) * per // split * CHUNK
+            if hi > lo:
+                rows_ = stack[i * inter + lo:i * inter + hi]
+                acc += int_mm(hq[:, i * ip + lo:i * ip + hi], rows_)
+        y = acc.float() * hs[:, i:i + 1] * w2s[i] + b2[i]
+        out.append(y.to(out_dtype))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("s,inter,experts,split,act", [
+    (5, 256, 3, 2, "gelu"), (17, 192, 4, 1, "relu"), (17, 192, 4, 2, "silu"),
+    (9, 384, 2, 3, "gelu"), (3, 128, 40, 1, "gelu")])
+def test_dense_emulation_is_the_reference_bit_for_bit(s, inter, experts, split, act):
+    """The per-expert kernel's launches (the padded hq, the K split's int32
+    parts, the weight read past an expert's rows against zeros) equal
+    expert_ffn_dense_reference bit for bit, I a multiple of 128 or not, at
+    any split: the int32 parts add exactly, so the split cannot move the
+    result."""
+    gen = torch.Generator().manual_seed(s * inter + experts)
+    h = 128
+    w1q = torch.randint(-127, 128, (experts, h, inter), generator=gen).to(torch.int8)
+    w2q = torch.randint(-127, 128, (experts, inter, h), generator=gen).to(torch.int8)
+    w1s = torch.rand((experts, 1, inter), generator=gen) * 1e-3
+    w2s = torch.rand((experts, 1, h), generator=gen) * 1e-3
+    b1 = torch.randn((experts, inter), generator=gen) * 0.1
+    b2 = torch.randn((experts, h), generator=gen) * 0.1
+    xq = torch.randint(-127, 128, (s, h), generator=gen).to(torch.int8)
+    xs = torch.rand((s, 1), generator=gen) * 0.01
+    args = (xq, xs, w1q, w1s, b1, w2q, w2s, b2)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        ref = expert_ffn_dense_reference(*args, out_dtype, act)
+        assert torch.equal(_dense_emulation(*args, out_dtype, act, split), ref)
+    src = _source("moe_dense.cu")
+    assert "const int c_lo = rank * a.per / split, c_hi = (rank + 1) * a.per / split;" in src
+    assert "DgChunks{e, 1, 1, a.per, a.per * kDgKC - a.k}" in src
+    assert "__fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + q]), hs), ws0), b0)" in src
