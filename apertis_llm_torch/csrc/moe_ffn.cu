@@ -108,9 +108,9 @@ int fat_run(const void* xq, const void* xs, const void* comb, const void* w1, co
                   dg_smem_bytes(BR, st_up, stage, 1, ffn_up_extra(BR)), s, xm, w1m, s1m, up);
   if (err != 0) return err;
   if (up_cluster == 0)
-    fat_quant_kernel<<<dim3(tiles, rows), kBlock, 0, s>>>(
+    fat_quant_kernel<<<fat_quant_grid(tiles, rows), kBlock, 0, s>>>(
         static_cast<const float*>(hidden), static_cast<const float*>(absmax),
-        static_cast<int8_t*>(hq), static_cast<float*>(hs), ei, bn, bnp);
+        static_cast<int8_t*>(hq), static_cast<float*>(hs), rows, ei, bn, bnp, nullptr);
   DownArgs down = {};
   down.hs = static_cast<const float*>(hs);
   down.w2s = static_cast<const float*>(w2s);

@@ -11,87 +11,70 @@
 //   h   = act(acc1_i32(x_q . W1t_q[:, e*I : (e+1)*I]) * x_s * w1t_s + b1t)   (f32)
 //   hs  = max(max|h|, 1e-8) * (1/127)      one scale per row over the whole I
 //   out = bf16(acc2_i32(rint(h / hs) . W2t_q[e*I : (e+1)*I, :]) * hs * w2t_s)
-// Rows are independent; the caller gathers and combines them.
+// which is the per-expert MoE FFN's (#11, moe_dense.cu) arithmetic for the
+// row's one expert, without its bias. Rows are independent; the caller
+// gathers and combines them.
 //
-// Bound on the H100: operations. At the smoke's 64 x 32 prefill of the 1.5B
-// MoE model (P = 5120 rows) a layer does 2 * 2 * 5120 * 704 * 2816 = 40.6 G
-// int8 operations against 31.7 MB of weights.
+// Bound on the H100: operations. At request B's 2048 tokens of the 1.5B MoE
+// model (P = 5120 rows, 4096 of them live) a layer does 2 * 2 * 4096 * 704 *
+// 2816 = 32.5 G int8 operations (0.0164 ms at 1,979 TOP/s) against 31.7 MB
+// of weights.
 //
-// Design: two launches over (128 columns, 64 rows) blocks with exact int32
-// sums on the tensor cores (moe_gemm.cuh). moe_gemm1_kernel writes the f32
-// hidden (P, I) and each row's absmax over the whole I (atomicMax);
-// moe_grouped_gemm2_kernel quantizes the hidden rows as it stages them and
-// applies the epilogue. A block's rows are one expert's, so it streams that
-// expert's weights only; the 64-row blocks of one expert re-read them from
-// L2 (the int8 fat stack of a layer is 31.7 MB, inside the 50 MB L2).
+// Design: #11's three launches (quant_ffn.cuh::expert_ffn_run: int8 wgmma
+// with the weight as the register A operand, TMA rings kept full by a
+// producer warpgroup), one grid slice, each row tile taking the expert of
+// its grouped tile from emap on the device (no host sync; the row tile, 64
+// or 128, divides the grouped tile, so a row tile is one expert's):
+//   1. ffn_up_kernel's wide form: GEMM1 (K = H) for 128 columns of the
+//      expert's I, the weight tile from columns e * I on of the fat (H, E * I)
+//      stack (TMA zero-fills x past H; columns past the expert's I, where I
+//      is not a multiple of 128, are multiplied and dropped), the f32 hidden
+//      (P, I) and each row's absmax over the whole I (an order-free integer
+//      atomicMax on the bits of the non-negative values); a tile of no
+//      expert returns at once;
+//   2. fat_quant_kernel: hs (P, 1) and hq (P, Ip), I padded with zeros to
+//      whole 128-row chunks, skipping the rows of tiles of no expert; its
+//      rows run over the grid's y and z, since P passes y's limit of 65,535
+//      from 32,768 tokens on;
+//   3. expert_down_kernel: GEMM2 (K = I) for 128 output columns and a row
+//      tile a block, W2's rows from e * I on (DgWeight::row0), K split over
+//      a cluster where the plan finds idle SMs (int32 parts, exact in any
+//      order), out = bf16(acc * hs * w2t_s); a tile of no expert writes
+//      zeros.
+// The f32 hidden at P = 5120 is 57.7 MB, more than the 50 MB L2, so it
+// crosses device memory twice (about 0.03 ms at 3.35 TB/s): a floor of the
+// three launches. The plan is ops/kernels/decode_plan.py::grouped_plan. No
+// float atomics: repeated calls give the same bits.
 
-#include "moe_gemm.cuh"
+#include "quant_ffn.cuh"
 
-namespace {
-
-__global__ void __launch_bounds__(kBlock) moe_grouped_gemm2_kernel(
-    const float* __restrict__ hidden,  // (P, I)
-    const float* __restrict__ absmax,  // (P,)
-    const int* __restrict__ emap,      // (P / 128,)
-    const int8_t* __restrict__ w2,     // (E*I, H)
-    const float* __restrict__ w2s,     // (H,)
-    bf16* __restrict__ out,            // (P, H)
-    int rows, int d_model, int inter) {
-  __shared__ __align__(128) GemmSmem sm;
-  __shared__ float hs[kGemmM];
-  const int row0 = blockIdx.y * kGemmM;
-  const int col0 = blockIdx.x * kGemmN;
-  const int e = emap[row0 / kGroupRows];
-  if (e < 0) {
-    for (int i = threadIdx.x; i < kGemmM * kGemmN; i += kBlock) {
-      const int r = i / kGemmN;
-      const int j = col0 + (i - r * kGemmN);
-      if (j < d_model) out[(size_t)(row0 + r) * d_model + j] = __float2bfloat16(0.f);
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < kGemmM; i += kBlock)
-    hs[i] = fmaxf(absmax[row0 + i], 1e-8f) * (1.f / 127.f);
-  __syncthreads();
-  block_gemm_i8<true>(hidden + (size_t)row0 * inter, inter, kGemmM, hs,
-                      w2 + (size_t)e * inter * d_model + col0, d_model,
-                      min(kGemmN, d_model - col0), inter, sm);
-  for (int i = threadIdx.x; i < kGemmM * kGemmN; i += kBlock) {
-    const int r = i / kGemmN;
-    const int j = col0 + (i - r * kGemmN);
-    if (j < d_model)
-      out[(size_t)(row0 + r) * d_model + j] =
-          __float2bfloat16(__fmul_rn(__fmul_rn((float)sm.c[i], hs[r]), w2s[j]));
-  }
-}
-
-}  // namespace
-
-// The grouped MoE FFN over P expert-sorted rows (P a multiple of 128). H and
-// I multiples of 16, pointers 16-byte aligned. hidden (P, I) and absmax
-// (P, 1) are f32 scratch the caller allocates; absmax is zeroed here. act:
-// 1 relu, 2 silu, else exact GELU. Returns cudaGetLastError().
+// The grouped MoE FFN over P expert-sorted rows (P a multiple of 128): out
+// (P, H) bf16. H and I multiples of 16, every tensor 16-byte aligned. hq (P,
+// Ip) int8 (Ip: I rounded up to 128), hs (P, 1), hidden (P, I) and absmax
+// (P, 1) f32 are scratch the caller allocates; absmax is zeroed here. act: 1
+// relu, 2 silu, else exact GELU. row_tile (64 or 128), split (GEMM2's
+// cluster) and the two stage counts are the plan of
+// ops/kernels/decode_plan.py::grouped_plan. Returns cudaGetLastError(), or
+// cudaErrorInvalidResourceHandle if a tensor map cannot be made.
 extern "C" int apertis_expert_ffn_grouped(const void* xq, const void* xs, const void* emap,
                                           const void* w1q, const void* w1s, const void* b1,
-                                          const void* w2q, const void* w2s, void* out,
-                                          void* hidden, void* absmax, int rows, int d_model,
-                                          int ei, int num_experts, int act, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || rows % kGroupRows != 0 || num_experts <= 0 || ei % num_experts != 0 ||
-      d_model % 16 != 0 || (ei / num_experts) % 16 != 0)
+                                          const void* w2q, const void* w2s, void* out, void* hq,
+                                          void* hs, void* hidden, void* absmax, int rows,
+                                          int d_model, int ei, int num_experts, int act,
+                                          int row_tile, int split, int st_up, int st_down,
+                                          void* stream) {
+  // GEMM1's and GEMM2's grids hold the row tiles in y (at most 65,535);
+  // fat_quant_kernel's spreads the rows over y and z.
+  if (rows <= 0 || rows % kGroupTile != 0 || (row_tile != 64 && row_tile != 128) ||
+      rows / row_tile > 65535 || num_experts <= 0 || ei % num_experts != 0 || d_model <= 0 ||
+      d_model % 16 || (ei / num_experts) % 16 || ei <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int inter = ei / num_experts;
-  cudaError_t err = cudaMemsetAsync(absmax, 0, (size_t)rows * sizeof(float), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  moe_gemm1_kernel<<<dim3((inter + kGemmN - 1) / kGemmN, rows / kGemmM), kBlock, 0, s>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-      static_cast<const int*>(emap), static_cast<const int8_t*>(w1q),
-      static_cast<const float*>(w1s), static_cast<const float*>(b1),
-      static_cast<float*>(hidden), static_cast<float*>(absmax), rows, d_model, ei, inter, act);
-  moe_grouped_gemm2_kernel<<<dim3((d_model + kGemmN - 1) / kGemmN, rows / kGemmM), kBlock, 0,
-                             s>>>(
-      static_cast<const float*>(hidden), static_cast<const float*>(absmax),
-      static_cast<const int*>(emap), static_cast<const int8_t*>(w2q),
-      static_cast<const float*>(w2s), static_cast<bf16*>(out), rows, d_model, inter);
-  return static_cast<int>(cudaGetLastError());
+  const int inter = ei / num_experts, per = (inter + kDgKC - 1) / kDgKC;
+  if (split < 1 || split > 16 || split > per || st_up < 1 || st_down < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ExpertFfn f{xq, xs, w1q, w1s, b1, w2q, w2s, nullptr, emap, out, hq, hs, hidden, absmax,
+                    rows, d_model, inter, num_experts, 1, act, 1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return row_tile == 64 ? expert_ffn_run<64, true>(f, split, st_up, st_down, s)
+                        : expert_ffn_run<128, true>(f, split, st_up, st_down, s);
 }

@@ -2,8 +2,11 @@
 // products, shared by the decode FFN's int8 and int4 layouts (ffn_fused.cu,
 // #4) and the fat MoE expert FFN's (moe_ffn.cu, #10), whose arithmetic is
 // the FFN's with the routing weight folded into each hidden tile's scale;
-// the per-expert MoE FFN (moe_dense.cu, #11) runs GEMM1's wide form and its
-// requantization over its per-expert stack, one grid slice an expert:
+// the per-expert MoE FFN (moe_dense.cu, #11) and the grouped one
+// (moe_grouped.cu, #12) run GEMM1's wide form, its requantization and
+// expert_down_kernel (below): #11 over its per-expert stack, one grid slice
+// an expert, #12 over the fat stack, each row tile the expert of its grouped
+// tile:
 //   h   = act(acc1_i32(x_q . W1_q) * x_s * w1_s + b1)                 (f32)
 //   per hidden tile t of bn columns:
 //     hs_t = max(max|h_t|, 1e-8) * (1/127);  hq_t = rint(h_t / hs_t)
@@ -52,6 +55,8 @@
 // x.dtype(acc * w_s), then + b in x's dtype.
 #pragma once
 
+#include <string.h>
+
 #include "decode_gemm.cuh"
 
 namespace {
@@ -99,7 +104,12 @@ constexpr size_t ffn_up_extra(int br) {
 // the (E * K, N) stack, w1s, b1 and the hidden's columns and tiles from
 // e * N on (Z = gridDim.z * N of them, (E, 1, I) and (E, I) flattened);
 // every row is routed to every expert (comb null). The FFN and the fat MoE
-// FFN run one slice.
+// FFN run one slice, and so does the grouped MoE FFN (#12, moe_grouped.cu,
+// the kernel's kGrouped form): its rows come in tiles of kGroupTile, each
+// one expert's (emap) or none's (-1: the block returns at once), and expert
+// e's product is the columns e * N .. e * N + N - 1 of the fat (K, E * N)
+// weight, w1s and b1 (N = I; the hidden (S, N) and absmax (S, 1) hold the
+// row's own expert).
 struct UpArgs {
   const float* xs;     // (S, 1)
   const float* w1s;    // (1, Z)
@@ -111,10 +121,17 @@ struct UpArgs {
   float* absmax;       // MoE, wide form: (S, Z / bn), zeroed
   int rows, k, n, bn, act, stages;
   int cs;              // blocks of a hidden tile, one cluster; 0: the wide form
-  int inter, experts;  // fat MoE: I (N = E * I) and E
+  int inter, experts;  // fat MoE: I (N = E * I) and E; #12: E
+  const int* emap;     // kGrouped: (S / kGroupTile,) tile -> expert, -1: none
 };
 
-template <bool kI4, int BR, bool kMoe>
+// Rows of one expert tile of the grouped MoE FFN's layout
+// (ops/kernels/moe_grouped.py::TILE).
+constexpr int kGroupTile = 128;
+
+// kGrouped is #12's form, a compile-time choice so that no other caller's
+// kernel carries its branches.
+template <bool kI4, int BR, bool kMoe, bool kGrouped = false>
 __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
     const __grid_constant__ CUtensorMap x_map,   // x_q (S, K): boxes of BR rows x 128
     const __grid_constant__ CUtensorMap w_map,   // W1 (K, N); int4: packed (K / 2, N)
@@ -132,7 +149,11 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
   const int n0 = blockIdx.x * kDgCols;
   const int m0 = blockIdx.y * BR;
   const int slice = blockIdx.z;                 // #11: the expert
-  const int goff = slice * a.n;                 // the slice's first column of w1s, b1, hidden
+  // #12: the row tile's expert (BR divides kGroupTile), 0 otherwise.
+  const int wexp = kGrouped ? a.emap[m0 / kGroupTile] : 0;
+  if (kGrouped && wexp < 0) return;
+  const int goff = (slice + wexp) * a.n;        // the first column of w1s and b1
+  const int hoff = slice * a.n;                 // and of the hidden
   const int chunks = (a.k + kDgKC - 1) / kDgKC;
   const DgChunks ch{0, 1, chunks, 1};
   if constexpr (kMoe) {
@@ -155,10 +176,14 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
 
   if (threadIdx.x >= kDgConsumerThreads) {
     regs_dealloc<kDgProducerRegs>();
-    const DgWeight wt{nullptr, (int)gridDim.z * a.k, a.n, 1, slice * a.k};
+    const DgWeight wt{nullptr, (int)gridDim.z * a.k, kGrouped ? a.experts * a.n : a.n, 1,
+                      slice * a.k};
     const DgRows xrows{nullptr, rows, a.k, 1};
-    dg_produce<kFfnKind<kI4>>(ring, &w_map, &sh_map, &x_map, wt, xrows, ch, n0, m0, 0, chunks,
-                              threadIdx.x - kDgConsumerThreads);
+    // #12: a last column block of an expert whose N is not a multiple of 128
+    // multiplies the next expert's first columns too; the epilogue drops
+    // them (col_live), so they reach neither the hidden nor the absmax.
+    dg_produce<kFfnKind<kI4>>(ring, &w_map, &sh_map, &x_map, wt, xrows, ch, n0 + wexp * a.n, m0,
+                              0, chunks, threadIdx.x - kDgConsumerThreads);
     if (cs > 1) {
       __syncwarp();
       cluster.sync();
@@ -217,7 +242,7 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
         for (int e = 0; e < 2; ++e) {
           const int r = 8 * j + 2 * (L.lane & 3) + e;
           if (m0 + r >= rows) continue;
-          *reinterpret_cast<float2*>(a.hidden + (size_t)(m0 + r) * ld + goff + c0) =
+          *reinterpret_cast<float2*>(a.hidden + (size_t)(m0 + r) * ld + hoff + c0) =
               make_float2(h[4 * j + e], h[4 * j + e + 2]);
           atomicMax(tmax + r, __float_as_int(m[2 * j + e]));
         }
@@ -288,18 +313,21 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
   }
 }
 
-// The wide form's requantization (the fat MoE FFN's and #11's), one block
-// per (tile, row): hs = max(absmax, 1e-8) * (1/127) and hq[r, t * bnp + j]
-// = rint(hidden[r, t * bn + j] / hs) for j < bn, 0 up to bnp (bn and bnp
-// multiples of 16 and 128).
+// The wide form's requantization (the fat MoE FFN's, #11's and #12's), one
+// block per (tile, row): hs = max(absmax, 1e-8) * (1/127) and hq[r, t * bnp +
+// j] = rint(hidden[r, t * bn + j] / hs) for j < bn, 0 up to bnp (bn and bnp
+// multiples of 16 and 128). The rows run over the grid's y and z
+// (fat_quant_grid), since y stops at 65,535. #12 (emap set) skips the rows
+// of tiles of no expert, which GEMM1 did not write and GEMM2 does not read.
 __global__ void __launch_bounds__(kBlock) fat_quant_kernel(
     const float* __restrict__ hidden,   // (S, E*I)
     const float* __restrict__ absmax,   // (S, tiles)
     int8_t* __restrict__ hq,            // (S, tiles * bnp)
     float* __restrict__ hs,             // (S, tiles)
-    int ei, int bn, int bnp) {
+    int rows, int ei, int bn, int bnp, const int* __restrict__ emap) {
   const int t = blockIdx.x, tiles = gridDim.x;
-  const size_t r = blockIdx.y;
+  const size_t r = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  if (r >= (size_t)rows || (emap != nullptr && emap[r / kGroupTile] < 0)) return;
   const float s = requant_scale(absmax[r * tiles + t]);
   if (threadIdx.x == 0) hs[r * tiles + t] = s;
   const float* src = hidden + r * ei + (size_t)t * bn;
@@ -312,6 +340,13 @@ __global__ void __launch_bounds__(kBlock) fat_quant_kernel(
     }
     *reinterpret_cast<uint32_t*>(dst + j) = w;
   }
+}
+
+// fat_quant_kernel's grid: a block a (tile, row), the rows split evenly over
+// the fewest z slices that keep y within 65,535 (one slice up to 65,535 rows).
+inline dim3 fat_quant_grid(int tiles, int rows) {
+  const int z = (rows + 65534) / 65535;
+  return dim3(tiles, (rows + z - 1) / z, z);
 }
 
 // GEMM2's form (its template's kMode): the FFN's (out = bf16(acc * w2_s +
@@ -557,6 +592,200 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
       }
     }
   }
+}
+
+// GEMM2 of the per-expert (#11, moe_dense.cu) and grouped (#12,
+// moe_grouped.cu) MoE FFN: out = out_dtype(float(acc2_i32(hq . W2_q[e])) *
+// hs * w2_s (+ b2)) for 128 output columns, a row tile and a grid slice a
+// block (#11: slice e is expert e; #12: one slice, the expert of the row
+// tile's grouped tile, and a tile of no expert writes zeros), K = I split in
+// contiguous chunk ranges over a cluster of `split` blocks; each block's
+// exact int32 sums go to their owners in distributed shared memory
+// (decode_gemm.cuh's dg_split_sum: an int32 sum is exact in any order), and
+// the owner makes the one float conversion and applies hs, w2_s and b2 in
+// the TPU kernels' order. kGrouped is #12's form, a compile-time choice so
+// that #11's kernel carries none of its branches.
+struct ExpertDownArgs {
+  const float* hs;    // (S, slices)
+  const float* w2s;   // (slices, H): #11 each expert's, #12 the fat stack's
+  const float* b2;    // #11: (slices, H); #12: none (no bias)
+  const int* emap;    // #12: as UpArgs::emap
+  void* out;          // (slices, S, H): bf16 (out_bf16) or f32
+  int rows, n, k;     // S, H, I
+  int experts;        // E: W2 is the (E * I, H) stack
+  int per;            // K chunks of an expert in hq: Ip / 128
+  int split, stages, out_bf16;
+};
+
+template <int BR, bool kGrouped>
+__global__ void __launch_bounds__(kThreads, 1) expert_down_kernel(
+    const __grid_constant__ CUtensorMap x_map,   // hq (S, slices * Ip): BR rows x 128
+    const __grid_constant__ CUtensorMap w_map,   // W2 (E * I, H)
+    const ExpertDownArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int split = a.split, stages = a.stages, rows = a.rows;
+  const int slice = blockIdx.z, slices = gridDim.z;
+  const int rank = blockIdx.x % split;
+  const int n0 = (blockIdx.x / split) * kDgCols;
+  const int m0 = blockIdx.y * BR;
+  const int e = kGrouped ? a.emap[m0 / kGroupTile] : slice;
+  if (kGrouped && e < 0) {
+    // bf16 zeros, by the cluster's first block; every block of the cluster
+    // returns here, before any cluster barrier.
+    if (rank == 0)
+      for (int i = threadIdx.x; i < BR * kDgCols; i += kThreads) {
+        const int row = m0 + i / kDgCols, c = n0 + i % kDgCols;
+        if (row < rows && c < a.n)
+          static_cast<bf16*>(a.out)[(size_t)row * a.n + c] = __float2bfloat16(0.f);
+      }
+    return;
+  }
+  const uint32_t stage_bytes = BR * 128 + kDgW8Bytes;
+  int* part = reinterpret_cast<int*>(smem + (size_t)stages * stage_bytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(part) +
+                                               dg_part_bytes(BR, split));
+  const DgRing ring{smem, bars, bars + stages, BR * 128, kDgW8Bytes, stages};
+  // This block's range of the expert's K chunks.
+  const int c_lo = rank * a.per / split, c_hi = (rank + 1) * a.per / split;
+  dg_init(ring, 1);
+  cg::cluster_group cluster = cg::this_cluster();
+
+  if (threadIdx.x >= kDgConsumerThreads) {
+    regs_dealloc<kDgProducerRegs>();
+    // hq's tile `slice` (padded to Ip), against W2's rows e * I on (no
+    // padding): DgChunks' weight gap and DgWeight::row0 place chunk c at
+    // row e * I + 128 c.
+    const DgWeight wt{nullptr, a.experts * a.k, a.n, 1, (e - slice) * a.k};
+    const DgRows hrows{nullptr, rows, slices * a.per * kDgKC, 1};
+    dg_produce<kDgI8>(ring, &w_map, &w_map, &x_map, wt, hrows,
+                      DgChunks{slice, 1, 1, a.per, a.per * kDgKC - a.k}, n0, m0, c_lo, c_hi,
+                      threadIdx.x - kDgConsumerThreads, -c_lo);
+    if (split > 1) {
+      __syncwarp();
+      cluster.sync();   // the sums are pushed and read
+    }
+    return;
+  }
+  regs_alloc<kDgConsumerRegs>();
+  const DgLane L;
+  int acc[BR / 2];
+#pragma unroll
+  for (int i = 0; i < BR / 2; ++i) acc[i] = 0;
+  dg_consume<kDgI8, BR>(ring, L, 0, c_hi - c_lo, acc);
+  const uint32_t mine = dg_owned_mask(rank, split, BR / 8);
+  if (split > 1) dg_split_sum<BR>(acc, part, L, rank, split, mine, cluster);
+  // out = out_dtype(float(acc) * hs * w2_s (+ b2)) for columns c0, c0 + 1
+  // (H is a multiple of 16) of the column blocks this block owns.
+  const int c0 = n0 + L.col;
+  if (c0 >= a.n) return;
+  const size_t we = (size_t)slice * a.n + c0;
+  const float ws0 = a.w2s[we], ws1 = a.w2s[we + 1];
+  const float b0 = kGrouped ? 0.f : a.b2[we], b1 = kGrouped ? 0.f : a.b2[we + 1];
+#pragma unroll
+  for (int j = 0; j < BR / 8; ++j) {
+    if (!((mine >> j) & 1)) continue;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int row = m0 + 8 * j + 2 * (L.lane & 3) + q;
+      if (row >= rows) continue;
+      const float hs = a.hs[(size_t)row * slices + slice];
+      float y0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + q]), hs), ws0);
+      float y1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + q + 2]), hs), ws1);
+      if (!kGrouped) {
+        y0 = __fadd_rn(y0, b0);
+        y1 = __fadd_rn(y1, b1);
+      }
+      const size_t o = ((size_t)slice * rows + row) * a.n + c0;
+      if (a.out_bf16)
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + o) =
+            __halves2bfloat162(__float2bfloat16(y0), __float2bfloat16(y1));
+      else
+        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) = make_float2(y0, y1);
+    }
+  }
+}
+
+// The operands of the per-expert (#11) and grouped (#12) MoE FFN. #11:
+// `slices` = E, W1 the per-expert (E * H, I) stack with w1s (E, 1, I) and b1
+// (E, I), W2 (E * I, H) with w2s and b2 (E, H), emap null, out (E, S, H);
+// #12: slices 1, W1 the fat (H, E * I) stack with w1s (1, E * I) and b1
+// (E * I), W2 (E * I, H) with w2s (1, H), b2 null, emap (S / kGroupTile),
+// out (S, H) bf16. Scratch: hq (S, slices * Ip) int8, hs (S, slices),
+// hidden (S, slices * I) and absmax (S, slices) f32.
+struct ExpertFfn {
+  const void *xq, *xs, *w1, *w1s, *b1, *w2, *w2s, *b2, *emap;
+  void *out, *hq, *hs, *hidden, *absmax;
+  int rows, d_model, inter, experts, slices, act, out_bf16;
+};
+
+// Their three launches at a row tile of BR rows on the host's plan (GEMM2's
+// split, the two stage counts), #12's where kGrouped: GEMM1's wide form,
+// fat_quant_kernel over each slice's whole I, expert_down_kernel.
+template <int BR, bool kGrouped>
+int expert_ffn_run(const ExpertFfn& f, int split, int st_up, int st_down, cudaStream_t s) {
+  const int per = (f.inter + kDgKC - 1) / kDgKC, ip = per * kDgKC;
+  const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const uint64_t ei = (uint64_t)f.experts * f.inter;
+  CUtensorMap xm, w1m, hqm, w2m, none;
+  memset(&none, 0, sizeof(none));   // no int4 shifts
+  int err = dg_map_2d(&xm, f.xq, u8, 1, f.d_model, f.rows, 128, BR);
+  if (err == 0)
+    err = kGrouped
+              ? dg_map_2d(&w1m, f.w1, u8, 1, ei, f.d_model, 128, kDgKC)
+              : dg_map_2d(&w1m, f.w1, u8, 1, f.inter, (uint64_t)f.experts * f.d_model, 128,
+                          kDgKC);
+  if (err == 0) err = dg_map_2d(&hqm, f.hq, u8, 1, (uint64_t)f.slices * ip, f.rows, 128, BR);
+  if (err == 0) err = dg_map_2d(&w2m, f.w2, u8, 1, f.d_model, ei, 128, kDgKC);
+  if (err != 0) return err;
+  err = static_cast<int>(
+      cudaMemsetAsync(f.absmax, 0, (size_t)f.rows * f.slices * sizeof(float), s));
+  if (err != 0) return err;
+  const uint32_t stage = BR * 128 + kDgW8Bytes;
+  const int row_tiles = (f.rows + BR - 1) / BR;
+  const int* emap = static_cast<const int*>(f.emap);
+  UpArgs up = {};
+  up.xs = static_cast<const float*>(f.xs);
+  up.w1s = static_cast<const float*>(f.w1s);
+  up.b1 = f.b1;
+  up.hidden = static_cast<float*>(f.hidden);
+  up.absmax = static_cast<float*>(f.absmax);
+  up.rows = f.rows;
+  up.k = f.d_model;
+  up.n = f.inter;
+  up.bn = f.inter;
+  up.act = f.act;
+  up.stages = st_up;
+  up.cs = 0;
+  up.experts = f.experts;
+  up.emap = emap;
+  err = dg_launch(ffn_up_kernel<false, BR, true, kGrouped>,
+                  dim3((f.inter + kDgCols - 1) / kDgCols, row_tiles, f.slices), dim3(kThreads), 1,
+                  dg_smem_bytes(BR, st_up, stage, 1, ffn_up_extra(BR)), s, xm, w1m, none, up);
+  if (err != 0) return err;
+  fat_quant_kernel<<<fat_quant_grid(f.slices, f.rows), kBlock, 0, s>>>(
+      static_cast<const float*>(f.hidden), static_cast<const float*>(f.absmax),
+      static_cast<int8_t*>(f.hq), static_cast<float*>(f.hs), f.rows, f.slices * f.inter,
+      f.inter, ip, emap);
+  ExpertDownArgs down = {};
+  down.hs = static_cast<const float*>(f.hs);
+  down.w2s = static_cast<const float*>(f.w2s);
+  down.b2 = static_cast<const float*>(f.b2);
+  down.emap = emap;
+  down.out = f.out;
+  down.rows = f.rows;
+  down.n = f.d_model;
+  down.k = f.inter;
+  down.experts = f.experts;
+  down.per = per;
+  down.split = split;
+  down.stages = st_down;
+  down.out_bf16 = f.out_bf16;
+  err = dg_launch(expert_down_kernel<BR, kGrouped>,
+                  dim3(((f.d_model + kDgCols - 1) / kDgCols) * split, row_tiles, f.slices),
+                  dim3(kThreads), split, dg_smem_bytes(BR, st_down, stage, split, 0), s, hqm,
+                  w2m, down);
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -16,34 +16,54 @@
 //   h is written in b's dtype (the f32 carry goes on unrounded), h_last =
 //   h[L-1] in b's dtype, and, when asked (b in bf16 and a gradient to come),
 //   every f32 state, which the backward reads.
-// Backward (ssm_scan.py:153-178), in one reverse pass, from g = dL/dh (f32)
-// and g_last = dL/dh_last:
-//   lam[L-1] = g[L-1] + g_last;  lam[t] = g[t] + a[t+1] * lam[t+1]
+// Backward (ssm_scan.py:153-178), from g = dL/dh (f32) and g_last =
+// dL/dh_last, as a reverse scan from lam[L] = g_last (0 without one) with
+// a[L] = 1:
+//   lam[t] = g[t] + a[t+1] * lam[t+1]
 //   da[t] = lam[t] * h[t-1] (h_init as h[-1]);  db[t] = lam[t]
 //   dh_init = lam[0] * a[0]
 // where the TPU kernel scans reversed, index-shifted copies of a and g.
 //
 // Both round every product and every sum once (__fmul_rn, __fadd_rn: no
 // fused multiply-add), in the order of the plain versions in
-// ops/kernels/ssm_scan.py, so the kernels and the plain versions agree bit
-// for bit.
+// ops/kernels/ssm_scan.py. The forward walks the whole L in one thread and
+// agrees with its plain version bit for bit; the backward runs over chunks
+// of the time axis, whose carries reassociate lam's sums, so it agrees with
+// its plain version only where L fits one chunk (about an f32 ulp of lam a
+// chunk boundary elsewhere; chip_smoke.py holds it to CARRY_BWD_TOL, 1e-4).
 //
 // Bound on the H100: bytes. A step of a channel reads a and b and writes h
 // (12 bytes in f32) for one multiply and one add; the backward reads a, g
 // and h and writes da and db (20 bytes) for two multiplies and one add: far
-// below the card's operations-per-byte line. The recurrence is sequential in
-// t, so the parallelism is B * H * N threads.
+// below the card's operations-per-byte line. At the 1.5B model's per-rank
+// shape (4, 38, 512, 16) the backward's arrays are 5 MB each: 25 MB, 0.0074
+// ms at 3.35 TB/s.
 //
-// Design: one thread owns one (r, n) and walks L (the backward from L-1
-// down) with its carry in a register. Consecutive threads take consecutive n
-// and then the next head, so each step's loads and stores are contiguous
-// runs of N floats (two heads of 16 a warp at the 1.5B model's N = 16). The
-// loads of a step do not depend on the carry, so the unrolled loop issues
-// them ahead of the dependent multiply-adds. The backward keeps a[t] in a
-// register for step t - 1 and reads h[t-1] directly, so every array is read
-// once. At the 1.5B model's per-rank shape (4, 38, 512, 16) that is only
-// 2,432 threads: the card is mostly idle, and splitting L into chunks is
-// later work.
+// Design of the forward: one thread owns one (r, n) and walks L with its
+// carry in a register. Consecutive threads take consecutive n and then the
+// next head, so each step's loads and stores are contiguous runs of N floats
+// (two heads of 16 a warp at the 1.5B model's N = 16). The loads of a step
+// do not depend on the carry, so the unrolled loop issues them ahead of the
+// dependent multiply-adds.
+//
+// Design of the backward: one thread a (r, n) alone would leave the card
+// mostly idle (2,432 threads at the per-rank shape, each waiting on its
+// loads for 512 dependent steps), so the time axis is cut into K chunks of
+// `chunk` steps (ops/kernels/ssm_scan.py::CARRY_BWD_CHUNK, 16) and a thread owns
+// one (r, chunk, n), consecutive threads on consecutive n as above. The
+// adjoint is a linear recurrence, so lam[t0] = lam0 + prod * lam[t1] for a
+// chunk [t0, t1), where lam0 is the chunk's own reverse scan from lam = 0
+// and prod the decays lam passes through, a[t1] a[t1 - 1] ... a[t0 + 1]:
+//   1. scan_carry_bwd_local_kernel: lam0 and prod of every chunk but the
+//      first into a (2, R, K, N) f32 scratch (reads a and g);
+//   2. scan_carry_bwd_kernel: each thread resolves its chunk's carry
+//      lam[t1] from g_last and the later chunks' (lam0, prod), j = K-1 down
+//      to k+1, in that fixed order (independent loads and a chain of at most
+//      K - 1 multiply-adds: no wait on other blocks), reruns the chunk from
+//      it and writes da and db, keeping a[t] for the next step down; chunk
+//      0's thread writes dh_init. It reads a, g and h and writes da and db.
+// No atomics: the result is the same from run to run. The design moves
+// about 35 MB at the per-rank shape (pass 1 reads a and g again), 0.0104 ms.
 
 #include "common.cuh"
 
@@ -75,25 +95,71 @@ __global__ void __launch_bounds__(kCarryThreads) scan_carry_fwd_kernel(
   h_last[i] = from_f32<TB>(carry);
 }
 
+// Pass 1 of the backward, for chunk k = blockIdx.y + 1 (chunk 0's are never
+// read) of lane i = (r, n): the reverse scan over the chunk's steps [t0, t1)
+// from lam = 0, kept only at t0 (lam0), and the product of the decays lam
+// passes through from t1 down to t0 (prod; a[L] = 1), so that the true
+// lam[t0] = lam0 + prod * lam[t1].
+__global__ void __launch_bounds__(kCarryThreads) scan_carry_bwd_local_kernel(
+    const float* __restrict__ a,       // (R, L, N)
+    const float* __restrict__ g,       // (R, L, N) dL/dh
+    float* __restrict__ lam0,          // (R, K, N)
+    float* __restrict__ prod,          // (R, K, N)
+    long long lanes, int seq_len, int d_state, int chunk) {
+  const long long i = (long long)blockIdx.x * kCarryThreads + threadIdx.x;
+  if (i >= lanes) return;
+  const int k = blockIdx.y + 1, chunks = gridDim.y + 1;
+  const long long r = i / d_state;
+  const int n = (int)(i - r * d_state);
+  const size_t base = (size_t)r * seq_len * d_state + n;
+  const int t0 = k * chunk, t1 = min(t0 + chunk, seq_len);
+  float a_next = t1 < seq_len ? a[base + (size_t)t1 * d_state] : 1.f;
+  float lam = 0.f, p = a_next;
+#pragma unroll 8
+  for (int t = t1 - 1; t >= t0; --t) {
+    const size_t off = base + (size_t)t * d_state;
+    lam = __fadd_rn(g[off], __fmul_rn(a_next, lam));
+    a_next = a[off];
+    if (t > t0) p = __fmul_rn(p, a_next);
+  }
+  const size_t o = ((size_t)r * chunks + k) * d_state + n;
+  lam0[o] = lam;
+  prod[o] = p;
+}
+
+// Pass 2, the reverse scan of chunk k = blockIdx.y of lane i = (r, n) from
+// its carry lam[t1], resolved first from lam[L] = g_last and the later
+// chunks' pass-1 results, j = K-1 down to k+1: carry = lam0[j] + prod[j] *
+// carry; the same j order for every k, so every chunk's carry is the one
+// its neighbour's run would give. With one chunk it is the whole-L scan.
 __global__ void __launch_bounds__(kCarryThreads) scan_carry_bwd_kernel(
     const float* __restrict__ a,       // (R, L, N)
     const float* __restrict__ g,       // (R, L, N) dL/dh
     const float* __restrict__ h,       // (R, L, N) the forward's f32 states
     const float* __restrict__ h_init,  // (R, N) or nullptr
     const float* __restrict__ g_last,  // (R, N) dL/dh_last or nullptr
+    const float* __restrict__ lam0,    // (R, K, N) pass 1
+    const float* __restrict__ prod,    // (R, K, N) pass 1
     float* __restrict__ da,            // (R, L, N)
     float* __restrict__ db,            // (R, L, N)
     float* __restrict__ dh_init,       // (R, N) or nullptr
-    long long lanes, int seq_len, int d_state) {
+    long long lanes, int seq_len, int d_state, int chunk) {
   const long long i = (long long)blockIdx.x * kCarryThreads + threadIdx.x;
   if (i >= lanes) return;
+  const int k = blockIdx.y, chunks = gridDim.y;
   const long long r = i / d_state;
-  const size_t base = (size_t)r * seq_len * d_state + (size_t)(i - r * d_state);
+  const int n = (int)(i - r * d_state);
+  const size_t base = (size_t)r * seq_len * d_state + n;
+  const int t0 = k * chunk, t1 = min(t0 + chunk, seq_len);
+  float lam = g_last != nullptr ? g_last[i] : 0.f;   // lam[L]
+  for (int j = chunks - 1; j > k; --j) {
+    const size_t o = ((size_t)r * chunks + j) * d_state + n;
+    lam = __fadd_rn(lam0[o], __fmul_rn(prod[o], lam));
+  }
+  float a_next = t1 < seq_len ? a[base + (size_t)t1 * d_state] : 1.f;   // a[t + 1]
   const float h_first = h_init != nullptr ? h_init[i] : 0.f;
-  float lam = g_last != nullptr ? g_last[i] : 0.f;
-  float a_next = 1.f;   // a[t + 1]; 1 past the end, where lam starts as g_last
 #pragma unroll 8
-  for (int t = seq_len - 1; t >= 0; --t) {
+  for (int t = t1 - 1; t >= t0; --t) {
     const size_t off = base + (size_t)t * d_state;
     const float a_t = a[off];
     const float h_prev = t > 0 ? h[off - d_state] : h_first;
@@ -102,7 +168,7 @@ __global__ void __launch_bounds__(kCarryThreads) scan_carry_bwd_kernel(
     db[off] = lam;
     a_next = a_t;
   }
-  if (dh_init != nullptr) dh_init[i] = __fmul_rn(lam, a_next);
+  if (k == 0 && dh_init != nullptr) dh_init[i] = __fmul_rn(lam, a_next);
 }
 
 inline unsigned blocks_for(long long lanes) {
@@ -134,20 +200,32 @@ extern "C" int apertis_scan_carry_fwd(const void* a, const void* b, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward. Every array f32: a, g, h, da, db (R, L, N); h_init, g_last
-// and dh_init (R, N), each may be null (dh_init is written only when given).
-// One launch. Returns cudaGetLastError().
+// The backward over chunks of `chunk` steps (one chunk of L is the plain
+// sequential scan). Every array f32: a, g, h, da, db (R, L, N); h_init,
+// g_last and dh_init (R, N), each may be null (dh_init is written only when
+// given); scratch (2, R, K, N) for K = ceil(L / chunk) chunks (pass 1's
+// lam0 and prod; unused, and may be null, when K is 1). Two launches (pass 1
+// where K > 1, pass 2). Returns cudaGetLastError().
 extern "C" int apertis_scan_carry_bwd(const void* a, const void* g, const void* h,
                                       const void* h_init, const void* g_last, void* da, void* db,
-                                      void* dh_init, int rows, int seq_len, int d_state,
-                                      void* stream) {
-  if (rows <= 0 || seq_len <= 0 || d_state <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                      void* dh_init, void* scratch, int rows, int seq_len,
+                                      int d_state, int chunk, void* stream) {
+  if (rows <= 0 || seq_len <= 0 || d_state <= 0 || chunk <= 0 ||
+      (seq_len + chunk - 1) / chunk > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long lanes = (long long)rows * d_state;
-  scan_carry_bwd_kernel<<<blocks_for(lanes), kCarryThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(g), static_cast<const float*>(h),
-      static_cast<const float*>(h_init), static_cast<const float*>(g_last),
-      static_cast<float*>(da), static_cast<float*>(db), static_cast<float*>(dh_init), lanes,
-      seq_len, d_state);
+  const int chunks = (seq_len + chunk - 1) / chunk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(a);
+  const float* gf = static_cast<const float*>(g);
+  float* lam0 = static_cast<float*>(scratch);
+  float* prod = chunks > 1 ? lam0 + (size_t)lanes * chunks : nullptr;
+  if (chunks > 1)
+    scan_carry_bwd_local_kernel<<<dim3(blocks_for(lanes), chunks - 1), kCarryThreads, 0, s>>>(
+        af, gf, lam0, prod, lanes, seq_len, d_state, chunk);
+  scan_carry_bwd_kernel<<<dim3(blocks_for(lanes), chunks), kCarryThreads, 0, s>>>(
+      af, gf, static_cast<const float*>(h), static_cast<const float*>(h_init),
+      static_cast<const float*>(g_last), lam0, prod, static_cast<float*>(da),
+      static_cast<float*>(db), static_cast<float*>(dh_init), lanes, seq_len, d_state, chunk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,7 +28,7 @@ BUILD_DIR = PACKAGE_ROOT / "_build"
 SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu", "moe_ffn.cu",
            "moe_grouped.cu", "mha_step.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "flash_attention_f32.cu", "quant_matmul.cu", "moe_dense.cu", "scan_carry.cu")
-HEADERS = ("common.cuh", "moe_gemm.cuh", "hopper.cuh", "decode_gemm.cuh", "quant_ffn.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "decode_gemm.cuh", "quant_ffn.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
 # int8 quantizations rely on.
@@ -47,8 +47,9 @@ SIGNATURES = {
     "apertis_selective_scan_bwd_smem": [_P] * 12 + [_I] * 7 + [_P],
     # a, b, h_init, h, h_last, states, B*H, L, N, b_bf16, stream
     "apertis_scan_carry_fwd": [_P] * 6 + [_I] * 4 + [_P],
-    # a, g, h, h_init, g_last, da, db, dh_init, B*H, L, N, stream
-    "apertis_scan_carry_bwd": [_P] * 8 + [_I] * 3 + [_P],
+    # a, g, h, h_init, g_last, da, db, dh_init, scratch, B*H, L, N, chunk,
+    # stream
+    "apertis_scan_carry_bwd": [_P] * 9 + [_I] * 4 + [_P],
     # 21 inputs, 6 outputs, scratch, B, D, C, K, R, H, N, E, rms, eps,
     # row_tile, splits (3 ints), stages (3 ints), stream
     "apertis_ssm_decode_step": [_P] * 28 + [_I] * 9 + [_F, _I, _P, _P, _P],
@@ -83,9 +84,10 @@ SIGNATURES = {
     # kernel (0 up int8, 1 down int8, 2 up int4, 3 down int4, 4 the wide
     # form's requantization), row_tile, smem, out (5 ints)
     "apertis_expert_ffn_fat_resources": [_I, _I, _I, _P],
-    # x_q, x_s, emap, w1t_q, w1t_s, b1t, w2t_q, w2t_s, out, hidden, absmax, P,
-    # H, E*I, E, act, stream
-    "apertis_expert_ffn_grouped": [_P] * 11 + [_I] * 5 + [_P],
+    # x_q, x_s, emap, w1t_q, w1t_s, b1t, w2t_q, w2t_s, out, hq, hs, hidden,
+    # absmax, P, H, E*I, E, act, row_tile, split, stages_up, stages_down,
+    # stream
+    "apertis_expert_ffn_grouped": [_P] * 13 + [_I] * 9 + [_P],
     # q, k, v, k_new, v_new, bias, out, B, L, H, head_dim, stream
     "apertis_mha_decode_ctx": [_P] * 7 + [_I] * 4 + [_P],
     # q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, head_dim, stream

@@ -2,10 +2,11 @@
 
 The int8 layout of the decode mixer step (``csrc/ssm_step.cu``, kernel #3),
 the int8 and int4 layouts of the decode FFN (``csrc/ffn_fused.cu``, #4), of
-the fat MoE expert FFN (``csrc/moe_ffn.cu``, #10) and the per-expert MoE FFN
-(``csrc/moe_dense.cu``, #11) run swapped-operand
-int8 ``wgmma`` products: a block computes 128 weight columns
-(``TILE_COLS``) for a row tile of 16 or 64 batch rows (``ROW_TILES``), over
+the fat MoE expert FFN (``csrc/moe_ffn.cu``, #10), the per-expert MoE FFN
+(``csrc/moe_dense.cu``, #11) and the grouped MoE FFN (``csrc/moe_grouped.cu``,
+#12) run swapped-operand int8 ``wgmma`` products: a block computes 128 weight
+columns (``TILE_COLS``) for a row tile of 16 or 64 batch rows (``ROW_TILES``;
+#12: 64 or 128), over
 128-row K chunks (``CHUNK``) whose weight and row tiles a ring of
 ``stages`` stages holds; the bf16 layouts of the decode FFN and of the
 mixer step the same over 64-row K chunks of a bf16 weight (``BW_CHUNK``,
@@ -257,25 +258,24 @@ def fat_plan(rows: int, d_model: int, inter: int, experts: int, bn: int, bits: i
 
 
 class DensePlan(NamedTuple):
-    """The per-expert MoE FFN's launches (``csrc/moe_dense.cu``), each over
-    a grid slice an expert: GEMM1 in the wide form (``split`` 0: the f32
-    hidden and a requantization pass over each expert's whole I) and GEMM2,
-    whose ``split`` spreads an expert's K chunks over a cluster that adds
-    the int32 parts in distributed shared memory."""
+    """The per-expert (``csrc/moe_dense.cu``) and grouped
+    (``csrc/moe_grouped.cu``) MoE FFN's launches: GEMM1 in the wide form
+    (``split`` 0: the f32 hidden and a requantization pass over each
+    expert's whole I) and GEMM2, whose ``split`` spreads an expert's K chunks
+    over a cluster that adds the int32 parts in distributed shared
+    memory."""
     up: GemmPlan
     down: GemmPlan
 
 
-@functools.lru_cache(maxsize=None)
-def dense_plan(rows: int, d_model: int, inter: int, experts: int, sms: int) -> DensePlan:
-    """The plan of ``apertis_expert_ffn_dense`` for S rows, H = ``d_model``
-    and E experts of I = ``inter`` columns on a card of ``sms`` SMs. GEMM1
-    runs the whole K = H a block, I / 128 column blocks an expert. GEMM2
-    splits an expert's ceil(I / 128) chunks over as many blocks as the SMs
-    allow beside its H / 128 column tiles, row tiles and experts (at most
-    MAX_FAT_SPLIT, at most one a chunk); the int32 parts are exact in any
-    order, so the split does not change the result."""
-    br = row_tile(rows)
+def _expert_plan(rows: int, br: int, d_model: int, inter: int, slices: int,
+                 sms: int) -> DensePlan:
+    """``quant_ffn.cuh::expert_ffn_run``'s plan at a row tile of ``br`` rows
+    over ``slices`` grid slices: GEMM1 the whole K = H a block, ceil(I / 128)
+    column blocks a slice; GEMM2 splits the ceil(I / 128) chunks over as many
+    blocks as the SMs allow beside its H / 128 column tiles, row tiles and
+    slices (at most MAX_FAT_SPLIT, at most one a chunk). The int32 parts
+    are exact in any order, so the split does not change the result."""
     row_tiles = _cdiv(rows, br)
     stage = br * 128 + W8_BYTES
     up_extra = (CONSUMER_THREADS // 32 + 1 + MAX_UP_CLUSTER) * br * 4
@@ -284,8 +284,51 @@ def dense_plan(rows: int, d_model: int, inter: int, experts: int, sms: int) -> D
                   (_cdiv(inter, TILE_COLS), row_tiles))
     chunks = _cdiv(inter, CHUNK)
     col_tiles = _cdiv(d_model, TILE_COLS)
-    split = max(1, min(MAX_FAT_SPLIT, chunks, sms // (col_tiles * row_tiles * experts)))
+    split = max(1, min(MAX_FAT_SPLIT, chunks, sms // (col_tiles * row_tiles * slices)))
     st_down = _stages(br, stage, split, 0, _cdiv(chunks, split))
     down = GemmPlan(br, split, st_down, smem_bytes(br, st_down, stage, split, 0),
                     (col_tiles * split, row_tiles))
     return DensePlan(up, down)
+
+
+@functools.lru_cache(maxsize=None)
+def dense_plan(rows: int, d_model: int, inter: int, experts: int, sms: int) -> DensePlan:
+    """The plan of ``apertis_expert_ffn_dense`` for S rows, H = ``d_model``
+    and E experts of I = ``inter`` columns on a card of ``sms`` SMs: the row
+    tile of :func:`row_tile`, one grid slice an expert."""
+    return _expert_plan(rows, row_tile(rows), d_model, inter, experts, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_plan(rows: int, d_model: int, inter: int, sms: int) -> DensePlan:
+    """The plan of ``apertis_expert_ffn_grouped`` for P expert-sorted rows
+    (whole tiles of 128), H = ``d_model`` and experts of I = ``inter``
+    columns on a card of ``sms`` SMs: one grid slice, each row tile the
+    expert of its grouped tile (so the number of experts does not enter).
+    The row tile is the grouped tile, 128 rows, where GEMM2's 128-row tiles
+    fill the SMs (P in the thousands, no K split), else 64 (on the H100,
+    ``chip_smoke.py --grouped-times``: 128 took 0.143 ms against 64's 0.167
+    at request B's P = 5120, 64 took 0.048 against 128's 0.069 at the
+    ragged P = 1024)."""
+    br = 128 if _cdiv(rows, 128) * _cdiv(d_model, TILE_COLS) >= sms else 64
+    return _expert_plan(rows, br, d_model, inter, 1, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def ffn_scratch(s: int, ei: int, bn: int, wide: bool) -> Tuple[int, int, int, int, int]:
+    """Byte offsets, each 256-byte aligned, of the scratch of
+    ``quant_ffn.cuh``'s MoE FFNs in one buffer (one allocation a call) for
+    S rows, E*I = ``ei`` hidden columns in tiles of ``bn``: hq (S, tiles *
+    bnp) int8 (bnp: bn rounded up to CHUNK), hs (S, tiles) f32 and, in the
+    wide form, hidden (S, E*I) f32 and absmax (S, tiles) f32; and the
+    buffer's size. -1: not used. The fat MoE FFN (#10) passes its hidden
+    tiles; the per-expert (#11) one tile an expert over its E experts; the
+    grouped (#12) one tile of one expert's I (ei = bn = I)."""
+    tiles, bnp = ei // bn, _cdiv(bn, CHUNK) * CHUNK
+    sizes = [s * tiles * bnp, s * tiles * 4, s * ei * 4 if wide else 0,
+             s * tiles * 4 if wide else 0]
+    offsets, at = [], 0
+    for size in sizes:
+        offsets.append(at if size else -1)
+        at += -(-size // 256) * 256
+    return (*offsets, at)

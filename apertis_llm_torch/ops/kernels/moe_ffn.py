@@ -32,8 +32,7 @@ conversion. The plan is ``ops/kernels/decode_plan.py::dense_plan``.
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
@@ -129,22 +128,6 @@ def fat_plan(xq: torch.Tensor, d: int, inter: int, num_experts: int,
                                 _build.sm_count(xq.device.index or 0))
 
 
-@functools.lru_cache(maxsize=None)
-def _fat_scratch(s: int, ei: int, bn: int, wide: bool) -> Tuple[int, int, int, int, int]:
-    """Byte offsets, each 256-byte aligned, of the fat kernel's scratch in
-    one buffer (one allocation a call): hq (S, tiles * bnp) int8, hs (S,
-    tiles) f32 and, in the wide form, hidden (S, E*I) f32 and absmax (S,
-    tiles) f32; and the buffer's size. -1: not used."""
-    tiles, bnp = ei // bn, -(-bn // 128) * 128
-    sizes = [s * tiles * bnp, s * tiles * 4, s * ei * 4 if wide else 0,
-             s * tiles * 4 if wide else 0]
-    offsets, at = [], 0
-    for size in sizes:
-        offsets.append(at if size else -1)
-        at += -(-size // 256) * 256
-    return (*offsets, at)
-
-
 def _fat_launch(name: str, xq: torch.Tensor, inter: int, num_experts: int, bits: int,
                 tensors: tuple, hidden_act: str) -> torch.Tensor:
     """Allocate the scratch of the fat kernel's plan and call its C entry
@@ -155,7 +138,7 @@ def _fat_launch(name: str, xq: torch.Tensor, inter: int, num_experts: int, bits:
     ei = inter * num_experts
     bn = fat_block_n(inter)
     plan = fat_plan(xq, d, inter, num_experts, bits)
-    *offsets, size = _fat_scratch(s, ei, bn, plan.up.split == 0)
+    *offsets, size = decode_plan.ffn_scratch(s, ei, bn, plan.up.split == 0)
     scratch = torch.empty((size,), dtype=torch.uint8, device=dev)
     base = scratch.data_ptr()
     hq, hs, hidden, absmax = (None if off < 0 else base + off for off in offsets)
@@ -342,9 +325,8 @@ def expert_ffn_dense(
     _build.check_aligned("expert_ffn_dense", xq, w1q, w2q)
     plan = dense_plan(xq, d, inter, e)
     # hq (S, E * Ip) int8, hs (S, E), hidden (S, E * I) and absmax (S, E) f32
-    # in one buffer: the fat kernel's wide-form scratch with one tile an
-    # expert.
-    *offsets, size = _fat_scratch(s, e * inter, inter, True)
+    # in one buffer: the wide form's scratch with one tile an expert.
+    *offsets, size = decode_plan.ffn_scratch(s, e * inter, inter, True)
     scratch = torch.empty((size,), dtype=torch.uint8, device=dev)
     hq, hs, hidden, absmax = (scratch.data_ptr() + off for off in offsets)
     out = torch.empty((e, s, d), dtype=out_dtype, device=dev)

@@ -1,9 +1,11 @@
 """The grouped MoE FFN over expert-sorted rows: prefill at large token counts.
 
 ``expert_ffn_grouped`` launches the CUDA kernel in ``csrc/moe_grouped.cu``
-(two launches: the int8 GEMM1 with its epilogue and per-row absmax, then the
-int8 GEMM2 that requantizes the hidden as it reads it) for CUDA tensors and
-runs :func:`expert_ffn_grouped_reference`, its plain PyTorch version, for CPU
+(the per-expert kernel's three launches on ``csrc/quant_ffn.cuh``, each row
+tile taking its expert from ``emap``: the int8 GEMM1 with its epilogue and
+per-row absmax, the requantization, the int8 GEMM2) on the plan of
+``decode_plan.grouped_plan`` for CUDA tensors and runs
+:func:`expert_ffn_grouped_reference`, its plain PyTorch version, for CPU
 tensors. It replaces ``apertis_llm_tpu/ops/pallas/moe_grouped.py::
 expert_ffn_grouped`` with the int8 fat stack of ``models/moe_fuse.py``,
 unstacked: the caller passes one layer's tensors. ``ops/moe.py::
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from apertis_llm_torch.ops.activations import get_activation
-from apertis_llm_torch.ops.kernels import _build
+from apertis_llm_torch.ops.kernels import _build, decode_plan
 from apertis_llm_torch.ops.quant import int_mm
 
 TILE = 128                                        # rows of one expert tile
@@ -94,13 +96,28 @@ def expert_ffn_grouped(
         raise ValueError(f"expert_ffn_grouped: unsupported shape P={p} H={d} E*I={ei} "
                          f"E={num_experts}")
     _build.check_aligned("expert_ffn_grouped", xq, w1t_q, w2t_q)
-    hidden = torch.empty((p, inter), dtype=torch.float32, device=dev)
-    absmax = torch.empty((p, 1), dtype=torch.float32, device=dev)
+    plan = decode_plan.grouped_plan(p, d, inter, _build.sm_count(dev.index or 0))
+    return _grouped_launch(xq, xs, emap, w1t_q, w1t_s, b1t, w2t_q, w2t_s, num_experts,
+                           hidden_act, plan)
+
+
+def _grouped_launch(xq, xs, emap, w1t_q, w1t_s, b1t, w2t_q, w2t_s, num_experts, hidden_act,
+                    plan: decode_plan.DensePlan) -> torch.Tensor:
+    """Launch the kernel on checked operands at ``plan``; counts the launch."""
+    p, d = xq.shape
+    inter = w1t_q.shape[1] // num_experts
+    dev = xq.device
+    # hq (P, Ip) int8, hs (P, 1), hidden (P, I) and absmax (P, 1) f32 in one
+    # buffer: the wide form's scratch with one tile of the expert's I.
+    *offsets, size = decode_plan.ffn_scratch(p, inter, inter, True)
+    scratch = torch.empty((size,), dtype=torch.uint8, device=dev)
+    hq, hs, hidden, absmax = (scratch.data_ptr() + off for off in offsets)
     out = torch.empty((p, d), dtype=torch.bfloat16, device=dev)
     err = _build.load_library().apertis_expert_ffn_grouped(
         xq.data_ptr(), xs.data_ptr(), emap.data_ptr(), w1t_q.data_ptr(), w1t_s.data_ptr(),
-        b1t.data_ptr(), w2t_q.data_ptr(), w2t_s.data_ptr(), out.data_ptr(), hidden.data_ptr(),
-        absmax.data_ptr(), p, d, ei, num_experts, _ACT_CODES.get(hidden_act, 0),
+        b1t.data_ptr(), w2t_q.data_ptr(), w2t_s.data_ptr(), out.data_ptr(), hq, hs, hidden,
+        absmax, p, d, w1t_q.shape[1], num_experts, _ACT_CODES.get(hidden_act, 0),
+        plan.up.rows, plan.down.split, plan.up.stages, plan.down.stages,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "expert_ffn_grouped")
     expert_ffn_grouped.launches += 1

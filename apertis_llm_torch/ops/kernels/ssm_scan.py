@@ -18,7 +18,8 @@ kernels in ``csrc/scan_carry.cu`` (plain versions
 :func:`selective_scan_carry_bwd_reference`): the plain scan over given decays
 and inputs from a carried state, in the (B, H, L, N) layout, and its
 gradient, which replace ``selective_scan_pallas`` (the forward and custom VJP
-of ``ssm_scan.py:129-194``) on the sequence-parallel path.
+of ``ssm_scan.py:129-194``) on the sequence-parallel path. Both backward
+kernels cut the time axis into chunks (``BWD_CHUNK``, ``CARRY_BWD_CHUNK``).
 """
 
 from __future__ import annotations
@@ -160,6 +161,12 @@ def selective_scan_bwd_reference(
 # walking 32 steps. The chunked carry reassociates the adjoint's sums;
 # nothing else of the result depends on the chunk.
 BWD_CHUNK = 32
+# The carried-state backward's chunk (csrc/scan_carry.cu): on the H100
+# (chip_smoke.py --scan-bwd-times) chunks of 16 took 0.0116 / 0.0312 ms
+# at (4, 38, 512 / 1024, 16), 8 0.0151 / 0.0430, 32 0.0126 / 0.0358 and
+# 64 0.0208 / 0.0519: its threads do less a step than #1's, so more of
+# them pay, until the carries' resolution (K - 1 - k steps) takes over.
+CARRY_BWD_CHUNK = 16
 
 
 def _scan_bwd_launch(entry: str, name: str, delta, a_cont, c_mod, seq_mask, hs, gy, g_last):
@@ -366,7 +373,10 @@ def selective_scan_carry_bwd(
     """The carried-state scan's gradient: kernel on CUDA tensors, plain
     version on CPU ones. The kernel takes ``a_bar``, ``g`` and ``states``
     (B, H, L, N) and ``h_init`` and ``g_last`` (B, H, N) or None, each
-    contiguous float32, and returns what the plain version returns."""
+    contiguous float32, and returns what the plain version returns; it runs
+    over chunks of ``CARRY_BWD_CHUNK`` steps, whose carries reassociate the
+    adjoint's sums (bit-equal to the plain version only where L fits one
+    chunk)."""
     if a_bar.device.type == "cpu":
         return selective_scan_carry_bwd_reference(a_bar, g, states, h_init, g_last)
     bsz, heads, l, n = a_bar.shape
@@ -378,13 +388,26 @@ def selective_scan_carry_bwd(
             _build.check_tensor(t, (bsz, heads, n), (torch.float32,), name, dev)
     if bsz * heads * l * n == 0:
         raise ValueError(f"selective_scan_carry_bwd: empty shape {tuple(a_bar.shape)}")
+    return _carry_bwd_launch(a_bar, g, states, h_init, g_last, CARRY_BWD_CHUNK)
+
+
+def _carry_bwd_launch(a_bar, g, states, h_init, g_last, chunk: int):
+    """Launch the carried-state backward on checked operands over chunks of
+    ``chunk`` steps; counts the launch."""
+    bsz, heads, l, n = a_bar.shape
+    dev = a_bar.device
     da, db = torch.empty_like(a_bar), torch.empty_like(a_bar)
     dh_init = torch.empty_like(h_init) if h_init is not None else None
+    chunks = -(-l // chunk)
+    # Pass 1's lam0 and prod of each (row, chunk).
+    scratch = (torch.empty((2, bsz * heads, chunks, n), dtype=torch.float32, device=dev)
+               if chunks > 1 else None)
     err = _build.load_library().apertis_scan_carry_bwd(
         a_bar.data_ptr(), g.data_ptr(), states.data_ptr(),
         h_init.data_ptr() if h_init is not None else None,
         g_last.data_ptr() if g_last is not None else None, da.data_ptr(), db.data_ptr(),
-        dh_init.data_ptr() if dh_init is not None else None, bsz * heads, l, n,
+        dh_init.data_ptr() if dh_init is not None else None,
+        scratch.data_ptr() if scratch is not None else None, bsz * heads, l, n, chunk,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "selective_scan_carry_bwd")
     selective_scan_carry_bwd.launches += 1

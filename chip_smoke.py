@@ -35,8 +35,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the 44 layers, ``moe_step_times``), the fat expert kernel (twice at 64
      rows for the same bits; its warm and cold times over the 44 layers' fat stacks
      with each layer's own routing, ``fat_times``) and the grouped expert
-     kernel, with sensitivity checks for the combine weights, b1t, w1t_s,
-     w2t_s, the router bias and the epilogue's inverse deviation, and the
+     kernel (at 2048 and 37 tokens, each twice for the same bits, and
+     whether it is bit-equal to its plain version), with sensitivity checks
+     for the combine weights, b1t, w1t_s, w2t_s, the router bias and the
+     epilogue's inverse deviation, and the
      bf16 moe epilogue's combine weights at 256 rows over FAULT2_SEEDS more
      seeds;
      Then the 1.5B MHA model (hidden 2432, 20 layers, 38 heads of 64, q/k/v/o
@@ -209,10 +211,15 @@ card's name and power limit; the last line is ``{"ok": true, "device":
                                              # fat MoE FFN's and the per-expert MoE
                                              # FFN's warm and cold times at 64 and 4 rows
     python3 chip_smoke.py --scan-bwd-times   # the scan backward's times at the 1.5B
-                                             # training shape, N = 12 and 11 heads
+                                             # training shape, N = 12 and 11 heads, and
+                                             # #2's backward at (4, 38, 512 and 1024, 16)
+                                             # with other chunks
+    python3 chip_smoke.py --grouped-times    # the grouped MoE FFN's (#12) at 2048 and
+                                             # 37 tokens, and at both row tiles
 
 The first two flags run ``qmm_phase`` only. ``--qmm-times``,
-``--flash-f32-times``, ``--decode-times`` and ``--scan-bwd-times`` need nothing
+``--flash-f32-times``, ``--decode-times``, ``--scan-bwd-times`` and
+``--grouped-times`` need nothing
 of the checkout but
 the wrappers' (and the trainer's) Python interface, so a checkout of an
 earlier commit can run them with this script copied into it, for a
@@ -301,7 +308,9 @@ F32_FORWARD_TOL = 1e-4
 F32_FLASH_TOL = 1e-5
 # The carried-state scan (#2) against its plain versions: JAX's own bounds
 # (tests/test_pallas_kernels.py:69-78), relative to the largest element;
-# both sides round each product and sum once in one order.
+# both sides round each product and sum once, the forward in one order; the
+# backward runs over chunks of the time axis, whose carries reassociate the
+# adjoint's sums (about an f32 ulp of lam a chunk boundary).
 CARRY_TOL = 1e-5
 CARRY_BWD_TOL = 1e-4
 # A 2-layer f32 train step's loss on a two-rank mesh vs one process on the
@@ -1035,6 +1044,101 @@ def scan_bwd_times(card):
                          "device_ms_by_kernel": device_ms(lambda: fn(*args), by_kernel=True),
                          "bound_ms": bound(moved, 12 * ct.numel(), "f32")[0]}
         log(f"  {label}: {json.dumps(result[label])}; card: {card}")
+    # #2's backward (selective_scan_carry_bwd) from an h_init, with g_last,
+    # at a rank's share of the 1.5B training sequence under seq = 2 (the
+    # mesh run's shape) and at the whole sequence; where the checkout has
+    # the chunked launch, its device time at other chunks too.
+    from apertis_llm_torch.ops.kernels import ssm_scan
+    for b, h, l, n in ((4, 38, 512, 16), (4, 38, 1024, 16)):
+        a = torch.empty((b, h, l, n), device=dev).uniform_(0.4, 0.999, generator=gen)
+        bt, g, h0, g_last = (torch.randn(shape, generator=gen, device=dev)
+                             for shape in ((b, h, l, n), (b, h, l, n), (b, h, n), (b, h, n)))
+        states = ssm_scan.selective_scan_carry_fwd(a, bt, h0, want_states=True)[2]
+        args = (a, g, states, h0, g_last)
+        moved = nbytes(*args) + 2 * nbytes(a) + nbytes(h0)
+        label = f"selective_scan_carry_bwd {(b, h, l, n)} from h_init"
+        res = {"ms": cuda_ms(lambda: ssm_scan.selective_scan_carry_bwd(*args)),
+               "device_ms": device_ms(lambda: ssm_scan.selective_scan_carry_bwd(*args)),
+               "device_ms_by_kernel": device_ms(
+                   lambda: ssm_scan.selective_scan_carry_bwd(*args), by_kernel=True),
+               "bound_ms": bound(moved, 3 * a.numel(), "f32")[0]}
+        ref = ssm_scan.selective_scan_carry_bwd_reference(*args)
+        for out_name, got, want in zip(("da", "db", "dh_init"),
+                                       ssm_scan.selective_scan_carry_bwd(*args), ref):
+            compare(f"{label} {out_name}", got, want, CARRY_BWD_TOL)
+        if hasattr(ssm_scan, "_carry_bwd_launch"):
+            res["device_ms_by_chunk"] = {}
+            for chunk in (8, 16, 32, 64, 128):
+                got = ssm_scan._carry_bwd_launch(*args, chunk)
+                compare(f"{label} at chunks of {chunk}, db", got[1], ref[1], CARRY_BWD_TOL)
+                res["device_ms_by_chunk"][chunk] = device_ms(
+                    lambda c=chunk: ssm_scan._carry_bwd_launch(*args, c))
+        result[label] = res
+        log(f"  {label}: {json.dumps(res)}; card: {card}")
+    return result
+
+
+def grouped_times(card):
+    """The grouped MoE FFN's times (#12) at request B's 2048 tokens and the
+    ragged 37, at the 1.5B MoE preset's widths (H 704, 8 experts of 2816)
+    on one layer's int8 fat stack made from seeded f32 experts, each token
+    routed to two experts with phase 3b's uneven loads (expert 7 empty): the
+    wrapper's CUDA-event time, the profiler's device time, in all and by
+    kernel, and the bound of the bytes and the live rows' int8 operations;
+    where the checkout has ``decode_plan.grouped_plan``, the device time at
+    row tiles of 64 and 128 too. An earlier commit can run it with this
+    script copied in."""
+    from apertis_llm_torch.models.factory import calculate_model_dimensions
+    from apertis_llm_torch.models.moe_fuse import fuse_one_fat
+    from apertis_llm_torch.ops import moe as moe_ops
+    from apertis_llm_torch.ops.kernels import decode_plan, moe_grouped
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    cfg = moe_preset_config(calculate_model_dimensions("1.5B", 32000, use_expert_system=True))
+    h, inter, n_exp = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    fat = fuse_one_fat({"ln_w": 1 + randn(n_exp, h, std=0.1), "ln_b": randn(n_exp, h, std=0.1),
+                        "w1": randn(n_exp, h, inter, std=0.02),
+                        "b1": randn(n_exp, inter, std=0.1),
+                        "w2": randn(n_exp, inter, h, std=0.02)})
+    probs = torch.tensor([8.0, 4, 2, 1, 1, 1, 1, 0], device=dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    result = {}
+    for s_ in (2048, 37):
+        idx = torch.multinomial(probs.expand(s_, n_exp), 2, replacement=False, generator=gen)
+        xq, xs = moe_ops.center_quantize(randn(s_, h).to(torch.bfloat16), cfg.layer_norm_eps)
+        dest, emap = moe_ops.grouped_dispatch(idx, n_exp)
+        p = emap.numel() * moe_grouped.TILE
+        xq_pad = torch.zeros((p, h), dtype=torch.int8, device=dev)
+        xs_pad = torch.zeros((p, 1), dtype=torch.float32, device=dev)
+        xq_pad[dest] = xq.repeat_interleave(2, dim=0)
+        xs_pad[dest] = xs.repeat_interleave(2, dim=0)
+        args = (xq_pad, xs_pad, emap, fat["w1t_q"], fat["w1t_s"], fat["b1t"], fat["w2t_q"],
+                fat["w2t_s"], n_exp, cfg.hidden_act)
+        used = int(torch.unique(emap[emap >= 0]).numel())
+        moved = (nbytes(xq_pad, xs_pad, emap, fat["w2t_s"]) + xq_pad.numel() * 2
+                 + sum(nbytes(fat[k]) for k in ("w1t_q", "w1t_s", "b1t", "w2t_q")) * used // n_exp)
+        label = f"expert_ffn_grouped {s_} tokens: P = {p}, {int((emap >= 0).sum())} live tiles"
+        res = {"ms": cuda_ms(lambda: moe_grouped.expert_ffn_grouped(*args)),
+               "device_ms": device_ms(lambda: moe_grouped.expert_ffn_grouped(*args)),
+               "device_ms_by_kernel": device_ms(
+                   lambda: moe_grouped.expert_ffn_grouped(*args), by_kernel=True),
+               "bound_ms": bound(moved, 4 * 2 * s_ * h * inter, "int8")[0]}
+        got = moe_grouped.expert_ffn_grouped(*args)
+        compare(f"{label} out", got, moe_grouped.expert_ffn_grouped_reference(*args), BF16_ULP)
+        if hasattr(decode_plan, "grouped_plan"):
+            for br in (64, 128):
+                plan = decode_plan._expert_plan(p, br, h, inter, 1, sms)
+                if not torch.equal(moe_grouped._grouped_launch(*args, plan), got):
+                    raise RuntimeError(f"{label}: row tile {br} gives other bits")
+                res[f"row_tile_{br}"] = {"plan": plan, "device_ms_by_kernel": device_ms(
+                    lambda pl=plan: moe_grouped._grouped_launch(*args, pl), by_kernel=True)}
+        result[label] = res
+        log(f"  {label}: {json.dumps(res)}; card: {card}")
     return result
 
 
@@ -1802,10 +1906,27 @@ def main() -> int:
     for s_, label in ((2048, "request B's 64 x 32"), (37, "ragged")):
         args = grouped_inputs(s_, probs)
         live = int((args[2] >= 0).sum())
-        check_kernel("expert_ffn_grouped", f"expert_ffn_grouped {s_} tokens ({label}): P = "
-                     f"{args[0].shape[0]}, {live} live tiles of {TILE}, expert 7 empty", args,
-                     expert_ffn_grouped, expert_ffn_grouped_reference, [("out", BF16_ULP)],
-                     cost=grouped_cost(args, 2 * s_) if s_ == 2048 else None)
+        label = (f"expert_ffn_grouped {s_} tokens ({label}): P = {args[0].shape[0]}, {live} "
+                 f"live tiles of {TILE}, expert 7 empty")
+        check_kernel("expert_ffn_grouped", label, args, expert_ffn_grouped,
+                     expert_ffn_grouped_reference, [("out", BF16_ULP)],
+                     cost=grouped_cost(args, 2 * s_) if s_ == 2048 else None, repeat=True)
+        same = torch.equal(expert_ffn_grouped(*args), expert_ffn_grouped_reference(*args))
+        log(f"  {label}: bit-equal to the plain version: {same}")
+    # A prefill of 33,000 tokens: P past 65,535 rows, more than a grid's y
+    # dimension holds, so no launch may put a block on each row. Its draws
+    # are given back, so that every later check sees the data it always had.
+    g_state = g.get_state()
+    args = grouped_inputs(33_000, probs)
+    g.set_state(g_state)
+    label = f"expert_ffn_grouped 33000 tokens: P = {args[0].shape[0]}"
+    got = expert_ffn_grouped(*args)
+    errs["expert_ffn_grouped"] = max(errs["expert_ffn_grouped"], compare(
+        f"{label} out", got, expert_ffn_grouped_reference(*args), BF16_ULP))
+    if not torch.equal(got, expert_ffn_grouped(*args)):
+        raise RuntimeError(f"{label}: a second run gave other bits")
+    log(f"  {label}: a second run gives the same bits ok")
+    del args, got
 
     # ---- 3c. the 1.5B MHA model and its kernel checks -----------------------
     # bench.py's arch="mha" preset: the dense preset's widths with standard
@@ -2540,8 +2661,10 @@ def main() -> int:
     # sequence (4, 38, 1024, 16) and at a rank's chunk of it under seq = 2
     # (4, 38, 512, 16, the timed shape), f32, from zero and from an h_init,
     # forward and backward (the plain backward on the plain forward's
-    # states). The kernels round every product and sum once, in the plain
-    # loops' order: the report says whether they are bit-equal.
+    # states). The kernels round every product and sum once, the forward in
+    # the plain loop's order, the backward over chunks of the time axis (its
+    # carries reassociate the adjoint's sums): the report says whether each
+    # is bit-equal, and the backward is where L fits one chunk only.
     log("the carried-state scan (#2) against its plain versions (f32):")
     carry_bit_equal = {}
 
@@ -2577,6 +2700,11 @@ def main() -> int:
         "h_init (as h[-1])": lambda: selective_scan_carry_bwd_reference(
             *bargs[:3], torch.zeros_like(bargs[3]), bargs[4]),
         "h_last cotangent": bargs[:4] + (None,)}, bwd_tols, SENSITIVITY_FACTOR)
+    # The backward's chunks do not divide L = 300; with and without g_last.
+    for bargs_, what in ((bargs, "with g_last"), (bargs[:4] + (None,), "without g_last")):
+        check_kernel("selective_scan_carry_bwd", f"scan carry backward (2, 5, 300, 16) {what}",
+                     bargs_, selective_scan_carry_bwd, selective_scan_carry_bwd_reference,
+                     bwd_tols, repeat=True)
     for shape in ((4, ssm_heads, 1024, n), (4, ssm_heads, 512, n)):
         for with_init in (False, True):
             fargs = carry_inputs(shape, with_init)
@@ -2596,14 +2724,14 @@ def main() -> int:
             cost = (nbytes(*(t for t in bargs if t is not None)) + 2 * nbytes(a)
                     + nbytes(h0), 3 * a.numel(), "f32")
             check_kernel("selective_scan_carry_bwd", f"scan carry backward {label}", bargs,
-                         bwd_kernel, bwd_plain, bwd_tols, cost=cost if timed else None)
+                         bwd_kernel, bwd_plain, bwd_tols, cost=cost if timed else None,
+                         repeat=True)
             bit_equal(f"scan carry forward {label}", selective_scan_carry_fwd,
                       selective_scan_carry_fwd_reference, fargs)
             bit_equal(f"scan carry backward {label}", selective_scan_carry_bwd,
                       selective_scan_carry_bwd_reference, bargs)
             if timed:
                 repeats(f"selective_scan_carry_fwd {label}", selective_scan_carry_fwd, fargs)
-                repeats(f"selective_scan_carry_bwd {label}", bwd_kernel, bargs)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. serve -----------------------------------------------------------
@@ -3712,8 +3840,10 @@ def decode_times_main() -> int:
     return 0
 
 
-def scan_bwd_times_main() -> int:
-    """``--scan-bwd-times``: scan_bwd_times alone."""
+def times_main(key, times) -> int:
+    """A timing mode alone (``--scan-bwd-times``: scan_bwd_times;
+    ``--grouped-times``: grouped_times): the kernels' build, then
+    ``times(card)`` printed under ``key``."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -3725,14 +3855,16 @@ def scan_bwd_times_main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     log(f"card: {card}; build in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"scan_bwd_times": scan_bwd_times(card)}))
+    print(json.dumps({key: times(card)}))
     print(card)
     return 0
 
 
 if __name__ == "__main__":
     if sys.argv[1:] == ["--scan-bwd-times"]:
-        sys.exit(scan_bwd_times_main())
+        sys.exit(times_main("scan_bwd_times", scan_bwd_times))
+    if sys.argv[1:] == ["--grouped-times"]:
+        sys.exit(times_main("grouped_times", grouped_times))
     if sys.argv[1:] in (["--qmm"], ["--qmm-times"]):
         sys.exit(qmm_main(check=sys.argv[1] == "--qmm"))
     if sys.argv[1:] == ["--flash-f32-times"]:

@@ -15,8 +15,11 @@ cluster, whose tile-ordered f32 accumulation must equal
 maxima over 128-column blocks, hq padded to whole chunks, rounds of tile
 groups, skipped experts), which must equal ``expert_ffn_fat_reference`` bit
 for bit; the bf16 FFN's K split ranges and rank-ordered sums against
-``ffn_decode_reference``; and the split's exchange slots inside the plans'
-shared memory.
+``ffn_decode_reference``; the split's exchange slots inside the plans'
+shared memory; and the per-expert (#11) and grouped (#12) MoE FFN's
+launches (``csrc/quant_ffn.cuh::expert_ffn_run``), which must equal
+``expert_ffn_dense_reference`` and ``expert_ffn_grouped_reference`` bit for
+bit.
 """
 
 import collections
@@ -33,12 +36,14 @@ from apertis_llm_torch.ops.kernels import _build
 from apertis_llm_torch.ops.kernels.decode_plan import (
     BW_BYTES, BW_CHUNK, CHUNK, MAX_FAT_SPLIT, MAX_GROUP, MAX_SPLIT, MAX_UP_CLUSTER, MIN_STAGES,
     ROW_TILES, SMEM_LIMIT, TILE_COLS, W4_BYTES, W8_BYTES, DensePlan, FatPlan, FfnPlan, GemmPlan,
-    StepPlan, bf16_ffn_plan, bf16_step_plan, dense_plan, down_extra, fat_plan, fat_wide, ffn_plan,
-    smem_bytes, ssm_step_plan, xset_bytes)
+    StepPlan, _expert_plan, bf16_ffn_plan, bf16_step_plan, dense_plan, down_extra, fat_plan,
+    fat_wide, ffn_plan, grouped_plan, smem_bytes, ssm_step_plan, xset_bytes)
 from apertis_llm_torch.ops.kernels.ffn_fused import (
     ffn_decode_int8_reference, ffn_decode_reference, pick_block_n)
 from apertis_llm_torch.ops.kernels.moe_ffn import (
     expert_ffn_dense_reference, expert_ffn_fat_reference, fat_block_n)
+from apertis_llm_torch.ops.kernels.moe_grouped import TILE, expert_ffn_grouped_reference
+from apertis_llm_torch.ops.moe import grouped_dispatch
 from apertis_llm_torch.ops.quant import int_mm
 
 H100_SMS = 132
@@ -891,7 +896,224 @@ def test_dense_emulation_is_the_reference_bit_for_bit(s, inter, experts, split, 
     for out_dtype in (torch.bfloat16, torch.float32):
         ref = expert_ffn_dense_reference(*args, out_dtype, act)
         assert torch.equal(_dense_emulation(*args, out_dtype, act, split), ref)
-    src = _source("moe_dense.cu")
+    src = _source("quant_ffn.cuh")
     assert "const int c_lo = rank * a.per / split, c_hi = (rank + 1) * a.per / split;" in src
-    assert "DgChunks{e, 1, 1, a.per, a.per * kDgKC - a.k}" in src
-    assert "__fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + q]), hs), ws0), b0)" in src
+    assert "DgChunks{slice, 1, 1, a.per, a.per * kDgKC - a.k}" in src
+    assert "float y0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + q]), hs), ws0);" in src
+    assert "y0 = __fadd_rn(y0, b0);" in src
+
+
+# ---- the grouped MoE FFN (#12, csrc/moe_grouped.cu) ---------------------------
+
+@pytest.mark.parametrize("rows,dims,row_tile,plan", [
+    # request B's 64 x 32 = 2048 tokens of the 1.5B MoE model: P = 4096 + 8 x
+    # 128 rows; GEMM2's 6 column tiles x 40 row tiles of 128 fill the SMs
+    (5120, (704, 2816), 0, DensePlan(GemmPlan(128, 0, 6, 210528, (22, 40)),
+                                     GemmPlan(128, 1, 7, 230512, (6, 40)))),
+    (5120, (704, 2816), 64, DensePlan(GemmPlan(64, 0, 6, 154976, (22, 80)),
+                                      GemmPlan(64, 1, 8, 197760, (6, 80)))),
+    # the ragged 37 tokens: P = 1152, 6 x 9 tiles of 128 would leave SMs
+    # idle: 64 rows, 6 x 18 blocks; at 128 GEMM2 splits in two
+    (1152, (704, 2816), 0, DensePlan(GemmPlan(64, 0, 6, 154976, (22, 18)),
+                                     GemmPlan(64, 1, 8, 197760, (6, 18)))),
+    (1152, (704, 2816), 128, DensePlan(GemmPlan(128, 0, 6, 210528, (22, 9)),
+                                       GemmPlan(128, 2, 5, 230480, (12, 9)))),
+    # the 2-layer MoE model's bucketed prefill of request A (4 x 64 tokens):
+    # 2 x 24 GEMM2 blocks, each expert's 4 chunks split over 2
+    (1536, (256, 512), 0, DensePlan(GemmPlan(64, 0, 2, 56608, (4, 24)),
+                                    GemmPlan(64, 2, 2, 82976, (4, 24)))),
+    # a prefill of 33,000 tokens: P = 66,000 + 8 x 128 rounded down to whole
+    # tiles, past a grid's 65,535 in y; the row tiles stay well inside it
+    (66944, (704, 2816), 0, DensePlan(GemmPlan(128, 0, 6, 210528, (22, 523)),
+                                      GemmPlan(128, 1, 7, 230512, (6, 523)))),
+])
+def test_grouped_plan_at_the_smoke_shapes(rows, dims, row_tile, plan):
+    """grouped_plan's choice (row_tile 0), or the other row tile's plan that
+    ``chip_smoke.py --grouped-times`` times beside it."""
+    h, inter = dims
+    if row_tile == 0:
+        assert grouped_plan(rows, h, inter, H100_SMS) == plan
+    else:
+        assert _expert_plan(rows, row_tile, h, inter, 1, H100_SMS) == plan
+
+
+@pytest.mark.parametrize("rows", [1, 4096, 65535, 65536, 66944, 200_000])
+def test_requantization_covers_every_row_past_the_grid_limit(rows):
+    """fat_quant_kernel's rows run over fat_quant_grid's y and z (r = z * gridDim.y
+    + y, past the rows nothing), y within 65,535, so every row is requantized
+    exactly once at any row count: the grouped FFN's P passes 65,535 from
+    32,768 tokens on. Up to 65,535 rows the grid is one slice of a block a
+    row, as before. Every launch takes that grid, and the grouped entry
+    point's guard is the one its row-tile grids need."""
+    grid_z = (rows + 65534) // 65535
+    grid_y = (rows + grid_z - 1) // grid_z
+    assert grid_y <= 65535 and (grid_z == 1) == (rows <= 65535)
+    r = (np.arange(grid_z)[:, None] * grid_y + np.arange(grid_y)[None, :]).ravel()
+    assert np.array_equal(r[r < rows], np.arange(rows))
+    assert grid_y * grid_z - rows < grid_z       # the blocks that find no row
+    ffn, fat, grouped = _source("quant_ffn.cuh"), _source("moe_ffn.cu"), _source("moe_grouped.cu")
+    assert "const int z = (rows + 65534) / 65535;" in ffn
+    assert "return dim3(tiles, (rows + z - 1) / z, z);" in ffn
+    assert "const size_t r = (size_t)blockIdx.z * gridDim.y + blockIdx.y;" in ffn
+    assert "if (r >= (size_t)rows || (emap != nullptr && emap[r / kGroupTile] < 0)) return;" in ffn
+    assert "fat_quant_kernel<<<fat_quant_grid(f.slices, f.rows), kBlock, 0, s>>>(" in ffn
+    assert "fat_quant_kernel<<<fat_quant_grid(tiles, rows), kBlock, 0, s>>>(" in fat
+    assert ffn.count("fat_quant_kernel<<<") + fat.count("fat_quant_kernel<<<") == 2
+    assert "rows / row_tile > 65535" in grouped
+    # the plan's row tiles at that P fit the y limit, with room to spare
+    if rows % TILE == 0:
+        plan = grouped_plan(rows, 704, 2816, H100_SMS)
+        assert plan.up.grid[1] == plan.down.grid[1] == rows // plan.up.rows <= 65535
+
+
+def test_grouped_plan_rules_at_every_shape():
+    """P from 128 to 8192 rows at many widths: the row tile divides the
+    grouped tile, and is the grouped tile only where GEMM2's blocks of 128
+    rows fill the SMs; GEMM1 is the wide form over ceil(I / 128) column blocks and
+    the row tiles; GEMM2 splits the ceil(I / 128) chunks over the largest
+    cluster up to MAX_FAT_SPLIT whose blocks fit on the SMs beside its column
+    and row tiles (so none once the row tiles fill them); stages 1 to 8 and no
+    more than a block's chunks; shared memory as the C side computes it,
+    within the limit."""
+    for tiles, (h, inter), br, sms in itertools.product(
+            (1, 2, 3, 9, 12, 40, 64), FAT_DIMS, (0, 64, 128), (132, 16)):
+        rows = tiles * TILE
+        if br == 0:      # the grouped tile where its GEMM2 blocks fill the SMs
+            plan = grouped_plan(rows, h, inter, sms)
+            br = 128 if tiles * cdiv(h, TILE_COLS) >= sms else 64
+        else:
+            plan = _expert_plan(rows, br, h, inter, 1, sms)
+        assert TILE % br == 0 and plan.up.rows == plan.down.rows == br
+        row_tiles, stage = rows // br, br * 128 + W8_BYTES
+        assert plan.up.split == 0 and plan.up.grid == (cdiv(inter, TILE_COLS), row_tiles)
+        assert 1 <= plan.up.stages <= min(8, cdiv(h, CHUNK))
+        assert plan.up.smem == smem_bytes(br, plan.up.stages, stage, 1,
+                                          (8 + 1 + MAX_UP_CLUSTER) * br * 4) <= SMEM_LIMIT
+        chunks, col_tiles = cdiv(inter, CHUNK), cdiv(h, TILE_COLS)
+        split = plan.down.split
+        assert split == max(1, min(MAX_FAT_SPLIT, chunks, sms // (col_tiles * row_tiles)))
+        assert col_tiles * row_tiles < sms or split == 1
+        assert 1 <= plan.down.stages <= min(8, cdiv(chunks, split))
+        assert plan.down.smem == smem_bytes(br, plan.down.stages, stage, split, 0) <= SMEM_LIMIT
+        assert plan.down.grid == (col_tiles * split, row_tiles)
+
+
+def _grouped_operands(seed, s, h, experts, inter, probs):
+    """Seeded int8 operands of the grouped kernel: s tokens routed to two
+    distinct experts each with the (uneven) probabilities ``probs``, laid out
+    by the grouped dispatch (padding rows 0, tiles past the last expert's
+    -1)."""
+    gen = torch.Generator().manual_seed(seed)
+    ei = experts * inter
+    w1t_q, w1t_s = quantize_weight(torch.randn((h, ei), generator=gen) * 0.05)
+    w2t_q, w2t_s = quantize_weight(torch.randn((ei, h), generator=gen) * 0.05)
+    b1t = torch.randn(ei, generator=gen) * 0.1
+    x = torch.randn((s, h), generator=gen)
+    xs = x.abs().amax(dim=1, keepdim=True).clamp(min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
+    idx = torch.multinomial(torch.tensor(probs).expand(s, experts), 2, replacement=False,
+                            generator=gen)
+    dest, emap = grouped_dispatch(idx, experts)
+    p = emap.numel() * TILE
+    xq_pad = torch.zeros((p, h), dtype=torch.int8)
+    xs_pad = torch.zeros((p, 1), dtype=torch.float32)
+    xq_pad[dest] = xq.repeat_interleave(2, dim=0)
+    xs_pad[dest] = xs.repeat_interleave(2, dim=0)
+    return xq_pad, xs_pad, emap, w1t_q, w1t_s, b1t, w2t_q, w2t_s, experts
+
+
+def _grouped_emulation(xq, xs, emap, w1t_q, w1t_s, b1t, w2t_q, w2t_s, experts, act, plan):
+    """csrc/moe_grouped.cu's launches in numpy, block by block: GEMM1 for
+    each row tile of the plan's row tile and 128 columns of its expert e =
+    emap[m0 // 128] (a tile of -1 skipped), the weight's columns e * I + n0
+    on of the fat stack (past the expert's I the next expert's columns, or
+    zeros past the stack, multiplied and dropped; x and W1 zero past H), the
+    epilogue and each row's absmax over the expert's whole I; the
+    requantization with I padded to whole chunks (Ip); GEMM2 for each row
+    tile and 128 output columns, the K split's ranks taking chunks [r * per
+    / split, (r + 1) * per / split), a chunk's W2 rows e * I + 128 c (into
+    the next expert's rows, or zeros past the stack, against hq's padding),
+    the int32 parts added, then bf16(float(acc) * hs * w2_s); a tile of -1
+    zeros. bf16 (P, H)."""
+    p, h = xq.shape
+    ei = w1t_q.shape[1]
+    inter = ei // experts
+    br, split = plan.up.rows, plan.down.split
+    per = cdiv(inter, CHUNK)
+    ip = per * CHUNK
+    hp = cdiv(h, CHUNK) * CHUNK
+    x = np.zeros((p, hp), np.int64)
+    x[:, :h] = xq.numpy()
+    w1 = np.zeros((hp, ei + TILE_COLS), np.int64)
+    w1[:h, :ei] = w1t_q.numpy()
+    w2 = np.zeros((ei + ip, hp), np.int64)
+    w2[:ei, :h] = w2t_q.numpy()
+    fn = get_activation(act)
+    hidden = torch.full((p, inter), float("nan"))
+    absmax = np.zeros(p, np.float32)
+    for m0 in range(0, p, br):
+        e = int(emap[m0 // TILE])
+        if e < 0:
+            continue
+        rows = slice(m0, m0 + br)
+        for n0 in range(0, inter, TILE_COLS):
+            cols = slice(e * inter + n0, e * inter + n0 + TILE_COLS)
+            acc = torch.from_numpy(x[rows] @ w1[:, cols])
+            live = min(TILE_COLS, inter - n0)       # the columns the epilogue keeps
+            c = slice(e * inter + n0, e * inter + n0 + live)
+            blk = fn(acc[:, :live].float() * xs[rows] * w1t_s[:, c] + b1t[c])
+            hidden[rows, n0:n0 + live] = blk
+            absmax[rows] = np.maximum(absmax[rows], blk.abs().amax(dim=1).numpy())
+    hs = torch.clamp(torch.from_numpy(absmax)[:, None], min=1e-8) * (1.0 / 127.0)
+    hq = np.zeros((p, ip), np.int64)
+    out = torch.zeros((p, h), dtype=torch.bfloat16)
+    for m0 in range(0, p, br):
+        e = int(emap[m0 // TILE])
+        if e < 0:
+            continue                                 # the zeros GEMM2 writes
+        rows = slice(m0, m0 + br)
+        hq[rows, :inter] = torch.clamp(torch.round(hidden[rows] / hs[rows]), -127, 127).numpy()
+        for n0 in range(0, h, TILE_COLS):
+            acc = np.zeros((br, TILE_COLS), np.int64)
+            for r in range(split):
+                for ch in range(r * per // split, (r + 1) * per // split):
+                    kw = e * inter + ch * CHUNK
+                    acc += hq[rows, ch * CHUNK:(ch + 1) * CHUNK] @ w2[kw:kw + CHUNK,
+                                                                       n0:n0 + TILE_COLS]
+            live = min(TILE_COLS, h - n0)
+            y = torch.from_numpy(acc[:, :live]).float() * hs[rows] * w2t_s[:, n0:n0 + live]
+            out[rows, n0:n0 + live] = y.to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("s,h,experts,inter,sms,row_tile,act", [
+    # uneven loads, the last expert empty; H and I not multiples of 128
+    (37, 192, 4, 192, 132, 128, "gelu"),
+    (37, 192, 4, 192, 132, 64, "relu"),
+    # a K split (few SMs) at I = 384 (3 chunks), and 5 experts of 128
+    (70, 128, 4, 384, 16, 128, "silu"),
+    (90, 320, 5, 128, 4, 64, "gelu"),
+])
+def test_grouped_emulation_is_the_reference_bit_for_bit(s, h, experts, inter, sms, row_tile,
+                                                        act):
+    """The grouped kernel's launches (a row tile's expert from emap, the fat
+    stack's columns and rows from e * I, the padded hq, the K split's int32
+    parts) equal expert_ffn_grouped_reference bit for bit, with uneven loads,
+    an empty expert, tiles of no expert and H and I not multiples of 128, at
+    either row tile and any split: the int32 parts add exactly, so neither
+    can move the result."""
+    probs = [8.0, 4, 2, 1, 1][:experts - 1] + [0.0]
+    args = _grouped_operands(s * 7 + experts, s, h, experts, inter, probs)
+    emap = args[2]
+    assert (emap < 0).any() and int(emap[emap >= 0].max()) < experts - 1
+    plan = _expert_plan(args[0].shape[0], row_tile, h, inter, 1, sms)
+    ref = expert_ffn_grouped_reference(*args, act)
+    assert torch.equal(_grouped_emulation(*args, act, plan), ref)
+    ffn, grouped = _source("quant_ffn.cuh"), _source("moe_grouped.cu")
+    assert "const int wexp = kGrouped ? a.emap[m0 / kGroupTile] : 0;" in ffn
+    assert "ffn_up_kernel<false, BR, true, kGrouped>" in ffn
+    assert "n0 + wexp * a.n, m0," in ffn
+    assert "const int e = kGrouped ? a.emap[m0 / kGroupTile] : slice;" in ffn
+    assert "const DgWeight wt{nullptr, a.experts * a.k, a.n, 1, (e - slice) * a.k};" in ffn
+    assert "if (r >= (size_t)rows || (emap != nullptr && emap[r / kGroupTile] < 0)) return;" in ffn
+    assert "expert_ffn_run<128, true>(f, split, st_up, st_down, s)" in grouped
