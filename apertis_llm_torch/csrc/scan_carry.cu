@@ -26,25 +26,42 @@
 //
 // Both round every product and every sum once (__fmul_rn, __fadd_rn: no
 // fused multiply-add), in the order of the plain versions in
-// ops/kernels/ssm_scan.py. The forward walks the whole L in one thread and
-// agrees with its plain version bit for bit; the backward runs over chunks
-// of the time axis, whose carries reassociate lam's sums, so it agrees with
-// its plain version only where L fits one chunk (about an f32 ulp of lam a
-// chunk boundary elsewhere; chip_smoke.py holds it to CARRY_BWD_TOL, 1e-4).
+// ops/kernels/ssm_scan.py. Both run over chunks of the time axis, whose
+// carries reassociate the sums, so each agrees with its plain version bit
+// for bit only where L fits one chunk (about an f32 ulp of h or lam a chunk
+// boundary elsewhere; chip_smoke.py holds the forward to CARRY_TOL, 1e-5,
+// and the backward to CARRY_BWD_TOL, 1e-4).
 //
 // Bound on the H100: bytes. A step of a channel reads a and b and writes h
 // (12 bytes in f32) for one multiply and one add; the backward reads a, g
 // and h and writes da and db (20 bytes) for two multiplies and one add: far
 // below the card's operations-per-byte line. At the 1.5B model's per-rank
 // shape (4, 38, 512, 16) the backward's arrays are 5 MB each: 25 MB, 0.0074
-// ms at 3.35 TB/s.
+// ms at 3.35 TB/s; the forward's 15 MB, 0.0045 ms.
 //
-// Design of the forward: one thread owns one (r, n) and walks L with its
-// carry in a register. Consecutive threads take consecutive n and then the
-// next head, so each step's loads and stores are contiguous runs of N floats
-// (two heads of 16 a warp at the 1.5B model's N = 16). The loads of a step
-// do not depend on the carry, so the unrolled loop issues them ahead of the
-// dependent multiply-adds.
+// Design of the forward: the TPU kernel's in-tile Hillis-Steele scan over
+// the time axis (ssm_scan.py:53-77, pallas_call :97) becomes chunks of
+// `chunk` steps (ops/kernels/ssm_scan.py::CARRY_FWD_CHUNK), one thread a
+// (r, chunk, n). One thread a (r, n) walking the whole L would give the
+// per-rank shape 19 blocks of 128 threads for 132 SMs, each thread waiting
+// on its loads for 512 dependent steps. For a chunk [t0, t1),
+// h[t1 - 1] = local + prod * h[t0 - 1], where local is the chunk's own scan
+// from h = 0 and prod = a[t0] ... a[t1 - 1]:
+//   1. scan_carry_fwd_local_kernel: local and prod of every chunk but the
+//      last into a (2, R, K, N) f32 scratch (reads a and b);
+//   2. scan_carry_fwd_kernel: each thread resolves its chunk's carry
+//      h[t0 - 1] from h_init (0 without one) and the earlier chunks' (local,
+//      prod), j = 0 up to k - 1, in that fixed order (chunk_scan.cuh,
+//      shared with ssm_scan.cu: loads in batches of kFold ahead of the
+//      chain, no wait on other blocks), reruns the chunk from it and writes
+//      h, the f32 states when asked, and, in the last chunk, h_last.
+// With one chunk (L <= chunk) only pass 2 runs: the sequential scan, the
+// plain version's bits. Consecutive threads take consecutive n and
+// then the next head, so each step's loads and stores are contiguous runs of
+// N floats (two heads of 16 a warp at the 1.5B model's N = 16); a thread
+// loads chunk_scan::kTile steps of a and b before the first enters its
+// dependent chain. Bytes: pass 1 reads a and b again, about 25 MB at the per-rank
+// shape (4, 38, 512, 16) in f32 where 15 MB must move.
 //
 // Design of the backward: one thread a (r, n) alone would leave the card
 // mostly idle (2,432 threads at the per-rank shape, each waiting on its
@@ -65,34 +82,138 @@
 // No atomics: the result is the same from run to run. The design moves
 // about 35 MB at the per-rank shape (pass 1 reads a and g again), 0.0104 ms.
 
+#include "chunk_scan.cuh"
 #include "common.cuh"
 
 namespace {
 
 constexpr int kCarryThreads = 128;
 
+// kSteps steps of h = a * h + b from `carry` through one lane's a and b
+// (stride N from the step's base): all their loads first (read-only path),
+// then the chain, every product and sum rounded once. With kOut, h (and the
+// f32 state, where `st` is not null) is written at each step; without,
+// `prod` collects the decays.
+template <int kSteps, bool kOut, typename TB>
+__device__ __forceinline__ float carry_steps(const float* a, const TB* b, TB* h, float* st,
+                                             int d_state, float carry, float& prod) {
+  float av[kSteps];
+  TB bv[kSteps];
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    av[s] = __ldg(a + s * d_state);
+    bv[s] = __ldg(b + s * d_state);
+  }
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    carry = __fadd_rn(__fmul_rn(av[s], carry), to_f32(bv[s]));
+    if constexpr (kOut) {
+      h[s * d_state] = from_f32<TB>(carry);
+      if (st != nullptr) st[s * d_state] = carry;
+    } else {
+      prod = __fmul_rn(prod, av[s]);
+    }
+  }
+  return carry;
+}
+
+// The steps [t0, t1) of lane i = (r, n) from `carry`: whole tiles, then one
+// step at a time. a, b, h and st point at the lane's step t0.
+template <bool kOut, typename TB>
+__device__ __forceinline__ float carry_chunk(const float* a, const TB* b, TB* h, float* st,
+                                             int d_state, int t0, int t1, float carry,
+                                             float& prod) {
+  int t = t0;
+  for (; t + chunk_scan::kTile <= t1; t += chunk_scan::kTile) {
+    carry = carry_steps<chunk_scan::kTile, kOut>(a, b, h, st, d_state, carry, prod);
+    const int step = chunk_scan::kTile * d_state;
+    a += step;
+    b += step;
+    if constexpr (kOut) {
+      h += step;
+      if (st != nullptr) st += step;
+    }
+  }
+  for (; t < t1; ++t) {
+    carry = carry_steps<1, kOut>(a, b, h, st, d_state, carry, prod);
+    a += d_state;
+    b += d_state;
+    if constexpr (kOut) {
+      h += d_state;
+      if (st != nullptr) st += d_state;
+    }
+  }
+  return carry;
+}
+
+// Pass 1 of the forward, for chunk k = blockIdx.y (the last chunk's are
+// never read) of lane i = (r, n): the scan over the chunk's steps [t0, t1)
+// from h = 0 (local) and the product of its decays a[t0] ... a[t1 - 1]
+// (prod), so that the true h[t1 - 1] = local + prod * h[t0 - 1].
+template <typename TB>
+__global__ void __launch_bounds__(kCarryThreads) scan_carry_fwd_local_kernel(
+    const float* __restrict__ a,       // (R, L, N)
+    const TB* __restrict__ b,          // (R, L, N)
+    float* __restrict__ local,         // (R, K, N)
+    float* __restrict__ prod,          // (R, K, N)
+    long long lanes, int seq_len, int d_state, int chunk) {
+  const long long i = (long long)blockIdx.x * kCarryThreads + threadIdx.x;
+  if (i >= lanes) return;
+  const int k = blockIdx.y, chunks = gridDim.y + 1;
+  const long long r = i / d_state;
+  const int n = (int)(i - r * d_state);
+  const int t0 = k * chunk, t1 = min(t0 + chunk, seq_len);
+  const size_t off = ((size_t)r * seq_len + t0) * d_state + n;
+  float p = 1.f;
+  const float carry = carry_chunk<false, TB>(a + off, b + off, nullptr, nullptr, d_state, t0,
+                                             t1, 0.f, p);
+  const size_t o = ((size_t)r * chunks + k) * d_state + n;
+  local[o] = carry;
+  prod[o] = p;
+}
+
+// The carry's combine, prod * carry + local, as a step's: the product and
+// the sum each rounded once.
+struct RoundedCombine {
+  __device__ __forceinline__ float operator()(float p, float h, float l) const {
+    return __fadd_rn(__fmul_rn(p, h), l);
+  }
+};
+
+// Pass 2, chunk k = blockIdx.y of lane i = (r, n): the carry h[t0 - 1],
+// resolved from h_init (0 without one) and the earlier chunks' pass-1
+// results, j = 0 up to k - 1 (chunk_scan::resolve_carry); then the chunk's
+// own steps from it. With one chunk it is the
+// whole-L scan.
 template <typename TB>
 __global__ void __launch_bounds__(kCarryThreads) scan_carry_fwd_kernel(
     const float* __restrict__ a,       // (R, L, N)
     const TB* __restrict__ b,          // (R, L, N)
     const float* __restrict__ h_init,  // (R, N) or nullptr
+    const float* __restrict__ local,   // (R, K, N) pass 1; unread with one chunk
+    const float* __restrict__ prod,    // (R, K, N) pass 1
     TB* __restrict__ h,                // (R, L, N)
     TB* __restrict__ h_last,           // (R, N)
     float* __restrict__ states,        // (R, L, N) f32 or nullptr
-    long long lanes, int seq_len, int d_state) {
+    long long lanes, int seq_len, int d_state, int chunk) {
   const long long i = (long long)blockIdx.x * kCarryThreads + threadIdx.x;
   if (i >= lanes) return;
+  const int k = blockIdx.y, chunks = gridDim.y;
   const long long r = i / d_state;
-  const size_t base = (size_t)r * seq_len * d_state + (size_t)(i - r * d_state);
+  const int n = (int)(i - r * d_state);
+  const int t0 = k * chunk, t1 = min(t0 + chunk, seq_len);
   float carry = h_init != nullptr ? h_init[i] : 0.f;
-#pragma unroll 8
-  for (int t = 0; t < seq_len; ++t) {
-    const size_t off = base + (size_t)t * d_state;
-    carry = __fadd_rn(__fmul_rn(a[off], carry), to_f32(b[off]));
-    h[off] = from_f32<TB>(carry);
-    if (states != nullptr) states[off] = carry;
+  if (k > 0) {
+    const size_t sum0 = (size_t)r * chunks * d_state + n;   // (r, 0, n)
+    carry = chunk_scan::resolve_carry(local + sum0, prod + sum0, d_state, k, carry,
+                                      RoundedCombine());
   }
-  h_last[i] = from_f32<TB>(carry);
+  const size_t off = ((size_t)r * seq_len + t0) * d_state + n;
+  float unused = 1.f;
+  carry = carry_chunk<true, TB>(a + off, b + off, h + off,
+                                states != nullptr ? states + off : nullptr, d_state, t0, t1,
+                                carry, unused);
+  if (k == chunks - 1) h_last[i] = from_f32<TB>(carry);
 }
 
 // Pass 1 of the backward, for chunk k = blockIdx.y + 1 (chunk 0's are never
@@ -177,26 +298,46 @@ inline unsigned blocks_for(long long lanes) {
 
 }  // namespace
 
-// The forward. a (R, L, N) f32 with R = B * H; b, h (R, L, N) and h_last
-// (R, N) bf16 when b_bf16 else f32; h_init (R, N) f32 and states (R, L, N)
-// f32 may be null. One launch. Returns cudaGetLastError().
+// The forward over chunks of `chunk` steps (ops/kernels/ssm_scan.py::
+// CARRY_FWD_CHUNK; one chunk of L is the plain sequential scan). a
+// (R, L, N) f32 with R = B * H; b, h (R, L, N) and h_last (R, N) bf16 when
+// b_bf16 else f32; h_init (R, N) f32 and states (R, L, N) f32 may be null;
+// scratch (2, R, K, N) f32 for K = ceil(L / chunk) chunks (pass 1's local
+// and prod; unused, and may be null, when K is 1). Two launches where K > 1
+// (pass 1, pass 2), else one. Returns cudaGetLastError().
 extern "C" int apertis_scan_carry_fwd(const void* a, const void* b, const void* h_init, void* h,
-                                      void* h_last, void* states, int rows, int seq_len,
-                                      int d_state, int b_bf16, void* stream) {
-  if (rows <= 0 || seq_len <= 0 || d_state <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                      void* h_last, void* states, void* scratch, int rows,
+                                      int seq_len, int d_state, int chunk, int b_bf16,
+                                      void* stream) {
+  if (rows <= 0 || seq_len <= 0 || d_state <= 0 || chunk <= 0 ||
+      (seq_len + chunk - 1) / chunk > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long lanes = (long long)rows * d_state;
+  const int chunks = (seq_len + chunk - 1) / chunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(a);
   const float* h0 = static_cast<const float*>(h_init);
   float* st = static_cast<float*>(states);
-  if (b_bf16)
-    scan_carry_fwd_kernel<bf16><<<blocks_for(lanes), kCarryThreads, 0, s>>>(
-        af, static_cast<const bf16*>(b), h0, static_cast<bf16*>(h), static_cast<bf16*>(h_last),
-        st, lanes, seq_len, d_state);
-  else
-    scan_carry_fwd_kernel<float><<<blocks_for(lanes), kCarryThreads, 0, s>>>(
-        af, static_cast<const float*>(b), h0, static_cast<float*>(h),
-        static_cast<float*>(h_last), st, lanes, seq_len, d_state);
+  float* local = chunks > 1 ? static_cast<float*>(scratch) : nullptr;
+  float* prod = chunks > 1 ? local + (size_t)lanes * chunks : nullptr;
+  const dim3 grid1(blocks_for(lanes), chunks - 1), grid2(blocks_for(lanes), chunks);
+  if (b_bf16) {
+    const auto* bb = static_cast<const bf16*>(b);
+    if (chunks > 1)
+      scan_carry_fwd_local_kernel<bf16><<<grid1, kCarryThreads, 0, s>>>(
+          af, bb, local, prod, lanes, seq_len, d_state, chunk);
+    scan_carry_fwd_kernel<bf16><<<grid2, kCarryThreads, 0, s>>>(
+        af, bb, h0, local, prod, static_cast<bf16*>(h), static_cast<bf16*>(h_last), st, lanes,
+        seq_len, d_state, chunk);
+  } else {
+    const auto* bf = static_cast<const float*>(b);
+    if (chunks > 1)
+      scan_carry_fwd_local_kernel<float><<<grid1, kCarryThreads, 0, s>>>(
+          af, bf, local, prod, lanes, seq_len, d_state, chunk);
+    scan_carry_fwd_kernel<float><<<grid2, kCarryThreads, 0, s>>>(
+        af, bf, h0, local, prod, static_cast<float*>(h), static_cast<float*>(h_last), st, lanes,
+        seq_len, d_state, chunk);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,15 +27,47 @@
 // writes y (6 bytes in bf16; 10 more with h in f32) for one multiply-add; a
 // backward step reads gy, C and h and writes dB and dC (14 bytes in bf16) for
 // a few flops: both far below the card's operations-per-byte line. The
-// recurrence is sequential in t: the forward runs B * H * N threads, the
-// backward B * K * H * N over K chunks of the time axis.
+// recurrence is sequential in t, so both directions cut the time axis into
+// K chunks and run B * K * H * N threads.
 //
-// Design of the forward: one thread owns one (b, c) and walks L with its
-// carry in a register. Neighbouring threads read neighbouring channels of
-// the natural (B, L, H*N) layout, so every load and store coalesces without
-// the TPU kernel's time-minor relayout, its 128-lane padding, or the
-// exp(delta*A) tensor in device memory: delta is a broadcast load shared by
-// the N threads of a head and the exponential is computed in the thread.
+// Design of the forward: the TPU kernel's in-tile scan over the time axis
+// (ssm_scan.py:208-246, pallas_call :274) becomes chunks of `chunk` steps
+// (ops/kernels/ssm_scan.py::FWD_CHUNK), one thread a (b, chunk, c). One
+// thread a (b, c) walking the whole L would leave the card mostly idle at
+// the training shapes (76 blocks of 128 threads for 132 SMs at (4, 1024,
+// 38, 16), 8 at the MoE mixer's 11 heads), each thread waiting on its
+// loads for 1,024 dependent steps. The recurrence is linear, so
+// h[t1 - 1] = local + prod * h[t0 - 1] for a chunk [t0, t1), where local is
+// the chunk's own scan from h = 0 and prod = a[t0] ... a[t1 - 1]:
+//   1. scan_fwd_local_kernel: local and prod of every chunk but the last,
+//      into a (2, B, K, C) f32 scratch (reads delta and B only);
+//   2. selective_scan_fwd_kernel: each thread resolves its chunk's carry
+//      h[t0 - 1] from 0 and the earlier chunks' (local, prod), j = 0 up to
+//      k - 1, the same order for every k (chunk_scan.cuh, shared with
+//      scan_carry.cu: loads in batches of kFold ahead of the fused
+//      multiply-adds, no launch and no wait on other blocks), reruns the
+//      chunk from it and writes y, every h with want_h, and, in the last
+//      chunk, h_last.
+// With one chunk (L <= chunk) only pass 2 runs, from h = 0: the sequential
+// scan, step for step. Elsewhere the chunked carry reassociates
+// h's sums (about an f32 ulp of h a chunk boundary). No atomics: the same
+// bits from run to run. Lanes (b, c) are numbered across the batch, so no
+// block idles on a row's ragged last channels (176 channels a row of the
+// MoE mixer). Within a chunk a thread loads chunk_scan::kTile steps of
+// delta, B, C (and the mask) before the first enters its dependent chain, so
+// a tile's loads are in flight together: at the prefill shape (64, 32, 38,
+// 16), K = 1, two rounds of load latency for the 32 steps. A step's offsets
+// are 32-bit multiples of the strides from the thread's base pointers, so
+// a tile holds little more than its loaded values in registers (56-90 a
+// thread; 64-bit offsets took 148-200, too few resident threads to hide
+// the loads at the prefill shape). Neighbouring threads
+// read neighbouring channels of the natural (B, L, H*N) layout, so every
+// load and store coalesces without the TPU kernel's time-minor relayout,
+// its 128-lane padding, or the exp(delta*A) tensor in device memory: delta
+// is a broadcast load shared by the N threads of a head and the
+// exponential is computed in the thread. Bytes: pass 1 reads delta and B again, about 5.6
+// MB more than the 25.5 MB the forward must move at (4, 1024, 38, 16) with
+// want_h.
 //
 // Design of the backward: one thread a (b, c) alone would leave the card
 // mostly idle (2,432 threads at the 1.5B training shape, each waiting on
@@ -69,12 +101,152 @@
 // Bytes: pass 1 reads gy and C again, about 10 MB more than the 30 MB the
 // gradient must move at the 1.5B training shape (4, 1024, 38, 16).
 
+#include "chunk_scan.cuh"
 #include "common.cuh"
 
 namespace {
 
 constexpr int kScanThreads = 128;
 
+// One thread's view of its lane (b, c) from step t on: delta (stride H), B,
+// C, y and h (stride C), the mask (stride 1, or null); a step's offsets are
+// 32-bit multiples of the strides from these bases, and the loads go
+// through the read-only path (__ldg).
+template <typename TIn, typename TOut>
+struct FwdLane {
+  const float* delta;
+  const TIn* b;
+  const TIn* c;
+  const int* mask;
+  TOut* y;
+  float* h;
+  int heads, channels;
+  float a_c;
+
+  __device__ __forceinline__ void advance(int steps) {
+    delta += steps * heads;
+    b += steps * channels;
+    if (c != nullptr) c += steps * channels;
+    if (mask != nullptr) mask += steps;
+    if (y != nullptr) y += steps * channels;
+    if (h != nullptr) h += steps * channels;
+  }
+};
+
+// kSteps steps of the recurrence from `h` (masked step: a = 1, b = 0): all
+// their loads first, then the chain. With kOut, y = C * h (and h itself
+// where the lane has an h pointer) is written at each step; without, `prod`
+// collects the decays.
+template <int kSteps, bool kOut, typename TIn, typename TOut>
+__device__ __forceinline__ float fwd_steps(const FwdLane<TIn, TOut>& ln, float h, float& prod) {
+  float dt[kSteps];
+  TIn u[kSteps], gate[kSteps];
+  bool on[kSteps];
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    dt[s] = __ldg(ln.delta + s * ln.heads);
+    u[s] = __ldg(ln.b + s * ln.channels);
+    if constexpr (kOut) gate[s] = __ldg(ln.c + s * ln.channels);
+    on[s] = ln.mask == nullptr || __ldg(ln.mask + s) != 0;
+  }
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    const float decay = on[s] ? expf(dt[s] * ln.a_c) : 1.f;
+    h = fmaf(decay, h, on[s] ? to_f32(u[s]) : 0.f);
+    if constexpr (kOut) {
+      ln.y[s * ln.channels] = from_f32<TOut>(to_f32(gate[s]) * h);
+      if (ln.h != nullptr) ln.h[s * ln.channels] = h;
+    } else {
+      prod *= decay;
+    }
+  }
+  return h;
+}
+
+// The steps [t0, t1) of a lane from `h`: whole tiles, then one step at a
+// time.
+template <bool kOut, typename TIn, typename TOut>
+__device__ __forceinline__ float fwd_chunk(FwdLane<TIn, TOut> ln, int t0, int t1, float h,
+                                           float& prod) {
+  int t = t0;
+  for (; t + chunk_scan::kTile <= t1; t += chunk_scan::kTile) {
+    h = fwd_steps<chunk_scan::kTile, kOut>(ln, h, prod);
+    ln.advance(chunk_scan::kTile);
+  }
+  for (; t < t1; ++t) {
+    h = fwd_steps<1, kOut>(ln, h, prod);
+    ln.advance(1);
+  }
+  return h;
+}
+
+// Lane i = (b, c) of the forward at step t0, and its row b.
+template <typename TIn, typename TOut>
+__device__ __forceinline__ FwdLane<TIn, TOut> fwd_lane(
+    long long i, int t0, const float* delta, const float* a_cont, const TIn* b_term,
+    const TIn* c_mod, const int* mask, TOut* y, float* h_all, int seq_len, int heads,
+    int d_state, int& b) {
+  const int channels = heads * d_state;
+  b = static_cast<int>(i / channels);
+  const int c = static_cast<int>(i - (long long)b * channels);
+  const size_t rt = (size_t)b * seq_len + t0;
+  const size_t off = rt * channels + c;
+  FwdLane<TIn, TOut> ln;
+  ln.delta = delta + rt * heads + c / d_state;
+  ln.b = b_term + off;
+  ln.c = c_mod != nullptr ? c_mod + off : nullptr;
+  ln.mask = mask != nullptr ? mask + rt : nullptr;
+  ln.y = y != nullptr ? y + off : nullptr;
+  ln.h = h_all != nullptr ? h_all + off : nullptr;
+  ln.heads = heads;
+  ln.channels = channels;
+  ln.a_c = a_cont[c];
+  return ln;
+}
+
+// Pass 1 of the chunked forward, for chunk k = blockIdx.y (the last chunk's
+// are never read) of lane i = (b, c): the scan over the chunk's steps
+// [t0, t1) from h = 0 (`local`) and the product of its decays, a[t0] ...
+// a[t1 - 1] (`prod`; a = 1 at a masked step), so that the true h[t1 - 1] =
+// local + prod * h[t0 - 1].
+template <typename TIn>
+__global__ void __launch_bounds__(kScanThreads) scan_fwd_local_kernel(
+    const float* __restrict__ delta,   // (B, L, H)
+    const float* __restrict__ a_cont,  // (H, N) == (C,)
+    const TIn* __restrict__ b_term,    // (B, L, C)
+    const int* __restrict__ mask,      // (B, L) or nullptr
+    float* __restrict__ local,         // (B, K, C)
+    float* __restrict__ prod,          // (B, K, C)
+    long long lanes, int seq_len, int heads, int d_state, int chunk) {
+  const long long i = (long long)blockIdx.x * kScanThreads + threadIdx.x;
+  if (i >= lanes) return;
+  const int k = blockIdx.y, chunks = gridDim.y + 1;
+  const int t0 = k * chunk, t1 = min(t0 + chunk, seq_len);
+  int b;
+  const FwdLane<TIn, float> ln = fwd_lane<TIn, float>(
+      i, t0, delta, a_cont, b_term, nullptr, mask, nullptr, nullptr, seq_len, heads, d_state, b);
+  float p = 1.f;
+  const float h = fwd_chunk<false>(ln, t0, t1, 0.f, p);
+  const int channels = heads * d_state;
+  const size_t o = ((size_t)b * chunks + k) * channels + (i - (long long)b * channels);
+  local[o] = h;
+  prod[o] = p;
+}
+
+// The carry's combine, prod * carry + local, as a step's: one fused
+// multiply-add.
+struct FmaCombine {
+  __device__ __forceinline__ float operator()(float p, float h, float l) const {
+    return fmaf(p, h, l);
+  }
+};
+
+// Pass 2, chunk k = blockIdx.y of lane i = (b, c): the carry h[t0 - 1],
+// resolved from h = 0 and the earlier chunks' pass-1 results, j = 0 up to
+// k - 1 (chunk_scan::resolve_carry); then the chunk's own steps from it.
+// A masked step (mask[b,t] == 0) is the identity: a = 1, b = 0, so h_last
+// is the state after each row's last real token. With one chunk this is
+// the whole-L sequential scan.
 template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(kScanThreads) selective_scan_fwd_kernel(
     const float* __restrict__ delta,   // (B, L, H)
@@ -82,33 +254,28 @@ __global__ void __launch_bounds__(kScanThreads) selective_scan_fwd_kernel(
     const TIn* __restrict__ b_term,    // (B, L, C)
     const TIn* __restrict__ c_mod,     // (B, L, C)
     const int* __restrict__ mask,      // (B, L) or nullptr
+    const float* __restrict__ local,   // (B, K, C) pass 1; unread with one chunk
+    const float* __restrict__ prod,    // (B, K, C) pass 1
     TOut* __restrict__ y,              // (B, L, C)
     float* __restrict__ h_last,        // (B, C)
     float* __restrict__ h_all,         // (B, L, C) or nullptr
-    int seq_len, int heads, int d_state) {
+    long long lanes, int seq_len, int heads, int d_state, int chunk) {
+  const long long i = (long long)blockIdx.x * kScanThreads + threadIdx.x;
+  if (i >= lanes) return;
+  const int k = blockIdx.y, chunks = gridDim.y;
+  const int t0 = k * chunk, t1 = min(t0 + chunk, seq_len);
+  int b;
+  const FwdLane<TIn, TOut> ln = fwd_lane<TIn, TOut>(
+      i, t0, delta, a_cont, b_term, c_mod, mask, y, h_all, seq_len, heads, d_state, b);
   const int channels = heads * d_state;
-  const int c = blockIdx.x * kScanThreads + threadIdx.x;
-  const int b = blockIdx.y;
-  if (c >= channels) return;
-  const int head = c / d_state;
-  const float a = a_cont[c];
-  const size_t row = (size_t)b * seq_len;
   float h = 0.f;
-#pragma unroll 4
-  for (int t = 0; t < seq_len; ++t) {
-    const size_t off = (row + t) * channels + c;
-    float decay = expf(delta[(row + t) * heads + head] * a);
-    float u = to_f32(b_term[off]);
-    const float gate = to_f32(c_mod[off]);
-    if (mask != nullptr && mask[row + t] == 0) {
-      decay = 1.f;
-      u = 0.f;
-    }
-    h = fmaf(decay, h, u);
-    y[off] = from_f32<TOut>(gate * h);
-    if (h_all != nullptr) h_all[off] = h;
+  if (k > 0) {
+    const size_t sum0 = (size_t)b * chunks * channels + (i - (long long)b * channels);
+    h = chunk_scan::resolve_carry(local + sum0, prod + sum0, channels, k, h, FmaCombine());
   }
-  h_last[(size_t)b * channels + c] = h;
+  float unused = 1.f;
+  h = fwd_chunk<true>(ln, t0, t1, h, unused);
+  if (k == chunks - 1) h_last[i] = h;
 }
 
 // Sum of v over the `width` neighbouring lanes of a group (width a power of
@@ -294,17 +461,32 @@ __global__ void __launch_bounds__(kScanThreads) sum_rows_kernel(
   out[c] = s;
 }
 
+inline unsigned scan_blocks(long long lanes) {
+  return static_cast<unsigned>((lanes + kScanThreads - 1) / kScanThreads);
+}
+
 template <typename TIn, typename TOut>
 void launch_scan(const void* delta, const void* a_cont, const void* b_term,
                  const void* c_mod, const void* mask, void* y, void* h_last, void* h_all,
-                 int batch, int seq_len, int heads, int d_state, cudaStream_t stream) {
-  const int channels = heads * d_state;
-  const dim3 grid((channels + kScanThreads - 1) / kScanThreads, batch);
-  selective_scan_fwd_kernel<TIn, TOut><<<grid, kScanThreads, 0, stream>>>(
-      static_cast<const float*>(delta), static_cast<const float*>(a_cont),
-      static_cast<const TIn*>(b_term), static_cast<const TIn*>(c_mod),
-      static_cast<const int*>(mask), static_cast<TOut*>(y),
-      static_cast<float*>(h_last), static_cast<float*>(h_all), seq_len, heads, d_state);
+                 void* scratch, int batch, int seq_len, int heads, int d_state, int chunk,
+                 cudaStream_t stream) {
+  const long long lanes = (long long)batch * heads * d_state;
+  const int chunks = (seq_len + chunk - 1) / chunk;
+  const auto* delta_ = static_cast<const float*>(delta);
+  const auto* a_ = static_cast<const float*>(a_cont);
+  const auto* b_ = static_cast<const TIn*>(b_term);
+  const auto* mask_ = static_cast<const int*>(mask);
+  float* local = chunks > 1 ? static_cast<float*>(scratch) : nullptr;
+  float* prod = chunks > 1 ? local + (size_t)lanes * chunks : nullptr;
+  if (chunks > 1)
+    scan_fwd_local_kernel<TIn><<<dim3(scan_blocks(lanes), chunks - 1), kScanThreads, 0,
+                                 stream>>>(delta_, a_, b_, mask_, local, prod, lanes, seq_len,
+                                           heads, d_state, chunk);
+  selective_scan_fwd_kernel<TIn, TOut>
+      <<<dim3(scan_blocks(lanes), chunks), kScanThreads, 0, stream>>>(
+          delta_, a_, b_, static_cast<const TIn*>(c_mod), mask_, local, prod,
+          static_cast<TOut*>(y), static_cast<float*>(h_last), static_cast<float*>(h_all),
+          lanes, seq_len, heads, d_state, chunk);
 }
 
 template <typename TIn, typename TG>
@@ -383,28 +565,35 @@ bool pow2_state(int d_state) { return d_state <= 32 && (d_state & (d_state - 1))
 
 }  // namespace
 
-// b_term / c_mod are bf16 when bc_bf16 else f32; y is bf16 when y_bf16 else
-// f32; h_all (B, L, C) f32 is written when not null. Returns
-// cudaGetLastError() after the launch.
+// The forward over chunks of `chunk` steps (ops/kernels/ssm_scan.py::
+// FWD_CHUNK; one chunk of L is the plain sequential scan). b_term / c_mod
+// are bf16 when bc_bf16 else f32; y is bf16 when y_bf16 else f32; h_all
+// (B, L, C) f32 is written when not null; scratch is 2 x (B, K, C) f32 for
+// K = ceil(L / chunk) chunks (pass 1's local and prod; unused, and may be
+// null, when K is 1). Two launches where K > 1 (pass 1, pass 2), else one.
+// Returns cudaGetLastError() after the launches.
 extern "C" int apertis_selective_scan_fwd(const void* delta, const void* a_cont,
                                           const void* b_term, const void* c_mod,
                                           const void* mask, void* y, void* h_last,
-                                          void* h_all, int batch, int seq_len, int heads,
-                                          int d_state, int bc_bf16, int y_bf16,
-                                          void* stream) {
+                                          void* h_all, void* scratch, int batch, int seq_len,
+                                          int heads, int d_state, int chunk, int bc_bf16,
+                                          int y_bf16, void* stream) {
+  if (batch <= 0 || seq_len <= 0 || heads <= 0 || d_state <= 0 || chunk <= 0 ||
+      (seq_len + chunk - 1) / chunk > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bc_bf16 && y_bf16)
-    launch_scan<bf16, bf16>(delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, batch,
-                            seq_len, heads, d_state, s);
+    launch_scan<bf16, bf16>(delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, scratch,
+                            batch, seq_len, heads, d_state, chunk, s);
   else if (bc_bf16)
-    launch_scan<bf16, float>(delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, batch,
-                             seq_len, heads, d_state, s);
+    launch_scan<bf16, float>(delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, scratch,
+                             batch, seq_len, heads, d_state, chunk, s);
   else if (y_bf16)
-    launch_scan<float, bf16>(delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, batch,
-                             seq_len, heads, d_state, s);
+    launch_scan<float, bf16>(delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, scratch,
+                             batch, seq_len, heads, d_state, chunk, s);
   else
-    launch_scan<float, float>(delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, batch,
-                              seq_len, heads, d_state, s);
+    launch_scan<float, float>(delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, scratch,
+                              batch, seq_len, heads, d_state, chunk, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,7 +28,7 @@ BUILD_DIR = PACKAGE_ROOT / "_build"
 SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu", "moe_ffn.cu",
            "moe_grouped.cu", "mha_step.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "flash_attention_f32.cu", "quant_matmul.cu", "moe_dense.cu", "scan_carry.cu")
-HEADERS = ("common.cuh", "hopper.cuh", "decode_gemm.cuh", "quant_ffn.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "decode_gemm.cuh", "quant_ffn.cuh", "chunk_scan.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
 # int8 quantizations rely on.
@@ -38,15 +38,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, B, L, H, N, bc_bf16,
-    # y_bf16, stream
-    "apertis_selective_scan_fwd": [_P] * 8 + [_I] * 6 + [_P],
+    # delta, a_cont, b_term, c_mod, mask, y, h_last, h_all, scratch, B, L, H,
+    # N, chunk, bc_bf16, y_bf16, stream
+    "apertis_selective_scan_fwd": [_P] * 9 + [_I] * 7 + [_P],
     # delta, a_cont, c_mod, mask, h_all, gy, g_last, d_delta, da, db, dc,
     # scratch, B, L, H, N, chunk, bc_bf16, gy_bf16, stream
     "apertis_selective_scan_bwd": [_P] * 12 + [_I] * 7 + [_P],
     "apertis_selective_scan_bwd_smem": [_P] * 12 + [_I] * 7 + [_P],
-    # a, b, h_init, h, h_last, states, B*H, L, N, b_bf16, stream
-    "apertis_scan_carry_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    # a, b, h_init, h, h_last, states, scratch, B*H, L, N, chunk, b_bf16,
+    # stream
+    "apertis_scan_carry_fwd": [_P] * 7 + [_I] * 5 + [_P],
     # a, g, h, h_init, g_last, da, db, dh_init, scratch, B*H, L, N, chunk,
     # stream
     "apertis_scan_carry_bwd": [_P] * 9 + [_I] * 4 + [_P],

@@ -18,8 +18,9 @@ kernels in ``csrc/scan_carry.cu`` (plain versions
 :func:`selective_scan_carry_bwd_reference`): the plain scan over given decays
 and inputs from a carried state, in the (B, H, L, N) layout, and its
 gradient, which replace ``selective_scan_pallas`` (the forward and custom VJP
-of ``ssm_scan.py:129-194``) on the sequence-parallel path. Both backward
-kernels cut the time axis into chunks (``BWD_CHUNK``, ``CARRY_BWD_CHUNK``).
+of ``ssm_scan.py:129-194``) on the sequence-parallel path. All four kernels
+cut the time axis into chunks (``FWD_CHUNK``, ``BWD_CHUNK``,
+``CARRY_FWD_CHUNK``, ``CARRY_BWD_CHUNK``).
 """
 
 from __future__ import annotations
@@ -82,7 +83,9 @@ def selective_scan_fwd(
     ``c_mod`` contiguous in one dtype (bfloat16 or float32), ``seq_mask`` as a
     contiguous int32 (B, L) or None, and ``out_dtype`` bfloat16 or float32.
     With ``want_h`` it also writes every state (B, L, H, N) in float32, which
-    the backward reads.
+    the backward reads. It runs over chunks of ``FWD_CHUNK`` steps, whose
+    carries reassociate h's sums (the plain version's arithmetic where L fits
+    one chunk).
     """
     out_dtype = out_dtype or b_term.dtype
     if b_term.device.type == "cpu":
@@ -100,17 +103,33 @@ def selective_scan_fwd(
         raise ValueError(f"selective_scan_fwd: out_dtype {out_dtype} not supported")
     if bsz == 0 or l == 0 or h * n == 0:
         raise ValueError(f"selective_scan_fwd: empty shape {tuple(b_term.shape)}")
+    out = _scan_fwd_launch(delta, a_cont, b_term, c_mod, seq_mask, out_dtype, want_h,
+                           FWD_CHUNK)
+    selective_scan_fwd.launches += 1
+    return out
+
+
+def _scan_fwd_launch(delta, a_cont, b_term, c_mod, seq_mask, out_dtype, want_h, chunk: int):
+    """Launch the forward on checked operands over chunks of ``chunk``
+    steps (one launch where L fits one chunk, else two); the caller counts
+    the launch."""
+    bsz, l, h, n = b_term.shape
+    dev = b_term.device
     y = torch.empty((bsz, l, h * n), dtype=out_dtype, device=dev)
     h_last = torch.empty((bsz, h, n), dtype=torch.float32, device=dev)
     hs = torch.empty((bsz, l, h, n), dtype=torch.float32, device=dev) if want_h else None
+    chunks = -(-l // chunk)
+    # Pass 1's local scan and decay product of each (row, chunk).
+    scratch = (torch.empty((2, bsz, chunks, h * n), dtype=torch.float32, device=dev)
+               if chunks > 1 else None)
     err = _build.load_library().apertis_selective_scan_fwd(
         delta.data_ptr(), a_cont.data_ptr(), b_term.data_ptr(), c_mod.data_ptr(),
         seq_mask.data_ptr() if seq_mask is not None else None,
-        y.data_ptr(), h_last.data_ptr(), hs.data_ptr() if want_h else None, bsz, l, h, n,
+        y.data_ptr(), h_last.data_ptr(), hs.data_ptr() if want_h else None,
+        scratch.data_ptr() if scratch is not None else None, bsz, l, h, n, chunk,
         int(b_term.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "selective_scan_fwd")
-    selective_scan_fwd.launches += 1
     return (y, h_last, hs) if want_h else (y, h_last)
 
 
@@ -155,6 +174,21 @@ def selective_scan_bwd_reference(
     return d_delta, d_a, lam.to(c_mod.dtype), (g * hs).to(c_mod.dtype)
 
 
+# The forward kernels cut the time axis into chunks of FWD_CHUNK (#1,
+# csrc/ssm_scan.cu) and CARRY_FWD_CHUNK (#2, csrc/scan_carry.cu) steps: pass
+# 1 scans each chunk but the last from 0, pass 2 resolves each chunk's carry
+# from the earlier ones and reruns it. Where L fits one chunk only pass 2
+# runs, the sequential scan. On the H100 (chip_smoke.py --scan-fwd-times,
+# device ms at chunks of 8 / 16 / 32 / 64 / 128): #1 with every state at
+# (4, 1024, 38, 16) 0.0395 / 0.0168 / 0.0135 / 0.0162 / 0.0249, at the MoE
+# mixer's (4, 1024, 11, 16) 0.0147 / 0.0085 / 0.0097 / 0.0129 / 0.0215, at
+# request B's prefill (64, 32, 38, 16) 0.0120 / 0.0069 / 0.0048 from 32 on
+# (one chunk); #2 from h_init at (4, 38, 512 / 1024, 16) 0.0123 / 0.0082 /
+# 0.0076 / 0.0087 / 0.0121 and 0.0309 / 0.0153 / 0.0114 / 0.0130 / 0.0150.
+# Shorter chunks give more threads until the carries' resolution (up to
+# K - 1 loads and multiply-adds) and pass 1's second read take over.
+FWD_CHUNK = 32
+CARRY_FWD_CHUNK = 32
 # The backward kernels cut the time axis into chunks of BWD_CHUNK steps
 # (csrc/ssm_scan.cu): at the 1.5B training shape (4, 1024, 38 x 16), 32
 # chunks of (b, c) threads, about 18 warps on each of the H100's SMs, each
@@ -305,7 +339,9 @@ def selective_scan_carry_fwd(
     contiguous float32 or None. It writes ``h`` and ``h_last`` in
     ``b_term``'s dtype and, with ``want_states``, returns the f32 states
     third (``h`` itself for f32 ``b_term``; for bf16 the kernel writes them
-    too), which the backward reads.
+    too), which the backward reads. It runs over chunks of
+    ``CARRY_FWD_CHUNK`` steps, whose carries reassociate h's sums (bit-equal
+    to the plain version only where L fits one chunk).
     """
     if b_term.device.type == "cpu":
         return selective_scan_carry_fwd_reference(a_bar, b_term, h_init, want_states)
@@ -318,16 +354,31 @@ def selective_scan_carry_fwd(
         _build.check_tensor(h_init, (bsz, heads, n), (torch.float32,), "h_init", dev)
     if bsz * heads * l * n == 0:
         raise ValueError(f"selective_scan_carry_fwd: empty shape {tuple(b_term.shape)}")
+    out = _carry_fwd_launch(a_bar, b_term, h_init, want_states, CARRY_FWD_CHUNK)
+    selective_scan_carry_fwd.launches += 1
+    return out
+
+
+def _carry_fwd_launch(a_bar, b_term, h_init, want_states: bool, chunk: int):
+    """Launch the carried-state forward on checked operands over chunks of
+    ``chunk`` steps (one launch where L fits one chunk, else two); the
+    caller counts the launch."""
+    bsz, heads, l, n = b_term.shape
+    dev = b_term.device
     bf16 = b_term.dtype == torch.bfloat16
     h = torch.empty_like(b_term)
     h_last = torch.empty((bsz, heads, n), dtype=b_term.dtype, device=dev)
     states = torch.empty_like(a_bar) if want_states and bf16 else None
+    chunks = -(-l // chunk)
+    # Pass 1's local scan and decay product of each (row, chunk).
+    scratch = (torch.empty((2, bsz * heads, chunks, n), dtype=torch.float32, device=dev)
+               if chunks > 1 else None)
     err = _build.load_library().apertis_scan_carry_fwd(
         a_bar.data_ptr(), b_term.data_ptr(), h_init.data_ptr() if h_init is not None else None,
         h.data_ptr(), h_last.data_ptr(), states.data_ptr() if states is not None else None,
-        bsz * heads, l, n, int(bf16), torch.cuda.current_stream(dev).cuda_stream)
+        scratch.data_ptr() if scratch is not None else None, bsz * heads, l, n, chunk,
+        int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "selective_scan_carry_fwd")
-    selective_scan_carry_fwd.launches += 1
     if not want_states:
         return h, h_last
     return h, h_last, (states if bf16 else h)

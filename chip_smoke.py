@@ -112,8 +112,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      through the w8a8 product, never the decode FFN kernel), with exact
      launch counts, repeat identity, TTFT and decode tokens per second;
      Then the kernels of training: the scan forward's states (``want_h``),
-     which the backward reads, at the 1.5B SSM training shape and ragged
-     with a mask; the scan backward (on the plain side from the plain
+     which the backward reads, over chunks of the time axis, at the 1.5B
+     SSM training shape, the MoE mixer's (11 heads), ragged with a mask and
+     at an L that is not a multiple of the chunk, each twice for the same
+     bits; the scan backward (on the plain side from the plain
      forward's states) at the training shape (B = 4, L = 1024, 38 heads of
      16, bf16; chunks of the time axis, twice for the same bits), at a
      ragged L = 300 with a mask and an ``h_last`` cotangent, with f32
@@ -170,10 +172,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      capacity that drops tokens) and flash MHA in f32 compute, each leaf
      within 1e-4 of its largest CPU value;
   7. parallel training, after phase 3g's check of the carried-state scan
-     (#2, forward and backward, bit-equal to its plain versions at the 1.5B
-     model's (4, 38, 1024, 16) and a rank's (4, 38, 512, 16), from zero and
-     from an ``h_init``, with sensitivity checks for ``h_init`` and the
-     ``h_last`` cotangent): two ranks started with
+     (#2, forward and backward over chunks of the time axis, against its
+     plain versions at the 1.5B model's (4, 38, 1024, 16) and a rank's (4,
+     38, 512, 16), from zero and from an ``h_init``, and at L = 300 (the
+     forward also with b in bf16 and its f32 states, each twice for the
+     same bits); the forward bit-equal where L fits one chunk; with
+     sensitivity checks for ``h_init`` and the ``h_last`` cotangent): two
+     ranks started with
      ``apertis_llm_torch.parallel.spawn`` share the card in a gloo process
      group (NCCL does not put two ranks on one card) and run the
      sequence-parallel scan on (4, 38, 1024, 16) (h within 1e-5, gradients
@@ -195,7 +200,8 @@ prints the bf16 and f32 flash kernels' resources, #7's, #6's and #8's times,
 #7's and #6's resources and host enqueue times (``{"qmm": ...}``), the decode
 kernels' times and resources (``{"decode_times": ...}``: #3 int8 and bf16,
 each with the dense and the moe epilogue, #4 bf16, int8 and int4, #10 int8
-and int4, #11), the kernels' JSON summary and the
+and int4, #11), the kernels' JSON summary (#1's forward also at the two
+training shapes, under "other_shapes") and the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
 
@@ -210,6 +216,12 @@ card's name and power limit; the last line is ``{"ok": true, "device":
                                              # int4 decode FFN's, the int8 and int4
                                              # fat MoE FFN's and the per-expert MoE
                                              # FFN's warm and cold times at 64 and 4 rows
+    python3 chip_smoke.py --scan-fwd-times   # the scan forwards' times: #1 at request
+                                             # A's and B's prefill (B with and without
+                                             # its all-ones mask) and the dense and
+                                             # MoE-mixer training shapes, #2 at (4, 38,
+                                             # 512 and 1024, 16), f32 and bf16; with
+                                             # other chunks where the checkout has them
     python3 chip_smoke.py --scan-bwd-times   # the scan backward's times at the 1.5B
                                              # training shape, N = 12 and 11 heads, and
                                              # #2's backward at (4, 38, 512 and 1024, 16)
@@ -218,8 +230,8 @@ card's name and power limit; the last line is ``{"ok": true, "device":
                                              # 37 tokens, and at both row tiles
 
 The first two flags run ``qmm_phase`` only. ``--qmm-times``,
-``--flash-f32-times``, ``--decode-times``, ``--scan-bwd-times`` and
-``--grouped-times`` need nothing
+``--flash-f32-times``, ``--decode-times``, ``--scan-fwd-times``,
+``--scan-bwd-times`` and ``--grouped-times`` need nothing
 of the checkout but
 the wrappers' (and the trainer's) Python interface, so a checkout of an
 earlier commit can run them with this script copied into it, for a
@@ -297,6 +309,8 @@ QMM_F32_TOL = 3e-5
 # A sensitivity check of the w8a8 and int4 kernels must move the plain output by
 # this many tolerances (0 for the bit-equal product: any move).
 SENSITIVITY_FACTOR = 9
+# The int4 decode FFN's b2 check runs at this multiple of the layer's b2.
+B2_SENSITIVITY_SCALE = 8
 # A 2-layer f32 MHA forward on the card (cuBLAS f32, TF32 off) vs the CPU:
 # f32 sums in other orders.
 F32_FORWARD_TOL = 1e-4
@@ -1013,6 +1027,87 @@ def dense_times(card, moe_model, moe_config):
     return result
 
 
+def scan_fwd_times(card):
+    """The scan forwards' times on seeded operands as the main path gives
+    them. #1 (selective_scan_fwd, bf16 B and C, bf16 y): the prefill of
+    request B (64, 32, 38, 16) with the all-ones mask that generate and
+    prefill pass, and without a mask, and of request A (4, 64, 38, 16,
+    masked at 7/19/32/45), the dense and MoE-mixer training forwards (4, 1024, 38 and
+    11, 16) with every state; #2 (selective_scan_carry_fwd, from an h_init):
+    a rank's share of the 1.5B training sequence under seq = 2 (4, 38, 512,
+    16) and the whole sequence in f32, and the rank's share with b in bf16
+    and its f32 states. For each: the wrapper's CUDA-event time, the
+    profiler's device time, in all and by kernel, and the bound of the
+    bytes the forward must move, each output held to its tolerance against
+    the plain version; where the checkout has the chunked launches, the
+    device time at other chunks too, each chunk held to the tolerances. An
+    earlier commit can run it with this script copied in."""
+    from apertis_llm_torch.ops.kernels import ssm_scan
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    bf16, f32 = torch.bfloat16, torch.float32
+    chunks = (8, 16, 32, 64, 128)
+    result = {}
+
+    def timed(label, kernel, plain, args, tols, moved, ops, sweep):
+        res = {"ms": cuda_ms(lambda: kernel(*args)), "device_ms": device_ms(lambda: kernel(*args)),
+               "device_ms_by_kernel": device_ms(lambda: kernel(*args), by_kernel=True),
+               "bound_ms": bound(moved, ops, "f32")[0]}
+        ref = plain(*args)
+        for (out_name, tol), got, want in zip(tols, kernel(*args), ref):
+            compare(f"{label} {out_name}", got, want, tol)
+        if sweep is not None:
+            res["device_ms_by_chunk"] = {}
+            for chunk in chunks:
+                for (out_name, tol), got, want in zip(tols, sweep(*args, chunk), ref):
+                    compare(f"{label} at chunks of {chunk}, {out_name}", got, want, tol)
+                res["device_ms_by_chunk"][chunk] = device_ms(lambda c=chunk: sweep(*args, c))
+        result[label] = res
+        log(f"  {label}: {json.dumps(res)}; card: {card}")
+
+    for (b, l, h, n), lens, want_h, what in (
+            ((64, 32, 38, 16), [32] * 64, False, "prefill of request B, all-ones mask"),
+            ((64, 32, 38, 16), None, False, "prefill of request B"),
+            ((4, 64, 38, 16), [7, 19, 32, 45], False, "prefill of request A, masked"),
+            ((4, 1024, 38, 16), None, True, "dense training, every state"),
+            ((4, 1024, 11, 16), None, True, "MoE mixer training, every state")):
+        delta = torch.nn.functional.softplus(
+            torch.randn((b, l, h), generator=gen, device=dev) - 4.0)
+        a_cont = -torch.empty((h, n), device=dev).uniform_(0.5, 0.99, generator=gen)
+        bt, ct = (torch.randn((b, l, h, n), generator=gen, device=dev).to(bf16)
+                  for _ in range(2))
+        mask = None
+        if lens is not None:
+            mask = (torch.arange(l, device=dev)[None, :]
+                    < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
+        args = (delta, a_cont, bt, ct, mask, bf16, want_h)
+        moved = (nbytes(delta, a_cont, bt, ct, mask) + nbytes(bt) + 4 * b * h * n
+                 + (4 * bt.numel() if want_h else 0))
+        tols = [("y", BF16_ULP), ("h_last", SCAN_F32_TOL), ("hs", SCAN_F32_TOL)]
+        sweep = getattr(ssm_scan, "_scan_fwd_launch", None)
+        timed(f"selective_scan_fwd {(b, l, h, n)} ({what})", ssm_scan.selective_scan_fwd,
+              ssm_scan.selective_scan_fwd_reference, args, tols, moved, 6 * bt.numel(), sweep)
+    for (b, h, l, n), dtype, want_states in (((4, 38, 512, 16), f32, False),
+                                             ((4, 38, 1024, 16), f32, False),
+                                             ((4, 38, 512, 16), bf16, True)):
+        a = torch.empty((b, h, l, n), device=dev).uniform_(0.4, 0.999, generator=gen)
+        bt = torch.randn((b, h, l, n), generator=gen, device=dev).to(dtype)
+        h0 = torch.randn((b, h, n), generator=gen, device=dev)
+        args = (a, bt, h0, want_states)
+        extra = nbytes(a) if want_states and dtype == bf16 else 0
+        moved = nbytes(a, bt, h0) + nbytes(bt) + nbytes(bt[:, :, 0]) + extra
+        tol = CARRY_TOL if dtype == f32 else BF16_ULP
+        tols = [("h", tol), ("h_last", tol), ("states", CARRY_TOL)]
+        sweep = getattr(ssm_scan, "_carry_fwd_launch", None)
+        label = (f"selective_scan_carry_fwd {(b, h, l, n)} from h_init, b {str(dtype)[6:]}"
+                 f"{', with its f32 states' if want_states else ''}")
+        timed(label, ssm_scan.selective_scan_carry_fwd,
+              ssm_scan.selective_scan_carry_fwd_reference, args, tols, moved, 2 * a.numel(),
+              sweep)
+    return result
+
+
 def scan_bwd_times(card):
     """The scan backward's times (#1: selective_scan_bwd at the 1.5B
     training shape (4, 1024, 38, 16), selective_scan_bwd_smem at N = 12 and
@@ -1275,7 +1370,7 @@ def main() -> int:
     from apertis_llm_torch.ops.kernels.moe_grouped import (
         TILE, expert_ffn_grouped, expert_ffn_grouped_reference)
     from apertis_llm_torch.ops.kernels.ssm_scan import (
-        BWD_CHUNK, selective_scan_bwd, selective_scan_bwd_reference, selective_scan_bwd_smem,
+        BWD_CHUNK, CARRY_FWD_CHUNK, FWD_CHUNK, selective_scan_bwd, selective_scan_bwd_reference, selective_scan_bwd_smem,
         selective_scan_carry_bwd, selective_scan_carry_bwd_reference, selective_scan_carry_fwd,
         selective_scan_carry_fwd_reference, selective_scan_fwd, selective_scan_fwd_reference)
     from apertis_llm_torch.ops.kernels.quant_matmul import (
@@ -1359,12 +1454,14 @@ def main() -> int:
 
     # kernel -> worst error; kernel -> (ms, plain_ms, bound_ms, bound_by,
     # device_ms) at the timed shape
-    errs, times = {}, {}
+    errs, times, shape_times = {}, {}, {}
 
-    def check_kernel(key, label, args, kernel, plain, tols, cost=None, repeat=False):
+    def check_kernel(key, label, args, kernel, plain, tols, cost=None, repeat=False,
+                     shape=None):
         """Run the kernel and its plain version on ``args``, compare each
         output with its tolerance, and time both; with ``cost`` (bytes,
-        operations, type) this is the shape the report gives; with
+        operations, type) this is the shape the report gives, or, named
+        ``shape``, one more shape the report lists beside it; with
         ``repeat`` a second run must give the same bits."""
         got, ref = kernel(*args), plain(*args)
         torch.cuda.synchronize()
@@ -1387,7 +1484,12 @@ def main() -> int:
         if cost is not None:
             b_ms, by = bound(*cost)
             d_ms = device_ms(lambda: kernel(*args))
-            times[key] = (k_ms, p_ms, b_ms, by, d_ms)
+            if shape is None:
+                times[key] = (k_ms, p_ms, b_ms, by, d_ms)
+            else:
+                shape_times.setdefault(key, {})[shape] = {
+                    "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": by}
             line += (f", device {d_ms:.4f} ms" if d_ms is not None else ", device not measured")
             line += f", bound {b_ms:.4f} ms ({by})"
         log(f"{line}; card: {card}")
@@ -1417,30 +1519,36 @@ def main() -> int:
             shift, bound_, name = max(moved, key=lambda m: m[0] / max(m[1], 1e-30))
             ok = shift > bound_
             log(f"  sensitivity {label}, {term}: {name} moves {shift:.3e} "
-                f"(tolerance {bound_:.3e}) {'ok' if ok else 'FAIL'}")
+                f"(tolerance {bound_:.3e}, {shift / max(bound_, 1e-30):.2f} x) "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise RuntimeError(f"{label}: the check cannot see {term}")
 
     log("kernel checks (bf16 in, f32 carry/accumulation; int8 with exact int32 sums), "
         "CUDA-event times:")
 
-    def scan_inputs(b, l, bc_dtype=torch.bfloat16, out_dtype=torch.bfloat16, a_log=None):
+    def scan_inputs(b, l, bc_dtype=torch.bfloat16, out_dtype=torch.bfloat16, a_log=None,
+                    gen=None):
+        gen = gen or g
         a_log = layer.attn.A_log if a_log is None else a_log
         hs_, ns_ = a_log.shape
         lens = {4: [7, 19, 32, 45], 64: [32] * 64}.get(
-            b, torch.randint(1, l + 1, (b,), generator=g, device=dev).tolist())
+            b, torch.randint(1, l + 1, (b,), generator=gen, device=dev).tolist())
         mask = (torch.arange(l, device=dev)[None, :]
                 < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
-        delta = torch.nn.functional.softplus(randn(b, l, hs_, dtype=torch.float32) - 4.0)
+        delta = torch.nn.functional.softplus(randn(b, l, hs_, dtype=torch.float32, gen=gen)
+                                             - 4.0)
         a_cont = -torch.exp(a_log.float())
-        return (delta, a_cont, randn(b, l, hs_, ns_, dtype=bc_dtype),
-                randn(b, l, hs_, ns_, dtype=bc_dtype), mask, out_dtype)
+        return (delta, a_cont, randn(b, l, hs_, ns_, dtype=bc_dtype, gen=gen),
+                randn(b, l, hs_, ns_, dtype=bc_dtype, gen=gen), mask, out_dtype)
 
     def scan_cost(args):
-        delta, a_cont, bt, ct, mask, out_dtype = args
+        delta, a_cont, bt, ct, mask, out_dtype = args[:6]
+        want_h = len(args) > 6 and args[6]
         y_bytes = bt.numel() * torch.tensor([], dtype=out_dtype).element_size()
         return (nbytes(delta, a_cont, bt, ct, mask) + y_bytes
-                + bt.shape[0] * bt.shape[2] * bt.shape[3] * 4, 6 * bt.numel(), "f32")
+                + bt.shape[0] * bt.shape[2] * bt.shape[3] * 4
+                + (4 * bt.numel() if want_h else 0), 6 * bt.numel(), "f32")
 
     f32, bf16 = torch.float32, torch.bfloat16
     for (b, l), bc_dtype, out_dtype in [((4, 64), bf16, bf16), ((64, 32), bf16, bf16),
@@ -2170,8 +2278,20 @@ def main() -> int:
         "w1_s": ffn4_without(w1_s=torch.ones_like(args[4])),
         "w2_s": ffn4_without(w2_s=torch.ones_like(args[8])),
         "b1": ffn4_without(b1=torch.zeros_like(args[5])),
-        "b2": ffn4_without(b2=torch.zeros_like(args[9])),
     }, [("out", BF16_ULP)], factor=SENSITIVITY_FACTOR)
+    # At the layer's own b2 (noise of std 0.1) dropping it moves the plain
+    # output by about one tolerance, above or below it as the data falls, so
+    # b2's check runs on the same x with b2 scaled by B2_SENSITIVITY_SCALE in
+    # the base and zero in the variant: no draw from the generator, so every
+    # later check keeps its data. The kernel is held to its plain version on
+    # that base too, so the comparison the check covers runs.
+    b2_label = f"b2 (at {B2_SENSITIVITY_SCALE} x the layer's)"
+    b2_base = ffn4_without(b2=B2_SENSITIVITY_SCALE * args[9])
+    check_sensitive("int4 ffn", ffn_decode_int4_reference, b2_base, {
+        b2_label: ffn4_without(b2=torch.zeros_like(args[9])),
+    }, [("out", BF16_ULP)], factor=SENSITIVITY_FACTOR)
+    check_kernel("ffn_decode_int4", f"int4 ffn S=5, {b2_label}", b2_base, ffn_decode_int4,
+                 ffn_decode_int4_reference, [("out", BF16_ULP)])
     # And the int4 layout at I = 1536, packed from phase 3's int8 weights.
     pack2 = int4_ffn_pack({"w_q": wq1, "w_s": ws1, "b": b1_2}, {"w_q": wq2, "w_s": ws2, "b": b2_2})
     int4_w2 = (pack2["w1"]["w_q4"], pack2["w1"]["w_sh"], pack2["w1"]["w_s"], b1_2,
@@ -2421,14 +2541,24 @@ def main() -> int:
 
     # The forward's states (want_h), which training saves for the backward:
     # at the 1.5B training shape (no mask, as the trainer runs it) and ragged
-    # with a mask.
+    # with a mask; then, from a generator of their own (the later checks keep
+    # their data), at the MoE mixer's training shape (11 heads) and at an L
+    # that is not a multiple of FWD_CHUNK. Each over chunks of the time axis
+    # (two launches), and twice for the same bits; the report lists the two
+    # training shapes' times beside the prefill's.
     scan_h_tols = [("y", BF16_ULP), ("h_last", SCAN_F32_TOL), ("hs", SCAN_F32_TOL)]
-    for (b, l), masked in (((4, 1024), False), ((3, 300), True)):
-        args = scan_inputs(b, l)
+    g_fwd = torch.Generator(device=dev).manual_seed(SEED + 29)
+    for (b, l), masked, a_log, gen in (
+            ((4, 1024), False, None, None), ((3, 300), True, None, None),
+            ((4, 1024), False, mlayer.attn.A_log, g_fwd),
+            ((3, 5 * FWD_CHUNK + 11), True, None, g_fwd)):
+        args = scan_inputs(b, l, a_log=a_log, gen=gen)
         args = args[:4] + ((args[4] if masked else None), bf16, True)
-        check_kernel("selective_scan_fwd", f"scan B={b} L={l} with every state (want_h)"
-                     f"{', masked' if masked else ''}", args, selective_scan_fwd,
-                     selective_scan_fwd_reference, scan_h_tols)
+        check_kernel("selective_scan_fwd", f"scan B={b} L={l} H={args[1].shape[0]} with every "
+                     f"state (want_h){', masked' if masked else ''}, chunks of {FWD_CHUNK}",
+                     args, selective_scan_fwd, selective_scan_fwd_reference, scan_h_tols,
+                     repeat=True, cost=None if masked else scan_cost(args),
+                     shape=f"{tuple(args[2].shape)} with every state, chunks of {FWD_CHUNK}")
 
     def scan_bwd_inputs(b, l, heads_=ssm_heads, dtype=bf16, masked=False, with_g_last=False,
                         n_=n):
@@ -2661,10 +2791,10 @@ def main() -> int:
     # sequence (4, 38, 1024, 16) and at a rank's chunk of it under seq = 2
     # (4, 38, 512, 16, the timed shape), f32, from zero and from an h_init,
     # forward and backward (the plain backward on the plain forward's
-    # states). The kernels round every product and sum once, the forward in
-    # the plain loop's order, the backward over chunks of the time axis (its
-    # carries reassociate the adjoint's sums): the report says whether each
-    # is bit-equal, and the backward is where L fits one chunk only.
+    # states). The kernels round every product and sum once, both over
+    # chunks of the time axis (their carries reassociate the sums): the
+    # report says whether each is bit-equal, which each is only where L fits
+    # one chunk (the forward's one-chunk case must be).
     log("the carried-state scan (#2) against its plain versions (f32):")
     carry_bit_equal = {}
 
@@ -2700,6 +2830,21 @@ def main() -> int:
         "h_init (as h[-1])": lambda: selective_scan_carry_bwd_reference(
             *bargs[:3], torch.zeros_like(bargs[3]), bargs[4]),
         "h_last cotangent": bargs[:4] + (None,)}, bwd_tols, SENSITIVITY_FACTOR)
+    # The forward's chunks do not divide L = 300: from h_init, f32, and with
+    # b in bf16 and its f32 states; then at L = CARRY_FWD_CHUNK (one chunk,
+    # one launch), where it must give the plain version's bits.
+    check_kernel("selective_scan_carry_fwd", f"scan carry forward (2, 5, 300, 16) from h_init, "
+                 f"chunks of {CARRY_FWD_CHUNK}", fargs, selective_scan_carry_fwd,
+                 selective_scan_carry_fwd_reference, fwd_tols, repeat=True)
+    check_kernel("selective_scan_carry_fwd", "scan carry forward (2, 5, 300, 16) from h_init, "
+                 "b in bf16 with its f32 states", (fargs[0], fargs[1].to(bf16), fargs[2], True),
+                 selective_scan_carry_fwd, selective_scan_carry_fwd_reference,
+                 [("h", BF16_ULP), ("h_last", BF16_ULP), ("states", CARRY_TOL)], repeat=True)
+    one_chunk = tuple(x[:, :, :CARRY_FWD_CHUNK].contiguous() for x in fargs[:2]) + fargs[2:]
+    label = f"scan carry forward {tuple(one_chunk[0].shape)} from h_init (one chunk)"
+    bit_equal(label, selective_scan_carry_fwd, selective_scan_carry_fwd_reference, one_chunk)
+    if not carry_bit_equal[label]:
+        raise RuntimeError(f"{label}: one chunk must give the plain version's bits")
     # The backward's chunks do not divide L = 300; with and without g_last.
     for bargs_, what in ((bargs, "with g_last"), (bargs[:4] + (None,), "without g_last")):
         check_kernel("selective_scan_carry_bwd", f"scan carry backward (2, 5, 300, 16) {what}",
@@ -3647,7 +3792,8 @@ def main() -> int:
                         "bound_by": bound_by, "library_ms": library.get(name),
                         "library_colmajor_ms": library_cols.get(name),
                         "cold_ms": cold.get("cold_ms"),
-                        "cold_device_ms": cold.get("cold_device_ms")})
+                        "cold_device_ms": cold.get("cold_device_ms"),
+                        "other_shapes": shape_times.get(name, {})})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"flash_resources": flash_resources}))
     print(json.dumps({"qmm": qmm}))
@@ -3841,8 +3987,9 @@ def decode_times_main() -> int:
 
 
 def times_main(key, times) -> int:
-    """A timing mode alone (``--scan-bwd-times``: scan_bwd_times;
-    ``--grouped-times``: grouped_times): the kernels' build, then
+    """A timing mode alone (``--scan-fwd-times``: scan_fwd_times;
+    ``--scan-bwd-times``: scan_bwd_times; ``--grouped-times``:
+    grouped_times): the kernels' build, then
     ``times(card)`` printed under ``key``."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs "
@@ -3861,6 +4008,8 @@ def times_main(key, times) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--scan-fwd-times"]:
+        sys.exit(times_main("scan_fwd_times", scan_fwd_times))
     if sys.argv[1:] == ["--scan-bwd-times"]:
         sys.exit(times_main("scan_bwd_times", scan_bwd_times))
     if sys.argv[1:] == ["--grouped-times"]:
