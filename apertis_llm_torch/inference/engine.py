@@ -53,6 +53,14 @@ generated (an EOS stays visible, the pads after it do not); the token of
 decode step ``s`` sits at slot ``bucket + s - 1`` and at logical position
 ``len + s - 1``, which differ for right-padded rows. Generation that would
 pass ``max_position_embeddings`` raises (engine.py:104-116).
+
+A multimodal model takes ``pixel_values`` (engine.py:490-545): (B, 3, S, S)
+pixels, or raw (B, H, W, 3) uint8 or float images, which the model
+preprocesses. The image prefix of ``config.num_image_tokens`` positions
+runs before the prompt; the bucket grows so that prefix and bucket together
+are a multiple of 8 (engine.py:517-525), as in the JAX engine, so both
+engines run the same shapes; the first token comes from each row's last
+real text position; decoding reads only the SSM state.
 """
 
 from __future__ import annotations
@@ -137,9 +145,13 @@ class InferenceEngine:
         input_ids: np.ndarray,                   # (B, L) int
         attention_mask: Optional[np.ndarray] = None,
         generator: Optional[torch.Generator] = None,
+        *,
+        pixel_values: Optional[np.ndarray] = None,
         **gen_kwargs,
     ) -> np.ndarray:
-        """Batch generation; returns (B, L + n_generated) ids."""
+        """Batch generation; returns (B, L + n_generated) ids. A multimodal
+        model puts the images of ``pixel_values`` (one a row) before the
+        prompts."""
         self.model.set_modes(self.quant_matmul, self.moe_mode)
         eos = gen_kwargs.pop("eos_token_id", None)
         if eos is None:
@@ -158,9 +170,14 @@ class InferenceEngine:
         if attention_mask is None:
             attention_mask = np.ones((b, l), np.int32)
         bucket = _round_up_bucket(l, self.PROMPT_BUCKETS)
-        _check_position_limit(self.config, bucket + gen.max_new_tokens)
+        num_img = (self.config.num_image_tokens
+                   if self.config.multimodal and pixel_values is not None else 0)
+        bucket += (-(num_img + bucket)) % 8
+        _check_position_limit(self.config, num_img + bucket + gen.max_new_tokens)
         padc = ((0, 0), (0, bucket - l))
         device = self.model.device
+        if num_img:
+            pixel_values = torch.as_tensor(np.asarray(pixel_values), device=device)
         ids = torch.as_tensor(np.pad(input_ids, padc, constant_values=gen.pad_token_id),
                               dtype=torch.int64, device=device)
         mask = torch.as_tensor(np.pad(attention_mask, padc), dtype=torch.int32,
@@ -169,12 +186,14 @@ class InferenceEngine:
             generator = torch.Generator(device=device)
             generator.seed()
 
-        tokens, n_generated = self._generate(ids, mask, gen, generator)
+        tokens, n_generated = self._generate(ids, mask, gen, generator,
+                                             pixel_values if num_img else None)
         new = tokens[:, bucket:bucket + n_generated].cpu().numpy()
         return np.concatenate([input_ids, new.astype(input_ids.dtype)], axis=1)
 
     def _generate(self, ids: torch.Tensor, mask: torch.Tensor,
-                  gen: GenerationParams, generator: torch.Generator
+                  gen: GenerationParams, generator: torch.Generator,
+                  pixel_values: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, int]:
         b, lp = ids.shape
         device = ids.device
@@ -205,8 +224,8 @@ class InferenceEngine:
             cache = self.model.init_cache(b, max_length=buf_len, kv_int8=self.kv_int8)
         else:
             cache = self.model.init_cache(b)
-        pre = self.model.prefill(cache, ids, mask,
-                                 logit_positions=torch.clamp(lens - 1, min=0))
+        pre = self.model.prefill(cache, ids, mask, logit_positions=torch.clamp(lens - 1, min=0),
+                                 pixel_values=pixel_values)
         tokens = torch.cat([ids, torch.full((b, buf_len - lp), gen.pad_token_id,
                                             dtype=ids.dtype, device=device)], dim=1)
         unfinished = torch.ones((b,), dtype=torch.int64, device=device)

@@ -1,5 +1,5 @@
-"""Apertis decoder-only LM in PyTorch: the text-only selective-SSM and MHA
-models.
+"""Apertis decoder-only LM in PyTorch: the selective-SSM and MHA models, the
+selective-SSM one also with the ViT image prefix.
 
 The counterpart of ``apertis_llm_tpu/models/apertis.py`` for the variants
 ported so far (``models/params.py::check_supported``): pre-norm residual
@@ -88,6 +88,17 @@ outside ``dyn`` the pre-norms take the plain norm and no ``ln_quantize``.
 The decode projections that take rows quantized already (MHA's q/k/v/o,
 ``pre_q``) and the decode kernels stay as they are in every mode.
 
+A multimodal model (``config.multimodal``, the selective-SSM mixer only)
+puts the ViT's tokens (``models/vit.py``; ``vision_proj`` to the hidden
+width where the widths differ) before the token embeddings when
+``pixel_values`` is given (``assemble_inputs``, apertis.py:704-745): raw
+(B, H, W, 3) or uint8 images are preprocessed first, and the attention mask
+grows by ones over the prefix, so the SSM's ``seq_lens`` count it.
+``forward`` returns the text positions' logits, ``prefill`` takes
+``logit_positions`` as text positions; decoding reads only the SSM state.
+The ViT's linears are int8 or float as its tree is (``vision_quantized``),
+independently of the decoder's.
+
 The hand-written kernels run on CUDA tensors; on CPU tensors their plain
 PyTorch versions run. Under ``dyn`` every int8 linear (``QuantLinear``, the
 fused QKV, the int8 head, ``moe_ragged``'s groups) runs the w8a8 kernel
@@ -111,6 +122,7 @@ from apertis_llm_torch.models.moe_fuse import fuse_one, fuse_one_fat
 from apertis_llm_torch.models.params import (
     check_serving_modes, check_supported, is_mha, is_moe, resolve_device)
 from apertis_llm_torch.models.quantize import fuse_qkv, int4_ffn_pack, quantize_weight
+from apertis_llm_torch.models.vit import VisionEncoder, VitLayer, preprocess_images
 from apertis_llm_torch.ops import attention as attn_ops
 from apertis_llm_torch.ops import moe as moe_ops
 from apertis_llm_torch.ops import ssm as ssm_ops
@@ -879,11 +891,14 @@ class ApertisForCausalLM(nn.Module):
     With ``quantized`` the four mixer projections and the FFN pair (the dense
     ``w1``/``w2`` or the experts' stacks) are int8; ``int8_head`` allocates
     the int8 tied head ``lm_head``. ``quant_matmul`` and ``moe_mode`` are the
-    serving modes of :meth:`set_modes`."""
+    serving modes of :meth:`set_modes`. A multimodal model holds the ViT
+    (``vision``) and, where its width is not the hidden size,
+    ``vision_proj``; ``vision_quantized`` makes their linears int8."""
 
     def __init__(self, config: ApertisConfig, device="cuda",
                  dtype: torch.dtype = torch.float32, quantized: bool = False,
-                 int8_head: bool = False, quant_matmul: str = "dyn", moe_mode: str = "fatk"):
+                 int8_head: bool = False, quant_matmul: str = "dyn", moe_mode: str = "fatk",
+                 vision_quantized: bool = False):
         super().__init__()
         check_supported(config, quantized)
         check_serving_modes(quant_matmul, moe_mode)
@@ -891,6 +906,12 @@ class ApertisForCausalLM(nn.Module):
         self.config = config
         self.quantized = quantized
         self.embed = Embedding(config.vocab_size, config.hidden_size, device, dtype)
+        self.vision = self.vision_proj = None
+        if config.multimodal:
+            self.vision = VisionEncoder(config, device, dtype, vision_quantized)
+            if config.vision_embed_dim != config.hidden_size:
+                self.vision_proj = _linear(config.vision_embed_dim, config.hidden_size, True,
+                                           device, dtype, vision_quantized)
         self.layers = nn.ModuleList(
             DecoderLayer(config, device, dtype, quantized)
             for _ in range(config.num_hidden_layers))
@@ -925,7 +946,7 @@ class ApertisForCausalLM(nn.Module):
         check_serving_modes(quant_matmul, moe_mode)
         self.quant_matmul, self.moe_mode = quant_matmul, moe_mode
         for module in self.modules():
-            if isinstance(module, (QuantLinear, SelectiveSSM, DenseFFN, MoEFFN)):
+            if isinstance(module, (QuantLinear, SelectiveSSM, DenseFFN, MoEFFN, VitLayer)):
                 module.quant_matmul = quant_matmul
             if isinstance(module, MoEFFN):
                 module.moe_mode = moe_mode
@@ -980,6 +1001,29 @@ class ApertisForCausalLM(nn.Module):
             if isinstance(layer.attn, MultiHeadAttention):
                 layer.attn.attach_qkv()
 
+    def assemble_inputs(self, input_ids: torch.Tensor,
+                        attention_mask: Optional[torch.Tensor],
+                        pixel_values: Optional[torch.Tensor]):
+        """``(embeds, attention_mask, num_img)``: the token embeddings with
+        the image prefix before them when the model is multimodal and
+        ``pixel_values`` (B, 3, S, S), or raw (B, H, W, 3) or uint8 images,
+        is given, and the mask grown by ones over the prefix (None stays
+        None without a prefix) (``apertis.py::assemble_inputs``)."""
+        h = self.embed.tok[input_ids]
+        if self.vision is None or pixel_values is None:
+            return h, attention_mask, 0
+        if pixel_values.dtype == torch.uint8 or pixel_values.shape[-1] == 3:
+            pixel_values = preprocess_images(pixel_values, self.config.image_size)
+        img = self.vision(pixel_values.to(h.device))
+        if self.vision_proj is not None:
+            img = self.vision_proj(img)
+        b, num_img = h.shape[0], img.shape[1]
+        if attention_mask is None:
+            attention_mask = torch.ones(input_ids.shape, dtype=torch.int32, device=h.device)
+        attention_mask = torch.cat([torch.ones((b, num_img), dtype=attention_mask.dtype,
+                                               device=h.device), attention_mask], dim=1)
+        return torch.cat([img.to(h.dtype), h], dim=1), attention_mask, num_img
+
     def _lm_head(self, h: torch.Tensor) -> torch.Tensor:
         if self.lm_head is not None:
             return self.lm_head(h)
@@ -996,8 +1040,10 @@ class ApertisForCausalLM(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None, *, training: bool = False,
-                seed: Optional[int] = None):
-        """Full-sequence logits (B, L, V). An MHA model honours the mask
+                seed: Optional[int] = None, pixel_values: Optional[torch.Tensor] = None):
+        """Full-sequence logits (B, L, V), over the text positions only where
+        ``pixel_values`` puts an image prefix before them (apertis.py:
+        786-788, 860-864). An MHA model honours the mask
         (causal x padding bias); without one it runs causal attention, through
         the flash kernel where :func:`flash_eligible` holds. The SSM mixer
         ignores the mask, as the reference does.
@@ -1012,7 +1058,8 @@ class ApertisForCausalLM(nn.Module):
         embedding's mask from ``(seed, embedding)``, so the recomputation
         draws the same values (``fold_in(rng, idx)``, apertis.py:830)."""
         cfg = self.config
-        h = self.embed.tok[input_ids]
+        h, attention_mask, num_img = self.assemble_inputs(input_ids, attention_mask,
+                                                          pixel_values)
         kw = self._mha_kwargs(attention_mask, h.shape[1]) if is_mha(cfg) else {}
         sp = parallel_current()
         if sp.active:
@@ -1038,7 +1085,7 @@ class ApertisForCausalLM(nn.Module):
                 h, losses = _run_layer(layer, h, layer_seed, training, kw)
             if losses is not None:
                 lb_loss, rz_loss = lb_loss + losses[0], rz_loss + losses[1]
-        logits = self._lm_head(self.final_norm(h))
+        logits = self._lm_head(self.final_norm(h)[:, num_img:])
         if labels is None:
             return logits
         loss = cross_entropy_loss(logits, labels)
@@ -1079,15 +1126,19 @@ class ApertisForCausalLM(nn.Module):
     @torch.no_grad()
     def prefill(self, cache: Cache, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                logit_positions: Optional[torch.Tensor] = None) -> PrefillOutput:
+                logit_positions: Optional[torch.Tensor] = None,
+                pixel_values: Optional[torch.Tensor] = None) -> PrefillOutput:
         """Run right-padded prompts through the model, writing each layer's
         ``{conv, ssm}`` state into ``cache`` in place. With ``logit_positions``
         (B,) only those positions reach the LM head and ``logits`` is
-        (B, 1, V)."""
+        (B, 1, V). With ``pixel_values`` the image prefix runs first; the
+        logits and ``logit_positions`` are over the text positions, and the
+        length written counts the prefix (apertis.py:1008-1080)."""
         b, l = input_ids.shape
         if attention_mask is None:
             attention_mask = torch.ones((b, l), dtype=torch.int32, device=input_ids.device)
-        h = self.embed.tok[input_ids]
+        h, attention_mask, num_img = self.assemble_inputs(input_ids, attention_mask,
+                                                          pixel_values)
         if is_mha(self.config):
             # The prompt's post-RoPE K/V fill slots [0, L) of each layer.
             kw = self._mha_kwargs(attention_mask, l)
@@ -1108,10 +1159,10 @@ class ApertisForCausalLM(nn.Module):
                                           want_cache=True)
                 cache["conv"][i].copy_(layer_cache["conv"])
                 cache["ssm"][i].copy_(layer_cache["ssm"])
-        h = self.final_norm(h)
+        h = self.final_norm(h)[:, num_img:]
         if logit_positions is not None:
             h = h[torch.arange(b, device=h.device), logit_positions.long()][:, None, :]
-        return PrefillOutput(self._lm_head(h), cache, l)
+        return PrefillOutput(self._lm_head(h), cache, num_img + l)
 
     @torch.no_grad()
     def decode_step(self, cache: Cache, token_ids: torch.Tensor, t: Optional[int] = None,

@@ -17,7 +17,11 @@ router, and ``w_noise``, which eval does not read); the fat stack the
 kernels read is derived from them, not loaded. An MHA tree, float or int8,
 fills ``layers.{i}.attn.{q,k,v,o}`` (with their biases ``b`` where the tree
 has them, that is when attention dropout is 0); the fused QKV projection and
-the RoPE tables are derived, not loaded.
+the RoPE tables are derived, not loaded. A multimodal tree's ``vision``
+subtree stacks its layers over ``vision_layers``: ``vision/layers/ln1/w[i]``
+becomes ``vision.layers.{i}.ln1.w``; its linears and ``vision_proj`` are
+int8 or float together (``params.py::vision_quantized_layout``), whatever
+the decoder's layout.
 
 The export half (``apertis_llm_tpu/models/convert.py:295-411``):
 :func:`params_tree` turns the model back into the stacked tree,
@@ -38,7 +42,11 @@ import torch
 
 from apertis_llm_torch.config import ApertisConfig
 from apertis_llm_torch.models.apertis import ApertisForCausalLM
-from apertis_llm_torch.models.params import quantized_layout
+from apertis_llm_torch.models.params import quantized_layout, vision_quantized_layout
+
+# The stacked subtrees: their leaves carry a leading axis of per-layer
+# tensors, of this config field's length.
+_STACKED = (("layers.", "num_hidden_layers"), ("vision.layers.", "vision_layers"))
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -54,13 +62,15 @@ def from_jax_params(tree: Dict[str, Any], config: ApertisConfig, device="cuda",
                     dtype: torch.dtype = torch.float32) -> ApertisForCausalLM:
     """Build the model on ``device`` (the card unless the caller names
     another) in ``dtype`` and copy every leaf of ``tree`` into it, unstacking
-    the leading layer axis; int8 weights and their f32 scales keep their
-    dtypes. Raises if the tree and the model do not have the same names and
-    shapes, and ``NotImplementedError`` for a tree whose projections are part
-    int8 and part float."""
+    the leading layer axes (``layers``, and a ViT's ``vision.layers``); int8
+    weights and their f32 scales keep their dtypes. Raises if the tree and
+    the model do not have the same names and shapes, and
+    ``NotImplementedError`` for a tree whose projections, or whose ViT
+    linears, are part int8 and part float."""
     model = ApertisForCausalLM(config, device=device, dtype=dtype,
                                quantized=quantized_layout(tree),
-                               int8_head="lm_head" in tree)
+                               int8_head="lm_head" in tree,
+                               vision_quantized=vision_quantized_layout(tree))
     targets = dict(model.named_parameters())
     seen = set()
     for path, leaf in _flatten(tree):
@@ -71,14 +81,15 @@ def from_jax_params(tree: Dict[str, Any], config: ApertisConfig, device="cuda",
             if arr.dtype.name == "bfloat16":     # numpy has no native bf16
                 arr = arr.astype(np.float32)
             src = torch.from_numpy(arr)
-        if path.startswith("layers."):
-            rest = path[len("layers."):]
-            if src.shape[0] != config.num_hidden_layers:
-                raise ValueError(f"{path}: leading axis {src.shape[0]} is not "
-                                 f"num_hidden_layers={config.num_hidden_layers}")
-            items = [(f"layers.{i}.{rest}", src[i]) for i in range(src.shape[0])]
-        else:
-            items = [(path, src)]
+        items = [(path, src)]
+        for prefix, field in _STACKED:
+            if path.startswith(prefix):
+                n = getattr(config, field)
+                if src.shape[0] != n:
+                    raise ValueError(f"{path}: leading axis {src.shape[0]} is not "
+                                     f"{field}={n}")
+                rest = path[len(prefix):]
+                items = [(f"{prefix}{i}.{rest}", src[i]) for i in range(n)]
         for name, value in items:
             if name not in targets:
                 raise KeyError(f"parameter {name!r} has no place in the model")
@@ -100,33 +111,34 @@ def params_tree(model: ApertisForCausalLM) -> Dict[str, Any]:
     :func:`from_jax_params`. Leaves are detached copies on the model's
     device in their own dtypes."""
     tree: Dict[str, Any] = {}
-    per_layer: Dict[str, list] = {}
-    for name, p in model.named_parameters():
-        if name.startswith("layers."):
-            _, idx, rest = name.split(".", 2)
-            per_layer.setdefault(rest, [None] * len(model.layers))[int(idx)] = p.detach()
-            continue
+    per_layer: Dict[Tuple[str, str], Dict[int, torch.Tensor]] = {}
+
+    def put(path, value):
         node = tree
-        *path, leaf = name.split(".")
-        for key in path:
+        *keys, leaf = path.split(".")
+        for key in keys:
             node = node.setdefault(key, {})
-        node[leaf] = p.detach().clone()
-    layers: Dict[str, Any] = {}
-    for rest, leaves in per_layer.items():
-        node = layers
-        *path, leaf = rest.split(".")
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = torch.stack(leaves)
-    tree["layers"] = layers
+        node[leaf] = value
+
+    for name, p in model.named_parameters():
+        for prefix, _ in _STACKED:
+            if name.startswith(prefix):
+                idx, rest = name[len(prefix):].split(".", 1)
+                per_layer.setdefault((prefix, rest), {})[int(idx)] = p.detach()
+                break
+        else:
+            put(name, p.detach().clone())
+    for (prefix, rest), leaves in per_layer.items():
+        put(prefix + rest, torch.stack([leaves[i] for i in sorted(leaves)]))
     return tree
 
 
 def to_torch_state_dict(params: Dict[str, Any], config: ApertisConfig) -> Dict[str, torch.Tensor]:
     """The reference model's ``state_dict`` (f32 CPU tensors) of a float
-    text-only tree, as ``apertis_llm_tpu/models/convert.py::
-    to_torch_state_dict`` writes it: linear weights transposed to (out, in),
-    the conv taps as (C, 1, K), the tied head as ``lm_head.weight``."""
+    tree, as ``apertis_llm_tpu/models/convert.py::to_torch_state_dict``
+    writes it: linear weights transposed to (out, in), the conv taps as (C,
+    1, K), the tied head as ``lm_head.weight``, and a ViT's tree under
+    ``model.multimodal_encoder`` and ``model.vision_projection``."""
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, val, transpose=False):
@@ -194,6 +206,34 @@ def to_torch_state_dict(params: Dict[str, Any], config: ApertisConfig) -> Dict[s
             put_linear(f"{pre}.ffn.3", f["w2"])
     put_norm("model.final_post_norm", params["final_norm"])
     put("lm_head.weight", params["embed"]["tok"])    # tied
+    if "vision" in params:
+        # The ViT (convert.py:371-397): the patch embedding as the
+        # reference's Conv2d weight (dv, 3, P, P), the layers as
+        # TransformerEncoderLayer's names.
+        v = params["vision"]
+        pre, dv, p = "model.multimodal_encoder", config.vision_embed_dim, config.vision_patch_size
+        pw = v["patch_embed"]["w"]
+        pw = pw if isinstance(pw, torch.Tensor) else torch.from_numpy(np.asarray(pw))
+        put(f"{pre}.patch_embed.weight", pw.T.reshape(dv, 3, p, p))
+        put(f"{pre}.patch_embed.bias", v["patch_embed"]["b"])
+        put(f"{pre}.cls_token", v["cls_token"])
+        put(f"{pre}.vision_pos_embed", v["pos_embed"])
+        for i in range(config.vision_layers):
+            vl = layer(v["layers"], i)
+            lp = f"{pre}.vision_layers.{i}"
+            put(f"{lp}.norm1.weight", vl["ln1"]["w"])
+            put(f"{lp}.norm1.bias", vl["ln1"]["b"])
+            put(f"{lp}.self_attn.in_proj_weight", vl["in_proj_w"], transpose=True)
+            put(f"{lp}.self_attn.in_proj_bias", vl["in_proj_b"])
+            put_linear(f"{lp}.self_attn.out_proj", vl["attn_out"])
+            put(f"{lp}.norm2.weight", vl["ln2"]["w"])
+            put(f"{lp}.norm2.bias", vl["ln2"]["b"])
+            put_linear(f"{lp}.linear1", vl["linear1"])
+            put_linear(f"{lp}.linear2", vl["linear2"])
+        put(f"{pre}.vision_ln.weight", v["final_ln"]["w"])
+        put(f"{pre}.vision_ln.bias", v["final_ln"]["b"])
+        if "vision_proj" in params:
+            put_linear("model.vision_projection", params["vision_proj"])
     return sd
 
 

@@ -1,15 +1,20 @@
 """Parameter initialisation, as a tree of tensors named like the JAX package's.
 
 ``init_params`` builds the same nested dict of names and shapes as
-``apertis_llm_tpu/models/params.py::init_params`` for the text-only model,
-with the selective-SSM or the MHA mixer and a dense or a MoE FFN:
+``apertis_llm_tpu/models/params.py::init_params`` for the selective-SSM or
+the MHA mixer, a dense or a MoE FFN and, for a multimodal selective-SSM
+model, the ViT's ``vision`` tree and ``vision_proj`` (``:129-172``):
 per-layer tensors stacked along a leading ``num_hidden_layers`` axis, linear
 weights in the (in, out) layout, and the same distributions
 (reference: src/model/core.py:1045-1062, 314-318): normal(0,
 initializer_range) for linears and embeddings, zero biases, unit norm
 scales, dt bias ~ U(log 1e-3, log 1e-2), A_log ~ U(log 0.5, log 0.99), D = 1,
 conv taps ~ U(+-1/sqrt(K)), unit expert and router LayerNorms, zero
-``w_noise``. The numbers differ from JAX's, which draws from
+``w_noise``; the ViT's patch embedding, CLS token and position embeddings
+normal(0, 0.02), its packed ``in_proj_w`` xavier-uniform, its other linears
+normal(0, 0.02), every bias zero and every LayerNorm unit (per-layer ViT
+tensors stacked along a leading ``vision_layers`` axis). The numbers differ
+from JAX's, which draws from
 its own generator. ``models/convert.py::from_jax_params`` turns the tree into
 the model's modules.
 """
@@ -76,6 +81,32 @@ def quantized_layout(params: Params) -> bool:
     return "int8" in kinds.values()
 
 
+def vision_quantized_layout(params: Params) -> bool:
+    """True when the ViT's linears (``vision.patch_embed``, each layer's
+    ``in_proj``, ``attn_out``, ``linear1``, ``linear2``) and ``vision_proj``
+    are int8, False when they are all float or the tree has no ViT: the
+    ``vision`` subtree's counterpart of :func:`quantized_layout`. A mixed
+    subtree raises ``NotImplementedError``."""
+    vision = params.get("vision")
+    if vision is None:
+        return False
+    layers = vision.get("layers", {})
+    leaves = {"vision.patch_embed": vision.get("patch_embed", {}),
+              "vision.layers.in_proj": {k[len("in_proj_"):]: v for k, v in layers.items()
+                                        if k.startswith("in_proj_w")},
+              **{f"vision.layers.{name}": layers.get(name, {})
+                 for name in ("attn_out", "linear1", "linear2")}}
+    if "vision_proj" in params:
+        leaves["vision_proj"] = params["vision_proj"]
+    kinds = {name: "int8" if "w_q" in leaf else "float" if "w" in leaf else None
+             for name, leaf in leaves.items()}
+    if len(set(kinds.values())) != 1 or None in kinds.values():
+        raise NotImplementedError(
+            "the port serves ViT trees whose linears are all int8 or all float; got "
+            f"{kinds} (quantize with a min_size that takes all of them)")
+    return "int8" in kinds.values()
+
+
 def is_moe(config: ApertisConfig) -> bool:
     return bool(config.use_expert_system and config.num_experts > 0)
 
@@ -90,9 +121,10 @@ def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
     int8 projections, whose mixer is the selective SSM (with a dense FFN or
     a top-2 MoE FFN, its hidden and mixer widths multiples of 4) or standard
     MHA (with a dense FFN, and a head width the
-    decode-attention kernel takes: a multiple of 32 up to 256). MHA with
-    MoE, SwiGLU, the multimodal and absolute-position variants and MoE with
-    another top-k are not ported yet (ROADMAP.md). Int8 weights
+    decode-attention kernel takes: a multiple of 32 up to 256); the
+    selective-SSM model also with the ViT image prefix (``multimodal``).
+    MHA with MoE, MHA with an image prefix, SwiGLU, absolute positions and
+    MoE with another top-k are not ported yet (ROADMAP.md). Int8 weights
     are served at any width the JAX package serves: where the fused decode
     FFN's width test fails, the FFN runs unfused (``models/apertis.py``)."""
     missing = []
@@ -108,8 +140,14 @@ def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
     if is_moe(config) and config.experts_per_token != 2:
         # The decode step's MoE epilogue is top-2 only (apertis.py:1228).
         missing.append(f"MoE with experts_per_token={config.experts_per_token} (top-2 only)")
-    if config.multimodal:
-        missing.append("multimodal")
+    if config.multimodal and is_mha(config):
+        # The engine's positions past an image prefix (engine.py:245-248).
+        missing.append("MHA with an image prefix (multimodal)")
+    if config.multimodal and (config.image_size % config.vision_patch_size
+                              or config.vision_embed_dim % config.vision_heads):
+        missing.append(f"a ViT with image_size={config.image_size}, patch "
+                       f"{config.vision_patch_size}, width {config.vision_embed_dim} and "
+                       f"{config.vision_heads} heads (whole patches and heads)")
     if config.position_embedding_type == "absolute":
         missing.append("absolute position embeddings")
     if not config.tie_word_embeddings:
@@ -165,13 +203,17 @@ def check_trainable(config: ApertisConfig, quantized: bool = False, device="cuda
     1024, the MHA model, bf16 or f32 compute), with a float tree, on a mesh
     ``mesh_shape`` over (data, model, expert, seq) (None: one rank) that the
     port runs: one rank, or ``(data, 1, 1, seq)`` for the dense SSM model and
-    ``(data, 1, 1, 1)`` for the MHA model. Not ported yet (module 7): int8
+    ``(data, 1, 1, 1)`` for the MHA model. Not ported yet: multimodal
+    training (module 3, the image prefix in the training forward and the
+    dataset's image items); and (module 7) int8
     trees, a ``model`` or ``expert`` axis (tensor and expert parallelism),
     MHA under ``seq`` (ring attention passes K/V with send/recv, which gloo
     does not run on CUDA tensors), and a MoE model on any mesh (JAX computes
     ``moe_dispatch``'s capacity over the global token count)."""
     check_supported(config, quantized)
     missing = []
+    if config.multimodal:
+        missing.append("multimodal training (the image prefix)")
     if quantized:
         missing.append("training an int8 tree")
     if torch.device(device).type == "cuda" and not is_mha(config) and config.ssm_d_state > 1024:
@@ -276,7 +318,37 @@ def init_params(config: ApertisConfig, generator: torch.Generator,
         ffn["w2"] = init.linear(nl, inter, h, std, bias=True)
     params["layers"] = {"attn": attn, "ffn": ffn}
     params["final_norm"] = init.norm((), h, rms)
+    if config.multimodal:
+        params["vision"] = _init_vision(init, config)
+        if config.vision_embed_dim != h:
+            params["vision_proj"] = init.linear((), config.vision_embed_dim, h, std, bias=True)
     return params
+
+
+def _init_vision(init: _Init, config: ApertisConfig) -> Params:
+    """The ViT's tree (``params.py::init_vision_params``): the patch
+    embedding in (c, dy, dx) order, CLS, position embeddings, the
+    ``vision_layers`` pre-norm layers stacked (packed q/k/v ``in_proj``,
+    ``attn_out``, the 4x FFN) and the final LayerNorm."""
+    dv, p = config.vision_embed_dim, config.vision_patch_size
+    patches = (config.image_size // p) ** 2
+    nl = (config.vision_layers,)
+    bound = math.sqrt(6.0 / (dv + 3 * dv))       # xavier_uniform of (3 dv, dv)
+    return {
+        "patch_embed": init.linear((), 3 * p * p, dv, 0.02, bias=True),
+        "cls_token": init.normal((1, 1, dv), 0.02),
+        "pos_embed": init.normal((1, patches + 1, dv), 0.02),
+        "layers": {
+            "ln1": init.norm(nl, dv, rms=False),
+            "in_proj_w": init.uniform((*nl, dv, 3 * dv), -bound, bound),
+            "in_proj_b": init.full((*nl, 3 * dv), 0.0),
+            "attn_out": init.linear(nl, dv, dv, 0.02, bias=True),
+            "ln2": init.norm(nl, dv, rms=False),
+            "linear1": init.linear(nl, dv, 4 * dv, 0.02, bias=True),
+            "linear2": init.linear(nl, 4 * dv, dv, 0.02, bias=True),
+        },
+        "final_ln": init.norm((), dv, rms=False),
+    }
 
 
 def count_params(params: Params) -> int:

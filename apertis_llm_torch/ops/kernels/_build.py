@@ -73,8 +73,11 @@ SIGNATURES = {
     # kernel (0 up int8, 1 down int8, 2 up int4, 3 down int4, 4 up bf16,
     # 5 down bf16), row_tile, smem, out (5 ints)
     "apertis_ffn_quant_resources": [_I, _I, _I, _P],
-    # x, w, b, q, scale, rows, H, rms, eps, stream
-    "apertis_ln_quantize": [_P] * 5 + [_I] * 3 + [_F, _P],
+    # x, w, b, q, scale, rows, H, the plan (vec, threads a row, vectors a
+    # thread), rms, eps, stream
+    "apertis_ln_quantize": [_P] * 5 + [_I] * 6 + [_F, _P],
+    # vec, threads a row, vectors a thread, out (5 ints)
+    "apertis_ln_quantize_resources": [_I, _I, _I, _P],
     # x_q, x_s, comb, w1t_q, w1t_s, b1t, w2t_q, w2t_s, out, hq, hs, hidden,
     # absmax, S, H, E*I, E, bn, act, row_tile, up_cluster, split, group,
     # stages_up, stages_down, stream

@@ -3,6 +3,7 @@ prefill and decode, or over train steps.
 
     python -m apertis_llm_torch.profile_serving [--layers N] [--moe | --mha] [--int4]
         [--quant-matmul {dyn,weightonly,pallas,fused}] [--moe-mode {fatk,kernel,0}] [--train]
+        [--images]
 
 Builds the 1.5B selective-SSM model on the card from a seeded generator
 (``chip_smoke.py``'s configuration, random weights; with ``--moe`` the 1.5B
@@ -27,7 +28,11 @@ serve every model through ``InferenceEngine(..., quant_matmul=...,
 moe_mode=...)``: the int8 arithmetic of the full-sequence linears and the
 head (``dyn`` by default; ``weightonly``, ``pallas``, ``fused``), and the MoE
 FFN's serving stack (``fatk`` by default; ``kernel``; ``0``, none). It needs
-a CUDA device.
+a CUDA device. With ``--images`` the selective-SSM model carries the ViT
+image prefix (ViT-B/16 at 224, bf16 in both trees, as ``bench.py`` serves
+it by default) and each prefill takes one seeded 256 x 320 uint8 image a
+prompt, the prompts bucketed with the prefix as the engine buckets them
+(32 + 3 and 64 + 3 columns).
 
 With ``--train`` it traces training instead: the dense 1.5B preset (or the
 MHA one with ``--mha``, through the flash kernels, or the MoE one with
@@ -136,7 +141,11 @@ def main(argv=None) -> int:
                         help="the MoE FFN's kernel (InferenceEngine's moe_mode)")
     parser.add_argument("--train", action="store_true",
                         help="trace train steps instead of serving")
+    parser.add_argument("--images", action="store_true",
+                        help="serve the selective-SSM model with the ViT image prefix")
     args = parser.parse_args(argv)
+    if args.images and (args.mha or args.train):
+        parser.error("--images serves the selective-SSM model only")
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
         return 1
@@ -160,7 +169,8 @@ def main(argv=None) -> int:
         num_attention_heads=dims["num_attention_heads"],
         intermediate_size=dims["intermediate_size"], hidden_dropout_prob=0.0,
         attention_probs_dropout_prob=0.0, max_position_embeddings=4096,
-        dtype="bfloat16", param_dtype="bfloat16", use_flash_attention=args.mha, **moe)
+        dtype="bfloat16", param_dtype="bfloat16", use_flash_attention=args.mha,
+        multimodal=args.images, **moe)
     if args.train:
         return _profile_train(config, dev, _card())
     tree = init_params(config, torch.Generator(device=dev).manual_seed(0), device=dev,
@@ -181,6 +191,11 @@ def main(argv=None) -> int:
         engine = InferenceEngine(config, model, quant_bits=bits,
                                  quant_matmul=args.quant_matmul, moe_mode=args.moe_mode)
         for rows, length in ((64, 32), (4, 64)):
+            pix = {}
+            if args.images:
+                pix["pixel_values"] = torch.randint(0, 256, (rows, 256, 320, 3), generator=gen,
+                                                    device=dev, dtype=torch.uint8)
+                length += -(config.num_image_tokens + length) % 8
             ids = torch.randint(4, config.vocab_size, (rows, length), generator=gen,
                                 device=dev)
             mask = torch.ones((rows, length), dtype=torch.int32, device=dev)
@@ -191,11 +206,12 @@ def main(argv=None) -> int:
                 t = length + 63
                 cache_kw = dict(max_length=t + 1, kv_int8=engine.kv_int8)
                 step_kw = dict(t=t, positions=torch.full((rows,), t, device=dev))
-            _trace(f"{kind} prefill {rows} x {length}",
+            _trace(f"{kind} prefill {rows} x {length}"
+                   + (f" after {config.num_image_tokens} image tokens" if pix else ""),
                    lambda: model.prefill(model.init_cache(rows, **cache_kw), ids, mask,
-                                         logit_positions=last), 3, card)
+                                         logit_positions=last, **pix), 3, card)
             cache = model.init_cache(rows, **cache_kw)
-            model.prefill(cache, ids, mask, logit_positions=last)
+            model.prefill(cache, ids, mask, logit_positions=last, **pix)
             tok = ids[:, -1]
             _trace(f"{kind} decode step, {rows} rows",
                    lambda: model.decode_step(cache, tok, **step_kw), 5, card)

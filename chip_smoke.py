@@ -26,7 +26,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
      (``decode_times``: one layer's weights again and again, or each of the
      model's 20 layers in turn; the bf16 step's and FFN's over the bf16
      model's) and each of their launches' registers, shared memory and
-     local bytes;
+     local bytes; the fused norm + quantize (``ln_quantize``, #5) at the
+     main path's shapes (LN_SHAPES: request B's 2048 x 2432 with either
+     norm, request A's 256 rows, the MoE mixer's D = 704, the int8 ViT's
+     12,608 x 768 LayerNorm with bias at eps 1e-5, a ragged 37 rows) and at
+     the widths 192, 1216, 2432, 2436 and 2431 (vectors of 4 and of 1) and
+     32,768 (the widest it takes) with both norms, each twice for the same
+     bits, with each plan's registers and shared memory, and that a wider
+     row raises; #7 at the int8 ViT's products (12,608 rows, K = 768 with
+     N = 2304, 768 and 3072, K = 3072 with N = 768);
      Then the same for the 1.5B top-2-of-8 MoE model (hidden 704, 44 layers,
      experts of 2816): the scan, ``ln_quantize`` and the decode step at its
      mixer's shapes (D = 704, C = 176, R = 44, H = 11), the step's moe
@@ -97,7 +105,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
      2048-row prefill; for MHA the decode-attention kernel at every decode
      step and no flash launch, since serving prefill carries a mask), tokens
      in range and each request repeated with the same tokens; then TTFT and
-     decode tokens per second per batch; the same for the 1.5B dense int8
+     decode tokens per second per batch; the same with the image prefix
+     (bench.py's multimodal flagship: ViT-B/16 at 224, 197 tokens, and
+     vision_proj, added to the models from seeded noisy trees; each request
+     with seeded uint8 images of 160 x 200 and 256 x 320 pixels) for the
+     dense bf16 model, the dense int8 model with a bf16 ViT and with an int8
+     one (``ln_quantize`` at ln1 and ln2 of every ViT layer, #7 at its
+     products) and the MoE int8 model with a bf16 ViT (request A's prefill
+     of 4 x 264 rows through the grouped kernel), exact launch counts and
+     figures beside the text-only ones; the same for the 1.5B dense int8
      model under ``quant_matmul="pallas"`` and ``"fused"`` (every prefill
      linear and the head through #6 or #8) and the 1.5B MoE int8 model under
      ``moe_mode="kernel"`` (request A's prefill and every decode step
@@ -143,7 +159,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      step), and a MoE model with 40 experts, more than the decode step's moe
      epilogue takes (bf16 and int8, and int8 through
      ``InferenceEngine.generate``: every decode step without the epilogue,
-     the fat kernel once a layer and step), that the 1.5B logits are finite, that
+     the fat kernel once a layer and step), 2-layer dense and MoE models with
+     a small image prefix, bf16 and int8 with an int8 ViT (``ln_quantize``
+     launched once a pre-norm and ViT norm), that the 1.5B logits are finite, that
      the 1.5B MHA ``forward()`` without a mask runs the flash kernel once per
      layer and agrees with the plain attention, that a 2-layer f32 flash
      MHA ``forward()`` runs the f32 flash kernel once per layer and agrees
@@ -228,10 +246,12 @@ card's name and power limit; the last line is ``{"ok": true, "device":
                                              # with other chunks
     python3 chip_smoke.py --grouped-times    # the grouped MoE FFN's (#12) at 2048 and
                                              # 37 tokens, and at both row tiles
+    python3 chip_smoke.py --ln-times         # the fused norm + quantize's (#5) at
+                                             # LN_SHAPES, and at other threads a row
 
 The first two flags run ``qmm_phase`` only. ``--qmm-times``,
 ``--flash-f32-times``, ``--decode-times``, ``--scan-fwd-times``,
-``--scan-bwd-times`` and ``--grouped-times`` need nothing
+``--scan-bwd-times``, ``--grouped-times`` and ``--ln-times`` need nothing
 of the checkout but
 the wrappers' (and the trainer's) Python interface, so a checkout of an
 earlier commit can run them with this script copied into it, for a
@@ -534,9 +554,10 @@ class TokenRows(list):
 def perturb_(tree, generator):
     """Add seeded noise to every norm weight and bias, FFN bias and skip
     weight D of a parameter tree, to the MoE router's LayerNorm and bias and
-    the experts' LayerNorms and biases, and to MHA's q/k/v/o biases, which
-    init_params sets to 1 or 0, so that every term the kernels compute has a
-    value that shows when it is dropped."""
+    the experts' LayerNorms and biases, to MHA's q/k/v/o biases and to the
+    ViT's LayerNorms and biases (and vision_proj's), which init_params sets
+    to 1 or 0, so that every term the kernels compute has a value that shows
+    when it is dropped."""
     def walk(node, path):
         for key, value in node.items():
             name = f"{path}.{key}"
@@ -547,7 +568,9 @@ def perturb_(tree, generator):
             moe_term = ((".router" in name and key == "b")
                         or (".experts" in name and key in ("ln_w", "ln_b", "b1", "b2")))
             mha_bias = key == "b" and path.rsplit(".", 1)[-1] in ("q", "k", "v", "o")
-            if (is_norm or moe_term or mha_bias or key == "D"
+            vit_term = name.startswith(".vision") and (
+                key in ("b", "in_proj_b") or path.rsplit(".", 1)[-1] in ("ln1", "ln2", "final_ln"))
+            if (is_norm or moe_term or mha_bias or vit_term or key == "D"
                     or (".ffn.w" in name and key == "b")):
                 noise = torch.randn(value.shape, generator=generator, device=value.device)
                 scale = 5 * NOISE_STD if key == "D" else NOISE_STD
@@ -1237,6 +1260,85 @@ def grouped_times(card):
     return result
 
 
+# The fused norm + quantize (#5) at the main path's shapes: (label, rows, H,
+# LayerNorm, eps). Request B's prefill rows at the 1.5B dense width with
+# either norm, request A's 4 x 64 rows, the MoE mixer's D = 704 at request
+# B's rows, the int8 ViT's ln1 / ln2 over request B's 64 images of 197
+# tokens (LayerNorm with bias, eps 1e-5) and a ragged 37 rows.
+LN_SHAPES = (("request B's prefill, LayerNorm", 2048, 2432, True, 1e-12),
+             ("request B's prefill, RMSNorm", 2048, 2432, False, 1e-12),
+             ("request A's prefill (4 x 64), LayerNorm", 256, 2432, True, 1e-12),
+             ("the MoE mixer's D = 704, LayerNorm", 2048, 704, True, 1e-12),
+             ("the int8 ViT's 64 x 197 tokens, LayerNorm, eps 1e-5", 12608, 768, True, 1e-5),
+             ("ragged rows, LayerNorm", 37, 2432, True, 1e-12))
+
+
+def ln_operands(rows, h, layer_norm, gen, dev):
+    """Seeded bf16 operands of ``ln_quantize``: x of std 2, a norm weight of
+    1 + 0.1 noise and (LayerNorm) a bias of 0.1 noise."""
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+    w = (1 + randn(h, std=0.1)).to(torch.bfloat16)
+    b = randn(h, std=0.1).to(torch.bfloat16) if layer_norm else None
+    return randn(rows, h, std=2.0).to(torch.bfloat16), w, b
+
+
+def ln_cost(x, w, b):
+    """(bytes, operations, type) of ``ln_quantize`` on x: x, w and b read
+    once, q and the scales written once; about 10 f32 operations an
+    element."""
+    rows = x.numel() // x.shape[-1]
+    return nbytes(x, w, b) + x.numel() + rows * 4, 10 * x.numel(), "f32"
+
+
+def ln_times(card):
+    """The fused norm + quantize's times (#5, ``ln_quantize``) at LN_SHAPES
+    on seeded operands: the wrapper's CUDA-event time, the profiler's device
+    time and the bound of the bytes it must move, each output held to its
+    tolerance against the plain version (levels one apart on under
+    INT8_FLIP_SHARE of the elements, scales within SCALE_TOL); where the
+    checkout has ``ln_quant.ln_plan``, the plan, its resources and the
+    device time at other threads a row, each held to the same tolerances.
+    An earlier commit can run it with this script copied in."""
+    from apertis_llm_torch.ops.kernels import ln_quant
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    result = {}
+    for label, rows, h, layer_norm, eps in LN_SHAPES:
+        x, w, b = ln_operands(rows, h, layer_norm, gen, dev)
+        args = (x, w, b, eps)
+        label = f"ln_quantize {rows} x {h} ({label})"
+        res = {"ms": cuda_ms(lambda: ln_quant.ln_quantize(*args)),
+               "device_ms": device_ms(lambda: ln_quant.ln_quantize(*args)),
+               "bound_ms": bound(*ln_cost(x, w, b))[0]}
+        ref = ln_quant.ln_quantize_reference(*args)
+        got = ln_quant.ln_quantize(*args)
+        compare_int8(f"{label} x_q", got[0], ref[0])
+        compare(f"{label} x_s", got[1], ref[1], SCALE_TOL)
+        res["bit_equal"] = all(torch.equal(a, r) for a, r in zip(got, ref))
+        if hasattr(ln_quant, "ln_plan"):
+            plan = ln_quant.ln_plan(h, rows)
+            res["plan"] = plan._asdict()
+            res["resources"] = ln_quant.ln_quantize_resources(plan)
+            res["device_ms_by_threads"] = {}
+            for threads in (8, 16, 32, 64, 128, 256):
+                try:
+                    plan = ln_quant.ln_plan(h, threads=threads)
+                except ValueError:
+                    continue
+                got = ln_quant._ln_launch(*args, threads)
+                compare_int8(f"{label} at {threads} threads a row, x_q", got[0], ref[0])
+                compare(f"{label} at {threads} threads a row, x_s", got[1], ref[1], SCALE_TOL)
+                res["device_ms_by_threads"][threads] = {
+                    "nv": plan.nv, "bit_equal": all(torch.equal(a, r) for a, r in zip(got, ref)),
+                    "device_ms": device_ms(lambda t=threads: ln_quant._ln_launch(*args, t)),
+                    **ln_quant.ln_quantize_resources(plan)}
+        result[label] = res
+        log(f"  {label}: {json.dumps(res)}; card: {card}")
+    return result
+
+
 def parallel_rank(rank, scan_args, small, preset):
     """One of phase 7's two ranks, which share the card in a gloo process
     group (``apertis_llm_torch.parallel.spawn``): the sequence-parallel scan
@@ -1342,7 +1444,7 @@ def main() -> int:
     from apertis_llm_torch.config import ApertisConfig
     from apertis_llm_torch.inference.engine import InferenceEngine
     from apertis_llm_torch.models import apertis as apertis_model
-    from apertis_llm_torch.models.convert import from_jax_params
+    from apertis_llm_torch.models.convert import from_jax_params, params_tree
     from apertis_llm_torch.models.factory import calculate_model_dimensions
     from apertis_llm_torch.models.moe_fuse import fuse_one_fat
     from apertis_llm_torch.models.params import count_params, init_params
@@ -1360,7 +1462,9 @@ def main() -> int:
         flash_attention_dkv_reference, flash_attention_dq, flash_attention_dq_f32,
         flash_attention_dq_reference, flash_attention_fwd, flash_attention_fwd_f32,
         flash_attention_fwd_reference, flash_attention_resources)
-    from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize, ln_quantize_reference
+    from apertis_llm_torch.ops.kernels.ln_quant import (
+        ln_plan, ln_quantize, ln_quantize_reference, ln_quantize_resources)
+    from apertis_llm_torch.ops.kernels.ln_quant import max_width as ln_max_width
     from apertis_llm_torch.ops.kernels.mha_step import (
         NEG, mha_decode_ctx, mha_decode_ctx_int8, mha_decode_ctx_reference, quantize_heads)
     from apertis_llm_torch.ops.kernels.moe_ffn import (
@@ -1735,15 +1839,43 @@ def main() -> int:
         "norm weight": (args[0], torch.ones_like(pre_w), pre_b, eps),
         "norm bias": (args[0], pre_w, torch.zeros_like(pre_b), eps),
     }, ln_tols)
-    for rows, label in [(256, "4 x 64, request A's prefill"), (2048, "64 x 32"),
-                        (37, "ragged")]:
-        for bias, kind in [(pre_b, "LayerNorm"), (None, "RMSNorm")]:
-            x = randn(rows, d, std=2.0)
-            args = (x, pre_w, bias, eps)
-            check_kernel("ln_quantize", f"ln_quantize {rows} rows ({label}) {kind}", args,
-                         ln_quantize, ln_quantize_reference, ln_tols,
-                         cost=(nbytes(x, pre_w, bias) + x.numel() + rows * 4, 10 * x.numel(),
-                               "f32") if rows == 2048 and bias is not None else None)
+    # The main path's shapes (request B's LayerNorm is the report's), then
+    # the widths 192, 1216 and 2432, two that are not multiples of 8 (four-
+    # and one-value loads) and the widest the wrapper takes, with both norms;
+    # each run twice for the same bits, with its plan's resources.
+    ln_resources, ln_bit_equal = {}, {}
+
+    def ln_check(label, rows, h_, layer_norm_, eps_, timed):
+        args = (*ln_operands(rows, h_, layer_norm_, g, dev), eps_)
+        plan = ln_plan(h_, rows)
+        key = f"{plan.vec} x {plan.threads} x {plan.nv}"
+        if key not in ln_resources:
+            ln_resources[key] = ln_quantize_resources(plan)
+            log(f"  ln_quantize plan (vec, threads a row, vectors a thread) {key}: "
+                f"{json.dumps(ln_resources[key])}")
+        check_kernel("ln_quantize", f"ln_quantize {rows} x {h_} ({label})", args, ln_quantize,
+                     ln_quantize_reference, ln_tols, repeat=True,
+                     cost=ln_cost(*args[:3]) if timed else None,
+                     shape=None if timed == "report" else label)
+        # Both versions take the row sums as f64 sums of f32 parts: the
+        # kernel is expected to give the plain version's bits (reported,
+        # the tolerances above being the check).
+        ln_bit_equal[f"{rows} x {h_} ({label})"] = all(
+            torch.equal(a, r) for a, r in zip(ln_quantize(*args), ln_quantize_reference(*args)))
+
+    for i, (label, rows, h_, layer_norm_, eps_) in enumerate(LN_SHAPES):
+        ln_check(label, rows, h_, layer_norm_, eps_, "report" if i == 0 else "shape")
+    for h_ in (192, 1216, 2432, 2436, 2431, ln_max_width(8)):
+        for layer_norm_ in (True, False):
+            ln_check(f"width {h_}, {'LayerNorm' if layer_norm_ else 'RMSNorm'}",
+                     64 if h_ > 8192 else 300, h_, layer_norm_, eps, None)
+    try:
+        ln_quantize(randn(2, ln_max_width(8) + 8), *ln_operands(1, ln_max_width(8) + 8, True,
+                                                                 g, dev)[1:], eps)
+    except ValueError as exc:
+        log(f"  ln_quantize past its widest row raises: {exc} ok")
+    else:
+        raise RuntimeError("ln_quantize took a row wider than its plan allows")
 
     # The decode kernels' warm and cold times at 64 and 4 rows, and the
     # resources the card gives each of their launches.
@@ -2248,6 +2380,19 @@ def main() -> int:
                     f"alone) {library['quant_matmul_dyn_pre_q']:.4f} ms; with a column-major "
                     f"copy of the weight {library_cols['quant_matmul_dyn_pre_q']:.4f} ms; "
                     f"card: {card}")
+
+    # The int8 ViT's products (quantize_vision=True) at request B's 64 x 197
+    # image tokens: in_proj (K = 768, N = 2304), attn_out (768), linear1
+    # (3072) and linear2 (K = 3072, N = 768), bit-equal, each timed.
+    for k_, n_, what in ((768, 2304, "in_proj"), (768, 768, "attn_out"),
+                         (768, 3072, "linear1"), (3072, 768, "linear2")):
+        w_q, w_s = quantize_weight(randn(k_, n_, std=0.02))
+        x_q, x_s = quantize_rows(randn(12608, k_))
+        args = (x_q, x_s, w_q, w_s, randn(n_, std=0.1), bf16)
+        label = f"int8 ViT {what} at 12,608 rows (K={k_}, N={n_})"
+        check_kernel("quant_matmul_dyn_pre_q", f"quant_matmul_dyn {label}, bf16 result, bias",
+                     args, quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference, qmm_tols,
+                     cost=qmm_cost(args), shape=label)
 
     # The decode FFN's int4 layout at the 1.5B widths, the pack built from
     # the int8 layer as the engine builds it.
@@ -2902,10 +3047,11 @@ def main() -> int:
     launches, serve = {}, {}
 
     def expected_launches(kind, cfg, decode_calls, bits, moe_groups=0, quant_matmul_="dyn",
-                          moe_mode="fatk"):
+                          moe_mode="fatk", vit=None):
         """Each kernel's launches in the two requests: layers x calls.
         ``moe_groups``: the expert groups moe_ragged ran over all layers;
-        ``quant_matmul_`` and ``moe_mode``: the engine's modes."""
+        ``quant_matmul_`` and ``moe_mode``: the engine's modes; ``vit``: the
+        image prefix's ViT, "bf16" or "int8" (None: no images)."""
         nl = cfg.num_hidden_layers
         moe, mha = bool(cfg.use_expert_system), cfg.attention_type == "standard_mha"
         int8 = "bf16" not in kind
@@ -2934,10 +3080,12 @@ def main() -> int:
         elif moe:
             # Request A prefills 4 x 64 = 256 rows (the fat kernel), request
             # B 64 x 32 = 2048 (the grouped kernel, or moe_ragged over an
-            # int4 fat stack); every decode step runs the fat kernel.
+            # int4 fat stack); every decode step runs the fat kernel. With
+            # the image prefix request A prefills 4 x (197 + 67) rows, past
+            # the fat kernel's 256: the grouped kernel.
             fat = "expert_ffn_fat_int4" if bits == 4 else "expert_ffn_fat"
-            exp[fat] = nl * (decode_calls + 1)
-            exp["expert_ffn_grouped"] = 0 if bits == 4 else nl
+            exp[fat] = nl * (decode_calls + (0 if vit else 1))
+            exp["expert_ffn_grouped"] = 0 if bits == 4 else nl * (2 if vit else 1)
         elif fused_ffn:
             exp[{4: "ffn_decode_int4", 8: "ffn_decode_int8"}[bits] if int8
                 else "ffn_decode"] = nl * decode_calls
@@ -2956,12 +3104,23 @@ def main() -> int:
             exp[name] += own
             exp["quant_matmul_dyn_pre_q"] += (decode_calls * nl * (2 if mha else 0)
                                               + (2 * moe_groups if dyn else 0))
+        if vit == "int8":
+            # A request's int8 ViT: ln1 and ln2 a layer through ln_quantize,
+            # four products a layer, the patch embedding and vision_proj.
+            nv = cfg.vision_layers
+            exp["ln_quantize"] += 2 * nv * n_req if dyn else 0
+            exp["quant_matmul_dyn_pre_q"] += (4 * nv + 2) * n_req
         return exp
 
-    def serve_model(kind, m, cfg, bits=8, quant_matmul_="dyn", moe_mode="fatk"):
+    def serve_model(kind, m, cfg, bits=8, quant_matmul_="dyn", moe_mode="fatk", images=None,
+                    vit=None, text_kind=None):
         """Both requests through InferenceEngine.generate with the counts set
         to 0 before and checked after, then repeat identity, TTFT and decode
-        tok/s."""
+        tok/s; with ``images`` (one batch a request) each request carries
+        them, ``vit`` names the ViT's layout for the counts and the figures
+        are printed beside ``text_kind``'s, the same model without them."""
+        pix = {name: {} if images is None else {"pixel_values": images[name]}
+               for name in requests}
         nl = cfg.num_hidden_layers
         moe, mha = bool(cfg.use_expert_system), cfg.attention_type == "standard_mha"
         engine = InferenceEngine(cfg, m, quant_bits=bits, quant_matmul=quant_matmul_,
@@ -2985,7 +3144,7 @@ def main() -> int:
             f.launches = 0
         first = {}
         for name, (ids, mask, kw) in requests.items():
-            first[name] = engine.generate(ids, attention_mask=mask, **kw)
+            first[name] = engine.generate(ids, attention_mask=mask, **pix[name], **kw)
         got = {f.__name__: f.launches for f in counters}
         moe_ops.moe_ragged = real_ragged
         decode_calls = 0
@@ -3007,7 +3166,7 @@ def main() -> int:
             raise RuntimeError(f"{kind}: moe_ragged ran {len(groups)} times, not once per layer "
                                "of request B")
         expected = expected_launches(kind, cfg, decode_calls, bits, sum(groups), quant_matmul_,
-                                     moe_mode)
+                                     moe_mode, vit)
         log(f"{kind} launch counts in the two requests: {got} (expected {expected}"
             f"{f'; moe_ragged expert groups {sum(groups)}' if groups else ''})")
         if got != expected:
@@ -3020,19 +3179,22 @@ def main() -> int:
         for name, (ids, mask, kw) in requests.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            again = engine.generate(ids, attention_mask=mask, **kw)
+            again = engine.generate(ids, attention_mask=mask, **pix[name], **kw)
             total = time.perf_counter() - t0
             if not np.array_equal(again, first[name]):
                 raise RuntimeError(f"{kind} request {name}: a repeated request gave other tokens")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            engine.generate(ids, attention_mask=mask, **dict(kw, max_new_tokens=1))
+            engine.generate(ids, attention_mask=mask, **pix[name], **dict(kw, max_new_tokens=1))
             ttft = time.perf_counter() - t0
             steps = again.shape[1] - ids.shape[1] - 1
             rate = ids.shape[0] * steps / max(total - ttft, 1e-9)
+            beside = serve.get(f"{text_kind} {name[0]}")
             log(f"serve {kind} {name}: TTFT {ttft * 1e3:.1f} ms, decode {rate:.1f} tok/s "
                 f"({steps} steps x {ids.shape[0]} rows, {total:.3f} s in all), "
-                f"repeat identical; card: {card}")
+                f"repeat identical"
+                + (f"; without images ({text_kind}): TTFT {beside['ttft_ms']:.1f} ms, decode "
+                   f"{beside['decode_tok_s']:.1f} tok/s" if beside else "") + f"; card: {card}")
             serve[f"{kind} {name[0]}"] = dict(ttft_ms=ttft * 1e3, decode_tok_s=rate)
 
     for kind, m, cfg in (("bf16", model, config), ("int8", qmodel, config),
@@ -3050,6 +3212,46 @@ def main() -> int:
         serve_model(kind, m, cfg, 8, qm_, mm_)
     for m in (qmodel, moe_qmodel):
         m.set_modes("dyn", "fatk")
+
+    # The image prefix (bench.py's multimodal flagship): ViT-B/16 at 224 (12
+    # layers of 768, 12 heads, 197 tokens) and vision_proj, added to the
+    # dense and MoE models above from seeded noisy trees; each request with
+    # seeded uint8 images of another size than 224, so the resize runs.
+    images = {name: np.random.default_rng(SEED + 50 + i).integers(
+        0, 256, (ids.shape[0], *size, 3)).astype(np.uint8)
+        for i, ((name, (ids, _, _)), size) in enumerate(zip(requests.items(),
+                                                            ((160, 200), (256, 320))))}
+
+    def with_prefix(m, cfg, seed, int8_vit):
+        """The model ``m`` with a ViT prefix drawn from ``seed`` (int8 with
+        ``int8_vit``, quantize_params(quantize_vision=True)), and its
+        config."""
+        mcfg = dataclasses.replace(cfg, multimodal=True)
+        vtree = init_params(dataclasses.replace(mcfg, num_hidden_layers=1),
+                            torch.Generator(device=dev).manual_seed(seed), device=dev,
+                            dtype=bf16)
+        sub = {k: vtree[k] for k in ("vision", "vision_proj")}
+        del vtree
+        perturb_(sub, torch.Generator(device=dev).manual_seed(seed + 1))
+        if int8_vit:
+            sub = quantize_params(sub, quantize_vision=True)
+        mm = from_jax_params(dict(params_tree(m), **sub), mcfg, device=dev, dtype=bf16)
+        return mm, mcfg
+
+    for kind, m, cfg, int8_vit, text_kind in (
+            # (The kind names "bf16" only for the bf16 model: serve_model
+            # reads the layout from it.)
+            ("bf16 + ViT", model, config, False, "bf16"),
+            ("int8 + ViT", qmodel, config, False, "int8"),
+            ("int8 + int8 ViT", qmodel, config, True, "int8"),
+            ("MoE int8 + ViT", moe_qmodel, moe_config, False, "MoE int8")):
+        mm, mcfg = with_prefix(m, cfg, SEED + 60, int8_vit)
+        log(f"{kind}: {sum(p.numel() for p in mm.parameters()):,} parameters with the prefix "
+            f"(ViT {mcfg.vision_layers} x {mcfg.vision_embed_dim}, {mcfg.num_image_tokens} "
+            f"tokens), ViT {'int8' if int8_vit else 'bf16'}")
+        serve_model(kind, mm, mcfg, images=images, text_kind=text_kind,
+                    vit=("int8" if int8_vit else "bf16"))
+        del mm
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. outputs are right -----------------------------------------------
@@ -3166,17 +3368,33 @@ def main() -> int:
     # decode step runs without it and then the MoE FFN (ROADMAP.md section 3,
     # fault 1).
     moe40_small = dict(moe_small, intermediate_size=256, num_experts=40)
+    # The image prefix at tests/test_parity.py's ViT widths (48 wide, 2
+    # layers, 4 heads, 32-pixel images of 8-pixel patches: 17 tokens), before
+    # the dense and the MoE model; int8 with an int8 ViT.
+    vit_small = dict(multimodal=True, image_size=32, vision_patch_size=8, vision_embed_dim=48,
+                     vision_layers=2, vision_heads=4)
     ids = torch.as_tensor(batch_a % 1000, dtype=torch.long)
     mask = torch.as_tensor(mask_a)
+    mm_pixels = torch.as_tensor(np.random.default_rng(SEED + 14).integers(
+        0, 256, (4, 40, 48, 3)).astype(np.uint8))
     small_err = {}
     cases = []
     for family, kw in (("", dense_small), ("MoE ", moe_small), ("MHA ", mha_small),
                        ("hidden-192 ", narrow_small), ("MHA Dh-96 ", mha96_small),
-                       ("MoE-40 ", moe40_small)):
+                       ("MoE-40 ", moe40_small), ("MM ", dict(dense_small, **vit_small)),
+                       ("MM MoE ", dict(moe_small, **vit_small))):
         small = ApertisConfig(**kw)
         tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu",
                            dtype=torch.bfloat16)
         perturb_(tree, torch.Generator().manual_seed(SEED + 3))
+        if family.startswith("MM"):
+            # quantize_params' rule quantizes the ViT's stacked LayerNorm
+            # weights (2 x 48) at min_size 0: take every linear (the
+            # smallest is attn_out, 2 x 48 x 48) and no norm.
+            cases += [(family + "bf16", small, tree),
+                      (family + "int8", small, quantize_params(tree, min_size=4096,
+                                                               quantize_vision=True))]
+            continue
         # min_size=0: at these widths the default would leave the mixer float.
         qtree = quantize_params(tree, min_size=0)
         if family == "hidden-192 ":
@@ -3213,8 +3431,11 @@ def main() -> int:
             f.launches = 0
         caches = {k: m.init_cache(4, **cache_kw(m, ids.shape[1], "int8" in kind))
                   for k, m in models.items()}
+        pix = (lambda m: {"pixel_values": mm_pixels.to(m.device)}) if kind.startswith("MM") \
+            else (lambda m: {})
         logits = {k: m.prefill(caches[k], ids.to(m.device), mask.to(m.device),
-                               logit_positions=(mask.sum(1) - 1).to(m.device)).logits[:, 0]
+                               logit_positions=(mask.sum(1) - 1).to(m.device),
+                               **pix(m)).logits[:, 0]
                   for k, m in models.items()}
         small_err[kind] = 0.0
         for i in range(5):
@@ -3232,7 +3453,9 @@ def main() -> int:
                 "MHA Dh-96 bf16": ["mha_decode_ctx"],
                 "MHA Dh-96 int8": ["mha_decode_ctx_int8", "quant_matmul_dyn_pre_q"],
                 "MoE-40 bf16": ["expert_ffn_fat", "ssm_decode_step"],
-                "MoE-40 int8": ["expert_ffn_fat", "ssm_decode_step_int8"]}.get(kind, [])
+                "MoE-40 int8": ["expert_ffn_fat", "ssm_decode_step_int8"],
+                "MM int8": ["ffn_decode_int8", "quant_matmul_dyn_pre_q"],
+                "MM MoE int8": ["expert_ffn_grouped", "expert_ffn_fat"]}.get(kind, [])
         nl_small = small.num_hidden_layers
         # The mode's kernel: the prefill's six int8 linears a layer and the
         # head at prefill and at each of the 5 decode steps; the per-expert
@@ -3242,7 +3465,12 @@ def main() -> int:
                  "int8 fused": {"quant_matmul_dyn_fused": 6 * nl_small + 6, "quant_matmul": 0,
                                 "quant_matmul_dyn_pre_q": 0, "ln_quantize": 0},
                  "MoE int8 kernel": {"expert_ffn_dense": 5 * nl_small, "expert_ffn_fat": 0,
-                                     "expert_ffn_grouped": 0}}.get(kind, {})
+                                     "expert_ffn_grouped": 0},
+                 # The decoder's pre-norms (two a layer, the MoE mixer's
+                 # one), then ln1 and ln2 of each ViT layer, once a prefill.
+                 "MM int8": {"ln_quantize": 2 * nl_small + 2 * small.vision_layers},
+                 "MM MoE int8": {"ln_quantize": nl_small + 2 * small.vision_layers}
+                 }.get(kind, {})
         if any(name not in ran for name in must) or (
                 kind == "hidden-192 int8" and "ffn_decode_int8" in ran) or any(
                 ran.get(name, 0) != n for name, n in exact.items()):
@@ -3779,8 +4007,8 @@ def main() -> int:
     kernels = []
     for name, (source, tpu) in replaces.items():
         ms, plain_ms, bound_ms, bound_by, dev_ms = times[name]
-        # No single PyTorch call computes the other functions (a fused norm +
-        # quantize, a whole mixer step, a whole FFN, a selective scan, an int8
+        # No single PyTorch call computes the other functions (a norm fused
+        # with a per-row int8 quantize, a whole mixer step, a whole FFN, a selective scan, an int8
         # expert FFN with per-tile or per-row requantization, attention over
         # an int8 cache with per-(head, slot) scales, an int8 product whose
         # activations are quantized per 512-wide block): their library time
@@ -3797,7 +4025,8 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"flash_resources": flash_resources}))
     print(json.dumps({"qmm": qmm}))
-    print(json.dumps({"decode_times": decode, "decode_resources": decode_resources}))
+    print(json.dumps({"decode_times": decode, "decode_resources": decode_resources,
+                      "ln_resources": ln_resources}))
     print(json.dumps({"kernels": kernels, "serve": serve, "train": train_perf,
                       "small_model_max_abs_err": small_err,
                       "small_train_grad_err_over_limit": small_grad_err,
@@ -3805,6 +4034,7 @@ def main() -> int:
                       "f32_flash_forward_max_abs_err": f32_flash_err,
                       "moe_f32_forward_max_abs_err": moe_forward_err,
                       "scan_carry_bit_equal": carry_bit_equal,
+                      "ln_quantize_bit_equal": ln_bit_equal,
                       "moe_epilogue_seeds": fault2}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3989,7 +4219,7 @@ def decode_times_main() -> int:
 def times_main(key, times) -> int:
     """A timing mode alone (``--scan-fwd-times``: scan_fwd_times;
     ``--scan-bwd-times``: scan_bwd_times; ``--grouped-times``:
-    grouped_times): the kernels' build, then
+    grouped_times; ``--ln-times``: ln_times): the kernels' build, then
     ``times(card)`` printed under ``key``."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs "
@@ -4014,6 +4244,8 @@ if __name__ == "__main__":
         sys.exit(times_main("scan_bwd_times", scan_bwd_times))
     if sys.argv[1:] == ["--grouped-times"]:
         sys.exit(times_main("grouped_times", grouped_times))
+    if sys.argv[1:] == ["--ln-times"]:
+        sys.exit(times_main("ln_times", ln_times))
     if sys.argv[1:] in (["--qmm"], ["--qmm-times"]):
         sys.exit(qmm_main(check=sys.argv[1] == "--qmm"))
     if sys.argv[1:] == ["--flash-f32-times"]:
