@@ -6,7 +6,8 @@ mirrors the JAX package's: ``config``, ``models/`` (``apertis``, ``params``,
 ``convert``, ``factory``, ``quantize``), ``ops/`` (norms, activations, ssm,
 sampling, quant) with
 the hand-written kernels under ``ops/kernels/`` and their CUDA sources under
-``csrc/``, and ``inference/engine.py``.
+``csrc/``, ``inference/engine.py``, ``training/``, ``parallel/``,
+``multimodal/`` (the data processor) and ``utils/``.
 """
 
 from apertis_llm_torch.config import ApertisConfig

@@ -164,6 +164,28 @@ class ApertisConfig:
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
+    @classmethod
+    def from_pretrained(cls, model_name_or_path: Union[str, os.PathLike]) -> "ApertisConfig":
+        """The configuration in ``config.json`` of a directory (or of its
+        parent, where the directory has none), or in a ``.json`` file."""
+        path = Path(model_name_or_path)
+        if path.is_dir():
+            config_file = path / "config.json"
+            if not config_file.exists():
+                parent = path.parent / "config.json"
+                if parent.exists():
+                    config_file = parent
+        elif path.suffix == ".json":
+            config_file = path
+        else:
+            config_file = path / "config.json"
+        if not config_file.exists():
+            raise FileNotFoundError(
+                f"Config file not found for '{model_name_or_path}' "
+                f"(looked for '{config_file}')")
+        with open(config_file, "r", encoding="utf-8") as f:
+            return cls.from_dict(json.load(f))
+
     def save_pretrained(self, save_directory: Union[str, os.PathLike]) -> None:
         os.makedirs(save_directory, exist_ok=True)
         with open(Path(save_directory) / "config.json", "w", encoding="utf-8") as f:

@@ -46,13 +46,15 @@ MoE FFN runs ``moe_dense`` and ``moe_ragged`` (int8 experts under ``dyn``
 through their int8 branches), and the decode step without its epilogue.
 
 An MHA model keeps the JAX engine's bookkeeping (engine.py:162-262): a flat
-K/V cache of ``bucket + max_new_tokens`` slots, int8 by default for an int8
-model (``kv_int8``); an attention mask over the slots that grows, for each
-generated token, by the row's unfinished flag at the time the token was
-generated (an EOS stays visible, the pads after it do not); the token of
-decode step ``s`` sits at slot ``bucket + s - 1`` and at logical position
-``len + s - 1``, which differ for right-padded rows. Generation that would
-pass ``max_position_embeddings`` raises (engine.py:104-116).
+K/V cache of ``num_img + bucket + max_new_tokens`` slots (``num_img`` the
+image prefix's tokens, 0 without images), int8 by default for an int8 model
+(``kv_int8``); an attention mask over the slots, 1 over the prefix, the
+prompt's mask, then growing, for each generated token, by the row's
+unfinished flag at the time the token was generated (an EOS stays visible,
+the pads after it do not); the token of decode step ``s`` sits at slot
+``num_img + bucket + s - 1`` and at logical position ``num_img + len + s -
+1``, which differ for right-padded rows. Generation that would pass
+``max_position_embeddings``, the prefix counted, raises (engine.py:104-116).
 
 A multimodal model takes ``pixel_values`` (engine.py:490-545): (B, 3, S, S)
 pixels, or raw (B, H, W, 3) uint8 or float images, which the model
@@ -60,7 +62,8 @@ preprocesses. The image prefix of ``config.num_image_tokens`` positions
 runs before the prompt; the bucket grows so that prefix and bucket together
 are a multiple of 8 (engine.py:517-525), as in the JAX engine, so both
 engines run the same shapes; the first token comes from each row's last
-real text position; decoding reads only the SSM state.
+real text position; decoding reads the SSM state, or the MHA cache with
+the prefix in its first slots.
 """
 
 from __future__ import annotations
@@ -218,10 +221,13 @@ class InferenceEngine:
                                          torch.zeros_like(unfinished), unfinished)
             return nxt, unfinished
 
-        # Prefill + first token (engine.py::_prefill_state).
+        # Prefill + first token (engine.py::_prefill_state). An MHA cache
+        # holds the image prefix, the prompt and the generated tokens.
         mha = is_mha(self.config)
+        num_img = self.config.num_image_tokens if pixel_values is not None else 0
         if mha:
-            cache = self.model.init_cache(b, max_length=buf_len, kv_int8=self.kv_int8)
+            cache = self.model.init_cache(b, max_length=num_img + buf_len,
+                                          kv_int8=self.kv_int8)
         else:
             cache = self.model.init_cache(b)
         pre = self.model.prefill(cache, ids, mask, logit_positions=torch.clamp(lens - 1, min=0),
@@ -230,11 +236,12 @@ class InferenceEngine:
                                             dtype=ids.dtype, device=device)], dim=1)
         unfinished = torch.ones((b,), dtype=torch.int64, device=device)
         if mha:
-            # Slot validity: the prompt's mask, then each generated token's
-            # unfinished flag at the time it was generated.
-            kv_mask = torch.zeros((b, buf_len), dtype=torch.int32, device=device)
-            kv_mask[:, :lp] = mask
-            kv_mask[:, lp] = unfinished
+            # Slot validity: the prefix, the prompt's mask, then each
+            # generated token's unfinished flag at the time it was generated.
+            kv_mask = torch.zeros((b, num_img + buf_len), dtype=torch.int32, device=device)
+            kv_mask[:, :num_img] = 1
+            kv_mask[:, num_img:num_img + lp] = mask
+            kv_mask[:, num_img + lp] = unfinished
         nxt, unfinished = finish_update(unfinished, sample(pre.logits[:, 0, :], tokens, lp))
         tokens[:, lp] = nxt
         filled, step = lp + 1, 1
@@ -246,9 +253,9 @@ class InferenceEngine:
                                              or bool(unfinished.any())):
             cur = tokens[:, filled - 1]
             if mha:
-                t = lp + step - 1
+                t = num_img + lp + step - 1
                 logits, cache = self.model.decode_step(cache, cur, t=t, attn_mask_row=kv_mask,
-                                                       positions=lens + step - 1)
+                                                       positions=num_img + lens + step - 1)
                 kv_mask[:, t + 1] = unfinished
             else:
                 logits, cache = self.model.decode_step(cache, cur)

@@ -1,5 +1,5 @@
-"""Apertis decoder-only LM in PyTorch: the selective-SSM and MHA models, the
-selective-SSM one also with the ViT image prefix.
+"""Apertis decoder-only LM in PyTorch: the selective-SSM and MHA models, each
+also with the ViT image prefix.
 
 The counterpart of ``apertis_llm_tpu/models/apertis.py`` for the variants
 ported so far (``models/params.py::check_supported``): pre-norm residual
@@ -88,16 +88,20 @@ outside ``dyn`` the pre-norms take the plain norm and no ``ln_quantize``.
 The decode projections that take rows quantized already (MHA's q/k/v/o,
 ``pre_q``) and the decode kernels stay as they are in every mode.
 
-A multimodal model (``config.multimodal``, the selective-SSM mixer only)
-puts the ViT's tokens (``models/vit.py``; ``vision_proj`` to the hidden
-width where the widths differ) before the token embeddings when
-``pixel_values`` is given (``assemble_inputs``, apertis.py:704-745): raw
-(B, H, W, 3) or uint8 images are preprocessed first, and the attention mask
-grows by ones over the prefix, so the SSM's ``seq_lens`` count it.
-``forward`` returns the text positions' logits, ``prefill`` takes
-``logit_positions`` as text positions; decoding reads only the SSM state.
-The ViT's linears are int8 or float as its tree is (``vision_quantized``),
-independently of the decoder's.
+A multimodal model (``config.multimodal``, either mixer) puts the ViT's
+tokens (``models/vit.py``; ``vision_proj`` to the hidden width where the
+widths differ) before the token embeddings when ``pixel_values`` is given
+(``assemble_inputs``, apertis.py:704-745): raw (B, H, W, 3) or uint8 images
+are preprocessed first, and a given attention mask grows by ones over the
+prefix, so the SSM's ``seq_lens`` count it. The prefix takes positions
+0..num_img - 1 and the text num_img on (RoPE for MHA). ``forward`` returns
+the text positions' logits, ``prefill`` takes ``logit_positions`` as text
+positions; an MHA cache holds the prefix's K/V in its first slots, an SSM
+decode reads only its state. In training the ViT and ``vision_proj`` of a
+float tree take gradients through their plain torch ops (no dropout, no
+remat: JAX remats the decoder's layers only). The ViT's linears are int8 or
+float as its tree is (``vision_quantized``), independently of the
+decoder's.
 
 The hand-written kernels run on CUDA tensors; on CPU tensors their plain
 PyTorch versions run. Under ``dyn`` every int8 linear (``QuantLinear``, the
@@ -1007,8 +1011,11 @@ class ApertisForCausalLM(nn.Module):
         """``(embeds, attention_mask, num_img)``: the token embeddings with
         the image prefix before them when the model is multimodal and
         ``pixel_values`` (B, 3, S, S), or raw (B, H, W, 3) or uint8 images,
-        is given, and the mask grown by ones over the prefix (None stays
-        None without a prefix) (``apertis.py::assemble_inputs``)."""
+        is given, and the mask grown by ones over the prefix
+        (``apertis.py::assemble_inputs``). None stays None, so that an MHA
+        ``forward`` without a mask stays causal and keeps the flash route
+        over prefix and text (JAX's ``mask_was_none``, apertis.py:787-801);
+        the SSM's prefill passes its mask in."""
         h = self.embed.tok[input_ids]
         if self.vision is None or pixel_values is None:
             return h, attention_mask, 0
@@ -1018,10 +1025,9 @@ class ApertisForCausalLM(nn.Module):
         if self.vision_proj is not None:
             img = self.vision_proj(img)
         b, num_img = h.shape[0], img.shape[1]
-        if attention_mask is None:
-            attention_mask = torch.ones(input_ids.shape, dtype=torch.int32, device=h.device)
-        attention_mask = torch.cat([torch.ones((b, num_img), dtype=attention_mask.dtype,
-                                               device=h.device), attention_mask], dim=1)
+        if attention_mask is not None:
+            attention_mask = torch.cat([torch.ones((b, num_img), dtype=attention_mask.dtype,
+                                                   device=h.device), attention_mask], dim=1)
         return torch.cat([img.to(h.dtype), h], dim=1), attention_mask, num_img
 
     def _lm_head(self, h: torch.Tensor) -> torch.Tensor:
@@ -1133,25 +1139,29 @@ class ApertisForCausalLM(nn.Module):
         (B,) only those positions reach the LM head and ``logits`` is
         (B, 1, V). With ``pixel_values`` the image prefix runs first; the
         logits and ``logit_positions`` are over the text positions, and the
-        length written counts the prefix (apertis.py:1008-1080)."""
+        length written counts the prefix (apertis.py:1008-1080): an MHA
+        cache then holds the prefix in slots [0, num_img) and the prompt
+        after it."""
         b, l = input_ids.shape
         if attention_mask is None:
             attention_mask = torch.ones((b, l), dtype=torch.int32, device=input_ids.device)
         h, attention_mask, num_img = self.assemble_inputs(input_ids, attention_mask,
                                                           pixel_values)
         if is_mha(self.config):
-            # The prompt's post-RoPE K/V fill slots [0, L) of each layer.
-            kw = self._mha_kwargs(attention_mask, l)
+            # The post-RoPE K/V of the prefix and the prompt, at positions
+            # 0..num_img + L - 1, fill slots [0, num_img + L) of each layer.
+            total = h.shape[1]
+            kw = self._mha_kwargs(attention_mask, total)
             head_dim = self.config.head_dim
             for i, layer in enumerate(self.layers):
                 h, (k, v), _ = layer(h, want_cache=True, **kw)
                 for name, val in (("k", k), ("v", v)):
                     if name + "_ps" in cache:
                         val_q, val_s = quantize_heads(val, head_dim)
-                        cache[name][i, :, :l] = val_q
-                        cache[name + "_ps"][i, :, :, :l] = val_s.transpose(1, 2)
+                        cache[name][i, :, :total] = val_q
+                        cache[name + "_ps"][i, :, :, :total] = val_s.transpose(1, 2)
                     else:
-                        cache[name][i, :, :l] = val
+                        cache[name][i, :, :total] = val
         else:
             seq_lens = attention_mask.to(torch.int64).sum(dim=1)
             for i, layer in enumerate(self.layers):

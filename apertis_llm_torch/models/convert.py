@@ -23,30 +23,42 @@ becomes ``vision.layers.{i}.ln1.w``; its linears and ``vision_proj`` are
 int8 or float together (``params.py::vision_quantized_layout``), whatever
 the decoder's layout.
 
+The import half (``apertis_llm_tpu/models/convert.py:29-288``) reads a
+reference-format checkpoint, one written by the reference, by the JAX
+package's ``save_torch_checkpoint`` or by this module's:
+:func:`load_torch_state_dict` loads the file's tensors,
+:func:`from_torch_state_dict` maps the reference's names and layouts back
+onto the stacked tree (the ViT's included), :func:`infer_config_from_state_dict`
+reads a configuration off the weights' shapes where no ``config.json`` lies
+beside them, and :func:`load_pretrained` builds the model from a directory
+or a bare weights file, on the card unless the caller names another device.
+
 The export half (``apertis_llm_tpu/models/convert.py:295-411``):
 :func:`params_tree` turns the model back into the stacked tree,
 :func:`to_torch_state_dict` maps a float tree onto the reference model's
 ``state_dict`` names and layouts, and :func:`save_torch_checkpoint` writes it
-as ``pytorch_model.bin`` with ``config.json``, which the JAX package's
-``load_pretrained`` and the reference load. Loading a base model for
-fine-tuning (``load_pretrained``) is not ported yet (ROADMAP.md, module 6).
+as ``pytorch_model.bin`` with ``config.json``.
 """
 
 from __future__ import annotations
 
+import logging
 from pathlib import Path
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from apertis_llm_torch.config import ApertisConfig
 from apertis_llm_torch.models.apertis import ApertisForCausalLM
-from apertis_llm_torch.models.params import quantized_layout, vision_quantized_layout
+from apertis_llm_torch.models.params import (
+    check_supported, quantized_layout, vision_quantized_layout)
+
+logger = logging.getLogger(__name__)
 
 # The stacked subtrees: their leaves carry a leading axis of per-layer
 # tensors, of this config field's length.
-_STACKED = (("layers.", "num_hidden_layers"), ("vision.layers.", "vision_layers"))
+STACKED = (("layers.", "num_hidden_layers"), ("vision.layers.", "vision_layers"))
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -71,7 +83,19 @@ def from_jax_params(tree: Dict[str, Any], config: ApertisConfig, device="cuda",
                                quantized=quantized_layout(tree),
                                int8_head="lm_head" in tree,
                                vision_quantized=vision_quantized_layout(tree))
-    targets = dict(model.named_parameters())
+    copy_tree(model, tree, {prefix: (field, getattr(config, field))
+                            for prefix, field in STACKED})
+    return model
+
+
+@torch.no_grad()
+def copy_tree(module: torch.nn.Module, tree: Dict[str, Any],
+              stacked: Dict[str, Tuple[str, int]]) -> None:
+    """Copy every leaf of ``tree`` (numpy arrays or tensors) into the
+    parameter of ``module`` with its dotted path, unstacking the leading
+    axis of the leaves under each prefix of ``stacked`` (prefix -> (field
+    name, length)). Raises unless the names and shapes match one for one."""
+    targets = dict(module.named_parameters())
     seen = set()
     for path, leaf in _flatten(tree):
         if isinstance(leaf, torch.Tensor):
@@ -82,9 +106,8 @@ def from_jax_params(tree: Dict[str, Any], config: ApertisConfig, device="cuda",
                 arr = arr.astype(np.float32)
             src = torch.from_numpy(arr)
         items = [(path, src)]
-        for prefix, field in _STACKED:
+        for prefix, (field, n) in stacked.items():
             if path.startswith(prefix):
-                n = getattr(config, field)
                 if src.shape[0] != n:
                     raise ValueError(f"{path}: leading axis {src.shape[0]} is not "
                                      f"{field}={n}")
@@ -96,13 +119,249 @@ def from_jax_params(tree: Dict[str, Any], config: ApertisConfig, device="cuda",
             if tuple(value.shape) != tuple(targets[name].shape):
                 raise ValueError(f"{name}: shape {tuple(value.shape)} != "
                                  f"{tuple(targets[name].shape)}")
-            with torch.no_grad():
-                targets[name].copy_(value)
+            targets[name].copy_(value)
             seen.add(name)
     missing = sorted(set(targets) - seen)
     if missing:
         raise KeyError(f"parameters missing from the tree: {missing}")
-    return model
+
+
+def load_torch_state_dict(path) -> Dict[str, torch.Tensor]:
+    """The tensors of a torch checkpoint file, on the CPU in their own
+    dtypes (a ``{"state_dict": ...}`` wrapper is unwrapped)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and "state_dict" in state:
+        state = state["state_dict"]
+    return {k: v.detach() for k, v in state.items()}
+
+
+def _norm_params(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    if f"{prefix}.scale" in sd:       # RMSNorm
+        return {"scale": sd[f"{prefix}.scale"]}
+    return {"w": sd[f"{prefix}.weight"], "b": sd[f"{prefix}.bias"]}
+
+
+def _linear_params(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    """A torch linear (out, in) as the tree's ``{w (in, out), b}``."""
+    p = {"w": sd[f"{prefix}.weight"].T.contiguous()}
+    if f"{prefix}.bias" in sd:
+        p["b"] = sd[f"{prefix}.bias"]
+    return p
+
+
+def _stack(trees):
+    """Per-layer trees stacked leaf by leaf on a new leading axis."""
+    first = trees[0]
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees]) for k, v in first.items()}
+
+
+def _attn_layer(sd, i: int, config: ApertisConfig) -> Dict[str, Any]:
+    pre = f"model.layers.{i}.attention"
+    p: Dict[str, Any] = {"pre_norm": _norm_params(sd, f"{pre}.pre_norm")}
+    if config.attention_type == "selective_ssm":
+        impl = f"{pre}.attention_mechanism_impl"
+        p["in_proj_x"] = _linear_params(sd, f"{impl}.in_proj_x")
+        p["in_proj_z"] = _linear_params(sd, f"{impl}.in_proj_z")
+        p["conv"] = {"w": sd[f"{impl}.conv1d.weight"][:, 0, :],      # (C, 1, K) -> (C, K)
+                     "b": sd[f"{impl}.conv1d.bias"]}
+        p["x_param_proj"] = _linear_params(sd, f"{impl}.x_param_proj")
+        p["dt_proj"] = _linear_params(sd, f"{impl}.dt_proj_head")
+        p["A_log"] = sd[f"{impl}.A_log"]
+        p["D"] = sd[f"{impl}.D"]
+        p["out_proj"] = _linear_params(sd, f"{impl}.out_proj")
+    else:
+        for name, key in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            p[name] = _linear_params(sd, f"{pre}.{key}")
+    return p
+
+
+def _ffn_layer(sd, i: int, config: ApertisConfig) -> Dict[str, Any]:
+    pre = f"model.layers.{i}.feed_forward"
+    p: Dict[str, Any] = {"pre_norm": _norm_params(sd, f"{pre}.pre_norm")}
+    if config.use_expert_system and config.num_experts > 0:
+        p["router_ln"] = {"w": sd[f"{pre}.ffn.router_norm.weight"],
+                          "b": sd[f"{pre}.ffn.router_norm.bias"]}
+        p["router"] = _linear_params(sd, f"{pre}.ffn.router")
+        if f"{pre}.ffn.w_noise" in sd:
+            p["w_noise"] = sd[f"{pre}.ffn.w_noise"]
+        # Expert Sequential indices: 0 LayerNorm, 1 Linear(H->I), 4 Linear(I->H).
+        ex = [f"{pre}.ffn.experts.{j}" for j in range(config.num_experts)]
+        p["experts"] = {
+            "ln_w": torch.stack([sd[f"{e}.0.weight"] for e in ex]),
+            "ln_b": torch.stack([sd[f"{e}.0.bias"] for e in ex]),
+            "w1": torch.stack([sd[f"{e}.1.weight"].T for e in ex]),
+            "b1": torch.stack([sd[f"{e}.1.bias"] for e in ex]),
+            "w2": torch.stack([sd[f"{e}.4.weight"].T for e in ex]),
+            "b2": torch.stack([sd[f"{e}.4.bias"] for e in ex]),
+        }
+    else:
+        # Dense FFN Sequential indices: 0 Linear(H->I), 3 Linear(I->H).
+        p["w1"] = _linear_params(sd, f"{pre}.ffn.0")
+        p["w2"] = _linear_params(sd, f"{pre}.ffn.3")
+    return p
+
+
+def _vision(sd, config: ApertisConfig) -> Dict[str, Any]:
+    """The ViT's tree (convert.py:117-147): the reference's Conv2d patch
+    embedding (dv, 3, P, P) as the (3 P P, dv) linear, the layers stacked."""
+    pre = "model.multimodal_encoder"
+    layers = []
+    for i in range(config.vision_layers):
+        lp = f"{pre}.vision_layers.{i}"
+        layers.append({
+            "ln1": {"w": sd[f"{lp}.norm1.weight"], "b": sd[f"{lp}.norm1.bias"]},
+            "in_proj_w": sd[f"{lp}.self_attn.in_proj_weight"].T.contiguous(),
+            "in_proj_b": sd[f"{lp}.self_attn.in_proj_bias"],
+            "attn_out": _linear_params(sd, f"{lp}.self_attn.out_proj"),
+            "ln2": {"w": sd[f"{lp}.norm2.weight"], "b": sd[f"{lp}.norm2.bias"]},
+            "linear1": _linear_params(sd, f"{lp}.linear1"),
+            "linear2": _linear_params(sd, f"{lp}.linear2"),
+        })
+    pw = sd[f"{pre}.patch_embed.weight"]
+    return {
+        "patch_embed": {"w": pw.reshape(pw.shape[0], -1).T.contiguous(),
+                        "b": sd[f"{pre}.patch_embed.bias"]},
+        "cls_token": sd[f"{pre}.cls_token"],
+        "pos_embed": sd[f"{pre}.vision_pos_embed"],
+        "layers": _stack(layers),
+        "final_ln": {"w": sd[f"{pre}.vision_ln.weight"], "b": sd[f"{pre}.vision_ln.bias"]},
+    }
+
+
+def from_torch_state_dict(sd: Mapping[str, torch.Tensor],
+                          config: ApertisConfig) -> Dict[str, Any]:
+    """A reference ``state_dict`` as the stacked tree :func:`from_jax_params`
+    takes (``convert.py::from_torch_state_dict``), for the variants the port
+    serves (:func:`check_supported` raises for the others): linear weights
+    transposed to (in, out), per-layer tensors stacked, the experts' stacked
+    on their own axis, and the ViT's tree and ``vision_proj`` where the
+    config is multimodal and the file holds them."""
+    check_supported(config)
+    params: Dict[str, Any] = {"embed": {"tok": sd["model.token_embeddings.weight"]}}
+    if config.multimodal and "model.multimodal_encoder.patch_embed.weight" in sd:
+        params["vision"] = _vision(sd, config)
+        if "model.vision_projection.weight" in sd:
+            params["vision_proj"] = _linear_params(sd, "model.vision_projection")
+    params["layers"] = _stack([{"attn": _attn_layer(sd, i, config),
+                                "ffn": _ffn_layer(sd, i, config)}
+                               for i in range(config.num_hidden_layers)])
+    params["final_norm"] = _norm_params(sd, "model.final_post_norm")
+    return params
+
+
+def infer_config_from_state_dict(sd: Mapping[str, torch.Tensor]) -> ApertisConfig:
+    """A configuration read off a bare ``state_dict``'s shapes (no
+    ``config.json``), by the JAX package's rules (convert.py:150-263, after
+    the reference's interface.py:280-341): vocabulary and width from the
+    embedding, the layer count, the mixer (SSM heads, state, dt rank and
+    conv taps from its tensors; MHA heads of 64), RMSNorm, SwiGLU, the
+    experts, the true FFN width and the ViT's width, patch, depth and image
+    size; and, where the MHA projections have biases, attention dropout 0,
+    which the reference's biases imply (JAX keeps its default there, and its
+    linears read the biases from the tree). Every other field keeps its
+    default."""
+    def shape(key):
+        return tuple(sd[key].shape) if key in sd else None
+
+    vocab_size, hidden_size = 32000, 768
+    if (s := shape("model.token_embeddings.weight")) is not None:
+        vocab_size, hidden_size = int(s[0]), int(s[1])
+    elif (s := shape("lm_head.weight")) is not None:
+        vocab_size, hidden_size = int(s[0]), int(s[1])
+
+    def indices(marker):
+        """The distinct integers that follow ``marker`` in the keys."""
+        found = set()
+        for k in sd:
+            if marker in k:
+                head = k.split(marker, 1)[1].split(".")[0]
+                if head.isdigit():
+                    found.add(int(head))
+        return found
+
+    num_layers = len(indices("model.layers.")) or 12
+
+    num_heads = hidden_size // 64 if hidden_size % 64 == 0 else 12
+    if hidden_size % num_heads != 0:
+        for i in range(num_heads, 0, -1):
+            if hidden_size % i == 0:
+                num_heads = i
+                break
+
+    cfg: Dict[str, Any] = dict(
+        vocab_size=vocab_size, hidden_size=hidden_size, num_hidden_layers=num_layers,
+        num_attention_heads=num_heads,
+        use_rmsnorm="model.final_post_norm.scale" in sd,
+        use_swiglu=any(".ffn.w_gate." in k for k in sd),
+        multimodal=any("multimodal_encoder" in k or "vision_projection" in k for k in sd))
+
+    if "model.layers.0.attention.q_proj.bias" in sd:
+        # The reference gives q/k/v/o biases only at attention dropout 0
+        # (``qkv_bias``); the port's modules follow the config, where JAX's
+        # linears follow the tree, so the config must say so.
+        cfg["attention_probs_dropout_prob"] = 0.0
+    if any(".attention_mechanism_impl." in k for k in sd):
+        cfg["attention_type"] = "selective_ssm"
+        impl = "model.layers.0.attention.attention_mechanism_impl"
+        if (a_log := shape(f"{impl}.A_log")) is not None:
+            cfg["num_attention_heads"], cfg["ssm_d_state"] = int(a_log[0]), int(a_log[1])
+        if (dt := shape(f"{impl}.dt_proj_head.weight")) is not None:
+            cfg["ssm_dt_rank"] = int(dt[1])
+        if (conv := shape(f"{impl}.conv1d.weight")) is not None:
+            cfg["ssm_conv_kernel"] = int(conv[2])
+
+    inter = None
+    for key in ("model.layers.0.feed_forward.ffn.0.weight",
+                "model.layers.0.feed_forward.ffn.experts.0.1.weight"):
+        if (s := shape(key)) is not None:
+            inter = int(s[0])
+            break
+    cfg["intermediate_size"] = inter if inter is not None else hidden_size * 4
+
+    if any(".ffn.experts." in k for k in sd):
+        cfg["use_expert_system"] = True
+        cfg["num_experts"] = len(indices(".ffn.experts.")) or 8
+        cfg["use_noisy_top_k_routing"] = any(".ffn.w_noise" in k for k in sd)
+
+    if (vis := shape("model.multimodal_encoder.patch_embed.weight")) is not None:
+        cfg["vision_embed_dim"], cfg["vision_patch_size"] = int(vis[0]), int(vis[2])
+        cfg["vision_layers"] = len(indices(".vision_layers.")) or 12
+        if (pos := shape("model.multimodal_encoder.vision_pos_embed")) is not None:
+            patches = int(pos[1]) - 1
+            cfg["image_size"] = int(round(patches ** 0.5)) * cfg["vision_patch_size"]
+
+    logger.info("Inferred config from state_dict: %s", cfg)
+    return ApertisConfig.from_dict(cfg)
+
+
+def load_pretrained(model_dir, device="cuda",
+                    dtype: torch.dtype = torch.float32) -> ApertisForCausalLM:
+    """The model of a reference-format checkpoint (``convert.py::
+    load_pretrained``): a directory with ``config.json`` and
+    ``pytorch_model.bin`` or ``model.pt``, or a bare weights file, whose
+    configuration is then read off its shapes (:func:`infer_config_from_
+    state_dict`) unless a ``config.json`` lies beside it. Built in
+    ``dtype`` on ``device``, the card unless the caller names another; its
+    configuration is ``model.config``."""
+    model_dir = Path(model_dir)
+    if model_dir.is_file():
+        ckpt, config_dir = model_dir, model_dir.parent
+    else:
+        config_dir = model_dir
+        for name in ("pytorch_model.bin", "model.pt"):
+            if (model_dir / name).exists():
+                ckpt = model_dir / name
+                break
+        else:
+            raise FileNotFoundError(f"No pytorch_model.bin/model.pt under {model_dir}")
+    sd = load_torch_state_dict(ckpt)
+    if (config_dir / "config.json").exists():
+        config = ApertisConfig.from_pretrained(config_dir)
+    else:
+        config = infer_config_from_state_dict(sd)
+    return from_jax_params(from_torch_state_dict(sd, config), config, device=device,
+                           dtype=dtype)
 
 
 def params_tree(model: ApertisForCausalLM) -> Dict[str, Any]:
@@ -121,7 +380,7 @@ def params_tree(model: ApertisForCausalLM) -> Dict[str, Any]:
         node[leaf] = value
 
     for name, p in model.named_parameters():
-        for prefix, _ in _STACKED:
+        for prefix, _ in STACKED:
             if name.startswith(prefix):
                 idx, rest = name[len(prefix):].split(".", 1)
                 per_layer.setdefault((prefix, rest), {})[int(idx)] = p.detach()

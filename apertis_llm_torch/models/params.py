@@ -2,10 +2,10 @@
 
 ``init_params`` builds the same nested dict of names and shapes as
 ``apertis_llm_tpu/models/params.py::init_params`` for the selective-SSM or
-the MHA mixer, a dense or a MoE FFN and, for a multimodal selective-SSM
-model, the ViT's ``vision`` tree and ``vision_proj`` (``:129-172``):
-per-layer tensors stacked along a leading ``num_hidden_layers`` axis, linear
-weights in the (in, out) layout, and the same distributions
+the MHA mixer, a dense or a MoE FFN and, for a multimodal model, the
+ViT's ``vision`` tree and ``vision_proj`` (``:129-172``): per-layer tensors
+stacked along a leading ``num_hidden_layers`` axis, linear weights in the
+(in, out) layout, and the same distributions
 (reference: src/model/core.py:1045-1062, 314-318): normal(0,
 initializer_range) for linears and embeddings, zero biases, unit norm
 scales, dt bias ~ U(log 1e-3, log 1e-2), A_log ~ U(log 0.5, log 0.99), D = 1,
@@ -121,10 +121,10 @@ def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
     int8 projections, whose mixer is the selective SSM (with a dense FFN or
     a top-2 MoE FFN, its hidden and mixer widths multiples of 4) or standard
     MHA (with a dense FFN, and a head width the
-    decode-attention kernel takes: a multiple of 32 up to 256); the
-    selective-SSM model also with the ViT image prefix (``multimodal``).
-    MHA with MoE, MHA with an image prefix, SwiGLU, absolute positions and
-    MoE with another top-k are not ported yet (ROADMAP.md). Int8 weights
+    decode-attention kernel takes: a multiple of 32 up to 256); either
+    mixer also with the ViT image prefix (``multimodal``). MHA with MoE,
+    SwiGLU, absolute positions and MoE with another top-k are not ported
+    yet (ROADMAP.md). Int8 weights
     are served at any width the JAX package serves: where the fused decode
     FFN's width test fails, the FFN runs unfused (``models/apertis.py``)."""
     missing = []
@@ -140,9 +140,6 @@ def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
     if is_moe(config) and config.experts_per_token != 2:
         # The decode step's MoE epilogue is top-2 only (apertis.py:1228).
         missing.append(f"MoE with experts_per_token={config.experts_per_token} (top-2 only)")
-    if config.multimodal and is_mha(config):
-        # The engine's positions past an image prefix (engine.py:245-248).
-        missing.append("MHA with an image prefix (multimodal)")
     if config.multimodal and (config.image_size % config.vision_patch_size
                               or config.vision_embed_dim % config.vision_heads):
         missing.append(f"a ViT with image_size={config.image_size}, patch "
@@ -203,17 +200,15 @@ def check_trainable(config: ApertisConfig, quantized: bool = False, device="cuda
     1024, the MHA model, bf16 or f32 compute), with a float tree, on a mesh
     ``mesh_shape`` over (data, model, expert, seq) (None: one rank) that the
     port runs: one rank, or ``(data, 1, 1, seq)`` for the dense SSM model and
-    ``(data, 1, 1, 1)`` for the MHA model. Not ported yet: multimodal
-    training (module 3, the image prefix in the training forward and the
-    dataset's image items); and (module 7) int8
-    trees, a ``model`` or ``expert`` axis (tensor and expert parallelism),
-    MHA under ``seq`` (ring attention passes K/V with send/recv, which gloo
-    does not run on CUDA tensors), and a MoE model on any mesh (JAX computes
-    ``moe_dispatch``'s capacity over the global token count)."""
+    ``(data, 1, 1, 1)`` for the MHA model; a multimodal model on one rank.
+    Not ported yet (module 7): int8 trees, a ``model`` or ``expert`` axis
+    (tensor and expert parallelism), MHA under ``seq`` (ring attention
+    passes K/V with send/recv, which gloo does not run on CUDA tensors), a
+    MoE model on any mesh (JAX computes ``moe_dispatch``'s capacity over
+    the global token count) and a multimodal model on any mesh
+    (``training/step.py::shard_batch`` carries no images)."""
     check_supported(config, quantized)
     missing = []
-    if config.multimodal:
-        missing.append("multimodal training (the image prefix)")
     if quantized:
         missing.append("training an int8 tree")
     if torch.device(device).type == "cuda" and not is_mha(config) and config.ssm_d_state > 1024:
@@ -227,6 +222,9 @@ def check_trainable(config: ApertisConfig, quantized: bool = False, device="cuda
         missing.append(f"MHA under sequence parallelism (ring attention, a seq axis of {seq})")
     if is_moe(config) and data * model * expert * seq > 1:
         missing.append("a MoE model on a mesh of more than one rank")
+    if config.multimodal and data * model * expert * seq > 1:
+        missing.append("multimodal training on a mesh of more than one rank (module 7: "
+                       "shard_batch carries no images)")
     if missing:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + ", ".join(missing) + " (see ROADMAP.md)")

@@ -64,16 +64,18 @@ def preprocess_images(images: torch.Tensor, image_size: int) -> torch.Tensor:
 class VitLayer(nn.Module):
     """One pre-norm ViT layer (``vision/layers`` in JAX): ``ln1``, the packed
     ``in_proj_w`` / ``in_proj_b`` (``in_proj_w_q``, ``in_proj_w_s`` in
-    int8), ``attn_out``, ``ln2``, ``linear1``, ``linear2``."""
+    int8), ``attn_out``, ``ln2``, ``linear1``, ``linear2``; with
+    ``config.vision_heads`` heads unless ``heads`` names another count."""
 
     quant_matmul = "dyn"     # set by ApertisForCausalLM.set_modes
 
-    def __init__(self, config: ApertisConfig, device, dtype, quantized: bool):
+    def __init__(self, config: ApertisConfig, device, dtype, quantized: bool,
+                 heads: Optional[int] = None):
         super().__init__()
         from apertis_llm_torch.models.apertis import Norm, _linear, _param
 
         dv = config.vision_embed_dim
-        self.heads, self.quantized = config.vision_heads, quantized
+        self.heads, self.quantized = heads or config.vision_heads, quantized
         self.ln1 = Norm(dv, False, VIT_LN_EPS, device, dtype)
         if quantized:
             self.in_proj_w_q = _param((dv, 3 * dv), device, torch.int8)

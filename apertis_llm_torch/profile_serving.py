@@ -28,17 +28,19 @@ serve every model through ``InferenceEngine(..., quant_matmul=...,
 moe_mode=...)``: the int8 arithmetic of the full-sequence linears and the
 head (``dyn`` by default; ``weightonly``, ``pallas``, ``fused``), and the MoE
 FFN's serving stack (``fatk`` by default; ``kernel``; ``0``, none). It needs
-a CUDA device. With ``--images`` the selective-SSM model carries the ViT
+a CUDA device. With ``--images`` the model (either mixer) carries the ViT
 image prefix (ViT-B/16 at 224, bf16 in both trees, as ``bench.py`` serves
 it by default) and each prefill takes one seeded 256 x 320 uint8 image a
 prompt, the prompts bucketed with the prefix as the engine buckets them
-(32 + 3 and 64 + 3 columns).
+(32 + 3 and 64 + 3 columns); an MHA cache then holds the prefix too.
 
 With ``--train`` it traces training instead: the dense 1.5B preset (or the
 MHA one with ``--mha``, through the flash kernels, or the MoE one with
 ``--moe``, through ``moe_dispatch`` and the scan kernels) with f32 masters, bf16
 compute, remat and accumulation over 2, ``chip_smoke.py``'s training phase,
-two micro-steps (one update) at batch 4 x 1024 after a warm-up.
+two micro-steps (one update) at batch 4 x 1024 after a warm-up; with
+``--images``, 4 x 512 text tokens behind the ViT-B/16 prefix of each row's
+seeded (3, 224, 224) pixels (709 positions), the ViT training too.
 """
 
 from __future__ import annotations
@@ -108,8 +110,12 @@ def _profile_train(config, dev, card) -> int:
     opt, _ = make_optimizer(dict(model.named_parameters()), decay_mask(model), 3e-4, 100,
                             gradient_accumulation_steps=2)
     gen = torch.Generator(device=dev).manual_seed(1)
-    ids = torch.randint(4, config.vocab_size, (4, 1024), generator=gen, device=dev)
+    length = 512 if config.multimodal else 1024
+    ids = torch.randint(4, config.vocab_size, (4, length), generator=gen, device=dev)
     batch = {"input_ids": ids, "labels": ids}
+    if config.multimodal:
+        batch["pixel_values"] = torch.randn((4, 3, config.image_size, config.image_size),
+                                            generator=gen, device=dev)
     seed = [0]
 
     def two_micro_steps():
@@ -119,8 +125,11 @@ def _profile_train(config, dev, card) -> int:
 
     kind = ("MHA (flash)" if config.attention_type == "standard_mha" else
             "MoE selective SSM" if config.use_expert_system else "selective SSM")
-    print(f"card: {card}; {config.num_hidden_layers} layers, training {kind}", flush=True)
-    _trace("train, two micro-steps of 4 x 1024 (one update)", two_micro_steps, 2, card, top=12)
+    prefix = (f" behind {config.num_image_tokens} image tokens" if config.multimodal else "")
+    print(f"card: {card}; {config.num_hidden_layers} layers, training {kind}{prefix}",
+          flush=True)
+    _trace(f"train, two micro-steps of 4 x {length}{prefix} (one update)", two_micro_steps, 2,
+           card, top=12)
     return 0
 
 
@@ -142,10 +151,8 @@ def main(argv=None) -> int:
     parser.add_argument("--train", action="store_true",
                         help="trace train steps instead of serving")
     parser.add_argument("--images", action="store_true",
-                        help="serve the selective-SSM model with the ViT image prefix")
+                        help="serve or train the model with the ViT image prefix")
     args = parser.parse_args(argv)
-    if args.images and (args.mha or args.train):
-        parser.error("--images serves the selective-SSM model only")
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
         return 1
@@ -202,8 +209,9 @@ def main(argv=None) -> int:
             last = torch.full((rows,), length - 1, device=dev)
             cache_kw, step_kw = {}, {}
             if args.mha:
-                # The last slot of a prompt + 64 cache, every slot valid.
-                t = length + 63
+                # The last slot of a (prefix +) prompt + 64 cache, every slot
+                # valid.
+                t = (config.num_image_tokens if pix else 0) + length + 63
                 cache_kw = dict(max_length=t + 1, kv_int8=engine.kv_int8)
                 step_kw = dict(t=t, positions=torch.full((rows,), t, device=dev))
             _trace(f"{kind} prefill {rows} x {length}"

@@ -8,18 +8,23 @@ fine-tune path. Items are numpy arrays assembled into whole batches by
 :class:`BatchLoader`, which shuffles as the JAX copy does, so both packages
 see the same batches.
 
-Left out: the optional C++ pretokenizer (a faster route to the same ids) and
-multimodal items, which raise ``NotImplementedError`` until the image prefix
-is ported (ROADMAP.md, module 3).
+A multimodal item with an ``"image"`` path (under ``image_dir`` when given)
+also carries ``pixel_values`` (3, S, S) float32 from ``utils/images.py::
+load_image`` (datasets.py:144-148).
+
+Left out: the optional C++ pretokenizer (a faster route to the same ids).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
+
+from apertis_llm_torch.utils.images import load_image
 
 logger = logging.getLogger(__name__)
 
@@ -64,9 +69,9 @@ class ApertisPretrainDataset:
     ):
         if vocab_dict is None and hf_tokenizer is None:
             raise ValueError("need vocab_dict or hf_tokenizer")
-        if multimodal:
-            raise NotImplementedError(
-                "multimodal pre-training is not ported to PyTorch yet (see ROADMAP.md)")
+        self.multimodal = multimodal
+        self.image_dir = image_dir
+        self.image_size = image_size
         self.data = _load_jsonl(data_path, ("text",))
         self.vocab = vocab_dict
         # TPU-repo extension: subword pre-training via an HF tokenizer
@@ -111,8 +116,14 @@ class ApertisPretrainDataset:
         input_ids = np.asarray(ids, np.int32)
         attention_mask = (input_ids != self.pad_token_id).astype(np.int32)
         labels = np.where(input_ids == self.pad_token_id, -100, input_ids).astype(np.int32)
-        return {"input_ids": input_ids, "attention_mask": attention_mask,
-                "labels": labels}
+        out = {"input_ids": input_ids, "attention_mask": attention_mask,
+               "labels": labels}
+        if self.multimodal and "image" in item:
+            path = item["image"]
+            if self.image_dir is not None:
+                path = os.path.join(self.image_dir, path)
+            out["pixel_values"] = load_image(path, self.image_size)[0]
+        return out
 
 
 class ApertisFineTuneDataset:

@@ -36,14 +36,16 @@ import numpy as np
 import torch
 
 from apertis_llm_torch.models.apertis import ApertisForCausalLM, fold_seed, token_nll
+from apertis_llm_torch.models.convert import STACKED
 from apertis_llm_torch.parallel.collectives import all_reduce_sum
 from apertis_llm_torch.parallel.context import parallel_context
 from apertis_llm_torch.parallel.mesh import Mesh
 
 Batch = Dict[str, torch.Tensor]
 
-# Leaf names never decayed (step.py:45-47): biases, norm scales and the SSM's
-# A_log and D, and the names of variants the port does not train yet.
+# Leaf names never decayed (step.py:45-47): biases, norm scales, the SSM's
+# A_log and D, the router's w_noise, and the ViT's CLS token, position
+# embeddings and packed attention bias.
 NO_DECAY = ("b", "scale", "ln_w", "ln_b", "A_log", "D", "w_noise", "cls_token",
             "pos_embed", "in_proj_b")
 
@@ -52,13 +54,15 @@ def decay_mask(model: ApertisForCausalLM) -> Dict[str, bool]:
     """True where weight decay applies, by parameter name (``step.py::
     _decay_mask``): not when the name's last component is in
     :data:`NO_DECAY`, nor when the JAX tree's leaf has at most one axis. The
-    JAX tree stacks per-layer tensors on a leading layer axis, so a layer's
-    LayerNorm weight ``w`` (H,) is a 2-D leaf there and is decayed, while
-    ``final_norm.w`` is not; ``conv.w`` (C, K) is decayed and ``A_log`` is
-    not."""
+    JAX tree stacks per-layer tensors on a leading layer axis, the ViT's
+    too, so a layer's LayerNorm weight ``w`` (H,) is a 2-D leaf there and is
+    decayed (``vision.layers.N.ln1.w`` as well), while ``final_norm.w`` and
+    the ViT's ``final_ln.w`` are not; ``conv.w`` (C, K) is decayed and
+    ``A_log`` is not."""
     mask = {}
     for name, p in model.named_parameters():
-        stacked_ndim = p.ndim + (1 if name.startswith("layers.") else 0)
+        stacked = any(name.startswith(prefix) for prefix, _ in STACKED)
+        stacked_ndim = p.ndim + (1 if stacked else 0)
         mask[name] = name.rsplit(".", 1)[-1] not in NO_DECAY and stacked_ndim > 1
     return mask
 
@@ -215,7 +219,8 @@ def loss_fn(model: ApertisForCausalLM, batch: Batch, seed: Optional[int],
             compute_dtype: Optional[torch.dtype] = None,
             training: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``(loss, {loss, lb_loss, rz_loss})`` of the training forward on
-    ``batch`` (``input_ids``, ``labels``, optional ``attention_mask``) with
+    ``batch`` (``input_ids``, ``labels``, optional ``attention_mask`` and
+    ``pixel_values``, the images of a multimodal model) with
     the parameters cast to ``compute_dtype`` (``step.py::loss_fn``): for a
     MoE model the loss includes the layers' summed load-balancing and router
     z-losses, which the metrics also report (zero for a dense model). A
@@ -236,7 +241,7 @@ def loss_fn(model: ApertisForCausalLM, batch: Batch, seed: Optional[int],
     out = torch.func.functional_call(
         model, _run_params(model, compute_dtype), (batch["input_ids"],),
         dict(attention_mask=batch.get("attention_mask"), labels=batch["labels"],
-             training=training, seed=seed))
+             pixel_values=batch.get("pixel_values"), training=training, seed=seed))
     return out.loss, {"loss": out.loss.detach(), "lb_loss": out.lb_loss.detach(),
                       "rz_loss": out.rz_loss.detach()}
 

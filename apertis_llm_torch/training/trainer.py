@@ -198,11 +198,14 @@ class ApertisTrainer:
         return self.mesh if self.mesh.size > 1 else None
 
     def _put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
-        """The batch on the device; on a mesh, this rank's part of it."""
+        """The batch on the device; on a mesh, this rank's part of it. Token
+        ids, masks and labels go as int64, ``pixel_values`` keeps its float
+        dtype."""
         if self._step_mesh is not None:
             batch = shard_batch(batch, self.mesh)
         return {k: v if isinstance(v, int) else
-                torch.as_tensor(v, dtype=torch.long).to(self.device, non_blocking=True)
+                torch.as_tensor(v, dtype=None if k == "pixel_values" else torch.long
+                                ).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
     def save_checkpoint(self, name: str, full_state: bool = True) -> None:

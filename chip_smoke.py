@@ -94,6 +94,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and 256 rows for the same bits; each with sensitivity checks (the scales, the
      biases, #8's per-block scales) that must move the plain output by 9
      tolerances;
+     Then the image prefix's shapes (phase 3h): the decode attention over
+     the MHA caches behind 197 image tokens (request A's 288 slots at 4
+     rows, request B's 296 at 64, bf16 and int8), the bf16 and f32 flash
+     forward, dQ and dK/dV at (4, 38, 709, 64) and the scan's forward (every
+     state) and backward at (4, 709, 38, 16): multimodal training's 197
+     image and 512 text positions;
   4. serve two batches through ``InferenceEngine.generate`` with the dense
      bf16 and int8 models, the MoE bf16 and int8 models and the MHA bf16
      (bf16 KV cache) and int8 (int8 KV cache) models (4 ragged
@@ -111,9 +117,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      with seeded uint8 images of 160 x 200 and 256 x 320 pixels) for the
      dense bf16 model, the dense int8 model with a bf16 ViT and with an int8
      one (``ln_quantize`` at ln1 and ln2 of every ViT layer, #7 at its
-     products) and the MoE int8 model with a bf16 ViT (request A's prefill
-     of 4 x 264 rows through the grouped kernel), exact launch counts and
-     figures beside the text-only ones; the same for the 1.5B dense int8
+     products), the MoE int8 model with a bf16 ViT (request A's prefill
+     of 4 x 264 rows through the grouped kernel) and the MHA model, bf16
+     with a bf16 ViT and a bf16 cache and int8 with an int8 ViT and an int8
+     cache (caches of 197 + bucket + new-token slots, checked: 288 and
+     296), exact launch counts and figures beside the text-only ones; the same for the 1.5B dense int8
      model under ``quant_matmul="pallas"`` and ``"fused"`` (every prefill
      linear and the head through #6 or #8) and the 1.5B MoE int8 model under
      ``moe_mode="kernel"`` (request A's prefill and every decode step
@@ -159,9 +167,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      step), and a MoE model with 40 experts, more than the decode step's moe
      epilogue takes (bf16 and int8, and int8 through
      ``InferenceEngine.generate``: every decode step without the epilogue,
-     the fat kernel once a layer and step), 2-layer dense and MoE models with
-     a small image prefix, bf16 and int8 with an int8 ViT (``ln_quantize``
-     launched once a pre-norm and ViT norm), that the 1.5B logits are finite, that
+     the fat kernel once a layer and step), 2-layer dense, MoE and MHA models
+     with a small image prefix, bf16 and int8 with an int8 ViT (``ln_quantize``
+     launched once a pre-norm and ViT norm; for MHA the cache holds the
+     prefix and #9 runs once a layer and step), that the 1.5B logits are finite, that
      the 1.5B MHA ``forward()`` without a mask runs the flash kernel once per
      layer and agrees with the plain attention, that a 2-layer f32 flash
      MHA ``forward()`` runs the f32 flash kernel once per layer and agrees
@@ -176,7 +185,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      compute, and the MHA preset again in f32 compute (``bf16=False``), each
      through ``ApertisTrainer.train()`` with f32 masters, remat and
      accumulation over 2, 8 micro-batches of 4 x 1024 seeded token ids (4
-     updates), checking that the loss is finite and falls, that the step
+     updates), then the 1.5B dense SSM and MHA flash presets with the
+     ViT-B/16 prefix in bf16 on 8 micro-batches of 4 x 512 text tokens
+     behind 197 image tokens, checking that the loss is finite and falls, that the step
      metrics' lb_loss and rz_loss are finite and positive for MoE (zero
      otherwise), and that the scan (forward 2 x layers x micro-steps under
      remat, backward layers x micro-steps) or flash kernels of the compute
@@ -188,7 +199,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
      MHA in bf16 compute, each leaf within two bf16 ulps plus twice bf16's
      own effect on it (the CPU's bf16 vs f32 step); MoE (no step seed, a
      capacity that drops tokens) and flash MHA in f32 compute, each leaf
-     within 1e-4 of its largest CPU value;
+     within 1e-4 of its largest CPU value; and the same for the SSM, MoE and
+     flash MHA models behind a small image prefix (the ViT's leaves too);
+     then (6b) a checkpoint round trip: a 2-layer model at the 1.5B MHA
+     widths with the ViT-B/16 prefix, bf16 on the card, written with
+     ``save_torch_checkpoint`` and read back with ``load_pretrained`` on
+     the card from the directory and from the bare weights file, whose
+     logits with images must be bit-equal to the writer's and whose greedy
+     tokens with images the writer's;
   7. parallel training, after phase 3g's check of the carried-state scan
      (#2, forward and backward over chunks of the time axis, against its
      plain versions at the 1.5B model's (4, 38, 1024, 16) and a rank's (4,
@@ -313,6 +331,7 @@ FLASH_BWD_TOL = 2 * BF16_ULP
 # two ulps. The loss within one ulp.
 SMALL_GRAD_TOL = 2 * BF16_ULP
 TRAIN_LR = 5e-4           # the 1.5B training phase's peak learning rate
+MM_PREFIX = 197           # ViT-B/16's tokens at 224 pixels: 14 x 14 patches and CLS
 # quant_matmul_dyn against its plain version: exact int32 sums, then the same
 # f32 products acc * x_s * w_s in the same order, one rounding to the output
 # type and the bias added in it: bit-equal.
@@ -1442,9 +1461,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO_ROOT))
     from apertis_llm_torch.config import ApertisConfig
-    from apertis_llm_torch.inference.engine import InferenceEngine
+    from apertis_llm_torch.inference.engine import InferenceEngine, _round_up_bucket
     from apertis_llm_torch.models import apertis as apertis_model
-    from apertis_llm_torch.models.convert import from_jax_params, params_tree
+    from apertis_llm_torch.models.convert import (
+        from_jax_params, load_pretrained, params_tree, save_torch_checkpoint)
     from apertis_llm_torch.models.factory import calculate_model_dimensions
     from apertis_llm_torch.models.moe_fuse import fuse_one_fat
     from apertis_llm_torch.models.params import count_params, init_params
@@ -2191,16 +2211,20 @@ def main() -> int:
         f"{mha_config.qkv_bias}, FFN {inter}, bf16 and int8, built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def decode_ctx_inputs(b, l, heads=mha_heads, hd=head_dim, int8=False, gen=None):
-        """A layer's cache as serving leaves it: row b holds its prompt in
-        slots [0, len_b), bucket padding up to slot l // 2, generated tokens
-        from there to the stale slot t = l - 1, which is masked."""
+    def decode_ctx_inputs(b, l, heads=mha_heads, hd=head_dim, int8=False, gen=None, prefix=0,
+                          bucket=None):
+        """A layer's cache as serving leaves it: row b holds an image
+        prefix in slots [0, prefix), its prompt in the next len_b slots,
+        bucket padding up to slot prefix + bucket (default l // 2),
+        generated tokens from there to the stale slot t = l - 1, which is
+        masked."""
         d_ = heads * hd
+        bucket = l // 2 if bucket is None else bucket
         q, k_new, v_new = randn(b, d_, gen=gen), randn(b, d_, gen=gen), randn(b, d_, gen=gen)
         k, v = randn(b, l, d_, gen=gen), randn(b, l, d_, gen=gen)
-        lens = torch.randint(1, l // 2 + 1, (b, 1), generator=gen or g, device=dev)
+        lens = torch.randint(1, bucket + 1, (b, 1), generator=gen or g, device=dev)
         slots = torch.arange(l, device=dev)[None, :]
-        valid = (slots < lens) | ((slots >= l // 2) & (slots < l - 1))
+        valid = (slots < prefix + lens) | ((slots >= prefix + bucket) & (slots < l - 1))
         bias = torch.where(valid, 0.0, NEG).float().contiguous()
         if not int8:
             return (q, k, v, k_new, v_new, bias, hd)
@@ -2706,27 +2730,29 @@ def main() -> int:
                      shape=f"{tuple(args[2].shape)} with every state, chunks of {FWD_CHUNK}")
 
     def scan_bwd_inputs(b, l, heads_=ssm_heads, dtype=bf16, masked=False, with_g_last=False,
-                        n_=n):
+                        n_=n, gen=None):
         """The scan's backward operands as training gives them (the forward
         kernel's f32 states and a cotangent of y in its dtype), and the plain
         forward's states for the plain side; at a d_state ``n_`` other than
         the model's, A is drawn from the init's range (A_log ~ U(log 0.5,
         log 0.99))."""
-        delta = torch.nn.functional.softplus(randn(b, l, heads_, dtype=f32) - 4.0)
+        delta = torch.nn.functional.softplus(randn(b, l, heads_, dtype=f32, gen=gen) - 4.0)
         if n_ == n:
             a_cont = -torch.exp(layer.attn.A_log.float()[:heads_])
         else:
-            a_cont = -torch.empty((heads_, n_), device=dev).uniform_(0.5, 0.99, generator=g)
-        bt, ct = randn(b, l, heads_, n_, dtype=dtype), randn(b, l, heads_, n_, dtype=dtype)
+            a_cont = -torch.empty((heads_, n_), device=dev).uniform_(0.5, 0.99,
+                                                                     generator=gen or g)
+        bt = randn(b, l, heads_, n_, dtype=dtype, gen=gen)
+        ct = randn(b, l, heads_, n_, dtype=dtype, gen=gen)
         mask = None
         if masked:
-            lens = torch.randint(1, l + 1, (b, 1), generator=g, device=dev)
+            lens = torch.randint(1, l + 1, (b, 1), generator=gen or g, device=dev)
             mask = (torch.arange(l, device=dev)[None, :] < lens).to(torch.int32)
         hs = selective_scan_fwd(delta, a_cont, bt, ct, mask, dtype, want_h=True)[2]
         hs_plain = selective_scan_fwd_reference(delta, a_cont, bt, ct, mask, dtype, want_h=True)[2]
-        g_last = randn(b, heads_, n_, dtype=f32) if with_g_last else None
-        return ((delta, a_cont, ct, mask, hs, randn(b, l, heads_ * n_, dtype=dtype), g_last),
-                hs_plain)
+        g_last = randn(b, heads_, n_, dtype=f32, gen=gen) if with_g_last else None
+        return ((delta, a_cont, ct, mask, hs, randn(b, l, heads_ * n_, dtype=dtype, gen=gen),
+                 g_last), hs_plain)
 
     def plain_scan_bwd(hs_plain):
         """The plain backward on the plain forward's states."""
@@ -2930,6 +2956,60 @@ def main() -> int:
                 f"thread, {res['shared_bytes']} bytes of shared memory and {res['threads']} "
                 f"threads a block, {res['blocks_per_sm']} block(s) an SM, {res['spill_bytes']} "
                 "bytes spilled")
+
+    # ---- 3h. the image prefix's shapes: #9, #13 and #1 ---------------------------
+    # Phase 4's MHA + ViT requests decode over caches of 197 + 67 + 24 = 288
+    # slots (request A, 4 rows) and 197 + 35 + 64 = 296 (request B, 64 rows),
+    # the prefix valid in the first 197; phase 6's multimodal training puts
+    # 197 image tokens before 512 text tokens: L = 709, a ragged tail of the
+    # flash kernels' 64-row tiles and of the scans' chunks. From a generator
+    # of their own, so that every other check sees the inputs it saw before.
+    g_img = torch.Generator(device=dev).manual_seed(SEED + 70)
+    for b, bucket, new, label in ((4, 67, 24, "request A's cache behind the image prefix"),
+                                  (64, 35, 64, "request B's cache behind the image prefix")):
+        l = MM_PREFIX + bucket + new
+        for name, kernel, plain, int8 in (
+                ("mha_decode_ctx", mha_decode_ctx, mha_decode_ctx_reference, False),
+                ("mha_decode_ctx_int8", mha_decode_ctx_int8, decode_ctx_int8_plain, True)):
+            args = decode_ctx_inputs(b, l, int8=int8, gen=g_img, prefix=MM_PREFIX, bucket=bucket)
+            check_kernel(name, f"{name} B={b} L={l} {mha_heads}x{head_dim} ({label})", args,
+                         kernel, plain, ctx_tols, cost=decode_ctx_cost(args),
+                         shape=f"B={b} L={l} ({label})")
+    shape = (4, mha_heads, MM_PREFIX + 512, head_dim)
+    label = f"{shape} (multimodal training: 197 image + 512 text tokens)"
+    b, h_, l, hd = shape
+    for dt, fwd, dq, dkv, tols, bwd_tol in (
+            (bf16, flash_attention_fwd, flash_attention_dq, flash_attention_dkv, flash_tols,
+             FLASH_BWD_TOL),
+            (f32, flash_attention_fwd_f32, flash_attention_dq_f32, flash_attention_dkv_f32,
+             f32_flash_tols, F32_FLASH_TOL)):
+        q, k, v, do = (randn(*shape, dtype=dt, gen=g_img) for _ in range(4))
+        args = (q, k, v) if dt == bf16 else (q, k, v, True)
+        fwd_cost = ((4 * nbytes(q) + b * h_ * l * 4, 4 * b * h_ * hd * l * (l + 1) // 2, "bf16")
+                    if dt == bf16 else f32_flash_cost(shape, 2))
+        check_kernel(fwd.__name__, f"{fwd.__name__} {label}", args, fwd,
+                     flash_attention_fwd_reference, tols, cost=fwd_cost, shape=label)
+        out, lse = fwd(*args)
+        bargs = (q, k, v, do, lse, (out.float() * do.float()).sum(dim=-1))
+        for kern, outs, products, tol_names in ((dq, 1, 3, ("dq",)), (dkv, 2, 4, ("dk", "dv"))):
+            cost = (flash_bwd_cost(bargs, outs, products) if dt == bf16
+                    else f32_flash_cost(shape, products))
+            plain = flash_attention_dq_reference if kern is dq else flash_attention_dkv_reference
+            check_kernel(kern.__name__, f"{kern.__name__} {label}", bargs, kern, plain,
+                         [(t, bwd_tol) for t in tol_names], cost=cost, shape=label)
+    args = scan_inputs(4, MM_PREFIX + 512, gen=g_img)
+    args = args[:4] + (None, bf16, True)
+    label = (f"{tuple(args[2].shape)} with every state (multimodal training: 197 image + 512 "
+             f"text tokens), chunks of {FWD_CHUNK}")
+    check_kernel("selective_scan_fwd", f"scan B=4 L={MM_PREFIX + 512} {label}", args,
+                 selective_scan_fwd, selective_scan_fwd_reference, scan_h_tols, repeat=True,
+                 cost=scan_cost(args), shape=label)
+    args, hs_plain = scan_bwd_inputs(4, MM_PREFIX + 512, gen=g_img)
+    label = (f"B=4 L={MM_PREFIX + 512} H={ssm_heads} (multimodal training), chunks of "
+             f"{BWD_CHUNK}")
+    check_kernel("selective_scan_bwd", f"scan backward {label}", args, selective_scan_bwd,
+                 plain_scan_bwd(hs_plain), scan_bwd_tols(bf16), cost=scan_bwd_cost(args),
+                 repeat=True, shape=label)
 
     # ---- 3g. the carried-state scan (#2) ---------------------------------------
     # The sequence-parallel path's scan, at the 1.5B model's whole training
@@ -3140,6 +3220,16 @@ def main() -> int:
             return real_ragged(x, routing, *rest)
 
         moe_ops.moe_ragged = ragged
+        # An MHA cache behind the image prefix holds num_img + bucket +
+        # max_new_tokens slots (the prefix first).
+        slots, want_slots = [], []
+        if mha and images is not None:
+            real_init = m.init_cache
+            m.init_cache = lambda *a, **k: slots.append(k["max_length"]) or real_init(*a, **k)
+            for ids, _, kw in requests.values():
+                bucket = _round_up_bucket(ids.shape[1], InferenceEngine.PROMPT_BUCKETS)
+                bucket += -(cfg.num_image_tokens + bucket) % 8
+                want_slots.append(cfg.num_image_tokens + bucket + kw["max_new_tokens"])
         for f in counters:
             f.launches = 0
         first = {}
@@ -3147,6 +3237,12 @@ def main() -> int:
             first[name] = engine.generate(ids, attention_mask=mask, **pix[name], **kw)
         got = {f.__name__: f.launches for f in counters}
         moe_ops.moe_ragged = real_ragged
+        if want_slots:
+            del m.init_cache
+            log(f"{kind}: KV cache slots {slots} (expected {want_slots}: the image prefix, the "
+                "bucket and the new tokens)")
+            if slots != want_slots:
+                raise RuntimeError(f"{kind}: the KV caches do not hold the image prefix")
         decode_calls = 0
         for name, (ids, _, kw) in requests.items():
             out = first[name]
@@ -3244,7 +3340,9 @@ def main() -> int:
             ("bf16 + ViT", model, config, False, "bf16"),
             ("int8 + ViT", qmodel, config, False, "int8"),
             ("int8 + int8 ViT", qmodel, config, True, "int8"),
-            ("MoE int8 + ViT", moe_qmodel, moe_config, False, "MoE int8")):
+            ("MoE int8 + ViT", moe_qmodel, moe_config, False, "MoE int8"),
+            ("MHA bf16 + ViT", mha_model, mha_config, False, "MHA bf16"),
+            ("MHA int8 + int8 ViT", mha_qmodel, mha_config, True, "MHA int8")):
         mm, mcfg = with_prefix(m, cfg, SEED + 60, int8_vit)
         log(f"{kind}: {sum(p.numel() for p in mm.parameters()):,} parameters with the prefix "
             f"(ViT {mcfg.vision_layers} x {mcfg.vision_embed_dim}, {mcfg.num_image_tokens} "
@@ -3255,24 +3353,28 @@ def main() -> int:
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. outputs are right -----------------------------------------------
-    def cache_kw(m, width, int8):
-        """init_cache's arguments: an MHA cache of the prompt's width plus
-        eight slots, int8 for an int8 model as the engine allocates it."""
+    def cache_kw(m, width, int8, num_img=0):
+        """init_cache's arguments: an MHA cache of the image prefix, the
+        prompt's width and eight slots, int8 for an int8 model as the engine
+        allocates it."""
         if m.config.attention_type != "standard_mha":
             return {}
-        return dict(max_length=width + 8, kv_int8=int8)
+        return dict(max_length=num_img + width + 8, kv_int8=int8)
 
-    def step_kw(m, mask, i):
-        """decode_step's MHA arguments for step i after a prefill of width W,
-        as the engine gives them: slot W + i, positions len + i, the prompt's
-        mask and the slots generated so far valid."""
+    def step_kw(m, mask, i, num_img=0):
+        """decode_step's MHA arguments for step i after a prefill of an image
+        prefix and width W, as the engine gives them: slot num_img + W + i,
+        positions num_img + len + i, the prefix, the prompt's mask and the
+        slots generated so far valid."""
         if m.config.attention_type != "standard_mha":
             return {}
         b, w = mask.shape
-        row = torch.zeros((b, w + 8), dtype=torch.int32, device=m.device)
-        row[:, :w] = mask.to(m.device)
-        row[:, w:w + i + 1] = 1
-        return dict(t=w + i, attn_mask_row=row, positions=(mask.sum(1) + i).to(m.device))
+        row = torch.zeros((b, num_img + w + 8), dtype=torch.int32, device=m.device)
+        row[:, :num_img] = 1
+        row[:, num_img:num_img + w] = mask.to(m.device)
+        row[:, num_img + w:num_img + w + i + 1] = 1
+        return dict(t=num_img + w + i, attn_mask_row=row,
+                    positions=(num_img + mask.sum(1) + i).to(m.device))
 
     mask_a_t = torch.as_tensor(mask_a)
     for kind, m in (("bf16", model), ("int8", qmodel), ("MoE bf16", moe_model),
@@ -3382,7 +3484,8 @@ def main() -> int:
     for family, kw in (("", dense_small), ("MoE ", moe_small), ("MHA ", mha_small),
                        ("hidden-192 ", narrow_small), ("MHA Dh-96 ", mha96_small),
                        ("MoE-40 ", moe40_small), ("MM ", dict(dense_small, **vit_small)),
-                       ("MM MoE ", dict(moe_small, **vit_small))):
+                       ("MM MoE ", dict(moe_small, **vit_small)),
+                       ("MM MHA ", dict(mha_small, **vit_small))):
         small = ApertisConfig(**kw)
         tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu",
                            dtype=torch.bfloat16)
@@ -3429,9 +3532,10 @@ def main() -> int:
                 m.attach_moe_fat(bits=4 if "w4a8" in kind else 8)
         for f in counters:
             f.launches = 0
-        caches = {k: m.init_cache(4, **cache_kw(m, ids.shape[1], "int8" in kind))
+        num_img = small.num_image_tokens if kind.startswith("MM") else 0
+        caches = {k: m.init_cache(4, **cache_kw(m, ids.shape[1], "int8" in kind, num_img))
                   for k, m in models.items()}
-        pix = (lambda m: {"pixel_values": mm_pixels.to(m.device)}) if kind.startswith("MM") \
+        pix = (lambda m: {"pixel_values": mm_pixels.to(m.device)}) if num_img \
             else (lambda m: {})
         logits = {k: m.prefill(caches[k], ids.to(m.device), mask.to(m.device),
                                logit_positions=(mask.sum(1) - 1).to(m.device),
@@ -3444,7 +3548,8 @@ def main() -> int:
                 f"2-layer {kind} model on the card vs the CPU, logits of step {i}",
                 logits["gpu"].cpu(), logits["cpu"], 4 * BF16_ULP))
             tok = logits["cpu"].argmax(-1)
-            logits = {k: m.decode_step(caches[k], tok.to(m.device), **step_kw(m, mask, i))[0]
+            logits = {k: m.decode_step(caches[k], tok.to(m.device),
+                                       **step_kw(m, mask, i, num_img))[0]
                       for k, m in models.items()}
         ran = {f.__name__: f.launches for f in counters if f.launches}
         must = {"w4a8": ["ffn_decode_int4", "quant_matmul_dyn_pre_q"],
@@ -3455,7 +3560,10 @@ def main() -> int:
                 "MoE-40 bf16": ["expert_ffn_fat", "ssm_decode_step"],
                 "MoE-40 int8": ["expert_ffn_fat", "ssm_decode_step_int8"],
                 "MM int8": ["ffn_decode_int8", "quant_matmul_dyn_pre_q"],
-                "MM MoE int8": ["expert_ffn_grouped", "expert_ffn_fat"]}.get(kind, [])
+                "MM MoE int8": ["expert_ffn_grouped", "expert_ffn_fat"],
+                "MM MHA bf16": ["mha_decode_ctx"],
+                "MM MHA int8": ["mha_decode_ctx_int8", "quant_matmul_dyn_pre_q"]
+                }.get(kind, [])
         nl_small = small.num_hidden_layers
         # The mode's kernel: the prefill's six int8 linears a layer and the
         # head at prefill and at each of the 5 decode steps; the per-expert
@@ -3469,7 +3577,13 @@ def main() -> int:
                  # The decoder's pre-norms (two a layer, the MoE mixer's
                  # one), then ln1 and ln2 of each ViT layer, once a prefill.
                  "MM int8": {"ln_quantize": 2 * nl_small + 2 * small.vision_layers},
-                 "MM MoE int8": {"ln_quantize": nl_small + 2 * small.vision_layers}
+                 "MM MoE int8": {"ln_quantize": nl_small + 2 * small.vision_layers},
+                 # The MHA FFN's pre-norm once a layer at prefill (decode
+                 # quantizes its normed rows apart), then the ViT's norms;
+                 # #9 once a layer and decode step.
+                 "MM MHA int8": {"ln_quantize": nl_small + 2 * small.vision_layers,
+                                 "mha_decode_ctx_int8": 5 * nl_small},
+                 "MM MHA bf16": {"mha_decode_ctx": 5 * nl_small}
                  }.get(kind, {})
         if any(name not in ran for name in must) or (
                 kind == "hidden-192 int8" and "ffn_decode_int8" in ran) or any(
@@ -3591,6 +3705,16 @@ def main() -> int:
     seqs = np.random.default_rng(SEED + 6).integers(4, config.vocab_size, (rows_, length))
     dataset = TokenRows([{"input_ids": seqs[i % rows_], "labels": seqs[i % rows_]}
                          for i in range(micro * rows_)], length)
+    # Multimodal training: four seeded sequences of 512 text tokens, each
+    # with its seeded (3, 224, 224) pixels, behind the ViT-B/16 prefix of 197
+    # tokens: 709 positions.
+    mm_length = 512
+    mm_seqs = np.random.default_rng(SEED + 15).integers(4, config.vocab_size, (rows_, mm_length))
+    mm_train_pixels = np.random.default_rng(SEED + 16).normal(
+        size=(rows_, 3, 224, 224)).astype(np.float32)
+    mm_dataset = TokenRows([{"input_ids": mm_seqs[i % rows_], "labels": mm_seqs[i % rows_],
+                             "pixel_values": mm_train_pixels[i % rows_]}
+                            for i in range(micro * rows_)], mm_length)
     train_perf = {}
     # The step metrics of each micro-step (the trainer logs what the JAX
     # trainer logs; lb_loss and rz_loss are read here).
@@ -3605,15 +3729,19 @@ def main() -> int:
     trainer_module.train_step = recording_train_step
     # The 1.5B MoE preset with its default MoE knobs: capacity factor 1.25,
     # noisy routing 0.1, expert dropout 0.1, lb 0.01, rz 0.001.
-    for kind, cfg, bf16_compute in (
-            ("dense SSM", config, True),
-            ("MoE SSM", moe_config, True),
-            ("MHA flash", dataclasses.replace(mha_config, use_flash_attention=True), True),
-            ("MHA flash f32", dataclasses.replace(mha_config, use_flash_attention=True), False)):
-        nl = cfg.num_hidden_layers
+    flash_mha = dataclasses.replace(mha_config, use_flash_attention=True)
+    for kind, cfg, bf16_compute, data in (
+            ("dense SSM", config, True, dataset),
+            ("MoE SSM", moe_config, True, dataset),
+            ("MHA flash", flash_mha, True, dataset),
+            ("MHA flash f32", flash_mha, False, dataset),
+            ("dense SSM + ViT", dataclasses.replace(config, multimodal=True), True, mm_dataset),
+            ("MHA flash + ViT", dataclasses.replace(flash_mha, multimodal=True), True,
+             mm_dataset)):
+        nl, seq_len = cfg.num_hidden_layers, data.max_length
         t0 = time.perf_counter()
         tree = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-        trainer = ApertisTrainer(cfg, tree, dataset, output_dir="unused", batch_size=rows_,
+        trainer = ApertisTrainer(cfg, tree, data, output_dir="unused", batch_size=rows_,
                                  learning_rate=TRAIN_LR, num_epochs=1,
                                  gradient_accumulation_steps=accum, bf16=bf16_compute,
                                  use_gradient_checkpointing=True, seed=SEED, device=dev,
@@ -3621,10 +3749,12 @@ def main() -> int:
         del tree
         torch.cuda.synchronize()
         n_train = sum(p.numel() for p in trainer.model.parameters())
+        behind = (f" text tokens behind {cfg.num_image_tokens} image tokens"
+                  if cfg.multimodal else "")
         log(f"train {kind}: {n_train:,} f32 master parameters, trainer built in "
-            f"{time.perf_counter() - t0:.1f} s; {micro} micro-batches of {rows_} x {length}, "
-            f"accumulation {accum}, remat, {'bf16' if bf16_compute else 'f32'} compute, peak "
-            f"lr {TRAIN_LR}")
+            f"{time.perf_counter() - t0:.1f} s; {micro} micro-batches of {rows_} x {seq_len}"
+            f"{behind}, accumulation {accum}, remat, {'bf16' if bf16_compute else 'f32'} "
+            f"compute, peak lr {TRAIN_LR}")
         for f in train_counters:
             f.launches = 0
         step_metrics.clear()
@@ -3668,13 +3798,15 @@ def main() -> int:
             raise RuntimeError(f"train {kind}: the loss is not finite or did not fall: {losses}")
         perf = history["perf"]
         p50 = perf["step_time_p50_s"]
-        train_perf[kind] = dict(step_ms_p50=p50 * 1e3, tokens_per_s=rows_ * length / p50,
+        train_perf[kind] = dict(positions=seq_len + (cfg.num_image_tokens if cfg.multimodal
+                                                     else 0),
+                                step_ms_p50=p50 * 1e3, tokens_per_s=rows_ * seq_len / p50,
                                 step_ms_wall=perf["step_time_wall_s"] * 1e3,
                                 tokens_per_s_wall=perf["tokens_per_sec"],
                                 mfu_pct=perf.get("mfu_pct"), wall_s=wall,
                                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         log(f"train {kind}: losses {[round(x, 4) for x in losses]} (falls); micro-step p50 "
-            f"{p50 * 1e3:.1f} ms = {rows_ * length / p50:,.1f} tokens/s; epoch "
+            f"{p50 * 1e3:.1f} ms = {rows_ * seq_len / p50:,.1f} tokens/s; epoch "
             f"{perf['step_time_wall_s'] * 1e3:.1f} ms a micro-step wall = "
             f"{perf['tokens_per_sec']:,.1f} tokens/s, MFU {perf.get('mfu_pct', 0):.1f} % of "
             f"{device_peak_tflops()} TFLOP/s; {wall:.1f} s in all, peak "
@@ -3755,7 +3887,15 @@ def main() -> int:
              torch.bfloat16),
             ("MoE f32", moe_small, "selective_scan_bwd", None),
             ("MHA flash f32", dict(mha_small, use_flash_attention=True), "flash_attention_dq_f32",
-             None)):
+             None),
+            # The same behind the small image prefix (17 tokens, uint8
+            # images resized on the device): the ViT's leaves too.
+            ("MM SSM", dict(dense_small, **vit_small), "selective_scan_bwd", torch.bfloat16),
+            ("MM MoE f32", dict(moe_small, **vit_small), "selective_scan_bwd", None),
+            ("MM MHA flash", dict(mha_small, use_flash_attention=True, **vit_small),
+             "flash_attention_dq", torch.bfloat16),
+            ("MM MHA flash f32", dict(mha_small, use_flash_attention=True, **vit_small),
+             "flash_attention_dq_f32", None)):
         small = ApertisConfig(**kw)
         tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu")
         perturb_(tree, torch.Generator().manual_seed(SEED + 7))
@@ -3770,6 +3910,8 @@ def main() -> int:
             m = from_jax_params(tree, small, device=where)
             params = dict(m.named_parameters())
             batch = {"input_ids": ids_small.to(where), "labels": ids_small.to(where)}
+            if small.multimodal:
+                batch["pixel_values"] = mm_pixels[:2].to(where)
             loss, _ = loss_fn(m, batch, None, compute)
             grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
             results[side] = (loss.detach().cpu(), {k: g.cpu() for k, g in zip(params, grads)})
@@ -3820,6 +3962,70 @@ def main() -> int:
             log(f"    {name} (largest element {scale:.3e}): card vs CPU {err:.3e}{own}, limit "
                 f"{limit:.3e} ({ratio:.3f} of it)")
     moe_ops.moe_dispatch = real_dispatch
+
+    # ---- 6b. checkpoint round trip -------------------------------------------
+    # The 1.5B MHA preset's widths with the ViT-B/16 prefix, cut to 2 decoder
+    # layers so that the file stays near 1.5 GB of f32, in bf16 on the card
+    # from a seeded noisy tree: exported with save_torch_checkpoint, then
+    # loaded with load_pretrained on the card (its default device) from the
+    # directory with config.json, and from the weights file alone, whose
+    # config is read off its shapes. forward()'s logits with images must be
+    # bit-equal to the writer's, and a greedy generate with images must give
+    # the writer's tokens. (The tests load every family from either
+    # package's files on the CPU; an SSM model read from a bare file keeps
+    # the default f32 conv cache, since the shapes do not give
+    # config.dtype.)
+    ckpt_ids = np.random.default_rng(SEED + 18).integers(4, config.vocab_size, (2, 40))
+    ckpt_images = next(iter(images.values()))[:2]
+    ids_t = torch.as_tensor(ckpt_ids, device=dev)
+    img_t = torch.as_tensor(ckpt_images, device=dev)
+    round_trip = {}
+    for family, cfg in (("MHA + ViT", mha_config),):
+        wcfg = dataclasses.replace(cfg, num_hidden_layers=2, multimodal=True)
+        tree = init_params(wcfg, torch.Generator(device=dev).manual_seed(SEED + 19), device=dev,
+                           dtype=bf16)
+        perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 20))
+        writer = from_jax_params(tree, wcfg, device=dev, dtype=bf16)
+        del tree
+        gen_kw = dict(pixel_values=ckpt_images, max_new_tokens=8, eos_token_id=())
+        with torch.no_grad():
+            ref_logits = writer(ids_t, pixel_values=img_t)
+        ref_tokens = InferenceEngine(wcfg, writer).generate(ckpt_ids, **gen_kw)
+        with tempfile.TemporaryDirectory() as work:
+            work = Path(work)
+            t0 = time.perf_counter()
+            save_torch_checkpoint(params_tree(writer), wcfg, work / "ckpt")
+            saved_s = time.perf_counter() - t0
+            file_bytes = (work / "ckpt" / "pytorch_model.bin").stat().st_size
+            results = {"file_bytes": file_bytes, "save_s": saved_s}
+            for way in ("config.json", "bare weights file"):
+                path = work / "ckpt"
+                if way != "config.json":
+                    (work / "bare").mkdir()
+                    path = work / "bare" / "weights.bin"
+                    os.replace(work / "ckpt" / "pytorch_model.bin", path)
+                t0 = time.perf_counter()
+                loaded = load_pretrained(path, dtype=bf16)
+                load_s = time.perf_counter() - t0
+                if loaded.device.type != "cuda":
+                    raise RuntimeError(f"{family}: load_pretrained built on {loaded.device}")
+                with torch.no_grad():
+                    same_logits = torch.equal(loaded(ids_t, pixel_values=img_t), ref_logits)
+                tokens = InferenceEngine(loaded.config, loaded).generate(ckpt_ids, **gen_kw)
+                same_tokens = bool(np.array_equal(tokens, ref_tokens))
+                results[way] = dict(logits_bit_equal=same_logits, tokens_equal=same_tokens,
+                                    load_s=load_s)
+                log(f"checkpoint round trip {family} (2 layers, {file_bytes:,} bytes, saved in "
+                    f"{saved_s:.1f} s), {way}: loaded on {loaded.device} in {load_s:.1f} s, "
+                    f"logits bit-equal {same_logits}, greedy tokens with images equal to the "
+                    f"writer's {same_tokens}")
+                if not (same_logits and same_tokens):
+                    raise RuntimeError(f"{family}: the {way} checkpoint does not give the "
+                                       "writer's logits and tokens")
+                del loaded
+        round_trip[family] = results
+        del writer
+        torch.cuda.empty_cache()
     log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 7. data- and sequence-parallel training: two ranks on the card -------
@@ -4034,6 +4240,7 @@ def main() -> int:
                       "f32_flash_forward_max_abs_err": f32_flash_err,
                       "moe_f32_forward_max_abs_err": moe_forward_err,
                       "scan_carry_bit_equal": carry_bit_equal,
+                      "checkpoint_round_trip": round_trip,
                       "ln_quantize_bit_equal": ln_bit_equal,
                       "moe_epilogue_seeds": fault2}))
     print(card)

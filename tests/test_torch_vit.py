@@ -278,12 +278,16 @@ def test_vision_tree_round_trip_and_export(tmp_path):
 
 def test_variant_gates_name_the_roadmap():
     """``check_supported`` admits the multimodal selective-SSM model, dense
-    and MoE, and refuses MHA with an image prefix; ``check_trainable``
-    refuses multimodal training; both name ROADMAP.md."""
+    and MoE, and MHA with an image prefix; ``check_trainable`` admits
+    multimodal training on one rank and refuses it on a mesh of more than
+    one, naming ROADMAP.md."""
     check_supported(ApertisConfig(**BASE))
     check_supported(ApertisConfig(**dict(BASE, **MOE)))
-    with pytest.raises(NotImplementedError, match="MHA with an image prefix.*ROADMAP.md"):
-        check_supported(ApertisConfig(**dict(BASE, attention_type="standard_mha")))
-    with pytest.raises(NotImplementedError, match="multimodal training.*ROADMAP.md"):
-        check_trainable(ApertisConfig(**BASE), device="cpu")
+    mha = ApertisConfig(**dict(BASE, attention_type="standard_mha"))
+    check_supported(mha)
+    for cfg in (ApertisConfig(**BASE), mha):
+        check_trainable(cfg, device="cpu")
+        with pytest.raises(NotImplementedError,
+                           match="multimodal training on a mesh.*ROADMAP.md"):
+            check_trainable(cfg, device="cpu", mesh_shape=(2, 1, 1, 1))
     check_trainable(ApertisConfig(**dict(BASE, multimodal=False)), device="cpu")
