@@ -35,12 +35,17 @@ as in JAX).
 
 ``quant_matmul`` and ``moe_mode`` choose the arithmetic that the JAX package
 picks by environment variable, ``APERTIS_QUANT_MATMUL`` and
-``APERTIS_MOE_FUSED`` (``ApertisForCausalLM.set_modes``). ``quant_matmul``
-(``dyn``, ``weightonly``, ``pallas``, ``fused``) decides how every int8
-linear of the full-sequence paths and the int8 head compute; the int8
-decode projections stay w8a8. ``moe_mode="kernel"`` attaches the per-expert
-stack (``ApertisForCausalLM.attach_moe_fused``) instead of the fat stack
-and serves the MoE FFN through the per-expert kernel; ``quant_bits=4`` then
+``APERTIS_MOE_FUSED`` (``ApertisForCausalLM.set_modes``), by default the JAX
+package's ``auto`` and ``fatk``. ``quant_matmul`` (``auto``, ``dyn``,
+``weightonly``, ``pallas``, ``fused``) decides how every int8 linear of the
+full-sequence paths, the unfused decode FFNs and the int8 head compute
+(``auto``: ``ops/quant.py::resolve_mode``, ``fuses_pre_norm``); the int8
+decode projections stay w8a8. ``moe_mode="fat"`` attaches the fat stack as
+``fatk`` does and computes its two products in plain torch at small token
+counts (``ops/moe.py::moe_dense_fat``). ``moe_mode="kernel"`` attaches the
+per-expert stack (``ApertisForCausalLM.attach_moe_fused``) instead of the
+fat stack and serves the MoE FFN through the per-expert kernel;
+``quant_bits=4`` then
 changes nothing for it, as in JAX. ``moe_mode="0"`` attaches no stack: the
 MoE FFN runs ``moe_dense`` and ``moe_ragged`` (int8 experts under ``dyn``
 through their int8 branches), and the decode step without its epilogue.
@@ -102,10 +107,13 @@ def _round_up_bucket(n: int, buckets: Sequence[int]) -> int:
 
 
 def _check_position_limit(config: ApertisConfig, max_needed: int) -> None:
-    """An MHA model indexes its RoPE table by position; past
-    ``max_position_embeddings`` the reference crashes, so raise (the
-    selective SSM has no positional table)."""
-    if is_mha(config) and max_needed > config.max_position_embeddings:
+    """An MHA-rotary or an absolute-position model indexes a table by
+    position; past ``max_position_embeddings`` the reference crashes, so
+    raise (engine.py:104-116; a rotary selective SSM has no positional
+    table)."""
+    limited = (config.position_embedding_type == "absolute"
+               or (config.position_embedding_type == "rotary" and is_mha(config)))
+    if limited and max_needed > config.max_position_embeddings:
         raise ValueError(
             f"prompt + max_new_tokens needs positions up to {max_needed} but "
             f"max_position_embeddings={config.max_position_embeddings}; use a "
@@ -125,7 +133,7 @@ class InferenceEngine:
 
     def __init__(self, config: ApertisConfig, model: ApertisForCausalLM,
                  kv_int8: Optional[bool] = None, quant_bits: int = 8,
-                 quant_matmul: str = "dyn", moe_mode: str = "fatk"):
+                 quant_matmul: str = "auto", moe_mode: str = "fatk"):
         check_quant_bits(quant_bits)
         self.config = config
         self.model = model
@@ -134,7 +142,7 @@ class InferenceEngine:
         model.set_modes(quant_matmul, moe_mode)
         if model.quantized and model.lm_head is None:
             model.quantize_tied_head()
-        if moe_mode == "fatk":
+        if moe_mode in ("fatk", "fat"):
             model.attach_moe_fat(bits=quant_bits)
         elif moe_mode == "kernel":
             model.attach_moe_fused()
@@ -257,6 +265,9 @@ class InferenceEngine:
                 logits, cache = self.model.decode_step(cache, cur, t=t, attn_mask_row=kv_mask,
                                                        positions=num_img + lens + step - 1)
                 kv_mask[:, t + 1] = unfinished
+            elif self.model.abs_pos is not None:
+                logits, cache = self.model.decode_step(cache, cur,
+                                                       positions=num_img + lens + step - 1)
             else:
                 logits, cache = self.model.decode_step(cache, cur)
             nxt, unfinished = finish_update(unfinished, sample(logits, tokens, filled))

@@ -3,9 +3,10 @@ also with the ViT image prefix.
 
 The counterpart of ``apertis_llm_tpu/models/apertis.py`` for the variants
 ported so far (``models/params.py::check_supported``): pre-norm residual
-Mamba-style selective mixer or standard MHA (full-width interleaved RoPE),
-pre-norm residual dense or top-2 MoE FFN (MoE with the SSM mixer only), final
-post-norm, tied LM head. Module and parameter names follow the JAX parameter
+Mamba-style selective mixer or standard MHA (full-width interleaved RoPE, or
+absolute positions added to the embeddings), pre-norm residual dense, SwiGLU
+or top-k MoE FFN beside either mixer, final post-norm, tied or untied LM
+head. Module and parameter names follow the JAX parameter
 tree, so ``layers.3.attn.in_proj_x.w`` is layer 3 of
 ``layers/attn/in_proj_x/w``, and linear weights keep the (in, out) layout.
 
@@ -26,8 +27,10 @@ Three paths, with the JAX package's semantics:
     row's conv window is gathered at its true length), or MHA's flat K/V
     cache (plain attention under the causal x padding bias).
   * ``decode_step``: one token per row through the fused mixer step, or the
-    MHA decode-attention kernel over the flat cache, and the fused decode
-    FFN (``ops/kernels``), whose semantics are those of the JAX package's
+    MHA decode-attention kernel over the flat cache (its plain version at
+    head widths the kernel does not take, as the JAX package serves them
+    through XLA), and the fused decode FFN (``ops/kernels``), whose
+    semantics are those of the JAX package's
     fused-kernel decode path (for MHA, ``APERTIS_MHA_STEP=force`` with the
     default ``APERTIS_MHA_LNQ=xla`` and ``APERTIS_MHA_QKV=1``). Where the
     fused FFN's width test fails (``ffn_fused.py::fused_eligible``: a hidden
@@ -53,9 +56,14 @@ step's moe epilogue emits the expert input and the top-2 combine weights,
 and the fat kernel follows. ``kernel`` (``APERTIS_MOE_FUSED=kernel``) reads
 the per-expert stack instead (:meth:`ApertisForCausalLM.attach_moe_fused`):
 up to that token count the per-expert kernel (``ops/moe.py::
-moe_dense_fused``), above it ``moe_ragged``. ``0`` attaches and reads no
-stack. Without a fat stack the decode step runs the mixer step without its
-epilogue and the FFN as over full sequences (apertis.py:1224-1230).
+moe_dense_fused``), above it ``moe_ragged``. ``fat``
+(``APERTIS_MOE_FUSED=fat``) reads the fat stack with its two products in
+plain torch up to that token count (``ops/moe.py::moe_dense_fat``), and
+the grouped kernel above it. ``0`` attaches and reads no stack. Without a
+fat stack under ``fatk``, or with a top-k other than 2, the decode step
+runs the mixer step without its epilogue and the FFN as over full
+sequences (apertis.py:1224-1230); an MHA model's decode step always runs
+its MoE FFN so, after the attention (apertis.py:1380-1385).
 
 w4a8 serving (the JAX package's ``APERTIS_QUANT_BITS=4``, the engine's
 ``quant_bits=4``) keeps the int8 tree for prefill and attaches int4 decode
@@ -66,12 +74,17 @@ reads; above the fat kernel's token count an int4 fat stack's layer runs
 ``moe_ragged`` over the int8 experts, since the grouped kernel takes int8
 stacks only (``moe_grouped.py::grouped_eligible``).
 
-With int8 weights (``quantized``: the four mixer projections and the two FFN
-weights are ``QuantLinear``, a MoE FFN's expert stacks int8 tensors) the
-model computes by default (``quant_matmul="dyn"``) what the JAX package
-computes under ``APERTIS_QUANT_MATMUL=dyn``, ``APERTIS_LN_QUANT=force``,
-``APERTIS_SSM_STEP=force`` and ``APERTIS_FFN_FUSED=force``, at every row
-count: each pre-norm that feeds int8 projections is fused with their row
+With int8 weights (``quantized``: the four mixer projections and the FFN's
+linears are ``QuantLinear``, a MoE FFN's expert stacks int8 tensors) the
+model computes by default (``quant_matmul="auto"``, the JAX package's
+default) each int8 linear by the card's measured rule: the weight-only
+kernel on rows not quantized already (``ops/quant.py::resolve_mode``), and
+a pre-norm fused with its consumers' row quantization from a row count
+(``fuses_pre_norm``). Under ``quant_matmul="dyn"`` it
+computes what the JAX package computes under ``APERTIS_QUANT_MATMUL=dyn``,
+``APERTIS_LN_QUANT=force``, ``APERTIS_SSM_STEP=force`` and
+``APERTIS_FFN_FUSED=force``, at every row count: each pre-norm that feeds
+int8 projections is fused with their row
 quantization (``ln_quantize``), the other int8 projections quantize their
 input rows at run time (w8a8), ``dt_proj`` stays float, and the decode step
 and FFN run their int8 layouts. An MHA layer's pre-norm is always the plain
@@ -136,11 +149,12 @@ from apertis_llm_torch.ops.kernels.ffn_fused import (
 from apertis_llm_torch.ops.kernels.flash_attention import FlashAttention
 from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize
 from apertis_llm_torch.ops.kernels.mha_step import (
-    NEG, mha_decode_ctx, mha_decode_ctx_int8, quantize_heads)
+    NEG, kernel_takes, mha_decode_ctx, mha_decode_ctx_int8, mha_decode_ctx_reference,
+    quantize_heads)
 from apertis_llm_torch.ops.kernels.ssm_step import (
     MOE_EPILOGUE_MAX_EXPERTS, MixerWeights, RouterWeights, ssm_decode_step)
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
-from apertis_llm_torch.ops.quant import linear_int8, linear_pre_q, quantize_rows
+from apertis_llm_torch.ops.quant import fuses_pre_norm, linear_int8, linear_pre_q, quantize_rows
 from apertis_llm_torch.ops.rope import apply_rope, rope_tables, rotate
 from apertis_llm_torch.parallel.context import ParallelContext
 from apertis_llm_torch.parallel.context import current as parallel_current
@@ -241,7 +255,7 @@ class QuantLinear(nn.Module):
     through the w8a8 kernel in every mode. The kernels read the row-major
     ``w_q`` as it is."""
 
-    quant_matmul = "dyn"     # set by ApertisForCausalLM.set_modes
+    quant_matmul = "auto"    # set by ApertisForCausalLM.set_modes
 
     def __init__(self, fan_in: int, fan_out: int, bias: bool, device, dtype):
         super().__init__()
@@ -297,7 +311,7 @@ class DepthwiseConv(nn.Module):
 class SelectiveSSM(nn.Module):
     """The selective mixer with its pre-norm (``layers/attn`` in JAX)."""
 
-    quant_matmul = "dyn"     # set by ApertisForCausalLM.set_modes
+    quant_matmul = "auto"    # set by ApertisForCausalLM.set_modes
 
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
@@ -330,9 +344,9 @@ class SelectiveSSM(nn.Module):
             return self._sequence_parallel(h, seq_mask, sp), None
         b, l, _ = h.shape
         heads, n, r, k = self.heads, self.d_state, self.dt_rank, self.k
-        if self.quantized and self.quant_matmul == "dyn":
+        if self.quantized and fuses_pre_norm(self.quant_matmul, b * l):
             # One fused norm + row quantization feeds both in-projections
-            # (_maybe_ln_quant: under dyn only).
+            # (_maybe_ln_quant: where the linears run dyn).
             x_q, x_s = ln_quantize(h, *self.pre_norm.weights(), self.pre_norm.eps)
             x_proj = self.in_proj_x.pre_q(x_q, x_s, h.dtype)       # (B, L, C)
             z = self.in_proj_z.pre_q(x_q, x_s, h.dtype)
@@ -434,13 +448,16 @@ class MultiHeadAttention(nn.Module):
     ``pre_norm`` and the (H, H) linears ``q``, ``k``, ``v``, ``o``, with
     biases when ``config.qkv_bias``; ``QuantLinear`` in the int8 layout. An
     int8 layer can also hold the fused QKV projection (:meth:`attach_qkv`)
-    in non-persistent buffers. RoPE rotates q and k over the full width
-    before the heads are split."""
+    in non-persistent buffers. With rotary positions RoPE rotates q and k
+    over the full width before the heads are split; with absolute ones the
+    positions are in the embeddings and nothing rotates (``apertis.py::
+    _mha_full``)."""
 
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
         h = config.hidden_size
         self.heads, self.head_dim = config.num_attention_heads, config.head_dim
+        self.rotary = config.position_embedding_type == "rotary"
         self.attn_dropout = config.attention_probs_dropout_prob
         self.quantized = quantized
         self.pre_norm = Norm(h, config.use_rmsnorm, config.layer_norm_eps, device, dtype)
@@ -457,11 +474,12 @@ class MultiHeadAttention(nn.Module):
         return t.reshape(b, l, self.heads, self.head_dim).transpose(1, 2).contiguous()
 
     def forward(self, h: torch.Tensor, *, bias: Optional[torch.Tensor], pos_ids: torch.Tensor,
-                rope: Tuple[torch.Tensor, torch.Tensor], flash: bool,
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]], flash: bool,
                 want_cache: bool = False, drop: Optional[Dropout] = None):
         """Pre-norm and attention over a full sequence h (B, L, D)
         (``apertis.py::_mha_full``): the plain pre-norm in both layouts, q/k/v
-        (w8a8 in int8), RoPE on q and k at ``pos_ids``, then the causal flash
+        (int8: as the ``quant_matmul`` mode runs them), RoPE on q and k at
+        ``pos_ids`` (rotary positions only), then the causal flash
         kernel when ``flash`` (the caller's gate) holds and there is no bias,
         else the plain attention with ``bias``; then ``o``. Returns ``(out,
         cache)``, the cache being the post-RoPE ``(k, v)`` (B, L, D) with
@@ -473,7 +491,8 @@ class MultiHeadAttention(nn.Module):
         b, l, d = h.shape
         x = self.pre_norm(h)
         q, k, v = self.q(x), self.k(x), self.v(x)
-        q, k = apply_rope(q, pos_ids, *rope), apply_rope(k, pos_ids, *rope)
+        if self.rotary:
+            q, k = apply_rope(q, pos_ids, *rope), apply_rope(k, pos_ids, *rope)
         qh, kh, vh = self._split_heads(q), self._split_heads(k), self._split_heads(v)
         if bias is None and flash:
             ctx = FlashAttention.apply(qh, kh, vh)
@@ -516,13 +535,17 @@ class MultiHeadAttention(nn.Module):
 
     def decode(self, h: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                scales: Optional[Tuple[torch.Tensor, torch.Tensor]], bias: torch.Tensor,
-               rope_rows: Tuple[torch.Tensor, torch.Tensor], t: int) -> torch.Tensor:
+               rope_rows: Optional[Tuple[torch.Tensor, torch.Tensor]], t: int) -> torch.Tensor:
         """One token per row over this layer's flat cache (``apertis.py::
         _mha_decode_step_paired``): plain pre-norm, q/k/v (int8: the rows
         quantized by ``quantize_rows``, then the fused QKV product when one is
-        attached), RoPE with the positions' table rows ``rope_rows``, the
-        decode-attention kernel over the masked cache plus the self-term, and
-        ``o`` (int8: on the quantized context). Then slot ``t`` of the cache,
+        attached), RoPE with the positions' table rows ``rope_rows`` (None for
+        absolute positions), the decode attention over the masked cache plus
+        the self-term: the kernel where it takes the head width
+        (``mha_step.py::kernel_takes``), else its arithmetic in plain torch
+        (``mha_decode_ctx_reference``), as the JAX package serves other widths
+        through XLA; and ``o`` (int8: on the quantized context). Then slot
+        ``t`` of the cache,
         masked out of this attention, gets the token's K/V: as they are, or
         quantized per head with their scales into ``scales`` (``k_ps``,
         ``v_ps`` of the layer). Returns the attention output (B, D)."""
@@ -537,17 +560,24 @@ class MultiHeadAttention(nn.Module):
                 q, k, v = (m.pre_q(x_q, x_s, dt) for m in (self.q, self.k, self.v))
         else:
             q, k, v = self.q(x), self.k(x), self.v(x)
-        q, k, v = rotate(q, *rope_rows), rotate(k, *rope_rows), v.contiguous()
+        if rope_rows is not None:
+            q, k = rotate(q, *rope_rows), rotate(k, *rope_rows)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        kernel = kernel_takes(self.head_dim)
         if scales is None:
             k, v = k.to(k_cache.dtype), v.to(v_cache.dtype)
-            ctx = mha_decode_ctx(q.to(dt), k_cache, v_cache, k.to(dt), v.to(dt), bias,
-                                 self.head_dim)
+            attend = mha_decode_ctx if kernel else mha_decode_ctx_reference
+            ctx = attend(q.to(dt), k_cache, v_cache, k.to(dt), v.to(dt), bias, self.head_dim)
             k_cache[:, t] = k
             v_cache[:, t] = v
         else:
             ks, vs = scales
-            ctx = mha_decode_ctx_int8(q.to(dt), k_cache, v_cache, k.to(dt), v.to(dt), bias,
-                                      ks, vs, self.head_dim)
+            if kernel:
+                ctx = mha_decode_ctx_int8(q.to(dt), k_cache, v_cache, k.to(dt), v.to(dt), bias,
+                                          ks, vs, self.head_dim)
+            else:
+                ctx = mha_decode_ctx_reference(q.to(dt), k_cache, v_cache, k.to(dt), v.to(dt),
+                                               bias, self.head_dim, ks, vs)
             for val, cache, scale in ((k, k_cache, ks), (v, v_cache, vs)):
                 val_q, val_s = quantize_heads(val, self.head_dim)
                 cache[:, t] = val_q
@@ -565,7 +595,7 @@ class DenseFFN(nn.Module):
     An int8 layer can also hold the int4 decode pack (:meth:`attach_int4`)
     in non-persistent buffers; the biases are the int8 linears'."""
 
-    quant_matmul = "dyn"     # set by ApertisForCausalLM.set_modes
+    quant_matmul = "auto"    # set by ApertisForCausalLM.set_modes
 
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
         super().__init__()
@@ -630,7 +660,7 @@ class DenseFFN(nn.Module):
         """Pre-norm and FFN over full sequences (``apertis.py::_ffn``); with
         ``drop`` (training) the activation is dropped before ``w2``."""
         act = get_activation(self.hidden_act)
-        if self.quantized and self.quant_matmul == "dyn":
+        if self.quantized and fuses_pre_norm(self.quant_matmul, h.numel() // h.shape[-1]):
             x_q, x_s = ln_quantize(h, *self.pre_norm.weights(), self.pre_norm.eps)
             return self.w2(act(self.w1.pre_q(x_q, x_s, h.dtype)))
         hidden = act(self.w1(self.pre_norm(h)))
@@ -654,6 +684,46 @@ class DenseFFN(nn.Module):
         (x,) = ffn_in
         return ffn_decode(x, self.w1.w, self.w1.b, self.w2.w, self.w2.b,
                           self.hidden_act, out_dtype)
+
+
+class SwiGLUFFN(nn.Module):
+    """Pre-normed SwiGLU FFN ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``,
+    its linears without biases and ``config.swiglu_ffn_dim`` wide
+    (``layers/ffn`` of a SwiGLU tree, ``apertis.py::_ffn``). No fused decode
+    kernel takes it: at decode it runs :meth:`unfused` on the plain
+    pre-norm, as the JAX decode step runs ``_ffn``."""
+
+    quant_matmul = "auto"    # set by ApertisForCausalLM.set_modes
+    fused_decode = False
+
+    def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
+        super().__init__()
+        h, f = config.hidden_size, config.swiglu_ffn_dim
+        self.dropout = config.hidden_dropout_prob
+        self.quantized = quantized
+        self.pre_norm = Norm(h, config.use_rmsnorm, config.layer_norm_eps, device, dtype)
+        self.w_gate = _linear(h, f, False, device, dtype, quantized)
+        self.w_up = _linear(h, f, False, device, dtype, quantized)
+        self.w_down = _linear(f, h, False, device, dtype, quantized)
+
+    def unfused(self, x: torch.Tensor) -> torch.Tensor:
+        """The FFN of rows normed already, each linear as its mode runs it."""
+        return self.w_down(silu(self.w_gate(x)) * self.w_up(x))
+
+    def forward(self, h: torch.Tensor, drop: Optional[Dropout] = None) -> torch.Tensor:
+        """Pre-norm and FFN over full sequences; in int8 where the mode
+        fuses the pre-norm (``fuses_pre_norm``), one fused norm + row
+        quantization (#5) feeds both ``w_gate`` and ``w_up``
+        (``_maybe_ln_quant``'s two consumers).
+        With ``drop`` (training) the output is dropped here, and the layer
+        drops it again, as ``_ffn`` and ``_layer_full`` do."""
+        if self.quantized and fuses_pre_norm(self.quant_matmul, h.numel() // h.shape[-1]):
+            x_q, x_s = ln_quantize(h, *self.pre_norm.weights(), self.pre_norm.eps)
+            hidden = (silu(self.w_gate.pre_q(x_q, x_s, h.dtype))
+                      * self.w_up.pre_q(x_q, x_s, h.dtype))
+            return self.w_down(hidden)
+        out = self.unfused(self.pre_norm(h))
+        return out if drop is None else drop(out, self.dropout)
 
 
 _FAT_NAMES = ("w1t_q", "w1t_q4", "w1t_sh", "w1t_s", "b1t", "w2t_q", "w2t_q4", "w2t_sh",
@@ -734,13 +804,13 @@ class Experts(nn.Module):
 
 
 class MoEFFN(nn.Module):
-    """Pre-normed top-2 MoE FFN (``layers/ffn`` of a MoE tree): ``pre_norm``,
+    """Pre-normed top-k MoE FFN (``layers/ffn`` of a MoE tree): ``pre_norm``,
     the router's LayerNorm ``router_ln`` and linear ``router`` (float in both
     layouts), ``w_noise`` (the noisy routing's learnt scale, read in
     training) and :class:`Experts`, with the config's routing, capacity and
     expert-dropout knobs."""
 
-    quant_matmul = "dyn"     # both set by ApertisForCausalLM.set_modes
+    quant_matmul = "auto"    # both set by ApertisForCausalLM.set_modes
     moe_mode = "fatk"
 
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool = False):
@@ -781,13 +851,15 @@ class MoEFFN(nn.Module):
         is, as the JAX package draws neither with ``rng=None``. Then, in the
         JAX package's order: training with the capacity limit,
         :func:`moe_dispatch`; else up to ``max(E, moe_dense_threshold_tokens)``
-        tokens the fat kernel where a fat stack is attached (``fatk``), the
+        tokens, where a fat stack is attached, the fat kernel (``fatk``) or
+        its two products in plain torch (``fat``, ``moe_dense_fat``), the
         per-expert kernel where a per-expert stack is (``kernel``), else
         ``moe_dense``; above it the grouped kernel over an attached int8 fat
-        stack, else ``moe_ragged``. The float dispatches run in the tree's
-        dtype; the serving stacks are not read in training. The pre-norm is
-        the plain norm in both layouts: the router reads the normed
-        tensor."""
+        stack (under ``fat`` too, as JAX's prefill; its decode step, past
+        that many rows, runs ``moe_ragged`` there), else ``moe_ragged``. The
+        float dispatches run in the tree's dtype; the serving stacks are not
+        read in training. The pre-norm is the plain norm in both layouts:
+        the router reads the normed tensor."""
         b, l, d = h.shape
         s = b * l
         num_experts = self.experts.b2.shape[0]
@@ -805,12 +877,15 @@ class MoEFFN(nn.Module):
         experts = dict(self.experts.named_parameters())
         fat = fused = None
         if not training:
-            fat = self.fat_stack()
+            fat = (self.experts.attached_fat() if self.moe_mode in ("fatk", "fat") else None)
             fused = self.experts.attached_fused() if self.moe_mode == "kernel" else None
         if training and self.capacity_factor is not None:
             capacity = max(1, int((s / num_experts) * self.capacity_factor))
             out = moe_ops.moe_dispatch(x, routing, experts, self.hidden_act, self.eps, capacity,
                                        active)
+        elif s <= self.fat_max_tokens and fat is not None and self.moe_mode == "fat":
+            out = moe_ops.moe_dense_fat(x, routing, fat, self.experts.b2, self.hidden_act,
+                                        self.eps)
         elif s <= self.fat_max_tokens and fat is not None:
             out = moe_ops.moe_dense_fat_kernel(x, routing, fat, self.experts.b2,
                                                self.hidden_act, self.eps)
@@ -842,7 +917,7 @@ class DecoderLayer(nn.Module):
         super().__init__()
         mixer = MultiHeadAttention if is_mha(config) else SelectiveSSM
         self.attn = mixer(config, device, dtype, quantized)
-        ffn = MoEFFN if is_moe(config) else DenseFFN
+        ffn = SwiGLUFFN if config.use_swiglu else MoEFFN if is_moe(config) else DenseFFN
         self.ffn = ffn(config, device, dtype, quantized)
         self.dropout = config.hidden_dropout_prob
 
@@ -852,9 +927,9 @@ class DecoderLayer(nn.Module):
         losses)``, ``losses`` the MoE FFN's ``(lb_loss, rz_loss)`` (None for a
         dense FFN). With ``drop`` (training with a step seed) its draws come
         in a fixed order: the MHA context's mask, the mixer output's, then
-        the dense FFN activation's mask or the MoE routing noise and expert
-        permutation, then the FFN output's mask (apertis.py:683, 696 and the
-        FFN's :506-528, 633/636)."""
+        the dense FFN activation's mask, the SwiGLU output's or the MoE
+        routing noise and expert permutation, then the FFN output's mask
+        (apertis.py:683, 696 and the FFN's :503, 506-528, 633/636)."""
         out, cache = self.attn(h, drop=drop, **mixer_kw)
         h = h + (out if drop is None else drop(out, self.dropout))
         losses = None
@@ -888,20 +963,31 @@ class Embedding(nn.Module):
         self.tok = _param((vocab, dim), device, dtype)
 
 
+class PositionTable(nn.Module):
+    """The absolute position embeddings ``abs_pos/emb`` (P, D)."""
+
+    def __init__(self, positions: int, dim: int, device, dtype):
+        super().__init__()
+        self.emb = _param((positions, dim), device, dtype)
+
+
 class ApertisForCausalLM(nn.Module):
     """The Apertis LM (selective SSM or MHA) in eval mode. Parameters are
     allocated uninitialised; ``models/convert.py::from_jax_params`` fills
     them. The model is built on the card unless ``device`` names another.
-    With ``quantized`` the four mixer projections and the FFN pair (the dense
-    ``w1``/``w2`` or the experts' stacks) are int8; ``int8_head`` allocates
-    the int8 tied head ``lm_head``. ``quant_matmul`` and ``moe_mode`` are the
-    serving modes of :meth:`set_modes`. A multimodal model holds the ViT
+    With ``quantized`` the four mixer projections and the FFN's linears (the
+    dense ``w1``/``w2``, SwiGLU's three or the experts' stacks) are int8;
+    ``int8_head`` allocates the int8 tied head ``lm_head``, an untied config
+    the float ``lm_head`` (never quantized, as in JAX). With absolute
+    positions it holds their table ``abs_pos``. ``quant_matmul`` and
+    ``moe_mode`` are the serving modes of :meth:`set_modes` (``auto`` and
+    ``fatk``, the JAX package's defaults). A multimodal model holds the ViT
     (``vision``) and, where its width is not the hidden size,
     ``vision_proj``; ``vision_quantized`` makes their linears int8."""
 
     def __init__(self, config: ApertisConfig, device="cuda",
                  dtype: torch.dtype = torch.float32, quantized: bool = False,
-                 int8_head: bool = False, quant_matmul: str = "dyn", moe_mode: str = "fatk",
+                 int8_head: bool = False, quant_matmul: str = "auto", moe_mode: str = "fatk",
                  vision_quantized: bool = False):
         super().__init__()
         check_supported(config, quantized)
@@ -910,6 +996,9 @@ class ApertisForCausalLM(nn.Module):
         self.config = config
         self.quantized = quantized
         self.embed = Embedding(config.vocab_size, config.hidden_size, device, dtype)
+        self.abs_pos = (PositionTable(config.max_position_embeddings, config.hidden_size,
+                                      device, dtype)
+                        if config.position_embedding_type == "absolute" else None)
         self.vision = self.vision_proj = None
         if config.multimodal:
             self.vision = VisionEncoder(config, device, dtype, vision_quantized)
@@ -921,12 +1010,16 @@ class ApertisForCausalLM(nn.Module):
             for _ in range(config.num_hidden_layers))
         self.final_norm = Norm(config.hidden_size, config.use_rmsnorm,
                                config.layer_norm_eps, device, dtype)
-        self.lm_head = (QuantLinear(config.hidden_size, config.vocab_size, False, device,
-                                    dtype) if int8_head else None)
+        self.lm_head = None
+        if not config.tie_word_embeddings:
+            self.lm_head = Linear(config.hidden_size, config.vocab_size, False, device, dtype)
+        elif int8_head:
+            self.lm_head = QuantLinear(config.hidden_size, config.vocab_size, False, device,
+                                       dtype)
         if quantized:
             self.requires_grad_(False)    # training takes float trees only
         self.set_modes(quant_matmul, moe_mode)
-        if is_mha(config):
+        if is_mha(config) and config.position_embedding_type == "rotary":
             # The RoPE tables, built once (f32, (max_position_embeddings, H/2)).
             cos, sin = rope_tables(config.hidden_size, config.max_position_embeddings,
                                    config.rope_theta, device)
@@ -939,18 +1032,22 @@ class ApertisForCausalLM(nn.Module):
 
     def set_modes(self, quant_matmul: str, moe_mode: str) -> None:
         """Choose the serving arithmetic the JAX package picks by environment
-        variable. ``quant_matmul`` (``APERTIS_QUANT_MATMUL``): ``dyn``,
-        ``weightonly``, ``pallas`` or ``fused``, for every int8 linear on
-        rows not quantized already (``QuantLinear.forward``, the head
-        included), for whether an int8 pre-norm fuses its row quantization
-        (``dyn`` only) and for ``moe_ragged``'s int8 branch (``dyn`` only).
-        ``moe_mode`` (``APERTIS_MOE_FUSED``): ``fatk``, ``kernel`` or ``0``,
-        which stack a MoE FFN reads once one is attached (none under ``0``),
-        see the module docstring. An unknown value raises ``ValueError``."""
+        variable. ``quant_matmul`` (``APERTIS_QUANT_MATMUL``): ``auto``,
+        ``dyn``, ``weightonly``, ``pallas`` or ``fused``, for every int8
+        linear on rows not quantized already (``QuantLinear.forward``, the
+        head included; ``ops/quant.py::resolve_mode``), for whether an
+        int8 pre-norm fuses its row quantization (``fuses_pre_norm``) and
+        for
+        ``moe_ragged``'s int8 branch (``dyn`` only, as in JAX). ``moe_mode``
+        (``APERTIS_MOE_FUSED``): ``fatk``, ``fat``, ``kernel`` or ``0``,
+        which stack a MoE FFN reads once one is attached (none under ``0``)
+        and how, see the module docstring. An unknown value raises
+        ``ValueError``."""
         check_serving_modes(quant_matmul, moe_mode)
         self.quant_matmul, self.moe_mode = quant_matmul, moe_mode
         for module in self.modules():
-            if isinstance(module, (QuantLinear, SelectiveSSM, DenseFFN, MoEFFN, VitLayer)):
+            if isinstance(module, (QuantLinear, SelectiveSSM, DenseFFN, SwiGLUFFN, MoEFFN,
+                                   VitLayer)):
                 module.quant_matmul = quant_matmul
             if isinstance(module, MoEFFN):
                 module.moe_mode = moe_mode
@@ -959,7 +1056,9 @@ class ApertisForCausalLM(nn.Module):
     def quantize_tied_head(self) -> None:
         """Attach ``lm_head``, an int8 copy of the tied head (``models/
         quantize.py::quantize_tied_head``); the float table stays for the
-        embedding lookups."""
+        embedding lookups. A no-op for an untied head, which stays float."""
+        if not self.config.tie_word_embeddings:
+            return
         tok = self.embed.tok
         q, s = quantize_weight(tok.T)
         self.lm_head = QuantLinear(tok.shape[1], tok.shape[0], False, tok.device, tok.dtype)
@@ -970,7 +1069,8 @@ class ApertisForCausalLM(nn.Module):
     def attach_moe_fat(self, bits: int = 8) -> None:
         """Build every MoE layer's fat stack now (``models/moe_fuse.py``), so
         that the first request does not: ``InferenceEngine`` calls it at
-        construction, as the JAX engine attaches its fat stacks. ``bits=4``
+        construction under ``moe_mode`` ``fatk`` and ``fat``, as the JAX
+        engine attaches its fat stacks. ``bits=4``
         packs it to int4 where H and I are multiples of 128 (else int8)."""
         for layer in self.layers:
             if isinstance(layer.ffn, MoEFFN):
@@ -1012,23 +1112,28 @@ class ApertisForCausalLM(nn.Module):
         the image prefix before them when the model is multimodal and
         ``pixel_values`` (B, 3, S, S), or raw (B, H, W, 3) or uint8 images,
         is given, and the mask grown by ones over the prefix
-        (``apertis.py::assemble_inputs``). None stays None, so that an MHA
-        ``forward`` without a mask stays causal and keeps the flash route
-        over prefix and text (JAX's ``mask_was_none``, apertis.py:787-801);
-        the SSM's prefill passes its mask in."""
+        (``apertis.py::assemble_inputs``); then, with absolute positions,
+        the table's rows 0..num_img + L - 1 added (the prefix's positions,
+        then the text's). None stays None, so that an MHA ``forward`` without
+        a mask stays causal and keeps the flash route over prefix and text
+        (JAX's ``mask_was_none``, apertis.py:787-801); the SSM's prefill
+        passes its mask in."""
         h = self.embed.tok[input_ids]
-        if self.vision is None or pixel_values is None:
-            return h, attention_mask, 0
-        if pixel_values.dtype == torch.uint8 or pixel_values.shape[-1] == 3:
-            pixel_values = preprocess_images(pixel_values, self.config.image_size)
-        img = self.vision(pixel_values.to(h.device))
-        if self.vision_proj is not None:
-            img = self.vision_proj(img)
-        b, num_img = h.shape[0], img.shape[1]
-        if attention_mask is not None:
-            attention_mask = torch.cat([torch.ones((b, num_img), dtype=attention_mask.dtype,
-                                                   device=h.device), attention_mask], dim=1)
-        return torch.cat([img.to(h.dtype), h], dim=1), attention_mask, num_img
+        num_img = 0
+        if self.vision is not None and pixel_values is not None:
+            if pixel_values.dtype == torch.uint8 or pixel_values.shape[-1] == 3:
+                pixel_values = preprocess_images(pixel_values, self.config.image_size)
+            img = self.vision(pixel_values.to(h.device))
+            if self.vision_proj is not None:
+                img = self.vision_proj(img)
+            b, num_img = h.shape[0], img.shape[1]
+            if attention_mask is not None:
+                attention_mask = torch.cat([torch.ones((b, num_img), dtype=attention_mask.dtype,
+                                                       device=h.device), attention_mask], dim=1)
+            h = torch.cat([img.to(h.dtype), h], dim=1)
+        if self.abs_pos is not None:
+            h = h + self.abs_pos.emb[:h.shape[1]]
+        return h, attention_mask, num_img
 
     def _lm_head(self, h: torch.Tensor) -> torch.Tensor:
         if self.lm_head is not None:
@@ -1037,12 +1142,14 @@ class ApertisForCausalLM(nn.Module):
 
     def _mha_kwargs(self, attention_mask: Optional[torch.Tensor], length: int) -> Dict:
         """The full-sequence arguments of the MHA layers: the causal x padding
-        bias (None without a mask), positions 0..L-1, the RoPE tables and
-        the flash gate."""
+        bias (None without a mask), positions 0..L-1, the RoPE tables (None
+        for absolute positions) and the flash gate."""
         bias = None if attention_mask is None else attn_ops.build_bias(attention_mask, length)
         return dict(bias=bias, pos_ids=torch.arange(length, device=self.device),
-                    rope=(self.rope_cos, self.rope_sin),
-                    flash=flash_eligible(self.config, length))
+                    rope=self._rope(), flash=flash_eligible(self.config, length))
+
+    def _rope(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        return (self.rope_cos, self.rope_sin) if hasattr(self, "rope_cos") else None
 
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None, *, training: bool = False,
@@ -1182,27 +1289,29 @@ class ApertisForCausalLM(nn.Module):
         ``cache``, updated in place. Selective SSM: each layer is one fused
         mixer step that also emits the FFN's input (normed, or normed and
         quantized; for MoE the expert input and the combine weights), then the
-        fused decode FFN; ``t``, ``attn_mask_row`` and ``positions`` do not
-        apply. A MoE model past ``moe_dense_threshold_tokens`` rows, or with
-        no fat stack attached (``moe_mode="kernel"`` or ``"0"``, or no
-        engine), runs the step without its epilogue and the FFN as over full
-        sequences, as the JAX package does (apertis.py:1224-1230), and so does
-        one with more experts than the epilogue's router takes
-        (``MOE_EPILOGUE_MAX_EXPERTS``); a dense
-        FFN that fails the
-        fused FFN's width test (``DenseFFN.fused_decode``) runs the step
-        without its epilogue and then the plain pre-norm and
-        :meth:`DenseFFN.unfused` (apertis.py:1234-1268, 1497-1500). MHA: see
-        :meth:`_mha_decode_step`."""
+        fused decode FFN; ``t`` and ``attn_mask_row`` do not apply, and
+        ``positions`` (default ``t``) only with absolute positions, whose
+        table rows are added to the embeddings (apertis.py:1155-1162). A MoE
+        model past ``moe_dense_threshold_tokens`` rows, with no fat stack
+        attached (``moe_mode`` ``fat``, ``kernel`` or ``0``, or no engine),
+        or with a top-k other than 2 runs the step without its epilogue and
+        the FFN as over full sequences, as the JAX package does
+        (apertis.py:1224-1230), and so does one with more experts than the
+        epilogue's router takes (``MOE_EPILOGUE_MAX_EXPERTS``); a dense FFN
+        that fails the fused FFN's width test (``DenseFFN.fused_decode``),
+        and a SwiGLU FFN, run the step without its epilogue and then the
+        plain pre-norm and the FFN's ``unfused`` (apertis.py:1234-1268,
+        1497-1500). MHA: see :meth:`_mha_decode_step`."""
         if is_mha(self.config):
             return self._mha_decode_step(cache, token_ids, t, attn_mask_row, positions)
         cfg = self.config
         eps = cfg.layer_norm_eps
-        h = self.embed.tok[token_ids]                              # (B, D)
+        h = self._decode_embeds(token_ids, t, positions)           # (B, D)
         b = h.shape[0]
         for i, layer in enumerate(self.layers):
             moe_full = is_moe(cfg) and (b > cfg.moe_dense_threshold_tokens
                                         or cfg.num_experts > MOE_EPILOGUE_MAX_EXPERTS
+                                        or cfg.experts_per_token != 2
                                         or layer.ffn.fat_stack() is None)
             conv = cache["conv"][i]
             ssm = cache["ssm"][i].view(b, -1)          # updated in place
@@ -1223,6 +1332,19 @@ class ApertisForCausalLM(nn.Module):
                 h = h2 + layer.ffn.unfused(layer.ffn.pre_norm(h2))
         return self._lm_head(self.final_norm(h)), cache
 
+    def _decode_embeds(self, token_ids: torch.Tensor, t: Optional[int],
+                       positions: Optional[torch.Tensor]) -> torch.Tensor:
+        """The decode step's input rows: the tokens' embeddings, plus the
+        absolute position table's rows at ``positions`` (default ``t``)."""
+        h = self.embed.tok[token_ids]
+        if self.abs_pos is None:
+            return h
+        if positions is None:
+            if t is None:
+                raise ValueError("decode_step with absolute positions needs positions or t")
+            positions = torch.full(token_ids.shape, t, device=h.device)
+        return h + self.abs_pos.emb[positions.long()]
+
     def _mha_decode_step(self, cache: Cache, token_ids: torch.Tensor, t: Optional[int],
                          attn_mask_row: Optional[torch.Tensor],
                          positions: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
@@ -1232,14 +1354,19 @@ class ApertisForCausalLM(nn.Module):
         to ``t``), ``positions`` (B,) the logical positions for RoPE (default
         ``t``; they differ for right-padded rows). Slot ``t`` is masked out of
         the cached attention (its token enters as the self-term) with the
-        additive ``NEG``. Each layer: the attention (:meth:`MultiHeadAttention.
-        decode`, which then writes slot ``t``), the residual, the plain FFN
-        pre-norm and the decode FFN kernel (int8: on rows quantized by
-        ``quantize_rows``), or :meth:`DenseFFN.unfused` where the fused FFN's
-        width test fails, the residual."""
+        additive ``NEG``. With absolute positions the table's rows at the
+        positions are added to the embeddings and nothing rotates. Each
+        layer: the attention (:meth:`MultiHeadAttention.decode`, which then
+        writes slot ``t``), the residual, then the FFN: a MoE FFN as over
+        full sequences (its plain pre-norm, routing, then the fat kernel up
+        to ``max(E, moe_dense_threshold_tokens)`` rows, or what ``moe_mode``
+        takes: apertis.py:545-580, 1193-1230); else the plain pre-norm and
+        the decode FFN kernel (int8: on rows quantized by ``quantize_rows``),
+        or the FFN's ``unfused`` where the fused FFN's width test fails and
+        for SwiGLU; the residual."""
         if t is None:
             raise ValueError("decode_step of an MHA model needs the cache slot t")
-        h = self.embed.tok[token_ids]                              # (B, D)
+        h = self._decode_embeds(token_ids, t, positions)           # (B, D)
         b = h.shape[0]
         dev = h.device
         slots = torch.arange(cache["k"].shape[2], device=dev)[None, :]
@@ -1247,14 +1374,19 @@ class ApertisForCausalLM(nn.Module):
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         bias = torch.where(valid & (slots != t), zero, torch.full_like(zero, NEG))
         bias = bias.expand(b, -1).contiguous()
-        pos = (torch.full((b,), t, device=dev) if positions is None else positions).long()
-        rope_rows = (self.rope_cos[pos], self.rope_sin[pos])
+        rope_rows = None
+        if self._rope() is not None:
+            pos = (torch.full((b,), t, device=dev) if positions is None else positions).long()
+            rope_rows = (self.rope_cos[pos], self.rope_sin[pos])
         int8_kv = "k_ps" in cache
         for i, layer in enumerate(self.layers):
             scales = (cache["k_ps"][i], cache["v_ps"][i]) if int8_kv else None
             h = h + layer.attn.decode(h, cache["k"][i], cache["v"][i], scales, bias,
                                       rope_rows, t)
             ffn = layer.ffn
+            if isinstance(ffn, MoEFFN):
+                h = h + ffn(h[:, None, :])[0][:, 0]
+                continue
             x = ffn.pre_norm(h)
             if not ffn.fused_decode:
                 h = h + ffn.unfused(x)

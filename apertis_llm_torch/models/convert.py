@@ -81,7 +81,7 @@ def from_jax_params(tree: Dict[str, Any], config: ApertisConfig, device="cuda",
     linears, are part int8 and part float."""
     model = ApertisForCausalLM(config, device=device, dtype=dtype,
                                quantized=quantized_layout(tree),
-                               int8_head="lm_head" in tree,
+                               int8_head="w_q" in tree.get("lm_head", {}),
                                vision_quantized=vision_quantized_layout(tree))
     copy_tree(model, tree, {prefix: (field, getattr(config, field))
                             for prefix, field in STACKED})
@@ -179,7 +179,10 @@ def _attn_layer(sd, i: int, config: ApertisConfig) -> Dict[str, Any]:
 def _ffn_layer(sd, i: int, config: ApertisConfig) -> Dict[str, Any]:
     pre = f"model.layers.{i}.feed_forward"
     p: Dict[str, Any] = {"pre_norm": _norm_params(sd, f"{pre}.pre_norm")}
-    if config.use_expert_system and config.num_experts > 0:
+    if config.use_swiglu:
+        for name in ("w_gate", "w_up", "w_down"):
+            p[name] = _linear_params(sd, f"{pre}.ffn.{name}")
+    elif config.use_expert_system and config.num_experts > 0:
         p["router_ln"] = {"w": sd[f"{pre}.ffn.router_norm.weight"],
                           "b": sd[f"{pre}.ffn.router_norm.bias"]}
         p["router"] = _linear_params(sd, f"{pre}.ffn.router")
@@ -235,10 +238,15 @@ def from_torch_state_dict(sd: Mapping[str, torch.Tensor],
     takes (``convert.py::from_torch_state_dict``), for the variants the port
     serves (:func:`check_supported` raises for the others): linear weights
     transposed to (in, out), per-layer tensors stacked, the experts' stacked
-    on their own axis, and the ViT's tree and ``vision_proj`` where the
-    config is multimodal and the file holds them."""
+    on their own axis, SwiGLU's three linears, the absolute position table
+    and the untied ``lm_head`` where the config asks for them and the file
+    holds them, and the ViT's tree and ``vision_proj`` where the config is
+    multimodal and the file holds them."""
     check_supported(config)
     params: Dict[str, Any] = {"embed": {"tok": sd["model.token_embeddings.weight"]}}
+    if (config.position_embedding_type == "absolute"
+            and "model.abs_pos_embeddings.weight" in sd):
+        params["abs_pos"] = {"emb": sd["model.abs_pos_embeddings.weight"]}
     if config.multimodal and "model.multimodal_encoder.patch_embed.weight" in sd:
         params["vision"] = _vision(sd, config)
         if "model.vision_projection.weight" in sd:
@@ -247,6 +255,8 @@ def from_torch_state_dict(sd: Mapping[str, torch.Tensor],
                                 "ffn": _ffn_layer(sd, i, config)}
                                for i in range(config.num_hidden_layers)])
     params["final_norm"] = _norm_params(sd, "model.final_post_norm")
+    if not config.tie_word_embeddings and "lm_head.weight" in sd:
+        params["lm_head"] = _linear_params(sd, "lm_head")
     return params
 
 
@@ -259,7 +269,13 @@ def infer_config_from_state_dict(sd: Mapping[str, torch.Tensor]) -> ApertisConfi
     experts, the true FFN width and the ViT's width, patch, depth and image
     size; and, where the MHA projections have biases, attention dropout 0,
     which the reference's biases imply (JAX keeps its default there, and its
-    linears read the biases from the tree). Every other field keeps its
+    linears read the biases from the tree). Beyond JAX's rules, which leave
+    these to a ``config.json``, because the port's modules follow the config
+    where JAX's code follows the tree: absolute positions and their count
+    from ``model.abs_pos_embeddings.weight``, an untied head where
+    ``lm_head.weight`` is not the embedding table, and a SwiGLU FFN's width
+    (an ``intermediate_size`` whose ``swiglu_ffn_dim`` is ``w_gate``'s,
+    JAX's ``hidden * 4`` where that one fits). Every other field keeps its
     default."""
     def shape(key):
         return tuple(sd[key].shape) if key in sd else None
@@ -318,6 +334,18 @@ def infer_config_from_state_dict(sd: Mapping[str, torch.Tensor]) -> ApertisConfi
             inter = int(s[0])
             break
     cfg["intermediate_size"] = inter if inter is not None else hidden_size * 4
+    if cfg["use_swiglu"] and (s := shape("model.layers.0.feed_forward.ffn.w_gate.weight")):
+        width = int(s[0])
+        if ApertisConfig(hidden_size=hidden_size, num_attention_heads=1,
+                         intermediate_size=cfg["intermediate_size"]).swiglu_ffn_dim != width:
+            # swiglu_ffn_dim rounds 2/3 of the width up to a multiple of 256.
+            cfg["intermediate_size"] = width * 3 // 2
+    if (pos := shape("model.abs_pos_embeddings.weight")) is not None:
+        cfg["position_embedding_type"] = "absolute"
+        cfg["max_position_embeddings"] = int(pos[0])
+    if "lm_head.weight" in sd and "model.token_embeddings.weight" in sd and not torch.equal(
+            sd["lm_head.weight"], sd["model.token_embeddings.weight"]):
+        cfg["tie_word_embeddings"] = False
 
     if any(".ffn.experts." in k for k in sd):
         cfg["use_expert_system"] = True
@@ -396,8 +424,10 @@ def to_torch_state_dict(params: Dict[str, Any], config: ApertisConfig) -> Dict[s
     """The reference model's ``state_dict`` (f32 CPU tensors) of a float
     tree, as ``apertis_llm_tpu/models/convert.py::to_torch_state_dict``
     writes it: linear weights transposed to (out, in), the conv taps as (C,
-    1, K), the tied head as ``lm_head.weight``, and a ViT's tree under
-    ``model.multimodal_encoder`` and ``model.vision_projection``."""
+    1, K), the absolute position table as ``model.abs_pos_embeddings``, the
+    head (the tree's ``lm_head``, else the tied table) as ``lm_head.weight``,
+    and a ViT's tree under ``model.multimodal_encoder`` and
+    ``model.vision_projection``."""
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, val, transpose=False):
@@ -423,6 +453,8 @@ def to_torch_state_dict(params: Dict[str, Any], config: ApertisConfig) -> Dict[s
         return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
     put("model.token_embeddings.weight", params["embed"]["tok"])
+    if "abs_pos" in params:
+        put("model.abs_pos_embeddings.weight", params["abs_pos"]["emb"])
     for i in range(config.num_hidden_layers):
         lp = layer(params["layers"], i)
         a, f = lp["attn"], lp["ffn"]
@@ -446,7 +478,10 @@ def to_torch_state_dict(params: Dict[str, Any], config: ApertisConfig) -> Dict[s
             put_linear(f"{pre}.out_proj", a["o"])
         pre = f"model.layers.{i}.feed_forward"
         put_norm(f"{pre}.pre_norm", f["pre_norm"])
-        if "experts" in f:
+        if "w_gate" in f:
+            for name in ("w_gate", "w_up", "w_down"):
+                put_linear(f"{pre}.ffn.{name}", f[name])
+        elif "experts" in f:
             put(f"{pre}.ffn.router_norm.weight", f["router_ln"]["w"])
             put(f"{pre}.ffn.router_norm.bias", f["router_ln"]["b"])
             put_linear(f"{pre}.ffn.router", f["router"])
@@ -464,7 +499,10 @@ def to_torch_state_dict(params: Dict[str, Any], config: ApertisConfig) -> Dict[s
             put_linear(f"{pre}.ffn.0", f["w1"])
             put_linear(f"{pre}.ffn.3", f["w2"])
     put_norm("model.final_post_norm", params["final_norm"])
-    put("lm_head.weight", params["embed"]["tok"])    # tied
+    if "lm_head" in params:
+        put_linear("lm_head", params["lm_head"])
+    else:
+        put("lm_head.weight", params["embed"]["tok"])    # tied
     if "vision" in params:
         # The ViT (convert.py:371-397): the patch embedding as the
         # reference's Conv2d weight (dv, 3, P, P), the layers as

@@ -2,8 +2,10 @@
 
 ``init_params`` builds the same nested dict of names and shapes as
 ``apertis_llm_tpu/models/params.py::init_params`` for the selective-SSM or
-the MHA mixer, a dense or a MoE FFN and, for a multimodal model, the
-ViT's ``vision`` tree and ``vision_proj`` (``:129-172``): per-layer tensors
+the MHA mixer, a dense, SwiGLU or MoE FFN, the absolute position table
+``abs_pos`` and the untied ``lm_head`` where the config asks for them and,
+for a multimodal model, the ViT's ``vision`` tree and ``vision_proj``
+(``:129-211``): per-layer tensors
 stacked along a leading ``num_hidden_layers`` axis, linear weights in the
 (in, out) layout, and the same distributions
 (reference: src/model/core.py:1045-1062, 314-318): normal(0,
@@ -37,6 +39,7 @@ Params = Dict[str, Any]
 # pair, in a tree the port serves: the SSM mixer's four, or MHA's q/k/v/o.
 _SSM_PROJECTIONS = ("in_proj_x", "in_proj_z", "x_param_proj", "out_proj")
 _MHA_PROJECTIONS = ("q", "k", "v", "o")
+_SWIGLU_LINEARS = ("w_gate", "w_up", "w_down")
 
 
 def resolve_device(device) -> torch.device:
@@ -50,15 +53,16 @@ def resolve_device(device) -> torch.device:
 
 
 def quantized_layout(params: Params) -> bool:
-    """True when the four mixer projections and the FFN pair of
+    """True when the four mixer projections and the FFN's linears of
     ``params["layers"]`` are int8, False when they are all float. The mixer
     projections are the SSM mixer's ``in_proj_x``, ``in_proj_z``,
     ``x_param_proj`` and ``out_proj``, or MHA's ``q``, ``k``, ``v`` and ``o``
-    (a tree with ``attn.q`` is an MHA tree). The FFN pair is ``ffn.w1`` /
-    ``ffn.w2`` (``{w_q, w_s}`` or ``{w}``) in a dense tree and
-    ``ffn.experts.w1`` / ``w2`` (``w1_q, w1_s`` or ``w1``) in a MoE tree. A
-    mixed tree raises ``NotImplementedError``: the JAX package serves one
-    quietly through its unfused path, which the port does not have."""
+    (a tree with ``attn.q`` is an MHA tree). The FFN's are ``ffn.w1`` /
+    ``ffn.w2`` (``{w_q, w_s}`` or ``{w}``) in a dense tree, ``ffn.w_gate`` /
+    ``w_up`` / ``w_down`` in a SwiGLU tree and ``ffn.experts.w1`` / ``w2``
+    (``w1_q, w1_s`` or ``w1``) in a MoE tree. A mixed tree raises
+    ``NotImplementedError``: the JAX package serves one quietly through its
+    unfused path, which the port does not have."""
     layers = params.get("layers", {})
     attn = layers.get("attn", {})
     kinds = {}
@@ -67,7 +71,7 @@ def quantized_layout(params: Params) -> bool:
         kinds[f"attn.{name}"] = "int8" if "w_q" in leaf else "float" if "w" in leaf else None
     ffn = layers.get("ffn", {})
     experts = ffn.get("experts")
-    for name in ("w1", "w2"):
+    for name in _SWIGLU_LINEARS if "w_gate" in ffn else ("w1", "w2"):
         if experts is not None:
             kinds[f"ffn.experts.{name}"] = ("int8" if name + "_q" in experts else
                                             "float" if name in experts else None)
@@ -108,7 +112,11 @@ def vision_quantized_layout(params: Params) -> bool:
 
 
 def is_moe(config: ApertisConfig) -> bool:
-    return bool(config.use_expert_system and config.num_experts > 0)
+    """A MoE FFN: the expert system with experts, and no SwiGLU, which takes
+    precedence in the JAX package (``apertis.py::_ffn``, ``params.py::
+    init_ffn_params``)."""
+    return bool(config.use_expert_system and config.num_experts > 0
+                and not config.use_swiglu)
 
 
 def is_mha(config: ApertisConfig) -> bool:
@@ -116,39 +124,25 @@ def is_mha(config: ApertisConfig) -> bool:
 
 
 def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
-    """Raise unless ``config`` is a variant ported so far: the text-only
-    decoder with rotary positions and a tied LM head, in bf16/f32 or with
-    int8 projections, whose mixer is the selective SSM (with a dense FFN or
-    a top-2 MoE FFN, its hidden and mixer widths multiples of 4) or standard
-    MHA (with a dense FFN, and a head width the
-    decode-attention kernel takes: a multiple of 32 up to 256); either
-    mixer also with the ViT image prefix (``multimodal``). MHA with MoE,
-    SwiGLU, absolute positions and MoE with another top-k are not ported
-    yet (ROADMAP.md). Int8 weights
-    are served at any width the JAX package serves: where the fused decode
-    FFN's width test fails, the FFN runs unfused (``models/apertis.py``)."""
+    """Raise unless ``config`` is a variant ported so far: the decoder in
+    bf16/f32 or with int8 projections, whose mixer is the selective SSM
+    (its hidden and mixer widths multiples of 4) or standard MHA (at any
+    head width: the decode-attention kernel takes multiples of 32 up to
+    256, plain torch the others, as the JAX package serves them through
+    XLA), with a dense, SwiGLU or top-k MoE FFN (any k, its hidden and
+    intermediate widths multiples of 16), rotary or absolute positions, a
+    tied or an untied LM head, and either mixer also with the ViT image
+    prefix (``multimodal``). Int8 weights are served at any width the JAX
+    package serves: where the fused decode FFN's width test fails, the FFN
+    runs unfused (``models/apertis.py``)."""
     missing = []
     if config.attention_type not in ("selective_ssm", "standard_mha"):
         missing.append(f"attention_type={config.attention_type!r}")
-    if is_mha(config):
-        if is_moe(config):
-            missing.append("MHA with a MoE FFN")
-        if config.head_dim % 32 or config.head_dim > 256:
-            missing.append(f"MHA with head_dim={config.head_dim} (a multiple of 32 up to 256)")
-    if config.use_swiglu:
-        missing.append("use_swiglu")
-    if is_moe(config) and config.experts_per_token != 2:
-        # The decode step's MoE epilogue is top-2 only (apertis.py:1228).
-        missing.append(f"MoE with experts_per_token={config.experts_per_token} (top-2 only)")
     if config.multimodal and (config.image_size % config.vision_patch_size
                               or config.vision_embed_dim % config.vision_heads):
         missing.append(f"a ViT with image_size={config.image_size}, patch "
                        f"{config.vision_patch_size}, width {config.vision_embed_dim} and "
                        f"{config.vision_heads} heads (whole patches and heads)")
-    if config.position_embedding_type == "absolute":
-        missing.append("absolute position embeddings")
-    if not config.tie_word_embeddings:
-        missing.append("an untied LM head")
     if config.attention_type == "selective_ssm" and (
             config.hidden_size % 4 or config.ssm_d_inner % 4):
         # The decode step (ops/kernels/ssm_step.py) reads D and C in units of
@@ -158,9 +152,10 @@ def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
                        "multiple of 4 (ROADMAP.md queue 2, item B1)")
     if is_moe(config):
         # The MoE kernels read int8 rows and weights in 16-byte units; their
-        # fat stack is int8 in both layouts.
+        # fat stack is int8 in both layouts (ROADMAP.md queue 2, item B2).
         if config.hidden_size % 16 or config.intermediate_size % 16:
-            missing.append("MoE with hidden or intermediate size not a multiple of 16")
+            missing.append("MoE with hidden or intermediate size not a multiple of 16 "
+                           "(ROADMAP.md queue 2, item B2)")
     if missing:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + ", ".join(missing) + " (see ROADMAP.md)")
@@ -176,16 +171,16 @@ def check_quant_bits(quant_bits: int) -> None:
         raise ValueError(f"quant_bits must be 4 or 8, got {quant_bits}")
 
 
-MOE_MODES = ("fatk", "kernel", "0")
+MOE_MODES = ("fatk", "fat", "kernel", "0")
 
 
 def check_serving_modes(quant_matmul: str, moe_mode: str) -> None:
     """Raise ``ValueError`` unless ``quant_matmul`` is one of the JAX
-    package's ``APERTIS_QUANT_MATMUL`` values the port serves (``dyn``,
+    package's ``APERTIS_QUANT_MATMUL`` values (``auto``, ``dyn``,
     ``weightonly``, ``pallas``, ``fused``) and ``moe_mode`` one of its
-    ``APERTIS_MOE_FUSED`` values (``fatk``; ``kernel``, its ``kernel``/``1``;
-    ``0``, no stack). ``auto`` and the kernel-free ``fat`` are not ported
-    (ROADMAP.md)."""
+    ``APERTIS_MOE_FUSED`` values (``fatk``; ``fat``, the fat stack's
+    products in plain torch; ``kernel``, its ``kernel``/``1``; ``0``, no
+    stack)."""
     if quant_matmul not in QUANT_MATMUL_MODES:
         raise ValueError(f"quant_matmul must be one of {QUANT_MATMUL_MODES}, got {quant_matmul!r}")
     if moe_mode not in MOE_MODES:
@@ -196,8 +191,9 @@ def check_trainable(config: ApertisConfig, quantized: bool = False, device="cuda
                     mesh_shape=None) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP.md) unless the port can
     train ``config`` as asked: a variant :func:`check_supported` takes (the
-    dense or top-2 MoE selective-SSM model at any ``ssm_d_state`` up to
-    1024, the MHA model, bf16 or f32 compute), with a float tree, on a mesh
+    selective-SSM model at any ``ssm_d_state`` up to 1024 or the MHA model,
+    with any FFN, positions and head; bf16 or f32 compute), with a float
+    tree, on a mesh
     ``mesh_shape`` over (data, model, expert, seq) (None: one rank) that the
     port runs: one rank, or ``(data, 1, 1, seq)`` for the dense SSM model and
     ``(data, 1, 1, 1)`` for the MHA model; a multimodal model on one rank.
@@ -275,6 +271,8 @@ def init_params(config: ApertisConfig, generator: torch.Generator,
     embed = init.normal((config.vocab_size, h), std)
     embed[config.pad_token_id] = 0.0
     params: Params = {"embed": {"tok": embed}}
+    if config.position_embedding_type == "absolute":
+        params["abs_pos"] = {"emb": init.normal((config.max_position_embeddings, h), std)}
 
     attn = {"pre_norm": init.norm(nl, h, rms)}
     if is_mha(config):
@@ -297,7 +295,12 @@ def init_params(config: ApertisConfig, generator: torch.Generator,
         })
     inter = config.intermediate_size
     ffn = {"pre_norm": init.norm(nl, h, rms)}
-    if is_moe(config):
+    if config.use_swiglu:
+        f = config.swiglu_ffn_dim
+        ffn["w_gate"] = init.linear(nl, h, f, std, bias=False)
+        ffn["w_up"] = init.linear(nl, h, f, std, bias=False)
+        ffn["w_down"] = init.linear(nl, f, h, std, bias=False)
+    elif is_moe(config):
         e = config.num_experts
         ffn["router_ln"] = init.norm(nl, h, rms=False)
         ffn["router"] = init.linear(nl, h, e, std, bias=True)
@@ -316,6 +319,8 @@ def init_params(config: ApertisConfig, generator: torch.Generator,
         ffn["w2"] = init.linear(nl, inter, h, std, bias=True)
     params["layers"] = {"attn": attn, "ffn": ffn}
     params["final_norm"] = init.norm((), h, rms)
+    if not config.tie_word_embeddings:
+        params["lm_head"] = init.linear((), h, config.vocab_size, std, bias=False)
     if config.multimodal:
         params["vision"] = _init_vision(init, config)
         if config.vision_embed_dim != h:

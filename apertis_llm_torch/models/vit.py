@@ -14,11 +14,12 @@ elsewhere.
 
 The int8 form (``quantize_params(quantize_vision=True)``): the linears are
 ``QuantLinear``s and ``in_proj`` its ``{in_proj_w_q, in_proj_w_s,
-in_proj_b}``; under ``quant_matmul="dyn"`` ``ln1`` and ``ln2`` run the fused
-norm + quantize (``ops/kernels/ln_quant.py``) and feed ``in_proj`` and
-``linear1`` their int8 rows (``pre_q``), as ``_maybe_ln_quant`` does; the
-other linears quantize their rows at run time. Outside ``dyn`` the plain
-norm runs, as in the decoder.
+in_proj_b}``; where the mode fuses the pre-norms at the rows (``ops/quant.py::
+fuses_pre_norm``) ``ln1`` and ``ln2`` run the fused norm + quantize
+(``ops/kernels/ln_quant.py``) and feed ``in_proj`` and ``linear1`` their
+int8 rows (``pre_q``), as ``_maybe_ln_quant`` does; the other linears
+quantize their rows at run time. Elsewhere the plain norm runs, as in the
+decoder.
 
 TPU-only, not ported: the padding of the token axis from 197 to 200 with a
 ``-inf`` key bias (vit.py:144-156), which leaves the real tokens' outputs
@@ -39,7 +40,7 @@ from apertis_llm_torch.config import ApertisConfig
 from apertis_llm_torch.ops.activations import gelu
 from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize
 from apertis_llm_torch.ops.norms import layer_norm
-from apertis_llm_torch.ops.quant import linear_int8, linear_pre_q
+from apertis_llm_torch.ops.quant import fuses_pre_norm, linear_int8, linear_pre_q
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -67,7 +68,7 @@ class VitLayer(nn.Module):
     int8), ``attn_out``, ``ln2``, ``linear1``, ``linear2``; with
     ``config.vision_heads`` heads unless ``heads`` names another count."""
 
-    quant_matmul = "dyn"     # set by ApertisForCausalLM.set_modes
+    quant_matmul = "auto"    # set by ApertisForCausalLM.set_modes
 
     def __init__(self, config: ApertisConfig, device, dtype, quantized: bool,
                  heads: Optional[int] = None):
@@ -90,8 +91,9 @@ class VitLayer(nn.Module):
 
     def _pre_norm(self, norm, x: torch.Tensor):
         """``(normed, None)``, or ``(None, (x_q, x_s))`` where the norm fuses
-        with its consumer's row quantization (int8 under ``dyn``)."""
-        if self.quantized and self.quant_matmul == "dyn":
+        with its consumer's row quantization (int8, where the mode fuses it
+        at x's rows: ``fuses_pre_norm``)."""
+        if self.quantized and fuses_pre_norm(self.quant_matmul, x.numel() // x.shape[-1]):
             return None, ln_quantize(x, norm.w, norm.b, VIT_LN_EPS)
         return norm(x), None
 

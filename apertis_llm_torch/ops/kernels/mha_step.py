@@ -23,9 +23,15 @@ import torch
 from apertis_llm_torch.ops.kernels import _build
 
 NEG = -1e30        # additive bias of a masked slot (mha_step.py:51)
-# Every multiple of 32 up to 256, the widths models/params.py::check_supported
-# admits: lanes of a warp each hold Dh / 32 values (csrc).
+# Every multiple of 32 up to 256: lanes of a warp each hold Dh / 32 values
+# (csrc). The model serves other head widths through the plain version.
 _HEAD_DIMS = (32, 64, 96, 128, 160, 192, 224, 256)
+
+
+def kernel_takes(head_dim: int) -> bool:
+    """Whether the kernel serves heads of ``head_dim``: a multiple of 32 up
+    to 256."""
+    return head_dim in _HEAD_DIMS
 
 
 def quantize_heads(t: torch.Tensor, head_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:

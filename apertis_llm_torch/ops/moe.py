@@ -2,22 +2,26 @@
 around the expert kernels (``apertis_llm_tpu/ops/moe.py``):
 
   * :func:`route`: router LayerNorm -> f32 logits (+ noise in training) ->
-    softmax -> top-1 or top-2 by argmax passes (the first index wins a tie)
+    softmax -> top-k by k argmax passes (the first index wins a tie)
     -> weights renormalised by their sum + 1e-6; in training the
     load-balancing and router z-losses, which are zero in eval;
   * :func:`expert_dropout_mask`: whole experts dropped for a training step;
   * :func:`moe_dispatch`: the capacity-bucketed dispatch of training;
   * :func:`moe_dense`: every expert on every token, combined by the routing
     weights, up to ``max(E, moe_dense_threshold_tokens)`` tokens when no
-    serving stack is attached; int8 experts under ``quant_matmul="dyn"``
-    take its int8 branch (each expert's w8a8 products through the w8a8
-    kernel, ``quant_matmul_dyn_pre_q``);
+    serving stack is attached; int8 experts take its int8 branch (each
+    expert's w8a8 products through the w8a8 kernel,
+    ``quant_matmul_dyn_pre_q``) where ``quant_matmul`` resolves to ``dyn``
+    (``ops/quant.py::resolve_mode``: under ``dyn`` only);
   * :func:`moe_ragged`: the sort-based dispatch whose expert groups run
     their products one group at a time, above that token count without the
     capacity limit, or when the attached fat stack is int4 (the grouped
     kernel reads int8 stacks only) or is not attached;
   * :func:`moe_dense_fat_kernel`: the glue of the combine-folded fat kernel
     (``ops/kernels/moe_ffn.py``), for small token counts;
+  * :func:`moe_dense_fat`: the same fat stack's two products in plain torch
+    (``moe_mode="fat"``, the JAX package's plain-XLA ``moe_dense_fat``),
+    for small token counts;
   * :func:`moe_grouped_fat`: the counting-sort dispatch around the grouped
     kernel (``ops/kernels/moe_grouped.py``), for large token counts;
   * :func:`moe_dense_fused`: the glue of the per-expert kernel
@@ -52,7 +56,8 @@ from apertis_llm_torch.ops.kernels.moe_ffn import (
 from apertis_llm_torch.ops.kernels.moe_grouped import TILE, expert_ffn_grouped
 from apertis_llm_torch.ops.kernels.quant_matmul import quant_matmul_dyn_pre_q
 from apertis_llm_torch.ops.norms import layer_norm
-from apertis_llm_torch.ops.quant import quantize_rows
+from apertis_llm_torch.models.quantize import unpack_int4
+from apertis_llm_torch.ops.quant import int_mm, quantize_rows, resolve_mode
 
 # One layer's fat stack: w1t_q, w1t_s, b1t, w2t_q, w2t_s, or for int4
 # w1t_q4, w1t_sh, w1t_s, b1t, w2t_q4, w2t_sh, w2t_s.
@@ -110,19 +115,18 @@ def route(x: torch.Tensor, router_ln_w: torch.Tensor, router_ln_b: torch.Tensor,
 
 
 def _top_k_gates(gates: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-1 or top-2 over the expert axis by argmax passes, the second
-    masking the first winner with -inf, so that the first index wins a tie
-    (the JAX package's order, for ``lax.top_k`` too). The port serves top-2
-    only (``models/params.py::check_supported``)."""
-    if k not in (1, 2):
-        raise NotImplementedError(f"top-{k} routing is not ported (top-1 and top-2 are)")
-    i1 = gates.argmax(dim=-1, keepdim=True)
-    w1 = gates.gather(-1, i1)
-    if k == 1:
-        return w1, i1
-    i2 = gates.scatter(-1, i1, float("-inf")).argmax(dim=-1, keepdim=True)
-    w2 = gates.gather(-1, i2)
-    return torch.cat([w1, w2], dim=-1), torch.cat([i1, i2], dim=-1)
+    """Top-k over the expert axis by k argmax passes, each masking the
+    winners before it with -inf, so that the lowest index wins a tie and
+    the choices come in descending order: the order of the JAX package's
+    argmax passes (k <= 2) and of ``lax.top_k`` (any k)."""
+    idx = []
+    masked = gates
+    for _ in range(k):
+        i = masked.argmax(dim=-1, keepdim=True)
+        idx.append(i)
+        masked = masked.scatter(-1, i, float("-inf"))
+    top_i = torch.cat(idx, dim=-1)
+    return gates.gather(-1, top_i), top_i
 
 
 def expert_dropout_mask(generator: torch.Generator, num_experts: int,
@@ -195,11 +199,12 @@ def moe_dense(x: torch.Tensor, routing: RouterOutput, experts: Dict[str, torch.T
     """Every expert on every token, combined with the routing weights (times
     the active mask): ``sum_e combine[s, e] * (act(LN_e(x) @ W1_e + b1_e) @
     W2_e + b2_e)`` in x's dtype (``ops/moe.py::moe_dense``). Int8 experts
-    take the int8 branch (``_moe_dense_int8``) under ``quant_matmul="dyn"``,
-    where the JAX package takes it under ``APERTIS_QUANT_MATMUL=dyn``, and
-    are dequantized in x's dtype otherwise."""
+    take the int8 branch (``_moe_dense_int8``) where ``quant_matmul``
+    resolves to ``dyn``, as the JAX package's ``_use_dyn_int8`` mirrors
+    ``_linear``'s rule, and are dequantized in x's dtype otherwise."""
     xn = _expert_norm(x[None], experts, layer_norm_eps)
-    if quant_matmul == "dyn" and "w1_q" in experts and "w2_q" in experts:
+    if (resolve_mode(quant_matmul) == "dyn" and "w1_q" in experts
+            and "w2_q" in experts):
         act = get_activation(hidden_act)
         hid = act(_dyn_int8_batched(xn, experts["w1_q"], experts["w1_s"])
                   + experts["b1"][:, None, :])
@@ -299,6 +304,33 @@ def moe_dense_fat_kernel(x: torch.Tensor, routing: RouterOutput, fat: FatStack,
     combine = _combine_weights(routing, b2.shape[0], torch.float32)
     out = fat_ffn(xq, xs, combine, fat, b2.shape[0], hidden_act)
     return (out + combine @ b2.float()).to(x.dtype)
+
+
+def moe_dense_fat(x: torch.Tensor, routing: RouterOutput, fat: FatStack, b2: torch.Tensor,
+                  hidden_act: str, layer_norm_eps: float) -> torch.Tensor:
+    """Combine-folded all-expert FFN of tokens x (S, H) as two plain 2-D
+    int8 products over the fat stack (``ops/moe.py::moe_dense_fat``, the JAX
+    package's ``APERTIS_MOE_FUSED=fat``): the centred quantization, ``acc1 =
+    xq @ W1t`` in int32 (exact), ``hidden = act(acc1 * xs * w1t_s + b1t)``
+    in f32, times each column's combine weight, requantized per row, ``acc2
+    = hq @ W2t``, then ``acc2 * hs * w2t_s + combine @ b2`` in f32, cast to
+    x's dtype. An int4 stack is unpacked to int8 first. No kernel: the
+    products are :func:`int_mm`, as JAX leaves them to XLA."""
+    num_experts = b2.shape[0]
+    xq, xs = center_quantize(x, layer_norm_eps)
+    if "w1t_q4" in fat:
+        w1t = unpack_int4(fat["w1t_q4"], fat["w1t_sh"])
+        w2t = unpack_int4(fat["w2t_q4"], fat["w2t_sh"])
+    else:
+        w1t, w2t = fat["w1t_q"], fat["w2t_q"]
+    acc1 = int_mm(xq, w1t).float()
+    hidden = get_activation(hidden_act)(acc1 * xs * fat["w1t_s"].float() + fat["b1t"].float())
+    combine = _combine_weights(routing, num_experts, torch.float32)
+    hidden = hidden * torch.repeat_interleave(combine, hidden.shape[1] // num_experts, dim=1)
+    hq, hs = quantize_rows(hidden)
+    acc2 = int_mm(hq, w2t).float()
+    out = acc2 * hs * fat["w2t_s"].float() + combine @ b2.float()
+    return out.to(x.dtype)
 
 
 def moe_dense_fused(x: torch.Tensor, routing: RouterOutput, fused: Dict[str, torch.Tensor],

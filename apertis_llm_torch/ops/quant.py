@@ -5,7 +5,10 @@ XLA) and the int8-weight linears of the four ``quant_matmul`` modes
 (:func:`linear_int8`, the JAX package's ``APERTIS_QUANT_MATMUL``): ``dyn``,
 the dynamic w8a8 product with per-output-channel weight scales; ``weightonly``,
 the dequantized weight in plain torch; ``pallas`` and ``fused``, the
-weight-only and the block-quantizing kernels. On the card the products are
+weight-only and the block-quantizing kernels; ``auto``, the default, the
+weight-only kernel, and the w8a8 product behind a fused pre-norm from the
+card's measured row count (:func:`resolve_mode`, :func:`fuses_pre_norm`).
+On the card the products are
 the hand-written kernels of ``ops/kernels/quant_matmul.py``;
 :func:`linear_pre_q_reference` is the w8a8 product's plain version, whose
 int8 x int8 -> int32 product is :func:`int_mm` (``torch._int_mm``), exact
@@ -90,7 +93,50 @@ def linear_dyn(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     return linear_pre_q(x_q, x_s, w_q, w_s, b, x.dtype)
 
 
-QUANT_MATMUL_MODES = ("dyn", "weightonly", "pallas", "fused")
+QUANT_MATMUL_MODES = ("auto", "dyn", "weightonly", "pallas", "fused")
+
+# quant_matmul="auto" (the JAX package's default, apertis.py:80-186): JAX
+# runs every int8 linear as the w8a8 product (dyn) from 128 rows, tuned to
+# the TPU's MXU, and fuses a pre-norm with its consumers' row quantization
+# (_maybe_ln_quant) under auto as under dyn. The port's rule is the card's
+# (NVIDIA H100 80GB HBM3 at 700 W), with one threshold:
+# - a linear on rows not quantized already runs the weight-only kernel #6
+#   at every row count: ``python3 chip_smoke.py --auto-times`` (each linear
+#   alone, CUDA-event ms with the host's enqueue, 1 to 16,384 rows, seven of
+#   the models' products) found #6 faster than dyn (the rows quantized in
+#   plain torch, then #7) at 88 of 91 points (at 2048 rows the 1.5B FFN's
+#   w1 0.1554 ms against 0.3436, w2 0.2130 against 0.5365);
+# - #7 alone, on rows quantized already, beats #6 from about 1,024 rows
+#   there (w1 at 2048 rows 0.1197 against 0.1554, the fused QKV 0.0955
+#   against 0.1258), and #5 quantizes 2048 x 2432 rows for 0.013 ms. So
+#   where every consumer of an int8 pre-norm is int8 (the SSM mixer's
+#   in-projections, the dense FFN's w1, SwiGLU's w_gate and w_up, the ViT's
+#   in_proj and linear1) the pre-norm runs #5 and its consumers #7 from
+#   AUTO_DYN_ROWS rows of x (fuses_pre_norm). ``python3 chip_smoke.py
+#   --auto-model-times`` (the 1.5B int8 models' prefill, profiler device ms,
+#   fused against every linear through #6) found the fused form faster at
+#   every count measured, 64 to 4,096 rows, in all three models: dense SSM
+#   4.279 against 5.902 at 64 rows and 22.044 against 34.661 at 4,096, MHA
+#   5.866 against 6.580 and 63.311 against 70.832, MoE SSM 14.817 against
+#   15.961 and 42.851 against 45.883. Below 64 rows it was not measured.
+AUTO_DYN_ROWS: Optional[int] = 64
+
+
+def resolve_mode(mode: str) -> str:
+    """The form an int8 linear of ``quant_matmul`` mode ``mode`` takes on
+    rows not quantized already: ``auto`` the weight-only kernel
+    (``pallas``) at every row count, every other mode itself."""
+    return "pallas" if mode == "auto" else mode
+
+
+def fuses_pre_norm(mode: str, rows: int) -> bool:
+    """Whether an int8 pre-norm on ``rows`` rows whose consumers are all
+    int8 runs the fused norm + row quantization (#5) and feeds them the
+    w8a8 product (#7), as ``_maybe_ln_quant`` does: always under ``dyn``,
+    under ``auto`` from :data:`AUTO_DYN_ROWS` rows (never when it is
+    None), under the other modes never."""
+    return mode == "dyn" or (mode == "auto" and AUTO_DYN_ROWS is not None
+                             and rows >= AUTO_DYN_ROWS)
 
 
 def linear_weightonly(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
@@ -108,7 +154,9 @@ def linear_int8(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     _linear``): ``dyn`` :func:`linear_dyn`, ``weightonly``
     :func:`linear_weightonly`, ``pallas`` the weight-only kernel and
     ``fused`` the block-quantizing kernel (``ops/kernels/quant_matmul.py``),
-    each ``+ b`` in x's dtype."""
+    each ``+ b`` in x's dtype; ``auto`` the weight-only kernel
+    (:func:`resolve_mode`)."""
+    mode = resolve_mode(mode)
     if mode == "dyn":
         return linear_dyn(x, w_q, w_s, b)
     if mode == "weightonly":

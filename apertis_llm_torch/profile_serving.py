@@ -1,13 +1,15 @@
 """Where the time of serving and training goes: ``torch.profiler`` over
 prefill and decode, or over train steps.
 
-    python -m apertis_llm_torch.profile_serving [--layers N] [--moe | --mha] [--int4]
-        [--quant-matmul {dyn,weightonly,pallas,fused}] [--moe-mode {fatk,kernel,0}] [--train]
-        [--images]
+    python -m apertis_llm_torch.profile_serving [--layers N] [--moe] [--mha] [--int4]
+        [--quant-matmul {auto,dyn,weightonly,pallas,fused}] [--moe-mode {fatk,fat,kernel,0}]
+        [--train] [--images]
 
 Builds the 1.5B selective-SSM model on the card from a seeded generator
 (``chip_smoke.py``'s configuration, random weights; with ``--moe`` the 1.5B
-top-2-of-8 MoE preset instead, with ``--mha`` the 1.5B MHA preset), in bf16
+top-2-of-8 MoE preset instead, with ``--mha`` the 1.5B MHA preset, with both
+the MHA + MoE model that ``create-model --target-params 1.5B
+--expert-system`` builds: the MoE preset's widths, 11 heads of 64), in bf16
 and with int8 weights (``quantize_params`` on the card, the int8 tied head
 and, for MHA, the fused QKV projection attached by the engine), and for each
 traces one prefill of 64 prompts x 32 tokens and of 4 x 64 tokens (the
@@ -26,8 +28,9 @@ preset (hidden 768, 74 layers, experts of 3072), whose widths take the int4
 fat stack (the 1.5B one stays int8). ``--quant-matmul`` and ``--moe-mode``
 serve every model through ``InferenceEngine(..., quant_matmul=...,
 moe_mode=...)``: the int8 arithmetic of the full-sequence linears and the
-head (``dyn`` by default; ``weightonly``, ``pallas``, ``fused``), and the MoE
-FFN's serving stack (``fatk`` by default; ``kernel``; ``0``, none). It needs
+head (``auto`` by default; ``dyn``, ``weightonly``, ``pallas``, ``fused``),
+and the MoE FFN's serving stack (``fatk`` by default; ``fat``, its products
+in plain torch; ``kernel``; ``0``, none). It needs
 a CUDA device. With ``--images`` the model (either mixer) carries the ViT
 image prefix (ViT-B/16 at 224, bf16 in both trees, as ``bench.py`` serves
 it by default) and each prefill takes one seeded 256 x 320 uint8 image a
@@ -137,14 +140,13 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=None,
                         help="cut the depth (default: the preset's)")
-    family = parser.add_mutually_exclusive_group()
-    family.add_argument("--moe", action="store_true",
+    parser.add_argument("--moe", action="store_true",
                         help="the 1.5B MoE preset (8 experts, top-2) instead of the dense one")
-    family.add_argument("--mha", action="store_true",
-                        help="the 1.5B MHA preset instead of the selective-SSM one")
+    parser.add_argument("--mha", action="store_true",
+                        help="the MHA mixer instead of the selective SSM")
     parser.add_argument("--int4", action="store_true",
                         help="also trace w4a8 serving (quant_bits=4) of the int8 model")
-    parser.add_argument("--quant-matmul", default="dyn", choices=QUANT_MATMUL_MODES,
+    parser.add_argument("--quant-matmul", default="auto", choices=QUANT_MATMUL_MODES,
                         help="the int8 linears' arithmetic (InferenceEngine's quant_matmul)")
     parser.add_argument("--moe-mode", default="fatk", choices=MOE_MODES,
                         help="the MoE FFN's kernel (InferenceEngine's moe_mode)")

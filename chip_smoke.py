@@ -126,7 +126,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      linear and the head through #6 or #8) and the 1.5B MoE int8 model under
      ``moe_mode="kernel"`` (request A's prefill and every decode step
      through #11, request B's prefill through ``moe_ragged``), beside dyn
-     and fatk in the same call; then, after phase 5's 1.5B
+     and fatk in the same call, and under ``quant_matmul="auto"`` (its
+     pre-norms fused by ``ops/quant.py::fuses_pre_norm``; ``auto``,
+     ``fused`` and ``kernel`` with repeat identity, untimed); then, after phase 5's 1.5B
      checks, the same two requests with w4a8 serving
      (``InferenceEngine(..., quant_bits=4)``) of the 1.5B dense and MHA int8
      models (the int4 decode FFN) and of the 3B MoE model at its 74 layers
@@ -135,7 +137,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
      of the 500M dense preset (hidden 1216, not a multiple of 128: the FFN
      through the w8a8 product, never the decode FFN kernel), with exact
      launch counts, repeat identity, TTFT and decode tokens per second;
-     Then the kernels of training: the scan forward's states (``want_h``),
+     then (4c) the 1.5B MHA + MoE model that ``create-model --target-params
+     1.5B --expert-system`` builds (the MoE preset's widths, 11 heads of 64)
+     in bf16 and int8: #9 over its request caches (4 x 88 and 64 x 96
+     slots), #10 and #12 on its first fat stack, then both requests under
+     the engine's defaults (``quant_matmul="auto"``, ``moe_mode="fatk"``)
+     and, int8, under ``moe_mode="fat"``, with exact launch counts (#9 a
+     layer and decode step, #10 a layer and step and at request A's
+     prefill, #12 at request B's, #6 for every prefill linear: its
+     pre-norms feed the router or q/k/v, never #5), repeat identity, and
+     for int8 under the defaults TTFT and decode tokens per second; ``fat``
+     against ``fatk`` on one layer's FFN within 4 bf16 ulps, and through
+     the 44 layers (request A's prefill and three decode steps) ``fat``,
+     ``kernel`` and ``0`` each against ``fatk`` with every logit finite,
+     their errors and each layer's tokens routed to other experts reported;
+     then the kernels of training: the scan forward's states (``want_h``),
      which the backward reads, over chunks of the time axis, at the 1.5B
      SSM training shape, the MoE mixer's (11 heads), ragged with a mask and
      at an L that is not a multiple of the chunk, each twice for the same
@@ -170,7 +186,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the fat kernel once a layer and step), 2-layer dense, MoE and MHA models
      with a small image prefix, bf16 and int8 with an int8 ViT (``ln_quantize``
      launched once a pre-norm and ViT norm; for MHA the cache holds the
-     prefix and #9 runs once a layer and step), that the 1.5B logits are finite, that
+     prefix and #9 runs once a layer and step), and the variants beside
+     the presets in bf16 and int8, with the CPU's greedy tokens (except on
+     a near-tie within the tolerance): MHA with a MoE FFN (int8 also under
+     ``moe_mode="fat"``), SwiGLU with either mixer, absolute positions with
+     an untied head (either mixer, MHA also behind the prefix), top-1 and
+     top-3 MoE (every decode step without the moe epilogue), MHA at head
+     widths 48 and 320 (the plain decode attention, no #9); that the 1.5B
+     logits are finite, that
      the 1.5B MHA ``forward()`` without a mask runs the flash kernel once per
      layer and agrees with the plain attention, that a 2-layer f32 flash
      MHA ``forward()`` runs the f32 flash kernel once per layer and agrees
@@ -266,12 +289,20 @@ card's name and power limit; the last line is ``{"ok": true, "device":
                                              # 37 tokens, and at both row tiles
     python3 chip_smoke.py --ln-times         # the fused norm + quantize's (#5) at
                                              # LN_SHAPES, and at other threads a row
+    python3 chip_smoke.py --auto-times       # the int8 linear's three forms (dyn: row
+                                             # quantization + #7; #6; weightonly) at
+                                             # 1-16,384 rows on seven products: the
+                                             # table behind quant_matmul="auto"
+    python3 chip_smoke.py --auto-model-times # the 1.5B int8 models' prefill at 64-4,096
+                                             # rows with auto's pre-norms fused (#5 +
+                                             # #7) and not (#6), and dyn: the
+                                             # threshold AUTO_DYN_ROWS
 
 The first two flags run ``qmm_phase`` only. ``--qmm-times``,
 ``--flash-f32-times``, ``--decode-times``, ``--scan-fwd-times``,
-``--scan-bwd-times``, ``--grouped-times`` and ``--ln-times`` need nothing
-of the checkout but
-the wrappers' (and the trainer's) Python interface, so a checkout of an
+``--scan-bwd-times``, ``--grouped-times``, ``--ln-times``, ``--auto-times`` and
+``--auto-model-times`` need nothing of the checkout but the wrappers' (and the trainer's) Python
+interface, so a checkout of an
 earlier commit can run them with this script copied into it, for a
 comparison in one call.
 
@@ -799,6 +830,170 @@ def qmm_phase(card, check=True, alternatives=False):
             + f"; card: {card}")
     plans = qmm_alternatives(card, gen, dev) if alternatives else {}
     return {"times": times, "resources": resources, "plans": plans}
+
+
+# ---- quant_matmul="auto": the crossover of the int8 linear's three forms -----
+
+# The rows and (label, K, N) of ``--auto-times``: the 1.5B models' products
+# (the MHA model's fused QKV, the FFN's w1 and w2, the int8 head) and the
+# MHA + MoE model's 704-wide ones (q/k/v/o, its fused QKV, its int8 head).
+AUTO_ROWS = (1, 4, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+AUTO_SHAPES = (("1.5B fused QKV", 2432, 7296), ("1.5B FFN w1", 2432, 9728),
+               ("1.5B FFN w2", 9728, 2432), ("1.5B int8 head", 2432, 32000),
+               ("MoE q/k/v/o", 704, 704), ("MoE fused QKV", 704, 2112),
+               ("MoE int8 head", 704, 32000))
+
+
+def auto_times(card):
+    """The int8 linear's three forms on bf16 rows, as ``linear_int8`` runs
+    them: ``dyn`` (the rows quantized by ``quantize_rows``, then #7),
+    ``pallas`` (#6 on the bf16 rows) and ``weightonly`` (the weight
+    dequantized in bf16, then ``x @ w``), each the CUDA-event mean of 20
+    back-to-back calls with the host's enqueue (what a serving loop sees),
+    at AUTO_ROWS x AUTO_SHAPES; beside them, not compared, #7 alone on rows
+    quantized already (``pre_q``, what a projection fed by ``ln_quantize``
+    runs) and the profiler's device time of ``dyn`` and ``pallas``. #7 is
+    checked bit-equal to its plain version and #6 within one bf16 ulp at
+    every point. Prints the table, each point's fastest form and, a shape,
+    the fewest rows from which ``dyn`` is fastest at every larger count.
+    Returns {shape: {"ms": {rows: {form: ms}}, ...}}."""
+    from apertis_llm_torch.ops.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_dyn_pre_q, quant_matmul_reference)
+    from apertis_llm_torch.ops.quant import linear_dyn, linear_pre_q_reference, linear_weightonly
+    from apertis_llm_torch.ops.quant import quantize_rows
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    result = {}
+    for label, k, n in AUTO_SHAPES:
+        args = qmm_operands("quant_matmul", 1, k, n, gen, dev)
+        w_q, w_s, b = args[1:]
+        table, fastest = {}, {}
+        for rows in AUTO_ROWS:
+            x = (torch.randn((rows, k), generator=gen, device=dev)).to(torch.bfloat16)
+            forms = {"dyn": lambda: linear_dyn(x, w_q, w_s, b),
+                     "pallas": lambda: quant_matmul(x, w_q, w_s, b),
+                     "weightonly": lambda: linear_weightonly(x, w_q, w_s, b)}
+            if not torch.equal(forms["dyn"](), linear_pre_q_reference(*quantize_rows(x), w_q,
+                                                                       w_s, b, x.dtype)):
+                raise RuntimeError(f"--auto-times {label} at {rows} rows: #7 not bit-equal")
+            compare(f"--auto-times {label} at {rows} rows, #6", forms["pallas"](),
+                    quant_matmul_reference(x, w_q, w_s, b), BF16_ULP)
+            table[rows] = {form: cuda_ms(fn) for form, fn in forms.items()}
+            fastest[rows] = min(table[rows], key=table[rows].get)
+            x_q, x_s = quantize_rows(x)
+            table[rows]["pre_q"] = cuda_ms(lambda: quant_matmul_dyn_pre_q(x_q, x_s, w_q, w_s, b,
+                                                                          x.dtype))
+            for form in ("dyn", "pallas"):
+                table[rows][form + " device"] = device_ms(forms[form])
+        dyn_from = next((r for r in AUTO_ROWS
+                         if all(fastest[s] == "dyn" for s in AUTO_ROWS if s >= r)), None)
+        log(f"  auto {label} (K={k}, N={n}), ms dyn / pallas / weightonly: "
+            + "; ".join(f"{r}: {t['dyn']:.4f} / {t['pallas']:.4f} / {t['weightonly']:.4f} "
+                        f"({fastest[r]}; #7 alone {t['pre_q']:.4f}, device dyn "
+                        f"{t['dyn device'] or float('nan'):.4f} pallas "
+                        f"{t['pallas device'] or float('nan'):.4f})"
+                        for r, t in table.items())
+            + f"; dyn fastest from {dyn_from} rows on; card: {card}")
+        result[label] = {"k": k, "n": n, "ms": table, "fastest": fastest, "dyn_from": dyn_from}
+    return result
+
+
+# The prefill shapes (batch, length) of ``--auto-model-times``: request A's
+# batch at 16 to 256 positions, then request B's 64 prompts of 32 and 64.
+AUTO_MODEL_SHAPES = ((4, 16), (4, 32), (4, 64), (4, 128), (4, 256), (64, 32), (64, 64))
+
+
+def auto_model_times(card):
+    """``auto``'s threshold at the model level: the prefill of the 1.5B
+    int8 dense SSM, MHA and MoE SSM models (the engine's attachments: int8
+    head, fused QKV, fat stack) at AUTO_MODEL_SHAPES under ``auto`` with its
+    pre-norms fused (#5, their consumers #7: ``AUTO_DYN_ROWS`` set to 1) and
+    without (every linear #6: None), and under ``dyn`` beside them. Each the
+    CUDA-event mean of 5 calls with the host's enqueue and the profiler's
+    device time; the logits finite, #5 launched where the form fuses a
+    pre-norm and never where it does not, and the share of rows whose
+    greedy token the fused and unfused forms share reported. Prints each model's
+    table and the fewest rows from which the fused form is faster, on the
+    device and with the host, at every larger count. Returns {model: {rows:
+    {form: ms}}, ...}."""
+    from apertis_llm_torch.models.convert import from_jax_params
+    from apertis_llm_torch.models.factory import calculate_model_dimensions
+    from apertis_llm_torch.models.params import init_params
+    from apertis_llm_torch.models.quantize import quantize_params
+    from apertis_llm_torch.ops import quant as quant_mod
+    from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize
+
+    dev = torch.device("cuda", 0)
+    dims = calculate_model_dimensions("1.5B", 32000)
+    configs = (("dense SSM", dense_preset_config(dims)), ("MHA", mha_preset_config(dims)),
+               ("MoE SSM", moe_preset_config(
+                   calculate_model_dimensions("1.5B", 32000, use_expert_system=True))))
+    forms = (("fused", "auto", 1), ("#6", "auto", None), ("dyn", "dyn", None))
+    saved = quant_mod.AUTO_DYN_ROWS
+    result = {}
+    try:
+        for label, cfg in configs:
+            tree = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                               dtype=torch.bfloat16)
+            perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 2))
+            qtree = quantize_params(tree)
+            del tree
+            m = from_jax_params(qtree, cfg, device=dev, dtype=torch.bfloat16)
+            del qtree
+            m.quantize_tied_head()
+            m.attach_qkv()
+            if cfg.use_expert_system:
+                m.attach_moe_fat()
+            gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+            table, greedy = {}, {}
+            for b, l in AUTO_MODEL_SHAPES:
+                ids = torch.randint(0, cfg.vocab_size, (b, l), generator=gen, device=dev)
+                mask = torch.ones((b, l), dtype=torch.int32, device=dev)
+                last = torch.full((b,), l - 1, device=dev)
+                kw = ({} if cfg.attention_type != "standard_mha"
+                      else dict(max_length=l + 8, kv_int8=True))
+                cache = m.init_cache(b, **kw)
+                row = table[b * l] = {}
+                for form, mode, threshold in forms:
+                    quant_mod.AUTO_DYN_ROWS = threshold
+                    m.set_modes(mode, "fatk")
+
+                    def prefill():
+                        return m.prefill(cache, ids, mask, logit_positions=last).logits
+
+                    ln_quantize.launches = 0
+                    logits = prefill()[:, 0]
+                    if not torch.isfinite(logits).all():
+                        raise RuntimeError(f"--auto-model-times {label} at {b} x {l}, {form}: "
+                                           "logits not finite")
+                    # Each model has a fused site: the SSM mixer's in-projections
+                    # or the dense FFN's w1.
+                    if dev.type == "cuda" and (ln_quantize.launches > 0) != (form != "#6"):
+                        raise RuntimeError(f"--auto-model-times {label} at {b} x {l}, {form}: "
+                                           f"#5 launched {ln_quantize.launches} times")
+                    greedy[form] = logits.argmax(-1)
+                    row[form] = cuda_ms(prefill, iters=5, warmup=2)
+                    row[form + " device"] = device_ms(prefill, iters=3)
+                row["same greedy"] = float((greedy["fused"] == greedy["#6"]).float().mean())
+            fused_from = {}
+            for key in ("", " device"):
+                fused_from[key.strip() or "host"] = next(
+                    (r for r in table if all(table[s]["fused" + key] < table[s]["#6" + key]
+                                             for s in table if s >= r)), None)
+            log(f"  auto model {label}, prefill ms fused / #6 / dyn (device fused / #6 / dyn): "
+                + "; ".join(f"{r}: {t['fused']:.3f} / {t['#6']:.3f} / {t['dyn']:.3f} "
+                            f"({t['fused device'] or float('nan'):.3f} / "
+                            f"{t['#6 device'] or float('nan'):.3f} / "
+                            f"{t['dyn device'] or float('nan'):.3f}; greedy same "
+                            f"{t['same greedy']:.2f})" for r, t in table.items())
+                + f"; fused faster from {fused_from} rows on; card: {card}")
+            result[label] = {"ms": table, "fused_from": fused_from}
+            del m
+            torch.cuda.empty_cache()
+    finally:
+        quant_mod.AUTO_DYN_ROWS = saved
+    return result
 
 
 # ---- the decode kernels #3, #4 and #10: warm and cold times ------------------
@@ -1506,7 +1701,7 @@ def main() -> int:
         step_plan)
     from apertis_llm_torch.ops.activations import get_activation
     from apertis_llm_torch.ops.norms import layer_norm, rms_norm
-    from apertis_llm_torch.ops.quant import int_mm, quantize_rows
+    from apertis_llm_torch.ops.quant import fuses_pre_norm, int_mm, quantize_rows, resolve_mode
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2273,6 +2468,22 @@ def main() -> int:
     # #7's library call on a column-major copy of the weight, beside the one
     # on the tree's row-major weight (library); no other kernel has one.
     library_cols = {}
+
+    def sdpa_decode_ms(args):
+        """#9's library yardstick on its bf16 arguments: SDPA over the cache
+        with the new slot (the last) written, outside the timed region,
+        under the same mask."""
+        q, k, v, k_new, v_new, bias, hd = args
+        b, l = bias.shape
+        kc, vc = k.clone(), v.clone()
+        kc[:, l - 1], vc[:, l - 1] = k_new, v_new
+        heads4 = lambda z: z.reshape(b, -1, q.shape[1] // hd, hd).transpose(1, 2)   # noqa: E731
+        keep = ((bias == 0) | (torch.arange(l, device=dev) == l - 1))[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        ms = cuda_ms(lambda: sdpa(heads4(q), heads4(kc), heads4(vc), attn_mask=keep))
+        log(f"  library: scaled_dot_product_attention over the written cache {ms:.4f} ms "
+            f"(B={b} L={l}); card: {card}")
+        return ms
     ctx_tols = [("ctx", BF16_ULP)]
     args = decode_ctx_inputs(5, 37)
     check_sensitive("mha_decode_ctx", mha_decode_ctx_reference, args, {
@@ -2298,19 +2509,7 @@ def main() -> int:
                      args, mha_decode_ctx, mha_decode_ctx_reference, ctx_tols,
                      cost=decode_ctx_cost(args) if timed else None)
         if timed:
-            # The library yardstick: SDPA over the cache with the new slot
-            # written (outside the timed region) under the same mask.
-            q, k, v, k_new, v_new, bias, _ = args
-            t_slot = l - 1
-            kc, vc = k.clone(), v.clone()
-            kc[:, t_slot], vc[:, t_slot] = k_new, v_new
-            heads4 = lambda z: z.reshape(b, -1, heads, hd).transpose(1, 2)   # noqa: E731
-            keep = ((bias == 0) | (torch.arange(l, device=dev) == t_slot))[:, None, None, :]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            library["mha_decode_ctx"] = cuda_ms(lambda: sdpa(heads4(q), heads4(kc), heads4(vc),
-                                                             attn_mask=keep))
-            log(f"  library: scaled_dot_product_attention over the written cache "
-                f"{library['mha_decode_ctx']:.4f} ms; card: {card}")
+            library["mha_decode_ctx"] = sdpa_decode_ms(args)
         args = decode_ctx_inputs(b, l, heads, hd, int8=True, gen=gen)
         check_kernel("mha_decode_ctx_int8", f"mha_decode_ctx_int8 B={b} L={l} {heads}x{hd} "
                      f"({label})", args, mha_decode_ctx_int8, decode_ctx_int8_plain, ctx_tols,
@@ -2975,6 +3174,8 @@ def main() -> int:
             check_kernel(name, f"{name} B={b} L={l} {mha_heads}x{head_dim} ({label})", args,
                          kernel, plain, ctx_tols, cost=decode_ctx_cost(args),
                          shape=f"B={b} L={l} ({label})")
+            if not int8:
+                shape_times[name][f"B={b} L={l} ({label})"]["library_ms"] = sdpa_decode_ms(args)
     shape = (4, mha_heads, MM_PREFIX + 512, head_dim)
     label = f"{shape} (multimodal training: 197 image + 512 text tokens)"
     b, h_, l, hd = shape
@@ -3126,79 +3327,109 @@ def main() -> int:
                 quant_matmul_dyn_fused, expert_ffn_dense)
     launches, serve = {}, {}
 
+    def product(mode):
+        """The kernel an int8 linear on rows not quantized already runs in
+        ``quant_matmul`` mode ``mode`` (None: plain torch)."""
+        return {"dyn": "quant_matmul_dyn_pre_q", "pallas": "quant_matmul",
+                "fused": "quant_matmul_dyn_fused"}.get(resolve_mode(mode))
+
     def expected_launches(kind, cfg, decode_calls, bits, moe_groups=0, quant_matmul_="dyn",
                           moe_mode="fatk", vit=None):
         """Each kernel's launches in the two requests: layers x calls.
+        ``decode_calls``: each request's decode steps, by name;
         ``moe_groups``: the expert groups moe_ragged ran over all layers;
-        ``quant_matmul_`` and ``moe_mode``: the engine's modes; ``vit``: the
-        image prefix's ViT, "bf16" or "int8" (None: no images)."""
+        ``quant_matmul_`` and ``moe_mode``: the engine's modes (``auto``'s
+        pre-norms fused by their rows); ``vit``: the image prefix's ViT,
+        "bf16" or "int8" (None: no images)."""
         nl = cfg.num_hidden_layers
         moe, mha = bool(cfg.use_expert_system), cfg.attention_type == "standard_mha"
         int8 = "bf16" not in kind
-        dyn = quant_matmul_ == "dyn"
         fused_ffn = cfg.hidden_size % 128 == 0 and pick_block_n(cfg.intermediate_size) > 0
         n_req = len(requests)
+        steps = sum(decode_calls.values())
+        num_img = cfg.num_image_tokens if vit else 0
+        # (rows a decode step, rows of the prefill, decode steps) a request.
+        reqs = []
+        for name, (ids, _, _) in requests.items():
+            bucket = _round_up_bucket(ids.shape[1], InferenceEngine.PROMPT_BUCKETS)
+            bucket += -(num_img + bucket) % 8
+            reqs.append((ids.shape[0], ids.shape[0] * (num_img + bucket), decode_calls[name]))
         exp = {f.__name__: 0 for f in counters}
+        # The int8 pre-norms fused with their row quantization, a layer and
+        # prefill where the mode fuses them at the prefill's rows: the SSM
+        # mixer's (two consumers) and the dense FFN's (one; a MoE FFN's
+        # pre-norm is the plain norm, since the router reads it; MHA's
+        # pre-norm is always the plain norm).
+        lnq = (0 if mha else 1) + (0 if moe else 1)
+        lnq_consumers = (0 if mha else 2) + (0 if moe else 1)
+        if int8:
+            exp["ln_quantize"] = sum(lnq * nl for _, rows, _ in reqs
+                                     if fuses_pre_norm(quant_matmul_, rows))
         if mha:
             # Serving prefill carries the padding mask, so the plain attention
-            # runs there and the flash kernel never; the int8 model's FFN
-            # pre-norm is ln_quantize once per layer and prefill.
-            exp["mha_decode_ctx_int8" if int8 else "mha_decode_ctx"] = nl * decode_calls
-            exp["ln_quantize"] = nl * n_req if int8 else 0
+            # runs there and the flash kernel never.
+            exp["mha_decode_ctx_int8" if int8 else "mha_decode_ctx"] = nl * steps
         else:
             exp["selective_scan_fwd"] = nl * n_req
-            exp["ssm_decode_step_int8" if int8 else "ssm_decode_step"] = nl * decode_calls
-            if int8 and dyn:
-                # The mixer's pre-norm once per layer and prefill; a MoE FFN's
-                # pre-norm is the plain norm, since the router reads it.
-                # Outside dyn every pre-norm is the plain norm.
-                exp["ln_quantize"] = (1 if moe else 2) * nl * n_req
+            exp["ssm_decode_step_int8" if int8 else "ssm_decode_step"] = nl * steps
         if moe and moe_mode == "kernel":
             # Request A's 256 prefill rows and every decode step through the
             # per-expert kernel; request B's 2048 rows through moe_ragged.
-            exp["expert_ffn_dense"] = nl * (decode_calls + 1)
+            exp["expert_ffn_dense"] = nl * (steps + 1)
         elif moe:
             # Request A prefills 4 x 64 = 256 rows (the fat kernel), request
             # B 64 x 32 = 2048 (the grouped kernel, or moe_ragged over an
             # int4 fat stack); every decode step runs the fat kernel. With
             # the image prefix request A prefills 4 x (197 + 67) rows, past
-            # the fat kernel's 256: the grouped kernel.
+            # the fat kernel's 256: the grouped kernel. Under "fat" the fat
+            # stack's products at A's prefill and every decode step are
+            # plain torch (moe_dense_fat).
             fat = "expert_ffn_fat_int4" if bits == 4 else "expert_ffn_fat"
-            exp[fat] = nl * (decode_calls + (0 if vit else 1))
+            exp[fat] = 0 if moe_mode == "fat" else nl * (steps + (0 if vit else 1))
             exp["expert_ffn_grouped"] = 0 if bits == 4 else nl * (2 if vit else 1)
         elif fused_ffn:
             exp[{4: "ffn_decode_int4", 8: "ffn_decode_int8"}[bits] if int8
-                else "ffn_decode"] = nl * decode_calls
+                else "ffn_decode"] = nl * steps
         if int8:
             # The mode's product: per layer and prefill the mixer's four
             # projections (q, k, v, o for MHA) and, for a dense FFN, w1 and
-            # w2; the int8 head once per prefill and decode step; at decode
-            # an unfused FFN's w1 and w2. The w8a8 product (in every mode):
-            # at decode MHA's fused QKV and o; under dyn two per expert
-            # group of moe_ragged.
+            # w2, at the prefill's rows, but the w8a8 product for a fused
+            # pre-norm's consumers; the int8 head once per prefill and
+            # decode step, and at decode an unfused FFN's w1 and w2, at the
+            # batch's rows. The w8a8 product (in every mode): at decode MHA's
+            # fused QKV and o; under dyn two per expert group of moe_ragged.
             per_prefill = 4 + (0 if moe else 2)
             per_step = 0 if moe or fused_ffn else 2
-            own = n_req * (nl * per_prefill + 1) + decode_calls * (nl * per_step + 1)
-            name = {"dyn": "quant_matmul_dyn_pre_q", "pallas": "quant_matmul",
-                    "fused": "quant_matmul_dyn_fused"}[quant_matmul_]
-            exp[name] += own
-            exp["quant_matmul_dyn_pre_q"] += (decode_calls * nl * (2 if mha else 0)
-                                              + (2 * moe_groups if dyn else 0))
+            for b, rows, n in reqs:
+                fused_in = lnq_consumers if fuses_pre_norm(quant_matmul_, rows) else 0
+                exp["quant_matmul_dyn_pre_q"] += nl * fused_in
+                if product(quant_matmul_) is not None:
+                    exp[product(quant_matmul_)] += (nl * (per_prefill - fused_in)
+                                                    + 1 + n * (nl * per_step + 1))
+            exp["quant_matmul_dyn_pre_q"] += (steps * nl * (2 if mha else 0)
+                                              + (2 * moe_groups if quant_matmul_ == "dyn" else 0))
         if vit == "int8":
-            # A request's int8 ViT: ln1 and ln2 a layer through ln_quantize,
-            # four products a layer, the patch embedding and vision_proj.
+            # A request's int8 ViT: ln1 and ln2 a layer through ln_quantize
+            # where the mode fuses them (their consumers in_proj and linear1
+            # then through the w8a8 product), four products a layer, the
+            # patch embedding and vision_proj.
             nv = cfg.vision_layers
-            exp["ln_quantize"] += 2 * nv * n_req if dyn else 0
-            exp["quant_matmul_dyn_pre_q"] += (4 * nv + 2) * n_req
+            for b, _, _ in reqs:
+                fused_in = 2 * nv if fuses_pre_norm(quant_matmul_, b * cfg.num_image_tokens) else 0
+                exp["ln_quantize"] += fused_in
+                exp["quant_matmul_dyn_pre_q"] += fused_in
+                if product(quant_matmul_) is not None:
+                    exp[product(quant_matmul_)] += 4 * nv + 2 - fused_in
         return exp
 
     def serve_model(kind, m, cfg, bits=8, quant_matmul_="dyn", moe_mode="fatk", images=None,
-                    vit=None, text_kind=None):
+                    vit=None, text_kind=None, timed=True):
         """Both requests through InferenceEngine.generate with the counts set
-        to 0 before and checked after, then repeat identity, TTFT and decode
-        tok/s; with ``images`` (one batch a request) each request carries
-        them, ``vit`` names the ViT's layout for the counts and the figures
-        are printed beside ``text_kind``'s, the same model without them."""
+        to 0 before and checked after, then repeat identity and (``timed``)
+        TTFT and decode tok/s; with ``images`` (one batch a request) each request
+        carries them, ``vit`` names the ViT's layout for the counts and the
+        figures are printed beside ``text_kind``'s, the same model without
+        them."""
         pix = {name: {} if images is None else {"pixel_values": images[name]}
                for name in requests}
         nl = cfg.num_hidden_layers
@@ -3243,7 +3474,7 @@ def main() -> int:
                 "bucket and the new tokens)")
             if slots != want_slots:
                 raise RuntimeError(f"{kind}: the KV caches do not hold the image prefix")
-        decode_calls = 0
+        decode_calls = {}
         for name, (ids, _, kw) in requests.items():
             out = first[name]
             n_new = out.shape[1] - ids.shape[1]
@@ -3255,7 +3486,7 @@ def main() -> int:
             if new.min() < 0 or new.max() >= cfg.vocab_size:
                 raise RuntimeError(f"{kind} request {name}: token outside "
                                    f"[0, {cfg.vocab_size})")
-            decode_calls += n_new - 1
+            decode_calls[name] = n_new - 1
             log(f"{kind} request {name}: {n_new} new tokens, first row "
                 f"{new[0, :8].tolist()}...")
         if moe and (bits == 4 or moe_mode == "kernel") and len(groups) != nl:
@@ -3279,6 +3510,9 @@ def main() -> int:
             total = time.perf_counter() - t0
             if not np.array_equal(again, first[name]):
                 raise RuntimeError(f"{kind} request {name}: a repeated request gave other tokens")
+            if not timed:
+                log(f"serve {kind} {name}: repeat identical (untimed)")
+                continue
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             engine.generate(ids, attention_mask=mask, **pix[name], **dict(kw, max_new_tokens=1))
@@ -3300,12 +3534,16 @@ def main() -> int:
                          ("MHA int8", mha_qmodel, mha_config)):
         serve_model(kind, m, cfg)
     # The selectable int8 arithmetic, beside dyn and fatk above: the dense
-    # int8 model's linears through #6 and #8, the MoE int8 model's FFN
-    # through #11 (request B's prefill through moe_ragged).
+    # int8 model's linears through #6 (what quant_matmul="auto" runs on rows
+    # not quantized already), under auto itself (its pre-norms fused by
+    # their rows) and through #8, the MoE int8 model's FFN through #11
+    # (request B's prefill through moe_ragged); the auto, #8 and #11 serves
+    # untimed (counts and repeat identity) to hold the smoke's time.
     for kind, m, cfg, qm_, mm_ in (("int8 pallas", qmodel, config, "pallas", "fatk"),
+                                   ("int8 auto", qmodel, config, "auto", "fatk"),
                                    ("int8 fused", qmodel, config, "fused", "fatk"),
                                    ("MoE int8 kernel", moe_qmodel, moe_config, "dyn", "kernel")):
-        serve_model(kind, m, cfg, 8, qm_, mm_)
+        serve_model(kind, m, cfg, 8, qm_, mm_, timed=qm_ == "pallas")
     for m in (qmodel, moe_qmodel):
         m.set_modes("dyn", "fatk")
 
@@ -3365,8 +3603,11 @@ def main() -> int:
         """decode_step's MHA arguments for step i after a prefill of an image
         prefix and width W, as the engine gives them: slot num_img + W + i,
         positions num_img + len + i, the prefix, the prompt's mask and the
-        slots generated so far valid."""
+        slots generated so far valid; an SSM model with absolute positions
+        takes the positions only."""
         if m.config.attention_type != "standard_mha":
+            if m.config.position_embedding_type == "absolute":
+                return dict(positions=(num_img + mask.sum(1) + i).to(m.device))
             return {}
         b, w = mask.shape
         row = torch.zeros((b, num_img + w + 8), dtype=torch.int32, device=m.device)
@@ -3450,6 +3691,134 @@ def main() -> int:
     del qmodel, mha_qmodel, moe3_model, model500
     log(f"phase 4b done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 4c. the 1.5B MHA + MoE model ------------------------------------------
+    # What ``create-model --target-params 1.5B --expert-system`` builds: the
+    # MoE preset's widths (hidden 704, 44 layers, 8 experts of 2816, top-2)
+    # with the config's default mixer, standard MHA: 11 heads of 64 (dropout
+    # 0 gives q/k/v/o biases). Its kernel checks draw from the shared
+    # generator, whose state is given back after them.
+    g_state = g.get_state()
+    mm_config = dataclasses.replace(moe_config, attention_type="standard_mha")
+    t0 = time.perf_counter()
+    tree = init_params(mm_config, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                       dtype=bf16)
+    mm_params = count_params(tree)
+    perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 71))
+    mm_model = from_jax_params(tree, mm_config, device=dev, dtype=bf16)
+    qtree = quantize_params(tree)
+    del tree
+    mm_qmodel = from_jax_params(qtree, mm_config, device=dev, dtype=bf16)
+    del qtree
+    mm_heads = mm_config.num_attention_heads
+    log(f"MHA + MoE model: {mm_params:,} parameters, hidden {mm_config.hidden_size}, "
+        f"{mm_config.num_hidden_layers} layers, {mm_heads} heads of {mm_config.head_dim}, "
+        f"{mm_config.num_experts} experts of {mm_config.intermediate_size} (top-"
+        f"{mm_config.experts_per_token}), bf16 and int8, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # #9 at its caches (request A's 4 x 88 slots, B's 64 x 96), #10 on its
+    # first layer's fat stack at 64 decode rows routed by that layer's
+    # router, #12 on it at request B's 2048 tokens: the report's other shapes.
+    for b, l in ((4, 88), (64, 96)):
+        for int8_ in (False, True):
+            key = "mha_decode_ctx_int8" if int8_ else "mha_decode_ctx"
+            args = decode_ctx_inputs(b, l, mm_heads, mm_config.head_dim, int8=int8_)
+            check_kernel(key, f"{key} B={b} L={l} {mm_heads}x{mm_config.head_dim} (MHA + MoE)",
+                         args, mha_decode_ctx_int8 if int8_ else mha_decode_ctx,
+                         decode_ctx_int8_plain if int8_ else mha_decode_ctx_reference, ctx_tols,
+                         cost=decode_ctx_cost(args), shape=f"MHA + MoE {b} x {l} slots")
+            if not int8_:
+                shape_times[key][f"MHA + MoE {b} x {l} slots"]["library_ms"] = sdpa_decode_ms(
+                    args)
+    mm_qmodel.attach_moe_fat()
+    mm_ffn = mm_qmodel.layers[0].ffn
+    args = fat_inputs(64, ffn=mm_ffn, fat_=mm_ffn.experts.fat())
+    check_kernel("expert_ffn_fat", "expert_ffn_fat S=64, the MHA + MoE model's first stack", args,
+                 expert_ffn_fat, expert_ffn_fat_reference, fat_tols, cost=fat_cost(args),
+                 shape="MHA + MoE, 64 rows")
+    args = grouped_inputs(2048, probs, fat_=mm_ffn.experts.fat())
+    check_kernel("expert_ffn_grouped", "expert_ffn_grouped 2048 tokens, the MHA + MoE model's "
+                 "first stack", args, expert_ffn_grouped, expert_ffn_grouped_reference,
+                 [("out", BF16_ULP)], cost=grouped_cost(args, 4096),
+                 shape="MHA + MoE, 2048 tokens")
+    # Requests A and B in bf16 and int8 under the engine's defaults (auto,
+    # fatk), and in int8 under moe_mode="fat"; the int8 defaults timed and
+    # repeated, the others their counts only (their decode steps are
+    # host-bound, 150-170 ms at 64 rows, and the smoke's time is bounded).
+    for kind, m, mm_ in (("MHA MoE bf16", mm_model, "fatk"), ("MHA MoE int8", mm_qmodel, "fatk"),
+                         ("MHA MoE int8 fat", mm_qmodel, "fat")):
+        serve_model(kind, m, mm_config, 8, "auto", mm_, timed=kind == "MHA MoE int8")
+    # fat against fatk: one MoE layer's FFN (the model's first) on the same
+    # routed rows, request A's prefill (180 rows) and a decode step's 64,
+    # within the card-vs-CPU tolerance (4 bf16 ulps of the largest output;
+    # the kernel requantizes the hidden per hidden tile, the plain products
+    # per row). Through the whole model the modes part further; the witness
+    # that this is the routing and not fat: request A's prefill and three
+    # decode steps (every mode fed fatk's greedy tokens) through the 44
+    # layers under fat, under kernel (the per-expert kernel #11) and under
+    # 0 (moe_dense, the experts dequantized), each against fatk: the logits'
+    # largest error, the rows with fatk's greedy token, and a layer's count
+    # of tokens whose top-2 experts are not fatk's (with the first layer
+    # that has one). Every logit must be finite; the figures are reported.
+    fat_vs_fatk = {}
+    for s_ in (180, 64):
+        x = mm_ffn.pre_norm(torch.randn((s_, mm_config.hidden_size), generator=g,
+                                        device=dev).to(bf16))
+        routing = moe_ops.route(x, *mm_ffn.router_weights(), mm_config.experts_per_token,
+                                layer_norm_eps=eps)
+        b2 = mm_ffn.experts.b2
+        fat_vs_fatk[f"FFN at {s_} rows"] = compare(
+            f"MHA + MoE int8 layer 0 FFN at {s_} rows, moe_dense_fat vs the fat kernel",
+            moe_ops.moe_dense_fat(x, routing, mm_ffn.experts.fat(), b2, mm_config.hidden_act,
+                                  eps),
+            moe_ops.moe_dense_fat_kernel(x, routing, mm_ffn.experts.fat(), b2,
+                                         mm_config.hidden_act, eps), 4 * BF16_ULP)
+    g.set_state(g_state)
+    ids_a = torch.as_tensor(batch_a, dtype=torch.long, device=dev)
+    mm_qmodel.attach_moe_fused()
+    real_route = moe_ops.route
+    runs, routes = {}, {}
+    for mode in ("fatk", "fat", "kernel", "0"):
+        mm_qmodel.set_modes("auto", mode)
+        routes[mode] = []
+        moe_ops.route = lambda *a, _r=routes[mode], **k: (
+            lambda out: _r.append(out.indices.sort(-1).values) or out)(real_route(*a, **k))
+        cache = mm_qmodel.init_cache(4, **cache_kw(mm_qmodel, batch_a.shape[1], True))
+        pre = mm_qmodel.prefill(cache, ids_a, torch.as_tensor(mask_a, device=dev),
+                                logit_positions=torch.as_tensor(mask_a.sum(1) - 1, device=dev))
+        runs[mode] = [pre.logits[:, 0]]
+        for i in range(3):
+            tok = runs["fatk"][i].argmax(-1)
+            runs[mode].append(mm_qmodel.decode_step(cache, tok, **step_kw(mm_qmodel, mask_a_t,
+                                                                            i))[0])
+        moe_ops.route = real_route
+    nl_mm = mm_config.num_hidden_layers
+    for mode in ("fat", "kernel", "0"):
+        if len(routes[mode]) != 4 * nl_mm:
+            raise RuntimeError(f"MHA + MoE int8 under {mode}: {len(routes[mode])} routings, "
+                               f"not {4 * nl_mm}")
+        for i, (a, b_) in enumerate(zip(runs[mode], runs["fatk"])):
+            if not (torch.isfinite(a).all() and torch.isfinite(b_).all()):
+                raise RuntimeError(f"MHA + MoE int8 logits of step {i} under {mode} are not "
+                                   "finite")
+            err = float((a.float() - b_.float()).abs().max()) / float(b_.float().abs().max())
+            same = float((a.argmax(-1) == b_.argmax(-1)).float().mean())
+            # A layer's tokens (256 at the prefill, 4 at a step) routed to
+            # another pair of experts than under fatk.
+            flips = [int((r != f).any(-1).sum()) for r, f in
+                     zip(routes[mode][i * nl_mm:(i + 1) * nl_mm],
+                         routes["fatk"][i * nl_mm:(i + 1) * nl_mm])]
+            first = next((j for j, n_ in enumerate(flips) if n_), None)
+            fat_vs_fatk[f"{mode} vs fatk, logits of step {i}"] = {
+                "max_err_over_max": err, "same_greedy": same, "route_flips": flips,
+                "first_flip_layer": first}
+            log(f"  MHA + MoE int8, {mode} vs fatk through {nl_mm} layers, step {i}: logits' "
+                f"max error {err:.3e} of the largest, greedy tokens the same in {same:.2f} of "
+                f"the rows; tokens routed otherwise a layer {flips} (first at layer {first}); "
+                "finite ok")
+    mm_qmodel.set_modes("auto", "fatk")
+    del mm_model, mm_qmodel, runs
+    log(f"phase 4c done at {time.perf_counter() - t_start:.1f} s")
+
     dense_small = dict(
         vocab_size=1000, attention_type="selective_ssm", ssm_d_state=16, hidden_size=256,
         num_hidden_layers=2, num_attention_heads=4, intermediate_size=1024,
@@ -3475,6 +3844,23 @@ def main() -> int:
     # the dense and the MoE model; int8 with an int8 ViT.
     vit_small = dict(multimodal=True, image_size=32, vision_patch_size=8, vision_embed_dim=48,
                      vision_layers=2, vision_heads=4)
+    # The variants beside the presets, each bf16 and int8, whose greedy
+    # tokens must also be the CPU's: MHA with a MoE FFN (int8 also under
+    # moe_mode="fat"), SwiGLU with either mixer, absolute positions with an
+    # untied head (either mixer, MHA also behind the prefix), top-1 and
+    # top-3 MoE, MHA at head widths 48 and 320 (the plain decode attention).
+    absolute = dict(position_embedding_type="absolute", tie_word_embeddings=False)
+    variant_small = (("MHA MoE ", dict(moe_small, attention_type="standard_mha")),
+                     ("SwiGLU ", dict(dense_small, use_swiglu=True)),
+                     ("SwiGLU MHA ", dict(mha_small, use_swiglu=True)),
+                     ("abs ", dict(dense_small, **absolute)),
+                     ("abs MHA ", dict(mha_small, **absolute)),
+                     ("MM abs MHA ", dict(mha_small, **vit_small, **absolute)),
+                     ("top-1 MoE ", dict(moe_small, experts_per_token=1)),
+                     ("top-3 MoE ", dict(moe_small, experts_per_token=3)),
+                     ("MHA Dh-48 ", dict(mha_small, hidden_size=192)),
+                     ("MHA Dh-320 ", dict(mha_small, hidden_size=640, num_attention_heads=2)))
+    variant_kinds = set()
     ids = torch.as_tensor(batch_a % 1000, dtype=torch.long)
     mask = torch.as_tensor(mask_a)
     mm_pixels = torch.as_tensor(np.random.default_rng(SEED + 14).integers(
@@ -3485,8 +3871,10 @@ def main() -> int:
                        ("hidden-192 ", narrow_small), ("MHA Dh-96 ", mha96_small),
                        ("MoE-40 ", moe40_small), ("MM ", dict(dense_small, **vit_small)),
                        ("MM MoE ", dict(moe_small, **vit_small)),
-                       ("MM MHA ", dict(mha_small, **vit_small))):
+                       ("MM MHA ", dict(mha_small, **vit_small)), *variant_small):
         small = ApertisConfig(**kw)
+        if (family, kw) in variant_small:
+            variant_kinds.update({family + "bf16", family + "int8"})
         tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu",
                            dtype=torch.bfloat16)
         perturb_(tree, torch.Generator().manual_seed(SEED + 3))
@@ -3513,8 +3901,11 @@ def main() -> int:
         if family == "MoE ":
             # The per-expert kernel at decode, moe_ragged for the prefill.
             cases.append(("MoE int8 kernel", small, qtree))
+        if family == "MHA MoE ":
+            cases.append(("MHA MoE int8 fat", small, qtree))
+            variant_kinds.add("MHA MoE int8 fat")
     modes = {"int8 pallas": ("pallas", "fatk"), "int8 fused": ("fused", "fatk"),
-             "MoE int8 kernel": ("dyn", "kernel")}
+             "MoE int8 kernel": ("dyn", "kernel"), "MHA MoE int8 fat": ("dyn", "fat")}
     for kind, small, t in cases:
         models = {"gpu": from_jax_params(t, small, device=dev, dtype=torch.bfloat16),
                   "cpu": from_jax_params(t, small, device="cpu", dtype=torch.bfloat16)}
@@ -3548,6 +3939,16 @@ def main() -> int:
                 f"2-layer {kind} model on the card vs the CPU, logits of step {i}",
                 logits["gpu"].cpu(), logits["cpu"], 4 * BF16_ULP))
             tok = logits["cpu"].argmax(-1)
+            if kind in variant_kinds:
+                # The card's greedy token is the CPU's, except in a row whose
+                # two best CPU logits lie within the tolerance of each other.
+                ref = logits["cpu"].float()
+                top2 = ref.topk(2, dim=-1).values
+                tied = top2[:, 0] - top2[:, 1] <= 4 * BF16_ULP * float(ref.abs().max())
+                differ = logits["gpu"].cpu().argmax(-1) != tok
+                if bool((differ & ~tied).any()):
+                    raise RuntimeError(f"2-layer {kind}: the card's greedy tokens of step {i} "
+                                       "are not the CPU's")
             logits = {k: m.decode_step(caches[k], tok.to(m.device),
                                        **step_kw(m, mask, i, num_img))[0]
                       for k, m in models.items()}
@@ -3562,7 +3963,18 @@ def main() -> int:
                 "MM int8": ["ffn_decode_int8", "quant_matmul_dyn_pre_q"],
                 "MM MoE int8": ["expert_ffn_grouped", "expert_ffn_fat"],
                 "MM MHA bf16": ["mha_decode_ctx"],
-                "MM MHA int8": ["mha_decode_ctx_int8", "quant_matmul_dyn_pre_q"]
+                "MM MHA int8": ["mha_decode_ctx_int8", "quant_matmul_dyn_pre_q"],
+                "MHA MoE bf16": ["mha_decode_ctx"],
+                "MHA MoE int8": ["mha_decode_ctx_int8", "quant_matmul_dyn_pre_q"],
+                "MHA MoE int8 fat": ["mha_decode_ctx_int8"],
+                "SwiGLU int8": ["ssm_decode_step_int8", "quant_matmul_dyn_pre_q"],
+                "SwiGLU MHA int8": ["mha_decode_ctx_int8", "quant_matmul_dyn_pre_q"],
+                "abs bf16": ["ffn_decode"], "abs int8": ["ffn_decode_int8"],
+                "abs MHA bf16": ["mha_decode_ctx"], "abs MHA int8": ["mha_decode_ctx_int8"],
+                "MM abs MHA bf16": ["mha_decode_ctx"],
+                "MM abs MHA int8": ["mha_decode_ctx_int8"],
+                "MHA Dh-48 int8": ["quant_matmul_dyn_pre_q"],
+                "MHA Dh-320 int8": ["quant_matmul_dyn_pre_q"]
                 }.get(kind, [])
         nl_small = small.num_hidden_layers
         # The mode's kernel: the prefill's six int8 linears a layer and the
@@ -3583,7 +3995,33 @@ def main() -> int:
                  # #9 once a layer and decode step.
                  "MM MHA int8": {"ln_quantize": nl_small + 2 * small.vision_layers,
                                  "mha_decode_ctx_int8": 5 * nl_small},
-                 "MM MHA bf16": {"mha_decode_ctx": 5 * nl_small}
+                 "MM MHA bf16": {"mha_decode_ctx": 5 * nl_small},
+                 # MHA + MoE: request A's 4 x 45 rows through the grouped
+                 # kernel (past 64), each decode step's 4 through the fat
+                 # kernel, or under fat through its products in plain torch.
+                 "MHA MoE bf16": {"expert_ffn_fat": 5 * nl_small,
+                                  "expert_ffn_grouped": nl_small},
+                 "MHA MoE int8": {"expert_ffn_fat": 5 * nl_small,
+                                  "expert_ffn_grouped": nl_small},
+                 "MHA MoE int8 fat": {"expert_ffn_fat": 0, "expert_ffn_grouped": nl_small},
+                 # top-1 and top-3: every decode step without the moe
+                 # epilogue (top-2 only), then the fat kernel.
+                 "top-1 MoE bf16": {"expert_ffn_fat": 5 * nl_small,
+                                    "ssm_decode_step": 5 * nl_small},
+                 "top-1 MoE int8": {"expert_ffn_fat": 5 * nl_small,
+                                    "ssm_decode_step_int8": 5 * nl_small},
+                 "top-3 MoE bf16": {"expert_ffn_fat": 5 * nl_small,
+                                    "ssm_decode_step": 5 * nl_small},
+                 "top-3 MoE int8": {"expert_ffn_fat": 5 * nl_small,
+                                    "ssm_decode_step_int8": 5 * nl_small},
+                 # SwiGLU: no decode FFN kernel; its pre-norm's #5 feeds
+                 # w_gate and w_up at prefill, after the mixer's.
+                 "SwiGLU bf16": {"ffn_decode": 0},
+                 "SwiGLU int8": {"ffn_decode_int8": 0, "ln_quantize": 2 * nl_small},
+                 "SwiGLU MHA int8": {"ffn_decode_int8": 0, "ln_quantize": nl_small},
+                 # Heads of 48 and 320: the plain decode attention.
+                 **{f"MHA Dh-{w} {t}": {"mha_decode_ctx": 0, "mha_decode_ctx_int8": 0}
+                    for w in (48, 320) for t in ("bf16", "int8")},
                  }.get(kind, {})
         if any(name not in ran for name in must) or (
                 kind == "hidden-192 int8" and "ffn_decode_int8" in ran) or any(
@@ -3602,7 +4040,7 @@ def main() -> int:
     perturb_(tree, torch.Generator().manual_seed(SEED + 3))
     m40 = from_jax_params(quantize_params(tree, min_size=0), small, device=dev,
                           dtype=torch.bfloat16)
-    engine = InferenceEngine(small, m40)
+    engine = InferenceEngine(small, m40, quant_matmul="dyn")
     routers, real_step = [], apertis_model.ssm_decode_step
 
     def step_spy(*a, **kw):
@@ -4242,7 +4680,8 @@ def main() -> int:
                       "scan_carry_bit_equal": carry_bit_equal,
                       "checkpoint_round_trip": round_trip,
                       "ln_quantize_bit_equal": ln_bit_equal,
-                      "moe_epilogue_seeds": fault2}))
+                      "moe_epilogue_seeds": fault2,
+                      "mha_moe_fat_vs_fatk": fat_vs_fatk}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4453,6 +4892,10 @@ if __name__ == "__main__":
         sys.exit(times_main("grouped_times", grouped_times))
     if sys.argv[1:] == ["--ln-times"]:
         sys.exit(times_main("ln_times", ln_times))
+    if sys.argv[1:] == ["--auto-times"]:
+        sys.exit(times_main("auto_times", auto_times))
+    if sys.argv[1:] == ["--auto-model-times"]:
+        sys.exit(times_main("auto_model_times", auto_model_times))
     if sys.argv[1:] in (["--qmm"], ["--qmm-times"]):
         sys.exit(qmm_main(check=sys.argv[1] == "--qmm"))
     if sys.argv[1:] == ["--flash-f32-times"]:

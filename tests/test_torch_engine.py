@@ -53,7 +53,8 @@ def _engines(seed=0, int8=False):
         jtree = jax_quantize_params(jtree, min_size=0)
         tree = quantize_params(jax.tree.map(torch.from_numpy, tree), min_size=0)
     return (JaxEngine(jcfg, jtree),
-            InferenceEngine(config, from_jax_params(tree, config, device="cpu")))
+            InferenceEngine(config, from_jax_params(tree, config, device="cpu"),
+                            quant_matmul="dyn"))
 
 
 def _ragged_batch():

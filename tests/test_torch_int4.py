@@ -302,7 +302,7 @@ def _engines(family, monkeypatch, seed, quant_bits=4, on_tpu=False, **over):
     jengine = JaxEngine(jcfg, _jax_int8(tree))
     model = from_jax_params(quantize_params(jax.tree.map(torch.from_numpy, tree), min_size=0),
                             cfg, device="cpu")
-    return jengine, InferenceEngine(cfg, model, quant_bits=quant_bits)
+    return jengine, InferenceEngine(cfg, model, quant_bits=quant_bits, quant_matmul="dyn")
 
 
 def _ragged_batch():

@@ -91,6 +91,7 @@ def _pair(seed=0, int8=False, **over):
     model = from_jax_params(quantize_params(jax.tree.map(torch.from_numpy, tree), min_size=0),
                             cfg, device="cpu")
     model.quantize_tied_head()
+    model.set_modes("dyn", "fatk")
     assert model.quantized and "qkv" in jparams["layers"]["attn"]
     return jcfg, jparams, model
 
@@ -202,18 +203,18 @@ def test_decode_ctx_int8_cache_matches_jax_kernel(head_dim, heads):
 
 
 def test_every_admitted_head_width_reaches_the_kernel():
-    """Every head width ``check_supported`` admits for an MHA model (the
-    multiples of 32 up to 256) passes ``mha_step._launch``'s width check, so
-    the model decodes through #9 on the card; a width it refuses is refused
-    by both. On CPU tensors ``_launch`` then stops at its device check."""
+    """``check_supported`` admits an MHA model at every head width; the
+    multiples of 32 up to 256 are the ones ``mha_step.kernel_takes`` sends
+    to #9, and exactly those pass ``mha_step._launch``'s width check (the
+    model serves the others through the plain version, as JAX serves them
+    through XLA). On CPU tensors ``_launch`` then stops at its device
+    check."""
     admitted = []
     for head_dim in range(8, 264, 8):
         cfg = ApertisConfig(**dict(BASE, hidden_size=4 * head_dim, num_attention_heads=4))
-        try:
-            check_supported(cfg)
-        except NotImplementedError:
-            continue
-        admitted.append(head_dim)
+        check_supported(cfg)
+        if mha_step.kernel_takes(head_dim):
+            admitted.append(head_dim)
     assert admitted == list(range(32, 257, 32))
     rng = np.random.default_rng(5)
     for head_dim in (*admitted, 48, 288):
@@ -453,7 +454,8 @@ def test_greedy_generate_matches_jax_engine(int8, kv_int8, monkeypatch):
     monkeypatch.setitem(jax_moe_ffn._KERNEL_ACTS, "gelu", jax_activations.gelu)
     jcfg, jparams, model = _pair(seed=12, int8=int8)
     cfg = model.config
-    jax_engine, engine = JaxEngine(jcfg, jparams), InferenceEngine(cfg, model, kv_int8)
+    jax_engine = JaxEngine(jcfg, jparams)
+    engine = InferenceEngine(cfg, model, kv_int8, quant_matmul="dyn")
     assert engine.kv_int8 == int8_kv
     assert (model.layers[0].attn.fused_qkv() is not None) == int8
     batch, mask = _ragged_batch()
@@ -470,14 +472,16 @@ def test_greedy_generate_matches_jax_engine(int8, kv_int8, monkeypatch):
 # ---- 10. gates -------------------------------------------------------------------
 
 def test_gates_and_position_limit():
-    """MHA is accepted; MHA with MoE, SwiGLU and absolute positions are not;
-    a mixed MHA tree raises; generation past max_position_embeddings raises."""
+    """MHA is accepted, also with MoE, SwiGLU, absolute positions and an
+    untied head; another mixer is not; a mixed MHA tree raises; generation
+    past max_position_embeddings raises."""
     check_supported(ApertisConfig(**BASE))
     check_supported(ApertisConfig(**BASE), quantized=True)
     for over in (dict(use_expert_system=True), dict(use_swiglu=True),
-                 dict(position_embedding_type="absolute")):
-        with pytest.raises(NotImplementedError):
-            check_supported(ApertisConfig(**dict(BASE, **over)))
+                 dict(position_embedding_type="absolute", tie_word_embeddings=False)):
+        check_supported(ApertisConfig(**dict(BASE, **over)))
+    with pytest.raises(NotImplementedError):
+        check_supported(ApertisConfig(**dict(BASE, attention_type="linear")))
     _, cfg, tree = _tree(seed=13)
     qtree = quantize_params(jax.tree.map(torch.from_numpy, tree), min_size=0)
     assert quantized_layout(qtree) and not quantized_layout(tree)

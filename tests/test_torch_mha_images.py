@@ -72,6 +72,7 @@ def _pair(seed, int8=False, **over):
                                             min_size=VIT_MIN_SIZE, quantize_vision=True),
                             cfg, device="cpu")
     model.quantize_tied_head()
+    model.set_modes("dyn", "fatk")
     assert model.quantized and model.vision.layers[0].quantized
     return jcfg, jparams, model
 
@@ -168,7 +169,8 @@ def test_greedy_generate_with_images_matches_jax_engine(int8, monkeypatch):
     _setenv(monkeypatch, MHA_ENV, *((QUANT_ENV, {"APERTIS_QUANT_KV": "1"}) if int8 else ()))
     monkeypatch.setitem(jax_moe_ffn._KERNEL_ACTS, "gelu", jax_activations.gelu)
     jcfg, jparams, model = _pair(seed=4, int8=int8)
-    jax_engine, engine = JaxEngine(jcfg, jparams), InferenceEngine(model.config, model)
+    jax_engine = JaxEngine(jcfg, jparams)
+    engine = InferenceEngine(model.config, model, quant_matmul="dyn")
     assert engine.kv_int8 == int8
     ids, mask = _ragged(np.random.default_rng(5), [7, 2, 4], 7, 256)
     img = _images(6, (3, 24, 40, 3))

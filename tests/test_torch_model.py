@@ -75,6 +75,7 @@ def _int8_pair(monkeypatch, seed=0):
         quantize_params(jax.tree.map(torch.from_numpy, tree), min_size=0),
         ApertisConfig(**BASE), device="cpu")
     model.quantize_tied_head()
+    model.set_modes("dyn", "fatk")
     assert model.quantized and model.lm_head is not None
     return jcfg, jparams, model
 

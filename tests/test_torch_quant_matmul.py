@@ -137,7 +137,7 @@ def test_every_int8_linear_goes_through_the_w8a8_product(family, monkeypatch):
     each decode step."""
     over = dict(attention_type="standard_mha") if family == "mha" else {}
     cfg, model = _int8_model(1, **over)
-    engine = InferenceEngine(cfg, model)
+    engine = InferenceEngine(cfg, model, quant_matmul="dyn")
     assert not hasattr(model.layers[0].ffn.w1, "_w_cols")
     calls = _counting(monkeypatch)
     ids = np.random.default_rng(2).integers(4, 131, (2, 5)).astype(np.int32)

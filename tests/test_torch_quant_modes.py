@@ -280,8 +280,10 @@ def test_each_mode_routes_through_its_product(family, mode, monkeypatch):
 def test_weight_only_linear_and_mode_dispatch():
     """``linear_int8`` per mode on one input: weightonly is ``x @ (w_q * w_s)``
     with the weight dequantized in x's dtype; pallas is #6 and fused #8,
-    each plus the bias; an unknown mode raises, as do unknown engine and
-    model arguments; ``moe_mode="0"`` (no serving stack) is accepted."""
+    each plus the bias; auto is #6 (``resolve_mode``) on rows not quantized
+    already; an
+    unknown mode raises, as do unknown engine and model arguments;
+    ``moe_mode="0"`` (no serving stack) is accepted."""
     (_, _, _, _), (x, wq, ws, b) = _operands(5, 9, 64, 40, "bfloat16")
     wo = torch_quant.linear_int8(x, wq, ws, b, "weightonly")
     assert torch.equal(wo, x @ (wq.to(torch.bfloat16) * ws.to(torch.bfloat16)) + b)
@@ -291,11 +293,13 @@ def test_weight_only_linear_and_mode_dispatch():
                        quant_matmul_dyn_fused_reference(x, wq, ws) + b)
     assert torch.equal(torch_quant.linear_int8(x, wq, ws, b, "dyn"),
                        torch_quant.linear_dyn(x, wq, ws, b))
+    assert torch.equal(torch_quant.linear_int8(x, wq, ws, b, "auto"),
+                       quant_matmul_reference(x, wq, ws) + b)
     with pytest.raises(ValueError):
-        torch_quant.linear_int8(x, wq, ws, b, "auto")
+        torch_quant.linear_int8(x, wq, ws, b, "xla")
     cfg = ApertisConfig(**BASE)
     model = from_jax_params(init_params(cfg, torch.Generator(), device="cpu"), cfg, device="cpu")
-    for kw in (dict(quant_matmul="auto"), dict(quant_matmul="xla"), dict(moe_mode="fat"),
+    for kw in (dict(quant_matmul="autox"), dict(quant_matmul="xla"), dict(moe_mode="fatt"),
                dict(moe_mode="1")):
         with pytest.raises(ValueError):
             InferenceEngine(cfg, model, **kw)

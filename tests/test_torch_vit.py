@@ -141,6 +141,7 @@ def test_int8_vit_matches_jax(monkeypatch):
                          quantize_vision=True)
     assert "in_proj_w_q" in jq["vision"]["layers"] and "w" in jq["vision"]["layers"]["ln1"]
     model = from_jax_params(tq, cfg, device="cpu")
+    model.set_modes("dyn", "fatk")
     assert model.vision.layers[0].quantized and model.vision_proj.w_q.dtype == torch.int8
     pixels = np.random.default_rng(5).normal(size=(2, 3, 32, 32)).astype(np.float32)
     ref = jax_vit.vit_encode(jq["vision"], JaxConfig(**BASE), jnp.asarray(pixels))
@@ -227,7 +228,8 @@ def _engines(monkeypatch, kind):
         tree = quantize_params(jax.tree.map(torch.from_numpy, tree), min_size=VIT_MIN_SIZE,
                                quantize_vision=True)
     return JaxEngine(jcfg, jtree), InferenceEngine(cfg, from_jax_params(tree, cfg, device="cpu",
-                                                                        dtype=dtype))
+                                                                        dtype=dtype),
+                                                   quant_matmul="dyn")
 
 
 @pytest.mark.parametrize("kind", ["float32", "bf16", "int8"])
