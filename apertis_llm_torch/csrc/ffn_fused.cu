@@ -32,12 +32,23 @@
 // in rank order (decode_gemm.cuh's sliced exchange), so a repeated call
 // gives the same bits. The host's plan (ops/kernels/decode_plan.py::bf16_ffn_plan)
 // gives the row tile, the splits and the rings' stages.
+//
+// The f32 forms (at the end of this file) serve the trees those layouts do
+// not take, as the TPU kernel does in the weights' dtype (ffn_fused.py:91,
+// 99): apertis_ffn_decode_f32 float weights of any mix of f32 and bf16 (the
+// input rounded to W1's dtype, the hidden to W2's, the output in its own
+// dtype), apertis_ffn_decode_int8_f32 the int8 layout's arithmetic step by
+// step with biases and output of either dtype. Both run the SIMT products
+// of simt.cuh; the int8 form's GEMM2 adds each hidden tile's exact int32 sum
+// times the tile's scale in tile order, so it equals its plain version bit
+// for bit where its activation does.
 
 #include <string.h>
 
 #include "common.cuh"
 #include "decode_gemm.cuh"
 #include "quant_ffn.cuh"
+#include "simt.cuh"
 
 namespace {
 
@@ -357,4 +368,113 @@ extern "C" int apertis_ffn_quant_resources(int kernel, int row_tile, int smem, i
                                     kThreads, smem, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+
+// ---- the f32 forms (SIMT) -----------------------------------------------------
+
+namespace {
+
+// The int8 form's hidden requantization, one (row, tile) a block of kBlock
+// threads: hs = max(absmax, 1e-8) * (1/127), hq = rint(h / hs) over the
+// tile's bn columns (ffn_fused.py:93-96). Shared memory: bn floats.
+__global__ void __launch_bounds__(kBlock) f32_tile_quant_kernel(
+    const float* __restrict__ h, int8_t* __restrict__ hq, float* __restrict__ hs, int inter,
+    int bn) {
+  extern __shared__ float v[];
+  __shared__ float red[kWarps];
+  const int tiles = inter / bn;
+  const size_t row = blockIdx.x / tiles;
+  const int t = blockIdx.x % tiles;
+  const size_t base = row * inter + (size_t)t * bn;
+  for (int k = threadIdx.x; k < bn; k += kBlock) v[k] = h[base + k];
+  __syncthreads();
+  simt_quant_row(v, bn, red, kWarps, hq + base, hs + row * tiles + t, true);
+}
+
+// GEMM2 of the int8 form: out[r, n] = (sum over the hidden tiles t, in order,
+// of f32(int32 sum_{k in t} hq[r, k] * W2_q[k, n]) * hs[r, t]) * w2_s[n] +
+// b2[n], one row a block of 32 columns and kSimtSlices slices of the tile.
+__global__ void __launch_bounds__(kSimtThreads) f32_tile_gemm_kernel(
+    const int8_t* __restrict__ hq, const float* __restrict__ hs, const int8_t* __restrict__ w2q,
+    const float* __restrict__ w2s, const void* __restrict__ b2, int bbf,
+    void* __restrict__ out, int obf, int d_model, int inter, int bn) {
+  __shared__ int part[kSimtSlices][32];
+  const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
+  const int n = blockIdx.x * 32 + lane;
+  const size_t row = blockIdx.y;
+  const bool col = n < d_model;
+  const int tiles = inter / bn;
+  float acc = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    int sum = 0;
+    if (col)
+      for (int k = t * bn + slice; k < (t + 1) * bn; k += kSimtSlices)
+        sum += (int)hq[row * inter + k] * (int)w2q[(size_t)k * d_model + n];
+    part[slice][lane] = sum;
+    __syncthreads();
+    if (slice == 0) {
+      int total = 0;
+      for (int s = 0; s < kSimtSlices; ++s) total += part[s][lane];
+      acc = __fadd_rn(acc, __fmul_rn((float)total, hs[row * tiles + t]));
+    }
+    __syncthreads();
+  }
+  if (slice == 0 && col)
+    stv(out, row * d_model + n, __fadd_rn(__fmul_rn(acc, w2s[n]), ldv(b2, n, bbf)), obf);
+}
+
+}  // namespace
+
+// The float FFN for S rows, SIMT: x (S, D) of dtype code xbf (1 bf16, 0 f32),
+// W1 (D, I) and W2 (I, D) of codes w1bf and w2bf, b1 and b2 of codes b1bf
+// and b2bf, out (S, D) of code obf; hidden (S, I) is scratch of W2's dtype.
+// hidden = act(x' @ W1 + b1) rounded to W2's dtype (x' is x rounded to W1's),
+// out = hidden @ W2 + b2. act: 1 relu, 2 silu, else exact GELU. Returns
+// cudaGetLastError().
+extern "C" int apertis_ffn_decode_f32(const void* x, const void* w1, const void* b1,
+                                      const void* w2, const void* b2, void* out, void* hidden,
+                                      int rows, int d_model, int inter, int act, int xbf,
+                                      int w1bf, int b1bf, int w2bf, int b2bf, int obf,
+                                      void* stream) {
+  if (rows <= 0 || d_model <= 0 || inter <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = simt_rowmat<false>(x, xbf, nullptr, d_model, w1, w1bf, nullptr, inter, rows,
+                                       d_model, inter, b1, b1bf, act, nullptr, 0, 0, hidden,
+                                       w2bf, inter, nullptr, 0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(simt_rowmat<false>(hidden, w2bf, nullptr, inter, w2, w2bf, nullptr,
+                                             d_model, rows, inter, d_model, b2, b2bf, -1,
+                                             nullptr, 0, 0, out, obf, d_model, nullptr, 0, st));
+}
+
+// The int8 FFN for S rows, SIMT, with biases and output of either dtype:
+// x_q (S, D) int8 with x_s (S, 1) f32, W1_q (D, I) with w1_s (1, I), W2_q
+// (I, D) with w2_s (1, D), b1 and b2 of codes b1bf and b2bf, out of code obf;
+// h (S, I) f32, hq (S, I) int8 and hs (S, I / bn) f32 are scratch. bn divides
+// I. Returns cudaGetLastError().
+extern "C" int apertis_ffn_decode_int8_f32(const void* xq, const void* xs, const void* w1q,
+                                           const void* w1s, const void* b1, const void* w2q,
+                                           const void* w2s, const void* b2, void* out, void* h,
+                                           void* hq, void* hs, int rows, int d_model, int inter,
+                                           int bn, int act, int b1bf, int b2bf, int obf,
+                                           void* stream) {
+  if (rows <= 0 || d_model <= 0 || bn <= 0 || inter % bn)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = simt_rowmat<true>(xq, 0, static_cast<const float*>(xs), d_model, w1q, 0,
+                                      static_cast<const float*>(w1s), inter, rows, d_model,
+                                      inter, b1, b1bf, act, nullptr, 0, 0, h, 0, inter, nullptr,
+                                      0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = allow_smem(f32_tile_quant_kernel, (size_t)bn * sizeof(float))) != cudaSuccess)
+    return static_cast<int>(err);
+  f32_tile_quant_kernel<<<rows * (inter / bn), kBlock, (size_t)bn * sizeof(float), st>>>(
+      static_cast<const float*>(h), static_cast<int8_t*>(hq), static_cast<float*>(hs), inter,
+      bn);
+  f32_tile_gemm_kernel<<<dim3((d_model + 31) / 32, rows), kSimtThreads, 0, st>>>(
+      static_cast<const int8_t*>(hq), static_cast<const float*>(hs),
+      static_cast<const int8_t*>(w2q), static_cast<const float*>(w2s), b2, b2bf, out, obf,
+      d_model, inter, bn);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -52,6 +52,14 @@
 // a multiple of 8), the scale once a row. ops/kernels/ln_quant.py::ln_plan
 // picks the plan (VEC, tpr, NV): few values a thread, and more threads a row
 // where there are too few rows to fill the card.
+//
+// The f32 form (apertis_ln_quantize_f32, at the end of this file) takes the
+// f32 rows of an f32 tree (int8 weights beside f32 norms and activations),
+// which the TPU kernel takes as any dtype: the normed row is rounded to the
+// input's dtype, so not at all. It is a simple SIMT kernel, one block of
+// 256 threads a row, the row's statistics summed as the plain version sums
+// them (each group of vec values in f32 in order, the groups in f64), the
+// normed row held in shared memory for its absmax and levels.
 
 #include <cmath>
 
@@ -327,4 +335,107 @@ extern "C" int apertis_ln_quantize_resources(int vec, int tpr, int nv, int* out)
   out[3] = block_of(tpr);
   out[4] = static_cast<int>(attr.localSizeBytes);
   return 0;
+}
+
+
+// ---- the f32 form -------------------------------------------------------------
+
+namespace {
+
+constexpr int kLnF32Threads = 256;
+
+// The block's sum of one double a thread, in every thread.
+__device__ __forceinline__ double ln_block_sum(double v, double* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  double t = red[0];
+  for (int w = 1; w < kLnF32Threads / 32; ++w) t += red[w];
+  return t;
+}
+
+// The plain version's row sum of f(v) over the row in shared memory: each
+// group of g values summed in f32 in order, the groups' sums in f64,
+// rounded to f32.
+template <typename F>
+__device__ __forceinline__ float ln_row_sum(const float* v, int h, int g, double* red, F f) {
+  double acc = 0.0;
+  for (int j = threadIdx.x; j < h / g; j += kLnF32Threads) {
+    float p = f(v[j * g]);
+    for (int e = 1; e < g; ++e) p = __fadd_rn(p, f(v[j * g + e]));
+    acc += static_cast<double>(p);
+  }
+  return __double2float_rn(ln_block_sum(acc, red));
+}
+
+__global__ void __launch_bounds__(kLnF32Threads) ln_quant_f32_kernel(
+    const float* __restrict__ x, const void* __restrict__ w, const void* __restrict__ b,
+    int pbf, int8_t* __restrict__ q, float* __restrict__ scale, int h, int g, int rms,
+    float eps, float inv_h, float inv_sqrt_h) {
+  extern __shared__ float v[];
+  __shared__ double red[kLnF32Threads / 32];
+  __shared__ float red_max[kLnF32Threads / 32];
+  const size_t row = blockIdx.x;
+  auto param = [pbf](const void* p, int k) {
+    return pbf ? __bfloat162float(static_cast<const bf16*>(p)[k])
+               : static_cast<const float*>(p)[k];
+  };
+  for (int k = threadIdx.x; k < h; k += kLnF32Threads) v[k] = x[row * h + k];
+  __syncthreads();
+  float inv;
+  if (rms) {
+    const float ss = ln_row_sum(v, h, g, red, [](float a) { return __fmul_rn(a, a); });
+    const float r = __fmul_rn(ss > 0.f ? sqrtf(ss) : 0.f, inv_sqrt_h);
+    inv = ss > 0.f ? 1.f / __fadd_rn(r, eps) : 0.f;
+  } else {
+    const float mean = __fmul_rn(ln_row_sum(v, h, g, red, [](float a) { return a; }), inv_h);
+    __syncthreads();
+    for (int k = threadIdx.x; k < h; k += kLnF32Threads) v[k] = __fsub_rn(v[k], mean);
+    __syncthreads();
+    const float var =
+        __fmul_rn(ln_row_sum(v, h, g, red, [](float c) { return __fmul_rn(c, c); }), inv_h);
+    inv = var > 0.f ? 1.f / sqrtf(__fadd_rn(var, eps)) : 0.f;
+  }
+  float m = 0.f;
+  __syncthreads();
+  for (int k = threadIdx.x; k < h; k += kLnF32Threads) {
+    float c = __fmul_rn(__fmul_rn(v[k], inv), param(w, k));
+    if (!rms) c = __fadd_rn(c, param(b, k));
+    v[k] = c;
+    m = fmaxf(m, fabsf(c));
+  }
+  m = warp_max(m);
+  if ((threadIdx.x & 31) == 0) red_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  float s = red_max[0];
+  for (int i = 1; i < kLnF32Threads / 32; ++i) s = fmaxf(s, red_max[i]);
+  s = fmaxf(s, 1e-8f) * (1.f / 127.f);
+  for (int k = threadIdx.x; k < h; k += kLnF32Threads)
+    q[row * h + k] = quant_level(__fdiv_rn(v[k], s));
+  if (threadIdx.x == 0) scale[row] = s;
+}
+
+}  // namespace
+
+// Norm + quantize of `rows` rows of `h` f32 values, the norm's weight and
+// bias of dtype code pbf (1 bf16, 0 f32); rms != 0 selects RMSNorm (b
+// unused). Returns cudaGetLastError().
+extern "C" int apertis_ln_quantize_f32(const void* x, const void* w, const void* b, void* q,
+                                       void* scale, int rows, int h, int pbf, int rms, float eps,
+                                       void* stream) {
+  if (rows <= 0 || h <= 0 || (size_t)h * sizeof(float) > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int g = h % 8 == 0 ? 8 : h % 4 == 0 ? 4 : h % 2 == 0 ? 2 : 1;
+  const float inv_h = static_cast<float>(1.0 / h);
+  const float inv_sqrt_h = static_cast<float>(std::pow(static_cast<double>(h), -0.5));
+  const size_t smem = (size_t)h * sizeof(float);
+  cudaError_t err = allow_smem(ln_quant_f32_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ln_quant_f32_kernel<<<rows, kLnF32Threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), w, b, pbf, static_cast<int8_t*>(q),
+      static_cast<float*>(scale), h, g, rms, eps, inv_h, inv_sqrt_h);
+  return static_cast<int>(cudaGetLastError());
 }

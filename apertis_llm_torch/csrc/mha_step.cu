@@ -3,7 +3,13 @@
 //
 // Replaces: apertis_llm_tpu/ops/pallas/mha_step.py::mha_decode_ctx, with a
 // bf16 cache (apertis_mha_decode_ctx) and an int8 cache with f32
-// per-(head, slot) scales (apertis_mha_decode_ctx_int8).
+// per-(head, slot) scales (apertis_mha_decode_ctx_int8), and their f32
+// forms (apertis_mha_decode_ctx_f32: f32 q, k_new, v_new and output over an
+// f32 cache, or over an int8 cache with its scales), which the TPU kernel
+// serves by taking the cache as it is (mha_step.py:131) and writing q's
+// dtype. The f32 forms are the same kernel instantiated on f32: q is scaled
+// without a rounding, a 16-byte load of the cache holds 4 values instead of
+// 8, and the output is f32.
 //
 // Layout: q, k_new, v_new (B, D) bf16 with D = H * Dh; the cache k, v
 // (B, L, D), slot l of row b holding the head-flat projection row, so one
@@ -94,16 +100,27 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return r;
 }
 
-template <int DH, bool QUANT>
+// q's value rounded to q's dtype T (bf16), or as it is (f32).
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return round_bf16(v);
+  } else {
+    return v;
+  }
+}
+
+template <int DH, bool QUANT, typename T>
 __global__ void __launch_bounds__(kThreads) mha_decode_kernel(
-    const bf16* __restrict__ q, const void* __restrict__ kc, const void* __restrict__ vc,
-    const bf16* __restrict__ k_new, const bf16* __restrict__ v_new,
+    const T* __restrict__ q, const void* __restrict__ kc, const void* __restrict__ vc,
+    const T* __restrict__ k_new, const T* __restrict__ v_new,
     const float* __restrict__ bias, const float* __restrict__ ks,
-    const float* __restrict__ vs, bf16* __restrict__ out, int L, int H, float scale) {
-  typedef typename std::conditional<QUANT, int8_t, bf16>::type CacheT;
+    const float* __restrict__ vs, T* __restrict__ out, int L, int H, float scale) {
+  typedef typename std::conditional<QUANT, int8_t, T>::type CacheT;
+  constexpr int kPer = 16 / sizeof(CacheT);   // cache values a 16-byte load
   constexpr int E = DH / 32;  // values of the head per lane in the context pass
   extern __shared__ float smem[];
-  float* sq = smem;                          // DH: the scaled q (bf16 values)
+  float* sq = smem;                          // DH: the scaled q (T's values)
   float* part = sq + DH;                     // kWarpsHere * DH: context partials
   float* red = part + kWarpsHere * DH;       // 8: block reductions
   float* scal = red + 8;                     // 8: s_self, qscale
@@ -126,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) mha_decode_kernel(
   if (warp == 0) {
     float self = 0.f, amax = 0.f;
     for (int d = lane; d < DH; d += 32) {
-      const float v = round_bf16(__fmul_rn(to_f32(q[head0 + d]), scale));
+      const float v = round_to<T>(__fmul_rn(to_f32(q[head0 + d]), scale));
       sq[d] = v;
       self = __fadd_rn(self, __fmul_rn(v, to_f32(k_new[head0 + d])));
       amax = fmaxf(amax, fabsf(v));
@@ -162,11 +179,11 @@ __global__ void __launch_bounds__(kThreads) mha_decode_kernel(
     } else {
       float acc = 0.f;
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
+      for (int j = 0; j < DH / kPer; ++j) {
         const uint4 w = krow[j];
-        const bf16* kv = reinterpret_cast<const bf16*>(&w);
+        const CacheT* kv = reinterpret_cast<const CacheT*>(&w);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc = fmaf(sq[8 * j + e], to_f32(kv[e]), acc);
+        for (int e = 0; e < kPer; ++e) acc = fmaf(sq[kPer * j + e], to_f32(kv[e]), acc);
       }
       s = acc;
     }
@@ -211,42 +228,42 @@ __global__ void __launch_bounds__(kThreads) mha_decode_kernel(
 #pragma unroll
     for (int w = 1; w < kWarpsHere; ++w) c += part[w * DH + d];
     c = fmaf(p_self, to_f32(v_new[head0 + d]), c);
-    out[head0 + d] = __float2bfloat16(__fmul_rn(c, inv));
+    out[head0 + d] = from_f32<T>(__fmul_rn(c, inv));
   }
 }
 
-template <int DH, bool QUANT>
+template <int DH, bool QUANT, typename T>
 int launch(const void* q, const void* k, const void* v, const void* k_new, const void* v_new,
            const void* bias, const void* ks, const void* vs, void* out, int B, int L, int H,
            void* stream) {
   const size_t smem = ((size_t)L + 5 * DH + 16) * sizeof(float) + DH;
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(mha_decode_kernel<DH, QUANT>, smem);
+  cudaError_t err = allow_smem(mha_decode_kernel<DH, QUANT, T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // Dh^-1/2 as Python's head_dim ** -0.5 gives it, rounded to f32.
   const float scale = (float)std::pow((double)DH, -0.5);
-  mha_decode_kernel<DH, QUANT><<<B * H, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), k, v, static_cast<const bf16*>(k_new),
-      static_cast<const bf16*>(v_new), static_cast<const float*>(bias),
-      static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<bf16*>(out),
+  mha_decode_kernel<DH, QUANT, T><<<B * H, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), k, v, static_cast<const T*>(k_new),
+      static_cast<const T*>(v_new), static_cast<const float*>(bias),
+      static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<T*>(out),
       L, H, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool QUANT>
+template <bool QUANT, typename T = bf16>
 int dispatch(const void* q, const void* k, const void* v, const void* k_new, const void* v_new,
              const void* bias, const void* ks, const void* vs, void* out, int B, int L, int H,
              int head_dim, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
-    case 32: return launch<32, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
-    case 64: return launch<64, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
-    case 96: return launch<96, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
-    case 128: return launch<128, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
-    case 160: return launch<160, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
-    case 192: return launch<192, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
-    case 224: return launch<224, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
-    case 256: return launch<256, QUANT>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
+    case 32: return launch<32, QUANT, T>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
+    case 64: return launch<64, QUANT, T>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
+    case 96: return launch<96, QUANT, T>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
+    case 128: return launch<128, QUANT, T>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
+    case 160: return launch<160, QUANT, T>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
+    case 192: return launch<192, QUANT, T>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
+    case 224: return launch<224, QUANT, T>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
+    case 256: return launch<256, QUANT, T>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -269,4 +286,18 @@ extern "C" int apertis_mha_decode_ctx_int8(const void* q, const void* k, const v
                                            void* out, int B, int L, int H, int head_dim,
                                            void* stream) {
   return dispatch<true>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, head_dim, stream);
+}
+
+// The f32 forms: f32 q, k_new, v_new and output over an f32 cache (ks, vs
+// null) or over an int8 cache with its f32 scales ks, vs (B, H, L).
+extern "C" int apertis_mha_decode_ctx_f32(const void* q, const void* k, const void* v,
+                                          const void* k_new, const void* v_new,
+                                          const void* bias, const void* ks, const void* vs,
+                                          void* out, int B, int L, int H, int head_dim,
+                                          void* stream) {
+  if (ks == nullptr)
+    return dispatch<false, float>(q, k, v, k_new, v_new, bias, nullptr, nullptr, out, B, L, H,
+                                  head_dim, stream);
+  return dispatch<true, float>(q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, head_dim,
+                               stream);
 }

@@ -74,12 +74,24 @@
 // whose conv + SiLU needs no whole row, into in_proj's epilogue (scattered
 // conv-window loads by the owners of each column block; on the H100 the
 // step took 0.0480 against 0.0461 ms at 64 rows).
+//
+// The f32 form (apertis_ssm_decode_step_f32, at the end of this file) serves
+// the trees the two layouts above do not take: f32 weights, or int8 weights
+// beside f32 (or mixed f32 and bf16) rows, norms, conv and dt weights. The
+// TPU kernel is dtype-generic (ssm_step.py:78, 119, 133, 154, 176: each dot
+// in its weight's dtype, xp in the cache's); this form follows it with the
+// SIMT products of simt.cuh in the same seven stages as above, each float
+// operand read through its dtype code. Its roundings are the kernel's: xp to
+// the cache's dtype, each dot's input to its weight's dtype, dt to dt_proj's,
+// and the FFN pre-norm through bf16 even in f32 (ssm_step.py:186).
 
 #include <string.h>
 
+#include <cmath>
 
 #include "common.cuh"
 #include "decode_gemm.cuh"
+#include "simt.cuh"
 
 namespace {
 
@@ -784,4 +796,340 @@ extern "C" int apertis_ssm_step_resources(int kernel, int row_tile, int smem, in
                                         : &ssm_gemm_kernel<64, kOut, kDgBW>, kThreads, smem, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+
+// ---- the f32 form (SIMT) ----------------------------------------------------
+
+namespace {
+
+// The bytes of the f32 form's scratch, 16-byte aligned pieces in this order:
+// the pre-norm nrm (B, D) f32 and its int8 levels and scales, z (B, C), x_act
+// (B, C) and its levels and scales, dt | B | C (B, R + 2C), g (B, C) and its
+// levels and scales, hsum (B, D).
+struct F32Scratch {
+  float *nrm, *nrm_s, *z, *xa, *xa_s, *proj, *g, *g_s, *hsum;
+  int8_t *nrm_q, *xa_q, *g_q;
+  size_t bytes;
+  F32Scratch(void* base, int B, int D, int C, int R) {
+    char* p = static_cast<char*>(base);
+    size_t off = 0;
+    auto take = [&](size_t n) {
+      char* q = p + off;
+      off += (n + 15) / 16 * 16;
+      return q;
+    };
+    nrm = reinterpret_cast<float*>(take((size_t)B * D * 4));
+    nrm_q = reinterpret_cast<int8_t*>(take((size_t)B * D));
+    nrm_s = reinterpret_cast<float*>(take((size_t)B * 4));
+    z = reinterpret_cast<float*>(take((size_t)B * C * 4));
+    xa = reinterpret_cast<float*>(take((size_t)B * C * 4));
+    xa_q = reinterpret_cast<int8_t*>(take((size_t)B * C));
+    xa_s = reinterpret_cast<float*>(take((size_t)B * 4));
+    proj = reinterpret_cast<float*>(take((size_t)B * (R + 2 * C) * 4));
+    g = reinterpret_cast<float*>(take((size_t)B * C * 4));
+    g_q = reinterpret_cast<int8_t*>(take((size_t)B * C));
+    g_s = reinterpret_cast<float*>(take((size_t)B * 4));
+    hsum = reinterpret_cast<float*>(take((size_t)B * D * 4));
+    bytes = off;
+  }
+};
+
+// A pre-norm of one row a block (ops/norms.py's formulas), in f32:
+//   mode 0, the mixer's: the normed row to out_f, and with kQ its int8
+//     levels and scale;
+//   mode 1, the dense epilogue: the normed row rounded to bf16, then its
+//     levels and scale (kQ) or the bf16 row (at out_q);
+//   mode 2, the moe epilogue: n2 rounded to bf16, the centred row's levels,
+//     x_s = s * rsqrt(var + eps), and the top-2 combine weights of the
+//     router's LayerNorm of n2 (the bf16 form's moe epilogue).
+// Shared memory: D floats.
+template <bool kQ>
+__global__ void __launch_bounds__(kBlock) f32_norm_kernel(
+    const void* __restrict__ x, int xbf, const void* __restrict__ norm_w,
+    const void* __restrict__ norm_b, int pbf, int rms, float eps, float inv_sqrt_d, int mode,
+    const void* __restrict__ rln_w, const void* __restrict__ rln_b,
+    const void* __restrict__ router_w, const void* __restrict__ router_b,
+    float* __restrict__ out_f, void* __restrict__ out_q, float* __restrict__ out_s,
+    float* __restrict__ comb, int d_model, int num_experts) {
+  extern __shared__ float v[];
+  __shared__ float red[kWarps];
+  __shared__ float logit_part[kWarps][32];
+  const size_t row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const float dn = (float)d_model;
+  for (int k = tid; k < d_model; k += kBlock) v[k] = ldv(x, row * d_model + k, xbf);
+  if (rms) {
+    float ss = 0.f;
+    for (int k = tid; k < d_model; k += kBlock) ss = fmaf(v[k], v[k], ss);
+    ss = simt_reduce(ss, red, kWarps, false);
+    const float r = __fmul_rn(ss > 0.f ? sqrtf(ss) : 0.f, inv_sqrt_d);
+    const float inv = ss > 0.f ? 1.f / __fadd_rn(r, eps) : 0.f;
+    for (int k = tid; k < d_model; k += kBlock)
+      v[k] = __fmul_rn(__fmul_rn(v[k], inv), ldv(norm_w, k, pbf));
+  } else {
+    float s1 = 0.f;
+    for (int k = tid; k < d_model; k += kBlock) s1 += v[k];
+    const float mean = simt_reduce(s1, red, kWarps, false) / dn;
+    float s2 = 0.f;
+    for (int k = tid; k < d_model; k += kBlock) s2 = fmaf(v[k] - mean, v[k] - mean, s2);
+    const float var = simt_reduce(s2, red, kWarps, false) / dn;
+    const float inv = var > 0.f ? rsqrtf(var + eps) : 0.f;
+    for (int k = tid; k < d_model; k += kBlock)
+      v[k] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[k], mean), inv), ldv(norm_w, k, pbf)),
+                       ldv(norm_b, k, pbf));
+  }
+  if (mode == 0) {
+    for (int k = tid; k < d_model; k += kBlock) out_f[row * d_model + k] = v[k];
+    if constexpr (kQ) {
+      __syncthreads();
+      simt_quant_row(v, d_model, red, kWarps, static_cast<int8_t*>(out_q) + row * d_model,
+                     out_s + row);
+    }
+    return;
+  }
+  for (int k = tid; k < d_model; k += kBlock) v[k] = round_bf16(v[k]);
+  __syncthreads();
+  if (mode == 1) {
+    if constexpr (kQ) {
+      simt_quant_row(v, d_model, red, kWarps, static_cast<int8_t*>(out_q) + row * d_model,
+                     out_s + row);
+    } else {
+      bf16* o = static_cast<bf16*>(out_q) + row * d_model;
+      for (int k = tid; k < d_model; k += kBlock) o[k] = __float2bfloat16(v[k]);
+    }
+    return;
+  }
+  int8_t* q = static_cast<int8_t*>(out_q) + row * d_model;
+  float s1 = 0.f;
+  for (int k = tid; k < d_model; k += kBlock) s1 += v[k];
+  const float mean = simt_reduce(s1, red, kWarps, false) / dn;
+  float s2 = 0.f, m = 0.f;
+  for (int k = tid; k < d_model; k += kBlock) {
+    const float c = v[k] - mean;
+    s2 = fmaf(c, c, s2);
+    m = fmaxf(m, fabsf(c));
+  }
+  const float var = simt_reduce(s2, red, kWarps, false) / dn;
+  const float inv = var > 0.f ? rsqrtf(var + eps) : 0.f;
+  const float scale = fmaxf(simt_reduce(m, red, kWarps, true), 1e-8f) * (1.f / 127.f);
+  const float rscale = 1.f / scale;
+  for (int k = tid; k < d_model; k += kBlock) q[k] = quant_level(__fmul_rn(v[k] - mean, rscale));
+  if (tid == 0) out_s[row] = __fmul_rn(scale, inv);
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int e = 0; e < num_experts; ++e) {
+    float acc = 0.f;
+    for (int k = tid; k < d_model; k += kBlock) {
+      const float rn = __fadd_rn(__fmul_rn(__fmul_rn(v[k] - mean, inv), ldv(rln_w, k, pbf)),
+                                 ldv(rln_b, k, pbf));
+      acc = fmaf(rn, ldv(router_w, (size_t)k * num_experts + e, pbf), acc);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) logit_part[warp][e] = acc;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  float logit = __int_as_float(0xff800000);
+  if (lane < num_experts) {
+    float l = 0.f;
+    for (int w = 0; w < kWarps; ++w) l += logit_part[w][lane];
+    logit = l + ldv(router_b, lane, pbf);
+  }
+  warp_top2_combine(logit, num_experts, comb + row * num_experts);
+}
+
+// x_act = silu(conv window [s_0 .. s_{K-2}, xp] . conv_w + conv_b) of one
+// row a block, in the plain version's order, to xa (f32) and with kQ its
+// levels and scale. Shared memory: C floats.
+template <bool kQ>
+__global__ void __launch_bounds__(kBlock) f32_conv_kernel(
+    const void* __restrict__ conv_state, const void* __restrict__ xp, int cbf,
+    const void* __restrict__ conv_w, const void* __restrict__ conv_b, int pbf,
+    float* __restrict__ xa, int8_t* __restrict__ xa_q, float* __restrict__ xa_s, int channels,
+    int ksize) {
+  extern __shared__ float v[];
+  __shared__ float red[kWarps];
+  const size_t row = blockIdx.x;
+  for (int c = threadIdx.x; c < channels; c += kBlock) {
+    const size_t wk = (size_t)c * ksize;
+    float yc = __fmul_rn(ldv(xp, row * channels + c, cbf), ldv(conv_w, wk + ksize - 1, pbf));
+    if (ksize > 1) {
+      const size_t s0 = row * (ksize - 1) * channels + c;
+      float taps = __fmul_rn(ldv(conv_state, s0, cbf), ldv(conv_w, wk, pbf));
+      for (int j = 1; j < ksize - 1; ++j)
+        taps = __fadd_rn(taps, __fmul_rn(ldv(conv_state, s0 + (size_t)j * channels, cbf),
+                                         ldv(conv_w, wk + j, pbf)));
+      yc = __fadd_rn(taps, yc);
+    }
+    yc = __fadd_rn(yc, ldv(conv_b, c, pbf));
+    const float act = __fmul_rn(yc, sigmoidf(yc));
+    xa[row * channels + c] = act;
+    v[c] = act;
+  }
+  if constexpr (kQ) {
+    __syncthreads();
+    simt_quant_row(v, channels, red, kWarps, xa_q + row * channels, xa_s + row);
+  }
+}
+
+// dt_proj + softplus, the recurrence and the gate of one row a block:
+//   delta[h] = softplus(sum_r dt[r]' dt_w[r, h] + dt_b[h]) (dt rounded to
+//   dt_w's dtype), h' = exp(delta[c / N] * -exp(A_log[c])) * ssm[c] + B[c],
+//   g = (C[c] * h' + D[c] * x_act[c]) * silu(z[c]).
+// h' goes to ssm_out (which may be ssm), g to g (f32) and with kQ its levels
+// and scale. Shared memory: H + C floats.
+template <bool kQ>
+__global__ void __launch_bounds__(kBlock) f32_recur_kernel(
+    const float* __restrict__ proj, const void* __restrict__ dt_w, const void* __restrict__ dt_b,
+    const void* __restrict__ a_log, const void* __restrict__ d_skip, int pbf,
+    const float* __restrict__ z, const float* __restrict__ xa, const float* ssm,
+    float* ssm_out, float* __restrict__ g, int8_t* __restrict__ g_q, float* __restrict__ g_s,
+    int channels, int rank, int heads, int d_state) {
+  extern __shared__ float sm[];
+  float* delta = sm;
+  float* gv = sm + heads;
+  __shared__ float red[kWarps];
+  const size_t row = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int width = rank + 2 * channels;
+  const float* pr = proj + row * width;
+  for (int hd = warp; hd < heads; hd += kWarps) {
+    float acc = 0.f;
+    for (int r = lane; r < rank; r += 32) {
+      float dt = pr[r];
+      if (pbf) dt = round_bf16(dt);
+      acc = fmaf(dt, ldv(dt_w, (size_t)r * heads + hd, pbf), acc);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) delta[hd] = softplusf(__fadd_rn(acc, ldv(dt_b, hd, pbf)));
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < channels; c += kBlock) {
+    const size_t i = row * channels + c;
+    const float a_row = -expf(ldv(a_log, c, pbf));
+    const float hn = __fadd_rn(__fmul_rn(expf(__fmul_rn(delta[c / d_state], a_row)), ssm[i]),
+                               pr[rank + c]);
+    const float y = __fadd_rn(__fmul_rn(pr[rank + channels + c], hn),
+                              __fmul_rn(ldv(d_skip, c, pbf), xa[i]));
+    const float zz = z[i];
+    const float gate = __fmul_rn(y, __fmul_rn(zz, sigmoidf(zz)));
+    ssm_out[i] = hn;
+    g[i] = gate;
+    gv[c] = gate;
+  }
+  if constexpr (kQ) {
+    __syncthreads();
+    simt_quant_row(gv, channels, red, kWarps, g_q + row * channels, g_s + row);
+  }
+}
+
+struct F32StepArgs {
+  const void *h, *conv_state;
+  const float* ssm;
+  const void *norm_w, *norm_b, *inx_w, *inz_w, *xparam_w, *out_w;
+  const float *inx_s, *inz_s, *xparam_s, *out_s;
+  const void *conv_w, *conv_b, *dt_w, *dt_b, *a_log, *d_skip, *fn_w, *fn_b, *rln_w, *rln_b,
+      *router_w, *router_b;
+  void *h_out, *xp_out;
+  float* ssm_out;
+  void* ffn_in;
+  float *ffn_scale, *comb;
+  int B, D, C, K, R, H, N, E, rms;
+  float eps;
+  int hbf, cbf, pbf, wbf;
+};
+
+template <bool kQ>
+int run_f32_step(const F32StepArgs& a, void* scratch, cudaStream_t st) {
+  if (a.B <= 0 || a.D <= 0 || a.C <= 0 || a.R <= 0 || a.H * a.N != a.C || a.E > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  F32Scratch s(scratch, a.B, a.D, a.C, a.R);
+  const float inv_sqrt_d = static_cast<float>(std::pow(static_cast<double>(a.D), -0.5));
+  const size_t row_d = (size_t)a.D * sizeof(float), row_c = (size_t)a.C * sizeof(float);
+  cudaError_t err = cudaSuccess;
+  if ((err = allow_smem(f32_norm_kernel<kQ>, row_d)) != cudaSuccess ||
+      (err = allow_smem(f32_conv_kernel<kQ>, row_c)) != cudaSuccess ||
+      (err = allow_smem(f32_recur_kernel<kQ>, row_c + (size_t)a.H * sizeof(float))) != cudaSuccess)
+    return static_cast<int>(err);
+  // 1. the pre-norm.
+  f32_norm_kernel<kQ><<<a.B, kBlock, row_d, st>>>(
+      a.h, a.hbf, a.norm_w, a.norm_b, a.pbf, a.rms, a.eps, inv_sqrt_d, 0, nullptr, nullptr,
+      nullptr, nullptr, s.nrm, s.nrm_q, s.nrm_s, nullptr, a.D, 0);
+  const void* nrm = kQ ? static_cast<const void*>(s.nrm_q) : static_cast<const void*>(s.nrm);
+  // 2. in_proj x (rounded to the cache's dtype) and z.
+  if ((err = simt_rowmat<kQ>(nrm, 0, s.nrm_s, a.D, a.inx_w, a.wbf, a.inx_s, a.C, a.B, a.D, a.C,
+                             nullptr, 0, -1, nullptr, 0, 0, a.xp_out, a.cbf, a.C, nullptr, 0, st)) !=
+          cudaSuccess ||
+      (err = simt_rowmat<kQ>(nrm, 0, s.nrm_s, a.D, a.inz_w, a.wbf, a.inz_s, a.C, a.B, a.D, a.C,
+                             nullptr, 0, -1, nullptr, 0, 0, s.z, 0, a.C, nullptr, 0, st)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  // 3. conv + SiLU.
+  f32_conv_kernel<kQ><<<a.B, kBlock, row_c, st>>>(a.conv_state, a.xp_out, a.cbf, a.conv_w,
+                                                  a.conv_b, a.pbf, s.xa, s.xa_q, s.xa_s, a.C,
+                                                  a.K);
+  // 4. x_param: dt | B | C.
+  const int width = a.R + 2 * a.C;
+  const void* xa = kQ ? static_cast<const void*>(s.xa_q) : static_cast<const void*>(s.xa);
+  if ((err = simt_rowmat<kQ>(xa, 0, s.xa_s, a.C, a.xparam_w, a.wbf, a.xparam_s, width, a.B, a.C,
+                             width, nullptr, 0, -1, nullptr, 0, 0, s.proj, 0, width, nullptr, 0,
+                             st)) != cudaSuccess)
+    return static_cast<int>(err);
+  // 5. dt_proj, the recurrence, the gate.
+  f32_recur_kernel<kQ><<<a.B, kBlock, row_c + (size_t)a.H * sizeof(float), st>>>(
+      s.proj, a.dt_w, a.dt_b, a.a_log, a.d_skip, a.pbf, s.z, s.xa, a.ssm, a.ssm_out, s.g, s.g_q,
+      s.g_s, a.C, a.R, a.H, a.N);
+  // 6. out_proj + the residual: hsum (f32) and h_out (h's dtype).
+  const void* g = kQ ? static_cast<const void*>(s.g_q) : static_cast<const void*>(s.g);
+  if ((err = simt_rowmat<kQ>(g, 0, s.g_s, a.C, a.out_w, a.wbf, a.out_s, a.D, a.B, a.C, a.D,
+                             nullptr, 0, -1, a.h, a.hbf, a.D, s.hsum, 0, a.D, a.h_out, a.hbf,
+                             st)) != cudaSuccess)
+    return static_cast<int>(err);
+  // 7. the dense or moe epilogue.
+  if (a.fn_w != nullptr) {
+    const int mode = a.router_w == nullptr ? 1 : 2;
+    f32_norm_kernel<kQ><<<a.B, kBlock, row_d, st>>>(
+        s.hsum, 0, a.fn_w, a.fn_b, a.pbf, a.rms, a.eps, inv_sqrt_d, mode, a.rln_w, a.rln_b,
+        a.router_w, a.router_b, nullptr, a.ffn_in, a.ffn_scale, a.comb, a.D, a.E);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The step's f32 form: float projection weights (quant = 0; dtype code wbf)
+// or int8 ones with (1, out) f32 scales (quant = 1), beside rows, norms,
+// conv, dt_proj, A_log, D, the FFN pre-norm and the router of any mix of f32
+// and bf16: h and h_out of code hbf, the conv cache and xp_out of code cbf,
+// the other float weights of code pbf (1 bf16, 0 f32). Outputs and the
+// epilogues as apertis_ssm_decode_step's (the dense epilogue's ffn_in bf16 in
+// the float layout, int8 with ffn_scale in the int8 one; the moe epilogue's
+// int8 x_q, x_s and comb in both). `scratch` holds
+// apertis_ssm_step_f32_scratch bytes. Returns cudaGetLastError().
+extern "C" int apertis_ssm_decode_step_f32(
+    const void* h, const void* conv_state, const void* ssm, const void* norm_w,
+    const void* norm_b, const void* inx_w, const void* inx_s, const void* inz_w,
+    const void* inz_s, const void* conv_w, const void* conv_b, const void* xparam_w,
+    const void* xparam_s, const void* dt_w, const void* dt_b, const void* a_log,
+    const void* d_skip, const void* out_w, const void* out_s, const void* fn_w,
+    const void* fn_b, const void* rln_w, const void* rln_b, const void* router_w,
+    const void* router_b, void* h_out, void* xp_out, void* ssm_out, void* ffn_in,
+    void* ffn_scale, void* comb, void* scratch, int batch, int d_model, int channels,
+    int ksize, int rank, int heads, int d_state, int num_experts, int rms, float eps, int quant,
+    int hbf, int cbf, int pbf, int wbf, void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const F32StepArgs a{h, conv_state, f(ssm), norm_w, norm_b, inx_w, inz_w, xparam_w, out_w,
+                      f(inx_s), f(inz_s), f(xparam_s), f(out_s), conv_w, conv_b, dt_w, dt_b,
+                      a_log, d_skip, fn_w, fn_b, rln_w, rln_b, router_w, router_b, h_out,
+                      xp_out, static_cast<float*>(ssm_out), ffn_in,
+                      static_cast<float*>(ffn_scale), static_cast<float*>(comb), batch, d_model,
+                      channels, ksize, rank, heads, d_state, num_experts, rms, eps, hbf, cbf,
+                      pbf, wbf};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return quant ? run_f32_step<true>(a, scratch, st) : run_f32_step<false>(a, scratch, st);
+}
+
+// The bytes of the f32 form's scratch for B rows, D, C and R.
+extern "C" int apertis_ssm_step_f32_scratch(int batch, int d_model, int channels, int rank) {
+  return static_cast<int>(F32Scratch(nullptr, batch, d_model, channels, rank).bytes);
 }

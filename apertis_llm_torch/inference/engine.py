@@ -16,6 +16,18 @@ with the same ``generate`` contract (engine.py:490-582):
 Each loop step reads one flag back to the host (whether any row is still
 running). Capturing the step in a CUDA graph is later work.
 
+``stream`` (engine.py:585-666) serves one prompt a token at a time for the
+chat surfaces: the same bucket, image-prefix alignment and position limit,
+one prefill, then one ``decode_step`` a token, yielding each id as it is
+sampled and stopping at an EOS once ``min_new_tokens`` are out. The token
+history that the repetition penalty reads stays on the device (one id is
+written a step; one id is read back, the one yielded).
+
+``dtype`` casts every floating parameter of the model to that dtype, as the
+JAX engine casts every floating leaf of its tree (engine.py:328, 337-341),
+an int8 tree's scales and norms included; the scales are then held in f32,
+as the kernels take them, with the values rounded through ``dtype``.
+
 For an int8 model the engine attaches the int8 copy of the tied LM head
 (``ApertisForCausalLM.quantize_tied_head``), as the JAX engine attaches
 ``quantize_tied_head`` to a quantized tree (engine.py:365-375). For a MoE
@@ -73,7 +85,8 @@ the prefix in its first slots.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+import re
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -120,6 +133,23 @@ def _check_position_limit(config: ApertisConfig, max_needed: int) -> None:
             "selective_ssm model for long context or raise the limit")
 
 
+# The int8 weights' scales, which the kernels take in f32 whatever the tree's
+# dtype.
+_SCALE_NAME = re.compile(r"w\d?_s$")
+
+
+@torch.no_grad()
+def cast_model(model: ApertisForCausalLM, dtype: Union[str, torch.dtype]) -> None:
+    """Cast every floating parameter of ``model`` to ``dtype`` in place, as
+    the JAX engine casts every floating leaf (engine.py:337-341); the int8
+    scales are rounded through ``dtype`` and kept in f32."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    for name, p in model.named_parameters():
+        if p.is_floating_point():
+            val = p.data.to(dtype)
+            p.data = val.float() if _SCALE_NAME.search(name) else val
+
+
 class InferenceEngine:
     """Batched generation for one (config, model) pair. ``kv_int8`` chooses
     an MHA model's KV cache: int8 with per-(head, slot) scales, or the
@@ -127,14 +157,19 @@ class InferenceEngine:
     for a float one. ``quant_bits`` is 8, or 4 for w4a8 serving.
     ``quant_matmul`` and ``moe_mode`` are the modes of
     ``ApertisForCausalLM.set_modes``, set on the model at construction and
-    again at each ``generate``; an unknown value raises ``ValueError``."""
+    again at each ``generate``; an unknown value raises ``ValueError``.
+    ``dtype`` (``"bfloat16"``, ``"float32"`` or a torch dtype) casts the
+    model's parameters first (:func:`cast_model`)."""
 
     PROMPT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
     def __init__(self, config: ApertisConfig, model: ApertisForCausalLM,
                  kv_int8: Optional[bool] = None, quant_bits: int = 8,
-                 quant_matmul: str = "auto", moe_mode: str = "fatk"):
+                 quant_matmul: str = "auto", moe_mode: str = "fatk",
+                 dtype: Optional[Union[str, torch.dtype]] = None):
         check_quant_bits(quant_bits)
+        if dtype is not None:
+            cast_model(model, dtype)
         self.config = config
         self.model = model
         self.quant_matmul, self.moe_mode = quant_matmul, moe_mode
@@ -201,6 +236,92 @@ class InferenceEngine:
                                              pixel_values if num_img else None)
         new = tokens[:, bucket:bucket + n_generated].cpu().numpy()
         return np.concatenate([input_ids, new.astype(input_ids.dtype)], axis=1)
+
+    @torch.inference_mode()
+    def stream(
+        self,
+        input_ids: np.ndarray,                   # (1, L) int
+        pixel_values: Optional[np.ndarray] = None,
+        generator: Optional[torch.Generator] = None,
+        **gen_kwargs,
+    ) -> Iterator[int]:
+        """Yield the token ids of one prompt as they are sampled (engine.py::
+        stream): prefill, then one decode step a token after the first,
+        stopping after ``max_new_tokens`` (default 128) or at an EOS id once
+        ``min_new_tokens`` are out: n tokens take n - 1 decode steps. Greedy
+        ids equal :meth:`generate`'s up to the EOS."""
+        self.model.set_modes(self.quant_matmul, self.moe_mode)
+        cfg = self.config
+        eos = gen_kwargs.pop("eos_token_id", None)
+        if eos is None:
+            eos = cfg.eos_token_id
+        eos_set = set(np.atleast_1d(eos).tolist()) if eos is not None else set()
+        max_new = gen_kwargs.pop("max_new_tokens", 128)
+        min_new = gen_kwargs.pop("min_new_tokens", 0)
+        sampling = dict(do_sample=gen_kwargs.pop("do_sample", False),
+                        temperature=gen_kwargs.pop("temperature", 1.0),
+                        top_k=gen_kwargs.pop("top_k", 50),
+                        top_p=gen_kwargs.pop("top_p", 1.0),
+                        repetition_penalty=gen_kwargs.pop("repetition_penalty", 1.0))
+        input_ids = np.asarray(input_ids)
+        b, l = input_ids.shape
+        if b != 1:
+            raise ValueError(f"stream serves one prompt, got a batch of {b}")
+        num_img = cfg.num_image_tokens if cfg.multimodal and pixel_values is not None else 0
+        pad_id = cfg.pad_token_id if cfg.pad_token_id is not None else 0
+        bucket = _round_up_bucket(l, self.PROMPT_BUCKETS)
+        bucket += (-(num_img + bucket)) % 8
+        _check_position_limit(cfg, num_img + bucket + max_new)
+        cache_len = num_img + bucket + max_new
+        device = self.model.device
+        ids = torch.full((1, bucket), pad_id, dtype=torch.int64, device=device)
+        ids[0, :l] = torch.as_tensor(input_ids[0], dtype=torch.int64)
+        mask = torch.zeros((1, bucket), dtype=torch.int32, device=device)
+        mask[0, :l] = 1
+        if num_img:
+            pixel_values = torch.as_tensor(np.asarray(pixel_values), device=device)
+        if generator is None:
+            generator = torch.Generator(device=device)
+            generator.seed()
+
+        mha = is_mha(cfg)
+        cache = (self.model.init_cache(1, max_length=cache_len, kv_int8=self.kv_int8) if mha
+                 else self.model.init_cache(1))
+        pre = self.model.prefill(cache, ids, mask,
+                                 logit_positions=torch.tensor([l - 1], device=device),
+                                 pixel_values=pixel_values if num_img else None)
+        if mha:
+            # Slot validity: the prefix, the real prompt, then each token's
+            # slot as it is decoded.
+            mask_row = torch.zeros((1, cache_len), dtype=torch.int32, device=device)
+            mask_row[0, :num_img + l] = 1
+        # The history the repetition penalty reads, on the device: the
+        # prompt, then each sampled token.
+        buf = torch.full((1, l + max_new), pad_id, dtype=torch.int64, device=device)
+        buf[0, :l] = ids[0, :l]
+        slots = torch.arange(l + max_new, device=device)[None, :]
+        logits = pre.logits[:, 0, :]
+        filled, t = l, num_img + bucket
+        for step in range(max_new):
+            tok = sampling_ops.sample_token(logits, generator=generator,
+                                            token_history=buf,
+                                            history_mask=(slots < filled).float(), **sampling)
+            buf[:, filled] = tok
+            filled += 1
+            tok_val = int(tok[0])
+            yield tok_val
+            if (tok_val in eos_set and step + 1 >= min_new) or step + 1 == max_new:
+                return      # (the JAX loop runs one more step, whose logits go unread)
+            position = torch.full((1,), num_img + l + step, device=device)
+            if mha:
+                mask_row[0, t] = 1
+                logits, cache = self.model.decode_step(cache, tok, t=t, attn_mask_row=mask_row,
+                                                       positions=position)
+            elif self.model.abs_pos is not None:
+                logits, cache = self.model.decode_step(cache, tok, positions=position)
+            else:
+                logits, cache = self.model.decode_step(cache, tok)
+            t += 1
 
     def _generate(self, ids: torch.Tensor, mask: torch.Tensor,
                   gen: GenerationParams, generator: torch.Generator,

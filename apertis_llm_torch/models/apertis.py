@@ -1209,7 +1209,9 @@ class ApertisForCausalLM(nn.Module):
     def init_cache(self, batch_size: int, max_length: Optional[int] = None,
                    kv_int8: bool = False) -> Cache:
         """Zeroed decode cache, stacked over layers. Selective SSM: ``conv``
-        (nl, B, K-1, C) in ``config.dtype`` and ``ssm`` (nl, B, H, N) float32
+        (nl, B, K-1, C) in the model's dtype (the dtype JAX's prefill leaves
+        it in, whatever ``config.dtype``: apertis.py:1082) and ``ssm`` (nl,
+        B, H, N) float32
         (``max_length`` and ``kv_int8`` do not apply). MHA: the JAX package's
         flat layout, ``k``, ``v`` (nl, B, L, H * Dh) with L = ``max_length``
         (default ``config.decode_max_length``), in the model's dtype, or int8
@@ -1231,7 +1233,7 @@ class ApertisForCausalLM(nn.Module):
         return {
             "conv": torch.zeros((nl, batch_size, max(cfg.ssm_conv_kernel - 1, 0),
                                  cfg.ssm_d_inner),
-                                dtype=getattr(torch, cfg.dtype), device=self.device),
+                                dtype=self.embed.tok.dtype, device=self.device),
             "ssm": torch.zeros((nl, batch_size, cfg.num_attention_heads, cfg.ssm_d_state),
                                dtype=torch.float32, device=self.device),
         }

@@ -372,6 +372,20 @@ def load_pretrained(model_dir, device="cuda",
     state_dict`) unless a ``config.json`` lies beside it. Built in
     ``dtype`` on ``device``, the card unless the caller names another; its
     configuration is ``model.config``."""
+    config, tree = read_pretrained(model_dir)
+    return from_jax_params(tree, config, device=device, dtype=dtype)
+
+
+def tree_to(tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """The parameter tree with every leaf on ``device``."""
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def read_pretrained(model_dir) -> Tuple[ApertisConfig, Dict[str, Any]]:
+    """The configuration and the stacked tree (CPU tensors in the file's
+    dtypes) of the checkpoint :func:`load_pretrained` reads; it touches no
+    device."""
     model_dir = Path(model_dir)
     if model_dir.is_file():
         ckpt, config_dir = model_dir, model_dir.parent
@@ -388,8 +402,7 @@ def load_pretrained(model_dir, device="cuda",
         config = ApertisConfig.from_pretrained(config_dir)
     else:
         config = infer_config_from_state_dict(sd)
-    return from_jax_params(from_torch_state_dict(sd, config), config, device=device,
-                           dtype=dtype)
+    return config, from_torch_state_dict(sd, config)
 
 
 def params_tree(model: ApertisForCausalLM) -> Dict[str, Any]:

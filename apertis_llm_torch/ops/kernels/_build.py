@@ -28,7 +28,8 @@ BUILD_DIR = PACKAGE_ROOT / "_build"
 SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu", "moe_ffn.cu",
            "moe_grouped.cu", "mha_step.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "flash_attention_f32.cu", "quant_matmul.cu", "moe_dense.cu", "scan_carry.cu")
-HEADERS = ("common.cuh", "hopper.cuh", "decode_gemm.cuh", "quant_ffn.cuh", "chunk_scan.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "decode_gemm.cuh", "quant_ffn.cuh", "chunk_scan.cuh",
+           "simt.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
 # int8 quantizations rely on.
@@ -57,6 +58,12 @@ SIGNATURES = {
     # 25 inputs, 6 outputs, scratch, B, D, C, K, R, H, N, E, rms, eps,
     # row_tile, splits (3 ints), stages (3 ints), stream
     "apertis_ssm_decode_step_int8": [_P] * 32 + [_I] * 9 + [_F, _I, _P, _P, _P],
+    # the f32 form: 25 inputs, 6 outputs, scratch, B, D, C, K, R, H, N, E,
+    # rms, eps, quant, then the dtype codes of h, the conv cache, the small
+    # weights and the projections, stream
+    "apertis_ssm_decode_step_f32": [_P] * 32 + [_I] * 9 + [_F] + [_I] * 5 + [_P],
+    # B, D, C, R: the bytes of the f32 form's scratch
+    "apertis_ssm_step_f32_scratch": [_I] * 4,
     # B, D, C, R, int8: the bytes of a step's scratch
     "apertis_ssm_step_scratch": [_I] * 5,
     # kernel (0 in, 1 mix, 2 out int8; 3, 4, 5 bf16), row_tile, smem, out (5 ints)
@@ -64,6 +71,12 @@ SIGNATURES = {
     # x, w1, b1, w2, b2, out, hidden, S, D, I, act, row_tile, split_up,
     # split_down, stages_up, stages_down, stream
     "apertis_ffn_decode": [_P] * 7 + [_I] * 9 + [_P],
+    # x, w1, b1, w2, b2, out, hidden, S, D, I, act, then the dtype codes of
+    # x, w1, b1, w2, b2 and out, stream
+    "apertis_ffn_decode_f32": [_P] * 7 + [_I] * 10 + [_P],
+    # x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2, out, h, hq, hs, S, D, I, bn,
+    # act, the dtype codes of b1, b2 and out, stream
+    "apertis_ffn_decode_int8_f32": [_P] * 12 + [_I] * 8 + [_P],
     # x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2, out, hq, hs, S, D, I, bn, act,
     # row_tile, split, stages_up, stages_down, stream
     "apertis_ffn_decode_int8": [_P] * 11 + [_I] * 9 + [_P],
@@ -78,6 +91,8 @@ SIGNATURES = {
     "apertis_ln_quantize": [_P] * 5 + [_I] * 6 + [_F, _P],
     # vec, threads a row, vectors a thread, out (5 ints)
     "apertis_ln_quantize_resources": [_I, _I, _I, _P],
+    # x, w, b, q, scale, rows, H, the weights' dtype code, rms, eps, stream
+    "apertis_ln_quantize_f32": [_P] * 5 + [_I] * 4 + [_F, _P],
     # x_q, x_s, comb, w1t_q, w1t_s, b1t, w2t_q, w2t_s, out, hq, hs, hidden,
     # absmax, S, H, E*I, E, bn, act, row_tile, up_cluster, split, group,
     # stages_up, stages_down, stream
@@ -96,6 +111,9 @@ SIGNATURES = {
     "apertis_mha_decode_ctx": [_P] * 7 + [_I] * 4 + [_P],
     # q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, head_dim, stream
     "apertis_mha_decode_ctx_int8": [_P] * 9 + [_I] * 4 + [_P],
+    # q, k, v, k_new, v_new, bias, ks, vs (NULL for an f32 cache), out, B, L,
+    # H, head_dim, stream
+    "apertis_mha_decode_ctx_f32": [_P] * 9 + [_I] * 4 + [_P],
     # q, k, v, out, lse, B*H, L, head_dim, causal, stream
     "apertis_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_P],
     # q, k, v, dout, lse, delta, dq, B*H, L, head_dim, causal, stream
@@ -204,6 +222,17 @@ def check_aligned(name: str, *tensors) -> None:
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: operands must be 16-byte aligned")
+
+
+FLOAT_DTYPES = ("float32", "bfloat16")
+
+
+def float_code(t, name: str) -> int:
+    """The dtype code of a float operand of the f32 forms (``csrc/simt.cuh``):
+    1 for bf16, 0 for f32; any other dtype raises."""
+    if str(t.dtype).split(".")[-1] not in FLOAT_DTYPES:
+        raise ValueError(f"{name}: dtype {t.dtype} is not f32 or bf16")
+    return int(str(t.dtype) == "torch.bfloat16")
 
 
 def check_tensor(t, shape, dtypes, name: str, device) -> None:

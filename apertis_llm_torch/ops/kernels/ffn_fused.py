@@ -16,7 +16,10 @@ two Hopper launches of swapped-operand int8 ``wgmma`` products
 with the per-(row, hidden tile) requantization across a thread-block
 cluster, then GEMM2 whose K split over a cluster adds the tiles' products in
 tile order), on the plan of ``ops/kernels/decode_plan.py::ffn_plan``; the
-int4 layout unpacks the nibbles into int8 fragments in registers.
+int4 layout unpacks the nibbles into int8 fragments in registers. Weights,
+biases or outputs that are not bf16 (an f32 tree, or its int8 quantization
+with f32 biases) take the f32 forms, :func:`ffn_decode_f32` and
+:func:`ffn_decode_int8_f32`, SIMT products on ``csrc/simt.cuh``.
 """
 
 from __future__ import annotations
@@ -129,10 +132,14 @@ def ffn_decode(
     """The decode FFN: kernel on CUDA tensors, plain version on CPU ones.
 
     The kernel takes contiguous bf16 ``x`` (S, D) and weights, with D and I
-    multiples of 16 and every tensor 16-byte aligned, and returns bf16.
+    multiples of 16 and every tensor 16-byte aligned, and returns bf16; any
+    other dtype goes to the f32 form :func:`ffn_decode_f32`.
     """
     if x.device.type == "cpu":
         return ffn_decode_reference(x, w1, b1, w2, b2, hidden_act, out_dtype)
+    if (out_dtype or x.dtype) != torch.bfloat16 or any(
+            t.dtype != torch.bfloat16 for t in (x, w1, b1, w2, b2)):
+        return ffn_decode_f32(x, w1, b1, w2, b2, hidden_act, out_dtype)
     bf16 = (torch.bfloat16,)
     s, d = x.shape
     inter = w1.shape[1]
@@ -217,11 +224,14 @@ def ffn_decode_int8(
     The kernel takes contiguous, 16-byte aligned int8 ``x_q`` (S, D) and
     weights, f32 scales ``x_s`` (S, 1), ``w1_s`` (1, I), ``w2_s`` (1, D),
     bf16 biases, D a multiple of 16 and I a multiple of 128, and returns
-    bf16.
+    bf16; f32 biases or output go to the f32 form :func:`ffn_decode_int8_f32`.
     """
     if x_q.device.type == "cpu":
         return ffn_decode_int8_reference(x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2,
                                          hidden_act, out_dtype)
+    if out_dtype != torch.bfloat16 or any(t.dtype != torch.bfloat16 for t in (b1, b2)):
+        return ffn_decode_int8_f32(x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2, hidden_act,
+                                   out_dtype)
     s, d = x_q.shape
     inter = w1_q.shape[1]
     dev = x_q.device
@@ -305,6 +315,98 @@ def ffn_decode_int4(
     return out
 
 
+_FLOAT = (torch.float32, torch.bfloat16)
+
+
+def ffn_decode_f32(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    hidden_act: str = "gelu",
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The decode FFN's f32 form (``csrc/ffn_fused.cu``,
+    ``apertis_ffn_decode_f32``): contiguous ``x``, weights, biases and
+    output each f32 or bf16, SIMT products in the weights' dtype with f32
+    sums, the hidden rounded to W2's dtype, as :func:`ffn_decode_reference`.
+    Plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return ffn_decode_reference(x, w1, b1, w2, b2, hidden_act, out_dtype)
+    s, d = x.shape
+    inter = w1.shape[1]
+    dev = x.device
+    out_dtype = out_dtype or x.dtype
+    for t, shape, name in ((x, (s, d), "x"), (w1, (d, inter), "w1"), (b1, (inter,), "b1"),
+                           (w2, (inter, d), "w2"), (b2, (d,), "b2")):
+        _build.check_tensor(t, shape, _FLOAT, name, dev)
+    if s == 0 or d == 0 or inter == 0:
+        raise ValueError(f"ffn_decode_f32: empty shape S={s} D={d} I={inter}")
+    hidden = torch.empty((s, inter), dtype=w2.dtype, device=dev)
+    out = torch.empty((s, d), dtype=out_dtype, device=dev)
+    err = _build.load_library().apertis_ffn_decode_f32(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), hidden.data_ptr(), s, d, inter, _ACT_CODES.get(hidden_act, 0),
+        *(_build.float_code(t, n) for t, n in ((x, "x"), (w1, "w1"), (b1, "b1"), (w2, "w2"),
+                                                (b2, "b2"), (out, "out_dtype"))),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ffn_decode_f32")
+    ffn_decode_f32.launches += 1
+    return out
+
+
+def ffn_decode_int8_f32(
+    x_q: torch.Tensor,
+    x_s: torch.Tensor,
+    w1_q: torch.Tensor,
+    w1_s: torch.Tensor,
+    b1: torch.Tensor,
+    w2_q: torch.Tensor,
+    w2_s: torch.Tensor,
+    b2: torch.Tensor,
+    hidden_act: str = "gelu",
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The int8 decode FFN's f32 form (``apertis_ffn_decode_int8_f32``): the
+    int8 layout's arithmetic of :func:`ffn_decode_int8_reference` step by
+    step, with biases and output each f32 or bf16, as an int8 tree quantized
+    from an f32 one serves it. Plain version on CPU tensors."""
+    if x_q.device.type == "cpu":
+        return ffn_decode_int8_reference(x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2,
+                                         hidden_act, out_dtype)
+    s, d = x_q.shape
+    inter = w1_q.shape[1]
+    dev = x_q.device
+    i8, f32 = (torch.int8,), (torch.float32,)
+    _build.check_tensor(x_q, (s, d), i8, "x_q", dev)
+    _build.check_tensor(x_s, (s, 1), f32, "x_s", dev)
+    _build.check_tensor(w1_q, (d, inter), i8, "w1_q", dev)
+    _build.check_tensor(w1_s, (1, inter), f32, "w1_s", dev)
+    _build.check_tensor(b1, (inter,), _FLOAT, "b1", dev)
+    _build.check_tensor(w2_q, (inter, d), i8, "w2_q", dev)
+    _build.check_tensor(w2_s, (1, d), f32, "w2_s", dev)
+    _build.check_tensor(b2, (d,), _FLOAT, "b2", dev)
+    bn = pick_block_n(inter)
+    if s == 0 or d == 0 or bn == 0:
+        raise ValueError(f"ffn_decode_int8_f32: unsupported shape S={s} D={d} I={inter}")
+    h = torch.empty((s, inter), dtype=torch.float32, device=dev)
+    hq = torch.empty((s, inter), dtype=torch.int8, device=dev)
+    hs = torch.empty((s, inter // bn), dtype=torch.float32, device=dev)
+    out = torch.empty((s, d), dtype=out_dtype, device=dev)
+    err = _build.load_library().apertis_ffn_decode_int8_f32(
+        x_q.data_ptr(), x_s.data_ptr(), w1_q.data_ptr(), w1_s.data_ptr(), b1.data_ptr(),
+        w2_q.data_ptr(), w2_s.data_ptr(), b2.data_ptr(), out.data_ptr(), h.data_ptr(),
+        hq.data_ptr(), hs.data_ptr(), s, d, inter, bn, _ACT_CODES.get(hidden_act, 0),
+        _build.float_code(b1, "b1"), _build.float_code(b2, "b2"),
+        _build.float_code(out, "out_dtype"), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ffn_decode_int8_f32")
+    ffn_decode_int8_f32.launches += 1
+    return out
+
+
 ffn_decode.launches = 0
 ffn_decode_int8.launches = 0
 ffn_decode_int4.launches = 0
+ffn_decode_f32.launches = 0
+ffn_decode_int8_f32.launches = 0

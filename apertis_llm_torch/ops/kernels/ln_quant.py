@@ -8,7 +8,8 @@ threads: vectors of ``vec`` bf16 values (8, one 16-byte load, where H allows),
 ``threads`` threads a row and ``nv`` vectors a thread, all held in
 registers. Both versions take each row sum as the f32 sums of ``vec``
 consecutive values added in f64 (:func:`row_sum`), so that the kernel's
-result does not depend on the order its threads add them in.
+result does not depend on the order its threads add them in. f32 rows take
+the f32 form, :func:`ln_quantize_f32`, which sums them the same way.
 """
 
 from __future__ import annotations
@@ -154,16 +155,54 @@ def ln_quantize(
     The kernel takes contiguous bf16 ``x`` of any leading shape whose rows
     :func:`ln_plan` takes (up to 32,768 values where H is a multiple of 4,
     16,384 where it is even, 8,192 where it is odd) and bf16 weights;
-    ``bias`` None selects RMSNorm.
+    ``bias`` None selects RMSNorm. f32 rows go to the f32 form
+    :func:`ln_quantize_f32`.
     """
     if x.device.type == "cpu":
         return ln_quantize_reference(x, weight, bias, eps)
+    if x.dtype == torch.float32:
+        return ln_quantize_f32(x, weight, bias, eps)
     q, s = _ln_launch(x, weight, bias, eps, None)
     ln_quantize.launches += 1
     return q, s
 
 
+def ln_quantize_f32(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    eps: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Norm + quantize of f32 rows (``csrc/ln_quant.cu``,
+    ``apertis_ln_quantize_f32``): contiguous f32 ``x`` of any leading shape
+    with rows of up to 58,112 values, the weights f32 or bf16 (one dtype);
+    the normed row is not rounded (x's dtype is f32), then quantized as
+    :func:`ln_quantize_reference` does. Plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return ln_quantize_reference(x, weight, bias, eps)
+    floats = (torch.float32, torch.bfloat16)
+    h = x.shape[-1]
+    rows = x.numel() // max(h, 1)
+    dev = x.device
+    _build.check_tensor(x, tuple(x.shape), (torch.float32,), "x", dev)
+    _build.check_tensor(weight, (h,), floats, "weight", dev)
+    if bias is not None:
+        _build.check_tensor(bias, (h,), (weight.dtype,), "bias", dev)
+    if rows == 0 or h == 0:
+        raise ValueError(f"ln_quantize_f32: empty shape {tuple(x.shape)}")
+    q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    s = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=dev)
+    err = _build.load_library().apertis_ln_quantize_f32(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr() if bias is not None else None,
+        q.data_ptr(), s.data_ptr(), rows, h, int(weight.dtype == torch.bfloat16),
+        int(bias is None), float(eps), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ln_quantize_f32")
+    ln_quantize_f32.launches += 1
+    return q, s
+
+
 ln_quantize.launches = 0
+ln_quantize_f32.launches = 0
 
 
 def _ln_launch(x, weight, bias, eps, threads):

@@ -9,7 +9,9 @@ mha_step.py::mha_decode_ctx``.
 The cache is JAX's flat layout: slot ``l`` of row ``b`` holds the head-flat
 (H * Dh) projection row, so a slot's heads are contiguous. The attention
 runs over the stale-slot-masked cache plus an explicit self-term for the
-fresh token's K/V, which the caller writes to its slot afterwards.
+fresh token's K/V, which the caller writes to its slot afterwards. An f32
+``q`` takes the f32 forms (:func:`mha_decode_ctx_f32`,
+:func:`mha_decode_ctx_int8_f32`): the same kernel instantiated on f32.
 :func:`quantize_heads` is that write's int8 quantization (plain torch, as the
 JAX package leaves it to XLA).
 """
@@ -94,7 +96,7 @@ def mha_decode_ctx_reference(
     return (ctx * (1.0 / denom)[..., None]).reshape(b, d).to(q.dtype)
 
 
-def _launch(q, k, v, k_new, v_new, bias, head_dim, k_scale, v_scale, name):
+def _launch(q, k, v, k_new, v_new, bias, head_dim, k_scale, v_scale, name, f32=False):
     b, d = q.shape
     l = k.shape[1]
     dev = q.device
@@ -104,23 +106,28 @@ def _launch(q, k, v, k_new, v_new, bias, head_dim, k_scale, v_scale, name):
     if b == 0 or l == 0:
         raise ValueError(f"{name}: empty shape B={b} L={l}")
     heads = d // head_dim
-    bf16, f32 = (torch.bfloat16,), (torch.float32,)
-    cache_dtype = (torch.int8,) if k_scale is not None else bf16
-    for t, shape, dtypes, label in ((q, (b, d), bf16, "q"), (k, (b, l, d), cache_dtype, "k"),
+    f32s = (torch.float32,)
+    rows = f32s if f32 else (torch.bfloat16,)
+    cache_dtype = (torch.int8,) if k_scale is not None else rows
+    for t, shape, dtypes, label in ((q, (b, d), rows, "q"), (k, (b, l, d), cache_dtype, "k"),
                                     (v, (b, l, d), cache_dtype, "v"),
-                                    (k_new, (b, d), bf16, "k_new"),
-                                    (v_new, (b, d), bf16, "v_new"), (bias, (b, l), f32, "bias")):
+                                    (k_new, (b, d), rows, "k_new"),
+                                    (v_new, (b, d), rows, "v_new"), (bias, (b, l), f32s, "bias")):
         _build.check_tensor(t, shape, dtypes, label, dev)
     if k_scale is not None:
-        _build.check_tensor(k_scale, (b, heads, l), f32, "k_scale", dev)
-        _build.check_tensor(v_scale, (b, heads, l), f32, "v_scale", dev)
+        _build.check_tensor(k_scale, (b, heads, l), f32s, "k_scale", dev)
+        _build.check_tensor(v_scale, (b, heads, l), f32s, "v_scale", dev)
     _build.check_aligned(name, k, v)
-    out = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, d), dtype=rows[0], device=dev)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             bias.data_ptr())
-    if k_scale is None:
+    if f32:
+        scales = (None, None) if k_scale is None else (k_scale.data_ptr(), v_scale.data_ptr())
+        err = lib.apertis_mha_decode_ctx_f32(*ptrs, *scales, out.data_ptr(), b, l, heads,
+                                             head_dim, stream)
+    elif k_scale is None:
         err = lib.apertis_mha_decode_ctx(*ptrs, out.data_ptr(), b, l, heads, head_dim, stream)
     else:
         err = lib.apertis_mha_decode_ctx_int8(*ptrs, k_scale.data_ptr(), v_scale.data_ptr(),
@@ -134,9 +141,12 @@ def mha_decode_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_new: tor
     """Decode attention over a float cache: kernel on CUDA tensors, plain
     version on CPU ones. The kernel takes contiguous bf16 ``q``, ``k_new``,
     ``v_new`` (B, D) and cache ``k``, ``v`` (B, L, D), f32 ``bias`` (B, L),
-    and ``head_dim`` a multiple of 32 up to 256; it returns bf16 (B, D)."""
+    and ``head_dim`` a multiple of 32 up to 256; it returns bf16 (B, D). An
+    f32 ``q`` goes to the f32 form :func:`mha_decode_ctx_f32`."""
     if q.device.type == "cpu":
         return mha_decode_ctx_reference(q, k, v, k_new, v_new, bias, head_dim)
+    if q.dtype == torch.float32:
+        return mha_decode_ctx_f32(q, k, v, k_new, v_new, bias, head_dim)
     out = _launch(q, k, v, k_new, v_new, bias, head_dim, None, None, "mha_decode_ctx")
     mha_decode_ctx.launches += 1
     return out
@@ -152,11 +162,45 @@ def mha_decode_ctx_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return mha_decode_ctx_reference(q, k, v, k_new, v_new, bias, head_dim,
                                         k_scale, v_scale)
+    if q.dtype == torch.float32:
+        return mha_decode_ctx_int8_f32(q, k, v, k_new, v_new, bias, k_scale, v_scale, head_dim)
     out = _launch(q, k, v, k_new, v_new, bias, head_dim, k_scale, v_scale,
                   "mha_decode_ctx_int8")
     mha_decode_ctx_int8.launches += 1
     return out
 
 
+def mha_decode_ctx_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_new: torch.Tensor,
+                       v_new: torch.Tensor, bias: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """The f32 form over an f32 cache (``csrc/mha_step.cu``,
+    ``apertis_mha_decode_ctx_f32``): f32 ``q``, ``k_new``, ``v_new`` and
+    cache, f32 output; otherwise as :func:`mha_decode_ctx`. Plain version on
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return mha_decode_ctx_reference(q, k, v, k_new, v_new, bias, head_dim)
+    out = _launch(q, k, v, k_new, v_new, bias, head_dim, None, None, "mha_decode_ctx_f32",
+                  f32=True)
+    mha_decode_ctx_f32.launches += 1
+    return out
+
+
+def mha_decode_ctx_int8_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            k_new: torch.Tensor, v_new: torch.Tensor, bias: torch.Tensor,
+                            k_scale: torch.Tensor, v_scale: torch.Tensor,
+                            head_dim: int) -> torch.Tensor:
+    """The f32 form over an int8 cache with its f32 scales: f32 ``q``,
+    ``k_new``, ``v_new`` and output; otherwise as :func:`mha_decode_ctx_int8`.
+    Plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return mha_decode_ctx_reference(q, k, v, k_new, v_new, bias, head_dim,
+                                        k_scale, v_scale)
+    out = _launch(q, k, v, k_new, v_new, bias, head_dim, k_scale, v_scale,
+                  "mha_decode_ctx_int8_f32", f32=True)
+    mha_decode_ctx_int8_f32.launches += 1
+    return out
+
+
 mha_decode_ctx.launches = 0
 mha_decode_ctx_int8.launches = 0
+mha_decode_ctx_f32.launches = 0
+mha_decode_ctx_int8_f32.launches = 0

@@ -19,6 +19,12 @@ top-2 combine weights in both layouts. The semantics are the fused kernel's,
 not those of the unfused ``models/apertis.py::_ssm_decode_step``: the two
 round through bf16 at different points.
 
+A step whose tensors are not all bf16 (f32 projections, or int8 ones beside
+f32 rows and norms, as an f32 tree and its int8 quantization hold them;
+:func:`hopper_layout`) runs the f32 form, SIMT products on ``csrc/simt.cuh``
+in the same stages (:func:`ssm_decode_step_f32`,
+:func:`ssm_decode_step_int8_f32`), as the TPU kernel takes any dtype.
+
 The weights are one layer's tensors as the model holds them, in the (in, out)
 layout, so no weight pack is built: the x_param projection and its scales
 are cut into their dt / B / C column ranges by pointer offset, the conv taps
@@ -195,10 +201,12 @@ def ssm_decode_step_reference(
     return outs
 
 
-def _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, proj_dtype, router):
-    """Raise unless the step's tensors are what its kernel takes; returns
-    (B, D, C, K, R, H, N)."""
-    bf16 = (torch.bfloat16,)
+def _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, proj_dtype, router,
+                row_dtypes=(torch.bfloat16,), param_dtypes=(torch.bfloat16,)):
+    """Raise unless the step's tensors are what its kernel takes: h and the
+    conv cache of ``row_dtypes``, the projections of ``proj_dtype``, the
+    other weights of ``param_dtypes``; returns (B, D, C, K, R, H, N)."""
+    bf16 = param_dtypes
     bsz, d = h.shape
     c = w.inx_w.shape[1]
     k = w.conv_w.shape[1]
@@ -206,8 +214,8 @@ def _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, proj_dtype, rout
     n = c // max(heads, 1)
     rms = w.norm_b is None
     dev = h.device
-    _build.check_tensor(h, (bsz, d), bf16, "h", dev)
-    _build.check_tensor(conv_state, (bsz, k - 1, c), bf16, "conv_state", dev)
+    _build.check_tensor(h, (bsz, d), row_dtypes, "h", dev)
+    _build.check_tensor(conv_state, (bsz, k - 1, c), row_dtypes, "conv_state", dev)
     _build.check_tensor(ssm_state, (bsz, c), (torch.float32,), "ssm_state", dev)
     if ssm_out is not None:
         _build.check_tensor(ssm_out, (bsz, c), (torch.float32,), "ssm_out", dev)
@@ -265,11 +273,16 @@ def ssm_decode_step(
     ``ssm_state`` (and ``ssm_out``, which may be the same tensor), all
     contiguous, D and C multiples of 4, and one norm kind for both norms;
     ``router`` (bf16, 2-32 experts) selects the moe epilogue. Int8
-    projection weights go to :func:`ssm_decode_step_int8`.
+    projection weights go to :func:`ssm_decode_step_int8`; a step whose
+    tensors are not all bf16 (:func:`hopper_layout`), to the f32 forms
+    :func:`ssm_decode_step_f32` and :func:`ssm_decode_step_int8_f32`.
     """
     if h.device.type == "cpu":
         return ssm_decode_step_reference(h, conv_state, ssm_state, w, eps, ffn_norm,
                                          ssm_out, router)
+    if not hopper_layout(h, conv_state, w, ffn_norm, router):
+        step = ssm_decode_step_int8_f32 if w.quantized else ssm_decode_step_f32
+        return step(h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out, router)
     if w.quantized:
         return ssm_decode_step_int8(h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out,
                                     router)
@@ -394,5 +407,119 @@ def ssm_decode_step_int8(
     return outs
 
 
+def _float_tensors(w: MixerWeights, ffn_norm, router):
+    """The step's float weights other than the projections."""
+    small = [w.norm_w, w.norm_b, w.conv_w, w.conv_b, w.dt_w, w.dt_b, w.a_log, w.d_skip]
+    if ffn_norm is not None:
+        small += list(ffn_norm)
+    if router is not None:
+        small += list(router)
+    return [t for t in small if t is not None]
+
+
+def hopper_layout(h, conv_state, w: MixerWeights, ffn_norm=None, router=None) -> bool:
+    """Whether the Hopper layouts take the step: h, the conv cache and every
+    float weight in bf16 (the projections bf16 or int8). Any other step
+    runs the f32 forms."""
+    floats = [h, conv_state, *_float_tensors(w, ffn_norm, router)]
+    if not w.quantized:
+        floats += [w.inx_w, w.inz_w, w.xparam_w, w.out_w]
+    return all(t.dtype == torch.bfloat16 for t in floats)
+
+
+_FLOAT = (torch.float32, torch.bfloat16)
+
+
+def _launch_f32(h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out, router):
+    """Check the f32 form's tensors, allocate its outputs and scratch and
+    launch ``apertis_ssm_decode_step_f32``; returns the outputs."""
+    dev = h.device
+    quant = w.quantized
+    pdt = w.norm_w.dtype
+    for t in _float_tensors(w, ffn_norm, router):
+        if t.dtype != pdt:
+            raise ValueError("ssm_decode_step_f32: the norms, conv, dt_proj, A_log, D and "
+                             f"router weights must share one dtype, got {t.dtype} and {pdt}")
+    proj = (w.inx_w, w.inz_w, w.xparam_w, w.out_w)
+    wdt = torch.int8 if quant else w.inx_w.dtype
+    if any(t.dtype != wdt for t in proj):
+        raise ValueError("ssm_decode_step_f32: the four projections must share one dtype")
+    dims = _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, wdt, router,
+                       row_dtypes=_FLOAT, param_dtypes=(pdt,))
+    bsz, d, c, _, r = dims[:5]
+    code = _build.float_code
+    codes = (code(h, "h"), code(conv_state, "conv_state"), code(w.norm_w, "norm_w"),
+             0 if quant else code(w.inx_w, "inx_w"))
+    outs = _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, quant)
+    scratch = torch.empty((_build.load_library().apertis_ssm_step_f32_scratch(bsz, d, c, r),),
+                          dtype=torch.int8, device=dev)
+    fn_w, fn_b = ffn_norm if ffn_norm is not None else (None, None)
+    weights = (w.inx_w, w.inx_s, w.inz_w, w.inz_s, w.conv_w, w.conv_b, w.xparam_w, w.xparam_s,
+               w.dt_w, w.dt_b, w.a_log, w.d_skip, w.out_w, w.out_s)
+    err = _build.load_library().apertis_ssm_decode_step_f32(
+        _ptr(h), _ptr(conv_state), _ptr(ssm_state), _ptr(w.norm_w), _ptr(w.norm_b),
+        *(_ptr(t) for t in weights), _ptr(fn_w), _ptr(fn_b), *_router_ptrs(router),
+        *(_ptr(t) for t in outs), _ptr(scratch), *dims, _num_experts(router),
+        int(w.norm_b is None), float(eps), int(quant), *codes,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ssm_decode_step_f32")
+    return _step_outputs(outs)
+
+
+def ssm_decode_step_f32(
+    h: torch.Tensor,
+    conv_state: torch.Tensor,
+    ssm_state: torch.Tensor,
+    w: MixerWeights,
+    eps: float,
+    ffn_norm: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
+    ssm_out: Optional[torch.Tensor] = None,
+    router: Optional[RouterWeights] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The step's f32 form with float projection weights (``csrc/
+    ssm_step.cu``, ``apertis_ssm_decode_step_f32``): h, the conv cache, the
+    projections and the other weights each f32 or bf16 (the other weights
+    of one dtype), SIMT products in each weight's dtype with f32 sums. The
+    outputs are :func:`ssm_decode_step`'s: the dense epilogue's FFN input is
+    the bf16-rounded pre-norm, as the TPU kernel writes it in every layout
+    (ssm_step.py:186). Plain version on CPU tensors."""
+    if h.device.type == "cpu":
+        return ssm_decode_step_reference(h, conv_state, ssm_state, w, eps, ffn_norm,
+                                         ssm_out, router)
+    if w.quantized:
+        raise ValueError("ssm_decode_step_f32: int8 projections go to ssm_decode_step_int8_f32")
+    outs = _launch_f32(h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out, router)
+    ssm_decode_step_f32.launches += 1
+    return outs
+
+
+def ssm_decode_step_int8_f32(
+    h: torch.Tensor,
+    conv_state: torch.Tensor,
+    ssm_state: torch.Tensor,
+    w: MixerWeights,
+    eps: float,
+    ffn_norm: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
+    ssm_out: Optional[torch.Tensor] = None,
+    router: Optional[RouterWeights] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The step's f32 form with int8 projection weights and (1, out) f32
+    scales, beside f32 (or bf16) rows and weights, as an int8 tree quantized
+    from an f32 one holds them (``apertis_ssm_decode_step_f32``): each
+    product's input quantized per row, exact int32 sums. Outputs as
+    :func:`ssm_decode_step_int8`'s. Plain version on CPU tensors."""
+    if h.device.type == "cpu":
+        return ssm_decode_step_reference(h, conv_state, ssm_state, w, eps, ffn_norm,
+                                         ssm_out, router)
+    if not w.quantized:
+        raise ValueError("ssm_decode_step_int8_f32: float projections go to "
+                         "ssm_decode_step_f32")
+    outs = _launch_f32(h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out, router)
+    ssm_decode_step_int8_f32.launches += 1
+    return outs
+
+
 ssm_decode_step.launches = 0
 ssm_decode_step_int8.launches = 0
+ssm_decode_step_f32.launches = 0
+ssm_decode_step_int8_f32.launches = 0

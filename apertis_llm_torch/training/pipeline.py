@@ -10,8 +10,11 @@ key) names the device, the card by default. ``training_config.mesh_shape``
 (data, model, expert, seq) lays the ranks out as the JAX trainer's mesh;
 under torchrun ``train_from_config`` starts the process group first
 (``parallel/mesh.py::initialize_distributed``). Fine-tuning from a base model
-(``pretrained_model_path_for_finetune``) raises ``NotImplementedError`` until
-its loading half is ported (ROADMAP.md, module 6).
+(``pretrained_model_path_for_finetune``) reads its checkpoint
+(``models/convert.py::read_pretrained``), merges its configuration with the
+file's ``model_config`` and the tokenizer's vocabulary size and special ids,
+and resizes the embeddings where the vocabulary differs
+(:func:`resize_embeddings`).
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from apertis_llm_torch.config import ApertisConfig
+from apertis_llm_torch.models.convert import read_pretrained, tree_to
 from apertis_llm_torch.models.factory import build_model_config
 from apertis_llm_torch.models.params import init_params
 from apertis_llm_torch.parallel.mesh import initialize_distributed
@@ -32,6 +37,42 @@ from apertis_llm_torch.training.trainer import ApertisTrainer
 from apertis_llm_torch.utils.vocab import load_vocabulary, vocab_size_from_mapping
 
 logger = logging.getLogger(__name__)
+
+
+def resize_embeddings(params: Dict[str, Any], config: ApertisConfig,
+                      new_vocab_size: int, generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, Any]:
+    """Embedding-resize surgery for fine-tuning with a different tokenizer
+    (``pipeline.py::resize_embeddings``; reference: pipeline.py:821-851):
+    copy the overlapping rows, initialise the rest from ``generator`` (a new
+    one seeded 0 by default) at ``initializer_range``, zero the pad row
+    where it is new, and keep tying (an untied ``lm_head`` is resized the
+    same way along its columns)."""
+    old = params["embed"]["tok"]
+    old_v, h = old.shape
+    if old_v == new_vocab_size:
+        return params
+    if generator is None:
+        generator = torch.Generator(device=old.device).manual_seed(0)
+
+    def normal(shape, like):
+        return (torch.randn(shape, generator=generator, device=like.device)
+                * config.initializer_range).to(like.dtype)
+
+    n = min(old_v, new_vocab_size)
+    new = normal((new_vocab_size, h), old)
+    new[:n] = old[:n]
+    pad = config.pad_token_id
+    if pad is not None and n <= pad < new_vocab_size:
+        new[pad] = 0.0
+    params = dict(params)
+    params["embed"] = {"tok": new}
+    if "lm_head" in params:
+        old_head = params["lm_head"]["w"]
+        new_head = normal((h, new_vocab_size), old_head)
+        new_head[:, :n] = old_head[:, :n]
+        params["lm_head"] = {"w": new_head}
+    return params
 
 
 def _resolve_tokenizer(data_cfg: Dict, is_fine_tuning: bool):
@@ -87,29 +128,40 @@ def train_from_config(config_path: str,
         _resolve_tokenizer(data_cfg, is_fine_tuning)
 
     # --- model ---------------------------------------------------------
-    if is_fine_tuning and train_cfg.get("pretrained_model_path_for_finetune"):
-        raise NotImplementedError(
-            "fine-tuning from a base model (load_pretrained, embedding resize) is not "
-            "ported to PyTorch yet (see ROADMAP.md)")
-    overrides = dict(model_cfg.get("config_overrides", {}))
-    overrides.update(special_ids)
-    config = build_model_config(
-        target_param_count=model_cfg.get("target_param_count", "125M"),
-        vocab_size_override=vocab_size,
-        attention_type_override=model_cfg.get("attention_type"),
-        multimodal=model_cfg.get("multimodal", False),
-        use_expert_system=model_cfg.get("use_expert_system", False),
-        num_experts_target_override=model_cfg.get("num_experts"),
-        experts_per_token_target_override=model_cfg.get("experts_per_token"),
-        use_flash_attention=model_cfg.get("use_flash_attention", False),
-        ssm_d_inner=model_cfg.get("ssm_d_inner"),
-        ssm_d_state=model_cfg.get("ssm_d_state", 16),
-        ssm_dt_rank=model_cfg.get("ssm_dt_rank", "auto"),
-        ssm_conv_kernel=model_cfg.get("ssm_conv_kernel", 4),
-        config_overrides=overrides,
-    )
     gen = torch.Generator(device=device).manual_seed(train_cfg.get("seed", 0))
-    params = init_params(config, gen, device=device)
+    base_path = train_cfg.get("pretrained_model_path_for_finetune")
+    if is_fine_tuning and base_path:
+        base_config, params = read_pretrained(base_path)
+        original_vocab = base_config.vocab_size
+        merged = base_config.to_dict()
+        merged.update(model_cfg)
+        merged["vocab_size"] = vocab_size
+        merged.update(special_ids)
+        config = ApertisConfig.from_dict(merged)
+        params = tree_to(params, device)
+        if original_vocab != vocab_size:
+            logger.info("Resizing embeddings %d -> %d for fine-tuning",
+                        original_vocab, vocab_size)
+            params = resize_embeddings(params, config, vocab_size, gen)
+    else:
+        overrides = dict(model_cfg.get("config_overrides", {}))
+        overrides.update(special_ids)
+        config = build_model_config(
+            target_param_count=model_cfg.get("target_param_count", "125M"),
+            vocab_size_override=vocab_size,
+            attention_type_override=model_cfg.get("attention_type"),
+            multimodal=model_cfg.get("multimodal", False),
+            use_expert_system=model_cfg.get("use_expert_system", False),
+            num_experts_target_override=model_cfg.get("num_experts"),
+            experts_per_token_target_override=model_cfg.get("experts_per_token"),
+            use_flash_attention=model_cfg.get("use_flash_attention", False),
+            ssm_d_inner=model_cfg.get("ssm_d_inner"),
+            ssm_d_state=model_cfg.get("ssm_d_state", 16),
+            ssm_dt_rank=model_cfg.get("ssm_dt_rank", "auto"),
+            ssm_conv_kernel=model_cfg.get("ssm_conv_kernel", 4),
+            config_overrides=overrides,
+        )
+        params = init_params(config, gen, device=device)
 
     # --- datasets ------------------------------------------------------
     max_length = data_cfg.get("max_length", 512)
@@ -209,8 +261,9 @@ class YoloStyleTrainingPipeline:
 
 
 def create_sample_config(output_path: str) -> None:
-    """Write an annotated sample training config
-    (reference: pipeline.py:1000-1072)."""
+    """Write an annotated sample training config (reference:
+    pipeline.py:1000-1072), the JAX package's sample as it is: the port's
+    ``training_config.device`` is left to its default, the card."""
     sample = {
         "data_config": {
             "train_data_path": "data/train.jsonl",
@@ -253,12 +306,13 @@ def create_sample_config(output_path: str) -> None:
             "eval_every_n_epochs": 1,
             "use_wandb": False,
             "wandb_project": "apertis",
-            "mesh_shape": None,
-            "pipeline_stages": 0,
+            "mesh_shape": None,        # [data, model, expert, seq]; seq>1 = sequence parallel
+            "pipeline_stages": 0,      # >1: pipeline over the model axis (depth-sharded)
+            "pipeline_microbatches": 0,  # default = pipeline_stages
+            "pipeline_schedule": "gpipe",  # or "1f1b" (O(stages) activation stash)
             "seed": 0,
             "resume_from": None,
             "pretrained_model_path_for_finetune": None,
-            "device": "cuda",
         },
     }
     path = Path(output_path)

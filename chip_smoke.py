@@ -250,7 +250,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
      (2 scans a layer, the forward twice under remat) and #1's none, the
      loss finite and falling, its first value within one bf16 ulp of the
      same run in this process, the micro-step p50, the gradient
-     all-reduce's share and each rank's peak memory.
+     all-reduce's share and each rank's peak memory;
+  8. the user-facing surfaces (``surfaces_phase``), after phase 3i's checks
+     of the decode kernels' f32 forms (``f32_forms_phase``: #3, #4, #5 and
+     #9 on an f32 layer at the 1.5B widths and its int8 quantization, at 64,
+     4 and 1 rows, with sensitivity checks and repeat bits): ``apertis_llm_
+     torch.cli``'s ``create-model`` writes the 1.5B dense model, ``chat``
+     serves it in f32 and in int8 from stdin through ``InferenceEngine.
+     stream`` (exact launch counts of the f32 forms, the first turn equal
+     to ``generate`` and to a repeat, TTFT and the streamed rate), ``eval``
+     scores perplexity and multiple choice in both, ``train`` fine-tunes a
+     2-layer model of the same widths with a resized vocabulary, 2-layer
+     MoE and MHA models chat, and the UI backend chats and runs a
+     fine-tuning job and an AZR job with gradio stubbed.
 Kernel times are CUDA-event means over back-to-back wrapper calls ("ms")
 and the profiler's device time per call ("device_ms", the kernels' own time
 without the Python wrapper, from each kernel's mean duration in the
@@ -293,6 +305,7 @@ card's name and power limit; the last line is ``{"ok": true, "device":
                                              # quantization + #7; #6; weightonly) at
                                              # 1-16,384 rows on seven products: the
                                              # table behind quant_matmul="auto"
+    python3 chip_smoke.py --surfaces         # phases 3i and 8 alone
     python3 chip_smoke.py --auto-model-times # the 1.5B int8 models' prefill at 64-4,096
                                              # rows with auto's pre-norms fused (#5 +
                                              # #7) and not (#6), and dyn: the
@@ -311,6 +324,7 @@ It needs a CUDA device and exits non-zero without one. It imports no JAX.
 
 import collections
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -412,6 +426,28 @@ PARALLEL_LR = 5e-3        # the 1.5B mesh run's peak learning rate
 # top-2 choice would flip on a near-tie under bf16 rounding, and the f32
 # flash MHA model): each gradient leaf within 1e-4 of its largest CPU value.
 F32_GRAD_TOL = 1e-4
+# The decode kernels' f32 forms (phase 3i): f32 sums in another order than
+# the plain version's, relative to the largest value of each output; their
+# int8 forms' f32 outputs move by a level where a row's quantization
+# rounds the other way, as the int8 layouts' bf16 outputs do (BF16_ULP).
+F32_FORM_TOL = 1e-4
+# The f32 forms: their sources and the TPU kernels they replace.
+F32_FORMS = {
+    "ssm_decode_step_f32": ("apertis_llm_torch/csrc/ssm_step.cu",
+                            "apertis_llm_tpu/ops/pallas/ssm_step.py:234"),
+    "ssm_decode_step_int8_f32": ("apertis_llm_torch/csrc/ssm_step.cu",
+                                 "apertis_llm_tpu/ops/pallas/ssm_step.py:234"),
+    "ffn_decode_f32": ("apertis_llm_torch/csrc/ffn_fused.cu",
+                       "apertis_llm_tpu/ops/pallas/ffn_fused.py:177"),
+    "ffn_decode_int8_f32": ("apertis_llm_torch/csrc/ffn_fused.cu",
+                            "apertis_llm_tpu/ops/pallas/ffn_fused.py:177"),
+    "mha_decode_ctx_f32": ("apertis_llm_torch/csrc/mha_step.cu",
+                           "apertis_llm_tpu/ops/pallas/mha_step.py:131"),
+    "mha_decode_ctx_int8_f32": ("apertis_llm_torch/csrc/mha_step.cu",
+                                "apertis_llm_tpu/ops/pallas/mha_step.py:131"),
+    "ln_quantize_f32": ("apertis_llm_torch/csrc/ln_quant.cu",
+                        "apertis_llm_tpu/ops/pallas/ln_quant.py:60"),
+}
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense). The f32
 # flash kernels' products run on the tensor cores in split TF32: three TF32
 # products for each f32 one, so their operations count 3x against "tf32".
@@ -1649,6 +1685,712 @@ def parallel_rank(rank, scan_args, small, preset):
     return out
 
 
+def f32_forms_phase(checks, dev):
+    """Phase 3i: the f32 forms of the decode kernels against their plain
+    versions at the 1.5B dense widths (hidden 2432, 38 heads, d_state 16,
+    FFN 9728), on one f32 layer and its int8 quantization (f32 norms,
+    biases and rows): #3 (``ssm_decode_step_f32``, epilogues none, dense
+    and moe, both norms; ``ssm_decode_step_int8_f32``), #4
+    (``ffn_decode_f32`` on the step's bf16 FFN input and on f32 rows;
+    ``ffn_decode_int8_f32``) at 64, 4 and 1 rows, #9 (``mha_decode_ctx_f32``
+    and ``_int8_f32``) at (64, 96) and (1, 88) slots with heads of 64 and
+    128, and #5 (``ln_quantize_f32``) at the eval's and the prefill's rows;
+    sensitivity checks that drop each term, each timed shape run twice for
+    the same bits. Returns #9 f32's SDPA f32 time (the library yardstick)."""
+    from apertis_llm_torch.models.convert import from_jax_params
+    from apertis_llm_torch.models.factory import calculate_model_dimensions
+    from apertis_llm_torch.models.params import init_params
+    from apertis_llm_torch.models.quantize import quantize_params
+    from apertis_llm_torch.ops.kernels.ffn_fused import (
+        ffn_decode_f32, ffn_decode_int8_f32, ffn_decode_int8_reference, ffn_decode_reference)
+    from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize_f32, ln_quantize_reference
+    from apertis_llm_torch.ops.kernels.mha_step import (
+        NEG, mha_decode_ctx_f32, mha_decode_ctx_int8_f32, mha_decode_ctx_reference,
+        quantize_heads)
+    from apertis_llm_torch.ops.kernels.ssm_step import (
+        RouterWeights, ssm_decode_step_f32, ssm_decode_step_int8_f32,
+        ssm_decode_step_reference)
+    from apertis_llm_torch.ops.quant import quantize_rows
+
+    card = checks.card
+    f32 = torch.float32
+    dims = calculate_model_dimensions("1.5B", 32000)
+    config = dense_preset_config(dims)
+    config.num_hidden_layers, config.dtype, config.param_dtype = 1, "float32", "float32"
+    tree = init_params(config, torch.Generator(device=dev).manual_seed(SEED + 22), device=dev)
+    perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 23))
+    model = from_jax_params(tree, config, device=dev)
+    qmodel = from_jax_params(quantize_params(tree), config, device=dev)
+    del tree
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    d, c, inter, eps = config.hidden_size, config.ssm_d_inner, config.intermediate_size, \
+        config.layer_norm_eps
+
+    def randn(*shape, dtype=f32, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    layer, qlayer = model.layers[0], qmodel.layers[0]
+    mixer, qmixer = layer.attn.mixer_weights(), qlayer.attn.mixer_weights()
+    fnorm = layer.ffn.pre_norm.weights()
+    n_exp = 8
+    router = RouterWeights(1 + randn(d, std=0.1), randn(d, std=0.1), randn(d, n_exp, std=0.05),
+                           randn(n_exp, std=0.1))
+    log(f"f32 forms (SIMT, f32 sums): one f32 layer at the 1.5B widths (hidden {d}, mixer "
+        f"{c}, FFN {inter}) and its int8 quantization with f32 norms, biases and rows")
+
+    def step_inputs(b, w, fn=fnorm, rt=None):
+        return (randn(b, d), randn(b, config.ssm_conv_kernel - 1, c), randn(b, c), w, eps, fn,
+                None, rt)
+
+    def step_cost(args):
+        h, conv, ssm, w, _, fn, _, rt = args
+        rows, r_ = h.shape[0], w.dt_w.shape[0]
+        weights = [getattr(w, f) for f in w._fields if isinstance(getattr(w, f), torch.Tensor)]
+        macs = d * c * 2 + c * (r_ + 2 * c) + c * d + (d * n_exp if rt is not None else 0)
+        outs = nbytes(h, ssm) + rows * c * conv.element_size()
+        if rt is not None:
+            outs += rows * (d + 4 + 4 * n_exp)
+        elif fn is not None:
+            outs += rows * d * (1 if w.quantized else 2) + (4 * rows if w.quantized else 0)
+        return (nbytes(h, conv, ssm, *weights, *(fn or ()), *(rt or ())) + outs,
+                2 * rows * macs, "int8" if w.quantized else "f32")
+
+    tol = F32_FORM_TOL
+    step_tols = [("h_out", tol), ("x_proj", tol), ("ssm", tol), ("ffn_in", BF16_ULP)]
+    step_tols_q = [("h_out", BF16_ULP), ("x_proj", BF16_ULP), ("ssm", BF16_ULP),
+                   ("x_q", "int8"), ("x_s", BF16_ULP)]
+    moe_tols = step_tols[:3] + [("x_q", "int8"), ("x_s", BF16_ULP), ("comb", F32_TOL)]
+    args = step_inputs(5, mixer)
+
+    def without(**terms):
+        return args[:3] + (mixer._replace(**terms),) + args[4:]
+
+    checks.sensitive("f32 decode step", ssm_decode_step_reference, args, {
+        "pre-norm weight": without(norm_w=torch.ones_like(mixer.norm_w)),
+        "pre-norm bias": without(norm_b=torch.zeros_like(mixer.norm_b)),
+        "conv bias": without(conv_b=torch.zeros_like(mixer.conv_b)),
+        "dt bias": without(dt_b=torch.zeros_like(mixer.dt_b)),
+        "D * x skip": without(d_skip=torch.zeros_like(mixer.d_skip)),
+        "FFN pre-norm weight": args[:5] + ((torch.ones_like(fnorm[0]), fnorm[1]),) + args[6:],
+        "FFN pre-norm bias": args[:5] + ((fnorm[0], torch.zeros_like(fnorm[1])),) + args[6:],
+    }, step_tols)
+    qargs = step_inputs(5, qmixer)
+    checks.sensitive("int8 f32 decode step", ssm_decode_step_reference, qargs, {
+        f"{name} w_s": qargs[:3] + (qmixer._replace(**{name: torch.ones_like(
+            getattr(qmixer, name))}),) + qargs[4:]
+        for name in ("inx_s", "inz_s", "xparam_s", "out_s")}, step_tols_q)
+    margs = step_inputs(5, mixer, rt=router)
+    checks.sensitive("f32 decode step, moe epilogue", ssm_decode_step_reference, margs, {
+        "router bias": margs[:7] + (router._replace(b=torch.zeros_like(router.b)),),
+        "router LayerNorm bias": margs[:7] + (router._replace(ln_b=torch.zeros_like(router.ln_b)),),
+    }, moe_tols)
+    for b in (64, 4, 1):
+        for w, fn, label in [(mixer, fnorm, "LayerNorm, dense"),
+                             (mixer, None, "LayerNorm, ffn_mode none"),
+                             (mixer._replace(norm_b=None), (fnorm[0], None), "RMSNorm, dense")]:
+            a = step_inputs(b, w, fn)
+            checks.kernel("ssm_decode_step_f32", f"f32 decode step B={b} {label}", a,
+                          ssm_decode_step_f32, ssm_decode_step_reference,
+                          step_tols if fn is not None else step_tols[:3],
+                          cost=step_cost(a) if label == "LayerNorm, dense" else None,
+                          repeat=b == 64, shape=None if b == 64 else f"{b} rows")
+        a = step_inputs(b, mixer, rt=router)
+        checks.kernel("ssm_decode_step_f32", f"f32 decode step B={b} moe epilogue", a,
+                      ssm_decode_step_f32, ssm_decode_step_reference, moe_tols, repeat=b == 64)
+        for w, fn, label in [(qmixer, fnorm, "LayerNorm, dense"),
+                             (qmixer, None, "LayerNorm, ffn_mode none"),
+                             (qmixer._replace(norm_b=None), (fnorm[0], None), "RMSNorm, dense")]:
+            a = step_inputs(b, w, fn)
+            checks.kernel("ssm_decode_step_int8_f32", f"int8 f32 decode step B={b} {label}", a,
+                          ssm_decode_step_int8_f32, ssm_decode_step_reference,
+                          step_tols_q if fn is not None else step_tols_q[:3],
+                          cost=step_cost(a) if label == "LayerNorm, dense" else None,
+                          repeat=b == 64, shape=None if b == 64 else f"{b} rows")
+
+    w1, w2 = layer.ffn.w1, layer.ffn.w2
+    q1, q2 = qlayer.ffn.w1, qlayer.ffn.w2
+
+    def ffn_args(s_, act=config.hidden_act, x_dtype=torch.bfloat16):
+        return (randn(s_, d, dtype=x_dtype), w1.w, w1.b, w2.w, w2.b, act, f32)
+
+    def ffn_q_args(s_, act=config.hidden_act):
+        x_q, x_s = quantize_rows(randn(s_, d))
+        return (x_q, x_s, q1.w_q, q1.w_s, q1.b, q2.w_q, q2.w_s, q2.b, act, f32)
+
+    a = ffn_args(5)
+    checks.sensitive("f32 ffn", ffn_decode_reference, a, {
+        "b1": a[:2] + (torch.zeros_like(w1.b),) + a[3:],
+        "b2": a[:4] + (torch.zeros_like(w2.b),) + a[5:]}, [("out", tol)])
+    a = ffn_q_args(5)
+    checks.sensitive("int8 f32 ffn", ffn_decode_int8_reference, a, {
+        "b1": a[:4] + (torch.zeros_like(q1.b),) + a[5:],
+        "b2": a[:7] + (torch.zeros_like(q2.b),) + a[8:]}, [("out", BF16_ULP)])
+    ffn_bytes = nbytes(w1.w, w1.b, w2.w, w2.b)
+    q_bytes = nbytes(q1.w_q, q1.w_s, q1.b, q2.w_q, q2.w_s, q2.b)
+    for s_ in (64, 4, 1):
+        a = ffn_args(s_)
+        checks.kernel("ffn_decode_f32", f"f32 ffn S={s_}", a, ffn_decode_f32,
+                      ffn_decode_reference, [("out", tol)],
+                      cost=(ffn_bytes + nbytes(a[0]) + 4 * s_ * d, 4 * s_ * d * inter, "f32"),
+                      repeat=s_ == 64, shape=None if s_ == 64 else f"{s_} rows")
+        a = ffn_q_args(s_)
+        checks.kernel("ffn_decode_int8_f32", f"int8 f32 ffn S={s_}", a, ffn_decode_int8_f32,
+                      ffn_decode_int8_reference, [("out", BF16_ULP)],
+                      cost=(q_bytes + nbytes(a[0], a[1]) + 4 * s_ * d, 4 * s_ * d * inter,
+                            "int8"),
+                      repeat=s_ == 64, shape=None if s_ == 64 else f"{s_} rows")
+    for act in ("relu", "silu"):
+        checks.kernel("ffn_decode_f32", f"f32 ffn S=4 {act} on f32 rows", ffn_args(4, act, f32),
+                      ffn_decode_f32, ffn_decode_reference, [("out", tol)])
+        checks.kernel("ffn_decode_int8_f32", f"int8 f32 ffn S=4 {act}", ffn_q_args(4, act),
+                      ffn_decode_int8_f32, ffn_decode_int8_reference, [("out", BF16_ULP)])
+
+    def ctx_args(b, l, hd, int8=False):
+        """A layer's f32 cache: row b's prompt in its first slots, bucket
+        padding to l // 2, generated tokens to the stale slot l - 1."""
+        d_ = (d // hd) * hd
+        q, k_new, v_new = randn(b, d_), randn(b, d_), randn(b, d_)
+        k, v = randn(b, l, d_), randn(b, l, d_)
+        lens = torch.randint(1, l // 2 + 1, (b, 1), generator=g, device=dev)
+        slots = torch.arange(l, device=dev)[None, :]
+        valid = (slots < lens) | ((slots >= l // 2) & (slots < l - 1))
+        bias = torch.where(valid, 0.0, NEG).float().contiguous()
+        if not int8:
+            return (q, k, v, k_new, v_new, bias, hd)
+        (kq, ks), (vq, vs) = quantize_heads(k, hd), quantize_heads(v, hd)
+        return (q, kq, vq, k_new, v_new, bias, ks.transpose(1, 2).contiguous(),
+                vs.transpose(1, 2).contiguous(), hd)
+
+    def int8_plain(q, k, v, k_new, v_new, bias, ks, vs, hd):
+        return mha_decode_ctx_reference(q, k, v, k_new, v_new, bias, hd, ks, vs)
+
+    a = ctx_args(5, 37, 64)
+    checks.sensitive("f32 decode attention", mha_decode_ctx_reference, a, {
+        "self-term": a[:3] + (torch.zeros_like(a[3]), torch.zeros_like(a[4])) + a[5:],
+        "mask": a[:5] + (torch.zeros_like(a[5]),) + a[6:]}, [("ctx", tol)])
+    library_ms = None
+    for hd in (64, 128):
+        for b, l in ((64, 96), (1, 88)):
+            a = ctx_args(b, l, hd)
+            timed = hd == 64 and b == 64
+            cost = (nbytes(*a[:6]) + nbytes(a[0]), 4 * b * l * a[0].shape[1], "f32")
+            checks.kernel("mha_decode_ctx_f32", f"f32 decode attention B={b} L={l} Dh={hd}", a,
+                          mha_decode_ctx_f32, mha_decode_ctx_reference, [("ctx", tol)],
+                          cost=cost, repeat=timed,
+                          shape=None if timed else f"B={b} L={l} Dh={hd}")
+            if timed:
+                library_ms = sdpa_f32_decode_ms(a, card)
+            a = ctx_args(b, l, hd, int8=True)
+            checks.kernel("mha_decode_ctx_int8_f32",
+                          f"f32 decode attention, int8 cache, B={b} L={l} Dh={hd}", a,
+                          mha_decode_ctx_int8_f32, int8_plain, [("ctx", tol)],
+                          cost=(nbytes(*a[:8]) + nbytes(a[0]), 4 * b * l * a[0].shape[1],
+                                "int8") if timed else None,
+                          repeat=timed)
+
+    for rows, layer_norm in ((2048, True), (64, True), (2048, False), (1, True)):
+        x = randn(rows, d, std=2.0)
+        w_ = 1 + randn(d, std=0.1)
+        b_ = randn(d, std=0.1) if layer_norm else None
+        timed = rows == 2048 and layer_norm
+        checks.kernel("ln_quantize_f32",
+                      f"f32 norm + quantize {rows} x {d} {'LayerNorm' if layer_norm else 'RMS'}",
+                      (x, w_, b_, eps), ln_quantize_f32, ln_quantize_reference,
+                      [("q", "int8"), ("scale", SCALE_TOL)],
+                      cost=(nbytes(x, w_, b_) + x.numel() + 4 * rows, 10 * x.numel(), "f32")
+                      if timed else None, repeat=timed)
+    del model, qmodel
+    torch.cuda.empty_cache()
+    return library_ms
+
+
+def sdpa_f32_decode_ms(args, card):
+    """#9 f32's library yardstick: SDPA f32 (TF32 off) over the cache with
+    the new slot (the last) written, outside the timed region, under the
+    same mask."""
+    q, k, v, k_new, v_new, bias, hd = args
+    b, l = bias.shape
+    kc, vc = k.clone(), v.clone()
+    kc[:, l - 1], vc[:, l - 1] = k_new, v_new
+    heads4 = lambda z: z.reshape(b, -1, q.shape[1] // hd, hd).transpose(1, 2)   # noqa: E731
+    keep = ((bias == 0) | (torch.arange(l, device=q.device) == l - 1))[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = cuda_ms(lambda: sdpa(heads4(q), heads4(kc), heads4(vc), attn_mask=keep))
+    log(f"  library: f32 scaled_dot_product_attention over the written cache {ms:.4f} ms "
+        f"(B={b} L={l}); card: {card}")
+    return ms
+
+
+SURFACE_TURNS = ["hello there , who are you ?", " ".join(["tell me more"] * 24)]
+SURFACE_MAX_NEW = 48        # the 1.5B chats' --max-length
+
+
+def surfaces_phase(card, dev, work):
+    """Phase 8: the user-facing surfaces on the card, through the port's own
+    entry points, in ``work`` (a temporary directory):
+
+      1. ``cli.main(["create-model", "--target-params", "1.5B", ...])`` writes
+         the 1.5B dense selective-SSM model (f32);
+      2. ``cli.main(["chat", ...])`` with two turns on stdin at temperature 0
+         serves it in f32 through ``InferenceEngine.stream`` (#3 and #4 in
+         their f32 forms): it must have loaded the directory, launched each
+         form layers x decode steps, given the first turn ``generate``'s
+         tokens and the same tokens again on a repeat; TTFT and the streamed
+         rate of the first turn at batch 1;
+      3. the same with ``--quantize int8`` (#3 and #4 int8 with f32 rows, #6,
+         and #5 in the second turn's prefill of more than 64 rows);
+      4. ``cli.main(["eval", ...])``, perplexity and multiple choice, f32 and
+         int8: finite numbers, #1 (and #5, #6, #7 in int8) launched;
+      5. fine-tuning through ``train_from_config`` (``task_type: finetune``)
+         from the 2-layer dense model at the 1.5B widths (the depth cut from
+         20, since the trainer writes full checkpoints) with a vocabulary of
+         512 tokens: the embeddings resized with their first 512 rows copied
+         bit for bit, two updates with finite losses, #1 forward and backward
+         launched;
+      6. one chat turn each on 2-layer f32 MoE and MHA models at the 1.5B
+         widths (#3 f32 with the moe epilogue and #10; #9 f32 and #4 f32)
+         and on the MHA model in int8 (#9 over an int8 cache with f32 rows);
+      7. ``UIBackend.chat``, a fine-tuning job and an AZR job (which reports
+         that AZR is not ported) on the 2-layer models, with gradio stubbed.
+
+    Returns (the launches of the kernels run here, the timings)."""
+    import contextlib
+    import io
+    import types
+
+    from apertis_llm_torch import cli
+    from apertis_llm_torch.inference.engine import InferenceEngine
+    from apertis_llm_torch.inference.ui import UIBackend, launch_ui
+    from apertis_llm_torch.models.convert import save_torch_checkpoint
+    from apertis_llm_torch.models.factory import calculate_model_dimensions
+    from apertis_llm_torch.models.params import count_params, init_params
+    from apertis_llm_torch.ops.kernels import (
+        ffn_fused, ln_quant, mha_step, moe_ffn, moe_grouped, quant_matmul, ssm_scan, ssm_step)
+    from apertis_llm_torch.training import pipeline as pipeline_mod
+    from apertis_llm_torch.utils.vocab import create_minimal_vocab_file, fallback_vocab
+
+    t_phase = time.perf_counter()
+    counters = [ssm_step.ssm_decode_step, ssm_step.ssm_decode_step_int8,
+                ssm_step.ssm_decode_step_f32, ssm_step.ssm_decode_step_int8_f32,
+                ffn_fused.ffn_decode, ffn_fused.ffn_decode_int8, ffn_fused.ffn_decode_f32,
+                ffn_fused.ffn_decode_int8_f32, mha_step.mha_decode_ctx,
+                mha_step.mha_decode_ctx_int8, mha_step.mha_decode_ctx_f32,
+                mha_step.mha_decode_ctx_int8_f32, ln_quant.ln_quantize, ln_quant.ln_quantize_f32,
+                quant_matmul.quant_matmul, quant_matmul.quant_matmul_dyn_pre_q,
+                ssm_scan.selective_scan_fwd, ssm_scan.selective_scan_bwd,
+                moe_ffn.expert_ffn_fat, moe_grouped.expert_ffn_grouped]
+    total = collections.Counter()
+
+    def reset():
+        for f in counters:
+            f.launches = 0
+
+    def read(label):
+        got = {f.__name__: f.launches for f in counters if f.launches}
+        total.update(got)
+        log(f"  {label}: launches {got}")
+        return collections.Counter(got)
+
+    def expect(label, got, want):
+        for name, n in want.items():
+            ok = got[name] == n if n is not None else got[name] > 0
+            if not ok:
+                raise RuntimeError(f"{label}: {name} launched {got[name]} times, expected "
+                                   f"{'some' if n is None else n}")
+        log(f"  {label}: {', '.join(f'{k} {got[k]}' for k in want)} as expected ok")
+
+    streams = []
+    plain_stream = InferenceEngine.stream
+
+    def timed_stream(self, input_ids, *args, **kw):
+        rec = {"prompt": np.asarray(input_ids), "kw": dict(kw), "tokens": []}
+        streams.append(rec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for tok in plain_stream(self, input_ids, *args, **kw):
+            if not rec["tokens"]:
+                rec["ttft_s"] = time.perf_counter() - t0
+            rec["tokens"].append(tok)
+            yield tok
+        rec["total_s"] = time.perf_counter() - t0
+
+    def run_chat(model_dir, turns, *flags, max_new=SURFACE_MAX_NEW):
+        stdin, out = io.StringIO("\n".join([*turns, "exit"]) + "\n"), io.StringIO()
+        saved = sys.stdin
+        sys.stdin = stdin
+        try:
+            with contextlib.redirect_stdout(out):
+                iface = cli.main(["chat", "--model-path", model_dir, "--temperature", "0",
+                                  "--max-length", str(max_new), *flags])
+        finally:
+            sys.stdin = saved
+        if iface.actual_model_path_loaded != model_dir:
+            raise RuntimeError(f"chat served {iface.actual_model_path_loaded}, not {model_dir}")
+        if out.getvalue().count("Apertis: ") != len(turns):
+            raise RuntimeError(f"chat printed {out.getvalue()!r}")
+        return iface
+
+    def steps_of(recs):
+        return sum(len(r["tokens"]) - 1 for r in recs)
+
+    def free(*objs):
+        del objs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def write_model(cfg, path):
+        tree = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 80), device=dev)
+        save_torch_checkpoint(tree, cfg, path, filename="model.pt")
+        create_minimal_vocab_file(os.path.join(path, "vocab.json"), size=4)
+        free(tree)
+
+    timings = {}
+    InferenceEngine.stream = timed_stream
+    try:
+        # 1. create-model.
+        big = os.path.join(work, "dense-1.5B")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            config = cli.main(["create-model", "--target-params", "1.5B", "--attention-type",
+                               "selective_ssm", "--output-dir", big])
+        n_layers = config.num_hidden_layers
+        tree_size = os.path.getsize(os.path.join(big, "model.pt"))
+        timings["create_model_s"] = time.perf_counter() - t0
+        log(f"  create-model: 1.5B dense selective SSM, hidden {config.hidden_size}, "
+            f"{n_layers} layers, {tree_size / 1e9:.2f} GB of f32 in "
+            f"{timings['create_model_s']:.1f} s")
+
+        # 2-3. chat in f32, then int8.
+        for flags, label in (((), "f32"), (("--quantize", "int8"), "int8")):
+            reset()
+            first = len(streams)
+            t0 = time.perf_counter()
+            iface = run_chat(big, SURFACE_TURNS, *flags)
+            timings[f"chat_{label}_s"] = time.perf_counter() - t0
+            turns = streams[first:first + 2]
+            got = read(f"chat {label}")
+            steps = steps_of(turns)
+            if label == "f32":
+                if count_params(iface.params) != 1_130_162_104:
+                    raise RuntimeError(f"the 1.5B tree has {count_params(iface.params):,} "
+                                       "parameters")
+                expect("chat f32", got, {"ssm_decode_step_f32": n_layers * steps,
+                                         "ffn_decode_f32": n_layers * steps,
+                                         "selective_scan_fwd": 2 * n_layers,
+                                         "ssm_decode_step": 0, "ffn_decode": 0})
+            else:
+                expect("chat int8", got, {"ssm_decode_step_int8_f32": n_layers * steps,
+                                          "ffn_decode_int8_f32": n_layers * steps,
+                                          "quant_matmul": None, "ln_quantize_f32": None,
+                                          "ssm_decode_step_int8": 0, "ffn_decode_int8": 0})
+            rec = turns[0]
+            ids = rec["prompt"]
+            gen_kw = {k: v for k, v in rec["kw"].items()}
+            again = list(iface.engine.stream(ids, **gen_kw))
+            ref = iface.engine.generate(ids, **gen_kw)[0, ids.shape[1]:].tolist()
+            if rec["tokens"] != ref or again != rec["tokens"]:
+                raise RuntimeError(f"chat {label}: turn 1 streamed {rec['tokens'][:8]}..., "
+                                   f"generate gave {ref[:8]}..., a repeat {again[:8]}...")
+            n = len(rec["tokens"])
+            rate = (n - 1) / (rec["total_s"] - rec["ttft_s"]) if n > 1 else float("nan")
+            timings[f"chat_{label}"] = {"prompt_tokens": int(ids.shape[1]), "tokens": n,
+                                        "ttft_ms": rec["ttft_s"] * 1e3,
+                                        "streamed_tokens_per_s": rate}
+            log(f"  chat {label}: turn 1 ({ids.shape[1]} prompt tokens) streamed {n} tokens "
+                f"equal to generate's and to a repeat ok; TTFT {rec['ttft_s'] * 1e3:.1f} ms, "
+                f"{rate:.1f} tokens/s streamed at batch 1; turn 2 {len(turns[1]['tokens'])} "
+                f"tokens from {turns[1]['prompt'].shape[1]} prompt tokens; card: {card}")
+            free(iface)
+
+        # 4. eval, perplexity and multiple choice, f32 and int8.
+        ppl = os.path.join(work, "ppl.jsonl")
+        mc = os.path.join(work, "mc.jsonl")
+        rng = np.random.default_rng(SEED + 81)
+        words = ["alpha", "beta", "gamma", "delta", "<eos>", "<pad>", "<bos>"]
+        with open(ppl, "w", encoding="utf-8") as f:
+            for n in (5, 40, 90, 17, 130, 60):
+                f.write(json.dumps({"text": " ".join(rng.choice(words, n))}) + "\n")
+        with open(mc, "w", encoding="utf-8") as f:
+            for i in range(3):
+                f.write(json.dumps({"question": " ".join(rng.choice(words, 12)),
+                                    "choices": [" ".join(rng.choice(words, 3 + j))
+                                                for j in range(4)],
+                                    "answer": i % 4}) + "\n")
+        for flags, label in (((), "f32"), (("--quantize", "int8"), "int8")):
+            for data, task, calls in ((ppl, "perplexity", 2), (mc, "multiple_choice", 3)):
+                reset()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    result = cli.main(["eval", "--model-path", big, "--data", data, "--task", task,
+                                       "--batch-size", "4", *flags])
+                timings[f"eval_{task}_{label}_s"] = time.perf_counter() - t0
+                got = read(f"eval {task} {label}")
+                values = [v for v in result.values() if isinstance(v, float)]
+                if not values or not all(np.isfinite(values)):
+                    raise RuntimeError(f"eval {task} {label}: {result}")
+                want = {"selective_scan_fwd": n_layers * calls}
+                if label == "int8":
+                    want.update({"ln_quantize_f32": None, "quant_matmul": None,
+                                 "quant_matmul_dyn_pre_q": None})
+                expect(f"eval {task} {label}", got, want)
+                log(f"  eval {task} {label}: {result}")
+                gc.collect()
+                torch.cuda.empty_cache()
+
+        # 5. fine-tuning from the 2-layer dense model with 512 tokens.
+        small = os.path.join(work, "dense-2")
+        dims = calculate_model_dimensions("1.5B", 32000)
+        dense2 = dense_preset_config(dims)
+        dense2.num_hidden_layers, dense2.dtype, dense2.param_dtype = 2, "float32", "float32"
+        write_model(dense2, small)
+        vocab = os.path.join(work, "vocab512.json")
+        with open(vocab, "w", encoding="utf-8") as f:
+            json.dump(fallback_vocab(512), f)
+        train = os.path.join(work, "sft.jsonl")
+        with open(train, "w", encoding="utf-8") as f:
+            for i in range(8):
+                f.write(json.dumps({"instruction": " ".join(f"<tok{5 + (i * 7 + j) % 500}>"
+                                                             for j in range(20)),
+                                    "output": " ".join(f"<tok{9 + (i * 3 + j) % 500}>"
+                                                       for j in range(30))}) + "\n")
+        resized = {}
+        plain_resize = pipeline_mod.resize_embeddings
+
+        def checked_resize(params, cfg, new_vocab, generator=None):
+            out = plain_resize(params, cfg, new_vocab, generator)
+            old, new = params["embed"]["tok"], out["embed"]["tok"]
+            resized.update(old=tuple(old.shape), new=tuple(new.shape),
+                           rows_equal=bool(torch.equal(new[:new_vocab], old[:new_vocab])))
+            return out
+
+        ft_config = os.path.join(work, "finetune.json")
+        with open(ft_config, "w", encoding="utf-8") as f:
+            json.dump({"data_config": {"train_data_path": train, "tokenizer_path": vocab,
+                                       "max_length": 64},
+                       "model_config": {},
+                       "training_config": {"task_type": "finetune",
+                                           "pretrained_model_path_for_finetune": small,
+                                           "output_dir": os.path.join(work, "ft"),
+                                           "batch_size": 4, "gradient_accumulation_steps": 1,
+                                           "num_epochs": 1, "learning_rate": 1e-4,
+                                           "device": "cuda"}}, f)
+        reset()
+        pipeline_mod.resize_embeddings = checked_resize
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                history = cli.main(["train", "--config", ft_config])
+        finally:
+            pipeline_mod.resize_embeddings = plain_resize
+        timings["finetune_s"] = time.perf_counter() - t0
+        got = read("fine-tune")
+        losses = history.get("step_losses", [])
+        if (resized.get("new") != (512, dims["hidden_size"]) or not resized.get("rows_equal")
+                or len(losses) != 2 or not np.all(np.isfinite(losses))):
+            raise RuntimeError(f"fine-tune: resize {resized}, losses {losses}")
+        expect("fine-tune", got, {"selective_scan_bwd": 2 * 2, "selective_scan_fwd": None})
+        log(f"  fine-tune: embeddings {resized['old']} -> {resized['new']}, the first 512 rows "
+            f"copied bit for bit ok; 2 updates, losses {losses} "
+            f"({'falling' if losses[1] < losses[0] else 'not falling'}, finite ok) in "
+            f"{timings['finetune_s']:.1f} s")
+
+        # 6. 2-layer f32 MoE and MHA chats at the 1.5B widths, MHA also int8.
+        moe_dir, mha_dir = os.path.join(work, "moe-2"), os.path.join(work, "mha-2")
+        moe2 = moe_preset_config(calculate_model_dimensions("1.5B", 32000,
+                                                            use_expert_system=True))
+        mha2 = mha_preset_config(dims)
+        for cfg, path in ((moe2, moe_dir), (mha2, mha_dir)):
+            cfg.num_hidden_layers, cfg.dtype, cfg.param_dtype = 2, "float32", "float32"
+            write_model(cfg, path)
+        for path, flags, label, want in (
+                (moe_dir, (), "MoE f32", {"ssm_decode_step_f32": "steps",
+                                          "expert_ffn_fat": None}),
+                (mha_dir, (), "MHA f32", {"mha_decode_ctx_f32": "steps",
+                                          "ffn_decode_f32": "steps"}),
+                (mha_dir, ("--quantize", "int8"), "MHA int8",
+                 {"mha_decode_ctx_int8_f32": "steps", "ffn_decode_int8_f32": "steps"})):
+            reset()
+            first = len(streams)
+            iface = run_chat(path, SURFACE_TURNS[:1], *flags, max_new=16)
+            steps = 2 * steps_of(streams[first:first + 1])
+            expect(f"chat {label}", read(f"chat {label}"),
+                   {k: steps if v == "steps" else v for k, v in want.items()})
+            if label == "MHA int8":
+                mha_iface = iface
+            else:
+                free(iface)
+
+        # 7. the UI backend, gradio stubbed.
+        backend = UIBackend(mha_iface)
+        history, cleared = backend.chat("hello there", None, 8, 0.0, 50, 1.0, [])
+        if len(history) != 1 or cleared != "":
+            raise RuntimeError(f"UIBackend.chat gave {history}")
+        launched = []
+        stub = types.ModuleType("gradio")
+
+        class Component:
+            def __init__(self, *a, **k):
+                pass
+
+            def click(self, *a, **k):
+                pass
+
+            submit = click
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def launch(self, **k):
+                launched.append(k)
+
+        for name in ("Blocks", "Tabs", "TabItem", "Row", "Accordion", "Column", "Markdown",
+                     "Chatbot", "Textbox", "Button", "Image", "Slider", "Number", "Checkbox",
+                     "Dropdown"):
+            setattr(stub, name, Component)
+        saved_gradio = sys.modules.get("gradio")
+        sys.modules["gradio"] = stub
+        try:
+            launch_ui(mha_iface, port=7860)
+        finally:
+            if saved_gradio is None:
+                del sys.modules["gradio"]
+            else:
+                sys.modules["gradio"] = saved_gradio
+        if not launched:
+            raise RuntimeError("launch_ui did not launch the stubbed app")
+        reset()
+        msg = backend.start_finetuning(small, train, "", False, vocab, "", 64,
+                                       os.path.join(work, "ui_ft"), 4, 1e-4, 1, 1, False)
+        azr = backend.start_azr("gpt2", 64, 1, 1, 128, "standard_mha", 1, 1, 1,
+                                os.path.join(work, "ui_azr"))
+        for job in (backend.finetune_job, backend.azr_job):
+            job.thread.join(timeout=300)
+            if job.running():
+                raise RuntimeError(f"{job.name} did not finish in 300 s")
+        ft_status, azr_status = backend.finetune_job.status(), backend.azr_job.status()
+        if "finished" not in ft_status or "FAILED" not in azr_status or \
+                "not ported" not in azr_status:
+            raise RuntimeError(f"UI jobs: {ft_status!r}, {azr_status!r}")
+        expect("UI fine-tuning job", read("UI fine-tuning job"),
+               {"selective_scan_bwd": 2 * 2})
+        log(f"  UI: chat ok; launch_ui bound the stubbed gradio app ok; {msg} -> finished "
+            f"ok; {azr} -> {azr_status.splitlines()[-1][:120]} ok")
+        free(mha_iface, backend)
+    finally:
+        InferenceEngine.stream = plain_stream
+        reset()
+    timings["phase_s"] = time.perf_counter() - t_phase
+    return dict(total), timings
+
+
+def surfaces_main() -> int:
+    """``--surfaces``: the build, phase 3i (the f32 forms' checks) and phase
+    8 (the surfaces) alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO_ROOT))
+    from apertis_llm_torch.ops.kernels import _build
+
+    card = card_line()
+    t0 = time.perf_counter()
+    _build.load_library()
+    log(f"card: {card}; build in {time.perf_counter() - t0:.1f} s")
+    checks = KernelChecks(card)
+    dev = torch.device("cuda", 0)
+    f32_forms_phase(checks, dev)
+    log(f"phase 3i done at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as work:
+        launches, timings = surfaces_phase(card, dev, work)
+    log(f"phase 8 done at {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"surfaces": {"launches": launches, "timings": timings,
+                                   "errs": checks.errs, "times": checks.times}}))
+    print(card)
+    return 0
+
+
+class KernelChecks:
+    """The kernel checks' records: ``errs`` (kernel -> worst error),
+    ``times`` (kernel -> (ms, plain_ms, bound_ms, bound_by, device_ms) at
+    the timed shape) and ``shape_times`` (kernel -> other shapes' times)."""
+
+    def __init__(self, card):
+        self.card = card
+        self.errs, self.times, self.shape_times = {}, {}, {}
+
+    def kernel(self, key, label, args, kernel, plain, tols, cost=None, repeat=False,
+               shape=None):
+        """Run the kernel and its plain version on ``args``, compare each
+        output with its tolerance, and time both; with ``cost`` (bytes,
+        operations, type) this is the shape the report gives, or, named
+        ``shape``, one more shape the report lists beside it; with
+        ``repeat`` a second run must give the same bits."""
+        got, ref = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        if len(got) != len(ref):
+            raise RuntimeError(f"{label}: {len(got)} outputs, plain version {len(ref)}")
+        for (out_name, tol), a, b in zip(tols, got, ref):
+            cmp = compare_int8 if tol == "int8" else compare
+            self.errs[key] = max(self.errs.get(key, 0.0), cmp(f"{label} {out_name}", a, b, tol))
+        if repeat:
+            again = kernel(*args)
+            again = again if isinstance(again, tuple) else (again,)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise RuntimeError(f"{label}: a second run gave other bits")
+            log(f"  {label}: a second run gives the same bits ok")
+        k_ms = cuda_ms(lambda: kernel(*args))
+        p_ms = cuda_ms(lambda: plain(*args))
+        line = f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
+        if cost is not None:
+            b_ms, by = bound(*cost)
+            d_ms = device_ms(lambda: kernel(*args))
+            if shape is None:
+                self.times[key] = (k_ms, p_ms, b_ms, by, d_ms)
+            else:
+                self.shape_times.setdefault(key, {})[shape] = {
+                    "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": by}
+            line += (f", device {d_ms:.4f} ms" if d_ms is not None else ", device not measured")
+            line += f", bound {b_ms:.4f} ms ({by})"
+        log(f"{line}; card: {self.card}")
+
+    def sensitive(self, label, plain, args, variants, tols, factor=1):
+        """Each variant drops one term from ``args`` (or is a function that
+        computes the plain version without it); the plain version's outputs
+        must then move by more than ``factor`` times a kernel check's
+        tolerance, so a kernel that dropped the term would fail that check
+        (an int8 output must change more levels, or on more elements, than it
+        may)."""
+        base = plain(*args)
+        base = base if isinstance(base, tuple) else (base,)
+        for term, changed in variants.items():
+            out = changed() if callable(changed) else plain(*changed)
+            out = out if isinstance(out, tuple) else (out,)
+            moved = []
+            for (name, tol), o, b in zip(tols, out, base):
+                if tol == "int8":
+                    dq = (o.int() - b.int()).abs()
+                    moved.append((float((dq > 0).float().mean()), INT8_FLIP_SHARE, name)
+                                 if int(dq.max()) <= INT8_MAX_DQ else
+                                 (float(dq.max()), float(INT8_MAX_DQ), name))
+                else:
+                    moved.append((float((o.float() - b.float()).abs().max()),
+                                  factor * tol * float(b.float().abs().max()), name))
+            shift, bound_, name = max(moved, key=lambda m: m[0] / max(m[1], 1e-30))
+            ok = shift > bound_
+            log(f"  sensitivity {label}, {term}: {name} moves {shift:.3e} "
+                f"(tolerance {bound_:.3e}, {shift / max(bound_, 1e-30):.2f} x) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{label}: the check cannot see {term}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs "
@@ -1771,77 +2513,9 @@ def main() -> int:
     def randn(*shape, dtype=torch.bfloat16, std=1.0, gen=None):
         return (torch.randn(shape, generator=gen or g, device=dev) * std).to(dtype)
 
-    # kernel -> worst error; kernel -> (ms, plain_ms, bound_ms, bound_by,
-    # device_ms) at the timed shape
-    errs, times, shape_times = {}, {}, {}
-
-    def check_kernel(key, label, args, kernel, plain, tols, cost=None, repeat=False,
-                     shape=None):
-        """Run the kernel and its plain version on ``args``, compare each
-        output with its tolerance, and time both; with ``cost`` (bytes,
-        operations, type) this is the shape the report gives, or, named
-        ``shape``, one more shape the report lists beside it; with
-        ``repeat`` a second run must give the same bits."""
-        got, ref = kernel(*args), plain(*args)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        if len(got) != len(ref):
-            raise RuntimeError(f"{label}: {len(got)} outputs, plain version {len(ref)}")
-        for (out_name, tol), a, b in zip(tols, got, ref):
-            cmp = compare_int8 if tol == "int8" else compare
-            errs[key] = max(errs.get(key, 0.0), cmp(f"{label} {out_name}", a, b, tol))
-        if repeat:
-            again = kernel(*args)
-            again = again if isinstance(again, tuple) else (again,)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise RuntimeError(f"{label}: a second run gave other bits")
-            log(f"  {label}: a second run gives the same bits ok")
-        k_ms = cuda_ms(lambda: kernel(*args))
-        p_ms = cuda_ms(lambda: plain(*args))
-        line = f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
-        if cost is not None:
-            b_ms, by = bound(*cost)
-            d_ms = device_ms(lambda: kernel(*args))
-            if shape is None:
-                times[key] = (k_ms, p_ms, b_ms, by, d_ms)
-            else:
-                shape_times.setdefault(key, {})[shape] = {
-                    "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                    "bound_by": by}
-            line += (f", device {d_ms:.4f} ms" if d_ms is not None else ", device not measured")
-            line += f", bound {b_ms:.4f} ms ({by})"
-        log(f"{line}; card: {card}")
-
-    def check_sensitive(label, plain, args, variants, tols, factor=1):
-        """Each variant drops one term from ``args`` (or is a function that
-        computes the plain version without it); the plain version's outputs
-        must then move by more than ``factor`` times a kernel check's
-        tolerance, so a kernel that dropped the term would fail that check
-        (an int8 output must change more levels, or on more elements, than it
-        may)."""
-        base = plain(*args)
-        base = base if isinstance(base, tuple) else (base,)
-        for term, changed in variants.items():
-            out = changed() if callable(changed) else plain(*changed)
-            out = out if isinstance(out, tuple) else (out,)
-            moved = []
-            for (name, tol), o, b in zip(tols, out, base):
-                if tol == "int8":
-                    dq = (o.int() - b.int()).abs()
-                    moved.append((float((dq > 0).float().mean()), INT8_FLIP_SHARE, name)
-                                 if int(dq.max()) <= INT8_MAX_DQ else
-                                 (float(dq.max()), float(INT8_MAX_DQ), name))
-                else:
-                    moved.append((float((o.float() - b.float()).abs().max()),
-                                  factor * tol * float(b.float().abs().max()), name))
-            shift, bound_, name = max(moved, key=lambda m: m[0] / max(m[1], 1e-30))
-            ok = shift > bound_
-            log(f"  sensitivity {label}, {term}: {name} moves {shift:.3e} "
-                f"(tolerance {bound_:.3e}, {shift / max(bound_, 1e-30):.2f} x) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise RuntimeError(f"{label}: the check cannot see {term}")
+    checks = KernelChecks(card)
+    errs, times, shape_times = checks.errs, checks.times, checks.shape_times
+    check_kernel, check_sensitive = checks.kernel, checks.sensitive
 
     log("kernel checks (bf16 in, f32 carry/accumulation; int8 with exact int32 sums), "
         "CUDA-event times:")
@@ -3303,6 +3977,9 @@ def main() -> int:
                       selective_scan_carry_bwd_reference, bargs)
             if timed:
                 repeats(f"selective_scan_carry_fwd {label}", selective_scan_carry_fwd, fargs)
+
+    # ---- 3i. the decode kernels' f32 forms ------------------------------------
+    library["mha_decode_ctx_f32"] = f32_forms_phase(checks, dev)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. serve -----------------------------------------------------------
@@ -4589,6 +5266,17 @@ def main() -> int:
         f" GB per rank; card: {card}")
     log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 8. the surfaces: CLI chat, eval and fine-tuning, the UI backend --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        surface_launches, surfaces = surfaces_phase(card, dev, work)
+    for name in F32_FORMS:
+        if not surface_launches.get(name):
+            raise RuntimeError(f"phase 8: {name} was not launched")
+        launches[name] = surface_launches[name]
+    log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+
     # ---- report -------------------------------------------------------------
     replaces = {
         "selective_scan_fwd": ("apertis_llm_torch/csrc/ssm_scan.cu",
@@ -4647,6 +5335,7 @@ def main() -> int:
                                      "apertis_llm_tpu/ops/pallas/ssm_scan.py:184"),
         "selective_scan_carry_bwd": ("apertis_llm_torch/csrc/scan_carry.cu",
                                      "apertis_llm_tpu/ops/pallas/ssm_scan.py:184"),
+        **{name: F32_FORMS[name] for name in F32_FORMS},
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
@@ -4681,7 +5370,7 @@ def main() -> int:
                       "checkpoint_round_trip": round_trip,
                       "ln_quantize_bit_equal": ln_bit_equal,
                       "moe_epilogue_seeds": fault2,
-                      "mha_moe_fat_vs_fatk": fat_vs_fatk}))
+                      "mha_moe_fat_vs_fatk": fat_vs_fatk, "surfaces": surfaces}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4900,6 +5589,8 @@ if __name__ == "__main__":
         sys.exit(qmm_main(check=sys.argv[1] == "--qmm"))
     if sys.argv[1:] == ["--flash-f32-times"]:
         sys.exit(flash_f32_times_main())
+    if sys.argv[1:] == ["--surfaces"]:
+        sys.exit(surfaces_main())
     if sys.argv[1:] == ["--decode-times"]:
         sys.exit(decode_times_main())
     sys.exit(main())

@@ -30,6 +30,7 @@ setup(
     entry_points={
         "console_scripts": [
             "apertis=apertis_llm_tpu.cli:main",
+            "apertis-torch=apertis_llm_torch.cli:console_main",
         ],
     },
 )

@@ -44,6 +44,19 @@ from apertis_llm_torch.ops.kernels.moe_ffn import expert_ffn_dense, expert_ffn_d
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_traces_of_other_settings():
+    """This file's tests set ``APERTIS_*`` variables and patch ``_on_tpu``,
+    which choose the paths JAX traces; JAX caches those traces by function
+    and static arguments, not by the settings, so a later file's test with
+    an equal config would reuse them (in one serial process
+    ``tests/test_torch_moe.py`` then ran other int8 paths than its own).
+    Clear JAX's caches once this file's tests are done."""
+    yield
+    jax.clear_caches()
+
+
 BASE = dict(vocab_size=256, hidden_size=128, num_hidden_layers=2, num_attention_heads=8,
             intermediate_size=256, attention_type="selective_ssm", ssm_d_state=16,
             hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,

@@ -30,7 +30,8 @@ from apertis_llm_tpu.models.params import init_params as jax_init_params
 from apertis_llm_tpu.training import datasets as jax_datasets
 from apertis_llm_tpu.training import step as jax_step
 from apertis_llm_torch.config import ApertisConfig
-from apertis_llm_torch.models.convert import from_jax_params, params_tree
+from apertis_llm_torch.models.convert import (from_jax_params, params_tree,
+                                              save_torch_checkpoint)
 from apertis_llm_torch.models.params import check_trainable, init_params
 from apertis_llm_torch.models.quantize import quantize_params
 from apertis_llm_torch.training import datasets as port_datasets
@@ -358,10 +359,14 @@ def test_unsupported_training_raises(tmp_path, case):
         elif case == "pipeline":
             ApertisTrainer(cfg, tree, _tiny_dataset(), pipeline_stages=2, device="cpu")
         else:
+            # Fine-tuning from a base model is ported; on a mesh with a model
+            # axis it is not (the base is read, then the trainer refuses).
             vocab_path, _, data, ft = _corpus(tmp_path)
+            base = tmp_path / "base"
+            save_torch_checkpoint(tree, cfg, base)
             path = _pipeline_config(tmp_path, vocab_path, ft, tmp_path / "ft",
-                                    task_type="finetune",
-                                    pretrained_model_path_for_finetune=str(tmp_path))
+                                    task_type="finetune", mesh_shape=[1, 2, 1, 1],
+                                    pretrained_model_path_for_finetune=str(base))
             train_from_config(str(path))
 
 
