@@ -27,7 +27,16 @@
 // rows (by TMA, or by the producer's own 8-byte loads where a row is not a
 // whole number of 16-byte units, as x_param's R + 2C at the MoE widths) and
 // read by wgmma straight from shared memory as an MN-major A operand
-// (hopper.cuh::BwMma), with no register fragments.
+// (hopper.cuh::BwMma), with no register fragments; f32 rows (or bf16
+// ones) and an f32 weight (f32 sums, 32 K a chunk, kDgTF): split TF32, the
+// f32 weight tile staged by TMA as four 32-column blocks in the 128-byte
+// swizzle, each value read into wgmma's register A fragment and split there
+// into TF32 hi and lo parts (hopper.cuh::tf32_round), the rows' parts split
+// by the launch before (rows of bf16 values have no lo part) and staged by
+// TMA as a hi tile and a lo tile; each k8 step runs hi.hi + lo.hi (+ hi.lo) and each chunk's
+// products start a fresh accumulator that is added to the f32 sum in
+// registers (the tensor cores' own f32 sum over thousands of terms drifts,
+// as in flash_attention_f32.cu).
 // A K split over a thread-block cluster adds the blocks' sums in one of two
 // exchanges: the owner-slot one (dg_split_sum: a column block's sums to one
 // rank) or the sliced one (xpush / add_round: runs of (thread, column block)
@@ -60,9 +69,12 @@ constexpr int kDgConsumerRegs = 224;
 constexpr size_t kDgSmemLimit = 232448;                    // dynamic shared memory a block
 constexpr int kDgConsumerThreads = kConsumers * 128;
 
-enum DgKind { kDgI8 = 0, kDgI4 = 1, kDgBf16 = 2, kDgBW = 3 };
+enum DgKind { kDgI8 = 0, kDgI4 = 1, kDgBf16 = 2, kDgBW = 3, kDgTF = 4 };
 
 constexpr uint32_t kDgBWBytes = kDgKC / 2 * 256;           // bf16 weight tile: 64 x 128
+constexpr int kDgTFKC = kDgKC / 4;                         // f32 K rows a chunk: 128 bytes
+constexpr uint32_t kDgTFBlock = kDgTFKC * 128;             // one 32-column block of it
+constexpr uint32_t kDgTFBytes = 4 * kDgTFBlock;            // f32 weight tile: 32 x 128
 
 // One operand kind: K values a chunk (a 128-byte row of the rows' tile),
 // the weight tile's bytes in a stage and those TMA brings, the
@@ -70,9 +82,11 @@ constexpr uint32_t kDgBWBytes = kDgKC / 2 * 256;           // bf16 weight tile: 
 template <int kKind>
 struct DgOp {
   static constexpr bool kW8 = kKind == kDgI8 || kKind == kDgI4;   // int8 wgmma
-  static constexpr int kKC = kW8 ? kDgKC : kDgKC / 2;
+  static constexpr int kKC = kW8 ? kDgKC : (kKind == kDgTF ? kDgTFKC : kDgKC / 2);
   static constexpr uint32_t kWBytes =
-      kKind == kDgI4 ? kDgW4Bytes : (kKind == kDgBW ? kDgBWBytes : (uint32_t)kKC * 128);
+      kKind == kDgI4 ? kDgW4Bytes
+                     : (kKind == kDgBW ? kDgBWBytes
+                                       : (kKind == kDgTF ? kDgTFBytes : (uint32_t)kKC * 128));
   static constexpr uint32_t kWTx = kKind == kDgI4 ? kDgKC / 2 * 128 + 128 : kWBytes;
   typedef typename std::conditional<kW8, int, float>::type Acc;
 };
@@ -120,10 +134,16 @@ struct DgWeight {
 
 // The streamed B operand: int8 or bf16 rows (rows, k) of row stride k, a
 // tile of x_bytes / 128 rows from m0, loaded by TMA (x_map) when `tma`.
+// `f32` (kDgBW): the rows are f32 in memory, loaded by the producer, which
+// rounds them to bf16. kDgTF: the rows' TF32 hi parts (f32, by TMA) and,
+// with `lo`, their lo parts by a second map into a second tile (x_bytes
+// holds both).
 struct DgRows {
   const void* x;
   int rows, k;
   int tma;
+  int f32 = 0;
+  int lo = 0;
 };
 
 // The arrivals a stage's full barrier expects: one for the TMA loads (which
@@ -175,6 +195,47 @@ __device__ __forceinline__ uint2 load4_bf16(const bf16* __restrict__ base, int r
   return make_uint2(w[0], w[1]);
 }
 
+// 4 f32 of row `row` of a (rows, cols) f32 matrix with leading dimension
+// `ld`, from column `col`; zeros past the edges. `vec`: cols is a multiple
+// of 4 and the base 16-byte aligned.
+__device__ __forceinline__ float4 load4_f32(const float* __restrict__ base, int row, int col,
+                                            int rows, int cols, size_t ld, bool vec) {
+  if (row >= rows || col >= cols) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* src = base + (size_t)row * ld + col;
+  if (vec) return *reinterpret_cast<const float4*>(src);
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (col + j < cols) v[j] = src[j];
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// 8 f32 of row `row` of a (rows, cols) f32 matrix with leading dimension
+// `ld`, from column `col`, rounded to bf16 (as 16 bytes); zeros past the
+// edges. `vec`: cols is a multiple of 4 and the base 16-byte aligned.
+__device__ __forceinline__ int4 load8_f32_bf16(const float* __restrict__ base, int row, int col,
+                                               int rows, int cols, size_t ld, bool vec) {
+  float v[8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 f = load4_f32(base, row, col + 4 * h, rows, cols, ld, vec);
+    v[4 * h] = f.x;
+    v[4 * h + 1] = f.y;
+    v[4 * h + 2] = f.z;
+    v[4 * h + 3] = f.w;
+  }
+  return make_int4((int)pack_bf16(v[0], v[1]), (int)pack_bf16(v[2], v[3]),
+                   (int)pack_bf16(v[4], v[5]), (int)pack_bf16(v[6], v[7]));
+}
+
+// The rows' split-TF32 parts of value v, as the products take them: hi[i]
+// and, where lo is not null, lo[i].
+__device__ __forceinline__ void tf_split_store(float v, float* hi, float* lo, size_t i) {
+  const float h = tf32_hi(v);
+  hi[i] = h;
+  if (lo != nullptr) lo[i] = tf32_lo(v, h);
+}
+
 // Issue chunks [from, to) of `ch` into the ring, chunk i at ring position
 // pos0 + i (a block that walks several tiles goes on round the ring): the
 // weight tile (and an int4 tile's shift row) and the rows' tile.
@@ -197,10 +258,11 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
   const bool manual = !wt.tma || !rows.tma;
   if (!manual && ptid != 0) return;
   const uint32_t tx = (rows.tma ? r.x_bytes : 0) + (wt.tma ? Op::kWTx : 0);
-  const int x_align = Op::kW8 ? 16 : 8;   // values a 16-byte load
+  const int x_align = Op::kW8 ? 16 : (rows.f32 ? 4 : 8);   // values a 16-byte load
   const bool vec_w = kKind == kDgBW
                          ? wt.n % 4 == 0 && reinterpret_cast<uintptr_t>(wt.w) % 8 == 0
-                         : wt.n % 16 == 0 && reinterpret_cast<uintptr_t>(wt.w) % 16 == 0;
+                         : (kKind == kDgTF ? wt.n % 4 == 0 : wt.n % 16 == 0) &&
+                               reinterpret_cast<uintptr_t>(wt.w) % 16 == 0;
   const bool vec_x = rows.k % x_align == 0 && reinterpret_cast<uintptr_t>(rows.x) % 16 == 0;
   int next = (pos0 + from) % r.stages, round = (pos0 + from) / r.stages;
   int tq = from / ch.per, tc = from % ch.per;   // chunk `from`: chunk tc of tile tq
@@ -220,7 +282,11 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
     }
     if (ptid == 0 && tx != 0) {
       mbar_arrive_tx(&r.full[s], tx);
-      if (rows.tma) tma_load_2d(r.x(s), x_map, &r.full[s], k0, m0);
+      if (rows.tma) {
+        tma_load_2d(r.x(s), x_map, &r.full[s], k0, m0);
+        if (kKind == kDgTF && rows.lo)   // the lo tile, by the second map (sh_map)
+          tma_load_2d(r.x(s) + r.x_bytes / 2, sh_map, &r.full[s], k0, m0);
+      }
       if (wt.tma) {
         if constexpr (kKind == kDgI4) {
           tma_load_2d(r.w(s), w_map, &r.full[s], n0, kw / 2);
@@ -228,6 +294,10 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
         } else if constexpr (kKind == kDgBW) {
           tma_load_2d(r.w(s), w_map, &r.full[s], n0, kw);
           tma_load_2d(r.w(s) + kDgBWBytes / 2, w_map, &r.full[s], n0 + 64, kw);
+        } else if constexpr (kKind == kDgTF) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            tma_load_2d(r.w(s) + j * kDgTFBlock, w_map, &r.full[s], n0 + 32 * j, kw);
         } else {
           tma_load_2d(r.w(s), w_map, &r.full[s], n0, kw);
         }
@@ -246,6 +316,9 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
         if constexpr (Op::kW8)
           v = load16(static_cast<const int8_t*>(rows.x), m0 + row, k0 + 16 * c, rows.rows,
                      rows.k, (size_t)rows.k, vec_x);
+        else if (rows.f32)
+          v = load8_f32_bf16(static_cast<const float*>(rows.x), m0 + row, k0 + 8 * c,
+                             rows.rows, rows.k, (size_t)rows.k, vec_x);
         else
           v = load8_bf16(static_cast<const bf16*>(rows.x), m0 + row, k0 + 8 * c, rows.rows,
                          rows.k, (size_t)rows.k, vec_x);
@@ -266,6 +339,17 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
                                     ((c ^ (row & 7)) << 4) + 8 * half) =
               load4_bf16(w16, kw + row, n0 + 64 * blk + 8 * c + 4 * half, wt.k, wt.n,
                          (size_t)wt.n, vec_w);
+        }
+      } else if constexpr (kKind == kDgTF) {
+        // 16-byte units u: K row u / 32, columns 4 (u % 32) .. + 3, in column
+        // block (u % 32) / 8; 32 threads read one 512-byte weight row.
+        const float* w32 = reinterpret_cast<const float*>(wt.w);
+#pragma unroll
+        for (int u = ptid; u < (int)(kDgTFBytes / 16); u += 128) {
+          const int row = u >> 5, cu = u & 31, q = cu & 7;
+          *reinterpret_cast<float4*>(dst + (cu >> 3) * kDgTFBlock + row * 128 +
+                                     ((q ^ (row & 7)) << 4)) =
+              load4_f32(w32, kw + row, n0 + 4 * cu, wt.k, wt.n, (size_t)wt.n, vec_w);
         }
       } else {
 #pragma unroll
@@ -446,6 +530,126 @@ __device__ __forceinline__ void dg_consume(const DgRing& r, const DgLane& L, int
     for (int j = 0; j < BR / 2; ++j) acc_fence(acc[j]);
     release(prev);
   }
+}
+
+// ---- split TF32 (kDgTF) --------------------------------------------------
+//
+// The weight's 64 columns of a warpgroup are wgmma's M rows in the int8
+// kinds' order: M row 16 w + g + 8 h of warp w is weight column 16 w + 2 g +
+// h, so a lane's A fragment of a k8 step (rows g, g + 8; K l % 4 and
+// l % 4 + 4) is two 8-byte loads of adjacent columns, and its accumulators
+// are DgLane::column's columns. The rows' K runs in order (TMA's layout), so
+// no slot permutation is needed.
+
+// The byte offset, in a stage's f32 weight tile, of this lane's two columns
+// at K row l % 4 + 4 half of the chunk's first k8 step (a step is 1024
+// bytes on: 8 rows of 128, whose swizzle phase repeats).
+__device__ __forceinline__ uint32_t tf_frag_offset(const DgLane& L, int half) {
+  const int k = (L.lane & 3) + 4 * half, c = L.col & 31;
+  return (L.col >> 5) * kDgTFBlock + k * 128 + (((c >> 2) ^ k) << 4) + (c & 3) * 4;
+}
+
+// The A fragments of the chunk in weight tile w: step kk's hi parts
+// f[kk][0] and lo parts f[kk][1] (registers: K l % 4 of columns c, c + 1,
+// then K l % 4 + 4 of the same).
+__device__ __forceinline__ void tf_frags(const unsigned char* w, uint32_t off0, uint32_t off1,
+                                         uint32_t (&f)[4][2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float2 a = *reinterpret_cast<const float2*>(w + off0 + kk * 1024);
+    const float2 b = *reinterpret_cast<const float2*>(w + off1 + kk * 1024);
+    const float v[4] = {a.x, a.y, b.x, b.y};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float h = tf32_hi(v[i]);
+      f[kk][0][i] = __float_as_uint(h);
+      f[kk][1][i] = __float_as_uint(tf32_lo(v[i], h));
+    }
+  }
+}
+
+// The chunk's products into a fresh accumulator t: for each k8 step, the
+// weight's hi and lo parts against the rows' hi tile `b` and, with kLo,
+// the weight's hi parts against the rows' lo tile (BR * 128 bytes on); one
+// commit group.
+template <int BR, bool kLo>
+__device__ __forceinline__ void tf_mma(const unsigned char* b, const uint32_t (&f)[4][2][4],
+                                       float (&t)[BR / 2]) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t bh = sw128_desc(b + 32 * kk, 16, 1024);
+    WgmmaTf32<BR>::rs(t, f[kk][0], bh, kk > 0 ? 1 : 0);
+    WgmmaTf32<BR>::rs(t, f[kk][1], bh, 1);
+    if constexpr (kLo)
+      WgmmaTf32<BR>::rs(t, f[kk][0], sw128_desc(b + BR * 128 + 32 * kk, 16, 1024), 1);
+  }
+  wg_commit();
+}
+
+// Consume ring positions [i0, i1) of split-TF32 chunks into acc (added to
+// it, chunk by chunk in order, with f32 adds that round to nearest). Two
+// fragment sets and two chunk accumulators take turns: position i's
+// fragments are built and its products issued while position i - 1's run;
+// once those complete, their sum is added and their stage released.
+template <int BR, bool kLo>
+__device__ __forceinline__ void dg_consume_tf(const DgRing& r, const DgLane& L, int i0, int i1,
+                                              float (&acc)[BR / 2]) {
+  if (i0 >= i1) return;
+  int s = i0 % r.stages;
+  uint32_t ph = (i0 / r.stages) & 1;
+  auto next = [&]() {
+    if (++s == r.stages) {
+      s = 0;
+      ph ^= 1;
+    }
+  };
+  auto release = [&](int st) {
+    __syncwarp();
+    if (L.lane == 0) mbar_arrive(&r.empty[st]);
+  };
+  auto add = [&](float (&t)[BR / 2]) {
+#pragma unroll
+    for (int j = 0; j < BR / 2; ++j) {
+      acc_fence(t[j]);
+      acc[j] = __fadd_rn(acc[j], t[j]);
+    }
+  };
+  const uint32_t off0 = tf_frag_offset(L, 0), off1 = tf_frag_offset(L, 1);
+  uint32_t f0[4][2][4], f1[4][2][4];
+  float t0[BR / 2], t1[BR / 2];
+  int prev = s;
+  mbar_wait(&r.full[s], ph);
+  tf_frags(r.w(s), off0, off1, f0);
+  tf_mma<BR, kLo>(r.x(s), f0, t0);
+  next();
+  for (int i = i0 + 1; i < i1; i += 2) {
+    mbar_wait(&r.full[s], ph);
+    tf_frags(r.w(s), off0, off1, f1);
+    tf_mma<BR, kLo>(r.x(s), f1, t1);
+    wg_wait<1>();
+    add(t0);
+    release(prev);
+    prev = s;
+    next();
+    if (i + 1 >= i1) {
+      wg_wait<0>();
+      add(t1);
+      release(prev);
+      return;
+    }
+    mbar_wait(&r.full[s], ph);
+    tf_frags(r.w(s), off0, off1, f0);
+    tf_mma<BR, kLo>(r.x(s), f0, t0);
+    wg_wait<1>();
+    add(t1);
+    release(prev);
+    prev = s;
+    next();
+  }
+  wg_wait<0>();
+  add(t0);
+  release(prev);
 }
 
 // The K split's exchange over a cluster of `split` blocks: accumulator

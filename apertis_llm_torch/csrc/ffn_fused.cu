@@ -35,65 +35,101 @@
 //
 // The f32 forms (at the end of this file) serve the trees those layouts do
 // not take, as the TPU kernel does in the weights' dtype (ffn_fused.py:91,
-// 99): apertis_ffn_decode_f32 float weights of any mix of f32 and bf16 (the
-// input rounded to W1's dtype, the hidden to W2's, the output in its own
-// dtype), apertis_ffn_decode_int8_f32 the int8 layout's arithmetic step by
-// step with biases and output of either dtype. Both run the SIMT products
-// of simt.cuh; the int8 form's GEMM2 adds each hidden tile's exact int32 sum
-// times the tile's scale in tile order, so it equals its plain version bit
-// for bit where its activation does.
+// 99):
+//   apertis_ffn_decode_f32, float weights of any mix of f32 and bf16 (the
+//   input rounded to W1's dtype, the hidden to W2's, biases and output of
+//   either dtype): each product is ffn_bw_kernel, a bf16 weight as above
+//   (f32 rows rounded to bf16 by the producer), an f32 weight in split TF32
+//   (decode_gemm.cuh's kDgTF: the TMA-staged row-major f32 tile read into
+//   register A fragments and split into hi and lo there, the rows split by
+//   the producer, hi.hi + lo.hi + hi.lo a k8 step, a fresh accumulator a
+//   32-K chunk added in f32 registers; bf16 rows have no lo part, so the
+//   chat's GEMM1 on the step's bf16 FFN input runs two products a step).
+//   Bound: bytes. Both f32 weights are 2 * 2432 * 9728 * 4 = 189 MB a layer
+//   of the 1.5B model (0.0565 ms at 3.35 TB/s); the three TF32 products at
+//   64 rows (18.2 GFLOP at 495 TFLOP/s, 0.037 ms) stay under that, where the
+//   same products on CUDA cores (0.09 ms at 67 TFLOP/s) would not.
+//   apertis_ffn_decode_int8_f32, the int8 layout with biases and output of
+//   either dtype: the int8 layout's two launches below, whose epilogues read
+//   and write by dtype code (quant_ffn.cuh's UpArgs::b1_f32, and GEMM2's
+//   kDownFfnF32 mode with DownArgs::b2_f32 and out_f32), so it equals its
+//   plain version bit for bit where its activation does.
+// The layouts' own instances (ffn_bw_kernel without kCoded, GEMM2's
+// kDownFfn) keep their bf16 operands fixed at compile time: with the codes
+// read at run time the bf16 layout's GEMM1 spilled registers at a row tile
+// of 64 and ran slower there.
 
 #include <string.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 #include "decode_gemm.cuh"
 #include "quant_ffn.cuh"
-#include "simt.cuh"
 
 namespace {
 
 // ffn_bw_kernel's arguments beside its tensor maps.
 struct BwArgs {
-  const bf16* bias;   // (N,)
-  bf16* out;          // (S, N)
+  const void* bias;   // (N,): bf16, or f32 (bias_f32)
+  void* out;          // (S, N): bf16, or f32 (out_f32); with out_lo its TF32 hi parts
   int rows, k, n, act, split, stages;
+  int bias_f32, out_f32;
+  // f32 rows of a bf16 weight, which the producer loads and rounds (x_map
+  // is then unused); null: x_map's.
+  const float* x;
+  float* out_lo;      // (S, N) or null: the output's TF32 lo parts (GEMM1's hidden for an f32 W2)
 };
 
-// A ring stage of the bf16 layout: BR rows of 64 bf16 and the weight tile.
-__host__ __device__ constexpr uint32_t bw_stage_bytes(int br) {
-  return (uint32_t)br * 128 + kDgBWBytes;
+// A ring stage of the float layouts: BR rows of 128 bytes (twice that for
+// split-TF32 rows with a lo tile) and the weight tile.
+template <int BR, int kKind, bool kLo>
+__host__ __device__ constexpr uint32_t bw_stage_bytes() {
+  return (uint32_t)BR * 128 * (kLo ? 2 : 1) + DgOp<kKind>::kWBytes;
 }
 
-// One bf16 product of the FFN: GEMM1 (kUp, out = bf16(act(acc + b1))) or
-// GEMM2 (out = bf16(acc + b2)), blocks (column tile x split, row tile).
-template <int BR, bool kUp>
+// One float product of the FFN: GEMM1 (kUp, out = act(acc + b1)) or GEMM2
+// (out = acc + b2), each rounded to out's dtype, blocks (column tile x
+// split, row tile). kKind: kDgBW (a bf16 weight) or kDgTF (an f32 weight in
+// split TF32; kLo: the rows are f32, so their lo parts enter). kCoded: the
+// f32 form's, whose bias and output dtypes, f32 rows (a.x) and lo output
+// are read from `a`; without it (the bf16 layout) all are bf16 by TMA, fixed
+// at compile time.
+template <int BR, bool kUp, int kKind, bool kLo, bool kCoded>
 __global__ void __launch_bounds__(kThreads, 1) ffn_bw_kernel(
-    const __grid_constant__ CUtensorMap x_map,   // rows (S, K) bf16: boxes of BR rows x 64
-    const __grid_constant__ CUtensorMap w_map,   // W (K, N) bf16: boxes of 64 rows x 64
+    const __grid_constant__ CUtensorMap x_map,    // rows (S, K), boxes of BR rows x 128 bytes:
+                                                  // bf16, or kDgTF their f32 hi parts
+    const __grid_constant__ CUtensorMap xlo_map,  // kLo: the rows' f32 lo parts
+    const __grid_constant__ CUtensorMap w_map,    // W (K, N): bf16 boxes of 64 rows x 64,
+                                                  // f32 of 32 x 32
     const BwArgs a) {
+  typedef DgOp<kKind> Op;
+  constexpr bool kTF = kKind == kDgTF;
+  constexpr uint32_t kStage = bw_stage_bytes<BR, kKind, kLo>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   const int split = a.split, stages = a.stages;
-  float* part = reinterpret_cast<float*>(smem + (size_t)stages * bw_stage_bytes(BR));
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)stages * bw_stage_bytes(BR) +
+  float* part = reinterpret_cast<float*>(smem + (size_t)stages * kStage);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)stages * kStage +
                                                xset_bytes(BR, split));
-  const DgRing ring{smem, bars, bars + stages, BR * 128, kDgBWBytes, stages};
+  const DgRing ring{smem, bars, bars + stages, kStage - Op::kWBytes, Op::kWBytes, stages};
   const int rank = blockIdx.x % split;
   const int n0 = (blockIdx.x / split) * kDgCols;
   const int m0 = blockIdx.y * BR;
   // This block's K chunks: the rank-th of `split` contiguous ranges.
-  const int chunks = (a.k + kDgKC / 2 - 1) / (kDgKC / 2);
+  const int chunks = (a.k + Op::kKC - 1) / Op::kKC;
   const int per = (chunks + split - 1) / split;
   const int c_lo = min(chunks, rank * per), c_hi = min(chunks, c_lo + per);
   const DgChunks ch{c_lo, 1, c_hi - c_lo, 1};
-  dg_init(ring, 1);
+  const DgWeight wt{nullptr, a.k, a.n, 1};
+  const float* x_f32 = kCoded ? a.x : nullptr;
+  const DgRows xrows{x_f32, a.rows, a.k, x_f32 == nullptr ? 1 : 0, x_f32 != nullptr, kLo ? 1 : 0};
+  dg_init(ring, dg_full_count(xrows, wt));
   cg::cluster_group cluster = cg::this_cluster();
 
   if (threadIdx.x >= kDgConsumerThreads) {
     regs_dealloc<kDgProducerRegs>();
-    const DgWeight wt{nullptr, a.k, a.n, 1};
-    const DgRows xrows{nullptr, a.rows, a.k, 1};
-    dg_produce<kDgBW>(ring, &w_map, nullptr, &x_map, wt, xrows, ch, n0, m0, 0, ch.count(),
+    dg_produce<kKind>(ring, &w_map, &xlo_map, &x_map, wt, xrows, ch, n0, m0, 0, ch.count(),
                       threadIdx.x - kDgConsumerThreads);
     if (split > 1) {
       __syncwarp();
@@ -106,7 +142,10 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_bw_kernel(
   float acc[BR / 2];
 #pragma unroll
   for (int i = 0; i < BR / 2; ++i) acc[i] = 0.f;
-  dg_consume<kDgBW, BR>(ring, L, 0, ch.count(), acc);
+  if constexpr (kTF)
+    dg_consume_tf<BR, kLo>(ring, L, 0, ch.count(), acc);
+  else
+    dg_consume<kDgBW, BR>(ring, L, 0, ch.count(), acc);
   if (split > 1) {
     // The K split's sum: each block's sums pushed to their owner, added
     // there in rank order from 0.
@@ -117,48 +156,156 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_bw_kernel(
     for (int i = 0; i < BR / 2; ++i) acc[i] = 0.f;
     add_round<BR>(acc, part, 0, L.tid, rank, split, blocks, 1, 0, split);
   }
-  // Entry i: row 8 (i / 4) + 2 (lane % 4) + i % 2, column bw_column(i), in
-  // the column blocks this block owns.
+  // Entry i: row 8 (i / 4) + 2 (lane % 4) + i % 2, column bw_column(i) (bf16
+  // weight) or column(i) (split TF32), in the column blocks this block owns.
 #pragma unroll
   for (int i = 0; i < BR / 2; ++i) {
     if (!xowns<BR>(i / 4, L.tid, rank, split)) continue;
-    const int row = m0 + L.row(i), col = n0 + L.bw_column(i);
+    const int row = m0 + L.row(i), col = n0 + (kTF ? L.column(i) : L.bw_column(i));
     if (row >= a.rows || col >= a.n) continue;
-    const float v = __fadd_rn(acc[i], to_f32(a.bias[col]));
-    a.out[(size_t)row * a.n + col] = __float2bfloat16(kUp ? activate(v, a.act) : v);
+    const float b = kCoded && a.bias_f32 ? static_cast<const float*>(a.bias)[col]
+                                         : to_f32(static_cast<const bf16*>(a.bias)[col]);
+    float v = __fadd_rn(acc[i], b);
+    if (kUp) v = activate(v, a.act);
+    const size_t o = (size_t)row * a.n + col;
+    if (kCoded && a.out_lo != nullptr)
+      tf_split_store(v, static_cast<float*>(a.out), a.out_lo, o);
+    else if (kCoded && a.out_f32)
+      static_cast<float*>(a.out)[o] = v;
+    else
+      static_cast<bf16*>(a.out)[o] = __float2bfloat16(v);
   }
 }
 
-// The two launches of the bf16 layout at a row tile of BR rows on the
-// host's plan.
+// The split-TF32 parts of n values of dtype code xbf (1 bf16, 0 f32): hi
+// and, where lo is not null, lo (the f32 form's GEMM1 rows).
+__global__ void __launch_bounds__(kBlock) tf32_split_kernel(const void* __restrict__ x, int xbf,
+                                                            float* __restrict__ hi,
+                                                            float* __restrict__ lo, size_t n) {
+  for (size_t i = (size_t)blockIdx.x * kBlock + threadIdx.x; i < n; i += (size_t)gridDim.x * kBlock)
+    tf_split_store(xbf ? __bfloat162float(static_cast<const bf16*>(x)[i])
+                       : static_cast<const float*>(x)[i],
+                   hi, lo, i);
+}
+
+// The float FFN's operands: x (S, D), W1 (D, I), b1, W2 (I, D), b2 and out
+// (S, D), each tensor's dtype code (1 bf16, 0 f32), and its scratch.
+struct FloatFfn {
+  const void *x, *w1, *b1, *w2, *b2;
+  void *out, *scratch;
+  int rows, d_model, inter, act;
+  int xbf, w1bf, b1bf, w2bf, b2bf, obf;
+};
+
+// The float FFN's scratch, carved from one buffer at 256-byte boundaries:
+// the hidden (S, I) in W2's dtype (for an f32 W2: its TF32 hi parts, then
+// its lo parts), and for an f32 W1 the rows' hi parts (S, D) and, unless x
+// is bf16, their lo parts.
+struct FloatScratch {
+  void* hidden;
+  float *hidden_lo, *x_hi, *x_lo;
+  size_t bytes;
+  FloatScratch(void* base, const FloatFfn& f) {
+    unsigned char* p = static_cast<unsigned char*>(base);
+    size_t off = 0;
+    auto take = [&](size_t n) {
+      unsigned char* q = n == 0 || p == nullptr ? nullptr : p + off;
+      off += (n + 255) / 256 * 256;
+      return q;
+    };
+    const size_t si = (size_t)f.rows * f.inter, sd = (size_t)f.rows * f.d_model;
+    hidden = take(si * (f.w2bf ? 2 : 4));
+    hidden_lo = reinterpret_cast<float*>(take(f.w2bf ? 0 : si * 4));
+    x_hi = reinterpret_cast<float*>(take(f.w1bf ? 0 : sd * 4));
+    x_lo = reinterpret_cast<float*>(take(f.w1bf || f.xbf ? 0 : sd * 4));
+    bytes = off;
+  }
+};
+
+// One product of the float FFN at a row tile of BR rows: rows `x` (S x k;
+// dtype code xbf) against the weight w (k, n) of dtype code wbf, bias and
+// out of codes bbf and obf, on the host's split and stages. For an f32
+// weight, x is the rows' TF32 hi parts and x_lo their lo parts (null: none,
+// the rows were bf16); out_lo, where not null, takes the output's lo parts.
+template <int BR, bool kUp>
+int ffn_float_gemm(const void* x, const float* x_lo, int xbf, const void* w, int wbf,
+                   const void* bias, int bbf, void* out, float* out_lo, int obf, int rows, int k,
+                   int n, int act, int split, int stages, cudaStream_t s) {
+  CUtensorMap xm, xlm, wm;
+  memset(&xm, 0, sizeof(xm));
+  memset(&xlm, 0, sizeof(xlm));
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  // Rows by TMA, but f32 rows of a bf16 weight (the producer rounds them).
+  const bool x_tma = !wbf || xbf;
+  int err = 0;
+  if (!wbf) {
+    err = dg_map_2d(&xm, x, f32, 4, k, rows, 32, BR);
+    if (err == 0 && x_lo != nullptr) err = dg_map_2d(&xlm, x_lo, f32, 4, k, rows, 32, BR);
+  } else if (xbf) {
+    err = dg_map_2d(&xm, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k, rows, 64, BR);
+  }
+  if (err == 0)
+    err = wbf ? dg_map_2d(&wm, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n, k, 64, kDgKC / 2)
+              : dg_map_2d(&wm, w, f32, 4, n, k, 32, kDgTFKC);
+  if (err != 0) return err;
+  const BwArgs args{bias, out, rows, k, n, act, split, stages, !bbf, !obf,
+                    x_tma ? nullptr : static_cast<const float*>(x), out_lo};
+  const dim3 grid(((n + kDgCols - 1) / kDgCols) * split, (rows + BR - 1) / BR);
+  const size_t extra = xset_bytes(BR, split);
+  if (wbf) {
+    const size_t smem = dg_smem_bytes(BR, stages, bw_stage_bytes<BR, kDgBW, false>(), 1, extra);
+    if (xbf && bbf && obf && out_lo == nullptr)   // the bf16 layout
+      return dg_launch(ffn_bw_kernel<BR, kUp, kDgBW, false, false>, grid, dim3(kThreads), split,
+                       smem, s, xm, xlm, wm, args);
+    return dg_launch(ffn_bw_kernel<BR, kUp, kDgBW, false, true>, grid, dim3(kThreads), split,
+                     smem, s, xm, xlm, wm, args);
+  }
+  if constexpr (kUp) {   // GEMM2's rows, the f32 hidden, always have lo parts
+    if (x_lo == nullptr)
+      return dg_launch(ffn_bw_kernel<BR, kUp, kDgTF, false, true>, grid, dim3(kThreads), split,
+                       dg_smem_bytes(BR, stages, bw_stage_bytes<BR, kDgTF, false>(), 1, extra),
+                       s, xm, xlm, wm, args);
+  }
+  return dg_launch(ffn_bw_kernel<BR, kUp, kDgTF, true, true>, grid, dim3(kThreads), split,
+                   dg_smem_bytes(BR, stages, bw_stage_bytes<BR, kDgTF, true>(), 1, extra), s, xm,
+                   xlm, wm, args);
+}
+
+// The launches of a float FFN at a row tile of BR rows on the host's plan:
+// for an f32 W1 the rows' split, then GEMM1, which writes the hidden in
+// W2's dtype (split for an f32 W2), and GEMM2, which reads it.
 template <int BR>
-int ffn_bw_run(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-               void* out, void* hidden, int rows, int d_model, int inter, int act, int split_up,
-               int split_down, int st_up, int st_down, cudaStream_t s) {
-  const CUtensorMapDataType b16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  CUtensorMap xm, w1m, hm, w2m;
-  int err = dg_map_2d(&xm, x, b16, 2, d_model, rows, 64, BR);
-  if (err == 0) err = dg_map_2d(&w1m, w1, b16, 2, inter, d_model, 64, kDgKC / 2);
-  if (err == 0) err = dg_map_2d(&hm, hidden, b16, 2, inter, rows, 64, BR);
-  if (err == 0) err = dg_map_2d(&w2m, w2, b16, 2, d_model, inter, 64, kDgKC / 2);
-  if (err != 0) return err;
-  const int row_tiles = (rows + BR - 1) / BR;
-  const BwArgs up{static_cast<const bf16*>(b1), static_cast<bf16*>(hidden), rows, d_model,
-                  inter, act, split_up, st_up};
-  err = dg_launch(ffn_bw_kernel<BR, true>,
-                  dim3(((inter + kDgCols - 1) / kDgCols) * split_up, row_tiles), dim3(kThreads),
-                  split_up,
-                  dg_smem_bytes(BR, st_up, bw_stage_bytes(BR), 1, xset_bytes(BR, split_up)), s,
-                  xm, w1m, up);
-  if (err != 0) return err;
-  const BwArgs down{static_cast<const bf16*>(b2), static_cast<bf16*>(out), rows, inter, d_model,
-                    act, split_down, st_down};
-  err = dg_launch(ffn_bw_kernel<BR, false>,
-                  dim3(((d_model + kDgCols - 1) / kDgCols) * split_down, row_tiles),
-                  dim3(kThreads), split_down,
-                  dg_smem_bytes(BR, st_down, bw_stage_bytes(BR), 1, xset_bytes(BR, split_down)),
-                  s, hm, w2m, down);
+int ffn_float_run(const FloatFfn& f, int split_up, int split_down, int st_up, int st_down,
+                  cudaStream_t s) {
+  const FloatScratch sc(f.scratch, f);
+  const void* x = f.x;
+  if (!f.w1bf) {
+    const size_t n = (size_t)f.rows * f.d_model;
+    tf32_split_kernel<<<(unsigned)std::min<size_t>((n + kBlock - 1) / kBlock, 1024), kBlock, 0,
+                        s>>>(f.x, f.xbf, sc.x_hi, sc.x_lo, n);
+    x = sc.x_hi;
+  }
+  int err = ffn_float_gemm<BR, true>(x, sc.x_lo, f.xbf, f.w1, f.w1bf, f.b1, f.b1bf, sc.hidden,
+                                     sc.hidden_lo, f.w2bf, f.rows, f.d_model, f.inter, f.act,
+                                     split_up, st_up, s);
+  if (err == 0)
+    err = ffn_float_gemm<BR, false>(sc.hidden, sc.hidden_lo, f.w2bf, f.w2, f.w2bf, f.b2, f.b2bf,
+                                    f.out, nullptr, f.obf, f.rows, f.inter, f.d_model, f.act,
+                                    split_down, st_down, s);
   return err != 0 ? err : static_cast<int>(cudaGetLastError());
+}
+
+int ffn_float_dispatch(const FloatFfn& f, int row_tile, int split_up, int split_down, int st_up,
+                       int st_down, void* stream) {
+  const int align = f.w1bf && f.w2bf ? 16 : 4;
+  if (f.rows <= 0 || f.d_model <= 0 || f.inter <= 0 || f.d_model % align != 0 ||
+      f.inter % align != 0 || split_up < 1 || split_up > 8 || split_down < 1 ||
+      split_down > 8 || st_up < 1 || st_down < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (row_tile == 16) return ffn_float_run<16>(f, split_up, split_down, st_up, st_down, s);
+  if (row_tile == 64) return ffn_float_run<64>(f, split_up, split_down, st_up, st_down, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -174,18 +321,8 @@ extern "C" int apertis_ffn_decode(const void* x, const void* w1, const void* b1,
                                   const void* b2, void* out, void* hidden, int rows, int d_model,
                                   int inter, int act, int row_tile, int split_up, int split_down,
                                   int st_up, int st_down, void* stream) {
-  if (rows <= 0 || d_model <= 0 || inter <= 0 || d_model % 16 != 0 || inter % 16 != 0 ||
-      split_up < 1 || split_up > 8 || split_down < 1 || split_down > 8 || st_up < 1 ||
-      st_down < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (row_tile == 16)
-    return ffn_bw_run<16>(x, w1, b1, w2, b2, out, hidden, rows, d_model, inter, act, split_up,
-                          split_down, st_up, st_down, s);
-  if (row_tile == 64)
-    return ffn_bw_run<64>(x, w1, b1, w2, b2, out, hidden, rows, d_model, inter, act, split_up,
-                          split_down, st_up, st_down, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const FloatFfn f{x, w1, b1, w2, b2, out, hidden, rows, d_model, inter, act, 1, 1, 1, 1, 1, 1};
+  return ffn_float_dispatch(f, row_tile, split_up, split_down, st_up, st_down, stream);
 }
 
 // ---- int8 and int4 layouts ----------------------------------------------------
@@ -230,7 +367,7 @@ int ffn_quant_run(const void* xq, const void* xs, const void* w1, const void* w1
                   const void* w1s, const void* b1, const void* w2, const void* w2sh,
                   const void* w2s, const void* b2, void* out, void* hq, void* hs, int rows,
                   int d_model, int inter, int bn, int act, int split, int st_up, int st_down,
-                  cudaStream_t s) {
+                  cudaStream_t s, int b1_f32, int b2_f32, int out_f32) {
   const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   CUtensorMap xm, w1m, s1m, hqm, w2m, s2m;
   memset(&s1m, 0, sizeof(s1m));   // unused by the int8 layout
@@ -260,6 +397,7 @@ int ffn_quant_run(const void* xq, const void* xs, const void* w1, const void* w1
   up.act = act;
   up.stages = st_up;
   up.cs = bn / kDgCols;
+  up.b1_f32 = b1_f32;
   err = dg_launch(ffn_up_kernel<kI4, BR, false>, dim3(inter / kDgCols, row_tiles),
                   dim3(kThreads), bn / kDgCols,
                   dg_smem_bytes(BR, st_up, stage, 1, ffn_up_extra(BR)), s, xm, w1m, s1m, up);
@@ -279,10 +417,23 @@ int ffn_quant_run(const void* xq, const void* xs, const void* w1, const void* w1
   down.group = 1;
   down.tile_experts = 1;
   down.experts = 0;
-  err = dg_launch(ffn_down_kernel<kI4, BR, kDownFfn>,
-                  dim3(((d_model + kDgCols - 1) / kDgCols) * split, row_tiles), dim3(kThreads),
-                  split, dg_smem_bytes(BR, st_down, stage, 1, ffn_down_extra(BR, split, 1, 0)),
-                  s, hqm, w2m, s2m, down);
+  down.b2_f32 = b2_f32;
+  down.out_f32 = out_f32;
+  const dim3 grid(((d_model + kDgCols - 1) / kDgCols) * split, row_tiles);
+  const size_t smem = dg_smem_bytes(BR, st_down, stage, 1, ffn_down_extra(BR, split, 1, 0));
+  // The int8 layout's bf16 b2 and output fixed at compile time; the f32
+  // form's read by code.
+  if constexpr (!kI4) {
+    if (b2_f32 || out_f32)
+      err = dg_launch(ffn_down_kernel<false, BR, kDownFfnF32>, grid, dim3(kThreads), split, smem,
+                      s, hqm, w2m, s2m, down);
+    else
+      err = dg_launch(ffn_down_kernel<false, BR, kDownFfn>, grid, dim3(kThreads), split, smem,
+                      s, hqm, w2m, s2m, down);
+  } else {
+    err = dg_launch(ffn_down_kernel<true, BR, kDownFfn>, grid, dim3(kThreads), split, smem, s,
+                    hqm, w2m, s2m, down);
+  }
   return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }
 
@@ -291,7 +442,8 @@ int ffn_quant_dispatch(const void* xq, const void* xs, const void* w1, const voi
                        const void* w1s, const void* b1, const void* w2, const void* w2sh,
                        const void* w2s, const void* b2, void* out, void* hq, void* hs, int rows,
                        int d_model, int inter, int bn, int act, int row_tile, int split,
-                       int st_up, int st_down, void* stream) {
+                       int st_up, int st_down, void* stream, int b1_f32 = 0, int b2_f32 = 0,
+                       int out_f32 = 0) {
   if (rows <= 0 || d_model <= 0 || d_model % (kI4 ? kDgKC : 16) != 0 || bn <= 0 ||
       bn % kDgKC != 0 || bn > 16 * kDgKC || inter % bn != 0 || split < 1 || split > 8 ||
       split > inter / bn || st_up < 1 || st_down < 1)
@@ -299,10 +451,12 @@ int ffn_quant_dispatch(const void* xq, const void* xs, const void* w1, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (row_tile == 16)
     return ffn_quant_run<kI4, 16>(xq, xs, w1, w1sh, w1s, b1, w2, w2sh, w2s, b2, out, hq, hs,
-                                  rows, d_model, inter, bn, act, split, st_up, st_down, s);
+                                  rows, d_model, inter, bn, act, split, st_up, st_down, s,
+                                  b1_f32, b2_f32, out_f32);
   if (row_tile == 64)
     return ffn_quant_run<kI4, 64>(xq, xs, w1, w1sh, w1s, b1, w2, w2sh, w2s, b2, out, hq, hs,
-                                  rows, d_model, inter, bn, act, split, st_up, st_down, s);
+                                  rows, d_model, inter, bn, act, split, st_up, st_down, s,
+                                  b1_f32, b2_f32, out_f32);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -343,7 +497,8 @@ extern "C" int apertis_ffn_decode_int4(const void* xq, const void* xs, const voi
 }
 
 // The resources of one kernel of the FFN (kernel: 0 up int8, 1 down int8,
-// 2 up int4, 3 down int4, 4 up bf16, 5 down bf16) at a row tile of
+// 2 up int4, 3 down int4, 4 up bf16, 5 down bf16; the f32 form's split-TF32
+// products: 6 up on f32 rows, 7 up on bf16 rows, 8 down) at a row tile of
 // `row_tile` rows and `smem` bytes of dynamic shared memory
 // (hopper.cuh::kernel_resources): registers a thread, shared memory a block,
 // resident blocks an SM, threads a block and spilled bytes a thread, into
@@ -362,119 +517,76 @@ extern "C" int apertis_ffn_quant_resources(int kernel, int row_tile, int smem, i
     case 3: return kernel_resources(r16 ? &ffn_down_kernel<true, 16, kDownFfn>
                                         : &ffn_down_kernel<true, 64, kDownFfn>,
                                     kThreads, smem, out);
-    case 4: return kernel_resources(r16 ? &ffn_bw_kernel<16, true> : &ffn_bw_kernel<64, true>,
+    case 4: return kernel_resources(r16 ? &ffn_bw_kernel<16, true, kDgBW, false, false>
+                                        : &ffn_bw_kernel<64, true, kDgBW, false, false>,
                                     kThreads, smem, out);
-    case 5: return kernel_resources(r16 ? &ffn_bw_kernel<16, false> : &ffn_bw_kernel<64, false>,
+    case 5: return kernel_resources(r16 ? &ffn_bw_kernel<16, false, kDgBW, false, false>
+                                        : &ffn_bw_kernel<64, false, kDgBW, false, false>,
+                                    kThreads, smem, out);
+    case 6: return kernel_resources(r16 ? &ffn_bw_kernel<16, true, kDgTF, true, true>
+                                        : &ffn_bw_kernel<64, true, kDgTF, true, true>,
+                                    kThreads, smem, out);
+    case 7: return kernel_resources(r16 ? &ffn_bw_kernel<16, true, kDgTF, false, true>
+                                        : &ffn_bw_kernel<64, true, kDgTF, false, true>,
+                                    kThreads, smem, out);
+    case 8: return kernel_resources(r16 ? &ffn_bw_kernel<16, false, kDgTF, true, true>
+                                        : &ffn_bw_kernel<64, false, kDgTF, true, true>,
                                     kThreads, smem, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 
-// ---- the f32 forms (SIMT) -----------------------------------------------------
+// ---- the f32 forms ---------------------------------------------------------
 
-namespace {
-
-// The int8 form's hidden requantization, one (row, tile) a block of kBlock
-// threads: hs = max(absmax, 1e-8) * (1/127), hq = rint(h / hs) over the
-// tile's bn columns (ffn_fused.py:93-96). Shared memory: bn floats.
-__global__ void __launch_bounds__(kBlock) f32_tile_quant_kernel(
-    const float* __restrict__ h, int8_t* __restrict__ hq, float* __restrict__ hs, int inter,
-    int bn) {
-  extern __shared__ float v[];
-  __shared__ float red[kWarps];
-  const int tiles = inter / bn;
-  const size_t row = blockIdx.x / tiles;
-  const int t = blockIdx.x % tiles;
-  const size_t base = row * inter + (size_t)t * bn;
-  for (int k = threadIdx.x; k < bn; k += kBlock) v[k] = h[base + k];
-  __syncthreads();
-  simt_quant_row(v, bn, red, kWarps, hq + base, hs + row * tiles + t, true);
-}
-
-// GEMM2 of the int8 form: out[r, n] = (sum over the hidden tiles t, in order,
-// of f32(int32 sum_{k in t} hq[r, k] * W2_q[k, n]) * hs[r, t]) * w2_s[n] +
-// b2[n], one row a block of 32 columns and kSimtSlices slices of the tile.
-__global__ void __launch_bounds__(kSimtThreads) f32_tile_gemm_kernel(
-    const int8_t* __restrict__ hq, const float* __restrict__ hs, const int8_t* __restrict__ w2q,
-    const float* __restrict__ w2s, const void* __restrict__ b2, int bbf,
-    void* __restrict__ out, int obf, int d_model, int inter, int bn) {
-  __shared__ int part[kSimtSlices][32];
-  const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
-  const int n = blockIdx.x * 32 + lane;
-  const size_t row = blockIdx.y;
-  const bool col = n < d_model;
-  const int tiles = inter / bn;
-  float acc = 0.f;
-  for (int t = 0; t < tiles; ++t) {
-    int sum = 0;
-    if (col)
-      for (int k = t * bn + slice; k < (t + 1) * bn; k += kSimtSlices)
-        sum += (int)hq[row * inter + k] * (int)w2q[(size_t)k * d_model + n];
-    part[slice][lane] = sum;
-    __syncthreads();
-    if (slice == 0) {
-      int total = 0;
-      for (int s = 0; s < kSimtSlices; ++s) total += part[s][lane];
-      acc = __fadd_rn(acc, __fmul_rn((float)total, hs[row * tiles + t]));
-    }
-    __syncthreads();
-  }
-  if (slice == 0 && col)
-    stv(out, row * d_model + n, __fadd_rn(__fmul_rn(acc, w2s[n]), ldv(b2, n, bbf)), obf);
-}
-
-}  // namespace
-
-// The float FFN for S rows, SIMT: x (S, D) of dtype code xbf (1 bf16, 0 f32),
-// W1 (D, I) and W2 (I, D) of codes w1bf and w2bf, b1 and b2 of codes b1bf
-// and b2bf, out (S, D) of code obf; hidden (S, I) is scratch of W2's dtype.
-// hidden = act(x' @ W1 + b1) rounded to W2's dtype (x' is x rounded to W1's),
-// out = hidden @ W2 + b2. act: 1 relu, 2 silu, else exact GELU. Returns
-// cudaGetLastError().
+// The float FFN for S rows with the dtype codes (1 bf16, 0 f32) of x (S, D),
+// W1 (D, I), b1, W2 (I, D), b2 and out (S, D): hidden = act(x' @ W1 + b1)
+// rounded to W2's dtype (x' is x rounded to W1's), out = hidden @ W2 + b2.
+// Each product runs on the tensor cores: a bf16 weight as the bf16 layout's
+// (f32 rows rounded to bf16 by the producer), an f32 weight in split TF32
+// (the rows split into TF32 parts first). `scratch` holds
+// apertis_ffn_f32_scratch bytes. D and I multiples of 4 (16 where both
+// weights are bf16), every tensor 16-byte aligned. act: 1
+// relu, 2 silu, else exact GELU. row_tile (16 or 64), the two products'
+// splits and stages are the plan of ops/kernels/decode_plan.py::
+// f32_ffn_plan. Returns cudaGetLastError(), or cudaErrorInvalidResourceHandle
+// if a tensor map cannot be made.
 extern "C" int apertis_ffn_decode_f32(const void* x, const void* w1, const void* b1,
-                                      const void* w2, const void* b2, void* out, void* hidden,
+                                      const void* w2, const void* b2, void* out, void* scratch,
                                       int rows, int d_model, int inter, int act, int xbf,
                                       int w1bf, int b1bf, int w2bf, int b2bf, int obf,
-                                      void* stream) {
-  if (rows <= 0 || d_model <= 0 || inter <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = simt_rowmat<false>(x, xbf, nullptr, d_model, w1, w1bf, nullptr, inter, rows,
-                                       d_model, inter, b1, b1bf, act, nullptr, 0, 0, hidden,
-                                       w2bf, inter, nullptr, 0, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(simt_rowmat<false>(hidden, w2bf, nullptr, inter, w2, w2bf, nullptr,
-                                             d_model, rows, inter, d_model, b2, b2bf, -1,
-                                             nullptr, 0, 0, out, obf, d_model, nullptr, 0, st));
+                                      int row_tile, int split_up, int split_down, int st_up,
+                                      int st_down, void* stream) {
+  const FloatFfn f{x, w1, b1, w2, b2, out, scratch, rows, d_model, inter, act,
+                   xbf, w1bf, b1bf, w2bf, b2bf, obf};
+  return ffn_float_dispatch(f, row_tile, split_up, split_down, st_up, st_down, stream);
 }
 
-// The int8 FFN for S rows, SIMT, with biases and output of either dtype:
-// x_q (S, D) int8 with x_s (S, 1) f32, W1_q (D, I) with w1_s (1, I), W2_q
-// (I, D) with w2_s (1, D), b1 and b2 of codes b1bf and b2bf, out of code obf;
-// h (S, I) f32, hq (S, I) int8 and hs (S, I / bn) f32 are scratch. bn divides
-// I. Returns cudaGetLastError().
+// The bytes of apertis_ffn_decode_f32's scratch for S rows, D, I and the
+// dtype codes of x, W1 and W2.
+extern "C" int apertis_ffn_f32_scratch(int rows, int d_model, int inter, int xbf, int w1bf,
+                                       int w2bf) {
+  FloatFfn f = {};
+  f.rows = rows;
+  f.d_model = d_model;
+  f.inter = inter;
+  f.xbf = xbf;
+  f.w1bf = w1bf;
+  f.w2bf = w2bf;
+  return static_cast<int>(FloatScratch(nullptr, f).bytes);
+}
+
+// The int8 FFN with biases and output of either dtype (codes b1bf, b2bf and
+// obf: 1 bf16, 0 f32), as an int8 tree quantized from an f32 one holds
+// them: apertis_ffn_decode_int8's arguments and plan otherwise, its two
+// Hopper launches.
 extern "C" int apertis_ffn_decode_int8_f32(const void* xq, const void* xs, const void* w1q,
                                            const void* w1s, const void* b1, const void* w2q,
-                                           const void* w2s, const void* b2, void* out, void* h,
-                                           void* hq, void* hs, int rows, int d_model, int inter,
-                                           int bn, int act, int b1bf, int b2bf, int obf,
-                                           void* stream) {
-  if (rows <= 0 || d_model <= 0 || bn <= 0 || inter % bn)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = simt_rowmat<true>(xq, 0, static_cast<const float*>(xs), d_model, w1q, 0,
-                                      static_cast<const float*>(w1s), inter, rows, d_model,
-                                      inter, b1, b1bf, act, nullptr, 0, 0, h, 0, inter, nullptr,
-                                      0, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if ((err = allow_smem(f32_tile_quant_kernel, (size_t)bn * sizeof(float))) != cudaSuccess)
-    return static_cast<int>(err);
-  f32_tile_quant_kernel<<<rows * (inter / bn), kBlock, (size_t)bn * sizeof(float), st>>>(
-      static_cast<const float*>(h), static_cast<int8_t*>(hq), static_cast<float*>(hs), inter,
-      bn);
-  f32_tile_gemm_kernel<<<dim3((d_model + 31) / 32, rows), kSimtThreads, 0, st>>>(
-      static_cast<const int8_t*>(hq), static_cast<const float*>(hs),
-      static_cast<const int8_t*>(w2q), static_cast<const float*>(w2s), b2, b2bf, out, obf,
-      d_model, inter, bn);
-  return static_cast<int>(cudaGetLastError());
+                                           const void* w2s, const void* b2, void* out, void* hq,
+                                           void* hs, int rows, int d_model, int inter, int bn,
+                                           int act, int b1bf, int b2bf, int obf, int row_tile,
+                                           int split, int st_up, int st_down, void* stream) {
+  return ffn_quant_dispatch<false>(xq, xs, w1q, nullptr, w1s, b1, w2q, nullptr, w2s, b2, out,
+                                   hq, hs, rows, d_model, inter, bn, act, row_tile, split, st_up,
+                                   st_down, stream, !b1bf, !b2bf, !obf);
 }

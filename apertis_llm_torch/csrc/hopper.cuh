@@ -616,8 +616,9 @@ __host__ __device__ constexpr int tf32_slot(int k) { return (k & 1) * 4 + (k >> 
 
 // wgmma m64nNk8 with TF32 operands and f32 accumulators (no transpose
 // flags: both operands K-major), one asm statement for each form and N the
-// f32 flash kernels use: `ss` reads A and B from shared memory (N = 8 to
-// 128); `rs` takes A from registers (N = 32, 64). `acc` = 0 overwrites D.
+// f32 flash kernels and decode_gemm.cuh's split-TF32 products use: `ss`
+// reads A and B from shared memory (N = 8 to 128); `rs` takes A from
+// registers (N = 16, 32, 64). `acc` = 0 overwrites D.
 template <int N>
 struct WgmmaTf32;
 
@@ -647,6 +648,18 @@ struct WgmmaTf32<16> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
         : "l"(a), "l"(b), "r"(acc));
+  }  // D (64 x 16, f32) (+)= A B^T, A from registers (a TF32 fragment), B
+  // K-major TF32 in shared memory (decode_gemm.cuh's split-TF32 weights).
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 

@@ -113,7 +113,7 @@ constexpr size_t ffn_up_extra(int br) {
 struct UpArgs {
   const float* xs;     // (S, 1)
   const float* w1s;    // (1, Z)
-  const void* b1;      // (Z,): bf16 (FFN) or f32 (MoE)
+  const void* b1;      // (Z,): bf16 or f32 (FFN, b1_f32), f32 (MoE)
   int8_t* hq;          // (S, N), the cluster form
   float* hs;           // (S, N / bn), the cluster form
   const float* comb;   // fat MoE: (S, E); null for #11
@@ -123,6 +123,7 @@ struct UpArgs {
   int cs;              // blocks of a hidden tile, one cluster; 0: the wide form
   int inter, experts;  // fat MoE: I (N = E * I) and E; #12: E
   const int* emap;     // kGrouped: (S / kGroupTile,) tile -> expert, -1: none
+  int b1_f32;          // FFN: b1 is f32 (the f32 form's tree), else bf16
 };
 
 // Rows of one expert tile of the grouped MoE FFN's layout
@@ -207,7 +208,7 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       ws[e] = a.w1s[goff + c0 + e];
-      if constexpr (kMoe)
+      if (kMoe || a.b1_f32)
         bb[e] = static_cast<const float*>(a.b1)[goff + c0 + e];
       else
         bb[e] = to_f32(static_cast<const bf16*>(a.b1)[goff + c0 + e]);
@@ -350,24 +351,26 @@ inline dim3 fat_quant_grid(int tiles, int rows) {
 }
 
 // GEMM2's form (its template's kMode): the FFN's (out = bf16(acc * w2_s +
-// b2)), the MoE layer's (c_t with the combine weight, out = acc * w2_s in
-// f32) or #8's (c_t = s_t, K not a multiple of bn, out = x.dtype(acc *
-// w_s) then + b in that type, b possibly null, bf16 or f32).
-enum DownMode { kDownFfn = 0, kDownMoe = 1, kDownBlock = 2 };
+// b2), b2 bf16), the MoE layer's (c_t with the combine weight, out = acc *
+// w2_s in f32), #8's (c_t = s_t, K not a multiple of bn, out = x.dtype(acc
+// * w_s) then + b in that type, b possibly null, bf16 or f32) or the FFN's
+// f32 form's (b2 and out each bf16 or f32, by DownArgs' codes).
+enum DownMode { kDownFfn = 0, kDownMoe = 1, kDownBlock = 2, kDownFfnF32 = 3 };
 
 // GEMM2's arguments beside its tensor maps.
 struct DownArgs {
   const float* hs;     // (S, tiles)
   const float* w2s;    // (1, N)
-  const void* b2;      // (N,): bf16 (FFN, #8 bf16), f32 (#8 f32), or null (#8)
-  void* out;           // (S, N): bf16 (FFN) or f32 (MoE)
+  const void* b2;      // (N,): bf16 or f32 (FFN, b2_f32; #8: out_f32), or null (#8)
+  void* out;           // (S, N): bf16 or f32 (FFN, out_f32), f32 (MoE)
   const float* comb;   // MoE: (S, E)
   int rows, n, k, bn, split, stages;
   int per;             // K chunks a hidden tile in hq: its tiles' stride over 128
   int group;           // consecutive tiles a block takes in a round, 1 to kMaxGroup
   int tile_experts;    // MoE: tiles an expert
   int experts;         // MoE: E
-  int out_f32;         // #8: f32 x and out, else bf16
+  int out_f32;         // kDownFfnF32: f32 out; #8: f32 x and out; else bf16
+  int b2_f32;          // kDownFfnF32: f32 b2, else bf16
 };
 
 // The most tiles a block takes in one round of ffn_down_kernel.
@@ -545,7 +548,7 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
       cluster_arrive();   // read: the next round may overwrite them
     }
   }
-  // FFN: out = bf16(acc * w2_s + b2); MoE: out = acc * w2_s (f32); #8:
+  // FFN: out = out_dtype(acc * w2_s + b2); MoE: out = acc * w2_s (f32); #8:
   // x.dtype(acc * w_s) (+ b); for columns c0, c0 + 1 (N is even).
   const int c0 = n0 + L.col;
   if (c0 >= a.n) return;
@@ -554,6 +557,14 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
   if constexpr (kMode == kDownFfn) {
     b0 = to_f32(static_cast<const bf16*>(a.b2)[c0]);
     b1v = to_f32(static_cast<const bf16*>(a.b2)[c0 + 1]);
+  } else if constexpr (kMode == kDownFfnF32) {
+    if (a.b2_f32) {
+      b0 = static_cast<const float*>(a.b2)[c0];
+      b1v = static_cast<const float*>(a.b2)[c0 + 1];
+    } else {
+      b0 = to_f32(static_cast<const bf16*>(a.b2)[c0]);
+      b1v = to_f32(static_cast<const bf16*>(a.b2)[c0 + 1]);
+    }
   } else if constexpr (kMode == kDownBlock) {
     if (a.b2 != nullptr && a.out_f32) {
       b0 = static_cast<const float*>(a.b2)[c0];
@@ -574,9 +585,12 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
       const float y0 = __fmul_rn(sum[4 * j + e], ws0), y1 = __fmul_rn(sum[4 * j + e + 2], ws1);
       if constexpr (kMode == kDownMoe) {
         *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) = make_float2(y0, y1);
-      } else if constexpr (kMode == kDownFfn) {
+      } else if (kMode == kDownFfn || (kMode == kDownFfnF32 && !a.out_f32)) {
         *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + o) = __halves2bfloat162(
             __float2bfloat16(__fadd_rn(y0, b0)), __float2bfloat16(__fadd_rn(y1, b1v)));
+      } else if (kMode == kDownFfnF32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) =
+            make_float2(__fadd_rn(y0, b0), __fadd_rn(y1, b1v));
       } else if (a.out_f32) {
         *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) =
             a.b2 != nullptr ? make_float2(__fadd_rn(y0, b0), __fadd_rn(y1, b1v))

@@ -79,11 +79,21 @@
 // the trees the two layouts above do not take: f32 weights, or int8 weights
 // beside f32 (or mixed f32 and bf16) rows, norms, conv and dt weights. The
 // TPU kernel is dtype-generic (ssm_step.py:78, 119, 133, 154, 176: each dot
-// in its weight's dtype, xp in the cache's); this form follows it with the
-// SIMT products of simt.cuh in the same seven stages as above, each float
-// operand read through its dtype code. Its roundings are the kernel's: xp to
-// the cache's dtype, each dot's input to its weight's dtype, dt to dt_proj's,
-// and the FFN pre-norm through bf16 even in f32 (ssm_step.py:186).
+// in its weight's dtype, xp in the cache's); this form follows it in the same
+// seven stages: f32 row kernels (one block a row, each float operand read
+// through its dtype code; with int8 projections they write the int8 levels
+// and scales too) and the three products of ssm_gemm_kernel, whose
+// epilogues write xp in the cache's dtype, h_out in h's and dt in f32:
+// int8 projections as the int8 layout's (its plan, exact int32 sums), f32
+// ones in split TF32 on the tensor cores (decode_gemm.cuh's kDgTF, the f32
+// rows split by the producer; f32_step_plan), bf16 ones as the bf16
+// layout's (the f32 rows rounded to bf16 by the producer). Its roundings
+// are the kernel's: xp to the cache's dtype, each dot's input to its
+// weight's dtype, dt to dt_proj's, and the FFN pre-norm through bf16 even
+// in f32 (ssm_step.py:186). Bound: bytes, as the layouts above: the f32
+// projections are 21.1 MB a layer of the 1.5B model (0.0063 ms at 3.35
+// TB/s), and their three TF32 products at 64 rows (2.0 GFLOP at 495
+// TFLOP/s, 0.0041 ms) stay under that.
 
 #include <string.h>
 
@@ -91,7 +101,6 @@
 
 #include "common.cuh"
 #include "decode_gemm.cuh"
-#include "simt.cuh"
 
 namespace {
 
@@ -429,31 +438,44 @@ struct StepEpilogue {
   const float* x_s;       // int8: (B,) the quantized rows' scales
   const float* ws;        // int8: (1, N) the weight's column scales (in: x's)
   const float* ws_z;      // int8, in: z's
-  bf16* xp;               // in: (B, C)
+  void* xp;               // in: (B, C), bf16 or f32 (xp_f32: the conv cache's dtype)
   float* z;               // in: (B, C)
   float* bc;              // mix: (B, bc_stride(R, C))
-  const bf16* h;          // out: (B, D)
-  bf16* h_out;            // out: (B, D)
+  const void* h;          // out: (B, D), bf16 or f32 (h_f32)
+  void* h_out;            // out: (B, D), h's dtype
   float* hsum;            // out: (B, D), or nullptr
   int batch, n, channels, rank;
+  int xp_f32, h_f32;
+  int dt_keep;            // mix: dt in f32 (the f32 form rounds it to dt_proj's dtype later)
 };
 
-template <int BR, int kMode, int kKind>
+// kKind: kDgI8 (int8 rows and weight), kDgBW (bf16 rows, or f32 rows that
+// the producer rounds, against a bf16 weight) or kDgTF (f32 rows against an
+// f32 weight in split TF32: the f32 form); the float kinds' sums meet in
+// the sliced exchange. kCoded: the f32 form's, whose xp and h dtypes, f32
+// rows and f32 dt are read from `ep` and `rows`; without it (the int8 and
+// bf16 layouts) xp and h are bf16, dt is rounded and the rows are int8 or
+// bf16, fixed at compile time.
+template <int BR, int kMode, int kKind, bool kCoded>
 __global__ void __launch_bounds__(kThreads, 1) ssm_gemm_kernel(
     const __grid_constant__ CUtensorMap x_map,    // the rows (B, K): boxes of BR rows x 128 bytes
+                                                  // (kDgTF: their TF32 hi parts)
+    const __grid_constant__ CUtensorMap xlo_map,  // kDgTF: the rows' lo parts
     const __grid_constant__ CUtensorMap w_map,    // the weight (K, N); in: in_proj x
     const __grid_constant__ CUtensorMap wz_map,   // in: in_proj z
     DgRows rows, DgWeight w, DgWeight wz, StepEpilogue ep, int split, int stages) {
   typedef DgOp<kKind> Op;
+  if constexpr (!kCoded) rows.f32 = 0;
   typedef typename Op::Acc Acc;
-  constexpr bool kBW = kKind == kDgBW;
+  constexpr bool kBW = kKind == kDgBW, kTF = kKind == kDgTF, kFloat = kBW || kTF;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  const uint32_t stage_bytes = BR * 128 + Op::kWBytes;
+  const uint32_t x_bytes = BR * 128 * (kTF ? 2 : 1);   // split TF32: hi and lo tiles
+  const uint32_t stage_bytes = x_bytes + Op::kWBytes;
   Acc* part = reinterpret_cast<Acc*>(smem + (size_t)stages * stage_bytes);
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       smem + (size_t)stages * stage_bytes +
-      (kBW ? xset_bytes(BR, split) : dg_part_bytes(BR, split)));
+      (kFloat ? xset_bytes(BR, split) : dg_part_bytes(BR, split)));
   const int col_tiles = (ep.n + kDgCols - 1) / kDgCols;
   const int ct = blockIdx.x / split, rank = blockIdx.x % split;
   const bool is_z = kMode == kIn && ct >= col_tiles;
@@ -462,14 +484,14 @@ __global__ void __launch_bounds__(kThreads, 1) ssm_gemm_kernel(
   const int nch = (rows.k + Op::kKC - 1) / Op::kKC;
   const int c_lo = rank * nch / split, c_hi = (rank + 1) * nch / split;
   const DgWeight wt{is_z ? wz.w : w.w, w.k, w.n, is_z ? wz.tma : w.tma};
-  const DgRing ring{smem, bars, bars + stages, BR * 128, Op::kWBytes, stages};
+  const DgRing ring{smem, bars, bars + stages, x_bytes, Op::kWBytes, stages};
   dg_init(ring, dg_full_count(rows, wt));
   cg::cluster_group cluster = cg::this_cluster();
 
   if (threadIdx.x >= kDgConsumerThreads) {
     regs_dealloc<kDgProducerRegs>();
     const DgChunks ch{c_lo, 1, c_hi - c_lo, 1};
-    dg_produce<kKind>(ring, is_z ? &wz_map : &w_map, nullptr, &x_map, wt, rows, ch, n0, m0, 0,
+    dg_produce<kKind>(ring, is_z ? &wz_map : &w_map, &xlo_map, &x_map, wt, rows, ch, n0, m0, 0,
                       c_hi - c_lo, threadIdx.x - kDgConsumerThreads);
     if (split > 1) {
       __syncwarp();
@@ -482,10 +504,13 @@ __global__ void __launch_bounds__(kThreads, 1) ssm_gemm_kernel(
   Acc acc[BR / 2];
 #pragma unroll
   for (int i = 0; i < BR / 2; ++i) acc[i] = 0;
-  dg_consume<kKind, BR>(ring, L, 0, c_hi - c_lo, acc);
+  if constexpr (kTF)
+    dg_consume_tf<BR, true>(ring, L, 0, c_hi - c_lo, acc);
+  else
+    dg_consume<kKind, BR>(ring, L, 0, c_hi - c_lo, acc);
   const uint32_t mine = dg_owned_mask(rank, split, BR / 8);
   if (split > 1) {
-    if constexpr (kBW) {
+    if constexpr (kFloat) {
       // The sliced exchange: each block's sums pushed to their owner, added
       // there in rank order from 0.
       const int blocks = min(BR / 8, (ep.batch - m0 + 7) / 8);   // with a row below B
@@ -501,11 +526,11 @@ __global__ void __launch_bounds__(kThreads, 1) ssm_gemm_kernel(
   const float* ws = is_z ? ep.ws_z : ep.ws;
 #pragma unroll
   for (int i = 0; i < BR / 2; ++i) {
-    if (kBW ? !xowns<BR>(i / 4, L.tid, rank, split) : !((mine >> (i / 4)) & 1)) continue;
+    if (kFloat ? !xowns<BR>(i / 4, L.tid, rank, split) : !((mine >> (i / 4)) & 1)) continue;
     const int row = m0 + L.row(i), col = n0 + (kBW ? L.bw_column(i) : L.column(i));
     if (row >= ep.batch || col >= ep.n) continue;
     float v;
-    if constexpr (kBW)
+    if constexpr (kFloat)
       v = acc[i];
     else
       v = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), ep.x_s[row]), ws[col]);
@@ -513,36 +538,44 @@ __global__ void __launch_bounds__(kThreads, 1) ssm_gemm_kernel(
       const size_t o = (size_t)row * ep.channels + col;
       if (is_z)
         ep.z[o] = v;
+      else if (kCoded && ep.xp_f32)
+        static_cast<float*>(ep.xp)[o] = v;
       else
-        ep.xp[o] = __float2bfloat16(v);
+        static_cast<bf16*>(ep.xp)[o] = __float2bfloat16(v);
     } else if constexpr (kMode == kMix) {
       float* dst = ep.bc + (size_t)row * bc_stride(ep.rank, ep.channels);
       if (col < ep.rank)
-        dst[col] = round_bf16(v);
+        dst[col] = kCoded && ep.dt_keep ? v : round_bf16(v);
       else
         dst[col - ep.rank + (ep.rank + 3) / 4 * 4] = v;
     } else {
       const size_t o = (size_t)row * ep.n + col;
-      const float s = to_f32(ep.h[o]) + v;
-      ep.h_out[o] = __float2bfloat16(s);
+      const bool h_f32 = kCoded && ep.h_f32;
+      const float hv = h_f32 ? static_cast<const float*>(ep.h)[o]
+                             : to_f32(static_cast<const bf16*>(ep.h)[o]);
+      const float s = __fadd_rn(hv, v);
+      if (h_f32)
+        static_cast<float*>(ep.h_out)[o] = s;
+      else
+        static_cast<bf16*>(ep.h_out)[o] = __float2bfloat16(s);
       if (ep.hsum != nullptr) ep.hsum[o] = s;
     }
   }
 }
 
-// A tensor map over a row-major (outer, inner) int8 or bf16 matrix in boxes
-// of box rows x 128 bytes (dg_map_2d's cache), or none (*tma 0) for the
-// producer's own loads where the row is not a multiple of 16 bytes or the
-// base not 16-byte aligned.
-int step_map(CUtensorMap* map, const void* base, bool bf16_elems, int outer, int inner, int box,
+// A tensor map over a row-major (outer, inner) matrix of `elem`-byte values
+// (1 int8, 2 bf16, 4 f32) in boxes of box rows x 128 bytes (dg_map_2d's
+// cache), or none (*tma 0) for the producer's own loads where the row is
+// not a multiple of 16 bytes or the base not 16-byte aligned.
+int step_map(CUtensorMap* map, const void* base, int elem, int outer, int inner, int box,
              int* tma) {
   memset(map, 0, sizeof(*map));
-  const int elem = bf16_elems ? 2 : 1;
   *tma = inner * elem % 16 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
   if (!*tma) return 0;
-  return dg_map_2d(map, base,
-                   bf16_elems ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                   elem, inner, outer, 128 / elem, box);
+  const CUtensorMapDataType type = elem == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                               : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return dg_map_2d(map, base, type, elem, inner, outer, 128 / elem, box);
 }
 
 // The step's scratch, carved from one buffer at 256-byte boundaries: the
@@ -575,27 +608,42 @@ struct StepScratch {
 };
 
 // One product at a row tile of BR rows: the rows x (B, K) against the weight
-// w (K, N) (in: and wz), on the plan's split and stages.
-template <int BR, int kMode, int kKind>
+// w (K, N) (in: and wz), on the plan's split and stages. kDgTF: x holds the
+// rows' TF32 hi parts and x_lo their lo parts, both loaded by TMA (K a
+// multiple of 4). `x_f32` (kDgBW): the rows are f32 (the f32 form's), which
+// the producer loads and rounds to bf16.
+template <int BR, int kMode, int kKind, bool kCoded = false>
 int step_gemm(const void* x, int batch, int k, const void* w, const void* wz, int n,
-              StepEpilogue ep, int split, int stages, cudaStream_t s) {
-  constexpr bool kBW = kKind == kDgBW;
+              StepEpilogue ep, int split, int stages, cudaStream_t s, int x_f32 = 0,
+              const void* x_lo = nullptr) {
+  constexpr bool kBW = kKind == kDgBW, kTF = kKind == kDgTF;
   typedef DgOp<kKind> Op;
-  CUtensorMap xm, wm, wzm;
-  int tx = 0, tw = 0, tz = 0;
-  int err = step_map(&xm, x, kBW, batch, k, BR, &tx);
-  if (err == 0) err = step_map(&wm, w, kBW, k, n, Op::kKC, &tw);
-  if (err == 0) err = step_map(&wzm, wz != nullptr ? wz : w, kBW, k, n, Op::kKC, &tz);
+  const int elem = kTF ? 4 : (kBW ? 2 : 1);   // the weight's, and the TMA-loaded rows'
+  CUtensorMap xm, xlm, wm, wzm;
+  int tx = 0, tl = 0, tw = 0, tz = 0;
+  int err = 0;
+  memset(&xlm, 0, sizeof(xlm));
+  if (x_f32)
+    memset(&xm, 0, sizeof(xm));   // the producer's own loads
+  else
+    err = step_map(&xm, x, elem, batch, k, BR, &tx);
+  if (kTF && err == 0) {
+    err = step_map(&xlm, x_lo, 4, batch, k, BR, &tl);
+    if (err == 0 && (!tx || !tl)) err = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err == 0) err = step_map(&wm, w, elem, k, n, Op::kKC, &tw);
+  if (err == 0) err = step_map(&wzm, wz != nullptr ? wz : w, elem, k, n, Op::kKC, &tz);
   if (err != 0) return err;
   const int col_tiles = (n + kDgCols - 1) / kDgCols * (kMode == kIn ? 2 : 1);
-  const uint32_t stage = BR * 128 + Op::kWBytes;
-  const size_t smem = kBW ? dg_smem_bytes(BR, stages, stage, 1, xset_bytes(BR, split))
-                          : dg_smem_bytes(BR, stages, stage, split, 0);
+  const uint32_t stage = BR * 128 * (kTF ? 2 : 1) + Op::kWBytes;
+  const size_t smem = kBW || kTF ? dg_smem_bytes(BR, stages, stage, 1, xset_bytes(BR, split))
+                                 : dg_smem_bytes(BR, stages, stage, split, 0);
   auto wp = [](const void* p) { return static_cast<const int8_t*>(p); };
-  return dg_launch(ssm_gemm_kernel<BR, kMode, kKind>,
+  return dg_launch(ssm_gemm_kernel<BR, kMode, kKind, kCoded>,
                    dim3(col_tiles * split, (batch + BR - 1) / BR), dim3(kThreads), split, smem, s,
-                   xm, wm, wzm, DgRows{x, batch, k, tx}, DgWeight{wp(w), k, n, tw},
-                   DgWeight{wp(wz != nullptr ? wz : w), k, n, tz}, ep, split, stages);
+                   xm, xlm, wm, wzm, DgRows{x, batch, k, tx, x_f32, kTF ? 1 : 0},
+                   DgWeight{wp(w), k, n, tw}, DgWeight{wp(wz != nullptr ? wz : w), k, n, tz}, ep,
+                   split, stages);
 }
 
 // One step's tensors, as the C entry points take them: the projections are
@@ -774,42 +822,60 @@ extern "C" int apertis_ssm_step_scratch(int batch, int d_model, int channels, in
   return static_cast<int>(StepScratch(nullptr, batch, d_model, channels, rank, int8 != 0).bytes);
 }
 
+namespace {
+
+// ssm_gemm_kernel's resources at a row tile of 16 (r16) or 64 rows.
+template <int kMode, int kKind, bool kCoded>
+int gemm_resources(bool r16, int smem, int* out) {
+  return kernel_resources(r16 ? &ssm_gemm_kernel<16, kMode, kKind, kCoded>
+                              : &ssm_gemm_kernel<64, kMode, kKind, kCoded>,
+                          kThreads, smem, out);
+}
+
+}  // namespace
+
 // The resources of one of the step's product kernels (kernel: 0 in, 1 mix,
-// 2 out of the int8 layout; 3, 4, 5 of the bf16 layout) at a row tile of
+// 2 out of the int8 layout; 3, 4, 5 of the bf16 layout; 6, 7, 8 of the f32
+// form's split TF32) at a row tile of
 // `row_tile` rows and `smem` bytes of dynamic shared memory
 // (hopper.cuh::kernel_resources), into out[0..4].
 extern "C" int apertis_ssm_step_resources(int kernel, int row_tile, int smem, int* out) {
   if (row_tile != 16 && row_tile != 64) return static_cast<int>(cudaErrorInvalidValue);
   const bool r16 = row_tile == 16;
   switch (kernel) {
-    case 0: return kernel_resources(r16 ? &ssm_gemm_kernel<16, kIn, kDgI8>
-                                        : &ssm_gemm_kernel<64, kIn, kDgI8>, kThreads, smem, out);
-    case 1: return kernel_resources(r16 ? &ssm_gemm_kernel<16, kMix, kDgI8>
-                                        : &ssm_gemm_kernel<64, kMix, kDgI8>, kThreads, smem, out);
-    case 2: return kernel_resources(r16 ? &ssm_gemm_kernel<16, kOut, kDgI8>
-                                        : &ssm_gemm_kernel<64, kOut, kDgI8>, kThreads, smem, out);
-    case 3: return kernel_resources(r16 ? &ssm_gemm_kernel<16, kIn, kDgBW>
-                                        : &ssm_gemm_kernel<64, kIn, kDgBW>, kThreads, smem, out);
-    case 4: return kernel_resources(r16 ? &ssm_gemm_kernel<16, kMix, kDgBW>
-                                        : &ssm_gemm_kernel<64, kMix, kDgBW>, kThreads, smem, out);
-    case 5: return kernel_resources(r16 ? &ssm_gemm_kernel<16, kOut, kDgBW>
-                                        : &ssm_gemm_kernel<64, kOut, kDgBW>, kThreads, smem, out);
+    case 0: return gemm_resources<kIn, kDgI8, false>(r16, smem, out);
+    case 1: return gemm_resources<kMix, kDgI8, false>(r16, smem, out);
+    case 2: return gemm_resources<kOut, kDgI8, false>(r16, smem, out);
+    case 3: return gemm_resources<kIn, kDgBW, false>(r16, smem, out);
+    case 4: return gemm_resources<kMix, kDgBW, false>(r16, smem, out);
+    case 5: return gemm_resources<kOut, kDgBW, false>(r16, smem, out);
+    case 6: return gemm_resources<kIn, kDgTF, true>(r16, smem, out);
+    case 7: return gemm_resources<kMix, kDgTF, true>(r16, smem, out);
+    case 8: return gemm_resources<kOut, kDgTF, true>(r16, smem, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 
-// ---- the f32 form (SIMT) ----------------------------------------------------
+// ---- the f32 form -------------------------------------------------------------
 
 namespace {
 
+// Element i of a float tensor of dtype code bf (1 bf16, 0 f32), as f32.
+__device__ __forceinline__ float ldv(const void* p, size_t i, int bf) {
+  return bf ? __bfloat162float(static_cast<const bf16*>(p)[i]) : static_cast<const float*>(p)[i];
+}
+
+
 // The bytes of the f32 form's scratch, 16-byte aligned pieces in this order:
 // the pre-norm nrm (B, D) f32 and its int8 levels and scales, z (B, C), x_act
-// (B, C) and its levels and scales, dt | B | C (B, R + 2C), g (B, C) and its
-// levels and scales, hsum (B, D).
+// (B, C) and its levels and scales, dt | B | C (B, bc_stride(R, C)), g (B, C)
+// and its levels and scales, hsum (B, D); then the TF32 hi and lo parts of
+// nrm, x_act and g.
 struct F32Scratch {
   float *nrm, *nrm_s, *z, *xa, *xa_s, *proj, *g, *g_s, *hsum;
   int8_t *nrm_q, *xa_q, *g_q;
+  float *nrm_hi, *nrm_lo, *xa_hi, *xa_lo, *g_hi, *g_lo;   // the split-TF32 products' rows
   size_t bytes;
   F32Scratch(void* base, int B, int D, int C, int R) {
     char* p = static_cast<char*>(base);
@@ -826,18 +892,24 @@ struct F32Scratch {
     xa = reinterpret_cast<float*>(take((size_t)B * C * 4));
     xa_q = reinterpret_cast<int8_t*>(take((size_t)B * C));
     xa_s = reinterpret_cast<float*>(take((size_t)B * 4));
-    proj = reinterpret_cast<float*>(take((size_t)B * (R + 2 * C) * 4));
+    proj = reinterpret_cast<float*>(take((size_t)B * bc_stride(R, C) * 4));
     g = reinterpret_cast<float*>(take((size_t)B * C * 4));
     g_q = reinterpret_cast<int8_t*>(take((size_t)B * C));
     g_s = reinterpret_cast<float*>(take((size_t)B * 4));
     hsum = reinterpret_cast<float*>(take((size_t)B * D * 4));
+    nrm_hi = reinterpret_cast<float*>(take((size_t)B * D * 4));
+    nrm_lo = reinterpret_cast<float*>(take((size_t)B * D * 4));
+    xa_hi = reinterpret_cast<float*>(take((size_t)B * C * 4));
+    xa_lo = reinterpret_cast<float*>(take((size_t)B * C * 4));
+    g_hi = reinterpret_cast<float*>(take((size_t)B * C * 4));
+    g_lo = reinterpret_cast<float*>(take((size_t)B * C * 4));
     bytes = off;
   }
 };
 
 // A pre-norm of one row a block (ops/norms.py's formulas), in f32:
-//   mode 0, the mixer's: the normed row to out_f, and with kQ its int8
-//     levels and scale;
+//   mode 0, the mixer's: the normed row to out_f (and, with hi, its TF32
+//     parts to hi and lo), and with kQ its int8 levels and scale;
 //   mode 1, the dense epilogue: the normed row rounded to bf16, then its
 //     levels and scale (kQ) or the bf16 row (at out_q);
 //   mode 2, the moe epilogue: n2 rounded to bf16, the centred row's levels,
@@ -851,7 +923,8 @@ __global__ void __launch_bounds__(kBlock) f32_norm_kernel(
     const void* __restrict__ rln_w, const void* __restrict__ rln_b,
     const void* __restrict__ router_w, const void* __restrict__ router_b,
     float* __restrict__ out_f, void* __restrict__ out_q, float* __restrict__ out_s,
-    float* __restrict__ comb, int d_model, int num_experts) {
+    float* __restrict__ comb, int d_model, int num_experts, float* __restrict__ hi,
+    float* __restrict__ lo) {
   extern __shared__ float v[];
   __shared__ float red[kWarps];
   __shared__ float logit_part[kWarps][32];
@@ -862,7 +935,7 @@ __global__ void __launch_bounds__(kBlock) f32_norm_kernel(
   if (rms) {
     float ss = 0.f;
     for (int k = tid; k < d_model; k += kBlock) ss = fmaf(v[k], v[k], ss);
-    ss = simt_reduce(ss, red, kWarps, false);
+    ss = block_reduce(ss, red, false);
     const float r = __fmul_rn(ss > 0.f ? sqrtf(ss) : 0.f, inv_sqrt_d);
     const float inv = ss > 0.f ? 1.f / __fadd_rn(r, eps) : 0.f;
     for (int k = tid; k < d_model; k += kBlock)
@@ -870,20 +943,23 @@ __global__ void __launch_bounds__(kBlock) f32_norm_kernel(
   } else {
     float s1 = 0.f;
     for (int k = tid; k < d_model; k += kBlock) s1 += v[k];
-    const float mean = simt_reduce(s1, red, kWarps, false) / dn;
+    const float mean = block_reduce(s1, red, false) / dn;
     float s2 = 0.f;
     for (int k = tid; k < d_model; k += kBlock) s2 = fmaf(v[k] - mean, v[k] - mean, s2);
-    const float var = simt_reduce(s2, red, kWarps, false) / dn;
+    const float var = block_reduce(s2, red, false) / dn;
     const float inv = var > 0.f ? rsqrtf(var + eps) : 0.f;
     for (int k = tid; k < d_model; k += kBlock)
       v[k] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[k], mean), inv), ldv(norm_w, k, pbf)),
                        ldv(norm_b, k, pbf));
   }
   if (mode == 0) {
-    for (int k = tid; k < d_model; k += kBlock) out_f[row * d_model + k] = v[k];
+    for (int k = tid; k < d_model; k += kBlock) {
+      out_f[row * d_model + k] = v[k];
+      if (hi != nullptr) tf_split_store(v[k], hi, lo, row * d_model + k);
+    }
     if constexpr (kQ) {
       __syncthreads();
-      simt_quant_row(v, d_model, red, kWarps, static_cast<int8_t*>(out_q) + row * d_model,
+      block_quant_row(v, d_model, red, static_cast<int8_t*>(out_q) + row * d_model,
                      out_s + row);
     }
     return;
@@ -892,7 +968,7 @@ __global__ void __launch_bounds__(kBlock) f32_norm_kernel(
   __syncthreads();
   if (mode == 1) {
     if constexpr (kQ) {
-      simt_quant_row(v, d_model, red, kWarps, static_cast<int8_t*>(out_q) + row * d_model,
+      block_quant_row(v, d_model, red, static_cast<int8_t*>(out_q) + row * d_model,
                      out_s + row);
     } else {
       bf16* o = static_cast<bf16*>(out_q) + row * d_model;
@@ -903,16 +979,16 @@ __global__ void __launch_bounds__(kBlock) f32_norm_kernel(
   int8_t* q = static_cast<int8_t*>(out_q) + row * d_model;
   float s1 = 0.f;
   for (int k = tid; k < d_model; k += kBlock) s1 += v[k];
-  const float mean = simt_reduce(s1, red, kWarps, false) / dn;
+  const float mean = block_reduce(s1, red, false) / dn;
   float s2 = 0.f, m = 0.f;
   for (int k = tid; k < d_model; k += kBlock) {
     const float c = v[k] - mean;
     s2 = fmaf(c, c, s2);
     m = fmaxf(m, fabsf(c));
   }
-  const float var = simt_reduce(s2, red, kWarps, false) / dn;
+  const float var = block_reduce(s2, red, false) / dn;
   const float inv = var > 0.f ? rsqrtf(var + eps) : 0.f;
-  const float scale = fmaxf(simt_reduce(m, red, kWarps, true), 1e-8f) * (1.f / 127.f);
+  const float scale = fmaxf(block_reduce(m, red, true), 1e-8f) * (1.f / 127.f);
   const float rscale = 1.f / scale;
   for (int k = tid; k < d_model; k += kBlock) q[k] = quant_level(__fmul_rn(v[k] - mean, rscale));
   if (tid == 0) out_s[row] = __fmul_rn(scale, inv);
@@ -938,37 +1014,71 @@ __global__ void __launch_bounds__(kBlock) f32_norm_kernel(
   warp_top2_combine(logit, num_experts, comb + row * num_experts);
 }
 
+// One channel's conv + SiLU in the plain version's order, the cache (and
+// xp) of type CT and the conv weights of type PT: the dtypes are template
+// arguments so that the channel's loads issue together.
+template <typename CT, typename PT>
+__device__ __forceinline__ float f32_conv_channel(const CT* __restrict__ conv_state,
+                                                  const CT* __restrict__ xp,
+                                                  const PT* __restrict__ conv_w,
+                                                  const PT* __restrict__ conv_b, size_t row, int c,
+                                                  int channels, int ksize) {
+  const size_t wk = (size_t)c * ksize;
+  float yc = __fmul_rn(to_f32(xp[row * channels + c]), to_f32(conv_w[wk + ksize - 1]));
+  if (ksize > 1) {
+    const size_t s0 = row * (ksize - 1) * channels + c;
+    float taps = __fmul_rn(to_f32(conv_state[s0]), to_f32(conv_w[wk]));
+#pragma unroll 4
+    for (int j = 1; j < ksize - 1; ++j)
+      taps = __fadd_rn(taps, __fmul_rn(to_f32(conv_state[s0 + (size_t)j * channels]),
+                                       to_f32(conv_w[wk + j])));
+    yc = __fadd_rn(taps, yc);
+  }
+  yc = __fadd_rn(yc, to_f32(conv_b[c]));
+  return __fmul_rn(yc, sigmoidf(yc));
+}
+
+template <typename CT, typename PT>
+__device__ __forceinline__ void f32_conv_row(const void* conv_state, const void* xp,
+                                             const void* conv_w, const void* conv_b, size_t row,
+                                             int channels, int ksize, float* __restrict__ xa,
+                                             float* __restrict__ hi, float* __restrict__ lo,
+                                             float* v) {
+  for (int c = threadIdx.x; c < channels; c += kBlock) {
+    const float act = f32_conv_channel(static_cast<const CT*>(conv_state),
+                                       static_cast<const CT*>(xp), static_cast<const PT*>(conv_w),
+                                       static_cast<const PT*>(conv_b), row, c, channels, ksize);
+    xa[row * channels + c] = act;
+    if (hi != nullptr) tf_split_store(act, hi, lo, row * channels + c);
+    v[c] = act;
+  }
+}
+
 // x_act = silu(conv window [s_0 .. s_{K-2}, xp] . conv_w + conv_b) of one
-// row a block, in the plain version's order, to xa (f32) and with kQ its
-// levels and scale. Shared memory: C floats.
+// row a block, in the plain version's order, to xa (f32; with hi, its TF32
+// parts to hi and lo) and with kQ its levels and scale. Shared memory: C
+// floats.
 template <bool kQ>
 __global__ void __launch_bounds__(kBlock) f32_conv_kernel(
     const void* __restrict__ conv_state, const void* __restrict__ xp, int cbf,
     const void* __restrict__ conv_w, const void* __restrict__ conv_b, int pbf,
     float* __restrict__ xa, int8_t* __restrict__ xa_q, float* __restrict__ xa_s, int channels,
-    int ksize) {
+    int ksize, float* __restrict__ hi, float* __restrict__ lo) {
   extern __shared__ float v[];
   __shared__ float red[kWarps];
   const size_t row = blockIdx.x;
-  for (int c = threadIdx.x; c < channels; c += kBlock) {
-    const size_t wk = (size_t)c * ksize;
-    float yc = __fmul_rn(ldv(xp, row * channels + c, cbf), ldv(conv_w, wk + ksize - 1, pbf));
-    if (ksize > 1) {
-      const size_t s0 = row * (ksize - 1) * channels + c;
-      float taps = __fmul_rn(ldv(conv_state, s0, cbf), ldv(conv_w, wk, pbf));
-      for (int j = 1; j < ksize - 1; ++j)
-        taps = __fadd_rn(taps, __fmul_rn(ldv(conv_state, s0 + (size_t)j * channels, cbf),
-                                         ldv(conv_w, wk + j, pbf)));
-      yc = __fadd_rn(taps, yc);
-    }
-    yc = __fadd_rn(yc, ldv(conv_b, c, pbf));
-    const float act = __fmul_rn(yc, sigmoidf(yc));
-    xa[row * channels + c] = act;
-    v[c] = act;
-  }
+  if (cbf && pbf)
+    f32_conv_row<bf16, bf16>(conv_state, xp, conv_w, conv_b, row, channels, ksize, xa, hi, lo, v);
+  else if (cbf)
+    f32_conv_row<bf16, float>(conv_state, xp, conv_w, conv_b, row, channels, ksize, xa, hi, lo, v);
+  else if (pbf)
+    f32_conv_row<float, bf16>(conv_state, xp, conv_w, conv_b, row, channels, ksize, xa, hi, lo, v);
+  else
+    f32_conv_row<float, float>(conv_state, xp, conv_w, conv_b, row, channels, ksize, xa, hi, lo,
+                               v);
   if constexpr (kQ) {
     __syncthreads();
-    simt_quant_row(v, channels, red, kWarps, xa_q + row * channels, xa_s + row);
+    block_quant_row(v, channels, red, xa_q + row * channels, xa_s + row);
   }
 }
 
@@ -976,23 +1086,25 @@ __global__ void __launch_bounds__(kBlock) f32_conv_kernel(
 //   delta[h] = softplus(sum_r dt[r]' dt_w[r, h] + dt_b[h]) (dt rounded to
 //   dt_w's dtype), h' = exp(delta[c / N] * -exp(A_log[c])) * ssm[c] + B[c],
 //   g = (C[c] * h' + D[c] * x_act[c]) * silu(z[c]).
-// h' goes to ssm_out (which may be ssm), g to g (f32) and with kQ its levels
-// and scale. Shared memory: H + C floats.
+// h' goes to ssm_out (which may be ssm), g to g (f32; with hi, its TF32
+// parts to hi and lo) and with kQ its levels and scale. Shared memory: H + C
+// floats.
 template <bool kQ>
 __global__ void __launch_bounds__(kBlock) f32_recur_kernel(
     const float* __restrict__ proj, const void* __restrict__ dt_w, const void* __restrict__ dt_b,
     const void* __restrict__ a_log, const void* __restrict__ d_skip, int pbf,
     const float* __restrict__ z, const float* __restrict__ xa, const float* ssm,
     float* ssm_out, float* __restrict__ g, int8_t* __restrict__ g_q, float* __restrict__ g_s,
-    int channels, int rank, int heads, int d_state) {
+    int channels, int rank, int heads, int d_state, float* __restrict__ hi,
+    float* __restrict__ lo) {
   extern __shared__ float sm[];
   float* delta = sm;
   float* gv = sm + heads;
   __shared__ float red[kWarps];
   const size_t row = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int width = rank + 2 * channels;
-  const float* pr = proj + row * width;
+  const int rp = (rank + 3) / 4 * 4;   // B's column in the bc_stride layout
+  const float* pr = proj + row * bc_stride(rank, channels);
   for (int hd = warp; hd < heads; hd += kWarps) {
     float acc = 0.f;
     for (int r = lane; r < rank; r += 32) {
@@ -1008,18 +1120,19 @@ __global__ void __launch_bounds__(kBlock) f32_recur_kernel(
     const size_t i = row * channels + c;
     const float a_row = -expf(ldv(a_log, c, pbf));
     const float hn = __fadd_rn(__fmul_rn(expf(__fmul_rn(delta[c / d_state], a_row)), ssm[i]),
-                               pr[rank + c]);
-    const float y = __fadd_rn(__fmul_rn(pr[rank + channels + c], hn),
+                               pr[rp + c]);
+    const float y = __fadd_rn(__fmul_rn(pr[rp + channels + c], hn),
                               __fmul_rn(ldv(d_skip, c, pbf), xa[i]));
     const float zz = z[i];
     const float gate = __fmul_rn(y, __fmul_rn(zz, sigmoidf(zz)));
     ssm_out[i] = hn;
     g[i] = gate;
+    if (hi != nullptr) tf_split_store(gate, hi, lo, i);
     gv[c] = gate;
   }
   if constexpr (kQ) {
     __syncthreads();
-    simt_quant_row(gv, channels, red, kWarps, g_q + row * channels, g_s + row);
+    block_quant_row(gv, channels, red, g_q + row * channels, g_s + row);
   }
 }
 
@@ -1039,10 +1152,16 @@ struct F32StepArgs {
   int hbf, cbf, pbf, wbf;
 };
 
-template <bool kQ>
-int run_f32_step(const F32StepArgs& a, void* scratch, cudaStream_t st) {
-  if (a.B <= 0 || a.D <= 0 || a.C <= 0 || a.R <= 0 || a.H * a.N != a.C || a.E > 32)
-    return static_cast<int>(cudaErrorInvalidValue);
+// The f32 form's launches at a row tile of BR rows: the row kernels, and
+// the three products as the Hopper layouts' (ssm_gemm_kernel) of kind kKind:
+// kDgI8 (int8 projections, the rows quantized by the row kernels), kDgTF
+// (f32 projections in split TF32 against the f32 rows) or kDgBW (bf16
+// projections, the f32 rows rounded by the producer). splits[i] and
+// stages[i] are the plan of product i (in, mix, out).
+template <int BR, int kKind>
+int run_f32_step(const F32StepArgs& a, void* scratch, const int* splits, const int* stages,
+                 cudaStream_t st) {
+  constexpr bool kQ = kKind == kDgI8;
   F32Scratch s(scratch, a.B, a.D, a.C, a.R);
   const float inv_sqrt_d = static_cast<float>(std::pow(static_cast<double>(a.D), -0.5));
   const size_t row_d = (size_t)a.D * sizeof(float), row_c = (size_t)a.C * sizeof(float);
@@ -1051,48 +1170,85 @@ int run_f32_step(const F32StepArgs& a, void* scratch, cudaStream_t st) {
       (err = allow_smem(f32_conv_kernel<kQ>, row_c)) != cudaSuccess ||
       (err = allow_smem(f32_recur_kernel<kQ>, row_c + (size_t)a.H * sizeof(float))) != cudaSuccess)
     return static_cast<int>(err);
+  StepEpilogue ep = {};
+  ep.batch = a.B;
+  ep.channels = a.C;
+  ep.rank = a.R;
+  ep.xp_f32 = !a.cbf;
+  ep.h_f32 = !a.hbf;
+  ep.dt_keep = 1;
+  constexpr bool kTF = kKind == kDgTF;
+  const int x_f32 = kKind == kDgBW;
+  auto tf = [](float* p) { return kTF ? p : nullptr; };
   // 1. the pre-norm.
   f32_norm_kernel<kQ><<<a.B, kBlock, row_d, st>>>(
       a.h, a.hbf, a.norm_w, a.norm_b, a.pbf, a.rms, a.eps, inv_sqrt_d, 0, nullptr, nullptr,
-      nullptr, nullptr, s.nrm, s.nrm_q, s.nrm_s, nullptr, a.D, 0);
-  const void* nrm = kQ ? static_cast<const void*>(s.nrm_q) : static_cast<const void*>(s.nrm);
+      nullptr, nullptr, s.nrm, s.nrm_q, s.nrm_s, nullptr, a.D, 0, tf(s.nrm_hi), tf(s.nrm_lo));
   // 2. in_proj x (rounded to the cache's dtype) and z.
-  if ((err = simt_rowmat<kQ>(nrm, 0, s.nrm_s, a.D, a.inx_w, a.wbf, a.inx_s, a.C, a.B, a.D, a.C,
-                             nullptr, 0, -1, nullptr, 0, 0, a.xp_out, a.cbf, a.C, nullptr, 0, st)) !=
-          cudaSuccess ||
-      (err = simt_rowmat<kQ>(nrm, 0, s.nrm_s, a.D, a.inz_w, a.wbf, a.inz_s, a.C, a.B, a.D, a.C,
-                             nullptr, 0, -1, nullptr, 0, 0, s.z, 0, a.C, nullptr, 0, st)) !=
-          cudaSuccess)
-    return static_cast<int>(err);
+  ep.x_s = s.nrm_s;
+  ep.ws = a.inx_s;
+  ep.ws_z = a.inz_s;
+  ep.xp = a.xp_out;
+  ep.z = s.z;
+  ep.n = a.C;
+  auto rows = [&](void* q, float* f, float* hi) -> const void* { return kQ ? q : kTF ? hi : f; };
+  int e = step_gemm<BR, kIn, kKind, true>(rows(s.nrm_q, s.nrm, s.nrm_hi), a.B, a.D, a.inx_w,
+                                          a.inz_w, a.C, ep, splits[0], stages[0], st, x_f32,
+                                          s.nrm_lo);
+  if (e != 0) return e;
   // 3. conv + SiLU.
   f32_conv_kernel<kQ><<<a.B, kBlock, row_c, st>>>(a.conv_state, a.xp_out, a.cbf, a.conv_w,
                                                   a.conv_b, a.pbf, s.xa, s.xa_q, s.xa_s, a.C,
-                                                  a.K);
-  // 4. x_param: dt | B | C.
-  const int width = a.R + 2 * a.C;
-  const void* xa = kQ ? static_cast<const void*>(s.xa_q) : static_cast<const void*>(s.xa);
-  if ((err = simt_rowmat<kQ>(xa, 0, s.xa_s, a.C, a.xparam_w, a.wbf, a.xparam_s, width, a.B, a.C,
-                             width, nullptr, 0, -1, nullptr, 0, 0, s.proj, 0, width, nullptr, 0,
-                             st)) != cudaSuccess)
-    return static_cast<int>(err);
+                                                  a.K, tf(s.xa_hi), tf(s.xa_lo));
+  // 4. x_param: dt (f32; rounded to dt_proj's dtype by the recurrence) | B | C.
+  ep.x_s = s.xa_s;
+  ep.ws = a.xparam_s;
+  ep.bc = s.proj;
+  ep.n = a.R + 2 * a.C;
+  e = step_gemm<BR, kMix, kKind, true>(rows(s.xa_q, s.xa, s.xa_hi), a.B, a.C, a.xparam_w,
+                                       nullptr, ep.n, ep, splits[1], stages[1], st, x_f32,
+                                       s.xa_lo);
+  if (e != 0) return e;
   // 5. dt_proj, the recurrence, the gate.
   f32_recur_kernel<kQ><<<a.B, kBlock, row_c + (size_t)a.H * sizeof(float), st>>>(
       s.proj, a.dt_w, a.dt_b, a.a_log, a.d_skip, a.pbf, s.z, s.xa, a.ssm, a.ssm_out, s.g, s.g_q,
-      s.g_s, a.C, a.R, a.H, a.N);
+      s.g_s, a.C, a.R, a.H, a.N, tf(s.g_hi), tf(s.g_lo));
   // 6. out_proj + the residual: hsum (f32) and h_out (h's dtype).
-  const void* g = kQ ? static_cast<const void*>(s.g_q) : static_cast<const void*>(s.g);
-  if ((err = simt_rowmat<kQ>(g, 0, s.g_s, a.C, a.out_w, a.wbf, a.out_s, a.D, a.B, a.C, a.D,
-                             nullptr, 0, -1, a.h, a.hbf, a.D, s.hsum, 0, a.D, a.h_out, a.hbf,
-                             st)) != cudaSuccess)
-    return static_cast<int>(err);
+  ep.x_s = s.g_s;
+  ep.ws = a.out_s;
+  ep.h = a.h;
+  ep.h_out = a.h_out;
+  ep.hsum = s.hsum;
+  ep.n = a.D;
+  e = step_gemm<BR, kOut, kKind, true>(rows(s.g_q, s.g, s.g_hi), a.B, a.C, a.out_w, nullptr,
+                                       a.D, ep, splits[2], stages[2], st, x_f32, s.g_lo);
+  if (e != 0) return e;
   // 7. the dense or moe epilogue.
   if (a.fn_w != nullptr) {
     const int mode = a.router_w == nullptr ? 1 : 2;
     f32_norm_kernel<kQ><<<a.B, kBlock, row_d, st>>>(
         s.hsum, 0, a.fn_w, a.fn_b, a.pbf, a.rms, a.eps, inv_sqrt_d, mode, a.rln_w, a.rln_b,
-        a.router_w, a.router_b, nullptr, a.ffn_in, a.ffn_scale, a.comb, a.D, a.E);
+        a.router_w, a.router_b, nullptr, a.ffn_in, a.ffn_scale, a.comb, a.D, a.E, nullptr,
+        nullptr);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Check the f32 form's shape and plan, then run it at its row tile in the
+// projections' kind.
+template <int kKind>
+int run_f32(const F32StepArgs& a, void* scratch, int row_tile, const int* sp, const int* st,
+            cudaStream_t s) {
+  constexpr int kKC = DgOp<kKind>::kKC;
+  if (a.B <= 0 || a.D <= 0 || a.C <= 0 || a.R <= 0 || a.H * a.N != a.C || a.E > 32 ||
+      (kKind == kDgTF && (a.D % 4 != 0 || a.C % 4 != 0)) || (row_tile != 16 && row_tile != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks[3] = {(a.D + kKC - 1) / kKC, (a.C + kKC - 1) / kKC, (a.C + kKC - 1) / kKC};
+  for (int i = 0; i < 3; ++i)
+    if (sp[i] < 1 || sp[i] > 8 || sp[i] > chunks[i] || st[i] < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+  return row_tile == 16 ? run_f32_step<16, kKind>(a, scratch, sp, st, s)
+                        : run_f32_step<64, kKind>(a, scratch, sp, st, s);
 }
 
 }  // namespace
@@ -1105,7 +1261,10 @@ int run_f32_step(const F32StepArgs& a, void* scratch, cudaStream_t st) {
 // epilogues as apertis_ssm_decode_step's (the dense epilogue's ffn_in bf16 in
 // the float layout, int8 with ffn_scale in the int8 one; the moe epilogue's
 // int8 x_q, x_s and comb in both). `scratch` holds
-// apertis_ssm_step_f32_scratch bytes. Returns cudaGetLastError().
+// apertis_ssm_step_f32_scratch bytes. row_tile (16 or 64), splits[3] and
+// stages[3] are the plan of ops/kernels/decode_plan.py::ssm_step_plan (int8
+// projections) or f32_step_plan. Returns cudaGetLastError(), or
+// cudaErrorInvalidResourceHandle if a tensor map cannot be made.
 extern "C" int apertis_ssm_decode_step_f32(
     const void* h, const void* conv_state, const void* ssm, const void* norm_w,
     const void* norm_b, const void* inx_w, const void* inx_s, const void* inz_w,
@@ -1116,7 +1275,8 @@ extern "C" int apertis_ssm_decode_step_f32(
     const void* router_b, void* h_out, void* xp_out, void* ssm_out, void* ffn_in,
     void* ffn_scale, void* comb, void* scratch, int batch, int d_model, int channels,
     int ksize, int rank, int heads, int d_state, int num_experts, int rms, float eps, int quant,
-    int hbf, int cbf, int pbf, int wbf, void* stream) {
+    int hbf, int cbf, int pbf, int wbf, int row_tile, const void* splits, const void* stages,
+    void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   const F32StepArgs a{h, conv_state, f(ssm), norm_w, norm_b, inx_w, inz_w, xparam_w, out_w,
                       f(inx_s), f(inz_s), f(xparam_s), f(out_s), conv_w, conv_b, dt_w, dt_b,
@@ -1126,7 +1286,11 @@ extern "C" int apertis_ssm_decode_step_f32(
                       channels, ksize, rank, heads, d_state, num_experts, rms, eps, hbf, cbf,
                       pbf, wbf};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return quant ? run_f32_step<true>(a, scratch, st) : run_f32_step<false>(a, scratch, st);
+  const int* sp = static_cast<const int*>(splits);
+  const int* sg = static_cast<const int*>(stages);
+  if (quant) return run_f32<kDgI8>(a, scratch, row_tile, sp, sg, st);
+  return wbf ? run_f32<kDgBW>(a, scratch, row_tile, sp, sg, st)
+             : run_f32<kDgTF>(a, scratch, row_tile, sp, sg, st);
 }
 
 // The bytes of the f32 form's scratch for B rows, D, C and R.

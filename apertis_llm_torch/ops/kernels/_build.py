@@ -28,8 +28,7 @@ BUILD_DIR = PACKAGE_ROOT / "_build"
 SOURCES = ("ssm_scan.cu", "ssm_step.cu", "ffn_fused.cu", "ln_quant.cu", "moe_ffn.cu",
            "moe_grouped.cu", "mha_step.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "flash_attention_f32.cu", "quant_matmul.cu", "moe_dense.cu", "scan_carry.cu")
-HEADERS = ("common.cuh", "hopper.cuh", "decode_gemm.cuh", "quant_ffn.cuh", "chunk_scan.cuh",
-           "simt.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "decode_gemm.cuh", "quant_ffn.cuh", "chunk_scan.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No fast math: rintf, division and sqrtf round as IEEE-754 says, which the
 # int8 quantizations rely on.
@@ -60,23 +59,30 @@ SIGNATURES = {
     "apertis_ssm_decode_step_int8": [_P] * 32 + [_I] * 9 + [_F, _I, _P, _P, _P],
     # the f32 form: 25 inputs, 6 outputs, scratch, B, D, C, K, R, H, N, E,
     # rms, eps, quant, then the dtype codes of h, the conv cache, the small
-    # weights and the projections, stream
-    "apertis_ssm_decode_step_f32": [_P] * 32 + [_I] * 9 + [_F] + [_I] * 5 + [_P],
+    # weights and the projections, row_tile, splits (3 ints), stages (3
+    # ints), stream
+    "apertis_ssm_decode_step_f32": [_P] * 32 + [_I] * 9 + [_F] + [_I] * 6 + [_P] * 3,
     # B, D, C, R: the bytes of the f32 form's scratch
     "apertis_ssm_step_f32_scratch": [_I] * 4,
     # B, D, C, R, int8: the bytes of a step's scratch
     "apertis_ssm_step_scratch": [_I] * 5,
-    # kernel (0 in, 1 mix, 2 out int8; 3, 4, 5 bf16), row_tile, smem, out (5 ints)
+    # kernel (0 in, 1 mix, 2 out int8; 3, 4, 5 bf16; 6, 7, 8 split TF32),
+    # row_tile, smem, out (5 ints)
     "apertis_ssm_step_resources": [_I, _I, _I, _P],
     # x, w1, b1, w2, b2, out, hidden, S, D, I, act, row_tile, split_up,
     # split_down, stages_up, stages_down, stream
     "apertis_ffn_decode": [_P] * 7 + [_I] * 9 + [_P],
-    # x, w1, b1, w2, b2, out, hidden, S, D, I, act, then the dtype codes of
-    # x, w1, b1, w2, b2 and out, stream
-    "apertis_ffn_decode_f32": [_P] * 7 + [_I] * 10 + [_P],
-    # x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2, out, h, hq, hs, S, D, I, bn,
-    # act, the dtype codes of b1, b2 and out, stream
-    "apertis_ffn_decode_int8_f32": [_P] * 12 + [_I] * 8 + [_P],
+    # x, w1, b1, w2, b2, out, scratch, S, D, I, act, then the dtype codes of
+    # x, w1, b1, w2, b2 and out, row_tile, split_up, split_down, stages_up,
+    # stages_down, stream
+    "apertis_ffn_decode_f32": [_P] * 7 + [_I] * 15 + [_P],
+    # S, D, I and the dtype codes of x, W1 and W2: the bytes of the f32
+    # form's scratch
+    "apertis_ffn_f32_scratch": [_I] * 6,
+    # x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2, out, hq, hs, S, D, I, bn,
+    # act, the dtype codes of b1, b2 and out, row_tile, split, stages_up,
+    # stages_down, stream
+    "apertis_ffn_decode_int8_f32": [_P] * 11 + [_I] * 12 + [_P],
     # x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2, out, hq, hs, S, D, I, bn, act,
     # row_tile, split, stages_up, stages_down, stream
     "apertis_ffn_decode_int8": [_P] * 11 + [_I] * 9 + [_P],
@@ -84,7 +90,8 @@ SIGNATURES = {
     # S, D, I, bn, act, row_tile, split, stages_up, stages_down, stream
     "apertis_ffn_decode_int4": [_P] * 13 + [_I] * 9 + [_P],
     # kernel (0 up int8, 1 down int8, 2 up int4, 3 down int4, 4 up bf16,
-    # 5 down bf16), row_tile, smem, out (5 ints)
+    # 5 down bf16, 6 up split TF32 on f32 rows, 7 on bf16 rows, 8 down split
+    # TF32), row_tile, smem, out (5 ints)
     "apertis_ffn_quant_resources": [_I, _I, _I, _P],
     # x, w, b, q, scale, rows, H, the plan (vec, threads a row, vectors a
     # thread), rms, eps, stream
@@ -228,8 +235,8 @@ FLOAT_DTYPES = ("float32", "bfloat16")
 
 
 def float_code(t, name: str) -> int:
-    """The dtype code of a float operand of the f32 forms (``csrc/simt.cuh``):
-    1 for bf16, 0 for f32; any other dtype raises."""
+    """The dtype code of a float operand of the f32 forms (``csrc/ffn_fused.cu``,
+    ``csrc/ssm_step.cu``): 1 for bf16, 0 for f32; any other dtype raises."""
     if str(t.dtype).split(".")[-1] not in FLOAT_DTYPES:
         raise ValueError(f"{name}: dtype {t.dtype} is not f32 or bf16")
     return int(str(t.dtype) == "torch.bfloat16")

@@ -10,7 +10,8 @@ columns (``TILE_COLS``) for a row tile of 16 or 64 batch rows (``ROW_TILES``;
 128-row K chunks (``CHUNK``) whose weight and row tiles a ring of
 ``stages`` stages holds; the bf16 layouts of the decode FFN and of the
 mixer step the same over 64-row K chunks of a bf16 weight (``BW_CHUNK``,
-``BW_BYTES``). A K split over a thread-block cluster of ``split`` blocks
+``BW_BYTES``), and their f32 forms over 32-row K chunks of an f32 weight in
+split TF32 (``TF_CHUNK``, ``TF_BYTES``; f32 rows stage a hi and a lo tile). A K split over a thread-block cluster of ``split`` blocks
 spreads a product with few column tiles over more SMs.
 
 The plan of each launch is plain Python, so that the CPU tests can pin it;
@@ -32,12 +33,20 @@ W8_BYTES = CHUNK * 128        # an int8 weight tile
 W4_BYTES = CHUNK // 2 * 128 + 1024   # a packed int4 tile and its shift row
 BW_CHUNK = 64                 # K rows a chunk of a bf16 weight (128 bytes of a bf16 row)
 BW_BYTES = BW_CHUNK * 256     # a bf16 weight tile: two 64-column blocks of 64 K rows
+TF_CHUNK = 32                 # K rows a chunk of an f32 weight (128 bytes of an f32 row)
+TF_BYTES = TF_CHUNK * 512     # an f32 weight tile: four 32-column blocks of 32 K rows
 CONSUMER_THREADS = 256
 MAX_STAGES = 8
 # A K split takes at most MAX_SPLIT blocks where the SMs allow it: a GPC of
 # the H100 (16 or 18 SMs) holds four clusters of four one-SM blocks
 # (ops/kernels/quant_matmul.py).
 MAX_SPLIT = 4
+# A split-TF32 product (the f32 forms) may take a cluster of TF_MAX_SPLIT,
+# two a GPC, where its column tiles leave the SMs for it: at one row tile
+# its blocks stream their weight at the same rate a block as at four, so
+# twice the blocks take half the time (the f32 mixer step's in_proj at 1
+# row: 40 blocks at split 4).
+TF_MAX_SPLIT = 8
 # GEMM1's cluster is the blocks of one hidden tile (pick_block_n's width up to
 # 1152: 9 blocks, a non-portable cluster size).
 MAX_UP_CLUSTER = 16
@@ -97,15 +106,20 @@ def xset_bytes(rows: int, split: int) -> int:
 
 
 def _split_gemm(k: int, col_tiles: int, row_tiles: int, rows: int, sms: int,
-                chunk: int = CHUNK, w_bytes: int = W8_BYTES, sliced: bool = False) -> GemmPlan:
+                chunk: int = CHUNK, w_bytes: int = W8_BYTES, sliced: bool = False,
+                x_tiles: int = 1, max_split: int = MAX_SPLIT) -> GemmPlan:
     """One product whose rows are streamed beside the weight, K (chunks of
-    ``chunk`` rows, weight tiles of ``w_bytes``) split in contiguous ranges
-    over as many blocks as the SMs allow (at most MAX_SPLIT, at most one a
-    chunk): the int8 mixer step's products (``decode_gemm.cuh``'s exchange)
-    and the bf16 FFN's (``sliced``: ``quant_ffn.cuh``'s)."""
+    ``chunk`` rows, weight tiles of ``w_bytes``, ``x_tiles`` tiles of the
+    rows) split in contiguous ranges over as many blocks as the SMs allow
+    (at most ``max_split``, at most one a chunk; above MAX_SPLIT only a
+    whole cluster of ``max_split``): the int8 mixer step's products
+    (``decode_gemm.cuh``'s exchange) and the float ones (``sliced``:
+    ``quant_ffn.cuh``'s)."""
     chunks = _cdiv(k, chunk)
-    split = max(1, min(MAX_SPLIT, chunks, sms // (col_tiles * row_tiles)))
-    stage = rows * 128 + w_bytes
+    split = max(1, min(max_split, chunks, sms // (col_tiles * row_tiles)))
+    if split > MAX_SPLIT:
+        split = max_split if split == max_split else MAX_SPLIT
+    stage = x_tiles * rows * 128 + w_bytes
     # The split's slots: decode_gemm.cuh's (smem_bytes) or the sliced ones.
     xsplit, extra = (1, xset_bytes(rows, split)) if sliced else (split, 0)
     stages = _stages(rows, stage, xsplit, extra, _cdiv(chunks, split))
@@ -144,6 +158,34 @@ def bf16_step_plan(batch: int, d_model: int, channels: int, rank: int, sms: int)
 
     def gemm(k, col_tiles):
         return _split_gemm(k, col_tiles, row_tiles, rows, sms, BW_CHUNK, BW_BYTES, sliced=True)
+    return StepPlan(gemm(d_model, 2 * _cdiv(channels, TILE_COLS)),
+                    gemm(channels, _cdiv(rank + 2 * channels, TILE_COLS)),
+                    gemm(channels, _cdiv(d_model, TILE_COLS)))
+
+
+def _float_gemm(k: int, col_tiles: int, row_tiles: int, rows: int, sms: int, tf32: bool,
+                lo: bool) -> GemmPlan:
+    """A float product: a bf16 weight's (64-row chunks) or an f32 weight's
+    in split TF32 (32-row chunks, a lo tile of the rows beside the hi one
+    where ``lo``: rows that are not bf16)."""
+    if tf32:
+        return _split_gemm(k, col_tiles, row_tiles, rows, sms, TF_CHUNK, TF_BYTES, sliced=True,
+                           x_tiles=2 if lo else 1, max_split=TF_MAX_SPLIT)
+    return _split_gemm(k, col_tiles, row_tiles, rows, sms, BW_CHUNK, BW_BYTES, sliced=True)
+
+
+@functools.lru_cache(maxsize=None)
+def f32_step_plan(batch: int, d_model: int, channels: int, rank: int, sms: int,
+                  tf32: bool = True) -> StepPlan:
+    """The plan of ``apertis_ssm_decode_step_f32`` with float projections
+    for B rows, D, C and R: the bf16 step's products with f32 weights in
+    split TF32 (``tf32``; the row kernels' rows are f32, so each stages a lo
+    tile), or bf16 weights as the bf16 layout's."""
+    rows = row_tile(batch)
+    row_tiles = _cdiv(batch, rows)
+
+    def gemm(k, col_tiles):
+        return _float_gemm(k, col_tiles, row_tiles, rows, sms, tf32, True)
     return StepPlan(gemm(d_model, 2 * _cdiv(channels, TILE_COLS)),
                     gemm(channels, _cdiv(rank + 2 * channels, TILE_COLS)),
                     gemm(channels, _cdiv(d_model, TILE_COLS)))
@@ -203,6 +245,20 @@ def bf16_ffn_plan(rows: int, d_model: int, inter: int, sms: int) -> FfnPlan:
                     sliced=True),
         _split_gemm(inter, _cdiv(d_model, TILE_COLS), row_tiles, br, sms, BW_CHUNK, BW_BYTES,
                     sliced=True))
+
+
+@functools.lru_cache(maxsize=None)
+def f32_ffn_plan(rows: int, d_model: int, inter: int, w1_tf32: bool, w2_tf32: bool,
+                 x_lo: bool, sms: int) -> FfnPlan:
+    """The plan of ``apertis_ffn_decode_f32`` for S rows, D and I: each
+    product as the bf16 FFN's, over an f32 weight in split TF32 (``w1_tf32``,
+    ``w2_tf32``): GEMM1's rows have a lo part where x is not bf16
+    (``x_lo``), GEMM2's (the f32 hidden) always."""
+    br = row_tile(rows)
+    row_tiles = _cdiv(rows, br)
+    return FfnPlan(
+        _float_gemm(d_model, _cdiv(inter, TILE_COLS), row_tiles, br, sms, w1_tf32, x_lo),
+        _float_gemm(inter, _cdiv(d_model, TILE_COLS), row_tiles, br, sms, w2_tf32, True))
 
 
 class FatPlan(NamedTuple):

@@ -18,13 +18,17 @@ cluster, then GEMM2 whose K split over a cluster adds the tiles' products in
 tile order), on the plan of ``ops/kernels/decode_plan.py::ffn_plan``; the
 int4 layout unpacks the nibbles into int8 fragments in registers. Weights,
 biases or outputs that are not bf16 (an f32 tree, or its int8 quantization
-with f32 biases) take the f32 forms, :func:`ffn_decode_f32` and
-:func:`ffn_decode_int8_f32`, SIMT products on ``csrc/simt.cuh``.
+with f32 biases) take the f32 forms: :func:`ffn_decode_f32`, the same two
+products with an f32 weight in split TF32 on the tensor cores (and a bf16
+one as the bf16 layout's), on the plan of
+``ops/kernels/decode_plan.py::f32_ffn_plan``, and :func:`ffn_decode_int8_f32`,
+the int8 layout's two launches with f32 biases and output.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -194,12 +198,20 @@ def _plan_args(plan: decode_plan.FfnPlan) -> tuple:
     return plan.up.rows, plan.down.split, plan.up.stages, plan.down.stages
 
 
+# The kernels of ffn_quant_resources: (bits, kernel) -> the C entry's code;
+# bits 32 are the f32 form's split-TF32 products ("up" on f32 rows, "up_bf16"
+# on bf16 rows).
+_RESOURCE_CODES = {(8, "up"): 0, (8, "down"): 1, (4, "up"): 2, (4, "down"): 3, (16, "up"): 4,
+                   (16, "down"): 5, (32, "up"): 6, (32, "up_bf16"): 7, (32, "down"): 8}
+
+
 def ffn_quant_resources(bits: int, kernel: str, plan: decode_plan.GemmPlan) -> Dict[str, int]:
-    """What the card gives the int8 (``bits`` 8), int4 (4) or bf16 (16)
-    FFN's ``kernel`` ("up" or "down") at its plan: registers a thread,
-    shared memory a block in bytes, resident blocks an SM, threads a block
-    and spilled bytes a thread."""
-    code = {"up": 0, "down": 1}[kernel] + {8: 0, 4: 2, 16: 4}[bits]
+    """What the card gives the int8 (``bits`` 8), int4 (4), bf16 (16) or
+    split-TF32 (32) FFN's ``kernel`` ("up", "down"; "up_bf16" for split TF32
+    on bf16 rows) at its plan: registers a thread, shared memory a block in
+    bytes, resident blocks an SM, threads a block and spilled bytes a
+    thread."""
+    code = _RESOURCE_CODES[(bits, kernel)]
     out = (ctypes.c_int * len(RESOURCE_KEYS))()
     err = _build.load_library().apertis_ffn_quant_resources(code, plan.rows, plan.smem,
                                                             ctypes.addressof(out))
@@ -318,6 +330,20 @@ def ffn_decode_int4(
 _FLOAT = (torch.float32, torch.bfloat16)
 
 
+@functools.lru_cache(maxsize=None)
+def _f32_scratch_bytes(s: int, d: int, inter: int, xbf: int, w1bf: int, w2bf: int) -> int:
+    """The bytes of the f32 form's scratch (``csrc/ffn_fused.cu::FloatScratch``)."""
+    return _build.load_library().apertis_ffn_f32_scratch(s, d, inter, xbf, w1bf, w2bf)
+
+
+def f32_plan(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> decode_plan.FfnPlan:
+    """The plan of the f32 form for these rows and weights on their card."""
+    return decode_plan.f32_ffn_plan(x.shape[0], w1.shape[0], w1.shape[1],
+                                    w1.dtype == torch.float32, w2.dtype == torch.float32,
+                                    x.dtype != torch.bfloat16,
+                                    _build.sm_count(x.device.index or 0))
+
+
 def ffn_decode_f32(
     x: torch.Tensor,
     w1: torch.Tensor,
@@ -328,10 +354,12 @@ def ffn_decode_f32(
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """The decode FFN's f32 form (``csrc/ffn_fused.cu``,
-    ``apertis_ffn_decode_f32``): contiguous ``x``, weights, biases and
-    output each f32 or bf16, SIMT products in the weights' dtype with f32
-    sums, the hidden rounded to W2's dtype, as :func:`ffn_decode_reference`.
-    Plain version on CPU tensors."""
+    ``apertis_ffn_decode_f32``): contiguous, 16-byte aligned ``x``, weights,
+    biases and output each f32 or bf16, D and I multiples of 4 (of 16 where
+    both weights are bf16); each product on the tensor cores in its weight's
+    dtype (an f32 weight in split TF32) with f32 sums, the hidden rounded to
+    W2's dtype, as :func:`ffn_decode_reference`. Plain version on CPU
+    tensors."""
     if x.device.type == "cpu":
         return ffn_decode_reference(x, w1, b1, w2, b2, hidden_act, out_dtype)
     s, d = x.shape
@@ -341,15 +369,21 @@ def ffn_decode_f32(
     for t, shape, name in ((x, (s, d), "x"), (w1, (d, inter), "w1"), (b1, (inter,), "b1"),
                            (w2, (inter, d), "w2"), (b2, (d,), "b2")):
         _build.check_tensor(t, shape, _FLOAT, name, dev)
-    if s == 0 or d == 0 or inter == 0:
-        raise ValueError(f"ffn_decode_f32: empty shape S={s} D={d} I={inter}")
-    hidden = torch.empty((s, inter), dtype=w2.dtype, device=dev)
+    align = 16 if w1.dtype == w2.dtype == torch.bfloat16 else 4
+    if s == 0 or d == 0 or inter == 0 or d % align or inter % align:
+        raise ValueError(f"ffn_decode_f32: unsupported shape S={s} D={d} I={inter}")
+    _build.check_aligned("ffn_decode_f32", x, w1, w2)
+    plan = f32_plan(x, w1, w2)
+    codes = tuple(_build.float_code(t, n) for t, n in ((x, "x"), (w1, "w1"), (w2, "w2")))
+    scratch = torch.empty((_f32_scratch_bytes(s, d, inter, *codes),), dtype=torch.int8,
+                          device=dev)
     out = torch.empty((s, d), dtype=out_dtype, device=dev)
     err = _build.load_library().apertis_ffn_decode_f32(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), hidden.data_ptr(), s, d, inter, _ACT_CODES.get(hidden_act, 0),
+        out.data_ptr(), scratch.data_ptr(), s, d, inter, _ACT_CODES.get(hidden_act, 0),
         *(_build.float_code(t, n) for t, n in ((x, "x"), (w1, "w1"), (b1, "b1"), (w2, "w2"),
                                                 (b2, "b2"), (out, "out_dtype"))),
+        plan.up.rows, plan.up.split, plan.down.split, plan.up.stages, plan.down.stages,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ffn_decode_f32")
     ffn_decode_f32.launches += 1
@@ -369,9 +403,10 @@ def ffn_decode_int8_f32(
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """The int8 decode FFN's f32 form (``apertis_ffn_decode_int8_f32``): the
-    int8 layout's arithmetic of :func:`ffn_decode_int8_reference` step by
-    step, with biases and output each f32 or bf16, as an int8 tree quantized
-    from an f32 one serves it. Plain version on CPU tensors."""
+    int8 layout's two launches and plan (:func:`ffn_decode_int8`'s shapes)
+    with biases and output each f32 or bf16, as an int8 tree quantized from
+    an f32 one serves it; the arithmetic of
+    :func:`ffn_decode_int8_reference`. Plain version on CPU tensors."""
     if x_q.device.type == "cpu":
         return ffn_decode_int8_reference(x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2,
                                          hidden_act, out_dtype)
@@ -388,18 +423,18 @@ def ffn_decode_int8_f32(
     _build.check_tensor(w2_s, (1, d), f32, "w2_s", dev)
     _build.check_tensor(b2, (d,), _FLOAT, "b2", dev)
     bn = pick_block_n(inter)
-    if s == 0 or d == 0 or bn == 0:
+    if s == 0 or d == 0 or d % 16 or bn == 0:
         raise ValueError(f"ffn_decode_int8_f32: unsupported shape S={s} D={d} I={inter}")
-    h = torch.empty((s, inter), dtype=torch.float32, device=dev)
-    hq = torch.empty((s, inter), dtype=torch.int8, device=dev)
-    hs = torch.empty((s, inter // bn), dtype=torch.float32, device=dev)
+    _build.check_aligned("ffn_decode_int8_f32", x_q, w1_q, w2_q)
+    hq, hs, _ = _quant_scratch(x_q, inter, d)
     out = torch.empty((s, d), dtype=out_dtype, device=dev)
     err = _build.load_library().apertis_ffn_decode_int8_f32(
         x_q.data_ptr(), x_s.data_ptr(), w1_q.data_ptr(), w1_s.data_ptr(), b1.data_ptr(),
-        w2_q.data_ptr(), w2_s.data_ptr(), b2.data_ptr(), out.data_ptr(), h.data_ptr(),
-        hq.data_ptr(), hs.data_ptr(), s, d, inter, bn, _ACT_CODES.get(hidden_act, 0),
+        w2_q.data_ptr(), w2_s.data_ptr(), b2.data_ptr(), out.data_ptr(), hq.data_ptr(),
+        hs.data_ptr(), s, d, inter, bn, _ACT_CODES.get(hidden_act, 0),
         _build.float_code(b1, "b1"), _build.float_code(b2, "b2"),
-        _build.float_code(out, "out_dtype"), torch.cuda.current_stream(dev).cuda_stream)
+        _build.float_code(out, "out_dtype"), *_plan_args(quant_plan(x_q, d, inter, 8)),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ffn_decode_int8_f32")
     ffn_decode_int8_f32.launches += 1
     return out

@@ -21,9 +21,11 @@ round through bf16 at different points.
 
 A step whose tensors are not all bf16 (f32 projections, or int8 ones beside
 f32 rows and norms, as an f32 tree and its int8 quantization hold them;
-:func:`hopper_layout`) runs the f32 form, SIMT products on ``csrc/simt.cuh``
-in the same stages (:func:`ssm_decode_step_f32`,
-:func:`ssm_decode_step_int8_f32`), as the TPU kernel takes any dtype.
+:func:`hopper_layout`) runs the f32 form (:func:`ssm_decode_step_f32`,
+:func:`ssm_decode_step_int8_f32`), as the TPU kernel takes any dtype: f32
+row kernels in the same stages and the same three Hopper products, int8 on
+the int8 step's plan or f32 in split TF32 on the tensor cores
+(``decode_plan.py::f32_step_plan``).
 
 The weights are one layer's tensors as the model holds them, in the (in, out)
 layout, so no weight pack is built: the x_param projection and its scales
@@ -332,22 +334,30 @@ def _scratch_bytes(batch: int, d: int, c: int, r: int, int8: bool) -> int:
     return _build.load_library().apertis_ssm_step_scratch(batch, d, c, r, int(int8))
 
 
-def step_plan(h: torch.Tensor, w: MixerWeights) -> decode_plan.StepPlan:
-    """The plan of the step in w's layout for these rows on h's card."""
-    plan = decode_plan.ssm_step_plan if w.quantized else decode_plan.bf16_step_plan
-    return plan(h.shape[0], h.shape[1], w.inx_w.shape[1], w.dt_w.shape[0],
-                _build.sm_count(h.device.index or 0))
+def step_plan(h: torch.Tensor, w: MixerWeights, f32_form: bool = False) -> decode_plan.StepPlan:
+    """The plan of the step in w's layout for these rows on h's card; with
+    ``f32_form``, the f32 form's (float projections: bf16 ones as the bf16
+    layout's, f32 ones in split TF32)."""
+    dims = (h.shape[0], h.shape[1], w.inx_w.shape[1], w.dt_w.shape[0],
+            _build.sm_count(h.device.index or 0))
+    if w.quantized:
+        return decode_plan.ssm_step_plan(*dims)
+    if f32_form:
+        return decode_plan.f32_step_plan(*dims, tf32=w.inx_w.dtype == torch.float32)
+    return decode_plan.bf16_step_plan(*dims)
 
 
-def ssm_step_resources(kernel: str, plan: decode_plan.GemmPlan, int8: bool) -> Dict[str, int]:
+def ssm_step_resources(kernel: str, plan: decode_plan.GemmPlan, int8: bool,
+                       tf32: bool = False) -> Dict[str, int]:
     """What the card gives the step's product ``kernel`` ("in", "mix" or
-    "out") of the int8 or the bf16 layout at its plan: registers a thread,
-    shared memory a block in bytes, resident blocks an SM, threads a block
-    and spilled bytes a thread."""
+    "out") of the int8 or the bf16 layout, or the f32 form's split TF32
+    (``tf32``), at its plan: registers a thread, shared memory a block in
+    bytes, resident blocks an SM, threads a block and spilled bytes a
+    thread."""
     out = (ctypes.c_int * len(RESOURCE_KEYS))()
     err = _build.load_library().apertis_ssm_step_resources(
-        ("in", "mix", "out").index(kernel) + (0 if int8 else 3), plan.rows, plan.smem,
-        ctypes.addressof(out))
+        ("in", "mix", "out").index(kernel) + (6 if tf32 else 0 if int8 else 3), plan.rows,
+        plan.smem, ctypes.addressof(out))
     _build.check(err, "ssm_step_resources")
     return dict(zip(RESOURCE_KEYS, out))
 
@@ -453,6 +463,9 @@ def _launch_f32(h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out, router):
     outs = _step_buffers(h, conv_state, dims, ffn_norm, ssm_out, router, quant)
     scratch = torch.empty((_build.load_library().apertis_ssm_step_f32_scratch(bsz, d, c, r),),
                           dtype=torch.int8, device=dev)
+    plan = step_plan(h, w, f32_form=True)
+    splits = (ctypes.c_int * 3)(*(p.split for p in plan))
+    stages = (ctypes.c_int * 3)(*(p.stages for p in plan))
     fn_w, fn_b = ffn_norm if ffn_norm is not None else (None, None)
     weights = (w.inx_w, w.inx_s, w.inz_w, w.inz_s, w.conv_w, w.conv_b, w.xparam_w, w.xparam_s,
                w.dt_w, w.dt_b, w.a_log, w.d_skip, w.out_w, w.out_s)
@@ -460,7 +473,8 @@ def _launch_f32(h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out, router):
         _ptr(h), _ptr(conv_state), _ptr(ssm_state), _ptr(w.norm_w), _ptr(w.norm_b),
         *(_ptr(t) for t in weights), _ptr(fn_w), _ptr(fn_b), *_router_ptrs(router),
         *(_ptr(t) for t in outs), _ptr(scratch), *dims, _num_experts(router),
-        int(w.norm_b is None), float(eps), int(quant), *codes,
+        int(w.norm_b is None), float(eps), int(quant), *codes, plan.inp.rows,
+        ctypes.addressof(splits), ctypes.addressof(stages),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ssm_decode_step_f32")
     return _step_outputs(outs)
@@ -479,7 +493,8 @@ def ssm_decode_step_f32(
     """The step's f32 form with float projection weights (``csrc/
     ssm_step.cu``, ``apertis_ssm_decode_step_f32``): h, the conv cache, the
     projections and the other weights each f32 or bf16 (the other weights
-    of one dtype), SIMT products in each weight's dtype with f32 sums. The
+    of one dtype), the three products on the tensor cores in each weight's
+    dtype (f32 weights in split TF32) with f32 sums. The
     outputs are :func:`ssm_decode_step`'s: the dense epilogue's FFN input is
     the bf16-rounded pre-norm, as the TPU kernel writes it in every layout
     (ssm_step.py:186). Plain version on CPU tensors."""

@@ -306,13 +306,18 @@ card's name and power limit; the last line is ``{"ok": true, "device":
                                              # 1-16,384 rows on seven products: the
                                              # table behind quant_matmul="auto"
     python3 chip_smoke.py --surfaces         # phases 3i and 8 alone
+    python3 chip_smoke.py --f32-times        # #4's and #3's f32 forms at 64, 4 and 1
+                                             # rows (the 1.5B dense widths; #3 also at
+                                             # the MoE widths, moe epilogue) beside their
+                                             # bounds, and one chat token of the 1.5B f32
+                                             # and int8 models, device against host time
     python3 chip_smoke.py --auto-model-times # the 1.5B int8 models' prefill at 64-4,096
                                              # rows with auto's pre-norms fused (#5 +
                                              # #7) and not (#6), and dyn: the
                                              # threshold AUTO_DYN_ROWS
 
 The first two flags run ``qmm_phase`` only. ``--qmm-times``,
-``--flash-f32-times``, ``--decode-times``, ``--scan-fwd-times``,
+``--flash-f32-times``, ``--decode-times``, ``--f32-times``, ``--scan-fwd-times``,
 ``--scan-bwd-times``, ``--grouped-times``, ``--ln-times``, ``--auto-times`` and
 ``--auto-model-times`` need nothing of the checkout but the wrappers' (and the trainer's) Python
 interface, so a checkout of an
@@ -551,9 +556,12 @@ def nbytes(*tensors):
 
 def bound(n_bytes, ops, kind):
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the peak rate for their type."""
+    memory rate and the operations over the peak rate for their type
+    (``ops`` a count of ``kind``'s, or {type: count} for work of several
+    types, each at its own rate)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[kind] * 1e3
+    per = ops if isinstance(ops, dict) else {kind: ops}
+    t_ops = sum(n / PEAK_OPS[k] for k, n in per.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1685,22 +1693,126 @@ def parallel_rank(rank, scan_args, small, preset):
     return out
 
 
+# The f32 forms' tolerances (phase 3i and --f32-times): #3's f32 outputs
+# (h_out, x_proj, ssm) at F32_FORM_TOL and its bf16 FFN input at BF16_ULP;
+# the int8 form's outputs as the int8 layouts' (BF16_ULP, int8 levels); the
+# moe epilogue's routing weights at F32_TOL.
+F32_STEP_TOLS = [("h_out", F32_FORM_TOL), ("x_proj", F32_FORM_TOL), ("ssm", F32_FORM_TOL),
+                 ("ffn_in", BF16_ULP)]
+F32_STEP_TOLS_Q = [("h_out", BF16_ULP), ("x_proj", BF16_ULP), ("ssm", BF16_ULP),
+                   ("x_q", "int8"), ("x_s", BF16_ULP)]
+F32_MOE_TOLS = F32_STEP_TOLS[:3] + [("x_q", "int8"), ("x_s", BF16_ULP), ("comb", F32_TOL)]
+F32_MOE_TOLS_Q = F32_STEP_TOLS_Q + [("comb", F32_TOL)]
+
+
+def f32_layers(config, dev, seed):
+    """One f32 layer of ``config`` (random from ``seed``, its norms, biases
+    and D perturbed from ``seed + 1``) and its int8 quantization: (config
+    at one layer in f32, the layer, the int8 layer)."""
+    from apertis_llm_torch.models.convert import from_jax_params
+    from apertis_llm_torch.models.params import init_params
+    from apertis_llm_torch.models.quantize import quantize_params
+    config = dataclasses.replace(config, num_hidden_layers=1, dtype="float32",
+                                 param_dtype="float32")
+    tree = init_params(config, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    perturb_(tree, torch.Generator(device=dev).manual_seed(seed + 1))
+    layer = from_jax_params(tree, config, device=dev).layers[0]
+    return config, layer, from_jax_params(quantize_params(tree), config, device=dev).layers[0]
+
+
+def f32_step_args(randn, config, w, rows, ffn_norm, router=None):
+    """``ssm_decode_step_f32``'s arguments for ``rows`` rows of ``config``'s
+    widths with mixer weights ``w``, the rows and caches from ``randn``."""
+    return (randn(rows, config.hidden_size),
+            randn(rows, config.ssm_conv_kernel - 1, config.ssm_d_inner),
+            randn(rows, config.ssm_d_inner), w, config.layer_norm_eps, ffn_norm, None, router)
+
+
+def _split_tf32_products(w, rows_bf16):
+    """(type, products) of one f32-form product with weight ``w``: an f32
+    weight in split TF32 runs three TF32 products (hi.hi + lo.hi + hi.lo),
+    two where the rows are bf16 (no lo part); a bf16 one one bf16 product;
+    an int8 one one int8 product."""
+    if w.dtype == torch.float32:
+        return "tf32", 2 if rows_bf16 else 3
+    return ("int8" if w.dtype == torch.int8 else "bf16"), 1
+
+
+def f32_step_cost(args, cuda_cores=False):
+    """(bytes, {type: operations}, None) of #3's f32 form on
+    ``ssm_decode_step_f32``'s ``args``: each input read once, each output
+    written once; the projections' products as the form runs them (the row
+    kernels' rows are f32, so an f32 weight takes three TF32 products), the
+    router's (moe epilogue) counted with them. ``cuda_cores``: each product
+    once in f32 instead, the bound the SIMT form had."""
+    h, conv, ssm, w, _, fn, _, rt = args
+    rows, d, c, r = h.shape[0], h.shape[1], w.inx_w.shape[1], w.dt_w.shape[0]
+    n_exp = rt.w.shape[1] if rt is not None else 0
+    flops = 2 * rows * (d * c * 2 + c * (r + 2 * c) + c * d + d * n_exp)
+    weights = [getattr(w, f) for f in w._fields if isinstance(getattr(w, f), torch.Tensor)]
+    outs = nbytes(h, ssm) + rows * c * conv.element_size()
+    if rt is not None:
+        outs += rows * (d + 4 + 4 * n_exp)
+    elif fn is not None:
+        outs += rows * d * (1 if w.quantized else 2) + (4 * rows if w.quantized else 0)
+    kind, products = ("f32", 1) if cuda_cores else _split_tf32_products(w.inx_w, False)
+    return (nbytes(h, conv, ssm, *weights, *(fn or ()), *(rt or ())) + outs,
+            {kind: products * flops}, None)
+
+
+def f32_ffn_cost(args, cuda_cores=False):
+    """(bytes, {type: operations}, None) of #4's f32 form on
+    ``ffn_decode_f32``'s ``args``: inputs read once, the output written once;
+    GEMM1 on x (two TF32 products for an f32 W1 where x is bf16, three
+    where it is f32), GEMM2 on the hidden in W2's dtype (three for an f32
+    W2). ``cuda_cores``: each product once in f32 instead."""
+    x, w1, b1, w2, b2, _, out_dtype = args
+    flops = 2 * x.shape[0] * x.shape[1] * w1.shape[1]
+    ops = collections.Counter()
+    for w, rows_bf16 in ((w1, x.dtype == torch.bfloat16), (w2, w2.dtype == torch.bfloat16)):
+        kind, products = ("f32", 1) if cuda_cores else _split_tf32_products(w, rows_bf16)
+        ops[kind] += products * flops
+    out_bytes = x.shape[0] * x.shape[1] * torch.empty((), dtype=out_dtype).element_size()
+    return nbytes(x, w1, b1, w2, b2) + out_bytes, dict(ops), None
+
+
+def f32_ffn_int8_cost(args):
+    """(bytes, operations, type) of #4's int8 f32 form on
+    ``ffn_decode_int8_f32``'s ``args``: its two int8 products."""
+    x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2, _, out_dtype = args
+    out_bytes = x_q.shape[0] * x_q.shape[1] * torch.empty((), dtype=out_dtype).element_size()
+    return (nbytes(x_q, x_s, w1_q, w1_s, b1, w2_q, w2_s, b2) + out_bytes,
+            4 * x_q.shape[0] * x_q.shape[1] * w1_q.shape[1], "int8")
+
+
+def f32_hidden_flips(x, w1, b1, w2, b2, act, out_dtype):
+    """How far ``ffn_decode_reference`` moves, relative to its largest
+    output, when its GEMM1 is summed in f64 instead of f32: the hidden's
+    roundings to W2's dtype that flip, as in any other order of the sum."""
+    from apertis_llm_torch.ops.activations import get_activation
+    from apertis_llm_torch.ops.kernels.ffn_fused import ffn_decode_reference
+    ref = ffn_decode_reference(x, w1, b1, w2, b2, act, out_dtype).float()
+    pre = (x.to(w1.dtype).double() @ w1.double()).float() + b1.float()
+    hid = get_activation(act)(pre).to(w2.dtype)
+    alt = (hid.float() @ w2.float() + b2.float()).to(out_dtype).float()
+    return float((alt - ref).abs().max() / ref.abs().max())
+
+
 def f32_forms_phase(checks, dev):
     """Phase 3i: the f32 forms of the decode kernels against their plain
     versions at the 1.5B dense widths (hidden 2432, 38 heads, d_state 16,
     FFN 9728), on one f32 layer and its int8 quantization (f32 norms,
     biases and rows): #3 (``ssm_decode_step_f32``, epilogues none, dense
     and moe, both norms; ``ssm_decode_step_int8_f32``), #4
-    (``ffn_decode_f32`` on the step's bf16 FFN input and on f32 rows;
-    ``ffn_decode_int8_f32``) at 64, 4 and 1 rows, #9 (``mha_decode_ctx_f32``
-    and ``_int8_f32``) at (64, 96) and (1, 88) slots with heads of 64 and
-    128, and #5 (``ln_quantize_f32``) at the eval's and the prefill's rows;
-    sensitivity checks that drop each term, each timed shape run twice for
-    the same bits. Returns #9 f32's SDPA f32 time (the library yardstick)."""
-    from apertis_llm_torch.models.convert import from_jax_params
+    (``ffn_decode_f32`` on the step's bf16 FFN input and on f32 rows, and
+    with bf16 weights beside f32 biases and rows; ``ffn_decode_int8_f32``)
+    at 64, 4, 1 and 256 rows, #9 (``mha_decode_ctx_f32`` and ``_int8_f32``)
+    at (64, 96) and (1, 88) slots with heads of 64 and 128, and #5
+    (``ln_quantize_f32``) at the eval's and the prefill's rows; sensitivity
+    checks that drop each term, each timed shape run twice for the same
+    bits. Returns (#9 f32's SDPA f32 time, the library yardstick; the
+    resources of #3's and #4's split-TF32 products at their plans)."""
     from apertis_llm_torch.models.factory import calculate_model_dimensions
-    from apertis_llm_torch.models.params import init_params
-    from apertis_llm_torch.models.quantize import quantize_params
     from apertis_llm_torch.ops.kernels.ffn_fused import (
         ffn_decode_f32, ffn_decode_int8_f32, ffn_decode_int8_reference, ffn_decode_reference)
     from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize_f32, ln_quantize_reference
@@ -1714,14 +1826,8 @@ def f32_forms_phase(checks, dev):
 
     card = checks.card
     f32 = torch.float32
-    dims = calculate_model_dimensions("1.5B", 32000)
-    config = dense_preset_config(dims)
-    config.num_hidden_layers, config.dtype, config.param_dtype = 1, "float32", "float32"
-    tree = init_params(config, torch.Generator(device=dev).manual_seed(SEED + 22), device=dev)
-    perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 23))
-    model = from_jax_params(tree, config, device=dev)
-    qmodel = from_jax_params(quantize_params(tree), config, device=dev)
-    del tree
+    config, layer, qlayer = f32_layers(
+        dense_preset_config(calculate_model_dimensions("1.5B", 32000)), dev, SEED + 22)
     g = torch.Generator(device=dev).manual_seed(SEED + 24)
     d, c, inter, eps = config.hidden_size, config.ssm_d_inner, config.intermediate_size, \
         config.layer_norm_eps
@@ -1729,37 +1835,20 @@ def f32_forms_phase(checks, dev):
     def randn(*shape, dtype=f32, std=1.0):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
-    layer, qlayer = model.layers[0], qmodel.layers[0]
     mixer, qmixer = layer.attn.mixer_weights(), qlayer.attn.mixer_weights()
     fnorm = layer.ffn.pre_norm.weights()
     n_exp = 8
     router = RouterWeights(1 + randn(d, std=0.1), randn(d, std=0.1), randn(d, n_exp, std=0.05),
                            randn(n_exp, std=0.1))
-    log(f"f32 forms (SIMT, f32 sums): one f32 layer at the 1.5B widths (hidden {d}, mixer "
-        f"{c}, FFN {inter}) and its int8 quantization with f32 norms, biases and rows")
+    log(f"f32 forms (#3 and #4 on the Hopper products, f32 weights in split TF32): one f32 "
+        f"layer at the 1.5B widths (hidden {d}, mixer {c}, FFN {inter}) and its int8 "
+        f"quantization with f32 norms, biases and rows")
 
     def step_inputs(b, w, fn=fnorm, rt=None):
-        return (randn(b, d), randn(b, config.ssm_conv_kernel - 1, c), randn(b, c), w, eps, fn,
-                None, rt)
-
-    def step_cost(args):
-        h, conv, ssm, w, _, fn, _, rt = args
-        rows, r_ = h.shape[0], w.dt_w.shape[0]
-        weights = [getattr(w, f) for f in w._fields if isinstance(getattr(w, f), torch.Tensor)]
-        macs = d * c * 2 + c * (r_ + 2 * c) + c * d + (d * n_exp if rt is not None else 0)
-        outs = nbytes(h, ssm) + rows * c * conv.element_size()
-        if rt is not None:
-            outs += rows * (d + 4 + 4 * n_exp)
-        elif fn is not None:
-            outs += rows * d * (1 if w.quantized else 2) + (4 * rows if w.quantized else 0)
-        return (nbytes(h, conv, ssm, *weights, *(fn or ()), *(rt or ())) + outs,
-                2 * rows * macs, "int8" if w.quantized else "f32")
+        return f32_step_args(randn, config, w, b, fn, rt)
 
     tol = F32_FORM_TOL
-    step_tols = [("h_out", tol), ("x_proj", tol), ("ssm", tol), ("ffn_in", BF16_ULP)]
-    step_tols_q = [("h_out", BF16_ULP), ("x_proj", BF16_ULP), ("ssm", BF16_ULP),
-                   ("x_q", "int8"), ("x_s", BF16_ULP)]
-    moe_tols = step_tols[:3] + [("x_q", "int8"), ("x_s", BF16_ULP), ("comb", F32_TOL)]
+    step_tols, step_tols_q, moe_tols = F32_STEP_TOLS, F32_STEP_TOLS_Q, F32_MOE_TOLS
     args = step_inputs(5, mixer)
 
     def without(**terms):
@@ -1784,7 +1873,7 @@ def f32_forms_phase(checks, dev):
         "router bias": margs[:7] + (router._replace(b=torch.zeros_like(router.b)),),
         "router LayerNorm bias": margs[:7] + (router._replace(ln_b=torch.zeros_like(router.ln_b)),),
     }, moe_tols)
-    for b in (64, 4, 1):
+    for b in (64, 4, 1, 256):
         for w, fn, label in [(mixer, fnorm, "LayerNorm, dense"),
                              (mixer, None, "LayerNorm, ffn_mode none"),
                              (mixer._replace(norm_b=None), (fnorm[0], None), "RMSNorm, dense")]:
@@ -1792,7 +1881,7 @@ def f32_forms_phase(checks, dev):
             checks.kernel("ssm_decode_step_f32", f"f32 decode step B={b} {label}", a,
                           ssm_decode_step_f32, ssm_decode_step_reference,
                           step_tols if fn is not None else step_tols[:3],
-                          cost=step_cost(a) if label == "LayerNorm, dense" else None,
+                          cost=f32_step_cost(a) if label == "LayerNorm, dense" else None,
                           repeat=b == 64, shape=None if b == 64 else f"{b} rows")
         a = step_inputs(b, mixer, rt=router)
         checks.kernel("ssm_decode_step_f32", f"f32 decode step B={b} moe epilogue", a,
@@ -1804,7 +1893,7 @@ def f32_forms_phase(checks, dev):
             checks.kernel("ssm_decode_step_int8_f32", f"int8 f32 decode step B={b} {label}", a,
                           ssm_decode_step_int8_f32, ssm_decode_step_reference,
                           step_tols_q if fn is not None else step_tols_q[:3],
-                          cost=step_cost(a) if label == "LayerNorm, dense" else None,
+                          cost=f32_step_cost(a) if label == "LayerNorm, dense" else None,
                           repeat=b == 64, shape=None if b == 64 else f"{b} rows")
 
     w1, w2 = layer.ffn.w1, layer.ffn.w2
@@ -1825,25 +1914,56 @@ def f32_forms_phase(checks, dev):
     checks.sensitive("int8 f32 ffn", ffn_decode_int8_reference, a, {
         "b1": a[:4] + (torch.zeros_like(q1.b),) + a[5:],
         "b2": a[:7] + (torch.zeros_like(q2.b),) + a[8:]}, [("out", BF16_ULP)])
-    ffn_bytes = nbytes(w1.w, w1.b, w2.w, w2.b)
-    q_bytes = nbytes(q1.w_q, q1.w_s, q1.b, q2.w_q, q2.w_s, q2.b)
-    for s_ in (64, 4, 1):
+    for s_ in (64, 4, 1, 256):
         a = ffn_args(s_)
         checks.kernel("ffn_decode_f32", f"f32 ffn S={s_}", a, ffn_decode_f32,
-                      ffn_decode_reference, [("out", tol)],
-                      cost=(ffn_bytes + nbytes(a[0]) + 4 * s_ * d, 4 * s_ * d * inter, "f32"),
+                      ffn_decode_reference, [("out", tol)], cost=f32_ffn_cost(a),
                       repeat=s_ == 64, shape=None if s_ == 64 else f"{s_} rows")
         a = ffn_q_args(s_)
         checks.kernel("ffn_decode_int8_f32", f"int8 f32 ffn S={s_}", a, ffn_decode_int8_f32,
-                      ffn_decode_int8_reference, [("out", BF16_ULP)],
-                      cost=(q_bytes + nbytes(a[0], a[1]) + 4 * s_ * d, 4 * s_ * d * inter,
-                            "int8"),
+                      ffn_decode_int8_reference, [("out", BF16_ULP)], cost=f32_ffn_int8_cost(a),
                       repeat=s_ == 64, shape=None if s_ == 64 else f"{s_} rows")
     for act in ("relu", "silu"):
         checks.kernel("ffn_decode_f32", f"f32 ffn S=4 {act} on f32 rows", ffn_args(4, act, f32),
                       ffn_decode_f32, ffn_decode_reference, [("out", tol)])
         checks.kernel("ffn_decode_int8_f32", f"int8 f32 ffn S=4 {act}", ffn_q_args(4, act),
                       ffn_decode_int8_f32, ffn_decode_int8_reference, [("out", BF16_ULP)])
+    # The dtype mixes the form takes, at each row count. A bf16 W2 rounds the
+    # hidden to bf16: where GEMM1's f32 sum (in any order but the plain
+    # version's) lands on the other side of a bf16 rounding boundary, the
+    # output moves by a bf16 ulp of that hidden value times W2's row. The
+    # plain version itself moves so by 2e-4 of its largest output with its
+    # GEMM1 summed in f64 (the "hidden flips" line), above F32_FORM_TOL,
+    # so these f32 outputs are held at F32_TOL, the tolerance of f32
+    # outputs computed from bf16-rounded operands; a bf16 output at
+    # BF16_ULP; an f32 W2 (f32 hidden) at F32_FORM_TOL.
+    bf_w1, bf_w2 = w1.w.bfloat16(), w2.w.bfloat16()
+    for s_ in (64, 4, 1, 256):
+        for label, a, out_tol in (
+                ("bf16 weights, f32 biases, rows and output",
+                 (randn(s_, d), bf_w1, w1.b, bf_w2, w2.b, config.hidden_act, f32), F32_TOL),
+                ("f32 W1, bf16 W2, f32 output",
+                 (randn(s_, d), w1.w, w1.b, bf_w2, w2.b, config.hidden_act, f32), F32_TOL),
+                ("f32 W1, bf16 W2 and output",
+                 (randn(s_, d, dtype=torch.bfloat16), w1.w, w1.b, bf_w2, w2.b.bfloat16(),
+                  config.hidden_act, torch.bfloat16), BF16_ULP),
+                ("bf16 W1, f32 W2 and output",
+                 (randn(s_, d), bf_w1, w1.b, w2.w, w2.b, config.hidden_act, f32), tol)):
+            checks.kernel("ffn_decode_f32", f"f32 ffn S={s_}, {label}", a, ffn_decode_f32,
+                          ffn_decode_reference, [("out", out_tol)], repeat=s_ == 64)
+            if out_tol is F32_TOL:
+                log(f"  f32 ffn S={s_}, {label}: hidden flips of the plain version, GEMM1 "
+                    f"in f64: {f32_hidden_flips(*a):.3e} of max|ref|")
+        # The int8 form's biases and output of either dtype (its GEMM2's
+        # kDownFfnF32); bf16 both is the int8 layout's.
+        for bdt, odt in ((torch.bfloat16, f32), (f32, torch.bfloat16)):
+            a = ffn_q_args(s_)
+            a = a[:4] + (q1.b.to(bdt),) + a[5:7] + (q2.b.to(bdt), a[8], odt)
+            checks.kernel("ffn_decode_int8_f32",
+                          f"int8 f32 ffn S={s_}, {str(bdt)[6:]} biases, {str(odt)[6:]} output",
+                          a, ffn_decode_int8_f32, ffn_decode_int8_reference, [("out", BF16_ULP)],
+                          repeat=s_ == 64)
+    resources = f32_form_resources(d, c, config.ssm_dt_rank, inter, dev)
 
     def ctx_args(b, l, hd, int8=False):
         """A layer's f32 cache: row b's prompt in its first slots, bucket
@@ -1899,9 +2019,229 @@ def f32_forms_phase(checks, dev):
                       [("q", "int8"), ("scale", SCALE_TOL)],
                       cost=(nbytes(x, w_, b_) + x.numel() + 4 * rows, 10 * x.numel(), "f32")
                       if timed else None, repeat=timed)
-    del model, qmodel
+    del layer, qlayer
     torch.cuda.empty_cache()
-    return library_ms
+    return library_ms, resources
+
+
+def f32_form_resources(d, c, r, inter, dev, rows=(64, 1)):
+    """The registers, shared memory, blocks an SM and spills of #4's and
+    #3's split-TF32 products at their plans for the 1.5B widths (``rows``
+    rows), where the checkout has them (None otherwise)."""
+    from apertis_llm_torch.ops.kernels import _build, decode_plan, ffn_fused, ssm_step
+    if not hasattr(decode_plan, "f32_ffn_plan"):
+        return None
+    sms = _build.sm_count(dev.index or 0)
+    out = {}
+    for b in rows:
+        ffn = decode_plan.f32_ffn_plan(b, d, inter, True, True, False, sms)
+        ffn_lo = decode_plan.f32_ffn_plan(b, d, inter, True, True, True, sms)
+        step = decode_plan.f32_step_plan(b, d, c, r, sms)
+        res = {"ffn_up_bf16_rows": ffn_fused.ffn_quant_resources(32, "up_bf16", ffn.up),
+               "ffn_up_f32_rows": ffn_fused.ffn_quant_resources(32, "up", ffn_lo.up),
+               "ffn_down": ffn_fused.ffn_quant_resources(32, "down", ffn.down)}
+        for name, p in zip(("in", "mix", "out"), step):
+            res[f"step_{name}"] = ssm_step.ssm_step_resources(name, p, False, tf32=True)
+        for key, v in res.items():
+            log(f"  resources at {b} rows, split TF32 {key}: {v}")
+        out[f"{b} rows"] = res
+    return out
+
+
+# The model of --f32-times' chat token: what phase 8's chat serves.
+F32_CHAT_PARAMS = "1.5B"
+
+
+def f32_step_launches(result, label, fn, args, quant, card):
+    """#3's f32 form on ``args``, its device time by kernel; for float
+    projections also the whole step under split-TF32 clusters of at most 4,
+    2 and 1 (``decode_plan.TF_MAX_SPLIT``, where the checkout has it), each
+    the least of three windows, into ``result[label]``."""
+    from apertis_llm_torch.ops.kernels import decode_plan
+    per = device_ms(lambda: fn(*args), by_kernel=True) or {}
+    result[label]["device_ms_by_kernel"] = per
+    log(f"  {label}, by kernel (device ms): "
+        + ", ".join(f"{n[:60]} {t:.4f}" for n, t in sorted(per.items(), key=lambda x: -x[1]))
+        + f"; card: {card}")
+    if quant or not hasattr(decode_plan, "TF_MAX_SPLIT"):
+        return
+    caps, plan_cap = {}, decode_plan.TF_MAX_SPLIT
+    try:
+        for cap in (4, 2, 1):
+            decode_plan.TF_MAX_SPLIT = cap
+            decode_plan.f32_step_plan.cache_clear()
+            caps[cap] = min(device_ms(lambda: fn(*args)) for _ in range(3))
+    finally:
+        decode_plan.TF_MAX_SPLIT = plan_cap
+        decode_plan.f32_step_plan.cache_clear()
+    caps[plan_cap] = min(device_ms(lambda: fn(*args)) for _ in range(3))
+    result[label]["device_ms_by_split_cap"] = caps
+    log(f"  {label}, device ms by the split-TF32 cluster cap: "
+        + ", ".join(f"{c}: {t:.4f}" for c, t in sorted(caps.items(), reverse=True))
+        + f" (the plan's: {plan_cap}); card: {card}")
+
+
+def f32_times(card, dev=None):
+    """``--f32-times``: #4's and #3's f32 forms (``ffn_decode_f32``,
+    ``ffn_decode_int8_f32``, ``ssm_decode_step_f32`` and
+    ``ssm_decode_step_int8_f32``, the dense epilogue) at 64, 4 and 1 rows on
+    one f32 layer of the 1.5B dense preset and its int8 quantization, #3's
+    also with the moe epilogue at the 1.5B MoE preset's widths, each checked
+    against its plain version and timed (host loop, profiler device time)
+    beside its bound (phase 3i's: ``f32_step_cost``, ``f32_ffn_cost``) and,
+    for float weights, the bound of the same products on CUDA cores in f32;
+    the split-TF32 products' resources where the checkout has them; then one
+    chat token at batch 1 of the 1.5B f32 model that ``create-model`` writes
+    and of its ``--quantize int8`` serving: TTFT and the streamed rate of an
+    8-token prompt, and a decode token's device time by kernel against its
+    host time (the difference of 40- and 8-token streams). Needs only the
+    wrappers' and the interface's Python API, so an earlier checkout can run
+    it with this script copied in."""
+    import contextlib
+    import io
+
+    from apertis_llm_torch import cli
+    from apertis_llm_torch.inference.interface import ApertisInterface
+    from apertis_llm_torch.models.factory import calculate_model_dimensions
+    from apertis_llm_torch.ops.kernels.ffn_fused import (
+        ffn_decode_f32, ffn_decode_int8_f32, ffn_decode_int8_reference, ffn_decode_reference)
+    from apertis_llm_torch.ops.kernels.ssm_step import (
+        RouterWeights, ssm_decode_step_f32, ssm_decode_step_int8_f32,
+        ssm_decode_step_reference)
+    from apertis_llm_torch.ops.quant import quantize_rows
+
+    dev = dev or torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    f32 = torch.float32
+
+    def randn(*shape, dtype=f32, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    result = {"card": card}
+
+    def timed(label, fn, plain, args, tols, cost, cuda_core_cost=None):
+        got, ref = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for (name, tol), a, b in zip(tols, got, ref):
+            (compare_int8 if tol == "int8" else compare)(f"{label} {name}", a, b, tol)
+        ms = cuda_ms(lambda: fn(*args))
+        d_ms = device_ms(lambda: fn(*args))
+        b_ms, by = bound(*cost)
+        rec = {"ms": ms, "device_ms": d_ms, "bound_ms": b_ms, "bound_by": by,
+               "bound_bytes_ms": cost[0] / HBM_BYTES_PER_S * 1e3,
+               "plain_ms": cuda_ms(lambda: plain(*args))}
+        if cuda_core_cost is not None:
+            rec["bound_cuda_cores_ms"] = bound(*cuda_core_cost)[0]
+        result[label] = rec
+        log(f"  {label}: device {d_ms if d_ms is None else round(d_ms, 4)} ms (host loop "
+            f"{ms:.4f}), bound {b_ms:.4f} ms ({by}; bytes {rec['bound_bytes_ms']:.4f}"
+            + (f", the same products on CUDA cores {rec['bound_cuda_cores_ms']:.4f}"
+               if cuda_core_cost is not None else "") + f"); card: {card}")
+
+    dims = calculate_model_dimensions("1.5B", 32000)
+    config, layer, qlayer = f32_layers(dense_preset_config(dims), dev, SEED + 22)
+    d, c, inter = config.hidden_size, config.ssm_d_inner, config.intermediate_size
+    w1, w2, q1, q2 = layer.ffn.w1, layer.ffn.w2, qlayer.ffn.w1, qlayer.ffn.w2
+    fnorm = layer.ffn.pre_norm.weights()
+    log(f"--f32-times: the 1.5B widths (hidden {d}, mixer {c}, FFN {inter}); card: {card}")
+    for rows in (64, 4, 1):
+        a = (randn(rows, d, dtype=torch.bfloat16), w1.w, w1.b, w2.w, w2.b, config.hidden_act, f32)
+        timed(f"ffn_decode_f32 at {rows} rows", ffn_decode_f32, ffn_decode_reference, a,
+              [("out", F32_FORM_TOL)], f32_ffn_cost(a), f32_ffn_cost(a, cuda_cores=True))
+        x_q, x_s = quantize_rows(randn(rows, d))
+        a = (x_q, x_s, q1.w_q, q1.w_s, q1.b, q2.w_q, q2.w_s, q2.b, config.hidden_act, f32)
+        timed(f"ffn_decode_int8_f32 at {rows} rows", ffn_decode_int8_f32,
+              ffn_decode_int8_reference, a, [("out", BF16_ULP)], f32_ffn_int8_cost(a))
+
+    forms = ((ssm_decode_step_f32, "ssm_decode_step_f32", False),
+             (ssm_decode_step_int8_f32, "ssm_decode_step_int8_f32", True))
+    for rows in (64, 4, 1):
+        for fn_, key, quant in forms:
+            a = f32_step_args(randn, config, (qlayer if quant else layer).attn.mixer_weights(),
+                              rows, fnorm)
+            timed(f"{key} at {rows} rows", fn_, ssm_decode_step_reference, a,
+                  F32_STEP_TOLS_Q if quant else F32_STEP_TOLS, f32_step_cost(a),
+                  None if quant else f32_step_cost(a, cuda_cores=True))
+    del layer, qlayer
+    moe_config, mlayer, mqlayer = f32_layers(
+        moe_preset_config(calculate_model_dimensions("1.5B", 32000, use_expert_system=True)),
+        dev, SEED + 25)
+    md = moe_config.hidden_size
+    mnorm = (1 + randn(md, std=0.1), randn(md, std=0.1))
+    router = RouterWeights(1 + randn(md, std=0.1), randn(md, std=0.1),
+                           randn(md, moe_config.num_experts, std=0.05),
+                           randn(moe_config.num_experts, std=0.1))
+    for rows in (64, 4, 1):
+        for fn_, key, quant in forms:
+            a = f32_step_args(randn, moe_config,
+                              (mqlayer if quant else mlayer).attn.mixer_weights(), rows, mnorm,
+                              router)
+            label = f"{key} moe epilogue at the MoE widths, {rows} rows"
+            timed(label, fn_, ssm_decode_step_reference, a,
+                  F32_MOE_TOLS_Q if quant else F32_MOE_TOLS, f32_step_cost(a),
+                  None if quant else f32_step_cost(a, cuda_cores=True))
+            if rows == 1:
+                f32_step_launches(result, label, fn_, a, quant, card)
+    del mlayer, mqlayer
+    result["resources"] = f32_form_resources(d, c, config.ssm_dt_rank, inter, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # One chat token of the 1.5B f32 model and its int8 serving.
+    with tempfile.TemporaryDirectory() as work:
+        big = os.path.join(work, "dense-1.5B")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["create-model", "--target-params", F32_CHAT_PARAMS, "--attention-type",
+                      "selective_ssm", "--output-dir", big, "--device", dev.type])
+        ids = np.arange(1, 9, dtype=np.int64)[None]
+        for quantize in (None, "int8"):
+            label = f"chat {quantize or 'f32'}"
+            iface = ApertisInterface(model_path=big, quantize=quantize, device=dev.type)
+            engine = iface.engine
+
+            def run(n):
+                return list(engine.stream(ids, max_new_tokens=n, min_new_tokens=n,
+                                          do_sample=False))
+            run(8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = None
+            for i, _ in enumerate(engine.stream(ids, max_new_tokens=48, min_new_tokens=48,
+                                                do_sample=False)):
+                if i == 0:
+                    first = time.perf_counter() - t0
+            total = time.perf_counter() - t0
+            walls = {}
+            for n in (8, 40):
+                best = float("inf")
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(n)
+                    torch.cuda.synchronize()
+                    best = min(best, time.perf_counter() - t0)
+                walls[n] = best
+            by8 = device_ms(lambda: run(8), iters=2, by_kernel=True) or {}
+            by40 = device_ms(lambda: run(40), iters=2, by_kernel=True) or {}
+            per = {k: (by40.get(k, 0.0) - by8.get(k, 0.0)) / 32 for k in set(by8) | set(by40)}
+            per = {k: v for k, v in sorted(per.items(), key=lambda kv: -kv[1]) if v > 1e-5}
+            host_ms = (walls[40] - walls[8]) / 32 * 1e3
+            dev_ms = sum(per.values())
+            result[label] = {"ttft_ms": first * 1e3, "streamed_tokens_per_s": 47 / (total - first),
+                             "token_host_ms": host_ms, "token_device_ms": dev_ms,
+                             "token_device_ms_by_kernel": {k[:90]: v for k, v in
+                                                           list(per.items())[:16]}}
+            log(f"  {label}: TTFT {first * 1e3:.1f} ms, {47 / (total - first):.1f} tokens/s "
+                f"streamed; a decode token {host_ms:.3f} ms on the host clock, "
+                f"{dev_ms:.3f} ms of device time ({100 * dev_ms / host_ms:.0f} %); card: {card}")
+            for k, v in list(per.items())[:10]:
+                log(f"    {v:.4f} ms a token: {k[:110]}")
+            del iface, engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    return result
 
 
 def sdpa_f32_decode_ms(args, card):
@@ -2302,13 +2642,14 @@ def surfaces_main() -> int:
     log(f"card: {card}; build in {time.perf_counter() - t0:.1f} s")
     checks = KernelChecks(card)
     dev = torch.device("cuda", 0)
-    f32_forms_phase(checks, dev)
+    _, resources = f32_forms_phase(checks, dev)
     log(f"phase 3i done at {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as work:
         launches, timings = surfaces_phase(card, dev, work)
     log(f"phase 8 done at {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"surfaces": {"launches": launches, "timings": timings,
-                                   "errs": checks.errs, "times": checks.times}}))
+                                   "errs": checks.errs, "times": checks.times,
+                                   "f32_form_resources": resources}}))
     print(card)
     return 0
 
@@ -3979,7 +4320,7 @@ def main() -> int:
                 repeats(f"selective_scan_carry_fwd {label}", selective_scan_carry_fwd, fargs)
 
     # ---- 3i. the decode kernels' f32 forms ------------------------------------
-    library["mha_decode_ctx_f32"] = f32_forms_phase(checks, dev)
+    library["mha_decode_ctx_f32"], f32_resources = f32_forms_phase(checks, dev)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. serve -----------------------------------------------------------
@@ -5359,7 +5700,7 @@ def main() -> int:
     print(json.dumps({"flash_resources": flash_resources}))
     print(json.dumps({"qmm": qmm}))
     print(json.dumps({"decode_times": decode, "decode_resources": decode_resources,
-                      "ln_resources": ln_resources}))
+                      "ln_resources": ln_resources, "f32_form_resources": f32_resources}))
     print(json.dumps({"kernels": kernels, "serve": serve, "train": train_perf,
                       "small_model_max_abs_err": small_err,
                       "small_train_grad_err_over_limit": small_grad_err,
@@ -5593,4 +5934,6 @@ if __name__ == "__main__":
         sys.exit(surfaces_main())
     if sys.argv[1:] == ["--decode-times"]:
         sys.exit(decode_times_main())
+    if sys.argv[1:] == ["--f32-times"]:
+        sys.exit(times_main("f32_times", f32_times))
     sys.exit(main())
