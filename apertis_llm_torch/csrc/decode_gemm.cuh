@@ -36,7 +36,12 @@
 // TMA as a hi tile and a lo tile; each k8 step runs hi.hi + lo.hi (+ hi.lo) and each chunk's
 // products start a fresh accumulator that is added to the f32 sum in
 // registers (the tensor cores' own f32 sum over thousands of terms drifts,
-// as in flash_attention_f32.cu).
+// as in flash_attention_f32.cu); f32 rows and an int8 weight (f32 sums, 64
+// K a chunk, kDgB3): the rows split by the launch before into three bf16
+// parts, hi + mid + lo (exact for normal f32 values), staged by TMA as three
+// tiles beside one int8 weight tile, whose bf16 A fragments (exact levels)
+// serve the three parts' products into one fresh accumulator a chunk, added
+// to the f32 sum in registers as kDgTF's.
 // A K split over a thread-block cluster adds the blocks' sums in one of two
 // exchanges: the owner-slot one (dg_split_sum: a column block's sums to one
 // rank) or the sliced one (xpush / add_round: runs of (thread, column block)
@@ -69,7 +74,7 @@ constexpr int kDgConsumerRegs = 224;
 constexpr size_t kDgSmemLimit = 232448;                    // dynamic shared memory a block
 constexpr int kDgConsumerThreads = kConsumers * 128;
 
-enum DgKind { kDgI8 = 0, kDgI4 = 1, kDgBf16 = 2, kDgBW = 3, kDgTF = 4 };
+enum DgKind { kDgI8 = 0, kDgI4 = 1, kDgBf16 = 2, kDgBW = 3, kDgTF = 4, kDgB3 = 5 };
 
 constexpr uint32_t kDgBWBytes = kDgKC / 2 * 256;           // bf16 weight tile: 64 x 128
 constexpr int kDgTFKC = kDgKC / 4;                         // f32 K rows a chunk: 128 bytes
@@ -137,13 +142,16 @@ struct DgWeight {
 // `f32` (kDgBW): the rows are f32 in memory, loaded by the producer, which
 // rounds them to bf16. kDgTF: the rows' TF32 hi parts (f32, by TMA) and,
 // with `lo`, their lo parts by a second map into a second tile (x_bytes
-// holds both).
+// holds both). kDgB3: the rows' three bf16 parts (hi, mid, lo), each
+// `part_rows` rows on from the last in one (3 part_rows, k) matrix, by TMA
+// only, into three tiles (x_bytes holds the three).
 struct DgRows {
   const void* x;
   int rows, k;
   int tma;
   int f32 = 0;
   int lo = 0;
+  int part_rows = 0;
 };
 
 // The arrivals a stage's full barrier expects: one for the TMA loads (which
@@ -283,9 +291,16 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
     if (ptid == 0 && tx != 0) {
       mbar_arrive_tx(&r.full[s], tx);
       if (rows.tma) {
-        tma_load_2d(r.x(s), x_map, &r.full[s], k0, m0);
-        if (kKind == kDgTF && rows.lo)   // the lo tile, by the second map (sh_map)
-          tma_load_2d(r.x(s) + r.x_bytes / 2, sh_map, &r.full[s], k0, m0);
+        if constexpr (kKind == kDgB3) {
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+            tma_load_2d(r.x(s) + p * (r.x_bytes / 3), x_map, &r.full[s], k0,
+                        m0 + p * rows.part_rows);
+        } else {
+          tma_load_2d(r.x(s), x_map, &r.full[s], k0, m0);
+          if (kKind == kDgTF && rows.lo)   // the lo tile, by the second map (sh_map)
+            tma_load_2d(r.x(s) + r.x_bytes / 2, sh_map, &r.full[s], k0, m0);
+        }
       }
       if (wt.tma) {
         if constexpr (kKind == kDgI4) {
@@ -650,6 +665,108 @@ __device__ __forceinline__ void dg_consume_tf(const DgRing& r, const DgLane& L, 
   wg_wait<0>();
   add(t0);
   release(prev);
+}
+
+// ---- f32 rows in three bf16 parts (kDgB3) ----------------------------------
+//
+// The stage holds the rows' hi, mid and lo tiles (BR * 128 bytes each, in
+// that order) and the int8 weight tile, whose A fragments are kDgBf16's:
+// the levels as exact bf16. Each product of a part is exact in f32.
+
+// The chunk's products into a fresh accumulator t: the lo part's four k16
+// steps, then the mid part's, then the hi part's (the small terms summed
+// first), against the same fragments; one commit group.
+template <int BR>
+__device__ __forceinline__ void b3_mma(const unsigned char* b, const uint32_t (&a)[4][4],
+                                       float (&t)[BR / 2]) {
+  wg_fence();
+#pragma unroll
+  for (int p = 2; p >= 0; --p)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      QmMma<false, BR>::run(t, a[kk], sw128_desc(b + p * BR * 128 + 32 * kk, 16, 1024),
+                            p < 2 || kk > 0 ? 1 : 0);
+  wg_commit();
+}
+
+// Consume ring positions [i0, i1) of three-part chunks into acc (added to
+// it, chunk by chunk in order, with f32 adds that round to nearest). At up
+// to 64 rows two fragment sets and two chunk accumulators take turns, as in
+// dg_consume_tf: position i's fragments are built and its products issued
+// while position i - 1's run. At 128 rows (64 accumulators a thread, and as
+// many again for the chunk's) each chunk's products complete before the
+// next chunk's fragments.
+template <int BR>
+__device__ __forceinline__ void dg_consume_b3(const DgRing& r, const DgLane& L, int i0, int i1,
+                                              float (&acc)[BR / 2]) {
+  if (i0 >= i1) return;
+  int s = i0 % r.stages;
+  uint32_t ph = (i0 / r.stages) & 1;
+  auto next = [&]() {
+    if (++s == r.stages) {
+      s = 0;
+      ph ^= 1;
+    }
+  };
+  auto release = [&](int st) {
+    __syncwarp();
+    if (L.lane == 0) mbar_arrive(&r.empty[st]);
+  };
+  auto add = [&](float (&t)[BR / 2]) {
+#pragma unroll
+    for (int j = 0; j < BR / 2; ++j) {
+      acc_fence(t[j]);
+      acc[j] = __fadd_rn(acc[j], t[j]);
+    }
+  };
+  uint32_t a0[4][4];
+  float t0[BR / 2];
+  if constexpr (BR > 64) {
+    for (int i = i0; i < i1; ++i) {
+      mbar_wait(&r.full[s], ph);
+      dg_frags<kDgB3>(r, L, s, a0);
+      b3_mma<BR>(r.x(s), a0, t0);
+      wg_wait<0>();
+      add(t0);
+      release(s);
+      next();
+    }
+  } else {
+    uint32_t a1[4][4];
+    float t1[BR / 2];
+    int prev = s;
+    mbar_wait(&r.full[s], ph);
+    dg_frags<kDgB3>(r, L, s, a0);
+    b3_mma<BR>(r.x(s), a0, t0);
+    next();
+    for (int i = i0 + 1; i < i1; i += 2) {
+      mbar_wait(&r.full[s], ph);
+      dg_frags<kDgB3>(r, L, s, a1);
+      b3_mma<BR>(r.x(s), a1, t1);
+      wg_wait<1>();
+      add(t0);
+      release(prev);
+      prev = s;
+      next();
+      if (i + 1 >= i1) {
+        wg_wait<0>();
+        add(t1);
+        release(prev);
+        return;
+      }
+      mbar_wait(&r.full[s], ph);
+      dg_frags<kDgB3>(r, L, s, a0);
+      b3_mma<BR>(r.x(s), a0, t0);
+      wg_wait<1>();
+      add(t1);
+      release(prev);
+      prev = s;
+      next();
+    }
+    wg_wait<0>();
+    add(t0);
+    release(prev);
+  }
 }
 
 // The K split's exchange over a cluster of `split` blocks: accumulator

@@ -53,15 +53,22 @@
 // picks the plan (VEC, tpr, NV): few values a thread, and more threads a row
 // where there are too few rows to fill the card.
 //
-// The f32 form (apertis_ln_quantize_f32, at the end of this file) takes the
-// f32 rows of an f32 tree (int8 weights beside f32 norms and activations),
-// which the TPU kernel takes as any dtype: the normed row is rounded to the
-// input's dtype, so not at all. It is a simple SIMT kernel, one block of
-// 256 threads a row, the row's statistics summed as the plain version sums
-// them (each group of vec values in f32 in order, the groups in f64), the
-// normed row held in shared memory for its absmax and levels.
+// The f32 form (apertis_ln_quantize_f32) takes the f32 rows of an f32 tree
+// (int8 weights beside f32 norms and activations), which the TPU kernel
+// takes as any dtype: the normed row is rounded to the input's dtype, so not
+// at all. It is the same kernel, instantiated on f32 rows and on f32 or bf16
+// norm weights, on the same plan: a thread holds its VEC consecutive f32
+// values of each vector in registers, loaded as 16-byte units (two a vector
+// of 8), and the sums are the same f32 group sums added in f64, so its
+// levels and scales are the plain version's bit for bit too. The bytes
+// double (the row is read as f32), the registers a thread do not (the bf16
+// form holds its row as f32 already). Rows wider than the plan takes (up to
+// the 58,088 f32 values a block's shared memory holds beside its reduction
+// slots) take a second route, ln_quant_f32_wide_kernel: one block of 256
+// threads a row, the row staged in shared memory, summed in the same order.
 
 #include <cmath>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -96,6 +103,28 @@ template <int VEC>
 __device__ __forceinline__ void load_f32(const bf16* p, float* out) {
   typename Raw<VEC>::T r = __ldg(reinterpret_cast<const typename Raw<VEC>::T*>(p));
   unpack<VEC>(r, out);
+}
+
+// VEC f32 values: 16-byte loads (two for a vector of 8), or one of 8 or 4
+// bytes for a vector of 2 or 1.
+template <int VEC>
+__device__ __forceinline__ void load_f32(const float* p, float* out) {
+  if constexpr (VEC >= 4) {
+#pragma unroll
+    for (int u = 0; u < VEC / 4; ++u) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(p) + u);
+      out[4 * u] = f.x;
+      out[4 * u + 1] = f.y;
+      out[4 * u + 2] = f.z;
+      out[4 * u + 3] = f.w;
+    }
+  } else if constexpr (VEC == 2) {
+    const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+    out[0] = f.x;
+    out[1] = f.y;
+  } else {
+    out[0] = __ldg(p);
+  }
 }
 
 __device__ __forceinline__ uint32_t pack4(const int* l) {
@@ -167,24 +196,27 @@ __device__ __forceinline__ float row_sum(const float (&v)[NV][VEC], int t, int t
   return __double2float_rn(row_reduce<false>(acc, tpr, red));
 }
 
-template <int VEC, int NV, int MAXT>
+// XT: the rows' type (bf16, or f32 for the f32 form); PT: the norm
+// weights' (bf16, or f32 or bf16 beside f32 rows).
+template <typename XT, typename PT, int VEC, int NV, int MAXT>
 __global__ void __launch_bounds__(MAXT) ln_quant_kernel(
-    const bf16* __restrict__ x,   // (M, H)
-    const bf16* __restrict__ w,   // (H,) LayerNorm weight or RMSNorm scale
-    const bf16* __restrict__ b,   // (H,) LayerNorm bias; unused for RMSNorm
+    const XT* __restrict__ x,     // (M, H)
+    const PT* __restrict__ w,     // (H,) LayerNorm weight or RMSNorm scale
+    const PT* __restrict__ b,     // (H,) LayerNorm bias; unused for RMSNorm
     int8_t* __restrict__ q,       // (M, H)
     float* __restrict__ scale,    // (M, 1)
     int rows, int h, int tpr, int rms, float eps, float inv_h, float inv_sqrt_h) {
+  constexpr bool kBf16 = std::is_same<XT, bf16>::value;
   __shared__ double red[2][32];
   __shared__ float red_max[32];
   const int units = h / VEC;                 // vectors a row
   const int t = threadIdx.x & (tpr - 1);     // this thread's place in its row
   const int row = blockIdx.x * (blockDim.x / tpr) + threadIdx.x / tpr;
   const bool live = row < rows;
-  const bf16* xr = x + (size_t)row * h;
+  const XT* xr = x + (size_t)row * h;
 
   float v[NV][VEC];
-  {
+  if constexpr (kBf16) {
     typename Raw<VEC>::T raw[NV];
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
@@ -196,6 +228,17 @@ __global__ void __launch_bounds__(MAXT) ln_quant_kernel(
       const int j = t + i * tpr;
       if (live && j < units) {
         unpack<VEC>(raw[i], v[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) v[i][e] = 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int j = t + i * tpr;
+      if (live && j < units) {
+        load_f32<VEC>(xr + (size_t)j * VEC, v[i]);
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) v[i][e] = 0.f;
@@ -220,7 +263,7 @@ __global__ void __launch_bounds__(MAXT) ln_quant_kernel(
     inv = var > 0.f ? 1.f / sqrtf(__fadd_rn(var, eps)) : 0.f;
   }
 
-  // The normed row, rounded through bf16, in place; its absmax.
+  // The normed row, rounded through bf16 (bf16 rows), in place; its absmax.
   float m = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
@@ -233,7 +276,7 @@ __global__ void __launch_bounds__(MAXT) ln_quant_kernel(
       for (int e = 0; e < VEC; ++e) {
         float c = __fmul_rn(__fmul_rn(v[i][e], inv), wv[e]);
         if (!rms) c = __fadd_rn(c, bv[e]);
-        v[i][e] = round_bf16(c);
+        v[i][e] = kBf16 ? round_bf16(c) : c;
         m = fmaxf(m, fabsf(v[i][e]));
       }
     }
@@ -255,53 +298,56 @@ __global__ void __launch_bounds__(MAXT) ln_quant_kernel(
   if (t == 0) scale[row] = s;
 }
 
-typedef void (*LnKernel)(const bf16*, const bf16*, const bf16*, int8_t*, float*, int, int, int,
-                         int, float, float, float);
+template <typename XT, typename PT>
+using LnKernel = void (*)(const XT*, const PT*, const PT*, int8_t*, float*, int, int, int, int,
+                          float, float, float);
 
-// The instances ln_plan picks from: 16-byte vectors with 1-5 of them a
-// thread in blocks of up to 256 threads, and 4 a thread in blocks of up to
-// 1024; narrower vectors (H not a multiple of 8) 4 or 8 a thread in blocks
-// of up to 1024.
-LnKernel pick(int vec, int nv, int block) {
+// The instances ln_plan picks from: 16-byte vectors (8 values, bf16 or f32)
+// with 1-5 of them a thread in blocks of up to 256 threads, and 4 a thread
+// in blocks of up to 1024; narrower vectors (H not a multiple of 8) 4 or 8 a
+// thread in blocks of up to 1024.
+template <typename XT, typename PT>
+LnKernel<XT, PT> pick(int vec, int nv, int block) {
   if (vec == 8 && block <= 256) {
     switch (nv) {
-      case 1: return ln_quant_kernel<8, 1, 256>;
-      case 2: return ln_quant_kernel<8, 2, 256>;
-      case 3: return ln_quant_kernel<8, 3, 256>;
-      case 4: return ln_quant_kernel<8, 4, 256>;
-      case 5: return ln_quant_kernel<8, 5, 256>;
+      case 1: return ln_quant_kernel<XT, PT, 8, 1, 256>;
+      case 2: return ln_quant_kernel<XT, PT, 8, 2, 256>;
+      case 3: return ln_quant_kernel<XT, PT, 8, 3, 256>;
+      case 4: return ln_quant_kernel<XT, PT, 8, 4, 256>;
+      case 5: return ln_quant_kernel<XT, PT, 8, 5, 256>;
       default: return nullptr;
     }
   }
-  if (vec == 8) return nv == 4 ? ln_quant_kernel<8, 4, 1024> : nullptr;
+  if (vec == 8) return nv == 4 ? ln_quant_kernel<XT, PT, 8, 4, 1024> : nullptr;
   if (nv != 4 && nv != 8) return nullptr;
   switch (vec) {
-    case 4: return nv == 4 ? ln_quant_kernel<4, 4, 1024> : ln_quant_kernel<4, 8, 1024>;
-    case 2: return nv == 4 ? ln_quant_kernel<2, 4, 1024> : ln_quant_kernel<2, 8, 1024>;
-    case 1: return nv == 4 ? ln_quant_kernel<1, 4, 1024> : ln_quant_kernel<1, 8, 1024>;
+    case 4: return nv == 4 ? ln_quant_kernel<XT, PT, 4, 4, 1024> : ln_quant_kernel<XT, PT, 4, 8, 1024>;
+    case 2: return nv == 4 ? ln_quant_kernel<XT, PT, 2, 4, 1024> : ln_quant_kernel<XT, PT, 2, 8, 1024>;
+    case 1: return nv == 4 ? ln_quant_kernel<XT, PT, 1, 4, 1024> : ln_quant_kernel<XT, PT, 1, 8, 1024>;
     default: return nullptr;
   }
 }
 
 int block_of(int tpr) { return tpr < 256 ? 256 : tpr; }
 
-}  // namespace
+// Whether p starts on the boundary of one access of `vec` values of T (at
+// most 16 bytes).
+template <typename T>
+bool on_vec(const void* p, int vec) {
+  const size_t a = vec * sizeof(T) < 16 ? vec * sizeof(T) : 16;
+  return reinterpret_cast<uintptr_t>(p) % a == 0;
+}
 
-// Norm + quantize of `rows` rows of `h` bf16 values on the plan (vec, tpr,
-// nv) of ln_quant.py::ln_plan; rms != 0 selects RMSNorm (b unused, may be
-// null). x, w and b must be aligned to 2 * vec bytes, vec the widest of 8, 4,
-// 2 and 1 that divides h (the plain version's sums take vec values at a
-// time). Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a plan that does not cover the row.
-extern "C" int apertis_ln_quantize(const void* x, const void* w, const void* b, void* q,
-                                   void* scale, int rows, int h, int vec, int tpr, int nv,
-                                   int rms, float eps, void* stream) {
-  const LnKernel kernel = pick(vec, nv, block_of(tpr));
+// A launch of the plan's instance; cudaErrorInvalidValue for a plan that
+// does not cover the row or an operand off its vector's boundary.
+template <typename XT, typename PT>
+int ln_launch(const void* x, const void* w, const void* b, void* q, void* scale, int rows, int h,
+              int vec, int tpr, int nv, int rms, float eps, cudaStream_t stream) {
+  const LnKernel<XT, PT> kernel = pick<XT, PT>(vec, nv, block_of(tpr));
   const int group = h % 8 == 0 ? 8 : h % 4 == 0 ? 4 : h % 2 == 0 ? 2 : 1;
   if (kernel == nullptr || rows <= 0 || h <= 0 || vec != group || tpr < 8 || tpr > 1024 ||
-      (tpr & (tpr - 1)) || (long long)tpr * nv * vec < h ||
-      reinterpret_cast<uintptr_t>(x) % (2 * vec) || reinterpret_cast<uintptr_t>(w) % (2 * vec) ||
-      (b != nullptr && reinterpret_cast<uintptr_t>(b) % (2 * vec)) ||
+      (tpr & (tpr - 1)) || (long long)tpr * nv * vec < h || !on_vec<XT>(x, vec) ||
+      !on_vec<PT>(w, vec) || (b != nullptr && !on_vec<PT>(b, vec)) ||
       reinterpret_cast<uintptr_t>(q) % vec)
     return static_cast<int>(cudaErrorInvalidValue);
   // 1/H and H^-1/2 as Python computes them, rounded to f32 as torch rounds a
@@ -310,18 +356,16 @@ extern "C" int apertis_ln_quantize(const void* x, const void* w, const void* b, 
   const float inv_sqrt_h = static_cast<float>(std::pow(static_cast<double>(h), -0.5));
   const int block = block_of(tpr);
   const int per_block = block / tpr;
-  kernel<<<(rows + per_block - 1) / per_block, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(b),
+  kernel<<<(rows + per_block - 1) / per_block, block, 0, stream>>>(
+      static_cast<const XT*>(x), static_cast<const PT*>(w), static_cast<const PT*>(b),
       static_cast<int8_t*>(q), static_cast<float*>(scale), rows, h, tpr, rms, eps, inv_h,
       inv_sqrt_h);
   return static_cast<int>(cudaGetLastError());
 }
 
-// What the card gives the plan's kernel: registers a thread, shared memory a
-// block, resident blocks an SM, threads a block and spilled bytes a thread,
-// into out[0..4].
-extern "C" int apertis_ln_quantize_resources(int vec, int tpr, int nv, int* out) {
-  const LnKernel kernel = pick(vec, nv, block_of(tpr));
+template <typename XT, typename PT>
+int ln_resources(int vec, int tpr, int nv, int* out) {
+  const LnKernel<XT, PT> kernel = pick<XT, PT>(vec, nv, block_of(tpr));
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   int blocks = 0;
@@ -337,12 +381,43 @@ extern "C" int apertis_ln_quantize_resources(int vec, int tpr, int nv, int* out)
   return 0;
 }
 
+}  // namespace
 
-// ---- the f32 form -------------------------------------------------------------
+// Norm + quantize of `rows` rows of `h` bf16 values on the plan (vec, tpr,
+// nv) of ln_quant.py::ln_plan; rms != 0 selects RMSNorm (b unused, may be
+// null). x, w and b must be aligned to 2 * vec bytes, vec the widest of 8, 4,
+// 2 and 1 that divides h (the plain version's sums take vec values at a
+// time). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan that does not cover the row.
+extern "C" int apertis_ln_quantize(const void* x, const void* w, const void* b, void* q,
+                                   void* scale, int rows, int h, int vec, int tpr, int nv,
+                                   int rms, float eps, void* stream) {
+  return ln_launch<bf16, bf16>(x, w, b, q, scale, rows, h, vec, tpr, nv, rms, eps,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// What the card gives the plan's kernel: registers a thread, shared memory a
+// block, resident blocks an SM, threads a block and spilled bytes a thread,
+// into out[0..4]. form: 0 bf16 rows, 1 f32 rows and weights, 2 f32 rows and
+// bf16 weights.
+extern "C" int apertis_ln_quantize_resources(int vec, int tpr, int nv, int form, int* out) {
+  switch (form) {
+    case 0: return ln_resources<bf16, bf16>(vec, tpr, nv, out);
+    case 1: return ln_resources<float, float>(vec, tpr, nv, out);
+    case 2: return ln_resources<float, bf16>(vec, tpr, nv, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+
+// ---- the f32 form's wide route ------------------------------------------------
 
 namespace {
 
 constexpr int kLnF32Threads = 256;
+// The wide route's static shared memory (red and red_max below): the row
+// takes the rest of a block's 232,448 bytes, 58,088 f32 values at most.
+constexpr size_t kLnWideStatic = kLnF32Threads / 32 * (sizeof(double) + sizeof(float));
 
 // The block's sum of one double a thread, in every thread.
 __device__ __forceinline__ double ln_block_sum(double v, double* red) {
@@ -371,7 +446,9 @@ __device__ __forceinline__ float ln_row_sum(const float* v, int h, int g, double
   return __double2float_rn(ln_block_sum(acc, red));
 }
 
-__global__ void __launch_bounds__(kLnF32Threads) ln_quant_f32_kernel(
+// Rows wider than the register plan takes: one block of 256 threads a row,
+// the row staged in shared memory.
+__global__ void __launch_bounds__(kLnF32Threads) ln_quant_f32_wide_kernel(
     const float* __restrict__ x, const void* __restrict__ w, const void* __restrict__ b,
     int pbf, int8_t* __restrict__ q, float* __restrict__ scale, int h, int g, int rms,
     float eps, float inv_h, float inv_sqrt_h) {
@@ -422,19 +499,27 @@ __global__ void __launch_bounds__(kLnF32Threads) ln_quant_f32_kernel(
 
 // Norm + quantize of `rows` rows of `h` f32 values, the norm's weight and
 // bias of dtype code pbf (1 bf16, 0 f32); rms != 0 selects RMSNorm (b
-// unused). Returns cudaGetLastError().
+// unused). On ln_plan's plan (vec, tpr, nv) as apertis_ln_quantize takes it
+// (x, w and b on their vectors' boundaries: min(16, vec * 4) bytes for x and
+// f32 weights); tpr = 0 selects the wide route (rows of up to 58,088 values,
+// vec and nv unused). Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a plan that does not cover the row or a row the wide route cannot hold.
 extern "C" int apertis_ln_quantize_f32(const void* x, const void* w, const void* b, void* q,
-                                       void* scale, int rows, int h, int pbf, int rms, float eps,
-                                       void* stream) {
-  if (rows <= 0 || h <= 0 || (size_t)h * sizeof(float) > 232448)
+                                       void* scale, int rows, int h, int vec, int tpr, int nv,
+                                       int pbf, int rms, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tpr != 0)
+    return pbf ? ln_launch<float, bf16>(x, w, b, q, scale, rows, h, vec, tpr, nv, rms, eps, s)
+               : ln_launch<float, float>(x, w, b, q, scale, rows, h, vec, tpr, nv, rms, eps, s);
+  const size_t smem = (size_t)h * sizeof(float);
+  if (rows <= 0 || h <= 0 || smem + kLnWideStatic > 232448)
     return static_cast<int>(cudaErrorInvalidValue);
   const int g = h % 8 == 0 ? 8 : h % 4 == 0 ? 4 : h % 2 == 0 ? 2 : 1;
   const float inv_h = static_cast<float>(1.0 / h);
   const float inv_sqrt_h = static_cast<float>(std::pow(static_cast<double>(h), -0.5));
-  const size_t smem = (size_t)h * sizeof(float);
-  cudaError_t err = allow_smem(ln_quant_f32_kernel, smem);
+  cudaError_t err = allow_smem(ln_quant_f32_wide_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ln_quant_f32_kernel<<<rows, kLnF32Threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  ln_quant_f32_wide_kernel<<<rows, kLnF32Threads, smem, s>>>(
       static_cast<const float*>(x), w, b, pbf, static_cast<int8_t*>(q),
       static_cast<float*>(scale), h, g, rms, eps, inv_h, inv_sqrt_h);
   return static_cast<int>(cudaGetLastError());

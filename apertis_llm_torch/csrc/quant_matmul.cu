@@ -21,9 +21,16 @@
 // bf16 x: the int8 levels are converted exactly to bf16 (|q| <= 127) and
 // multiplied on the tensor cores with f32 accumulators, so every product is
 // exact and only the order of the f32 sums differs from the TPU kernel. f32
-// x: TF32 would round x to 10 mantissa bits, so the f32 form is a SIMT loop
-// of f32 fused multiply-adds (64 x 64 tiles, 4 x 4 outputs a thread), not a
-// tensor-core product.
+// x (the f32 form, apertis_quant_matmul_f32): TF32 would round x to 10
+// mantissa bits, so a row pass (qm_split_kernel) first writes x as three
+// bf16 parts, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
+// whose sum is x exactly for normal f32 values (8 + 8 + 8 bits of a 24-bit
+// significand), and the same kernel multiplies each part by the same exact
+// bf16 levels: three products a weight tile, each exact in f32, summed in
+// a fresh f32 accumulator a 64-K chunk that is added to the row's sum in
+// registers with f32 adds (decode_gemm.cuh's kDgB3; the tensor cores' own
+// sum over thousands of terms drifts). Against the plain version's f32
+// product (cuBLAS, TF32 off), the sums differ in order only.
 //
 // quant_matmul_dyn_fused (#8, APERTIS_QUANT_MATMUL=fused): the w8a8 product
 // that quantizes x per row and per 512-wide K block [512 j, 512 j + 512)
@@ -39,13 +46,15 @@
 // so the result is bit-equal to the plain version.
 //
 // Bound on the H100: operations (2 M N K at 1,979 TOP/s int8, 989 TFLOP/s
-// bf16, 67 TFLOP/s f32) from a few hundred rows up, e.g. the 1.5B model's
-// prefill FFN at M = 2048; bytes (the int8 weight, K N bytes at 3.35 TB/s)
-// at decode row counts, e.g. the int8 LM head (2432 x 32000) at every decode
-// step.
+// bf16, three bf16 products for f32 x) from a few hundred rows up, e.g. the
+// 1.5B model's prefill FFN at M = 2048; bytes (the int8 weight, K N bytes
+// at 3.35 TB/s) at decode row counts, e.g. the int8 LM head (2432 x 32000)
+// at every decode step.
 //
-// Design of #7 and #6 with bf16 x (Hopper, sm_90a): one kernel, qm_kernel,
-// templated on the operand type and on BR, the activation rows of a tile.
+// Design of #7 and #6 (Hopper, sm_90a): one kernel, qm_kernel, templated on
+// the operand kind (int8 x, bf16 x, f32 x as three bf16 parts) and on BR,
+// the activation rows of a tile (16 to 128 for f32 x, whose chunk
+// accumulators double the consumers' registers).
 // - Swapped operands. Each output tile is computed transposed, out^T = W^T
 //   x^T: 128 weight columns (two consumer warpgroups of 64) are wgmma's M
 //   side and BR activation rows (16, 64, 128 or 256) its N side, so the same
@@ -90,8 +99,12 @@
 //   rows the next chunk's fragments are built while a chunk's products run
 //   (two commit groups in flight), at 128 and 256 rows (128 or 256
 //   accumulators a thread) each chunk's products are waited for before the
-//   next. The two warpgroups interleave on the tensor cores. There is no
-//   branch between a wgmma and its wait. (On the H100 at 2048 x 2432 x 9728 the kernel runs at 39 %
+//   next. With f32 x (kDgB3) a stage holds the three parts' tiles beside
+//   one weight tile: the chunk's fragments are built once and serve 12
+//   wgmma (lo, mid, hi) into a fresh accumulator that is added to the f32
+//   sum once they complete (decode_gemm.cuh::dg_consume_b3; two chunks in
+//   flight up to 64 rows, one at 128). The two warpgroups interleave on the
+//   tensor cores. There is no branch between a wgmma and its wait. (On the H100 at 2048 x 2432 x 9728 the kernel runs at 39 %
 //   of the int8 peak and draws about 4.6 TB/s of tiles from L2, where
 //   64-row tiles drew about 7; taking turns between the warpgroups, as the
 //   flash kernels do, was tried and changed no time, so neither L2 nor the
@@ -155,19 +168,20 @@ namespace cg = cooperative_groups;
 constexpr int kQBlock = 512;   // #8's K block (the TPU kernel's BLOCK_K)
 constexpr int kQBlockChunks = kQBlock / kDgKC;
 
-// ---- #7 and #6 (bf16 x): the Hopper kernel ------------------------------------
+// ---- #7 and #6: the Hopper kernel ----------------------------------------------
 
 constexpr int kQmMaxStages = 8;
 constexpr size_t kQmSmemBudget = 200 * 1024;   // the ring and the split's slots
 
 // Shared memory of one ring stage: the x tile (BR rows of 128 bytes: 128
-// int8 or 64 bf16 values of K) and the weight tile (a chunk's K rows x 128
-// int8 columns), both whole 1024-byte swizzle atoms; with a split, the
-// slots of decode_gemm.cuh's exchange.
-template <bool W8A8, int BR>
+// int8 or 64 bf16 values of K; three of them for f32 x's parts) and the
+// weight tile (a chunk's K rows x 128 int8 columns), all whole 1024-byte
+// swizzle atoms; with a split, the slots of decode_gemm.cuh's exchange.
+template <int kKind, int BR>
 struct QmPlan {
-  typedef DgOp<W8A8 ? kDgI8 : kDgBf16> Op;
-  static constexpr uint32_t kStage = BR * 128 + Op::kWBytes;
+  typedef DgOp<kKind> Op;
+  static constexpr uint32_t kXBytes = (kKind == kDgB3 ? 3 : 1) * BR * 128;
+  static constexpr uint32_t kStage = kXBytes + Op::kWBytes;
   static int stages(int split) {
     const size_t room = kQmSmemBudget - dg_part_bytes(BR, split);
     return room / kStage < (size_t)kQmMaxStages ? (int)(room / kStage) : kQmMaxStages;
@@ -273,28 +287,30 @@ __device__ __forceinline__ void qm_store(const V (&acc)[BR / 2], const DgLane& L
   }
 }
 
-// #7 (W8A8), #6 with bf16 x, and #8's block-scaled mode (kScaled: int8 x_q
-// rows of fused_quant_kernel, `xs` its (M, ceil(K / 512)) block scales, no
-// split).
-template <bool W8A8, int BR, bool kScaled = false>
+// #7 (kDgI8), #6 with bf16 x (kDgBf16) or with f32 x in three bf16 parts
+// (kDgB3: x the (3 part_rows, kx) parts of qm_split_kernel, hi then mid then
+// lo), and #8's block-scaled mode (kScaled: int8 x_q rows of
+// fused_quant_kernel, `xs` its (M, ceil(K / 512)) block scales, no split).
+template <int kKind, int BR, bool kScaled = false>
 __global__ void __launch_bounds__(kThreads, 1)
     qm_kernel(const __grid_constant__ CUtensorMap x_map,
               const __grid_constant__ CUtensorMap w_map, const void* __restrict__ x,
               const float* __restrict__ xs, const int8_t* __restrict__ wq,
               const float* __restrict__ ws, const void* __restrict__ bias,
               void* __restrict__ out, int m, int n, int k, int out_bf16, int split, int tma_x,
-              int tma_w, int stages) {
-  typedef QmPlan<W8A8, BR> P;
+              int tma_w, int stages, int part_rows) {
+  typedef QmPlan<kKind, BR> P;
   typedef typename P::Op::Acc Acc;
-  constexpr int kKind = W8A8 ? kDgI8 : kDgBf16;
+  constexpr bool W8A8 = kKind == kDgI8;
   static_assert(!kScaled || W8A8, "the block-scaled mode is int8");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   Acc* part = reinterpret_cast<Acc*>(smem + (size_t)stages * P::kStage);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)stages * P::kStage +
                                                dg_part_bytes(BR, split));
-  const DgRing ring{smem, bars, bars + stages, BR * 128, P::Op::kWBytes, stages};
-  const DgRows rows{x, m, k, tma_x};
+  const DgRing ring{smem, bars, bars + stages, P::kXBytes, P::Op::kWBytes, stages};
+  DgRows rows{x, m, k, tma_x};
+  rows.part_rows = part_rows;
   const DgWeight wt{wq, k, n, tma_w};
 
   const int tiles_m = (m + BR - 1) / BR;
@@ -364,7 +380,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       Acc acc[BR / 2];
 #pragma unroll
       for (int i = 0; i < BR / 2; ++i) acc[i] = 0;
-      dg_consume<kKind, BR>(ring, L, pos, pos + nch, acc);
+      if constexpr (kKind == kDgB3)
+        dg_consume_b3<BR>(ring, L, pos, pos + nch, acc);
+      else
+        dg_consume<kKind, BR>(ring, L, pos, pos + nch, acc);
       // Split K: accumulator column block j is summed, in rank order, and
       // stored by block j % split of the cluster.
       if (split > 1) dg_split_sum<BR>(acc, part, L, rank, split, mine, cluster);
@@ -374,23 +393,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// A launch of qm_kernel; `kx` is the row length of x (K, or #8's padded Kp).
-template <bool W8A8, int BR, bool kScaled = false>
+// A launch of qm_kernel; `kx` is the row length of x (K, or #8's padded Kp,
+// or the parts' Kp), `part_rows` the rows of one of f32 x's parts.
+template <int kKind, int BR, bool kScaled = false>
 int qm_launch(const void* x, const void* xs, const void* wq, const void* ws, const void* bias,
               void* out, int m, int n, int k, int kx, int out_bf16, int split, int tma_x,
-              int tma_w, cudaStream_t stream) {
-  typedef QmPlan<W8A8, BR> P;
+              int tma_w, cudaStream_t stream, int part_rows = 0) {
+  typedef QmPlan<kKind, BR> P;
+  constexpr bool W8A8 = kKind == kDgI8;
   CUtensorMap x_map, w_map;
   memset(&x_map, 0, sizeof(x_map));
   memset(&w_map, 0, sizeof(w_map));
   int err = 0;
+  // The maps come from dg_map_2d's cache: a model's linears make the same
+  // maps (the same weights, the same scratch) call after call.
   if (tma_x)
-    err = make_map_2d(&x_map, x,
-                      W8A8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      W8A8 ? 1 : 2, (uint64_t)kx, (uint64_t)m, P::Op::kKC, BR);
+    err = dg_map_2d(&x_map, x,
+                    W8A8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    W8A8 ? 1 : 2, (uint64_t)kx,
+                    (uint64_t)(kKind == kDgB3 ? 3 * part_rows : m), P::Op::kKC, BR);
   if (err == 0 && tma_w)
-    err = make_map_2d(&w_map, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, (uint64_t)n, (uint64_t)k,
-                      kDgCols, P::Op::kKC);
+    err = dg_map_2d(&w_map, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, (uint64_t)n, (uint64_t)k,
+                    kDgCols, P::Op::kKC);
   if (err != 0) return err;
   const int stages = P::stages(split);
   const long long tiles =
@@ -398,17 +422,17 @@ int qm_launch(const void* x, const void* xs, const void* wq, const void* ws, con
   const int fit = persistent_grid(tiles * split);
   if (fit <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   const int clusters = fit / split > 0 ? fit / split : 1;
-  err = dg_launch(qm_kernel<W8A8, BR, kScaled>, dim3(clusters * split), dim3(kThreads), split,
+  err = dg_launch(qm_kernel<kKind, BR, kScaled>, dim3(clusters * split), dim3(kThreads), split,
                   P::bytes(stages, split), stream, x_map, w_map, x,
                   static_cast<const float*>(xs), static_cast<const int8_t*>(wq),
                   static_cast<const float*>(ws), bias, out, m, n, k, out_bf16, split, tma_x,
-                  tma_w, stages);
+                  tma_w, stages, part_rows);
   return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }
 
 // The host's tile plan: BR (rows) 16, 64, 128 or 256; split 1 to 4, and
 // only at rows 16 and 64 (the partials' shared memory); TMA flags 0 or 1.
-template <bool W8A8>
+template <int kKind>
 int qm_dispatch(const void* x, const void* xs, const void* wq, const void* ws, const void* bias,
                 void* out, int m, int n, int k, int out_bf16, int rows, int split, int tma_x,
                 int tma_w, cudaStream_t s) {
@@ -416,91 +440,97 @@ int qm_dispatch(const void* x, const void* xs, const void* wq, const void* ws, c
     return static_cast<int>(cudaErrorInvalidValue);
   switch (rows) {
     case 16:
-      return qm_launch<W8A8, 16>(x, xs, wq, ws, bias, out, m, n, k, k, out_bf16, split, tma_x,
+      return qm_launch<kKind, 16>(x, xs, wq, ws, bias, out, m, n, k, k, out_bf16, split, tma_x,
                                  tma_w, s);
     case 64:
-      return qm_launch<W8A8, 64>(x, xs, wq, ws, bias, out, m, n, k, k, out_bf16, split, tma_x,
+      return qm_launch<kKind, 64>(x, xs, wq, ws, bias, out, m, n, k, k, out_bf16, split, tma_x,
                                  tma_w, s);
     case 128:
-      return qm_launch<W8A8, 128>(x, xs, wq, ws, bias, out, m, n, k, k, out_bf16, split, tma_x,
+      return qm_launch<kKind, 128>(x, xs, wq, ws, bias, out, m, n, k, k, out_bf16, split, tma_x,
                                   tma_w, s);
     case 256:
-      return qm_launch<W8A8, 256>(x, xs, wq, ws, bias, out, m, n, k, k, out_bf16, split, tma_x,
+      return qm_launch<kKind, 256>(x, xs, wq, ws, bias, out, m, n, k, k, out_bf16, split, tma_x,
                                   tma_w, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool W8A8, int BR>
+template <int kKind, int BR>
 int qm_resources(int split, int* out) {
-  typedef QmPlan<W8A8, BR> P;
-  return kernel_resources(qm_kernel<W8A8, BR>, kThreads, P::bytes(P::stages(split), split), out);
+  typedef QmPlan<kKind, BR> P;
+  return kernel_resources(qm_kernel<kKind, BR>, kThreads, P::bytes(P::stages(split), split), out);
 }
 
-// ---- #6 with f32 x --------------------------------------------------------------
+// ---- #6 with f32 x ------------------------------------------------------------
 
-constexpr int kSt = 64;                  // output tile of the f32 form (rows and columns)
-constexpr int kSk = 16;                  // K chunk of the f32 form
+constexpr int kQmPartAlign = 8;   // the parts' row length Kp: K rounded up to 16 bytes
 
-// #6 with f32 x: a SIMT loop of f32 fused multiply-adds (no TF32), one
-// 64 x 64 output tile a block, 4 x 4 outputs a thread, K in chunks of 16.
-__global__ void __launch_bounds__(kBlock) quant_matmul_f32_kernel(
-    const float* __restrict__ x,     // (M, K)
-    const int8_t* __restrict__ wq,   // (K, N)
-    const float* __restrict__ ws,    // (N,)
-    const float* __restrict__ bias,  // (N,) or nullptr
-    float* __restrict__ out,         // (M, N)
-    int m, int n, int k) {
-  __shared__ float sa[kSk][kSt + 4];   // the x tile, k-major
-  __shared__ float sb[kSk][kSt];       // the weight tile as f32
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int m0 = blockIdx.y * kSt;
-  const int n0 = blockIdx.x * kSt;
-  float acc[4][4];
+// The rows' three bf16 parts, hi = bf16(x), mid = bf16(x - hi), lo =
+// bf16(x - hi - mid) (each difference exact in f32), into `parts` (3, mp,
+// kp): part p's row r at (p mp + r) kp; zeros past K and from row m, so
+// that TMA loads whole tiles. One thread a 4-value unit (a 16-byte load of
+// x where `vec`: K a multiple of 4 and x 16-byte aligned).
+__global__ void __launch_bounds__(kBlock) qm_split_kernel(const float* __restrict__ x,
+                                                          bf16* __restrict__ parts, int m, int k,
+                                                          int mp, int kp, bool vec) {
+  const long long u = (long long)blockIdx.x * kBlock + threadIdx.x;
+  const int units = kp / 4;
+  if (u >= (long long)mp * units) return;
+  const int row = (int)(u / units), col = (int)(u % units) * 4;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if (row < m) {
+    const float* src = x + (size_t)row * k + col;
+    if (vec && col + 4 <= k) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(src));
+      v[0] = f.x;
+      v[1] = f.y;
+      v[2] = f.z;
+      v[3] = f.w;
+    } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < k; k0 += kSk) {
-#pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int i = threadIdx.x + it * kBlock;
-      const int r = i >> 4, kk = i & 15;            // 16 threads read 16 k of a row
-      const int row = m0 + r, kc = k0 + kk;
-      sa[kk][r] = (row < m && kc < k) ? x[(size_t)row * k + kc] : 0.f;
-      const int kr = k0 + (i >> 6), col = n0 + (i & 63);
-      sb[i >> 6][i & 63] = (kr < k && col < n) ? (float)wq[(size_t)kr * n + col] : 0.f;
+      for (int j = 0; j < 4; ++j)
+        if (col + j < k) v[j] = __ldg(src + j);
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kSk; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = sa[kk][ty * 4 + i];
-        b[i] = sb[kk][tx * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
+  uint32_t hi[2], mid[2], lo[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
+  for (int j = 0; j < 2; ++j) {
+    float h[2], md[2], l[2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (row < m && col < n) {
-        float y = __fmul_rn(acc[i][j], ws[col]);
-        if (bias != nullptr) y = __fadd_rn(y, bias[col]);
-        out[(size_t)row * n + col] = y;
-      }
+    for (int e = 0; e < 2; ++e) {
+      const float a = v[2 * j + e];
+      h[e] = round_bf16(a);
+      const float r1 = __fsub_rn(a, h[e]);
+      md[e] = round_bf16(r1);
+      l[e] = round_bf16(__fsub_rn(r1, md[e]));
     }
+    hi[j] = pack_bf16(h[0], h[1]);
+    mid[j] = pack_bf16(md[0], md[1]);
+    lo[j] = pack_bf16(l[0], l[1]);
+  }
+  const size_t o = (size_t)row * kp + col, part = (size_t)mp * kp;
+  *reinterpret_cast<uint2*>(parts + o) = make_uint2(hi[0], hi[1]);
+  *reinterpret_cast<uint2*>(parts + part + o) = make_uint2(mid[0], mid[1]);
+  *reinterpret_cast<uint2*>(parts + 2 * part + o) = make_uint2(lo[0], lo[1]);
+}
+
+// The product of the three parts on the plan's row tile (16, 64 or 128).
+int qm_f32_product(const bf16* parts, const void* wq, const void* ws, const void* bias,
+                   void* out, int m, int n, int k, int kp, int mp, int rows, int split,
+                   int tma_w, cudaStream_t s) {
+  switch (rows) {
+    case 16:
+      return qm_launch<kDgB3, 16>(parts, nullptr, wq, ws, bias, out, m, n, k, kp, 0, split, 1,
+                                  tma_w, s, mp);
+    case 64:
+      return qm_launch<kDgB3, 64>(parts, nullptr, wq, ws, bias, out, m, n, k, kp, 0, split, 1,
+                                  tma_w, s, mp);
+    case 128:
+      return qm_launch<kDgB3, 128>(parts, nullptr, wq, ws, bias, out, m, n, k, kp, 0, split, 1,
+                                   tma_w, s, mp);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -608,8 +638,8 @@ int fused_product(const int8_t* xq, const float* xs, const void* wq, const void*
   if (split > 1)
     return fused_down<BR>(xq, xs, wq, static_cast<const float*>(ws), bias, out, m, n, k, kp,
                           out_bf16, split, group, stages, s);
-  return qm_launch<true, BR, true>(xq, xs, wq, ws, bias, out, m, n, k, kp, out_bf16, 1, 1, tma_w,
-                                   s);
+  return qm_launch<kDgI8, BR, true>(xq, xs, wq, ws, bias, out, m, n, k, kp, out_bf16, 1, 1,
+                                    tma_w, s);
 }
 
 }  // namespace
@@ -627,46 +657,76 @@ extern "C" int apertis_quant_matmul_dyn(const void* xq, const void* xs, const vo
                                         const void* ws, const void* bias, void* out, int m,
                                         int n, int k, int out_bf16, int rows, int split,
                                         int tma_x, int tma_w, void* stream) {
-  return qm_dispatch<true>(xq, xs, wq, ws, bias, out, m, n, k, out_bf16, rows, split, tma_x,
-                           tma_w, static_cast<cudaStream_t>(stream));
+  return qm_dispatch<kDgI8>(xq, xs, wq, ws, bias, out, m, n, k, out_bf16, rows, split, tma_x,
+                            tma_w, static_cast<cudaStream_t>(stream));
 }
 
-// out (M, N) = x.dtype((x . float(W_q)) * w_s) (+ b) for bf16 (x_bf16 = 1)
-// or f32 x and out; `bias` is nullptr or (N,) of x's type. Any M, N, K >= 1.
-// bf16 x takes the tile plan as apertis_quant_matmul_dyn does; f32 x ignores
-// it, and its row count is at most 65535 * 64. Returns cudaGetLastError(),
-// or cudaErrorInvalidResourceHandle if a tensor map cannot be made.
+// out (M, N) = bf16((x . float(W_q)) * w_s) (+ b) for bf16 x (x_bf16 must
+// be 1: f32 x takes apertis_quant_matmul_f32); `bias` is nullptr or (N,)
+// bf16. Any M, N, K >= 1, on the tile plan as apertis_quant_matmul_dyn
+// takes it. Returns cudaGetLastError(), or cudaErrorInvalidResourceHandle if
+// a tensor map cannot be made.
 extern "C" int apertis_quant_matmul(const void* x, const void* wq, const void* ws,
                                     const void* bias, void* out, int m, int n, int k, int x_bf16,
                                     int rows, int split, int tma_x, int tma_w, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    return qm_dispatch<false>(x, nullptr, wq, ws, bias, out, m, n, k, 1, rows, split, tma_x,
-                              tma_w, s);
-  if (m <= 0 || n <= 0 || k <= 0 || (m + kSt - 1) / kSt > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  quant_matmul_f32_kernel<<<dim3((n + kSt - 1) / kSt, (m + kSt - 1) / kSt), kBlock, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(wq),
-      static_cast<const float*>(ws), static_cast<const float*>(bias), static_cast<float*>(out),
-      m, n, k);
-  return static_cast<int>(cudaGetLastError());
+  if (!x_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  return qm_dispatch<kDgBf16>(x, nullptr, wq, ws, bias, out, m, n, k, 1, rows, split, tma_x,
+                              tma_w, static_cast<cudaStream_t>(stream));
 }
 
-// The resources of #7's (w8a8 = 1) or #6's bf16 (w8a8 = 0) kernel at a
-// tile of `rows` activation rows and a K split over `split` blocks
-// (hopper.cuh::kernel_resources): registers a thread, shared memory a
-// block, resident blocks an SM, threads a block and spilled bytes a thread,
-// into out[0..4]. Returns the CUDA error.
-extern "C" int apertis_quant_matmul_resources(int w8a8, int rows, int split, int* out) {
-  if (split < 1 || split > 4 || (split > 1 && rows > 64))
+// out (M, N) = (x . float(W_q)) * w_s (+ b) in f32 for f32 x (M, K); `bias`
+// is nullptr or (N,) f32. Any M, N, K >= 1. `parts` is the caller's bf16
+// scratch of 3 x mp x kp values (16-byte aligned): mp = M rounded up to
+// `rows`, kp = K rounded up to a multiple of 8. rows (16, 64 or 128), split
+// (1 to 4; above 1 only at 16 or 64 rows) and tma_w are the plan of
+// ops/kernels/quant_matmul.py::f32_plan. Two launches: the split pass, then
+// the product. Returns cudaGetLastError(), or cudaErrorInvalidResourceHandle
+// if a tensor map cannot be made.
+extern "C" int apertis_quant_matmul_f32(const void* x, const void* wq, const void* ws,
+                                        const void* bias, void* out, void* parts, int m, int n,
+                                        int k, int rows, int split, int tma_w, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int kp = (k + kQmPartAlign - 1) / kQmPartAlign * kQmPartAlign;
+  const long long mp = rows > 0 ? (long long)(m + rows - 1) / rows * rows : 0;
+  if (m <= 0 || n <= 0 || k <= 0 || (rows != 16 && rows != 64 && rows != 128) || split < 1 ||
+      split > 4 || (split > 1 && rows > 64) || 3 * mp > 0x7fffffffLL || mp * (kp / 4) > 0x7fffffffLL * kBlock ||
+      reinterpret_cast<uintptr_t>(parts) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long units = mp * (kp / 4);
+  qm_split_kernel<<<(unsigned)((units + kBlock - 1) / kBlock), kBlock, 0, s>>>(
+      static_cast<const float*>(x), static_cast<bf16*>(parts), m, k, (int)mp, kp,
+      k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return qm_f32_product(static_cast<const bf16*>(parts), wq, ws, bias, out, m, n, k, kp,
+                        (int)mp, rows, split, tma_w, s);
+}
+
+// The resources of #7's (form 1), #6's bf16 (form 0) or #6's f32 (form 2,
+// rows 16 to 128) kernel at a tile of `rows` activation rows and a K split
+// over `split` blocks (hopper.cuh::kernel_resources): registers a thread,
+// shared memory a block, resident blocks an SM, threads a block and spilled
+// bytes a thread, into out[0..4]. Returns the CUDA error.
+extern "C" int apertis_quant_matmul_resources(int form, int rows, int split, int* out) {
+  if (split < 1 || split > 4 || (split > 1 && rows > 64) || form < 0 || form > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (rows) {
-    case 16: return w8a8 ? qm_resources<true, 16>(split, out) : qm_resources<false, 16>(split, out);
-    case 64: return w8a8 ? qm_resources<true, 64>(split, out) : qm_resources<false, 64>(split, out);
+    case 16:
+      return form == 1 ? qm_resources<kDgI8, 16>(split, out)
+                       : form == 0 ? qm_resources<kDgBf16, 16>(split, out)
+                                   : qm_resources<kDgB3, 16>(split, out);
+    case 64:
+      return form == 1 ? qm_resources<kDgI8, 64>(split, out)
+                       : form == 0 ? qm_resources<kDgBf16, 64>(split, out)
+                                   : qm_resources<kDgB3, 64>(split, out);
     case 128:
-      return w8a8 ? qm_resources<true, 128>(split, out) : qm_resources<false, 128>(split, out);
+      return form == 1 ? qm_resources<kDgI8, 128>(split, out)
+                       : form == 0 ? qm_resources<kDgBf16, 128>(split, out)
+                                   : qm_resources<kDgB3, 128>(split, out);
     case 256:
-      return w8a8 ? qm_resources<true, 256>(split, out) : qm_resources<false, 256>(split, out);
+      return form == 1 ? qm_resources<kDgI8, 256>(split, out)
+                       : form == 0 ? qm_resources<kDgBf16, 256>(split, out)
+                                   : static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -734,14 +794,14 @@ extern "C" int apertis_quant_matmul_fused_resources(int kernel, int rows, int sm
   if (kernel != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (rows) {
     case 16:
-      return kernel_resources(qm_kernel<true, 16, true>, kThreads,
-                              QmPlan<true, 16>::bytes(QmPlan<true, 16>::stages(1), 1), out);
+      return kernel_resources(qm_kernel<kDgI8, 16, true>, kThreads,
+                              QmPlan<kDgI8, 16>::bytes(QmPlan<kDgI8, 16>::stages(1), 1), out);
     case 64:
-      return kernel_resources(qm_kernel<true, 64, true>, kThreads,
-                              QmPlan<true, 64>::bytes(QmPlan<true, 64>::stages(1), 1), out);
+      return kernel_resources(qm_kernel<kDgI8, 64, true>, kThreads,
+                              QmPlan<kDgI8, 64>::bytes(QmPlan<kDgI8, 64>::stages(1), 1), out);
     case 128:
-      return kernel_resources(qm_kernel<true, 128, true>, kThreads,
-                              QmPlan<true, 128>::bytes(QmPlan<true, 128>::stages(1), 1), out);
+      return kernel_resources(qm_kernel<kDgI8, 128, true>, kThreads,
+                              QmPlan<kDgI8, 128>::bytes(QmPlan<kDgI8, 128>::stages(1), 1), out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

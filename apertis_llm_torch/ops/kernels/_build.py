@@ -96,10 +96,12 @@ SIGNATURES = {
     # x, w, b, q, scale, rows, H, the plan (vec, threads a row, vectors a
     # thread), rms, eps, stream
     "apertis_ln_quantize": [_P] * 5 + [_I] * 6 + [_F, _P],
-    # vec, threads a row, vectors a thread, out (5 ints)
-    "apertis_ln_quantize_resources": [_I, _I, _I, _P],
-    # x, w, b, q, scale, rows, H, the weights' dtype code, rms, eps, stream
-    "apertis_ln_quantize_f32": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # vec, threads a row, vectors a thread, form (0 bf16, 1 f32 rows and
+    # weights, 2 f32 rows and bf16 weights), out (5 ints)
+    "apertis_ln_quantize_resources": [_I] * 4 + [_P],
+    # x, w, b, q, scale, rows, H, the plan (vec, threads a row (0: the wide
+    # route), vectors a thread), the weights' dtype code, rms, eps, stream
+    "apertis_ln_quantize_f32": [_P] * 5 + [_I] * 7 + [_F, _P],
     # x_q, x_s, comb, w1t_q, w1t_s, b1t, w2t_q, w2t_s, out, hq, hs, hidden,
     # absmax, S, H, E*I, E, bn, act, row_tile, up_cluster, split, group,
     # stages_up, stages_down, stream
@@ -137,7 +139,10 @@ SIGNATURES = {
     "apertis_quant_matmul_dyn": [_P] * 6 + [_I] * 8 + [_P],
     # x, w_q, w_s, bias (or NULL), out, M, N, K, x_bf16, the tile plan, stream
     "apertis_quant_matmul": [_P] * 5 + [_I] * 8 + [_P],
-    # w8a8, rows, split, out (5 ints)
+    # x, w_q, w_s, bias (or NULL), out, the parts' scratch, M, N, K, then the
+    # plan (rows, split, tma_w), stream
+    "apertis_quant_matmul_f32": [_P] * 6 + [_I] * 6 + [_P],
+    # form (0 #6 bf16, 1 #7, 2 #6 f32), rows, split, out (5 ints)
     "apertis_quant_matmul_resources": [_I, _I, _I, _P],
     # x, w_q, w_s, bias (or NULL), out, x_q and x_s scratch, M, N, K, x_bf16,
     # then the plan (rows, split, group, stages, tma_w), stream

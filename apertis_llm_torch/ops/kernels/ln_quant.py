@@ -9,7 +9,10 @@ threads: vectors of ``vec`` bf16 values (8, one 16-byte load, where H allows),
 registers. Both versions take each row sum as the f32 sums of ``vec``
 consecutive values added in f64 (:func:`row_sum`), so that the kernel's
 result does not depend on the order its threads add them in. f32 rows take
-the f32 form, :func:`ln_quantize_f32`, which sums them the same way.
+the f32 form, :func:`ln_quantize_f32`: the same kernel on f32 rows, on the
+same plan, and, for rows wider than the plan takes (up to
+:data:`F32_WIDE_MAX` values), a second kernel that stages the row in shared
+memory; both sum as the plain version does.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ NV_16B = (1, 2, 3, 4, 5)
 # The threads the default plan aims to run at once: 16 warps an SM.
 THREADS_PER_SM = 512
 MAX_THREADS = 1024
+# The widest f32 row of the f32 form's wide route: a block's 232,448 bytes
+# of shared memory less its 96 bytes of reduction slots, as f32 values.
+F32_WIDE_MAX = (232448 - 96) // 4
 
 
 class LnPlan(NamedTuple):
@@ -112,6 +118,17 @@ def row_sum(t: torch.Tensor) -> torch.Tensor:
     return acc.double().sum(dim=-1, keepdim=True).float()
 
 
+def sqrt_f32(t: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root of f32 ``t`` on any device, as
+    the kernel's ``sqrtf`` gives it: the square root in f64, rounded once to
+    f32. A square root of an f32 value lies at least 2^-49 of itself from
+    any f32 rounding boundary, far past an f64 ulp (2^-52), so the two
+    roundings give the one correct f32 result. ``torch.sqrt`` of f32 CPU
+    tensors need not round correctly (its vectorised form was found one ulp
+    off on some CPUs), which would move a level or a scale."""
+    return torch.sqrt(t.double()).float()
+
+
 def ln_quantize_reference(
     x: torch.Tensor,                 # (..., H)
     weight: torch.Tensor,            # (H,) LayerNorm weight or RMSNorm scale
@@ -121,7 +138,8 @@ def ln_quantize_reference(
     """``(x_q int8 (..., H), x_s f32 (..., 1))`` with ``x_q * x_s ~= norm(x)``.
     The norm runs in f32 (RMSNorm with eps on the RMS and a zero inverse on
     zero rows; LayerNorm with a zero inverse on constant rows; the row sums
-    of :func:`row_sum`, the means as products with 1/H), is rounded through
+    of :func:`row_sum`, the means as products with 1/H, the square roots
+    correctly rounded by :func:`sqrt_f32`), is rounded through
     ``x.dtype``, then ``x_s = max(absmax, 1e-8) * (1/127)`` and ``x_q =
     clip(rint(normed / x_s), +-127)``."""
     xf = x.float()
@@ -129,14 +147,14 @@ def ln_quantize_reference(
     h = x.shape[-1]
     if bias is None:
         ss = row_sum(xf * xf)
-        rms = torch.where(ss > 0, torch.sqrt(torch.where(ss > 0, ss, torch.ones_like(ss))),
+        rms = torch.where(ss > 0, sqrt_f32(torch.where(ss > 0, ss, torch.ones_like(ss))),
                           torch.zeros_like(ss)) * (h ** -0.5)
         inv = torch.where(ss > 0, 1.0 / (rms + eps), torch.zeros_like(rms))
         normed = xf * inv * w
     else:
         c = xf - row_sum(xf) * (1.0 / h)
         var = row_sum(c * c) * (1.0 / h)
-        inv = torch.where(var > 0, 1.0 / torch.sqrt(var + eps), torch.zeros_like(var))
+        inv = torch.where(var > 0, 1.0 / sqrt_f32(var + eps), torch.zeros_like(var))
         normed = c * inv * w + bias.float()
     normed = normed.to(x.dtype).float()
     scale = torch.clamp(normed.abs().amax(dim=-1, keepdim=True), min=1e-8) * (1.0 / 127.0)
@@ -175,9 +193,11 @@ def ln_quantize_f32(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Norm + quantize of f32 rows (``csrc/ln_quant.cu``,
     ``apertis_ln_quantize_f32``): contiguous f32 ``x`` of any leading shape
-    with rows of up to 58,112 values, the weights f32 or bf16 (one dtype);
-    the normed row is not rounded (x's dtype is f32), then quantized as
-    :func:`ln_quantize_reference` does. Plain version on CPU tensors."""
+    with rows of up to :data:`F32_WIDE_MAX` values, the weights f32 or bf16
+    (one dtype); the normed row is not rounded (x's dtype is f32), then
+    quantized as :func:`ln_quantize_reference` does. Rows that
+    :func:`ln_plan` takes run the register kernel on its plan, wider ones
+    the wide route (:func:`f32_route`). Plain version on CPU tensors."""
     if x.device.type == "cpu":
         return ln_quantize_reference(x, weight, bias, eps)
     floats = (torch.float32, torch.bfloat16)
@@ -190,15 +210,36 @@ def ln_quantize_f32(
         _build.check_tensor(bias, (h,), (weight.dtype,), "bias", dev)
     if rows == 0 or h == 0:
         raise ValueError(f"ln_quantize_f32: empty shape {tuple(x.shape)}")
+    plan = f32_route(h, rows, _build.sm_count(dev.index or 0))
+    if plan is None:
+        vec, threads, nv = 0, 0, 0
+    else:
+        vec, threads, nv = plan
+        x, weight, bias = (t.clone() if t is not None and t.data_ptr() % min(
+            16, vec * t.element_size()) else t for t in (x, weight, bias))
     q = torch.empty(x.shape, dtype=torch.int8, device=dev)
     s = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=dev)
     err = _build.load_library().apertis_ln_quantize_f32(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr() if bias is not None else None,
-        q.data_ptr(), s.data_ptr(), rows, h, int(weight.dtype == torch.bfloat16),
-        int(bias is None), float(eps), torch.cuda.current_stream(dev).cuda_stream)
+        q.data_ptr(), s.data_ptr(), rows, h, vec, threads, nv,
+        int(weight.dtype == torch.bfloat16), int(bias is None), float(eps),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ln_quantize_f32")
     ln_quantize_f32.launches += 1
     return q, s
+
+
+def f32_route(h: int, rows: int, sms: int = 132) -> Optional[LnPlan]:
+    """The f32 form's route for ``rows`` rows of ``h`` > 0 values:
+    :func:`ln_plan`'s plan where it takes the row (the register kernel),
+    None for the wide route up to :data:`F32_WIDE_MAX` values. Raises
+    ``ValueError`` past it."""
+    if h <= max_width(group(h)):
+        return ln_plan(h, rows, sms)
+    if h > F32_WIDE_MAX:
+        raise ValueError(f"ln_quantize_f32: rows of {h} values are outside the kernel's 1 to "
+                         f"{F32_WIDE_MAX:,}")
+    return None
 
 
 ln_quantize.launches = 0
@@ -232,12 +273,13 @@ def _ln_launch(x, weight, bias, eps, threads):
     return q, s
 
 
-def ln_quantize_resources(plan: LnPlan) -> Dict[str, int]:
-    """What the card gives the kernel of ``plan``: registers a thread, shared
-    memory a block in bytes, resident blocks an SM, threads a block and
-    spilled bytes a thread."""
+def ln_quantize_resources(plan: LnPlan, form: int = 0) -> Dict[str, int]:
+    """What the card gives the kernel of ``plan`` (``form`` 0: bf16 rows; 1:
+    f32 rows and weights; 2: f32 rows, bf16 weights): registers a thread,
+    shared memory a block in bytes, resident blocks an SM, threads a block
+    and spilled bytes a thread."""
     out = (ctypes.c_int * len(RESOURCE_KEYS))()
     err = _build.load_library().apertis_ln_quantize_resources(
-        plan.vec, plan.threads, plan.nv, ctypes.addressof(out))
+        plan.vec, plan.threads, plan.nv, form, ctypes.addressof(out))
     _build.check(err, "ln_quantize_resources")
     return dict(zip(RESOURCE_KEYS, out))

@@ -11,8 +11,9 @@ tree's row-major (K, N) int8 ``w_q``, read as it is, with f32 column scales
     the int8 decode projections in every mode. :func:`quant_matmul_dyn` is
     its form that quantizes its input rows first (``ops/quant.py::
     quantize_rows``, plain torch);
-  * :func:`quant_matmul` (#6, ``quant_matmul="pallas"``): the weight-only
-    product ``x.dtype((x @ float(w_q)) * w_s)`` with f32 accumulation;
+  * :func:`quant_matmul` (#6, ``quant_matmul="pallas"`` and ``"auto"``): the
+    weight-only product ``x.dtype((x @ float(w_q)) * w_s)`` with f32
+    accumulation; f32 rows take its f32 form, :func:`quant_matmul_f32`;
   * :func:`quant_matmul_dyn_fused` (#8, ``quant_matmul="fused"``): the w8a8
     product that quantizes x per row and 512-wide K block: one pass writes
     the padded int8 rows and the block scales (:func:`quantize_blocks`),
@@ -22,11 +23,13 @@ tree's row-major (K, N) int8 ``w_q``, read as it is, with f32 column scales
 They replace ``apertis_llm_tpu/ops/pallas/quant_matmul.py``'s
 ``quant_matmul_dyn``, ``quant_matmul`` and ``quant_matmul_dyn_fused``.
 
-#7 and #6's bf16 form are one Hopper kernel (TMA, ``wgmma``); the host
-chooses its tile plan from the shape (:func:`tile_plan`: the rows of a
-tile, a K split over a cluster at decode rows, and which operands TMA can
-load) and passes it to the C entry point; :func:`quant_matmul_resources`
-reads what the card gives each plan.
+#7 and #6 are one Hopper kernel (TMA, ``wgmma``); the host chooses its
+tile plan from the shape (:func:`tile_plan`: the rows of a tile, a K split
+over a cluster at decode rows, and which operands TMA can load; for f32
+rows :func:`f32_plan`) and passes it to the C entry point;
+:func:`quant_matmul_resources` reads what the card gives each plan. #6's
+f32 form splits its rows first into three bf16 parts whose sum is x
+(:func:`split_rows`), and multiplies each part by the exact bf16 levels.
 """
 
 from __future__ import annotations
@@ -148,6 +151,39 @@ def fused_plan(m: int, n: int, k: int, sms: int, w_aligned: bool = True) -> Fuse
     return FusedPlan(rows, split, group, stages, tma_w)
 
 
+# #6's f32 form: row tiles whose chunk accumulators (as many again as the
+# tile's, decode_gemm.cuh's kDgB3) fit the consumers' registers; the parts'
+# rows are K rounded up to PART_ALIGN values (16 bytes, as TMA needs).
+F32_ROW_TILES = (16, 64, 128)
+PART_ALIGN = 8
+
+
+def f32_plan(m: int, n: int, k: int, sms: int, w_aligned: bool = True) -> TilePlan:
+    """#6's f32 plan for an (M, K) x (K, N) product on ``sms`` SMs:
+    :func:`tile_plan`'s for bf16 rows (each part is a bf16 row of K values,
+    so its chunks and its K split are the bf16 form's), its row tile
+    capped at 128; the parts always load by TMA."""
+    plan = tile_plan(m, n, k, 2, sms, True, w_aligned)
+    return plan._replace(rows=min(plan.rows, F32_ROW_TILES[-1]), tma_x=True)
+
+
+def split_rows(x: torch.Tensor, rows: int = 1) -> torch.Tensor:
+    """The f32 form's row pass, plain: (3, Mp, Kp) bf16 parts hi =
+    bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) of the (M, K) f32
+    rows, Mp = M rounded up to ``rows``, Kp = K rounded up to
+    :data:`PART_ALIGN`, zeros past the rows and K. ``hi + mid + lo`` is x
+    exactly for normal f32 values (the differences are exact in f32, and
+    each part takes the next 8 bits of a 24-bit significand)."""
+    m, k = x.shape
+    mp, kp = -(-m // rows) * rows, -(-k // PART_ALIGN) * PART_ALIGN
+    parts = torch.zeros((3, mp, kp), dtype=torch.bfloat16, device=x.device)
+    r = x.float()
+    for p in range(3):
+        parts[p, :m, :k] = r.to(torch.bfloat16)
+        r = r - parts[p, :m, :k].float()
+    return parts
+
+
 def _plan_args(x: torch.Tensor, w_q: torch.Tensor, m: int, n: int, k: int) -> tuple:
     """The tile plan of a launch on the card, as the C entry points take it."""
     plan = tile_plan(m, n, k, x.element_size(), _build.sm_count(x.device.index or 0),
@@ -155,16 +191,18 @@ def _plan_args(x: torch.Tensor, w_q: torch.Tensor, m: int, n: int, k: int) -> tu
     return plan.rows, plan.split, int(plan.tma_x), int(plan.tma_w)
 
 
-def quant_matmul_resources(w8a8: bool, rows: int, split: int = 1) -> Dict[str, int]:
-    """What the card gives #7's (``w8a8``) or #6's bf16 kernel at a tile of
-    ``rows`` activation rows and a K split over ``split`` blocks: registers
-    a thread, shared memory a block in bytes, resident blocks an SM, threads
-    a block and spilled bytes a thread."""
-    if rows not in ROW_TILES or not 1 <= split <= MAX_SPLIT or (split > 1 and rows > SPLIT_ROWS):
+def quant_matmul_resources(w8a8: bool, rows: int, split: int = 1,
+                           f32: bool = False) -> Dict[str, int]:
+    """What the card gives #7's (``w8a8``), #6's bf16 or, with ``f32``, #6's
+    f32 kernel at a tile of ``rows`` activation rows and a K split over
+    ``split`` blocks: registers a thread, shared memory a block in bytes,
+    resident blocks an SM, threads a block and spilled bytes a thread."""
+    tiles = F32_ROW_TILES if f32 else ROW_TILES
+    if rows not in tiles or not 1 <= split <= MAX_SPLIT or (split > 1 and rows > SPLIT_ROWS):
         raise ValueError(f"quant_matmul_resources: no kernel at rows={rows} split={split}")
     out = (ctypes.c_int * len(RESOURCE_KEYS))()
     err = _build.load_library().apertis_quant_matmul_resources(
-        int(w8a8), rows, split, ctypes.addressof(out))
+        2 if f32 else int(w8a8), rows, split, ctypes.addressof(out))
     _build.check(err, "quant_matmul_resources")
     return dict(zip(RESOURCE_KEYS, out))
 
@@ -276,8 +314,8 @@ def _launch_float_x(wrapper, entry: str, x: torch.Tensor, w_q: torch.Tensor,
     """Check the operands of a kernel that reads bf16 or f32 x, launch
     ``entry`` (none for an x without rows) with what ``plan_args(x2, m, n,
     k)`` gives (scratch tensors passed before M, N, K; plan integers after
-    x's type), count the launch on ``wrapper`` and return the (..., N)
-    result in x's dtype."""
+    x's type, which the f32 form's entry does not take), count the launch on
+    ``wrapper`` and return the (..., N) result in x's dtype."""
     lead, k, n = x.shape[:-1], x.shape[-1], w_q.shape[-1]
     m = x.numel() // max(k, 1)
     dev = x.device
@@ -294,10 +332,11 @@ def _launch_float_x(wrapper, entry: str, x: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m > 0:
         scratch, plan = plan_args(x2, m, n, k)
+        dtype = () if entry == "apertis_quant_matmul_f32" else (int(x.dtype == torch.bfloat16),)
         err = getattr(_build.load_library(), entry)(
             x2.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), None if b is None else b.data_ptr(),
-            out.data_ptr(), *(t.data_ptr() for t in scratch), m, n, k,
-            int(x.dtype == torch.bfloat16), *plan, torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), *(t.data_ptr() for t in scratch), m, n, k, *dtype, *plan,
+            torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, entry)
         wrapper.launches += 1
     return out.reshape(*lead, n)
@@ -306,13 +345,40 @@ def _launch_float_x(wrapper, entry: str, x: torch.Tensor, w_q: torch.Tensor,
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
                  b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The weight-only product (#6): kernel on CUDA tensors, plain version on
-    CPU ones. The kernel takes contiguous bf16 or f32 ``x`` (..., K), a
-    contiguous int8 ``w_q`` (K, N), f32 ``w_s`` (1, N) or (N,) and ``b``
-    None or (N,) of x's dtype; any M, N and K."""
+    CPU ones. The kernel takes contiguous bf16 ``x`` (..., K), a contiguous
+    int8 ``w_q`` (K, N), f32 ``w_s`` (1, N) or (N,) and ``b`` None or (N,)
+    of x's dtype; any M, N and K. f32 rows go to the f32 form
+    :func:`quant_matmul_f32`."""
     if x.device.type == "cpu":
         return quant_matmul_reference(x, w_q, w_s, b)
+    if x.dtype == torch.float32:
+        return quant_matmul_f32(x, w_q, w_s, b)
     return _launch_float_x(quant_matmul, "apertis_quant_matmul", x, w_q, w_s, b,
                            lambda x2, m, n, k: ((), _plan_args(x2, w_q, m, n, k)))
+
+
+def quant_matmul_f32(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                     b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """#6's f32 form (``apertis_quant_matmul_f32``): contiguous f32 ``x``
+    (..., K), the operands :func:`quant_matmul` takes with ``b`` f32; the
+    rows split into three bf16 parts (:func:`split_rows`, by a row pass on
+    the card) that the tensor cores multiply by the exact levels, on
+    :func:`f32_plan`. Plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return quant_matmul_reference(x, w_q, w_s, b)
+    if x.dtype != torch.float32:
+        raise ValueError(f"quant_matmul_f32: x dtype {x.dtype}, not float32")
+    return _launch_float_x(quant_matmul_f32, "apertis_quant_matmul_f32", x, w_q, w_s, b,
+                           lambda x2, m, n, k: _f32_args(x2, w_q, m, n, k))
+
+
+def _f32_args(x2: torch.Tensor, w_q: torch.Tensor, m: int, n: int, k: int) -> tuple:
+    """The f32 form's scratch (the rows' three bf16 parts) and its plan, as
+    the C entry point takes them."""
+    plan = f32_plan(m, n, k, _build.sm_count(x2.device.index or 0), w_q.data_ptr() % 16 == 0)
+    mp, kp = -(-m // plan.rows) * plan.rows, -(-k // PART_ALIGN) * PART_ALIGN
+    parts = torch.empty((3, mp, kp), dtype=torch.bfloat16, device=x2.device)
+    return (parts,), (plan.rows, plan.split, int(plan.tma_w))
 
 
 def quant_matmul_dyn_fused(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
@@ -364,4 +430,5 @@ def quant_matmul_fused_resources(plan: FusedPlan) -> Dict[str, Dict[str, int]]:
 
 quant_matmul_dyn_pre_q.launches = 0
 quant_matmul.launches = 0
+quant_matmul_f32.launches = 0
 quant_matmul_dyn_fused.launches = 0

@@ -70,7 +70,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      with sensitivity checks (the shifts, the scales, the biases) that must
      move the plain output by 9 tolerances;
      Then the selectable int8 arithmetic's kernels (phase 3f): the
-     weight-only product (``quant_matmul``, ``quant_matmul="pallas"``) and
+     weight-only product (``quant_matmul``, ``quant_matmul="pallas"``; f32
+     rows through ``quant_matmul_f32``, twice for the same bits) and
      the block-quantizing one (``quant_matmul_dyn_fused``, ``"fused"``,
      bit-equal) at the 1.5B FFN's w1 at 64 and 2048 rows, the int8 head at
      4 rows, x_param_proj at 300 rows (K = 608) and N = 44, in bf16 and f32
@@ -254,7 +255,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
   8. the user-facing surfaces (``surfaces_phase``), after phase 3i's checks
      of the decode kernels' f32 forms (``f32_forms_phase``: #3, #4, #5 and
      #9 on an f32 layer at the 1.5B widths and its int8 quantization, at 64,
-     4 and 1 rows, with sensitivity checks and repeat bits): ``apertis_llm_
+     4 and 1 rows, #5 bit-equal at its register plans and its wide route,
+     #6 on the head and the FFN weights at 1 to 2048 rows beside the f32
+     ``x @ w_deq``, with sensitivity checks and repeat bits): ``apertis_llm_
      torch.cli``'s ``create-model`` writes the 1.5B dense model, ``chat``
      serves it in f32 and in int8 from stdin through ``InferenceEngine.
      stream`` (exact launch counts of the f32 forms, the first turn equal
@@ -306,11 +309,15 @@ card's name and power limit; the last line is ``{"ok": true, "device":
                                              # 1-16,384 rows on seven products: the
                                              # table behind quant_matmul="auto"
     python3 chip_smoke.py --surfaces         # phases 3i and 8 alone
-    python3 chip_smoke.py --f32-times        # #4's and #3's f32 forms at 64, 4 and 1
+    python3 chip_smoke.py --f32-times        # #6's f32 form on the 1.5B head and W1 at
+                                             # 1-2048 rows beside its bound and the f32
+                                             # product's time, #5's f32 form; #4's and
+                                             # #3's f32 forms at 64, 4 and 1
                                              # rows (the 1.5B dense widths; #3 also at
                                              # the MoE widths, moe epilogue) beside their
                                              # bounds, and one chat token of the 1.5B f32
-                                             # and int8 models, device against host time
+                                             # and int8 models, device against host time,
+                                             # with a 10-token first turn by kernel
     python3 chip_smoke.py --auto-model-times # the 1.5B int8 models' prefill at 64-4,096
                                              # rows with auto's pre-norms fused (#5 +
                                              # #7) and not (#6), and dyn: the
@@ -386,10 +393,11 @@ MM_PREFIX = 197           # ViT-B/16's tokens at 224 pixels: 14 x 14 patches and
 # f32 products acc * x_s * w_s in the same order, one rounding to the output
 # type and the bias added in it: bit-equal.
 QMM_TOL = 0.0
-# quant_matmul (#6) with f32 x against its plain version: the products of f32
-# x with int8 levels are rounded in f32 on both sides and summed in another
-# order (the kernel's fused multiply-adds along K against cuBLAS's f32 sums,
-# TF32 off), over up to 9728 terms. bf16 x: every product is exact in f32,
+# quant_matmul_f32 (#6 with f32 x) against its plain version: the kernel's
+# products of x's three bf16 parts with the exact int8 levels are exact, and
+# summed in f32 a 64-K chunk at a time (the tensor cores' adds, then the
+# chunks' in order), against cuBLAS's f32 products and sums (TF32 off), over
+# up to 9728 terms. bf16 x: every product is exact in f32,
 # only the order of the f32 sums differs, then one rounding to bf16: one
 # bf16 ulp (BF16_ULP). quant_matmul_dyn_fused (#8): bit-equal (QMM_TOL), as
 # #7. expert_ffn_dense (#11): one bf16 ulp, the fat kernel's rule (a hidden
@@ -452,7 +460,13 @@ F32_FORMS = {
                                 "apertis_llm_tpu/ops/pallas/mha_step.py:131"),
     "ln_quantize_f32": ("apertis_llm_torch/csrc/ln_quant.cu",
                         "apertis_llm_tpu/ops/pallas/ln_quant.py:60"),
+    "quant_matmul_f32": ("apertis_llm_torch/csrc/quant_matmul.cu",
+                         "apertis_llm_tpu/ops/pallas/quant_matmul.py:201"),
 }
+# #6's f32 form (phase 3i, --f32-times) at the rows the int8 chat and eval
+# give it: decode at 1, a 10-token first turn, 64, the 132-token second
+# turn, eval's 4 x 130 and request B's 2048.
+QMM_F32_ROWS = (1, 10, 64, 132, 520, 2048)
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense). The f32
 # flash kernels' products run on the tensor cores in split TF32: three TF32
 # products for each f32 one, so their operations count 3x against "tf32".
@@ -1807,11 +1821,13 @@ def f32_forms_phase(checks, dev):
     (``ffn_decode_f32`` on the step's bf16 FFN input and on f32 rows, and
     with bf16 weights beside f32 biases and rows; ``ffn_decode_int8_f32``)
     at 64, 4, 1 and 256 rows, #9 (``mha_decode_ctx_f32`` and ``_int8_f32``)
-    at (64, 96) and (1, 88) slots with heads of 64 and 128, and #5
-    (``ln_quantize_f32``) at the eval's and the prefill's rows; sensitivity
-    checks that drop each term, each timed shape run twice for the same
-    bits. Returns (#9 f32's SDPA f32 time, the library yardstick; the
-    resources of #3's and #4's split-TF32 products at their plans)."""
+    at (64, 96) and (1, 88) slots with heads of 64 and 128, #5
+    (``ln_quantize_f32``) at ``LN_F32_CASES`` (bit-equal, both routes) and
+    #6 (``quant_matmul_f32``) on the head and FFN weights at
+    ``QMM_F32_ROWS``; sensitivity checks that drop each term, each timed
+    shape run twice for the same bits. Returns (the library yardsticks by
+    kernel: #9 f32's SDPA f32, #6 f32's f32 product; the resources of #3's
+    and #4's split-TF32 products at their plans)."""
     from apertis_llm_torch.models.factory import calculate_model_dimensions
     from apertis_llm_torch.ops.kernels.ffn_fused import (
         ffn_decode_f32, ffn_decode_int8_f32, ffn_decode_int8_reference, ffn_decode_reference)
@@ -1988,7 +2004,7 @@ def f32_forms_phase(checks, dev):
     checks.sensitive("f32 decode attention", mha_decode_ctx_reference, a, {
         "self-term": a[:3] + (torch.zeros_like(a[3]), torch.zeros_like(a[4])) + a[5:],
         "mask": a[:5] + (torch.zeros_like(a[5]),) + a[6:]}, [("ctx", tol)])
-    library_ms = None
+    library, resources_seen = {}, set()
     for hd in (64, 128):
         for b, l in ((64, 96), (1, 88)):
             a = ctx_args(b, l, hd)
@@ -1999,7 +2015,7 @@ def f32_forms_phase(checks, dev):
                           cost=cost, repeat=timed,
                           shape=None if timed else f"B={b} L={l} Dh={hd}")
             if timed:
-                library_ms = sdpa_f32_decode_ms(a, card)
+                library["mha_decode_ctx_f32"] = sdpa_f32_decode_ms(a, card)
             a = ctx_args(b, l, hd, int8=True)
             checks.kernel("mha_decode_ctx_int8_f32",
                           f"f32 decode attention, int8 cache, B={b} L={l} Dh={hd}", a,
@@ -2008,20 +2024,120 @@ def f32_forms_phase(checks, dev):
                                 "int8") if timed else None,
                           repeat=timed)
 
-    for rows, layer_norm in ((2048, True), (64, True), (2048, False), (1, True)):
-        x = randn(rows, d, std=2.0)
-        w_ = 1 + randn(d, std=0.1)
-        b_ = randn(d, std=0.1) if layer_norm else None
-        timed = rows == 2048 and layer_norm
-        checks.kernel("ln_quantize_f32",
-                      f"f32 norm + quantize {rows} x {d} {'LayerNorm' if layer_norm else 'RMS'}",
-                      (x, w_, b_, eps), ln_quantize_f32, ln_quantize_reference,
+    # #5's f32 form: the register kernel at LN_F32_CASES and the wide route
+    # past its plan, held bit-equal to the plain version (the tolerances
+    # below are the kernel checks'; a bit that differs fails here).
+    from apertis_llm_torch.ops.kernels.ln_quant import f32_route, ln_quantize_resources
+    for rows, h, layer_norm, bf16_w, name in LN_F32_CASES:
+        x, w_, b_ = ln_f32_operands(rows, h, layer_norm, bf16_w, randn)
+        plan = f32_route(h, rows)
+        label = (f"f32 norm + quantize {rows} x {h} {'LayerNorm' if layer_norm else 'RMS'}"
+                 + (", bf16 weights" if bf16_w else "")
+                 + (f", plan {tuple(plan)}" if plan else ", wide route"))
+        args = (x, w_, b_, eps)
+        checks.kernel("ln_quantize_f32", label, args, ln_quantize_f32, ln_quantize_reference,
                       [("q", "int8"), ("scale", SCALE_TOL)],
-                      cost=(nbytes(x, w_, b_) + x.numel() + 4 * rows, 10 * x.numel(), "f32")
-                      if timed else None, repeat=timed)
-    del layer, qlayer
+                      cost=None if name == "" else ln_cost(x, w_, b_), repeat=True,
+                      shape=name or None)
+        if not all(torch.equal(a_, r_) for a_, r_ in zip(ln_quantize_f32(*args),
+                                                          ln_quantize_reference(*args))):
+            raise RuntimeError(f"{label}: not bit-equal to its plain version")
+        log(f"  {label}: bit-equal to its plain version ok")
+        if plan is not None and ("ln", tuple(plan)) not in resources_seen:
+            resources_seen.add(("ln", tuple(plan)))
+            log(f"  ln_quantize_f32 plan {tuple(plan)} ({'bf16' if bf16_w else 'f32'} weights): "
+                f"{json.dumps(ln_quantize_resources(plan, 2 if bf16_w else 1))}")
+
+    # #6's f32 form on the 1.5B tied head (2432 x 32000) and FFN weights at
+    # the chat's and eval's rows, each run twice for the same bits, beside
+    # its bound and the library's f32 product; the report's shape is the
+    # head at 1 row (every decode token of the int8 chat).
+    from apertis_llm_torch.models.quantize import quantize_weight
+    from apertis_llm_torch.ops.kernels.quant_matmul import (
+        f32_plan, quant_matmul_f32, quant_matmul_reference, quant_matmul_resources)
+    head_q, head_s = quantize_weight(randn(d, config.vocab_size, std=0.02))
+    weights = {"head": (head_q, head_s, None), "w1": (q1.w_q, q1.w_s, q1.b),
+               "w2": (q2.w_q, q2.w_s, q2.b)}
+    qtol = [("out", QMM_F32_TOL)]
+    a = (randn(7, d), *weights["w1"])
+    checks.sensitive("quant_matmul_f32", quant_matmul_reference, a, {
+        "w_s": a[:2] + (torch.ones_like(a[2]), a[3]),
+        "b": a[:3] + (None,),
+        "x's mid and lo parts (x rounded to bf16: one product)":
+            (a[0].bfloat16().float(),) + a[1:],
+    }, qtol)
+    for name, rows_ in (("head", QMM_F32_ROWS[:4]), ("w1", QMM_F32_ROWS), ("w2", (10, 64, 520))):
+        w_q, w_s, b_ = weights[name]
+        for rows in rows_:
+            a = (randn(rows, w_q.shape[0]), w_q, w_s, b_)
+            shape = f"{name} ({w_q.shape[0]} x {w_q.shape[1]}) at {rows} rows"
+            plan = f32_plan(rows, w_q.shape[1], w_q.shape[0], 132)
+            report = name == "head" and rows == 1
+            checks.kernel("quant_matmul_f32", f"quant_matmul_f32 {shape}, plan rows {plan.rows} "
+                          f"split {plan.split}", a, quant_matmul_f32, quant_matmul_reference,
+                          qtol, cost=qmm_f32_cost(a), repeat=True,
+                          shape=None if report else shape)
+            lib = qmm_f32_library(a)
+            if report:
+                library["quant_matmul_f32"] = lib["library_ms"]
+            else:
+                checks.shape_times["quant_matmul_f32"][shape].update(lib)
+            log(f"  library: f32 x @ w_deq (TF32 off) {lib['library_ms']:.4f} ms, device "
+                f"{lib['library_device_ms']:.4f} ms ({shape}); card: {card}")
+            if ("qm", plan.rows, plan.split) not in resources_seen:
+                resources_seen.add(("qm", plan.rows, plan.split))
+                log(f"  quant_matmul_f32 plan rows {plan.rows} split {plan.split}: "
+                    f"{json.dumps(quant_matmul_resources(False, plan.rows, plan.split, f32=True))}")
+    del layer, qlayer, head_q, head_s, weights
     torch.cuda.empty_cache()
-    return library_ms, resources
+    return library, resources
+
+
+def qmm_f32_cost(args):
+    """(bytes, operations, type) of #6's f32 form: x, the weight, its
+    scales and the bias read once, the f32 output written once; three bf16
+    products (x's parts) of 2 M N K operations each."""
+    x, w_q, w_s, b = args
+    m, k = x.shape
+    n = w_q.shape[1]
+    return nbytes(x, w_q, w_s, b) + 4 * m * n, 3 * 2 * m * n * k, "bf16"
+
+
+def qmm_f32_library(args):
+    """#6 f32's library yardstick: one PyTorch call, ``x @ w_deq`` with the
+    weight dequantized to f32 ahead of the call, TF32 off (set here): its
+    time as the kernels' ``ms`` (``library_ms``) and its profiler device
+    time (``library_device_ms``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w_q, w_s, _ = args
+    w_deq = (w_q.float() * w_s.reshape(1, -1)).contiguous()
+    return {"library_ms": cuda_ms(lambda: x @ w_deq),
+            "library_device_ms": device_ms(lambda: x @ w_deq)}
+
+
+# #5's f32 form (phase 3i, --f32-times): (rows, H, LayerNorm, bf16 norm
+# weights, the report's shape name); the first is the report's shape,
+# request B's 2048 x 2432 LayerNorm; H = 2436 and 2431 take vectors of 4
+# and 1; 40,000 and 58,088 (the widest a block's shared memory holds) the
+# wide route.
+LN_F32_CASES = [
+    (2048, 2432, True, False, None), (2048, 2432, False, False, "2048 x 2432 RMSNorm"),
+    (132, 2432, True, False, "132 x 2432"), (520, 2432, True, False, "520 x 2432"),
+    (2048, 704, True, False, "2048 x 704"), (64, 2432, True, False, ""),
+    (1, 2432, True, False, ""), (2048, 2432, True, True, ""), (300, 2436, True, False, ""),
+    (300, 2431, False, False, ""), (64, 40000, True, False, "64 x 40000, wide route"),
+    (16, 58088, False, True, ""),
+]
+
+
+def ln_f32_operands(rows, h, layer_norm, bf16_weights, randn):
+    """Seeded f32 rows (std 2) and norm weights about 1 (bias about 0) for
+    #5's f32 form."""
+    wdt = torch.bfloat16 if bf16_weights else torch.float32
+    x = randn(rows, h, std=2.0)
+    w = (1 + randn(h, std=0.1)).to(wdt)
+    b = randn(h, std=0.1).to(wdt) if layer_norm else None
+    return x, w, b
 
 
 def f32_form_resources(d, c, r, inter, dev, rows=(64, 1)):
@@ -2082,7 +2198,10 @@ def f32_step_launches(result, label, fn, args, quant, card):
 
 
 def f32_times(card, dev=None):
-    """``--f32-times``: #4's and #3's f32 forms (``ffn_decode_f32``,
+    """``--f32-times``: #6's f32 form (``quant_matmul_f32``) on the 1.5B
+    head and W1 at ``QMM_F32_ROWS`` beside its bound and the library's f32
+    product, #5's (``ln_quantize_f32``) at ``LN_F32_CASES``' reported
+    shapes; #4's and #3's f32 forms (``ffn_decode_f32``,
     ``ffn_decode_int8_f32``, ``ssm_decode_step_f32`` and
     ``ssm_decode_step_int8_f32``, the dense epilogue) at 64, 4 and 1 rows on
     one f32 layer of the 1.5B dense preset and its int8 quantization, #3's
@@ -2093,8 +2212,9 @@ def f32_times(card, dev=None):
     the split-TF32 products' resources where the checkout has them; then one
     chat token at batch 1 of the 1.5B f32 model that ``create-model`` writes
     and of its ``--quantize int8`` serving: TTFT and the streamed rate of an
-    8-token prompt, and a decode token's device time by kernel against its
-    host time (the difference of 40- and 8-token streams). Needs only the
+    8-token prompt, a 10-token first turn's device time by kernel, and a
+    decode token's device time by kernel against its host time (the
+    difference of 40- and 8-token streams). Needs only the
     wrappers' and the interface's Python API, so an earlier checkout can run
     it with this script copied in."""
     import contextlib
@@ -2146,6 +2266,33 @@ def f32_times(card, dev=None):
     w1, w2, q1, q2 = layer.ffn.w1, layer.ffn.w2, qlayer.ffn.w1, qlayer.ffn.w2
     fnorm = layer.ffn.pre_norm.weights()
     log(f"--f32-times: the 1.5B widths (hidden {d}, mixer {c}, FFN {inter}); card: {card}")
+    # #6's f32 form (quant_matmul_f32, or, in a checkout without it,
+    # quant_matmul on f32 rows) on the tied head and W1 at QMM_F32_ROWS,
+    # beside its bound and the library's f32 product; #5's f32 form at
+    # LN_F32_CASES' reported shapes.
+    from apertis_llm_torch.models.quantize import quantize_weight
+    from apertis_llm_torch.ops.kernels import quant_matmul as qm
+    from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize_f32, ln_quantize_reference
+    qmm_f32 = getattr(qm, "quant_matmul_f32", qm.quant_matmul)
+    head_q, head_s = quantize_weight(randn(d, 32000, std=0.02))
+    for name, (w_q, w_s, b_), rows_ in (("head", (head_q, head_s, None), QMM_F32_ROWS[:4]),
+                                        ("w1", (q1.w_q, q1.w_s, q1.b), QMM_F32_ROWS)):
+        for rows in rows_:
+            a = (randn(rows, w_q.shape[0]), w_q, w_s, b_)
+            label = f"quant_matmul_f32 {name} ({w_q.shape[0]} x {w_q.shape[1]}) at {rows} rows"
+            timed(label, qmm_f32, qm.quant_matmul_reference, a, [("out", QMM_F32_TOL)],
+                  qmm_f32_cost(a))
+            result[label].update(qmm_f32_library(a))
+            log(f"    library: f32 x @ w_deq (TF32 off) {result[label]['library_ms']:.4f} ms, "
+                f"device {result[label]['library_device_ms']:.4f} ms")
+    del head_q, head_s
+    for rows, h, layer_norm, bf16_w, name in LN_F32_CASES:
+        if name == "":
+            continue
+        x, w_, b_ = ln_f32_operands(rows, h, layer_norm, bf16_w, randn)
+        timed(f"ln_quantize_f32 {name or '2048 x 2432 LayerNorm'}", ln_quantize_f32,
+              ln_quantize_reference, (x, w_, b_, config.layer_norm_eps),
+              [("q", "int8"), ("scale", SCALE_TOL)], ln_cost(x, w_, b_))
     for rows in (64, 4, 1):
         a = (randn(rows, d, dtype=torch.bfloat16), w1.w, w1.b, w2.w, w2.b, config.hidden_act, f32)
         timed(f"ffn_decode_f32 at {rows} rows", ffn_decode_f32, ffn_decode_reference, a,
@@ -2223,6 +2370,19 @@ def f32_times(card, dev=None):
                     torch.cuda.synchronize()
                     best = min(best, time.perf_counter() - t0)
                 walls[n] = best
+            # The first turn's prefill of 10 tokens, to its first token.
+            ids10 = np.arange(1, 11, dtype=np.int64)[None]
+            first_turn = device_ms(lambda: list(engine.stream(
+                ids10, max_new_tokens=1, min_new_tokens=1, do_sample=False)), iters=2,
+                by_kernel=True) or {}
+            first_turn = dict(sorted(first_turn.items(), key=lambda kv: -kv[1]))
+            result[f"{label} first turn"] = {
+                "device_ms": sum(first_turn.values()),
+                "device_ms_by_kernel": {k[:90]: v for k, v in list(first_turn.items())[:16]}}
+            log(f"  {label}: a 10-token first turn to its first token, "
+                f"{sum(first_turn.values()):.3f} ms of device time; card: {card}")
+            for k, v in list(first_turn.items())[:8]:
+                log(f"    {v:.4f} ms: {k[:110]}")
             by8 = device_ms(lambda: run(8), iters=2, by_kernel=True) or {}
             by40 = device_ms(lambda: run(40), iters=2, by_kernel=True) or {}
             per = {k: (by40.get(k, 0.0) - by8.get(k, 0.0)) / 32 for k in set(by8) | set(by40)}
@@ -2316,8 +2476,8 @@ def surfaces_phase(card, dev, work):
                 ffn_fused.ffn_decode_int8_f32, mha_step.mha_decode_ctx,
                 mha_step.mha_decode_ctx_int8, mha_step.mha_decode_ctx_f32,
                 mha_step.mha_decode_ctx_int8_f32, ln_quant.ln_quantize, ln_quant.ln_quantize_f32,
-                quant_matmul.quant_matmul, quant_matmul.quant_matmul_dyn_pre_q,
-                ssm_scan.selective_scan_fwd, ssm_scan.selective_scan_bwd,
+                quant_matmul.quant_matmul, quant_matmul.quant_matmul_f32,
+                quant_matmul.quant_matmul_dyn_pre_q, ssm_scan.selective_scan_fwd, ssm_scan.selective_scan_bwd,
                 moe_ffn.expert_ffn_fat, moe_grouped.expert_ffn_grouped]
     total = collections.Counter()
 
@@ -2421,7 +2581,7 @@ def surfaces_phase(card, dev, work):
             else:
                 expect("chat int8", got, {"ssm_decode_step_int8_f32": n_layers * steps,
                                           "ffn_decode_int8_f32": n_layers * steps,
-                                          "quant_matmul": None, "ln_quantize_f32": None,
+                                          "quant_matmul_f32": None, "ln_quantize_f32": None,
                                           "ssm_decode_step_int8": 0, "ffn_decode_int8": 0})
             rec = turns[0]
             ids = rec["prompt"]
@@ -2470,7 +2630,7 @@ def surfaces_phase(card, dev, work):
                     raise RuntimeError(f"eval {task} {label}: {result}")
                 want = {"selective_scan_fwd": n_layers * calls}
                 if label == "int8":
-                    want.update({"ln_quantize_f32": None, "quant_matmul": None,
+                    want.update({"ln_quantize_f32": None, "quant_matmul_f32": None,
                                  "quant_matmul_dyn_pre_q": None})
                 expect(f"eval {task} {label}", got, want)
                 log(f"  eval {task} {label}: {result}")
@@ -2777,8 +2937,8 @@ def main() -> int:
         selective_scan_carry_fwd_reference, selective_scan_fwd, selective_scan_fwd_reference)
     from apertis_llm_torch.ops.kernels.quant_matmul import (
         fused_plan_on, quant_matmul, quant_matmul_dyn_fused, quant_matmul_dyn_fused_reference,
-        quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference, quant_matmul_fused_resources,
-        quant_matmul_reference)
+        quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference, quant_matmul_f32,
+        quant_matmul_fused_resources, quant_matmul_reference)
     from apertis_llm_torch.ops.kernels.ssm_step import (
         ssm_decode_step, ssm_decode_step_int8, ssm_decode_step_reference, ssm_step_resources,
         step_plan)
@@ -3818,9 +3978,13 @@ def main() -> int:
             args = mode_inputs(rows, weights, dtype)
             shape = f"(K={args[1].shape[0]}, N={args[1].shape[1]}), {str(dtype)[6:]}"
             timed = rows in (64, 2048) and dtype == bf16
-            check_kernel("quant_matmul", f"quant_matmul {label} {shape}", args, quant_matmul,
-                         quant_matmul_reference, qmm_bf16_tol if dtype == bf16 else qmm_f32_tol,
-                         cost=mode_cost(args, "bf16") if timed else None)
+            if dtype == bf16:
+                check_kernel("quant_matmul", f"quant_matmul {label} {shape}", args, quant_matmul,
+                             quant_matmul_reference, qmm_bf16_tol,
+                             cost=mode_cost(args, "bf16") if timed else None)
+            else:   # the f32 form; phase 3i times it
+                check_kernel("quant_matmul_f32", f"quant_matmul_f32 {label} {shape}", args,
+                             quant_matmul_f32, quant_matmul_reference, qmm_f32_tol, repeat=True)
             if timed and rows == 2048:
                 w_deq = (args[1].to(bf16) * args[2].to(bf16)).contiguous()
                 x_ = args[0]
@@ -4320,7 +4484,8 @@ def main() -> int:
                 repeats(f"selective_scan_carry_fwd {label}", selective_scan_carry_fwd, fargs)
 
     # ---- 3i. the decode kernels' f32 forms ------------------------------------
-    library["mha_decode_ctx_f32"], f32_resources = f32_forms_phase(checks, dev)
+    f32_library, f32_resources = f32_forms_phase(checks, dev)
+    library.update(f32_library)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. serve -----------------------------------------------------------
