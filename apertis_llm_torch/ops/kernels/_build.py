@@ -116,13 +116,18 @@ SIGNATURES = {
     # absmax, P, H, E*I, E, act, row_tile, split, stages_up, stages_down,
     # stream
     "apertis_expert_ffn_grouped": [_P] * 13 + [_I] * 9 + [_P],
-    # q, k, v, k_new, v_new, bias, out, B, L, H, head_dim, stream
-    "apertis_mha_decode_ctx": [_P] * 7 + [_I] * 4 + [_P],
-    # q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, head_dim, stream
-    "apertis_mha_decode_ctx_int8": [_P] * 9 + [_I] * 4 + [_P],
+    # q, k, v, k_new, v_new, bias, out, B, L, H, head_dim, split, stages,
+    # stream
+    "apertis_mha_decode_ctx": [_P] * 7 + [_I] * 6 + [_P],
+    # q, k, v, k_new, v_new, bias, ks, vs, out, B, L, H, head_dim, split,
+    # stages, stream
+    "apertis_mha_decode_ctx_int8": [_P] * 9 + [_I] * 6 + [_P],
     # q, k, v, k_new, v_new, bias, ks, vs (NULL for an f32 cache), out, B, L,
-    # H, head_dim, stream
-    "apertis_mha_decode_ctx_f32": [_P] * 9 + [_I] * 4 + [_P],
+    # H, head_dim, split, stages, stream
+    "apertis_mha_decode_ctx_f32": [_P] * 9 + [_I] * 6 + [_P],
+    # form (0 bf16, 1 int8, 2 f32, 3 f32 over int8), head_dim, split, stages,
+    # out (5 ints)
+    "apertis_mha_decode_ctx_resources": [_I] * 4 + [_P],
     # q, k, v, out, lse, B*H, L, head_dim, causal, stream
     "apertis_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_P],
     # q, k, v, dout, lse, delta, dq, B*H, L, head_dim, causal, stream

@@ -463,6 +463,27 @@ F32_FORMS = {
     "quant_matmul_f32": ("apertis_llm_torch/csrc/quant_matmul.cu",
                          "apertis_llm_tpu/ops/pallas/quant_matmul.py:201"),
 }
+# #9's split (csrc/mha_step.cu, mha_step.py::mha_plan): batch 1 over the
+# longest chat cache at the dense MHA model's 38 heads and the MHA + MoE
+# model's 11, and shapes that take the plan's other splits (B, L, heads,
+# Dh, what it is; the H100's 132 SMs give a bf16 / int8 cache 7, 16, 2, 3,
+# 6 / 4, 14 / 5, 6, 16 / 8, 12, 16 / 15, 16 blocks a (row, head)). Phase 3
+# checks the bf16 and int8 caches there, phase 3i the f32 forms at
+# MHA_SPLIT_F32's.
+MHA_SPLIT_SHAPES = ((1, 2048, 38, 64, "a long chat, dense MHA"),
+                    (1, 2048, 11, 64, "a long chat, MHA + MoE"),
+                    (4, 288, 38, 64, "split"), (2, 192, 38, 64, "split"),
+                    (4, 288, 11, 64, "split"), (1, 320, 1, 96, "split, Dh 96"),
+                    (4, 400, 11, 64, "split"), (1, 512, 2, 128, "split, Dh 128"),
+                    (2, 1024, 11, 64, "split"), (1, 1000, 2, 256, "split, Dh 256"),
+                    (1, 2100, 4, 128, "split 16, Dh 128"))
+MHA_SPLIT_F32 = (0, 1, 2, 5, 7, 9)
+# --mha-times: every form of #9 at 11 and 38 heads of 64 over these (B, L),
+# and one decode token of the 1.5B MHA + MoE chat after MHA_CHAT_PROMPT
+# prompt tokens (bucket 2048; the checkpoint's position limit raised to 4096
+# so that the 40 new tokens fit).
+MHA_TIMES_SHAPES = ((1, 88), (1, 2048), (4, 88), (4, 288), (64, 96), (64, 256), (64, 296))
+MHA_CHAT_PROMPT = 1900
 # #6's f32 form (phase 3i, --f32-times) at the rows the int8 chat and eval
 # give it: decode at 1, a 10-token first turn, 64, the 132-token second
 # turn, eval's 4 x 130 and request B's 2048.
@@ -2023,6 +2044,19 @@ def f32_forms_phase(checks, dev):
                           cost=(nbytes(*a[:8]) + nbytes(a[0]), 4 * b * l * a[0].shape[1],
                                 "int8") if timed else None,
                           repeat=timed)
+    # The split over slots in f32 (MHA_SPLIT_SHAPES' MHA_SPLIT_F32), each shape
+    # run twice for the same bits; from a generator of their own.
+    g_split = torch.Generator(device=dev).manual_seed(SEED + 27)
+    for i in MHA_SPLIT_F32:
+        b, l, heads, hd, label = MHA_SPLIT_SHAPES[i]
+        for key, kernel, plain, int8 in (
+                ("mha_decode_ctx_f32", mha_decode_ctx_f32, mha_decode_ctx_reference, False),
+                ("mha_decode_ctx_int8_f32", mha_decode_ctx_int8_f32, int8_plain, True)):
+            a = mha_ctx_args(b, l, heads, hd, f32, int8, g_split)
+            shape = f"B={b} L={l} {heads}x{hd} ({label})"
+            log(f"  {key} at {shape}: the plan's split {mha_split_label(a)}")
+            checks.kernel(key, f"{key} {shape}", a, kernel, plain, [("ctx", tol)],
+                          cost=mha_ctx_cost(a), repeat=True, shape=shape)
 
     # #5's f32 form: the register kernel at LN_F32_CASES and the wide route
     # past its plan, held bit-equal to the plain version (the tolerances
@@ -2405,9 +2439,9 @@ def f32_times(card, dev=None):
 
 
 def sdpa_f32_decode_ms(args, card):
-    """#9 f32's library yardstick: SDPA f32 (TF32 off) over the cache with
-    the new slot (the last) written, outside the timed region, under the
-    same mask."""
+    """#9's library yardstick on its float arguments (f32, TF32 off, or
+    bf16): SDPA over the cache with the new slot (the last) written, outside
+    the timed region, under the same mask."""
     q, k, v, k_new, v_new, bias, hd = args
     b, l = bias.shape
     kc, vc = k.clone(), v.clone()
@@ -2416,9 +2450,199 @@ def sdpa_f32_decode_ms(args, card):
     keep = ((bias == 0) | (torch.arange(l, device=q.device) == l - 1))[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = cuda_ms(lambda: sdpa(heads4(q), heads4(kc), heads4(vc), attn_mask=keep))
-    log(f"  library: f32 scaled_dot_product_attention over the written cache {ms:.4f} ms "
-        f"(B={b} L={l}); card: {card}")
+    log(f"  library: {str(q.dtype)[6:]} scaled_dot_product_attention over the written cache "
+        f"{ms:.4f} ms (B={b} L={l}); card: {card}")
     return ms
+
+
+def mha_ctx_args(b, l, heads, hd, dtype, int8, gen):
+    """#9's operands as a chat or a serve leaves a layer's cache: row b's
+    prompt in its first slots, bucket padding to l // 2, generated tokens
+    from there to the stale slot l - 1, which is masked; q, k_new, v_new and
+    the cache in ``dtype`` (bf16 or f32), or the cache in int8 with its
+    scales (B, H, L)."""
+    from apertis_llm_torch.ops.kernels.mha_step import NEG, quantize_heads
+    dev = gen.device
+    d = heads * hd
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    q, k_new, v_new = randn(b, d), randn(b, d), randn(b, d)
+    k, v = randn(b, l, d), randn(b, l, d)
+    bucket = l // 2
+    lens = torch.randint(1, bucket + 1, (b, 1), generator=gen, device=dev)
+    slots = torch.arange(l, device=dev)[None, :]
+    valid = (slots < lens) | ((slots >= bucket) & (slots < l - 1))
+    bias = torch.where(valid, 0.0, NEG).float().contiguous()
+    if not int8:
+        return (q, k, v, k_new, v_new, bias, hd)
+    (kq, ks), (vq, vs) = quantize_heads(k, hd), quantize_heads(v, hd)
+    return (q, kq, vq, k_new, v_new, bias, ks.transpose(1, 2).contiguous(),
+            vs.transpose(1, 2).contiguous(), hd)
+
+
+def mha_ctx_cost(args):
+    """(bytes, operations, type) of #9 on ``args``: every operand read once
+    and the output written once; 4 operations a cached value."""
+    b, d = args[0].shape
+    l = args[1].shape[1]
+    kind = ("int8" if args[1].dtype == torch.int8 else
+            "bf16" if args[0].dtype == torch.bfloat16 else "f32")
+    return nbytes(*args[:-1]) + nbytes(args[0]), 4 * b * l * d, kind
+
+
+def mha_plain_args(args):
+    """``args`` (an int8 cache's with its scales before head_dim) in the
+    order of the plain version and ``_launch``: (q, k, v, k_new, v_new,
+    bias, head_dim, k_scale, v_scale)."""
+    if len(args) == 9:
+        return (*args[:6], args[8], args[6], args[7])
+    return (*args, None, None)
+
+
+def mha_split_label(args):
+    """The plan's split of ``args`` (a checkout without one: 1)."""
+    from apertis_llm_torch.ops.kernels import _build, mha_step
+    if not hasattr(mha_step, "mha_plan"):
+        return 1
+    q, k = args[0], args[1]
+    return mha_step.mha_plan(q.shape[0], q.shape[1] // args[-1], k.shape[1], args[-1], k.dtype,
+                             q.dtype, _build.sm_count(q.device.index)).split
+
+
+def mha_times(card, dev=None):
+    """``--mha-times``: #9 in every form (bf16 cache, int8 cache, f32, f32
+    over an int8 cache) at 11 and 38 heads of 64 over MHA_TIMES_SHAPES'
+    caches, each held against its plain version (its tolerance, and a
+    repeat for the same bits) and timed: device ms (the profiler), the
+    wrapper's ms a call in a loop (CUDA events) and its host time a call
+    (the enqueue), the byte bound and its share, SDPA for the float caches,
+    the plan's split; where the checkout has the split, the device ms at
+    other splits (1 to 16) at the batch-1 and 4-row shapes, and each
+    instance's resources. Then one decode token at batch 1 of the 1.5B MHA +
+    MoE model that ``create-model --expert-system`` writes, f32 and
+    ``--quantize int8``, after a MHA_CHAT_PROMPT-token prompt: the token's
+    device time by kernel and its host time (the differences of 40- and
+    8-token streams). Needs only the wrappers' and the interface's Python
+    API, so an earlier checkout can run it with this script copied in."""
+    import contextlib
+    import inspect
+    import io
+
+    from apertis_llm_torch import cli
+    from apertis_llm_torch.inference.interface import ApertisInterface
+    from apertis_llm_torch.ops.kernels import mha_step as ms
+
+    dev = dev or torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    bf16, f32 = torch.bfloat16, torch.float32
+    forms = (("mha_decode_ctx", ms.mha_decode_ctx, bf16, False),
+             ("mha_decode_ctx_int8", ms.mha_decode_ctx_int8, bf16, True),
+             ("mha_decode_ctx_f32", ms.mha_decode_ctx_f32, f32, False),
+             ("mha_decode_ctx_int8_f32", ms.mha_decode_ctx_int8_f32, f32, True))
+    sweep = "split" in inspect.signature(ms._launch).parameters
+    result = {"card": card}
+    log(f"--mha-times: #9 at 11 and 38 heads of 64; card: {card}")
+    for heads in (11, 38):
+        for b, l in MHA_TIMES_SHAPES:
+            for name, fn, dtype, int8 in forms:
+                args = mha_ctx_args(b, l, heads, 64, dtype, int8, gen)
+                got, ref = fn(*args), ms.mha_decode_ctx_reference(*mha_plain_args(args))
+                torch.cuda.synchronize()
+                label = f"{name} {heads} heads B={b} L={l}"
+                compare(label, got, ref, BF16_ULP if dtype == bf16 else F32_FORM_TOL)
+                if not torch.equal(got, fn(*args)):
+                    raise RuntimeError(f"{label}: a second run gave other bits")
+                n_bytes, ops, kind = mha_ctx_cost(args)
+                b_ms = bound(n_bytes, ops, kind)[0]
+                d_ms = device_ms(lambda: fn(*args))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    fn(*args)
+                host_ms = (time.perf_counter() - t0) / 50 * 1e3
+                torch.cuda.synchronize()
+                rec = {"device_ms": d_ms, "ms": cuda_ms(lambda: fn(*args)), "host_ms": host_ms,
+                       "bound_ms": b_ms, "bound_share": None if d_ms is None else b_ms / d_ms,
+                       "split": mha_split_label(args)}
+                if not int8:
+                    rec["sdpa_ms"] = sdpa_f32_decode_ms(args, card)
+                if sweep and b <= 4:
+                    rec["device_ms_by_split"] = {}
+                    for split in (1, 2, 4, 8, 12, 16):
+                        if split <= l:
+                            rec["device_ms_by_split"][split] = device_ms(lambda: ms._launch(
+                                *mha_plain_args(args), name, f32=dtype == f32, split=split))
+                result[label] = rec
+                log(f"  {label}: device {d_ms if d_ms is None else round(d_ms, 4)} ms "
+                    f"({100 * rec['bound_share'] if d_ms else 0:.0f} % of the bound "
+                    f"{b_ms:.4f}), loop {rec['ms']:.4f} ms, host {host_ms:.4f} ms a call, split "
+                    f"{rec['split']}" + (f", SDPA {rec['sdpa_ms']:.4f}" if not int8 else "")
+                    + (f", by split {json.dumps(rec['device_ms_by_split'])}"
+                       if "device_ms_by_split" in rec else "") + f"; card: {card}")
+    if hasattr(ms, "mha_resources"):
+        result["resources"] = {}
+        for form, kind in enumerate(("bf16", "int8", "f32", "f32 over int8")):
+            for hd in ms._HEAD_DIMS:
+                for split, stages in ((1, 2), (16, 4)):
+                    res = ms.mha_resources(form, hd, split, stages)
+                    result["resources"][f"{kind} Dh {hd} split {split} stages {stages}"] = res
+                    log(f"  resources of #9 {kind} Dh {hd} at split {split}, {stages} stages: "
+                        f"{res}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # One decode token of the 1.5B MHA + MoE chat over a long history.
+    ids = np.random.default_rng(SEED + 28).integers(4, 32000, (1, MHA_CHAT_PROMPT))
+    with tempfile.TemporaryDirectory() as work:
+        big = os.path.join(work, "mha-moe-1.5B")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["create-model", "--target-params", "1.5B", "--expert-system",
+                      "--output-dir", big, "--device", dev.type])
+        cfg_path = os.path.join(big, "config.json")
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+        cfg["max_position_embeddings"] = 4096
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        for quantize in (None, "int8"):
+            label = f"MHA + MoE chat {quantize or 'f32'} after {MHA_CHAT_PROMPT} tokens"
+            iface = ApertisInterface(model_path=big, quantize=quantize, device=dev.type)
+            engine = iface.engine
+
+            def run(n):
+                return list(engine.stream(ids, max_new_tokens=n, min_new_tokens=n,
+                                          do_sample=False))
+            run(8)
+            walls = {}
+            for n in (8, 40):
+                best = float("inf")
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(n)
+                    torch.cuda.synchronize()
+                    best = min(best, time.perf_counter() - t0)
+                walls[n] = best
+            by8 = device_ms(lambda: run(8), iters=2, by_kernel=True) or {}
+            by40 = device_ms(lambda: run(40), iters=2, by_kernel=True) or {}
+            per = {k: (by40.get(k, 0.0) - by8.get(k, 0.0)) / 32 for k in set(by8) | set(by40)}
+            per = {k: v for k, v in sorted(per.items(), key=lambda kv: -kv[1]) if v > 1e-5}
+            mha = sum(v for k, v in per.items() if "mha_" in k)
+            host_ms = (walls[40] - walls[8]) / 32 * 1e3
+            dev_ms = sum(per.values())
+            result[label] = {"token_host_ms": host_ms, "token_device_ms": dev_ms,
+                             "token_mha_device_ms": mha,
+                             "token_device_ms_by_kernel": {k[:90]: v for k, v in
+                                                           list(per.items())[:16]}}
+            log(f"  {label}: a decode token {host_ms:.3f} ms on the host clock, {dev_ms:.3f} ms "
+                f"of device time, #9 {mha:.4f} ms of it; card: {card}")
+            for k, v in list(per.items())[:10]:
+                log(f"    {v:.4f} ms a token: {k[:110]}")
+            del iface, engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    return result
 
 
 SURFACE_TURNS = ["hello there , who are you ?", " ".join(["tell me more"] * 24)]
@@ -2924,7 +3148,8 @@ def main() -> int:
         ln_plan, ln_quantize, ln_quantize_reference, ln_quantize_resources)
     from apertis_llm_torch.ops.kernels.ln_quant import max_width as ln_max_width
     from apertis_llm_torch.ops.kernels.mha_step import (
-        NEG, mha_decode_ctx, mha_decode_ctx_int8, mha_decode_ctx_reference, quantize_heads)
+        NEG, mha_decode_ctx, mha_decode_ctx_int8, mha_decode_ctx_reference, mha_resources,
+        quantize_heads)
     from apertis_llm_torch.ops.kernels.moe_ffn import (
         expert_ffn_dense, expert_ffn_dense_reference, expert_ffn_fat, expert_ffn_fat_int4,
         expert_ffn_fat_int4_reference, expert_ffn_fat_reference, fat_block_n, fat_plan,
@@ -3682,13 +3907,37 @@ def main() -> int:
         args = decode_ctx_inputs(b, l, heads, hd, gen=gen)
         check_kernel("mha_decode_ctx", f"mha_decode_ctx B={b} L={l} {heads}x{hd} ({label})",
                      args, mha_decode_ctx, mha_decode_ctx_reference, ctx_tols,
-                     cost=decode_ctx_cost(args) if timed else None)
+                     cost=decode_ctx_cost(args) if timed else None, repeat=timed)
         if timed:
             library["mha_decode_ctx"] = sdpa_decode_ms(args)
         args = decode_ctx_inputs(b, l, heads, hd, int8=True, gen=gen)
         check_kernel("mha_decode_ctx_int8", f"mha_decode_ctx_int8 B={b} L={l} {heads}x{hd} "
                      f"({label})", args, mha_decode_ctx_int8, decode_ctx_int8_plain, ctx_tols,
-                     cost=decode_ctx_cost(args) if timed else None)
+                     cost=decode_ctx_cost(args) if timed else None, repeat=timed)
+    # The split over slots: batch 1 over a long cache and every other split
+    # the plan takes, each shape run twice for the same bits; from a
+    # generator of their own. Then each instance's resources.
+    g_split = torch.Generator(device=dev).manual_seed(SEED + 26)
+    for b, l, heads, hd, label in MHA_SPLIT_SHAPES:
+        for name, kernel, plain, int8 in (
+                ("mha_decode_ctx", mha_decode_ctx, mha_decode_ctx_reference, False),
+                ("mha_decode_ctx_int8", mha_decode_ctx_int8, decode_ctx_int8_plain, True)):
+            args = mha_ctx_args(b, l, heads, hd, bf16, int8, g_split)
+            shape = f"B={b} L={l} {heads}x{hd} ({label})"
+            log(f"  {name} at {shape}: the plan's split {mha_split_label(args)}")
+            check_kernel(name, f"{name} {shape}", args, kernel, plain, ctx_tols,
+                         cost=mha_ctx_cost(args), repeat=True, shape=shape)
+            if not int8 and hd == 64 and l == 2048:
+                shape_times[name][shape]["library_ms"] = sdpa_decode_ms(args)
+    for form, kind in enumerate(("bf16", "int8", "f32", "f32 over int8")):
+        for hd in (32, 64, 96, 128, 160, 192, 224, 256):
+            for split, stages in ((1, 2), (16, 4)):
+                res = mha_resources(form, hd, split, stages)
+                log(f"  resources of mha_decode_ctx, {kind} Dh {hd} at split {split}, {stages} "
+                    f"stages: "
+                    f"{res['registers']} registers a thread, {res['shared_bytes']} bytes of "
+                    f"shared memory, {res['blocks_per_sm']} block(s) an SM, "
+                    f"{res['spill_bytes']} bytes spilled")
 
     flash_tols = [("out", FLASH_TOL), ("lse", LSE_TOL)]
     args = (randn(2, 4, 200, head_dim), randn(2, 4, 200, head_dim), randn(2, 4, 200, head_dim))
@@ -6101,4 +6350,6 @@ if __name__ == "__main__":
         sys.exit(decode_times_main())
     if sys.argv[1:] == ["--f32-times"]:
         sys.exit(times_main("f32_times", f32_times))
+    if sys.argv[1:] == ["--mha-times"]:
+        sys.exit(times_main("mha_times", mha_times))
     sys.exit(main())
