@@ -9,10 +9,13 @@ to the parser) name another device, ``train`` reads
 ``chat`` serves the model in the checkpoint's dtype (f32 from
 ``load_pretrained``), or int8 with ``--quantize int8``, and prints each reply
 as it streams (``ApertisInterface.chat(stream=True)``, through
-``InferenceEngine.stream``). ``data-pipeline`` and
-``create-pipeline-config`` raise ``NotImplementedError``: the data pipeline
-is not ported yet (ROADMAP.md, queue 1). The JAX package's compile cache
-(``maybe_enable_cache``) is TPU-only and has no counterpart here.
+``InferenceEngine.stream``). ``train`` runs the AZR self-play pipeline
+for a config with ``training.method: "azr"``. ``data-pipeline`` and
+``create-pipeline-config`` run the host-only data pipeline
+(``data_pipeline/``), which they import inside the command: it needs
+PyYAML and ``pyarrow``, which the other subcommands never import. The JAX
+package's compile cache (``maybe_enable_cache``) is TPU-only and has no
+counterpart here.
 
 Run as ``apertis-torch <subcommand>`` or ``python -m apertis_llm_torch.cli``.
 """
@@ -190,15 +193,21 @@ def create_config_command(args):
 
 
 def data_pipeline_command(args):
-    raise NotImplementedError(
-        "the data pipeline (data-pipeline) is not ported to PyTorch yet (see ROADMAP.md, "
-        "queue 1: the next slice)")
+    from apertis_llm_torch.data_pipeline.config import DataPipelineConfig
+    from apertis_llm_torch.data_pipeline.main import run_pipeline
+
+    if not os.path.exists(args.config):
+        logger.error("Data pipeline configuration file not found: %s", args.config)
+        sys.exit(1)
+    config = DataPipelineConfig.from_yaml(args.config)
+    return run_pipeline(config)
 
 
 def create_pipeline_config_command(args):
-    raise NotImplementedError(
-        "the data pipeline's sample configuration (create-pipeline-config) is not ported "
-        "to PyTorch yet (see ROADMAP.md, queue 1: the next slice)")
+    from apertis_llm_torch.data_pipeline.config import create_sample_pipeline_config
+
+    create_sample_pipeline_config(args.output)
+    print(f"Sample data pipeline configuration created at: {args.output}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -311,7 +320,8 @@ COMMANDS = {
 def main(argv=None):
     """Run the subcommand of ``argv`` (default: the process's arguments);
     returns what it returns (the chat's interface, the eval's result, the
-    training's metrics, the created model's config)."""
+    training's metrics, the created model's config, the data pipeline's
+    results)."""
     args = build_parser().parse_args(argv)
     return COMMANDS[args.command](args)
 

@@ -10,8 +10,9 @@ All handler logic lives on :class:`UIBackend` as plain methods (no gradio
 types), so the behaviour is unit-testable without gradio installed; the
 gradio layer in :func:`launch_ui` is a thin binding, and gradio is imported
 only there. The jobs train on the interface's device (the card unless the
-interface names another). AZR is not ported yet: its job reports the
-pipeline's ``NotImplementedError`` in its status, as a failing job does.
+interface names another); the AZR job takes a local tokenizer (a
+``vocab.json`` or a tokenizer directory, ``training/azr_pipeline.py::
+load_tokenizer``) where the JAX UI defaults to the hub's ``"gpt2"``.
 """
 
 from __future__ import annotations
@@ -249,8 +250,10 @@ class UIBackend:
     ) -> str:
         if self.azr_job.running():
             return "An AZR job is already running."
+        if not (tokenizer_name or "").strip():
+            return "Provide a local tokenizer: a vocab.json or a tokenizer directory."
         config = {
-            "data": {"tokenizer_name": tokenizer_name or "gpt2"},
+            "data": {"tokenizer_name": tokenizer_name.strip()},
             "model": {
                 "hidden_size": int(hidden_size),
                 "num_hidden_layers": int(num_layers),
@@ -258,7 +261,8 @@ class UIBackend:
                 "intermediate_size": int(intermediate_size),
                 "attention_type": attention_type or "standard_mha",
             },
-            "training": {"method": "azr", "output_dir": output_dir or "output_azr"},
+            "training": {"method": "azr", "device": str(self.interface.device),
+                         "output_dir": output_dir or "output_azr"},
             "azr": {
                 "num_iterations": int(num_iterations),
                 "tasks_per_iteration": int(tasks_per_iteration),
@@ -366,7 +370,8 @@ def launch_ui(interface, port: int = 7860, share: bool = False) -> None:
                 ft_stop.click(lambda: backend.finetune_job.stop(), outputs=[ft_status])
 
             with gr.TabItem("Absolute Zero Reasoner"):
-                azr_tok = gr.Textbox(label="HF tokenizer", value="gpt2")
+                azr_tok = gr.Textbox(label="Tokenizer (local vocab.json or directory)",
+                                     value="")
                 azr_h = gr.Number(value=512, label="Hidden size")
                 azr_l = gr.Number(value=8, label="Layers")
                 azr_heads = gr.Number(value=8, label="Heads")

@@ -2649,6 +2649,215 @@ SURFACE_TURNS = ["hello there , who are you ?", " ".join(["tell me more"] * 24)]
 SURFACE_MAX_NEW = 48        # the 1.5B chats' --max-length
 
 
+# Phase 8's AZR run (the 1.5B widths) and its repeat (2 layers of them).
+AZR_SETTINGS = {"num_iterations": 2, "tasks_per_iteration": 2, "checkpoint_interval": 2,
+                "enable_sft_updates": True,
+                "sft": {"steps_per_iteration": 2, "batch_size": 4, "max_length": 256},
+                "task_generator": {"max_new_tokens": 32, "max_attempts": 1, "seed": SEED},
+                "solution_generator": {"max_new_tokens": 32, "max_attempts": 1}}
+AZR_PROMPT = [[1] + [4 + (7 * i) % 300 for i in range(23)]]   # the served-weights check's
+
+
+def azr_phase(card, dev, work, model_config, calls, reset, read, expect):
+    """Phase 8's AZR self-play on the card, through ``apertis-torch train
+    --config`` (``training.method: "azr"``), at the widths of
+    ``model_config`` (the 1.5B dense selective-SSM model's) with a vocabulary
+    of its 32,000 entries written by ``create_minimal_vocab_file``, f32
+    (``training.dtype`` unset), dropout 0, and :data:`AZR_SETTINGS`: two
+    iterations of two tasks, each task and solution sampled through
+    ``InferenceEngine.generate`` at batch 1 (#1 forward at each prefill, #3
+    and #4 in their f32 forms at each decode step), then two SFT steps an
+    iteration at batch 4 x 256 (#1 forward and backward), and a checkpoint.
+
+    Checks, each raising: the summary (2 iterations, 4 tasks) and the
+    tracker's files; every launch count, exactly, from the generated
+    lengths and the steps; the embeddings moved; the checkpoint, reloaded
+    by ``load_pretrained`` on the card, holds the trainer's weights bit for
+    bit, and its engine gives the trainer's engine's greedy tokens on
+    :data:`AZR_PROMPT` with logits within ``F32_TOL``. Then the same config
+    at 2 layers, twice from the same seed, must write the same task and
+    solution texts. The 1.5B model and its AdamW state (about 18 GB) are
+    freed before it returns the timings. ``calls`` is the list to which
+    phase 8's wrapper of ``InferenceEngine.generate`` appends each call's
+    prompt and generated lengths and wall."""
+    import contextlib
+    import io
+
+    from apertis_llm_torch import cli
+    from apertis_llm_torch.inference.engine import InferenceEngine
+    from apertis_llm_torch.models.convert import load_pretrained
+    from apertis_llm_torch.training import azr_pipeline
+    from apertis_llm_torch.training import step as step_mod
+    from apertis_llm_torch.utils.vocab import create_minimal_vocab_file
+
+    vocab = os.path.join(work, "azr_vocab.json")
+    create_minimal_vocab_file(vocab, size=model_config.vocab_size)
+    runs, steps = [], []
+    plain_train = azr_pipeline.AbsoluteZeroReasonerTrainer.train
+    plain_step = step_mod.train_step
+
+    def timed_step(*args, **kw):
+        profile = len(steps) == runs[-1]["profile_step"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profile:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                metrics = plain_step(*args, **kw)
+                torch.cuda.synchronize()
+            runs[-1]["sft_device_ms"] = sum(
+                ev.time_range.elapsed_us() for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        else:
+            metrics = plain_step(*args, **kw)
+            torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t0, "profiled": profile})
+        return metrics
+
+    def recorded_train(self):
+        run = runs[-1]
+        run["trainer"] = self
+        run["embed_before"] = self.engine.model.embed.tok.detach().clone()
+        plain_hook, plain_save = self.update_hook, self._save_checkpoint
+        ends = run["iteration_ends"] = []
+        saves = run["save_s"] = []
+
+        def hook(tracker):
+            plain_hook(tracker)
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+
+        def save(iteration):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain_save(iteration)
+            saves.append(time.perf_counter() - t0)
+
+        self.update_hook, self._save_checkpoint = hook, save
+        run["t0"] = time.perf_counter()
+        return plain_train(self)
+
+    def run_azr(label, layers):
+        model = model_config.to_dict()
+        model.update(num_hidden_layers=layers, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0, remat=False)
+        out = os.path.join(work, f"azr-{label}")
+        path = os.path.join(work, f"azr-{label}.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump({"data": {"tokenizer_name": vocab}, "model": model,
+                       "training": {"method": "azr", "output_dir": out, "seed": SEED,
+                                    "device": dev.type},
+                       "azr": AZR_SETTINGS}, f)
+        sft = AZR_SETTINGS["sft"]["steps_per_iteration"]
+        runs.append({"label": label, "profile_step": len(steps) + sft * 2 - 1})
+        first_call, first_step = len(calls), len(steps)
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = cli.main(["train", "--config", path])
+        run = runs[-1]
+        run.update(wall_s=time.perf_counter() - t0, calls=calls[first_call:],
+                   steps=steps[first_step:], launches=read(label))
+        data = Path(out) / "azr_data"
+        if (summary.get("iterations") != AZR_SETTINGS["num_iterations"]
+                or summary.get("tasks_generated") != 4 or not (data / "metrics.json").exists()
+                or len(list((data / "tasks").glob("*.json"))) != 4
+                or len(list((data / "solutions").glob("*.json"))) != 4):
+            raise RuntimeError(f"AZR {label}: summary {summary}, files "
+                               f"{sorted(str(p) for p in data.rglob('*'))}")
+        run["texts"] = [json.loads(p.read_text())["task"]["task"]
+                        for p in sorted((data / "tasks").glob("*.json"))]
+        run["texts"] += [json.loads(p.read_text())["solution"]["solution"]
+                         for p in sorted((data / "solutions").glob("*.json"))]
+        return run
+
+    azr_pipeline.AbsoluteZeroReasonerTrainer.train = recorded_train
+    step_mod.train_step = timed_step
+    try:
+        run = run_azr("1.5B widths", model_config.num_hidden_layers)
+        trainer, n_layers = run["trainer"], model_config.num_hidden_layers
+        decode_steps = sum(c["new"] - 1 for c in run["calls"])
+        n_steps = len(run["steps"])
+        if n_steps != 2 * AZR_SETTINGS["sft"]["steps_per_iteration"] or len(run["calls"]) != 8:
+            raise RuntimeError(f"AZR: {len(run['calls'])} generate calls, {n_steps} SFT steps")
+        expect("AZR 1.5B widths", run["launches"],
+               {"selective_scan_fwd": n_layers * (len(run["calls"]) + n_steps),
+                "selective_scan_bwd": n_layers * n_steps,
+                "ssm_decode_step_f32": n_layers * decode_steps,
+                "ffn_decode_f32": n_layers * decode_steps,
+                "ssm_decode_step": 0, "ffn_decode": 0})
+        model = trainer.engine.model
+        if torch.equal(run["embed_before"], model.embed.tok):
+            raise RuntimeError("AZR: the SFT updates left the embeddings as they were")
+        losses = trainer.sft_losses
+        if len(losses) != n_steps or not np.all(np.isfinite(losses)):
+            raise RuntimeError(f"AZR: SFT losses {losses}")
+        ckpt = trainer.checkpoint_dir(AZR_SETTINGS["num_iterations"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_pretrained(ckpt, device=dev)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        theirs = dict(loaded.named_parameters())
+        differ = [n for n, p in model.named_parameters() if not torch.equal(p, theirs[n])]
+        if differ:
+            raise RuntimeError(f"AZR: the checkpoint's {differ[:4]} differ from the trainer's")
+        fresh = InferenceEngine(loaded.config, loaded)
+        ids = np.asarray(AZR_PROMPT, np.int64)
+        ref = trainer.engine.generate(ids, max_new_tokens=16, do_sample=False)
+        got = fresh.generate(ids, max_new_tokens=16, do_sample=False)
+        full = torch.as_tensor(ref, device=dev)
+        with torch.no_grad():
+            logit_err = compare("AZR: the checkpoint's logits against the trainer's engine's",
+                                loaded(full), model(full), F32_TOL)
+        if not np.array_equal(ref, got):
+            raise RuntimeError(f"AZR: the checkpoint's greedy tokens {got[0, 24:].tolist()} "
+                               f"differ from the trainer's {ref[0, 24:].tolist()}")
+        new_tokens = sum(c["new"] for c in run["calls"])
+        gen_s = sum(c["s"] for c in run["calls"])
+        starts = [run["t0"]] + run["iteration_ends"][:-1]
+        timings = {
+            "wall_s": run["wall_s"],
+            "iteration_s": [e - s for s, e in zip(starts, run["iteration_ends"])],
+            "generate_calls": len(run["calls"]), "sampled_tokens": new_tokens,
+            "prompt_tokens": [c["prompt"] for c in run["calls"]],
+            "generate_s": gen_s, "sampled_tokens_per_s": new_tokens / gen_s,
+            "sft_step_s": [s["s"] for s in run["steps"]],
+            "sft_step_profiled": [s["profiled"] for s in run["steps"]],
+            "sft_step_device_ms": run.get("sft_device_ms"),
+            "sft_losses": losses, "checkpoint_write_s": run["save_s"],
+            "checkpoint_read_s": read_s, "logits_max_abs_err": logit_err,
+            "launches": dict(run["launches"])}
+        log(f"  AZR at the 1.5B widths: {len(run['calls'])} generate calls sampled "
+            f"{new_tokens} tokens ({decode_steps} decode steps) in {gen_s:.2f} s = "
+            f"{new_tokens / gen_s:.1f} tokens/s at batch 1; SFT steps "
+            f"{[round(s['s'], 3) for s in run['steps']]} s (the last under the profiler: "
+            f"{timings['sft_step_device_ms']} ms of device time), losses "
+            f"{[round(x, 4) for x in losses]}; iterations "
+            f"{[round(x, 2) for x in timings['iteration_s']]} s (the second holds the "
+            f"profiled step); checkpoint written in "
+            f"{[round(x, 2) for x in run['save_s']]} s, read in {read_s:.2f} s; the "
+            f"embeddings moved; the checkpoint holds the served weights bit for bit, its "
+            f"greedy tokens equal the trainer's engine's ok; run {run['wall_s']:.1f} s; "
+            f"card: {card}")
+        del trainer, model, loaded, fresh, theirs, run, full
+        runs.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        texts = [run_azr(f"2 layers {i}", 2)["texts"] for i in (1, 2)]
+        if texts[0] != texts[1]:
+            raise RuntimeError(f"AZR at 2 layers: a repeat wrote other texts: {texts}")
+        runs.clear()
+        gc.collect()
+        log(f"  AZR at 2 layers of the 1.5B widths, twice from seed {SEED}: the same "
+            f"{len(texts[0])} task and solution texts ok")
+    finally:
+        azr_pipeline.AbsoluteZeroReasonerTrainer.train = plain_train
+        step_mod.train_step = plain_step
+    return timings
+
+
 def surfaces_phase(card, dev, work):
     """Phase 8: the user-facing surfaces on the card, through the port's own
     entry points, in ``work`` (a temporary directory):
@@ -2674,8 +2883,16 @@ def surfaces_phase(card, dev, work):
       6. one chat turn each on 2-layer f32 MoE and MHA models at the 1.5B
          widths (#3 f32 with the moe epilogue and #10; #9 f32 and #4 f32)
          and on the MHA model in int8 (#9 over an int8 cache with f32 rows);
-      7. ``UIBackend.chat``, a fine-tuning job and an AZR job (which reports
-         that AZR is not ported) on the 2-layer models, with gradio stubbed.
+      7. ``UIBackend.chat``, a fine-tuning job and an AZR job on the 2-layer
+         models, with gradio stubbed: the AZR job (an MHA model from the UI's
+         fields, 128 wide, one layer, two heads, FFN 512, with a local
+         vocabulary of 64 entries) finishes, with #9 and #4 in their f32
+         forms launched once a decode step (a hidden size that is not a
+         multiple of 128 would take the unfused FFN, JAX's gate) and
+         #13 not at all (the prompts and the SFT batch carry a mask, whose
+         bias takes the plain attention, as JAX's gate does);
+      8. AZR self-play at the 1.5B widths with its SFT update
+         (:func:`azr_phase`), after the fine-tuning.
 
     Returns (the launches of the kernels run here, the timings)."""
     import contextlib
@@ -2689,7 +2906,8 @@ def surfaces_phase(card, dev, work):
     from apertis_llm_torch.models.factory import calculate_model_dimensions
     from apertis_llm_torch.models.params import count_params, init_params
     from apertis_llm_torch.ops.kernels import (
-        ffn_fused, ln_quant, mha_step, moe_ffn, moe_grouped, quant_matmul, ssm_scan, ssm_step)
+        ffn_fused, flash_attention, ln_quant, mha_step, moe_ffn, moe_grouped, quant_matmul,
+        ssm_scan, ssm_step)
     from apertis_llm_torch.training import pipeline as pipeline_mod
     from apertis_llm_torch.utils.vocab import create_minimal_vocab_file, fallback_vocab
 
@@ -2702,7 +2920,8 @@ def surfaces_phase(card, dev, work):
                 mha_step.mha_decode_ctx_int8_f32, ln_quant.ln_quantize, ln_quant.ln_quantize_f32,
                 quant_matmul.quant_matmul, quant_matmul.quant_matmul_f32,
                 quant_matmul.quant_matmul_dyn_pre_q, ssm_scan.selective_scan_fwd, ssm_scan.selective_scan_bwd,
-                moe_ffn.expert_ffn_fat, moe_grouped.expert_ffn_grouped]
+                moe_ffn.expert_ffn_fat, moe_grouped.expert_ffn_grouped,
+                flash_attention.flash_attention_fwd, flash_attention.flash_attention_fwd_f32]
     total = collections.Counter()
 
     def reset():
@@ -2723,8 +2942,18 @@ def surfaces_phase(card, dev, work):
                                    f"{'some' if n is None else n}")
         log(f"  {label}: {', '.join(f'{k} {got[k]}' for k in want)} as expected ok")
 
-    streams = []
-    plain_stream = InferenceEngine.stream
+    streams, generates = [], []
+    plain_stream, plain_generate = InferenceEngine.stream, InferenceEngine.generate
+
+    def timed_generate(self, input_ids, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_generate(self, input_ids, *args, **kw)
+        torch.cuda.synchronize()
+        n = np.asarray(input_ids).shape[1]
+        generates.append({"prompt": int(n), "new": int(out.shape[1] - n),
+                          "s": time.perf_counter() - t0})
+        return out
 
     def timed_stream(self, input_ids, *args, **kw):
         rec = {"prompt": np.asarray(input_ids), "kw": dict(kw), "tokens": []}
@@ -2769,7 +2998,7 @@ def surfaces_phase(card, dev, work):
         free(tree)
 
     timings = {}
-    InferenceEngine.stream = timed_stream
+    InferenceEngine.stream, InferenceEngine.generate = timed_stream, timed_generate
     try:
         # 1. create-model.
         big = os.path.join(work, "dense-1.5B")
@@ -2918,6 +3147,12 @@ def surfaces_phase(card, dev, work):
             f"({'falling' if losses[1] < losses[0] else 'not falling'}, finite ok) in "
             f"{timings['finetune_s']:.1f} s")
 
+        # 8 (before 6, while the card holds nothing else). AZR at the 1.5B widths.
+        t0 = time.perf_counter()
+        timings["azr"] = azr_phase(card, dev, work, config, generates, reset, read, expect)
+        timings["azr_phase_s"] = time.perf_counter() - t0
+        log(f"  AZR phase: {timings['azr_phase_s']:.1f} s with the repeat; card: {card}")
+
         # 6. 2-layer f32 MoE and MHA chats at the 1.5B widths, MHA also int8.
         moe_dir, mha_dir = os.path.join(work, "moe-2"), os.path.join(work, "mha-2")
         moe2 = moe_preset_config(calculate_model_dimensions("1.5B", 32000,
@@ -2988,23 +3223,36 @@ def surfaces_phase(card, dev, work):
         reset()
         msg = backend.start_finetuning(small, train, "", False, vocab, "", 64,
                                        os.path.join(work, "ui_ft"), 4, 1e-4, 1, 1, False)
-        azr = backend.start_azr("gpt2", 64, 1, 1, 128, "standard_mha", 1, 1, 1,
-                                os.path.join(work, "ui_azr"))
-        for job in (backend.finetune_job, backend.azr_job):
-            job.thread.join(timeout=300)
-            if job.running():
-                raise RuntimeError(f"{job.name} did not finish in 300 s")
-        ft_status, azr_status = backend.finetune_job.status(), backend.azr_job.status()
-        if "finished" not in ft_status or "FAILED" not in azr_status or \
-                "not ported" not in azr_status:
-            raise RuntimeError(f"UI jobs: {ft_status!r}, {azr_status!r}")
+        ft_job = backend.finetune_job
+        ft_job.thread.join(timeout=300)
+        if ft_job.running() or "finished" not in ft_job.status():
+            raise RuntimeError(f"UI fine-tuning job: {ft_job.status()!r}")
         expect("UI fine-tuning job", read("UI fine-tuning job"),
                {"selective_scan_bwd": 2 * 2})
+        ui_vocab = os.path.join(work, "vocab64.json")
+        create_minimal_vocab_file(ui_vocab, size=64)
+        reset()
+        first = len(generates)
+        t0 = time.perf_counter()
+        azr = backend.start_azr(ui_vocab, 128, 1, 2, 512, "standard_mha", 1, 1, 1,
+                                os.path.join(work, "ui_azr"))
+        backend.azr_job.thread.join(timeout=300)
+        timings["ui_azr_s"] = time.perf_counter() - t0
+        azr_status = backend.azr_job.status()
+        if backend.azr_job.running() or "finished" not in azr_status:
+            raise RuntimeError(f"UI AZR job: {azr_status!r}")
+        steps = sum(c["new"] - 1 for c in generates[first:])
+        if len(generates) - first != 2:
+            raise RuntimeError(f"UI AZR job: {len(generates) - first} generate calls, not 2")
+        expect("UI AZR job", read("UI AZR job"),
+               {"mha_decode_ctx_f32": steps, "ffn_decode_f32": steps,
+                "flash_attention_fwd_f32": 0, "flash_attention_fwd": 0,
+                "mha_decode_ctx": 0})
         log(f"  UI: chat ok; launch_ui bound the stubbed gradio app ok; {msg} -> finished "
-            f"ok; {azr} -> {azr_status.splitlines()[-1][:120]} ok")
+            f"ok; {azr} -> finished ok ({steps} decode steps, {timings['ui_azr_s']:.1f} s)")
         free(mha_iface, backend)
     finally:
-        InferenceEngine.stream = plain_stream
+        InferenceEngine.stream, InferenceEngine.generate = plain_stream, plain_generate
         reset()
     timings["phase_s"] = time.perf_counter() - t_phase
     return dict(total), timings

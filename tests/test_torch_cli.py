@@ -5,10 +5,12 @@ adds ``--device`` to ``create-model`` and ``eval``, whose JAX forms take no
 device: the port's entry points run on the card unless told otherwise);
 ``create-model`` writes a checkpoint that JAX's ``load_pretrained`` reads
 with an equal config; ``create-config`` writes JAX's sample; ``chat`` serves
-a piped conversation; the two data-pipeline subcommands refuse until the
-data pipeline is ported. Everything runs on the CPU (``--device cpu``).
+a piped conversation; the two data-pipeline subcommands write JAX's sample
+configuration and run the local stages to JAX's outputs. Everything runs on
+the CPU (``--device cpu``).
 """
 
+import gzip
 import io
 import json
 
@@ -112,11 +114,68 @@ def test_chat_serves_piped_turns(tmp_path, monkeypatch, capsys):
                                    max_length=6) == reply
 
 
+def _pipeline_yaml(root, name, raw, vocab):
+    """A pipeline configuration of the local stages (clean, deduplicate,
+    tokenize) over ``raw``, writing under ``root / name``."""
+    out = root / name
+    path = root / f"{name}.yaml"
+    path.write_text(
+        "stages: [clean, deduplicate, tokenize]\nnum_workers: 1\n"
+        f"clean:\n  input_dir: {raw}\n  output_dir: {out / 'clean'}\n"
+        "  min_text_length: 50\n  fasttext_model_path: /nonexistent\n"
+        f"deduplicate:\n  input_dir: {out / 'clean'}\n  output_dir: {out / 'dedup'}\n"
+        "  minhash_threshold: 0.5\n  num_partitions: 1\n"
+        f"tokenize:\n  input_dir: {out / 'dedup'}\n  output_dir: {out / 'tok'}\n"
+        f"  tokenizer_path: {vocab}\n  max_seq_length: 64\n")
+    return path
+
+
 @pytest.mark.parametrize("command", [["data-pipeline", "--config", "x.yaml"],
                                      ["create-pipeline-config"]])
-def test_data_pipeline_subcommands_refuse(command):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_data_pipeline_subcommands_refuse(command, tmp_path, monkeypatch, capsys):
+    """The two data-pipeline subcommands (which refused until the data
+    pipeline was ported) against JAX's CLI: ``create-pipeline-config``
+    writes JAX's file byte for byte; ``data-pipeline --config`` runs the
+    local stages of a YAML configuration to JAX's outputs and returns the
+    results, and a missing configuration exits with status 1."""
+    from apertis_llm_tpu.data_pipeline import tokenize as jax_tokenize
+    from apertis_llm_tpu.data_pipeline.warc import write_warc_response
+    from apertis_llm_torch.data_pipeline import tokenize as port_tokenize
+    from apertis_llm_torch.data_pipeline.tokenize import load_tokenized_dataset
+
+    monkeypatch.chdir(tmp_path)
+    if command[0] == "create-pipeline-config":
         cli.main(command)
+        assert "Sample data pipeline configuration created at: pipeline_config.yaml" in \
+            capsys.readouterr().out
+        jax_cli.main(["create-pipeline-config", "--output", "jax.yaml"])
+        assert (tmp_path / "pipeline_config.yaml").read_bytes() == \
+            (tmp_path / "jax.yaml").read_bytes()
+        return
+    with pytest.raises(SystemExit) as missing:
+        cli.main(command)
+    assert missing.value.code == 1
+    for module in (jax_tokenize, port_tokenize):
+        monkeypatch.setattr(module, "_WORKER_TOKENIZER", None)
+    raw = tmp_path / "raw"
+    raw.mkdir()
+    with gzip.open(raw / "crawl.warc.gz", "wb") as f:
+        pages = ["the cat sat on the mat " * 20, "the cat sat on the mat " * 19 + "a dog",
+                 "a dog ran in the sun and the sea was calm " * 12, "kurz und deutsch " * 30]
+        for i, text in enumerate(pages):
+            write_warc_response(f, f"http://example.com/{i}", f"<p>{text}</p>".encode())
+    vocab = tmp_path / "vocab.json"
+    vocab.write_text(json.dumps({"<pad>": 0, "<bos>": 1, "<eos>": 2, "<unk>": 3, "the": 4,
+                                 "cat": 5, "dog": 6, "sat": 7, "on": 8, "mat": 9}))
+    _pipeline_yaml(tmp_path, "x", raw, vocab)
+    results = cli.main(command)
+    jax_cli.main(["data-pipeline", "--config", str(_pipeline_yaml(tmp_path, "j", raw, vocab))])
+    assert results["deduplicate"] == (3, 2) and results["tokenize"] == 2
+    for stage, name in (("clean", "crawl.txt"), ("dedup", "part-00000.txt")):
+        assert ((tmp_path / "x" / stage / name).read_bytes()
+                == (tmp_path / "j" / stage / name).read_bytes())
+    rows = load_tokenized_dataset(str(tmp_path / "x" / "tok"))
+    assert rows == load_tokenized_dataset(str(tmp_path / "j" / "tok")) and len(rows) == 2
 
 
 def test_train_subcommand_runs_a_config(tmp_path, capsys):

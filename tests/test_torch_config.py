@@ -49,6 +49,11 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import apertis_llm_torch, apertis_llm_torch.inference.engine\n"
             "import apertis_llm_torch.models.convert, apertis_llm_torch.models.factory\n"
+            "import apertis_llm_torch.cli, apertis_llm_torch.inference.interface\n"
+            "chat = sorted(m for m in sys.modules if m.split('.')[0] in ('yaml', 'pyarrow'))\n"
+            "assert not chat, chat\n"
+            "import apertis_llm_torch.training.azr_pipeline, apertis_llm_torch.training.azr\n"
+            "import apertis_llm_torch.data_pipeline.main\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'apertis_llm_tpu'))\n"
             "assert not bad, bad\n")

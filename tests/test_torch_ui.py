@@ -2,7 +2,7 @@
 ``tests/test_ui_wiring.py`` checks the JAX package's, and the
 ``UIBackend`` handlers on a real interface on the CPU: chat, the models tab
 (load, create), a pre-training and a fine-tuning job that train, and an AZR
-job that reports that AZR is not ported yet."""
+job that self-plays with a local vocabulary."""
 
 import inspect
 import json
@@ -122,9 +122,16 @@ def test_backend_on_a_cpu_interface(tmp_path):
                                     str(tmp_path / "pt"), 4, 1e-3, 1, 1, False)
     assert msg.startswith("Pre-training launched")
     assert "Pre-training finished" in _wait(backend.pretrain_job)
-    backend.start_azr("gpt2", 64, 1, 1, 128, "standard_mha", 1, 1, 1, str(tmp_path / "azr"))
+    assert backend.start_azr("", 64, 1, 1, 128, "standard_mha", 1, 1, 1, "").startswith(
+        "Provide a local tokenizer")
+    msg = backend.start_azr(str(vocab), 64, 1, 1, 128, "standard_mha", 1, 1, 1,
+                            str(tmp_path / "azr"))
+    assert msg.startswith("AZR training launched")
     status = _wait(backend.azr_job)
-    assert "AZR training FAILED" in status and "not ported" in status
+    assert "AZR training finished" in status and '"tasks_generated": 1' in status
+    cfg = json.loads(open(msg.split("config: ")[1].rstrip(").")).read())
+    assert cfg["training"]["device"] == "cpu" and cfg["data"]["tokenizer_name"] == str(vocab)
+    assert (tmp_path / "azr" / "azr_checkpoints" / "model_iter_1" / "pytorch_model.bin").exists()
     assert backend.pretrain_job.stop() == "No Pre-training job is running."
 
 
