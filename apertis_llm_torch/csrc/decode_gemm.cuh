@@ -50,6 +50,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <string.h>
 
 #include <algorithm>
 #include <map>
@@ -142,9 +143,11 @@ struct DgWeight {
 // `f32` (kDgBW): the rows are f32 in memory, loaded by the producer, which
 // rounds them to bf16. kDgTF: the rows' TF32 hi parts (f32, by TMA) and,
 // with `lo`, their lo parts by a second map into a second tile (x_bytes
-// holds both). kDgB3: the rows' three bf16 parts (hi, mid, lo), each
-// `part_rows` rows on from the last in one (3 part_rows, k) matrix, by TMA
-// only, into three tiles (x_bytes holds the three).
+// holds both); where TMA cannot load them (a row that is not a multiple of
+// 16 bytes), the producer loads both, the lo parts from `x_lo`. kDgB3: the
+// rows' three bf16 parts (hi, mid, lo), each `part_rows` rows on from the
+// last in one (3 part_rows, k) matrix, by TMA only, into three tiles
+// (x_bytes holds the three).
 struct DgRows {
   const void* x;
   int rows, k;
@@ -152,6 +155,7 @@ struct DgRows {
   int f32 = 0;
   int lo = 0;
   int part_rows = 0;
+  const void* x_lo = nullptr;
 };
 
 // The arrivals a stage's full barrier expects: one for the TMA loads (which
@@ -250,8 +254,9 @@ __device__ __forceinline__ void tf_split_store(float v, float* hi, float* lo, si
 // TMA loads are issued by one thread (ptid 0) and counted in bytes; an
 // operand that TMA cannot load (a row that is not a multiple of 16 bytes, an
 // unaligned base) is staged by all 128 producer threads with zero-filling
-// 16-byte loads (a bf16 weight: 8-byte loads, half a swizzle chunk each) in
-// the swizzled layout, after which they arrive. Position p
+// 16-byte loads (a bf16 weight: 8-byte loads, half a swizzle chunk each; a
+// row of any width: narrower loads where its place is not aligned) in the
+// swizzled layout, after which they arrive. Position p
 // goes to stage p % stages and first waits until the consumers have
 // released position p - stages. The stage, its round and the chunk are
 // counted as the loop goes (no division a chunk: the producer's time per
@@ -267,11 +272,18 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
   if (!manual && ptid != 0) return;
   const uint32_t tx = (rows.tma ? r.x_bytes : 0) + (wt.tma ? Op::kWTx : 0);
   const int x_align = Op::kW8 ? 16 : (rows.f32 ? 4 : 8);   // values a 16-byte load
+  // (The tile's first column n0 too: #12's expert column blocks start at
+  // e * I.)
   const bool vec_w = kKind == kDgBW
-                         ? wt.n % 4 == 0 && reinterpret_cast<uintptr_t>(wt.w) % 8 == 0
-                         : (kKind == kDgTF ? wt.n % 4 == 0 : wt.n % 16 == 0) &&
+                         ? wt.n % 4 == 0 && n0 % 4 == 0 &&
+                               reinterpret_cast<uintptr_t>(wt.w) % 8 == 0
+                         : (kKind == kDgTF ? wt.n % 4 == 0 && n0 % 4 == 0
+                                           : wt.n % 16 == 0 && n0 % 16 == 0) &&
                                reinterpret_cast<uintptr_t>(wt.w) % 16 == 0;
   const bool vec_x = rows.k % x_align == 0 && reinterpret_cast<uintptr_t>(rows.x) % 16 == 0;
+  const bool vec_tf = kKind == kDgTF && rows.k % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(rows.x) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(rows.x_lo) % 16 == 0;
   int next = (pos0 + from) % r.stages, round = (pos0 + from) / r.stages;
   int tq = from / ch.per, tc = from % ch.per;   // chunk `from`: chunk tc of tile tq
   for (int i = from; i < to; ++i) {
@@ -322,7 +334,18 @@ __device__ __forceinline__ void dg_produce(const DgRing& r, const CUtensorMap* w
     // 16-byte units u: row u / 8, chunk u % 8, at the chunk's swizzled place.
     // Each thread's loads of a tile are unrolled, so that they are in flight
     // together.
-    if (!rows.tma) {
+    if (!rows.tma && kKind == kDgTF) {
+      // The f32 hi tile and, with lo, the lo tile x_bytes / 2 on: 16-byte
+      // units of four values, zeros past the rows' edges.
+      const int tile = rows.lo ? (int)r.x_bytes / 2 : (int)r.x_bytes, units = tile / 16;
+#pragma unroll 4
+      for (int u = ptid; u < units * (rows.lo ? 2 : 1); u += 128) {
+        const int part = u >= units, v = u - part * units, row = v >> 3, c = v & 7;
+        *reinterpret_cast<float4*>(r.x(s) + part * tile + row * 128 + ((c ^ (row & 7)) << 4)) =
+            load4_f32(static_cast<const float*>(part ? rows.x_lo : rows.x), m0 + row, k0 + 4 * c,
+                      rows.rows, rows.k, (size_t)rows.k, vec_tf);
+      }
+    } else if (!rows.tma) {
       unsigned char* dst = r.x(s);
 #pragma unroll 4
       for (int u = ptid; u < (int)(r.x_bytes / 128) * 8; u += 128) {
@@ -1009,6 +1032,21 @@ inline int dg_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType typ
     maps.emplace(key, *map);
   }
   return err;
+}
+
+// A tensor map over a row-major (outer, inner) matrix of `elem`-byte values
+// (1 int8, 2 bf16, 4 f32) in boxes of box rows x 128 bytes (dg_map_2d's
+// cache), or none (*tma 0) for the producer's own loads where the row is
+// not a multiple of 16 bytes or the base not 16-byte aligned.
+inline int dg_map_or_own(CUtensorMap* map, const void* base, int elem, int outer, int inner,
+                         int box, int* tma) {
+  memset(map, 0, sizeof(*map));
+  *tma = (size_t)inner * elem % 16 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
+  if (!*tma) return 0;
+  const CUtensorMapDataType type = elem == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                               : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return dg_map_2d(map, base, type, elem, inner, outer, 128 / elem, box);
 }
 
 // Launch `kernel` on `grid` blocks of `block` threads in clusters of

@@ -49,8 +49,9 @@
 #include "quant_ffn.cuh"
 
 // The per-expert MoE FFN for S rows and E experts: out (E, S, H) in bf16
-// (out_bf16 = 1) or f32. H and I multiples of 16, every tensor 16-byte
-// aligned. hq (S, E * Ip) int8 (Ip: I rounded up to 128), hs (S, E) f32,
+// (out_bf16 = 1) or f32, at any H and I (an operand whose rows are not
+// whole 16-byte units goes by the producers' own loads), every tensor
+// 16-byte aligned. hq (S, E * Ip) int8 (Ip: I rounded up to 128), hs (S, E) f32,
 // hidden (S, E * I) f32 and absmax (S, E) f32 are scratch the caller
 // allocates; absmax is zeroed here. act: 1 relu, 2 silu, else exact GELU.
 // row_tile (16 or 64), split (GEMM2's cluster) and the two stage counts are
@@ -66,7 +67,7 @@ extern "C" int apertis_expert_ffn_dense(const void* xq, const void* xs, const vo
                                         int st_down, void* stream) {
   const int per = (inter + kDgKC - 1) / kDgKC;
   if (rows <= 0 || num_experts <= 0 || num_experts > 65535 || d_model <= 0 ||
-      d_model % 16 || inter <= 0 || inter % 16 || (rows + 15) / 16 > 65535 || split < 1 ||
+      inter <= 0 || (rows + 15) / 16 > 65535 || split < 1 ||
       split > 16 || split > per || st_up < 1 || st_down < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const ExpertFfn f{xq, xs, w1q, w1s, b1, w2q, w2s, b2, nullptr, out, hq, hs, hidden, absmax,

@@ -31,7 +31,7 @@
 // from TMA-staged tiles, int4 nibbles unpacked in registers, a TMA ring that
 // a producer warpgroup keeps full) with the combine weight in each tile's
 // scale, on the plan of ops/kernels/decode_plan.py::fat_plan:
-//   1. ffn_up_kernel: GEMM1 (K = H, TMA zero-fills the tail) for 128 hidden
+//   1. ffn_up_kernel: GEMM1 (K = H, zeros past its tail) for 128 hidden
 //      columns and a row tile a block. Where a tile is at most 16 blocks of
 //      128 columns (bn 128 at the 3B preset and at I = 256), its blocks form
 //      a cluster that requantizes the tile in the epilogue into hq and hs.
@@ -43,6 +43,12 @@
 //      tile a block, the tiles split over a cluster whose owners add each
 //      tile's float(acc_t) * (hs * combine[:, e(t)]) in tile order; out =
 //      acc * w2t_s.
+// At any H and I (the TPU kernel's tile is the whole I where I is not a
+// multiple of 128, moe_ffn.py:288-294: bn 2790 at the odd-width model), an
+// operand whose rows are not whole 16-byte units (x_q and W2 at H = 693) is
+// staged by the producers' own zero-filling loads, the requantization reads
+// a tile that starts unaligned one value at a time, and an odd H's or I's
+// last column is stored alone.
 // No float atomics: repeated calls give the same bits. A row whose combine
 // weight for an expert is 0 contributes exactly 0 to that expert's tiles, so
 // GEMM1 skips the blocks in which no row routes to the expert of their
@@ -69,18 +75,28 @@ int fat_run(const void* xq, const void* xs, const void* comb, const void* w1, co
   memset(&s1m, 0, sizeof(s1m));   // unused by the int8 layout
   memset(&s2m, 0, sizeof(s2m));
   const int wrows = kI4 ? kDgKC / 2 : kDgKC;   // weight rows a chunk
-  int err = dg_map_2d(&xm, xq, u8, 1, d_model, rows, 128, BR);
-  if (err == 0) err = dg_map_2d(&w1m, w1, u8, 1, ei, kI4 ? d_model / 2 : d_model, 128, wrows);
+  // The int8 layout at any H and I: x_q, W1 and W2 by TMA where their rows
+  // are whole 16-byte units, else by the producers' own loads (H = 693).
+  // The int4 layout's H and bn are multiples of 128: always TMA.
+  int tx = 0, tw1 = 0, tw2 = 0;
+  int err = dg_map_or_own(&xm, xq, 1, rows, d_model, BR, &tx);
+  if (err == 0) err = dg_map_or_own(&w1m, w1, 1, kI4 ? d_model / 2 : d_model, ei, wrows, &tw1);
   if (err == 0) err = dg_map_2d(&hqm, hq, u8, 1, (uint64_t)tiles * bnp, rows, 128, BR);
-  if (err == 0) err = dg_map_2d(&w2m, w2, u8, 1, d_model, kI4 ? ei / 2 : ei, 128, wrows);
+  if (err == 0) err = dg_map_or_own(&w2m, w2, 1, kI4 ? ei / 2 : ei, d_model, wrows, &tw2);
+  if (err == 0 && kI4 && !(tx && tw1 && tw2)) err = static_cast<int>(cudaErrorInvalidValue);
   if (kI4 && err == 0)
     err = dg_map_2d(&s1m, w1sh, u8, 1, ei, d_model / kDgKC, 128, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (kI4 && err == 0)
     err = dg_map_2d(&s2m, w2sh, u8, 1, d_model, ei / kDgKC, 128, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != 0) return err;
+  // The kernels' any-width instances where an operand goes by the
+  // producer's loads or a width is odd (or a hidden tile starts unaligned);
+  // the aligned widths keep the compile-time instances (quant_ffn.cuh).
+  const bool any = !kI4 && (!tx || !tw1 || !tw2 || d_model % 2 != 0 || bn % 4 != 0 ||
+                            ei % 4 != 0);
   const uint32_t stage = BR * 128 + w_tile_bytes<kI4>();
   const int row_tiles = (rows + BR - 1) / BR;
-  UpArgs up = {};
+  UpArgsAny up = {};
   up.xs = static_cast<const float*>(xs);
   up.w1s = static_cast<const float*>(w1s);
   up.b1 = b1;
@@ -98,19 +114,43 @@ int fat_run(const void* xq, const void* xs, const void* comb, const void* w1, co
   up.cs = up_cluster;
   up.inter = ei / experts;
   up.experts = experts;
+  up.x = xq;
+  up.w = w1;
+  up.x_own = !tx;
+  up.w_own = !tw1;
   if (up_cluster == 0) {
     err = static_cast<int>(
         cudaMemsetAsync(absmax, 0, (size_t)rows * tiles * sizeof(float), s));
     if (err != 0) return err;
   }
-  err = dg_launch(ffn_up_kernel<kI4, BR, true>, dim3((ei + kDgCols - 1) / kDgCols, row_tiles),
-                  dim3(kThreads), up_cluster > 1 ? up_cluster : 1,
-                  dg_smem_bytes(BR, st_up, stage, 1, ffn_up_extra(BR)), s, xm, w1m, s1m, up);
+  const dim3 up_grid((ei + kDgCols - 1) / kDgCols, row_tiles);
+  const int up_cs = up_cluster > 1 ? up_cluster : 1;
+  const size_t up_smem = dg_smem_bytes(BR, st_up, stage, 1, ffn_up_extra(BR));
+  if constexpr (!kI4) {
+    if (any)
+      err = dg_launch(ffn_up_kernel<false, BR, true, false, true>, up_grid, dim3(kThreads), up_cs,
+                      up_smem, s, xm, w1m, s1m, up);
+    else
+      err = dg_launch(ffn_up_kernel<false, BR, true>, up_grid, dim3(kThreads), up_cs, up_smem, s,
+                      xm, w1m, s1m, static_cast<const UpArgs&>(up));
+  } else {
+    err = dg_launch(ffn_up_kernel<true, BR, true>, up_grid, dim3(kThreads), up_cs, up_smem, s, xm,
+                    w1m, s1m, static_cast<const UpArgs&>(up));
+  }
   if (err != 0) return err;
-  if (up_cluster == 0)
-    fat_quant_kernel<<<fat_quant_grid(tiles, rows), kBlock, 0, s>>>(
-        static_cast<const float*>(hidden), static_cast<const float*>(absmax),
-        static_cast<int8_t*>(hq), static_cast<float*>(hs), rows, ei, bn, bnp, nullptr);
+  if (up_cluster == 0) {
+    const dim3 grid = fat_quant_grid(tiles, rows);
+    const float* hid = static_cast<const float*>(hidden);
+    const float* am = static_cast<const float*>(absmax);
+    if (any)
+      fat_quant_kernel<true><<<grid, kBlock, 0, s>>>(hid, am, static_cast<int8_t*>(hq),
+                                                     static_cast<float*>(hs), rows, ei, bn, bnp,
+                                                     nullptr);
+    else
+      fat_quant_kernel<false><<<grid, kBlock, 0, s>>>(hid, am, static_cast<int8_t*>(hq),
+                                                      static_cast<float*>(hs), rows, ei, bn, bnp,
+                                                      nullptr);
+  }
   DownArgs down = {};
   down.hs = static_cast<const float*>(hs);
   down.w2s = static_cast<const float*>(w2s);
@@ -126,7 +166,9 @@ int fat_run(const void* xq, const void* xs, const void* comb, const void* w1, co
   down.group = group;
   down.tile_experts = ei / experts / bn;
   down.experts = experts;
-  err = dg_launch(ffn_down_kernel<kI4, BR, kDownMoe>,
+  down.w = w2;
+  down.w_own = !tw2;
+  err = dg_launch(any ? ffn_down_kernel<kI4, BR, kDownMoe, !kI4> : ffn_down_kernel<kI4, BR, kDownMoe>,
                   dim3(((d_model + kDgCols - 1) / kDgCols) * split, row_tiles), dim3(kThreads),
                   split,
                   dg_smem_bytes(BR, st_down, stage, 1,
@@ -142,7 +184,7 @@ int fat_dispatch(const void* xq, const void* xs, const void* comb, const void* w
                  void* absmax, int rows, int d_model, int ei, int experts, int bn, int act,
                  int row_tile, int up_cluster, int split, int group, int st_up, int st_down,
                  void* stream) {
-  const int align = kI4 ? kDgKC : 16;
+  const int align = kI4 ? kDgKC : 1;
   if (rows <= 0 || experts <= 0 || ei % experts != 0 || d_model <= 0 || d_model % align != 0 ||
       bn <= 0 || bn % align != 0 || (ei / experts) % bn != 0 || split < 1 || split > 16 ||
       split > ei / bn || group < 1 || group > kMaxGroup || st_up < 1 || st_down < 1)
@@ -165,8 +207,8 @@ int fat_dispatch(const void* xq, const void* xs, const void* comb, const void* w
 
 }  // namespace
 
-// The fat MoE FFN for S rows. H and I multiples of 16, bn a multiple of 16
-// dividing I, every tensor 16-byte aligned. hq (S, E*I / bn * bnp) int8 (bnp:
+// The fat MoE FFN for S rows at any H and I, bn dividing I, every tensor
+// 16-byte aligned. hq (S, E*I / bn * bnp) int8 (bnp:
 // bn rounded up to 128) and hs (S, E*I / bn) f32 are scratch the caller
 // allocates; so are, for the wide form (up_cluster 0), hidden (S, E*I) f32
 // and absmax (S, E*I / bn) f32, which is zeroed here (else they may be
@@ -202,7 +244,8 @@ extern "C" int apertis_expert_ffn_fat_int4(const void* xq, const void* xs, const
 }
 
 // The resources of one kernel of the fat layouts (kernel: 0 up int8, 1 down
-// int8, 2 up int4, 3 down int4, 4 the wide form's requantization) at a row
+// int8, 2 up int4, 3 down int4, 4 the wide form's requantization; 5, 6, 7
+// the int8 ones' any-width instances) at a row
 // tile of `row_tile` rows and `smem` bytes of dynamic shared memory
 // (hopper.cuh::kernel_resources), into out[0..4].
 extern "C" int apertis_expert_ffn_fat_resources(int kernel, int row_tile, int smem, int* out) {
@@ -219,7 +262,14 @@ extern "C" int apertis_expert_ffn_fat_resources(int kernel, int row_tile, int sm
     case 3: return kernel_resources(r16 ? &ffn_down_kernel<true, 16, kDownMoe>
                                         : &ffn_down_kernel<true, 64, kDownMoe>,
                                     kThreads, smem, out);
-    case 4: return kernel_resources(&fat_quant_kernel, kBlock, 0, out);
+    case 4: return kernel_resources(&fat_quant_kernel<false>, kBlock, 0, out);
+    case 5: return kernel_resources(r16 ? &ffn_up_kernel<false, 16, true, false, true>
+                                        : &ffn_up_kernel<false, 64, true, false, true>,
+                                    kThreads, smem, out);
+    case 6: return kernel_resources(r16 ? &ffn_down_kernel<false, 16, kDownMoe, true>
+                                        : &ffn_down_kernel<false, 64, kDownMoe, true>,
+                                    kThreads, smem, out);
+    case 7: return kernel_resources(&fat_quant_kernel<true>, kBlock, 0, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

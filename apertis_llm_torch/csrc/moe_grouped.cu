@@ -49,7 +49,8 @@
 #include "quant_ffn.cuh"
 
 // The grouped MoE FFN over P expert-sorted rows (P a multiple of 128): out
-// (P, H) bf16. H and I multiples of 16, every tensor 16-byte aligned. hq (P,
+// (P, H) bf16 at any H and I (an operand whose rows are not whole 16-byte
+// units goes by the producers' own loads), every tensor 16-byte aligned. hq (P,
 // Ip) int8 (Ip: I rounded up to 128), hs (P, 1), hidden (P, I) and absmax
 // (P, 1) f32 are scratch the caller allocates; absmax is zeroed here. act: 1
 // relu, 2 silu, else exact GELU. row_tile (64 or 128), split (GEMM2's
@@ -67,7 +68,7 @@ extern "C" int apertis_expert_ffn_grouped(const void* xq, const void* xs, const 
   // fat_quant_kernel's spreads the rows over y and z.
   if (rows <= 0 || rows % kGroupTile != 0 || (row_tile != 64 && row_tile != 128) ||
       rows / row_tile > 65535 || num_experts <= 0 || ei % num_experts != 0 || d_model <= 0 ||
-      d_model % 16 || (ei / num_experts) % 16 || ei <= 0)
+      ei <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int inter = ei / num_experts, per = (inter + kDgKC - 1) / kDgKC;
   if (split < 1 || split > 16 || split > per || st_up < 1 || st_down < 1)

@@ -57,6 +57,8 @@
 
 #include <string.h>
 
+#include <type_traits>
+
 #include "decode_gemm.cuh"
 
 namespace {
@@ -126,18 +128,34 @@ struct UpArgs {
   int b1_f32;          // FFN: b1 is f32 (the f32 form's tree), else bf16
 };
 
+// GEMM1's arguments in its any-width instances (kAny): x_q (x_own) or W1
+// (w_own) whose rows are not whole 16-byte units is staged by the
+// producer's own loads from x or w, else by TMA. A type of its own, so that
+// the aligned instances' parameters keep UpArgs' layout: two more fields
+// there changed their code (the H100 ran the aligned GEMM1 up to 27 %
+// slower).
+struct UpArgsAny : UpArgs {
+  const void* x;
+  const void* w;
+  int x_own, w_own;
+};
+
 // Rows of one expert tile of the grouped MoE FFN's layout
 // (ops/kernels/moe_grouped.py::TILE).
 constexpr int kGroupTile = 128;
 
 // kGrouped is #12's form, a compile-time choice so that no other caller's
-// kernel carries its branches.
-template <bool kI4, int BR, bool kMoe, bool kGrouped = false>
+// kernel carries its branches. kAny (the MoE FFNs at widths whose rows are
+// not whole 16-byte units, or an odd N or bn) takes UpArgsAny and reads
+// which operands the producer loads and the widths' parity at run time;
+// without it the operands are TMA's and N and bn even, fixed at compile
+// time, and the aligned widths' kernels keep their code.
+template <bool kI4, int BR, bool kMoe, bool kGrouped = false, bool kAny = false>
 __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
     const __grid_constant__ CUtensorMap x_map,   // x_q (S, K): boxes of BR rows x 128
     const __grid_constant__ CUtensorMap w_map,   // W1 (K, N); int4: packed (K / 2, N)
     const __grid_constant__ CUtensorMap sh_map,  // int4: shifts (K / 128, N)
-    const UpArgs a) {
+    const std::conditional_t<kAny, UpArgsAny, UpArgs> a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   const uint32_t stage_bytes = BR * 128 + w_tile_bytes<kI4>();
@@ -172,14 +190,22 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
     if (cs == 0)
       for (int i = threadIdx.x; i < kMaxUpCluster * BR; i += kThreads) allmax[i] = 0.f;
   }
-  dg_init(ring, 1);
+  // The operands the producer loads itself (kAny), and the full barrier's
+  // arrivals (dg_full_count): one for TMA, 128 for the producer's loads.
+  const void* x_own = nullptr;
+  const void* w_own = nullptr;
+  if constexpr (kAny) {
+    x_own = a.x_own ? a.x : nullptr;
+    w_own = a.w_own ? a.w : nullptr;
+  }
+  dg_init(ring, (x_own && w_own ? 0 : 1) + (x_own || w_own ? 128 : 0));
   cg::cluster_group cluster = cg::this_cluster();
 
   if (threadIdx.x >= kDgConsumerThreads) {
     regs_dealloc<kDgProducerRegs>();
-    const DgWeight wt{nullptr, (int)gridDim.z * a.k, kGrouped ? a.experts * a.n : a.n, 1,
-                      slice * a.k};
-    const DgRows xrows{nullptr, rows, a.k, 1};
+    const DgWeight wt{static_cast<const int8_t*>(w_own), (int)gridDim.z * a.k,
+                      kGrouped ? a.experts * a.n : a.n, w_own == nullptr, slice * a.k};
+    const DgRows xrows{x_own, rows, a.k, x_own == nullptr};
     // #12: a last column block of an expert whose N is not a multiple of 128
     // multiplies the next expert's first columns too; the epilogue drops
     // them (col_live), so they reach neither the hidden nor the absmax.
@@ -198,15 +224,18 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
   for (int i = 0; i < BR / 2; ++i) acc[i] = 0;
   dg_consume<kFfnKind<kI4>, BR>(ring, L, 0, chunks, acc);
 
-  // h = act(acc * x_s * w1_s + b1) for columns c0, c0 + 1 (N is a multiple
-  // of 16; past it, in the wide form's last block, nothing), and each row's
-  // absmax: row slot 2 j + e is row 8 j + 2 (lane % 4) + e.
+  // h = act(acc * x_s * w1_s + b1) for columns c0, c0 + 1 (past N, in the
+  // wide form's last block or the odd N's last column, nothing), and each
+  // row's absmax: row slot 2 j + e is row 8 j + 2 (lane % 4) + e.
   const int c0 = n0 + L.col;
   const bool col_live = c0 < a.n;
   float ws[2] = {0.f, 0.f}, bb[2] = {0.f, 0.f};
   if (col_live) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
+      if constexpr (kAny) {   // an odd N's last column has no c0 + 1
+        if (c0 + e >= a.n) continue;
+      }
       ws[e] = a.w1s[goff + c0 + e];
       if (kMoe || a.b1_f32)
         bb[e] = static_cast<const float*>(a.b1)[goff + c0 + e];
@@ -231,11 +260,35 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
   if (kMoe && cs == 0) {
     // The wide form: the f32 hidden, and the block's maxima of each (row,
     // tile its columns touch) into the global absmax, both in the slices'
-    // concatenated columns. A lane's two columns lie in one tile (bn is
-    // even).
+    // concatenated columns. Where N and bn are even a lane's two columns lie
+    // in one tile and are stored as a pair; else (an odd I) each live column
+    // on its own, its |h| maxed into its own tile's row.
     const int t_lo = n0 / bn;
     const size_t ld = (size_t)gridDim.z * a.n, all_tiles = (size_t)gridDim.z * tiles;
-    if (col_live) {
+    bool paired = true;
+    if constexpr (kAny) {
+      paired = a.n % 2 == 0 && bn % 2 == 0;
+      if (!paired) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int c = c0 + q;
+          if (c >= a.n) continue;
+          int* tq = reinterpret_cast<int*>(allmax) + (c / bn - t_lo) * BR;
+#pragma unroll
+          for (int j = 0; j < BR / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int r = 8 * j + 2 * (L.lane & 3) + e;
+              if (m0 + r >= rows) continue;
+              const float hv = h[4 * j + e + 2 * q];
+              a.hidden[(size_t)(m0 + r) * ld + hoff + c] = hv;
+              atomicMax(tq + r, __float_as_int(fabsf(hv)));
+            }
+          }
+        }
+      }
+    }
+    if (paired && col_live) {
       int* tmax = reinterpret_cast<int*>(allmax) + (c0 / bn - t_lo) * BR;
 #pragma unroll
       for (int j = 0; j < BR / 8; ++j) {
@@ -316,10 +369,12 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_up_kernel(
 
 // The wide form's requantization (the fat MoE FFN's, #11's and #12's), one
 // block per (tile, row): hs = max(absmax, 1e-8) * (1/127) and hq[r, t * bnp +
-// j] = rint(hidden[r, t * bn + j] / hs) for j < bn, 0 up to bnp (bn and bnp
-// multiples of 16 and 128). The rows run over the grid's y and z
+// j] = rint(hidden[r, t * bn + j] / hs) for j < bn, 0 up to bnp (bnp a
+// multiple of 128, bn any width). The rows run over the grid's y and z
 // (fat_quant_grid), since y stops at 65,535. #12 (emap set) skips the rows
 // of tiles of no expert, which GEMM1 did not write and GEMM2 does not read.
+// kAny: a tile may start unaligned (bn or E*I not a multiple of 4).
+template <bool kAny>
 __global__ void __launch_bounds__(kBlock) fat_quant_kernel(
     const float* __restrict__ hidden,   // (S, E*I)
     const float* __restrict__ absmax,   // (S, tiles)
@@ -333,11 +388,18 @@ __global__ void __launch_bounds__(kBlock) fat_quant_kernel(
   if (threadIdx.x == 0) hs[r * tiles + t] = s;
   const float* src = hidden + r * ei + (size_t)t * bn;
   int8_t* dst = hq + (r * tiles + t) * bnp;
+  // 16-byte loads where the tile's values start aligned and bn is a
+  // multiple of 4; else one value at a time (I = 2790: every other tile).
+  const bool vec = !kAny || (((r * ei + (size_t)t * bn) & 3) == 0 && (bn & 3) == 0);
   for (int j = 4 * threadIdx.x; j < bnp; j += 4 * kBlock) {
     uint32_t w = 0;
-    if (j < bn) {
+    if (vec && j < bn) {
       const float4 v = *reinterpret_cast<const float4*>(src + j);
       w = requant_pack4(v.x, v.y, v.z, v.w, s);
+    } else if (j < bn) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (j + q < bn) w |= (uint32_t)(uint8_t)requant_level(src[j + q], s) << (8 * q);
     }
     *reinterpret_cast<uint32_t*>(dst + j) = w;
   }
@@ -371,6 +433,10 @@ struct DownArgs {
   int experts;         // MoE: E
   int out_f32;         // kDownFfnF32: f32 out; #8: f32 x and out; else bf16
   int b2_f32;          // kDownFfnF32: f32 b2, else bf16
+  // MoE at any H: W2 whose rows are not whole 16-byte units (w_own) is
+  // staged by the producer's own loads from w; 0: by TMA.
+  const void* w;
+  int w_own;
 };
 
 // The most tiles a block takes in one round of ffn_down_kernel.
@@ -385,7 +451,9 @@ inline size_t ffn_down_extra(int br, int split, int group, int experts) {
          (size_t)(experts + 15) / 16 * 16;
 }
 
-template <bool kI4, int BR, int kMode>
+// kAny: as ffn_up_kernel's (W2 by the producer where H breaks TMA, an odd
+// H's last column stored alone).
+template <bool kI4, int BR, int kMode, bool kAny = false>
 __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
     const __grid_constant__ CUtensorMap x_map,   // hq (S, tiles * per * 128): BR rows x 128
     const __grid_constant__ CUtensorMap w_map,   // W2 (K, N); int4: packed (K / 2, N)
@@ -424,15 +492,16 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
       if (r < rows && a.comb[(size_t)r * a.experts + i / BR] != 0.f) live[i / BR] = 1;
     }
   }
-  dg_init(ring, 1);
+  const DgWeight wt{kAny ? static_cast<const int8_t*>(a.w) : nullptr, a.k, a.n,
+                    kAny ? !a.w_own : 1};
+  const DgRows hrows{nullptr, rows, tiles * per * kDgKC, 1};
+  dg_init(ring, kAny ? dg_full_count(hrows, wt) : 1);
   cg::cluster_group cluster = cg::this_cluster();
   auto tile_live = [&](int t) { return !kMoe || live[t / a.tile_experts] != 0; };
 
   if (threadIdx.x >= kDgConsumerThreads) {
     regs_dealloc<kDgProducerRegs>();
     const int ptid = threadIdx.x - kDgConsumerThreads;
-    const DgWeight wt{nullptr, a.k, a.n, 1};
-    const DgRows hrows{nullptr, rows, tiles * per * kDgKC, 1};
     // issued: ring positions filled; (q, c): the next chunk, chunk c of
     // this block's q-th tile (tile (rank + (q / group) * split) * group +
     // q % group); freed: the positions the consumers release by the end of
@@ -549,10 +618,12 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
     }
   }
   // FFN: out = out_dtype(acc * w2_s + b2); MoE: out = acc * w2_s (f32); #8:
-  // x.dtype(acc * w_s) (+ b); for columns c0, c0 + 1 (N is even).
+  // x.dtype(acc * w_s) (+ b); for columns c0, c0 + 1 (N is even but for
+  // the MoE layer's, whose odd N's last column has no c0 + 1).
   const int c0 = n0 + L.col;
   if (c0 >= a.n) return;
-  const float ws0 = a.w2s[c0], ws1 = a.w2s[c0 + 1];
+  const bool c1 = !kAny || c0 + 1 < a.n;
+  const float ws0 = a.w2s[c0], ws1 = c1 ? a.w2s[c0 + 1] : 0.f;
   float b0 = 0.f, b1v = 0.f;
   if constexpr (kMode == kDownFfn) {
     b0 = to_f32(static_cast<const bf16*>(a.b2)[c0]);
@@ -584,7 +655,13 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_down_kernel(
       const size_t o = (size_t)row * a.n + c0;
       const float y0 = __fmul_rn(sum[4 * j + e], ws0), y1 = __fmul_rn(sum[4 * j + e + 2], ws1);
       if constexpr (kMode == kDownMoe) {
-        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) = make_float2(y0, y1);
+        float* out = static_cast<float*>(a.out) + o;
+        if (!kAny || a.n % 2 == 0) {
+          *reinterpret_cast<float2*>(out) = make_float2(y0, y1);
+        } else {
+          out[0] = y0;
+          if (c1) out[1] = y1;
+        }
       } else if (kMode == kDownFfn || (kMode == kDownFfnF32 && !a.out_f32)) {
         *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + o) = __halves2bfloat162(
             __float2bfloat16(__fadd_rn(y0, b0)), __float2bfloat16(__fadd_rn(y1, b1v)));
@@ -629,9 +706,11 @@ struct ExpertDownArgs {
   int experts;        // E: W2 is the (E * I, H) stack
   int per;            // K chunks of an expert in hq: Ip / 128
   int split, stages, out_bf16;
+  const void* w;      // W2, for the producer's own loads where H breaks TMA (w_own)
+  int w_own;
 };
 
-template <int BR, bool kGrouped>
+template <int BR, bool kGrouped, bool kAny = false>
 __global__ void __launch_bounds__(kThreads, 1) expert_down_kernel(
     const __grid_constant__ CUtensorMap x_map,   // hq (S, slices * Ip): BR rows x 128
     const __grid_constant__ CUtensorMap w_map,   // W2 (E * I, H)
@@ -662,16 +741,17 @@ __global__ void __launch_bounds__(kThreads, 1) expert_down_kernel(
   const DgRing ring{smem, bars, bars + stages, BR * 128, kDgW8Bytes, stages};
   // This block's range of the expert's K chunks.
   const int c_lo = rank * a.per / split, c_hi = (rank + 1) * a.per / split;
-  dg_init(ring, 1);
+  // hq's tile `slice` (padded to Ip), against W2's rows e * I on (no
+  // padding): DgChunks' weight gap and DgWeight::row0 place chunk c at row
+  // e * I + 128 c.
+  const DgWeight wt{kAny ? static_cast<const int8_t*>(a.w) : nullptr, a.experts * a.k, a.n,
+                    kAny ? !a.w_own : 1, (e - slice) * a.k};
+  const DgRows hrows{nullptr, rows, slices * a.per * kDgKC, 1};
+  dg_init(ring, kAny ? dg_full_count(hrows, wt) : 1);
   cg::cluster_group cluster = cg::this_cluster();
 
   if (threadIdx.x >= kDgConsumerThreads) {
     regs_dealloc<kDgProducerRegs>();
-    // hq's tile `slice` (padded to Ip), against W2's rows e * I on (no
-    // padding): DgChunks' weight gap and DgWeight::row0 place chunk c at
-    // row e * I + 128 c.
-    const DgWeight wt{nullptr, a.experts * a.k, a.n, 1, (e - slice) * a.k};
-    const DgRows hrows{nullptr, rows, slices * a.per * kDgKC, 1};
     dg_produce<kDgI8>(ring, &w_map, &w_map, &x_map, wt, hrows,
                       DgChunks{slice, 1, 1, a.per, a.per * kDgKC - a.k}, n0, m0, c_lo, c_hi,
                       threadIdx.x - kDgConsumerThreads, -c_lo);
@@ -690,12 +770,14 @@ __global__ void __launch_bounds__(kThreads, 1) expert_down_kernel(
   const uint32_t mine = dg_owned_mask(rank, split, BR / 8);
   if (split > 1) dg_split_sum<BR>(acc, part, L, rank, split, mine, cluster);
   // out = out_dtype(float(acc) * hs * w2_s (+ b2)) for columns c0, c0 + 1
-  // (H is a multiple of 16) of the column blocks this block owns.
+  // (an odd H's last column has no c0 + 1) of the column blocks this block
+  // owns.
   const int c0 = n0 + L.col;
   if (c0 >= a.n) return;
+  const bool c1 = !kAny || c0 + 1 < a.n;
   const size_t we = (size_t)slice * a.n + c0;
-  const float ws0 = a.w2s[we], ws1 = a.w2s[we + 1];
-  const float b0 = kGrouped ? 0.f : a.b2[we], b1 = kGrouped ? 0.f : a.b2[we + 1];
+  const float ws0 = a.w2s[we], ws1 = c1 ? a.w2s[we + 1] : 0.f;
+  const float b0 = kGrouped ? 0.f : a.b2[we], b1 = kGrouped || !c1 ? 0.f : a.b2[we + 1];
 #pragma unroll
   for (int j = 0; j < BR / 8; ++j) {
     if (!((mine >> j) & 1)) continue;
@@ -711,11 +793,20 @@ __global__ void __launch_bounds__(kThreads, 1) expert_down_kernel(
         y1 = __fadd_rn(y1, b1);
       }
       const size_t o = ((size_t)slice * rows + row) * a.n + c0;
-      if (a.out_bf16)
+      if (kAny && a.n % 2 != 0) {   // odd H: one value a store
+        if (a.out_bf16) {
+          static_cast<bf16*>(a.out)[o] = __float2bfloat16(y0);
+          if (c1) static_cast<bf16*>(a.out)[o + 1] = __float2bfloat16(y1);
+        } else {
+          static_cast<float*>(a.out)[o] = y0;
+          if (c1) static_cast<float*>(a.out)[o + 1] = y1;
+        }
+      } else if (a.out_bf16) {
         *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + o) =
             __halves2bfloat162(__float2bfloat16(y0), __float2bfloat16(y1));
-      else
+      } else {
         *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) = make_float2(y0, y1);
+      }
     }
   }
 }
@@ -743,22 +834,30 @@ int expert_ffn_run(const ExpertFfn& f, int split, int st_up, int st_down, cudaSt
   const uint64_t ei = (uint64_t)f.experts * f.inter;
   CUtensorMap xm, w1m, hqm, w2m, none;
   memset(&none, 0, sizeof(none));   // no int4 shifts
-  int err = dg_map_2d(&xm, f.xq, u8, 1, f.d_model, f.rows, 128, BR);
+  // x_q, W1 and W2 by TMA where their rows are whole 16-byte units, else by
+  // the producers' own loads (H = 693, I = 2790).
+  int tx = 0, tw1 = 0, tw2 = 0;
+  int err = dg_map_or_own(&xm, f.xq, 1, f.rows, f.d_model, BR, &tx);
   if (err == 0)
-    err = kGrouped
-              ? dg_map_2d(&w1m, f.w1, u8, 1, ei, f.d_model, 128, kDgKC)
-              : dg_map_2d(&w1m, f.w1, u8, 1, f.inter, (uint64_t)f.experts * f.d_model, 128,
-                          kDgKC);
+    err = kGrouped ? dg_map_or_own(&w1m, f.w1, 1, f.d_model, (int)ei, kDgKC, &tw1)
+                   : dg_map_or_own(&w1m, f.w1, 1, f.experts * f.d_model, f.inter, kDgKC, &tw1);
   if (err == 0) err = dg_map_2d(&hqm, f.hq, u8, 1, (uint64_t)f.slices * ip, f.rows, 128, BR);
-  if (err == 0) err = dg_map_2d(&w2m, f.w2, u8, 1, f.d_model, ei, 128, kDgKC);
+  if (err == 0) err = dg_map_or_own(&w2m, f.w2, 1, (int)ei, f.d_model, kDgKC, &tw2);
   if (err != 0) return err;
+  // #12's W1 tile starts at column e * I of the fat stack: where that is not
+  // a whole number of 16-byte units, the producers load it (TMA takes a box
+  // at such a column and faults).
+  if (kGrouped && f.inter % 16 != 0) tw1 = 0;
+  // The any-width instances where an operand goes by the producers' loads
+  // or H or I is odd (or not a multiple of 4: the requantization's loads).
+  const bool any = !tx || !tw1 || !tw2 || f.d_model % 2 != 0 || f.inter % 4 != 0;
   err = static_cast<int>(
       cudaMemsetAsync(f.absmax, 0, (size_t)f.rows * f.slices * sizeof(float), s));
   if (err != 0) return err;
   const uint32_t stage = BR * 128 + kDgW8Bytes;
   const int row_tiles = (f.rows + BR - 1) / BR;
   const int* emap = static_cast<const int*>(f.emap);
-  UpArgs up = {};
+  UpArgsAny up = {};
   up.xs = static_cast<const float*>(f.xs);
   up.w1s = static_cast<const float*>(f.w1s);
   up.b1 = f.b1;
@@ -773,14 +872,28 @@ int expert_ffn_run(const ExpertFfn& f, int split, int st_up, int st_down, cudaSt
   up.cs = 0;
   up.experts = f.experts;
   up.emap = emap;
-  err = dg_launch(ffn_up_kernel<false, BR, true, kGrouped>,
-                  dim3((f.inter + kDgCols - 1) / kDgCols, row_tiles, f.slices), dim3(kThreads), 1,
-                  dg_smem_bytes(BR, st_up, stage, 1, ffn_up_extra(BR)), s, xm, w1m, none, up);
+  up.x = f.xq;
+  up.w = f.w1;
+  up.x_own = !tx;
+  up.w_own = !tw1;
+  const dim3 up_grid((f.inter + kDgCols - 1) / kDgCols, row_tiles, f.slices);
+  const size_t up_smem = dg_smem_bytes(BR, st_up, stage, 1, ffn_up_extra(BR));
+  err = any ? dg_launch(ffn_up_kernel<false, BR, true, kGrouped, true>, up_grid, dim3(kThreads), 1,
+                        up_smem, s, xm, w1m, none, up)
+            : dg_launch(ffn_up_kernel<false, BR, true, kGrouped>, up_grid, dim3(kThreads), 1,
+                        up_smem, s, xm, w1m, none, static_cast<const UpArgs&>(up));
   if (err != 0) return err;
-  fat_quant_kernel<<<fat_quant_grid(f.slices, f.rows), kBlock, 0, s>>>(
-      static_cast<const float*>(f.hidden), static_cast<const float*>(f.absmax),
-      static_cast<int8_t*>(f.hq), static_cast<float*>(f.hs), f.rows, f.slices * f.inter,
-      f.inter, ip, emap);
+  const dim3 qgrid = fat_quant_grid(f.slices, f.rows);
+  if (any)
+    fat_quant_kernel<true><<<qgrid, kBlock, 0, s>>>(
+        static_cast<const float*>(f.hidden), static_cast<const float*>(f.absmax),
+        static_cast<int8_t*>(f.hq), static_cast<float*>(f.hs), f.rows, f.slices * f.inter,
+        f.inter, ip, emap);
+  else
+    fat_quant_kernel<false><<<qgrid, kBlock, 0, s>>>(
+        static_cast<const float*>(f.hidden), static_cast<const float*>(f.absmax),
+        static_cast<int8_t*>(f.hq), static_cast<float*>(f.hs), f.rows, f.slices * f.inter,
+        f.inter, ip, emap);
   ExpertDownArgs down = {};
   down.hs = static_cast<const float*>(f.hs);
   down.w2s = static_cast<const float*>(f.w2s);
@@ -795,7 +908,9 @@ int expert_ffn_run(const ExpertFfn& f, int split, int st_up, int st_down, cudaSt
   down.split = split;
   down.stages = st_down;
   down.out_bf16 = f.out_bf16;
-  err = dg_launch(expert_down_kernel<BR, kGrouped>,
+  down.w = f.w2;
+  down.w_own = !tw2;
+  err = dg_launch(any ? expert_down_kernel<BR, kGrouped, true> : expert_down_kernel<BR, kGrouped>,
                   dim3(((f.d_model + kDgCols - 1) / kDgCols) * split, row_tiles, f.slices),
                   dim3(kThreads), split, dg_smem_bytes(BR, st_down, stage, split, 0), s, hqm,
                   w2m, down);

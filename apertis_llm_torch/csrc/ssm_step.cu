@@ -67,6 +67,12 @@
 //   7. with the dense or moe epilogue, ssm_norm_kernel<float>: the FFN
 //      pre-norm of hsum rounded to bf16 (and quantized in the int8 layout),
 //      or the moe epilogue (both layouts).
+// Any D and C (the TPU kernel pads only rows): the row kernels read four
+// values a thread where C is a multiple of 4 and one at a time otherwise,
+// each product's operand whose rows are not whole 16-byte units (the odd
+// widths' 693-byte rows, C = 165 columns of in_proj) goes by the producer's
+// own loads, and the moe epilogue's router takes any number of experts
+// (each lane of warp 0 holds every 32nd logit).
 // Fusing the row work into the products was measured slower: in the int8
 // layout into their prologues, where each of a product's column tiles
 // recomputed its rows' whole operand (the recurrence 19 times at the 1.5B
@@ -104,27 +110,78 @@
 
 namespace {
 
-// The eval-mode top-2 routing of one row by one warp from lane e's logit of
-// expert e (-inf past E): softmax, the two largest gates (the least index
-// winning a tie) and comb[e] = (w1 [e == i1] + w2 [e == i2]) / (w1 + w2 +
-// 1e-6).
-__device__ void warp_top2_combine(float logit, int num_experts, float* comb) {
+// The eval-mode top-2 routing of one row by one warp from the row's E
+// logits in shared memory (any E >= 2; lane l takes experts l, l + 32, ...,
+// and the gates overwrite the logits): softmax, the two largest gates (the
+// least index winning a tie: each lane keeps its first, the warp the least
+// of the lanes that hold the maximum) and comb[e] = (w1 [e == i1] + w2
+// [e == i2]) / (w1 + w2 + 1e-6). Up to 32 experts each lane holds one logit,
+// and the sums are a warp's over its lanes.
+__device__ void warp_top2_combine(float* logit, int num_experts, float* comb) {
   const int lane = threadIdx.x & 31;
   const float neg_inf = __int_as_float(0xff800000);
-  const bool valid = lane < num_experts;
-  const float top = warp_max(logit);
-  const float ex = valid ? expf(logit - top) : 0.f;
-  const float total = warp_sum(ex);
-  const float gate = valid ? ex / total : neg_inf;
-  const float w1 = warp_max(gate);
-  const int i1 = (int)__reduce_min_sync(0xffffffffu,
-                                        (unsigned)(valid && gate == w1 ? lane : num_experts));
-  const float g2 = lane == i1 ? neg_inf : gate;
-  const float w2 = warp_max(g2);
-  const int i2 = (int)__reduce_min_sync(0xffffffffu,
-                                        (unsigned)(valid && g2 == w2 ? lane : num_experts));
-  if (valid)
-    comb[lane] = ((lane == i1 ? w1 : 0.f) + (lane == i2 ? w2 : 0.f)) / (w1 + w2 + 1e-6f);
+  float top = neg_inf;
+  for (int e = lane; e < num_experts; e += 32) top = fmaxf(top, logit[e]);
+  top = warp_max(top);
+  float total = 0.f;
+  for (int e = lane; e < num_experts; e += 32) total += expf(logit[e] - top);
+  total = warp_sum(total);
+  float w1 = neg_inf;
+  int i1 = num_experts;
+  for (int e = lane; e < num_experts; e += 32) {
+    const float gate = expf(logit[e] - top) / total;
+    logit[e] = gate;
+    if (gate > w1) {
+      w1 = gate;
+      i1 = e;
+    }
+  }
+  const float m1 = warp_max(w1);
+  i1 = (int)__reduce_min_sync(0xffffffffu, (unsigned)(w1 == m1 ? i1 : num_experts));
+  float w2 = neg_inf;
+  int i2 = num_experts;
+  for (int e = lane; e < num_experts; e += 32) {
+    const float gate = e == i1 ? neg_inf : logit[e];
+    if (gate > w2) {
+      w2 = gate;
+      i2 = e;
+    }
+  }
+  const float m2 = warp_max(w2);
+  i2 = (int)__reduce_min_sync(0xffffffffu, (unsigned)(w2 == m2 ? i2 : num_experts));
+  const float den = m1 + m2 + 1e-6f;
+  for (int e = lane; e < num_experts; e += 32)
+    comb[e] = ((e == i1 ? m1 : 0.f) + (e == i2 ? m2 : 0.f)) / den;
+}
+
+// The router's logits of one row: each warp's sums over its threads' share
+// of D for expert e, part[warp * E + e], then warp 0 adds the warps' parts
+// in warp order and the bias into logit[e] (logit_at(e, k): the router's
+// LayerNorm of value k times router_w[k, e]). Shared memory: part (kWarps x
+// E) and logit (E) floats.
+template <typename F, typename B>
+__device__ __forceinline__ void router_logits(F logit_at, B bias, int d_model, int num_experts,
+                                              float* part, float* logit) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int e = 0; e < num_experts; ++e) {
+    float acc = 0.f;
+    for (int k = tid; k < d_model; k += kBlock) acc = logit_at(e, k, acc);
+    acc = warp_sum(acc);
+    if (lane == 0) part[warp * num_experts + e] = acc;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  for (int e = lane; e < num_experts; e += 32) {
+    float l = 0.f;
+    for (int w = 0; w < kWarps; ++w) l += part[w * num_experts + e];
+    logit[e] = l + bias(e);
+  }
+  __syncwarp();
+}
+
+// The shared memory of the row kernels' router beside the row's D floats.
+__host__ __device__ constexpr size_t router_smem_bytes(int num_experts) {
+  return (size_t)(kWarps + 1) * num_experts * sizeof(float);
 }
 
 
@@ -146,23 +203,53 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   v[3] = t.w;
 }
 
-// The conv + SiLU of channels c .. c + 3 of a row (c and C multiples of 4;
-// the bf16 kernel's formula): conv window [s_0 .. s_{K-2}, xp] . conv_w[c] +
-// conv_b[c], the row's inputs read four at a time.
+// Up to four consecutive values from p: with kVec four in one aligned load
+// (load4), else the first n one at a time and zeros past them (a row whose
+// width is not a multiple of 4: its places are not aligned).
+template <bool kVec, typename T>
+__device__ __forceinline__ void load4n(const T* p, int n, float (&v)[4]) {
+  if constexpr (kVec) {
+    load4(p, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = i < n ? to_f32(p[i]) : 0.f;
+  }
+}
+
+// Stores the first n of four f32 values at p: one 16-byte store with kVec.
+template <bool kVec>
+__device__ __forceinline__ void store4n(float* p, int n, const float (&v)[4]) {
+  if constexpr (kVec) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (i < n) p[i] = v[i];
+  }
+}
+
+// The conv + SiLU of channels c .. c + n - 1 (n = min(4, C - c)) of a row
+// (the bf16 kernel's formula): conv window [s_0 .. s_{K-2}, xp] . conv_w[c] +
+// conv_b[c], the row's inputs read four at a time where C is a multiple of 4
+// (kVec), else one at a time.
+template <bool kVec>
 __device__ __forceinline__ void conv_silu4(const bf16* __restrict__ conv_state,
                                            const bf16* __restrict__ xp,
                                            const bf16* __restrict__ conv_w,
                                            const bf16* __restrict__ conv_b, size_t row, int c,
                                            int channels, int ksize, float (&act)[4]) {
+  const int n = kVec ? 4 : min(4, channels - c);
   float yc[4] = {0.f, 0.f, 0.f, 0.f}, v[4];
   for (int j = 0; j < ksize - 1; ++j) {
-    load4(conv_state + (row * (ksize - 1) + j) * channels + c, v);
+    load4n<kVec>(conv_state + (row * (ksize - 1) + j) * channels + c, n, v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) yc[i] += v[i] * to_f32(conv_w[(size_t)(c + i) * ksize + j]);
+    for (int i = 0; i < 4; ++i)
+      if (kVec || i < n) yc[i] += v[i] * to_f32(conv_w[(size_t)(c + i) * ksize + j]);
   }
-  load4(xp + row * channels + c, v);
+  load4n<kVec>(xp + row * channels + c, n, v);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    if (!kVec && i >= n) continue;
     yc[i] += v[i] * to_f32(conv_w[(size_t)(c + i) * ksize + ksize - 1]);
     yc[i] += to_f32(conv_b[c + i]);
     act[i] = yc[i] * sigmoidf(yc[i]);
@@ -227,8 +314,9 @@ __device__ __forceinline__ void row_out(const float* v, int n, float* red, void*
 // values in f32) or the dense and moe epilogues' FFN input (x: hsum, f32,
 // the normed values rounded to bf16, `round_out`); with router_w, the moe
 // epilogue (int8 x_q, x_s and the combine weights in both layouts: the
-// router's logits summed a warp at a time, the top-2 by warp 0). Shared
-// memory: the row, D floats.
+// router's logits summed a warp at a time, the top-2 by warp 0, over any
+// number of experts). Shared memory: the row, D floats, and with router_w
+// router_smem_bytes(E).
 template <typename T, bool kQ>
 __global__ void __launch_bounds__(kBlock) ssm_norm_kernel(
     const T* __restrict__ x,              // (B, D)
@@ -243,7 +331,6 @@ __global__ void __launch_bounds__(kBlock) ssm_norm_kernel(
     int d_model, int num_experts) {
   extern __shared__ float v[];
   __shared__ float red[kWarps];
-  __shared__ float logit_part[kWarps][32];
   const size_t row = blockIdx.x;
   const int tid = threadIdx.x;
   const float dn = (float)d_model;
@@ -303,30 +390,33 @@ __global__ void __launch_bounds__(kBlock) ssm_norm_kernel(
   const float rscale = 1.f / scale;
   for (int k = tid; k < d_model; k += kBlock) q[k] = quant_level(__fmul_rn(v[k] - mean, rscale));
   if (tid == 0) x_s[row] = __fmul_rn(scale, inv);
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int e = 0; e < num_experts; ++e) {
-    float acc = 0.f;
-    for (int k = tid; k < d_model; k += kBlock) {
-      const float rn = __fadd_rn(__fmul_rn(__fmul_rn(v[k] - mean, inv), to_f32(rln_w[k])),
-                                 to_f32(rln_b[k]));
-      acc = fmaf(rn, to_f32(router_w[(size_t)k * num_experts + e]), acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) logit_part[warp][e] = acc;
-  }
-  __syncthreads();
-  if (warp != 0) return;
-  float logit = __int_as_float(0xff800000);
-  if (lane < num_experts) {
-    float l = 0.f;
-    for (int w = 0; w < kWarps; ++w) l += logit_part[w][lane];
-    logit = l + to_f32(router_b[lane]);
-  }
-  warp_top2_combine(logit, num_experts, comb + row * num_experts);
+  float* part = v + d_model;
+  float* logit = part + kWarps * num_experts;
+  router_logits(
+      [&](int e, int k, float acc) {
+        const float rn = __fadd_rn(__fmul_rn(__fmul_rn(v[k] - mean, inv), to_f32(rln_w[k])),
+                                   to_f32(rln_b[k]));
+        return fmaf(rn, to_f32(router_w[(size_t)k * num_experts + e]), acc);
+      },
+      [&](int e) { return to_f32(router_b[e]); }, d_model, num_experts, part, logit);
+  if ((tid >> 5) == 0) warp_top2_combine(logit, num_experts, comb + row * num_experts);
 }
 
 // x_act = silu(conv) of a row, quantized or rounded to bf16 (row_out).
 // Shared memory: C floats.
+template <bool kVec>
+__device__ __forceinline__ void conv_row(const bf16* __restrict__ conv_state,
+                                         const bf16* __restrict__ xp,
+                                         const bf16* __restrict__ conv_w,
+                                         const bf16* __restrict__ conv_b, size_t row,
+                                         int channels, int ksize, float* v) {
+  for (int c = 4 * threadIdx.x; c < channels; c += 4 * kBlock) {
+    float a[4];
+    conv_silu4<kVec>(conv_state, xp, conv_w, conv_b, row, c, channels, ksize, a);
+    store4n<kVec>(v + c, channels - c, a);
+  }
+}
+
 template <bool kQ>
 __global__ void __launch_bounds__(kBlock) ssm_conv_kernel(
     const bf16* __restrict__ conv_state,  // (B, K-1, C)
@@ -339,11 +429,10 @@ __global__ void __launch_bounds__(kBlock) ssm_conv_kernel(
   extern __shared__ float v[];
   __shared__ float red[kWarps];
   const size_t row = blockIdx.x;
-  for (int c = 4 * threadIdx.x; c < channels; c += 4 * kBlock) {
-    float a[4];
-    conv_silu4(conv_state, xp, conv_w, conv_b, row, c, channels, ksize, a);
-    *reinterpret_cast<float4*>(v + c) = make_float4(a[0], a[1], a[2], a[3]);
-  }
+  if (channels % 4 == 0)
+    conv_row<true>(conv_state, xp, conv_w, conv_b, row, channels, ksize, v);
+  else
+    conv_row<false>(conv_state, xp, conv_w, conv_b, row, channels, ksize, v);
   row_out<kQ>(v, channels, red, static_cast<unsigned char*>(xa_q) + row * channels * (kQ ? 1 : 2),
               kQ ? xa_s + row : nullptr);
 }
@@ -360,6 +449,40 @@ __host__ __device__ constexpr size_t recur_dtw_bytes(int rank, int heads) {
 // by one thread, so ssm_out may be ssm), g = (Cs * h' + D * xa) * silu(z),
 // quantized or rounded to bf16 (row_out). Shared memory: dt_proj_w (R x H
 // bf16), then g (C), dt (R) and delta (H) floats.
+// The recurrence and gate of a row's channels, four a thread (kVec: C a
+// multiple of 4, 16-byte loads and stores; else one value at a time): bs
+// the row's B | C segments of the dt | B | C scratch.
+template <bool kVec>
+__device__ __forceinline__ void recur_row(const float* __restrict__ bs_row,
+                                          const float* __restrict__ z, const float* ssm,
+                                          const bf16* __restrict__ conv_state,
+                                          const bf16* __restrict__ xp,
+                                          const bf16* __restrict__ conv_w,
+                                          const bf16* __restrict__ conv_b,
+                                          const bf16* __restrict__ a_log,
+                                          const bf16* __restrict__ d_skip, float* ssm_out,
+                                          const float* delta, float* g, size_t row, int channels,
+                                          int ksize, int d_state) {
+  for (int c = 4 * threadIdx.x; c < channels; c += 4 * kBlock) {
+    const int n = kVec ? 4 : min(4, channels - c);
+    float xa[4], prev[4], bs[4], cs[4], zv[4], hn[4];
+    conv_silu4<kVec>(conv_state, xp, conv_w, conv_b, row, c, channels, ksize, xa);
+    load4n<kVec>(ssm + row * channels + c, n, prev);
+    load4n<kVec>(bs_row + c, n, bs);
+    load4n<kVec>(bs_row + channels + c, n, cs);
+    load4n<kVec>(z + row * channels + c, n, zv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (!kVec && i >= n) continue;
+      const float a_bar = expf(delta[(c + i) / d_state] * -expf(to_f32(a_log[c + i])));
+      hn[i] = a_bar * prev[i] + bs[i];
+      const float y = cs[i] * hn[i] + to_f32(d_skip[c + i]) * xa[i];
+      g[c + i] = y * (zv[i] * sigmoidf(zv[i]));
+    }
+    store4n<kVec>(ssm_out + row * channels + c, n, hn);
+  }
+}
+
 template <bool kQ>
 __global__ void __launch_bounds__(kBlock) ssm_recur_kernel(
     const float* __restrict__ bc,         // (B, bc_stride(R, C)): dt | B | C
@@ -402,23 +525,12 @@ __global__ void __launch_bounds__(kBlock) ssm_recur_kernel(
     delta[hd] = softplusf(dt_raw + to_f32(dt_b[hd]));
   }
   __syncthreads();
-  for (int c = 4 * threadIdx.x; c < channels; c += 4 * kBlock) {
-    float xa[4], prev[4], bs[4], cs[4], zv[4], hn[4];
-    conv_silu4(conv_state, xp, conv_w, conv_b, row, c, channels, ksize, xa);
-    load4(ssm + row * channels + c, prev);
-    load4(bcr + rp + c, bs);
-    load4(bcr + rp + channels + c, cs);
-    load4(z + row * channels + c, zv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a_bar = expf(delta[(c + i) / d_state] * -expf(to_f32(a_log[c + i])));
-      hn[i] = a_bar * prev[i] + bs[i];
-      const float y = cs[i] * hn[i] + to_f32(d_skip[c + i]) * xa[i];
-      g[c + i] = y * (zv[i] * sigmoidf(zv[i]));
-    }
-    *reinterpret_cast<float4*>(ssm_out + row * channels + c) =
-        make_float4(hn[0], hn[1], hn[2], hn[3]);
-  }
+  if (channels % 4 == 0)
+    recur_row<true>(bcr + rp, z, ssm, conv_state, xp, conv_w, conv_b, a_log, d_skip, ssm_out,
+                    delta, g, row, channels, ksize, d_state);
+  else
+    recur_row<false>(bcr + rp, z, ssm, conv_state, xp, conv_w, conv_b, a_log, d_skip, ssm_out,
+                     delta, g, row, channels, ksize, d_state);
   row_out<kQ>(g, channels, red, static_cast<unsigned char*>(g_out) + row * channels * (kQ ? 1 : 2),
               kQ ? g_s + row : nullptr);
 }
@@ -563,21 +675,6 @@ __global__ void __launch_bounds__(kThreads, 1) ssm_gemm_kernel(
   }
 }
 
-// A tensor map over a row-major (outer, inner) matrix of `elem`-byte values
-// (1 int8, 2 bf16, 4 f32) in boxes of box rows x 128 bytes (dg_map_2d's
-// cache), or none (*tma 0) for the producer's own loads where the row is
-// not a multiple of 16 bytes or the base not 16-byte aligned.
-int step_map(CUtensorMap* map, const void* base, int elem, int outer, int inner, int box,
-             int* tma) {
-  memset(map, 0, sizeof(*map));
-  *tma = inner * elem % 16 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
-  if (!*tma) return 0;
-  const CUtensorMapDataType type = elem == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                   : elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                               : CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  return dg_map_2d(map, base, type, elem, inner, outer, 128 / elem, box);
-}
-
 // The step's scratch, carved from one buffer at 256-byte boundaries: the
 // three products' input rows (int8 with their scales, or bf16), z, dt | B |
 // C and hsum; and, in the bf16 layout, x_act's rows (xa_q holds them).
@@ -609,9 +706,11 @@ struct StepScratch {
 
 // One product at a row tile of BR rows: the rows x (B, K) against the weight
 // w (K, N) (in: and wz), on the plan's split and stages. kDgTF: x holds the
-// rows' TF32 hi parts and x_lo their lo parts, both loaded by TMA (K a
-// multiple of 4). `x_f32` (kDgBW): the rows are f32 (the f32 form's), which
-// the producer loads and rounds to bf16.
+// rows' TF32 hi parts and x_lo their lo parts, both loaded by TMA where K is
+// a multiple of 4, else by the producer. `x_f32` (kDgBW): the rows are f32
+// (the f32 form's), which the producer loads and rounds to bf16. Any K and
+// N: an operand whose rows are not whole 16-byte units is staged by the
+// producer's own loads.
 template <int BR, int kMode, int kKind, bool kCoded = false>
 int step_gemm(const void* x, int batch, int k, const void* w, const void* wz, int n,
               StepEpilogue ep, int split, int stages, cudaStream_t s, int x_f32 = 0,
@@ -626,13 +725,13 @@ int step_gemm(const void* x, int batch, int k, const void* w, const void* wz, in
   if (x_f32)
     memset(&xm, 0, sizeof(xm));   // the producer's own loads
   else
-    err = step_map(&xm, x, elem, batch, k, BR, &tx);
+    err = dg_map_or_own(&xm, x, elem, batch, k, BR, &tx);
   if (kTF && err == 0) {
-    err = step_map(&xlm, x_lo, 4, batch, k, BR, &tl);
-    if (err == 0 && (!tx || !tl)) err = static_cast<int>(cudaErrorInvalidValue);
+    err = dg_map_or_own(&xlm, x_lo, 4, batch, k, BR, &tl);
+    tx = tx && tl;   // the hi and lo tiles alike: both by TMA or both by the producer
   }
-  if (err == 0) err = step_map(&wm, w, elem, k, n, Op::kKC, &tw);
-  if (err == 0) err = step_map(&wzm, wz != nullptr ? wz : w, elem, k, n, Op::kKC, &tz);
+  if (err == 0) err = dg_map_or_own(&wm, w, elem, k, n, Op::kKC, &tw);
+  if (err == 0) err = dg_map_or_own(&wzm, wz != nullptr ? wz : w, elem, k, n, Op::kKC, &tz);
   if (err != 0) return err;
   const int col_tiles = (n + kDgCols - 1) / kDgCols * (kMode == kIn ? 2 : 1);
   const uint32_t stage = BR * 128 * (kTF ? 2 : 1) + Op::kWBytes;
@@ -641,7 +740,7 @@ int step_gemm(const void* x, int batch, int k, const void* w, const void* wz, in
   auto wp = [](const void* p) { return static_cast<const int8_t*>(p); };
   return dg_launch(ssm_gemm_kernel<BR, kMode, kKind, kCoded>,
                    dim3(col_tiles * split, (batch + BR - 1) / BR), dim3(kThreads), split, smem, s,
-                   xm, xlm, wm, wzm, DgRows{x, batch, k, tx, x_f32, kTF ? 1 : 0},
+                   xm, xlm, wm, wzm, DgRows{x, batch, k, tx, x_f32, kTF ? 1 : 0, 0, x_lo},
                    DgWeight{wp(w), k, n, tw}, DgWeight{wp(wz != nullptr ? wz : w), k, n, tz}, ep,
                    split, stages);
 }
@@ -722,7 +821,8 @@ int launch_step(const StepArgs& a, const StepScratch& sc, const int* splits, con
   // The moe epilogue quantizes in both layouts; the dense one as the layout.
   err = dg_launch(a.router_w != nullptr ? &ssm_norm_kernel<float, true>
                                          : &ssm_norm_kernel<float, kQ>,
-                  rows_grid, row_block, 1, row_d, s, static_cast<const float*>(sc.hsum), a.fn_w,
+                  rows_grid, row_block, 1,
+                  row_d + (a.router_w != nullptr ? router_smem_bytes(a.num_experts) : 0), s, static_cast<const float*>(sc.hsum), a.fn_w,
                   a.fn_b, a.rms, a.eps, 1, a.rln_w, a.rln_b, a.router_w, a.router_b, a.ffn_in,
                   a.ffn_scale, a.comb, a.d_model, a.num_experts);
   return err != 0 ? err : static_cast<int>(cudaGetLastError());
@@ -733,11 +833,10 @@ template <int kKind>
 int run_step(const StepArgs& a, void* scratch, int row_tile, const int* sp, const int* st,
              cudaStream_t s) {
   constexpr int kKC = DgOp<kKind>::kKC;
-  if (a.batch <= 0 || a.d_model % 4 != 0 || a.channels % 4 != 0 || a.d_state <= 0 ||
-      a.rank <= 0 || a.heads * a.d_state != a.channels || (row_tile != 16 && row_tile != 64))
+  if (a.batch <= 0 || a.d_model <= 0 || a.d_state <= 0 || a.rank <= 0 ||
+      a.heads * a.d_state != a.channels || (row_tile != 16 && row_tile != 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (a.router_w != nullptr && (a.num_experts < 2 || a.num_experts > 32))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.router_w != nullptr && a.num_experts < 2) return static_cast<int>(cudaErrorInvalidValue);
   const int chunks[3] = {(a.d_model + kKC - 1) / kKC, (a.channels + kKC - 1) / kKC,
                          (a.channels + kKC - 1) / kKC};
   for (int i = 0; i < 3; ++i)
@@ -755,7 +854,7 @@ int run_step(const StepArgs& a, void* scratch, int row_tile, const int* sp, cons
 // nullptr selects ffn_mode "none" (ffn_in unused); router_w == nullptr
 // selects "dense" (ffn_in is the (B, D) bf16 FFN input), else "moe": ffn_in
 // is the (B, D) int8 x_q, ffn_scale the (B, 1) f32 x_s and comb the (B, E)
-// f32 combine weights, E <= 32. D and C must be multiples of 4. `scratch`
+// f32 combine weights, any E >= 2. D and C may be any width. `scratch`
 // holds apertis_ssm_step_scratch(..., 0) bytes. row_tile (16 or 64),
 // splits[3] and stages[3] (in, mix, out) are the plan of
 // ops/kernels/decode_plan.py::bf16_step_plan. Returns cudaGetLastError(), or
@@ -784,8 +883,8 @@ extern "C" int apertis_ssm_decode_step(
 }
 
 // The same step with the int8 weight layout: each of in_proj x / z, x_param
-// and out_proj is an int8 (in, out) weight with (1, out) f32 scales; D and C
-// must be multiples of 4. `scratch` holds apertis_ssm_step_scratch(..., 1)
+// and out_proj is an int8 (in, out) weight with (1, out) f32 scales, at any
+// D and C. `scratch` holds apertis_ssm_step_scratch(..., 1)
 // bytes; with the dense or the moe epilogue ffn_in is the (B, D) int8 x_q
 // and ffn_scale the (B, 1) f32 x_s. row_tile (16 or 64), splits[3] and
 // stages[3] (in, mix, out) are the plan of
@@ -915,7 +1014,7 @@ struct F32Scratch {
 //   mode 2, the moe epilogue: n2 rounded to bf16, the centred row's levels,
 //     x_s = s * rsqrt(var + eps), and the top-2 combine weights of the
 //     router's LayerNorm of n2 (the bf16 form's moe epilogue).
-// Shared memory: D floats.
+// Shared memory: D floats, and in mode 2 router_smem_bytes(E).
 template <bool kQ>
 __global__ void __launch_bounds__(kBlock) f32_norm_kernel(
     const void* __restrict__ x, int xbf, const void* __restrict__ norm_w,
@@ -927,7 +1026,6 @@ __global__ void __launch_bounds__(kBlock) f32_norm_kernel(
     float* __restrict__ lo) {
   extern __shared__ float v[];
   __shared__ float red[kWarps];
-  __shared__ float logit_part[kWarps][32];
   const size_t row = blockIdx.x;
   const int tid = threadIdx.x;
   const float dn = (float)d_model;
@@ -992,26 +1090,16 @@ __global__ void __launch_bounds__(kBlock) f32_norm_kernel(
   const float rscale = 1.f / scale;
   for (int k = tid; k < d_model; k += kBlock) q[k] = quant_level(__fmul_rn(v[k] - mean, rscale));
   if (tid == 0) out_s[row] = __fmul_rn(scale, inv);
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int e = 0; e < num_experts; ++e) {
-    float acc = 0.f;
-    for (int k = tid; k < d_model; k += kBlock) {
-      const float rn = __fadd_rn(__fmul_rn(__fmul_rn(v[k] - mean, inv), ldv(rln_w, k, pbf)),
-                                 ldv(rln_b, k, pbf));
-      acc = fmaf(rn, ldv(router_w, (size_t)k * num_experts + e, pbf), acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) logit_part[warp][e] = acc;
-  }
-  __syncthreads();
-  if (warp != 0) return;
-  float logit = __int_as_float(0xff800000);
-  if (lane < num_experts) {
-    float l = 0.f;
-    for (int w = 0; w < kWarps; ++w) l += logit_part[w][lane];
-    logit = l + ldv(router_b, lane, pbf);
-  }
-  warp_top2_combine(logit, num_experts, comb + row * num_experts);
+  float* part = v + d_model;
+  float* logit = part + kWarps * num_experts;
+  router_logits(
+      [&](int e, int k, float acc) {
+        const float rn = __fadd_rn(__fmul_rn(__fmul_rn(v[k] - mean, inv), ldv(rln_w, k, pbf)),
+                                   ldv(rln_b, k, pbf));
+        return fmaf(rn, ldv(router_w, (size_t)k * num_experts + e, pbf), acc);
+      },
+      [&](int e) { return ldv(router_b, e, pbf); }, d_model, num_experts, part, logit);
+  if ((tid >> 5) == 0) warp_top2_combine(logit, num_experts, comb + row * num_experts);
 }
 
 // One channel's conv + SiLU in the plain version's order, the cache (and
@@ -1165,8 +1253,9 @@ int run_f32_step(const F32StepArgs& a, void* scratch, const int* splits, const i
   F32Scratch s(scratch, a.B, a.D, a.C, a.R);
   const float inv_sqrt_d = static_cast<float>(std::pow(static_cast<double>(a.D), -0.5));
   const size_t row_d = (size_t)a.D * sizeof(float), row_c = (size_t)a.C * sizeof(float);
+  const size_t row_e = row_d + (a.router_w != nullptr ? router_smem_bytes(a.E) : 0);
   cudaError_t err = cudaSuccess;
-  if ((err = allow_smem(f32_norm_kernel<kQ>, row_d)) != cudaSuccess ||
+  if ((err = allow_smem(f32_norm_kernel<kQ>, row_e)) != cudaSuccess ||
       (err = allow_smem(f32_conv_kernel<kQ>, row_c)) != cudaSuccess ||
       (err = allow_smem(f32_recur_kernel<kQ>, row_c + (size_t)a.H * sizeof(float))) != cudaSuccess)
     return static_cast<int>(err);
@@ -1226,7 +1315,7 @@ int run_f32_step(const F32StepArgs& a, void* scratch, const int* splits, const i
   // 7. the dense or moe epilogue.
   if (a.fn_w != nullptr) {
     const int mode = a.router_w == nullptr ? 1 : 2;
-    f32_norm_kernel<kQ><<<a.B, kBlock, row_d, st>>>(
+    f32_norm_kernel<kQ><<<a.B, kBlock, mode == 2 ? row_e : row_d, st>>>(
         s.hsum, 0, a.fn_w, a.fn_b, a.pbf, a.rms, a.eps, inv_sqrt_d, mode, a.rln_w, a.rln_b,
         a.router_w, a.router_b, nullptr, a.ffn_in, a.ffn_scale, a.comb, a.D, a.E, nullptr,
         nullptr);
@@ -1240,8 +1329,8 @@ template <int kKind>
 int run_f32(const F32StepArgs& a, void* scratch, int row_tile, const int* sp, const int* st,
             cudaStream_t s) {
   constexpr int kKC = DgOp<kKind>::kKC;
-  if (a.B <= 0 || a.D <= 0 || a.C <= 0 || a.R <= 0 || a.H * a.N != a.C || a.E > 32 ||
-      (kKind == kDgTF && (a.D % 4 != 0 || a.C % 4 != 0)) || (row_tile != 16 && row_tile != 64))
+  if (a.B <= 0 || a.D <= 0 || a.C <= 0 || a.R <= 0 || a.H * a.N != a.C ||
+      (a.router_w != nullptr && a.E < 2) || (row_tile != 16 && row_tile != 64))
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks[3] = {(a.D + kKC - 1) / kKC, (a.C + kKC - 1) / kKC, (a.C + kKC - 1) / kKC};
   for (int i = 0; i < 3; ++i)

@@ -151,8 +151,7 @@ from apertis_llm_torch.ops.kernels.ln_quant import ln_quantize
 from apertis_llm_torch.ops.kernels.mha_step import (
     NEG, kernel_takes, mha_decode_ctx, mha_decode_ctx_int8, mha_decode_ctx_reference,
     quantize_heads)
-from apertis_llm_torch.ops.kernels.ssm_step import (
-    MOE_EPILOGUE_MAX_EXPERTS, MixerWeights, RouterWeights, ssm_decode_step)
+from apertis_llm_torch.ops.kernels.ssm_step import MixerWeights, RouterWeights, ssm_decode_step
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
 from apertis_llm_torch.ops.quant import fuses_pre_norm, linear_int8, linear_pre_q, quantize_rows
 from apertis_llm_torch.ops.rope import apply_rope, rope_tables, rotate
@@ -1298,8 +1297,7 @@ class ApertisForCausalLM(nn.Module):
         attached (``moe_mode`` ``fat``, ``kernel`` or ``0``, or no engine),
         or with a top-k other than 2 runs the step without its epilogue and
         the FFN as over full sequences, as the JAX package does
-        (apertis.py:1224-1230), and so does one with more experts than the
-        epilogue's router takes (``MOE_EPILOGUE_MAX_EXPERTS``); a dense FFN
+        (apertis.py:1224-1230); a dense FFN
         that fails the fused FFN's width test (``DenseFFN.fused_decode``),
         and a SwiGLU FFN, run the step without its epilogue and then the
         plain pre-norm and the FFN's ``unfused`` (apertis.py:1234-1268,
@@ -1312,7 +1310,6 @@ class ApertisForCausalLM(nn.Module):
         b = h.shape[0]
         for i, layer in enumerate(self.layers):
             moe_full = is_moe(cfg) and (b > cfg.moe_dense_threshold_tokens
-                                        or cfg.num_experts > MOE_EPILOGUE_MAX_EXPERTS
                                         or cfg.experts_per_token != 2
                                         or layer.ffn.fat_stack() is None)
             conv = cache["conv"][i]

@@ -125,16 +125,18 @@ def is_mha(config: ApertisConfig) -> bool:
 
 def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
     """Raise unless ``config`` is a variant ported so far: the decoder in
-    bf16/f32 or with int8 projections, whose mixer is the selective SSM
-    (its hidden and mixer widths multiples of 4) or standard MHA (at any
-    head width: the decode-attention kernel takes multiples of 32 up to
-    256, plain torch the others, as the JAX package serves them through
-    XLA), with a dense, SwiGLU or top-k MoE FFN (any k, its hidden and
-    intermediate widths multiples of 16), rotary or absolute positions, a
-    tied or an untied LM head, and either mixer also with the ViT image
-    prefix (``multimodal``). Int8 weights are served at any width the JAX
-    package serves: where the fused decode FFN's width test fails, the FFN
-    runs unfused (``models/apertis.py``)."""
+    bf16/f32 or with int8 projections, whose mixer is the selective SSM or
+    standard MHA (at any head width: the decode-attention kernel takes
+    multiples of 32 up to 256, plain torch the others, as the JAX package
+    serves them through XLA), with a dense, SwiGLU or top-k MoE FFN (any k
+    and any number of experts), rotary or absolute positions, a tied or an
+    untied LM head, and either mixer also with the ViT image prefix
+    (``multimodal``). Every hidden, mixer (heads x d_state) and MoE
+    intermediate width the JAX kernels take is served: the decode step and
+    the expert FFN kernels read rows that are not whole 16-byte units with
+    their own loads. Int8 weights are served at any width the JAX package
+    serves: where the fused decode FFN's width test fails, the FFN runs
+    unfused (``models/apertis.py``)."""
     missing = []
     if config.attention_type not in ("selective_ssm", "standard_mha"):
         missing.append(f"attention_type={config.attention_type!r}")
@@ -143,19 +145,6 @@ def check_supported(config: ApertisConfig, quantized: bool = False) -> None:
         missing.append(f"a ViT with image_size={config.image_size}, patch "
                        f"{config.vision_patch_size}, width {config.vision_embed_dim} and "
                        f"{config.vision_heads} heads (whole patches and heads)")
-    if config.attention_type == "selective_ssm" and (
-            config.hidden_size % 4 or config.ssm_d_inner % 4):
-        # The decode step (ops/kernels/ssm_step.py) reads D and C in units of
-        # four (ROADMAP.md queue 2, item B1).
-        missing.append(f"the selective SSM with hidden_size={config.hidden_size} or "
-                       f"mixer width {config.ssm_d_inner} (heads x ssm_d_state) not a "
-                       "multiple of 4 (ROADMAP.md queue 2, item B1)")
-    if is_moe(config):
-        # The MoE kernels read int8 rows and weights in 16-byte units; their
-        # fat stack is int8 in both layouts (ROADMAP.md queue 2, item B2).
-        if config.hidden_size % 16 or config.intermediate_size % 16:
-            missing.append("MoE with hidden or intermediate size not a multiple of 16 "
-                           "(ROADMAP.md queue 2, item B2)")
     if missing:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + ", ".join(missing) + " (see ROADMAP.md)")

@@ -51,7 +51,8 @@ def fat_block_n(inter: int) -> int:
     expert, the TPU kernel's loop (moe_ffn.py:289-294) from its default
     width: halve until the tile divides I and is a multiple of 128, else 128
     when that divides I, else I. 2816 at the 1.5B MoE preset; 128 for
-    I = 256, 384, 512, 1024; I for I = 192 or 704."""
+    I = 256, 384, 512, 1024; I for I = 192, 704 or 2790 (the odd-width
+    model's, which is not a multiple of 16 either)."""
     bn = _BLOCK_N
     while inter % bn != 0 or bn % 128 != 0:
         bn //= 2
@@ -152,12 +153,18 @@ def _fat_launch(name: str, xq: torch.Tensor, inter: int, num_experts: int, bits:
     return out
 
 
-def fat_resources(bits: int, kernel: str, plan: decode_plan.GemmPlan) -> Dict[str, int]:
+def fat_resources(bits: int, kernel: str, plan: decode_plan.GemmPlan,
+                  any_width: bool = False) -> Dict[str, int]:
     """What the card gives the int8 (``bits`` 8) or int4 fat kernel's
     ``kernel`` ("up", "down", or "quant", the wide form's requantization)
     at its plan: registers a thread, shared memory a block in bytes,
-    resident blocks an SM, threads a block and spilled bytes a thread."""
-    code = 4 if kernel == "quant" else {"up": 0, "down": 1}[kernel] + (2 if bits == 4 else 0)
+    resident blocks an SM, threads a block and spilled bytes a thread.
+    ``any_width``: the int8 instances that widths whose rows are not whole
+    16-byte units launch (``csrc/quant_ffn.cuh``'s ``kAny``)."""
+    if any_width:
+        code = {"up": 5, "down": 6, "quant": 7}[kernel]
+    else:
+        code = 4 if kernel == "quant" else {"up": 0, "down": 1}[kernel] + (2 if bits == 4 else 0)
     out = (ctypes.c_int * len(RESOURCE_KEYS))()
     err = _build.load_library().apertis_expert_ffn_fat_resources(
         code, plan.rows, 0 if kernel == "quant" else plan.smem, ctypes.addressof(out))
@@ -179,9 +186,11 @@ def expert_ffn_fat(
 ) -> torch.Tensor:
     """The fat MoE FFN: kernel on CUDA tensors, plain version on CPU ones.
 
-    The kernel takes contiguous tensors of the dtypes above, H and I
-    multiples of 16 and 16-byte aligned int8 operands, and returns f32
-    (S, H).
+    The kernel takes contiguous tensors of the dtypes above at any H and I
+    (the TPU kernel's tile of the whole I where I is not a multiple of 128;
+    an operand whose rows are not whole 16-byte units goes by the
+    producer's own loads) and 16-byte aligned int8 operands, and returns
+    f32 (S, H).
     """
     if xq.device.type == "cpu":
         return expert_ffn_fat_reference(xq, xs, combine, w1t_q, w1t_s, b1t, w2t_q, w2t_s,
@@ -199,7 +208,7 @@ def expert_ffn_fat(
     _build.check_tensor(w2t_q, (ei, d), i8, "w2t_q", dev)
     _build.check_tensor(w2t_s, (1, d), f32, "w2t_s", dev)
     inter = ei // max(num_experts, 1)
-    if s == 0 or d % 16 or num_experts <= 0 or ei % num_experts or inter % 16:
+    if s == 0 or d == 0 or num_experts <= 0 or ei % num_experts or inter == 0:
         raise ValueError(f"expert_ffn_fat: unsupported shape S={s} H={d} E*I={ei} "
                          f"E={num_experts}")
     _build.check_aligned("expert_ffn_fat", xq, w1t_q, w2t_q)
@@ -301,7 +310,7 @@ def expert_ffn_dense(
 ) -> torch.Tensor:
     """Every expert's FFN over every row, (E, S, H): kernel on CUDA tensors,
     plain version on CPU ones. The kernel takes contiguous tensors of the
-    dtypes above, H and I multiples of 16, 16-byte aligned int8 operands and
+    dtypes above at any H and I, 16-byte aligned int8 operands and
     ``out_dtype`` bf16 or f32."""
     if xq.device.type == "cpu":
         return expert_ffn_dense_reference(xq, xs, w1q, w1s, b1, w2q, w2s, b2, out_dtype,
@@ -320,7 +329,7 @@ def expert_ffn_dense(
     _build.check_tensor(b2, (e, d), f32, "b2", dev)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"expert_ffn_dense: out_dtype {out_dtype} is not bf16 or f32")
-    if s == 0 or e == 0 or d % 16 or inter % 16:
+    if s == 0 or e == 0 or d == 0 or inter == 0:
         raise ValueError(f"expert_ffn_dense: unsupported shape S={s} H={d} I={inter} E={e}")
     _build.check_aligned("expert_ffn_dense", xq, w1q, w2q)
     plan = dense_plan(xq, d, inter, e)

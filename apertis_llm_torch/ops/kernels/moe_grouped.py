@@ -72,8 +72,7 @@ def expert_ffn_grouped(
     """The grouped MoE FFN: kernel on CUDA tensors, plain version on CPU ones.
 
     The kernel takes contiguous tensors of the dtypes above, P a multiple of
-    128, H and I multiples of 16 and 16-byte aligned operands, and returns
-    bf16 (P, H).
+    128, any H and I and 16-byte aligned operands, and returns bf16 (P, H).
     """
     if xq.device.type == "cpu":
         return expert_ffn_grouped_reference(xq, xs, emap, w1t_q, w1t_s, b1t, w2t_q, w2t_s,
@@ -91,8 +90,7 @@ def expert_ffn_grouped(
     _build.check_tensor(w2t_q, (ei, d), i8, "w2t_q", dev)
     _build.check_tensor(w2t_s, (1, d), f32, "w2t_s", dev)
     inter = ei // max(num_experts, 1)
-    if (p == 0 or p % TILE or d % 16 or num_experts <= 0 or ei % num_experts
-            or inter % 16):
+    if p == 0 or p % TILE or d == 0 or num_experts <= 0 or ei % num_experts or inter == 0:
         raise ValueError(f"expert_ffn_grouped: unsupported shape P={p} H={d} E*I={ei} "
                          f"E={num_experts}")
     _build.check_aligned("expert_ffn_grouped", xq, w1t_q, w2t_q)

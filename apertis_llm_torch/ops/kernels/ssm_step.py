@@ -47,12 +47,6 @@ from apertis_llm_torch.ops.moe import _combine_weights, route
 from apertis_llm_torch.ops.norms import layer_norm, rms_norm
 from apertis_llm_torch.ops.quant import int_mm
 
-# The most experts the moe epilogue's router takes (a row's logits are one
-# warp's lanes, csrc/ssm_step.cu); a model with more runs the step without
-# its epilogue and then its MoE FFN (models/apertis.py).
-MOE_EPILOGUE_MAX_EXPERTS = 32
-
-
 class MixerWeights(NamedTuple):
     """One layer's selective-SSM weights, JAX (in, out) layout. In the int8
     layout the four projections are int8 and carry (1, out) f32 scales."""
@@ -247,9 +241,8 @@ def _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out, proj_dtype, rout
         for name, t, shape in (("router ln_w", router.ln_w, (d,)), ("router ln_b", router.ln_b, (d,)),
                                ("router w", router.w, (d, e)), ("router b", router.b, (e,))):
             _build.check_tensor(t, shape, bf16, name, dev)
-        if not 2 <= e <= MOE_EPILOGUE_MAX_EXPERTS:
-            raise ValueError(f"ssm_decode_step: the moe epilogue takes 2-"
-                             f"{MOE_EPILOGUE_MAX_EXPERTS} experts, got {e}")
+        if e < 2:
+            raise ValueError(f"ssm_decode_step: the moe epilogue takes 2 or more experts, got {e}")
     if bsz == 0 or heads * n != c:
         raise ValueError(f"ssm_decode_step: unsupported shape B={bsz} C={c} H={heads}")
     return bsz, d, c, k, r, heads, n
@@ -273,8 +266,9 @@ def ssm_decode_step(
 
     The kernel takes bf16 ``h``, ``conv_state`` and weights, an f32
     ``ssm_state`` (and ``ssm_out``, which may be the same tensor), all
-    contiguous, D and C multiples of 4, and one norm kind for both norms;
-    ``router`` (bf16, 2-32 experts) selects the moe epilogue. Int8
+    contiguous, at any D and C (as the TPU kernel, which pads only rows),
+    and one norm kind for both norms; ``router`` (bf16, any number of
+    experts from 2) selects the moe epilogue. Int8
     projection weights go to :func:`ssm_decode_step_int8`; a step whose
     tensors are not all bf16 (:func:`hopper_layout`), to the f32 forms
     :func:`ssm_decode_step_f32` and :func:`ssm_decode_step_int8_f32`.
@@ -366,9 +360,6 @@ def _launch_step(entry, h, conv_state, ssm_state, w, eps, ffn_norm, ssm_out, rou
     """Check the step's tensors, allocate its outputs and scratch and launch
     ``entry`` on its plan; returns (the error, the outputs)."""
     int8 = w.quantized
-    if h.shape[-1] % 4 or w.inx_w.shape[-1] % 4:
-        # check_supported (models/params.py) refuses these widths.
-        raise ValueError("ssm_decode_step: the kernel needs D, C multiples of 4")
     dims = _check_step(h, conv_state, ssm_state, w, ffn_norm, ssm_out,
                        torch.int8 if int8 else torch.bfloat16, router)
     bsz, d, c, _, r = dims[:5]
@@ -404,7 +395,7 @@ def ssm_decode_step_int8(
 ) -> Tuple[torch.Tensor, ...]:
     """The step with the int8 weight layout (``csrc/ssm_step.cu``,
     ``apertis_ssm_decode_step_int8``): int8 projections with (1, out) f32
-    scales, D and C multiples of 4, the rest as :func:`ssm_decode_step`.
+    scales, the rest as :func:`ssm_decode_step`.
     With ``ffn_norm`` it returns the FFN input as ``(x_q, x_s)``, and with
     ``router`` the combine weights after it."""
     if h.device.type == "cpu":

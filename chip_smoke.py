@@ -388,6 +388,10 @@ FLASH_BWD_TOL = 2 * BF16_ULP
 # two ulps. The loss within one ulp.
 SMALL_GRAD_TOL = 2 * BF16_ULP
 TRAIN_LR = 5e-4           # the 1.5B training phase's peak learning rate
+# Phases 6 and 7 train each preset at 1 / TRAIN_DEPTH_DIVISOR of its depth:
+# a depth cut for the smoke's time (widths, batches, steps and checks as
+# they were; the full depth is `profile_serving --train`'s).
+TRAIN_DEPTH_DIVISOR = 4
 MM_PREFIX = 197           # ViT-B/16's tokens at 224 pixels: 14 x 14 patches and CLS
 # quant_matmul_dyn against its plain version: exact int32 sums, then the same
 # f32 products acc * x_s * w_s in the same order, one rounding to the output
@@ -1833,6 +1837,342 @@ def f32_hidden_flips(x, w1, b1, w2, b2, act, out_dtype):
     return float((alt - ref).abs().max() / ref.abs().max())
 
 
+# ---- the odd widths: #3, #10, #11 and #12 where no width is a multiple of 16 ----
+
+# The odd-width MoE model (phase 4d): the 1.5B MoE preset's depth, heads,
+# vocabulary and experts at widths none of which is a multiple of 16:
+# hidden 693 (11 heads of 63; 693 % 4 = 1), d_state 15 (mixer width C = 165,
+# dt rank 44, x_param 374 wide) and intermediate 2790 (not a multiple of 128,
+# so the fat kernel's hidden tile is the whole I, moe_ffn.py:288-294). What a
+# create-config file or an imported checkpoint may hold; the factory rounds
+# its widths to 64.
+ODD_WIDTHS = dict(hidden_size=693, num_attention_heads=11, ssm_d_state=15,
+                  intermediate_size=2790)
+# Its 40-expert variant's depth: request A alone, through #3's epilogue over
+# 40 experts and #10 over a 40-expert fat stack.
+ODD_E40_LAYERS = 4
+# The odd-width models' card-vs-CPU comparison: request A's prefill and this
+# many greedy decode steps, through the served model's first ODD_CPU_LAYERS
+# layers (the depth cut of phase 5's comparisons: through 44 int8 layers a
+# flipped level compounds, the first logits 2.0 apart of 2.3 in run F1).
+ODD_CPU_STEPS = 3
+ODD_CPU_LAYERS = 2
+
+
+def odd_width_config(num_hidden_layers=44, num_experts=8, dtype="bfloat16"):
+    """The odd-width MoE model (``ODD_WIDTHS``; top-2, GELU, tied head,
+    vocabulary 32,000, dropout 0): about 1.40B parameters at 44 layers."""
+    from apertis_llm_torch.config import ApertisConfig
+    return ApertisConfig(
+        vocab_size=32000, attention_type="selective_ssm", num_hidden_layers=num_hidden_layers,
+        use_expert_system=True, num_experts=num_experts, experts_per_token=2,
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+        max_position_embeddings=4096, dtype=dtype, param_dtype=dtype, **ODD_WIDTHS)
+
+
+def moe_comb_guard(label, comb, comb_ref):
+    """The moe epilogue's combine weights against the plain version's (phase
+    3b's rule): a row with the same top-2 choice within F32_TOL of the
+    largest weight; a row whose choice differs (its FFN input rounded to
+    another bf16 value where two gates tie to within that difference) with
+    its sorted weights within F32_TOL, so that a swap of experts that are
+    not tied fails; every row with exactly two experts. Returns (the largest
+    error, the rows whose choice differs, the largest error of the other
+    rows, the largest sorted error of those rows)."""
+    comb, comb_ref = comb.float(), comb_ref.float()
+    changed = ((comb > 0) != (comb_ref > 0)).any(dim=1)
+    err = (comb - comb_ref).abs()
+    sorted_err = (comb.sort(dim=1).values - comb_ref.sort(dim=1).values).abs()
+    same = float(err[~changed].max()) if bool((~changed).any()) else 0.0
+    swapped = float(sorted_err[changed].max()) if bool(changed.any()) else 0.0
+    tol = F32_TOL * float(comb_ref.abs().max())
+    ok = same <= tol and swapped <= tol and bool(((comb > 0).sum(dim=1) == 2).all())
+    log(f"  {label} comb: max_abs_err {float(err.max()):.3e}, rows with another top-2 "
+        f"{int(changed.sum())} (sorted weights {swapped:.3e}), other rows {same:.3e} "
+        f"(tolerance {tol:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{label}: the combine weights disagree")
+    return float(err.max()), int(changed.sum()), same, swapped
+
+
+def odd_width_checks(checks, dev, config, layer, qlayer, qlayer40, resources):
+    """Phase 4d's kernel checks at the odd widths (D = H = 693, C = 165,
+    x_param 374 wide, I = 2790), each against its plain version at the
+    existing tolerances: #3 in every form (the bf16 and int8 layouts, the f32
+    form and the f32 form over int8 projections) with epilogues none, dense
+    (a kernel check only: at H = 693 the model takes the unfused FFN by JAX's
+    width gate) and moe over 8 and 40 experts, at 4, 5, 64 and 256 rows; #10
+    int8 at 4, 5, 64 and 256 rows over the 8-expert and the 40-expert fat
+    stacks; #11 at 5, 64 and 256 rows; #12 at 2048 and 37 tokens. Twice for
+    the same bits at 64 rows (every int8 layout case, and #12's); timed
+    (device time, bound) at 64 and 4 rows and 2048 tokens as the report's
+    ``other_shapes``; a sensitivity check for each form; the resources of
+    each product at its plans into ``resources``. ``layer`` / ``qlayer``:
+    the odd-width model's first layer in bf16 and int8 (fat stacks
+    attached), ``qlayer40`` the 40-expert variant's (int8)."""
+    from apertis_llm_torch.models.convert import from_jax_params
+    from apertis_llm_torch.models.params import init_params
+    from apertis_llm_torch.models.quantize import quantize_params
+    from apertis_llm_torch.ops import moe as moe_ops
+    from apertis_llm_torch.ops.kernels.moe_ffn import (
+        expert_ffn_dense, expert_ffn_dense_reference, expert_ffn_fat, expert_ffn_fat_reference,
+        fat_block_n, fat_plan, fat_resources)
+    from apertis_llm_torch.ops.kernels.moe_grouped import (
+        TILE, expert_ffn_grouped, expert_ffn_grouped_reference)
+    from apertis_llm_torch.ops.kernels.ssm_step import (
+        RouterWeights, ssm_decode_step, ssm_decode_step_f32, ssm_decode_step_int8,
+        ssm_decode_step_int8_f32, ssm_decode_step_reference, ssm_step_resources, step_plan)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device=dev).manual_seed(SEED + 90)
+    eps, act = config.layer_norm_eps, config.hidden_act
+    d, c, inter = config.hidden_size, config.ssm_d_inner, config.intermediate_size
+    k_conv = config.ssm_conv_kernel
+    widths = f"D={d}, C={c}, R={config.ssm_dt_rank}"
+
+    def randn(*shape, dtype=bf16, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    # The forms' weights: the model's first layer in bf16 and int8, and one
+    # f32 layer at the same widths with its int8 quantization (f32 norms,
+    # biases and rows; min_size 0: one layer's x_param has 61,710 weights).
+    f32_config = dataclasses.replace(config, num_hidden_layers=1, dtype="float32",
+                                     param_dtype="float32")
+    tree = init_params(f32_config, torch.Generator(device=dev).manual_seed(SEED + 91), device=dev)
+    perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 92))
+    f32_layer = from_jax_params(tree, f32_config, device=dev).layers[0]
+    f32_qlayer = from_jax_params(quantize_params(tree, min_size=0), f32_config,
+                                 device=dev).layers[0]
+    del tree
+    fnorm = layer.ffn.pre_norm.weights()
+    fnorm3 = (fnorm[0] * 3, fnorm[1])    # x_s near 1/3: its check sees a dropped inv2
+    f32_fnorm = f32_layer.ffn.pre_norm.weights()
+    routers = {8: layer.ffn.router_weights(), 40: qlayer40.ffn.router_weights()}
+    f32_routers = {e: RouterWeights(1 + randn(d, dtype=f32, std=0.1), randn(d, dtype=f32, std=0.1),
+                                    randn(d, e, dtype=f32, std=0.05), randn(e, dtype=f32, std=0.1))
+                   for e in (8, 40)}
+    step_tols = [("h_out", BF16_ULP), ("x_proj", BF16_ULP), ("ssm", F32_TOL), ("ffn_in", BF16_ULP)]
+    step_tols_q = step_tols[:3] + [("x_q", "int8"), ("x_s", BF16_ULP)]
+    # (form, kernel, mixer, FFN pre-norm, routers, tolerances of none/dense, of moe)
+    forms = [
+        ("bf16", ssm_decode_step, layer.attn.mixer_weights(), fnorm3, routers, step_tols,
+         step_tols[:3] + [("x_q", "int8"), ("x_s", BF16_ULP)]),
+        ("int8", ssm_decode_step_int8, qlayer.attn.mixer_weights(), fnorm3, routers, step_tols_q,
+         step_tols_q),
+        ("f32", ssm_decode_step_f32, f32_layer.attn.mixer_weights(), f32_fnorm, f32_routers,
+         F32_STEP_TOLS, F32_MOE_TOLS[:5]),
+        ("int8 f32", ssm_decode_step_int8_f32, f32_qlayer.attn.mixer_weights(), f32_fnorm,
+         f32_routers, F32_STEP_TOLS_Q, F32_MOE_TOLS_Q[:5]),
+    ]
+    keys = {"bf16": "ssm_decode_step", "int8": "ssm_decode_step_int8",
+            "f32": "ssm_decode_step_f32", "int8 f32": "ssm_decode_step_int8_f32"}
+    log(f"odd widths: #3 at {widths} in every form, epilogues none, dense and moe over 8 and "
+        f"40 experts; #10, #11 and #12 at H={d}, I={inter}")
+
+    def step_inputs(b, form_mixer, fn, rt, rows_dtype):
+        return (randn(b, d, dtype=rows_dtype), randn(b, k_conv - 1, c, dtype=rows_dtype),
+                randn(b, c, dtype=f32), form_mixer, eps, fn, None, rt)
+
+    for form, fn_, w, fn, rts, tols, moe_tols in forms:
+        rows_dtype = f32 if "f32" in form else bf16
+        base = step_inputs(5, w, fn, rts[40], rows_dtype)
+        moved = {"D * x skip": base[:3] + (w._replace(d_skip=torch.zeros_like(w.d_skip)),)
+                 + base[4:],
+                 "router bias": base[:7] + (rts[40]._replace(b=torch.zeros_like(rts[40].b)),)}
+        if w.quantized:
+            moved["x_param w_s"] = base[:3] + (w._replace(xparam_s=torch.ones_like(w.xparam_s)),) \
+                + base[4:]
+        checks.sensitive(f"{form} decode step at the odd widths, 40-expert moe epilogue",
+                         ssm_decode_step_reference, base, moved, moe_tols + [("comb", F32_TOL)])
+        for b in (4, 5, 64, 256):
+            for epi, e in (("none", 0), ("dense", 0), ("moe", 8), ("moe", 40)):
+                args = step_inputs(b, w, None if epi == "none" else fn, rts[e] if e else None,
+                                   rows_dtype)
+                key = keys[form] + ("_moe" if e and form in ("bf16", "int8") else "")
+                label = (f"{form} decode step B={b} at the odd widths ({widths}), "
+                         + (f"moe epilogue over {e} experts" if e else f"epilogue {epi}"))
+                timed = b in (4, 64) and (e or epi == "dense")
+                out_tols = moe_tols if e else tols if epi == "dense" else tols[:3]
+                checks.kernel(key, label, args, fn_, ssm_decode_step_reference, out_tols,
+                              cost=f32_step_cost(args) if timed else None,
+                              repeat=b == 64 or (form == "int8" and b == 4),
+                              shape=f"odd widths, {b} rows, "
+                                    + (f"moe {e} experts" if e else epi) if timed else None)
+                if e:
+                    checks.errs[key] = max(checks.errs[key], moe_comb_guard(
+                        label, fn_(*args)[5], ssm_decode_step_reference(*args)[5])[0])
+    for rows in (4, 64):
+        h_ = randn(rows, d)
+        for form, _, w, *_ in forms:
+            tf32 = w.inx_w.dtype == f32
+            for kind, plan in zip(("in", "mix", "out"), step_plan(h_, w, f32_form="f32" in form)):
+                resources[f"{keys[form]} {kind} at {rows} rows (odd widths)"] = dict(
+                    plan._asdict(), **ssm_step_resources(kind, plan, w.quantized, tf32=tf32))
+
+    # #10 over the 8-expert and the 40-expert fat stacks, each routed by its
+    # layer's router; #11 over the 8-expert model's per-expert stack; #12 at
+    # request B's 2048 tokens and 37.
+    def fat_args(s_, ffn, n_exp):
+        x = ffn.pre_norm(randn(s_, d))
+        routing = moe_ops.route(x, *ffn.router_weights(), 2, layer_norm_eps=eps)
+        xq, xs = moe_ops.center_quantize(x, eps)
+        fat = ffn.experts.fat()
+        return (xq, xs, moe_ops._combine_weights(routing, n_exp, f32), fat["w1t_q"],
+                fat["w1t_s"], fat["b1t"], fat["w2t_q"], fat["w2t_s"], n_exp, act)
+
+    def used_bytes(used, n_exp, *tensors):
+        return sum(nbytes(t) * int(used.sum()) // n_exp for t in tensors)
+
+    def fat_cost(args):
+        xq, xs, comb, w1q, w1s, b1t, w2q, w2s, n_exp = args[:9]
+        used = (comb != 0).any(dim=0)
+        return (nbytes(xq, xs, comb, w2s) + used_bytes(used, n_exp, w1q, w1s, b1t, w2q)
+                + xq.numel() * 4, 4 * int((comb != 0).sum()) * d * inter, "int8")
+
+    fat_tols = [("out", BF16_ULP)]
+    for n_exp, qlay in ((8, qlayer), (40, qlayer40)):
+        args = fat_args(5, qlay.ffn, n_exp)
+        checks.sensitive(f"expert_ffn_fat at the odd widths, {n_exp} experts",
+                         expert_ffn_fat_reference, args, {
+                             "combine weights": args[:2] + ((args[2] != 0).float(),) + args[3:],
+                             "b1t": args[:5] + (torch.zeros_like(args[5]),) + args[6:],
+                             "w2t_s": args[:7] + (torch.ones_like(args[7]),) + args[8:]}, fat_tols)
+        for s_ in (4, 5, 64, 256):
+            args = fat_args(s_, qlay.ffn, n_exp)
+            timed = s_ in (4, 64)
+            checks.kernel("expert_ffn_fat", f"expert_ffn_fat S={s_} at the odd widths (H={d}, "
+                          f"E={n_exp}, I={inter}, bn={fat_block_n(inter)})", args, expert_ffn_fat,
+                          expert_ffn_fat_reference, fat_tols,
+                          cost=fat_cost(args) if timed else None, repeat=s_ == 64,
+                          shape=f"odd widths, {s_} rows, {n_exp} experts" if timed else None)
+        for rows in (4, 64):
+            plan = fat_plan(torch.zeros((rows, d), dtype=torch.int8, device=dev), d, inter,
+                            n_exp, 8)
+            kinds = [("up", plan.up), ("down", plan.down)] + (
+                [("quant", plan.up)] if plan.up.split == 0 else [])
+            for kind, p_ in kinds:
+                resources[f"expert_ffn_fat {kind} at {rows} rows (odd widths, {n_exp} experts)"] = \
+                    dict(p_._asdict(), group=plan.group,
+                         **fat_resources(8, kind, p_, any_width=True))
+
+    stack = qlayer.ffn.experts.fused()
+
+    def dense_args(s_):
+        x = qlayer.ffn.pre_norm(randn(s_, d))
+        xq, xs = moe_ops.center_quantize(x, eps)
+        return (xq, xs, stack["w1f_q"], stack["w1f_s"], stack["b1f"], stack["w2f_q"],
+                stack["w2f_s"], qlayer.ffn.experts.b2.float() + randn(8, d, dtype=f32, std=0.5),
+                bf16, act)
+
+    args = dense_args(5)
+    checks.sensitive("expert_ffn_dense at the odd widths", expert_ffn_dense_reference, args, {
+        "w2s": args[:6] + (torch.ones_like(args[6]),) + args[7:],
+        "b2": args[:7] + (torch.zeros_like(args[7]),) + args[8:]},
+        fat_tols, factor=SENSITIVITY_FACTOR)
+    for s_ in (5, 64, 256):
+        args = dense_args(s_)
+        checks.kernel("expert_ffn_dense", f"expert_ffn_dense S={s_} at the odd widths (H={d}, "
+                      f"E=8, I={inter})", args, expert_ffn_dense, expert_ffn_dense_reference,
+                      fat_tols, cost=(nbytes(*args[:8]) + 8 * s_ * d * 2, 4 * 8 * s_ * d * inter,
+                                      "int8") if s_ == 64 else None,
+                      repeat=s_ == 64, shape="odd widths, 64 rows" if s_ == 64 else None)
+
+    fat = qlayer.ffn.experts.fat()
+    probs = torch.tensor([8.0, 4, 2, 1, 1, 1, 1, 0], device=dev)    # expert 7 empty
+
+    def grouped_args(s_):
+        idx = torch.multinomial(probs.expand(s_, 8), 2, replacement=False, generator=g)
+        xq, xs = moe_ops.center_quantize(qlayer.ffn.pre_norm(randn(s_, d)), eps)
+        dest, emap = moe_ops.grouped_dispatch(idx, 8)
+        p = emap.numel() * TILE
+        xq_pad = torch.zeros((p, d), dtype=torch.int8, device=dev)
+        xs_pad = torch.zeros((p, 1), dtype=f32, device=dev)
+        xq_pad[dest] = xq.repeat_interleave(2, dim=0)
+        xs_pad[dest] = xs.repeat_interleave(2, dim=0)
+        return (xq_pad, xs_pad, emap, fat["w1t_q"], fat["w1t_s"], fat["b1t"], fat["w2t_q"],
+                fat["w2t_s"], 8, act)
+
+    args = grouped_args(37)
+    checks.sensitive("expert_ffn_grouped at the odd widths", expert_ffn_grouped_reference, args, {
+        "b1t": args[:5] + (torch.zeros_like(args[5]),) + args[6:],
+        "w2t_s": args[:7] + (torch.ones_like(args[7]),) + args[8:]}, [("out", BF16_ULP)])
+    for s_ in (2048, 37):
+        args = grouped_args(s_)
+        used = torch.zeros(8, dtype=torch.bool, device=dev)
+        used[args[2][args[2] >= 0].long()] = True
+        cost = (nbytes(*args[:3], args[7]) + used_bytes(used, 8, *args[3:7])
+                + args[0].numel() * 2, 4 * 2 * s_ * d * inter, "int8")
+        checks.kernel("expert_ffn_grouped", f"expert_ffn_grouped {s_} tokens at the odd widths "
+                      f"(H={d}, I={inter}): P = {args[0].shape[0]}", args, expert_ffn_grouped,
+                      expert_ffn_grouped_reference, [("out", BF16_ULP)],
+                      cost=cost if s_ == 2048 else None, repeat=True,
+                      shape="odd widths, 2048 tokens" if s_ == 2048 else None)
+    del f32_layer, f32_qlayer
+
+
+def odd_card_vs_cpu(kind, model, config, dev, batch, mask, steps=ODD_CPU_STEPS,
+                    tol=4 * BF16_ULP, layers=ODD_CPU_LAYERS):
+    """The odd-width ``model``'s first ``layers`` layers (its embeddings,
+    final norm and head; the served weights, params_tree) on the card
+    against the same weights on the CPU (in the model's dtype; int8 with the
+    int8 tied head, both under the engine's defaults auto and fatk with the
+    fat stacks attached): request A's prefill and ``steps`` decode steps,
+    both sides fed the CPU's greedy tokens, each step's logits within
+    ``tol`` of the CPU's largest (4 bf16 ulps: the MoE FFN is int8 in every
+    layout), and the card's greedy tokens the CPU's except in a row whose two best CPU
+    logits lie within that tolerance. Returns the largest error."""
+    from apertis_llm_torch.models.convert import from_jax_params, params_tree
+    int8 = model.quantized
+    tree = params_tree(model)
+    tree["layers"] = _first_layers(tree["layers"], layers)
+    config = dataclasses.replace(config, num_hidden_layers=layers)
+    dtype = model.embed.tok.dtype
+    card = from_jax_params(tree, config, device=dev, dtype=dtype)
+    cpu = from_jax_params(_tree_to(tree, "cpu"), config, device="cpu", dtype=dtype)
+    del tree
+    model = card
+    for m in (model, cpu):
+        if int8:
+            m.quantize_tied_head()
+            m.set_modes("auto", "fatk")
+        m.attach_moe_fat()
+    ids = torch.as_tensor(batch, dtype=torch.long)
+    mask = torch.as_tensor(mask)
+    models = {"gpu": model, "cpu": cpu}
+    caches = {k: m.init_cache(ids.shape[0]) for k, m in models.items()}
+    logits = {k: m.prefill(caches[k], ids.to(m.device), mask.to(m.device),
+                           logit_positions=(mask.sum(1) - 1).to(m.device)).logits[:, 0]
+              for k, m in models.items()}
+    worst = 0.0
+    for i in range(steps + 1):
+        worst = max(worst, compare(f"{kind} on the card vs the CPU, logits of step {i}",
+                                   logits["gpu"].cpu(), logits["cpu"], tol))
+        ref = logits["cpu"].float()
+        tok = ref.argmax(-1)
+        top2 = ref.topk(2, dim=-1).values
+        tied = top2[:, 0] - top2[:, 1] <= tol * float(ref.abs().max())
+        if bool(((logits["gpu"].cpu().argmax(-1) != tok) & ~tied).any()):
+            raise RuntimeError(f"{kind}: the card's greedy tokens of step {i} are not the CPU's")
+        if i < steps:
+            logits = {k: m.decode_step(caches[k], tok.to(m.device))[0] for k, m in models.items()}
+    log(f"  {kind}: the card's greedy tokens are the CPU's over the prefill and {steps} steps "
+        f"at {layers} layers ok")
+    del cpu, card
+    return worst
+
+
+def _tree_to(tree, device):
+    """A nested tree's tensors copied to ``device``."""
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _first_layers(tree, n):
+    """A layer-stacked subtree cut to its first ``n`` layers."""
+    return {k: _first_layers(v, n) if isinstance(v, dict) else v[:n].contiguous()
+            for k, v in tree.items()}
+
+
 def f32_forms_phase(checks, dev):
     """Phase 3i: the f32 forms of the decode kernels against their plain
     versions at the 1.5B dense widths (hidden 2432, 38 heads, d_state 16,
@@ -2649,7 +2989,10 @@ SURFACE_TURNS = ["hello there , who are you ?", " ".join(["tell me more"] * 24)]
 SURFACE_MAX_NEW = 48        # the 1.5B chats' --max-length
 
 
-# Phase 8's AZR run (the 1.5B widths) and its repeat (2 layers of them).
+# Phase 8's AZR run (the 1.5B widths at AZR_LAYERS layers: a depth cut,
+# the preset's 20 layers took 63 s of the smoke with two 4.5 GB f32
+# checkpoint writes) and its repeat (2 layers of them).
+AZR_LAYERS = 4
 AZR_SETTINGS = {"num_iterations": 2, "tasks_per_iteration": 2, "checkpoint_interval": 2,
                 "enable_sft_updates": True,
                 "sft": {"steps_per_iteration": 2, "batch_size": 4, "max_length": 256},
@@ -2661,7 +3004,8 @@ AZR_PROMPT = [[1] + [4 + (7 * i) % 300 for i in range(23)]]   # the served-weigh
 def azr_phase(card, dev, work, model_config, calls, reset, read, expect):
     """Phase 8's AZR self-play on the card, through ``apertis-torch train
     --config`` (``training.method: "azr"``), at the widths of
-    ``model_config`` (the 1.5B dense selective-SSM model's) with a vocabulary
+    ``model_config`` (the 1.5B dense selective-SSM model's) at
+    :data:`AZR_LAYERS` layers with a vocabulary
     of its 32,000 entries written by ``create_minimal_vocab_file``, f32
     (``training.dtype`` unset), dropout 0, and :data:`AZR_SETTINGS`: two
     iterations of two tasks, each task and solution sampled through
@@ -2676,8 +3020,8 @@ def azr_phase(card, dev, work, model_config, calls, reset, read, expect):
     bit, and its engine gives the trainer's engine's greedy tokens on
     :data:`AZR_PROMPT` with logits within ``F32_TOL``. Then the same config
     at 2 layers, twice from the same seed, must write the same task and
-    solution texts. The 1.5B model and its AdamW state (about 18 GB) are
-    freed before it returns the timings. ``calls`` is the list to which
+    solution texts. The model and its AdamW state are freed before it
+    returns the timings. ``calls`` is the list to which
     phase 8's wrapper of ``InferenceEngine.generate`` appends each call's
     prompt and generated lengths and wall."""
     import contextlib
@@ -2774,8 +3118,8 @@ def azr_phase(card, dev, work, model_config, calls, reset, read, expect):
     azr_pipeline.AbsoluteZeroReasonerTrainer.train = recorded_train
     step_mod.train_step = timed_step
     try:
-        run = run_azr("1.5B widths", model_config.num_hidden_layers)
-        trainer, n_layers = run["trainer"], model_config.num_hidden_layers
+        run = run_azr("1.5B widths", AZR_LAYERS)
+        trainer, n_layers = run["trainer"], AZR_LAYERS
         decode_steps = sum(c["new"] - 1 for c in run["calls"])
         n_steps = len(run["steps"])
         if n_steps != 2 * AZR_SETTINGS["sft"]["steps_per_iteration"] or len(run["calls"]) != 8:
@@ -2828,7 +3172,8 @@ def azr_phase(card, dev, work, model_config, calls, reset, read, expect):
             "sft_losses": losses, "checkpoint_write_s": run["save_s"],
             "checkpoint_read_s": read_s, "logits_max_abs_err": logit_err,
             "launches": dict(run["launches"])}
-        log(f"  AZR at the 1.5B widths: {len(run['calls'])} generate calls sampled "
+        log(f"  AZR at {AZR_LAYERS} layers of the 1.5B widths: {len(run['calls'])} generate "
+            f"calls sampled "
             f"{new_tokens} tokens ({decode_steps} decode steps) in {gen_s:.2f} s = "
             f"{new_tokens / gen_s:.1f} tokens/s at batch 1; SFT steps "
             f"{[round(s['s'], 3) for s in run['steps']]} s (the last under the profiler: "
@@ -3413,8 +3758,8 @@ def main() -> int:
         quant_matmul_dyn_pre_q, quant_matmul_dyn_pre_q_reference, quant_matmul_f32,
         quant_matmul_fused_resources, quant_matmul_reference)
     from apertis_llm_torch.ops.kernels.ssm_step import (
-        ssm_decode_step, ssm_decode_step_int8, ssm_decode_step_reference, ssm_step_resources,
-        step_plan)
+        ssm_decode_step, ssm_decode_step_f32, ssm_decode_step_int8, ssm_decode_step_int8_f32,
+        ssm_decode_step_reference, ssm_step_resources, step_plan)
     from apertis_llm_torch.ops.activations import get_activation
     from apertis_llm_torch.ops.norms import layer_norm, rms_norm
     from apertis_llm_torch.ops.quant import fuses_pre_norm, int_mm, quantize_rows, resolve_mode
@@ -3886,25 +4231,14 @@ def main() -> int:
         gs = torch.Generator(device=dev).manual_seed(SEED + 1000 + seed)
         args = (randn(256, md, gen=gs), randn(256, moe_config.ssm_conv_kernel - 1, mc, gen=gs),
                 randn(256, mc, dtype=f32, gen=gs), m_mixer, eps, m_fnorm3, None, m_router)
-        comb, comb_ref = ssm_decode_step(*args)[5], ssm_decode_step_reference(*args)[5]
-        changed = ((comb > 0) != (comb_ref > 0)).any(dim=1)
-        err = (comb - comb_ref).abs()
-        sorted_err = (comb.sort(dim=1).values - comb_ref.sort(dim=1).values).abs()
-        same = float(err[~changed].max()) if bool((~changed).any()) else 0.0
-        swapped = float(sorted_err[changed].max()) if bool(changed.any()) else 0.0
-        tol = F32_TOL * float(comb_ref.abs().max())
-        fault2["max_comb_err"] = max(fault2["max_comb_err"], float(err.max()))
-        fault2["rows_top2_changed"] += int(changed.sum())
+        err, changed, same, swapped = moe_comb_guard(
+            f"bf16 decode step B=256 LayerNorm, moe epilogue, seed {seed}",
+            ssm_decode_step(*args)[5], ssm_decode_step_reference(*args)[5])
+        fault2["max_comb_err"] = max(fault2["max_comb_err"], err)
+        fault2["rows_top2_changed"] += changed
         fault2["max_err_same_choice"] = max(fault2["max_err_same_choice"], same)
         fault2["max_sorted_err_changed_choice"] = max(fault2["max_sorted_err_changed_choice"],
                                                       swapped)
-        ok = same <= tol and swapped <= tol
-        log(f"  bf16 decode step B=256 LayerNorm, moe epilogue, seed {seed}: comb max_abs_err "
-            f"{float(err.max()):.3e}, rows with another top-2 {int(changed.sum())} (sorted "
-            f"weights {swapped:.3e}), other rows {same:.3e} (tolerance {tol:.3e}) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError(f"bf16 moe epilogue, seed {seed}: the combine weights disagree")
     log(f"  bf16 moe epilogue over {FAULT2_SEEDS} seeds at 256 rows: {json.dumps(fault2)}")
     for rows in (4, 64):
         h_ = randn(rows, md)
@@ -4986,13 +5320,7 @@ def main() -> int:
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. serve -----------------------------------------------------------
-    rng = np.random.default_rng(SEED)
-    lens_a = [7, 19, 32, 45]
-    batch_a = np.zeros((4, max(lens_a)), np.int32)
-    mask_a = np.zeros_like(batch_a)
-    for row, length in enumerate(lens_a):
-        batch_a[row, :length] = rng.integers(4, config.vocab_size, length)
-        mask_a[row, :length] = 1
+    batch_a, mask_a, rng = request_a(config.vocab_size)
     batch_b = rng.integers(4, config.vocab_size, (64, 32)).astype(np.int32)
     requests = {
         "A (4 ragged prompts 7/19/32/45, 24 new)": (
@@ -5057,16 +5385,18 @@ def main() -> int:
             # per-expert kernel; request B's 2048 rows through moe_ragged.
             exp["expert_ffn_dense"] = nl * (steps + 1)
         elif moe:
-            # Request A prefills 4 x 64 = 256 rows (the fat kernel), request
-            # B 64 x 32 = 2048 (the grouped kernel, or moe_ragged over an
-            # int4 fat stack); every decode step runs the fat kernel. With
-            # the image prefix request A prefills 4 x (197 + 67) rows, past
-            # the fat kernel's 256: the grouped kernel. Under "fat" the fat
-            # stack's products at A's prefill and every decode step are
-            # plain torch (moe_dense_fat).
+            # Request A prefills 4 x 64 = 256 rows (the fat kernel, up to
+            # moe_dense_threshold_tokens), request B 64 x 32 = 2048 (the
+            # grouped kernel past it, or moe_ragged over an int4 fat stack);
+            # every decode step runs the fat kernel. With the image prefix
+            # request A prefills 4 x (197 + 67) rows, past the fat kernel's
+            # 256: the grouped kernel. Under "fat" the fat stack's products
+            # at A's prefill and every decode step are plain torch
+            # (moe_dense_fat).
             fat = "expert_ffn_fat_int4" if bits == 4 else "expert_ffn_fat"
-            exp[fat] = 0 if moe_mode == "fat" else nl * (steps + (0 if vit else 1))
-            exp["expert_ffn_grouped"] = 0 if bits == 4 else nl * (2 if vit else 1)
+            big = sum(rows > cfg.moe_dense_threshold_tokens for _, rows, _ in reqs)
+            exp[fat] = 0 if moe_mode == "fat" else nl * (steps + len(reqs) - big)
+            exp["expert_ffn_grouped"] = 0 if bits == 4 else nl * big
         elif fused_ffn:
             exp[{4: "ffn_decode_int4", 8: "ffn_decode_int8"}[bits] if int8
                 else "ffn_decode"] = nl * steps
@@ -5499,6 +5829,160 @@ def main() -> int:
     del mm_model, mm_qmodel, runs
     log(f"phase 4c done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 4d. the odd-width MoE model: #3, #10, #11 and #12 at any width -------
+    # The 1.5B MoE preset's depth, heads, vocabulary and experts at hidden 693,
+    # d_state 15 (C = 165) and intermediate 2790 (ODD_WIDTHS, about 1.40B
+    # parameters), bf16 and int8 (quantize_params on the card), and its
+    # 40-expert variant at ODD_E40_LAYERS layers. The kernels at those widths
+    # against their plain versions (odd_width_checks); requests A and B
+    # through InferenceEngine.generate under the defaults (auto, fatk), the
+    # int8 model timed, with exact counts, repeat identity and the moe
+    # epilogue on every decode step; the int8 model under moe_mode="kernel"
+    # (#11); quant_bits=4 attaching nothing at these widths (JAX's int4 fat
+    # stacks need H and I multiples of 128) and serving the int8 tokens; the
+    # 40-expert variant's request A in bf16 and int8, every step with the
+    # epilogue; a 2-layer f32 chat (stream) through #3's f32 forms with the
+    # epilogue; and each model against the same weights on the CPU
+    # (odd_card_vs_cpu).
+    t0 = time.perf_counter()
+    odd_config = odd_width_config()
+    e40_config = odd_width_config(ODD_E40_LAYERS, 40)
+    odd = {}
+    for cfg_, seed_ in ((odd_config, SEED + 80), (e40_config, SEED + 81)):
+        tree = init_params(cfg_, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                           dtype=bf16)
+        n_odd = count_params(tree)
+        perturb_(tree, torch.Generator(device=dev).manual_seed(seed_))
+        odd_bf = from_jax_params(tree, cfg_, device=dev, dtype=bf16)
+        odd_q = from_jax_params(quantize_params(tree), cfg_, device=dev, dtype=bf16)
+        del tree
+        for m in (odd_bf, odd_q):
+            m.attach_moe_fat()
+        odd[cfg_.num_experts] = (cfg_, odd_bf, odd_q, n_odd)
+    odd_model, odd_qmodel = odd[8][1], odd[8][2]
+    torch.cuda.synchronize()
+    log(f"odd-width MoE model: {odd[8][3]:,} parameters, hidden {odd_config.hidden_size} "
+        f"({odd_config.num_attention_heads} heads of {odd_config.head_dim}), "
+        f"{odd_config.num_hidden_layers} layers, d_state {odd_config.ssm_d_state} (C = "
+        f"{odd_config.ssm_d_inner}), dt_rank {odd_config.ssm_dt_rank}, "
+        f"{odd_config.num_experts} experts of {odd_config.intermediate_size} (top-2), bf16 and "
+        f"int8; fat stack {nbytes(*odd_qmodel.layers[0].ffn.experts.fat().values()):,} bytes a "
+        f"layer at the true widths (no padded copy: 0 bytes of padding); 40-expert variant "
+        f"{odd[40][3]:,} parameters at {ODD_E40_LAYERS} layers; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    odd_width_checks(checks, dev, odd_config, odd_model.layers[0], odd_qmodel.layers[0],
+                     odd[40][2].layers[0], decode_resources)
+    log_resources([k for k in decode_resources if "(odd widths" in k])
+    routers, real_step = [], apertis_model.ssm_decode_step
+
+    def step_spy(*a, **kw):
+        routers.append(kw.get("router") is not None)
+        return real_step(*a, **kw)
+
+    def serve_with_epilogue(kind, m, cfg_, timed, only_a=False):
+        """serve_model under the defaults, every decode step asking the step
+        for its moe epilogue; ``only_a``: request A alone."""
+        saved = dict(requests)
+        if only_a:
+            requests.clear()
+            requests.update({k: v for k, v in saved.items() if k.startswith("A")})
+        routers.clear()
+        apertis_model.ssm_decode_step = step_spy
+        try:
+            serve_model(kind, m, cfg_, 8, "auto", "fatk", timed=timed)
+        finally:
+            apertis_model.ssm_decode_step = real_step
+            requests.clear()
+            requests.update(saved)
+        if not routers or not all(routers):
+            raise RuntimeError(f"{kind}: {routers.count(False)} of {len(routers)} decode steps "
+                               "ran without the moe epilogue")
+        log(f"{kind}: all {len(routers)} decode steps with the moe epilogue over "
+            f"{cfg_.num_experts} experts ok")
+
+    for kind, m in (("odd bf16", odd_model), ("odd int8", odd_qmodel)):
+        serve_with_epilogue(kind, m, odd_config, timed=kind == "odd int8")
+    serve_model("odd int8 kernel", odd_qmodel, odd_config, 8, "auto", "kernel", timed=False)
+    # Device time of request B's prefill and of one of its decode steps (64
+    # rows), beside the walls above.
+    ids_b = torch.as_tensor(batch_b, dtype=torch.long, device=dev)
+    odd_device = {}
+    for kind, m in (("odd bf16", odd_model), ("odd int8", odd_qmodel)):
+        m.set_modes("auto", "fatk")
+        cache = m.init_cache(ids_b.shape[0])
+        tok = m.prefill(cache, ids_b).logits[:, -1].argmax(-1)
+        entry = {"prefill_ms": cuda_ms(lambda: m.prefill(m.init_cache(64), ids_b), iters=3,
+                                       warmup=1),
+                 "prefill_device_ms": device_ms(lambda: m.prefill(m.init_cache(64), ids_b),
+                                                iters=2, tries=1),
+                 "step_ms": cuda_ms(lambda: m.decode_step(cache, tok), iters=10, warmup=2),
+                 "step_device_ms": device_ms(lambda: m.decode_step(cache, tok), iters=5,
+                                             tries=1)}
+        odd_device[kind] = entry
+        log(f"{kind} request B: prefill of 64 x 32 tokens {entry['prefill_ms']:.2f} ms wall, "
+            f"{entry['prefill_device_ms']} ms device; a decode step of 64 rows "
+            f"{entry['step_ms']:.3f} ms wall, {entry['step_device_ms']} ms device; card: {card}")
+    # w4a8 at these widths: nothing is packed to int4, and the engine serves
+    # the int8 engine's tokens.
+    kw_a = requests["A (4 ragged prompts 7/19/32/45, 24 new)"][2]
+    ref8 = InferenceEngine(odd_config, odd_qmodel).generate(batch_a, attention_mask=mask_a, **kw_a)
+    expert_ffn_fat_int4.launches = expert_ffn_fat.launches = 0
+    out4 = InferenceEngine(odd_config, odd_qmodel, quant_bits=4).generate(
+        batch_a, attention_mask=mask_a, **kw_a)
+    packed4 = [name for name in odd_qmodel.layers[0].ffn.experts.fat() if name.endswith("q4")]
+    if packed4 or expert_ffn_fat_int4.launches or not expert_ffn_fat.launches or \
+            not np.array_equal(out4, ref8):
+        raise RuntimeError(f"odd int8 with quant_bits=4: int4 leaves {packed4}, int4 fat "
+                           f"launches {expert_ffn_fat_int4.launches}, tokens equal to int8's "
+                           f"{np.array_equal(out4, ref8)}")
+    log(f"odd int8 with quant_bits=4: no int4 stack at H={odd_config.hidden_size}, "
+        f"I={odd_config.intermediate_size} (multiples of 128 only), the int8 fat kernel "
+        f"{expert_ffn_fat.launches} times, request A's tokens the int8 engine's ok")
+    odd_qmodel.attach_moe_fat()
+    for kind, m in (("odd-40 bf16", odd[40][1]), ("odd-40 int8", odd[40][2])):
+        serve_with_epilogue(kind, m, e40_config, timed=False, only_a=True)
+    odd_cpu_err = {}
+    for kind, cfg_, m in (("odd int8", odd_config, odd_qmodel),
+                          ("odd bf16", odd_config, odd_model),
+                          ("odd-40 int8", e40_config, odd[40][2]),
+                          ("odd-40 bf16", e40_config, odd[40][1])):
+        odd_cpu_err[kind] = odd_card_vs_cpu(kind, m, cfg_, dev, batch_a, mask_a)
+    del odd, odd_model, odd_qmodel
+    # A 2-layer f32 chat at these widths: #3's f32 forms (f32 projections, and
+    # int8 ones over f32 rows) with the moe epilogue on every token.
+    f32_odd = odd_width_config(2, 8, "float32")
+    tree = init_params(f32_odd, torch.Generator(device=dev).manual_seed(SEED + 82), device=dev)
+    perturb_(tree, torch.Generator(device=dev).manual_seed(SEED + 83))
+    prompt = batch_a[3:4, :mask_a[3].sum()]
+    for kind, t_, counter in (("odd f32 chat", tree, ssm_decode_step_f32),
+                              ("odd int8 f32 chat", quantize_params(tree, min_size=0),
+                               ssm_decode_step_int8_f32)):
+        m = from_jax_params(t_, f32_odd, device=dev)
+        engine = InferenceEngine(f32_odd, m)
+        counter.launches = 0
+        routers.clear()
+        apertis_model.ssm_decode_step = step_spy
+        try:
+            toks = list(engine.stream(prompt, max_new_tokens=16, eos_token_id=()))
+        finally:
+            apertis_model.ssm_decode_step = real_step
+        want = f32_odd.num_hidden_layers * (len(toks) - 1)
+        if len(toks) != 16 or counter.launches != want or len(routers) != want or \
+                not all(routers):
+            raise RuntimeError(f"{kind}: {len(toks)} tokens, {counter.__name__} launched "
+                               f"{counter.launches} times (expected {want}), epilogue asked on "
+                               f"{sum(routers)} of {len(routers)} steps")
+        log(f"{kind}: 16 tokens streamed, {counter.__name__} {counter.launches} times, every "
+            f"step with the moe epilogue ok")
+        # 4 bf16 ulps, as the models above: a float MoE model's FFN serves
+        # through its int8 fat stack, whose flipped levels move an f32
+        # logit by up to about 0.6 % of the largest (run F2: 1.6e-2 of 2.6).
+        odd_cpu_err[kind] = odd_card_vs_cpu(kind, m, f32_odd, dev, batch_a, mask_a)
+        del m, engine
+    del tree
+    log(f"odd widths against the CPU: {json.dumps(odd_cpu_err)}")
+    log(f"phase 4d done at {time.perf_counter() - t_start:.1f} s")
+
     dense_small = dict(
         vocab_size=1000, attention_type="selective_ssm", ssm_d_state=16, hidden_size=256,
         num_hidden_layers=2, num_attention_heads=4, intermediate_size=1024,
@@ -5515,9 +5999,8 @@ def main() -> int:
     # Heads of 96: the decode-attention kernel (#9) at a head width that is a
     # multiple of 32 but not a power of two, over a bf16 and an int8 cache.
     mha96_small = dict(mha_small, hidden_size=384)
-    # 40 experts, more than the decode step's moe epilogue takes: every
-    # decode step runs without it and then the MoE FFN (ROADMAP.md section 3,
-    # fault 1).
+    # 40 experts, more than a warp's lanes: every decode step runs the step's
+    # moe epilogue over the 40 experts, then the fat kernel.
     moe40_small = dict(moe_small, intermediate_size=256, num_experts=40)
     # The image prefix at tests/test_parity.py's ViT widths (48 wide, 2
     # layers, 4 heads, 32-pixel images of 8-pixel patches: 17 tokens), before
@@ -5712,8 +6195,8 @@ def main() -> int:
 
     # The 40-expert int8 model through InferenceEngine.generate on the card:
     # request A (bucketed prefill through the grouped kernel), every decode
-    # step without the moe epilogue (the model asks the step for no router)
-    # and then the fat kernel, once a layer and step.
+    # step with the moe epilogue over the 40 experts (the model asks the step
+    # for its router) and then the fat kernel, once a layer and step.
     small = ApertisConfig(**moe40_small)
     tree = init_params(small, torch.Generator().manual_seed(SEED), device="cpu",
                        dtype=torch.bfloat16)
@@ -5740,13 +6223,13 @@ def main() -> int:
     ran = {f.__name__: f.launches for f in counters if f.launches}
     if (out40.shape != (4, batch_a.shape[1] + 8) or out40[:, batch_a.shape[1]:].min() < 0
             or out40[:, batch_a.shape[1]:].max() >= small.vocab_size
-            or len(routers) != nl40 * steps40 or any(routers)
+            or len(routers) != nl40 * steps40 or not all(routers)
             or ran.get("expert_ffn_fat") != nl40 * steps40
             or ran.get("ssm_decode_step_int8") != nl40 * steps40):
         raise RuntimeError(f"2-layer 40-expert int8 generate: output {out40.shape}, epilogue "
                            f"asked {sum(routers)} of {len(routers)} steps, launched {ran}")
     log(f"  2-layer 40-expert int8 model through InferenceEngine.generate on the card: "
-        f"{steps40 + 1} new tokens, {len(routers)} decode steps without the moe epilogue, "
+        f"{steps40 + 1} new tokens, {len(routers)} decode steps with the moe epilogue, "
         f"launched {ran}")
     del m40, engine
 
@@ -5856,6 +6339,8 @@ def main() -> int:
             ("dense SSM + ViT", dataclasses.replace(config, multimodal=True), True, mm_dataset),
             ("MHA flash + ViT", dataclasses.replace(flash_mha, multimodal=True), True,
              mm_dataset)):
+        cfg = dataclasses.replace(cfg, num_hidden_layers=cfg.num_hidden_layers
+                                  // TRAIN_DEPTH_DIVISOR)
         nl, seq_len = cfg.num_hidden_layers, data.max_length
         t0 = time.perf_counter()
         tree = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
@@ -6188,8 +6673,10 @@ def main() -> int:
                       use_gradient_checkpointing=True, seed=SEED, save_checkpoints=False)
     par_dataset = TokenRows([{"input_ids": seqs[i % rows_], "labels": seqs[i % rows_]}
                              for i in range(par_micro * rows_)], length)
-    tree = init_params(config, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    trainer = ApertisTrainer(config, tree, par_dataset, device=dev, **trainer_kw)
+    mesh_config = dataclasses.replace(
+        config, num_hidden_layers=config.num_hidden_layers // TRAIN_DEPTH_DIVISOR)
+    tree = init_params(mesh_config, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    trainer = ApertisTrainer(mesh_config, tree, par_dataset, device=dev, **trainer_kw)
     del tree
     one_rank = trainer.train()
     del trainer
@@ -6201,7 +6688,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         ranks = spawn(parallel_rank, 2, work, (
             scan_args, (dense_small, small_tree, ids_mesh),
-            (config, seqs, par_micro, trainer_kw)), timeout=600)
+            (mesh_config, seqs, par_micro, trainer_kw)), timeout=600)
     log(f"  two ranks spawned, ran and joined in {time.perf_counter() - t0:.1f} s")
 
     # The sequence-parallel scan against the one-rank scan.
@@ -6229,8 +6716,8 @@ def main() -> int:
         log(f"  2-layer f32 mesh {shape}: {len(g0)} gradient leaves within {worst:.3e} of their "
             f"largest element of one process (limit {F32_GRAD_TOL:.0e}); after two updates "
             f"both ranks' parameters hash to {d0[:16]} ok")
-    # The 1.5B preset on mesh (1, 1, 1, 2).
-    nl = config.num_hidden_layers
+    # The 1.5B preset (at 1 / TRAIN_DEPTH_DIVISOR of its depth) on mesh (1, 1, 1, 2).
+    nl = mesh_config.num_hidden_layers
     expected = {"selective_scan_carry_fwd": nl * 2 * par_micro * 2,
                 "selective_scan_carry_bwd": nl * 2 * par_micro,
                 "selective_scan_fwd": 0, "selective_scan_bwd": 0}
@@ -6483,6 +6970,76 @@ def flash_f32_times_main() -> int:
     return 0
 
 
+def request_a(vocab_size):
+    """Request A's prompts: 4 ragged rows of 7, 19, 32 and 45 tokens from
+    the SEED generator, their mask, and the generator (request B draws
+    next)."""
+    rng = np.random.default_rng(SEED)
+    lens_a = [7, 19, 32, 45]
+    batch_a = np.zeros((4, max(lens_a)), np.int32)
+    mask_a = np.zeros_like(batch_a)
+    for row, length in enumerate(lens_a):
+        batch_a[row, :length] = rng.integers(4, vocab_size, length)
+        mask_a[row, :length] = 1
+    return batch_a, mask_a, rng
+
+
+def odd_widths_main() -> int:
+    """``--odd-widths``: the build, phase 4d's kernel checks at the odd widths
+    (odd_width_checks, with their times and resources) on a 2-layer odd-width
+    model and a 2-layer 40-expert variant, and both against the CPU
+    (odd_card_vs_cpu, bf16 and int8), alone: about 3 minutes with the
+    build."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO_ROOT))
+    from apertis_llm_torch.models.convert import from_jax_params
+    from apertis_llm_torch.models.params import init_params
+    from apertis_llm_torch.models.quantize import quantize_params
+    from apertis_llm_torch.ops.kernels import _build
+
+    card = card_line()
+    t_start = time.perf_counter()
+    lib_path = _build.build()
+    _build.load_library()
+    log(f"card: {card}; build in {time.perf_counter() - t_start:.1f} s")
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"  ptxas: {line.strip()}")
+    dev = torch.device("cuda", 0)
+    models = {}
+    for experts, seed in ((8, SEED + 80), (40, SEED + 81)):
+        cfg = odd_width_config(2, experts)
+        tree = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                           dtype=torch.bfloat16)
+        perturb_(tree, torch.Generator(device=dev).manual_seed(seed))
+        models[experts] = (cfg, from_jax_params(tree, cfg, device=dev, dtype=torch.bfloat16),
+                           from_jax_params(quantize_params(tree), cfg, device=dev,
+                                           dtype=torch.bfloat16))
+        del tree
+        for m in models[experts][1:]:
+            m.attach_moe_fat()
+    checks, resources = KernelChecks(card), {}
+    cfg, model, qmodel = models[8]
+    odd_width_checks(checks, dev, cfg, model.layers[0], qmodel.layers[0], models[40][2].layers[0],
+                     resources)
+    for key, res in resources.items():
+        log(f"  resources of {key}: {json.dumps(res)}")
+    batch_a, mask_a, _ = request_a(cfg.vocab_size)
+    cpu_err = {}
+    for experts, (cfg, model, qmodel) in models.items():
+        for kind, m in (("bf16", model), ("int8", qmodel)):
+            label = f"2-layer odd-width {kind}, {experts} experts"
+            cpu_err[label] = odd_card_vs_cpu(label, m, cfg, dev, batch_a, mask_a)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"odd_widths": {k: v for k, v in checks.shape_times.items()},
+                      "errs": checks.errs, "card_vs_cpu": cpu_err, "resources": resources}))
+    print(card)
+    return 0
+
+
 def decode_times_main() -> int:
     """``--decode-times``: decode_times on the 1.5B int8 and bf16 models,
     moe_step_times on the 1.5B int8 and bf16 MoE models, fat_times and
@@ -6594,6 +7151,8 @@ if __name__ == "__main__":
         sys.exit(flash_f32_times_main())
     if sys.argv[1:] == ["--surfaces"]:
         sys.exit(surfaces_main())
+    if sys.argv[1:] == ["--odd-widths"]:
+        sys.exit(odd_widths_main())
     if sys.argv[1:] == ["--decode-times"]:
         sys.exit(decode_times_main())
     if sys.argv[1:] == ["--f32-times"]:

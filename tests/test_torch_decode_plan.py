@@ -956,9 +956,13 @@ def test_requantization_covers_every_row_past_the_grid_limit(rows):
     assert "return dim3(tiles, (rows + z - 1) / z, z);" in ffn
     assert "const size_t r = (size_t)blockIdx.z * gridDim.y + blockIdx.y;" in ffn
     assert "if (r >= (size_t)rows || (emap != nullptr && emap[r / kGroupTile] < 0)) return;" in ffn
-    assert "fat_quant_kernel<<<fat_quant_grid(f.slices, f.rows), kBlock, 0, s>>>(" in ffn
-    assert "fat_quant_kernel<<<fat_quant_grid(tiles, rows), kBlock, 0, s>>>(" in fat
-    assert ffn.count("fat_quant_kernel<<<") + fat.count("fat_quant_kernel<<<") == 2
+    # Each launch site starts the aligned or the any-width instance on that grid.
+    assert "const dim3 qgrid = fat_quant_grid(f.slices, f.rows);" in ffn
+    assert "const dim3 grid = fat_quant_grid(tiles, rows);" in fat
+    for any_width in ("true", "false"):
+        assert f"fat_quant_kernel<{any_width}><<<qgrid, kBlock, 0, s>>>(" in ffn
+        assert f"fat_quant_kernel<{any_width}><<<grid, kBlock, 0, s>>>(" in fat
+    assert ffn.count("<<<") + fat.count("<<<") == 4
     assert "rows / row_tile > 65535" in grouped
     # the plan's row tiles at that P fit the y limit, with room to spare
     if rows % TILE == 0:
@@ -1114,6 +1118,7 @@ def test_grouped_emulation_is_the_reference_bit_for_bit(s, h, experts, inter, sm
     assert "ffn_up_kernel<false, BR, true, kGrouped>" in ffn
     assert "n0 + wexp * a.n, m0," in ffn
     assert "const int e = kGrouped ? a.emap[m0 / kGroupTile] : slice;" in ffn
-    assert "const DgWeight wt{nullptr, a.experts * a.k, a.n, 1, (e - slice) * a.k};" in ffn
+    assert ("const DgWeight wt{kAny ? static_cast<const int8_t*>(a.w) : nullptr, a.experts * a.k, "
+            "a.n,\n                    kAny ? !a.w_own : 1, (e - slice) * a.k};") in ffn
     assert "if (r >= (size_t)rows || (emap != nullptr && emap[r / kGroupTile] < 0)) return;" in ffn
     assert "expert_ffn_run<128, true>(f, split, st_up, st_down, s)" in grouped

@@ -488,9 +488,9 @@ def test_moe_model_dispatch_and_fat_buffers(monkeypatch):
 def test_unsupported_moe_configs_raise_and_preset_is_accepted():
     """top-k other than 2 and MoE with MHA or SwiGLU are accepted; the 1.5B
     MoE preset (hidden 704, which is not a multiple of 128) is accepted in
-    int8; widths that are not multiples of 16 are refused, naming
-    ROADMAP.md, and a tree whose experts are int8 while the mixer is float
-    is refused."""
+    int8, and so are widths that are not multiples of 16 (the expert
+    kernels take any H and I, as the JAX ones do); a tree whose experts are
+    int8 while the mixer is float is refused."""
     for over in (dict(experts_per_token=1), dict(experts_per_token=3),
                  dict(attention_type="standard_mha"), dict(use_swiglu=True)):
         check_supported(ApertisConfig(**dict(MOE, **over)))
@@ -503,9 +503,10 @@ def test_unsupported_moe_configs_raise_and_preset_is_accepted():
         num_experts=8, experts_per_token=2)
     assert (preset.hidden_size, preset.intermediate_size) == (704, 2816)
     check_supported(preset, quantized=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        check_supported(ApertisConfig(**dict(MOE, hidden_size=120, num_attention_heads=8)),
-                        quantized=True)
+    for over in (dict(hidden_size=120, num_attention_heads=8), dict(intermediate_size=90),
+                 dict(hidden_size=693, num_attention_heads=11, ssm_d_state=15,
+                      intermediate_size=2790)):
+        check_supported(ApertisConfig(**dict(MOE, **over)), quantized=True)
     tree = init_params(ApertisConfig(**MOE), torch.Generator(), device="cpu")
     assert not quantized_layout(tree)
     assert quantized_layout(quantize_params(tree, min_size=0))

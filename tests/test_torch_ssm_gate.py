@@ -1,15 +1,14 @@
 """Shapes the SSM decode step (kernel #3) takes, held against the gate
-``check_supported``, and a MoE model with more experts than the step's moe
-epilogue takes, against the JAX package, on the CPU.
+``check_supported``, and a MoE model with more experts than a warp has
+lanes, against the JAX package, on the CPU.
 
 On the card, ``models/apertis.py`` calls ``ssm_decode_step`` on every SSM
-decode step: a shape the gate admits must reach the kernel, and one the
-kernel refuses must be refused by the gate, not by a ``ValueError`` inside
-``generate``. A model with more than ``MOE_EPILOGUE_MAX_EXPERTS`` experts runs
-the step without its epilogue and then its MoE FFN, the route past
-``moe_dense_threshold_tokens``; the JAX kernel's router takes any number of
-experts, so there the two packages take different routes to the same
-logits.
+decode step: a shape the gate admits must reach the kernel, not a
+``ValueError`` inside ``generate``. The gate and the kernel take every
+hidden and mixer width, as the JAX kernel does. A model with 40 experts
+decodes every step through the step's moe epilogue, whose router takes any
+number of experts, as the JAX kernel's does: both packages take the same
+route to the same logits.
 """
 
 import numpy as np
@@ -36,7 +35,7 @@ from apertis_llm_torch.models.convert import from_jax_params
 from apertis_llm_torch.models.params import check_supported
 from apertis_llm_torch.models.quantize import quantize_params
 from apertis_llm_torch.ops.kernels import ssm_step
-from apertis_llm_torch.ops.kernels.ssm_step import MOE_EPILOGUE_MAX_EXPERTS, MixerWeights
+from apertis_llm_torch.ops.kernels.ssm_step import MixerWeights
 
 torch.set_num_threads(2)
 
@@ -62,27 +61,21 @@ def _step_args(d, heads, n, r=8, k=4):
 
 
 def test_every_admitted_ssm_width_reaches_the_step_kernel():
-    """A hidden width D or a mixer width C (heads x d_state) that is not a
-    multiple of 4 is refused by ``check_supported``, with a pointer to
-    ROADMAP.md queue 2, item B1, and by the step's launch; every admitted one
-    passes the launch's width check (on CPU tensors it then stops at the
-    device check), so the model decodes through #3 on the card."""
+    """Every hidden width D and mixer width C (heads x d_state), multiples of
+    4 or not, is admitted by ``check_supported`` and passes the step
+    launch's width checks (on CPU tensors it then stops at the device
+    check), so the model decodes through #3 on the card at each of them."""
     admitted = []
     for d, heads, n in ((128, 8, 16), (120, 4, 12), (132, 6, 2), (128, 4, 6), (126, 6, 16),
                         (130, 2, 16), (126, 7, 4), (120, 3, 5), (120, 5, 6)):
         cfg = ApertisConfig(**dict(SSM, hidden_size=d, num_attention_heads=heads,
                                    ssm_d_state=n))
-        ok = d % 4 == 0 and heads * n % 4 == 0
-        if ok:
-            check_supported(cfg)
-            admitted.append((d, heads, n))
-        else:
-            with pytest.raises(NotImplementedError, match="item B1"):
-                check_supported(cfg)
-        match = "expected a CUDA tensor" if ok else "multiples of 4"
-        with pytest.raises(ValueError, match=match):
+        check_supported(cfg)
+        check_supported(cfg, quantized=True)
+        admitted.append((d, heads, n))
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
             ssm_step._launch_step("apertis_ssm_decode_step", *_step_args(d, heads, n))
-    assert admitted == [(128, 8, 16), (120, 4, 12), (132, 6, 2), (128, 4, 6)]
+    assert len(admitted) == 9
 
 
 @pytest.fixture
@@ -112,15 +105,15 @@ def _epilogue_calls(monkeypatch):
 
 
 @pytest.mark.parametrize("int8", [False, True])
-def test_many_experts_decode_without_the_epilogue_matches_jax(int8, monkeypatch, exact_gelu):
-    """A 2-layer SSM MoE model with 40 experts (> MOE_EPILOGUE_MAX_EXPERTS):
-    ragged prefill of 3 x 12 tokens and four decode steps of 3 rows against
-    the JAX model (whose step runs its moe epilogue over the 40 experts) on
-    the same weights, the fat stack attached as the engines attach it:
-    logits within 1e-2 of their largest value, the MoE tolerance of
-    tests/test_torch_moe.py (a row's int8 FFN input is quantized at another
-    place on the two routes, and a flipped level moves a logit by up to about
-    0.5 % of the largest). Every port step runs without the epilogue."""
+def test_many_experts_decode_with_the_epilogue_matches_jax(int8, monkeypatch, exact_gelu):
+    """A 2-layer SSM MoE model with 40 experts (more than a warp's 32
+    lanes): ragged prefill of 3 x 12 tokens and four decode steps of 3 rows
+    against the JAX model (whose step runs its moe epilogue over the 40
+    experts) on the same weights, the fat stack attached as the engines
+    attach it: logits within 1e-2 of their largest value, the MoE tolerance
+    of tests/test_torch_moe.py (a flipped int8 level of the FFN input moves a
+    logit by up to about 0.5 % of the largest). Every port step runs the moe
+    epilogue, as the JAX step does."""
     for key, value in {**SERVE_ENV, **(QUANT_ENV if int8 else {})}.items():
         monkeypatch.setenv(key, value)
     cfg, tree = _tree(16)
@@ -131,7 +124,7 @@ def test_many_experts_decode_without_the_epilogue_matches_jax(int8, monkeypatch,
         ttree = quantize_params(ttree, min_size=0)
     jparams = attach_fused_ssm_params(attach_fused_decode_params(jparams, mode="fat"), cfg)
     experts = jparams["layers"]["attn"]["fused"]["router_w"].shape[-1]
-    assert experts == 40 > MOE_EPILOGUE_MAX_EXPERTS
+    assert experts == 40 > 32
     model = from_jax_params(ttree, ApertisConfig(**MANY), device="cpu")
     if int8:
         model.quantize_tied_head()
@@ -162,13 +155,12 @@ def test_many_experts_decode_without_the_epilogue_matches_jax(int8, monkeypatch,
         tlogits, tcache = model.decode_step(tcache, torch.as_tensor(tok, dtype=torch.long))
         close(tlogits, jlogits, f"decode step {i}")
         tok = np.asarray(jlogits).argmax(axis=-1).astype(np.int32)
-    assert len(calls) == 4 * MANY["num_hidden_layers"] and not any(calls)
+    assert len(calls) == 4 * MANY["num_hidden_layers"] and all(calls)
 
 
 def test_many_experts_greedy_generate_matches_jax_engine(monkeypatch, exact_gelu):
     """Greedy int8 serving of the 40-expert model through both engines,
-    token-exact: the port's decode steps run without the epilogue, the
-    JAX engine's with it."""
+    token-exact: both engines' decode steps run the moe epilogue."""
     for key, value in {**SERVE_ENV, **QUANT_ENV}.items():
         monkeypatch.setenv(key, value)
     cfg, tree = _tree(18)
@@ -188,4 +180,4 @@ def test_many_experts_greedy_generate_matches_jax_engine(monkeypatch, exact_gelu
     got = engine.generate(batch, attention_mask=mask, **kw)
     assert got.shape == (3, 13)
     np.testing.assert_array_equal(got, ref)
-    assert calls and not any(calls)
+    assert calls and all(calls)
